@@ -1,0 +1,37 @@
+"""The PyTorch port imports no JAX and nothing of the JAX package, and
+importing it builds nothing."""
+
+import os
+import subprocess
+import sys
+
+_PROBE = r"""
+import ctypes, importlib, pkgutil, subprocess, sys
+import numpy, torch  # their own imports load libraries; the port's must not
+
+def refuse(*args, **kwargs):
+    raise AssertionError("importing the port must not build or load a kernel library")
+
+subprocess.run = subprocess.Popen = ctypes.CDLL = refuse
+
+import two_tower_recommender_model_tpu_torch as pkg
+
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "optax", "two_tower_recommender_model_tpu"))
+assert not leaked, leaked
+from two_tower_recommender_model_tpu_torch.ops.embedding_kernel import pooled_gather
+assert pooled_gather._built is None and pooled_gather.launches == 0
+print(len(names))
+"""
+
+
+def test_port_imports_no_jax_and_builds_nothing():
+    env = dict(os.environ)
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True, text=True,
+                         env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 15  # every module was imported

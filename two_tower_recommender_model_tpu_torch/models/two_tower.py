@@ -1,0 +1,189 @@
+"""The TwoTower model as an `nn.Module`.
+
+Port of `two_tower_recommender_model_tpu/models/two_tower.py` (the serving
+forward): per tower, the pooled embeddings of that tower's features are
+concatenated (plus optional dense side features) and projected through an
+MLP; the score is the dot product of the two tower outputs.
+
+The forward keeps the reference's two stages:
+  - `pooled_embeddings(tables, batch, cfg)` — gather + pool, through the
+    pooled-gather kernel on CUDA tensors,
+  - `towers_forward(model, pooled, dense)` — the dense towers.
+
+The train-only routes (`block_sorted_feature`, `device_sorted_features`) and
+int8 tables are not ported yet.
+
+Weights cross between the packages as numpy arrays in the JAX pytree layout
+(`params_from_numpy` / `params_to_numpy`):
+
+    {"tables": {table_name: [N, D]},
+     "query_tower": {"layer_i": {"kernel": [in, out], "bias": [out]}},
+     "candidate_tower": {...}}
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from two_tower_recommender_model_tpu_torch.config import ModelConfig, TowerConfig
+from two_tower_recommender_model_tpu_torch.data.featurizer import Batch
+from two_tower_recommender_model_tpu_torch.models.mlp import MLP, init_mlp
+from two_tower_recommender_model_tpu_torch.ops.embedding_ops import pooled_lookup
+
+_TOWERS = ("query_tower", "candidate_tower")
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """A config dtype name ("float32" | "bfloat16") as a torch dtype."""
+    if name == "int8":
+        raise NotImplementedError("int8 tables are not ported to the PyTorch package yet")
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def init_table(generator: torch.Generator, num_embeddings: int, dim: int,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """EmbeddingBag-style init U(-sqrt(1/N), sqrt(1/N)), drawn from
+    `generator` on the generator's device."""
+    bound = (1.0 / num_embeddings) ** 0.5
+    t = torch.empty((num_embeddings, dim), dtype=dtype, device=generator.device)
+    return t.uniform_(-bound, bound, generator=generator)
+
+
+def tower_in_dim(cfg: ModelConfig, tower: TowerConfig) -> int:
+    return sum(cfg.feature_table(f).embedding_dim for f in tower.features) + tower.dense_dim
+
+
+class TwoTower(nn.Module):
+    """Tables (`self.tables[name]`, `[N, D]`) and the two MLP towers.
+
+    Parameters are allocated uninitialized on `device`; `init_params` draws
+    them and `params_from_numpy` copies them in. The tables take no autograd
+    gradient (the reference updates them sparsely, outside autodiff)."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device | str | None = None):
+        super().__init__()
+        cfg.validate()
+        self.cfg = cfg
+        self.tables = nn.ParameterDict({
+            t.name: nn.Parameter(
+                torch.empty((t.num_embeddings, t.embedding_dim),
+                            dtype=torch_dtype(cfg.table_dtype_of(t.name)), device=device),
+                requires_grad=False)
+            for t in cfg.tables
+        })
+        dtype = torch_dtype(cfg.param_dtype)
+        for key in _TOWERS:
+            tower = getattr(cfg, key)
+            setattr(self, key, MLP(tower_in_dim(cfg, tower), tower.layer_sizes,
+                                   tower.activation, tower.final_activation, dtype, device))
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.tables.values())).device
+
+    def forward(self, batch: Batch) -> tuple[torch.Tensor, torch.Tensor]:
+        return forward(self, batch)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator) -> TwoTower:
+    """A randomly initialized `TwoTower` on the generator's device."""
+    model = TwoTower(cfg, device=generator.device)
+    with torch.no_grad():
+        for t in cfg.tables:
+            model.tables[t.name].copy_(init_table(
+                generator, t.num_embeddings, t.embedding_dim, model.tables[t.name].dtype))
+        dtype = torch_dtype(cfg.param_dtype)
+        for key in _TOWERS:
+            tower = getattr(cfg, key)
+            setattr(model, key, init_mlp(generator, tower_in_dim(cfg, tower), tower.layer_sizes,
+                                         dtype, tower.activation, tower.final_activation))
+    return model
+
+
+def params_from_numpy(params: dict, cfg: ModelConfig,
+                      device: torch.device | str = "cpu") -> TwoTower:
+    """Build the port's module from the JAX pytree layout as numpy arrays."""
+    model = TwoTower(cfg, device=device)
+    with torch.no_grad():
+        for name, table in model.tables.items():
+            src = np.asarray(params["tables"][name])
+            if src.shape != tuple(table.shape):
+                raise ValueError(f"table {name!r}: shape {src.shape} != {tuple(table.shape)}")
+            table.copy_(torch.from_numpy(src.astype(np.float32)))
+        for key in _TOWERS:
+            layers = getattr(model, key).layers
+            if len(params[key]) != len(layers):
+                raise ValueError(f"{key}: {len(params[key])} layers != {len(layers)}")
+            for i, layer in enumerate(layers):
+                p = params[key][f"layer_{i}"]
+                kernel = np.asarray(p["kernel"], np.float32)
+                if kernel.shape != (layer.in_features, layer.out_features):
+                    raise ValueError(f"{key}/layer_{i}: kernel shape {kernel.shape}")
+                layer.weight.copy_(torch.from_numpy(np.ascontiguousarray(kernel.T)))
+                layer.bias.copy_(torch.from_numpy(np.asarray(p["bias"], np.float32)))
+    return model
+
+
+def params_to_numpy(model: TwoTower) -> dict:
+    """The inverse of `params_from_numpy`: float32 numpy arrays in the JAX
+    pytree layout (bfloat16 tables widen exactly to float32)."""
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        return t.detach().to("cpu", torch.float32).numpy()
+
+    out: dict = {"tables": {name: host(t) for name, t in model.tables.items()}}
+    for key in _TOWERS:
+        out[key] = {
+            f"layer_{i}": {"kernel": host(layer.weight).T.copy(), "bias": host(layer.bias)}
+            for i, layer in enumerate(getattr(model, key).layers)
+        }
+    return out
+
+
+def pooled_embeddings(tables, batch: Batch, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """Per-feature pooled embeddings `{feature: [B, D_f]}`, cast to the
+    compute dtype when it differs from the table storage dtype."""
+    compute_dtype = (
+        torch_dtype(cfg.compute_dtype)
+        if cfg.compute_dtype != cfg.resolved_table_dtype
+        else None
+    )
+    out = {}
+    for fc in cfg.features:
+        feat = batch.features[fc.name]
+        out[fc.name] = pooled_lookup(
+            tables[fc.table], feat.ids, feat.mask, fc.pooling, compute_dtype
+        )
+    return out
+
+
+def _tower(mlp: MLP, tower: TowerConfig, pooled, dense, cfg: ModelConfig) -> torch.Tensor:
+    xs = [pooled[f] for f in tower.features]
+    if tower.dense_dim:
+        if dense is None:
+            raise ValueError("tower expects dense features but batch.dense is None")
+        xs.append(dense.to(xs[0].dtype))
+    x = torch.cat(xs, dim=1) if len(xs) > 1 else xs[0]
+    return mlp(x, torch_dtype(cfg.compute_dtype))
+
+
+def towers_forward(model: TwoTower, pooled: dict[str, torch.Tensor],
+                   dense: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(query_embedding, candidate_embedding)."""
+    cfg = model.cfg
+    q = _tower(model.query_tower, cfg.query_tower, pooled, dense, cfg)
+    c = _tower(model.candidate_tower, cfg.candidate_tower, pooled, dense, cfg)
+    return q, c
+
+
+def forward(model: TwoTower, batch: Batch) -> tuple[torch.Tensor, torch.Tensor]:
+    pooled = pooled_embeddings(model.tables, batch, model.cfg)
+    return towers_forward(model, pooled, batch.dense)
+
+
+def score(model: TwoTower, batch: Batch) -> torch.Tensor:
+    """Dot-product logits."""
+    q, c = forward(model, batch)
+    return torch.sum(q * c, dim=1)
