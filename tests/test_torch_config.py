@@ -71,3 +71,15 @@ def test_validate_refuses_what_jax_refuses(broken):
             cfg.validate()
     with pytest.raises(KeyError):
         port_config.two_tower_model_config(50, 40).table("nope")
+
+
+@pytest.mark.parametrize("kwargs", [
+    {},
+    dict(batch_size=262_144, sorted_feature="user_id", block_sorted_kernel="bfloat16"),
+    dict(loss="weighted_bce", loss_type_weights=(1.0, 0.5), limit_val_batches=4),
+])
+def test_train_config_matches_jax_field_for_field(kwargs):
+    got, want = port_config.TrainConfig(**kwargs), jax_config.TrainConfig(**kwargs)
+    assert [f.name for f in dataclasses.fields(got)] == [f.name for f in dataclasses.fields(want)]
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert port_config.to_json(got) == jax_config.to_json(want)

@@ -7,28 +7,39 @@ module here mirrors its counterpart's path and public names, and the tests
 imports `torch` and numpy, never `jax`, `flax` or `optax`, and nothing of the
 JAX package.
 
-What it covers today is the serving slice:
+What it covers today is the serving and the training slice:
 
-- `config`                 — the model dataclasses, equal field for field to
-                             the JAX package's, so its exports load here.
+- `config`                 — the model dataclasses and `TrainConfig`, equal
+                             field for field to the JAX package's.
 - `data.featurizer`        — host hashing (`id % N`, dropped id 0) into `[B, L]`
                              id/mask tensors on the device.
-- `ops.embedding_kernel`   — the hand-written CUDA pooled-gather kernel
+- `data.device_featurizer` — packed input: raw ids (+ the label bit) packed on
+                             the host, hashed and masked on the device.
+- `data.synthetic`         — the synthetic clickstream generator.
+- `ops.embedding_kernel`   — the CUDA pooled-gather kernel
                              (`csrc/pooled_gather.cu`), its ctypes binding and
                              its plain PyTorch version.
-- `ops.embedding_ops`      — `pooled_lookup` (sum / mean pooling) over it.
+- `ops.embedding_ops`      — `pooled_lookup`, the sorted feature's lookup, and
+                             `row_grads_from_pooled`.
+- `ops.adagrad_kernel`     — the CUDA fused row-wise Adagrad kernel
+                             (`csrc/rowwise_adagrad.cu`) and its plain version.
+- `ops.tower_bwd`          — the CUDA fused two-layer tower backward
+                             (`csrc/tower_bwd.cu`) and its plain version.
 - `ops.topk`               — exact corpus-chunked top-k, ties to the lower index.
-- `models`                 — MLP towers and the `TwoTower` module.
+- `models`                 — MLP towers (with the fused-backward route), the
+                             `TwoTower` module, losses and streaming metrics.
+- `train`                  — optimizers, the train and eval steps, the input
+                             pipeline and the train/val/test loop.
 - `evaluation.retrieval`   — full-corpus tower embedding export.
 - `serving`                — `Scorer`, `RetrievalService`, HTTP `ModelServer`.
-- `utils.checkpoint`       — `load_model` of the JAX package's portable export.
+- `utils.checkpoint`       — the portable export: `export_model`, `load_model`.
 
 Numerics: float32 matmuls run in full float32. Importing this package sets
 `torch.backends.cuda.matmul.allow_tf32 = False` and
 `torch.backends.cudnn.allow_tf32 = False`, so no product silently drops to
 TF32 (the reference tests run JAX at "highest" matmul precision).
 
-Importing builds nothing: the CUDA kernel compiles with `nvcc` at its first
+Importing builds nothing: each CUDA kernel compiles with `nvcc` at its first
 launch on a CUDA tensor (`ops/_build.py`).
 """
 

@@ -6,8 +6,10 @@ The same dataclasses, fields and defaults as the model half of
 `model_config_from_dict`), so a `model_config.json` exported by the JAX
 package loads here field for field (`tests/test_torch_config.py` holds the two
 equal). The port keeps its own copy because nothing it runs may import the JAX
-package. `TrainConfig` and `MeshConfig` come with the training and multi-GPU
-slices.
+package. `TrainConfig` is the JAX package's, field for field, so a config
+written for one trains the other; the training step refuses the fields whose
+features the port does not have yet (`train/step.py`). `MeshConfig` comes with
+the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -148,6 +150,52 @@ def two_tower_model_config(
     )
     cfg.validate()
     return cfg
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters: the same fields and defaults as the JAX
+    package's `TrainConfig` (`tests/test_torch_config.py` holds them equal).
+    What each field does in the port is said where `train/step.py` and
+    `train/loop.py` read it."""
+
+    epochs: int = 3
+    batch_size: int = 1024
+    learning_rate: float = 1e-3  # dense towers (Adam)
+    sparse_learning_rate: float = 1e-2  # embedding tables (row-wise Adagrad)
+    adagrad_eps: float = 1e-10
+    loss: str = "bce"  # "bce" | "weighted_bce" | "sampled_softmax" (not ported)
+    logq_correction: bool = True  # only for sampled_softmax
+    softmax_temperature: float = 1.0  # only for sampled_softmax
+    # weighted_bce: one weight per interaction type; the one-hot type columns
+    # live in batch.dense[:, start : start + len(weights)]
+    loss_type_weights: tuple[float, ...] | None = None
+    loss_type_onehot_start: int = 0
+    seed: int = 0
+    validation_freq: int | None = None  # mid-epoch val every N steps
+    limit_train_batches: int | None = None
+    limit_val_batches: int | None = None
+    limit_test_batches: int | None = None
+    print_sharding_plan: bool = True
+    drop_zero_ids: bool = True  # falsy ids get a 0-length bag
+    # a single-slot feature whose hashed ids arrive sorted within each batch
+    # (the featurizer sorts rows by it): its table's update skips the sort
+    sorted_feature: str | None = None
+    # "float32" only in the port ("bfloat16" aggregation buffers: ROADMAP)
+    scatter_buffer_dtype: str = "float32"
+    # "off" | "float32" | "bfloat16": the dtype of the [M, D] gradient rows
+    # the row-wise Adagrad kernel sums ("off" and "float32" pass f32)
+    block_sorted_kernel: str = "off"
+    # route the sorted feature's forward gather through the sorted-lookup
+    # call site (the pooled-gather kernel either way)
+    block_sorted_gather: bool = True
+    device_sorted_gather: bool = False  # not ported (ROADMAP)
+    softmax_kernel: str = "auto"  # only for sampled_softmax
+    sharded_exchange: str = "dense"  # multi-GPU slice
+    exchange_capacity_factor: float = 1.25  # multi-GPU slice
+    exchange_wire_dtype: str = "float32"  # multi-GPU slice
+    checkpoint_dir: str | None = None
+    checkpoint_every_epochs: int = 1
 
 
 def to_json(cfg: Any) -> str:

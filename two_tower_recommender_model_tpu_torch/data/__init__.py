@@ -4,3 +4,4 @@ from two_tower_recommender_model_tpu_torch.data.featurizer import (  # noqa: F40
     SparseFeature,
     pad_batch,
 )
+from two_tower_recommender_model_tpu_torch.data.synthetic import SyntheticClickstream  # noqa: F401

@@ -10,8 +10,11 @@ Weights live in `nn.Linear` layout, `weight` `[out, in]`; the JAX package
 keeps `kernel` `[in, out]` (`params_from_numpy` in `models/two_tower.py`
 transposes between them).
 
-The fused Pallas tower backward (`_mlp2_relu`) is not ported yet: it belongs
-to the training step.
+The fused tower backward (`_mlp2_relu` of the reference): with
+`fused_backward=True`, a two-layer ReLU tower with the final ReLU on whose
+shapes pass `ops.tower_bwd.fits` runs as `Mlp2Relu`, an autograd Function
+whose forward is the plain two-layer forward and whose backward is the
+fused tower-backward kernel (`ops/tower_bwd.py`, kernel #8).
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from two_tower_recommender_model_tpu_torch.ops.tower_bwd import fits, tower_backward
 
 _ACTIVATIONS = {
     "relu": torch.relu,
@@ -38,14 +43,25 @@ def apply_mlp(
     activation: str = "relu",
     final_activation: bool = True,
     compute_dtype: torch.dtype | None = None,
+    fused_backward: bool = False,
 ) -> torch.Tensor:
     """The tower forward. With `compute_dtype`, inputs and weights are cast to
     it, each matmul accumulates in float32, its result is cast to the compute
-    dtype, and the bias is added in that dtype (the reference's bf16 rule)."""
+    dtype, and the bias is added in that dtype (the reference's bf16 rule).
+    `fused_backward` routes a fitting two-layer ReLU tower through `Mlp2Relu`
+    (same forward, fused backward)."""
     act = _ACTIVATIONS[activation]
     n = len(layers)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
+    if fused_backward and n == 2 and activation == "relu" and final_activation:
+        l0, l1 = layers
+        if fits(x.shape[1], l0.out_features, l1.out_features, x.shape[0]):
+            cast = (lambda a: a.to(compute_dtype)) if compute_dtype is not None else (
+                lambda a: a)
+            # kernels in the reference's [in, out] layout
+            return Mlp2Relu.apply(cast(l0.weight).T, cast(l0.bias), cast(l1.weight).T,
+                                  cast(l1.bias), x)
     for i, layer in enumerate(layers):
         kernel, bias = layer.weight, layer.bias
         if compute_dtype is not None:
@@ -77,8 +93,10 @@ class MLP(nn.Module):
         self.activation = activation
         self.final_activation = final_activation
 
-    def forward(self, x: torch.Tensor, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
-        return apply_mlp(self.layers, x, self.activation, self.final_activation, compute_dtype)
+    def forward(self, x: torch.Tensor, compute_dtype: torch.dtype | None = None,
+                fused_backward: bool = False) -> torch.Tensor:
+        return apply_mlp(self.layers, x, self.activation, self.final_activation, compute_dtype,
+                         fused_backward)
 
 
 def init_mlp(
@@ -98,3 +116,36 @@ def init_mlp(
             layer.weight.uniform_(-bound, bound, generator=generator)
             layer.bias.uniform_(-bound, bound, generator=generator)
     return mlp
+
+
+# --- the fused-backward two-layer ReLU tower -----------------------------------------
+
+
+def _mlp2_fwd_impl(w1, b1, w2, b2, x):
+    """`relu(relu(x @ w1 + b1) @ w2 + b2)` under the forward's dtype rule,
+    with w1 [in, h1] and w2 [h1, h2] in the reference's layout."""
+    h1 = torch.relu(torch.matmul(x.float(), w1.float()).to(x.dtype) + b1)
+    return torch.relu(torch.matmul(h1.float(), w2.float()).to(x.dtype) + b2)
+
+
+class Mlp2Relu(torch.autograd.Function):
+    """The flagship tower with the fused backward: the forward is plain
+    PyTorch (the reference leaves it to XLA), the backward one launch of the
+    tower-backward kernel. The weight gradients come back in f32 and are cast
+    to the weights' dtype, as the reference's `_mlp2_relu_bwd` does: under
+    bf16 compute they are rounded to bf16 once, and the cast of the weights
+    to bf16 widens them back to f32 in its own backward."""
+
+    @staticmethod
+    def forward(ctx, w1, b1, w2, b2, x):
+        out = _mlp2_fwd_impl(w1, b1, w2, b2, x)
+        ctx.save_for_backward(w1, b1, w2, x, out)
+        ctx.b2_dtype = b2.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, dq):
+        w1, b1, w2, x, out = ctx.saved_tensors
+        dx, dw1, db1, dw2, db2 = tower_backward(x.contiguous(), dq.contiguous(), out, w1, b1,
+                                                w2)
+        return (dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(ctx.b2_dtype), dx)

@@ -5,13 +5,15 @@ forward): per tower, the pooled embeddings of that tower's features are
 concatenated (plus optional dense side features) and projected through an
 MLP; the score is the dot product of the two tower outputs.
 
-The forward keeps the reference's two stages:
+The forward keeps the reference's two stages, so the train step can keep
+the embedding backward sparse:
   - `pooled_embeddings(tables, batch, cfg)` — gather + pool, through the
-    pooled-gather kernel on CUDA tensors,
-  - `towers_forward(model, pooled, dense)` — the dense towers.
+    pooled-gather kernel on CUDA tensors (the host-sorted feature of a train
+    step through the sorted-lookup call site, `block_sorted_feature`),
+  - `towers_forward(model, pooled, dense)` — the dense towers, with the fused
+    tower backward where `cfg.fused_tower_backward` resolves to on.
 
-The train-only routes (`block_sorted_feature`, `device_sorted_features`) and
-int8 tables are not ported yet.
+The `device_sorted_features` gather route and int8 tables are not ported yet.
 
 Weights cross between the packages as numpy arrays in the JAX pytree layout
 (`params_from_numpy` / `params_to_numpy`):
@@ -30,7 +32,10 @@ from torch import nn
 from two_tower_recommender_model_tpu_torch.config import ModelConfig, TowerConfig
 from two_tower_recommender_model_tpu_torch.data.featurizer import Batch
 from two_tower_recommender_model_tpu_torch.models.mlp import MLP, init_mlp
-from two_tower_recommender_model_tpu_torch.ops.embedding_ops import pooled_lookup
+from two_tower_recommender_model_tpu_torch.ops.embedding_ops import (
+    block_sorted_lookup,
+    pooled_lookup,
+)
 
 _TOWERS = ("query_tower", "candidate_tower")
 
@@ -142,9 +147,19 @@ def params_to_numpy(model: TwoTower) -> dict:
     return out
 
 
-def pooled_embeddings(tables, batch: Batch, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+def pooled_embeddings(tables, batch: Batch, cfg: ModelConfig,
+                      block_sorted_feature: str | None = None,
+                      block_sorted_dtype: str = "float32") -> dict[str, torch.Tensor]:
     """Per-feature pooled embeddings `{feature: [B, D_f]}`, cast to the
-    compute dtype when it differs from the table storage dtype."""
+    compute dtype when it differs from the table storage dtype.
+
+    `block_sorted_feature` names the (single-slot, host-sorted) feature the
+    train step gathers through the sorted-lookup call site
+    (`ops.embedding_ops.block_sorted_lookup`, the reference's Pallas kernel
+    #2): one pooled-gather launch with the slot mask as the row weight,
+    emitting the compute dtype. Under `block_sorted_dtype="bfloat16"` the
+    rows are rounded to bf16, as the reference's bf16 one-hot gather rounds
+    them."""
     compute_dtype = (
         torch_dtype(cfg.compute_dtype)
         if cfg.compute_dtype != cfg.resolved_table_dtype
@@ -153,6 +168,16 @@ def pooled_embeddings(tables, batch: Batch, cfg: ModelConfig) -> dict[str, torch
     out = {}
     for fc in cfg.features:
         feat = batch.features[fc.name]
+        if fc.name == block_sorted_feature:
+            if fc.max_ids_per_sample != 1:
+                raise ValueError(f"block_sorted_feature {fc.name!r} must be single-slot")
+            rows_dtype = compute_dtype
+            if block_sorted_dtype == "bfloat16":
+                rows_dtype = torch.bfloat16
+            rows = block_sorted_lookup(tables[fc.table], feat.ids[:, 0], feat.mask[:, 0],
+                                       out_dtype=rows_dtype)
+            out[fc.name] = rows.to(compute_dtype or tables[fc.table].dtype)
+            continue
         out[fc.name] = pooled_lookup(
             tables[fc.table], feat.ids, feat.mask, fc.pooling, compute_dtype
         )
@@ -166,7 +191,13 @@ def _tower(mlp: MLP, tower: TowerConfig, pooled, dense, cfg: ModelConfig) -> tor
             raise ValueError("tower expects dense features but batch.dense is None")
         xs.append(dense.to(xs[0].dtype))
     x = torch.cat(xs, dim=1) if len(xs) > 1 else xs[0]
-    return mlp(x, torch_dtype(cfg.compute_dtype))
+    # "auto": the fused kernel's bf16 operands are the bf16-compute
+    # backward's numerics class, and it runs on the card (on the CPU it would
+    # only be its plain version)
+    fused = cfg.fused_tower_backward == "on" or (
+        cfg.fused_tower_backward == "auto" and cfg.compute_dtype == "bfloat16"
+        and x.device.type == "cuda")
+    return mlp(x, torch_dtype(cfg.compute_dtype), fused_backward=fused)
 
 
 def towers_forward(model: TwoTower, pooled: dict[str, torch.Tensor],

@@ -9,9 +9,9 @@ the checkout (listed in `.gitignore`). In an installed copy that default
 lands beside the `site-packages` directory, which may not be writable: set
 `TTRM_TORCH_BUILD_DIR` there.
 
-Nothing here runs at import: the wrappers call `load_library` at their first
-launch on a CUDA tensor. A failed build raises with nvcc's output; there is
-no fallback.
+Nothing here runs at import: a `KernelLibrary` builds its library at its
+first launch on a CUDA tensor. A failed build raises with nvcc's output;
+there is no fallback.
 """
 
 from __future__ import annotations
@@ -21,8 +21,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 DEFAULT_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -76,3 +79,42 @@ def load_library(name: str, source: str) -> BuiltLibrary:
         os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or nothing
     log = log_path.read_text() if log_path.exists() else ""
     return BuiltLibrary(ctypes.CDLL(str(lib_path)), lib_path, seconds, log)
+
+
+class KernelLibrary:
+    """One kernel source's library, built at the first `load`, and its C
+    entry point: `launch` calls it on the current stream of a device, raises
+    if it returns a CUDA error, and counts the launch in `launches` (a kernel
+    wrapper's count: it moves only where the kernel is launched)."""
+
+    def __init__(self, name: str, entry: str, argtypes: list):
+        self.name = name
+        self.launches = 0
+        self._entry = entry
+        self._argtypes = [*argtypes, ctypes.c_void_p]  # the stream comes last
+        self._built: BuiltLibrary | None = None
+        self._lock = threading.Lock()
+
+    def load(self) -> BuiltLibrary:
+        """Build (if needed) and load the library, `csrc/<name>.cu`."""
+        with self._lock:
+            if self._built is None:
+                built = load_library(self.name, f"{self.name}.cu")
+                fn = getattr(built.lib, self._entry)
+                fn.argtypes = self._argtypes
+                fn.restype = ctypes.c_int
+                built.lib.ttrm_error_string.argtypes = [ctypes.c_int]
+                built.lib.ttrm_error_string.restype = ctypes.c_char_p
+                self._built = built
+            return self._built
+
+    def launch(self, device: torch.device, *args) -> None:
+        lib = self.load().lib
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = getattr(lib, self._entry)(*args, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"{self.name} launch failed: {lib.ttrm_error_string(err).decode()} ({err})")
+        with self._lock:
+            self.launches += 1

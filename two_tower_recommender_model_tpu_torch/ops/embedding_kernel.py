@@ -18,7 +18,6 @@ lies on the CPU. It counts its kernel launches in `pooled_gather.launches`.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
@@ -61,7 +60,7 @@ def pooled_gather_reference(table: torch.Tensor, ids: torch.Tensor, w: torch.Ten
     return contrib.sum(dim=1).to(out_dtype or table.dtype)
 
 
-class PooledGather:
+class PooledGather(_build.KernelLibrary):
     """The pooled-gather wrapper: checks its inputs, allocates the output,
     and launches the CUDA kernel on the current stream (no sync).
 
@@ -70,24 +69,9 @@ class PooledGather:
     and does not count."""
 
     def __init__(self):
-        self.launches = 0
-        self._built: _build.BuiltLibrary | None = None
-        self._lock = threading.Lock()
-
-    def load(self) -> _build.BuiltLibrary:
-        """Build (if needed) and load the kernel library."""
-        with self._lock:
-            if self._built is None:
-                built = _build.load_library("pooled_gather", "pooled_gather.cu")
-                fn = built.lib.ttrm_pooled_gather
-                fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
-                               ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-                built.lib.ttrm_error_string.argtypes = [ctypes.c_int]
-                built.lib.ttrm_error_string.restype = ctypes.c_char_p
-                self._built = built
-            return self._built
+        super().__init__("pooled_gather", "ttrm_pooled_gather", [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64])
 
     def __call__(self, table: torch.Tensor, ids: torch.Tensor, w: torch.Tensor,
                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -97,22 +81,13 @@ class PooledGather:
             return pooled_gather_reference(table, ids, w, out_dtype)
         if table.device.type != "cuda":
             raise ValueError(f"pooled_gather runs on cpu or cuda tensors, got {table.device}")
-        lib = self.load().lib
         b, bag_l = ids.shape
         n, d = table.shape
         out = torch.empty((b, d), dtype=out_dtype, device=table.device)
         if out.numel() == 0:
             return out
-        with torch.cuda.device(table.device):
-            stream = torch.cuda.current_stream(table.device).cuda_stream
-            err = lib.ttrm_pooled_gather(
-                table.data_ptr(), _DTYPE_CODES[table.dtype], ids.data_ptr(), w.data_ptr(),
-                out.data_ptr(), _DTYPE_CODES[out_dtype], n, d, b, bag_l, stream)
-        if err != 0:
-            raise RuntimeError(
-                f"pooled_gather launch failed: {lib.ttrm_error_string(err).decode()} ({err})")
-        with self._lock:
-            self.launches += 1
+        self.launch(table.device, table.data_ptr(), _DTYPE_CODES[table.dtype], ids.data_ptr(),
+                    w.data_ptr(), out.data_ptr(), _DTYPE_CODES[out_dtype], n, d, b, bag_l)
         return out
 
 

@@ -1,14 +1,20 @@
-"""Pooled embedding lookup.
+"""Pooled embedding lookup and its sparse backward.
 
-Port of `two_tower_recommender_model_tpu/ops/embedding_ops.py:pooled_lookup`.
-The lookup always goes through the pooled-gather wrapper
-(`ops/embedding_kernel.py`): on a CUDA tensor that launches the CUDA kernel,
-on a CPU tensor it takes the kernel's plain version. Mean pooling pre-scales
-the slot weights by the live-slot count, as the reference's kernel route
-does, and the kernel emits `compute_dtype` directly.
+Port of `two_tower_recommender_model_tpu/ops/embedding_ops.py`. The lookup
+always goes through the pooled-gather wrapper (`ops/embedding_kernel.py`):
+on a CUDA tensor that launches the CUDA kernel, on a CPU tensor it takes the
+kernel's plain version. Mean pooling pre-scales the slot weights by the
+live-slot count, as the reference's kernel route does, and the kernel emits
+`compute_dtype` directly.
 
-`row_grads_from_pooled` (the sparse backward) is not ported yet: it belongs
-to the training step.
+`block_sorted_lookup` is the port of the sorted feature's gather call site
+(`ops/block_sorted.py:block_sorted_lookup`, Pallas kernel #2): `table[sids]`
+with zero rows for sentinel ids >= N. On Hopper the pooled-gather kernel at
+one slot computes exactly that, so #2's call site goes through it.
+
+The backward is not taken through autograd: `row_grads_from_pooled` turns
+the gradient of the pooled outputs into per-slot row gradients, which the
+row-wise Adagrad update (`train/optimizer.py`) applies to the table.
 """
 
 from __future__ import annotations
@@ -36,3 +42,40 @@ def pooled_lookup(
         raise ValueError(f"unknown pooling {pooling!r}")
     return pooled_gather(table, ids.to(torch.int32).contiguous(), w.contiguous(),
                          out_dtype=compute_dtype)
+
+
+def block_sorted_lookup(table: torch.Tensor, sids: torch.Tensor, w: torch.Tensor,
+                        out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """`w[j] * table[sids[j]]` `[M, D]` in `out_dtype` (the table's dtype when
+    None), with zero rows for sentinel ids >= N or weights 0 (the slot mask).
+    One launch of the pooled-gather kernel at one slot. The ids need not be
+    sorted here (the TPU kernel needed them sorted to stream the table in
+    blocks); the train step passes the host-sorted feature's."""
+    return pooled_gather(table, sids.to(torch.int32).reshape(-1, 1).contiguous(),
+                         w.to(torch.float32).reshape(-1, 1).contiguous(), out_dtype=out_dtype)
+
+
+def row_grads_from_pooled(
+    pooled_grad: torch.Tensor,  # [B, D]
+    mask: torch.Tensor,  # [B, L]
+    pooling: str = "sum",
+) -> torch.Tensor:  # [B, L, D]
+    """Distribute the pooled-output gradient back to each live bag slot:
+
+        d pooled[b] / d row[b, l] = mask[b, l]        (sum pooling)
+                                  = mask[b, l] / n_b  (mean pooling)
+
+    Single-slot fast path: with L == 1 the mask multiply would only zero
+    DEAD slots, and every consumer drops dead slots by the sentinel id
+    (`row_grad_flatten` maps mask == 0 to id N, and the row-wise Adagrad
+    update never reads a sentinel's gradient), so the grad is passed through
+    as a view. Dead-slot values are then garbage but unused, by contract."""
+    if mask.shape[1] == 1 and pooling in ("sum", "mean"):
+        return pooled_grad[:, None, :]
+    g = pooled_grad[:, None, :] * mask[..., None].to(pooled_grad.dtype)
+    if pooling == "mean":
+        counts = mask.sum(dim=1)[:, None, None].to(g.dtype)
+        g = g / torch.clamp(counts, min=1.0)
+    elif pooling != "sum":
+        raise ValueError(f"unknown pooling {pooling!r}")
+    return g

@@ -1,0 +1,192 @@
+"""Optimizers: row-wise Adagrad for the embedding tables, Adam for the towers.
+
+Port of `two_tower_recommender_model_tpu/train/optimizer.py`. Row-wise
+Adagrad (fbgemm's semantics): per row
+
+    acc_row += mean(g_row ** 2);  row -= lr * g_row / (sqrt(acc_row) + eps)
+
+where g_row sums the gradients of every occurrence of the row in the batch.
+
+The update the train step runs is the CUDA kernel of `ops/adagrad_kernel.py`
+(kernel #4), in place: straight on the host-sorted table's ids, and through
+`device_sorted_fused_adagrad` (a stable device sort first) on every other
+table. `sparse_rowwise_adagrad`, `dense_rowwise_adagrad` and
+`masked_rowwise_adagrad_epilogue` are plain functional versions of the same
+update (they return new tensors), kept as the kernel's oracles.
+
+`dense_optimizer` is the towers' Adam / AdamW recipe with the JAX package's
+learning-rate schedules (constant, linear, cosine, with warmup).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Iterable
+
+import torch
+
+from two_tower_recommender_model_tpu_torch.ops.adagrad_kernel import rowwise_adagrad
+
+
+def row_grad_flatten(
+    ids: torch.Tensor,  # [B, L]
+    mask: torch.Tensor,  # [B, L]
+    row_grads: torch.Tensor,  # [B, L, D]
+    num_rows: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flatten per-slot grads to ([M] ids, [M, D] grads); dead slots get the
+    sentinel id `num_rows`, which every update drops."""
+    flat_ids = torch.where(mask.reshape(-1) > 0, ids.reshape(-1), num_rows).to(torch.int32)
+    return flat_ids, row_grads.reshape(-1, row_grads.shape[-1])
+
+
+def aggregate_grads_by_row(
+    flat_ids: torch.Tensor,  # [M] (sentinel >= n for dead slots)
+    flat_grads: torch.Tensor,  # [M, D]
+    n: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sort the ids and sum duplicate occurrences. Returns (g_seg [M, D] f32,
+    rep [M] row id per segment, valid [M], safe [M] in-range index); segments
+    past the last are empty (rep is the int32 minimum there)."""
+    m = flat_ids.shape[0]
+    order = torch.argsort(flat_ids, stable=True)
+    sids = flat_ids[order]
+    sg = flat_grads[order].to(torch.float32)
+    starts = torch.ones(m, dtype=torch.bool, device=flat_ids.device)
+    starts[1:] = sids[1:] != sids[:-1]
+    seg = torch.cumsum(starts, 0) - 1
+    g_seg = torch.zeros_like(sg).index_add_(0, seg, sg)
+    rep = torch.full((m,), torch.iinfo(torch.int32).min, dtype=torch.int32,
+                     device=flat_ids.device).scatter_reduce_(0, seg, sids, "amax")
+    valid = (rep >= 0) & (rep < n)
+    return g_seg, rep, valid, torch.where(valid, rep, 0)
+
+
+def sparse_rowwise_adagrad(table: torch.Tensor, acc: torch.Tensor, flat_ids: torch.Tensor,
+                           flat_grads: torch.Tensor, lr: float,
+                           eps: float = 1e-10) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sorted-segment row-wise Adagrad: gather, update and scatter only the
+    touched rows. Returns new tensors."""
+    n = table.shape[0]
+    g_seg, rep, valid, safe = aggregate_grads_by_row(flat_ids, flat_grads, n)
+    rows = table[safe].to(torch.float32)
+    new_acc_rows = acc[safe].to(torch.float32) + torch.mean(g_seg * g_seg, dim=1)
+    denom = torch.sqrt(new_acc_rows) + eps
+    new_rows = rows - lr * g_seg / denom[:, None]
+    new_table, new_acc = table.clone(), acc.clone()
+    new_table[rep[valid].long()] = new_rows[valid].to(table.dtype)
+    new_acc[rep[valid].long()] = new_acc_rows[valid].to(acc.dtype)
+    return new_table, new_acc
+
+
+def masked_rowwise_adagrad_epilogue(table: torch.Tensor, acc: torch.Tensor, g: torch.Tensor,
+                                    touched: torch.Tensor, lr: float,
+                                    eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise Adagrad over a dense aggregated gradient `g` [N, D], applied
+    only to `touched` rows. Returns new tensors."""
+    g2 = torch.mean(g * g, dim=1)
+    acc32 = acc.to(torch.float32)
+    new_acc = torch.where(touched, acc32 + g2, acc32)
+    denom = torch.sqrt(new_acc) + eps
+    new_table = torch.where(touched[:, None], table.to(torch.float32) - lr * g / denom[:, None],
+                            table)
+    return new_table.to(table.dtype), new_acc.to(acc.dtype)
+
+
+def dense_rowwise_adagrad(table: torch.Tensor, acc: torch.Tensor, flat_ids: torch.Tensor,
+                          flat_grads: torch.Tensor, lr: float,
+                          eps: float = 1e-10) -> tuple[torch.Tensor, torch.Tensor]:
+    """Transient-dense row-wise Adagrad: sum the grads into a table-shaped f32
+    buffer, then the masked epilogue. Returns new tensors."""
+    n, d = table.shape
+    live = (flat_ids >= 0) & (flat_ids < n)
+    idx = flat_ids[live].long()
+    g = torch.zeros((n, d), dtype=torch.float32, device=table.device).index_add_(
+        0, idx, flat_grads[live].to(torch.float32))
+    touched = torch.zeros(n, dtype=torch.bool, device=table.device)
+    touched[idx] = True
+    return masked_rowwise_adagrad_epilogue(table, acc, g, touched, lr, eps)
+
+
+def device_sorted_fused_adagrad(table: torch.Tensor, acc: torch.Tensor, flat_ids: torch.Tensor,
+                                flat_grads: torch.Tensor, lr: float, eps: float = 1e-10, *,
+                                matmul_dtype: str = "float32"):
+    """The front-end for ids in any order: a stable device sort of the ids,
+    then kernel #4 on the sorted ids with the sort's permutation, so the
+    kernel reads `grads[perm[j]]` and no permuted [M, D] copy is made. Under
+    `matmul_dtype="bfloat16"` the gradients are rounded to bf16 first, as the
+    reference casts them before its permute. In place; returns (table, acc)."""
+    sids, perm = torch.sort(flat_ids, stable=True)
+    grads = flat_grads.to(torch.bfloat16 if matmul_dtype == "bfloat16" else torch.float32)
+    return rowwise_adagrad(table, acc, sids.contiguous(), grads.contiguous(), lr, eps,
+                           perm=perm.to(torch.int32))
+
+
+# --- the towers' optimizer -----------------------------------------------------------
+
+
+def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
+    """optax.linear_schedule: init -> end over `steps`, then held."""
+    return lambda t: (init - end) * (1.0 - min(max(t, 0), steps) / steps) + end
+
+
+def _cosine(init: float, steps: int, alpha: float) -> Callable[[int], float]:
+    """optax.cosine_decay_schedule: half a cosine from init to init * alpha."""
+    def lr(t: int) -> float:
+        cosine = 0.5 * (1.0 + math.cos(math.pi * min(t, steps) / steps))
+        return init * ((1.0 - alpha) * cosine + alpha)
+    return lr
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseOptimizer:
+    """A recipe for the towers' optimizer, not yet bound to parameters:
+    `build(params)` makes the torch optimizer, `step(opt, t)` sets the
+    learning rate of update t (counted from 0) and applies the update."""
+
+    schedule: Callable[[int], float]
+    weight_decay: float = 0.0
+
+    def build(self, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
+        # optax's defaults: b1 0.9, b2 0.999, eps 1e-8; AdamW decays the
+        # weights decoupled from the Adam direction, as optax.adamw does
+        if self.weight_decay:
+            return torch.optim.AdamW(params, lr=self.schedule(0), betas=(0.9, 0.999), eps=1e-8,
+                                     weight_decay=self.weight_decay)
+        return torch.optim.Adam(params, lr=self.schedule(0), betas=(0.9, 0.999), eps=1e-8)
+
+    def step(self, opt: torch.optim.Optimizer, t: int) -> None:
+        lr = self.schedule(t)
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
+
+
+def dense_optimizer(learning_rate: float, schedule: str = "constant",
+                    total_steps: int | None = None, warmup_steps: int = 0,
+                    end_factor: float = 0.0, weight_decay: float = 0.0) -> DenseOptimizer:
+    """Adam for the dense towers, or AdamW with `weight_decay`, under a
+    learning-rate schedule:
+
+    - "constant": plain Adam;
+    - "linear": linear decay from lr to lr * end_factor over total_steps;
+    - "cosine": cosine decay to lr * end_factor over total_steps;
+
+    each after `warmup_steps` of a linear ramp from 0."""
+    if schedule == "constant":
+        lr = lambda t: learning_rate  # noqa: E731
+    elif schedule == "linear":
+        if total_steps is None:
+            raise ValueError("linear schedule requires total_steps")
+        lr = _linear(learning_rate, learning_rate * end_factor, total_steps - warmup_steps)
+    elif schedule == "cosine":
+        if total_steps is None:
+            raise ValueError("cosine schedule requires total_steps")
+        lr = _cosine(learning_rate, total_steps - warmup_steps, end_factor)
+    else:
+        raise ValueError(f"unknown schedule {schedule!r}")
+    if warmup_steps:
+        warm, main = _linear(0.0, learning_rate, warmup_steps), lr
+        lr = lambda t: warm(t) if t < warmup_steps else main(t - warmup_steps)  # noqa: E731
+    return DenseOptimizer(lr, weight_decay)

@@ -1,0 +1,127 @@
+"""Host -> device input pipeline: featurize and transfer ahead of compute.
+
+Port of `two_tower_recommender_model_tpu/train/pipeline.py`. A background
+thread featurizes each batch of columns on the host and copies its arrays
+into pinned (page-locked) buffers; the consumer's thread issues each batch's
+host-to-device copy without blocking, on a side stream, `prefetch` batches
+ahead of the step that uses it, and records an event after it. When a batch
+is handed out, the consumer's current stream waits on that event (on the
+device: the host does not block), so the copy of batch k+1 overlaps the step
+on batch k.
+
+A batch is any nest of dataclasses (`Batch`, `SparseFeature`,
+`PackedBatch`) and dicts whose leaves are numpy arrays or tensors.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import queue
+import threading
+from typing import Any, Callable, Iterable, Iterator
+
+import numpy as np
+import torch
+
+
+def map_leaves(obj: Any, fn: Callable[[torch.Tensor], torch.Tensor]) -> Any:
+    """Apply `fn` to every array leaf of a batch (numpy leaves become
+    tensors first); other leaves are kept."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, np.ndarray):
+        return fn(torch.from_numpy(np.ascontiguousarray(obj)))
+    if isinstance(obj, dict):
+        return {k: map_leaves(v, fn) for k, v in obj.items()}
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{f.name: map_leaves(getattr(obj, f.name), fn)
+                                           for f in dataclasses.fields(obj)})
+    return obj
+
+
+def _pin(t: torch.Tensor) -> torch.Tensor:
+    return t if t.device.type != "cpu" or t.is_pinned() else t.pin_memory()
+
+
+def _background(columns_iter: Iterable[dict], make: Callable, depth: int) -> Iterator:
+    """`make(cols)` for each item, run ahead by a worker thread; its errors
+    are raised in the consumer, and the thread stops when the consumer does."""
+    q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
+    stop = object()
+    abandoned = threading.Event()
+    err: list[BaseException] = []
+
+    def put(item) -> bool:
+        while not abandoned.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for cols in columns_iter:
+                if not put(make(cols)):
+                    return
+        except BaseException as e:  # noqa: BLE001 - re-raised in the consumer
+            err.append(e)
+        finally:
+            put(stop)
+
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is stop:
+                if err:
+                    raise err[0]
+                return
+            yield item
+    finally:
+        abandoned.set()
+
+
+def prefetch_to_device(columns_iter: Iterable[dict], featurize: Callable[[dict], Any],
+                       device: torch.device | str = "cpu",
+                       prefetch: int = 2) -> Iterator[Any]:
+    """Yield batches on `device`, keeping `prefetch` host-to-device copies in
+    flight. `featurize` builds a host batch from a dict of columns, in a
+    background thread."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+
+    def host_batch(cols):
+        return map_leaves(featurize(cols), _pin if cuda else (lambda t: t))
+
+    source = _background(columns_iter, host_batch, prefetch)
+    if not cuda:
+        for hb in source:
+            yield map_leaves(hb, lambda t: t.to(device))
+        return
+    side = torch.cuda.Stream(device)
+    buf: collections.deque = collections.deque()
+
+    def hand_out():
+        batch, ready = buf.popleft()
+        consumer = torch.cuda.current_stream(device)
+        consumer.wait_event(ready)
+
+        def adopt(t: torch.Tensor) -> torch.Tensor:
+            t.record_stream(consumer)  # allocated on the side stream, used on this one
+            return t
+        return map_leaves(batch, adopt)
+
+    for hb in source:
+        with torch.cuda.stream(side):
+            moved = map_leaves(hb, lambda t: t.to(device, non_blocking=True))
+            ready = torch.cuda.Event()
+            ready.record(side)
+        buf.append((moved, ready))
+        if len(buf) > prefetch:
+            yield hand_out()
+    while buf:
+        yield hand_out()

@@ -1,0 +1,284 @@
+"""Train and eval steps: the two-stage backward with a fused sparse update.
+
+Port of `two_tower_recommender_model_tpu/train/step.py`. One step:
+
+  stage A  pooled = gather + pool(tables, ids)              (no autograd)
+  stage B  loss, logits; autograd w.r.t. the towers and the pooled rows
+           (each flagship tower's backward is the fused kernel #8)
+  stage C  d_pooled -> per-slot row grads -> row-wise Adagrad (kernel #4)
+           d_towers -> Adam
+
+The table gradient never exists as a dense [N, D] tensor, and stage C
+touches only the rows the batch names.
+
+PyTorch runs eagerly, so where the reference returns a new state the port
+updates the state in place: the tables and accumulators by the kernel, the
+towers by the optimizer. `step(state, batch)` returns the same `TrainState`.
+
+Not ported yet (each raises `NotImplementedError` naming its ROADMAP item):
+int8 and bf16 table storage (M10), `scatter_buffer_dtype="bfloat16"`, the
+sampled softmax with its logQ item counts (M9), `device_sorted_gather`, and
+`make_multi_step` (a CUDA graph of K steps).
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Callable
+
+import torch
+
+from two_tower_recommender_model_tpu_torch.config import ModelConfig, TrainConfig
+from two_tower_recommender_model_tpu_torch.data.featurizer import Batch
+from two_tower_recommender_model_tpu_torch.models import losses as losses_lib
+from two_tower_recommender_model_tpu_torch.models.metrics import (
+    AUROCState,
+    MeanState,
+    auroc_init,
+    auroc_update,
+    mean_init,
+    mean_update,
+)
+from two_tower_recommender_model_tpu_torch.models.two_tower import (
+    TwoTower,
+    forward,
+    init_params,
+    pooled_embeddings,
+    towers_forward,
+)
+from two_tower_recommender_model_tpu_torch.ops.adagrad_kernel import rowwise_adagrad
+from two_tower_recommender_model_tpu_torch.ops.embedding_ops import row_grads_from_pooled
+from two_tower_recommender_model_tpu_torch.train import optimizer as opt_lib
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (tables and towers), the tables' row accumulators, the
+    towers' optimizer and the step count. Updated in place by a train step."""
+
+    step: int
+    model: TwoTower
+    adagrad_acc: dict[str, torch.Tensor]  # per-table [N] row accumulators
+    dense_opt_state: torch.optim.Optimizer  # over the towers' parameters
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+    def copy(self, device: torch.device | str | None = None) -> TrainState:
+        """A deep copy with its own optimizer state, on `device` (default:
+        the same device)."""
+        device = self.device if device is None else torch.device(device)
+        model = copy.deepcopy(self.model).to(device)
+        opt = type(self.dense_opt_state)(tower_parameters(model), **self.dense_opt_state.defaults)
+        opt.load_state_dict(self.dense_opt_state.state_dict())  # moves the state to `device`
+        return TrainState(self.step, model,
+                          {k: v.to(device, copy=True) for k, v in self.adagrad_acc.items()}, opt)
+
+
+def tower_parameters(model: TwoTower) -> list[torch.nn.Parameter]:
+    return [*model.query_tower.parameters(), *model.candidate_tower.parameters()]
+
+
+def _check_ported(model_cfg: ModelConfig) -> None:
+    for t in model_cfg.tables:
+        if model_cfg.table_dtype_of(t.name) != "float32":
+            raise NotImplementedError(
+                f"table {t.name!r}: {model_cfg.table_dtype_of(t.name)} table storage is not "
+                "ported to the PyTorch package yet (ROADMAP M10); use float32 tables")
+
+
+def create_train_state(generator: torch.Generator, model_cfg: ModelConfig,
+                       train_cfg: TrainConfig) -> tuple[TrainState, opt_lib.DenseOptimizer]:
+    """A fresh state on the generator's device: random weights drawn from
+    `generator`, zero accumulators, and Adam over the towers. Returns the
+    state and the towers' optimizer recipe, which `make_train_step` takes."""
+    _check_ported(model_cfg)
+    model = init_params(model_cfg, generator)
+    dense_opt = opt_lib.dense_optimizer(train_cfg.learning_rate)
+    state = TrainState(
+        step=0,
+        model=model,
+        adagrad_acc={name: torch.zeros(t.shape[0], dtype=torch.float32, device=t.device)
+                     for name, t in model.tables.items()},
+        dense_opt_state=dense_opt.build(tower_parameters(model)),
+    )
+    return state, dense_opt
+
+
+def _table_flat_grads(model_cfg: ModelConfig, batch: Batch,
+                      pooled_grads: dict[str, torch.Tensor]):
+    """([M] ids, [M, D] grads) per table, concatenating every feature that
+    reads it."""
+    per_table: dict[str, list] = {t.name: [] for t in model_cfg.tables}
+    for fc in model_cfg.features:
+        table = model_cfg.table(fc.table)
+        feat = batch.features[fc.name]
+        rg = row_grads_from_pooled(pooled_grads[fc.name], feat.mask, fc.pooling)
+        per_table[fc.table].append(
+            opt_lib.row_grad_flatten(feat.ids, feat.mask, rg, table.num_embeddings))
+    out = {}
+    for name, parts in per_table.items():
+        if parts:
+            out[name] = (torch.cat([p[0] for p in parts]) if len(parts) > 1 else parts[0][0],
+                         torch.cat([p[1] for p in parts]) if len(parts) > 1 else parts[0][1])
+    return out
+
+
+def validate_sorted_feature(model_cfg: ModelConfig, train_cfg: TrainConfig) -> str | None:
+    """Resolve `TrainConfig.sorted_feature` to its table's name, enforcing the
+    layout under which a host-sorted batch gives that table non-decreasing
+    flat ids: the feature is single-slot and the table's only reader."""
+    feat = train_cfg.sorted_feature
+    if feat is None:
+        return None
+    fc = next((f for f in model_cfg.features if f.name == feat), None)
+    if fc is None:
+        raise ValueError(f"sorted_feature {feat!r}: no such feature")
+    if fc.max_ids_per_sample != 1:
+        raise ValueError(f"sorted_feature {feat!r} must be single-slot "
+                         f"(has {fc.max_ids_per_sample})")
+    readers = [f.name for f in model_cfg.features if f.table == fc.table]
+    if readers != [feat]:
+        raise ValueError(f"sorted_feature {feat!r}: table {fc.table!r} is also "
+                         f"read by {readers} — flat ids would interleave")
+    return fc.table
+
+
+def auto_sorted_feature(model_cfg: ModelConfig) -> str | None:
+    """The single-slot, sole-reader feature with the largest table (sorting
+    saves the most on the largest update), or None."""
+    best, best_rows = None, 0
+    for fc in model_cfg.features:
+        if fc.max_ids_per_sample != 1:
+            continue
+        if [f.name for f in model_cfg.features if f.table == fc.table] != [fc.name]:
+            continue
+        rows = model_cfg.table(fc.table).num_embeddings
+        if rows > best_rows:
+            best, best_rows = fc.name, rows
+    return best
+
+
+def pick_table_update_fn(train_cfg: TrainConfig, sorted_table: str | None,
+                         tname: str) -> Callable:
+    """The per-table update `(table, acc, flat_ids, flat_grads, lr, eps)`,
+    in place. One path: kernel #4 for every table. The host-sorted table's
+    ids go straight in (they arrive sorted; an async device assert holds
+    them to it, since unsorted ids would race in the kernel); every other
+    table goes through the device-sort front-end. `block_sorted_kernel`
+    only sets the gradients' dtype: "bfloat16" rounds them to bf16, "off"
+    and "float32" pass f32."""
+    matmul_dtype = "bfloat16" if train_cfg.block_sorted_kernel == "bfloat16" else "float32"
+    if tname != sorted_table:
+        def upd(table, acc, fids, fgrads, lr, eps):
+            return opt_lib.device_sorted_fused_adagrad(table, acc, fids, fgrads, lr, eps,
+                                                       matmul_dtype=matmul_dtype)
+        return upd
+    grad_dtype = torch.bfloat16 if matmul_dtype == "bfloat16" else torch.float32
+
+    def upd_sorted(table, acc, fids, fgrads, lr, eps):
+        torch._assert_async(torch.all(fids[1:] >= fids[:-1]),
+                            f"sorted_feature table {tname!r}: flat ids are not sorted")
+        return rowwise_adagrad(table, acc, fids.contiguous(),
+                               fgrads.to(grad_dtype).contiguous(), lr, eps)
+    return upd_sorted
+
+
+def _check_train_config(model_cfg: ModelConfig, train_cfg: TrainConfig) -> None:
+    if train_cfg.block_sorted_kernel not in ("off", "float32", "bfloat16"):
+        raise ValueError(f"block_sorted_kernel must be off|float32|bfloat16, got "
+                         f"{train_cfg.block_sorted_kernel!r}")
+    if train_cfg.scatter_buffer_dtype != "float32":
+        raise NotImplementedError(
+            "scatter_buffer_dtype='bfloat16' is not ported to the PyTorch package yet "
+            "(ROADMAP, after the training slice): the row-wise Adagrad kernel sums in f32")
+    if train_cfg.device_sorted_gather:
+        raise NotImplementedError(
+            "device_sorted_gather is not ported to the PyTorch package yet (ROADMAP)")
+    _check_ported(model_cfg)
+
+
+def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
+                    dense_opt: opt_lib.DenseOptimizer):
+    """The single-device train step `step(state, batch) -> (state, out)`,
+    out = {"loss", "logits"} as device tensors (read them when needed: a
+    `.item()` waits for the card)."""
+    _check_train_config(model_cfg, train_cfg)
+    loss_fn = losses_lib.loss_fn_from_config(train_cfg)
+    sorted_table = validate_sorted_feature(model_cfg, train_cfg)
+    bs_kernel = train_cfg.block_sorted_kernel
+    block_feature = (train_cfg.sorted_feature
+                     if bs_kernel != "off" and train_cfg.block_sorted_gather else None)
+    updates = {t.name: pick_table_update_fn(train_cfg, sorted_table, t.name)
+               for t in model_cfg.tables}
+
+    def step(state: TrainState, batch: Batch):
+        model = state.model
+        with torch.no_grad():  # stage A
+            pooled = pooled_embeddings(
+                model.tables, batch, model_cfg, block_sorted_feature=block_feature,
+                block_sorted_dtype=bs_kernel if bs_kernel != "off" else "float32")
+        pooled = {k: v.detach().requires_grad_(True) for k, v in pooled.items()}
+
+        state.dense_opt_state.zero_grad(set_to_none=True)  # stage B
+        q, c = towers_forward(model, pooled, batch.dense)
+        loss, logits = loss_fn(q, c, batch)
+        loss.backward()
+
+        dense_opt.step(state.dense_opt_state, state.step)  # stage C
+        d_pooled = {k: v.grad if v.grad is not None else torch.zeros_like(v)
+                    for k, v in pooled.items()}
+        with torch.no_grad():
+            for tname, (fids, fgrads) in _table_flat_grads(model_cfg, batch, d_pooled).items():
+                updates[tname](model.tables[tname], state.adagrad_acc[tname], fids, fgrads,
+                               train_cfg.sparse_learning_rate, train_cfg.adagrad_eps)
+        state.step += 1
+        return state, {"loss": loss.detach(), "logits": logits.detach()}
+
+    return step
+
+
+def make_multi_step(step_fn: Callable):
+    """K steps in one dispatch. Not ported yet: on the card this is a CUDA
+    graph of the step (ROADMAP)."""
+    raise NotImplementedError(
+        "make_multi_step is not ported to the PyTorch package yet (ROADMAP: a CUDA graph "
+        "of K train steps)")
+
+
+@dataclasses.dataclass
+class EvalState:
+    """Running eval metrics: the binned AUROC and the mean BCE loss."""
+
+    auroc: AUROCState
+    loss: MeanState
+
+
+def eval_state_init(bins: int = 8192, device: torch.device | str = "cpu") -> EvalState:
+    return EvalState(auroc=auroc_init(bins, device), loss=mean_init(device))
+
+
+def make_eval_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
+    """`step(state, eval_state, batch) -> eval_state`: BCE and AUROC, whatever
+    the training loss (`model_cfg` and `train_cfg` are the reference's
+    signature; the model's own config drives the forward)."""
+    del model_cfg, train_cfg
+    loss_fn = losses_lib.make_loss_fn("bce")
+
+    @torch.no_grad()
+    def step(state: TrainState, eval_state: EvalState, batch: Batch) -> EvalState:
+        q, c = forward(state.model, batch)
+        loss, logits = loss_fn(q, c, batch)
+        w = batch.weights
+        if w is None:
+            n = float(batch.labels.shape[0])
+        else:
+            # zero-weight rows are padding: average the loss over real rows
+            n = w.sum()
+            loss = losses_lib.bce_with_logits(logits, batch.labels, w)
+        return EvalState(auroc=auroc_update(eval_state.auroc, logits, batch.labels, w),
+                         loss=mean_update(eval_state.loss, loss, n))
+
+    return step

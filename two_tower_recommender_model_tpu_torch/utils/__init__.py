@@ -1,1 +1,4 @@
-from two_tower_recommender_model_tpu_torch.utils.checkpoint import load_model  # noqa: F401
+from two_tower_recommender_model_tpu_torch.utils.checkpoint import (  # noqa: F401
+    export_model,
+    load_model,
+)
