@@ -1,6 +1,7 @@
 """On-card smoke run of the PyTorch port: build the CUDA kernels, hold each
 against its plain PyTorch version, serve the full-width flagship model over
-HTTP, train it, and train the small learnable model to a target AUROC.
+HTTP, train it with BCE and with the in-batch sampled softmax, and train the
+small learnable models to a target AUROC and a target recall@10.
 
     python3 chip_smoke.py [--profile]
 
@@ -8,7 +9,8 @@ Needs one CUDA card, `nvcc` and this repository's sources; exits non-zero
 without a card. Phases (any failure raises and exits non-zero):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the three kernels of `csrc/` with nvcc, all at once, timed;
+2. build the kernels of `csrc/` with nvcc, one nvcc per source, all at once,
+   timed;
 3. `[kernel]` each kernel against its plain version on the card at the main
    paths' shapes, with median CUDA-event times of both:
    pooled gather (flagship user table, 8,192 bags): exact at one slot (f32
@@ -18,6 +20,15 @@ without a card. Phases (any failure raises and exits non-zero):
    sort): untouched rows bitwise, the rest within rtol 1e-5;
    tower backward (#8, B = 262,144, [128 -> 128 -> 64], bf16): dx, dW1 and
    dW2 within one bf16 ulp of their largest magnitude, db within 1e-5 x max;
+   the fused sampled softmax (#9 forward, #10 dq, #11 dc; D = 64, bf16-valued
+   inputs, repeating item ids and logQ): 8,192 x 8,192, the same with
+   `n_valid` = 8,000, 65,536 x 65,536, and the stripe of 16,384 rows at row
+   offset 32,768 against 65,536 columns, which must also equal those rows of
+   the square case; lse within rtol 2e-5 / atol 1e-5, dq and dc within 1e-3 x
+   their largest magnitude with cosine > 0.99999;
+   beside each kernel's time: its plain version's, the card's bound for the
+   same work, and where one PyTorch call computes the same function
+   (`embedding_bag` for the pooled gather) that call's time;
 4. `[serve]` the flagship (206,209 users x 49,688 items, dim 128, towers
    (128, 64), f32, random weights from a seeded generator) served through
    `Scorer`, `RetrievalService` and `ModelServer`: /invocations at 1, 100 and
@@ -39,8 +50,23 @@ without a card. Phases (any failure raises and exits non-zero):
    learnable synthetic interactions, 2 epochs x 120 batches x 1,024 through
    `train_val_test`; the validation AUROC must start within 0.45-0.55 and
    end at 0.70 or above;
-7. with --profile, torch.profiler traces of the serving calls and of the
-   train step: device busy time, idle share and the largest device items.
+7. `[train-softmax]` the flagship in f32 compute at batch 8,192 with
+   `loss="sampled_softmax"`, logQ correction and `softmax_kernel="on"`: two
+   warm-up and ten counted steps, each of which must launch kernels #9, #10
+   and #11 once, the pooled gather and row-wise Adagrad twice and the tower
+   backward never (f32 compute is off its gate). After the count: the loss
+   is finite, `item_counts` sums to 12 x 8,192, one step from a copied state
+   agrees with the host CPU. Then three steps at batch 65,536 with the
+   kernels and three with `softmax_kernel="off"` (the chunked plain route),
+   and two bf16-compute steps at 8,192, where the tower backward launches
+   twice a step beside the softmax kernels;
+8. `[learn-softmax]` a (32, 16) linear-head model on 120 x 60 learnable
+   synthetic interactions, sampled softmax at batch 512 through the kernels,
+   5 epochs x 50 batches through `train_val_test` with the per-epoch
+   retrieval eval and `select_best="val_recall_at_10"`: recall@10 against the
+   ground-truth top-10 must end above 0.35;
+9. with --profile, torch.profiler traces of the serving calls and of the two
+   train steps: device busy time, idle share and the largest device items.
 
 The line before the last is a JSON object describing each kernel; the last
 line is `{"ok": true, "device": {...}}`.
@@ -70,7 +96,10 @@ from two_tower_recommender_model_tpu_torch.data.device_featurizer import (
 )
 from two_tower_recommender_model_tpu_torch.data.featurizer import Featurizer
 from two_tower_recommender_model_tpu_torch.data.synthetic import SyntheticClickstream
-from two_tower_recommender_model_tpu_torch.evaluation.retrieval import export_feature_embeddings
+from two_tower_recommender_model_tpu_torch.evaluation.retrieval import (
+    export_feature_embeddings,
+    make_retrieval_eval_fn,
+)
 from two_tower_recommender_model_tpu_torch.models.metrics import auroc_compute, mean_compute
 from two_tower_recommender_model_tpu_torch.models.two_tower import init_params, towers_forward
 from two_tower_recommender_model_tpu_torch.ops.adagrad_kernel import (
@@ -81,6 +110,7 @@ from two_tower_recommender_model_tpu_torch.ops.embedding_kernel import (
     pooled_gather,
     pooled_gather_reference,
 )
+from two_tower_recommender_model_tpu_torch.ops import softmax_kernel as sk
 from two_tower_recommender_model_tpu_torch.ops.tower_bwd import (
     tower_backward,
     tower_backward_reference,
@@ -99,6 +129,9 @@ REQ_REPS = 5  # HTTP requests per payload
 TRACE_TRIES = 3  # profiler traces per call before an incomplete one fails the run
 TRAIN_BATCH = 262_144  # the flagship training batch
 TRAIN_STEPS, WARMUP_STEPS, POOL = 10, 2, 4  # counted steps, warm-up steps, distinct batches
+SOFTMAX_BATCH, SOFTMAX_BIG = 8192, 65_536  # the sampled softmax's production and large batch
+# NVIDIA H100 SXM peaks (data sheet, dense): the bounds are computed against these
+PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 KERNELS = {  # wrapper name -> (wrapper, source, the TPU kernel it replaces)
     "pooled_gather": (pooled_gather, "two_tower_recommender_model_tpu_torch/csrc/pooled_gather.cu",
                       "two_tower_recommender_model_tpu/ops/pallas_embedding.py:40"),
@@ -107,6 +140,15 @@ KERNELS = {  # wrapper name -> (wrapper, source, the TPU kernel it replaces)
                         "two_tower_recommender_model_tpu/ops/block_sorted.py:212"),
     "tower_bwd": (tower_backward, "two_tower_recommender_model_tpu_torch/csrc/tower_bwd.cu",
                   "two_tower_recommender_model_tpu/ops/tower_bwd.py:59"),
+    "softmax_lse_fwd": (sk.softmax_lse_fwd,
+                        "two_tower_recommender_model_tpu_torch/csrc/softmax_lse.cu",
+                        "two_tower_recommender_model_tpu/ops/softmax_kernel.py:84"),
+    "softmax_lse_dq": (sk.softmax_lse_dq,
+                       "two_tower_recommender_model_tpu_torch/csrc/softmax_lse.cu",
+                       "two_tower_recommender_model_tpu/ops/softmax_kernel.py:111"),
+    "softmax_lse_dc": (sk.softmax_lse_dc,
+                       "two_tower_recommender_model_tpu_torch/csrc/softmax_lse.cu",
+                       "two_tower_recommender_model_tpu/ops/softmax_kernel.py:138"),
 }
 
 
@@ -114,15 +156,24 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def median_ms(fn, flush: torch.Tensor) -> float:
-    """Median device ms over REPS launches of `fn`, each after an L2 flush (a
+def bound(n_bytes: float, n_ops: float, peak_ops: float) -> dict:
+    """The least time the card could take for a call: the larger of its bytes
+    (each input read once, each output written once) over the memory rate and
+    its operations over the peak rate for their type."""
+    by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / peak_ops * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def median_ms(fn, flush: torch.Tensor, reps: int = REPS) -> float:
+    """Median device ms over `reps` launches of `fn`, each after an L2 flush (a
     serving lookup meets a cold cache: the user table is twice the 50 MB L2).
     The flush is a read, so no dirty lines are written back during the timed
     launch. A GPU-side sleep queued first keeps the card busy while the host
     enqueues the events and `fn`, so the events bracket the device work alone."""
     fn()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         flush.sum()
         torch.cuda.synchronize()
         torch.cuda._sleep(2_000_000)  # ~1 ms of spinning at H100 clocks
@@ -196,8 +247,25 @@ def phase_kernel(dev: torch.device) -> dict:
             f"{table.shape[1]}] {'bitwise equal' if exact else 'within 1e-5 x max|plain|'}, "
             f"max_abs_err={err!r}, kernel_ms={ms!r}, plain_ms={plain_ms!r}")
         results.append((name, err, ms, plain_ms))
+    # the main case (one slot, the serving lookup): its bound, and the one PyTorch call
+    # that computes the same function, timed here and used nowhere in the port
+    ids64, offsets = ids1[:, 0].long(), torch.arange(BAGS, device=dev)
+    w_flat = w1[:, 0].contiguous()
+
+    def library():
+        return torch.nn.functional.embedding_bag(ids64, user_table, offsets, mode="sum",
+                                                 per_sample_weights=w_flat)
+
+    torch.testing.assert_close(library(), pooled_gather_reference(user_table, ids1, w1,
+                                                                  torch.float32))
+    library_ms = median_ms(library, flush)
+    live_rows = int((w1 != 0).sum())
+    b = bound(live_rows * DIM * 4 + BAGS * DIM * 4 + ids1.numel() * 4 + w1.numel() * 4,
+              2 * live_rows * DIM, PEAK_F32)
+    log(f"[kernel] pooled_gather {cases[0][0]}: bound_ms={b['bound_ms']!r} by {b['bound_by']} "
+        f"({live_rows} live rows), library_ms={library_ms!r} (F.embedding_bag)")
     return {"max_abs_err": max(r[1] for r in results), "ms": results[0][2],
-            "plain_ms": results[0][3]}
+            "plain_ms": results[0][3], **b, "library_ms": library_ms}
 
 
 LR, EPS = 0.05, 1e-10  # row-wise Adagrad's learning rate and epsilon in the kernel phase
@@ -256,9 +324,16 @@ def phase_adagrad_kernel(dev: torch.device) -> dict:
         log(f"[kernel] rowwise_adagrad {name}: {m} ids into [{n}, {DIM}], {int(live.sum())} rows "
             f"touched; untouched rows bitwise, the rest within rtol 1e-5; max_abs_err={err!r}, "
             f"kernel_ms={ms!r}, plain_ms={plain_ms!r}")
-        results.append((name, err, ms, plain_ms))
+        # grads and ids read once, each touched row and accumulator read and written
+        touched = int(live.sum())
+        b = bound(m * DIM * grads.element_size() + m * 4 + touched * (DIM + 1) * 4 * 2,
+                  4 * m * DIM, PEAK_F32)
+        results.append((name, err, ms, plain_ms, b))
     main = results[1]  # the user table in bf16: the flagship step's sorted update
-    return {"max_abs_err": max(r[1] for r in results), "ms": main[2], "plain_ms": main[3]}
+    log(f"[kernel] rowwise_adagrad {main[0]}: bound_ms={main[4]['bound_ms']!r} by "
+        f"{main[4]['bound_by']}; no single PyTorch call computes it")
+    return {"max_abs_err": max(r[1] for r in results), "ms": main[2], "plain_ms": main[3],
+            **main[4], "library_ms": None}
 
 
 def phase_tower_kernel(dev: torch.device) -> dict:
@@ -291,7 +366,117 @@ def phase_tower_kernel(dev: torch.device) -> dict:
     log(f"[kernel] tower_bwd [{TRAIN_BATCH}, {DIM}] -> [{DIM}] -> [{h2}] bf16: dx, dW1, dW2 "
         f"within 2^-8 x max|plain|, db within 1e-5 x max|plain|; max_abs_err(dx, dW1, db1, dW2, "
         f"db2)={errs!r}, kernel_ms={ms!r}, plain_ms={plain_ms!r}")
-    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms}
+    # x, dq and out read and dx written in bf16, the weights read, their gradients written
+    b = bound(TRAIN_BATCH * (2 * DIM + 2 * h2) * 2 + 2 * (DIM * DIM + DIM + DIM * h2 + h2) * 4,
+              2 * TRAIN_BATCH * DIM * (3 * DIM + 2 * h2), PEAK_BF16)
+    log(f"[kernel] tower_bwd: bound_ms={b['bound_ms']!r} by {b['bound_by']}; no single PyTorch "
+        "call computes it")
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
+
+
+def softmax_case(dev, rng, bq: int, bk: int, row_offset: int, n_valid: int | None, d: int = 64):
+    """Inputs of one softmax kernel case: bf16-valued q and c, item ids as
+    drawn from the flagship's 49,688 items (they repeat) plus forced repeats,
+    logQ, and the cotangent the loss hands the lse (label / count)."""
+    def on_card(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    q16 = on_card(rng.normal(size=(bk, d)).astype(np.float32), torch.bfloat16)
+    c16 = on_card(rng.normal(size=(bk, d)).astype(np.float32), torch.bfloat16)
+    ids = rng.integers(1, NUM_ITEMS, bk).astype(np.int32)
+    ids[:64] = ids[64:128]  # forced accidental hits
+    ids[bk // 2:bk // 2 + 64] = ids[7]
+    counts = np.bincount(ids, minlength=NUM_ITEMS).astype(np.float32)
+    log_q = np.log(np.maximum(counts[ids], 1.0) / bk).astype(np.float32)
+    labels = (rng.random(bk) < 0.7).astype(np.float32)
+    g = labels / max(labels.sum(), 1.0)
+    rows = slice(row_offset, row_offset + bq)
+    ids_t = on_card(ids)
+    adj = sk._merged_adj(on_card(log_q), n_valid, bk, dev)
+    args = (q16[rows].contiguous(), c16, adj, ids_t[rows].contiguous(), ids_t, row_offset, 1.0)
+    return args, on_card(g[rows].astype(np.float32))
+
+
+def grad_close(got: torch.Tensor, want: torch.Tensor, label: str) -> float:
+    """dq or dc: within 1e-3 x max|plain| and cosine > 0.99999. p is rounded
+    to bf16 per score; the kernel and the plain version sum a score in
+    different orders, so a p on a rounding boundary rounds either way, one
+    bf16 ulp (2^-8) of one p among the thousands a row sums."""
+    err = within_rel(got, want, 1e-3, label)
+    cos = torch.nn.functional.cosine_similarity(got.flatten().double(), want.flatten().double(),
+                                                dim=0).item()
+    if not cos > 0.99999:
+        raise AssertionError(f"{label}: cosine {cos!r} <= 0.99999")
+    return err
+
+
+def phase_softmax_kernel(dev: torch.device) -> dict[str, dict]:
+    """Kernels #9, #10 and #11 against their plain versions: the square case
+    at the production batch (with and without padded columns) and at the
+    large batch, and one stripe of a four-way data-parallel split, which must
+    also equal its rows of the square case."""
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
+    names = ("softmax_lse_fwd", "softmax_lse_dq", "softmax_lse_dc")
+    stats: dict[str, dict] = {n: {"max_abs_err": 0.0} for n in names}
+    square_big = None
+    for label, bq, bk, off, n_valid, reps in (
+            ("square", SOFTMAX_BATCH, SOFTMAX_BATCH, 0, None, 20),
+            ("square, padded columns", SOFTMAX_BATCH, SOFTMAX_BATCH, 0, SOFTMAX_BATCH - 192, 5),
+            ("large square", SOFTMAX_BIG, SOFTMAX_BIG, 0, None, 3),
+            ("stripe of the large square", SOFTMAX_BIG // 4, SOFTMAX_BIG, SOFTMAX_BIG // 2, None,
+             3)):
+        label = f"{label} [{bq} x {bk}, row_offset={off}, n_valid={n_valid}]"
+        # the stripe reuses the large case's draws, so its rows are that case's rows
+        seed = 6 if bk == SOFTMAX_BIG else 5
+        args, g = softmax_case(dev, np.random.default_rng(seed), bq, bk, off, n_valid)
+        lse = sk.softmax_lse_fwd(*args)
+        want_lse = sk.lse_forward_reference(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=1e-5)  # f32 summation order
+        # both backwards from the plain lse, so only the backward itself is compared
+        dq, dc = sk.softmax_lse_dq(*args, want_lse, g), sk.softmax_lse_dc(*args, want_lse, g)
+        want_dq, want_dc = sk.lse_backward_reference(*args, want_lse, g)
+        torch.cuda.synchronize()
+        errs = {"softmax_lse_fwd": (lse - want_lse).abs().max().item(),
+                "softmax_lse_dq": grad_close(dq, want_dq, f"{label} dq"),
+                "softmax_lse_dc": grad_close(dc, want_dc, f"{label} dc")}
+        scales = {"softmax_lse_fwd": want_lse.abs().max().item(),
+                  "softmax_lse_dq": want_dq.abs().max().item(),
+                  "softmax_lse_dc": want_dc.abs().max().item()}
+        if n_valid is not None and not (want_dc[n_valid:] == 0).all() & (dc[n_valid:] == 0).all():
+            raise AssertionError(f"{label}: padded columns took a gradient")
+        main_case = (bq, bk, n_valid) == (SOFTMAX_BATCH, SOFTMAX_BATCH, None)
+        if (bq, bk) == (SOFTMAX_BIG, SOFTMAX_BIG):
+            square_big = (lse, dq)
+        if off:  # the stripe is rows [off, off + bq) of the square case
+            torch.testing.assert_close(lse, square_big[0][off:off + bq], rtol=1e-6, atol=1e-6)
+            torch.testing.assert_close(dq, square_big[1][off:off + bq], rtol=1e-5, atol=1e-9)
+        d = args[0].shape[1]
+        small = (bq + bk) * (d * 2 + 12)  # q and c in bf16; ids, adj, lse, g
+        calls = {
+            "softmax_lse_fwd": (lambda: sk.softmax_lse_fwd(*args),
+                                lambda: sk.lse_forward_reference(*args),
+                                bound(small + bq * 4, 2 * bq * bk * d, PEAK_BF16)),
+            "softmax_lse_dq": (lambda: sk.softmax_lse_dq(*args, want_lse, g),
+                               lambda: sk.lse_backward_reference(*args, want_lse, g,
+                                                                 need_dc=False),
+                               bound(small + bq * d * 4, 4 * bq * bk * d, PEAK_BF16)),
+            "softmax_lse_dc": (lambda: sk.softmax_lse_dc(*args, want_lse, g),
+                               lambda: sk.lse_backward_reference(*args, want_lse, g,
+                                                                 need_dq=False),
+                               bound(small + bk * d * 4, 4 * bq * bk * d, PEAK_BF16)),
+        }
+        for name, (kernel, plain, b) in calls.items():
+            ms, plain_ms = median_ms(kernel, flush, reps), median_ms(plain, flush, reps)
+            log(f"[kernel] {name} {label} D={d}: max_abs_err={errs[name]!r} "
+                f"(x max|plain| {errs[name] / scales[name]!r}) kernel_ms={ms!r} "
+                f"plain_ms={plain_ms!r} bound_ms={b['bound_ms']!r} by {b['bound_by']} "
+                f"(n={reps}); no single PyTorch call computes it")
+            st = stats[name]
+            st["max_abs_err"] = max(st["max_abs_err"], errs[name])
+            if main_case:  # the main path's shape: the train step's batch
+                st.update(ms=ms, plain_ms=plain_ms, **b, library_ms=None)
+    return stats
 
 
 def reset_launches() -> None:
@@ -301,6 +486,18 @@ def reset_launches() -> None:
 
 def read_launches() -> dict[str, int]:
     return {name: wrapper.launches for name, (wrapper, _, _) in KERNELS.items()}
+
+
+def timed_steps(train_step, state, pool, first: int, n: int):
+    """`n` steps over the pool starting at batch `first`, each ended by a
+    synchronize: (state, last out, per-step ms)."""
+    times, out = [], None
+    for i in range(first, first + n):
+        t0 = time.perf_counter()
+        state, out = train_step(state, pool[i % len(pool)])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return state, out, times
 
 
 def phase_train(dev: torch.device, profile: bool) -> dict[str, int]:
@@ -332,23 +529,17 @@ def phase_train(dev: torch.device, profile: bool) -> dict[str, int]:
             touched[fc.table][f.ids[f.mask > 0].long()] = True
     before = {name: t.clone() for name, t in state.model.tables.items()}
 
-    for i in range(WARMUP_STEPS):
-        state, out = train_step(state, pool[i % POOL])
-    torch.cuda.synchronize()
+    state, _, _ = timed_steps(train_step, state, pool, 0, WARMUP_STEPS)
     # --- the main path, counted ---------------------------------------------------
     reset_launches()
-    times = []
-    for i in range(WARMUP_STEPS, WARMUP_STEPS + TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, out = train_step(state, pool[i % POOL])
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+    state, out, times = timed_steps(train_step, state, pool, WARMUP_STEPS, TRAIN_STEPS)
     launches = read_launches()
     # --- checks, not counted ------------------------------------------------------
     for name, n in launches.items():
-        if n != 2 * TRAIN_STEPS:
+        per_step = 0 if name.startswith("softmax") else 2  # BCE: no softmax kernel
+        if n != per_step * TRAIN_STEPS:
             raise AssertionError(f"[train] {name}: {n} launches in {TRAIN_STEPS} steps, "
-                                 f"expected 2 a step")
+                                 f"expected {per_step} a step")
     step_ms = statistics.median(times)
     loss = out["loss"].float().item()
     if not np.isfinite(loss):
@@ -364,22 +555,24 @@ def phase_train(dev: torch.device, profile: bool) -> dict[str, int]:
         moved = (t != before[name]).any(dim=1).sum().item()
         log(f"[train] {name}: {int(keep.sum())} untouched rows kept their bits; "
             f"{moved} of {int(touched[name].sum())} touched rows moved")
-    check_against_host(state, cfg, tcfg, dense_opt, train_step, pool[0])
+    # "auto" is on, on the card
+    check_against_host("[train]", state, dataclasses.replace(cfg, fused_tower_backward="on"),
+                       tcfg, dense_opt, train_step, pool[0])
     evaluate_card(state, cfg, tcfg, val)
     if profile:
         profile_direct(lambda: train_step(state, pool[0]), "train step", 2, calls=5)
     return launches
 
 
-def check_against_host(state, cfg, tcfg, dense_opt, train_step, pb) -> None:
+def check_against_host(tag, state, host_cfg, tcfg, dense_opt, train_step, pb) -> None:
     """One step from a copy of the state on the card, against the same step
     on the host CPU, where every wrapper takes its plain version. Two bf16
-    ulps of each quantity's largest magnitude (2^-7): the logits, loss and
-    pooled gradients are bf16 values, and a sum on a bf16 rounding boundary
-    rounds either way in the two."""
+    ulps of each quantity's largest magnitude (2^-7): under bf16 compute the
+    logits, loss and pooled gradients are bf16 values, and in the fused
+    softmax p is a bf16 value; a sum on a bf16 rounding boundary rounds
+    either way in the two. The item counts are integers and must be equal."""
     card = state.copy()
     host = state.copy("cpu")
-    host_cfg = dataclasses.replace(cfg, fused_tower_backward="on")  # "auto" is on, on the card
     host.model.cfg = host_cfg
     host_step = make_packed_train_step(step_lib.make_train_step(host_cfg, tcfg, dense_opt),
                                        host_cfg, pack_label=True)
@@ -404,7 +597,11 @@ def check_against_host(state, cfg, tcfg, dense_opt, train_step, pb) -> None:
         errs.setdefault("tower grads", 0.0)
         errs["tower grads"] = max(errs["tower grads"], within_rel(
             sc["exp_avg"].cpu(), sh["exp_avg"], rel, "tower gradient (Adam's first moment)"))
-    log(f"[train] one step from a copied state, card against host CPU (plain versions, "
+    if card.item_counts is not None:
+        if not torch.equal(card.item_counts.cpu(), host.item_counts):
+            raise AssertionError(f"{tag} host check: item counts differ")
+        errs["item_counts"] = 0.0
+    log(f"{tag} one step from a copied state, card against host CPU (plain versions, "
         f"{host_s!r} s): within 2^-7 x max|host| each; max abs diffs {errs!r}")
 
 
@@ -418,6 +615,157 @@ def evaluate_card(state, cfg, tcfg, val) -> None:
         raise AssertionError(f"[train] eval gave loss {loss}, auroc {auroc}")
     log(f"[train] eval over {len(val)} validation batches of {TRAIN_BATCH}: "
         f"val_loss={loss!r} val_auroc={auroc!r}")
+
+
+def phase_train_softmax(dev: torch.device, profile: bool) -> dict[str, int]:
+    """The sampled-softmax training slice at the flagship's full width,
+    through the port's entry points; the counted steps at batch 8,192 are the
+    main path."""
+    cfg = cfg_lib.two_tower_model_config(NUM_USERS, NUM_ITEMS, embedding_dim=DIM,
+                                         layer_sizes=LAYERS)
+    tcfg = cfg_lib.TrainConfig(batch_size=SOFTMAX_BATCH, sorted_feature="user_id",
+                               block_sorted_kernel="float32", loss="sampled_softmax",
+                               softmax_kernel="on")
+    state, dense_opt = step_lib.create_train_state(torch.Generator(device=dev).manual_seed(0),
+                                                   cfg, tcfg)
+    feat = PackedFeaturizer(cfg, pack_label=True, sort_feature="user_id")
+    ds = SyntheticClickstream(NUM_USERS - 1, NUM_ITEMS - 1, seed=0)
+
+    def batches(size, n, split):
+        return [map_leaves(feat(cols), lambda t: t.to(dev)) for cols in ds.batches(size, n, split)]
+
+    def packed_step(c, t):
+        return make_packed_train_step(step_lib.make_train_step(c, t, dense_opt), c,
+                                      pack_label=True)
+
+    pool = batches(SOFTMAX_BATCH, POOL, "train")
+    train_step = packed_step(cfg, tcfg)
+    state, _, _ = timed_steps(train_step, state, pool, 0, WARMUP_STEPS)
+    # --- the main path, counted ---------------------------------------------------
+    reset_launches()
+    state, out, times = timed_steps(train_step, state, pool, WARMUP_STEPS, TRAIN_STEPS)
+    launches = read_launches()
+    # --- checks, not counted ------------------------------------------------------
+    per_step = {"pooled_gather": 2, "rowwise_adagrad": 2, "tower_bwd": 0,  # f32: off #8's gate
+                "softmax_lse_fwd": 1, "softmax_lse_dq": 1, "softmax_lse_dc": 1}
+    for name, n in launches.items():
+        if n != per_step[name] * TRAIN_STEPS:
+            raise AssertionError(f"[train-softmax] {name}: {n} launches in {TRAIN_STEPS} steps, "
+                                 f"expected {per_step[name]} a step")
+    loss = out["loss"].item()
+    if not np.isfinite(loss):
+        raise AssertionError(f"[train-softmax] loss is not finite: {loss}")
+    counted = state.item_counts.sum().item()
+    if counted != (WARMUP_STEPS + TRAIN_STEPS) * SOFTMAX_BATCH:
+        raise AssertionError(f"[train-softmax] item_counts sums to {counted}")
+    step_ms = statistics.median(times)
+    log(f"[train-softmax] flagship f32 step, sampled softmax + logQ, kernels on, batch "
+        f"{SOFTMAX_BATCH}: median_step_ms={step_ms!r} min_step_ms={min(times)!r} "
+        f"examples_per_s={SOFTMAX_BATCH / step_ms * 1e3!r} (n={TRAIN_STEPS}, after "
+        f"{WARMUP_STEPS} warm-up steps), loss={loss!r}, item_counts sum={counted!r}, "
+        f"launches per step: { {k: v // TRAIN_STEPS for k, v in launches.items()} }")
+    check_against_host("[train-softmax]", state, cfg, tcfg, dense_opt, train_step, pool[0])
+    if profile:
+        profile_direct(lambda: train_step(state, pool[0]), "train-softmax step", 2, calls=5)
+
+    # the same configuration with the plain chunked route, for the record
+    off_step = packed_step(cfg, dataclasses.replace(tcfg, softmax_kernel="off"))
+    state, _, _ = timed_steps(off_step, state, pool, 0, 1)
+    state, _, off_times = timed_steps(off_step, state, pool, 1, 5)
+    log(f"[train-softmax] batch {SOFTMAX_BATCH}, softmax_kernel=off (chunked plain route): "
+        f"median_step_ms={statistics.median(off_times)!r} (n=5) against {step_ms!r} with the "
+        f"kernels")
+
+    # the large batch: three steps with the kernels, three with the chunked plain route
+    big = batches(SOFTMAX_BIG, 2, "big")
+    for kernel in ("on", "off"):
+        big_step = packed_step(cfg, dataclasses.replace(tcfg, batch_size=SOFTMAX_BIG,
+                                                        softmax_kernel=kernel))
+        before = read_launches()
+        torch.cuda.reset_peak_memory_stats()
+        state, _, _ = timed_steps(big_step, state, big, 0, 1)
+        state, out, big_times = timed_steps(big_step, state, big, 1, 3)
+        made = {k: v - before[k] for k, v in read_launches().items() if k.startswith("softmax")}
+        if set(made.values()) != {4 if kernel == "on" else 0}:
+            raise AssertionError(f"[train-softmax] batch {SOFTMAX_BIG} {kernel}: {made}")
+        if not np.isfinite(out["loss"].item()):
+            raise AssertionError(f"[train-softmax] batch {SOFTMAX_BIG}: loss is not finite")
+        big_ms = statistics.median(big_times)
+        log(f"[train-softmax] batch {SOFTMAX_BIG}, softmax_kernel={kernel}: "
+            f"median_step_ms={big_ms!r} examples_per_s={SOFTMAX_BIG / big_ms * 1e3!r} (n=3, "
+            f"after 1 warm-up step), loss={out['loss'].item()!r}, "
+            f"peak_memory_gb={torch.cuda.max_memory_allocated() / 1e9!r}")
+
+    # bf16 compute: the tower backward (#8) launches beside the softmax kernels
+    bcfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    btcfg = dataclasses.replace(tcfg, block_sorted_kernel="bfloat16")
+    bstate, bopt = step_lib.create_train_state(torch.Generator(device=dev).manual_seed(0),
+                                               bcfg, btcfg)
+    bstep = make_packed_train_step(step_lib.make_train_step(bcfg, btcfg, bopt), bcfg,
+                                   pack_label=True)
+    before = read_launches()
+    bstate, out, btimes = timed_steps(bstep, bstate, pool, 0, 2)
+    made = {k: v - before[k] for k, v in read_launches().items()}
+    want = {"pooled_gather": 4, "rowwise_adagrad": 4, "tower_bwd": 4, "softmax_lse_fwd": 2,
+            "softmax_lse_dq": 2, "softmax_lse_dc": 2}
+    if made != want or not np.isfinite(out["loss"].float().item()):
+        raise AssertionError(f"[train-softmax] bf16: launches {made}, expected {want}; "
+                             f"loss {out['loss'].float().item()}")
+    log(f"[train-softmax] bf16 compute, batch {SOFTMAX_BATCH}: 2 steps, launches {made}, "
+        f"second_step_ms={btimes[1]!r}, loss={out['loss'].float().item()!r}")
+    return launches
+
+
+def phase_learn_softmax(dev: torch.device) -> dict[str, int]:
+    """The sampled softmax learns to retrieve, on the card: the (32, 16)
+    linear-head model on the learnable synthetic set, batch 512, through
+    `train_val_test` with the per-epoch retrieval eval and the best epoch
+    kept by recall@10 against the generator's ground-truth top-10."""
+    mcfg = cfg_lib.two_tower_model_config(120, 60, embedding_dim=16, layer_sizes=(32, 16))
+    mcfg = dataclasses.replace(
+        mcfg, query_tower=dataclasses.replace(mcfg.query_tower, final_activation=False),
+        candidate_tower=dataclasses.replace(mcfg.candidate_tower, final_activation=False))
+    tcfg = cfg_lib.TrainConfig(epochs=5, loss="sampled_softmax", softmax_kernel="on",
+                               sparse_learning_rate=0.1, learning_rate=3e-3,
+                               limit_val_batches=2, limit_test_batches=2)
+    ds = SyntheticClickstream(120, 60, seed=4, noise=0.05, latent_dim=4)
+    users = np.arange(1, 121)
+    truth = ds.ground_truth_topk(users, k=10)
+    positives = {int(u): truth[i].tolist() for i, u in enumerate(users)}
+    state, dense_opt = step_lib.create_train_state(torch.Generator(device=dev).manual_seed(0),
+                                                   mcfg, tcfg)
+    # --- the path, counted ---------------------------------------------------------
+    reset_launches()
+    t0 = time.perf_counter()
+    state, res = train_val_test(
+        state, step_lib.make_train_step(mcfg, tcfg, dense_opt),
+        step_lib.make_eval_step(mcfg, tcfg), mcfg, tcfg,
+        Featurizer(mcfg, device="cpu"),  # host batches: the loop's pipeline moves them
+        train_batches_factory=lambda ep: ds.batches(512, 50, split=f"t{ep}"),
+        val_batches_factory=lambda: ds.batches(512, 2, split="val"),
+        test_batches_factory=lambda: ds.batches(512, 2, split="test"),
+        retrieval_eval_fn=make_retrieval_eval_fn(mcfg, positives, k=20, ks=(10,), max_users=120),
+        select_best="val_recall_at_10")
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    # --- checks, not counted ------------------------------------------------------
+    if not res["val_recall_at_10"] > 0.35:
+        raise AssertionError(f"[learn-softmax] recall@10 {res['val_recall_at_10']} <= 0.35")
+    if "best_epoch" not in res:
+        raise AssertionError("[learn-softmax] no best_epoch in the results")
+    steps = tcfg.epochs * 50
+    for name in ("softmax_lse_fwd", "softmax_lse_dq", "softmax_lse_dc"):
+        if launches[name] != steps:
+            raise AssertionError(f"[learn-softmax] {name}: {launches[name]} launches in {steps} "
+                                 "steps")
+    if state.step != (int(res["best_epoch"]) + 1) * 50:
+        raise AssertionError(f"[learn-softmax] returned state at step {state.step}, best epoch "
+                             f"{res['best_epoch']}")
+    log(f"[learn-softmax] baseline_val_recall_at_10={res['baseline_val_recall_at_10']!r} "
+        f"val_recall_at_10={res['val_recall_at_10']!r} best_epoch={res['best_epoch']!r} "
+        f"val_auroc={res['val_auroc']!r} train_loss={res['train_loss']!r} "
+        f"examples_per_s={res['examples_per_sec']!r} ({seconds!r} s in all), launches={launches}")
+    return launches
 
 
 def phase_learn(dev: torch.device) -> dict[str, int]:
@@ -438,7 +786,8 @@ def phase_learn(dev: torch.device) -> dict[str, int]:
     t0 = time.perf_counter()
     state, res = train_val_test(
         state, step_lib.make_train_step(mcfg, tcfg, dense_opt),
-        step_lib.make_eval_step(mcfg, tcfg), mcfg, tcfg, Featurizer(mcfg),
+        step_lib.make_eval_step(mcfg, tcfg), mcfg, tcfg,
+        Featurizer(mcfg, device="cpu"),  # host batches: the loop's pipeline moves them
         train_batches_factory=lambda ep: ds.batches(1024, 120, split=f"t{ep}"),
         val_batches_factory=lambda: ds.batches(1024, 4, split="val"),
         test_batches_factory=lambda: ds.batches(1024, 4, split="test"))
@@ -547,7 +896,8 @@ def profile_direct(fn, label: str, gathers_per_call: int, calls: int = 10) -> No
         item[1] += 1
     busy = (busy + hi - lo) / 1e3 / calls
     log(f"[profile] {label}: wall_ms={wall!r} device_busy_ms={busy!r} "
-        f"idle_share={1 - busy / wall!r} (per call, {calls} calls)")
+        f"idle_share={1 - busy / wall!r} device_items={len(spans) / calls!r} "
+        f"(per call, {calls} calls)")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         log(f"[profile]   {ms!r} ms in {n / calls!r} launches: {name}")
 
@@ -669,26 +1019,30 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source
         built = dict(zip(KERNELS, pool.map(lambda k: k[0].load(), KERNELS.values())))
     log(f"[build] {len(built)} kernels built and loaded in {time.perf_counter() - t0!r} s")
-    for name, b in built.items():
+    for b in {b.path: b for b in built.values()}.values():  # one library per source
         log(f"[build] {b.path.name}: nvcc {b.build_seconds!r} s")
         for line in b.log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
 
     stats = {"pooled_gather": phase_kernel(dev), "rowwise_adagrad": phase_adagrad_kernel(dev),
-             "tower_bwd": phase_tower_kernel(dev)}
+             "tower_bwd": phase_tower_kernel(dev), **phase_softmax_kernel(dev)}
     serve = phase_serve(dev, args.profile)
     train = phase_train(dev, args.profile)
     learn = phase_learn(dev)
+    train_softmax = phase_train_softmax(dev, args.profile)
+    learn_softmax = phase_learn_softmax(dev)
     torch.cuda.synchronize()
     leaked = [m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "optax", "two_tower_recommender_model_tpu")]
     if leaked:
         raise AssertionError(f"JAX or the JAX package was imported: {leaked[:5]}")
 
-    launches = {name: train[name] + learn[name] for name in KERNELS}
+    launches = {name: train[name] + learn[name] + train_softmax[name] + learn_softmax[name]
+                for name in KERNELS}
     launches["pooled_gather"] += serve
-    log(f"launches on the main paths: serve pooled_gather={serve}, train {train}, learn {learn}")
+    log(f"launches on the main paths: serve pooled_gather={serve}, train {train}, learn {learn}, "
+        f"train-softmax {train_softmax}, learn-softmax {learn_softmax}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], **stats[name]}

@@ -43,7 +43,7 @@ def test_port_export_loads_in_jax_and_serves_in_the_port(tmp_path):
     state, opt = port_step.create_train_state(torch.Generator().manual_seed(0), pcfg, tcfg)
     step = port_step.make_train_step(pcfg, tcfg, opt)
     ds = SyntheticClickstream(299, 79, seed=2)
-    feat = Featurizer(pcfg)
+    feat = Featurizer(pcfg, device="cpu")
     for cols in ds.batches(256, 3):
         state, _ = step(state, feat(cols))
     export_model(str(tmp_path), pcfg, state)
@@ -55,7 +55,7 @@ def test_port_export_loads_in_jax_and_serves_in_the_port(tmp_path):
     for k in want:
         assert got[k].dtype == np.float32
         np.testing.assert_array_equal(got[k], want[k])
-    scorer = load_scorer(str(tmp_path))
+    scorer = load_scorer(str(tmp_path), device="cpu")
     cols = ds.sample(50, split="serve")
     with torch.no_grad():
         direct = torch.sigmoid(score(state.model, feat(cols))).float().numpy()

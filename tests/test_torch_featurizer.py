@@ -44,7 +44,7 @@ def _columns(kind, rng, n=64):
         cols["history"] = rng.integers(0, 900, (n, 5))
     elif kind == "ragged":
         lists = [list(rng.integers(1, 900, rng.integers(0, 5))) for _ in range(n)]
-        cols["history"] = Featurizer(_port(_config())).ragged("history", lists)
+        cols["history"] = Featurizer(_port(_config()), device="cpu").ragged("history", lists)
         np.testing.assert_array_equal(
             cols["history"], JaxFeaturizer(_config()).ragged("history", lists))
     elif kind == "zeros":
@@ -77,7 +77,7 @@ def test_featurizer_rejects_3d_column():
     cols = _columns("1d", np.random.default_rng(0))
     cols["history"] = np.zeros((4, 2, 2), np.int64)
     with pytest.raises(ValueError, match="1D or 2D"):
-        Featurizer(_port(_config()))(cols)
+        Featurizer(_port(_config()), device="cpu")(cols)
 
 
 @pytest.mark.parametrize("multiple", [1, 16, 48])
@@ -85,7 +85,7 @@ def test_pad_batch_matches_reference(multiple):
     cfg = _config()
     cols = _columns("ragged", np.random.default_rng(3), n=37)
     ref = jax_pad_batch(JaxFeaturizer(cfg, dense_cols=("age",))(cols), multiple)
-    got = pad_batch(Featurizer(_port(cfg), dense_cols=("age",))(cols), multiple)
+    got = pad_batch(Featurizer(_port(cfg), dense_cols=("age",), device="cpu")(cols), multiple)
     assert got.batch_size == ref.batch_size
     np.testing.assert_array_equal(got.weights.numpy(), np.asarray(ref.weights))
     np.testing.assert_array_equal(got.labels.numpy(), np.asarray(ref.labels))

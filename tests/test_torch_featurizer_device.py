@@ -85,7 +85,7 @@ def test_unpack_batch_is_bitwise_jax_and_the_host_featurizer(kwargs, drop_zero_i
         np.testing.assert_array_equal(got.features[name].mask.numpy(), np.asarray(f.mask))
         assert got.features[name].ids.dtype == torch.int32
     if "sort_feature" not in kwargs:  # the host featurizer keeps row order
-        host = Featurizer(_rich(port_config), drop_zero_ids=drop_zero_ids)(cols)
+        host = Featurizer(_rich(port_config), drop_zero_ids=drop_zero_ids, device="cpu")(cols)
         assert torch.equal(host.labels, got.labels)
         for name, f in host.features.items():
             assert torch.equal(f.ids, got.features[name].ids)

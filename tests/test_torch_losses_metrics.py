@@ -59,11 +59,16 @@ def test_weighted_bce_and_loss_fns_match_jax():
 
 def test_loss_fn_from_config_and_refusals():
     tcfg = port_config.TrainConfig(loss="weighted_bce", loss_type_weights=(1.0, 2.0))
-    assert callable(losses.loss_fn_from_config(tcfg))
+    mcfg = port_config.two_tower_model_config(50, 40)
+    assert callable(losses.loss_fn_from_config(tcfg, mcfg))
     with pytest.raises(ValueError, match="type_weights"):
         losses.make_loss_fn("weighted_bce")
-    with pytest.raises(NotImplementedError, match="M9"):
-        losses.make_loss_fn("sampled_softmax")
+    assert callable(losses.make_loss_fn("sampled_softmax"))
+    with pytest.raises(NotImplementedError, match="M12"):
+        losses.make_loss_fn("sampled_softmax", mesh=object())
+    with pytest.raises(NotImplementedError, match="M12"):
+        losses.loss_fn_from_config(port_config.TrainConfig(loss="sampled_softmax"), mcfg,
+                                   sharded=True, mesh=object())
     with pytest.raises(ValueError, match="unknown loss"):
         losses.make_loss_fn("hinge")
 
@@ -72,7 +77,7 @@ def test_loss_fn_from_config_and_refusals():
 def test_auroc_matches_jax_and_the_exact_auroc(weighted):
     logits, labels, w = _logits(4000, seed=2)
     logits = logits + labels * 1.5  # some signal
-    st = metrics.auroc_init()
+    st = metrics.auroc_init(device="cpu")
     jst = jax_metrics.auroc_init()
     for part in np.array_split(np.arange(len(logits)), 3):  # streamed in three updates
         st = metrics.auroc_update(st, torch.from_numpy(logits[part]),
@@ -87,13 +92,13 @@ def test_auroc_matches_jax_and_the_exact_auroc(weighted):
     if not weighted:  # 8,192 bins: within ~1e-4 of the exact statistic
         assert abs(got - metrics.exact_auroc(logits, labels)) < 1e-3
         assert metrics.exact_auroc(logits, labels) == jax_metrics.exact_auroc(logits, labels)
-    merged = metrics.auroc_merge(st, metrics.auroc_init())
+    merged = metrics.auroc_merge(st, metrics.auroc_init(device="cpu"))
     assert torch.equal(merged.pos, st.pos)
-    assert float(metrics.auroc_compute(metrics.auroc_init())) == 0.5
+    assert float(metrics.auroc_compute(metrics.auroc_init(device="cpu"))) == 0.5
 
 
 def test_mean_state_matches_jax():
-    st, jst = metrics.mean_init(), jax_metrics.mean_init()
+    st, jst = metrics.mean_init(device="cpu"), jax_metrics.mean_init()
     assert float(metrics.mean_compute(st)) == 0.0
     for v, n in ((0.5, 10.0), (0.25, 30.0)):
         st = metrics.mean_update(st, torch.tensor(v), n)

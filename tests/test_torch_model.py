@@ -98,7 +98,7 @@ def test_params_from_numpy_rejects_wrong_shapes():
     params = numpy_params(cfg)
     params["query_tower"]["layer_0"]["kernel"] = params["query_tower"]["layer_0"]["kernel"].T
     with pytest.raises(ValueError, match="kernel shape"):
-        two_tower.params_from_numpy(params, port(cfg))
+        two_tower.params_from_numpy(params, port(cfg), "cpu")
 
 
 # gelu runs at f32 only: jax.nn.gelu evaluates its tanh polynomial in bf16
@@ -113,7 +113,7 @@ def test_apply_mlp_matches_jax(activation, final_activation, compute_dtype):
     sizes = (64, 32)
     x = rng.normal(size=(40, 48)).astype(np.float32)
     jparams = {}
-    mlp = MLP(48, sizes, activation, final_activation)
+    mlp = MLP(48, sizes, activation, final_activation, device="cpu")
     with torch.no_grad():
         for i, layer in enumerate(mlp.layers):
             k = rng.uniform(-0.2, 0.2, (layer.in_features, layer.out_features)).astype(np.float32)
@@ -187,7 +187,7 @@ def test_forward_and_score_match_jax(final_activation, compute_dtype, rich):
     jscore = jax_two_tower.score(jparams, jbatch, cfg)
 
     model = two_tower.params_from_numpy(params, port(cfg), "cpu")
-    batch = Featurizer(port(cfg), dense_cols=dense_cols)(cols)
+    batch = Featurizer(port(cfg), dense_cols=dense_cols, device="cpu")(cols)
     with torch.no_grad():
         q, c = two_tower.forward(model, batch)
         s = two_tower.score(model, batch)

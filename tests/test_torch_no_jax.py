@@ -24,12 +24,15 @@ leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
 assert not leaked, leaked
 from two_tower_recommender_model_tpu_torch.ops.adagrad_kernel import rowwise_adagrad
 from two_tower_recommender_model_tpu_torch.ops.embedding_kernel import pooled_gather
+from two_tower_recommender_model_tpu_torch.ops.softmax_kernel import (
+    softmax_lse_dc, softmax_lse_dq, softmax_lse_fwd)
 from two_tower_recommender_model_tpu_torch.ops.tower_bwd import tower_backward
-for wrapper in (pooled_gather, rowwise_adagrad, tower_backward):
+for wrapper in (pooled_gather, rowwise_adagrad, tower_backward, softmax_lse_fwd, softmax_lse_dq,
+                softmax_lse_dc):
     assert wrapper._built is None and wrapper.launches == 0
 for name in ("train.step", "train.loop", "train.pipeline", "train.optimizer",
              "data.device_featurizer", "data.synthetic", "models.losses", "models.metrics",
-             "utils.checkpoint"):
+             "utils.checkpoint", "ops.softmax_kernel", "evaluation.retrieval", "device"):
     assert pkg.__name__ + "." + name in names, name
 print(len(names))
 """

@@ -124,7 +124,7 @@ def test_export_feature_embeddings_matches_jax(feature, ids, dense, compute_dtyp
                 if dense else None)
     want = np.asarray(jax_export(params, cfg, feature, ids=ids, batch_size=128,
                                  dense=dense_in)).astype(np.float32)
-    got = export_feature_embeddings(params_from_numpy(params, _port(cfg)), feature, ids=ids,
+    got = export_feature_embeddings(params_from_numpy(params, _port(cfg), "cpu"), feature, ids=ids,
                                     batch_size=128, dense=dense_in)
     assert got.dtype == getattr(torch, compute_dtype)
     tol = F32 if compute_dtype == "float32" else dict(rtol=0, atol=2e-2)
@@ -170,7 +170,7 @@ def test_retrieval_service_matches_jax(models):
 def test_retrieval_service_refresh(models):
     cfg, params, model = models
     svc = RetrievalService(model)
-    other = params_from_numpy(_numpy_params(cfg, seed=5), _port(cfg))
+    other = params_from_numpy(_numpy_params(cfg, seed=5), _port(cfg), "cpu")
     svc.refresh(other)
     want = export_feature_embeddings(other, "product_id")[1:]
     assert torch.equal(svc.corpus, want) and svc.model is other
@@ -189,7 +189,7 @@ def test_load_model_reads_a_jax_export(tmp_path):
     for name, table in state.tables.items():
         np.testing.assert_array_equal(got_params["tables"][name], np.asarray(table))
     inputs = _requests()
-    np.testing.assert_allclose(load_scorer(str(tmp_path)).predict(inputs),
+    np.testing.assert_allclose(load_scorer(str(tmp_path), device="cpu").predict(inputs),
                                jax_load_scorer(str(tmp_path)).predict(inputs), **F32)
 
 

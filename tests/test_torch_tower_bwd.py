@@ -104,7 +104,7 @@ def _towers(h2, seed=1):
     """The same two-layer tower in both packages: (JAX params, port MLP)."""
     rng = np.random.default_rng(seed)
     shapes = ((D, D), (D, h2))
-    jparams, mlp = {}, MLP(D, (D, h2))
+    jparams, mlp = {}, MLP(D, (D, h2), device="cpu")
     with torch.no_grad():
         for i, (s, layer) in enumerate(zip(shapes, mlp.layers)):
             k = rng.normal(size=s, scale=0.1).astype(np.float32)

@@ -28,6 +28,7 @@ from two_tower_recommender_model_tpu_torch.data.device_featurizer import (
 )
 from two_tower_recommender_model_tpu_torch.data.featurizer import Featurizer
 from two_tower_recommender_model_tpu_torch.data.synthetic import SyntheticClickstream
+from two_tower_recommender_model_tpu_torch.models import losses as port_losses
 from two_tower_recommender_model_tpu_torch.models.metrics import auroc_compute, mean_compute
 from two_tower_recommender_model_tpu_torch.models.two_tower import params_from_numpy
 from two_tower_recommender_model_tpu_torch.train import optimizer as port_opt
@@ -71,9 +72,10 @@ def _states(cfg, tcfg, pcfg, ptcfg, params):
     jstate = jstate.replace(tables=jparams["tables"], dense_params=dense,
                             dense_opt_state=jopt.init(dense))
     pstate, popt = port_step.create_train_state(torch.Generator().manual_seed(0), pcfg, ptcfg)
-    model = params_from_numpy(params, pcfg)
+    model = params_from_numpy(params, pcfg, "cpu")
     pstate = port_step.TrainState(0, model, pstate.adagrad_acc,
-                                  popt.build(port_step.tower_parameters(model)))
+                                  popt.build(port_step.tower_parameters(model)),
+                                  pstate.item_counts)
     return jstate, jopt, pstate, popt
 
 
@@ -157,15 +159,67 @@ def _check_state(params, jstate, pstate, rel):
             _close(m[layer.bias]["exp_avg"], mu[key][f"layer_{i}"]["bias"], rel)
 
 
+# The sampled-softmax step. "off": the plain dense route in f32 on both sides
+# (b = 512), f32 summation order, 1e-5 x max. "on": the fused route, the JAX
+# kernels in interpret mode against the port's plain versions; p is rounded to
+# bf16 in both, and a p on a rounding boundary goes either way, which moves
+# single rows of the pooled gradients by one bf16 ulp: two ulps, 2^-7 x max.
+SOFTMAX_CASES = {
+    "logq-kernel-on": (True, "on", 2.0 ** -7),
+    "nologq-kernel-on": (False, "on", 2.0 ** -7),
+    "logq-kernel-off": (True, "off", 1e-5),
+    "nologq-kernel-off": (False, "off", 1e-5),
+}
+
+
+@pytest.mark.parametrize("case", list(SOFTMAX_CASES))
+def test_sampled_softmax_train_steps_match_jax(case):
+    """Three sampled-softmax steps on the same numpy state and batches: loss,
+    logits, tables, towers and the streaming `item_counts` (300 items in
+    batches of 512: every batch repeats items, and each repeat must count)."""
+    logq, kernel, rel = SOFTMAX_CASES[case]
+    cfg, tcfg, _, _ = _configs("float32", "off", "float32")
+    tcfg = dataclasses.replace(tcfg, loss="sampled_softmax", logq_correction=logq,
+                               softmax_kernel=kernel, softmax_temperature=0.5)
+    pcfg = port_config.model_config_from_dict(dataclasses.asdict(cfg))
+    ptcfg = port_config.TrainConfig(**dataclasses.asdict(tcfg))
+    params = _numpy_params(cfg)
+    jstate, jopt, pstate, popt = _states(cfg, tcfg, pcfg, ptcfg, params)
+    assert (pstate.item_counts is not None) == logq == (jstate.item_counts is not None)
+    jtrain = jax_make_packed_train_step(
+        jax_step.make_train_step(cfg, tcfg, jopt, jit=False), cfg, pack_label=True)
+    ptrain = make_packed_train_step(port_step.make_train_step(pcfg, ptcfg, popt), pcfg,
+                                    pack_label=True)
+    jfeat = JaxPackedFeaturizer(cfg, pack_label=True, sort_feature="user_id")
+    pfeat = PackedFeaturizer(pcfg, pack_label=True, sort_feature="user_id")
+    for i, cols in enumerate(_columns(3)):
+        assert len(np.unique(cols["product_id"])) < B  # duplicates in the batch
+        jstate, jout = jtrain(jstate, jfeat(cols))
+        pstate, pout = ptrain(pstate, _as_tensors(pfeat(cols)))
+        _close(pout["loss"].item(), float(jout["loss"]), rel)
+        _close(pout["logits"], jout["logits"], rel)
+        if logq:
+            np.testing.assert_array_equal(pstate.item_counts.numpy(),
+                                          np.asarray(jstate.item_counts))
+            assert pstate.item_counts.sum().item() == (i + 1) * B
+        if i == 0:
+            _check_state(params, jstate, pstate, rel)
+    copied = pstate.copy()
+    if logq:
+        assert torch.equal(copied.item_counts, pstate.item_counts)
+        assert copied.item_counts.data_ptr() != pstate.item_counts.data_ptr()
+    assert port_step.full_params(pstate) is pstate.model
+
+
 def test_eval_step_matches_jax():
     cfg, tcfg, pcfg, ptcfg = _configs("float32", "off", "float32")
     params = _numpy_params(cfg)
     jstate, _, pstate, _ = _states(cfg, tcfg, pcfg, ptcfg, params)
     jeval, peval = jax_step.make_eval_step(cfg, tcfg), port_step.make_eval_step(pcfg, ptcfg)
-    jes, pes = jax_step.eval_state_init(), port_step.eval_state_init()
+    jes, pes = jax_step.eval_state_init(), port_step.eval_state_init(device="cpu")
     for j, cols in enumerate(_columns(3, seed=9)):
         jb = JaxFeaturizer(cfg)(cols)
-        pb = Featurizer(pcfg)(cols)
+        pb = Featurizer(pcfg, device="cpu")(cols)
         if j == 2:  # a padded batch: zero-weight rows leave the metrics alone
             from two_tower_recommender_model_tpu.data.featurizer import pad_batch as jax_pad
             from two_tower_recommender_model_tpu_torch.data.featurizer import pad_batch
@@ -220,7 +274,7 @@ def test_unsorted_ids_for_the_sorted_table_are_refused():
     lambda m, t: ({"m": dataclasses.replace(m, table_dtype="int8")}, "create"),
     lambda m, t: ({"t": dataclasses.replace(t, scatter_buffer_dtype="bfloat16")}, "step"),
     lambda m, t: ({"t": dataclasses.replace(t, device_sorted_gather=True)}, "step"),
-    lambda m, t: ({"t": dataclasses.replace(t, loss="sampled_softmax")}, "step"),
+    lambda m, t: ({"t": dataclasses.replace(t, loss="sampled_softmax")}, "sharded loss"),
 ])
 def test_features_not_ported_raise(make):
     _, _, pcfg, ptcfg = _configs("float32", "off", "float32")
@@ -229,6 +283,8 @@ def test_features_not_ported_raise(make):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if where == "create":
             port_step.create_train_state(torch.Generator().manual_seed(0), mcfg, tcfg)
+        elif where == "sharded loss":  # the data-parallel softmax waits for the mesh
+            port_losses.loss_fn_from_config(tcfg, mcfg, sharded=True, mesh=object())
         else:
             port_step.make_train_step(mcfg, tcfg, port_opt.dense_optimizer(1e-3))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -272,7 +328,7 @@ def test_train_val_test_learns_on_the_cpu():
     state, opt = port_step.create_train_state(torch.Generator().manual_seed(0), mcfg, tcfg)
     state, res = train_val_test(
         state, port_step.make_train_step(mcfg, tcfg, opt), port_step.make_eval_step(mcfg, tcfg),
-        mcfg, tcfg, Featurizer(mcfg),
+        mcfg, tcfg, Featurizer(mcfg, device="cpu"),
         train_batches_factory=lambda ep: ds.batches(1024, 120, split=f"t{ep}"),
         val_batches_factory=lambda: ds.batches(1024, 4, split="val"),
         test_batches_factory=lambda: ds.batches(1024, 4, split="test"))

@@ -25,12 +25,18 @@ What it covers today is the serving and the training slice:
                              (`csrc/rowwise_adagrad.cu`) and its plain version.
 - `ops.tower_bwd`          — the CUDA fused two-layer tower backward
                              (`csrc/tower_bwd.cu`) and its plain version.
+- `ops.softmax_kernel`     — the CUDA fused in-batch sampled-softmax kernels
+                             (`csrc/softmax_lse.cu`: the online logsumexp and
+                             its dq and dc) and their plain versions.
 - `ops.topk`               — exact corpus-chunked top-k, ties to the lower index.
 - `models`                 — MLP towers (with the fused-backward route), the
                              `TwoTower` module, losses and streaming metrics.
 - `train`                  — optimizers, the train and eval steps, the input
                              pipeline and the train/val/test loop.
-- `evaluation.retrieval`   — full-corpus tower embedding export.
+- `evaluation.retrieval`   — full-corpus tower embedding export, the retriever
+                             metrics and the per-epoch retrieval eval.
+- `device`                 — `default_device()`: the card, or an error that
+                             says to pass `device="cpu"`.
 - `serving`                — `Scorer`, `RetrievalService`, HTTP `ModelServer`.
 - `utils.checkpoint`       — the portable export: `export_model`, `load_model`.
 
@@ -38,6 +44,10 @@ Numerics: float32 matmuls run in full float32. Importing this package sets
 `torch.backends.cuda.matmul.allow_tf32 = False` and
 `torch.backends.cudnn.allow_tf32 = False`, so no product silently drops to
 TF32 (the reference tests run JAX at "highest" matmul precision).
+
+Entry points that take a `device` run on the card when given none, and raise
+without a card; they land on the CPU only when the caller passes
+`device="cpu"` (or a CPU generator, or CPU tensors).
 
 Importing builds nothing: each CUDA kernel compiles with `nvcc` at its first
 launch on a CUDA tensor (`ops/_build.py`).
@@ -49,3 +59,4 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
+from two_tower_recommender_model_tpu_torch.device import default_device  # noqa: F401

@@ -164,7 +164,7 @@ class TrainConfig:
     learning_rate: float = 1e-3  # dense towers (Adam)
     sparse_learning_rate: float = 1e-2  # embedding tables (row-wise Adagrad)
     adagrad_eps: float = 1e-10
-    loss: str = "bce"  # "bce" | "weighted_bce" | "sampled_softmax" (not ported)
+    loss: str = "bce"  # "bce" | "weighted_bce" | "sampled_softmax"
     logq_correction: bool = True  # only for sampled_softmax
     softmax_temperature: float = 1.0  # only for sampled_softmax
     # weighted_bce: one weight per interaction type; the one-hot type columns

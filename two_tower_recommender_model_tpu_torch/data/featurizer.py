@@ -22,6 +22,8 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 import torch
 
+from two_tower_recommender_model_tpu_torch.device import resolve_device
+
 from two_tower_recommender_model_tpu_torch.config import ModelConfig
 
 
@@ -80,12 +82,12 @@ class Featurizer:
 
     def __init__(self, model_config: ModelConfig, drop_zero_ids: bool = True,
                  dense_cols: Sequence[str] = (), label_col: str = "label",
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
         self.config = model_config
         self.drop_zero_ids = drop_zero_ids
         self.dense_cols = tuple(dense_cols)
         self.label_col = label_col
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)

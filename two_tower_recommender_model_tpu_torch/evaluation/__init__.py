@@ -1,3 +1,6 @@
 from two_tower_recommender_model_tpu_torch.evaluation.retrieval import (  # noqa: F401
+    evaluate_retrieval,
     export_feature_embeddings,
+    make_retrieval_eval_fn,
+    retrieval_metrics,
 )

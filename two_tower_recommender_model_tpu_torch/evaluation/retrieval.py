@@ -1,9 +1,11 @@
-"""Full-corpus tower embedding export.
+"""Full-corpus tower embedding export and the retrieval evaluation.
 
-Port of `two_tower_recommender_model_tpu/evaluation/retrieval.py:
-export_feature_embeddings`. The row gather goes through `pooled_lookup` with
+Port of `two_tower_recommender_model_tpu/evaluation/retrieval.py`:
+`export_feature_embeddings`, `retrieval_metrics`, `evaluate_retrieval` and
+`make_retrieval_eval_fn`. The row gather goes through `pooled_lookup` with
 one slot and weight 1, so on a CUDA model the export runs the pooled-gather
-kernel too. `retrieval_metrics` and `evaluate_retrieval` are not ported yet.
+kernel too. `split_positives` (it needs the shard reader) and
+`per_user_retrieval_table` (pandas) are not ported yet.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 from two_tower_recommender_model_tpu_torch.config import ModelConfig
 from two_tower_recommender_model_tpu_torch.models.two_tower import TwoTower, torch_dtype
 from two_tower_recommender_model_tpu_torch.ops.embedding_ops import pooled_lookup
+from two_tower_recommender_model_tpu_torch.ops.topk import chunked_topk
 
 
 def _tower_for_feature(model_cfg: ModelConfig, feature_name: str):
@@ -76,3 +79,105 @@ def export_feature_embeddings(
     if not out:
         return torch.empty((0, tower.layer_sizes[-1]), dtype=compute_dtype, device=device)
     return torch.cat(out)
+
+
+def retrieval_metrics(
+    pred_ids: np.ndarray,  # [U, k] retrieved ids, best first
+    targets: list,  # per-user iterable of relevant ids
+    ks: tuple[int, ...] = (10, 100),
+) -> dict[str, float]:
+    """Per-user retriever metrics averaged over the users that have targets:
+    mrr, and recall, precision, hit rate and ndcg at each k. Recall divides
+    by the number of targets, not by min(targets, k): a user with more than k
+    held-out positives cannot reach recall 1."""
+    pred_ids = np.asarray(pred_ids)
+    max_k = pred_ids.shape[1]
+    out: dict[str, list[float]] = {}
+    for k in ks:
+        if k > max_k:
+            raise ValueError(f"k={k} > retrieved {max_k}")
+    for preds, tgt in zip(pred_ids, targets):
+        tgt = set(int(t) for t in tgt)
+        if not tgt:
+            continue
+        hits = np.isin(preds, np.fromiter(tgt, dtype=np.int64)).astype(np.float64)
+        first_hit = np.argmax(hits) if hits.any() else None
+        out.setdefault("mrr", []).append(0.0 if first_hit is None else 1.0 / (first_hit + 1))
+        for k in ks:
+            h = hits[:k]
+            rel = h.sum()
+            out.setdefault(f"recall_at_{k}", []).append(rel / len(tgt))
+            out.setdefault(f"precision_at_{k}", []).append(rel / k)
+            out.setdefault(f"hit_rate_at_{k}", []).append(1.0 if rel > 0 else 0.0)
+            dcg = (h / np.log2(np.arange(2, k + 2))).sum()
+            ideal = (1.0 / np.log2(np.arange(2, min(len(tgt), k) + 2))).sum()
+            out.setdefault(f"ndcg_at_{k}", []).append(dcg / ideal if ideal > 0 else 0.0)
+    return {name: float(np.mean(vals)) for name, vals in out.items()}
+
+
+def evaluate_retrieval(
+    model: TwoTower,
+    user_positives: dict[int, list],  # user id -> held-out relevant item ids
+    query_feature: str = "user_id",
+    candidate_feature: str = "product_id",
+    k: int = 100,
+    max_users: int = 10_000,
+    ks: tuple[int, ...] = (10, 100),
+    exclude_item_zero: bool = True,
+    query_dense: np.ndarray | None = None,  # [num_query_ids_total, Dq] per raw id
+    candidate_dense: np.ndarray | None = None,  # [num_items, Dc] per raw id
+) -> dict[str, float]:
+    """The retrieval protocol: held-out positives per user, an exact top-k
+    search per user over the whole corpus (at most `max_users` users, in id
+    order), and the averaged retriever metrics. The model carries its config,
+    so the reference's `(params, model_cfg)` pair is one argument here."""
+    if not user_positives:
+        raise ValueError("user_positives is empty: the split has no label == 1 rows to "
+                         "evaluate against (check the split / label column)")
+    users = np.array(sorted(user_positives.keys())[:max_users])
+    user_emb = export_feature_embeddings(
+        model, query_feature, ids=users,
+        dense=None if query_dense is None else np.asarray(query_dense)[users])
+    item_emb = export_feature_embeddings(model, candidate_feature, dense=candidate_dense)
+    start = 1 if exclude_item_zero else 0  # id 0 is the missing-id sentinel
+    _, idx = chunked_topk(user_emb, item_emb[start:], k=k)
+    pred_ids = idx.cpu().numpy() + start
+    metrics = retrieval_metrics(pred_ids, [user_positives[u] for u in users], ks=ks)
+    metrics["num_users"] = float(len(users))
+    return metrics
+
+
+def make_retrieval_eval_fn(
+    model_cfg: ModelConfig,
+    user_positives: dict[int, list],
+    query_feature: str = "user_id",
+    candidate_feature: str = "product_id",
+    k: int = 100,
+    ks: tuple[int, ...] = (100,),
+    max_users: int = 2_000,
+    metric_prefix: str = "val_",
+    params_fn=None,
+    **eval_kwargs,
+):
+    """The per-epoch retrieval hook of `train_val_test(retrieval_eval_fn=...)`:
+    `fn(state) -> {"val_recall_at_100": ...}` by the exact top-k on a user
+    subsample. Validation AUROC is no selection signal for the in-batch
+    sampled softmax (it can fall while recall holds); with
+    `select_best="val_recall_at_100"` the loop keeps the epoch that retrieves
+    best. `params_fn(state) -> model` overrides the default `full_params`;
+    `model_cfg` is the reference's signature (the state's model carries it)."""
+    del model_cfg
+
+    def fn(state) -> dict[str, float]:
+        if params_fn is not None:
+            model = params_fn(state)
+        else:
+            from two_tower_recommender_model_tpu_torch.train.step import full_params
+
+            model = full_params(state)
+        m = evaluate_retrieval(model, user_positives, query_feature=query_feature,
+                               candidate_feature=candidate_feature, k=k, max_users=max_users,
+                               ks=ks, **eval_kwargs)
+        return {f"{metric_prefix}{name}": v for name, v in m.items()}
+
+    return fn

@@ -5,16 +5,31 @@ Port of `two_tower_recommender_model_tpu/models/losses.py`:
 - `bce_with_logits` — binary cross-entropy over dot-product logits, with
   optional per-example weights (zero-weight rows are padding);
 - `weighted_bce_with_logits` — BCE weighted per interaction type, the types
-  given as one-hot dense columns.
+  given as one-hot dense columns;
+- `in_batch_sampled_softmax` — the retrieval objective: every other positive
+  item of the batch is a negative, with the optional logQ correction of the
+  sampling bias and accidental-hit masking. Three plain routes by batch size,
+  as the reference's (dense up to 4,096 rows, row blocks with recompute in
+  the backward above that, padded to a multiple of 512 where no block size
+  divides the batch), and the fused route through the CUDA kernels of
+  `ops/softmax_kernel.py`. The data-parallel route
+  (`sharded_in_batch_sampled_softmax`) waits for the multi-card slice.
 
-The losses run in the logits' dtype (bf16 under bf16 compute), as the
-reference's do. The in-batch sampled softmax is not ported yet (ROADMAP M9):
-`make_loss_fn("sampled_softmax")` raises.
+The BCE losses run in the logits' dtype (bf16 under bf16 compute), as the
+reference's do; the softmax's scores are f32 sums.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint
+
+from two_tower_recommender_model_tpu_torch.ops.softmax_kernel import (
+    NEG,
+    sampled_softmax_fused,
+    softmax_kernel_shapes_ok,
+)
 
 
 def bce_per_example(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -42,14 +57,146 @@ def weighted_bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
     return bce_with_logits(logits, labels, weights)
 
 
-def make_loss_fn(name: str, type_weights: tuple[float, ...] | None = None,
-                 type_onehot_start: int = 0):
-    """Loss factory: `loss_fn(q, c, batch) -> (loss, logits)`. For
-    "weighted_bce", `type_weights` gives one weight per interaction type and
-    the one-hot types arrive as dense columns
+def _use_fused_softmax(b: int, d: int, implementation: str, device: torch.device) -> bool:
+    """Whether a batch takes the fused kernels. "off" never does, and shapes
+    outside `softmax_kernel_shapes_ok` never do. "on" takes the fused route
+    on any device (on CPU tensors its wrappers run their plain versions, with
+    the kernels' bf16 rounding points); "auto" takes it for CUDA tensors. The
+    reference's "auto" is a table of step times measured on its TPU, which
+    says nothing about this card: a rule of the card's own waits for its
+    measured times."""
+    if implementation not in ("auto", "on", "off"):
+        raise ValueError(f"softmax implementation must be auto|on|off, got {implementation!r}")
+    if implementation == "off" or not softmax_kernel_shapes_ok(b, d):
+        return False
+    return implementation == "on" or device.type == "cuda"
+
+
+def in_batch_sampled_softmax(
+    query_emb: torch.Tensor,  # [B, D]
+    cand_emb: torch.Tensor,  # [B, D]
+    labels: torch.Tensor,  # [B]: only label == 1 rows contribute (their item is the positive)
+    item_ids: torch.Tensor | None = None,  # [B] ids for accidental-hit masking
+    log_q: torch.Tensor | None = None,  # [B] log sampling probability of each in-batch item
+    temperature: float = 1.0,
+    implementation: str = "auto",  # "auto" | "on" | "off": the fused kernels
+) -> torch.Tensor:
+    """Sampled softmax over in-batch negatives.
+
+    scores[i, j] = <q_i, c_j> / T; row i's positive is column i. Rows whose
+    label is 0 are dropped from the loss but still serve as negative columns.
+    The logQ correction subtracts the log-probability that item j appears in
+    the batch; columns with the same item id as the row's positive are masked
+    out (accidental hits)."""
+    b = query_emb.shape[0]
+    if _use_fused_softmax(b, query_emb.shape[1], implementation, query_emb.device):
+        return sampled_softmax_fused(query_emb, cand_emb, labels, item_ids, log_q, temperature)
+    chunk = _auto_row_chunk(b)
+    if chunk is not None:
+        return _chunked_sampled_softmax(query_emb, cand_emb, labels, item_ids, log_q,
+                                        temperature, chunk)
+    if b > 4096:
+        # no usable divisor: pad to a multiple of 512 and mask the pad columns out of
+        # every denominator, never the dense [B, B] matrix at this size
+        r = 512
+        pad = (-b) % r
+
+        def zpad(x, value=0):
+            return F.pad(x, (0, 0) * (x.dim() - 1) + (0, pad), value=value)
+
+        return _chunked_sampled_softmax(
+            zpad(query_emb), zpad(cand_emb), zpad(labels),
+            None if item_ids is None else zpad(item_ids, -1),
+            None if log_q is None else zpad(log_q), temperature, r, n_valid=b)
+    scores = (query_emb.float() @ cand_emb.float().T) / temperature
+    if log_q is not None:
+        scores = scores - log_q[None, :].float()
+    if item_ids is not None:
+        dup = item_ids[None, :] == item_ids[:, None]
+        eye = torch.eye(b, dtype=torch.bool, device=scores.device)
+        scores = scores.masked_fill(dup & ~eye, NEG)
+    per_row = -torch.diagonal(torch.log_softmax(scores, dim=1))
+    w = labels.to(per_row.dtype)
+    return (per_row * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def _auto_row_chunk(b: int, target_block: int = 1 << 24) -> int | None:
+    """Row-block size of the blockwise softmax: each [R, B] score block near
+    `target_block` f32 elements (64 MB). None means the dense path (small
+    batches) or no power-of-two divisor."""
+    if b <= 4096:
+        return None
+    r = max(8, target_block // b)
+    r = 1 << (r.bit_length() - 1)  # floor to a power of 2
+    while r > 1 and b % r:
+        r >>= 1
+    return r if 1 < r < b and b % r == 0 else None
+
+
+def _chunked_sampled_softmax(q, c, labels, item_ids, log_q, temperature, r,
+                             n_valid: int | None = None):
+    """Blockwise in-batch softmax over [R, B] row blocks of the score matrix.
+    Each block is checkpointed: the backward recomputes its scores, so the
+    O(B^2) matrix is kept neither for the forward nor for the backward. Each
+    row's logsumexp is whole within its block, so the math is the dense
+    path's; only the final sum over blocks reorders f32 additions."""
+    b = q.shape[0]
+    ct = c.to(q.dtype).T  # [D, B], shared by every block
+    adj = None if log_q is None else log_q.float()
+    cols = torch.arange(b, device=q.device)
+
+    def block_loss(qc, lab_c, ids_c, base):
+        scores = (qc.float() @ ct.float()) / temperature  # f32 sums whatever the dtype
+        if adj is not None:
+            scores = scores - adj[None, :]
+        if n_valid is not None and n_valid < b:
+            # pad columns must not act as in-batch negatives
+            scores = scores.masked_fill((cols >= n_valid)[None, :], NEG)
+        eye = (base + cols[:r])[:, None] == cols[None, :]
+        if ids_c is not None:
+            scores = scores.masked_fill((item_ids[None, :] == ids_c[:, None]) & ~eye, NEG)
+        lse = torch.logsumexp(scores, dim=1)
+        pos = torch.sum(torch.where(eye, scores, 0.0), dim=1)  # s_ii
+        w = lab_c.float()
+        return ((lse - pos) * w).sum(), w.sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=q.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=q.device)
+    for base in range(0, b, r):
+        s, n = torch.utils.checkpoint.checkpoint(
+            block_loss, q[base:base + r], labels[base:base + r],
+            None if item_ids is None else item_ids[base:base + r], base, use_reentrant=False)
+        tot, cnt = tot + s, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def sharded_in_batch_sampled_softmax(mesh, *args, **kwargs):
+    """The data-parallel in-batch softmax (each card its [B_local, B] stripe
+    through the fused kernels with `row_offset`). Not ported yet."""
+    raise NotImplementedError(
+        "the sharded in-batch sampled softmax is not ported to the PyTorch package yet "
+        "(ROADMAP M12: the multi-card slice); the kernels already take row_offset")
+
+
+def item_log_q_from_counts(counts: torch.Tensor, item_ids: torch.Tensor) -> torch.Tensor:
+    """logQ per in-batch item from a corpus count table, the popularity
+    correction of in-batch negatives: log(max(count_i, 1) / max(total, 1))."""
+    counts = counts.float()
+    total = torch.clamp(counts.sum(), min=1.0)
+    return torch.log(torch.clamp(counts[item_ids.long()], min=1.0) / total)
+
+
+def make_loss_fn(name: str, candidate_id_feature: str | None = None,
+                 type_weights: tuple[float, ...] | None = None, type_onehot_start: int = 0,
+                 temperature: float = 1.0, softmax_implementation: str = "auto", mesh=None):
+    """Loss factory: `loss_fn(q, c, batch, log_q=None) -> (loss, logits)`.
+    For "sampled_softmax", `candidate_id_feature` names the batch feature
+    whose first-slot ids identify the in-batch items (it enables the
+    accidental-hit masking). For "weighted_bce", `type_weights` gives one
+    weight per interaction type and the one-hot types arrive as dense columns
     `batch.dense[:, type_onehot_start : type_onehot_start + len(type_weights)]`."""
     if name == "bce":
-        def loss_fn(q, c, batch):
+        def loss_fn(q, c, batch, log_q=None):
             logits = torch.sum(q * c, dim=1)
             return bce_with_logits(logits, batch.labels), logits
         return loss_fn
@@ -58,7 +205,7 @@ def make_loss_fn(name: str, type_weights: tuple[float, ...] | None = None,
             raise ValueError('loss="weighted_bce" requires non-empty type_weights')
         lo, hi = type_onehot_start, type_onehot_start + len(type_weights)
 
-        def loss_fn(q, c, batch):
+        def loss_fn(q, c, batch, log_q=None):
             logits = torch.sum(q * c, dim=1)
             if batch.dense is None:
                 raise ValueError("weighted_bce needs dense one-hot type columns in the batch "
@@ -68,12 +215,31 @@ def make_loss_fn(name: str, type_weights: tuple[float, ...] | None = None,
                                             tw), logits
         return loss_fn
     if name == "sampled_softmax":
-        raise NotImplementedError(
-            "the in-batch sampled softmax is not ported to the PyTorch package yet (ROADMAP M9)")
+        if mesh is not None:
+            sharded_in_batch_sampled_softmax(mesh)
+
+        def loss_fn(q, c, batch, log_q=None):
+            logits = torch.sum(q * c, dim=1)
+            item_ids = None
+            if candidate_id_feature is not None and candidate_id_feature in batch.features:
+                item_ids = batch.features[candidate_id_feature].ids[:, 0]
+            loss = in_batch_sampled_softmax(q, c, batch.labels, item_ids, log_q,
+                                            temperature=temperature,
+                                            implementation=softmax_implementation)
+            return loss, logits
+        return loss_fn
     raise ValueError(f"unknown loss {name!r}")
 
 
-def loss_fn_from_config(train_cfg):
-    """The training loss of a `TrainConfig`."""
-    return make_loss_fn(train_cfg.loss, type_weights=train_cfg.loss_type_weights,
-                        type_onehot_start=train_cfg.loss_type_onehot_start)
+def loss_fn_from_config(train_cfg, model_cfg, sharded: bool = False, mesh=None):
+    """The training loss of a `TrainConfig` and a `ModelConfig`: the single
+    point where the train steps select it. `sharded` with a `mesh` is the
+    data-parallel softmax route, which is not ported yet."""
+    return make_loss_fn(
+        train_cfg.loss,
+        candidate_id_feature=model_cfg.candidate_tower.features[0],
+        type_weights=train_cfg.loss_type_weights,
+        type_onehot_start=train_cfg.loss_type_onehot_start,
+        temperature=train_cfg.softmax_temperature,
+        softmax_implementation=train_cfg.softmax_kernel,
+        mesh=mesh if sharded else None)

@@ -15,6 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from two_tower_recommender_model_tpu_torch.device import resolve_device
+
 
 @dataclasses.dataclass
 class AUROCState:
@@ -22,7 +24,8 @@ class AUROCState:
     neg: torch.Tensor  # [bins] float32
 
 
-def auroc_init(bins: int = 8192, device: torch.device | str = "cpu") -> AUROCState:
+def auroc_init(bins: int = 8192, device: torch.device | str | None = None) -> AUROCState:
+    device = resolve_device(device)
     return AUROCState(pos=torch.zeros(bins, dtype=torch.float32, device=device),
                       neg=torch.zeros(bins, dtype=torch.float32, device=device))
 
@@ -82,7 +85,8 @@ class MeanState:
     count: torch.Tensor
 
 
-def mean_init(device: torch.device | str = "cpu") -> MeanState:
+def mean_init(device: torch.device | str | None = None) -> MeanState:
+    device = resolve_device(device)
     return MeanState(total=torch.zeros((), dtype=torch.float32, device=device),
                      count=torch.zeros((), dtype=torch.float32, device=device))
 

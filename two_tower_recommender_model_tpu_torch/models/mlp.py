@@ -22,6 +22,8 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+
+from two_tower_recommender_model_tpu_torch.device import resolve_device
 import torch.nn.functional as F
 from torch import nn
 
@@ -85,7 +87,7 @@ class MLP(nn.Module):
         if activation not in _ACTIVATIONS:
             raise ValueError(f"unknown activation {activation!r}")
         sizes = [in_size, *layer_sizes]
-        device = "cpu" if device is None else device
+        device = resolve_device(device)
         self.layers = nn.ModuleList(
             torch.nn.utils.skip_init(nn.Linear, a, b, dtype=dtype, device=device)
             for a, b in zip(sizes[:-1], sizes[1:])

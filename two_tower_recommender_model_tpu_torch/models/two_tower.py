@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from two_tower_recommender_model_tpu_torch.device import resolve_device
 from torch import nn
 
 from two_tower_recommender_model_tpu_torch.config import ModelConfig, TowerConfig
@@ -63,7 +65,8 @@ def tower_in_dim(cfg: ModelConfig, tower: TowerConfig) -> int:
 class TwoTower(nn.Module):
     """Tables (`self.tables[name]`, `[N, D]`) and the two MLP towers.
 
-    Parameters are allocated uninitialized on `device`; `init_params` draws
+    Parameters are allocated uninitialized on `device` (the card when None:
+    `device.default_device`); `init_params` draws
     them and `params_from_numpy` copies them in. The tables take no autograd
     gradient (the reference updates them sparsely, outside autodiff)."""
 
@@ -71,6 +74,7 @@ class TwoTower(nn.Module):
         super().__init__()
         cfg.validate()
         self.cfg = cfg
+        device = resolve_device(device)
         self.tables = nn.ParameterDict({
             t.name: nn.Parameter(
                 torch.empty((t.num_embeddings, t.embedding_dim),
@@ -108,9 +112,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> TwoTower:
 
 
 def params_from_numpy(params: dict, cfg: ModelConfig,
-                      device: torch.device | str = "cpu") -> TwoTower:
+                      device: torch.device | str | None = None) -> TwoTower:
     """Build the port's module from the JAX pytree layout as numpy arrays."""
-    model = TwoTower(cfg, device=device)
+    model = TwoTower(cfg, device=resolve_device(device))
     with torch.no_grad():
         for name, table in model.tables.items():
             src = np.asarray(params["tables"][name])

@@ -81,14 +81,33 @@ def load_library(name: str, source: str) -> BuiltLibrary:
     return BuiltLibrary(ctypes.CDLL(str(lib_path)), lib_path, seconds, log)
 
 
-class KernelLibrary:
-    """One kernel source's library, built at the first `load`, and its C
-    entry point: `launch` calls it on the current stream of a device, raises
-    if it returns a CUDA error, and counts the launch in `launches` (a kernel
-    wrapper's count: it moves only where the kernel is launched)."""
+_SHARED: dict[str, list] = {}  # source -> [its lock, its BuiltLibrary or None]
+_SHARED_LOCK = threading.Lock()
 
-    def __init__(self, name: str, entry: str, argtypes: list):
+
+def shared_library(source: str) -> BuiltLibrary:
+    """The library of `csrc/<source>`, built once per process however many
+    kernels (entry points) it holds; builds of different sources do not wait
+    for each other."""
+    with _SHARED_LOCK:
+        slot = _SHARED.setdefault(source, [threading.Lock(), None])
+    with slot[0]:
+        if slot[1] is None:
+            slot[1] = load_library(Path(source).stem, source)
+        return slot[1]
+
+
+class KernelLibrary:
+    """One kernel: its source's library, built at the first `load`, and its C
+    entry point. `launch` calls the entry point on the current stream of a
+    device, raises if it returns a CUDA error, and counts the launch in
+    `launches` (a kernel wrapper's count: it moves only where the kernel is
+    launched). `source` names the file under `csrc/` when it holds several
+    kernels and so is not `<name>.cu`."""
+
+    def __init__(self, name: str, entry: str, argtypes: list, source: str | None = None):
         self.name = name
+        self.source = source or f"{name}.cu"
         self.launches = 0
         self._entry = entry
         self._argtypes = [*argtypes, ctypes.c_void_p]  # the stream comes last
@@ -96,10 +115,10 @@ class KernelLibrary:
         self._lock = threading.Lock()
 
     def load(self) -> BuiltLibrary:
-        """Build (if needed) and load the library, `csrc/<name>.cu`."""
+        """Build (if needed) and load the library of `csrc/<source>`."""
         with self._lock:
             if self._built is None:
-                built = load_library(self.name, f"{self.name}.cu")
+                built = shared_library(self.source)
                 fn = getattr(built.lib, self._entry)
                 fn.argtypes = self._argtypes
                 fn.restype = ctypes.c_int

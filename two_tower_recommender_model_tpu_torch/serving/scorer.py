@@ -50,7 +50,7 @@ class Scorer:
         return q.float().cpu().numpy(), c.float().cpu().numpy()
 
 
-def load_scorer(path: str, device: torch.device | str = "cpu", **kwargs) -> Scorer:
+def load_scorer(path: str, device: torch.device | str | None = None, **kwargs) -> Scorer:
     """A Scorer on `device` from an `export_model` directory of the JAX
     package (`model_config.json` + `params.npz`)."""
     from two_tower_recommender_model_tpu_torch.utils.checkpoint import load_model

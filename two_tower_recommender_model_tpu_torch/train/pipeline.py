@@ -24,6 +24,8 @@ from typing import Any, Callable, Iterable, Iterator
 import numpy as np
 import torch
 
+from two_tower_recommender_model_tpu_torch.device import resolve_device
+
 
 def map_leaves(obj: Any, fn: Callable[[torch.Tensor], torch.Tensor]) -> Any:
     """Apply `fn` to every array leaf of a batch (numpy leaves become
@@ -86,12 +88,12 @@ def _background(columns_iter: Iterable[dict], make: Callable, depth: int) -> Ite
 
 
 def prefetch_to_device(columns_iter: Iterable[dict], featurize: Callable[[dict], Any],
-                       device: torch.device | str = "cpu",
+                       device: torch.device | str | None = None,
                        prefetch: int = 2) -> Iterator[Any]:
     """Yield batches on `device`, keeping `prefetch` host-to-device copies in
     flight. `featurize` builds a host batch from a dict of columns, in a
     background thread."""
-    device = torch.device(device)
+    device = resolve_device(device)
     cuda = device.type == "cuda"
 
     def host_batch(cols):

@@ -3,8 +3,11 @@
 Port of `two_tower_recommender_model_tpu/train/step.py`. One step:
 
   stage A  pooled = gather + pool(tables, ids)              (no autograd)
+           sampled softmax with logQ: the streaming item counts take the
+           batch's ids, and logQ comes from the new counts
   stage B  loss, logits; autograd w.r.t. the towers and the pooled rows
-           (each flagship tower's backward is the fused kernel #8)
+           (under bf16 compute each flagship tower's backward is the fused
+           kernel #8; the sampled softmax runs kernels #9, #10 and #11)
   stage C  d_pooled -> per-slot row grads -> row-wise Adagrad (kernel #4)
            d_towers -> Adam
 
@@ -16,9 +19,8 @@ updates the state in place: the tables and accumulators by the kernel, the
 towers by the optimizer. `step(state, batch)` returns the same `TrainState`.
 
 Not ported yet (each raises `NotImplementedError` naming its ROADMAP item):
-int8 and bf16 table storage (M10), `scatter_buffer_dtype="bfloat16"`, the
-sampled softmax with its logQ item counts (M9), `device_sorted_gather`, and
-`make_multi_step` (a CUDA graph of K steps).
+int8 and bf16 table storage (M10), `scatter_buffer_dtype="bfloat16"`,
+`device_sorted_gather`, and `make_multi_step` (a CUDA graph of K steps).
 """
 
 from __future__ import annotations
@@ -61,6 +63,9 @@ class TrainState:
     model: TwoTower
     adagrad_acc: dict[str, torch.Tensor]  # per-table [N] row accumulators
     dense_opt_state: torch.optim.Optimizer  # over the towers' parameters
+    # streaming item-frequency counts [num_candidate_ids] f32 for the sampled
+    # softmax's logQ popularity correction (None unless enabled)
+    item_counts: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -74,7 +79,15 @@ class TrainState:
         opt = type(self.dense_opt_state)(tower_parameters(model), **self.dense_opt_state.defaults)
         opt.load_state_dict(self.dense_opt_state.state_dict())  # moves the state to `device`
         return TrainState(self.step, model,
-                          {k: v.to(device, copy=True) for k, v in self.adagrad_acc.items()}, opt)
+                          {k: v.to(device, copy=True) for k, v in self.adagrad_acc.items()}, opt,
+                          None if self.item_counts is None
+                          else self.item_counts.to(device, copy=True))
+
+
+def full_params(state: TrainState) -> TwoTower:
+    """The whole model of a state (tables and towers), as the retrieval eval
+    and the export take it."""
+    return state.model
 
 
 def tower_parameters(model: TwoTower) -> list[torch.nn.Parameter]:
@@ -97,12 +110,18 @@ def create_train_state(generator: torch.Generator, model_cfg: ModelConfig,
     _check_ported(model_cfg)
     model = init_params(model_cfg, generator)
     dense_opt = opt_lib.dense_optimizer(train_cfg.learning_rate)
+    item_counts = None
+    if train_cfg.loss == "sampled_softmax" and train_cfg.logq_correction:
+        cand_table = model_cfg.feature_table(model_cfg.candidate_tower.features[0])
+        item_counts = torch.zeros(cand_table.num_embeddings, dtype=torch.float32,
+                                  device=model.device)
     state = TrainState(
         step=0,
         model=model,
         adagrad_acc={name: torch.zeros(t.shape[0], dtype=torch.float32, device=t.device)
                      for name, t in model.tables.items()},
         dense_opt_state=dense_opt.build(tower_parameters(model)),
+        item_counts=item_counts,
     )
     return state, dense_opt
 
@@ -206,7 +225,8 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     out = {"loss", "logits"} as device tensors (read them when needed: a
     `.item()` waits for the card)."""
     _check_train_config(model_cfg, train_cfg)
-    loss_fn = losses_lib.loss_fn_from_config(train_cfg)
+    loss_fn = losses_lib.loss_fn_from_config(train_cfg, model_cfg)
+    cand_feature = model_cfg.candidate_tower.features[0]
     sorted_table = validate_sorted_feature(model_cfg, train_cfg)
     bs_kernel = train_cfg.block_sorted_kernel
     block_feature = (train_cfg.sorted_feature
@@ -220,11 +240,22 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
             pooled = pooled_embeddings(
                 model.tables, batch, model_cfg, block_sorted_feature=block_feature,
                 block_sorted_dtype=bs_kernel if bs_kernel != "off" else "float32")
+            # Streaming logQ: counts first, then logQ from the new counts, so a batch
+            # sees its own occurrences. Every duplicate counts (index_add_). The counts
+            # are integers held in f32: on the card the atomic adds of 1.0 are exact
+            # below 2^24, so the result does not depend on their order.
+            log_q = None
+            if state.item_counts is not None:
+                cand_ids = batch.features[cand_feature].ids[:, 0].long()
+                state.item_counts.index_add_(
+                    0, cand_ids, torch.ones(cand_ids.shape, dtype=torch.float32,
+                                            device=cand_ids.device))
+                log_q = losses_lib.item_log_q_from_counts(state.item_counts, cand_ids)
         pooled = {k: v.detach().requires_grad_(True) for k, v in pooled.items()}
 
         state.dense_opt_state.zero_grad(set_to_none=True)  # stage B
         q, c = towers_forward(model, pooled, batch.dense)
-        loss, logits = loss_fn(q, c, batch)
+        loss, logits = loss_fn(q, c, batch, log_q=log_q)
         loss.backward()
 
         dense_opt.step(state.dense_opt_state, state.step)  # stage C
@@ -256,7 +287,7 @@ class EvalState:
     loss: MeanState
 
 
-def eval_state_init(bins: int = 8192, device: torch.device | str = "cpu") -> EvalState:
+def eval_state_init(bins: int = 8192, device: torch.device | str | None = None) -> EvalState:
     return EvalState(auroc=auroc_init(bins, device), loss=mean_init(device))
 
 
