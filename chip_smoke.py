@@ -1,7 +1,8 @@
 """On-card smoke run of the PyTorch port: build the CUDA kernels, hold each
 against its plain PyTorch version, serve the full-width flagship model over
-HTTP, train it with BCE and with the in-batch sampled softmax, and train the
-small learnable models to a target AUROC and a target recall@10.
+HTTP, train it with BCE (f32 and int8 tables) and with the in-batch sampled
+softmax, serve the int8-trained model, and train the small learnable models
+to a target AUROC and a target recall@10.
 
     python3 chip_smoke.py [--profile]
 
@@ -65,8 +66,36 @@ without a card. Phases (any failure raises and exits non-zero):
    5 epochs x 50 batches through `train_val_test` with the per-epoch
    retrieval eval and `select_best="val_recall_at_10"`: recall@10 against the
    ground-truth top-10 must end above 0.35;
-9. with --profile, torch.profiler traces of the serving calls and of the two
-   train steps: device busy time, idle share and the largest device items.
+9. `[kernel]` (run with the other kernel checks) the int8 slice's kernels at
+   the int8 train step's shapes: the int8 pooled gather (#5) on the flagship
+   user table quantized from a seeded draw, 8,192 x 1 f32 out, 262,144 x 1
+   bf16 out and sentinel ids bit for bit, 8,192 x 3 mean-weighted slots
+   within 1e-5 x max; the fused int8 row-wise Adagrad (#6) with 262,144
+   sorted ids (f32 and bf16 gradients) and through the item table's device
+   sort: untouched rows bit for bit, scales and accumulators within rtol
+   1e-5, int8 values within one step; the dense aggregate (#3) at the same
+   ids: rows without ids exact zero, the rest within rtol 1e-5; the row
+   subtract (#7) on that batch's distinct ids: bit for bit;
+10. `[train-int8]` phase 5 with `table_dtype="int8"`: each counted step must
+   launch the int8 gather, the int8 Adagrad and the tower backward twice and
+   the f32 tables' kernels never; tables still int8, untouched rows' bytes
+   and scales kept, the host check (one quantization step on top), eval.
+   Then three steps with a 20,000,000-row int8 user table (2.56e9 int8
+   elements), created chunk by chunk: a named row past 2^24 changes, its
+   unnamed neighbour does not;
+11. `[train-override]` the f32 flagship in f32 compute: three steps each with
+   the default update, `sparse_update=block_sorted_rowwise_adagrad` (#3,
+   twice a step) and `sparse_update=pallas_sparse_rowwise_adagrad` (#7,
+   twice a step); the three end states agree within rtol 1e-5 / atol 1e-6;
+12. `[serve-int8]` the int8-trained model through `Scorer` (1, 100, 8,192
+   rows: 2 int8 gather launches each) and `RetrievalService` (7 for the
+   corpus export, 1 per retrieve), against a plain forward over the
+   dequantized tables and a brute-force top-k; then `export_model` ->
+   `load_scorer` predicts the same within 1e-6;
+13. `[learn-int8]` phase 6 with int8 tables, the same AUROC bars;
+14. with --profile, torch.profiler traces of the serving calls and of the
+   three train steps: device busy time, idle share and the largest device
+   items.
 
 The line before the last is a JSON object describing each kernel; the last
 line is `{"ok": true, "device": {...}}`.
@@ -81,6 +110,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 
@@ -103,6 +133,8 @@ from two_tower_recommender_model_tpu_torch.evaluation.retrieval import (
 from two_tower_recommender_model_tpu_torch.models.metrics import auroc_compute, mean_compute
 from two_tower_recommender_model_tpu_torch.models.two_tower import init_params, towers_forward
 from two_tower_recommender_model_tpu_torch.ops.adagrad_kernel import (
+    block_sorted_aggregate,
+    block_sorted_aggregate_reference,
     rowwise_adagrad,
     rowwise_adagrad_reference,
 )
@@ -111,15 +143,33 @@ from two_tower_recommender_model_tpu_torch.ops.embedding_kernel import (
     pooled_gather_reference,
 )
 from two_tower_recommender_model_tpu_torch.ops import softmax_kernel as sk
+from two_tower_recommender_model_tpu_torch.ops.quantized import (
+    QuantizedTable,
+    dequantize_table,
+    quantize_table,
+)
+from two_tower_recommender_model_tpu_torch.ops.quantized_kernel import (
+    quantized_pooled_gather,
+    quantized_pooled_gather_reference,
+    quantized_rowwise_adagrad_fused,
+    quantized_rowwise_adagrad_fused_reference,
+)
+from two_tower_recommender_model_tpu_torch.ops.row_subtract import (
+    row_subtract,
+    row_subtract_reference,
+)
 from two_tower_recommender_model_tpu_torch.ops.tower_bwd import (
     tower_backward,
     tower_backward_reference,
 )
 from two_tower_recommender_model_tpu_torch.serving import RetrievalService, Scorer
+from two_tower_recommender_model_tpu_torch.serving.scorer import load_scorer
 from two_tower_recommender_model_tpu_torch.serving.server import ModelServer
+from two_tower_recommender_model_tpu_torch.train import optimizer as opt_lib
 from two_tower_recommender_model_tpu_torch.train import step as step_lib
 from two_tower_recommender_model_tpu_torch.train.loop import train_val_test
 from two_tower_recommender_model_tpu_torch.train.pipeline import map_leaves
+from two_tower_recommender_model_tpu_torch.utils.checkpoint import export_model
 
 NUM_USERS, NUM_ITEMS, DIM, LAYERS = 206_209, 49_688, 128, (128, 64)
 BAGS = 8192
@@ -130,6 +180,9 @@ TRACE_TRIES = 3  # profiler traces per call before an incomplete one fails the r
 TRAIN_BATCH = 262_144  # the flagship training batch
 TRAIN_STEPS, WARMUP_STEPS, POOL = 10, 2, 4  # counted steps, warm-up steps, distinct batches
 SOFTMAX_BATCH, SOFTMAX_BIG = 8192, 65_536  # the sampled softmax's production and large batch
+BIG_USERS = 20_000_000  # the int8 size class: 2.56e9 int8 elements, past 2^31
+HIGH_ROW = 1 << 24  # the 20M-row check looks at a row above this (row x D passes 2^31)
+OVERRIDE_STEPS = 3  # steps per update route in [train-override]
 # NVIDIA H100 SXM peaks (data sheet, dense): the bounds are computed against these
 PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 KERNELS = {  # wrapper name -> (wrapper, source, the TPU kernel it replaces)
@@ -149,7 +202,21 @@ KERNELS = {  # wrapper name -> (wrapper, source, the TPU kernel it replaces)
     "softmax_lse_dc": (sk.softmax_lse_dc,
                        "two_tower_recommender_model_tpu_torch/csrc/softmax_lse.cu",
                        "two_tower_recommender_model_tpu/ops/softmax_kernel.py:138"),
+    "quantized_pooled_gather": (quantized_pooled_gather,
+                                "two_tower_recommender_model_tpu_torch/csrc/quantized_gather.cu",
+                                "two_tower_recommender_model_tpu/ops/block_sorted.py:460"),
+    "quantized_rowwise_adagrad": (quantized_rowwise_adagrad_fused,
+                                  "two_tower_recommender_model_tpu_torch/csrc/quantized_adagrad.cu",
+                                  "two_tower_recommender_model_tpu/ops/block_sorted.py:576"),
+    "block_sorted_aggregate": (block_sorted_aggregate,
+                               "two_tower_recommender_model_tpu_torch/csrc/rowwise_adagrad.cu",
+                               "two_tower_recommender_model_tpu/ops/block_sorted.py:156"),
+    "row_subtract": (row_subtract, "two_tower_recommender_model_tpu_torch/csrc/row_subtract.cu",
+                     "two_tower_recommender_model_tpu/ops/pallas_update.py:35"),
 }
+# kernels a BCE bf16 step launches twice: the f32 tables' and the int8 tables'
+BCE_F32 = {"pooled_gather": 2, "rowwise_adagrad": 2, "tower_bwd": 2}
+BCE_INT8 = {"quantized_pooled_gather": 2, "quantized_rowwise_adagrad": 2, "tower_bwd": 2}
 
 
 def log(msg: str) -> None:
@@ -187,8 +254,27 @@ def median_ms(fn, flush: torch.Tensor, reps: int = REPS) -> float:
 
 
 def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
     view = torch.int32 if a.dtype == torch.float32 else torch.int16
-    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+    return torch.equal(a.view(view), b.view(view))
+
+
+def table_parts(t) -> tuple[torch.Tensor, ...]:
+    """The tensors a table is stored in: (values, scales) of an int8 table."""
+    return (t.values, t.scales) if isinstance(t, QuantizedTable) else (t.detach(),)
+
+
+def table_f32(t) -> torch.Tensor:
+    """The f32 rows a table stands for."""
+    return dequantize_table(t) if isinstance(t, QuantizedTable) else t.detach().float()
+
+
+def table_bytes(model) -> dict[str, int]:
+    return {name: sum(p.numel() * p.element_size() for p in table_parts(t))
+            for name, t in model.tables.items()}
 
 
 def phase_kernel(dev: torch.device) -> dict:
@@ -334,6 +420,186 @@ def phase_adagrad_kernel(dev: torch.device) -> dict:
         f"{main[4]['bound_by']}; no single PyTorch call computes it")
     return {"max_abs_err": max(r[1] for r in results), "ms": main[2], "plain_ms": main[3],
             **main[4], "library_ms": None}
+
+
+def phase_int8_kernels(dev: torch.device) -> dict[str, dict]:
+    """Kernels #5, #6, #3 and #7 against their plain versions at the int8
+    train step's shapes (and #5 at the serving lookup's)."""
+    rng = np.random.default_rng(4)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
+    stats: dict[str, dict] = {}
+
+    def on_card(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    # --- #5: the int8 pooled gather on the flagship user table -------------------
+    user = quantize_table(torch.empty((NUM_USERS, DIM), device=dev).uniform_(-1, 1, generator=gen))
+    values, scales = user.values, user.scales
+
+    def gather_case(name, b, slots, out_dtype, sentinels=False):
+        live = rng.random((b, slots)) > (0.1 if slots == 1 else 0.2)
+        ids = np.where(live, rng.integers(0, NUM_USERS, (b, slots)), 0)
+        w = live.astype(np.float32)
+        if slots > 1:  # mean pooling comes pre-scaled
+            w = w / np.maximum(w.sum(1, keepdims=True), 1.0)
+        if sentinels:  # a quarter of the ids at or past N, every weight 1
+            sent = rng.random((b, 1)) < 0.25
+            ids = np.where(sent, NUM_USERS + rng.integers(0, 1000, (b, 1)), ids)
+            w = np.ones((b, 1), np.float32)
+        ids, w = on_card(ids.astype(np.int32)), on_card(w)
+        got = quantized_pooled_gather(values, scales, ids, w, out_dtype)
+        want = quantized_pooled_gather_reference(values, scales, ids, w, out_dtype)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if slots == 1:
+            if not bitwise_equal(got, want):
+                raise AssertionError(f"{name}: kernel != plain version (max abs diff {err})")
+        else:
+            within_rel(got, want, 1e-5, name)  # f32 summation order
+        if sentinels:
+            zero_rows = got[ids[:, 0] >= NUM_USERS]
+            if zero_rows.numel() == 0 or torch.count_nonzero(zero_rows).item() != 0:
+                raise AssertionError("sentinel ids must give exact zero rows")
+        ms = median_ms(lambda: quantized_pooled_gather(values, scales, ids, w, out_dtype), flush)
+        plain_ms = median_ms(
+            lambda: quantized_pooled_gather_reference(values, scales, ids, w, out_dtype), flush)
+        live_slots = int(((w != 0) & (ids < NUM_USERS)).sum())
+        # a live slot reads its int8 row and its scale, a bag writes its row; ids and weights
+        b_ = bound(live_slots * (DIM + 4) + b * DIM * got.element_size() + ids.numel() * 8,
+                   3 * live_slots * DIM, PEAK_F32)
+        log(f"[kernel] quantized_pooled_gather {name}: [{b}, {slots}] from int8 [{NUM_USERS}, "
+            f"{DIM}] {'bitwise equal' if slots == 1 else 'within 1e-5 x max|plain|'}, "
+            f"max_abs_err={err!r}, kernel_ms={ms!r}, plain_ms={plain_ms!r}, "
+            f"bound_ms={b_['bound_ms']!r} by {b_['bound_by']} ({live_slots} live slots); no "
+            "single PyTorch call computes it")
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b_, "library_ms": None}
+
+    cases = [gather_case("f32 out L=1", BAGS, 1, torch.float32),
+             gather_case("bf16 out L=1 (the train step's)", TRAIN_BATCH, 1, torch.bfloat16),
+             gather_case("f32 out L=3 mean", BAGS, 3, torch.float32),
+             gather_case("f32 out sentinels", BAGS, 1, torch.float32, sentinels=True)]
+    stats["quantized_pooled_gather"] = {**cases[1],
+                                        "max_abs_err": max(c["max_abs_err"] for c in cases)}
+
+    # --- #6: the fused int8 row-wise Adagrad --------------------------------------
+    m = TRAIN_BATCH
+    user_sorted = None  # the user table's sorted ids and bf16 gradients, reused by #3 and #7
+    results = []
+    for name, n, sort, grad_dtype in (("user f32 sorted", NUM_USERS, True, torch.float32),
+                                      ("user bf16 sorted", NUM_USERS, True, torch.bfloat16),
+                                      ("item bf16 device-sorted", NUM_ITEMS, False, torch.bfloat16)):
+        ids = rng.integers(0, n, m)
+        ids[rng.random(m) < 0.05] = n  # dead slots carry the sentinel N
+        ids_t = on_card(ids.astype(np.int32))
+        perm = None
+        if sort:
+            ids_t = torch.sort(ids_t).values
+        else:
+            ids_t, perm = torch.sort(ids_t, stable=True)
+            perm = perm.to(torch.int32)
+        grads = on_card(rng.normal(size=(m, DIM)).astype(np.float32), grad_dtype)
+        table = quantize_table(on_card(rng.normal(size=(n, DIM)).astype(np.float32)))
+        acc = on_card(np.abs(rng.normal(size=n)).astype(np.float32))
+        kern = (table.values.clone(), table.scales.clone(), acc.clone())
+        plain = (table.values.clone(), table.scales.clone(), acc.clone())
+        quantized_rowwise_adagrad_fused(*kern, ids_t, grads, LR, EPS, perm=perm)
+        quantized_rowwise_adagrad_fused_reference(*plain, ids_t, grads, LR, EPS, perm=perm)
+        torch.cuda.synchronize()
+        live = torch.zeros(n, dtype=torch.bool, device=dev)
+        live[ids_t[ids_t < n].long()] = True
+        for got, start, what in zip(kern, (table.values, table.scales, acc),
+                                    ("values", "scales", "accumulators")):
+            if not bitwise_equal(got[~live], start[~live]):
+                raise AssertionError(f"{name}: {what} of rows no live id names changed")
+        torch.testing.assert_close(kern[1], plain[1], rtol=1e-5, atol=1e-6)  # f32 sum order
+        torch.testing.assert_close(kern[2], plain[2], rtol=1e-5, atol=1e-6)
+        # the order of the sum may move a value across a rounding boundary: one step
+        steps = (kern[0].int() - plain[0].int()).abs()
+        if steps.max().item() > 1:
+            raise AssertionError(f"{name}: int8 values differ by {steps.max().item()} steps")
+        differ = (steps != 0).sum().item() / max(int(live.sum()) * DIM, 1)
+        err = max((kern[1] - plain[1]).abs().max().item(), (kern[2] - plain[2]).abs().max().item())
+        ms = median_ms(lambda: quantized_rowwise_adagrad_fused(*kern, ids_t, grads, LR, EPS,
+                                                               perm=perm), flush)
+        plain_ms = median_ms(lambda: quantized_rowwise_adagrad_fused_reference(
+            *plain, ids_t, grads, LR, EPS, perm=perm), flush)
+        touched = int(live.sum())
+        # grads and ids (and the permutation) read once; each touched row's int8 values, scale
+        # and accumulator read and written
+        b_ = bound(m * DIM * grads.element_size() + m * 4 * (1 if perm is None else 2)
+                   + touched * (DIM + 8) * 2, 4 * m * DIM + 8 * touched * DIM, PEAK_F32)
+        log(f"[kernel] quantized_rowwise_adagrad {name}: {m} ids into int8 [{n}, {DIM}], "
+            f"{touched} rows touched; untouched rows bitwise, scales and accumulators within "
+            f"rtol 1e-5 (max_abs_err={err!r}), int8 values within one step "
+            f"(share_of_touched_values_that_differ={differ!r}); kernel_ms={ms!r}, "
+            f"plain_ms={plain_ms!r}, bound_ms={b_['bound_ms']!r} by {b_['bound_by']}; no single "
+            "PyTorch call computes it")
+        results.append({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b_,
+                        "library_ms": None})
+        if name == "user bf16 sorted":
+            user_sorted = (ids_t, grads, live)
+    stats["quantized_rowwise_adagrad"] = {  # the step's sorted update: user table, bf16
+        **results[1], "max_abs_err": max(r["max_abs_err"] for r in results)}
+
+    # --- #3: the dense aggregate at the same ids -----------------------------------
+    ids_t, grads, live = user_sorted
+    got = block_sorted_aggregate(NUM_USERS, ids_t, grads)
+    want = block_sorted_aggregate_reference(NUM_USERS, ids_t, grads)
+    torch.cuda.synchronize()
+    if torch.count_nonzero(got[~live]).item() != 0:
+        raise AssertionError("block_sorted_aggregate: a row without ids is not exact zero")
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)  # f32 summation order
+    err = (got - want).abs().max().item()
+    ids64, grads32 = ids_t[ids_t < NUM_USERS].long(), grads[ids_t < NUM_USERS].float()
+
+    def aggregate_library():  # on ids and gradients prepared for it (int64, f32, live only)
+        return torch.zeros((NUM_USERS, DIM), device=dev).index_add_(0, ids64, grads32)
+
+    torch.testing.assert_close(aggregate_library(), want, rtol=1e-5, atol=1e-5)
+    ms = median_ms(lambda: block_sorted_aggregate(NUM_USERS, ids_t, grads), flush)
+    plain_ms = median_ms(lambda: block_sorted_aggregate_reference(NUM_USERS, ids_t, grads), flush)
+    library_ms = median_ms(aggregate_library, flush)
+    b_ = bound(m * DIM * grads.element_size() + m * 4 + NUM_USERS * DIM * 4, m * DIM, PEAK_F32)
+    log(f"[kernel] block_sorted_aggregate user bf16 sorted: {m} ids into f32 [{NUM_USERS}, {DIM}] "
+        f"(zeroed by the wrapper, timed with it); rows without ids exact zero, the rest within "
+        f"rtol 1e-5; max_abs_err={err!r}, kernel_ms={ms!r}, plain_ms={plain_ms!r}, "
+        f"bound_ms={b_['bound_ms']!r} by {b_['bound_by']}, library_ms={library_ms!r} "
+        "(zeros.index_add_ on int64 ids and f32 gradients)")
+    stats["block_sorted_aggregate"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b_,
+                                       "library_ms": library_ms}
+
+    # --- #7: the row subtract on that batch's distinct ids --------------------------
+    rows = torch.unique(ids_t)  # distinct, the sentinel N among them
+    upd = on_card(rng.normal(size=(rows.shape[0], DIM)).astype(np.float32))
+    table = on_card(rng.normal(size=(NUM_USERS, DIM)).astype(np.float32))
+    t_k, t_p, t_l = table.clone(), table.clone(), table.clone()
+    row_subtract(t_k, rows, upd)
+    row_subtract_reference(t_p, rows, upd)
+    live_rows = rows[rows < NUM_USERS].long()
+    live_upd = upd[rows < NUM_USERS].contiguous()
+
+    def subtract_library():  # on int64 live ids
+        return t_l.index_add_(0, live_rows, live_upd, alpha=-1)
+
+    subtract_library()
+    torch.cuda.synchronize()
+    if not (bitwise_equal(t_k, t_p) and bitwise_equal(t_l, t_p)):
+        raise AssertionError("row_subtract: kernel, plain version and index_add_ differ")
+    if bitwise_equal(t_k, table):
+        raise AssertionError("row_subtract changed nothing")
+    ms = median_ms(lambda: row_subtract(t_k, rows, upd), flush)
+    plain_ms = median_ms(lambda: row_subtract_reference(t_p, rows, upd), flush)
+    library_ms = median_ms(subtract_library, flush)
+    k = live_rows.shape[0]
+    b_ = bound(rows.shape[0] * 4 + k * DIM * 4 * 3, k * DIM, PEAK_F32)
+    log(f"[kernel] row_subtract: {rows.shape[0]} distinct ids ({k} live) into f32 [{NUM_USERS}, "
+        f"{DIM}]: bitwise equal; kernel_ms={ms!r}, plain_ms={plain_ms!r}, "
+        f"bound_ms={b_['bound_ms']!r} by {b_['bound_by']}, library_ms={library_ms!r} "
+        "(index_add_ alpha=-1 on int64 live ids)")
+    stats["row_subtract"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **b_,
+                             "library_ms": library_ms}
+    return stats
 
 
 def phase_tower_kernel(dev: torch.device) -> dict:
@@ -500,15 +766,12 @@ def timed_steps(train_step, state, pool, first: int, n: int):
     return state, out, times
 
 
-def phase_train(dev: torch.device, profile: bool) -> dict[str, int]:
-    """The flagship training slice at full width, through the port's entry
-    points; the counted steps are the main path."""
+def flagship_batches(dev: torch.device) -> tuple[list, list]:
+    """The flagship's packed training pool and validation batches, on the
+    card: sorted by user id, the label in the ids. One set serves every
+    flagship BCE phase (the packing does not depend on the tables' storage)."""
     cfg = cfg_lib.two_tower_model_config(NUM_USERS, NUM_ITEMS, embedding_dim=DIM,
-                                         layer_sizes=LAYERS, compute_dtype="bfloat16")
-    tcfg = cfg_lib.TrainConfig(batch_size=TRAIN_BATCH, sorted_feature="user_id",
-                               block_sorted_kernel="bfloat16", loss="bce")
-    state, dense_opt = step_lib.create_train_state(torch.Generator(device=dev).manual_seed(0),
-                                                   cfg, tcfg)
+                                         layer_sizes=LAYERS)
     feat = PackedFeaturizer(cfg, pack_label=True, sort_feature="user_id")
     ds = SyntheticClickstream(NUM_USERS - 1, NUM_ITEMS - 1, seed=0)
     t0 = time.perf_counter()
@@ -518,8 +781,11 @@ def phase_train(dev: torch.device, profile: bool) -> dict[str, int]:
            for cols in ds.batches(TRAIN_BATCH, 2, split="val")]
     log(f"[train] {POOL} training and {len(val)} validation batches of {TRAIN_BATCH} sampled, "
         f"packed and on the card in {time.perf_counter() - t0!r} s (before the counted steps)")
-    train_step = make_packed_train_step(step_lib.make_train_step(cfg, tcfg, dense_opt), cfg,
-                                        pack_label=True)
+    return pool, val
+
+
+def named_rows(cfg, pool, dev: torch.device) -> dict[str, torch.Tensor]:
+    """Per table, the mask of rows that some batch of the pool names."""
     touched = {t.name: torch.zeros(t.num_embeddings, dtype=torch.bool, device=dev)
                for t in cfg.tables}
     for pb in pool:
@@ -527,7 +793,30 @@ def phase_train(dev: torch.device, profile: bool) -> dict[str, int]:
         for fc in cfg.features:
             f = batch.features[fc.name]
             touched[fc.table][f.ids[f.mask > 0].long()] = True
-    before = {name: t.clone() for name, t in state.model.tables.items()}
+    return touched
+
+
+def phase_train(dev: torch.device, profile: bool, batches: tuple[list, list],
+                table_dtype: str | None = None):
+    """The flagship BCE training slice at full width, through the port's
+    entry points, with f32 tables (`[train]`) or, under `table_dtype="int8"`,
+    int8 tables (`[train-int8]`); the counted steps are the main path.
+    Returns (launches, state, cfg)."""
+    tag = "[train-int8]" if table_dtype == "int8" else "[train]"
+    want = BCE_INT8 if table_dtype == "int8" else BCE_F32
+    pool, val = batches
+    cfg = cfg_lib.two_tower_model_config(NUM_USERS, NUM_ITEMS, embedding_dim=DIM,
+                                         layer_sizes=LAYERS, compute_dtype="bfloat16")
+    cfg = dataclasses.replace(cfg, table_dtype=table_dtype)
+    tcfg = cfg_lib.TrainConfig(batch_size=TRAIN_BATCH, sorted_feature="user_id",
+                               block_sorted_kernel="bfloat16", loss="bce")
+    state, dense_opt = step_lib.create_train_state(torch.Generator(device=dev).manual_seed(0),
+                                                   cfg, tcfg)
+    train_step = make_packed_train_step(step_lib.make_train_step(cfg, tcfg, dense_opt), cfg,
+                                        pack_label=True)
+    touched = named_rows(cfg, pool, dev)
+    before = {name: [p.clone() for p in table_parts(t)] for name, t in state.model.tables.items()}
+    before_f32 = {name: table_f32(t).clone() for name, t in state.model.tables.items()}
 
     state, _, _ = timed_steps(train_step, state, pool, 0, WARMUP_STEPS)
     # --- the main path, counted ---------------------------------------------------
@@ -536,32 +825,162 @@ def phase_train(dev: torch.device, profile: bool) -> dict[str, int]:
     launches = read_launches()
     # --- checks, not counted ------------------------------------------------------
     for name, n in launches.items():
-        per_step = 0 if name.startswith("softmax") else 2  # BCE: no softmax kernel
-        if n != per_step * TRAIN_STEPS:
-            raise AssertionError(f"[train] {name}: {n} launches in {TRAIN_STEPS} steps, "
-                                 f"expected {per_step} a step")
+        if n != want.get(name, 0) * TRAIN_STEPS:
+            raise AssertionError(f"{tag} {name}: {n} launches in {TRAIN_STEPS} steps, "
+                                 f"expected {want.get(name, 0)} a step")
     step_ms = statistics.median(times)
     loss = out["loss"].float().item()
     if not np.isfinite(loss):
-        raise AssertionError(f"[train] loss is not finite: {loss}")
-    log(f"[train] flagship bf16 step, batch {TRAIN_BATCH}: median_step_ms={step_ms!r} "
+        raise AssertionError(f"{tag} loss is not finite: {loss}")
+    log(f"{tag} flagship bf16 step, {table_dtype or 'float32'} tables "
+        f"{table_bytes(state.model)} bytes, batch {TRAIN_BATCH}: median_step_ms={step_ms!r} "
         f"min_step_ms={min(times)!r} examples_per_s={TRAIN_BATCH / step_ms * 1e3!r} "
         f"(n={TRAIN_STEPS}, after {WARMUP_STEPS} warm-up steps), loss={loss!r}, "
-        f"launches per step: {{{', '.join(f'{k}: {v // TRAIN_STEPS}' for k, v in launches.items())}}}")
+        f"launches per step: { {k: v // TRAIN_STEPS for k, v in launches.items() if v} }")
     for name, t in state.model.tables.items():
+        if table_dtype == "int8" and not (isinstance(t, QuantizedTable)
+                                          and t.values.dtype == torch.int8
+                                          and t.scales.dtype == torch.float32
+                                          and state.adagrad_acc[name].dtype == torch.float32):
+            raise AssertionError(f"{tag} {name}: not an int8 table with f32 scales any more")
         keep = ~touched[name]
-        if not torch.equal(t[keep].view(torch.int32), before[name][keep].view(torch.int32)):
-            raise AssertionError(f"[train] {name}: rows no batch named changed")
-        moved = (t != before[name]).any(dim=1).sum().item()
-        log(f"[train] {name}: {int(keep.sum())} untouched rows kept their bits; "
+        for part, start in zip(table_parts(t), before[name]):
+            if not bitwise_equal(part[keep], start[keep]):
+                raise AssertionError(f"{tag} {name}: rows no batch named changed")
+        moved = (table_f32(t) != before_f32[name]).any(dim=1).sum().item()
+        log(f"{tag} {name}: {int(keep.sum())} untouched rows kept their bits; "
             f"{moved} of {int(touched[name].sum())} touched rows moved")
     # "auto" is on, on the card
-    check_against_host("[train]", state, dataclasses.replace(cfg, fused_tower_backward="on"),
+    check_against_host(tag, state, dataclasses.replace(cfg, fused_tower_backward="on"),
                        tcfg, dense_opt, train_step, pool[0])
-    evaluate_card(state, cfg, tcfg, val)
+    evaluate_card(tag, state, cfg, tcfg, val)
     if profile:
-        profile_direct(lambda: train_step(state, pool[0]), "train step", 2, calls=5)
-    return launches
+        profile_direct(lambda: train_step(state, pool[0]), f"{tag[1:-1]} step", 2, calls=5,
+                       marker="quantized_gather" if table_dtype == "int8" else "pooled_gather")
+    return launches, state, cfg
+
+
+def phase_train_big_int8(dev: torch.device, pool: list) -> None:
+    """Three steps with a 20,000,000-row int8 user table (2.56e9 int8
+    elements: row offsets pass 2^31), initialized chunk by chunk. The
+    flagship's batches with the user ids spread over the larger table."""
+    cfg = cfg_lib.two_tower_model_config(BIG_USERS, NUM_ITEMS, embedding_dim=DIM,
+                                         layer_sizes=LAYERS, compute_dtype="bfloat16")
+    cfg = dataclasses.replace(cfg, table_dtype="int8")
+    tcfg = cfg_lib.TrainConfig(batch_size=TRAIN_BATCH, sorted_feature="user_id",
+                               block_sorted_kernel="bfloat16", loss="bce")
+    small = cfg_lib.two_tower_model_config(NUM_USERS, NUM_ITEMS, embedding_dim=DIM,
+                                           layer_sizes=LAYERS)
+    t0 = time.perf_counter()
+    state, dense_opt = step_lib.create_train_state(torch.Generator(device=dev).manual_seed(0),
+                                                   cfg, tcfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    user_feature = cfg.query_tower.features[0]
+    user_table = cfg.feature(user_feature).table
+    feat = PackedFeaturizer(cfg, pack_label=True, sort_feature="user_id")
+    big_pool = []
+    for pb in pool[:3]:  # the same interactions, user u -> 96 u (below 20,000,000)
+        batch = unpack_batch(pb, small, pack_label=True)
+        cols = {fc.name: batch.features[fc.name].ids[:, 0].cpu().numpy().astype(np.int64)
+                for fc in small.features}
+        cols[user_feature] = cols[user_feature] * 96
+        cols["label"] = batch.labels.cpu().numpy().astype(np.int64)
+        big_pool.append(map_leaves(feat(cols), lambda t: t.to(dev)))
+    table = state.model.tables[user_table]
+    named = named_rows(cfg, big_pool, dev)[user_table]
+    # a named row past 2^24 whose upper neighbour no batch names
+    cand = torch.nonzero(named[:-1] & ~named[1:]).flatten()
+    row = int(cand[cand > HIGH_ROW][-1])
+    before = table.values[row:row + 2].clone(), table.scales[row:row + 2].clone()
+    train_step = make_packed_train_step(step_lib.make_train_step(cfg, tcfg, dense_opt), cfg,
+                                        pack_label=True)
+    made = read_launches()
+    state, out, times = timed_steps(train_step, state, big_pool, 0, 3)
+    made = {k: v - made[k] for k, v in read_launches().items() if v - made[k]}
+    loss = out["loss"].float().item()
+    if not np.isfinite(loss):
+        raise AssertionError(f"[train-int8] 20M-row table: loss is not finite: {loss}")
+    if made != {k: 3 * v for k, v in BCE_INT8.items()}:
+        raise AssertionError(f"[train-int8] 20M-row table: launches {made}")
+    after = table.values[row:row + 2], table.scales[row:row + 2]
+    if torch.equal(after[0][0], before[0][0]):
+        raise AssertionError(f"[train-int8] 20M-row table: named row {row} did not change")
+    if not (torch.equal(after[0][1], before[0][1]) and bitwise_equal(after[1][1:], before[1][1:])):
+        raise AssertionError(f"[train-int8] 20M-row table: unnamed row {row + 1} changed")
+    log(f"[train-int8] {BIG_USERS}-row int8 user table ({table_bytes(state.model)} bytes, "
+        f"{table.values.numel()} int8 elements), created in {init_s!r} s: 3 steps, "
+        f"step_ms={times!r}, loss={loss!r}, launches {made}; named row {row} (> {HIGH_ROW}) changed, "
+        f"its unnamed neighbour kept its bytes and scale")
+
+
+def sorted_first(update):
+    """An update that needs non-decreasing ids, behind a stable device sort."""
+    def upd(table, acc, fids, fgrads, lr, eps):
+        sids, perm = torch.sort(fids, stable=True)
+        return update(table, acc, sids, fgrads[perm], lr, eps)
+    return upd
+
+
+def phase_train_override(dev: torch.device, pool: list) -> dict[str, int]:
+    """The f32 flagship in f32 compute: from one state, three steps with the
+    default update (kernel #4), three with `sparse_update=
+    block_sorted_rowwise_adagrad` (the dense aggregate, kernel #3) and three
+    with `sparse_update=pallas_sparse_rowwise_adagrad` (the row subtract,
+    kernel #7). The three end states agree within rtol 1e-5 / atol 1e-6: the
+    routes sum a row's gradients in different orders, which moves its update
+    (about the learning rate, 0.05, a step while the accumulators are young)
+    by 1e-6 of itself, whatever is left of the element after the update. The
+    counted steps of the two overrides are the main path of #3 and #7."""
+    cfg = cfg_lib.two_tower_model_config(NUM_USERS, NUM_ITEMS, embedding_dim=DIM,
+                                         layer_sizes=LAYERS)
+    tcfg = cfg_lib.TrainConfig(batch_size=TRAIN_BATCH, sorted_feature="user_id",
+                               block_sorted_kernel="float32", loss="bce")
+    base, dense_opt = step_lib.create_train_state(torch.Generator(device=dev).manual_seed(0),
+                                                  cfg, tcfg)
+    routes = {  # name -> (sparse_update, the kernel each step launches twice)
+        "default": (None, "rowwise_adagrad"),
+        # the dense aggregate needs sorted ids; the item table's arrive unsorted
+        "block_sorted_rowwise_adagrad": (sorted_first(opt_lib.block_sorted_rowwise_adagrad),
+                                         "block_sorted_aggregate"),
+        "pallas_sparse_rowwise_adagrad": (opt_lib.pallas_sparse_rowwise_adagrad, "row_subtract"),
+    }
+    update_kernels = {kernel for _, kernel in routes.values()}
+    total = {name: 0 for name in KERNELS}
+    ends = {}
+    for name, (sparse_update, kernel) in routes.items():
+        state = base.copy()
+        train_step = make_packed_train_step(
+            step_lib.make_train_step(cfg, tcfg, dense_opt, sparse_update=sparse_update), cfg,
+            pack_label=True)
+        # --- the main path of #3 and #7, counted -----------------------------------
+        reset_launches()
+        state, out, times = timed_steps(train_step, state, pool, 0, OVERRIDE_STEPS)
+        launches = read_launches()
+        # --- checks, not counted ----------------------------------------------------
+        for k in update_kernels:
+            if launches[k] != (2 * OVERRIDE_STEPS if k == kernel else 0):
+                raise AssertionError(f"[train-override] {name}: {k} launched {launches[k]} times "
+                                     f"in {OVERRIDE_STEPS} steps")
+        if not np.isfinite(out["loss"].item()):
+            raise AssertionError(f"[train-override] {name}: loss is not finite")
+        for k, v in launches.items():
+            total[k] += v
+        ends[name] = state
+        log(f"[train-override] {name}: f32 flagship, batch {TRAIN_BATCH}, {OVERRIDE_STEPS} steps, "
+            f"step_ms={times!r} (median {statistics.median(times)!r}), loss={out['loss'].item()!r}, "
+            f"launches { {k: v for k, v in launches.items() if v} }")
+    want = ends["default"]
+    for name, got in ends.items():
+        for tname, t in want.model.tables.items():
+            torch.testing.assert_close(got.model.tables[tname].detach(), t.detach(), rtol=1e-5,
+                                       atol=1e-6, msg=lambda m: f"{name} {tname}: {m}")
+            torch.testing.assert_close(got.adagrad_acc[tname], want.adagrad_acc[tname],
+                                       rtol=1e-5, atol=1e-6,
+                                       msg=lambda m: f"{name} {tname} accumulator: {m}")
+    log("[train-override] the three routes' tables and accumulators agree within rtol 1e-5 / "
+        "atol 1e-6")
+    return total
 
 
 def check_against_host(tag, state, host_cfg, tcfg, dense_opt, train_step, pb) -> None:
@@ -570,13 +989,17 @@ def check_against_host(tag, state, host_cfg, tcfg, dense_opt, train_step, pb) ->
     ulps of each quantity's largest magnitude (2^-7): under bf16 compute the
     logits, loss and pooled gradients are bf16 values, and in the fused
     softmax p is a bf16 value; a sum on a bf16 rounding boundary rounds
-    either way in the two. The item counts are integers and must be equal."""
+    either way in the two. An int8 table's dequantized rows get one
+    quantization step of the row (scale / 127) on top: a value on a rounding
+    boundary lands on either side. The item counts are integers and must be
+    equal."""
     card = state.copy()
     host = state.copy("cpu")
     host.model.cfg = host_cfg
     host_step = make_packed_train_step(step_lib.make_train_step(host_cfg, tcfg, dense_opt),
                                        host_cfg, pack_label=True)
-    before = {name: t.cpu() for name, t in card.model.tables.items()}
+    before = {name: [p.cpu() for p in table_parts(t)] for name, t in card.model.tables.items()}
+    before_f32 = {name: table_f32(t).cpu() for name, t in card.model.tables.items()}
     t0 = time.perf_counter()
     card, cout = train_step(card, pb)
     host, hout = host_step(host, map_leaves(pb, lambda t: t.cpu()))
@@ -584,12 +1007,28 @@ def check_against_host(tag, state, host_cfg, tcfg, dense_opt, train_step, pb) ->
     rel = 2.0 ** -7
     errs = {"loss": within_rel(cout["loss"].cpu().reshape(1), hout["loss"].reshape(1), rel, "loss"),
             "logits": within_rel(cout["logits"].cpu(), hout["logits"], rel, "logits")}
-    for name, t0_ in before.items():
-        got, want = card.model.tables[name].cpu(), host.model.tables[name]
-        same = (want == t0_).all(dim=1)
-        if not torch.equal(got[same], t0_[same]):
-            raise AssertionError(f"host check {name}: rows the host step kept moved on the card")
-        errs[name] = within_rel(got - t0_, want - t0_, rel, f"{name} update")
+    for name, t0_ in before_f32.items():
+        got_t, want_t = card.model.tables[name], host.model.tables[name]
+        same = torch.ones(t0_.shape[0], dtype=torch.bool)
+        for part, start in zip(table_parts(want_t), before[name]):
+            same &= (part == start).reshape(t0_.shape[0], -1).all(dim=1)
+        for part, start in zip(table_parts(got_t), before[name]):
+            if not torch.equal(part.cpu()[same], start[same]):
+                raise AssertionError(f"host check {name}: rows the host step kept moved on the "
+                                     "card")
+        got, want = table_f32(got_t).cpu(), table_f32(want_t)
+        if isinstance(got_t, QuantizedTable):
+            step = torch.maximum(got_t.scales.cpu(), want_t.scales)[:, None] / 127
+            diff = (got - want).abs()
+            if (diff > rel * (want - t0_).abs().max() + step).any():
+                raise AssertionError(f"host check {name}: dequantized rows differ by "
+                                     f"{diff.max().item()!r}, more than 2^-7 x max|update| plus "
+                                     "one quantization step")
+            errs[name] = diff.max().item()
+            errs[f"{name} values that differ"] = (
+                (got_t.values.cpu() != want_t.values).sum().item() / got_t.values.numel())
+        else:
+            errs[name] = within_rel(got - t0_, want - t0_, rel, f"{name} update")
         errs[f"{name} acc"] = within_rel(card.adagrad_acc[name].cpu(), host.adagrad_acc[name],
                                          rel, f"{name} accumulator")
     for (pc, sc), (ph, sh) in zip(card.dense_opt_state.state.items(),
@@ -605,15 +1044,15 @@ def check_against_host(tag, state, host_cfg, tcfg, dense_opt, train_step, pb) ->
         f"{host_s!r} s): within 2^-7 x max|host| each; max abs diffs {errs!r}")
 
 
-def evaluate_card(state, cfg, tcfg, val) -> None:
+def evaluate_card(tag, state, cfg, tcfg, val) -> None:
     eval_step = make_packed_eval_step(step_lib.make_eval_step(cfg, tcfg), cfg, pack_label=True)
     es = step_lib.eval_state_init(device=state.device)
     for pb in val:
         es = eval_step(state, es, pb)
     loss, auroc = float(mean_compute(es.loss)), float(auroc_compute(es.auroc))
     if not (np.isfinite(loss) and 0.0 <= auroc <= 1.0):
-        raise AssertionError(f"[train] eval gave loss {loss}, auroc {auroc}")
-    log(f"[train] eval over {len(val)} validation batches of {TRAIN_BATCH}: "
+        raise AssertionError(f"{tag} eval gave loss {loss}, auroc {auroc}")
+    log(f"{tag} eval over {len(val)} validation batches of {TRAIN_BATCH}: "
         f"val_loss={loss!r} val_auroc={auroc!r}")
 
 
@@ -649,9 +1088,9 @@ def phase_train_softmax(dev: torch.device, profile: bool) -> dict[str, int]:
     per_step = {"pooled_gather": 2, "rowwise_adagrad": 2, "tower_bwd": 0,  # f32: off #8's gate
                 "softmax_lse_fwd": 1, "softmax_lse_dq": 1, "softmax_lse_dc": 1}
     for name, n in launches.items():
-        if n != per_step[name] * TRAIN_STEPS:
+        if n != per_step.get(name, 0) * TRAIN_STEPS:
             raise AssertionError(f"[train-softmax] {name}: {n} launches in {TRAIN_STEPS} steps, "
-                                 f"expected {per_step[name]} a step")
+                                 f"expected {per_step.get(name, 0)} a step")
     loss = out["loss"].item()
     if not np.isfinite(loss):
         raise AssertionError(f"[train-softmax] loss is not finite: {loss}")
@@ -663,7 +1102,7 @@ def phase_train_softmax(dev: torch.device, profile: bool) -> dict[str, int]:
         f"{SOFTMAX_BATCH}: median_step_ms={step_ms!r} min_step_ms={min(times)!r} "
         f"examples_per_s={SOFTMAX_BATCH / step_ms * 1e3!r} (n={TRAIN_STEPS}, after "
         f"{WARMUP_STEPS} warm-up steps), loss={loss!r}, item_counts sum={counted!r}, "
-        f"launches per step: { {k: v // TRAIN_STEPS for k, v in launches.items()} }")
+        f"launches per step: { {k: v // TRAIN_STEPS for k, v in launches.items() if v} }")
     check_against_host("[train-softmax]", state, cfg, tcfg, dense_opt, train_step, pool[0])
     if profile:
         profile_direct(lambda: train_step(state, pool[0]), "train-softmax step", 2, calls=5)
@@ -705,7 +1144,7 @@ def phase_train_softmax(dev: torch.device, profile: bool) -> dict[str, int]:
                                    pack_label=True)
     before = read_launches()
     bstate, out, btimes = timed_steps(bstep, bstate, pool, 0, 2)
-    made = {k: v - before[k] for k, v in read_launches().items()}
+    made = {k: v - before[k] for k, v in read_launches().items() if v - before[k]}
     want = {"pooled_gather": 4, "rowwise_adagrad": 4, "tower_bwd": 4, "softmax_lse_fwd": 2,
             "softmax_lse_dq": 2, "softmax_lse_dc": 2}
     if made != want or not np.isfinite(out["loss"].float().item()):
@@ -768,13 +1207,17 @@ def phase_learn_softmax(dev: torch.device) -> dict[str, int]:
     return launches
 
 
-def phase_learn(dev: torch.device) -> dict[str, int]:
+def phase_learn(dev: torch.device, table_dtype: str | None = None) -> dict[str, int]:
     """The verify drive on the card: the learnable synthetic set through
-    `train_val_test`. Dim 32 is off the tower kernel's gate, so this path runs
-    the pooled gather and row-wise Adagrad only."""
+    `train_val_test`, with f32 tables (`[learn]`) or int8 tables
+    (`[learn-int8]`). Dim 32 is off the tower kernel's gate, so this path runs
+    the tables' gather and row-wise Adagrad kernels only."""
+    tag = "[learn-int8]" if table_dtype == "int8" else "[learn]"
+    used = (("quantized_pooled_gather", "quantized_rowwise_adagrad") if table_dtype == "int8"
+            else ("pooled_gather", "rowwise_adagrad"))
     mcfg = cfg_lib.two_tower_model_config(2000, 500, embedding_dim=32, layer_sizes=(64, 32))
     mcfg = dataclasses.replace(
-        mcfg, query_tower=dataclasses.replace(mcfg.query_tower, final_activation=False),
+        mcfg, table_dtype=table_dtype, query_tower=dataclasses.replace(mcfg.query_tower, final_activation=False),
         candidate_tower=dataclasses.replace(mcfg.candidate_tower, final_activation=False))
     tcfg = cfg_lib.TrainConfig(epochs=2, sparse_learning_rate=0.1, learning_rate=3e-3,
                                limit_val_batches=4, limit_test_batches=4)
@@ -795,16 +1238,16 @@ def phase_learn(dev: torch.device) -> dict[str, int]:
     launches = read_launches()
     # --- checks, not counted ------------------------------------------------------
     if not 0.45 <= res["baseline_val_auroc"] <= 0.55:
-        raise AssertionError(f"[learn] baseline val AUROC {res['baseline_val_auroc']} "
+        raise AssertionError(f"{tag} baseline val AUROC {res['baseline_val_auroc']} "
                              "outside 0.45-0.55")
     if res["val_auroc"] < 0.70:
-        raise AssertionError(f"[learn] final val AUROC {res['val_auroc']} < 0.70")
-    if not (launches["pooled_gather"] and launches["rowwise_adagrad"]):
-        raise AssertionError(f"[learn] the path did not go through the kernels: {launches}")
-    log(f"[learn] baseline_val_auroc={res['baseline_val_auroc']!r} "
+        raise AssertionError(f"{tag} final val AUROC {res['val_auroc']} < 0.70")
+    if {k for k, v in launches.items() if v} != set(used):
+        raise AssertionError(f"{tag} the path did not go through its kernels alone: {launches}")
+    log(f"{tag} baseline_val_auroc={res['baseline_val_auroc']!r} "
         f"val_auroc={res['val_auroc']!r} test_auroc={res['test_auroc']!r} "
         f"train_loss={res['train_loss']!r} examples_per_s={res['examples_per_sec']!r} "
-        f"({seconds!r} s in all), launches={launches}")
+        f"({seconds!r} s in all), launches={ {k: v for k, v in launches.items() if v} }")
     return launches
 
 
@@ -848,13 +1291,14 @@ def timed_direct(fn, label: str) -> None:
     log(f"[direct] {label}: median_ms={statistics.median(lat)!r} (n={REQ_REPS})")
 
 
-def profile_direct(fn, label: str, gathers_per_call: int, calls: int = 10) -> None:
+def profile_direct(fn, label: str, gathers_per_call: int, calls: int = 10,
+                   marker: str = "pooled_gather") -> None:
     """Where a direct call's time goes on the card: `torch.profiler` traces
     the device alone over `calls` calls, after 3 traced warm-up calls that it
     discards (tracing starts late, so without them the first calls' events
     go missing) and whose device work is finished before the window opens.
-    The trace must hold `gathers_per_call` pooled-gather
-    launches per call, which shows it is complete; the profiler still drops
+    The trace must hold `gathers_per_call` launches per call of the gather
+    kernel whose name contains `marker`, which shows it is complete; the profiler still drops
     an event now and then in calls of many launches, so an incomplete trace
     is thrown away and the calls traced again, up to `TRACE_TRIES` times.
     Busy time is the union of the device events' intervals (kernels, copies,
@@ -878,10 +1322,10 @@ def profile_direct(fn, label: str, gathers_per_call: int, calls: int = 10) -> No
                 prof.step()
         spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                        if e.device_type == DeviceType.CUDA)
-        gathers = sum("pooled_gather" in name for _, _, name in spans)
+        gathers = sum(marker in name for _, _, name in spans)
         if gathers == gathers_per_call * calls:
             break
-        log(f"[profile] {label}: trace {attempt} holds {gathers} pooled-gather launches, "
+        log(f"[profile] {label}: trace {attempt} holds {gathers} {marker} launches, "
             f"expected {gathers_per_call * calls}: thrown away")
     else:
         raise AssertionError(f"{label}: no complete trace in {TRACE_TRIES} tries")
@@ -1000,6 +1444,86 @@ def phase_serve(dev: torch.device, profile: bool) -> int:
     return launches
 
 
+@torch.no_grad()
+def phase_serve_int8(dev: torch.device, state, cfg) -> dict[str, int]:
+    """The int8-trained flagship (the state `[train-int8]` ended with, not
+    its export) through `Scorer` and `RetrievalService`; the calls are the
+    main path and are counted alone, the answers are checked after. Then its
+    export, loaded back as an f32 model, must predict the same."""
+    rng = np.random.default_rng(8)
+    model = state.model
+    requests = []
+    for n in (1, 100, BAGS):
+        users = rng.integers(0, NUM_USERS, n)
+        users[::10] = 0  # dropped ids pool to zero
+        requests.append({"user_id": users, "product_id": rng.integers(0, NUM_ITEMS, n)})
+    retrieve_users = [rng.integers(1, NUM_USERS, n) for n in (16, 1000)]
+
+    def counted(fn, label, expect):
+        before = quantized_pooled_gather.launches
+        t0 = time.perf_counter()
+        out = fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        made = quantized_pooled_gather.launches - before
+        if made != expect:
+            raise AssertionError(f"[serve-int8] {label}: {made} int8 gather launches, expected "
+                                 f"{expect}")
+        log(f"[serve-int8] {label}: {ms!r} ms (first call), quantized_pooled_gather "
+            f"launches={made}")
+        return out
+
+    # --- the main path, counted ------------------------------------------------
+    reset_launches()
+    scorer = Scorer(model)
+    svc = counted(lambda: RetrievalService(model), "corpus export", -(-NUM_ITEMS // EXPORT_BATCH))
+    preds = [counted(lambda: scorer.predict(inputs), f"Scorer.predict {len(inputs['user_id'])} "
+                     "rows", 2) for inputs in requests]
+    retrievals = [counted(lambda: svc.retrieve(users, k=100),
+                          f"RetrievalService.retrieve {len(users)} users k=100", 1)
+                  for users in retrieve_users]
+    launches = read_launches()
+    # --- checks, not counted -----------------------------------------------------
+    if {k for k, v in launches.items() if v} != {"quantized_pooled_gather"}:
+        raise AssertionError(f"[serve-int8] launches {launches}: only the int8 gather may run")
+    deq = {name: dequantize_table(t) for name, t in model.tables.items()}
+    compute = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    for inputs, got in zip(requests, preds):
+        n = len(inputs["user_id"])
+        if got.shape != (n,) or not np.isfinite(got).all():
+            raise AssertionError(f"[serve-int8] {n} rows: bad predictions shape/values")
+        batch = Featurizer(cfg, device=dev)({**inputs, "label": np.zeros(n)})
+        pooled = {fc.name: pooled_gather_reference(
+            deq[fc.table], batch.features[fc.name].ids, batch.features[fc.name].mask, compute)
+            for fc in cfg.features}
+        q, c = towers_forward(model, pooled, None)
+        plain = torch.sigmoid((q * c).sum(1)).float().cpu().numpy()
+        np.testing.assert_allclose(got, plain, rtol=0, atol=1e-5)
+    for users, (items, scores) in zip(retrieve_users, retrievals):
+        if items.shape != (len(users), 100) or not np.isfinite(scores).all():
+            raise AssertionError("[serve-int8] retrieve: bad shape or values")
+        q = export_feature_embeddings(model, "user_id", ids=users)
+        full = q.float() @ svc.corpus.float().T  # brute force on the card
+        want = torch.topk(full, 100, dim=1).values.cpu().numpy()
+        np.testing.assert_allclose(scores, want, rtol=1e-5, atol=0)
+        at = torch.gather(full, 1, torch.from_numpy(items - 1).to(dev)).cpu().numpy()
+        np.testing.assert_allclose(scores, at, rtol=1e-5, atol=0)
+    log("[serve-int8] predictions within 1e-5 of a plain forward over the dequantized tables; "
+        "top-k scores equal a brute-force top-k's within rtol 1e-5")
+
+    with tempfile.TemporaryDirectory() as path:
+        export_model(path, cfg, state)
+        loaded = load_scorer(path)
+    if loaded.model.cfg.table_dtype is not None or any(
+            t.dtype != torch.float32 for t in loaded.model.tables.values()):
+        raise AssertionError("[serve-int8] the export must be an f32 model naming no table dtype")
+    worst = max(float(np.abs(loaded.predict(inputs) - got).max()) for inputs, got in zip(requests, preds))
+    if not worst <= 1e-6:
+        raise AssertionError(f"[serve-int8] export -> load_scorer predicts {worst} away")
+    log(f"[serve-int8] export_model -> load_scorer (dequantized f32 tables): predictions within "
+        f"{worst!r} of the int8 model's (1e-6 allowed)")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1026,23 +1550,28 @@ def main() -> int:
                 log(f"[build]   {line.strip()}")
 
     stats = {"pooled_gather": phase_kernel(dev), "rowwise_adagrad": phase_adagrad_kernel(dev),
-             "tower_bwd": phase_tower_kernel(dev), **phase_softmax_kernel(dev)}
+             "tower_bwd": phase_tower_kernel(dev), **phase_softmax_kernel(dev),
+             **phase_int8_kernels(dev)}
     serve = phase_serve(dev, args.profile)
-    train = phase_train(dev, args.profile)
-    learn = phase_learn(dev)
-    train_softmax = phase_train_softmax(dev, args.profile)
-    learn_softmax = phase_learn_softmax(dev)
+    batches = flagship_batches(dev)
+    paths = {"train": phase_train(dev, args.profile, batches)[0], "learn": phase_learn(dev),
+             "train-softmax": phase_train_softmax(dev, args.profile),
+             "learn-softmax": phase_learn_softmax(dev)}
+    paths["train-int8"], int8_state, int8_cfg = phase_train(dev, args.profile, batches, "int8")
+    phase_train_big_int8(dev, batches[0])
+    paths["train-override"] = phase_train_override(dev, batches[0])
+    paths["serve-int8"] = phase_serve_int8(dev, int8_state, int8_cfg)
+    paths["learn-int8"] = phase_learn(dev, "int8")
     torch.cuda.synchronize()
     leaked = [m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "optax", "two_tower_recommender_model_tpu")]
     if leaked:
         raise AssertionError(f"JAX or the JAX package was imported: {leaked[:5]}")
 
-    launches = {name: train[name] + learn[name] + train_softmax[name] + learn_softmax[name]
-                for name in KERNELS}
+    launches = {name: sum(path[name] for path in paths.values()) for name in KERNELS}
     launches["pooled_gather"] += serve
-    log(f"launches on the main paths: serve pooled_gather={serve}, train {train}, learn {learn}, "
-        f"train-softmax {train_softmax}, learn-softmax {learn_softmax}")
+    log(f"launches on the main paths: serve pooled_gather={serve}, " + ", ".join(
+        f"{path} { {k: v for k, v in made.items() if v} }" for path, made in paths.items()))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], **stats[name]}

@@ -271,7 +271,6 @@ def test_unsorted_ids_for_the_sorted_table_are_refused():
 
 @pytest.mark.parametrize("make", [
     lambda m, t: ({"m": dataclasses.replace(m, table_dtype="bfloat16")}, "create"),
-    lambda m, t: ({"m": dataclasses.replace(m, table_dtype="int8")}, "create"),
     lambda m, t: ({"t": dataclasses.replace(t, scatter_buffer_dtype="bfloat16")}, "step"),
     lambda m, t: ({"t": dataclasses.replace(t, device_sorted_gather=True)}, "step"),
     lambda m, t: ({"t": dataclasses.replace(t, loss="sampled_softmax")}, "sharded loss"),

@@ -7,7 +7,8 @@ module here mirrors its counterpart's path and public names, and the tests
 imports `torch` and numpy, never `jax`, `flax` or `optax`, and nothing of the
 JAX package.
 
-What it covers today is the serving and the training slice:
+What it covers today: serving, training (BCE and the in-batch sampled
+softmax) and int8 table storage:
 
 - `config`                 — the model dataclasses and `TrainConfig`, equal
                              field for field to the JAX package's.
@@ -21,8 +22,17 @@ What it covers today is the serving and the training slice:
                              its plain PyTorch version.
 - `ops.embedding_ops`      — `pooled_lookup`, the sorted feature's lookup, and
                              `row_grads_from_pooled`.
-- `ops.adagrad_kernel`     — the CUDA fused row-wise Adagrad kernel
-                             (`csrc/rowwise_adagrad.cu`) and its plain version.
+- `ops.adagrad_kernel`     — the CUDA fused row-wise Adagrad kernel and the
+                             dense aggregate kernel (`csrc/rowwise_adagrad.cu`)
+                             and their plain versions.
+- `ops.quantized`          — int8 tables: `QuantizedTable`, the quantization
+                             scheme, the plain int8 updates.
+- `ops.quantized_kernel`   — the CUDA int8 pooled-gather kernel
+                             (`csrc/quantized_gather.cu`) and the fused int8
+                             row-wise Adagrad kernel
+                             (`csrc/quantized_adagrad.cu`), their plain versions.
+- `ops.row_subtract`       — the CUDA in-place row-subtract kernel
+                             (`csrc/row_subtract.cu`) and its plain version.
 - `ops.tower_bwd`          — the CUDA fused two-layer tower backward
                              (`csrc/tower_bwd.cu`) and its plain version.
 - `ops.softmax_kernel`     — the CUDA fused in-batch sampled-softmax kernels

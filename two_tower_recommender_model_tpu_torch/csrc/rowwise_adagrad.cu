@@ -1,4 +1,6 @@
-// Fused row-wise Adagrad over sorted ids, for Hopper (sm_90a):
+// Two kernels over runs of equal sorted ids, for Hopper (sm_90a).
+//
+// 1. Fused row-wise Adagrad (ttrm_rowwise_adagrad):
 //
 //   for each distinct live id r in ids (ids[j] < N):
 //     g_r       = sum of grads[src(j)] over j with ids[j] == r   (f32)
@@ -44,6 +46,18 @@
 //   A very long run (a hot id under skew) is serial on its one warp; at the
 //   flagship's uniform ids runs are short. Splitting long runs is later work.
 //
+// 2. The dense aggregate (ttrm_sorted_aggregate):
+//
+//   out[r] = sum of grads[j] over j with ids[j] == r        (f32), [N, D]
+//
+// Replaces the Pallas TPU kernel `_aggregate_kernel` / `block_sorted_aggregate`
+// of the same file (kernel #3). It shares the run detection and the sum with
+// the kernel above (sorted_runs.cuh) and writes each run's sum to its row,
+// once. Rows that no live id names are not written: the wrapper hands in a
+// zeroed `out`, so they stay exact zeros. What bounds it: memory, the N x D
+// f32 output above all (106 MB at the flagship's user table against 67 MB of
+// bf16 gradients).
+//
 // Binding: a plain C interface loaded with ctypes. The launch goes to the
 // caller's stream, does not synchronise, and the entry point returns
 // cudaGetLastError() right after the launch.
@@ -51,32 +65,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sorted_runs.cuh"
+
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kThreads = kWarpsPerBlock * 32;
-constexpr int kMaxChunks = 4;  // 128 columns per chunk: D <= 512
-
-// dtype codes shared with the Python wrapper
-constexpr int kF32 = 0;
-constexpr int kBF16 = 1;
-
-// four consecutive gradient elements, widened to f32
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 r = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = r.x;
-  v[1] = r.y;
-  v[2] = r.z;
-  v[3] = r.w;
-}
-__device__ __forceinline__ void load4(const uint16_t* p, float (&v)[4]) {
-  // bf16 travels as its raw 16 bits: widening is a 16-bit shift, exact
-  const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
-  v[0] = __uint_as_float(r.x << 16);
-  v[1] = __uint_as_float(r.x & 0xffff0000u);
-  v[2] = __uint_as_float(r.y << 16);
-  v[3] = __uint_as_float(r.y & 0xffff0000u);
-}
+using namespace sorted_runs;
 
 template <typename G>
 __global__ void __launch_bounds__(kThreads)
@@ -84,53 +77,17 @@ rowwise_adagrad_kernel(float* __restrict__ table, float* __restrict__ acc,
                        const int32_t* __restrict__ ids, const G* __restrict__ grads,
                        const int32_t* __restrict__ perm, int64_t n_rows, int64_t d, int64_t m,
                        float lr, float eps) {
-  const int lane = threadIdx.x & 31;
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (j >= m) return;
-  const int32_t r = __ldg(ids + j);
-  if (r < 0 || r >= n_rows) return;            // sentinel: dead slot
-  if (j > 0 && __ldg(ids + j - 1) == r) return;  // not the first of its run
-
   float g[kMaxChunks][4];
-#pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) g[c][i] = 0.f;
-
-  // the run, in sorted order
-  for (int64_t k = j; k < m && __ldg(ids + k) == r; ++k) {
-    const int64_t src = perm != nullptr ? static_cast<int64_t>(__ldg(perm + k)) : k;
-    const G* row = grads + src * d;
-#pragma unroll
-    for (int c = 0; c < kMaxChunks; ++c) {
-      const int64_t col = static_cast<int64_t>(c * 32 + lane) * 4;
-      if (col < d) {
-        float v[4];
-        load4(row + col, v);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) g[c][i] += v[i];
-      }
-    }
-  }
-
-  float sq = 0.f;
-#pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) {
-    const int64_t col = static_cast<int64_t>(c * 32 + lane) * 4;
-    if (col < d) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sq += g[c][i] * g[c][i];
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+  const int32_t r = sum_owned_run(ids, grads, perm, n_rows, d, m, g);
+  if (r < 0) return;
+  const float sq = warp_sum_squares(g, d);
 
   const float new_acc = acc[r] + sq / static_cast<float>(d);
   const float denom = sqrtf(new_acc) + eps;
   float* trow = table + static_cast<int64_t>(r) * d;
 #pragma unroll
   for (int c = 0; c < kMaxChunks; ++c) {
-    const int64_t col = static_cast<int64_t>(c * 32 + lane) * 4;
+    const int64_t col = lane_col(c);
     if (col < d) {
       float4 t = *reinterpret_cast<float4*>(trow + col);
       t.x = t.x - lr * g[c][0] / denom;
@@ -140,7 +97,24 @@ rowwise_adagrad_kernel(float* __restrict__ table, float* __restrict__ acc,
       *reinterpret_cast<float4*>(trow + col) = t;
     }
   }
-  if (lane == 0) acc[r] = new_acc;
+  if ((threadIdx.x & 31) == 0) acc[r] = new_acc;
+}
+
+template <typename G>
+__global__ void __launch_bounds__(kThreads)
+sorted_aggregate_kernel(float* __restrict__ out, const int32_t* __restrict__ ids,
+                        const G* __restrict__ grads, int64_t n_rows, int64_t d, int64_t m) {
+  float g[kMaxChunks][4];
+  const int32_t r = sum_owned_run(ids, grads, static_cast<const int32_t*>(nullptr), n_rows, d, m,
+                                  g);
+  if (r < 0) return;
+  float* orow = out + static_cast<int64_t>(r) * d;
+#pragma unroll
+  for (int c = 0; c < kMaxChunks; ++c) {
+    const int64_t col = lane_col(c);
+    if (col < d)
+      *reinterpret_cast<float4*>(orow + col) = make_float4(g[c][0], g[c][1], g[c][2], g[c][3]);
+  }
 }
 
 }  // namespace
@@ -152,10 +126,8 @@ int ttrm_rowwise_adagrad(void* table, void* acc, const void* ids, const void* gr
                          int grad_dtype, const void* perm, int64_t n_rows, int64_t d, int64_t m,
                          float lr, float eps, void* stream) {
   if (m <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
-  if (d <= 0 || d % 4 != 0 || d > kMaxChunks * 128) return static_cast<int>(cudaErrorInvalidValue);
-  if (m > static_cast<int64_t>(0x7fffffff) * kWarpsPerBlock)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>((m + kWarpsPerBlock - 1) / kWarpsPerBlock));
+  dim3 grid;
+  if (!launch_shape(d, m, &grid)) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   auto* t = static_cast<float*>(table);
   auto* a = static_cast<float*>(acc);
@@ -167,6 +139,27 @@ int ttrm_rowwise_adagrad(void* table, void* acc, const void* ids, const void* gr
   } else if (grad_dtype == kBF16) {
     rowwise_adagrad_kernel<uint16_t><<<grid, kThreads, 0, s>>>(
         t, a, i, static_cast<const uint16_t*>(grads), p, n_rows, d, m, lr, eps);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `out` [N, D] f32 must arrive zeroed. Returns a cudaError_t code.
+int ttrm_sorted_aggregate(void* out, const void* ids, const void* grads, int grad_dtype,
+                          int64_t n_rows, int64_t d, int64_t m, void* stream) {
+  if (m <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
+  dim3 grid;
+  if (!launch_shape(d, m, &grid)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* o = static_cast<float*>(out);
+  const auto* i = static_cast<const int32_t*>(ids);
+  if (grad_dtype == kF32) {
+    sorted_aggregate_kernel<float><<<grid, kThreads, 0, s>>>(
+        o, i, static_cast<const float*>(grads), n_rows, d, m);
+  } else if (grad_dtype == kBF16) {
+    sorted_aggregate_kernel<uint16_t><<<grid, kThreads, 0, s>>>(
+        o, i, static_cast<const uint16_t*>(grads), n_rows, d, m);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

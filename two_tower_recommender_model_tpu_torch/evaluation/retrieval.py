@@ -4,7 +4,9 @@ Port of `two_tower_recommender_model_tpu/evaluation/retrieval.py`:
 `export_feature_embeddings`, `retrieval_metrics`, `evaluate_retrieval` and
 `make_retrieval_eval_fn`. The row gather goes through `pooled_lookup` with
 one slot and weight 1, so on a CUDA model the export runs the pooled-gather
-kernel too. `split_positives` (it needs the shard reader) and
+kernel too; an int8 table's rows come straight from the int8 gather kernel
+(the reference dequantizes the whole table first; the rows are the same).
+`split_positives` (it needs the shard reader) and
 `per_user_retrieval_table` (pandas) are not ported yet.
 """
 

@@ -13,23 +13,29 @@ the embedding backward sparse:
   - `towers_forward(model, pooled, dense)` — the dense towers, with the fused
     tower backward where `cfg.fused_tower_backward` resolves to on.
 
-The `device_sorted_features` gather route and int8 tables are not ported yet.
+A table stored as int8 (`table_dtype="int8"`, model-wide or per table) is a
+`QuantizedTable` (`ops/quantized.py`) and goes through the int8 pooled-gather
+kernel; bf16 table storage and the `device_sorted_features` gather route are
+not ported yet.
 
 Weights cross between the packages as numpy arrays in the JAX pytree layout
 (`params_from_numpy` / `params_to_numpy`):
 
-    {"tables": {table_name: [N, D]},
+    {"tables": {table_name: [N, D], or for an int8 table
+                            {"values": [N, D] int8, "scales": [N] f32}},
      "query_tower": {"layer_i": {"kernel": [in, out], "bias": [out]}},
      "candidate_tower": {...}}
 """
 
 from __future__ import annotations
 
+import zlib
+
 import numpy as np
 import torch
+from torch import nn
 
 from two_tower_recommender_model_tpu_torch.device import resolve_device
-from torch import nn
 
 from two_tower_recommender_model_tpu_torch.config import ModelConfig, TowerConfig
 from two_tower_recommender_model_tpu_torch.data.featurizer import Batch
@@ -38,15 +44,24 @@ from two_tower_recommender_model_tpu_torch.ops.embedding_ops import (
     block_sorted_lookup,
     pooled_lookup,
 )
+from two_tower_recommender_model_tpu_torch.ops.quantized import (
+    QuantizedTable,
+    dequantize_table,
+    init_quantized_table,
+    quantize_table,
+)
 
 _TOWERS = ("query_tower", "candidate_tower")
 
+# int8 tables with at least this many rows are never drawn whole in f32 (4M
+# rows x 128 f32 is 2 GB; the tables int8 storage exists for are far larger):
+# `init_params` initializes them chunk by chunk (`init_quantized_table`)
+BIG_INT8_INIT_ROWS = 4_000_000
+
 
 def torch_dtype(name: str) -> torch.dtype:
-    """A config dtype name ("float32" | "bfloat16") as a torch dtype."""
-    if name == "int8":
-        raise NotImplementedError("int8 tables are not ported to the PyTorch package yet")
-    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+    """A config dtype name ("float32" | "bfloat16" | "int8") as a torch dtype."""
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}[name]
 
 
 def init_table(generator: torch.Generator, num_embeddings: int, dim: int,
@@ -62,8 +77,57 @@ def tower_in_dim(cfg: ModelConfig, tower: TowerConfig) -> int:
     return sum(cfg.feature_table(f).embedding_dim for f in tower.features) + tower.dense_dim
 
 
+class TableDict(nn.Module):
+    """The model's tables by name, in the config's order: a float table as a
+    frozen `nn.Parameter` `[N, D]`, an int8 table as a `QuantizedTable`
+    (`.values`, `.scales`). `tables[name] = new` replaces a table by either
+    kind, so an update that returns new tensors can be installed."""
+
+    def __init__(self, tables: dict):
+        super().__init__()
+        self._names: list[str] = []
+        for name, table in tables.items():
+            self[name] = table
+
+    def __getitem__(self, name: str):
+        if name in self._parameters:
+            return self._parameters[name]
+        return self._modules[name]
+
+    def __setitem__(self, name: str, table) -> None:
+        self._parameters.pop(name, None)
+        self._modules.pop(name, None)
+        if isinstance(table, QuantizedTable):
+            self.add_module(name, table)
+        else:
+            if not isinstance(table, nn.Parameter):
+                table = nn.Parameter(table, requires_grad=False)
+            self.register_parameter(name, table)
+        if name not in self._names:
+            self._names.append(name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._names
+
+    def __iter__(self):
+        return iter(self._names)
+
+    def __len__(self) -> int:
+        return len(self._names)
+
+    def keys(self):
+        return list(self._names)
+
+    def values(self):
+        return [self[name] for name in self._names]
+
+    def items(self):
+        return [(name, self[name]) for name in self._names]
+
+
 class TwoTower(nn.Module):
-    """Tables (`self.tables[name]`, `[N, D]`) and the two MLP towers.
+    """Tables (`self.tables[name]`: `[N, D]`, or a `QuantizedTable` for an
+    int8 table) and the two MLP towers.
 
     Parameters are allocated uninitialized on `device` (the card when None:
     `device.default_device`); `init_params` draws
@@ -75,13 +139,16 @@ class TwoTower(nn.Module):
         cfg.validate()
         self.cfg = cfg
         device = resolve_device(device)
-        self.tables = nn.ParameterDict({
-            t.name: nn.Parameter(
-                torch.empty((t.num_embeddings, t.embedding_dim),
-                            dtype=torch_dtype(cfg.table_dtype_of(t.name)), device=device),
-                requires_grad=False)
-            for t in cfg.tables
-        })
+
+        def empty_table(t):
+            shape, dtype = (t.num_embeddings, t.embedding_dim), cfg.table_dtype_of(t.name)
+            if dtype == "int8":
+                return QuantizedTable(
+                    torch.empty(shape, dtype=torch.int8, device=device),
+                    torch.empty(t.num_embeddings, dtype=torch.float32, device=device))
+            return torch.empty(shape, dtype=torch_dtype(dtype), device=device)
+
+        self.tables = TableDict({t.name: empty_table(t) for t in cfg.tables})
         dtype = torch_dtype(cfg.param_dtype)
         for key in _TOWERS:
             tower = getattr(cfg, key)
@@ -97,12 +164,27 @@ class TwoTower(nn.Module):
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> TwoTower:
-    """A randomly initialized `TwoTower` on the generator's device."""
+    """A randomly initialized `TwoTower` on the generator's device. An int8
+    table is drawn in f32 and quantized; one of `BIG_INT8_INIT_ROWS` rows or
+    more is never drawn whole: it is initialized chunk by chunk from a
+    generator of its own, seeded from `generator`'s seed and the table's name.
+    (The reference's `init_params` returns the f32 draw and leaves both steps
+    to `create_train_state`; the port's returns a module whose tables already
+    have their storage type, so it does them here.)"""
     model = TwoTower(cfg, device=generator.device)
     with torch.no_grad():
         for t in cfg.tables:
-            model.tables[t.name].copy_(init_table(
-                generator, t.num_embeddings, t.embedding_dim, model.tables[t.name].dtype))
+            if cfg.table_dtype_of(t.name) != "int8":
+                model.tables[t.name].copy_(init_table(
+                    generator, t.num_embeddings, t.embedding_dim, model.tables[t.name].dtype))
+            elif t.num_embeddings < BIG_INT8_INIT_ROWS:
+                model.tables[t.name] = quantize_table(
+                    init_table(generator, t.num_embeddings, t.embedding_dim))
+            else:
+                seed = (generator.initial_seed() + zlib.crc32(t.name.encode())) % (1 << 63)
+                own = torch.Generator(device=generator.device).manual_seed(seed)
+                model.tables[t.name] = init_quantized_table(own, t.num_embeddings,
+                                                            t.embedding_dim)
         dtype = torch_dtype(cfg.param_dtype)
         for key in _TOWERS:
             tower = getattr(cfg, key)
@@ -117,7 +199,20 @@ def params_from_numpy(params: dict, cfg: ModelConfig,
     model = TwoTower(cfg, device=resolve_device(device))
     with torch.no_grad():
         for name, table in model.tables.items():
-            src = np.asarray(params["tables"][name])
+            src = params["tables"][name]
+            if isinstance(table, QuantizedTable):
+                if not (isinstance(src, dict) and {"values", "scales"} <= set(src)):
+                    raise ValueError(f"table {name!r} is int8: expected "
+                                     "{'values': int8 [N, D], 'scales': f32 [N]}")
+                values, scales = np.asarray(src["values"]), np.asarray(src["scales"])
+                if values.dtype != np.int8 or values.shape != tuple(table.shape) \
+                        or scales.shape != (table.shape[0],):
+                    raise ValueError(f"table {name!r}: values {values.dtype} {values.shape}, "
+                                     f"scales {scales.shape} != int8 {tuple(table.shape)}")
+                table.values.copy_(torch.from_numpy(values))
+                table.scales.copy_(torch.from_numpy(scales.astype(np.float32)))
+                continue
+            src = np.asarray(src)
             if src.shape != tuple(table.shape):
                 raise ValueError(f"table {name!r}: shape {src.shape} != {tuple(table.shape)}")
             table.copy_(torch.from_numpy(src.astype(np.float32)))
@@ -135,14 +230,23 @@ def params_from_numpy(params: dict, cfg: ModelConfig,
     return model
 
 
-def params_to_numpy(model: TwoTower) -> dict:
+def params_to_numpy(model: TwoTower, dequantize: bool = False) -> dict:
     """The inverse of `params_from_numpy`: float32 numpy arrays in the JAX
-    pytree layout (bfloat16 tables widen exactly to float32)."""
+    pytree layout (bfloat16 tables widen exactly to float32). An int8 table
+    comes back as its `{"values", "scales"}`, or with `dequantize` as the f32
+    rows it stands for (what the portable export stores)."""
 
     def host(t: torch.Tensor) -> np.ndarray:
         return t.detach().to("cpu", torch.float32).numpy()
 
-    out: dict = {"tables": {name: host(t) for name, t in model.tables.items()}}
+    def host_table(t):
+        if not isinstance(t, QuantizedTable):
+            return host(t)
+        if dequantize:
+            return host(dequantize_table(t))
+        return {"values": t.values.cpu().numpy(), "scales": host(t.scales)}
+
+    out: dict = {"tables": {name: host_table(t) for name, t in model.tables.items()}}
     for key in _TOWERS:
         out[key] = {
             f"layer_{i}": {"kernel": host(layer.weight).T.copy(), "bias": host(layer.bias)}
@@ -162,8 +266,10 @@ def pooled_embeddings(tables, batch: Batch, cfg: ModelConfig,
     (`ops.embedding_ops.block_sorted_lookup`, the reference's Pallas kernel
     #2): one pooled-gather launch with the slot mask as the row weight,
     emitting the compute dtype. Under `block_sorted_dtype="bfloat16"` the
-    rows are rounded to bf16, as the reference's bf16 one-hot gather rounds
-    them."""
+    rows of a float table are rounded to bf16, as the reference's bf16
+    one-hot gather rounds them; an int8 table's rows are dequantized in f32
+    whatever that option says, as the reference's int8 gather leaves them
+    (f32 out where no compute dtype is set)."""
     compute_dtype = (
         torch_dtype(cfg.compute_dtype)
         if cfg.compute_dtype != cfg.resolved_table_dtype
@@ -175,12 +281,14 @@ def pooled_embeddings(tables, batch: Batch, cfg: ModelConfig,
         if fc.name == block_sorted_feature:
             if fc.max_ids_per_sample != 1:
                 raise ValueError(f"block_sorted_feature {fc.name!r} must be single-slot")
+            table = tables[fc.table]
+            quantized = isinstance(table, QuantizedTable)
             rows_dtype = compute_dtype
-            if block_sorted_dtype == "bfloat16":
+            if block_sorted_dtype == "bfloat16" and not quantized:
                 rows_dtype = torch.bfloat16
-            rows = block_sorted_lookup(tables[fc.table], feat.ids[:, 0], feat.mask[:, 0],
+            rows = block_sorted_lookup(table, feat.ids[:, 0], feat.mask[:, 0],
                                        out_dtype=rows_dtype)
-            out[fc.name] = rows.to(compute_dtype or tables[fc.table].dtype)
+            out[fc.name] = rows.to(compute_dtype or (torch.float32 if quantized else table.dtype))
             continue
         out[fc.name] = pooled_lookup(
             tables[fc.table], feat.ids, feat.mask, fc.pooling, compute_dtype

@@ -57,7 +57,8 @@ class BuiltLibrary:
 def load_library(name: str, source: str) -> BuiltLibrary:
     """Compile `csrc/<source>` (if not built yet) and `ctypes`-load it."""
     src = CSRC / source
-    code = src.read_bytes()
+    # the shared headers are part of every source's key: a changed header rebuilds them all
+    code = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(code + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     root = Path(os.environ.get("TTRM_TORCH_BUILD_DIR") or DEFAULT_BUILD_ROOT)
     out_dir = root / f"{name}-{key}"

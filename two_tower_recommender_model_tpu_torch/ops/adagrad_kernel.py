@@ -1,4 +1,5 @@
-"""Fused row-wise Adagrad: the CUDA kernel's wrapper and its plain version.
+"""Fused row-wise Adagrad and the dense aggregate: the CUDA kernels' wrappers
+and their plain versions.
 
 Port of the Pallas TPU kernel
 `ops/block_sorted.py:block_sorted_rowwise_adagrad_fused`
@@ -19,6 +20,14 @@ permuted copy of the gradients.
 (the kernel gives each run of equal ids to one warp; unsorted ids would race),
 and takes `rowwise_adagrad_reference` only for tensors that lie on the CPU. It
 counts its kernel launches in `rowwise_adagrad.launches`.
+
+`block_sorted_aggregate` is the port of the Pallas TPU kernel
+`ops/block_sorted.py:block_sorted_aggregate` (`_aggregate_kernel`): the dense
+`[N, D]` f32 sum of `grads[j]` over `ids[j] == r`, exact zeros for rows no
+live id names. Its kernel lives in the same source and shares the run
+detection and the sum with the Adagrad kernel (`csrc/sorted_runs.cuh`); the
+same rules hold (sorted ids on CUDA tensors, the plain version only on the
+CPU, launches counted in `block_sorted_aggregate.launches`).
 """
 
 from __future__ import annotations
@@ -117,3 +126,58 @@ class RowwiseAdagrad(_build.KernelLibrary):
 
 
 rowwise_adagrad = RowwiseAdagrad()
+
+
+def block_sorted_aggregate_reference(table_rows: int, sids: torch.Tensor,
+                                     grads: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of the aggregate kernel: `[table_rows, D]`
+    f32, ids in any order, ids outside `[0, table_rows)` dropped."""
+    live = (sids >= 0) & (sids < table_rows)
+    return torch.zeros((table_rows, grads.shape[1]), dtype=torch.float32,
+                       device=grads.device).index_add_(0, sids[live].long(),
+                                                       grads[live].to(torch.float32))
+
+
+class BlockSortedAggregate(_build.KernelLibrary):
+    """The dense-aggregate wrapper: checks its inputs, allocates the zeroed
+    `[N, D]` f32 output and launches the CUDA kernel on the current stream (no
+    sync). `launches` counts kernel launches and nothing else."""
+
+    def __init__(self):
+        super().__init__("block_sorted_aggregate", "ttrm_sorted_aggregate", [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int64], source="rowwise_adagrad.cu")
+
+    def __call__(self, table_rows: int, sids: torch.Tensor, grads: torch.Tensor) -> torch.Tensor:
+        """`[table_rows, D]` f32: each run of equal ids summed into its row.
+        `sids` `[M]` int32 must be non-decreasing on CUDA tensors (sentinels
+        >= `table_rows` last); `grads` `[M, D]` f32 or bf16."""
+        if sids.dim() != 1 or sids.dtype != torch.int32:
+            raise ValueError(f"sids must be [M] int32, got {tuple(sids.shape)} {sids.dtype}")
+        if grads.dtype not in _DTYPE_CODES:
+            raise TypeError(f"grads dtype must be float32 or bfloat16, got {grads.dtype}")
+        if grads.dim() != 2 or grads.shape[0] != sids.shape[0]:
+            raise ValueError(f"grads must be [M={sids.shape[0]}, D], got {tuple(grads.shape)}")
+        if grads.device != sids.device:
+            raise ValueError("sids and grads must share a device")
+        if not (sids.is_contiguous() and grads.is_contiguous()):
+            raise ValueError("sids and grads must be contiguous")
+        if grads.device.type == "cpu":
+            return block_sorted_aggregate_reference(table_rows, sids, grads)
+        if grads.device.type != "cuda":
+            raise ValueError(f"block_sorted_aggregate runs on cpu or cuda tensors, got "
+                             f"{grads.device}")
+        d = grads.shape[1]
+        if d % 4 or d > MAX_DIM:
+            raise ValueError(f"the CUDA kernel needs D % 4 == 0 and D <= {MAX_DIM}, got D={d}")
+        grad_align = 16 if grads.dtype == torch.float32 else 8
+        if grads.data_ptr() % grad_align:
+            raise ValueError(f"the CUDA kernel needs {grad_align}-byte aligned grads")
+        out = torch.zeros((table_rows, d), dtype=torch.float32, device=grads.device)
+        if out.numel() and sids.numel():
+            self.launch(grads.device, out.data_ptr(), sids.data_ptr(), grads.data_ptr(),
+                        _DTYPE_CODES[grads.dtype], table_rows, d, sids.shape[0])
+        return out
+
+
+block_sorted_aggregate = BlockSortedAggregate()

@@ -5,12 +5,15 @@ always goes through the pooled-gather wrapper (`ops/embedding_kernel.py`):
 on a CUDA tensor that launches the CUDA kernel, on a CPU tensor it takes the
 kernel's plain version. Mean pooling pre-scales the slot weights by the
 live-slot count, as the reference's kernel route does, and the kernel emits
-`compute_dtype` directly.
+`compute_dtype` directly. An int8 `QuantizedTable` (`ops/quantized.py`)
+takes the same two functions through the int8 pooled-gather kernel
+(`ops/quantized_kernel.py`, Pallas kernel #5).
 
 `block_sorted_lookup` is the port of the sorted feature's gather call site
 (`ops/block_sorted.py:block_sorted_lookup`, Pallas kernel #2): `table[sids]`
 with zero rows for sentinel ids >= N. On Hopper the pooled-gather kernel at
-one slot computes exactly that, so #2's call site goes through it.
+one slot computes exactly that, so #2's call site goes through it, and an
+int8 table's (`block_sorted_lookup_quantized`, #5) through the int8 kernel.
 
 The backward is not taken through autograd: `row_grads_from_pooled` turns
 the gradient of the pooled outputs into per-slot row gradients, which the
@@ -22,10 +25,24 @@ from __future__ import annotations
 import torch
 
 from two_tower_recommender_model_tpu_torch.ops.embedding_kernel import pooled_gather
+from two_tower_recommender_model_tpu_torch.ops.quantized import QuantizedTable
+from two_tower_recommender_model_tpu_torch.ops.quantized_kernel import quantized_pooled_gather
+
+
+def _gather(table, ids: torch.Tensor, w: torch.Tensor,
+            out_dtype: torch.dtype | None) -> torch.Tensor:
+    """One launch of the table's pooled-gather kernel: the int8 one for a
+    `QuantizedTable` (f32 out when `out_dtype` is None), else the f32/bf16
+    one (the table's dtype out when None)."""
+    ids, w = ids.to(torch.int32).contiguous(), w.to(torch.float32).contiguous()
+    if isinstance(table, QuantizedTable):
+        return quantized_pooled_gather(table.values, table.scales, ids, w,
+                                       out_dtype or torch.float32)
+    return pooled_gather(table, ids, w, out_dtype=out_dtype)
 
 
 def pooled_lookup(
-    table: torch.Tensor,  # [N, D]
+    table: torch.Tensor | QuantizedTable,  # [N, D]
     ids: torch.Tensor,  # [B, L] int32, already hashed into [0, N)
     mask: torch.Tensor,  # [B, L] float
     pooling: str = "sum",
@@ -33,26 +50,26 @@ def pooled_lookup(
 ) -> torch.Tensor:  # [B, D]
     """Gather + masked pool. `mean` divides by the live-slot count (0-length
     bags pool to zero, matching dropped falsy ids). The result is in
-    `compute_dtype`, or in the table's dtype when it is None."""
+    `compute_dtype`, or in the table's dtype when it is None (f32 for an int8
+    table)."""
     w = mask.to(torch.float32)
     if pooling == "mean":
         counts = w.sum(dim=1, keepdim=True)
         w = w / torch.clamp(counts, min=1.0)
     elif pooling != "sum":
         raise ValueError(f"unknown pooling {pooling!r}")
-    return pooled_gather(table, ids.to(torch.int32).contiguous(), w.contiguous(),
-                         out_dtype=compute_dtype)
+    return _gather(table, ids, w, compute_dtype)
 
 
-def block_sorted_lookup(table: torch.Tensor, sids: torch.Tensor, w: torch.Tensor,
-                        out_dtype: torch.dtype | None = None) -> torch.Tensor:
+def block_sorted_lookup(table: torch.Tensor | QuantizedTable, sids: torch.Tensor,
+                        w: torch.Tensor, out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """`w[j] * table[sids[j]]` `[M, D]` in `out_dtype` (the table's dtype when
-    None), with zero rows for sentinel ids >= N or weights 0 (the slot mask).
-    One launch of the pooled-gather kernel at one slot. The ids need not be
-    sorted here (the TPU kernel needed them sorted to stream the table in
-    blocks); the train step passes the host-sorted feature's."""
-    return pooled_gather(table, sids.to(torch.int32).reshape(-1, 1).contiguous(),
-                         w.to(torch.float32).reshape(-1, 1).contiguous(), out_dtype=out_dtype)
+    None, f32 for an int8 table), with zero rows for sentinel ids >= N or
+    weights 0 (the slot mask). One launch of the table's pooled-gather kernel
+    at one slot. The ids need not be sorted here (the TPU kernel needed them
+    sorted to stream the table in blocks); the train step passes the
+    host-sorted feature's."""
+    return _gather(table, sids.reshape(-1, 1), w.reshape(-1, 1), out_dtype)
 
 
 def row_grads_from_pooled(

@@ -1,0 +1,221 @@
+"""The int8 tables' two kernels: their wrappers and their plain versions.
+
+An int8 table is `values` `[N, D]` int8 plus `scales` `[N]` f32, the row's
+absmax (`ops/quantized.py`): `row = float(values) * (scale / 127)`.
+
+**The pooled gather** (`quantized_pooled_gather`, `csrc/quantized_gather.cu`),
+port of the Pallas TPU kernel `ops/block_sorted.py:
+block_sorted_lookup_quantized` (`_gather_kernel_quantized`):
+
+    out[b, :] = sum_l w[b, l] * (float(values[ids[b, l]]) * (scales[ids[b, l]] / 127))
+
+accumulated in f32, f32 or bf16 out. A slot whose id lies outside `[0, N)` or
+whose weight is 0 contributes nothing. At one slot and weight 1 it is the
+Pallas function (dequantized rows, zero rows for sentinels), for ids in any
+order; at L slots it is `ops/quantized.py:quantized_pooled_lookup`.
+
+**The fused row-wise Adagrad** (`quantized_rowwise_adagrad_fused`,
+`csrc/quantized_adagrad.cu`), port of `ops/block_sorted.py:
+block_sorted_rowwise_adagrad_fused_quantized`
+(`_fused_update_kernel_quantized`): for each distinct live id whose summed
+gradient is not zero in every column, dequantize the row, apply row-wise
+Adagrad in f32, requantize with a fresh absmax; in place on `values`,
+`scales` and `acc`. Every other row keeps its exact bytes, scale and
+accumulator (requantizing is not idempotent). The ids MUST be non-decreasing
+on CUDA tensors; `perm` makes the kernel read `grads[perm[j]]`.
+
+Each wrapper launches its hand-written kernel on CUDA tensors, takes its
+plain version (`*_reference`) only for tensors that lie on the CPU, raises
+`ValueError` for a shape the kernel does not take (D % 4 != 0 or D > 512),
+and counts its kernel launches in `.launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from two_tower_recommender_model_tpu_torch.ops import _build
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_DIM = 512  # both kernels hold a row in four 128-column chunks
+
+
+def _check_table(values: torch.Tensor, scales: torch.Tensor) -> None:
+    if values.dim() != 2 or values.dtype != torch.int8:
+        raise ValueError(f"values must be [N, D] int8, got {tuple(values.shape)} {values.dtype}")
+    if scales.shape != (values.shape[0],) or scales.dtype != torch.float32:
+        raise ValueError(f"scales must be [N] float32, got {tuple(scales.shape)} {scales.dtype}")
+
+
+def _check_cuda_dim(values: torch.Tensor) -> None:
+    d = values.shape[1]
+    if d % 4 or d > MAX_DIM:
+        raise ValueError(f"the CUDA kernel needs D % 4 == 0 and D <= {MAX_DIM}, got D={d}")
+    if values.data_ptr() % 4:
+        raise ValueError("the CUDA kernel needs 4-byte aligned values")
+
+
+def _require(tensors: list[tuple[str, torch.Tensor]]) -> None:
+    """One device, all contiguous."""
+    if len({t.device for _, t in tensors}) != 1:
+        raise ValueError(f"{', '.join(n for n, _ in tensors)} must share a device")
+    for name, t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def dequantize_rows(values: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """`float(values) * (scales / 127)`: the division first, then one multiply.
+    The divisor is a tensor on the scales' device: PyTorch divides a CUDA
+    tensor by a Python number as a multiplication by its reciprocal, which
+    rounds differently from the true division of the kernels, the CPU and the
+    reference."""
+    return values.to(torch.float32) * (scales / scales.new_full((), 127.0))[..., None]
+
+
+def quantize_rows(rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(int8 values, f32 absmax scales) of f32 rows `[R, D]`:
+    `clip(round(row / (scale > 0 ? scale : 1) * 127), -127, 127)`, the
+    division before the multiply, round-half-to-even."""
+    scales = rows.abs().amax(dim=1) if rows.shape[1] else rows.new_zeros(rows.shape[0])
+    denom = torch.where(scales > 0, scales, 1.0)
+    q = torch.clamp(torch.round(rows / denom[:, None] * 127.0), -127, 127).to(torch.int8)
+    return q, scales
+
+
+# --- the pooled gather ---------------------------------------------------------------
+
+
+def quantized_pooled_gather_reference(values: torch.Tensor, scales: torch.Tensor,
+                                      ids: torch.Tensor, w: torch.Tensor,
+                                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The plain PyTorch version of the gather kernel: the same contract, f32
+    sum over the bag axis, dead slots (id outside [0, N) or w == 0) masked."""
+    n = values.shape[0]
+    live = (ids >= 0) & (ids < n) & (w != 0)
+    safe = torch.where(live, ids, 0).long()
+    rows = dequantize_rows(values[safe], scales[safe])  # [B, L, D]
+    contrib = torch.where(live[..., None], rows * w[..., None], 0.0)
+    return contrib.sum(dim=1).to(out_dtype)
+
+
+class QuantizedPooledGather(_build.KernelLibrary):
+    """The int8 pooled-gather wrapper: checks its inputs, allocates the
+    output and launches the CUDA kernel on the current stream (no sync).
+    `launches` counts kernel launches and nothing else."""
+
+    def __init__(self):
+        super().__init__("quantized_pooled_gather", "ttrm_quantized_gather", [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64],
+            source="quantized_gather.cu")
+
+    def __call__(self, values: torch.Tensor, scales: torch.Tensor, ids: torch.Tensor,
+                 w: torch.Tensor, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        _check_table(values, scales)
+        if ids.dim() != 2 or w.shape != ids.shape:
+            raise ValueError(
+                f"ids and w must both be [B, L], got {tuple(ids.shape)} and {tuple(w.shape)}")
+        if ids.dtype != torch.int32 or w.dtype != torch.float32:
+            raise TypeError(f"ids must be int32 and w float32, got {ids.dtype} and {w.dtype}")
+        if out_dtype not in _DTYPE_CODES:
+            raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+        _require([("values", values), ("scales", scales), ("ids", ids), ("w", w)])
+        if values.device.type == "cpu":
+            return quantized_pooled_gather_reference(values, scales, ids, w, out_dtype)
+        if values.device.type != "cuda":
+            raise ValueError(f"quantized_pooled_gather runs on cpu or cuda tensors, got "
+                             f"{values.device}")
+        _check_cuda_dim(values)
+        b, bag_l = ids.shape
+        n, d = values.shape
+        out = torch.empty((b, d), dtype=out_dtype, device=values.device)
+        if out.numel():
+            self.launch(values.device, values.data_ptr(), scales.data_ptr(), ids.data_ptr(),
+                        w.data_ptr(), out.data_ptr(), _DTYPE_CODES[out_dtype], n, d, b, bag_l)
+        return out
+
+
+quantized_pooled_gather = QuantizedPooledGather()
+
+
+# --- the fused row-wise Adagrad ------------------------------------------------------
+
+
+@torch.no_grad()
+def quantized_rowwise_adagrad_fused_reference(
+        values: torch.Tensor, scales: torch.Tensor, acc: torch.Tensor, ids: torch.Tensor,
+        grads: torch.Tensor, lr: float, eps: float = 1e-10, perm: torch.Tensor | None = None):
+    """The plain PyTorch version of the Adagrad kernel: the same contract, in
+    place, for ids in any order (duplicates summed by `index_add_` in f32). A
+    row whose summed gradient is zero in every column is not written."""
+    n, d = values.shape
+    g = (grads if perm is None else grads[perm.long()]).to(torch.float32)
+    live = (ids >= 0) & (ids < n)
+    rows, inv = torch.unique(ids[live].long(), return_inverse=True)
+    g_sum = torch.zeros((rows.shape[0], d), dtype=torch.float32,
+                        device=values.device).index_add_(0, inv, g[live])
+    touched = (g_sum != 0).any(dim=1)
+    rows, g_sum = rows[touched], g_sum[touched]
+    new_acc = acc[rows] + (g_sum * g_sum).mean(dim=1)
+    denom = torch.sqrt(new_acc) + eps
+    new_rows = dequantize_rows(values[rows], scales[rows]) - lr * g_sum / denom[:, None]
+    values[rows], scales[rows] = quantize_rows(new_rows)
+    acc[rows] = new_acc
+    return values, scales, acc
+
+
+class QuantizedRowwiseAdagrad(_build.KernelLibrary):
+    """The int8 row-wise Adagrad wrapper: checks its inputs and launches the
+    CUDA kernel on the current stream (no sync, nothing allocated).
+    `launches` counts kernel launches and nothing else."""
+
+    def __init__(self):
+        super().__init__("quantized_rowwise_adagrad", "ttrm_quantized_adagrad", [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_float, ctypes.c_float], source="quantized_adagrad.cu")
+
+    def __call__(self, values: torch.Tensor, scales: torch.Tensor, acc: torch.Tensor,
+                 ids: torch.Tensor, grads: torch.Tensor, lr: float, eps: float = 1e-10,
+                 perm: torch.Tensor | None = None):
+        """Update `values`, `scales` and `acc` in place; returns them."""
+        _check_table(values, scales)
+        n, d = values.shape
+        if acc.shape != (n,) or acc.dtype != torch.float32:
+            raise ValueError(f"acc must be [N] float32, got {tuple(acc.shape)} {acc.dtype}")
+        if ids.dim() != 1 or ids.dtype != torch.int32:
+            raise ValueError(f"ids must be [M] int32, got {tuple(ids.shape)} {ids.dtype}")
+        m = ids.shape[0]
+        if grads.dtype not in _DTYPE_CODES:
+            raise TypeError(f"grads dtype must be float32 or bfloat16, got {grads.dtype}")
+        if grads.dim() != 2 or grads.shape[1] != d or (perm is None and grads.shape[0] != m):
+            raise ValueError(f"grads must be [M, D] = {(m, d)} ([*, D] under a permutation), "
+                             f"got {tuple(grads.shape)}")
+        tensors = [("values", values), ("scales", scales), ("acc", acc), ("ids", ids),
+                   ("grads", grads)]
+        if perm is not None:
+            if perm.shape != (m,) or perm.dtype != torch.int32:
+                raise ValueError(f"perm must be [M] int32, got {tuple(perm.shape)} {perm.dtype}")
+            tensors.append(("perm", perm))
+        _require(tensors)
+        if values.device.type == "cpu":
+            return quantized_rowwise_adagrad_fused_reference(values, scales, acc, ids, grads, lr,
+                                                             eps, perm)
+        if values.device.type != "cuda":
+            raise ValueError(f"quantized_rowwise_adagrad_fused runs on cpu or cuda tensors, got "
+                             f"{values.device}")
+        _check_cuda_dim(values)
+        grad_align = 16 if grads.dtype == torch.float32 else 8
+        if grads.data_ptr() % grad_align:
+            raise ValueError(f"the CUDA kernel needs {grad_align}-byte aligned grads")
+        if values.numel() and m:
+            self.launch(values.device, values.data_ptr(), scales.data_ptr(), acc.data_ptr(),
+                        ids.data_ptr(), grads.data_ptr(), _DTYPE_CODES[grads.dtype],
+                        None if perm is None else perm.data_ptr(), n, d, m, lr, eps)
+        return values, scales, acc
+
+
+quantized_rowwise_adagrad_fused = QuantizedRowwiseAdagrad()

@@ -8,11 +8,20 @@ Adagrad (fbgemm's semantics): per row
 where g_row sums the gradients of every occurrence of the row in the batch.
 
 The update the train step runs is the CUDA kernel of `ops/adagrad_kernel.py`
-(kernel #4), in place: straight on the host-sorted table's ids, and through
-`device_sorted_fused_adagrad` (a stable device sort first) on every other
-table. `sparse_rowwise_adagrad`, `dense_rowwise_adagrad` and
+(kernel #4; for an int8 `QuantizedTable` kernel #6 of
+`ops/quantized_kernel.py`), in place: straight on the host-sorted table's
+ids, and through `device_sorted_fused_adagrad` (a stable device sort first)
+on every other table. `sparse_rowwise_adagrad`, `dense_rowwise_adagrad` and
 `masked_rowwise_adagrad_epilogue` are plain functional versions of the same
 update (they return new tensors), kept as the kernel's oracles.
+
+Two more routes compute the same update for a float table and are what
+`make_train_step(..., sparse_update=...)` is given to run them:
+`block_sorted_rowwise_adagrad` (the dense aggregate kernel #3, then the
+masked epilogue) and `pallas_sparse_rowwise_adagrad` (the sorted-segment
+aggregation, then the row-subtract kernel #7). They keep the names of their
+counterparts in the JAX package's `ops/block_sorted.py` and
+`ops/pallas_update.py`.
 
 `dense_optimizer` is the towers' Adam / AdamW recipe with the JAX package's
 learning-rate schedules (constant, linear, cosine, with warmup).
@@ -26,7 +35,15 @@ from typing import Callable, Iterable
 
 import torch
 
-from two_tower_recommender_model_tpu_torch.ops.adagrad_kernel import rowwise_adagrad
+from two_tower_recommender_model_tpu_torch.ops.adagrad_kernel import (
+    block_sorted_aggregate,
+    rowwise_adagrad,
+)
+from two_tower_recommender_model_tpu_torch.ops.quantized import QuantizedTable
+from two_tower_recommender_model_tpu_torch.ops.quantized_kernel import (
+    quantized_rowwise_adagrad_fused,
+)
+from two_tower_recommender_model_tpu_torch.ops.row_subtract import row_subtract
 
 
 def row_grad_flatten(
@@ -109,18 +126,63 @@ def dense_rowwise_adagrad(table: torch.Tensor, acc: torch.Tensor, flat_ids: torc
     return masked_rowwise_adagrad_epilogue(table, acc, g, touched, lr, eps)
 
 
-def device_sorted_fused_adagrad(table: torch.Tensor, acc: torch.Tensor, flat_ids: torch.Tensor,
-                                flat_grads: torch.Tensor, lr: float, eps: float = 1e-10, *,
-                                matmul_dtype: str = "float32"):
+def grad_wire_dtype(matmul_dtype: str) -> torch.dtype:
+    """The dtype the `[M, D]` gradients reach a kernel in: under
+    `matmul_dtype="bfloat16"` they are rounded to bf16 first, as the
+    reference casts them; the kernels sum in f32 either way."""
+    return torch.bfloat16 if matmul_dtype == "bfloat16" else torch.float32
+
+
+def device_sorted_fused_adagrad(table: torch.Tensor | QuantizedTable, acc: torch.Tensor,
+                                flat_ids: torch.Tensor, flat_grads: torch.Tensor, lr: float,
+                                eps: float = 1e-10, *, matmul_dtype: str = "float32"):
     """The front-end for ids in any order: a stable device sort of the ids,
-    then kernel #4 on the sorted ids with the sort's permutation, so the
-    kernel reads `grads[perm[j]]` and no permuted [M, D] copy is made. Under
-    `matmul_dtype="bfloat16"` the gradients are rounded to bf16 first, as the
-    reference casts them before its permute. In place; returns (table, acc)."""
+    then kernel #4 (#6 for an int8 `QuantizedTable`) on the sorted ids with
+    the sort's permutation, so the kernel reads `grads[perm[j]]` and no
+    permuted [M, D] copy is made. In place; returns (table, acc)."""
     sids, perm = torch.sort(flat_ids, stable=True)
-    grads = flat_grads.to(torch.bfloat16 if matmul_dtype == "bfloat16" else torch.float32)
-    return rowwise_adagrad(table, acc, sids.contiguous(), grads.contiguous(), lr, eps,
-                           perm=perm.to(torch.int32))
+    sids, perm = sids.contiguous(), perm.to(torch.int32)
+    grads = flat_grads.to(grad_wire_dtype(matmul_dtype)).contiguous()
+    if isinstance(table, QuantizedTable):
+        quantized_rowwise_adagrad_fused(table.values, table.scales, acc, sids, grads, lr, eps,
+                                        perm=perm)
+        return table, acc
+    return rowwise_adagrad(table, acc, sids, grads, lr, eps, perm=perm)
+
+
+def block_sorted_rowwise_adagrad(table: torch.Tensor, acc: torch.Tensor, flat_ids: torch.Tensor,
+                                 flat_grads: torch.Tensor, lr: float, eps: float = 1e-10, *,
+                                 matmul_dtype: str = "float32"):
+    """Row-wise Adagrad by the dense aggregate: kernel #3 sums the gradients
+    into an [N, D] f32 buffer, then the masked epilogue updates the rows whose
+    sum is not all zero (a named row with an exactly-zero sum updates to the
+    same values either way). `flat_ids` must be NON-DECREASING, sentinels
+    last (the kernel gives each run of equal ids to one warp); an async device
+    assert holds them to it. Returns new tensors."""
+    torch._assert_async(torch.all(flat_ids[1:] >= flat_ids[:-1]),
+                        "block_sorted_rowwise_adagrad: flat ids are not sorted")
+    g = block_sorted_aggregate(table.shape[0], flat_ids.to(torch.int32).contiguous(),
+                               flat_grads.to(grad_wire_dtype(matmul_dtype)).contiguous())
+    touched = (g != 0).any(dim=1)
+    return masked_rowwise_adagrad_epilogue(table, acc, g, touched, lr, eps)
+
+
+@torch.no_grad()
+def pallas_sparse_rowwise_adagrad(table: torch.Tensor, acc: torch.Tensor, flat_ids: torch.Tensor,
+                                  flat_grads: torch.Tensor, lr: float, eps: float = 1e-10):
+    """Row-wise Adagrad by the sorted-segment aggregation (ids in any order),
+    the accumulator math in PyTorch, and the row apply in kernel #7:
+    `table[rep] -= lr / (sqrt(acc) + eps) * g`, one distinct id per segment
+    (the kernel's contract), empty segments carrying the sentinel N. In
+    place; returns (table, acc)."""
+    n = table.shape[0]
+    g_seg, rep, valid, safe = aggregate_grads_by_row(flat_ids, flat_grads, n)
+    new_acc_rows = acc[safe] + torch.mean(g_seg * g_seg, dim=1)
+    scale = lr / (torch.sqrt(new_acc_rows) + eps)
+    acc[rep[valid].long()] = new_acc_rows[valid]
+    rep_ids = torch.where(valid, rep, n).to(torch.int32)
+    row_subtract(table, rep_ids, (scale[:, None] * g_seg).contiguous())
+    return table, acc
 
 
 # --- the towers' optimizer -----------------------------------------------------------

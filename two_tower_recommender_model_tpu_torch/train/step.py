@@ -8,7 +8,8 @@ Port of `two_tower_recommender_model_tpu/train/step.py`. One step:
   stage B  loss, logits; autograd w.r.t. the towers and the pooled rows
            (under bf16 compute each flagship tower's backward is the fused
            kernel #8; the sampled softmax runs kernels #9, #10 and #11)
-  stage C  d_pooled -> per-slot row grads -> row-wise Adagrad (kernel #4)
+  stage C  d_pooled -> per-slot row grads -> row-wise Adagrad (kernel #4;
+           kernel #6 for an int8 table)
            d_towers -> Adam
 
 The table gradient never exists as a dense [N, D] tensor, and stage C
@@ -17,9 +18,15 @@ touches only the rows the batch names.
 PyTorch runs eagerly, so where the reference returns a new state the port
 updates the state in place: the tables and accumulators by the kernel, the
 towers by the optimizer. `step(state, batch)` returns the same `TrainState`.
+A `sparse_update` override may return new tensors instead (the plain oracles
+do); the step installs whatever the update returns.
+
+With `table_dtype="int8"` a table is a `QuantizedTable` (int8 rows, f32
+scales; accumulators stay f32 `[N]`): gathers through kernel #5, updates
+through kernel #6.
 
 Not ported yet (each raises `NotImplementedError` naming its ROADMAP item):
-int8 and bf16 table storage (M10), `scatter_buffer_dtype="bfloat16"`,
+bf16 table storage (M10a), `scatter_buffer_dtype="bfloat16"`,
 `device_sorted_gather`, and `make_multi_step` (a CUDA graph of K steps).
 """
 
@@ -51,6 +58,10 @@ from two_tower_recommender_model_tpu_torch.models.two_tower import (
 )
 from two_tower_recommender_model_tpu_torch.ops.adagrad_kernel import rowwise_adagrad
 from two_tower_recommender_model_tpu_torch.ops.embedding_ops import row_grads_from_pooled
+from two_tower_recommender_model_tpu_torch.ops.quantized import QuantizedTable
+from two_tower_recommender_model_tpu_torch.ops.quantized_kernel import (
+    quantized_rowwise_adagrad_fused,
+)
 from two_tower_recommender_model_tpu_torch.train import optimizer as opt_lib
 
 
@@ -96,17 +107,19 @@ def tower_parameters(model: TwoTower) -> list[torch.nn.Parameter]:
 
 def _check_ported(model_cfg: ModelConfig) -> None:
     for t in model_cfg.tables:
-        if model_cfg.table_dtype_of(t.name) != "float32":
+        if model_cfg.table_dtype_of(t.name) not in ("float32", "int8"):
             raise NotImplementedError(
                 f"table {t.name!r}: {model_cfg.table_dtype_of(t.name)} table storage is not "
-                "ported to the PyTorch package yet (ROADMAP M10); use float32 tables")
+                "ported to the PyTorch package yet (ROADMAP M10a); use float32 or int8 tables")
 
 
 def create_train_state(generator: torch.Generator, model_cfg: ModelConfig,
                        train_cfg: TrainConfig) -> tuple[TrainState, opt_lib.DenseOptimizer]:
     """A fresh state on the generator's device: random weights drawn from
-    `generator`, zero accumulators, and Adam over the towers. Returns the
-    state and the towers' optimizer recipe, which `make_train_step` takes."""
+    `generator` (int8 tables drawn in f32 and quantized, the very large ones
+    chunk by chunk: `init_params`), zero f32 accumulators, and Adam over the
+    towers. Returns the state and the towers' optimizer recipe, which
+    `make_train_step` takes."""
     _check_ported(model_cfg)
     model = init_params(model_cfg, generator)
     dense_opt = opt_lib.dense_optimizer(train_cfg.learning_rate)
@@ -180,28 +193,50 @@ def auto_sorted_feature(model_cfg: ModelConfig) -> str | None:
     return best
 
 
-def pick_table_update_fn(train_cfg: TrainConfig, sorted_table: str | None,
-                         tname: str) -> Callable:
-    """The per-table update `(table, acc, flat_ids, flat_grads, lr, eps)`,
-    in place. One path: kernel #4 for every table. The host-sorted table's
-    ids go straight in (they arrive sorted; an async device assert holds
-    them to it, since unsorted ids would race in the kernel); every other
-    table goes through the device-sort front-end. `block_sorted_kernel`
-    only sets the gradients' dtype: "bfloat16" rounds them to bf16, "off"
-    and "float32" pass f32."""
+def pick_table_update_fn(
+    model_cfg: ModelConfig,
+    train_cfg: TrainConfig,
+    sorted_table: str | None,
+    tname: str,
+    n_flat_ids: int,
+    quantized: bool,
+    sparse_update: Callable | None = None,
+) -> Callable:
+    """The per-table update `(table, acc, flat_ids, flat_grads, lr, eps) ->
+    (table, acc)`, with the reference's signature and priorities:
+
+    - an int8 table (`quantized`) always takes kernel #6, also under a
+      `sparse_update` override, as in the reference;
+    - a float table takes `sparse_update` when one is given;
+    - else kernel #4.
+
+    One kernel serves every table whatever its size and whatever
+    `block_sorted_kernel` says (so `model_cfg` and `n_flat_ids`, which pick
+    between the reference's routes, pick nothing here): the option only sets
+    the gradients' dtype, "bfloat16" rounds them to bf16, "off" and "float32"
+    pass f32. The host-sorted table's ids go straight in (they arrive sorted;
+    an async device assert holds them to it, since unsorted ids would race in
+    the kernel); every other table goes through the device-sort front-end."""
+    del model_cfg, n_flat_ids
+    if sparse_update is not None and not quantized:
+        return sparse_update
     matmul_dtype = "bfloat16" if train_cfg.block_sorted_kernel == "bfloat16" else "float32"
     if tname != sorted_table:
         def upd(table, acc, fids, fgrads, lr, eps):
             return opt_lib.device_sorted_fused_adagrad(table, acc, fids, fgrads, lr, eps,
                                                        matmul_dtype=matmul_dtype)
         return upd
-    grad_dtype = torch.bfloat16 if matmul_dtype == "bfloat16" else torch.float32
+    grad_dtype = opt_lib.grad_wire_dtype(matmul_dtype)
 
     def upd_sorted(table, acc, fids, fgrads, lr, eps):
         torch._assert_async(torch.all(fids[1:] >= fids[:-1]),
                             f"sorted_feature table {tname!r}: flat ids are not sorted")
-        return rowwise_adagrad(table, acc, fids.contiguous(),
-                               fgrads.to(grad_dtype).contiguous(), lr, eps)
+        fids, fgrads = fids.contiguous(), fgrads.to(grad_dtype).contiguous()
+        if quantized:
+            quantized_rowwise_adagrad_fused(table.values, table.scales, acc, fids, fgrads, lr,
+                                            eps)
+            return table, acc
+        return rowwise_adagrad(table, acc, fids, fgrads, lr, eps)
     return upd_sorted
 
 
@@ -220,10 +255,12 @@ def _check_train_config(model_cfg: ModelConfig, train_cfg: TrainConfig) -> None:
 
 
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
-                    dense_opt: opt_lib.DenseOptimizer):
+                    dense_opt: opt_lib.DenseOptimizer, sparse_update: Callable | None = None):
     """The single-device train step `step(state, batch) -> (state, out)`,
     out = {"loss", "logits"} as device tensors (read them when needed: a
-    `.item()` waits for the card)."""
+    `.item()` waits for the card). `sparse_update`, when given, replaces the
+    update of every float table (`pick_table_update_fn`); it may update in
+    place or return new tensors."""
     _check_train_config(model_cfg, train_cfg)
     loss_fn = losses_lib.loss_fn_from_config(train_cfg, model_cfg)
     cand_feature = model_cfg.candidate_tower.features[0]
@@ -231,8 +268,7 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     bs_kernel = train_cfg.block_sorted_kernel
     block_feature = (train_cfg.sorted_feature
                      if bs_kernel != "off" and train_cfg.block_sorted_gather else None)
-    updates = {t.name: pick_table_update_fn(train_cfg, sorted_table, t.name)
-               for t in model_cfg.tables}
+    updates: dict[str, Callable] = {}  # per table, picked at its first batch
 
     def step(state: TrainState, batch: Batch):
         model = state.model
@@ -263,8 +299,18 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
                     for k, v in pooled.items()}
         with torch.no_grad():
             for tname, (fids, fgrads) in _table_flat_grads(model_cfg, batch, d_pooled).items():
-                updates[tname](model.tables[tname], state.adagrad_acc[tname], fids, fgrads,
-                               train_cfg.sparse_learning_rate, train_cfg.adagrad_eps)
+                table, acc = model.tables[tname], state.adagrad_acc[tname]
+                if tname not in updates:
+                    updates[tname] = pick_table_update_fn(
+                        model_cfg, train_cfg, sorted_table, tname, fids.shape[0],
+                        isinstance(table, QuantizedTable), sparse_update)
+                new_table, new_acc = updates[tname](table, acc, fids, fgrads,
+                                                    train_cfg.sparse_learning_rate,
+                                                    train_cfg.adagrad_eps)
+                if new_table is not table:  # an update that returned new tensors
+                    model.tables[tname] = new_table
+                if new_acc is not acc:
+                    state.adagrad_acc[tname] = new_acc
         state.step += 1
         return state, {"loss": loss.detach(), "logits": logits.detach()}
 

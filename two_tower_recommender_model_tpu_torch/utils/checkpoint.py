@@ -2,7 +2,8 @@
 
 `export_model` writes what the JAX package's `utils/checkpoint.py:
 export_model` writes: `model_config.json` and `params.npz`, f32 arrays in the
-JAX pytree layout (`params_to_numpy`). `load_model` reads such a directory
+JAX pytree layout (`params_to_numpy`; an int8 table is written as the f32
+rows it dequantizes to). `load_model` reads such a directory
 with json and numpy only. So either package serves a model the other trained
 (`params_from_numpy`, `serving.scorer.load_scorer`). Training checkpoints
 (orbax in the JAX package) are not ported yet.
@@ -32,7 +33,7 @@ def export_model(path: str, model_cfg: ModelConfig, state) -> None:
         t["dtype"] = None
     with open(os.path.join(path, "model_config.json"), "w") as f:
         json.dump(cfg_dict, f, indent=1)
-    params = params_to_numpy(state.model)
+    params = params_to_numpy(state.model, dequantize=True)
     flat = {f"tables/{name}": arr for name, arr in params["tables"].items()}
     for tower in ("query_tower", "candidate_tower"):
         for lname, layer in params[tower].items():
