@@ -5,6 +5,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 _PROBE = r"""
 import ctypes, importlib, pkgutil, subprocess, sys
 import numpy, torch  # their own imports load libraries; the port's must not
@@ -27,6 +29,8 @@ from two_tower_recommender_model_tpu_torch.ops.adagrad_kernel import (
 from two_tower_recommender_model_tpu_torch.ops.embedding_kernel import pooled_gather
 from two_tower_recommender_model_tpu_torch.ops.quantized_kernel import (
     quantized_pooled_gather, quantized_rowwise_adagrad_fused)
+from two_tower_recommender_model_tpu_torch.ops.probe_sum import (
+    probe_block_sums, probe_block_sums2)
 from two_tower_recommender_model_tpu_torch.ops.row_subtract import row_subtract
 from two_tower_recommender_model_tpu_torch.ops.softmax_kernel import (
     softmax_lse_dc, softmax_lse_dq, softmax_lse_fwd)
@@ -38,7 +42,8 @@ for wrapper in (pooled_gather, rowwise_adagrad, tower_backward, softmax_lse_fwd,
 for name in ("train.step", "train.loop", "train.pipeline", "train.optimizer",
              "data.device_featurizer", "data.synthetic", "models.losses", "models.metrics",
              "utils.checkpoint", "ops.softmax_kernel", "evaluation.retrieval", "device",
-             "ops.quantized", "ops.quantized_kernel", "ops.row_subtract"):
+             "ops.quantized", "ops.quantized_kernel", "ops.row_subtract", "ops.probe_sum",
+             "tools", "tools.probe_consumer"):
     assert pkg.__name__ + "." + name in names, name
 print(len(names))
 """
@@ -50,18 +55,16 @@ def test_port_imports_no_jax_and_builds_nothing():
     out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True, text=True,
                          env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 33  # every module was imported
+    assert int(out.stdout.strip().splitlines()[-1]) >= 36  # every module was imported
 
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def test_chip_smoke_imports_no_jax():
-    """`chip_smoke.py` imports torch, numpy, the standard library and the
-    port, never JAX or the JAX package."""
+def _import_roots(path: str) -> set[str]:
     import ast
 
-    with open(os.path.join(_ROOT, "chip_smoke.py")) as f:
+    with open(os.path.join(_ROOT, path)) as f:
         tree = ast.parse(f.read())
     roots = set()
     for node in ast.walk(tree):
@@ -69,8 +72,39 @@ def test_chip_smoke_imports_no_jax():
             roots.update(alias.name.split(".")[0] for alias in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
             roots.add(node.module.split(".")[0])
+    return roots
+
+
+_JAX_ROOTS = {"jax", "jaxlib", "flax", "optax", "two_tower_recommender_model_tpu"}
+
+
+def test_chip_smoke_imports_no_jax():
+    """`chip_smoke.py` imports torch, numpy, the standard library and the
+    port, never JAX or the JAX package."""
+    roots = _import_roots("chip_smoke.py")
     assert "two_tower_recommender_model_tpu_torch" in roots
-    assert not roots & {"jax", "jaxlib", "flax", "optax", "two_tower_recommender_model_tpu"}
+    assert not roots & _JAX_ROOTS
+
+
+# the card tests run on the card's machine, which has no JAX
+_CARD_TESTS = ["tests/test_torch_embedding_cuda.py", "tests/test_torch_train_cuda.py",
+               "tests/test_torch_softmax_cuda.py", "tests/test_torch_quantized_cuda.py",
+               "tests/test_torch_device_default.py", "tests/test_torch_probe_cuda.py",
+               "tests/test_torch_graph_cuda.py"]
+
+
+def test_every_card_test_file_is_listed():
+    import glob
+
+    found = {os.path.relpath(f, _ROOT) for f in glob.glob(os.path.join(_ROOT, "tests", "*_cuda.py"))}
+    assert found <= set(_CARD_TESTS), found - set(_CARD_TESTS)
+
+
+@pytest.mark.parametrize("path", _CARD_TESTS)
+def test_card_tests_import_no_jax(path):
+    roots = _import_roots(path)
+    assert "two_tower_recommender_model_tpu_torch" in roots
+    assert not roots & _JAX_ROOTS
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -78,9 +112,7 @@ def test_chip_smoke_fails_without_a_card():
     import torch
 
     if torch.cuda.is_available():
-        import pytest
-
-        pytest.skip("this machine has a CUDA device")
+        pytest.skip("a CUDA device is present")
     out = subprocess.run([sys.executable, os.path.join(_ROOT, "chip_smoke.py")],
                          capture_output=True, text=True, cwd=_ROOT, timeout=120)
     assert out.returncode != 0

@@ -1,6 +1,6 @@
 """The training slice's CUDA kernels against their plain PyTorch versions,
-on the card: row-wise Adagrad (kernel #4) and the fused tower backward
-(kernel #8). This file imports no JAX, so it runs where the card is:
+on the card: row-wise Adagrad (kernel #4, f32 and bf16 tables) and the fused
+tower backward (kernel #8). This file imports no JAX, so it runs where the card is:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_train_cuda.py
 
@@ -60,6 +60,48 @@ def test_rowwise_adagrad_matches_plain(dev, d, grad_dtype, with_perm):
     assert torch.equal(t_k[~live].view(torch.int32), table[~live].view(torch.int32))
     assert torch.equal(a_k[~live].view(torch.int32), acc[~live].view(torch.int32))
     torch.testing.assert_close(t_k, t_p, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(a_k, a_p, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 32, 512, 4])
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_perm", [False, True])
+def test_rowwise_adagrad_bf16_table_matches_plain(dev, d, grad_dtype, with_perm):
+    """A bf16 table: untouched rows bitwise; touched rows equal to the plain
+    version's or one bf16 ulp apart (the f32 sums run in different orders
+    before the one rounding), fewer than 1% of their elements apart; the f32
+    accumulators within rtol 1e-5."""
+    rng = np.random.default_rng(d + 1)
+    n, m = 2000, 4096
+    ids = rng.integers(0, n // 3, m)
+    ids[rng.random(m) < 0.1] = n + 3
+    ids[:100] = 7  # a long run
+    grads = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32)).to(dev, grad_dtype)
+    perm = None
+    if with_perm:
+        order = np.argsort(ids, kind="stable")
+        ids, perm = ids[order], torch.from_numpy(order.astype(np.int32)).to(dev)
+    else:
+        ids = np.sort(ids)
+    ids = torch.from_numpy(ids.astype(np.int32)).to(dev)
+    table = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(dev, torch.bfloat16)
+    acc = torch.from_numpy(np.abs(rng.normal(size=n)).astype(np.float32)).to(dev)
+    t_k, a_k, t_p, a_p = table.clone(), acc.clone(), table.clone(), acc.clone()
+    before = rowwise_adagrad.launches
+    rowwise_adagrad(t_k, a_k, ids, grads, 0.05, 1e-10, perm=perm)
+    rowwise_adagrad_reference(t_p, a_p, ids, grads, 0.05, 1e-10, perm=perm)
+    torch.cuda.synchronize()
+    assert rowwise_adagrad.launches == before + 1 and t_k.dtype == torch.bfloat16
+    live = torch.zeros(n, dtype=torch.bool, device=dev)
+    live[ids[ids < n].long()] = True
+    assert torch.equal(t_k[~live].view(torch.int16), table[~live].view(torch.int16))
+    assert torch.equal(a_k[~live].view(torch.int32), acc[~live].view(torch.int32))
+    got, want = t_k[live].float(), t_p[live].float()
+    assert not torch.equal(got, table[live].float())
+    # atol 1e-6 (the f32 table test's): where row and update cancel to nearly zero
+    assert ((got - want).abs() <= 2.0 ** -7 * torch.maximum(got.abs(), want.abs()) + 1e-6).all()
+    assert (got != want).float().mean().item() < 0.01
     torch.testing.assert_close(a_k, a_p, rtol=1e-5, atol=1e-6)
 
 

@@ -33,8 +33,8 @@ from two_tower_recommender_model_tpu_torch.models.metrics import auroc_compute, 
 from two_tower_recommender_model_tpu_torch.models.two_tower import params_from_numpy
 from two_tower_recommender_model_tpu_torch.train import optimizer as port_opt
 from two_tower_recommender_model_tpu_torch.train import step as port_step
-from two_tower_recommender_model_tpu_torch.train.loop import train_val_test
-from two_tower_recommender_model_tpu_torch.train.pipeline import map_leaves
+from two_tower_recommender_model_tpu_torch.train.loop import train_one_epoch_packed, train_val_test
+from two_tower_recommender_model_tpu_torch.train.pipeline import device_put_batch, map_leaves
 
 USERS, ITEMS, B = 1000, 300, 512
 
@@ -270,7 +270,7 @@ def test_unsorted_ids_for_the_sorted_table_are_refused():
 
 
 @pytest.mark.parametrize("make", [
-    lambda m, t: ({"m": dataclasses.replace(m, table_dtype="bfloat16")}, "create"),
+    lambda m, t: ({}, "packed sharding"),
     lambda m, t: ({"t": dataclasses.replace(t, scatter_buffer_dtype="bfloat16")}, "step"),
     lambda m, t: ({"t": dataclasses.replace(t, device_sorted_gather=True)}, "step"),
     lambda m, t: ({"t": dataclasses.replace(t, loss="sampled_softmax")}, "sharded loss"),
@@ -280,14 +280,14 @@ def test_features_not_ported_raise(make):
     change, where = make(pcfg, ptcfg)
     mcfg, tcfg = change.get("m", pcfg), change.get("t", ptcfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if where == "create":
-            port_step.create_train_state(torch.Generator().manual_seed(0), mcfg, tcfg)
+        if where == "packed sharding":  # the packed epoch's multi-device placement
+            train_one_epoch_packed(None, None, [], None, sharding=object())
         elif where == "sharded loss":  # the data-parallel softmax waits for the mesh
             port_losses.loss_fn_from_config(tcfg, mcfg, sharded=True, mesh=object())
         else:
             port_step.make_train_step(mcfg, tcfg, port_opt.dense_optimizer(1e-3))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_step.make_multi_step(None)
+        device_put_batch({}, "cpu", sharding=object())
 
 
 def test_sorted_feature_resolution_matches_jax():

@@ -8,7 +8,8 @@ imports `torch` and numpy, never `jax`, `flax` or `optax`, and nothing of the
 JAX package.
 
 What it covers today: serving, training (BCE and the in-batch sampled
-softmax) and int8 table storage:
+softmax; eager steps and K steps as one CUDA graph), int8 and bf16 table
+storage, and the gather probe:
 
 - `config`                 — the model dataclasses and `TrainConfig`, equal
                              field for field to the JAX package's.
@@ -38,11 +39,17 @@ softmax) and int8 table storage:
 - `ops.softmax_kernel`     — the CUDA fused in-batch sampled-softmax kernels
                              (`csrc/softmax_lse.cu`: the online logsumexp and
                              its dq and dc) and their plain versions.
+- `ops.probe_sum`          — the CUDA per-row-block sum kernels
+                             (`csrc/probe_sum.cu`), the gather probe's
+                             consumers, and their plain versions.
 - `ops.topk`               — exact corpus-chunked top-k, ties to the lower index.
 - `models`                 — MLP towers (with the fused-backward route), the
                              `TwoTower` module, losses and streaming metrics.
-- `train`                  — optimizers, the train and eval steps, the input
-                             pipeline and the train/val/test loop.
+- `train`                  — optimizers, the train and eval steps, the
+                             multi-step (K steps in one call: on the card one
+                             CUDA graph), the input pipeline, the train/val/test
+                             loop and the packed macro-step epoch.
+- `tools.probe_consumer`   — the gather probe (`python -m ...tools.probe_consumer`).
 - `evaluation.retrieval`   — full-corpus tower embedding export, the retriever
                              metrics and the per-epoch retrieval eval.
 - `device`                 — `default_device()`: the card, or an error that

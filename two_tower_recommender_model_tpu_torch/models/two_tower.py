@@ -15,14 +15,19 @@ the embedding backward sparse:
 
 A table stored as int8 (`table_dtype="int8"`, model-wide or per table) is a
 `QuantizedTable` (`ops/quantized.py`) and goes through the int8 pooled-gather
-kernel; bf16 table storage and the `device_sorted_features` gather route are
-not ported yet.
+kernel. A table stored as bf16 (`table_dtype="bfloat16"`) is a bf16 tensor:
+the pooled-gather kernel widens its rows, sums a bag in f32 and emits the
+compute dtype, rounding once (the reference sums a bag's slots in the
+compute dtype: equal at one slot, within one ulp of the largest partial sum
+at several). The `device_sorted_features` gather route is not ported yet.
 
 Weights cross between the packages as numpy arrays in the JAX pytree layout
 (`params_from_numpy` / `params_to_numpy`):
 
-    {"tables": {table_name: [N, D], or for an int8 table
-                            {"values": [N, D] int8, "scales": [N] f32}},
+    {"tables": {table_name: [N, D] (a bf16 table as f32 values that bf16
+                            holds exactly, or as the raw bf16 bits in uint16
+                            or an `ml_dtypes` bfloat16 array), or for an int8
+                            table {"values": [N, D] int8, "scales": [N] f32}},
      "query_tower": {"layer_i": {"kernel": [in, out], "bias": [out]}},
      "candidate_tower": {...}}
 """
@@ -66,11 +71,11 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def init_table(generator: torch.Generator, num_embeddings: int, dim: int,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """EmbeddingBag-style init U(-sqrt(1/N), sqrt(1/N)), drawn from
-    `generator` on the generator's device."""
+    """EmbeddingBag-style init U(-sqrt(1/N), sqrt(1/N)), drawn in f32 from
+    `generator` on the generator's device, then cast once to `dtype`."""
     bound = (1.0 / num_embeddings) ** 0.5
-    t = torch.empty((num_embeddings, dim), dtype=dtype, device=generator.device)
-    return t.uniform_(-bound, bound, generator=generator)
+    t = torch.empty((num_embeddings, dim), dtype=torch.float32, device=generator.device)
+    return t.uniform_(-bound, bound, generator=generator).to(dtype)
 
 
 def tower_in_dim(cfg: ModelConfig, tower: TowerConfig) -> int:
@@ -78,8 +83,8 @@ def tower_in_dim(cfg: ModelConfig, tower: TowerConfig) -> int:
 
 
 class TableDict(nn.Module):
-    """The model's tables by name, in the config's order: a float table as a
-    frozen `nn.Parameter` `[N, D]`, an int8 table as a `QuantizedTable`
+    """The model's tables by name, in the config's order: a float table (f32
+    or bf16) as a frozen `nn.Parameter` `[N, D]`, an int8 table as a `QuantizedTable`
     (`.values`, `.scales`). `tables[name] = new` replaces a table by either
     kind, so an update that returns new tensors can be installed."""
 
@@ -215,7 +220,16 @@ def params_from_numpy(params: dict, cfg: ModelConfig,
             src = np.asarray(src)
             if src.shape != tuple(table.shape):
                 raise ValueError(f"table {name!r}: shape {src.shape} != {tuple(table.shape)}")
-            table.copy_(torch.from_numpy(src.astype(np.float32)))
+            if src.dtype.name == "bfloat16":  # an `ml_dtypes` array: numpy has no bf16 of its own
+                src = src.view(np.uint16)
+            if src.dtype == np.uint16:  # the raw bits of bf16 values
+                if table.dtype != torch.bfloat16:
+                    raise ValueError(f"table {name!r} is {table.dtype}: bf16 bits (uint16) "
+                                     "are for a bfloat16 table")
+                bits = torch.from_numpy(src.view(np.int16).copy())
+                table.copy_(bits.view(torch.bfloat16))
+                continue
+            table.copy_(torch.from_numpy(src.astype(np.float32)))  # rounds into a bf16 table
         for key in _TOWERS:
             layers = getattr(model, key).layers
             if len(params[key]) != len(layers):

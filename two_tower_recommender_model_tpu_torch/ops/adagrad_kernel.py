@@ -10,7 +10,10 @@ sentinels: never read, never written):
     acc[r]   += mean(g_r ** 2)
     table[r] -= lr * g_r / (sqrt(acc[r]) + eps)
 
-in place on `table` and `acc`. The gradients may be f32 or bf16 (bf16 is
+in place on `table` and `acc`. The table may be f32 or bf16: a bf16 row is
+widened, updated with the same f32 math and rounded to nearest even once, as
+the reference's plain updates do (`new_rows.astype(table.dtype)`), and the
+accumulator stays f32. The gradients may be f32 or bf16 (bf16 is
 widened and summed in f32). `perm`, when given, makes the kernel read
 `grads[perm[j]]` for the j-th id, so the device-sort front-end needs no
 permuted copy of the gradients.
@@ -43,8 +46,9 @@ MAX_DIM = 512  # the kernel keeps a row's gradient in registers, 4 columns x 4 c
 
 
 def _check(table, acc, ids, grads, perm) -> None:
-    if table.dim() != 2 or table.dtype != torch.float32:
-        raise ValueError(f"table must be [N, D] float32, got {tuple(table.shape)} {table.dtype}")
+    if table.dim() != 2 or table.dtype not in _DTYPE_CODES:
+        raise ValueError(f"table must be [N, D] float32 or bfloat16, got {tuple(table.shape)} "
+                         f"{table.dtype}")
     n, d = table.shape
     if acc.shape != (n,) or acc.dtype != torch.float32:
         raise ValueError(f"acc must be [N] float32, got {tuple(acc.shape)} {acc.dtype}")
@@ -75,7 +79,8 @@ def rowwise_adagrad_reference(table: torch.Tensor, acc: torch.Tensor, ids: torch
                               grads: torch.Tensor, lr: float, eps: float = 1e-10,
                               perm: torch.Tensor | None = None):
     """The plain PyTorch version of the kernel: the same contract, in place,
-    for ids in any order (duplicates summed by `index_add_` in f32)."""
+    for ids in any order (duplicates summed by `index_add_` in f32); a bf16
+    table's rows are widened, updated in f32 and rounded once."""
     n = table.shape[0]
     g = (grads if perm is None else grads[perm.long()]).to(torch.float32)
     live = (ids >= 0) & (ids < n)
@@ -84,7 +89,7 @@ def rowwise_adagrad_reference(table: torch.Tensor, acc: torch.Tensor, ids: torch
                         device=table.device).index_add_(0, inv, g[live])
     new_acc = acc[rows] + (g_sum * g_sum).mean(dim=1)
     denom = torch.sqrt(new_acc) + eps
-    table[rows] = table[rows] - lr * g_sum / denom[:, None]
+    table[rows] = (table[rows].float() - lr * g_sum / denom[:, None]).to(table.dtype)
     acc[rows] = new_acc
     return table, acc
 
@@ -99,9 +104,9 @@ class RowwiseAdagrad(_build.KernelLibrary):
 
     def __init__(self):
         super().__init__("rowwise_adagrad", "ttrm_rowwise_adagrad", [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
-            ctypes.c_float])
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_float, ctypes.c_float])
 
     def __call__(self, table: torch.Tensor, acc: torch.Tensor, ids: torch.Tensor,
                  grads: torch.Tensor, lr: float, eps: float = 1e-10,
@@ -115,12 +120,13 @@ class RowwiseAdagrad(_build.KernelLibrary):
         n, d = table.shape
         if d % 4 or d > MAX_DIM:
             raise ValueError(f"the CUDA kernel needs D % 4 == 0 and D <= {MAX_DIM}, got D={d}")
+        table_align = 16 if table.dtype == torch.float32 else 8
         grad_align = 16 if grads.dtype == torch.float32 else 8
-        if table.data_ptr() % 16 or grads.data_ptr() % grad_align:
-            raise ValueError("the CUDA kernel needs a 16-byte aligned table and "
+        if table.data_ptr() % table_align or grads.data_ptr() % grad_align:
+            raise ValueError(f"the CUDA kernel needs a {table_align}-byte aligned table and "
                              f"{grad_align}-byte aligned grads")
-        self.launch(table.device, table.data_ptr(), acc.data_ptr(), ids.data_ptr(),
-                    grads.data_ptr(), _DTYPE_CODES[grads.dtype],
+        self.launch(table.device, table.data_ptr(), _DTYPE_CODES[table.dtype], acc.data_ptr(),
+                    ids.data_ptr(), grads.data_ptr(), _DTYPE_CODES[grads.dtype],
                     None if perm is None else perm.data_ptr(), n, d, ids.shape[0], lr, eps)
         return table, acc
 

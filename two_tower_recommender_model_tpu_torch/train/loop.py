@@ -1,7 +1,7 @@
 """Training and eval loops.
 
 Port of `two_tower_recommender_model_tpu/train/loop.py` (`evaluate`,
-`train_one_epoch`, `train_val_test`) for one device:
+`train_one_epoch`, `train_one_epoch_packed`, `train_val_test`) for one device:
 
 - a baseline validation eval before any training,
 - per epoch: train -> validation eval -> metric logging -> checkpoint,
@@ -13,9 +13,14 @@ Port of `two_tower_recommender_model_tpu/train/loop.py` (`evaluate`,
 
 Batches come through `train.pipeline.prefetch_to_device` onto the state's
 device. The training loss is read once, at the end of the epoch, so the
-host never waits for the card inside the loop. The reference's sharding,
-padding and exchange-overflow arguments, and `train_one_epoch_packed` with
-its macro-steps, are not ported yet.
+host never waits for the card inside the loop.
+
+`train_one_epoch_packed` is the high-throughput epoch: packed batches,
+grouped K at a time into macro-batches that `train.step.make_multi_step`
+trains in one call (on the card: one replay of a CUDA graph of K steps).
+
+The reference's sharding, padding and exchange-overflow arguments wait for
+the multi-card slice.
 """
 
 from __future__ import annotations
@@ -29,8 +34,15 @@ import torch
 
 from two_tower_recommender_model_tpu_torch.config import ModelConfig, TrainConfig
 from two_tower_recommender_model_tpu_torch.models.metrics import auroc_compute, mean_compute
-from two_tower_recommender_model_tpu_torch.train.pipeline import prefetch_to_device
-from two_tower_recommender_model_tpu_torch.train.step import TrainState, eval_state_init
+from two_tower_recommender_model_tpu_torch.train.pipeline import (
+    device_put_batch,
+    prefetch_to_device,
+)
+from two_tower_recommender_model_tpu_torch.train.step import (
+    TrainState,
+    eval_state_init,
+    stack_batches,
+)
 
 log = logging.getLogger(__name__)
 
@@ -163,3 +175,106 @@ def train_val_test(state: TrainState, train_step: Callable, eval_step: Callable,
     if logger is not None:
         logger.log_metrics(metrics, step=state.step)
     return state, results
+
+
+def _macro_dims(mb) -> tuple[int, int]:
+    """(K steps, B examples a step) of a stacked `PackedBatch`
+    (`ids_raw [K, B, S]`)."""
+    return mb.ids_raw.shape[0], mb.ids_raw.shape[1]
+
+
+def train_one_epoch_packed(state: TrainState, multi_step: Callable, batches: Iterable[dict],
+                           packed_featurizer, macro: int = 16, prefetch: int = 2,
+                           num_workers: int = 2, train_cfg: TrainConfig | None = None,
+                           tail_step: Callable | None = None, eval_step: Callable | None = None,
+                           val_batches_factory: Callable[[], Iterable[dict]] | None = None,
+                           val_featurizer=None, logger=None, epoch: int = 0,
+                           sharding=None, tail_sharding=None, val_sharding=None,
+                           pad_multiple: int | None = None, pad_to: int | None = None,
+                           ) -> tuple[TrainState, dict[str, float]]:
+    """The high-throughput epoch: packed batches, device-side featurization
+    and K-step macro-batches through `make_multi_step`, with the surface of
+    `train_one_epoch`:
+
+    - `train_cfg.limit_train_batches` truncation,
+    - mid-epoch validation every `train_cfg.validation_freq` steps, checked
+      at macro boundaries (through `val_featurizer`, or the packed featurizer
+      with a packed eval step),
+    - a trailing partial macro fed batch by batch through `tail_step` (e.g.
+      `make_packed_train_step(...)`) instead of being dropped; without a
+      `tail_step` it is dropped.
+
+    `num_workers` threads featurize and stack macro groups, in order. The
+    sharding and padding arguments are the reference's multi-device surface
+    and are not ported yet."""
+    for name, arg in (("sharding", sharding), ("tail_sharding", tail_sharding),
+                      ("val_sharding", val_sharding), ("pad_multiple", pad_multiple),
+                      ("pad_to", pad_to)):
+        if arg is not None:
+            raise NotImplementedError(
+                f"train_one_epoch_packed({name}=...) is not ported to the PyTorch package yet "
+                "(ROADMAP.md M12: the multi-card slice)")
+    it = iter(batches)
+    if train_cfg is not None and train_cfg.limit_train_batches is not None:
+        it = itertools.islice(it, train_cfg.limit_train_batches)
+    vfreq = train_cfg.validation_freq if train_cfg is not None else None
+    can_validate = vfreq and eval_step is not None and val_batches_factory is not None
+    tail: list = []
+
+    def groups():
+        g = []
+        for cols in it:
+            g.append(cols)
+            if len(g) == macro:
+                yield g
+                g = []
+        tail.extend(g)
+
+    def assemble(group):
+        return stack_batches([packed_featurizer(c) for c in group])
+
+    def maybe_validate(steps, next_val):
+        if not can_validate or steps < next_val:
+            return next_val
+        metrics = evaluate(state, eval_step, val_batches_factory(),
+                           val_featurizer or packed_featurizer, train_cfg.limit_val_batches,
+                           "val")
+        log.info("epoch %d step %d mid-epoch %s", epoch, steps, metrics)
+        if logger is not None:
+            logger.log_metrics(metrics, step=state.step)
+        while next_val <= steps:
+            next_val += vfreq
+        return next_val
+
+    steps = examples = 0
+    next_val = vfreq or 0
+    t0 = time.perf_counter()
+    last_loss = None
+    for mb in prefetch_to_device(groups(), assemble, state.device, prefetch=prefetch,
+                                 num_workers=num_workers):
+        state, out = multi_step(state, mb)
+        last_loss = out["loss"][-1]
+        k, b = _macro_dims(mb)
+        steps += k
+        examples += k * b
+        next_val = maybe_validate(steps, next_val)
+    if tail and tail_step is not None:
+        for cols in tail:
+            pb = device_put_batch(packed_featurizer(cols), state.device)
+            state, out = tail_step(state, pb)
+            last_loss = out["loss"]
+            steps += 1
+            examples += pb.batch_size
+            next_val = maybe_validate(steps, next_val)
+    if last_loss is not None:
+        last_loss = float(last_loss)  # the one read of the epoch
+    if state.device.type == "cuda":
+        torch.cuda.synchronize(state.device)
+    dt = time.perf_counter() - t0
+    return state, {
+        "train_steps": steps,
+        "train_examples": examples,
+        "train_loss": last_loss if last_loss is not None else float("nan"),
+        "examples_per_sec": examples / dt if dt > 0 else 0.0,
+        "epoch_time_s": dt,
+    }

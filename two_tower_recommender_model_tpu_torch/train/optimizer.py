@@ -24,7 +24,15 @@ counterparts in the JAX package's `ops/block_sorted.py` and
 `ops/pallas_update.py`.
 
 `dense_optimizer` is the towers' Adam / AdamW recipe with the JAX package's
-learning-rate schedules (constant, linear, cosine, with warmup).
+learning-rate schedules (constant, linear, cosine, with warmup). Over CUDA
+parameters the optimizer is built capturable (its step counts and its
+learning rate are device tensors), for eager steps as for the steps a
+multi-step captures into a CUDA graph, so the two agree bit for bit on the
+card; over CPU parameters it is the plain optimizer with a Python-number
+rate. The capturable path computes Adam's bias corrections with f32 tensor
+arithmetic and holds the rate in f32, the plain one with Python doubles:
+the two agree to a few f32 ulps of each update (the rate times a ratio of
+order 1), not bit for bit.
 """
 
 from __future__ import annotations
@@ -201,28 +209,88 @@ def _cosine(init: float, steps: int, alpha: float) -> Callable[[int], float]:
     return lr
 
 
+def init_adam_state(opt: torch.optim.Optimizer) -> None:
+    """Create Adam's per-parameter state (zero moments, step 0) now instead
+    of at the first `step()`, as `torch.optim.Adam` itself creates it: a CUDA
+    graph bakes the state's addresses in, so they must exist before the
+    capture."""
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if opt.state[p]:
+                continue
+            opt.state[p] = {
+                # the count lives beside the parameter when the step may be captured
+                "step": torch.zeros((), dtype=torch.float32,
+                                    device=p.device if group["capturable"] else "cpu"),
+                "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+                "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format),
+            }
+
+
 @dataclasses.dataclass(frozen=True)
 class DenseOptimizer:
     """A recipe for the towers' optimizer, not yet bound to parameters:
-    `build(params)` makes the torch optimizer, `step(opt, t)` sets the
-    learning rate of update t (counted from 0) and applies the update."""
+    `build(params)` makes the torch optimizer (which remembers the schedule
+    as `opt.lr_schedule`), `step(opt, t)` sets the learning rate of update t
+    (counted from 0) and applies the update."""
 
     schedule: Callable[[int], float]
     weight_decay: float = 0.0
 
     def build(self, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
+        """Adam (AdamW with `weight_decay`) over `params`, its state created
+        at once. Over CUDA parameters it is capturable and its rate is a
+        0-dim device tensor."""
+        params = list(params)
+        cuda = bool(params) and params[0].is_cuda
+        lr = self.schedule(0)
+        if cuda:
+            lr = torch.tensor(lr, dtype=torch.float32, device=params[0].device)
         # optax's defaults: b1 0.9, b2 0.999, eps 1e-8; AdamW decays the
         # weights decoupled from the Adam direction, as optax.adamw does
         if self.weight_decay:
-            return torch.optim.AdamW(params, lr=self.schedule(0), betas=(0.9, 0.999), eps=1e-8,
-                                     weight_decay=self.weight_decay)
-        return torch.optim.Adam(params, lr=self.schedule(0), betas=(0.9, 0.999), eps=1e-8)
+            opt = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                    weight_decay=self.weight_decay, capturable=cuda)
+        else:
+            opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, capturable=cuda)
+        # a capturable optimizer stepping outside a capture is meant here: no warning
+        opt._warned_capturable_if_run_uncaptured = True
+        opt.lr_schedule = self.schedule  # a captured multi-step fills its rate buffer from it
+        init_adam_state(opt)
+        return opt
 
-    def step(self, opt: torch.optim.Optimizer, t: int) -> None:
-        lr = self.schedule(t)
+    def step(self, opt: torch.optim.Optimizer, t: int, lr: torch.Tensor | None = None) -> None:
+        """Apply update t. `lr`, when given, is a 0-dim device tensor that
+        holds this update's rate: a step captured into a CUDA graph reads it
+        from a buffer the host fills from the schedule before each replay,
+        since a Python number would be baked into the graph."""
         for group in opt.param_groups:
-            group["lr"] = lr
+            if torch.is_tensor(group["lr"]):
+                if lr is None:
+                    group["lr"].fill_(self.schedule(t))
+                else:
+                    group["lr"].copy_(lr)
+            elif lr is not None:
+                raise ValueError("a device learning rate needs a capturable optimizer "
+                                 "(CUDA parameters)")
+            else:
+                group["lr"] = self.schedule(t)
         opt.step()
+
+
+def clone_dense_optimizer(opt: torch.optim.Optimizer,
+                          params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
+    """An optimizer of `opt`'s kind and hyperparameters over `params` (the
+    same parameters in the same order, on any device: theirs decides whether
+    it is capturable), with a copy of `opt`'s state."""
+    decay = opt.param_groups[0]["weight_decay"] if type(opt) is torch.optim.AdamW else 0.0
+    new = DenseOptimizer(opt.lr_schedule, decay).build(params)
+    olds = [p for g in opt.param_groups for p in g["params"]]
+    news = [p for g in new.param_groups for p in g["params"]]
+    for p_old, p_new in zip(olds, news, strict=True):
+        for key, value in opt.state.get(p_old, {}).items():
+            new.state[p_new][key].copy_(value)
+    return new
 
 
 def dense_optimizer(learning_rate: float, schedule: str = "constant",

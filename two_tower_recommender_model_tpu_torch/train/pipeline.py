@@ -11,11 +11,16 @@ on batch k.
 
 A batch is any nest of dataclasses (`Batch`, `SparseFeature`,
 `PackedBatch`) and dicts whose leaves are numpy arrays or tensors.
+
+`macro_stream` groups a stream of column dicts into K-deep macro-batches (a
+leading axis K on every leaf) for `train.step.make_multi_step`;
+`device_put_batch` moves one host batch to a device.
 """
 
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import dataclasses
 import queue
 import threading
@@ -44,6 +49,34 @@ def map_leaves(obj: Any, fn: Callable[[torch.Tensor], torch.Tensor]) -> Any:
 
 def _pin(t: torch.Tensor) -> torch.Tensor:
     return t if t.device.type != "cpu" or t.is_pinned() else t.pin_memory()
+
+
+def device_put_batch(batch: Any, device: torch.device | str | None = None, sharding=None) -> Any:
+    """A host batch with every array leaf on `device` (the card when None).
+    `sharding` is the reference's multi-device placement and waits for the
+    multi-card slice."""
+    if sharding is not None:
+        raise NotImplementedError(
+            "sharded placement of a batch is not ported to the PyTorch package yet "
+            "(ROADMAP.md M12: the multi-card slice)")
+    device = resolve_device(device)
+    return map_leaves(batch, lambda t: t.to(device))
+
+
+def _pooled(columns_iter: Iterable[dict], make: Callable, workers: int) -> Iterator:
+    """`make(cols)` for each item on `workers` threads, yielded in the
+    stream's order, at most `workers + 1` items ahead of the consumer."""
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=workers)
+    futures: collections.deque = collections.deque()
+    try:
+        for cols in columns_iter:
+            futures.append(pool.submit(make, cols))
+            if len(futures) > workers + 1:
+                yield futures.popleft().result()
+        while futures:
+            yield futures.popleft().result()
+    finally:
+        pool.shutdown(wait=False, cancel_futures=True)
 
 
 def _background(columns_iter: Iterable[dict], make: Callable, depth: int) -> Iterator:
@@ -89,17 +122,21 @@ def _background(columns_iter: Iterable[dict], make: Callable, depth: int) -> Ite
 
 def prefetch_to_device(columns_iter: Iterable[dict], featurize: Callable[[dict], Any],
                        device: torch.device | str | None = None,
-                       prefetch: int = 2) -> Iterator[Any]:
+                       prefetch: int = 2, num_workers: int = 1) -> Iterator[Any]:
     """Yield batches on `device`, keeping `prefetch` host-to-device copies in
     flight. `featurize` builds a host batch from a dict of columns, in a
-    background thread."""
+    background thread; `num_workers > 1` featurizes on that many threads
+    (order kept), for when the host's featurization limits the throughput."""
     device = resolve_device(device)
     cuda = device.type == "cuda"
 
     def host_batch(cols):
         return map_leaves(featurize(cols), _pin if cuda else (lambda t: t))
 
-    source = _background(columns_iter, host_batch, prefetch)
+    if num_workers > 1:
+        source = _pooled(columns_iter, host_batch, num_workers)
+    else:
+        source = _background(columns_iter, host_batch, prefetch)
     if not cuda:
         for hb in source:
             yield map_leaves(hb, lambda t: t.to(device))
@@ -127,3 +164,19 @@ def prefetch_to_device(columns_iter: Iterable[dict], featurize: Callable[[dict],
             yield hand_out()
     while buf:
         yield hand_out()
+
+
+def macro_stream(columns_iter: Iterable[dict], packed_featurizer: Callable[[dict], Any],
+                 k: int) -> Iterator[Any]:
+    """Group a per-batch column stream into K-deep host macro-batches for
+    `train.step.make_multi_step` (a leading axis K on every leaf). A trailing
+    partial group is dropped: a macro-batch's shape is fixed (on the card it
+    is the shape a CUDA graph was captured for)."""
+    from two_tower_recommender_model_tpu_torch.train.step import stack_batches
+
+    group = []
+    for cols in columns_iter:
+        group.append(packed_featurizer(cols))
+        if len(group) == k:
+            yield stack_batches(group)
+            group = []

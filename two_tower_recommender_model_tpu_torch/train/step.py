@@ -23,19 +23,27 @@ do); the step installs whatever the update returns.
 
 With `table_dtype="int8"` a table is a `QuantizedTable` (int8 rows, f32
 scales; accumulators stay f32 `[N]`): gathers through kernel #5, updates
-through kernel #6.
+through kernel #6. With `table_dtype="bfloat16"` a table is a bf16 tensor:
+gathers through kernel #1, which widens the rows, and updates through kernel
+#4 with f32 gradients, f32 row math, f32 accumulators and one rounding of the
+new row to bf16, as the reference's plain updates do.
+
+`make_multi_step(step_fn)` runs K steps over a stacked macro-batch in one
+call: a plain loop on CPU tensors, and on CUDA tensors one CUDA graph of the
+K steps, captured at the first call and replayed after, so the host issues
+one launch for K steps' device work.
 
 Not ported yet (each raises `NotImplementedError` naming its ROADMAP item):
-bf16 table storage (M10a), `scatter_buffer_dtype="bfloat16"`,
-`device_sorted_gather`, and `make_multi_step` (a CUDA graph of K steps).
+`scatter_buffer_dtype="bfloat16"` and `device_sorted_gather`.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from two_tower_recommender_model_tpu_torch.config import ModelConfig, TrainConfig
@@ -63,6 +71,7 @@ from two_tower_recommender_model_tpu_torch.ops.quantized_kernel import (
     quantized_rowwise_adagrad_fused,
 )
 from two_tower_recommender_model_tpu_torch.train import optimizer as opt_lib
+from two_tower_recommender_model_tpu_torch.train.pipeline import map_leaves
 
 
 @dataclasses.dataclass
@@ -77,6 +86,9 @@ class TrainState:
     # streaming item-frequency counts [num_candidate_ids] f32 for the sampled
     # softmax's logQ popularity correction (None unless enabled)
     item_counts: torch.Tensor | None = None
+    # set by a multi-step around each step it captures into a CUDA graph: the 0-dim
+    # device tensor the towers' optimizer reads that update's learning rate from
+    device_lr: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -87,8 +99,7 @@ class TrainState:
         the same device)."""
         device = self.device if device is None else torch.device(device)
         model = copy.deepcopy(self.model).to(device)
-        opt = type(self.dense_opt_state)(tower_parameters(model), **self.dense_opt_state.defaults)
-        opt.load_state_dict(self.dense_opt_state.state_dict())  # moves the state to `device`
+        opt = opt_lib.clone_dense_optimizer(self.dense_opt_state, tower_parameters(model))
         return TrainState(self.step, model,
                           {k: v.to(device, copy=True) for k, v in self.adagrad_acc.items()}, opt,
                           None if self.item_counts is None
@@ -105,22 +116,21 @@ def tower_parameters(model: TwoTower) -> list[torch.nn.Parameter]:
     return [*model.query_tower.parameters(), *model.candidate_tower.parameters()]
 
 
-def _check_ported(model_cfg: ModelConfig) -> None:
+def _check_table_dtypes(model_cfg: ModelConfig) -> None:
     for t in model_cfg.tables:
-        if model_cfg.table_dtype_of(t.name) not in ("float32", "int8"):
-            raise NotImplementedError(
-                f"table {t.name!r}: {model_cfg.table_dtype_of(t.name)} table storage is not "
-                "ported to the PyTorch package yet (ROADMAP M10a); use float32 or int8 tables")
+        if model_cfg.table_dtype_of(t.name) not in ("float32", "bfloat16", "int8"):
+            raise ValueError(f"table {t.name!r}: table dtype must be float32|bfloat16|int8, got "
+                             f"{model_cfg.table_dtype_of(t.name)!r}")
 
 
 def create_train_state(generator: torch.Generator, model_cfg: ModelConfig,
                        train_cfg: TrainConfig) -> tuple[TrainState, opt_lib.DenseOptimizer]:
     """A fresh state on the generator's device: random weights drawn from
     `generator` (int8 tables drawn in f32 and quantized, the very large ones
-    chunk by chunk: `init_params`), zero f32 accumulators, and Adam over the
-    towers. Returns the state and the towers' optimizer recipe, which
+    chunk by chunk, bf16 tables drawn in f32 and rounded: `init_params`), zero
+    f32 accumulators, and Adam over the towers. Returns the state and the towers' optimizer recipe, which
     `make_train_step` takes."""
-    _check_ported(model_cfg)
+    _check_table_dtypes(model_cfg)
     model = init_params(model_cfg, generator)
     dense_opt = opt_lib.dense_optimizer(train_cfg.learning_rate)
     item_counts = None
@@ -211,16 +221,20 @@ def pick_table_update_fn(
     - else kernel #4.
 
     One kernel serves every table whatever its size and whatever
-    `block_sorted_kernel` says (so `model_cfg` and `n_flat_ids`, which pick
-    between the reference's routes, pick nothing here): the option only sets
-    the gradients' dtype, "bfloat16" rounds them to bf16, "off" and "float32"
-    pass f32. The host-sorted table's ids go straight in (they arrive sorted;
-    an async device assert holds them to it, since unsorted ids would race in
-    the kernel); every other table goes through the device-sort front-end."""
-    del model_cfg, n_flat_ids
+    `block_sorted_kernel` says (so `n_flat_ids`, which picks between the
+    reference's routes, picks nothing here): the option only sets the
+    gradients' dtype, "bfloat16" rounds them to bf16, "off" and "float32"
+    pass f32. A bf16 table never reaches a block kernel in the reference, so
+    its gradients go in as f32 under every value of the option. The
+    host-sorted table's ids go straight in (they arrive sorted; an async
+    device assert holds them to it, since unsorted ids would race in the
+    kernel); every other table goes through the device-sort front-end."""
+    del n_flat_ids
     if sparse_update is not None and not quantized:
         return sparse_update
     matmul_dtype = "bfloat16" if train_cfg.block_sorted_kernel == "bfloat16" else "float32"
+    if model_cfg.table_dtype_of(tname) == "bfloat16":
+        matmul_dtype = "float32"
     if tname != sorted_table:
         def upd(table, acc, fids, fgrads, lr, eps):
             return opt_lib.device_sorted_fused_adagrad(table, acc, fids, fgrads, lr, eps,
@@ -251,7 +265,13 @@ def _check_train_config(model_cfg: ModelConfig, train_cfg: TrainConfig) -> None:
     if train_cfg.device_sorted_gather:
         raise NotImplementedError(
             "device_sorted_gather is not ported to the PyTorch package yet (ROADMAP)")
-    _check_ported(model_cfg)
+    _check_table_dtypes(model_cfg)
+    sorted_table = validate_sorted_feature(model_cfg, train_cfg)
+    if train_cfg.block_sorted_kernel != "off" and sorted_table is not None:
+        if model_cfg.table_dtype_of(sorted_table) not in ("float32", "int8"):
+            raise ValueError(
+                f"block_sorted_kernel supports float32 and int8 tables; "
+                f"table {sorted_table!r} is {model_cfg.table_dtype_of(sorted_table)}")
 
 
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
@@ -260,7 +280,9 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     out = {"loss", "logits"} as device tensors (read them when needed: a
     `.item()` waits for the card). `sparse_update`, when given, replaces the
     update of every float table (`pick_table_update_fn`); it may update in
-    place or return new tensors."""
+    place or return new tensors (while a CUDA graph is being captured, what
+    it returns is copied back into the state's own tensors, whose addresses
+    the graph replays)."""
     _check_train_config(model_cfg, train_cfg)
     loss_fn = losses_lib.loss_fn_from_config(train_cfg, model_cfg)
     cand_feature = model_cfg.candidate_tower.features[0]
@@ -294,7 +316,7 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         loss, logits = loss_fn(q, c, batch, log_q=log_q)
         loss.backward()
 
-        dense_opt.step(state.dense_opt_state, state.step)  # stage C
+        dense_opt.step(state.dense_opt_state, state.step, lr=state.device_lr)  # stage C
         d_pooled = {k: v.grad if v.grad is not None else torch.zeros_like(v)
                     for k, v in pooled.items()}
         with torch.no_grad():
@@ -307,22 +329,174 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
                 new_table, new_acc = updates[tname](table, acc, fids, fgrads,
                                                     train_cfg.sparse_learning_rate,
                                                     train_cfg.adagrad_eps)
-                if new_table is not table:  # an update that returned new tensors
-                    model.tables[tname] = new_table
+                # an update that returned new tensors: installed, or under a graph
+                # capture copied back, since a replay updates the captured addresses
+                capturing = acc.is_cuda and torch.cuda.is_current_stream_capturing()
+                if new_table is not table:
+                    if capturing:
+                        table.copy_(new_table)
+                    else:
+                        model.tables[tname] = new_table
                 if new_acc is not acc:
-                    state.adagrad_acc[tname] = new_acc
+                    if capturing:
+                        acc.copy_(new_acc)
+                    else:
+                        state.adagrad_acc[tname] = new_acc
         state.step += 1
         return state, {"loss": loss.detach(), "logits": logits.detach()}
 
     return step
 
 
-def make_multi_step(step_fn: Callable):
-    """K steps in one dispatch. Not ported yet: on the card this is a CUDA
-    graph of the step (ROADMAP)."""
-    raise NotImplementedError(
-        "make_multi_step is not ported to the PyTorch package yet (ROADMAP: a CUDA graph "
-        "of K train steps)")
+def stack_batches(batches: list) -> Any:
+    """Stack K host batches into one macro-batch (a leading axis K on every
+    array leaf, numpy as the reference's; a leaf that is None in every batch
+    stays None)."""
+    first = batches[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: stack_batches([b[k] for b in batches]) for k in first}
+    if dataclasses.is_dataclass(first) and not isinstance(first, type):
+        return dataclasses.replace(first, **{
+            f.name: stack_batches([getattr(b, f.name) for b in batches])
+            for f in dataclasses.fields(first)})
+    return np.stack([np.asarray(b) for b in batches])
+
+
+WARMUP_STEPS = 2  # eager steps on a copy of the state before a capture
+
+
+def _state_tensors(state: TrainState) -> list[torch.Tensor]:
+    """Every tensor a train step reads or writes in place: what a captured
+    graph holds the addresses of."""
+    out = [p for t in state.model.tables.values()
+           for p in ((t.values, t.scales) if isinstance(t, QuantizedTable) else (t,))]
+    out += state.adagrad_acc.values()
+    for group in state.dense_opt_state.param_groups:
+        if torch.is_tensor(group["lr"]):
+            out.append(group["lr"])
+        for p in group["params"]:
+            out.append(p)
+            out += [v for v in state.dense_opt_state.state[p].values() if torch.is_tensor(v)]
+    if state.item_counts is not None:
+        out.append(state.item_counts)
+    return out
+
+
+def _addresses(tensors: list[torch.Tensor]) -> tuple:
+    return tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors)
+
+
+class _CapturedMacro:
+    """K train steps captured into one CUDA graph, with the static buffers
+    the graph reads (the payload, the K learning rates) and writes (the K
+    losses)."""
+
+    def __init__(self, step_fn: Callable, state: TrainState, stacked: Any):
+        k = _leaves(stacked)[0].shape[0]
+        device = state.device
+        # Warm up on a copy: the first steps build and load the kernels and create
+        # the libraries' handles and workspaces, none of which may happen inside a
+        # capture, and they train the state they run on.
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            warm = state.copy()
+            for i in range(WARMUP_STEPS):
+                step_fn(warm, map_leaves(stacked, lambda t: t[i % k]))
+            del warm
+        torch.cuda.current_stream(device).wait_stream(side)
+
+        self.payload = map_leaves(stacked, torch.clone)
+        self.lr = torch.zeros(k, dtype=torch.float32, device=device)
+        self.losses = torch.zeros(k, dtype=torch.float32, device=device)
+        self.k = k
+        self.graph = torch.cuda.CUDAGraph()
+        step0, before = state.step, _addresses(_state_tensors(state))
+        # thread_local: an input pipeline's threads may pin and copy the next
+        # macro-batch while this thread captures
+        try:
+            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                for i in range(k):
+                    state.device_lr = self.lr[i]
+                    out = step_fn(state, map_leaves(self.payload, lambda t: t[i]))[1]
+                    self.losses[i].copy_(out["loss"].detach().float())
+        finally:  # a capture records and does not run: the state is where it was
+            state.device_lr, state.step = None, step0
+        if _addresses(_state_tensors(state)) != before:
+            raise RuntimeError(
+                "the train step replaced a tensor of the state while it was captured; a CUDA "
+                "graph replays the addresses it saw, so the step must update the state in place")
+
+    def replay(self, state: TrainState, stacked: Any) -> torch.Tensor:
+        for dst, src in zip(_leaves(self.payload), _leaves(stacked)):
+            dst.copy_(src, non_blocking=True)
+        schedule = state.dense_opt_state.lr_schedule
+        rates = [schedule(state.step + i) for i in range(self.k)]
+        self.lr.copy_(torch.tensor(rates, dtype=torch.float32))
+        self.graph.replay()
+        state.step += self.k
+        return self.losses.clone()  # the next replay overwrites the buffer
+
+
+def _leaves(batch: Any) -> list[torch.Tensor]:
+    out: list[torch.Tensor] = []
+    map_leaves(batch, lambda t: out.append(t) or t)
+    return out
+
+
+class MultiStep:
+    """`multi(state, stacked) -> (state, {"loss": [K]})`: K train steps over a
+    macro-batch whose every leaf has a leading axis K (`stack_batches`).
+
+    On CPU tensors it is a plain loop over the K slices, bitwise equal to K
+    sequential steps. On CUDA tensors the K steps are captured once into a
+    `torch.cuda.CUDAGraph` and replayed: one graph per state (keyed by the
+    addresses, shapes and dtypes of its tensors: a second state, or a state
+    one of whose tensors was replaced, is captured anew and never replayed
+    into another's addresses) and per shape and dtype of the payload. Each
+    macro-batch is copied into the graph's static payload buffer, and the K
+    learning rates are computed on the host from the schedule the state's
+    optimizer was built with (updates `state.step` to `state.step + K - 1`)
+    and copied into the buffer each captured step reads its rate from. The first call with a new key runs
+    `WARMUP_STEPS` eager steps on a copy of the state (they would otherwise
+    train it), captures, and replays.
+
+    `captures` and `replays` count what their names say; kernel wrappers
+    count launches where Python calls them, so a replay counts none."""
+
+    def __init__(self, step_fn: Callable):
+        self.step_fn = step_fn
+        self.captures = 0
+        self.replays = 0
+        self._captured: dict[tuple, _CapturedMacro] = {}
+
+    def __call__(self, state: TrainState, stacked: Any):
+        leaves = _leaves(stacked)
+        if not leaves[0].is_cuda:
+            losses = []
+            for i in range(leaves[0].shape[0]):
+                state, out = self.step_fn(state, map_leaves(stacked, lambda t: t[i]))
+                losses.append(out["loss"].detach())
+            return state, {"loss": torch.stack(losses)}
+        key = (_addresses(_state_tensors(state)),
+               tuple((tuple(t.shape), t.dtype) for t in leaves))
+        macro = self._captured.get(key)
+        if macro is None:
+            macro = self._captured[key] = _CapturedMacro(self.step_fn, state, stacked)
+            self.captures += 1
+        losses = macro.replay(state, stacked)
+        self.replays += 1
+        return state, {"loss": losses}
+
+
+def make_multi_step(step_fn: Callable) -> MultiStep:
+    """Train on a K-batch macro-batch in one call (`MultiStep`): `multi(state,
+    stacked) -> (state, {"loss": [K]})`. `step_fn(state, batch)` is a train
+    step over one slice of the macro-batch, e.g. `lambda s, pb: core(s,
+    unpack_batch(pb, model_cfg))` with `core = make_train_step(...)`."""
+    return MultiStep(step_fn)
 
 
 @dataclasses.dataclass
