@@ -20,8 +20,10 @@ without a card. Phases (any failure raises and exits non-zero):
    row-wise Adagrad (#4, 262,144 ids with duplicates and sentinels, f32 and
    bf16 gradients, on the user table and through the item table's device
    sort): untouched rows bitwise, the rest within rtol 1e-5;
-   tower backward (#8, B = 262,144, [128 -> 128 -> 64], bf16): dx, dW1 and
-   dW2 within one bf16 ulp of their largest magnitude, db within 1e-5 x max;
+   tower backward (#8, B = 262,144, [128 -> 128 -> 64], bf16 and f32 io): dx,
+   dW1 and dW2 within one bf16 ulp of their largest magnitude, db within 1e-5
+   x max, two launches bit for bit equal; beside it the time of the same
+   function as bf16 GEMMs and masks (`composed_ms`);
    the fused sampled softmax (#9 forward, #10 dq, #11 dc; D = 64, bf16-valued
    inputs, repeating item ids and logQ): 8,192 x 8,192, the same with
    `n_valid` = 8,000, 65,536 x 65,536, and the stripe of 16,384 rows at row
@@ -66,7 +68,10 @@ without a card. Phases (any failure raises and exits non-zero):
    synthetic interactions, sampled softmax at batch 512 through the kernels,
    5 epochs x 50 batches through `train_val_test` with the per-epoch
    retrieval eval and `select_best="val_recall_at_10"`: recall@10 against the
-   ground-truth top-10 must end above 0.35;
+   ground-truth top-10 must end above 0.35; then, not counted, the same drive
+   from one state drawn on the host and copied to the card: one step on each
+   (tables within 2^-7 x max of the host's) and recall@10 per epoch side by
+   side;
 9. `[kernel]` (run with the other kernel checks) the int8 slice's kernels at
    the int8 train step's shapes: the int8 pooled gather (#5) on the flagship
    user table quantized from a seeded draw, 8,192 x 1 f32 out, 262,144 x 1
@@ -102,8 +107,9 @@ without a card. Phases (any failure raises and exits non-zero):
    rows equal to the plain version's or one bf16 ulp apart;
 15. `[probe]` the gather probe (`tools/probe_consumer.py` of the port) at its
    full shapes, seven cases, one line each; #12 and #13 are counted here;
-16. `[train-graph]` the flagship BCE step (f32 and int8 tables, batch 262,144,
-   bf16 compute) and the sampled-softmax step (batch 8,192), K = 16 steps as
+16. `[train-graph]` the flagship BCE step (f32, int8 and bf16 tables, batch
+   262,144, bf16 compute) and the sampled-softmax step (batch 8,192, f32 and
+   bf16 compute), K = 16 steps as
    one CUDA graph through `make_multi_step`: from two copies of one fresh
    state, 16 eager steps and one multi-step over the same 16 batches, then a
    second macro of another payload against 16 more eager steps; the end
@@ -774,13 +780,34 @@ def phase_int8_kernels(dev: torch.device) -> dict[str, dict]:
     return stats
 
 
+def tower_composed(x, dq, out, w1, b1, w2):
+    """Kernel #8's function as PyTorch calls on bf16 operands: a yardstick
+    of speed for the kernel, used nowhere in the port. TOWER_COMPOSED_CALLS
+    calls: 5 bf16 GEMMs (the layer-1 recompute, dh1, dx, dW1, dW2, each
+    summed in f32 by cuBLAS and rounded to bf16 once), 2 compares, 2
+    selects, the bias add, the ReLU, 2 widenings and 2 column sums. It
+    rounds dh1 to bf16 before db1 and the weight gradients to bf16, where
+    the kernel keeps f32: the same function at bf16 output precision."""
+    d2 = torch.where(out > 0, dq, 0)
+    pre1 = x @ w1 + b1
+    h1 = torch.relu(pre1)
+    d1 = torch.where(pre1 > 0, d2 @ w2.T, 0)
+    return d1 @ w1.T, x.T @ d1, d1.float().sum(0), h1.T @ d2, d2.float().sum(0)
+
+
+TOWER_COMPOSED_CALLS = 15
+
+
 def phase_tower_kernel(dev: torch.device) -> dict:
-    """Kernel #8 against its plain version at the flagship tower's shapes.
-    dx, dW1 and dW2 within one bf16 ulp of their largest magnitude: each
-    product takes bf16-rounded intermediates (pre1, d1, dx), and where an f32
-    sum lands on a bf16 rounding boundary the two versions, which sum in
-    different orders, round it to neighbouring bf16 values. db1 and db2 sum
-    unrounded f32 values: within 1e-5 x max."""
+    """Kernel #8 against its plain version at the flagship tower's shapes,
+    with bf16 io (the bf16 step's) and f32 io. dx, dW1 and dW2 within one
+    bf16 ulp of their largest magnitude: each product takes bf16-rounded
+    intermediates (pre1, d1, dx), and where an f32 sum lands on a bf16
+    rounding boundary the two versions, which sum in different orders, round
+    it to neighbouring bf16 values. db1 and db2 sum unrounded f32 values:
+    within 1e-5 x max. Two launches on the same inputs must agree bit for
+    bit. Beside the kernel's time: the plain version's, the bound, and
+    `tower_composed`'s (bf16 GEMMs and masks)."""
     rng = np.random.default_rng(3)
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
     h2 = LAYERS[1]
@@ -794,22 +821,44 @@ def phase_tower_kernel(dev: torch.device) -> dict:
     w1, b1 = on_card(rng.normal(size=(DIM, DIM), scale=0.1)), on_card(rng.normal(size=DIM) * 0.1)
     w2 = on_card(rng.normal(size=(DIM, h2), scale=0.1))
     w1, b1, w2 = (w.to(torch.bfloat16) for w in (w1, b1, w2))  # as the towers pass them
-    got = tower_backward(x, dq, out, w1, b1, w2)
+    labels = ("dx", "dW1", "db1", "dW2", "db2")
+    results = {}
+    for io in (torch.bfloat16, torch.float32):
+        args = (x.to(io), dq.to(io), out.to(io), w1, b1, w2)
+        got = [t.clone() for t in tower_backward(*args)]
+        again = tower_backward(*args)
+        want = tower_backward_reference(*args)
+        torch.cuda.synchronize()
+        errs = [within_rel(g, w, 2.0 ** -8 if i in (0, 1, 3) else 1e-5, f"tower_bwd {io} {label}")
+                for i, (g, w, label) in enumerate(zip(got, want, labels))]
+        if not all(bitwise_equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"tower_bwd {io}: two launches on the same inputs differ")
+        ms = median_ms(lambda: tower_backward(*args), flush)
+        plain_ms = median_ms(lambda: tower_backward_reference(*args), flush)
+        log(f"[kernel] tower_bwd [{TRAIN_BATCH}, {DIM}] -> [{DIM}] -> [{h2}] {io}: dx, dW1, dW2 "
+            f"within 2^-8 x max|plain|, db within 1e-5 x max|plain|, two launches bit for bit "
+            f"equal; max_abs_err(dx, dW1, db1, dW2, db2)={errs!r}, kernel_ms={ms!r}, "
+            f"plain_ms={plain_ms!r}")
+        results[io] = (max(errs), ms, plain_ms)
+    # the yardstick's own distance from the plain version, printed, not held: its bf16
+    # GEMMs sum on the tensor cores and take ReLU decisions at rounding ties as they fall
+    composed = tower_composed(x, dq, out, w1, b1, w2)
     want = tower_backward_reference(x, dq, out, w1, b1, w2)
     torch.cuda.synchronize()
-    errs = [within_rel(g, w, 2.0 ** -8 if i in (0, 1, 3) else 1e-5, f"tower_bwd {label}")
-            for i, (g, w, label) in enumerate(zip(got, want, ("dx", "dW1", "db1", "dW2", "db2")))]
-    ms = median_ms(lambda: tower_backward(x, dq, out, w1, b1, w2), flush)
-    plain_ms = median_ms(lambda: tower_backward_reference(x, dq, out, w1, b1, w2), flush)
-    log(f"[kernel] tower_bwd [{TRAIN_BATCH}, {DIM}] -> [{DIM}] -> [{h2}] bf16: dx, dW1, dW2 "
-        f"within 2^-8 x max|plain|, db within 1e-5 x max|plain|; max_abs_err(dx, dW1, db1, dW2, "
-        f"db2)={errs!r}, kernel_ms={ms!r}, plain_ms={plain_ms!r}")
+    if not all(torch.isfinite(g).all() and g.shape == w.shape for g, w in zip(composed, want)):
+        raise AssertionError("tower_composed: not finite or of another shape")
+    comp_errs = [((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+                 for g, w in zip(composed, want)]
+    composed_ms = median_ms(lambda: tower_composed(x, dq, out, w1, b1, w2), flush)
     # x, dq and out read and dx written in bf16, the weights read, their gradients written
     b = bound(TRAIN_BATCH * (2 * DIM + 2 * h2) * 2 + 2 * (DIM * DIM + DIM + DIM * h2 + h2) * 4,
               2 * TRAIN_BATCH * DIM * (3 * DIM + 2 * h2), PEAK_BF16)
+    _, ms, plain_ms = results[torch.bfloat16]
     log(f"[kernel] tower_bwd: bound_ms={b['bound_ms']!r} by {b['bound_by']}; no single PyTorch "
-        "call computes it")
-    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
+        f"call computes it; composed_ms={composed_ms!r} ({TOWER_COMPOSED_CALLS} PyTorch calls, "
+        f"5 of them bf16 GEMMs; max abs diff from the plain version over its max: {comp_errs!r})")
+    return {"max_abs_err": max(r[0] for r in results.values()), "ms": ms, "plain_ms": plain_ms,
+            **b, "library_ms": None, "composed_ms": composed_ms}
 
 
 def softmax_case(dev, rng, bq: int, bk: int, row_offset: int, n_valid: int | None, d: int = 64):
@@ -1339,9 +1388,10 @@ def phase_train_graph(dev: torch.device, name: str, cfg, tcfg, pool: list, want:
 
 
 def phase_train_graphs(dev: torch.device, profile: bool, pool: list) -> dict[str, dict]:
-    """`[train-graph]` for the three flagship training paths: BCE at batch
-    262,144 in bf16 compute with f32 tables and with int8 tables (the
-    flagship pool), and the sampled softmax at batch 8,192 in f32 compute."""
+    """`[train-graph]` for the flagship training paths: BCE at batch 262,144
+    in bf16 compute with f32, int8 and bf16 tables (the flagship pool; bf16
+    tables take no block kernel), and the sampled softmax at batch 8,192 in
+    f32 and in bf16 compute."""
     bce = cfg_lib.two_tower_model_config(NUM_USERS, NUM_ITEMS, embedding_dim=DIM,
                                          layer_sizes=LAYERS, compute_dtype="bfloat16")
     bce_tcfg = cfg_lib.TrainConfig(batch_size=TRAIN_BATCH, sorted_feature="user_id",
@@ -1352,6 +1402,9 @@ def phase_train_graphs(dev: torch.device, profile: bool, pool: list) -> dict[str
         "train-graph-int8": phase_train_graph(
             dev, "BCE, int8 tables, bf16 compute", dataclasses.replace(bce, table_dtype="int8"),
             bce_tcfg, pool, BCE_INT8, profile, marker="quantized_gather"),
+        "train-graph-bf16tab": phase_train_graph(
+            dev, "BCE, bf16 tables, bf16 compute", dataclasses.replace(bce, table_dtype="bfloat16"),
+            dataclasses.replace(bce_tcfg, block_sorted_kernel="off"), pool, BCE_F32, profile),
     }
     soft = cfg_lib.two_tower_model_config(NUM_USERS, NUM_ITEMS, embedding_dim=DIM,
                                           layer_sizes=LAYERS)
@@ -1365,6 +1418,10 @@ def phase_train_graphs(dev: torch.device, profile: bool, pool: list) -> dict[str
     paths["train-graph-softmax"] = phase_train_graph(
         dev, "sampled softmax + logQ, f32 tables, f32 compute", soft, soft_tcfg, soft_pool,
         SOFTMAX_F32, profile)
+    paths["train-graph-softmax-bf16"] = phase_train_graph(
+        dev, "sampled softmax + logQ, f32 tables, bf16 compute",
+        dataclasses.replace(soft, compute_dtype="bfloat16"), soft_tcfg, soft_pool,
+        {**SOFTMAX_F32, "tower_bwd": 2}, profile)
     return paths
 
 
@@ -1685,11 +1742,13 @@ def phase_train_softmax(dev: torch.device, profile: bool) -> dict[str, int]:
     return launches
 
 
-def phase_learn_softmax(dev: torch.device) -> dict[str, int]:
-    """The sampled softmax learns to retrieve, on the card: the (32, 16)
-    linear-head model on the learnable synthetic set, batch 512, through
+def learn_softmax_drive():
+    """The sampled-softmax learnability drive (the reference's
+    `tests/test_quality.py`): the (32, 16) linear-head model on the learnable
+    synthetic set, batch 512, 5 epochs of 50 batches. Returns (model config,
+    train config, data set, `run(state, dense_opt, logger=None)` through
     `train_val_test` with the per-epoch retrieval eval and the best epoch
-    kept by recall@10 against the generator's ground-truth top-10."""
+    kept by recall@10 against the generator's ground-truth top-10)."""
     mcfg = cfg_lib.two_tower_model_config(120, 60, embedding_dim=16, layer_sizes=(32, 16))
     mcfg = dataclasses.replace(
         mcfg, query_tower=dataclasses.replace(mcfg.query_tower, final_activation=False),
@@ -1701,20 +1760,31 @@ def phase_learn_softmax(dev: torch.device) -> dict[str, int]:
     users = np.arange(1, 121)
     truth = ds.ground_truth_topk(users, k=10)
     positives = {int(u): truth[i].tolist() for i, u in enumerate(users)}
+
+    def run(state, dense_opt, logger=None):
+        return train_val_test(
+            state, step_lib.make_train_step(mcfg, tcfg, dense_opt),
+            step_lib.make_eval_step(mcfg, tcfg), mcfg, tcfg,
+            Featurizer(mcfg, device="cpu"),  # host batches: the loop's pipeline moves them
+            train_batches_factory=lambda ep: ds.batches(512, 50, split=f"t{ep}"),
+            val_batches_factory=lambda: ds.batches(512, 2, split="val"),
+            test_batches_factory=lambda: ds.batches(512, 2, split="test"), logger=logger,
+            retrieval_eval_fn=make_retrieval_eval_fn(mcfg, positives, k=20, ks=(10,),
+                                                     max_users=120),
+            select_best="val_recall_at_10")
+    return mcfg, tcfg, ds, run
+
+
+def phase_learn_softmax(dev: torch.device) -> dict[str, int]:
+    """The sampled softmax learns to retrieve, on the card (`learn_softmax_drive`,
+    weights drawn by a card generator)."""
+    mcfg, tcfg, ds, run = learn_softmax_drive()
     state, dense_opt = step_lib.create_train_state(torch.Generator(device=dev).manual_seed(0),
                                                    mcfg, tcfg)
     # --- the path, counted ---------------------------------------------------------
     reset_launches()
     t0 = time.perf_counter()
-    state, res = train_val_test(
-        state, step_lib.make_train_step(mcfg, tcfg, dense_opt),
-        step_lib.make_eval_step(mcfg, tcfg), mcfg, tcfg,
-        Featurizer(mcfg, device="cpu"),  # host batches: the loop's pipeline moves them
-        train_batches_factory=lambda ep: ds.batches(512, 50, split=f"t{ep}"),
-        val_batches_factory=lambda: ds.batches(512, 2, split="val"),
-        test_batches_factory=lambda: ds.batches(512, 2, split="test"),
-        retrieval_eval_fn=make_retrieval_eval_fn(mcfg, positives, k=20, ks=(10,), max_users=120),
-        select_best="val_recall_at_10")
+    state, res = run(state, dense_opt)
     seconds = time.perf_counter() - t0
     launches = read_launches()
     # --- checks, not counted ------------------------------------------------------
@@ -1735,6 +1805,72 @@ def phase_learn_softmax(dev: torch.device) -> dict[str, int]:
         f"val_auroc={res['val_auroc']!r} train_loss={res['train_loss']!r} "
         f"examples_per_s={res['examples_per_sec']!r} ({seconds!r} s in all), launches={launches}")
     return launches
+
+
+class RecallLog:
+    """A `train_val_test` logger that keeps each epoch's val recall@10."""
+
+    def __init__(self):
+        self.recalls = []
+
+    def log_metrics(self, metrics, step=None):
+        if "val_recall_at_10" in metrics:
+            self.recalls.append(metrics["val_recall_at_10"])
+
+
+def phase_learn_softmax_equal_weights(dev: torch.device) -> None:
+    """The drive of `[learn-softmax]` from ONE set of weights on the card and
+    on the host CPU (where every wrapper takes its plain version): the state
+    drawn by a CPU generator, copied to the card. First one packed step from
+    copies of it: each table's update and accumulator within 2^-7 x max of
+    the host's (`check_against_host`'s tolerance), the loss, logits and the
+    towers' gradients (Adam's first moment) printed as their distance over
+    that tolerance; then the whole drive on both, recall@10 per epoch side
+    by side. Not counted: it checks whether the card's recall differs from
+    the host's on equal weights."""
+    mcfg, tcfg, ds, run = learn_softmax_drive()
+    host, dense_opt = step_lib.create_train_state(torch.Generator().manual_seed(0), mcfg, tcfg)
+    card = host.copy(device=dev)
+    feat = PackedFeaturizer(mcfg, pack_label=True)
+    pb = feat(next(iter(ds.batches(512, 1, split="t0"))))
+    rel = 2.0 ** -7
+
+    def over(got, want):  # max |got - want| over rel x max |want|
+        return ((got.cpu().float() - want.float()).abs().max()
+                / (rel * want.float().abs().max())).item()
+
+    one = {}
+    for tag, state in (("card", card.copy()), ("cpu", host.copy())):
+        step = make_packed_train_step(step_lib.make_train_step(mcfg, tcfg, dense_opt), mcfg,
+                                      pack_label=True)
+        start = {n: t.detach().cpu().clone() for n, t in state.model.tables.items()}
+        state, out = step(state, map_leaves(pb, lambda t: t.to(state.device)))
+        one[tag] = (state, out, start)
+    (card_s, cout, start), (host_s, hout, _) = one["card"], one["cpu"]
+    ratios = {"loss": over(cout["loss"].reshape(1), hout["loss"].reshape(1)),
+              "logits": over(cout["logits"], hout["logits"])}
+    for n in start:
+        ratios[n] = over(card_s.model.tables[n].detach() - start[n].to(dev),
+                         host_s.model.tables[n].detach() - start[n])
+        ratios[f"{n} acc"] = over(card_s.adagrad_acc[n], host_s.adagrad_acc[n])
+        if max(ratios[n], ratios[f"{n} acc"]) > 1:
+            raise AssertionError(f"[learn-softmax] equal weights: table {n} after one step is "
+                                 f"{ratios[n]!r} x 2^-7 x max from the host's")
+    ratios["tower grads"] = max(
+        over(sc["exp_avg"], sh["exp_avg"]) for sc, sh in
+        zip(card_s.dense_opt_state.state.values(), host_s.dense_opt_state.state.values()))
+    log(f"[learn-softmax] equal weights, one step card against host CPU: max abs diff over "
+        f"2^-7 x max|host| (tables held to <= 1): {ratios!r}")
+    results = {}
+    for tag, state in (("card", card), ("cpu", host)):
+        logger = RecallLog()
+        _, res = run(state, dense_opt, logger)
+        results[tag] = (logger.recalls, res)
+    (card_recalls, card_res), (cpu_recalls, cpu_res) = results["card"], results["cpu"]
+    log(f"[learn-softmax] equal weights (CPU generator, seed 0): val recall@10 per epoch on the "
+        f"card {card_recalls!r}, on the host CPU {cpu_recalls!r}; baseline "
+        f"{card_res['baseline_val_recall_at_10']!r} / {cpu_res['baseline_val_recall_at_10']!r}, "
+        f"best epoch {card_res['best_epoch']!r} / {cpu_res['best_epoch']!r}")
 
 
 def phase_learn(dev: torch.device, table_dtype: str | None = None) -> dict[str, int]:
@@ -2094,6 +2230,7 @@ def main() -> int:
     paths = {"train": phase_train(dev, args.profile, first)[0], "learn": phase_learn(dev),
              "train-softmax": phase_train_softmax(dev, args.profile),
              "learn-softmax": phase_learn_softmax(dev)}
+    phase_learn_softmax_equal_weights(dev)
     paths["train-int8"], int8_state, int8_cfg = phase_train(dev, args.profile, first, "int8")
     phase_train_big_int8(dev, first[0])
     paths["train-override"] = phase_train_override(dev, first[0])

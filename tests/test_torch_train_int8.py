@@ -24,6 +24,7 @@ from two_tower_recommender_model_tpu.ops import quantized as jq
 from two_tower_recommender_model_tpu.serving import RetrievalService as JaxRetrievalService
 from two_tower_recommender_model_tpu.serving import Scorer as JaxScorer
 from two_tower_recommender_model_tpu.serving import load_scorer as jax_load_scorer
+from two_tower_recommender_model_tpu.train import optimizer as jax_opt
 from two_tower_recommender_model_tpu.train import step as jax_step
 from two_tower_recommender_model_tpu.utils.checkpoint import export_model as jax_export_model
 from two_tower_recommender_model_tpu.utils.checkpoint import load_model as jax_load_model
@@ -316,6 +317,52 @@ def test_an_int8_table_keeps_its_update_under_an_override():
     assert port_step.pick_table_update_fn(*args, "t_user_id", B, True, override) is not override
     assert port_step.pick_table_update_fn(cfg, tcfg, None, "t_user_id", n_flat_ids=B,
                                           quantized=True, sparse_update=None) is not None
+
+
+@pytest.mark.parametrize("int8_table", ["t_user_id", "t_product_id"])
+def test_an_int8_table_under_an_override_takes_f32_gradients(int8_table):
+    """Under a `sparse_update` override the reference sends an int8 table to
+    its plain quantized update, on f32 gradients, whatever
+    `block_sorted_kernel` says; the port's kernel #6 must get f32 gradients
+    too, on the host-sorted table and through the device-sort front-end. One
+    packed step in f32 compute with `block_sorted_kernel="bfloat16"`, one
+    int8 table, the other (f32) table under the override in both packages,
+    from the same numpy values: every dequantized row within one
+    quantization step (scale / 127) plus 1e-5 x the largest update, the
+    accumulators within rtol 1e-5 (f32 summation order). Gradients rounded
+    to bf16 move the accumulators by about 2^-9."""
+    cfg = jax_config.two_tower_model_config(USERS, ITEMS, embedding_dim=D)
+    cfg = dataclasses.replace(
+        cfg, fused_tower_backward="off",
+        tables=tuple(dataclasses.replace(t, dtype="int8") if t.name == int8_table else t
+                     for t in cfg.tables))
+    tcfg = jax_config.TrainConfig(batch_size=B, sorted_feature="user_id",
+                                  block_sorted_kernel="bfloat16", sparse_learning_rate=0.05)
+    params = _numpy_params(cfg)
+    (jstate, jopt), (pstate, popt, pcfg, ptcfg) = _states(cfg, tcfg, params)
+    jtrain = jax_make_packed_train_step(
+        jax_step.make_train_step(cfg, tcfg, jopt, jit=False,
+                                 sparse_update=jax_opt.sparse_rowwise_adagrad), cfg)
+    ptrain = make_packed_train_step(
+        port_step.make_train_step(pcfg, ptcfg, popt, sparse_update=port_opt.sparse_rowwise_adagrad),
+        pcfg)
+    cols = SyntheticClickstream(USERS, ITEMS, seed=7).sample(B)
+    cols["user_id"][::11] = 0  # missing ids: dead slots
+    start = {name: _dense(t) for name, t in pstate.model.tables.items()}
+    jstate, _ = jtrain(jstate, jax.tree.map(jnp.asarray,
+                                            JaxPackedFeaturizer(cfg, sort_feature="user_id")(cols)))
+    pstate, _ = ptrain(pstate, map_leaves(PackedFeaturizer(pcfg, sort_feature="user_id")(cols),
+                                          lambda t: t))
+    for name, t in pstate.model.tables.items():
+        got, want = _dense(t), _dense(jstate.tables[name])
+        tol = 1e-5 * np.abs(want - start[name]).max()
+        if name == int8_table:
+            assert isinstance(t, pq.QuantizedTable)
+            tol = tol + np.maximum(t.scales.numpy(),
+                                   np.asarray(jstate.tables[name].scales))[:, None] / 127
+        assert (np.abs(got - want) <= tol).all(), (name, np.abs(got - want).max())
+        np.testing.assert_allclose(pstate.adagrad_acc[name].numpy(),
+                                   np.asarray(jstate.adagrad_acc[name]), rtol=1e-5, atol=1e-12)
 
 
 # --- the export, both ways ------------------------------------------------------------------

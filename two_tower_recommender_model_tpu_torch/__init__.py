@@ -60,7 +60,11 @@ storage, and the gather probe:
 Numerics: float32 matmuls run in full float32. Importing this package sets
 `torch.backends.cuda.matmul.allow_tf32 = False` and
 `torch.backends.cudnn.allow_tf32 = False`, so no product silently drops to
-TF32 (the reference tests run JAX at "highest" matmul precision).
+TF32 (the reference tests run JAX at "highest" matmul precision), and
+`torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False`,
+so a bf16 GEMM (the fused tower's forward under bf16 compute) sums in f32 to
+the end and rounds once, as the reference's f32-accumulated bf16 dot does:
+cuBLAS would otherwise be free to add split-K partials in bf16.
 
 Entry points that take a `device` run on the card when given none, and raise
 without a card; they land on the CPU only when the caller passes
@@ -74,6 +78,7 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 __version__ = "0.1.0"
 from two_tower_recommender_model_tpu_torch.device import default_device  # noqa: F401

@@ -123,11 +123,23 @@ def init_mlp(
 # --- the fused-backward two-layer ReLU tower -----------------------------------------
 
 
+def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """`a @ w` in a's dtype, summed in f32 and rounded once (the reference's
+    `preferred_element_type=f32` then cast). On CUDA bf16 operands this is one
+    bf16 GEMM: cuBLAS sums in f32, and the package turns off its bf16
+    reduction of split-K partials at import. Elsewhere the operands are
+    widened to f32 (products of bf16 values are exact in f32, so the two
+    routes differ only in the order of the sum)."""
+    if a.is_cuda and a.dtype == w.dtype == torch.bfloat16:
+        return torch.matmul(a, w)
+    return torch.matmul(a.float(), w.float()).to(a.dtype)
+
+
 def _mlp2_fwd_impl(w1, b1, w2, b2, x):
     """`relu(relu(x @ w1 + b1) @ w2 + b2)` under the forward's dtype rule,
     with w1 [in, h1] and w2 [h1, h2] in the reference's layout."""
-    h1 = torch.relu(torch.matmul(x.float(), w1.float()).to(x.dtype) + b1)
-    return torch.relu(torch.matmul(h1.float(), w2.float()).to(x.dtype) + b2)
+    h1 = torch.relu(_mm(x, w1) + b1)
+    return torch.relu(_mm(h1, w2) + b2)
 
 
 class Mlp2Relu(torch.autograd.Function):

@@ -26,7 +26,8 @@ from two_tower_recommender_model_tpu_torch.ops import _build
 
 MIN_TILE = 512  # the reference's batch granule (its smallest TPU tile)
 _LANE = 128
-_TILE_ROWS = 32  # rows per tile of the CUDA kernel
+# rows per tile of the CUDA kernel: 64 for bf16 io, 32 for f32 io (the same staged bytes)
+_TILE_ROWS = {torch.bfloat16: 64, torch.float32: 32}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -102,11 +103,14 @@ class TowerBackward(_build.KernelLibrary):
         if x.device.type != "cuda":
             raise ValueError(f"tower_backward runs on cpu or cuda tensors, got {x.device}")
         b, h2 = x.shape[0], w2.shape[1]
-        if b % _TILE_ROWS:
-            raise ValueError(f"the CUDA kernel needs B % {_TILE_ROWS} == 0, got B={b}")
+        tile = _TILE_ROWS[x.dtype]
+        if b % tile:
+            raise ValueError(f"the CUDA kernel needs B % {tile} == 0 for {x.dtype} io, got B={b}")
+        # the kernel copies 16-byte chunks: an offset view is copied to a fresh buffer
+        x, dq, out = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, dq, out))
         w1f, b1f, w2f = (t.to(torch.float32).contiguous() for t in (w1, b1, w2))
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        n_blocks = min(b // _TILE_ROWS, sms)  # one 193 KB shared-memory block per SM
+        n_blocks = min(b // tile, sms)  # persistent: one block of up to 217 KB per SM
         n_out = _LANE * _LANE + _LANE + _LANE * h2 + h2
         dx = torch.empty_like(x)
         partials = torch.empty((n_blocks, n_out), dtype=torch.float32, device=x.device)

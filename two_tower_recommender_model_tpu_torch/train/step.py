@@ -216,7 +216,10 @@ def pick_table_update_fn(
     (table, acc)`, with the reference's signature and priorities:
 
     - an int8 table (`quantized`) always takes kernel #6, also under a
-      `sparse_update` override, as in the reference;
+      `sparse_update` override; there the reference takes its plain
+      quantized update (`pick_quantized_update`: the override wins over the
+      block-kernel routing), which sums f32 gradients, so kernel #6 gets f32
+      gradients whatever `block_sorted_kernel` says;
     - a float table takes `sparse_update` when one is given;
     - else kernel #4.
 
@@ -233,7 +236,7 @@ def pick_table_update_fn(
     if sparse_update is not None and not quantized:
         return sparse_update
     matmul_dtype = "bfloat16" if train_cfg.block_sorted_kernel == "bfloat16" else "float32"
-    if model_cfg.table_dtype_of(tname) == "bfloat16":
+    if model_cfg.table_dtype_of(tname) == "bfloat16" or sparse_update is not None:
         matmul_dtype = "float32"
     if tname != sorted_table:
         def upd(table, acc, fids, fgrads, lr, eps):
