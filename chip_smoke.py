@@ -29,7 +29,9 @@ without a card. Phases (any failure raises and exits non-zero):
    `n_valid` = 8,000, 65,536 x 65,536, and the stripe of 16,384 rows at row
    offset 32,768 against 65,536 columns, which must also equal those rows of
    the square case; lse within rtol 2e-5 / atol 1e-5, dq and dc within 1e-3 x
-   their largest magnitude with cosine > 0.99999;
+   their largest magnitude with cosine > 0.99999, two launches of dq and of
+   dc bit for bit equal; beside #10 and #11 the time of the same function
+   as bf16 GEMMs and elementwise calls (`composed_ms`);
    beside each kernel's time: its plain version's, the card's bound for the
    same work, and where one PyTorch call computes the same function
    (`embedding_bag` for the pooled gather) that call's time;
@@ -70,8 +72,10 @@ without a card. Phases (any failure raises and exits non-zero):
    retrieval eval and `select_best="val_recall_at_10"`: recall@10 against the
    ground-truth top-10 must end above 0.35; then, not counted, the same drive
    from one state drawn on the host and copied to the card: one step on each
-   (tables within 2^-7 x max of the host's) and recall@10 per epoch side by
-   side;
+   (tables within 2^-7 x max of the host's; each tower gradient's distance
+   printed, with the loss's backward through the kernels, through the plain
+   version on the card and with p kept in f32 on both sides) and recall@10
+   per epoch side by side;
 9. `[kernel]` (run with the other kernel checks) the int8 slice's kernels at
    the int8 train step's shapes: the int8 pooled gather (#5) on the flagship
    user table quantized from a seeded draw, 8,192 x 1 f32 out, 262,144 x 1
@@ -138,6 +142,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -897,11 +902,32 @@ def grad_close(got: torch.Tensor, want: torch.Tensor, label: str) -> float:
     return err
 
 
+def softmax_composed(q16, c16, adj, row_ids, col_ids, row_offset, inv_t, lse, g, which, pos):
+    """Kernel #10's (`which="dq"`) or #11's ("dc") function of the square case
+    as PyTorch calls: a yardstick of speed for the kernels, used nowhere in
+    the port. SOFTMAX_COMPOSED_CALLS calls: the bf16 cuBLAS scores q16 @
+    c16.T (summed in f32, rounded to bf16 once, where the kernels keep the
+    f32 sum), the widening, 1/T, adj, the duplicate mask (two compares, an
+    and, a fill; `pos` is arange(B), made outside), exp(s - lse) * g and its
+    bf16 rounding, the second bf16 GEMM, its widening and 1/T. It allocates
+    the [B, B] scores that the kernels never write."""
+    s = (q16 @ c16.T).float() * inv_t - adj
+    dup = (row_ids[:, None] == col_ids) & (row_offset + pos[:, None] != pos)
+    p = (torch.exp(s.masked_fill(dup, sk.NEG) - lse[:, None]) * g[:, None]).to(torch.bfloat16)
+    return ((p @ c16) if which == "dq" else (p.T @ q16)).float() * inv_t
+
+
+SOFTMAX_COMPOSED_CALLS = 16
+
+
 def phase_softmax_kernel(dev: torch.device) -> dict[str, dict]:
     """Kernels #9, #10 and #11 against their plain versions: the square case
     at the production batch (with and without padded columns) and at the
     large batch, and one stripe of a four-way data-parallel split, which must
-    also equal its rows of the square case."""
+    also equal its rows of the square case. Two launches of #10 and of #11
+    on the same inputs must agree bit for bit in every case. At the main
+    path's shape, beside the kernels' times: `softmax_composed`'s (bf16
+    GEMMs and elementwise calls)."""
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
     names = ("softmax_lse_fwd", "softmax_lse_dq", "softmax_lse_dc")
     stats: dict[str, dict] = {n: {"max_abs_err": 0.0} for n in names}
@@ -923,7 +949,11 @@ def phase_softmax_kernel(dev: torch.device) -> dict[str, dict]:
         # both backwards from the plain lse, so only the backward itself is compared
         dq, dc = sk.softmax_lse_dq(*args, want_lse, g), sk.softmax_lse_dc(*args, want_lse, g)
         want_dq, want_dc = sk.lse_backward_reference(*args, want_lse, g)
+        dq2, dc2 = sk.softmax_lse_dq(*args, want_lse, g), sk.softmax_lse_dc(*args, want_lse, g)
         torch.cuda.synchronize()
+        if not (bitwise_equal(dq, dq2) and bitwise_equal(dc, dc2)):
+            raise AssertionError(f"{label}: two launches of dq or dc on the same inputs differ")
+        del dq2, dc2
         errs = {"softmax_lse_fwd": (lse - want_lse).abs().max().item(),
                 "softmax_lse_dq": grad_close(dq, want_dq, f"{label} dq"),
                 "softmax_lse_dc": grad_close(dc, want_dc, f"{label} dc")}
@@ -963,6 +993,24 @@ def phase_softmax_kernel(dev: torch.device) -> dict[str, dict]:
             st["max_abs_err"] = max(st["max_abs_err"], errs[name])
             if main_case:  # the main path's shape: the train step's batch
                 st.update(ms=ms, plain_ms=plain_ms, **b, library_ms=None)
+        if main_case:
+            pos = torch.arange(bk, device=dev)
+            for name, which, want in (("softmax_lse_dq", "dq", want_dq),
+                                      ("softmax_lse_dc", "dc", want_dc)):
+                comp = softmax_composed(*args, want_lse, g, which, pos)
+                torch.cuda.synchronize()
+                if not (torch.isfinite(comp).all() and comp.shape == want.shape):
+                    raise AssertionError(f"softmax_composed {which}: not finite or of another "
+                                         "shape")
+                # its distance from the plain version, printed, not held: its scores are bf16
+                comp_err = ((comp - want).abs().max() / want.abs().max()).item()
+                composed_ms = median_ms(
+                    lambda: softmax_composed(*args, want_lse, g, which, pos), flush, reps)
+                log(f"[kernel] {name} {label}: composed_ms={composed_ms!r} "
+                    f"({SOFTMAX_COMPOSED_CALLS} PyTorch calls, 2 of them bf16 GEMMs; max abs "
+                    f"diff from the plain version over its max: {comp_err!r}) against "
+                    f"kernel_ms={stats[name]['ms']!r}")
+                stats[name]["composed_ms"] = composed_ms
     return stats
 
 
@@ -1818,35 +1866,92 @@ class RecallLog:
             self.recalls.append(metrics["val_recall_at_10"])
 
 
+def unrounded_lse_backward(q16, c16, adj, row_ids, col_ids, row_offset, inv_t, lse, g,
+                           need_dq=True, need_dc=True):
+    """`lse_backward_reference` with p kept in f32 (not rounded to bf16): a
+    probe of the equal-weights check, in one block of rows (B = 512)."""
+    qf, cf = q16.float(), c16.float()
+    cols = torch.arange(cf.shape[0], device=qf.device)
+    s = sk._scores(qf, cf, adj, row_ids, col_ids, cols[:qf.shape[0]] + row_offset, cols, inv_t)
+    p = torch.exp(s - lse[:, None]) * g[:, None]
+    return ((p @ cf) * inv_t if need_dq else None), ((p.T @ qf) * inv_t if need_dc else None)
+
+
+@contextlib.contextmanager
+def routed_lse_backward(fn, seen: dict):
+    """Route the fused loss's backward through `fn` (a function with
+    `lse_backward_reference`'s signature) on the card and on the host, or
+    keep kernels #10 / #11 on the card and the plain version on the host
+    (`fn=None`); keep the last dq and dc it returned, on the host, in `seen`."""
+    dq_k, dc_k, plain = sk.softmax_lse_dq, sk.softmax_lse_dc, sk.lse_backward_reference
+
+    def on_card(which, kernel):
+        def call(*args):
+            out = (kernel(*args) if fn is None else
+                   fn(*args, need_dq=which == "dq", need_dc=which == "dc")[which == "dc"])
+            seen[which] = out.detach().cpu().clone()
+            return out
+        return call
+
+    def on_host(*args):
+        dq, dc = (fn or plain)(*args)
+        seen["dq"], seen["dc"] = dq.clone(), dc.clone()
+        return dq, dc
+
+    sk.softmax_lse_dq, sk.softmax_lse_dc = on_card("dq", dq_k), on_card("dc", dc_k)
+    sk.lse_backward_reference = on_host
+    try:
+        yield
+    finally:
+        sk.softmax_lse_dq, sk.softmax_lse_dc, sk.lse_backward_reference = dq_k, dc_k, plain
+
+
 def phase_learn_softmax_equal_weights(dev: torch.device) -> None:
     """The drive of `[learn-softmax]` from ONE set of weights on the card and
     on the host CPU (where every wrapper takes its plain version): the state
     drawn by a CPU generator, copied to the card. First one packed step from
     copies of it: each table's update and accumulator within 2^-7 x max of
-    the host's (`check_against_host`'s tolerance), the loss, logits and the
-    towers' gradients (Adam's first moment) printed as their distance over
-    that tolerance; then the whole drive on both, recall@10 per epoch side
-    by side. Not counted: it checks whether the card's recall differs from
-    the host's on equal weights."""
+    the host's (`check_against_host`'s tolerance), the loss, logits and each
+    tower parameter's gradient (Adam's first moment) printed as their
+    distance over that tolerance. The same step is repeated with the fused
+    loss's backward routed through the plain version on the card tensors,
+    and with p kept in f32 on both sides (`unrounded_lse_backward`), and the
+    backward's dq and dc are compared with the host's in each: this places
+    the towers' distance in the kernels, in the plain arithmetic on the card
+    or in the bf16 rounding of p. Then the whole drive on both, recall@10
+    per epoch side by side. Not counted: it checks whether the card's recall
+    differs from the host's on equal weights."""
     mcfg, tcfg, ds, run = learn_softmax_drive()
     host, dense_opt = step_lib.create_train_state(torch.Generator().manual_seed(0), mcfg, tcfg)
     card = host.copy(device=dev)
     feat = PackedFeaturizer(mcfg, pack_label=True)
     pb = feat(next(iter(ds.batches(512, 1, split="t0"))))
     rel = 2.0 ** -7
+    names = ([f"query_tower.{n}" for n, _ in host.model.query_tower.named_parameters()]
+             + [f"candidate_tower.{n}" for n, _ in host.model.candidate_tower.named_parameters()])
 
     def over(got, want):  # max |got - want| over rel x max |want|
         return ((got.cpu().float() - want.float()).abs().max()
                 / (rel * want.float().abs().max())).item()
 
-    one = {}
-    for tag, state in (("card", card.copy()), ("cpu", host.copy())):
+    def one_step(state, fn):
         step = make_packed_train_step(step_lib.make_train_step(mcfg, tcfg, dense_opt), mcfg,
                                       pack_label=True)
         start = {n: t.detach().cpu().clone() for n, t in state.model.tables.items()}
-        state, out = step(state, map_leaves(pb, lambda t: t.to(state.device)))
-        one[tag] = (state, out, start)
-    (card_s, cout, start), (host_s, hout, _) = one["card"], one["cpu"]
+        seen = {}
+        with routed_lse_backward(fn, seen):
+            state, out = step(state, map_leaves(pb, lambda t: t.to(state.device)))
+        firsts = [state.dense_opt_state.state[p]["exp_avg"].detach().cpu()
+                  for p in step_lib.tower_parameters(state.model)]
+        return state, out, start, seen, firsts
+
+    runs = {(tag, route): one_step(state.copy(), fn)
+            for route, fn in (("kernels", None), ("plain", sk.lse_backward_reference),
+                              ("f32 p", unrounded_lse_backward))
+            for tag, state in (("card", card), ("cpu", host))
+            if not (tag == "cpu" and route == "plain")}  # the host's "kernels" run is plain
+    card_s, cout, start, _, _ = runs["card", "kernels"]
+    host_s, hout, _, _, _ = runs["cpu", "kernels"]
     ratios = {"loss": over(cout["loss"].reshape(1), hout["loss"].reshape(1)),
               "logits": over(cout["logits"], hout["logits"])}
     for n in start:
@@ -1856,11 +1961,18 @@ def phase_learn_softmax_equal_weights(dev: torch.device) -> None:
         if max(ratios[n], ratios[f"{n} acc"]) > 1:
             raise AssertionError(f"[learn-softmax] equal weights: table {n} after one step is "
                                  f"{ratios[n]!r} x 2^-7 x max from the host's")
-    ratios["tower grads"] = max(
-        over(sc["exp_avg"], sh["exp_avg"]) for sc, sh in
-        zip(card_s.dense_opt_state.state.values(), host_s.dense_opt_state.state.values()))
+    ratios["tower grads"] = max(over(a, b) for a, b in zip(runs["card", "kernels"][4],
+                                                            runs["cpu", "kernels"][4]))
     log(f"[learn-softmax] equal weights, one step card against host CPU: max abs diff over "
         f"2^-7 x max|host| (tables held to <= 1): {ratios!r}")
+    for route, host_route in (("kernels", "kernels"), ("plain", "kernels"), ("f32 p", "f32 p")):
+        got, want = runs["card", route], runs["cpu", host_route]
+        grads = {n: round(over(a, b), 4) for n, a, b in zip(names, got[4], want[4])}
+        maxes = {n: f"{b.abs().max().item():.3g}" for n, b in zip(names, want[4])}
+        log(f"[learn-softmax] equal weights, backward on the card through {route} against the "
+            f"host's {'plain version' if host_route == 'kernels' else route}: dq "
+            f"{over(got[3]['dq'], want[3]['dq'])!r}, dc {over(got[3]['dc'], want[3]['dc'])!r}; "
+            f"per tower gradient {grads!r}; max|host| per tower gradient {maxes!r}")
     results = {}
     for tag, state in (("card", card), ("cpu", host)):
         logger = RecallLog()

@@ -92,8 +92,10 @@ def test_kernels_match_plain_rectangular(dev, bq, bk, row_offset, d):
 
 @pytest.mark.cuda
 def test_both_tile_sizes_agree(dev, monkeypatch):
-    """Blocks of 64 own rows (small grids) and of 128 (grids that fill the
-    card) compute the same function."""
+    """The forward's blocks of 64 q rows (small grids) and of 128 (grids
+    that fill the card) compute the same function. The backward kernels take
+    the same tile argument and own 64 rows whatever it says: from one lse
+    their results are bit for bit the same under both."""
     b, d = 1024, 64
     q16, c16, ids, log_q, g = _inputs(dev, b, b, d, seed=1)
     args = (q16, c16, log_q, ids, ids, 0, 1.3)
@@ -102,11 +104,59 @@ def test_both_tile_sizes_agree(dev, monkeypatch):
         monkeypatch.setattr(sk, "_tile_own", lambda n, device, t=tile: t)
         lse = sk.softmax_lse_fwd(*args)
         out[tile] = (lse, sk.softmax_lse_dq(*args, lse, g), sk.softmax_lse_dc(*args, lse, g))
+        out[tile, "from one lse"] = (sk.softmax_lse_dq(*args, out[64][0], g),
+                                     sk.softmax_lse_dc(*args, out[64][0], g))
     torch.cuda.synchronize()
     torch.testing.assert_close(out[64][0], out[128][0], rtol=1e-6, atol=1e-6)
     _grad_close(out[64][1], out[128][1], "dq")
     _grad_close(out[64][2], out[128][2], "dc")
+    for a, b_ in zip(out[64, "from one lse"], out[128, "from one lse"]):
+        assert torch.equal(a.view(torch.int32), b_.view(torch.int32))
     _compare(args, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,bq,row_offset", [(64, 8192, 0), (128, 8192, 0), (16, 8192, 0),
+                                             (64, 128, 4096), (128, 128, 8064)])
+def test_backward_is_deterministic_at_the_production_batch(dev, d, bq, row_offset):
+    """Kernels #10 and #11 at B = 8,192 columns with item ids (they
+    repeat), logQ and 192 padded columns: two launches on the same inputs
+    agree bit for bit, both match the plain version, and a stripe of BQ =
+    128 rows gives dq bit for bit equal to those rows of the square case
+    (the streamed rows are split between the warp groups by tile index
+    alone). D = 16 is zero-padded to 64 by the wrapper.
+
+    q and c lie on a grid of 1/8 in [-2, 2], so every score is exact in any
+    summation order and the kernel and the plain version round the same p:
+    the comparison sees the kernel's indexing (fragments, masks, offsets)
+    and not the ties of p, which the tests above and `chip_smoke.py` hold on
+    normal draws. On normal draws at this size, D = 128 and T = 0.7 the
+    scores have a standard deviation of about 16, a row's largest p carries
+    most of it, and a p near a bf16 rounding tie rounds either way in two
+    summation orders: one such p moved dq by 1.09 x (2^-8 x max) on an
+    H100 (one bf16 ulp is 2^-8 to 2^-7 of a value)."""
+    bk = 8192
+    q16, c16, ids, log_q, g = _inputs(dev, bk, bk, d, seed=d + bq, n_ids=5000)
+    q16, c16 = ((torch.round(x.float() * 4).clamp(-16, 16) / 8).to(torch.bfloat16)
+                for x in (q16, c16))
+    adj = sk._merged_adj(log_q, bk - 192, bk, dev)
+    rows = slice(row_offset, row_offset + bq)
+    args = (q16[rows].contiguous(), c16, adj, ids[rows].contiguous(), ids, row_offset, 1 / 0.7)
+    lse = sk.lse_forward_reference(q16, c16, adj, ids, ids, 0, 1 / 0.7)
+    lse_rows, g_rows = lse[rows].contiguous(), g[rows].contiguous()
+    first = (sk.softmax_lse_dq(*args, lse_rows, g_rows), sk.softmax_lse_dc(*args, lse_rows, g_rows))
+    again = (sk.softmax_lse_dq(*args, lse_rows, g_rows), sk.softmax_lse_dc(*args, lse_rows, g_rows))
+    want = sk.lse_backward_reference(*args, lse_rows, g_rows)
+    torch.cuda.synchronize()
+    for a, b_, w, label in zip(first, again, want, ("dq", "dc")):
+        assert a.shape == w.shape
+        assert torch.equal(a.view(torch.int32), b_.view(torch.int32)), f"{label}: two launches"
+        _grad_close(a, w, label)
+    assert (first[1][bk - 192:] == 0).all()  # padded columns take no gradient
+    if bq < bk:
+        square = sk.softmax_lse_dq(q16, c16, adj, ids, ids, 0, 1 / 0.7, lse, g)
+        torch.cuda.synchronize()
+        assert torch.equal(first[0].view(torch.int32), square[rows].view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -157,3 +207,7 @@ def test_shapes_outside_the_gate_raise_on_the_card(dev):
     q16, c16, _, _, _ = _inputs(dev, 256, 256, 160, seed=2)
     with pytest.raises(ValueError, match="softmax_kernel_shapes_ok"):
         sk.softmax_lse_fwd(q16, c16, None, None, None, 0, 1.0)
+    q16, c16, _, log_q, g = _inputs(dev, 256, 256, 64, seed=2)
+    off = torch.zeros(257, dtype=torch.float32, device=dev)[1:]  # 4 bytes past a boundary
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        sk.softmax_lse_dq(q16, c16, off, None, None, 0, 1.0, log_q, g)

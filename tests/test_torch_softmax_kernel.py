@@ -213,3 +213,91 @@ def test_plain_versions_block_the_rows(monkeypatch):
     dq2, dc2 = sk.lse_backward_reference(*args, lse, g)
     torch.testing.assert_close(dq2, dq, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(dc2, dc, rtol=1e-4, atol=1e-5)  # summed over blocks
+
+
+def _tensor_core_order_backward(q16, c16, adj, row_ids, col_ids, inv_t, lse, g):
+    """(dq, dc) of the square case summed in the order of kernels #10 and
+    #11 on the tensor cores. An mma adds 16 products to its f32 accumulator
+    in one step (modelled here exactly, in float64, with one rounding to
+    f32), and the 16-deep chunks follow in order: the depth for a score, the
+    streamed rows for the second product. A p of weight (exp(s - lse) >=
+    2^-10) whose f32 value lies within 0x2000 ulps of a bf16 rounding
+    midpoint takes its score summed in k order instead (the kernels'
+    `near_tie` / `ordered_dot`). The exp is torch's; the kernels' ex2.approx
+    lies a few f32 ulps from it, far inside that window. Of the NG warp
+    groups of a block (4 at D = 64, 2 at 128), group k sums the 64-row tiles
+    k, k + NG, ..., and group 0 adds the others' sums to its own in group
+    order; then times 1/T."""
+    b, d = q16.shape
+    qd, cd = q16.double(), c16.double()
+
+    def chunked(acc, chunks):  # add [.., n] chunk sums to an f32 accumulator in order
+        for k in range(chunks.shape[-1]):
+            acc = (acc.double() + chunks[..., k]).float()
+        return acc
+
+    def p_of(dots):  # p in f32 before its bf16 rounding, and exp(s - lse)
+        s = dots * inv_t
+        if adj is not None:
+            s = s - adj[None, :]
+        if row_ids is not None:
+            rows = torch.arange(b)
+            s = s.masked_fill((row_ids[:, None] == col_ids[None, :]) & (rows[:, None] != rows),
+                              sk.NEG)
+        ex = torch.exp(s - lse[:, None])
+        return ex * g[:, None], ex
+
+    dots = torch.einsum("ikc,jkc->ijk", qd.reshape(b, d // 16, 16), cd.reshape(b, d // 16, 16))
+    p, ex = p_of(chunked(torch.zeros(b, b), dots))
+    # products of bf16 values are exact in f32, so each step below is one fmaf
+    ordered = torch.zeros(b, b)
+    for k in range(d):
+        ordered = ordered + q16[:, k, None].float() * c16[None, :, k].float()
+    low = p.view(torch.int32) & 0xFFFF
+    tie = (ex >= 2.0 ** -10) & ((low - 0x8000).abs() <= 0x2000)
+    p = torch.where(tie, p_of(ordered)[0], p).to(torch.bfloat16).double()
+
+    def second(pm, other):  # pm [own, streamed] @ other [streamed, D] in the kernels' order
+        chunks = torch.einsum("ick,ckd->idc", pm.reshape(pm.shape[0], -1, 16),
+                              other.reshape(-1, 16, d))
+        tiles = chunks.reshape(pm.shape[0], d, -1, 4)  # [own, D, tile, chunk of the tile]
+        groups = 4 if d == 64 else 2
+        part = [chunked(torch.zeros(pm.shape[0], d), tiles[:, :, k::groups].flatten(2))
+                for k in range(groups)]
+        return sum(part[1:], part[0]) * inv_t
+
+    return second(p, cd), second(p.T, qd)
+
+
+@pytest.mark.parametrize("d,use_ids,use_logq,n_valid", [
+    (64, True, True, None), (64, True, True, 384), (16, True, False, None),
+    (128, False, True, 400)])
+def test_tensor_core_summation_order_stays_within_the_card_tolerances(d, use_ids, use_logq,
+                                                                      n_valid):
+    """The backward kernels sum each score in 16-deep chunks (and the
+    scores of weighty p near a bf16 rounding tie in k order) and the second
+    products in 16-row chunks split over warp groups, where the plain
+    version sums in another order. Recomputed here in that order, dq and dc
+    stay within the card tests' tolerances (2^-8 x max, cosine > 0.99999)
+    of the reference's `_lse_bwd` in interpret mode: the new order moves a
+    p by at most one bf16 ulp where its score lies on a rounding boundary."""
+    q, c, _, ids, log_q = _setup(seed=13, d=d)
+    g = (np.random.default_rng(14).normal(size=B) / B).astype(np.float32)
+    ids_f = jnp.asarray(ids).astype(jnp.float32)
+    pad = lambda a: jnp.asarray(np.pad(a, ((0, 0), (0, 128 - d))))  # noqa: E731
+    _, vjp = jax.vjp(
+        lambda qa, ca: jax_sk._lse_fused(qa, ca, ids_f, ids_f, jnp.asarray(log_q),
+                                         jnp.arange(B, dtype=jnp.float32), 0.7, n_valid,
+                                         (use_ids, use_logq), True), pad(q), pad(c))
+    want_dq, want_dc = (np.asarray(x)[:, :d] for x in vjp(jnp.asarray(g)))
+    # the kernels see D zero-padded to 64 or 128, as the wrapper pads it
+    q16, c16 = (sk._pad_dim(torch.from_numpy(x).to(torch.bfloat16)) for x in (q, c))
+    ids_t = torch.from_numpy(ids) if use_ids else None
+    adj = sk._merged_adj(torch.from_numpy(log_q) if use_logq else None, n_valid, B,
+                         torch.device("cpu"))
+    args = (q16, c16, adj, ids_t, ids_t, 0, 1 / 0.7)
+    lse = sk.lse_forward_reference(*args)
+    dq, dc = _tensor_core_order_backward(q16, c16, adj, ids_t, ids_t, 1 / 0.7, lse,
+                                         torch.from_numpy(g))
+    _assert_grad_close(dq[:, :d].numpy(), want_dq, "dq")
+    _assert_grad_close(dc[:, :d].numpy(), want_dc, "dc")

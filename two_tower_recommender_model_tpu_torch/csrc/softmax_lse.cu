@@ -28,37 +28,94 @@
 // Contract: q [BQ, DP] and c [BK, DP] bf16, row-major, DP 64 or 128 (the
 // wrapper zero-pads D); BQ and BK multiples of 128; adj [BK] f32 or null;
 // row_ids [BQ] and col_ids [BK] int32, both or neither; lse, g [BQ] f32;
-// outputs f32. q row i has global row index row_offset + i, the column of its
-// positive, so one stripe of a data-parallel split runs the same kernel.
+// outputs f32; every pointer 16-byte aligned. q row i has global row index
+// row_offset + i, the column of its positive, so one stripe of a
+// data-parallel split runs the same kernel.
 //
-// What bounds it: arithmetic. The forward does 2*BQ*BK*D FLOPs and one exp
-// per score, each backward 4*BQ*BK*D, against BQ*D + BK*D bf16 values read
-// (8.6 / 17 / 17 GFLOP against 2 MB at B = 8,192, D = 64). This first version
-// does the products on the CUDA cores (fmaf on bf16 values widened to f32),
-// which keeps the rounding points exact and the code simple; the tensor cores
-// (mma.sync, then wgmma with TMA loads) are later work.
-//   - A block owns a tile of TO rows of one operand (q rows for the forward
-//     and dq, c rows for dc), holds it in shared memory as f32 for the whole
-//     kernel, and itself loops over the other operand in tiles of 128 rows:
-//     the loop takes the place of the TPU's sequential grid axis. The running
-//     max and sum (forward) or the [TO, D] accumulator (backward) stay in
-//     registers, so blocks share nothing: no atomics, no second pass, and the
-//     result does not depend on the order blocks run in.
+// What bounds them: arithmetic. The forward does 2*BQ*BK*D FLOPs and one exp
+// per score, each backward 4*BQ*BK*D FLOPs and one exp per score, against
+// BQ*D + BK*D bf16 values read (8.6 / 17 / 17 GFLOP against 2 MB at
+// B = 8,192, D = 64: 0.0087 / 0.0174 / 0.0174 ms at the tensor cores' 989
+// TFLOP/s). The BQ*BK exps come on top at the special-function units' 16 a
+// clock per SM (about 0.017 ms at 8,192^2), and so do the ~15 instructions a
+// score of the adjustment (1/T, adj, the mask, exp, g, the bf16 rounding) at
+// 128 a clock per SM (~0.04 ms): in the backward they, not the products, set
+// the time.
+//
+// Kernel #9 (lse_fwd_kernel) does its product on the CUDA cores (fmaf on bf16
+// values widened to f32 in shared memory): its redesign is later work.
+//   - A block owns a tile of TO rows of q, holds it in shared memory as f32
+//     for the whole kernel, and itself loops over c in tiles of 128 rows: the
+//     loop takes the place of the TPU's sequential grid axis. The running max
+//     and sum stay in registers, so blocks share nothing.
 //   - 256 threads as 16 x 16: a thread computes TO/16 x 8 scores from float4
-//     reads of the two shared-memory operands (a broadcast for the own rows,
-//     contiguous for the streamed columns), applies the adjustments, and for
-//     the backward writes its p values to shared memory as bf16, from where
-//     the second product reads them.
-//   - dq and dc are one kernel with the operands' roles swapped: the score is
-//     symmetric in them, and both second products contract over the streamed
-//     rows.
-//   - Occupancy: the grid has N_own / TO blocks. At B = 8,192 a tile of 128
+//     reads of the two shared-memory operands.
+//   - Occupancy: the grid has BQ / TO blocks. At B = 8,192 a tile of 128
 //     rows gives 64 blocks for 132 SMs, so the wrapper asks for TO = 64 (128
-//     blocks) until N_own / 128 reaches the SM count; at B = 65,536 it is 512
+//     blocks) until BQ / 128 reaches the SM count; at B = 65,536 it is 512
 //     blocks of 128 rows.
 //   - exp(-1e9 - lse) is exactly 0 in f32, and a tile whose every score is
 //     -1e9 leaves the running max at -1e9 (exp(m_old - m_new) = 1), so a fully
 //     masked row gives the finite lse the reference gives.
+//
+// Kernels #10 and #11 (lse_bwd_kernel<DP, OWN_Q>) run both products on the
+// tensor cores (mma.sync.m16n8k16, bf16 x bf16 -> f32, mma_sm90.cuh). dq and
+// dc are one kernel with the operands' roles swapped: the score is symmetric
+// in them, and both second products contract over the streamed rows.
+//   - A block owns 64 rows of one operand (q rows for dq, c rows for dc) and
+//     streams the other in tiles of 64 rows. Its warps form NG groups of 4
+//     (NG = 4, 16 warps, at DP = 64, where a thread's registers fit 128; NG
+//     = 2 at DP = 128); group k takes the tiles k, k + NG, k + 2 NG, ..., and
+//     each warp of a group owns 16 own rows, which it holds as mma A
+//     fragments in registers, loaded once with ldmatrix from a bf16 copy in
+//     shared memory.
+//   - Each group double-buffers its tiles (bf16 rows and the per-row scalars
+//     the epilogue needs: adj and ids for dq; lse, g and ids for dc) with
+//     cp.async: the next tile is in flight while the current one is
+//     computed, and a group waits only on its own named barrier. Rows are
+//     padded by 8 bf16 values (144 or 272 bytes), so the 8 row addresses of
+//     an ldmatrix fall on 8 different 16-byte bank groups.
+//   - The score product: a warp's 16 x 64 scores of a tile are 8 n8 blocks
+//     of accumulators (32 registers a thread); the tile's rows are the B
+//     operand, read with ldmatrix (a row-major [rows, D] tile is B^T in the
+//     .col layout). Each mma sums 16 products of the depth; the DP / 16
+//     chunks are added in order.
+//   - The epilogue works on the accumulator fragment in registers: 1/T and
+//     adj with separate roundings (__fmul_rn, __fsub_rn), the duplicate mask
+//     on the fragment's global row and column, exp(s - lse) * g, then the
+//     bf16 rounding, two values packed per register. Those registers ARE the
+//     second product's A fragments (mma_sm90.cuh), so p never goes through
+//     memory. The exp is ex2.approx of the argument times log2(e): two
+//     instructions where expf takes about eight, and within a few f32 ulps
+//     of expf.
+//   - Ties: the tensor cores sum a score in another order than an f32 GEMM,
+//     and a p whose f32 value lies near a bf16 rounding midpoint then rounds
+//     to the other neighbour, which moves a row's gradient by up to 2^-7 of
+//     its largest p. The epilogue marks such p of weight in a bit mask (a
+//     small share of the scores) and computes them again as the plain
+//     version does: the score summed in k order on the CUDA cores, and expf
+//     (`near_tie`, `ordered_dot`). The window (1/8 of a bf16 ulp) is far
+//     wider than what either the order or ex2.approx moves p by, so every p
+//     of weight rounds as the plain version's and the host's.
+//   - The second product reads the same shared-memory tile with
+//     ldmatrix.trans as its B operand (c rows for dq, q rows for dc) and
+//     accumulates a warp's [16, DP] of dq or dc in f32 registers across the
+//     group's whole range.
+//   - At the end groups 1 .. NG-1 write their partial sums to shared memory
+//     and group 0 adds them to its own in group order, times 1/T once. No
+//     atomics and
+//     no order between blocks: two launches agree bit for bit. The split of
+//     the streamed range follows the tile index alone, so a row of dq is the
+//     same in a stripe (any BQ, row_offset) as in the square case.
+//   - Occupancy: 64 own rows give 128 blocks at B = 8,192 (one per SM, 16
+//     warps at DP = 64) and 1,024 at 65,536; the groups and the 8
+//     independent n8 chains of each product hide ldmatrix, mma and exp
+//     latency. Four groups instead of two took #10 from 0.150 to 0.123 ms at
+//     8,192^2 on an H100, and ex2.approx instead of expf to 0.107.
+// Left for later: wgmma with TMA loads (warp-specialised producers), warps
+// that own 32 rows (half the ldmatrix traffic: each tile is read twice by
+// each warp of a group, 8 MB per SM at 8,192^2), fewer instructions in the
+// epilogue (the mask per 8 columns), and one barrier a tile instead of two.
 //
 // Binding: a plain C interface loaded with ctypes. Each launch goes to the
 // caller's stream, does not synchronise and allocates nothing; each entry
@@ -68,12 +125,17 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;   // 16 (ty: own rows) x 16 (tx: streamed columns, D columns)
-constexpr int kTile = 128;      // streamed rows per tile
-constexpr int kChunk = 32;      // depth (scores) or rows (second product) per shared-memory chunk
-constexpr int kBufFloats = kChunk * 128;  // the streamed chunk's buffer: 16 KB
+using namespace mma_sm90;
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;   // the forward's 16 (ty: own rows) x 16 (tx: columns)
+constexpr int kTile = 128;      // the forward's streamed rows per tile
+constexpr int kChunk = 32;      // the forward's depth per shared-memory chunk
+constexpr int kBufFloats = kChunk * 128;  // the forward's streamed chunk buffer: 16 KB
 constexpr float kNeg = -1e9f;
 
 struct Args {
@@ -131,19 +193,6 @@ __device__ __forceinline__ void load_chunk_transposed(const uint16_t* __restrict
       Bs[(half * 16 + h * 8 + 2 * e) * kTile + col] = bf16_lo(w[e]);
       Bs[(half * 16 + h * 8 + 2 * e + 1) * kTile + col] = bf16_hi(w[e]);
     }
-  }
-}
-
-// Rows [j0, j0 + 32) of a streamed tile [128, DP] bf16 -> Bs[j][d] f32 (a
-// contiguous block of memory, copied in order).
-template <int DP>
-__device__ __forceinline__ void load_rows(const uint16_t* __restrict__ tile, int j0, float* Bs) {
-  const uint4* p = reinterpret_cast<const uint4*>(tile + static_cast<size_t>(j0) * DP);
-  for (int v = threadIdx.x; v < kChunk * DP / 8; v += kThreads) {
-    const uint4 u = __ldg(p + v);
-    float4* dst = reinterpret_cast<float4*>(Bs + v * 8);
-    dst[0] = make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
-    dst[1] = make_float4(bf16_lo(u.z), bf16_hi(u.z), bf16_lo(u.w), bf16_hi(u.w));
   }
 }
 
@@ -256,134 +305,314 @@ __global__ void __launch_bounds__(kThreads) lse_fwd_kernel(const Args a) {
   }
 }
 
-// Kernels #10 (OWN_Q: dq for the block's q rows, streaming c) and #11 (dc for
-// the block's c rows, streaming q).
-template <int DP, int TO, bool OWN_Q>
-__global__ void __launch_bounds__(kThreads) lse_bwd_kernel(const Args a) {
-  constexpr int RI = TO / 16;
-  constexpr int W = DP / 16;     // D columns per thread in the second product
-  constexpr int PSB = TO + 8;    // row stride of Ps, in bf16 values
+// ---- kernels #10 and #11 ------------------------------------------------------
+
+constexpr int kOwn = 64;     // own rows per block: 4 warps x 16
+constexpr int kSub = 64;     // streamed rows per tile
+constexpr int kGroupThreads = 128;  // a warp group: 4 warps, 64 own rows
+
+// Warp groups per block: each takes every NG-th tile. 4 (16 warps) where a
+// thread's registers fit 128 (DP = 64), else 2.
+template <int DP>
+constexpr int groups() { return DP == 64 ? 4 : 2; }
+
+// Shared-memory layout (byte offsets) of the backward kernel.
+template <int DP>
+struct BwdLayout {
+  static constexpr int NG = groups<DP>();
+  static constexpr int LD = DP + 8;   // bf16 row stride of a tile
+  static constexpr int RLD = DP + 8;  // f32 row stride of the other groups' partial sums
+  static constexpr int tile_elems = kSub * LD;
+  static constexpr int scal_floats = 3 * kSub;  // adj or lse, g, ids of one tile
+  static constexpr size_t own = 0;                                        // [64][LD] bf16
+  static constexpr size_t stream = own + size_t(kOwn) * LD * 2;           // [group][stage] tiles
+  static constexpr size_t scal = stream + size_t(NG) * 2 * tile_elems * 2;
+  static constexpr size_t bytes = scal + size_t(NG) * 2 * scal_floats * 4;
+  static_assert(size_t(NG - 1) * kOwn * RLD * 4 <= scal - stream,
+                "the partial sums fit the tile buffers");
+};
+
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(group + 1), "r"(kGroupThreads) : "memory");
+}
+
+// p before its bf16 rounding, from the raw dot product: times 1/T, minus adj
+// (the reference's separate roundings), the duplicate mask, exp(s - lse)
+// (also returned in `ex`; ex2.approx of the prescaled argument, or expf as the
+// plain version takes it), times g.
+template <bool APPROX_EXP>
+__device__ __forceinline__ float p_value(float dot, float inv_t, float adj, bool masked, float lse,
+                                         float g, float& ex) {
+  const float s = masked ? kNeg : __fsub_rn(__fmul_rn(dot, inv_t), adj);
+  if (APPROX_EXP) {
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(ex) : "f"((s - lse) * 1.44269504088896341f));
+  } else {
+    ex = expf(s - lse);
+  }
+  return __fmul_rn(ex, g);
+}
+
+// Ties. The tensor cores sum a score in another order than an f32 GEMM (one
+// fmaf per k, in k order, as the plain version's cuBLAS GEMM on the card
+// does), a few f32 ulps apart. Where p's f32 value lies near the midpoint between two bf16
+// values, the two orders round it to different neighbours: one bf16 ulp,
+// 2^-8 to 2^-7 of p, and a row's largest p can carry most of its gradient.
+// So a p of weight whose low 16 bits lie within kTieWindow f32 ulps of the
+// midpoint (1/8 of a bf16 ulp; a few f32 ulps of a score near 30 move p by
+// about a hundred, ex2.approx by a few) is computed again as the plain
+// version computes it: its score summed in k order on the CUDA cores, expf.
+// Below kTieFloor (exp(s - lse) < 2^-10) a flip moves a row of dq or dc by
+// less than 2^-17 g x the streamed row, and is left as it falls.
+constexpr uint32_t kTieWindow = 0x2000;
+constexpr float kTieFloor = 0x1p-10f;
+
+__device__ __forceinline__ bool near_tie(float p) {
+  return ((__float_as_uint(p) - (0x8000u - kTieWindow)) & 0xffffu) <= 2 * kTieWindow;
+}
+
+// a . b over DP bf16 values in shared memory, one fmaf per k in k order
+template <int DP>
+__device__ float ordered_dot(const bf16* a, const bf16* b) {
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < DP; k += 8) {
+    const uint4 u = *reinterpret_cast<const uint4*>(a + k);
+    const uint4 w = *reinterpret_cast<const uint4*>(b + k);
+    const uint32_t au[4] = {u.x, u.y, u.z, u.w}, bu[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      s = fmaf(bf16_lo(au[m]), bf16_lo(bu[m]), s);
+      s = fmaf(bf16_hi(au[m]), bf16_hi(bu[m]), s);
+    }
+  }
+  return s;
+}
+
+// One tile of the streamed operand (rows o0 .. o0 + 63) and its scalars into
+// a stage: cp.async by the group's 128 threads (gt), not waited for here.
+template <int DP, bool OWN_Q>
+__device__ __forceinline__ void load_tile(const Args& a, const uint16_t* __restrict__ other,
+                                          int o0, bf16* dst, float* sc, int gt, bool use_ids) {
+  constexpr int LD = BwdLayout<DP>::LD, V = DP / 8;  // 16-byte pieces of a row
+#pragma unroll
+  for (int idx = gt; idx < kSub * V; idx += kGroupThreads)
+    cp_async16(dst + (idx / V) * LD + (idx % V) * 8,
+               other + static_cast<size_t>(o0 + idx / V) * DP + (idx % V) * 8);
+  // 16 pieces of 4 scalars per array: threads 0-15 the first, 16-31 the second, 32-47 ids
+  const int part = gt >> 4, i4 = (gt & 15) * 4;
+  const float* first = OWN_Q ? a.adj : a.lse;
+  if (part == 0 && first != nullptr) cp_async16(sc + i4, first + o0 + i4);
+  if (part == 1 && !OWN_Q) cp_async16(sc + kSub + i4, a.g + o0 + i4);
+  if (part == 2 && use_ids)
+    cp_async16(sc + 2 * kSub + i4, (OWN_Q ? a.col_ids : a.row_ids) + o0 + i4);
+}
+
+// Kernels #10 (OWN_Q: dq for the block's 64 q rows, streaming c) and #11 (dc
+// for the block's 64 c rows, streaming q).
+template <int DP, bool OWN_Q>
+__global__ void __launch_bounds__(groups<DP>() * kGroupThreads) lse_bwd_kernel(const Args a) {
+  using L = BwdLayout<DP>;
+  constexpr int NG = L::NG;
+  constexpr int LD = L::LD, KS = DP / 16, ND = DP / 8;
   extern __shared__ float4 smem4[];
-  float* As = reinterpret_cast<float*>(smem4);
-  float* Bs = As + DP * TO;
-  uint16_t* Ps = reinterpret_cast<uint16_t*>(Bs + kBufFloats);  // [128][PSB]: p by streamed row
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int own0 = blockIdx.x * TO;
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  bf16* own_s = reinterpret_cast<bf16*>(smem + L::own);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int group = warp >> 2, wr = (warp & 3) * 16;  // the warp's first own row in the block
+  const int gt = threadIdx.x & (kGroupThreads - 1);
+  const int g = lane >> 2, t = lane & 3;       // fragment row and column pair
+  const int r8 = lane & 7, mat = lane >> 3;    // ldmatrix: row within a matrix, matrix
+  const int own0 = blockIdx.x * kOwn;
   const bool use_ids = a.row_ids != nullptr;
   const uint16_t* own = OWN_Q ? a.q : a.c;
   const uint16_t* other = OWN_Q ? a.c : a.q;
-  const int n_other = OWN_Q ? a.bk : a.bq;
-  load_own<DP, TO>(own + static_cast<size_t>(own0) * DP, As);
+  const int n_tiles = (OWN_Q ? a.bk : a.bq) / kSub;
+  const int n_mine = (n_tiles - group + NG - 1) / NG;  // tiles of this group (may be 0)
+  bf16* tiles = reinterpret_cast<bf16*>(smem + L::stream) + group * 2 * L::tile_elems;
+  float* scal = reinterpret_cast<float*>(smem + L::scal) + group * 2 * L::scal_floats;
 
-  // per own row: its id and global position, and lse and g (a q row) or adj (a c row)
-  int own_id[RI], own_pos[RI];
-  float own_x[RI], own_g[RI];
+  constexpr int V = DP / 8;
+  for (int idx = threadIdx.x; idx < kOwn * V; idx += NG * kGroupThreads)
+    cp_async16(own_s + (idx / V) * LD + (idx % V) * 8,
+               own + static_cast<size_t>(own0 + idx / V) * DP + (idx % V) * 8);
+  cp_async_commit();
+  if (n_mine > 0) load_tile<DP, OWN_Q>(a, other, group * kSub, tiles, scal, gt, use_ids);
+  cp_async_commit();  // (empty for a group without tiles: the wait below still counts it)
+  if (OWN_Q && a.adj == nullptr)  // no adjustment: adj reads as 0 in both stages
+    for (int i = gt; i < kSub; i += kGroupThreads) scal[i] = scal[L::scal_floats + i] = 0.f;
+  cp_async_wait_one();  // the own tile has landed
+  __syncthreads();
+  uint32_t af[KS][4];  // the warp's 16 own rows x DP, as A fragments
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int r = own0 + ty * RI + i;
+  for (int ks = 0; ks < KS; ++ks)
+    ldsm_x4(af[ks], own_s + (wr + r8 + (mat & 1) * 8) * LD + ks * 16 + (mat >> 1) * 8);
+
+  // per own row of the thread's fragment (rows g and g + 8): its id and global
+  // position, and lse and g (a q row) or adj (a c row)
+  int own_id[2], own_pos[2];
+  float own_x[2], own_g[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = own0 + wr + g + 8 * h;
     if (OWN_Q) {
-      own_id[i] = use_ids ? __ldg(a.row_ids + r) : 0;
-      own_pos[i] = a.row_offset + r;
-      own_x[i] = __ldg(a.lse + r);
-      own_g[i] = __ldg(a.g + r);
+      own_id[h] = use_ids ? __ldg(a.row_ids + r) : 0;
+      own_pos[h] = a.row_offset + r;
+      own_x[h] = __ldg(a.lse + r);
+      own_g[h] = __ldg(a.g + r);
     } else {
-      own_id[i] = use_ids ? __ldg(a.col_ids + r) : 0;
-      own_pos[i] = r;
-      own_x[i] = a.adj != nullptr ? __ldg(a.adj + r) : 0.f;
-      own_g[i] = 1.f;
+      own_id[h] = use_ids ? __ldg(a.col_ids + r) : 0;
+      own_pos[h] = r;
+      own_x[h] = a.adj != nullptr ? __ldg(a.adj + r) : 0.f;
+      own_g[h] = 1.f;
     }
   }
-  float acc2[RI][W];
+  float acc[ND][4];  // the warp's [16, DP] of dq or dc
 #pragma unroll
-  for (int i = 0; i < RI; ++i)
+  for (int n = 0; n < ND; ++n)
 #pragma unroll
-    for (int w = 0; w < W; ++w) acc2[i][w] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  for (int t0 = 0; t0 < n_other; t0 += kTile) {
-    const uint16_t* tile = other + static_cast<size_t>(t0) * DP;
-    float acc[RI][8];
-    dot_tile<DP, TO>(As, Bs, tile, acc);
-    // every thread is past the last tile's second product here (dot_tile synchronises)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int o = t0 + col_of(tx, j);
-      int oth_id, oth_pos;
-      float oth_x, oth_g;
-      if (OWN_Q) {
-        oth_id = use_ids ? __ldg(a.col_ids + o) : 0;
-        oth_pos = o;
-        oth_x = a.adj != nullptr ? __ldg(a.adj + o) : 0.f;
-        oth_g = 1.f;
-      } else {
-        oth_id = use_ids ? __ldg(a.row_ids + o) : 0;
-        oth_pos = a.row_offset + o;
-        oth_x = __ldg(a.lse + o);
-        oth_g = __ldg(a.g + o);
-      }
-      uint32_t pb[RI];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const float s = adjust(acc[i][j], a.inv_t, OWN_Q ? oth_x : own_x[i], use_ids, own_id[i],
-                               oth_id, own_pos[i], oth_pos);
-        const float lse = OWN_Q ? own_x[i] : oth_x;
-        const float g = OWN_Q ? own_g[i] : oth_g;
-        pb[i] = bf16_bits(__fmul_rn(expf(s - lse), g));
-      }
-      uint32_t* dst = reinterpret_cast<uint32_t*>(Ps + col_of(tx, j) * PSB + ty * RI);
-#pragma unroll
-      for (int v = 0; v < RI / 2; ++v) dst[v] = pb[2 * v] | (pb[2 * v + 1] << 16);
+  for (int it = 0; it < n_mine; ++it) {
+    const int stage = it & 1;
+    const int o0 = (group + NG * it) * kSub;  // the tile's first streamed row
+    if (it + 1 < n_mine) {
+      load_tile<DP, OWN_Q>(a, other, o0 + NG * kSub, tiles + (stage ^ 1) * L::tile_elems,
+                           scal + (stage ^ 1) * L::scal_floats, gt, use_ids);
+      cp_async_commit();
+      cp_async_wait_one();
+    } else {
+      cp_async_wait_all();
     }
-    for (int j0 = 0; j0 < kTile; j0 += kChunk) {
-      __syncthreads();  // Ps is whole, and the buffer's last readers are done
-      load_rows<DP>(tile, j0, Bs);
-      __syncthreads();
-#pragma unroll 4
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const uint32_t* src =
-            reinterpret_cast<const uint32_t*>(Ps + (j0 + jj) * PSB + ty * RI);
-        float p[RI];
+    group_sync(group);  // the tile is whole for every thread of the group
+    const bf16* tile = tiles + stage * L::tile_elems;
+    const float* sc = scal + stage * L::scal_floats;
+
+    // scores: s[n] is the 16 x 8 block of streamed rows 8n .. 8n + 7
+    float s[8][4];
 #pragma unroll
-        for (int v = 0; v < RI / 2; ++v) {
-          const uint32_t u = src[v];
-          p[2 * v] = bf16_lo(u);
-          p[2 * v + 1] = bf16_hi(u);
-        }
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-        for (int v = 0; v < W / 4; ++v) {
-          const float4 t = *reinterpret_cast<const float4*>(Bs + jj * DP + v * 64 + tx * 4);
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-          for (int i = 0; i < RI; ++i) {
-            acc2[i][v * 4] = fmaf(p[i], t.x, acc2[i][v * 4]);
-            acc2[i][v * 4 + 1] = fmaf(p[i], t.y, acc2[i][v * 4 + 1]);
-            acc2[i][v * 4 + 2] = fmaf(p[i], t.z, acc2[i][v * 4 + 2]);
-            acc2[i][v * 4 + 3] = fmaf(p[i], t.w, acc2[i][v * 4 + 3]);
-          }
-        }
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int n = 0; n < 8; n += 2) {
+        uint32_t b[4];  // matrices (rows 8n, k), (8n, k + 8), (8n + 8, k), (8n + 8, k + 8)
+        ldsm_x4(b, tile + (n * 8 + r8 + (mat >> 1) * 8) * LD + ks * 16 + (mat & 1) * 8);
+        mma_bf16(s[n], af[ks], b[0], b[1]);
+        mma_bf16(s[n + 1], af[ks], b[2], b[3]);
+      }
+
+    // the epilogue, in place: s[n][e] becomes p for own row g + 8 (e / 2) and
+    // streamed row 8n + 2t + (e % 2); bit 4n + e of `ties` marks a p to recompute
+    uint32_t ties = 0;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int c = n * 8 + 2 * t;
+      const float2 x0 = *reinterpret_cast<const float2*>(sc + c);  // adj (dq) or lse (dc)
+      const float2 x1 = OWN_Q ? make_float2(1.f, 1.f)
+                              : *reinterpret_cast<const float2*>(sc + kSub + c);  // g (dc)
+      const int2 oid = use_ids ? *reinterpret_cast<const int2*>(sc + 2 * kSub + c)
+                               : make_int2(0, 0);
+      const int opos = (OWN_Q ? 0 : a.row_offset) + o0 + c;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, j = e & 1;
+        const bool masked =
+            use_ids && own_id[h] == (j ? oid.y : oid.x) && own_pos[h] != opos + j;
+        float ex;
+        s[n][e] = p_value<true>(s[n][e], a.inv_t, OWN_Q ? (j ? x0.y : x0.x) : own_x[h], masked,
+                          OWN_Q ? own_x[h] : (j ? x0.y : x0.x),
+                          OWN_Q ? own_g[h] : (j ? x1.y : x1.x), ex);
+        if (ex >= kTieFloor && near_tie(s[n][e])) ties |= 1u << (4 * n + e);
       }
     }
+    // a p of weight (exp(s - lse) >= 2^-10) whose f32 value lies near a bf16
+    // rounding tie: again as the plain version computes it (k-order score, expf)
+    while (__any_sync(0xffffffffu, ties != 0)) {
+      const bool mine = ties != 0;
+      const int i = mine ? __ffs(ties) - 1 : 0;
+      ties &= ties - 1;
+      const int h = (i >> 1) & 1, c = (i >> 2) * 8 + 2 * t + (i & 1);
+      float p = 0.f;
+      if (mine) {
+        const float dot = ordered_dot<DP>(own_s + (wr + g + 8 * h) * LD, tile + c * LD);
+        const int oid = use_ids ? reinterpret_cast<const int*>(sc)[2 * kSub + c] : 0;
+        const bool masked = use_ids && (h ? own_id[1] : own_id[0]) == oid &&
+                            (h ? own_pos[1] : own_pos[0]) != (OWN_Q ? 0 : a.row_offset) + o0 + c;
+        const float ox = h ? own_x[1] : own_x[0];
+        float ex;
+        p = p_value<false>(dot, a.inv_t, OWN_Q ? sc[c] : ox, masked, OWN_Q ? ox : sc[c],
+                    OWN_Q ? (h ? own_g[1] : own_g[0]) : sc[kSub + c], ex);
+      }
+#pragma unroll
+      for (int k = 0; k < 32; ++k)
+        if (mine && k == i) s[k >> 2][k & 3] = p;
+    }
+
+    // the second product: p (16 x 64, from the registers) @ tile (64 x DP)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t pa[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int n = 0; n < ND; n += 2) {
+        uint32_t b[4];  // matrices (16kk, 8n), (16kk + 8, 8n), (16kk, 8n + 8), (16kk + 8, 8n + 8)
+        ldsm_x4_trans(b, tile + (kk * 16 + r8 + (mat & 1) * 8) * LD + n * 8 + (mat >> 1) * 8);
+        mma_bf16(acc[n], pa, b[0], b[1]);
+        mma_bf16(acc[n + 1], pa, b[2], b[3]);
+      }
+    }
+    group_sync(group);  // every thread of the group is done with this stage
   }
+
+  // groups 1 .. NG-1 write their partial sums to shared memory (the tile
+  // buffers); group 0 adds them to its own in group order, times 1/T once
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(smem + L::stream);  // [NG - 1][64][RLD]
+  if (group > 0) {
+    float* mine = part + (group - 1) * kOwn * L::RLD;
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    float* row = a.out + static_cast<size_t>(own0 + ty * RI + i) * DP;
+    for (int n = 0; n < ND; ++n)
 #pragma unroll
-    for (int v = 0; v < W / 4; ++v)
-      *reinterpret_cast<float4*>(row + v * 64 + tx * 4) =
-          make_float4(acc2[i][v * 4] * a.inv_t, acc2[i][v * 4 + 1] * a.inv_t,
-                      acc2[i][v * 4 + 2] * a.inv_t, acc2[i][v * 4 + 3] * a.inv_t);
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(mine + (wr + g + 8 * h) * L::RLD + n * 8 + 2 * t) =
+            make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+  }
+  __syncthreads();
+  if (group == 0) {
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wr + g + 8 * h;
+        float2 v = make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+#pragma unroll
+        for (int k = 0; k < NG - 1; ++k) {
+          const float2 o =
+              *reinterpret_cast<const float2*>(part + (k * kOwn + r) * L::RLD + n * 8 + 2 * t);
+          v.x += o.x;
+          v.y += o.y;
+        }
+        *reinterpret_cast<float2*>(a.out + static_cast<size_t>(own0 + r) * DP + n * 8 + 2 * t) =
+            make_float2(v.x * a.inv_t, v.y * a.inv_t);
+      }
   }
 }
 
 template <typename K>
-int launch(K kernel, const Args& a, int n_own, int tile_own, size_t smem, cudaStream_t stream) {
+int launch(K kernel, const Args& a, int n_own, int tile_own, size_t smem, cudaStream_t stream,
+           int threads = kThreads) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<n_own / tile_own, kThreads, smem, stream>>>(a);
+  kernel<<<n_own / tile_own, threads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 constexpr size_t fwd_smem(int dp, int to) { return (static_cast<size_t>(dp) * to + kBufFloats) * 4; }
-constexpr size_t bwd_smem(int dp, int to) { return fwd_smem(dp, to) + kTile * (to + 8) * 2; }
 
 bool shapes_ok(int64_t bq, int64_t bk, int64_t dp, int64_t row_offset, int64_t tile_own) {
   return bq > 0 && bk > 0 && bq % kTile == 0 && bk % kTile == 0 && bk < (1LL << 30) &&
@@ -410,16 +639,19 @@ Args make_args(const void* q, const void* c, const void* adj, const void* row_id
   return a;
 }
 
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
 template <bool OWN_Q>
-int launch_bwd(const Args& a, int64_t dp, int64_t tile_own, cudaStream_t s) {
+int launch_bwd(const Args& a, int64_t dp, cudaStream_t s) {
+  if (!(aligned16(a.q) && aligned16(a.c) && aligned16(a.adj) && aligned16(a.row_ids) &&
+        aligned16(a.col_ids) && aligned16(a.lse) && aligned16(a.g) && aligned16(a.out)))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const int n_own = OWN_Q ? a.bq : a.bk;
-  if (dp == 64 && tile_own == 64)
-    return launch(lse_bwd_kernel<64, 64, OWN_Q>, a, n_own, 64, bwd_smem(64, 64), s);
   if (dp == 64)
-    return launch(lse_bwd_kernel<64, 128, OWN_Q>, a, n_own, 128, bwd_smem(64, 128), s);
-  if (tile_own == 64)
-    return launch(lse_bwd_kernel<128, 64, OWN_Q>, a, n_own, 64, bwd_smem(128, 64), s);
-  return launch(lse_bwd_kernel<128, 128, OWN_Q>, a, n_own, 128, bwd_smem(128, 128), s);
+    return launch(lse_bwd_kernel<64, OWN_Q>, a, n_own, kOwn, BwdLayout<64>::bytes, s,
+                  groups<64>() * kGroupThreads);
+  return launch(lse_bwd_kernel<128, OWN_Q>, a, n_own, kOwn, BwdLayout<128>::bytes, s,
+                groups<128>() * kGroupThreads);
 }
 
 }  // namespace
@@ -428,7 +660,9 @@ extern "C" {
 
 // Each entry point returns a cudaError_t code: 0 when the launch succeeded.
 // adj may be null; row_ids and col_ids are both null or both set. tile_own is
-// the rows of the own operand per block, 64 or 128.
+// the rows of q per block of the forward, 64 or 128; the backward's blocks
+// own 64 rows whatever it says (the wrapper passes the same value to all
+// three).
 
 int ttrm_softmax_lse_fwd(const void* q, const void* c, const void* adj, const void* row_ids,
                          const void* col_ids, void* lse_out, int64_t bq, int64_t bk, int64_t dp,
@@ -452,7 +686,7 @@ int ttrm_softmax_lse_dq(const void* q, const void* c, const void* adj, const voi
   if (!shapes_ok(bq, bk, dp, row_offset, tile_own) || (row_ids == nullptr) != (col_ids == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a = make_args(q, c, adj, row_ids, col_ids, lse, g, dq_out, bq, bk, row_offset, inv_t);
-  return launch_bwd<true>(a, dp, tile_own, static_cast<cudaStream_t>(stream));
+  return launch_bwd<true>(a, dp, static_cast<cudaStream_t>(stream));
 }
 
 int ttrm_softmax_lse_dc(const void* q, const void* c, const void* adj, const void* row_ids,
@@ -462,7 +696,7 @@ int ttrm_softmax_lse_dc(const void* q, const void* c, const void* adj, const voi
   if (!shapes_ok(bq, bk, dp, row_offset, tile_own) || (row_ids == nullptr) != (col_ids == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a = make_args(q, c, adj, row_ids, col_ids, lse, g, dc_out, bq, bk, row_offset, inv_t);
-  return launch_bwd<false>(a, dp, tile_own, static_cast<cudaStream_t>(stream));
+  return launch_bwd<false>(a, dp, static_cast<cudaStream_t>(stream));
 }
 
 const char* ttrm_error_string(int code) {

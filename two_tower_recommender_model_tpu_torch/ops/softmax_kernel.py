@@ -145,6 +145,10 @@ def _check(q16, c16, adj, row_ids, col_ids, row_offset, lse=None, g=None) -> Non
     if q16.device.type == "cuda" and not softmax_kernel_shapes_ok(bk, d, bq):
         raise ValueError(f"the CUDA softmax kernels do not take BQ={bq}, BK={bk}, D={d} "
                          "(see softmax_kernel_shapes_ok)")
+    if q16.device.type == "cuda" and any(t is not None and t.data_ptr() % 16
+                                         for t in (q16, c16, adj, row_ids, col_ids, lse, g)):
+        raise ValueError("the CUDA softmax kernels load their operands 16 bytes at a time: "
+                         "every tensor must start on a 16-byte boundary")
 
 
 def _pad_dim(x16: torch.Tensor) -> torch.Tensor:
@@ -156,8 +160,10 @@ def _pad_dim(x16: torch.Tensor) -> torch.Tensor:
 
 
 def _tile_own(n_own: int, device: torch.device) -> int:
-    """Rows of the own operand per block: 128, or 64 while 128 would leave
-    SMs without a block."""
+    """Rows of q per block of kernel #9: 128, or 64 while 128 would leave SMs
+    without a block. The backward kernels (#10, #11) take the same argument
+    and ignore it: their blocks always own 64 rows, and warp groups split
+    the streamed rows between them instead."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return 128 if n_own // 128 >= sms else 64
 
