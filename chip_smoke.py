@@ -29,11 +29,11 @@ without a card. Phases (any failure raises and exits non-zero):
    `n_valid` = 8,000, 65,536 x 65,536, and the stripe of 16,384 rows at row
    offset 32,768 against 65,536 columns, which must also equal those rows of
    the square case; lse within rtol 2e-5 / atol 1e-5, dq and dc within 1e-3 x
-   their largest magnitude with cosine > 0.99999, two launches of dq and of
-   dc bit for bit equal; beside #10 and #11 the time of the same function
-   as bf16 GEMMs and elementwise calls (`composed_ms`);
+   their largest magnitude with cosine > 0.99999, two launches of each of
+   the three bit for bit equal; beside #10 and #11 the time of the same
+   function as bf16 GEMMs and elementwise calls (`composed_ms`);
    beside each kernel's time: its plain version's, the card's bound for the
-   same work, and where one PyTorch call computes the same function
+   same work (bytes, operations, or for the softmax kernels one exp a score), and where one PyTorch call computes the same function
    (`embedding_bag` for the pooled gather) that call's time;
 4. `[serve]` the flagship (206,209 users x 49,688 items, dim 128, towers
    (128, 64), f32, random weights from a seeded generator) served through
@@ -81,9 +81,13 @@ without a card. Phases (any failure raises and exits non-zero):
    user table quantized from a seeded draw, 8,192 x 1 f32 out, 262,144 x 1
    bf16 out and sentinel ids bit for bit, 8,192 x 3 mean-weighted slots
    within 1e-5 x max; the fused int8 row-wise Adagrad (#6) with 262,144
-   sorted ids (f32 and bf16 gradients) and through the item table's device
-   sort: untouched rows bit for bit, scales and accumulators within rtol
-   1e-5, int8 values within one step; the dense aggregate (#3) at the same
+   sorted ids (f32 and bf16 gradients), through the item table's device
+   sort, and through it on item ids drawn as rank^-1 (a hot id of about
+   22,000 positions): untouched rows bit for bit, scales and accumulators
+   within rtol 1e-5, int8 values within one step, two launches bit for bit
+   equal; row-wise Adagrad (#4) timed on those skewed ids against an f32
+   item table (untouched rows bitwise, the rest within rtol 1e-5); the
+   dense aggregate (#3) at the same
    ids: rows without ids exact zero, the rest within rtol 1e-5; the row
    subtract (#7) on that batch's distinct ids: bit for bit;
 10. `[train-int8]` phase 5 with `table_dtype="int8"`: each counted step must
@@ -132,7 +136,8 @@ without a card. Phases (any failure raises and exits non-zero):
    tables) and `[serve-bf16tab]` (phase 12 on the bf16-trained state);
 19. with --profile, torch.profiler traces of the serving calls, of the
    three train steps and of a graph replay: device busy time, idle share and
-   the largest device items.
+   the largest device items; and for each graph the SM clock and the active
+   throttle reasons (nvidia-smi) before, during and after 20 more replays.
 
 The line before the last is a JSON object describing each kernel; the last
 line is `{"ok": true, "device": {...}}`.
@@ -231,6 +236,8 @@ HIGH_ROW = 1 << 24  # the 20M-row check looks at a row above this (row x D passe
 OVERRIDE_STEPS = 3  # steps per update route in [train-override]
 # NVIDIA H100 SXM peaks (data sheet, dense): the bounds are computed against these
 PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
+# exps: the special-function units' 16 a clock per SM, at the H100 SXM's 1,980 MHz boost clock
+EXP_PER_CLOCK_PER_SM, EXP_CLOCK = 16, 1.98e9
 KERNELS = {  # wrapper name -> (wrapper, source, the TPU kernel it replaces)
     "pooled_gather": (pooled_gather, "two_tower_recommender_model_tpu_torch/csrc/pooled_gather.cu",
                       "two_tower_recommender_model_tpu/ops/pallas_embedding.py:40"),
@@ -277,13 +284,17 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound(n_bytes: float, n_ops: float, peak_ops: float) -> dict:
-    """The least time the card could take for a call: the larger of its bytes
-    (each input read once, each output written once) over the memory rate and
-    its operations over the peak rate for their type."""
-    by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / peak_ops * 1e3
-    return {"bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+def bound(n_bytes: float, n_ops: float, peak_ops: float, n_exp: float = 0) -> dict:
+    """The least time the card could take for a call: the largest of its
+    bytes (each input read once, each output written once) over the memory
+    rate, its operations over the peak rate for their type, and its exps
+    (where it takes them) over the special-function units' rate:
+    EXP_PER_CLOCK_PER_SM x the card's SMs x EXP_CLOCK."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    times = {"bytes": n_bytes / PEAK_BYTES * 1e3, "operations": n_ops / peak_ops * 1e3,
+             "exp": n_exp / (EXP_PER_CLOCK_PER_SM * sms * EXP_CLOCK) * 1e3}
+    by = max(times, key=times.get)  # ties go to the first
+    return {"bound_ms": times[by], "bound_by": by}
 
 
 def median_ms(fn, flush: torch.Tensor, reps: int = REPS) -> float:
@@ -605,9 +616,59 @@ def phase_probe(dev: torch.device) -> dict[str, int]:
     return launches
 
 
+SKEWED = "item bf16 device-sorted, ids drawn as rank^-1"
+
+
+def skewed_item_ids(rng, m: int, dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """`m` item ids drawn with probability proportional to rank^-1 over the
+    flagship's items, the ranks given to the ids at random (as
+    `SyntheticClickstream(popularity=1.0)` gives them), 5% dead slots with
+    the sentinel N; sorted on the card with the permutation, as the train
+    step's device sort hands them to the update."""
+    w = 1.0 / np.arange(1, NUM_ITEMS + 1)
+    ids = rng.permutation(NUM_ITEMS)[rng.choice(NUM_ITEMS, size=m, p=w / w.sum())]
+    ids[rng.random(m) < 0.05] = NUM_ITEMS
+    ids_t, perm = torch.sort(torch.from_numpy(ids.astype(np.int32)).to(dev), stable=True)
+    return ids_t, perm.to(torch.int32)
+
+
+def longest_run(sorted_ids: torch.Tensor, n: int) -> int:
+    """The most positions one live id holds."""
+    live = sorted_ids[sorted_ids < n]
+    return int(torch.unique_consecutive(live, return_counts=True)[1].max().item())
+
+
+def skewed_rowwise_adagrad(dev, ids_t, perm, grads, flush) -> None:
+    """Kernel #4 on the skewed ids against an f32 item table, a measurement:
+    it walks a run on one warp, as #6 did before it took the run in pieces.
+    Untouched rows bitwise, the rest within rtol 1e-5."""
+    rng = np.random.default_rng(9)
+    table = torch.from_numpy(rng.normal(size=(NUM_ITEMS, DIM)).astype(np.float32)).to(dev)
+    acc = torch.from_numpy(np.abs(rng.normal(size=NUM_ITEMS)).astype(np.float32)).to(dev)
+    t_k, a_k, t_p, a_p = table.clone(), acc.clone(), table.clone(), acc.clone()
+    rowwise_adagrad(t_k, a_k, ids_t, grads, LR, EPS, perm=perm)
+    rowwise_adagrad_reference(t_p, a_p, ids_t, grads, LR, EPS, perm=perm)
+    torch.cuda.synchronize()
+    live = torch.zeros(NUM_ITEMS, dtype=torch.bool, device=dev)
+    live[ids_t[ids_t < NUM_ITEMS].long()] = True
+    if not (bitwise_equal(t_k[~live], table[~live]) and bitwise_equal(a_k[~live], acc[~live])):
+        raise AssertionError("rowwise_adagrad skewed: rows no live id names changed")
+    torch.testing.assert_close(t_k, t_p, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(a_k, a_p, rtol=1e-5, atol=1e-6)
+    ms = median_ms(lambda: rowwise_adagrad(t_k, a_k, ids_t, grads, LR, EPS, perm=perm), flush)
+    m, touched = ids_t.shape[0], int(live.sum())
+    b = bound(m * DIM * grads.element_size() + m * 8 + touched * (DIM + 1) * 4 * 2, 4 * m * DIM,
+              PEAK_F32)
+    log(f"[kernel] rowwise_adagrad {SKEWED} (a measurement): {m} ids into f32 [{NUM_ITEMS}, "
+        f"{DIM}], {touched} rows touched, longest run {longest_run(ids_t, NUM_ITEMS)}; untouched "
+        f"rows bitwise, the rest within rtol 1e-5; kernel_ms={ms!r}, bound_ms={b['bound_ms']!r} "
+        f"by {b['bound_by']}")
+
+
 def phase_int8_kernels(dev: torch.device) -> dict[str, dict]:
     """Kernels #5, #6, #3 and #7 against their plain versions at the int8
-    train step's shapes (and #5 at the serving lookup's)."""
+    train step's shapes (and #5 at the serving lookup's); #6 also on item
+    ids drawn as rank^-1 (and #4 timed on those)."""
     rng = np.random.default_rng(4)
     gen = torch.Generator(device=dev).manual_seed(4)
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
@@ -671,24 +732,36 @@ def phase_int8_kernels(dev: torch.device) -> dict[str, dict]:
     results = []
     for name, n, sort, grad_dtype in (("user f32 sorted", NUM_USERS, True, torch.float32),
                                       ("user bf16 sorted", NUM_USERS, True, torch.bfloat16),
-                                      ("item bf16 device-sorted", NUM_ITEMS, False, torch.bfloat16)):
-        ids = rng.integers(0, n, m)
-        ids[rng.random(m) < 0.05] = n  # dead slots carry the sentinel N
-        ids_t = on_card(ids.astype(np.int32))
-        perm = None
-        if sort:
-            ids_t = torch.sort(ids_t).values
+                                      ("item bf16 device-sorted", NUM_ITEMS, False, torch.bfloat16),
+                                      (SKEWED, NUM_ITEMS, False, torch.bfloat16)):
+        if name == SKEWED:  # its own draws: the cases after it see the same numbers as before
+            ids, perm = skewed_item_ids(np.random.default_rng(7), m, dev)
+            ids_t = ids
+            grads = on_card(np.random.default_rng(8).normal(size=(m, DIM)).astype(np.float32),
+                            grad_dtype)
         else:
-            ids_t, perm = torch.sort(ids_t, stable=True)
-            perm = perm.to(torch.int32)
-        grads = on_card(rng.normal(size=(m, DIM)).astype(np.float32), grad_dtype)
+            ids = rng.integers(0, n, m)
+            ids[rng.random(m) < 0.05] = n  # dead slots carry the sentinel N
+            ids_t = on_card(ids.astype(np.int32))
+            perm = None
+            if sort:
+                ids_t = torch.sort(ids_t).values
+            else:
+                ids_t, perm = torch.sort(ids_t, stable=True)
+                perm = perm.to(torch.int32)
+            grads = on_card(rng.normal(size=(m, DIM)).astype(np.float32), grad_dtype)
         table = quantize_table(on_card(rng.normal(size=(n, DIM)).astype(np.float32)))
         acc = on_card(np.abs(rng.normal(size=n)).astype(np.float32))
         kern = (table.values.clone(), table.scales.clone(), acc.clone())
         plain = (table.values.clone(), table.scales.clone(), acc.clone())
+        again = (table.values.clone(), table.scales.clone(), acc.clone())
         quantized_rowwise_adagrad_fused(*kern, ids_t, grads, LR, EPS, perm=perm)
+        quantized_rowwise_adagrad_fused(*again, ids_t, grads, LR, EPS, perm=perm)
         quantized_rowwise_adagrad_fused_reference(*plain, ids_t, grads, LR, EPS, perm=perm)
         torch.cuda.synchronize()
+        if not all(bitwise_equal(a, b) for a, b in zip(kern, again)):
+            raise AssertionError(f"{name}: two launches on the same inputs differ")
+        del again
         live = torch.zeros(n, dtype=torch.bool, device=dev)
         live[ids_t[ids_t < n].long()] = True
         for got, start, what in zip(kern, (table.values, table.scales, acc),
@@ -713,15 +786,17 @@ def phase_int8_kernels(dev: torch.device) -> dict[str, dict]:
         b_ = bound(m * DIM * grads.element_size() + m * 4 * (1 if perm is None else 2)
                    + touched * (DIM + 8) * 2, 4 * m * DIM + 8 * touched * DIM, PEAK_F32)
         log(f"[kernel] quantized_rowwise_adagrad {name}: {m} ids into int8 [{n}, {DIM}], "
-            f"{touched} rows touched; untouched rows bitwise, scales and accumulators within "
-            f"rtol 1e-5 (max_abs_err={err!r}), int8 values within one step "
-            f"(share_of_touched_values_that_differ={differ!r}); kernel_ms={ms!r}, "
-            f"plain_ms={plain_ms!r}, bound_ms={b_['bound_ms']!r} by {b_['bound_by']}; no single "
-            "PyTorch call computes it")
+            f"{touched} rows touched, longest run {longest_run(ids_t, n)}; untouched rows "
+            f"bitwise, scales and accumulators within rtol 1e-5 (max_abs_err={err!r}), int8 "
+            f"values within one step (share_of_touched_values_that_differ={differ!r}), two "
+            f"launches bit for bit equal; kernel_ms={ms!r}, plain_ms={plain_ms!r}, "
+            f"bound_ms={b_['bound_ms']!r} by {b_['bound_by']}; no single PyTorch call computes it")
         results.append({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b_,
                         "library_ms": None})
         if name == "user bf16 sorted":
             user_sorted = (ids_t, grads, live)
+        if name == SKEWED:
+            skewed_rowwise_adagrad(dev, ids_t, perm, grads, flush)
     stats["quantized_rowwise_adagrad"] = {  # the step's sorted update: user table, bf16
         **results[1], "max_abs_err": max(r["max_abs_err"] for r in results)}
 
@@ -924,8 +999,9 @@ def phase_softmax_kernel(dev: torch.device) -> dict[str, dict]:
     """Kernels #9, #10 and #11 against their plain versions: the square case
     at the production batch (with and without padded columns) and at the
     large batch, and one stripe of a four-way data-parallel split, which must
-    also equal its rows of the square case. Two launches of #10 and of #11
-    on the same inputs must agree bit for bit in every case. At the main
+    also equal its rows of the square case. Two launches of each kernel on
+    the same inputs must agree bit for bit in every case. The bounds count
+    one exp a score. At the main
     path's shape, beside the kernels' times: `softmax_composed`'s (bf16
     GEMMs and elementwise calls)."""
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
@@ -942,10 +1018,13 @@ def phase_softmax_kernel(dev: torch.device) -> dict[str, dict]:
         # the stripe reuses the large case's draws, so its rows are that case's rows
         seed = 6 if bk == SOFTMAX_BIG else 5
         args, g = softmax_case(dev, np.random.default_rng(seed), bq, bk, off, n_valid)
-        lse = sk.softmax_lse_fwd(*args)
+        lse, lse2 = sk.softmax_lse_fwd(*args), sk.softmax_lse_fwd(*args)
         want_lse = sk.lse_forward_reference(*args)
         torch.cuda.synchronize()
         torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=1e-5)  # f32 summation order
+        if not bitwise_equal(lse, lse2):
+            raise AssertionError(f"{label}: two launches of the forward on the same inputs differ")
+        del lse2
         # both backwards from the plain lse, so only the backward itself is compared
         dq, dc = sk.softmax_lse_dq(*args, want_lse, g), sk.softmax_lse_dc(*args, want_lse, g)
         want_dq, want_dc = sk.lse_backward_reference(*args, want_lse, g)
@@ -973,15 +1052,15 @@ def phase_softmax_kernel(dev: torch.device) -> dict[str, dict]:
         calls = {
             "softmax_lse_fwd": (lambda: sk.softmax_lse_fwd(*args),
                                 lambda: sk.lse_forward_reference(*args),
-                                bound(small + bq * 4, 2 * bq * bk * d, PEAK_BF16)),
+                                bound(small + bq * 4, 2 * bq * bk * d, PEAK_BF16, bq * bk)),
             "softmax_lse_dq": (lambda: sk.softmax_lse_dq(*args, want_lse, g),
                                lambda: sk.lse_backward_reference(*args, want_lse, g,
                                                                  need_dc=False),
-                               bound(small + bq * d * 4, 4 * bq * bk * d, PEAK_BF16)),
+                               bound(small + bq * d * 4, 4 * bq * bk * d, PEAK_BF16, bq * bk)),
             "softmax_lse_dc": (lambda: sk.softmax_lse_dc(*args, want_lse, g),
                                lambda: sk.lse_backward_reference(*args, want_lse, g,
                                                                  need_dq=False),
-                               bound(small + bk * d * 4, 4 * bq * bk * d, PEAK_BF16)),
+                               bound(small + bk * d * 4, 4 * bq * bk * d, PEAK_BF16, bq * bk)),
         }
         for name, (kernel, plain, b) in calls.items():
             ms, plain_ms = median_ms(kernel, flush, reps), median_ms(plain, flush, reps)
@@ -1430,9 +1509,42 @@ def phase_train_graph(dev: torch.device, name: str, cfg, tcfg, pool: list, want:
         f"graph={peak_graph / 1e9!r} (both states resident in both)")
     if profile:
         stacked = stack_on_card(macro(0))
+        log_clocks(f"[profile] train-graph {name}", lambda: multi(graphed, stacked), SAMPLED_MACROS)
         profile_direct(lambda: multi(graphed, stacked), f"train-graph {name}, replay of {k} steps",
                        2 * k, calls=3, marker=marker)
     return launches
+
+
+SMI_CLOCKS = ["nvidia-smi", "--query-gpu=clocks.sm,clocks_throttle_reasons.active",
+              "--format=csv,noheader"]
+SAMPLED_MACROS = 20  # graph replays under the clock sampler
+
+
+def log_clocks(label: str, fn, calls: int, period_ms: int = 20) -> None:
+    """The SM clock and the active throttle reasons (nvidia-smi) before `calls`
+    calls of `fn`, every `period_ms` while they run, and after: printed, not
+    held. The sampler is a process of its own, stopped before this returns."""
+    def query() -> str:
+        out = subprocess.run(SMI_CLOCKS, capture_output=True, text=True, timeout=60)
+        return (out.stdout + out.stderr).strip()
+
+    before = query()
+    sampler = subprocess.Popen([*SMI_CLOCKS, f"--loop-ms={period_ms}"], stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True)
+    try:
+        during = [sampler.stdout.readline().strip()]  # the sampler is up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        sampler.terminate()
+        during += sampler.communicate(timeout=60)[0].strip().splitlines()
+    seen = {line: during.count(line) for line in dict.fromkeys(during)}  # in order, counted
+    log(f"{label}: clocks.sm, throttle reasons before: {before}; during {calls} replays "
+        f"({ms!r} ms, every {period_ms} ms; samples counted): {seen}; after: {query()}")
 
 
 def phase_train_graphs(dev: torch.device, profile: bool, pool: list) -> dict[str, dict]:

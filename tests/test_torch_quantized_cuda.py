@@ -36,6 +36,10 @@ ID_CASES = {
     "all-sentinels": (500, 333, lambda rng, n, m: np.full(m, n)),
     "one-id-repeated": (500, 777, lambda rng, n, m: np.full(m, 41)),
     "empty": (500, 0, lambda rng, n, m: np.zeros(0, np.int64)),
+    # one run of 3,000 positions (about 94 of the Adagrad kernel's 32-position
+    # segments) among short runs and sentinels
+    "hot-id": (500, 4096, lambda rng, n, m: np.concatenate(
+        [np.full(3000, 77), rng.integers(0, n, m - 3100), np.full(100, n)])),
 }
 
 
@@ -159,6 +163,33 @@ def test_quantized_adagrad_matches_plain(dev, d, grad_dtype, case, with_perm):
     assert (v_k.int() - v_p.int()).abs().max().item() <= 1 if n else True
     torch.testing.assert_close(dequantize_rows(v_k, s_k), dequantize_rows(v_p, s_p), rtol=0,
                                atol=1.01 * (s_p.max().item() / 127))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [12, 128, 512])
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["mixed", "hot-id"])
+@pytest.mark.parametrize("with_perm", [False, True])
+def test_quantized_adagrad_two_launches_agree(dev, d, grad_dtype, case, with_perm):
+    """Two launches of kernel #6 from the same table, accumulators and
+    gradients give the same bytes, scales and accumulators: every sum, the
+    hot id's pieces included, has one fixed order. D = 12 takes the 8-byte
+    bf16 loads (D % 8 != 0)."""
+    rng = np.random.default_rng(d + 1)
+    n, m, ids, perm = _sorted_ids(rng, case, dev, with_perm)
+    values, scales = _table(rng, n, d, dev)
+    acc = torch.from_numpy(np.abs(rng.normal(size=n)).astype(np.float32)).to(dev)
+    grads = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32)).to(dev, grad_dtype)
+    runs = []
+    for _ in range(2):
+        state = (values.clone(), scales.clone(), acc.clone())
+        quantized_rowwise_adagrad_fused(*state, ids, grads, 0.05, 1e-10, perm=perm)
+        runs.append(state)
+    torch.cuda.synchronize()
+    assert not torch.equal(runs[0][0], values)
+    for a, b in zip(*runs):
+        assert torch.equal(a.view(torch.uint8) if a.dtype == torch.int8 else a.view(torch.int32),
+                           b.view(torch.uint8) if b.dtype == torch.int8 else b.view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -18,6 +18,7 @@ from two_tower_recommender_model_tpu.ops.quantized import quantize_table as jax_
 from two_tower_recommender_model_tpu_torch.ops.adagrad_kernel import block_sorted_aggregate
 from two_tower_recommender_model_tpu_torch.ops.embedding_ops import block_sorted_lookup
 from two_tower_recommender_model_tpu_torch.ops.quantized import QuantizedTable
+from two_tower_recommender_model_tpu_torch.ops import quantized_kernel as kq
 from two_tower_recommender_model_tpu_torch.ops.quantized_kernel import (
     quantized_pooled_gather,
     quantized_rowwise_adagrad_fused,
@@ -170,6 +171,99 @@ def test_quantized_adagrad_through_a_permutation(grad_dtype):
     for x, y, z in zip(a, b, (table.values, table.scales, acc_c)):
         assert torch.equal(x, y) and torch.equal(x, z)
     assert table.values.dtype == torch.int8
+
+
+def _in_order(rows):
+    """Rows added one after another in f32, from zero: a sequential sum."""
+    total = torch.zeros(rows.shape[1:])
+    for row in rows:
+        total = total + row
+    return total
+
+
+def _segment_order_sums(sids: np.ndarray, g: torch.Tensor, n: int):
+    """(rows, [R, D] sums) of each live run of sorted ids `sids` over the
+    sorted gradient rows `g`, added in the order of kernel #6. Spans are the
+    aligned 32 positions of one warp. A run that ends within the span after
+    its first is summed in position order. A longer run is summed in pieces:
+    its first piece reaches to the end of that next span, then one piece per
+    later span; each piece is its first half (rounded up) and its second half
+    added in order, then added to the first. The T pieces are added in order
+    when T <= 64; else in 8 contiguous shares of ceil(T / 8) pieces, each in
+    order, and the shares in order."""
+    span = kq.SPAN
+    m = len(sids)
+    rows, sums = [], []
+    a = 0
+    while a < m:
+        b = a
+        while b < m and sids[b] == sids[a]:
+            b += 1
+        if 0 <= sids[a] < n:
+            reach = (a // span + 2) * span
+            if b <= reach:
+                total = _in_order(g[a:b])
+            else:
+                bounds = [a] + list(range(reach, b, span)) + [b]
+                pieces = []
+                for lo, hi in zip(bounds[:-1], bounds[1:]):
+                    mid = lo + (hi - lo + 1) // 2
+                    pieces.append(_in_order(g[lo:mid]) + _in_order(g[mid:hi]))
+                pieces = torch.stack(pieces)
+                if len(pieces) <= 64:
+                    total = _in_order(pieces)
+                else:
+                    share = -(-len(pieces) // 8)
+                    total = _in_order(torch.stack([_in_order(pieces[k:k + share])
+                                                   for k in range(0, len(pieces), share)]))
+            rows.append(int(sids[a]))
+            sums.append(total)
+        a = b
+    return torch.tensor(rows, dtype=torch.long), torch.stack(sums)
+
+
+@pytest.mark.parametrize("with_perm", [False, True])
+def test_hot_id_in_segment_order_matches_pallas(with_perm):
+    """One id holds 1,103 of 2,048 positions (a run of 34 pieces), among
+    short runs and sentinels. Summed in kernel #6's segment order, then
+    updated as the plain version updates, it holds the Pallas kernel at the
+    file's bounds (accumulators and scales rtol 1e-5 / atol 1e-6, int8 values
+    within one step, rows no id names byte-exact); the port's wrapper (the
+    plain version on the CPU) too. With `perm` the ids arrive unsorted and
+    the sums read the gradients through the sort's permutation."""
+    rng = np.random.default_rng(21)
+    n, m = 220, 2048
+    ids = np.concatenate([np.full(1100, 37), rng.integers(0, n, m - 1100 - 90), np.full(90, n)])
+    rng.shuffle(ids)
+    grads = rng.normal(size=(m, D)).astype(np.float32)
+    qt = jax_quantize_table(jnp.asarray(rng.normal(size=(n, D)).astype(np.float32)))
+    values, scales = np.asarray(qt.values), np.asarray(qt.scales)
+    acc = np.abs(rng.normal(size=n)).astype(np.float32)
+    order = np.argsort(ids, kind="stable")
+    sids = ids[order].astype(np.int32)
+    if not with_perm:  # the gradients arrive in sorted order
+        grads, ids = grads[order], sids
+    g_sorted = grads[order] if with_perm else grads
+    want_v, want_s, want_a = jbs.block_sorted_rowwise_adagrad_fused_quantized(
+        jnp.asarray(values), jnp.asarray(scales), jnp.asarray(acc), jnp.asarray(sids),
+        jnp.asarray(g_sorted), lr=0.05, eps=1e-10, r=R, c=512, interpret=True)
+    rows, sums = _segment_order_sums(sids, _t(g_sorted), n)
+    assert (np.bincount(sids[sids < n]) > 32 * 33).sum() == 1  # the hot id spans 34 pieces
+    v, s, a = _t(values), _t(scales), _t(acc)
+    kq.apply_rowwise_update(v, s, a, rows, sums, 0.05, 1e-10)
+    wv, ws, wa = _t(values), _t(scales), _t(acc)
+    quantized_rowwise_adagrad_fused(wv, ws, wa, _t(sids), _t(grads), 0.05, 1e-10,
+                                    perm=_t(order.astype(np.int32)) if with_perm else None)
+    touched = np.zeros(n, bool)
+    touched[sids[sids < n]] = True
+    for got_v, got_s, got_a in ((v, s, a), (wv, ws, wa)):
+        np.testing.assert_allclose(got_a.numpy(), np.asarray(want_a), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=1e-5, atol=1e-6)
+        steps = np.abs(got_v.numpy().astype(np.int32) - np.asarray(want_v, np.int32))
+        assert steps.max() <= 1, f"int8 values differ by more than one step ({steps.max()})"
+        np.testing.assert_array_equal(got_v.numpy()[~touched], values[~touched])
+        np.testing.assert_array_equal(got_s.numpy()[~touched], scales[~touched])
+        np.testing.assert_array_equal(got_a.numpy()[~touched], acc[~touched])
 
 
 # --- #3 ---------------------------------------------------------------------------------

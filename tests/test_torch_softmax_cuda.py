@@ -91,28 +91,43 @@ def test_kernels_match_plain_rectangular(dev, bq, bk, row_offset, d):
 
 
 @pytest.mark.cuda
-def test_both_tile_sizes_agree(dev, monkeypatch):
-    """The forward's blocks of 64 q rows (small grids) and of 128 (grids
-    that fill the card) compute the same function. The backward kernels take
-    the same tile argument and own 64 rows whatever it says: from one lse
-    their results are bit for bit the same under both."""
+def test_both_tile_sizes_agree(dev):
+    """The forward has one block shape now (64 q rows, 4 warp groups over
+    the 64-column tiles), where it had blocks of 64 and of 128 rows: two
+    launches on the same inputs agree bit for bit, and the backward kernels
+    from that lse agree with the plain version."""
     b, d = 1024, 64
     q16, c16, ids, log_q, g = _inputs(dev, b, b, d, seed=1)
     args = (q16, c16, log_q, ids, ids, 0, 1.3)
-    out = {}
-    for tile in (64, 128):
-        monkeypatch.setattr(sk, "_tile_own", lambda n, device, t=tile: t)
-        lse = sk.softmax_lse_fwd(*args)
-        out[tile] = (lse, sk.softmax_lse_dq(*args, lse, g), sk.softmax_lse_dc(*args, lse, g))
-        out[tile, "from one lse"] = (sk.softmax_lse_dq(*args, out[64][0], g),
-                                     sk.softmax_lse_dc(*args, out[64][0], g))
+    first, again = sk.softmax_lse_fwd(*args), sk.softmax_lse_fwd(*args)
     torch.cuda.synchronize()
-    torch.testing.assert_close(out[64][0], out[128][0], rtol=1e-6, atol=1e-6)
-    _grad_close(out[64][1], out[128][1], "dq")
-    _grad_close(out[64][2], out[128][2], "dc")
-    for a, b_ in zip(out[64, "from one lse"], out[128, "from one lse"]):
-        assert torch.equal(a.view(torch.int32), b_.view(torch.int32))
+    assert torch.equal(first.view(torch.int32), again.view(torch.int32))
     _compare(args, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,bq,row_offset", [(64, 8192, 0), (128, 8192, 0), (64, 128, 4096),
+                                             (128, 1024, 7168)])
+def test_forward_is_deterministic_at_the_production_batch(dev, d, bq, row_offset):
+    """Kernel #9 at B = 8,192 columns with item ids (they repeat), logQ and
+    192 padded columns: two launches on the same inputs agree bit for bit,
+    the lse holds the plain version, and a stripe of BQ rows at a row offset
+    is bit for bit those rows of the square case (the warp groups split the
+    columns by tile index alone, and a row's sums do not depend on its
+    block)."""
+    bk = 8192
+    q16, c16, ids, log_q, _ = _inputs(dev, bk, bk, d, seed=d + bq, n_ids=5000)
+    adj = sk._merged_adj(log_q, bk - 192, bk, dev)
+    rows = slice(row_offset, row_offset + bq)
+    args = (q16[rows].contiguous(), c16, adj, ids[rows].contiguous(), ids, row_offset, 1 / 0.7)
+    first, again = sk.softmax_lse_fwd(*args), sk.softmax_lse_fwd(*args)
+    want = sk.lse_forward_reference(*args)
+    square = sk.softmax_lse_fwd(q16, c16, adj, ids, ids, 0, 1 / 0.7)
+    torch.cuda.synchronize()
+    assert first.shape == (bq,)
+    assert torch.equal(first.view(torch.int32), again.view(torch.int32))
+    torch.testing.assert_close(first, want, rtol=2e-5, atol=1e-5)
+    assert torch.equal(first.view(torch.int32), square[rows].view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -301,3 +301,82 @@ def test_tensor_core_summation_order_stays_within_the_card_tolerances(d, use_ids
                                          torch.from_numpy(g))
     _assert_grad_close(dq[:, :d].numpy(), want_dq, "dq")
     _assert_grad_close(dc[:, :d].numpy(), want_dc, "dc")
+
+
+def _tensor_core_order_forward(q16, c16, adj, row_ids, col_ids, inv_t):
+    """lse of the square case in the order of kernel #9 on the tensor cores.
+    Each score: the 16-deep chunks of the depth added in order (an mma adds
+    16 products to its f32 accumulator in one step, modelled exactly in
+    float64 with one rounding to f32), times 1/T, minus adj, the mask. The
+    64-column tiles are split over the 4 warp groups (group k takes the tiles
+    k, k + 4, ...). A thread holds columns 8n + 2t and 8n + 2t + 1 (n = 0..7)
+    of each tile of a row: per tile the row's max over the 64 columns (the
+    quad's), the running max from -1e9, l times exp(m_old - m_new) plus the
+    thread's 16 exps added in column order. At the end the quad's four l are
+    added as (l0 + l1) + (l2 + l3), and the groups' (m, l) merged in group
+    order: M = max m_k, L = sum_k l_k exp(m_k - M), lse = M + log(L). The
+    exp is torch's; the kernel's ex2.approx lies a few f32 ulps from it."""
+    b, d = q16.shape
+    bk = c16.shape[0]
+    dots = torch.einsum("ikc,jkc->ijk", q16.double().reshape(b, d // 16, 16),
+                        c16.double().reshape(bk, d // 16, 16))
+    s = torch.zeros(b, bk)
+    for k in range(d // 16):
+        s = (s.double() + dots[..., k]).float()
+    s = s * inv_t
+    if adj is not None:
+        s = s - adj[None, :]
+    if row_ids is not None:
+        rows, cols = torch.arange(b), torch.arange(bk)
+        s = s.masked_fill((row_ids[:, None] == col_ids[None, :]) & (rows[:, None] != cols),
+                          sk.NEG)
+    groups, tiles = 4, bk // 64
+    s = s.reshape(b, tiles, 8, 4, 2)  # [row, tile, n, t, j]: column 64 tile + 8n + 2t + j
+    ms, ls = [], []
+    for k in range(groups):
+        m, lt = torch.full((b,), sk.NEG), torch.zeros(b, 4)
+        for tile in range(k, tiles, groups):
+            st = s[:, tile]
+            m_new = torch.maximum(m, st.amax(dim=(1, 2, 3)))
+            part = torch.zeros(b, 4)
+            for n in range(8):
+                for j in range(2):
+                    part = part + torch.exp(st[:, n, :, j] - m_new[:, None])
+            lt = lt * torch.exp(m - m_new)[:, None] + part
+            m = m_new
+        ms.append(m)
+        ls.append((lt[:, 0] + lt[:, 1]) + (lt[:, 2] + lt[:, 3]))
+    big = ms[0]
+    for m in ms[1:]:
+        big = torch.maximum(big, m)
+    total = torch.zeros(b)
+    for m, lt in zip(ms, ls):
+        total = total + lt * torch.exp(m - big)
+    return big + torch.log(total)
+
+
+@pytest.mark.parametrize("d,use_ids,use_logq,n_valid", [
+    (64, True, True, None), (64, True, True, 384), (16, True, False, None),
+    (128, False, True, 400), (128, True, True, None)])
+def test_forward_tensor_core_order_stays_within_the_card_tolerance(d, use_ids, use_logq,
+                                                                   n_valid):
+    """Kernel #9 sums each score in 16-deep chunks on the tensor cores and
+    runs the online max and sum per thread over 16 columns of each 64-column
+    tile, the tiles split over 4 warp groups whose (m, l) merge in group
+    order, where the plain version takes one pass over a row. Recomputed
+    here in that order, lse stays within the card tests' tolerance (rtol
+    2e-5, atol 1e-5) of the reference's `_lse_fused` in interpret mode."""
+    q, c, _, ids, log_q = _setup(seed=17, d=d)
+    ids_f = jnp.asarray(ids).astype(jnp.float32)
+    pad = lambda a: jnp.asarray(np.pad(a, ((0, 0), (0, 128 - d))))  # noqa: E731
+    want = jax_sk._lse_fused(pad(q), pad(c), ids_f, ids_f, jnp.asarray(log_q),
+                             jnp.arange(B, dtype=jnp.float32), 0.7, n_valid,
+                             (use_ids, use_logq), True)
+    # the kernel sees D zero-padded to 64 or 128, as the wrapper pads it
+    q16, c16 = (sk._pad_dim(torch.from_numpy(x).to(torch.bfloat16)) for x in (q, c))
+    ids_t = torch.from_numpy(ids) if use_ids else None
+    adj = sk._merged_adj(torch.from_numpy(log_q) if use_logq else None, n_valid, B,
+                         torch.device("cpu"))
+    got = _tensor_core_order_forward(q16, c16, adj, ids_t, ids_t, 1 / 0.7)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LSE_TOL)

@@ -1,7 +1,7 @@
 // Runs of equal sorted ids, one warp each: the device code shared by the
-// kernels that aggregate per-slot gradients by table row (rowwise_adagrad.cu:
-// the fused f32 row-wise Adagrad and the dense aggregate; quantized_adagrad.cu:
-// the fused int8 row-wise Adagrad).
+// kernels of rowwise_adagrad.cu that aggregate per-slot gradients by table
+// row (the fused f32 row-wise Adagrad and the dense aggregate).
+// (quantized_adagrad.cu walks its runs its own way: a warp per 32 positions.)
 //
 // Contract of the ids: [M] int32, NON-DECREASING; ids outside [0, N) are
 // sentinels (dead slots), never read and never written. Unsorted ids would

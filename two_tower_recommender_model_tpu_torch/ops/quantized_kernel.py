@@ -39,7 +39,8 @@ import torch
 from two_tower_recommender_model_tpu_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_DIM = 512  # both kernels hold a row in four 128-column chunks
+MAX_DIM = 512  # both kernels hold a row in registers
+SPAN = 32  # sorted positions per warp of the Adagrad kernel (`kSpan` in its source)
 
 
 def _check_table(values: torch.Tensor, scales: torch.Tensor) -> None:
@@ -157,6 +158,15 @@ def quantized_rowwise_adagrad_fused_reference(
     rows, inv = torch.unique(ids[live].long(), return_inverse=True)
     g_sum = torch.zeros((rows.shape[0], d), dtype=torch.float32,
                         device=values.device).index_add_(0, inv, g[live])
+    return apply_rowwise_update(values, scales, acc, rows, g_sum, lr, eps)
+
+
+@torch.no_grad()
+def apply_rowwise_update(values: torch.Tensor, scales: torch.Tensor, acc: torch.Tensor,
+                         rows: torch.Tensor, g_sum: torch.Tensor, lr: float, eps: float):
+    """The update of distinct `rows` from their summed f32 gradients `g_sum`
+    `[R, D]`, in place: a row whose sum is zero in every column is not
+    written."""
     touched = (g_sum != 0).any(dim=1)
     rows, g_sum = rows[touched], g_sum[touched]
     new_acc = acc[rows] + (g_sum * g_sum).mean(dim=1)
@@ -168,15 +178,18 @@ def quantized_rowwise_adagrad_fused_reference(
 
 
 class QuantizedRowwiseAdagrad(_build.KernelLibrary):
-    """The int8 row-wise Adagrad wrapper: checks its inputs and launches the
-    CUDA kernel on the current stream (no sync, nothing allocated).
-    `launches` counts kernel launches and nothing else."""
+    """The int8 row-wise Adagrad wrapper: checks its inputs, allocates the
+    kernel's scratch (the pieces of runs longer than a warp's window, on the
+    current stream, so a CUDA graph captures it) and launches the CUDA
+    kernel's two passes on the current stream (no sync). `launches` counts
+    calls that launch them and nothing else."""
 
     def __init__(self):
         super().__init__("quantized_rowwise_adagrad", "ttrm_quantized_adagrad", [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_float, ctypes.c_float], source="quantized_adagrad.cu")
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_float],
+            source="quantized_adagrad.cu")
 
     def __call__(self, values: torch.Tensor, scales: torch.Tensor, acc: torch.Tensor,
                  ids: torch.Tensor, grads: torch.Tensor, lr: float, eps: float = 1e-10,
@@ -212,9 +225,14 @@ class QuantizedRowwiseAdagrad(_build.KernelLibrary):
         if grads.data_ptr() % grad_align:
             raise ValueError(f"the CUDA kernel needs {grad_align}-byte aligned grads")
         if values.numel() and m:
+            # two slots a span of SPAN sorted positions: a long run's first piece, a later one
+            slots = 2 * -(-m // SPAN)
+            part = torch.empty((slots, d), dtype=torch.float32, device=values.device)
+            part_id = torch.empty(slots, dtype=torch.int32, device=values.device)
             self.launch(values.device, values.data_ptr(), scales.data_ptr(), acc.data_ptr(),
                         ids.data_ptr(), grads.data_ptr(), _DTYPE_CODES[grads.dtype],
-                        None if perm is None else perm.data_ptr(), n, d, m, lr, eps)
+                        None if perm is None else perm.data_ptr(), part.data_ptr(),
+                        part_id.data_ptr(), slots, n, d, m, lr, eps)
         return values, scales, acc
 
 

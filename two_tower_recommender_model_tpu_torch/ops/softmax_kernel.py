@@ -159,21 +159,12 @@ def _pad_dim(x16: torch.Tensor) -> torch.Tensor:
     return x16 if d == dp else F.pad(x16, (0, dp - d))
 
 
-def _tile_own(n_own: int, device: torch.device) -> int:
-    """Rows of q per block of kernel #9: 128, or 64 while 128 would leave SMs
-    without a block. The backward kernels (#10, #11) take the same argument
-    and ignore it: their blocks always own 64 rows, and warp groups split
-    the streamed rows between them instead."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return 128 if n_own // 128 >= sms else 64
-
-
 def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
 _PTR, _I64 = ctypes.c_void_p, ctypes.c_int64
-_TAIL = [_I64, _I64, _I64, _I64, ctypes.c_float, _I64]  # bq, bk, dp, row_offset, 1/T, tile_own
+_TAIL = [_I64, _I64, _I64, _I64, ctypes.c_float]  # bq, bk, dp, row_offset, 1/T
 
 
 class LseForward(_build.KernelLibrary):
@@ -194,8 +185,7 @@ class LseForward(_build.KernelLibrary):
         bq, bk = qp.shape[0], cp.shape[0]
         lse = torch.empty(bq, dtype=torch.float32, device=qp.device)
         self.launch(qp.device, qp.data_ptr(), cp.data_ptr(), _ptr(adj), _ptr(row_ids),
-                    _ptr(col_ids), lse.data_ptr(), bq, bk, qp.shape[1], row_offset, inv_t,
-                    _tile_own(bq, qp.device))
+                    _ptr(col_ids), lse.data_ptr(), bq, bk, qp.shape[1], row_offset, inv_t)
         return lse
 
 
@@ -223,7 +213,7 @@ class LseBackward(_build.KernelLibrary):
         out = torch.empty((n_own, qp.shape[1]), dtype=torch.float32, device=qp.device)
         self.launch(qp.device, qp.data_ptr(), cp.data_ptr(), _ptr(adj), _ptr(row_ids),
                     _ptr(col_ids), lse.data_ptr(), g.data_ptr(), out.data_ptr(), bq, bk,
-                    qp.shape[1], row_offset, inv_t, _tile_own(n_own, qp.device))
+                    qp.shape[1], row_offset, inv_t)
         return out if d == out.shape[1] else out[:, :d]
 
 
