@@ -85,11 +85,15 @@ without a card. Phases (any failure raises and exits non-zero):
    sort, and through it on item ids drawn as rank^-1 (a hot id of about
    22,000 positions): untouched rows bit for bit, scales and accumulators
    within rtol 1e-5, int8 values within one step, two launches bit for bit
-   equal; row-wise Adagrad (#4) timed on those skewed ids against an f32
-   item table (untouched rows bitwise, the rest within rtol 1e-5); the
-   dense aggregate (#3) at the same
-   ids: rows without ids exact zero, the rest within rtol 1e-5; the row
-   subtract (#7) on that batch's distinct ids: bit for bit;
+   equal; row-wise Adagrad (#4) on those skewed ids against an f32 item
+   table (untouched rows bitwise, the rest within rtol 1e-5, two launches
+   bit for bit equal); the dense aggregate (#3) at the user table's sorted
+   ids and at the skewed ids (their gradients in sorted order): rows
+   without ids exact zero, the rest within rtol 1e-5 (on the skewed ids
+   each element within 1e-5 x its sum of magnitudes: a hot id sums 21,842
+   terms), two launches on the skewed ids bit for bit equal,
+   `zeros.index_add_` timed beside it; the row subtract (#7) on the user
+   batch's distinct ids: bit for bit;
 10. `[train-int8]` phase 5 with `table_dtype="int8"`: each counted step must
    launch the int8 gather, the int8 Adagrad and the tower backward twice and
    the f32 tables' kernels never; tables still int8, untouched rows' bytes
@@ -125,16 +129,22 @@ without a card. Phases (any failure raises and exits non-zero):
    moments and counts, item counts), bit for bit; then the median time per
    step eager and replayed over 5 macros of distinct payloads, the launches
    captured per step, the replays, and the peak memory both ways;
-17. `[learn-packed]` the verify drive through `train_one_epoch_packed`
+17. `[train-skew]` phase 16's BCE step with f32 tables on a heavy-tailed
+   catalogue: `SyntheticClickstream(popularity=1.0)` draws items as rank^-1
+   (item runs of thousands of positions in each batch, printed), K = 16
+   graph against eager steps as in phase 16, then, from a fresh state after
+   12 eager steps, one step against the host CPU as in phase 5; under
+   --profile #4's device ms a replayed step;
+18. `[learn-packed]` the verify drive through `train_one_epoch_packed`
    (macro 8, a tail step, mid-epoch validation): 2 epochs x 125 batches,
    steps and examples counted, val AUROC 0.45-0.55 -> 0.70 or above;
-18. `[train-bf16tab]` the f32-compute flagship with `table_dtype="bfloat16"`
+19. `[train-bf16tab]` the f32-compute flagship with `table_dtype="bfloat16"`
    and `block_sorted_kernel="off"` at batch 262,144: each counted step
    launches the pooled gather and row-wise Adagrad twice, tables of
    52,789,504 + 12,720,128 bytes, a step against the host CPU, eval; the
    same step with f32 tables beside it; `[learn-bf16tab]` (phase 6 with bf16
    tables) and `[serve-bf16tab]` (phase 12 on the bf16-trained state);
-19. with --profile, torch.profiler traces of the serving calls, of the
+20. with --profile, torch.profiler traces of the serving calls, of the
    three train steps and of a graph replay: device busy time, idle share and
    the largest device items; and for each graph the SM clock and the active
    throttle reasons (nvidia-smi) before, during and after 20 more replays.
@@ -433,58 +443,79 @@ def within_rel(got: torch.Tensor, want: torch.Tensor, rel: float, label: str) ->
 
 
 def phase_adagrad_kernel(dev: torch.device) -> dict:
-    """Kernel #4 against its plain version at the train step's shapes: the
-    user table's sorted ids (f32 and bf16 gradients) and the item table's
-    device sort (bf16 gradients read through the sort's permutation).
-    Untouched rows must keep their bits, the rest agree within rtol 1e-5
-    (f32 summation order)."""
+    """Kernel #4 against its plain version at the train steps' shapes: the
+    BCE step's 262,144 ids (the user table's sorted ids with f32 and bf16
+    gradients, the item table's device sort with bf16 gradients read through
+    the sort's permutation) and the softmax step's 8,192 (the same two
+    tables, f32 gradients as its f32-compute step and bf16 as its
+    bf16-compute step, and rank^-1 item ids), where the span walk deals each
+    span to several warps. Untouched rows must keep their bits, the rest
+    agree within rtol 1e-5 (f32 summation order), and two launches on the
+    same inputs must be bit for bit equal."""
     rng = np.random.default_rng(2)
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
-    m = TRAIN_BATCH
-    results = []
-    for name, n, sort, grad_dtype in (("user f32 sorted", NUM_USERS, True, torch.float32),
-                                      ("user bf16 sorted", NUM_USERS, True, torch.bfloat16),
-                                      ("item bf16 device-sorted", NUM_ITEMS, False, torch.bfloat16)):
-        ids = rng.integers(0, n, m)
-        ids[rng.random(m) < 0.05] = n  # dead slots carry the sentinel N
-        ids_t = torch.from_numpy(ids.astype(np.int32)).to(dev)
+    results = {}
+    for name, n, m, order, grad_dtype in (
+            ("user f32 sorted", NUM_USERS, TRAIN_BATCH, "sorted", torch.float32),
+            ("user bf16 sorted", NUM_USERS, TRAIN_BATCH, "sorted", torch.bfloat16),
+            ("item bf16 device-sorted", NUM_ITEMS, TRAIN_BATCH, "device", torch.bfloat16),
+            ("user f32 sorted", NUM_USERS, SOFTMAX_BATCH, "sorted", torch.float32),
+            ("user bf16 sorted", NUM_USERS, SOFTMAX_BATCH, "sorted", torch.bfloat16),
+            ("item f32 device-sorted", NUM_ITEMS, SOFTMAX_BATCH, "device", torch.float32),
+            ("item bf16 device-sorted", NUM_ITEMS, SOFTMAX_BATCH, "device", torch.bfloat16),
+            ("item f32 device-sorted, ids drawn as rank^-1", NUM_ITEMS, SOFTMAX_BATCH, "skewed",
+             torch.float32)):
         perm = None
-        if sort:
-            ids_t = torch.sort(ids_t).values
+        if order == "skewed":
+            ids_t, perm = skewed_item_ids(rng, m, dev)
         else:
-            ids_t, perm = torch.sort(ids_t, stable=True)
-            perm = perm.to(torch.int32)
+            ids = rng.integers(0, n, m)
+            ids[rng.random(m) < 0.05] = n  # dead slots carry the sentinel N
+            ids_t = torch.from_numpy(ids.astype(np.int32)).to(dev)
+            if order == "sorted":
+                ids_t = torch.sort(ids_t).values
+            else:
+                ids_t, perm = torch.sort(ids_t, stable=True)
+                perm = perm.to(torch.int32)
         grads = torch.from_numpy(rng.normal(size=(m, DIM)).astype(np.float32)).to(dev, grad_dtype)
         table = torch.from_numpy(rng.normal(size=(n, DIM)).astype(np.float32)).to(dev)
         acc = torch.from_numpy(np.abs(rng.normal(size=n)).astype(np.float32)).to(dev)
         t_k, a_k, t_p, a_p = table.clone(), acc.clone(), table.clone(), acc.clone()
+        t_2, a_2 = table.clone(), acc.clone()
         rowwise_adagrad(t_k, a_k, ids_t, grads, LR, EPS, perm=perm)
+        rowwise_adagrad(t_2, a_2, ids_t, grads, LR, EPS, perm=perm)
         rowwise_adagrad_reference(t_p, a_p, ids_t, grads, LR, EPS, perm=perm)
         torch.cuda.synchronize()
+        label = f"rowwise_adagrad {name}, {m} ids"
+        if not (bitwise_equal(t_k, t_2) and bitwise_equal(a_k, a_2)):
+            raise AssertionError(f"{label}: two launches on the same inputs differ")
+        del t_2, a_2
         live = torch.zeros(n, dtype=torch.bool, device=dev)
         live[ids_t[ids_t < n].long()] = True
-        if not (torch.equal(t_k[~live].view(torch.int32), table[~live].view(torch.int32))
-                and torch.equal(a_k[~live].view(torch.int32), acc[~live].view(torch.int32))):
-            raise AssertionError(f"{name}: rows no live id names changed")
+        if not (bitwise_equal(t_k[~live], table[~live]) and bitwise_equal(a_k[~live], acc[~live])):
+            raise AssertionError(f"{label}: rows no live id names changed")
         torch.testing.assert_close(t_k, t_p, rtol=1e-5, atol=1e-6)
         torch.testing.assert_close(a_k, a_p, rtol=1e-5, atol=1e-6)
         err = max((t_k - t_p).abs().max().item(), (a_k - a_p).abs().max().item())
         ms = median_ms(lambda: rowwise_adagrad(t_k, a_k, ids_t, grads, LR, EPS, perm=perm), flush)
         plain_ms = median_ms(
             lambda: rowwise_adagrad_reference(t_p, a_p, ids_t, grads, LR, EPS, perm=perm), flush)
-        log(f"[kernel] rowwise_adagrad {name}: {m} ids into [{n}, {DIM}], {int(live.sum())} rows "
-            f"touched; untouched rows bitwise, the rest within rtol 1e-5; max_abs_err={err!r}, "
-            f"kernel_ms={ms!r}, plain_ms={plain_ms!r}")
-        # grads and ids read once, each touched row and accumulator read and written
         touched = int(live.sum())
-        b = bound(m * DIM * grads.element_size() + m * 4 + touched * (DIM + 1) * 4 * 2,
-                  4 * m * DIM, PEAK_F32)
-        results.append((name, err, ms, plain_ms, b))
-    main = results[1]  # the user table in bf16: the flagship step's sorted update
-    log(f"[kernel] rowwise_adagrad {main[0]}: bound_ms={main[4]['bound_ms']!r} by "
-        f"{main[4]['bound_by']}; no single PyTorch call computes it")
-    return {"max_abs_err": max(r[1] for r in results), "ms": main[2], "plain_ms": main[3],
-            **main[4], "library_ms": None}
+        # grads, ids (and the permutation) read once, each touched row and accumulator read and
+        # written
+        b = bound(m * DIM * grads.element_size() + m * (4 if perm is None else 8)
+                  + touched * (DIM + 1) * 4 * 2, 4 * m * DIM, PEAK_F32)
+        log(f"[kernel] {label} into f32 [{n}, {DIM}], {touched} rows touched, longest run "
+            f"{longest_run(ids_t, n)}; untouched rows bitwise, the rest within rtol 1e-5, two "
+            f"launches bit for bit equal; max_abs_err={err!r}, kernel_ms={ms!r}, "
+            f"plain_ms={plain_ms!r}, bound_ms={b['bound_ms']!r} by {b['bound_by']}")
+        results[(name, m)] = (err, ms, plain_ms, b)
+    main = ("user bf16 sorted", TRAIN_BATCH)  # the flagship step's sorted update
+    err, ms, plain_ms, b = results[main]
+    log(f"[kernel] rowwise_adagrad {main[0]}, {main[1]} ids: bound_ms={b['bound_ms']!r} by "
+        f"{b['bound_by']}; no single PyTorch call computes it")
+    return {"max_abs_err": max(r[0] for r in results.values()), "ms": ms, "plain_ms": plain_ms,
+            **b, "library_ms": None}
 
 
 def phase_adagrad_bf16_table(dev: torch.device) -> None:
@@ -638,37 +669,107 @@ def longest_run(sorted_ids: torch.Tensor, n: int) -> int:
     return int(torch.unique_consecutive(live, return_counts=True)[1].max().item())
 
 
-def skewed_rowwise_adagrad(dev, ids_t, perm, grads, flush) -> None:
-    """Kernel #4 on the skewed ids against an f32 item table, a measurement:
-    it walks a run on one warp, as #6 did before it took the run in pieces.
-    Untouched rows bitwise, the rest within rtol 1e-5."""
+def skewed_rowwise_adagrad(dev, ids_t, perm, grads, flush) -> float:
+    """Kernel #4 on the skewed ids against an f32 item table: untouched rows
+    bitwise, the rest within rtol 1e-5, two launches bit for bit equal (the
+    hot ids' pieces are added in one order). Returns the max abs error."""
     rng = np.random.default_rng(9)
     table = torch.from_numpy(rng.normal(size=(NUM_ITEMS, DIM)).astype(np.float32)).to(dev)
     acc = torch.from_numpy(np.abs(rng.normal(size=NUM_ITEMS)).astype(np.float32)).to(dev)
     t_k, a_k, t_p, a_p = table.clone(), acc.clone(), table.clone(), acc.clone()
+    t_2, a_2 = table.clone(), acc.clone()
     rowwise_adagrad(t_k, a_k, ids_t, grads, LR, EPS, perm=perm)
+    rowwise_adagrad(t_2, a_2, ids_t, grads, LR, EPS, perm=perm)
     rowwise_adagrad_reference(t_p, a_p, ids_t, grads, LR, EPS, perm=perm)
     torch.cuda.synchronize()
+    if not (bitwise_equal(t_k, t_2) and bitwise_equal(a_k, a_2)):
+        raise AssertionError("rowwise_adagrad skewed: two launches on the same inputs differ")
+    del t_2, a_2
     live = torch.zeros(NUM_ITEMS, dtype=torch.bool, device=dev)
     live[ids_t[ids_t < NUM_ITEMS].long()] = True
     if not (bitwise_equal(t_k[~live], table[~live]) and bitwise_equal(a_k[~live], acc[~live])):
         raise AssertionError("rowwise_adagrad skewed: rows no live id names changed")
     torch.testing.assert_close(t_k, t_p, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(a_k, a_p, rtol=1e-5, atol=1e-6)
+    err = max((t_k - t_p).abs().max().item(), (a_k - a_p).abs().max().item())
     ms = median_ms(lambda: rowwise_adagrad(t_k, a_k, ids_t, grads, LR, EPS, perm=perm), flush)
+    plain_ms = median_ms(
+        lambda: rowwise_adagrad_reference(t_p, a_p, ids_t, grads, LR, EPS, perm=perm), flush)
     m, touched = ids_t.shape[0], int(live.sum())
+    # grads, ids and the permutation read once, each touched row and accumulator read and written
     b = bound(m * DIM * grads.element_size() + m * 8 + touched * (DIM + 1) * 4 * 2, 4 * m * DIM,
               PEAK_F32)
-    log(f"[kernel] rowwise_adagrad {SKEWED} (a measurement): {m} ids into f32 [{NUM_ITEMS}, "
-        f"{DIM}], {touched} rows touched, longest run {longest_run(ids_t, NUM_ITEMS)}; untouched "
-        f"rows bitwise, the rest within rtol 1e-5; kernel_ms={ms!r}, bound_ms={b['bound_ms']!r} "
-        f"by {b['bound_by']}")
+    log(f"[kernel] rowwise_adagrad {SKEWED}: {m} ids into f32 [{NUM_ITEMS}, {DIM}], {touched} "
+        f"rows touched, longest run {longest_run(ids_t, NUM_ITEMS)}; untouched rows bitwise, the "
+        f"rest within rtol 1e-5, two launches bit for bit equal; max_abs_err={err!r}, "
+        f"kernel_ms={ms!r}, plain_ms={plain_ms!r}, bound_ms={b['bound_ms']!r} by "
+        f"{b['bound_by']}; no single PyTorch call computes it")
+    return err
+
+
+def skewed_aggregate(dev, ids_t, perm, grads, flush) -> float:
+    """Kernel #3 on the skewed ids, their gradients in sorted order (as the
+    aggregate takes them): rows without ids exact zero, two launches bit for
+    bit equal, and each element within 1e-5 x the sum of the magnitudes added
+    into it of an f64 sum of the same terms and of the plain version's. That
+    is the f32 summation order's bound: the plain version adds a hot id's
+    21,842 terms in the order its atomics land, and an element of such a row
+    that cancels to a few units differs between two of its own launches by
+    more than 1e-5 of itself; the f64 sum is the fixed yardstick. Each
+    version's distance from it is printed. Returns the max abs error against
+    the plain version."""
+    sg = grads[perm.long()]
+    got = block_sorted_aggregate(NUM_ITEMS, ids_t, sg)
+    again = block_sorted_aggregate(NUM_ITEMS, ids_t, sg)
+    want = block_sorted_aggregate_reference(NUM_ITEMS, ids_t, sg)
+    torch.cuda.synchronize()
+    if not bitwise_equal(got, again):
+        raise AssertionError("block_sorted_aggregate skewed: two launches on the same inputs "
+                             "differ")
+    del again
+    live_ids = ids_t < NUM_ITEMS
+    ids64, grads32 = ids_t[live_ids].long(), sg[live_ids].float()
+    named = torch.zeros(NUM_ITEMS, dtype=torch.bool, device=dev)
+    named[ids64] = True
+    if torch.count_nonzero(got[~named]).item() != 0:
+        raise AssertionError("block_sorted_aggregate skewed: a row without ids is not exact zero")
+    magnitude = torch.zeros((NUM_ITEMS, DIM), device=dev).index_add_(0, ids64, grads32.abs())
+    exact = torch.zeros((NUM_ITEMS, DIM), dtype=torch.float64, device=dev).index_add_(
+        0, ids64, grads32.double())
+    for other, what in ((exact, "an f64 sum"), (want, "the plain version")):
+        over = ((got.double() - other).abs() - 1e-5 * magnitude.double()).max().item()
+        if over > 0:
+            raise AssertionError(f"block_sorted_aggregate skewed: an element differs from {what} "
+                                 f"by {over!r} more than 1e-5 x its sum of magnitudes")
+    err = (got - want).abs().max().item()
+    off_exact = {"kernel": (got.double() - exact).abs().max().item(),
+                 "plain": (want.double() - exact).abs().max().item()}
+    del exact
+
+    def aggregate_library():  # on ids and gradients prepared for it (int64, f32, live only)
+        return torch.zeros((NUM_ITEMS, DIM), device=dev).index_add_(0, ids64, grads32)
+
+    ms = median_ms(lambda: block_sorted_aggregate(NUM_ITEMS, ids_t, sg), flush)
+    plain_ms = median_ms(lambda: block_sorted_aggregate_reference(NUM_ITEMS, ids_t, sg), flush)
+    library_ms = median_ms(aggregate_library, flush)
+    m = ids_t.shape[0]
+    b = bound(m * DIM * sg.element_size() + m * 4 + NUM_ITEMS * DIM * 4, m * DIM, PEAK_F32)
+    log(f"[kernel] block_sorted_aggregate {SKEWED}: {m} ids into f32 [{NUM_ITEMS}, {DIM}] "
+        f"(zeroed by the wrapper, timed with it), {int(named.sum())} rows named, longest run "
+        f"{longest_run(ids_t, NUM_ITEMS)}; rows without ids exact zero, each element within "
+        f"1e-5 x its sum of magnitudes of an f64 sum and of the plain version, two launches bit "
+        f"for bit equal; max_abs_err={err!r}, "
+        f"max abs diff from an f64 sum "
+        f"{off_exact!r}; kernel_ms={ms!r}, plain_ms={plain_ms!r}, bound_ms={b['bound_ms']!r} by "
+        f"{b['bound_by']}, library_ms={library_ms!r} (zeros.index_add_ on int64 ids and f32 "
+        "gradients)")
+    return err
 
 
 def phase_int8_kernels(dev: torch.device) -> dict[str, dict]:
     """Kernels #5, #6, #3 and #7 against their plain versions at the int8
-    train step's shapes (and #5 at the serving lookup's); #6 also on item
-    ids drawn as rank^-1 (and #4 timed on those)."""
+    train step's shapes (and #5 at the serving lookup's); #6, #4 and #3 also
+    on item ids drawn as rank^-1."""
     rng = np.random.default_rng(4)
     gen = torch.Generator(device=dev).manual_seed(4)
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
@@ -796,7 +897,8 @@ def phase_int8_kernels(dev: torch.device) -> dict[str, dict]:
         if name == "user bf16 sorted":
             user_sorted = (ids_t, grads, live)
         if name == SKEWED:
-            skewed_rowwise_adagrad(dev, ids_t, perm, grads, flush)
+            skewed_errs = (skewed_rowwise_adagrad(dev, ids_t, perm, grads, flush),
+                           skewed_aggregate(dev, ids_t, perm, grads, flush))
     stats["quantized_rowwise_adagrad"] = {  # the step's sorted update: user table, bf16
         **results[1], "max_abs_err": max(r["max_abs_err"] for r in results)}
 
@@ -824,8 +926,9 @@ def phase_int8_kernels(dev: torch.device) -> dict[str, dict]:
         f"rtol 1e-5; max_abs_err={err!r}, kernel_ms={ms!r}, plain_ms={plain_ms!r}, "
         f"bound_ms={b_['bound_ms']!r} by {b_['bound_by']}, library_ms={library_ms!r} "
         "(zeros.index_add_ on int64 ids and f32 gradients)")
-    stats["block_sorted_aggregate"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b_,
-                                       "library_ms": library_ms}
+    stats["block_sorted_aggregate"] = {"max_abs_err": max(err, skewed_errs[1]), "ms": ms,
+                                       "plain_ms": plain_ms, **b_, "library_ms": library_ms}
+    stats["rowwise_adagrad on skewed ids"] = {"max_abs_err": skewed_errs[0]}
 
     # --- #7: the row subtract on that batch's distinct ids --------------------------
     rows = torch.unique(ids_t)  # distinct, the sentinel N among them
@@ -1403,13 +1506,16 @@ def stack_on_card(batches: list):
 
 
 def phase_train_graph(dev: torch.device, name: str, cfg, tcfg, pool: list, want: dict,
-                      profile: bool, marker: str = "pooled_gather") -> dict[str, int]:
+                      profile: bool, marker: str = "pooled_gather",
+                      tag: str = "[train-graph]") -> dict[str, int]:
     """K = 16 train steps as one CUDA graph (`make_multi_step`) against eager
     steps, from two copies of one fresh state. The first multi-step call
     (warm-up on a copy, capture, first replay) is the main path and is
     counted: a replay launches nothing from Python, so the count is the
-    warm-up's and the capture's launches."""
-    tag, k = f"[train-graph] {name}:", GRAPH_K
+    warm-up's and the capture's launches. Under --profile, a replay's device
+    time and #4's device ms a step."""
+    label = f"{tag[1:-1]} {name}"  # the profile's
+    tag, k = f"{tag} {name}:", GRAPH_K
     batch_size = pool[0].batch_size
     base, dense_opt = step_lib.create_train_state(torch.Generator(device=dev).manual_seed(0),
                                                   cfg, tcfg)
@@ -1509,10 +1615,23 @@ def phase_train_graph(dev: torch.device, name: str, cfg, tcfg, pool: list, want:
         f"graph={peak_graph / 1e9!r} (both states resident in both)")
     if profile:
         stacked = stack_on_card(macro(0))
-        log_clocks(f"[profile] train-graph {name}", lambda: multi(graphed, stacked), SAMPLED_MACROS)
-        profile_direct(lambda: multi(graphed, stacked), f"train-graph {name}, replay of {k} steps",
-                       2 * k, calls=3, marker=marker)
+        log_clocks(f"[profile] {label}", lambda: multi(graphed, stacked), SAMPLED_MACROS)
+        device_ms = profile_direct(lambda: multi(graphed, stacked), f"{label}, replay of {k} steps",
+                                   2 * k, calls=3, marker=marker)
+        adagrad = [v for name, v in device_ms.items() if is_rowwise_adagrad(name)]
+        log(f"{tag} rowwise_adagrad device ms a replayed step: " + (
+            f"{sum(v[0] for v in adagrad) / k!r} in {sum(v[1] for v in adagrad) / k!r} launches "
+            "(all passes, all tables)" if adagrad else "none in the trace"))
     return launches
+
+
+def is_rowwise_adagrad(kernel_name: str) -> bool:
+    """Whether a traced kernel is #4's: either pass of the span walk with the
+    `AdagradUpdate` epilogue (#3 and #6 run the same templates with their own
+    epilogues), or `rowwise_adagrad_kernel`, the one-pass kernel that
+    csrc/rowwise_adagrad.cu held before it moved onto the walk (so a run of
+    this script over that code reads the same number)."""
+    return "AdagradUpdate" in kernel_name or "rowwise_adagrad_kernel" in kernel_name
 
 
 SMI_CLOCKS = ["nvidia-smi", "--query-gpu=clocks.sm,clocks_throttle_reasons.active",
@@ -1552,10 +1671,7 @@ def phase_train_graphs(dev: torch.device, profile: bool, pool: list) -> dict[str
     in bf16 compute with f32, int8 and bf16 tables (the flagship pool; bf16
     tables take no block kernel), and the sampled softmax at batch 8,192 in
     f32 and in bf16 compute."""
-    bce = cfg_lib.two_tower_model_config(NUM_USERS, NUM_ITEMS, embedding_dim=DIM,
-                                         layer_sizes=LAYERS, compute_dtype="bfloat16")
-    bce_tcfg = cfg_lib.TrainConfig(batch_size=TRAIN_BATCH, sorted_feature="user_id",
-                                   block_sorted_kernel="bfloat16", loss="bce")
+    bce, bce_tcfg = flagship_bce()
     paths = {
         "train-graph": phase_train_graph(dev, "BCE, f32 tables, bf16 compute", bce, bce_tcfg,
                                          pool, BCE_F32, profile),
@@ -1564,7 +1680,8 @@ def phase_train_graphs(dev: torch.device, profile: bool, pool: list) -> dict[str
             bce_tcfg, pool, BCE_INT8, profile, marker="quantized_gather"),
         "train-graph-bf16tab": phase_train_graph(
             dev, "BCE, bf16 tables, bf16 compute", dataclasses.replace(bce, table_dtype="bfloat16"),
-            dataclasses.replace(bce_tcfg, block_sorted_kernel="off"), pool, BCE_F32, profile),
+            dataclasses.replace(bce_tcfg, block_sorted_kernel="off"), pool, BCE_F32,
+            profile),
     }
     soft = cfg_lib.two_tower_model_config(NUM_USERS, NUM_ITEMS, embedding_dim=DIM,
                                           layer_sizes=LAYERS)
@@ -1583,6 +1700,50 @@ def phase_train_graphs(dev: torch.device, profile: bool, pool: list) -> dict[str
         dataclasses.replace(soft, compute_dtype="bfloat16"), soft_tcfg, soft_pool,
         {**SOFTMAX_F32, "tower_bwd": 2}, profile)
     return paths
+
+
+def flagship_bce():
+    """The flagship BCE training configuration: bf16 compute, f32 tables,
+    batch 262,144 sorted by user id, the block kernels in bf16."""
+    cfg = cfg_lib.two_tower_model_config(NUM_USERS, NUM_ITEMS, embedding_dim=DIM,
+                                         layer_sizes=LAYERS, compute_dtype="bfloat16")
+    tcfg = cfg_lib.TrainConfig(batch_size=TRAIN_BATCH, sorted_feature="user_id",
+                               block_sorted_kernel="bfloat16", loss="bce")
+    return cfg, tcfg
+
+
+def phase_train_skew(dev: torch.device, profile: bool) -> dict[str, int]:
+    """`[train-skew]`: the flagship BCE step (f32 tables, bf16 compute) on a
+    heavy-tailed catalogue: items drawn as rank^-1
+    (`SyntheticClickstream(popularity=1.0)`), so each batch holds item runs of
+    thousands of positions, which the item table's update (#4, through the
+    device sort) takes in pieces. `phase_train_graph`'s K = 16 graph against
+    eager steps over GRAPH_POOL such batches; then, as `[train]` checks its
+    state, a fresh state's WARMUP_STEPS + TRAIN_STEPS eager steps over the
+    same batches and one more step against the host CPU; under --profile,
+    #4's device ms a replayed step."""
+    cfg, tcfg = flagship_bce()
+    feat = PackedFeaturizer(cfg, pack_label=True, sort_feature="user_id")
+    ds = SyntheticClickstream(NUM_USERS - 1, NUM_ITEMS - 1, seed=0, popularity=1.0)
+    t0 = time.perf_counter()
+    pool, longest = [], []
+    for cols in ds.batches(TRAIN_BATCH, GRAPH_POOL, split="train"):
+        longest.append(int(np.unique(cols["product_id"], return_counts=True)[1].max()))
+        pool.append(map_leaves(feat(cols), lambda t: t.to(dev)))
+    log(f"[train-skew] {GRAPH_POOL} batches of {TRAIN_BATCH}, items drawn as rank^-1, sampled, "
+        f"packed and on the card in {time.perf_counter() - t0!r} s; longest item run of each "
+        f"batch: {longest}")
+    launches = phase_train_graph(dev, "BCE, f32 tables, bf16 compute, rank^-1 items", cfg, tcfg,
+                                 pool, BCE_F32, profile, tag="[train-skew]")
+    state, dense_opt = step_lib.create_train_state(torch.Generator(device=dev).manual_seed(0),
+                                                   cfg, tcfg)
+    train_step = make_packed_train_step(step_lib.make_train_step(cfg, tcfg, dense_opt), cfg,
+                                        pack_label=True)
+    state, _, _ = timed_steps(train_step, state, pool, 0, WARMUP_STEPS + TRAIN_STEPS)
+    # "auto" is on, on the card
+    check_against_host("[train-skew]", state, dataclasses.replace(cfg, fused_tower_backward="on"),
+                       tcfg, dense_opt, train_step, pool[0])
+    return launches
 
 
 def phase_learn_packed(dev: torch.device) -> dict[str, int]:
@@ -2183,7 +2344,7 @@ def timed_direct(fn, label: str) -> None:
 
 
 def profile_direct(fn, label: str, gathers_per_call: int, calls: int = 10,
-                   marker: str = "pooled_gather") -> None:
+                   marker: str = "pooled_gather") -> dict[str, list]:
     """Where a direct call's time goes on the card: `torch.profiler` traces
     the device alone over `calls` calls, after 3 traced warm-up calls that it
     discards (tracing starts late, so without them the first calls' events
@@ -2194,7 +2355,9 @@ def profile_direct(fn, label: str, gathers_per_call: int, calls: int = 10,
     is thrown away and the calls traced again, up to `TRACE_TRIES` times.
     Busy time is the union of the device events' intervals (kernels, copies,
     memsets), so nothing is counted twice; the idle share is 1 - busy / wall,
-    where wall is the host's clock over the same calls."""
+    where wall is the host's clock over the same calls. Returns, by each
+    device item's full name (kernels that share a template differ only in
+    its arguments), [device ms, launches] per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -2226,7 +2389,7 @@ def profile_direct(fn, label: str, gathers_per_call: int, calls: int = 10,
         if start > hi:
             busy, lo = busy + hi - lo, start
         hi = max(hi, end)
-        item = by_name.setdefault(name[:70], [0.0, 0])
+        item = by_name.setdefault(name, [0.0, 0])
         item[0] += (end - start) / 1e3 / calls
         item[1] += 1
     busy = (busy + hi - lo) / 1e3 / calls
@@ -2234,7 +2397,8 @@ def profile_direct(fn, label: str, gathers_per_call: int, calls: int = 10,
         f"idle_share={1 - busy / wall!r} device_items={len(spans) / calls!r} "
         f"(per call, {calls} calls)")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
-        log(f"[profile]   {ms!r} ms in {n / calls!r} launches: {name}")
+        log(f"[profile]   {ms!r} ms in {n / calls!r} launches: {name[:160]}")
+    return {name: [ms, n / calls] for name, (ms, n) in by_name.items()}
 
 
 @torch.no_grad()
@@ -2447,6 +2611,9 @@ def main() -> int:
     stats = {"pooled_gather": phase_kernel(dev), "rowwise_adagrad": phase_adagrad_kernel(dev),
              "tower_bwd": phase_tower_kernel(dev), **phase_softmax_kernel(dev),
              **phase_int8_kernels(dev), **phase_probe_kernels(dev)}
+    stats["rowwise_adagrad"]["max_abs_err"] = max(
+        stats["rowwise_adagrad"]["max_abs_err"],
+        stats.pop("rowwise_adagrad on skewed ids")["max_abs_err"])
     phase_adagrad_bf16_table(dev)
     serve = phase_serve(dev, args.profile)
     batches = flagship_batches(dev)
@@ -2463,6 +2630,7 @@ def main() -> int:
     paths["learn-int8"] = phase_learn(dev, "int8")
     paths["probe"] = phase_probe(dev)
     paths.update(phase_train_graphs(dev, args.profile, batches[0]))
+    paths["train-skew"] = phase_train_skew(dev, args.profile)
     paths["learn-packed"] = phase_learn_packed(dev)
     paths["train-bf16tab"], bf16_state, bf16_cfg = phase_train_bf16tab(dev, batches)
     paths["learn-bf16tab"] = phase_learn(dev, "bfloat16")

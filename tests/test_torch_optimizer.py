@@ -12,13 +12,18 @@ import optax
 import pytest
 import torch
 
-from two_tower_recommender_model_tpu.ops.block_sorted import block_sorted_rowwise_adagrad_fused
+from two_tower_recommender_model_tpu.ops.block_sorted import (
+    block_sorted_aggregate,
+    block_sorted_rowwise_adagrad_fused,
+)
 from two_tower_recommender_model_tpu.train import optimizer as jax_opt
 from two_tower_recommender_model_tpu_torch.ops.adagrad_kernel import (
+    block_sorted_aggregate_reference,
     rowwise_adagrad,
     rowwise_adagrad_reference,
 )
 from two_tower_recommender_model_tpu_torch.train import optimizer as port_opt
+from torch_sorted_runs import RUN_CASES, run_case_ids, span_order_sums
 
 N, D, M, LR, EPS = 1000, 128, 1024, 0.05, 1e-10
 F32 = dict(rtol=1e-5, atol=1e-6)
@@ -67,6 +72,84 @@ def test_plain_version_matches_pallas_kernel(grad_dtype):
     np.testing.assert_allclose(got_a, np.asarray(want_a), **F32)
     _untouched_bitwise(ids, table, acc, got_t, got_a)
     _untouched_bitwise(ids, table, acc, np.asarray(want_t), np.asarray(want_a))
+
+
+def _hot_run_case(seed, bf16=False):
+    """M = 2048 sorted ids into N = 1000 rows: one id on 700 positions (22
+    spans of the kernels' walk, far past a warp's 64-position window), short
+    runs and 150 sentinels; grads, table, accumulator."""
+    rng = np.random.default_rng(seed)
+    m = 2048
+    ids = np.concatenate([np.full(700, 417), rng.integers(0, N, m - 850), np.full(150, N)])
+    ids = np.sort(ids).astype(np.int32)
+    grads = rng.normal(size=(m, D)).astype(np.float32)
+    if bf16:  # values a bf16 gradient can hold
+        grads = np.array(jnp.asarray(grads).astype(jnp.bfloat16).astype(jnp.float32))
+    table = rng.normal(size=(N, D)).astype(np.float32)
+    acc = np.abs(rng.normal(size=N)).astype(np.float32)
+    return ids, grads, table, acc
+
+
+@pytest.mark.parametrize("grad_dtype", ["float32", "bfloat16"])
+def test_hot_run_matches_pallas_kernel(grad_dtype):
+    """The hot run against the Pallas kernel in interpret mode: the plain
+    version, and the update from the sums in the span walk's order (the
+    order of kernel #4 on the card: 32-position pieces, added in order)."""
+    ids, grads, table, acc = _hot_run_case(11, bf16=grad_dtype == "bfloat16")
+    want_t, want_a = block_sorted_rowwise_adagrad_fused(
+        jnp.asarray(table), jnp.asarray(acc), jnp.asarray(ids), jnp.asarray(grads), LR, EPS,
+        matmul_dtype=grad_dtype, interpret=True)
+    want_t, want_a = np.asarray(want_t), np.asarray(want_a)
+    got_t, got_a = _port_update(rowwise_adagrad_reference, ids, grads, table, acc,
+                                getattr(torch, grad_dtype))
+    rows, sums = span_order_sums(ids, torch.from_numpy(grads), N)
+    span_t, span_a = torch.from_numpy(table.copy()), torch.from_numpy(acc.copy())
+    new_acc = span_a[rows] + (sums * sums).mean(dim=1)
+    span_t[rows] -= LR * sums / (torch.sqrt(new_acc) + EPS)[:, None]
+    span_a[rows] = new_acc
+    assert (np.bincount(ids[ids < N]) > 64).sum() == 1  # one long run, of ~700
+    for got_t, got_a in ((got_t, got_a), (span_t.numpy(), span_a.numpy())):
+        np.testing.assert_allclose(got_t, want_t, **F32)
+        np.testing.assert_allclose(got_a, want_a, **F32)
+        _untouched_bitwise(ids, table, acc, got_t, got_a)
+
+
+@pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16"])
+def test_hot_run_aggregate_matches_pallas(matmul_dtype):
+    """Kernel #3's function on the hot run: the plain version, and the sums
+    in the span walk's order, against the Pallas kernel in interpret mode;
+    rows without ids exact zeros."""
+    ids, grads, _, _ = _hot_run_case(12, bf16=matmul_dtype == "bfloat16")
+    want = np.asarray(block_sorted_aggregate(N, jnp.asarray(ids), jnp.asarray(grads),
+                                             matmul_dtype=matmul_dtype, interpret=True))
+    got = block_sorted_aggregate_reference(
+        N, torch.from_numpy(ids), torch.from_numpy(grads).to(getattr(torch, matmul_dtype)))
+    rows, sums = span_order_sums(ids, torch.from_numpy(grads), N)
+    span = torch.zeros(N, D)
+    span[rows] = sums
+    named = np.zeros(N, bool)
+    named[ids[ids < N]] = True
+    for out in (got.numpy(), span.numpy()):
+        np.testing.assert_allclose(out, want, **F32)
+        np.testing.assert_array_equal(out[~named], 0.0)
+
+
+@pytest.mark.parametrize("case", list(RUN_CASES))
+def test_span_order_on_run_edges_matches_plain(case):
+    """The span walk's sums (the order of kernels #3, #4 and #6 on the card)
+    at the edges of the walk (runs of 1, 32, 33, 63, 64, 65 and 3,000
+    positions, long runs mid-span, at M and before the sentinels) against
+    the plain aggregate, f32 summation order (rtol 1e-5 / atol 1e-5, the
+    aggregate's tolerance): every live run once, none of the sentinels."""
+    n, ids = run_case_ids(case)
+    grads = torch.from_numpy(np.random.default_rng(len(case)).normal(
+        size=(ids.shape[0], 8)).astype(np.float32))
+    rows, sums = span_order_sums(ids, grads, n)
+    want = block_sorted_aggregate_reference(n, torch.from_numpy(ids), grads)
+    assert rows.tolist() == sorted(set(ids[ids < n].tolist()))
+    got = torch.zeros_like(want)
+    got[rows] = sums
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("sort", [True, False])

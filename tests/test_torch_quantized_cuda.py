@@ -27,6 +27,7 @@ from two_tower_recommender_model_tpu_torch.ops.row_subtract import (
     row_subtract,
     row_subtract_reference,
 )
+from torch_sorted_runs import RUN_CASES, run_case_ids
 
 DIMS = [8, 32, 128, 512]
 # ids of M positions into N rows: name -> (n, m, maker(rng, n, m))
@@ -40,6 +41,9 @@ ID_CASES = {
     # segments) among short runs and sentinels
     "hot-id": (500, 4096, lambda rng, n, m: np.concatenate(
         [np.full(3000, 77), rng.integers(0, n, m - 3100), np.full(100, n)])),
+    # runs at the edges of the span walk (tests/torch_sorted_runs.py), among runs of 3
+    **{name: (run_case_ids(name)[0], 4096, lambda rng, n, m, name=name: run_case_ids(name)[1])
+       for name in RUN_CASES},
 }
 
 

@@ -25,6 +25,7 @@ from two_tower_recommender_model_tpu_torch.ops.quantized_kernel import (
 )
 from two_tower_recommender_model_tpu_torch.ops.row_subtract import row_subtract
 from two_tower_recommender_model_tpu_torch.train import optimizer as port_opt
+from torch_sorted_runs import span_order_sums
 
 R, C, D = 16, 128, 128  # the JAX tests' block rows, chunk and width
 M = 3 * C
@@ -173,55 +174,6 @@ def test_quantized_adagrad_through_a_permutation(grad_dtype):
     assert table.values.dtype == torch.int8
 
 
-def _in_order(rows):
-    """Rows added one after another in f32, from zero: a sequential sum."""
-    total = torch.zeros(rows.shape[1:])
-    for row in rows:
-        total = total + row
-    return total
-
-
-def _segment_order_sums(sids: np.ndarray, g: torch.Tensor, n: int):
-    """(rows, [R, D] sums) of each live run of sorted ids `sids` over the
-    sorted gradient rows `g`, added in the order of kernel #6. Spans are the
-    aligned 32 positions of one warp. A run that ends within the span after
-    its first is summed in position order. A longer run is summed in pieces:
-    its first piece reaches to the end of that next span, then one piece per
-    later span; each piece is its first half (rounded up) and its second half
-    added in order, then added to the first. The T pieces are added in order
-    when T <= 64; else in 8 contiguous shares of ceil(T / 8) pieces, each in
-    order, and the shares in order."""
-    span = kq.SPAN
-    m = len(sids)
-    rows, sums = [], []
-    a = 0
-    while a < m:
-        b = a
-        while b < m and sids[b] == sids[a]:
-            b += 1
-        if 0 <= sids[a] < n:
-            reach = (a // span + 2) * span
-            if b <= reach:
-                total = _in_order(g[a:b])
-            else:
-                bounds = [a] + list(range(reach, b, span)) + [b]
-                pieces = []
-                for lo, hi in zip(bounds[:-1], bounds[1:]):
-                    mid = lo + (hi - lo + 1) // 2
-                    pieces.append(_in_order(g[lo:mid]) + _in_order(g[mid:hi]))
-                pieces = torch.stack(pieces)
-                if len(pieces) <= 64:
-                    total = _in_order(pieces)
-                else:
-                    share = -(-len(pieces) // 8)
-                    total = _in_order(torch.stack([_in_order(pieces[k:k + share])
-                                                   for k in range(0, len(pieces), share)]))
-            rows.append(int(sids[a]))
-            sums.append(total)
-        a = b
-    return torch.tensor(rows, dtype=torch.long), torch.stack(sums)
-
-
 @pytest.mark.parametrize("with_perm", [False, True])
 def test_hot_id_in_segment_order_matches_pallas(with_perm):
     """One id holds 1,103 of 2,048 positions (a run of 34 pieces), among
@@ -247,7 +199,7 @@ def test_hot_id_in_segment_order_matches_pallas(with_perm):
     want_v, want_s, want_a = jbs.block_sorted_rowwise_adagrad_fused_quantized(
         jnp.asarray(values), jnp.asarray(scales), jnp.asarray(acc), jnp.asarray(sids),
         jnp.asarray(g_sorted), lr=0.05, eps=1e-10, r=R, c=512, interpret=True)
-    rows, sums = _segment_order_sums(sids, _t(g_sorted), n)
+    rows, sums = span_order_sums(sids, _t(g_sorted), n)
     assert (np.bincount(sids[sids < n]) > 32 * 33).sum() == 1  # the hot id spans 34 pieces
     v, s, a = _t(values), _t(scales), _t(acc)
     kq.apply_rowwise_update(v, s, a, rows, sums, 0.05, 1e-10)

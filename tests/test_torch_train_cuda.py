@@ -18,6 +18,7 @@ from two_tower_recommender_model_tpu_torch.ops.tower_bwd import (
     tower_backward,
     tower_backward_reference,
 )
+from torch_sorted_runs import RUN_CASES, run_case_ids
 
 
 @pytest.fixture
@@ -103,6 +104,60 @@ def test_rowwise_adagrad_bf16_table_matches_plain(dev, d, grad_dtype, with_perm)
     assert ((got - want).abs() <= 2.0 ** -7 * torch.maximum(got.abs(), want.abs()) + 1e-6).all()
     assert (got != want).float().mean().item() < 0.01
     torch.testing.assert_close(a_k, a_p, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RUN_CASES))
+@pytest.mark.parametrize("d", [128, 12])
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_perm", [False, True])
+def test_rowwise_adagrad_run_lengths(dev, case, d, table_dtype, grad_dtype, with_perm):
+    """Runs at the edges of the kernel's span walk (1, 32, 33, 63, 64, 65 and
+    3,000 positions, long runs that start mid-span, end at M or meet the
+    sentinels) among runs of 3: untouched rows bitwise, the rest within the
+    plain version's bounds (an f32 table rtol 1e-5 / atol 1e-6; a bf16
+    table's touched rows changed, each value within 2^-7 of the larger
+    magnitude of the two (at most two bf16 ulps; atol 1e-6), fewer than 1%
+    of them apart; accumulators rtol 1e-5), and two launches bit for bit
+    equal (every sum, the long runs' pieces too, has one order). D = 12
+    takes the 8-byte bf16 loads."""
+    n, ids = run_case_ids(case)
+    m = ids.shape[0]
+    rng = np.random.default_rng(m + d)
+    grads = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32)).to(dev, grad_dtype)
+    perm = None
+    if with_perm:  # the device sort's order: the gradients arrive shuffled
+        shuffle = rng.permutation(m)
+        perm = torch.from_numpy(shuffle.astype(np.int32)).to(dev)
+        grads = grads[torch.from_numpy(np.argsort(shuffle)).to(dev)].contiguous()
+    ids = torch.from_numpy(ids.astype(np.int32)).to(dev)
+    table = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(dev, table_dtype)
+    acc = torch.from_numpy(np.abs(rng.normal(size=n)).astype(np.float32)).to(dev)
+    t_k, a_k, t_p, a_p = table.clone(), acc.clone(), table.clone(), acc.clone()
+    t_2, a_2 = table.clone(), acc.clone()
+    before = rowwise_adagrad.launches
+    rowwise_adagrad(t_k, a_k, ids, grads, 0.05, 1e-10, perm=perm)
+    rowwise_adagrad(t_2, a_2, ids, grads, 0.05, 1e-10, perm=perm)
+    rowwise_adagrad_reference(t_p, a_p, ids, grads, 0.05, 1e-10, perm=perm)
+    torch.cuda.synchronize()
+    assert rowwise_adagrad.launches == before + 2
+    bits = torch.int32 if table_dtype == torch.float32 else torch.int16
+    assert torch.equal(t_k.view(bits), t_2.view(bits))
+    assert torch.equal(a_k.view(torch.int32), a_2.view(torch.int32))
+    live = torch.zeros(n, dtype=torch.bool, device=dev)
+    live[ids[ids < n].long()] = True
+    assert torch.equal(t_k[~live].view(bits), table[~live].view(bits))
+    assert torch.equal(a_k[~live].view(torch.int32), acc[~live].view(torch.int32))
+    torch.testing.assert_close(a_k, a_p, rtol=1e-5, atol=1e-6)
+    if table_dtype == torch.float32:
+        torch.testing.assert_close(t_k, t_p, rtol=1e-5, atol=1e-6)
+    else:
+        got, want = t_k[live].float(), t_p[live].float()
+        assert not torch.equal(got, table[live].float())
+        assert ((got - want).abs() <= 2.0 ** -7 * torch.maximum(got.abs(), want.abs())
+                + 1e-6).all()
+        assert (got != want).float().mean().item() < 0.01
 
 
 TOWER_TILE = {torch.bfloat16: 64, torch.float32: 32}  # rows per tile of kernel #8

@@ -20,17 +20,22 @@ permuted copy of the gradients.
 
 `rowwise_adagrad` launches the hand-written kernel of
 `csrc/rowwise_adagrad.cu` on CUDA tensors, whose ids MUST be non-decreasing
-(the kernel gives each run of equal ids to one warp; unsorted ids would race),
+(the kernel gives each run of equal ids one owner; unsorted ids would race),
 and takes `rowwise_adagrad_reference` only for tensors that lie on the CPU. It
 counts its kernel launches in `rowwise_adagrad.launches`.
 
 `block_sorted_aggregate` is the port of the Pallas TPU kernel
 `ops/block_sorted.py:block_sorted_aggregate` (`_aggregate_kernel`): the dense
 `[N, D]` f32 sum of `grads[j]` over `ids[j] == r`, exact zeros for rows no
-live id names. Its kernel lives in the same source and shares the run
-detection and the sum with the Adagrad kernel (`csrc/sorted_runs.cuh`); the
-same rules hold (sorted ids on CUDA tensors, the plain version only on the
-CPU, launches counted in `block_sorted_aggregate.launches`).
+live id names. Its kernel lives in the same source; the same rules hold
+(sorted ids on CUDA tensors, the plain version only on the CPU, launches
+counted in `block_sorted_aggregate.launches`).
+
+Both kernels (and the int8 one of `quantized_kernel.py`) walk the sorted ids
+in spans of `SPAN` positions (`csrc/sorted_runs.cuh`): a run longer than a
+warp's window is summed in pieces by many warps and finished by a second
+pass, which needs the scratch of `span_scratch`. A wrapper call launches both
+passes and counts one launch.
 """
 
 from __future__ import annotations
@@ -42,7 +47,18 @@ import torch
 from two_tower_recommender_model_tpu_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_DIM = 512  # the kernel keeps a row's gradient in registers, 4 columns x 4 chunks a lane
+MAX_DIM = 512  # the kernels keep a row's gradient in registers, across 16 lanes
+SPAN = 32  # sorted positions per warp of the span walk (`kSpan` in csrc/sorted_runs.cuh)
+
+
+def span_scratch(m: int, d: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The span walk's scratch for M sorted ids of D columns: two slots a
+    span (a long run's first piece, a later one), `[slots, D]` f32 rows and
+    `[slots]` int32 ids. Allocated on the current stream, so a CUDA graph
+    captures it; the kernels write every slot they read."""
+    slots = 2 * -(-m // SPAN)
+    return (torch.empty((slots, d), dtype=torch.float32, device=device),
+            torch.empty(slots, dtype=torch.int32, device=device))
 
 
 def _check(table, acc, ids, grads, perm) -> None:
@@ -95,18 +111,19 @@ def rowwise_adagrad_reference(table: torch.Tensor, acc: torch.Tensor, ids: torch
 
 
 class RowwiseAdagrad(_build.KernelLibrary):
-    """The row-wise Adagrad wrapper: checks its inputs and launches the CUDA
-    kernel on the current stream (no sync, nothing allocated).
+    """The row-wise Adagrad wrapper: checks its inputs, allocates the span
+    walk's scratch and launches the CUDA kernel's two passes on the current
+    stream (no sync).
 
-    The library builds at the first launch (`load`). `launches` counts kernel
-    launches and nothing else: a CPU call takes `rowwise_adagrad_reference`
-    and does not count."""
+    The library builds at the first launch (`load`). `launches` counts calls
+    that launch the kernel and nothing else: a CPU call takes
+    `rowwise_adagrad_reference` and does not count."""
 
     def __init__(self):
         super().__init__("rowwise_adagrad", "ttrm_rowwise_adagrad", [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_float, ctypes.c_float])
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_float])
 
     def __call__(self, table: torch.Tensor, acc: torch.Tensor, ids: torch.Tensor,
                  grads: torch.Tensor, lr: float, eps: float = 1e-10,
@@ -125,9 +142,13 @@ class RowwiseAdagrad(_build.KernelLibrary):
         if table.data_ptr() % table_align or grads.data_ptr() % grad_align:
             raise ValueError(f"the CUDA kernel needs a {table_align}-byte aligned table and "
                              f"{grad_align}-byte aligned grads")
-        self.launch(table.device, table.data_ptr(), _DTYPE_CODES[table.dtype], acc.data_ptr(),
-                    ids.data_ptr(), grads.data_ptr(), _DTYPE_CODES[grads.dtype],
-                    None if perm is None else perm.data_ptr(), n, d, ids.shape[0], lr, eps)
+        m = ids.shape[0]
+        if n and m:
+            part, part_id = span_scratch(m, d, table.device)
+            self.launch(table.device, table.data_ptr(), _DTYPE_CODES[table.dtype],
+                        acc.data_ptr(), ids.data_ptr(), grads.data_ptr(),
+                        _DTYPE_CODES[grads.dtype], None if perm is None else perm.data_ptr(),
+                        part.data_ptr(), part_id.data_ptr(), part.shape[0], n, d, m, lr, eps)
         return table, acc
 
 
@@ -146,13 +167,15 @@ def block_sorted_aggregate_reference(table_rows: int, sids: torch.Tensor,
 
 class BlockSortedAggregate(_build.KernelLibrary):
     """The dense-aggregate wrapper: checks its inputs, allocates the zeroed
-    `[N, D]` f32 output and launches the CUDA kernel on the current stream (no
-    sync). `launches` counts kernel launches and nothing else."""
+    `[N, D]` f32 output and the span walk's scratch and launches the CUDA
+    kernel's two passes on the current stream (no sync). `launches` counts
+    calls that launch the kernel and nothing else."""
 
     def __init__(self):
         super().__init__("block_sorted_aggregate", "ttrm_sorted_aggregate", [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64], source="rowwise_adagrad.cu")
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64],
+            source="rowwise_adagrad.cu")
 
     def __call__(self, table_rows: int, sids: torch.Tensor, grads: torch.Tensor) -> torch.Tensor:
         """`[table_rows, D]` f32: each run of equal ids summed into its row.
@@ -180,9 +203,12 @@ class BlockSortedAggregate(_build.KernelLibrary):
         if grads.data_ptr() % grad_align:
             raise ValueError(f"the CUDA kernel needs {grad_align}-byte aligned grads")
         out = torch.zeros((table_rows, d), dtype=torch.float32, device=grads.device)
-        if out.numel() and sids.numel():
+        m = sids.shape[0]
+        if out.numel() and m:
+            part, part_id = span_scratch(m, d, grads.device)
             self.launch(grads.device, out.data_ptr(), sids.data_ptr(), grads.data_ptr(),
-                        _DTYPE_CODES[grads.dtype], table_rows, d, sids.shape[0])
+                        _DTYPE_CODES[grads.dtype], part.data_ptr(), part_id.data_ptr(),
+                        part.shape[0], table_rows, d, m)
         return out
 
 

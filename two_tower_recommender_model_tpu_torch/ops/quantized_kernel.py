@@ -37,10 +37,10 @@ import ctypes
 import torch
 
 from two_tower_recommender_model_tpu_torch.ops import _build
+from two_tower_recommender_model_tpu_torch.ops.adagrad_kernel import span_scratch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DIM = 512  # both kernels hold a row in registers
-SPAN = 32  # sorted positions per warp of the Adagrad kernel (`kSpan` in its source)
 
 
 def _check_table(values: torch.Tensor, scales: torch.Tensor) -> None:
@@ -225,14 +225,11 @@ class QuantizedRowwiseAdagrad(_build.KernelLibrary):
         if grads.data_ptr() % grad_align:
             raise ValueError(f"the CUDA kernel needs {grad_align}-byte aligned grads")
         if values.numel() and m:
-            # two slots a span of SPAN sorted positions: a long run's first piece, a later one
-            slots = 2 * -(-m // SPAN)
-            part = torch.empty((slots, d), dtype=torch.float32, device=values.device)
-            part_id = torch.empty(slots, dtype=torch.int32, device=values.device)
+            part, part_id = span_scratch(m, d, values.device)
             self.launch(values.device, values.data_ptr(), scales.data_ptr(), acc.data_ptr(),
                         ids.data_ptr(), grads.data_ptr(), _DTYPE_CODES[grads.dtype],
                         None if perm is None else perm.data_ptr(), part.data_ptr(),
-                        part_id.data_ptr(), slots, n, d, m, lr, eps)
+                        part_id.data_ptr(), part.shape[0], n, d, m, lr, eps)
         return values, scales, acc
 
 
