@@ -15,8 +15,14 @@ without a card. Phases (any failure raises and exits non-zero):
    timed;
 3. `[kernel]` each kernel against its plain version on the card at the main
    paths' shapes, with median CUDA-event times of both:
-   pooled gather (flagship user table, 8,192 bags): exact at one slot (f32
+   pooled gather (#1, flagship user table, 8,192 bags): exact at one slot (f32
    and bf16) and for sentinel ids, relative 1e-5 at three mean-weighted slots;
+   also exact at the other serving sizes (1, 16, 100 and 1,000 bags; the
+   1-bag time is the kernel's latency floor), at the BCE train step's two
+   calls (262,144 bags into bf16, the user table with sorted ids, the item
+   table) from the f32 tables and from the bf16 ones, and at the softmax
+   step's two (8,192 bags from the f32 tables into bf16), each with its
+   bound and its launch plan; the host ms of one serving call;
    row-wise Adagrad (#4, 262,144 ids with duplicates and sentinels, f32 and
    bf16 gradients, on the user table and through the item table's device
    sort): untouched rows bitwise, the rest within rtol 1e-5;
@@ -79,10 +85,11 @@ without a card. Phases (any failure raises and exits non-zero):
 9. `[kernel]` (run with the other kernel checks) the int8 slice's kernels at
    the int8 train step's shapes: the int8 pooled gather (#5) on the flagship
    user table quantized from a seeded draw, 8,192 x 1 f32 out, 262,144 x 1
-   bf16 out and sentinel ids bit for bit, 8,192 x 3 mean-weighted slots
-   within 1e-5 x max; the fused int8 row-wise Adagrad (#6) with 262,144
-   sorted ids (f32 and bf16 gradients), through the item table's device
-   sort, and through it on item ids drawn as rank^-1 (a hot id of about
+   bf16 out, sentinel ids, and 1 and 100 bags (the 1-bag time its latency
+   floor) bit for bit, 8,192 x 3 mean-weighted slots within 1e-5 x max, and
+   the host ms of one serving call; the fused int8 row-wise Adagrad (#6)
+   with 262,144 sorted ids (f32 and bf16 gradients), through the item
+   table's device sort, and through it on item ids drawn as rank^-1 (a hot id of about
    22,000 positions): untouched rows bit for bit, scales and accumulators
    within rtol 1e-5, int8 values within one step, two launches bit for bit
    equal; row-wise Adagrad (#4) on those skewed ids against an f32 item
@@ -146,7 +153,8 @@ without a card. Phases (any failure raises and exits non-zero):
    tables) and `[serve-bf16tab]` (phase 12 on the bf16-trained state);
 20. with --profile, torch.profiler traces of the serving calls, of the
    three train steps and of a graph replay: device busy time, idle share and
-   the largest device items; and for each graph the SM clock and the active
+   the largest device items, the gather kernel's (#1 or #5) device ms a call
+   or a replayed step; and for each graph the SM clock and the active
    throttle reasons (nvidia-smi) before, during and after 20 more replays.
 
 The line before the last is a JSON object describing each kernel; the last
@@ -352,6 +360,39 @@ def table_bytes(model) -> dict[str, int]:
             for name, t in model.tables.items()}
 
 
+def gather_bound(table_row_bytes: int, ids: torch.Tensor, w: torch.Tensor, n: int,
+                 out: torch.Tensor, extra_bytes: int = 0) -> dict:
+    """The bound of a pooled gather: each distinct live row read once (with
+    `extra_bytes` beside it, the int8 scale), each output row written once,
+    the ids and weights read; 2 FLOPs an element of a live slot (3 for int8)."""
+    live = (ids >= 0) & (ids < n) & (w != 0)
+    rows = int(torch.unique(ids[live]).numel())
+    slots = int(live.sum())
+    n_bytes = (rows * (table_row_bytes + extra_bytes) + out.numel() * out.element_size()
+               + ids.numel() * 4 + w.numel() * 4)
+    flops = (3 if extra_bytes else 2) * slots * out.shape[1]
+    return {**bound(n_bytes, flops, PEAK_F32), "rows": rows}
+
+
+def plan_note(wrapper, *args) -> str:
+    """The launch plan a gather wrapper picks for these tensors, for the log."""
+    return f", {wrapper.plan(*args)}"
+
+
+def host_ms(fn, reps: int = 200) -> float:
+    """Median host ms of one call of `fn`, which launches and does not wait
+    for the card (a wrapper's checks, allocation, plan and launch)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def phase_kernel(dev: torch.device) -> dict:
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -387,7 +428,40 @@ def phase_kernel(dev: torch.device) -> dict:
         ("user bf16->bf16 L=1", (bf16_table, ids1, w1, torch.bfloat16), True),
         ("item f32 export", (item_table, item_ids, ones, torch.float32), True),
     ]
-    results = []
+    # the serving calls' other sizes (/invocations of 1 and 100 rows, /retrieve of 16 and
+    # 1,000 users) and the BCE train step's two calls (262,144 bags, bf16 out: the user
+    # table with the batch sorted by user id, the item table): a draw of their own
+    srng = np.random.default_rng(10)
+    for b in (1, 16, 100, 1000):
+        live_b = srng.random((b, 1)) > 0.1
+        cases.append((f"user f32 L=1 B={b}", (
+            user_table, on_card(np.where(live_b, srng.integers(0, NUM_USERS, (b, 1)), 0)
+                                .astype(np.int32)), on_card(live_b.astype(np.float32)),
+            torch.float32), True))
+    train_ones = torch.ones((TRAIN_BATCH, 1), device=dev)
+    cases += [
+        ("user f32->bf16 sorted (the train step's)", (user_table, on_card(np.sort(
+            srng.integers(0, NUM_USERS, (TRAIN_BATCH, 1)), axis=0).astype(np.int32)),
+            train_ones, torch.bfloat16), True),
+        ("item f32->bf16 (the train step's)", (item_table, on_card(srng.integers(
+            0, NUM_ITEMS, (TRAIN_BATCH, 1)).astype(np.int32)), train_ones, torch.bfloat16), True),
+    ]
+    # the bf16-table BCE step's two calls (the bf16 tables into bf16, the same ids) and
+    # the softmax step's two (8,192 bags from the f32 tables into bf16, the user batch
+    # sorted as the step sorts it)
+    user_train_ids, item_train_ids = cases[-2][1][1], cases[-1][1][1]
+    cases += [
+        ("user bf16->bf16 sorted (the bf16-table train step's)",
+         (bf16_table, user_train_ids, train_ones, torch.bfloat16), True),
+        ("item bf16->bf16 (the bf16-table train step's)",
+         (item_table.to(torch.bfloat16), item_train_ids, train_ones, torch.bfloat16), True),
+        ("user f32->bf16 sorted (the softmax step's)", (user_table, on_card(np.sort(
+            srng.integers(0, NUM_USERS, (BAGS, 1)), axis=0).astype(np.int32)), ones,
+            torch.bfloat16), True),
+        ("item f32->bf16 (the softmax step's)", (item_table, on_card(srng.integers(
+            0, NUM_ITEMS, (BAGS, 1)).astype(np.int32)), ones, torch.bfloat16), True),
+    ]
+    results = {}
     for name, (table, ids, w, out_dtype), exact in cases:
         got = pooled_gather(table, ids, w, out_dtype)
         want = pooled_gather_reference(table, ids, w, out_dtype)
@@ -404,12 +478,16 @@ def phase_kernel(dev: torch.device) -> dict:
                 raise AssertionError("sentinel ids must give exact zero rows")
         ms = median_ms(lambda: pooled_gather(table, ids, w, out_dtype), flush)
         plain_ms = median_ms(lambda: pooled_gather_reference(table, ids, w, out_dtype), flush)
+        b = gather_bound(table.shape[1] * table.element_size(), ids, w, table.shape[0], got)
         log(f"[kernel] {name}: [{ids.shape[0]}, {ids.shape[1]}] from [{table.shape[0]}, "
-            f"{table.shape[1]}] {'bitwise equal' if exact else 'within 1e-5 x max|plain|'}, "
-            f"max_abs_err={err!r}, kernel_ms={ms!r}, plain_ms={plain_ms!r}")
-        results.append((name, err, ms, plain_ms))
-    # the main case (one slot, the serving lookup): its bound, and the one PyTorch call
-    # that computes the same function, timed here and used nowhere in the port
+            f"{table.shape[1]}] {table.dtype} -> {out_dtype} "
+            f"{'bitwise equal' if exact else 'within 1e-5 x max|plain|'}, max_abs_err={err!r}, "
+            f"kernel_ms={ms!r}, plain_ms={plain_ms!r}, bound_ms={b['bound_ms']!r} by "
+            f"{b['bound_by']} ({b['rows']} distinct live rows)"
+            f"{plan_note(pooled_gather, table, ids, got)}")
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
+    # the main case (one slot, the serving lookup): the one PyTorch call that computes
+    # the same function, timed here and used nowhere in the port
     ids64, offsets = ids1[:, 0].long(), torch.arange(BAGS, device=dev)
     w_flat = w1[:, 0].contiguous()
 
@@ -420,13 +498,19 @@ def phase_kernel(dev: torch.device) -> dict:
     torch.testing.assert_close(library(), pooled_gather_reference(user_table, ids1, w1,
                                                                   torch.float32))
     library_ms = median_ms(library, flush)
-    live_rows = int((w1 != 0).sum())
-    b = bound(live_rows * DIM * 4 + BAGS * DIM * 4 + ids1.numel() * 4 + w1.numel() * 4,
-              2 * live_rows * DIM, PEAK_F32)
-    log(f"[kernel] pooled_gather {cases[0][0]}: bound_ms={b['bound_ms']!r} by {b['bound_by']} "
-        f"({live_rows} live rows), library_ms={library_ms!r} (F.embedding_bag)")
-    return {"max_abs_err": max(r[1] for r in results), "ms": results[0][2],
-            "plain_ms": results[0][3], **b, "library_ms": library_ms}
+    main, floor = results["user f32 L=1"], results["user f32 L=1 B=1"]
+    host = {b: host_ms(lambda: pooled_gather(user_table, ids, w, torch.float32))
+            for b, ids, w in ((BAGS, ids1, w1), (1, ids1[:1], w1[:1]))}
+    out = torch.empty((BAGS, DIM), device=dev)
+    plan_ms = host_ms(lambda: pooled_gather.plan(user_table, ids1, out))
+    log(f"[kernel] pooled_gather user f32 L=1: library_ms={library_ms!r} (F.embedding_bag); "
+        f"latency floor (1 bag) {floor['ms']!r} ms; {BAGS} bags {main['ms']!r} ms, "
+        f"{main['ms'] - floor['ms']!r} above the floor against a bound of {main['bound_ms']!r}; "
+        f"host ms a call (checks, plan, launch): {BAGS} bags {host[BAGS]!r}, 1 bag {host[1]!r}; "
+        f"of it the plan alone {plan_ms!r}")
+    return {"max_abs_err": max(r["max_abs_err"] for r in results.values()), "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": library_ms}
 
 
 LR, EPS = 0.05, 1e-10  # row-wise Adagrad's learning rate and epsilon in the kernel phase
@@ -782,15 +866,15 @@ def phase_int8_kernels(dev: torch.device) -> dict[str, dict]:
     user = quantize_table(torch.empty((NUM_USERS, DIM), device=dev).uniform_(-1, 1, generator=gen))
     values, scales = user.values, user.scales
 
-    def gather_case(name, b, slots, out_dtype, sentinels=False):
-        live = rng.random((b, slots)) > (0.1 if slots == 1 else 0.2)
-        ids = np.where(live, rng.integers(0, NUM_USERS, (b, slots)), 0)
+    def gather_case(name, b, slots, out_dtype, sentinels=False, draw=rng):
+        live = draw.random((b, slots)) > (0.1 if slots == 1 else 0.2)
+        ids = np.where(live, draw.integers(0, NUM_USERS, (b, slots)), 0)
         w = live.astype(np.float32)
         if slots > 1:  # mean pooling comes pre-scaled
             w = w / np.maximum(w.sum(1, keepdims=True), 1.0)
         if sentinels:  # a quarter of the ids at or past N, every weight 1
-            sent = rng.random((b, 1)) < 0.25
-            ids = np.where(sent, NUM_USERS + rng.integers(0, 1000, (b, 1)), ids)
+            sent = draw.random((b, 1)) < 0.25
+            ids = np.where(sent, NUM_USERS + draw.integers(0, 1000, (b, 1)), ids)
             w = np.ones((b, 1), np.float32)
         ids, w = on_card(ids.astype(np.int32)), on_card(w)
         got = quantized_pooled_gather(values, scales, ids, w, out_dtype)
@@ -809,21 +893,35 @@ def phase_int8_kernels(dev: torch.device) -> dict[str, dict]:
         ms = median_ms(lambda: quantized_pooled_gather(values, scales, ids, w, out_dtype), flush)
         plain_ms = median_ms(
             lambda: quantized_pooled_gather_reference(values, scales, ids, w, out_dtype), flush)
-        live_slots = int(((w != 0) & (ids < NUM_USERS)).sum())
-        # a live slot reads its int8 row and its scale, a bag writes its row; ids and weights
-        b_ = bound(live_slots * (DIM + 4) + b * DIM * got.element_size() + ids.numel() * 8,
-                   3 * live_slots * DIM, PEAK_F32)
+        # a distinct live row is read once with its scale, a bag writes its row
+        b_ = gather_bound(DIM, ids, w, NUM_USERS, got, extra_bytes=4)
         log(f"[kernel] quantized_pooled_gather {name}: [{b}, {slots}] from int8 [{NUM_USERS}, "
             f"{DIM}] {'bitwise equal' if slots == 1 else 'within 1e-5 x max|plain|'}, "
             f"max_abs_err={err!r}, kernel_ms={ms!r}, plain_ms={plain_ms!r}, "
-            f"bound_ms={b_['bound_ms']!r} by {b_['bound_by']} ({live_slots} live slots); no "
-            "single PyTorch call computes it")
-        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b_, "library_ms": None}
+            f"bound_ms={b_['bound_ms']!r} by {b_['bound_by']} ({b_['rows']} distinct live rows)"
+            f"{plan_note(quantized_pooled_gather, values, ids, got)}; no single PyTorch call "
+            "computes it")
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_["bound_ms"],
+                "bound_by": b_["bound_by"], "library_ms": None}
 
     cases = [gather_case("f32 out L=1", BAGS, 1, torch.float32),
              gather_case("bf16 out L=1 (the train step's)", TRAIN_BATCH, 1, torch.bfloat16),
              gather_case("f32 out L=3 mean", BAGS, 3, torch.float32),
              gather_case("f32 out sentinels", BAGS, 1, torch.float32, sentinels=True)]
+    # /invocations of 1 and 100 rows: a draw of their own
+    srng = np.random.default_rng(14)
+    floor = gather_case("f32 out L=1 B=1", 1, 1, torch.float32, draw=srng)
+    cases += [floor, gather_case("f32 out L=1 B=100", 100, 1, torch.float32, draw=srng)]
+    host = {}
+    for b in (BAGS, 1):  # the ids' values do not change the host's work
+        ids_h = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+        w_h = torch.ones((b, 1), device=dev)
+        host[b] = host_ms(
+            lambda: quantized_pooled_gather(values, scales, ids_h, w_h, torch.float32))
+    log(f"[kernel] quantized_pooled_gather latency floor (1 bag) {floor['ms']!r} ms; {BAGS} bags "
+        f"{cases[0]['ms']!r} ms, {cases[0]['ms'] - floor['ms']!r} above the floor against a "
+        f"bound of {cases[0]['bound_ms']!r}; host ms a call (checks, plan, launch): {BAGS} bags "
+        f"{host[BAGS]!r}, 1 bag {host[1]!r}")
     stats["quantized_pooled_gather"] = {**cases[1],
                                         "max_abs_err": max(c["max_abs_err"] for c in cases)}
 
@@ -1622,7 +1720,17 @@ def phase_train_graph(dev: torch.device, name: str, cfg, tcfg, pool: list, want:
         log(f"{tag} rowwise_adagrad device ms a replayed step: " + (
             f"{sum(v[0] for v in adagrad) / k!r} in {sum(v[1] for v in adagrad) / k!r} launches "
             "(all passes, all tables)" if adagrad else "none in the trace"))
+        log_gather_ms(tag, device_ms, marker, per=k)
     return launches
+
+
+def log_gather_ms(label: str, device_ms: dict[str, list], marker: str, per: int = 1) -> None:
+    """The device ms and launches of the gather kernel whose name holds
+    `marker` (`pooled_gather` #1, `quantized_gather` #5) in a profile of
+    `profile_direct`, per call divided by `per` (the steps of a replay)."""
+    items = [v for name, v in device_ms.items() if marker in name]
+    log(f"{label} {marker} device ms {'a replayed step' if per > 1 else 'a call'}: "
+        f"{sum(v[0] for v in items) / per!r} in {sum(v[1] for v in items) / per!r} launches")
 
 
 def is_rowwise_adagrad(kernel_name: str) -> bool:
@@ -2491,23 +2599,25 @@ def phase_serve(dev: torch.device, profile: bool) -> int:
 
     if profile:
         for inputs in requests[::2]:
-            profile_direct(lambda: scorer.predict(inputs),
-                           f"Scorer.predict {len(inputs['user_id'])} rows", 2)
+            label = f"Scorer.predict {len(inputs['user_id'])} rows"
+            log_gather_ms(f"[direct] {label}:", profile_direct(lambda: scorer.predict(inputs),
+                                                               label, 2), "pooled_gather")
         for users in retrieve_users:
-            profile_direct(lambda: svc.retrieve(users, k=100),
-                           f"RetrievalService.retrieve {len(users)} users k=100", 1)
+            label = f"RetrievalService.retrieve {len(users)} users k=100"
+            log_gather_ms(f"[direct] {label}:", profile_direct(
+                lambda: svc.retrieve(users, k=100), label, 1), "pooled_gather")
     return launches
 
 
 @torch.no_grad()
-def phase_serve_trained(dev: torch.device, state, cfg, tag: str = "[serve-int8]",
+def phase_serve_trained(dev: torch.device, state, cfg, profile: bool, tag: str = "[serve-int8]",
                         gather_name: str = "quantized_pooled_gather") -> dict[str, int]:
     """A trained flagship whose tables are not f32 (the state `[train-int8]`
     or `[train-bf16tab]` ended with, not its export) through `Scorer` and
     `RetrievalService`, every lookup through the kernel `gather_name`; the
     calls are the main path and are counted alone, the answers are checked
     after. Then its export, loaded back as an f32 model, must predict the
-    same."""
+    same. Under --profile, the gather's device ms a call."""
     gather = KERNELS[gather_name][0]
     rng = np.random.default_rng(8)
     model = state.model
@@ -2568,6 +2678,17 @@ def phase_serve_trained(dev: torch.device, state, cfg, tag: str = "[serve-int8]"
         np.testing.assert_allclose(scores, at, rtol=1e-5, atol=0)
     log(f"{tag} predictions within 1e-5 of a plain forward over the tables widened to f32; "
         "top-k scores equal a brute-force top-k's within rtol 1e-5")
+    if profile:
+        marker = "quantized_gather" if gather_name == "quantized_pooled_gather" else "pooled_gather"
+        for inputs in requests:
+            label = f"{tag[1:-1]} Scorer.predict {len(inputs['user_id'])} rows"
+            log_gather_ms(f"{tag} Scorer.predict {len(inputs['user_id'])} rows:", profile_direct(
+                lambda: scorer.predict(inputs), label, 2, marker=marker), marker)
+        for users in retrieve_users:
+            label = f"{tag[1:-1]} RetrievalService.retrieve {len(users)} users k=100"
+            log_gather_ms(f"{tag} RetrievalService.retrieve {len(users)} users k=100:",
+                          profile_direct(lambda: svc.retrieve(users, k=100), label, 1,
+                                         marker=marker), marker)
 
     with tempfile.TemporaryDirectory() as path:
         export_model(path, cfg, state)
@@ -2625,7 +2746,7 @@ def main() -> int:
     paths["train-int8"], int8_state, int8_cfg = phase_train(dev, args.profile, first, "int8")
     phase_train_big_int8(dev, first[0])
     paths["train-override"] = phase_train_override(dev, first[0])
-    paths["serve-int8"] = phase_serve_trained(dev, int8_state, int8_cfg)
+    paths["serve-int8"] = phase_serve_trained(dev, int8_state, int8_cfg, args.profile)
     del int8_state
     paths["learn-int8"] = phase_learn(dev, "int8")
     paths["probe"] = phase_probe(dev)
@@ -2634,8 +2755,8 @@ def main() -> int:
     paths["learn-packed"] = phase_learn_packed(dev)
     paths["train-bf16tab"], bf16_state, bf16_cfg = phase_train_bf16tab(dev, batches)
     paths["learn-bf16tab"] = phase_learn(dev, "bfloat16")
-    paths["serve-bf16tab"] = phase_serve_trained(dev, bf16_state, bf16_cfg, "[serve-bf16tab]",
-                                                 "pooled_gather")
+    paths["serve-bf16tab"] = phase_serve_trained(dev, bf16_state, bf16_cfg, args.profile,
+                                                 "[serve-bf16tab]", "pooled_gather")
     torch.cuda.synchronize()
     leaked = [m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "optax", "two_tower_recommender_model_tpu")]

@@ -1,6 +1,8 @@
 """The int8 slice's CUDA kernels against their plain PyTorch versions, on the
-card: the int8 pooled gather (kernel #5), the fused int8 row-wise Adagrad
-(#6), the dense aggregate (#3) and the row subtract (#7), at odd shapes. This
+card: the int8 pooled gather (kernel #5: its 16-byte and narrow paths, the
+launch plan's batch edges, dead slots, pointers off a 16-byte boundary),
+the fused int8 row-wise Adagrad (#6), the dense aggregate (#3) and the row
+subtract (#7), at odd shapes. This
 file imports no JAX, so it runs where the card is:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_quantized_cuda.py
@@ -15,6 +17,7 @@ from two_tower_recommender_model_tpu_torch.ops.adagrad_kernel import (
     block_sorted_aggregate,
     block_sorted_aggregate_reference,
 )
+from two_tower_recommender_model_tpu_torch.ops.gather_plan import Walk
 from two_tower_recommender_model_tpu_torch.ops.quantized_kernel import (
     dequantize_rows,
     quantize_rows,
@@ -27,6 +30,7 @@ from two_tower_recommender_model_tpu_torch.ops.row_subtract import (
     row_subtract,
     row_subtract_reference,
 )
+from torch_gather_cases import DEAD_AT, SLOTS, bags, edge_batches, off_boundary, within
 from torch_sorted_runs import RUN_CASES, run_case_ids
 
 DIMS = [8, 32, 128, 512]
@@ -109,6 +113,111 @@ def test_quantized_gather_empty_batch_and_bad_dim(dev):
             quantized_pooled_gather(values, scales, torch.zeros((4, 1), dtype=torch.int32,
                                                                 device=dev),
                                     torch.ones((4, 1), device=dev))
+
+
+def _gather(values, scales, ids, w, out_dtype, out=None):
+    """Kernel #5 (into `out` when given: the wrapper's launch helper, as its
+    call does into a fresh tensor) and its plain version; one launch."""
+    before = quantized_pooled_gather.launches
+    if out is None:
+        got = quantized_pooled_gather(values, scales, ids, w, out_dtype)
+    else:
+        quantized_pooled_gather._launch(out, values, scales, ids, w)
+        got = out
+    want = quantized_pooled_gather_reference(values, scales, ids, w, out_dtype)
+    torch.cuda.synchronize()
+    assert quantized_pooled_gather.launches == before + 1
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", DIMS)
+def test_quantized_gather_plan_edges(dev, d):
+    """One slot at batch sizes 1, 31, 32, 33 and the plan's edges +-1 (the
+    bags of a warp and of a block, where the one-item walk gives way to
+    runs, where runs reach 32 bags): bit for bit the plain version's, f32
+    and bf16 out; D = 8 takes the narrow path, the rest the 16-byte one."""
+    rng = np.random.default_rng(d + 100)
+    n = 700
+    values, scales = _table(rng, n, d, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for out_dtype in (torch.float32, torch.bfloat16):
+        blocks = quantized_pooled_gather.blocks_per_sm(dev, out_dtype)
+        for b in edge_batches(1, d, 1, sms, blocks):
+            ids, w = bags(rng, n, b, 1, "first")
+            ids_t, w_t = torch.from_numpy(ids).to(dev), torch.from_numpy(w).to(dev)
+            got, want = _gather(values, scales, ids_t, w_t, out_dtype)
+            wide = quantized_pooled_gather.plan(values, ids_t, got).walk != Walk.NARROW
+            assert wide == (d % 16 == 0)
+            within(got, want, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bag_l", SLOTS)
+@pytest.mark.parametrize("dead_at", DEAD_AT)
+def test_quantized_gather_dead_slots(dev, bag_l, dead_at):
+    """L = 1, 3, 7 and 40 with dead slots (the sentinel N, a negative id, a
+    zero weight) in the first, middle or last slot, at every D of `DIMS`:
+    one slot bit for bit, more within 1e-5 x max (2^-8 x max in bf16 out);
+    dead slots alone give exact zeros."""
+    rng = np.random.default_rng(bag_l + 200)
+    n = 700
+    for d in DIMS:
+        values, scales = _table(rng, n, d, dev)
+        for b in (33, 1000):
+            ids, w = bags(rng, n, b, bag_l, dead_at)
+            ids_t, w_t = torch.from_numpy(ids).to(dev), torch.from_numpy(w).to(dev)
+            for out_dtype in (torch.float32, torch.bfloat16):
+                got, want = _gather(values, scales, ids_t, w_t, out_dtype)
+                within(got, want, bag_l)
+                dead = ((ids_t < 0) | (ids_t >= n) | (w_t == 0)).all(dim=1)
+                if bag_l == 1:
+                    assert dead.any() and torch.count_nonzero(got[dead]).item() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bag_l", [1, 3])
+@pytest.mark.parametrize("which", ["values", "out"])
+def test_quantized_gather_off_boundary_pointers(dev, bag_l, which):
+    """Values, or an output, 4 bytes off a 16-byte boundary: the plan takes
+    the narrow path, and the result is the plain version's (bit for bit at
+    one slot)."""
+    rng = np.random.default_rng(300 + bag_l)
+    n, d = 700, 128
+    values, scales = _table(rng, n, d, dev)
+    if which == "values":
+        values = off_boundary(values)
+    for b in (1, 33, 700):
+        ids, w = bags(rng, n, b, bag_l, "middle")
+        ids_t, w_t = torch.from_numpy(ids).to(dev), torch.from_numpy(w).to(dev)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            out = torch.empty((b, d), dtype=out_dtype, device=dev)
+            if which == "out":
+                out = off_boundary(out)
+            assert quantized_pooled_gather.plan(values, ids_t, out).walk == Walk.NARROW
+            got, want = _gather(values, scales, ids_t, w_t, out_dtype, out)
+            assert got.data_ptr() == out.data_ptr()
+            within(got, want, bag_l)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bag_l", [1, 3, 40])
+def test_quantized_gather_two_launches_agree(dev, bag_l):
+    """Two launches on the same inputs give the same bits, on the narrow
+    path and every walk of the wide one (140,000 bags of one slot: runs of
+    several bags)."""
+    rng = np.random.default_rng(400 + bag_l)
+    n = 700
+    for d, b in ((128, 140_000), (512, 999), (8, 999)):
+        values, scales = _table(rng, n, d, dev)
+        ids, w = bags(rng, n, b, bag_l, "last")
+        ids_t, w_t = torch.from_numpy(ids).to(dev), torch.from_numpy(w).to(dev)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            first = quantized_pooled_gather(values, scales, ids_t, w_t, out_dtype)
+            second = quantized_pooled_gather(values, scales, ids_t, w_t, out_dtype)
+            torch.cuda.synchronize()
+            view = torch.int32 if out_dtype == torch.float32 else torch.int16
+            assert torch.equal(first.view(view), second.view(view))
 
 
 def _sorted_ids(rng, case, dev, with_perm=False):

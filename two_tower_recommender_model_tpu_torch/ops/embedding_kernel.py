@@ -11,8 +11,10 @@ with one slot and weight 1 this is also `block_sorted_lookup`: `table[ids]`
 with zero rows for sentinel ids.
 
 `pooled_gather` launches the hand-written kernel of `csrc/pooled_gather.cu`
-on a CUDA tensor, and takes `pooled_gather_reference` only for a tensor that
-lies on the CPU. It counts its kernel launches in `pooled_gather.launches`.
+on a CUDA tensor, with the launch plan of `ops/gather_plan.py` (its 16-byte
+path or its narrow one, bags a warp, block and grid), and takes
+`pooled_gather_reference` only for a tensor that lies on the CPU. It counts
+its kernel launches in `pooled_gather.launches`.
 """
 
 from __future__ import annotations
@@ -21,9 +23,8 @@ import ctypes
 
 import torch
 
-from two_tower_recommender_model_tpu_torch.ops import _build
-
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+from two_tower_recommender_model_tpu_torch.ops.gather_plan import DTYPE_CODES as _DTYPE_CODES
+from two_tower_recommender_model_tpu_torch.ops.gather_plan import GatherKernel, GatherPlan
 
 
 def _check(table: torch.Tensor, ids: torch.Tensor, w: torch.Tensor,
@@ -60,7 +61,7 @@ def pooled_gather_reference(table: torch.Tensor, ids: torch.Tensor, w: torch.Ten
     return contrib.sum(dim=1).to(out_dtype or table.dtype)
 
 
-class PooledGather(_build.KernelLibrary):
+class PooledGather(GatherKernel):
     """The pooled-gather wrapper: checks its inputs, allocates the output,
     and launches the CUDA kernel on the current stream (no sync).
 
@@ -71,7 +72,8 @@ class PooledGather(_build.KernelLibrary):
     def __init__(self):
         super().__init__("pooled_gather", "ttrm_pooled_gather", [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64])
+            ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int64])
 
     def __call__(self, table: torch.Tensor, ids: torch.Tensor, w: torch.Tensor,
                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -81,14 +83,28 @@ class PooledGather(_build.KernelLibrary):
             return pooled_gather_reference(table, ids, w, out_dtype)
         if table.device.type != "cuda":
             raise ValueError(f"pooled_gather runs on cpu or cuda tensors, got {table.device}")
-        b, bag_l = ids.shape
-        n, d = table.shape
-        out = torch.empty((b, d), dtype=out_dtype, device=table.device)
-        if out.numel() == 0:
-            return out
-        self.launch(table.device, table.data_ptr(), _DTYPE_CODES[table.dtype], ids.data_ptr(),
-                    w.data_ptr(), out.data_ptr(), _DTYPE_CODES[out_dtype], n, d, b, bag_l)
+        out = torch.empty((ids.shape[0], table.shape[1]), dtype=out_dtype, device=table.device)
+        if out.numel():
+            self._launch(out, table, ids, w)
         return out
+
+    def plan(self, table: torch.Tensor, ids: torch.Tensor, out: torch.Tensor) -> GatherPlan:
+        """The launch plan for these tensors on their card."""
+        return self.plan_for(table.device, (table.dtype, out.dtype), *ids.shape, table.shape[1],
+                             table.element_size(), (table.data_ptr() | out.data_ptr()) % 16 == 0)
+
+    def _launch(self, out: torch.Tensor, table: torch.Tensor, ids: torch.Tensor,
+                w: torch.Tensor) -> None:
+        """Launch into `out` ([B, D], contiguous, beside the table; it may
+        start off a 16-byte boundary, which the plan sends down the narrow
+        path)."""
+        t, o, dev = table.data_ptr(), out.data_ptr(), table.device
+        (n, d), (b, bag_l) = table.shape, ids.shape
+        plan = self.plan_for(dev, (table.dtype, out.dtype), b, bag_l, d, table.element_size(),
+                             (t | o) % 16 == 0)
+        self.launch(dev, t, _DTYPE_CODES[table.dtype], ids.data_ptr(), w.data_ptr(), o,
+                    _DTYPE_CODES[out.dtype], n, d, b, bag_l, plan.walk, plan.bags_per_warp,
+                    plan.warps_per_block, plan.blocks)
 
 
 pooled_gather = PooledGather()

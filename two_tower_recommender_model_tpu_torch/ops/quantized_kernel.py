@@ -12,7 +12,9 @@ block_sorted_lookup_quantized` (`_gather_kernel_quantized`):
 accumulated in f32, f32 or bf16 out. A slot whose id lies outside `[0, N)` or
 whose weight is 0 contributes nothing. At one slot and weight 1 it is the
 Pallas function (dequantized rows, zero rows for sentinels), for ids in any
-order; at L slots it is `ops/quantized.py:quantized_pooled_lookup`.
+order; at L slots it is `ops/quantized.py:quantized_pooled_lookup`. It
+launches with the plan of `ops/gather_plan.py` (its 16-byte path or its
+narrow one, bags a warp, block and grid).
 
 **The fused row-wise Adagrad** (`quantized_rowwise_adagrad_fused`,
 `csrc/quantized_adagrad.cu`), port of `ops/block_sorted.py:
@@ -38,6 +40,7 @@ import torch
 
 from two_tower_recommender_model_tpu_torch.ops import _build
 from two_tower_recommender_model_tpu_torch.ops.adagrad_kernel import span_scratch
+from two_tower_recommender_model_tpu_torch.ops.gather_plan import GatherKernel, GatherPlan
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DIM = 512  # both kernels hold a row in registers
@@ -102,7 +105,7 @@ def quantized_pooled_gather_reference(values: torch.Tensor, scales: torch.Tensor
     return contrib.sum(dim=1).to(out_dtype)
 
 
-class QuantizedPooledGather(_build.KernelLibrary):
+class QuantizedPooledGather(GatherKernel):
     """The int8 pooled-gather wrapper: checks its inputs, allocates the
     output and launches the CUDA kernel on the current stream (no sync).
     `launches` counts kernel launches and nothing else."""
@@ -110,11 +113,13 @@ class QuantizedPooledGather(_build.KernelLibrary):
     def __init__(self):
         super().__init__("quantized_pooled_gather", "ttrm_quantized_gather", [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64],
+            ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int64],
             source="quantized_gather.cu")
 
-    def __call__(self, values: torch.Tensor, scales: torch.Tensor, ids: torch.Tensor,
-                 w: torch.Tensor, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    @staticmethod
+    def _check(values: torch.Tensor, scales: torch.Tensor, ids: torch.Tensor,
+               w: torch.Tensor, out_dtype: torch.dtype) -> None:
         _check_table(values, scales)
         if ids.dim() != 2 or w.shape != ids.shape:
             raise ValueError(
@@ -124,19 +129,37 @@ class QuantizedPooledGather(_build.KernelLibrary):
         if out_dtype not in _DTYPE_CODES:
             raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
         _require([("values", values), ("scales", scales), ("ids", ids), ("w", w)])
+
+    def __call__(self, values: torch.Tensor, scales: torch.Tensor, ids: torch.Tensor,
+                 w: torch.Tensor, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        self._check(values, scales, ids, w, out_dtype)
         if values.device.type == "cpu":
             return quantized_pooled_gather_reference(values, scales, ids, w, out_dtype)
         if values.device.type != "cuda":
             raise ValueError(f"quantized_pooled_gather runs on cpu or cuda tensors, got "
                              f"{values.device}")
         _check_cuda_dim(values)
-        b, bag_l = ids.shape
-        n, d = values.shape
-        out = torch.empty((b, d), dtype=out_dtype, device=values.device)
+        out = torch.empty((ids.shape[0], values.shape[1]), dtype=out_dtype, device=values.device)
         if out.numel():
-            self.launch(values.device, values.data_ptr(), scales.data_ptr(), ids.data_ptr(),
-                        w.data_ptr(), out.data_ptr(), _DTYPE_CODES[out_dtype], n, d, b, bag_l)
+            self._launch(out, values, scales, ids, w)
         return out
+
+    def plan(self, values: torch.Tensor, ids: torch.Tensor, out: torch.Tensor) -> GatherPlan:
+        """The launch plan for these tensors on their card."""
+        return self.plan_for(values.device, (out.dtype,), *ids.shape, values.shape[1], 1,
+                             (values.data_ptr() | out.data_ptr()) % 16 == 0)
+
+    def _launch(self, out: torch.Tensor, values: torch.Tensor, scales: torch.Tensor,
+                ids: torch.Tensor, w: torch.Tensor) -> None:
+        """Launch into `out` ([B, D], contiguous, beside the table; it may
+        start off a 16-byte boundary, which the plan sends down the narrow
+        path)."""
+        v, o, dev = values.data_ptr(), out.data_ptr(), values.device
+        (n, d), (b, bag_l) = values.shape, ids.shape
+        plan = self.plan_for(dev, (out.dtype,), b, bag_l, d, 1, (v | o) % 16 == 0)
+        self.launch(dev, v, scales.data_ptr(), ids.data_ptr(), w.data_ptr(), o,
+                    _DTYPE_CODES[out.dtype], n, d, b, bag_l, plan.walk, plan.bags_per_warp,
+                    plan.warps_per_block, plan.blocks)
 
 
 quantized_pooled_gather = QuantizedPooledGather()
