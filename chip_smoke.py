@@ -2,8 +2,10 @@
 against its plain PyTorch version, serve the full-width flagship model over
 HTTP, train it with BCE (f32, int8 and bf16 tables) and with the in-batch
 sampled softmax, eagerly and as CUDA graphs of 16 steps, serve the int8- and
-the bf16-trained model, run the gather probe, and train the small learnable
-models to a target AUROC and a target recall@10.
+the bf16-trained model, run the gather probe, train the small learnable
+models to a target AUROC and a target recall@10, and run the Instacart
+pipeline (replica -> prepare -> train -> recall@100) through its entry
+points.
 
     python3 chip_smoke.py [--profile]
 
@@ -151,12 +153,23 @@ without a card. Phases (any failure raises and exits non-zero):
    52,789,504 + 12,720,128 bytes, a step against the host CPU, eval; the
    same step with f32 tables beside it; `[learn-bf16tab]` (phase 6 with bf16
    tables) and `[serve-bf16tab]` (phase 12 on the bf16-trained state);
-20. with --profile, torch.profiler traces of the serving calls, of the
+20. `[pipeline]` the Instacart pipeline through its entry points, in a
+   temporary directory: `cli.instacart_pipeline.main` with --smoke (8,000
+   users, 4,000 products, seed 0) --packed --fast, flagship widths, BCE, 3
+   epochs of batch 8,192, on the card; then one sampled-softmax epoch on the
+   same shards (`cli.train`, `cli.evaluate_retrieval`). Each run's launches
+   must equal its steps x a step's launches (warm-up, capture and tail
+   steps; replays run without Python) plus two gathers an eval batch and
+   the retrieval exports'; BCE recall@100 over every test user >= 0.35;
+   the replica, prepare, train epochs (and examples/s) and eval seconds
+   beside the card's name and power limit;
+21. with --profile, torch.profiler traces of the serving calls, of the
    three train steps and of a graph replay: device busy time, idle share and
    the largest device items, the gather kernel's (#1 or #5) device ms a call
    or a replayed step; and for each graph the SM clock and the active
    throttle reasons (nvidia-smi) before, during and after 20 more replays.
 
+The process must not have imported JAX, the JAX package, pandas or pyarrow.
 The line before the last is a JSON object describing each kernel; the last
 line is `{"ok": true, "device": {...}}`.
 """
@@ -168,6 +181,8 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2704,6 +2719,128 @@ def phase_serve_trained(dev: torch.device, state, cfg, profile: bool, tag: str =
     return launches
 
 
+PIPELINE_K = 32  # cli.train's default --macro-batches: steps a CUDA graph
+PIPELINE_FAST = ["--sorted-feature", "user_id", "--block-sorted-kernel", "bfloat16",
+                 "--compute-dtype", "bfloat16"]  # what the pipeline's --fast passes cli.train
+BCE_RECALL_FLOOR = 0.35  # recall@100 of the smoke BCE run (the JAX pipeline's smoke: 0.374)
+
+
+def card_line() -> str:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def expected_train_launches(train_out: dict, per_step: dict[str, int], eval_batches: int,
+                            exports: int) -> tuple[dict[str, int], dict[str, int]]:
+    """(launches the wrappers count, launches the card runs) of a cli.train
+    run on the packed path: Python launches a step's kernels in the
+    multi-step's warm-up and capture (WARMUP_STEPS + K steps a capture) and
+    in each eager tail step; a replay runs the K captured steps without
+    Python. Each eval batch gathers from both tables (#1), and so does each
+    retrieval export chunk."""
+    steps = sum(e["train_steps"] for e in train_out["epochs"])
+    replayed = train_out["replays"] * PIPELINE_K
+    python_steps = train_out["captures"] * (step_lib.WARMUP_STEPS + PIPELINE_K) + steps - replayed
+    card_steps = train_out["captures"] * step_lib.WARMUP_STEPS + steps
+    gathers = 2 * eval_batches + exports
+    counted = {k: n * python_steps + (gathers if k == "pooled_gather" else 0)
+               for k, n in per_step.items()}
+    on_card = {k: n * card_steps + (gathers if k == "pooled_gather" else 0)
+               for k, n in per_step.items()}
+    return counted, on_card
+
+
+def phase_pipeline(dev: torch.device) -> dict[str, dict[str, int]]:
+    """`[pipeline]` the Instacart pipeline through its entry points, in a
+    temporary work directory: `cli.instacart_pipeline.main` on the --smoke
+    replica (8,000 users, 4,000 products, seed 0), --packed --fast, the
+    flagship widths (dim 128, towers [128, 64]), BCE, 3 epochs of batch
+    8,192, on the card; then one epoch of the sampled softmax on the same
+    shards through `cli.train` and `cli.evaluate_retrieval`. Each run's
+    launches are checked against its steps x a step's launches (+ the eval
+    batches' and the retrieval exports' gathers); BCE recall@100 over every
+    test user must reach BCE_RECALL_FLOOR; the host stages' seconds are
+    printed beside the card's name and power limit."""
+    from two_tower_recommender_model_tpu_torch.cli import (
+        evaluate_retrieval as eval_cli,
+        instacart_pipeline,
+        train as train_cli,
+    )
+
+    work = tempfile.mkdtemp(prefix="ttrm_pipeline_")
+    try:
+        # --- the path, counted ---------------------------------------------------
+        reset_launches()
+        t0 = time.perf_counter()
+        out = instacart_pipeline.main(["--work", work, "--smoke", "--packed", "--fast",
+                                       "--seed", "0", "--epochs", "3", "--batch-size", "8192",
+                                       "--loss", "bce"])
+        seconds = time.perf_counter() - t0
+        bce_launches = read_launches()
+        shards, meta = os.path.join(work, "shards"), out["prepare"]["meta"]
+        reset_launches()
+        t1 = time.perf_counter()
+        softmax = train_cli.main([
+            "--data-dir", shards, "--num-users", str(meta["num_users"]),
+            "--num-items", str(meta["num_items"]), "--epochs", "1", "--batch-size", "8192",
+            "--loss", "sampled_softmax", "--sparse-learning-rate", "0.1", "--seed", "0",
+            "--runs-root", os.path.join(work, "runs"),
+            "--export-dir", os.path.join(work, "model-softmax"), *PIPELINE_FAST])
+        softmax_train_s = time.perf_counter() - t1
+        softmax_retrieval = eval_cli.main(["--model-dir", os.path.join(work, "model-softmax"),
+                                           "--data-dir", shards, "--k", "100",
+                                           "--max-users", "10000"])
+        softmax_launches = read_launches()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    # --- checks, not counted ------------------------------------------------------
+    rows = out["prepare"]["rows"]
+    eval_batches = {split: -(-rows[split] // 8192) for split in ("val", "test")}
+    retrieval = out["retrieval"]
+    exports = (-(-int(retrieval["num_users"]) // EXPORT_BATCH)
+               + -(-meta["num_items"] // EXPORT_BATCH))
+    checks = []
+    for tag, train_out, launches, per_step, epochs, ret in (
+            ("[pipeline]", out["train"], bce_launches, BCE_F32, 3, retrieval),
+            ("[pipeline-softmax]", softmax, softmax_launches,
+             {**SOFTMAX_F32, "tower_bwd": 2}, 1, softmax_retrieval)):
+        # baseline + each epoch's validation, and the test eval
+        n_eval = (1 + epochs) * eval_batches["val"] + eval_batches["test"]
+        counted, on_card = expected_train_launches(train_out, per_step, n_eval, exports)
+        made = {k: v for k, v in launches.items() if v}
+        if made != counted:
+            raise AssertionError(f"{tag} launches {made} != {counted} (steps "
+                                 f"{[e['train_steps'] for e in train_out['epochs']]}, captures "
+                                 f"{train_out['captures']}, replays {train_out['replays']})")
+        if train_out["captures"] != 1 or train_out["replays"] < epochs:
+            raise AssertionError(f"{tag} captures {train_out['captures']}, replays "
+                                 f"{train_out['replays']}: the epochs did not replay a graph")
+        checks.append((tag, train_out, made, on_card, ret))
+    bce = out["retrieval"]
+    if not bce["recall_at_100"] >= BCE_RECALL_FLOOR:
+        raise AssertionError(f"[pipeline] BCE recall@100 {bce['recall_at_100']} < "
+                             f"{BCE_RECALL_FLOOR}")
+    card = card_line()
+    st = out["seconds"]
+    log(f"[pipeline] {card}: replica {st['fetch']!r} s ({out['fetch']['orders']} orders, "
+        f"{out['fetch']['prior_rows']} prior rows), prepare {st['prepare']!r} s (rows {rows}), "
+        f"train {st['train']!r} s, eval {st['retrieval']!r} s, pipeline {seconds!r} s in all; "
+        f"softmax epoch train {softmax_train_s!r} s")
+    for tag, train_out, made, on_card, ret in checks:
+        m = train_out["metrics"]
+        epochs = train_out["epochs"]
+        log(f"{tag} {card}: epochs s {[e['epoch_time_s'] for e in epochs]!r} examples/s "
+            f"{[e['examples_per_sec'] for e in epochs]!r} steps "
+            f"{[e['train_steps'] for e in epochs]} captures={train_out['captures']} "
+            f"replays={train_out['replays']}; baseline_val_auroc={m['baseline_val_auroc']!r} "
+            f"val_auroc={m['val_auroc']!r} test_auroc={m['test_auroc']!r}; over "
+            f"{int(ret['num_users'])} test users at k=100: recall@10={ret['recall_at_10']!r} "
+            f"recall@100={ret['recall_at_100']!r} ndcg@100={ret['ndcg_at_100']!r}; launches "
+            f"counted {made} (= the steps' and evals' expectation), run on the card {on_card}")
+    return {"pipeline": bce_launches, "pipeline-softmax": softmax_launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -2714,9 +2851,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0])
+    log(card_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
@@ -2757,11 +2892,14 @@ def main() -> int:
     paths["learn-bf16tab"] = phase_learn(dev, "bfloat16")
     paths["serve-bf16tab"] = phase_serve_trained(dev, bf16_state, bf16_cfg, args.profile,
                                                  "[serve-bf16tab]", "pooled_gather")
+    del bf16_state
+    paths.update(phase_pipeline(dev))
     torch.cuda.synchronize()
     leaked = [m for m in sys.modules if m.split(".")[0] in (
-        "jax", "jaxlib", "flax", "optax", "two_tower_recommender_model_tpu")]
+        "jax", "jaxlib", "flax", "optax", "two_tower_recommender_model_tpu", "pandas", "pyarrow")]
     if leaked:
-        raise AssertionError(f"JAX or the JAX package was imported: {leaked[:5]}")
+        raise AssertionError(f"JAX, the JAX package, pandas or pyarrow was imported: "
+                             f"{leaked[:5]}")
 
     launches = {name: sum(path[name] for path in paths.values()) for name in KERNELS}
     launches["pooled_gather"] += serve

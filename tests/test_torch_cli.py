@@ -1,0 +1,218 @@
+"""The port's entry points (`cli/`): `prepare_instacart` writes what
+`scripts/prepare_instacart.py` writes, byte for byte; `train` and
+`evaluate_retrieval` run on the CPU with `--device cpu` and learn; the
+pipeline runs end to end; every flag whose module is not ported raises,
+naming its ROADMAP item."""
+
+import dataclasses
+import json
+import os
+import runpy
+import sys
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from two_tower_recommender_model_tpu.evaluation.retrieval import retrieval_metrics
+from two_tower_recommender_model_tpu_torch import config as cfg_lib
+from two_tower_recommender_model_tpu_torch.cli import (
+    evaluate_retrieval,
+    fetch_instacart,
+    instacart_pipeline,
+    prepare_instacart,
+    train,
+)
+from two_tower_recommender_model_tpu_torch.utils.tracking import latest_run, list_runs
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TRAIN_KEYS = {"baseline_val_loss", "baseline_val_auroc", "val_loss", "val_auroc", "train_steps",
+              "train_examples", "train_loss", "examples_per_sec", "epoch_time_s", "test_loss",
+              "test_auroc"}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the test steps are small, and the suite runs
+    several test processes on the same cores, where torch's thread pools
+    would contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def tree_bytes(root) -> dict:
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            p = os.path.join(d, f)
+            with open(p, "rb") as fh:
+                out[os.path.relpath(p, root)] = fh.read()
+    return out
+
+
+@pytest.fixture(scope="module")
+def csv_dir(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("csv"))
+    out = fetch_instacart.main(["--out", d, "--replica", "--replica-users", "300",
+                                "--replica-products", "150", "--seed", "4"])
+    assert out["generated"] and out["users"] == 300
+    assert fetch_instacart.main(["--out", d])["generated"] is False  # present: kept
+    return d
+
+
+@pytest.fixture(scope="module")
+def shards(csv_dir, tmp_path_factory):
+    """Prepared shards, raw and pre-packed: {layout: (dir, meta)}."""
+    out = {}
+    for layout in ("raw", "packed"):
+        d = str(tmp_path_factory.mktemp(layout))
+        res = prepare_instacart.main(["--csv-dir", csv_dir, "--out", d, "--rows-per-shard",
+                                      "4096"] + (["--packed"] if layout == "packed" else []))
+        out[layout] = (d, res["meta"])
+    return out
+
+
+@pytest.mark.parametrize("extra", [[], ["--packed"], ["--max-users", "120", "--seed", "3"]],
+                         ids=["raw", "packed", "max-users"])
+def test_prepare_writes_what_the_reference_script_writes(csv_dir, tmp_path, monkeypatch, extra):
+    """The same shard files, index.json, meta.json and id_mappings.npz, byte
+    for byte (the clock is held still: an .npz's zip entries carry the time
+    they were written)."""
+    monkeypatch.setattr(time, "time", lambda: 1_700_000_000.0)
+    common = ["--csv-dir", csv_dir, "--rows-per-shard", "3000"] + extra
+    monkeypatch.syspath_prepend(os.path.join(REPO, "scripts"))
+    monkeypatch.setattr(sys, "argv", ["prepare_instacart.py", "--out", str(tmp_path / "ref")]
+                        + common)
+    runpy.run_path(os.path.join(REPO, "scripts", "prepare_instacart.py"), run_name="__main__")
+    prepare_instacart.main(["--out", str(tmp_path / "port")] + common)
+    got, want = tree_bytes(tmp_path / "port"), tree_bytes(tmp_path / "ref")
+    assert sorted(got) == sorted(want)
+    assert {"meta.json", "id_mappings.npz", os.path.join("train", "index.json")} <= set(want)
+    assert sum(f.endswith(".ttrs") for f in want) >= 4
+    for name in want:
+        assert got[name] == want[name], name
+
+
+def train_argv(data_dir, meta, tmp_path, *extra):
+    return ["--data-dir", data_dir, "--num-users", str(meta["num_users"]),
+            "--num-items", str(meta["num_items"]), "--embedding-dim", "16",
+            "--layer-sizes", "16", "8", "--batch-size", "256", "--sparse-learning-rate", "0.1",
+            "--learning-rate", "0.003", "--runs-root", str(tmp_path / "runs"),
+            "--device", "cpu", *extra]
+
+
+def evaluate(model_dir, data_dir, tmp_path):
+    return evaluate_retrieval.main(["--model-dir", model_dir, "--data-dir", data_dir,
+                                    "--device", "cpu", "--json-out",
+                                    str(tmp_path / "m.json")])
+
+
+@pytest.mark.parametrize("layout", ["packed", "raw"])
+def test_train_then_evaluate_beats_a_random_model(shards, tmp_path, layout):
+    data_dir, meta = shards[layout]
+    out = train.main(train_argv(data_dir, meta, tmp_path, "--epochs", "2", "--macro-batches", "4",
+                                "--export-dir", str(tmp_path / "model")))
+    assert set(out["metrics"]) == TRAIN_KEYS
+    assert [e["train_steps"] for e in out["epochs"]] == [out["metrics"]["train_steps"]] * 2
+    assert out["metrics"]["val_auroc"] > out["metrics"]["baseline_val_auroc"] + 0.1
+    assert (out["captures"], out["replays"]) == (0, 0)  # CPU tensors: a plain loop
+    trained = evaluate(str(tmp_path / "model"), data_dir, tmp_path)
+    # the reference's metric names, computed by its own retrieval_metrics
+    want_keys = set(retrieval_metrics(np.zeros((1, 100), np.int64), [[1]], ks=(10, 100)))
+    assert set(trained) == want_keys | {"num_users"}
+    assert json.loads((tmp_path / "m.json").read_text()) == trained
+
+    train.main(train_argv(data_dir, meta, tmp_path, "--epochs", "0",
+                          "--export-dir", str(tmp_path / "random")))
+    untrained = evaluate(str(tmp_path / "random"), data_dir, tmp_path)
+    assert trained["num_users"] == untrained["num_users"] > 250
+    assert trained["recall_at_100"] > untrained["recall_at_100"] + 0.05
+
+    runs = list_runs(str(tmp_path / "runs"))
+    assert len(runs) == 2
+    first = latest_run(str(tmp_path / "runs"))
+    assert first.params["device_kind"] == "cpu" and first.params["embedding_dim"] == 16
+
+
+def test_no_packed_per_batch_route(shards, tmp_path):
+    data_dir, meta = shards["raw"]
+    out = train.main(train_argv(data_dir, meta, tmp_path, "--epochs", "1", "--no-packed",
+                                "--limit-train-batches", "8", "--limit-val-batches", "2"))
+    assert out["epochs"][0]["train_steps"] == 8
+    with pytest.raises(SystemExit, match="PRE-PACKED"):
+        train.main(train_argv(*shards["packed"], tmp_path, "--no-packed"))
+    with pytest.raises(SystemExit, match="packed path"):
+        train.main(train_argv(data_dir, meta, tmp_path, "--no-packed",
+                              "--sorted-feature", "user_id"))
+
+
+def test_select_best_on_recall_with_the_sampled_softmax(shards, tmp_path):
+    data_dir, meta = shards["packed"]
+    out = train.main(train_argv(data_dir, meta, tmp_path, "--epochs", "2", "--loss",
+                                "sampled_softmax", "--select-best", "val_recall_at_100",
+                                "--retrieval-eval-users", "100", "--compute-dtype",
+                                "bfloat16", "--table-dtype", "bfloat16",
+                                "--validation-freq", "5", "--macro-batches", "3"))
+    m = out["metrics"]
+    assert m["best_epoch"] in (0.0, 1.0) and 0 <= m["val_recall_at_100"] <= 1
+    assert "baseline_val_recall_at_100" in m
+
+
+def test_block_sorted_kernel_auto():
+    cfg = cfg_lib.two_tower_model_config(100, 50, embedding_dim=8, layer_sizes=(8, 4))
+    assert train.block_sorted_kernel_auto(cfg, "user_id", "bfloat16") == "bfloat16"
+    assert train.block_sorted_kernel_auto(cfg, None, "float32") == "float32"
+    bf16 = dataclasses.replace(cfg, table_dtype="bfloat16")
+    assert train.block_sorted_kernel_auto(bf16, "user_id", "bfloat16") == "off"
+    assert train.block_sorted_kernel_auto(bf16, None, "bfloat16") == "bfloat16"
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--multi-host"], "M12"), (["--mesh-model", "2"], "M12"),
+    (["--sharded-exchange", "dense"], "M12"), (["--exchange-capacity-factor", "1.5"], "M12"),
+    (["--exchange-wire-dtype", "bfloat16"], "M12"), (["--wire-cache", "wc"], "M11"),
+    (["--wire-format", "compact"], "M11"), (["--wire-cache-order", "loader"], "M11"),
+    (["--wire-cache-generations", "2"], "M11"), (["--checkpoint-dir", "ck"], "M8b"),
+    (["--resume"], "M8b"),
+])
+def test_unported_train_flags_raise(flags, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+        train.main(["--data-dir", "nowhere", "--num-users", "10", "--num-items", "10",
+                    "--device", "cpu", *flags])
+
+
+def test_unported_eval_and_pipeline_flags_raise(tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*M8a-2"):
+        evaluate_retrieval.main(["--model-dir", "m", "--data-dir", "d", "--device", "cpu",
+                                 "--per-user-table", "t.csv"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.*M11"):
+        instacart_pipeline.main(["--work", str(tmp_path), "--wire-cache", "--device", "cpu"])
+
+
+def test_entry_points_take_the_card_unless_told_otherwise(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for call in (lambda: train.main(["--data-dir", "d", "--num-users", "10",
+                                     "--num-items", "10"]),
+                 lambda: evaluate_retrieval.main(["--model-dir", "m", "--data-dir", "d"]),
+                 lambda: instacart_pipeline.main(["--work", str(tmp_path / "w"), "--smoke"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not (tmp_path / "w").exists()  # refused before any stage ran
+
+
+def test_pipeline_end_to_end_on_the_cpu(csv_dir, tmp_path):
+    work = str(tmp_path / "work")
+    out = instacart_pipeline.main(["--work", work, "--csv-dir", csv_dir, "--fast",
+                                   "--device", "cpu", "--epochs", "1", "--batch-size", "512",
+                                   "--macro-batches", "4"])
+    assert set(out["seconds"]) == {"prepare", "train", "retrieval"}
+    meta = out["prepare"]["meta"]
+    assert meta["distinct_users"] == 300 and meta["num_items"] == meta["distinct_items"] + 1
+    assert json.load(open(os.path.join(work, "shards", "train", "index.json")))["packed"]
+    assert out["train"]["epochs"][0]["train_steps"] > 0
+    assert out["retrieval"]["num_users"] > 250 and 0 < out["retrieval"]["recall_at_100"] <= 1
+    assert os.path.exists(os.path.join(work, "model", "params.npz"))

@@ -1,5 +1,6 @@
-"""The PyTorch port imports no JAX and nothing of the JAX package, and
-importing it builds nothing."""
+"""The PyTorch port imports no JAX, nothing of the JAX package and neither
+pandas nor pyarrow (the card's machine has neither), and importing it builds
+nothing."""
 
 import os
 import subprocess
@@ -22,7 +23,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
-    "jax", "jaxlib", "flax", "optax", "two_tower_recommender_model_tpu"))
+    "jax", "jaxlib", "flax", "optax", "two_tower_recommender_model_tpu", "pandas", "pyarrow"))
 assert not leaked, leaked
 from two_tower_recommender_model_tpu_torch.ops.adagrad_kernel import (
     block_sorted_aggregate, rowwise_adagrad)
@@ -43,7 +44,10 @@ for name in ("train.step", "train.loop", "train.pipeline", "train.optimizer",
              "data.device_featurizer", "data.synthetic", "models.losses", "models.metrics",
              "utils.checkpoint", "ops.softmax_kernel", "evaluation.retrieval", "device",
              "ops.quantized", "ops.quantized_kernel", "ops.row_subtract", "ops.probe_sum",
-             "tools", "tools.probe_consumer"):
+             "tools", "tools.probe_consumer", "data.shards", "data.loader", "data.prepacked",
+             "data.ingest", "data.feature_engineering", "data.replica", "utils.tracking", "cli",
+             "cli.fetch_instacart", "cli.prepare_instacart", "cli.train",
+             "cli.evaluate_retrieval", "cli.instacart_pipeline"):
     assert pkg.__name__ + "." + name in names, name
 print(len(names))
 """
@@ -55,7 +59,7 @@ def test_port_imports_no_jax_and_builds_nothing():
     out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True, text=True,
                          env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 36  # every module was imported
+    assert int(out.stdout.strip().splitlines()[-1]) >= 52  # every module was imported
 
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -76,14 +80,15 @@ def _import_roots(path: str) -> set[str]:
 
 
 _JAX_ROOTS = {"jax", "jaxlib", "flax", "optax", "two_tower_recommender_model_tpu"}
+_ABSENT_ON_THE_CARD = _JAX_ROOTS | {"pandas", "pyarrow"}
 
 
 def test_chip_smoke_imports_no_jax():
     """`chip_smoke.py` imports torch, numpy, the standard library and the
-    port, never JAX or the JAX package."""
+    port, never JAX, the JAX package, pandas or pyarrow."""
     roots = _import_roots("chip_smoke.py")
     assert "two_tower_recommender_model_tpu_torch" in roots
-    assert not roots & _JAX_ROOTS
+    assert not roots & _ABSENT_ON_THE_CARD
 
 
 # the card tests run on the card's machine, which has no JAX

@@ -9,7 +9,8 @@ JAX package.
 
 What it covers today: serving, training (BCE and the in-batch sampled
 softmax; eager steps and K steps as one CUDA graph), int8 and bf16 table
-storage, and the gather probe:
+storage, the gather probe, and the Instacart pipeline from CSVs to
+recall@100 (host side on numpy and the standard library: no pandas):
 
 - `config`                 — the model dataclasses and `TrainConfig`, equal
                              field for field to the JAX package's.
@@ -18,6 +19,14 @@ storage, and the gather probe:
 - `data.device_featurizer` — packed input: raw ids (+ the label bit) packed on
                              the host, hashed and masked on the device.
 - `data.synthetic`         — the synthetic clickstream generator.
+- `data.replica`           — the schema-faithful Instacart CSVs.
+- `data.ingest`            — CSV tables with their schemas, the order_detail join.
+- `data.feature_engineering` — positives, sampled negatives, the per-user
+                             split, id indexing.
+- `data.shards`            — TTRS shard files and datasets.
+- `data.loader`            — `StreamLoader`: seeded, resumable, multi-host
+                             batches over shards.
+- `data.prepacked`         — datasets stored in the packed device layout.
 - `ops.embedding_kernel`   — the CUDA pooled-gather kernel
                              (`csrc/pooled_gather.cu`), its ctypes binding and
                              its plain PyTorch version.
@@ -51,11 +60,17 @@ storage, and the gather probe:
                              loop and the packed macro-step epoch.
 - `tools.probe_consumer`   — the gather probe (`python -m ...tools.probe_consumer`).
 - `evaluation.retrieval`   — full-corpus tower embedding export, the retriever
-                             metrics and the per-epoch retrieval eval.
+                             metrics, a split's held-out positives and the
+                             per-epoch retrieval eval.
 - `device`                 — `default_device()`: the card, or an error that
                              says to pass `device="cpu"`.
 - `serving`                — `Scorer`, `RetrievalService`, HTTP `ModelServer`.
 - `utils.checkpoint`       — the portable export: `export_model`, `load_model`.
+- `utils.tracking`         — `ExperimentLogger`: params, metrics, artifacts a run.
+- `cli`                    — the pipeline's entry points (`python -m
+                             ...cli.instacart_pipeline`, `fetch_instacart`,
+                             `prepare_instacart`, `train`, `evaluate_retrieval`).
+- `tools.pipeline_host_timing` — the host stages' seconds and peak memory.
 
 Numerics: float32 matmuls run in full float32. Importing this package sets
 `torch.backends.cuda.matmul.allow_tf32 = False` and

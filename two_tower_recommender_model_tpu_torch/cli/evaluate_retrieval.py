@@ -1,0 +1,65 @@
+"""Retrieval evaluation at the reference protocol: held-out positives per
+user from a split, an exact top-k search (k = 100 over up to 10,000 users),
+retriever metrics averaged per user.
+
+    python -m two_tower_recommender_model_tpu_torch.cli.evaluate_retrieval \\
+        --model-dir out/model --data-dir out/instacart [--k 100] [--max-users 10000]
+
+The port of `scripts/evaluate_retrieval.py`: `load_model` -> `split_positives`
+-> `evaluate_retrieval`, on the card unless given `--device cpu`. Its
+`--per-user-table` (a pandas DataFrame) is not ported yet (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+from two_tower_recommender_model_tpu_torch.device import resolve_device
+from two_tower_recommender_model_tpu_torch.evaluation.retrieval import (
+    evaluate_retrieval,
+    split_positives,
+)
+from two_tower_recommender_model_tpu_torch.models.two_tower import params_from_numpy
+from two_tower_recommender_model_tpu_torch.utils.checkpoint import load_model
+
+
+def main(argv: list[str] | None = None) -> dict:
+    ap = argparse.ArgumentParser(prog="python -m two_tower_recommender_model_tpu_torch.cli."
+                                 "evaluate_retrieval", description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model-dir", required=True, help="export_model directory")
+    ap.add_argument("--data-dir", required=True, help="prepare_instacart output dir")
+    ap.add_argument("--split", default="test")
+    ap.add_argument("--k", type=int, default=100)
+    ap.add_argument("--max-users", type=int, default=10_000)
+    ap.add_argument("--per-user-table", default=None,
+                    help="not ported yet (ROADMAP.md Queue 1, M8a-2: per_user_retrieval_table)")
+    ap.add_argument("--json-out", default=None)
+    ap.add_argument("--device", default=None,
+                    help="torch device; default the card (raises without one): pass cpu to "
+                         "run on the CPU")
+    args = ap.parse_args(argv)
+    if args.per_user_table:
+        raise NotImplementedError(
+            "--per-user-table is not ported to the PyTorch package yet (ROADMAP.md Queue 1, "
+            "M8a-2: per_user_retrieval_table returns a pandas DataFrame)")
+    device = resolve_device(args.device)
+
+    model_cfg, params = load_model(args.model_dir)
+    model = params_from_numpy(params, model_cfg, device)
+    user_positives = split_positives(os.path.join(args.data_dir, args.split))
+    print(f"{args.split} positives: {sum(map(len, user_positives.values()))} over "
+          f"{len(user_positives)} users; evaluating {min(len(user_positives), args.max_users)} "
+          f"users at k={args.k}")
+    metrics = evaluate_retrieval(model, user_positives, k=args.k, max_users=args.max_users,
+                                 ks=(10, args.k))
+    print(json.dumps({k: round(float(v), 5) for k, v in metrics.items()}, indent=1))
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump(metrics, f, indent=1)
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

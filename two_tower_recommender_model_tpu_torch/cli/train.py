@@ -1,0 +1,308 @@
+"""Train the two-tower model on TTRS shards, on one device.
+
+    python -m two_tower_recommender_model_tpu_torch.cli.train \\
+        --data-dir out/instacart --num-users 206210 --num-items 49689
+
+The port of `scripts/train.py`'s single-device route, on the card unless
+given `--device cpu`: the packed epoch (pre-packed shards or raw columns
+packed on the host) through `train_one_epoch_packed` and `make_multi_step`
+(on the card one CUDA graph of `--macro-batches` steps, replayed), or the
+per-batch loop with `--no-packed`; validation, the test eval, the run logged
+through `ExperimentLogger`, the model exported with `export_model`.
+
+Flags whose modules are not ported yet raise, naming their ROADMAP item:
+`--multi-host`, `--mesh-model` > 1 and the exchange flags (M12, multi-GPU),
+`--wire-cache`, `--wire-format compact` and `--wire-cache-*` (M11, the
+compact wire), `--checkpoint-dir` and `--resume` (M8b, checkpoints).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import os
+import re
+
+import torch
+
+from two_tower_recommender_model_tpu_torch import config as cfg_lib
+from two_tower_recommender_model_tpu_torch.data.device_featurizer import (
+    PackedFeaturizer,
+    make_packed_eval_step,
+    make_packed_train_step,
+    unpack_batch,
+)
+from two_tower_recommender_model_tpu_torch.data.featurizer import Featurizer
+from two_tower_recommender_model_tpu_torch.data.loader import StreamLoader
+from two_tower_recommender_model_tpu_torch.data.prepacked import PrepackedFeaturizer
+from two_tower_recommender_model_tpu_torch.data.shards import ShardedDataset
+from two_tower_recommender_model_tpu_torch.device import resolve_device
+from two_tower_recommender_model_tpu_torch.evaluation.retrieval import (
+    make_retrieval_eval_fn,
+    split_positives,
+)
+from two_tower_recommender_model_tpu_torch.train.loop import (
+    train_one_epoch,
+    train_one_epoch_packed,
+    train_val_test,
+)
+from two_tower_recommender_model_tpu_torch.train.step import (
+    auto_sorted_feature,
+    create_train_state,
+    make_eval_step,
+    make_multi_step,
+    make_train_step,
+)
+from two_tower_recommender_model_tpu_torch.utils.checkpoint import export_model
+from two_tower_recommender_model_tpu_torch.utils.tracking import ExperimentLogger
+
+log = logging.getLogger(__name__)
+
+# flag -> (the value that means "not asked for", the ROADMAP item it waits for)
+_UNPORTED = {
+    "multi_host": (False, "M12, multi-GPU"),
+    "sharded_exchange": (None, "M12, multi-GPU"),
+    "exchange_capacity_factor": (None, "M12, multi-GPU"),
+    "exchange_wire_dtype": (None, "M12, multi-GPU"),
+    "wire_cache": (None, "M11, the compact wire and cached batches"),
+    "wire_cache_order": (None, "M11, the compact wire and cached batches"),
+    "wire_cache_generations": (None, "M11, the compact wire and cached batches"),
+    "checkpoint_dir": (None, "M8b, checkpoints"),
+    "resume": (False, "M8b, checkpoints"),
+}
+
+
+def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(prog="python -m two_tower_recommender_model_tpu_torch.cli.train",
+                                 description=__doc__.split("\n\n")[0])
+    ap.add_argument("--data-dir", required=True, help="dir with train/ val/ test/ TTRS datasets")
+    ap.add_argument("--num-users", type=int, required=True)
+    ap.add_argument("--num-items", type=int, required=True)
+    ap.add_argument("--epochs", type=int, default=3)
+    ap.add_argument("--batch-size", type=int, default=1024)
+    ap.add_argument("--embedding-dim", type=int, default=128)
+    ap.add_argument("--layer-sizes", type=int, nargs="+", default=[128, 64])
+    ap.add_argument("--learning-rate", type=float, default=1e-3)
+    ap.add_argument("--sparse-learning-rate", type=float, default=1e-2)
+    ap.add_argument("--loss", choices=["bce", "sampled_softmax", "weighted_bce"], default="bce")
+    ap.add_argument("--softmax-temperature", type=float, default=1.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--validation-freq", type=int, default=None)
+    ap.add_argument("--limit-train-batches", type=int, default=None)
+    ap.add_argument("--limit-val-batches", type=int, default=None)
+    ap.add_argument("--limit-test-batches", type=int, default=None)
+    ap.add_argument("--runs-root", default="runs")
+    ap.add_argument("--device", default=None,
+                    help="torch device; default the card (raises without one): pass cpu to "
+                         "run on the CPU")
+    ap.add_argument("--no-packed", action="store_true",
+                    help="train batch by batch through the host Featurizer instead of the "
+                         "packed macro-batch path")
+    ap.add_argument("--macro-batches", type=int, default=32,
+                    help="steps per call of the packed path (on the card one CUDA graph of "
+                         "this many steps); mid-epoch validation lands on macro boundaries")
+    ap.add_argument("--export-dir", default=None, help="export the model here at the end")
+    ap.add_argument("--sorted-feature", default="auto",
+                    help="single-slot feature to host-sort each batch by (packed path): its "
+                         "table's ids reach the update kernel sorted. 'auto' (default) picks "
+                         "the largest eligible table, and is off on --no-packed; 'off' disables")
+    ap.add_argument("--block-sorted-kernel", choices=["auto", "off", "float32", "bfloat16"],
+                    default="auto",
+                    help="the reference's block-sorted kernel mode. In the port one kernel "
+                         "serves every table at every shape, and the mode sets the dtype of "
+                         "the gradients the row-wise Adagrad kernel takes: bfloat16 rounds "
+                         "them, float32 and off pass f32. 'auto' (default) takes the kernels "
+                         "wherever the port's kernels take the shapes, which is everywhere "
+                         "but a sorted bf16 table (the reference refuses that pair): bfloat16 "
+                         "under --compute-dtype bfloat16, else float32. The reference's "
+                         "profitability rule is a TPU measurement and is not ported")
+    ap.add_argument("--select-best", default=None, metavar="METRIC",
+                    help="keep the state of the best epoch by this val metric (names "
+                         "containing 'loss' minimize); the test eval and --export-dir use it. "
+                         "Retrieval metrics (val_recall_at_100, val_ndcg_at_10, ...) run an "
+                         "exact top-k eval on a val-user subsample each epoch")
+    ap.add_argument("--retrieval-eval-users", type=int, default=2000,
+                    help="user subsample of the per-epoch retrieval eval")
+    ap.add_argument("--compute-dtype", choices=["float32", "bfloat16"], default="float32",
+                    help="tower matmul dtype (params and optimizer state stay float32)")
+    ap.add_argument("--table-dtype", choices=["float32", "bfloat16", "int8"], default="float32",
+                    help="embedding-table storage dtype (Adagrad math stays float32)")
+    ap.add_argument("--wire-format", choices=["auto", "packed", "compact"], default="auto",
+                    help="host->device batch encoding of the packed path: 'auto' is 'packed' "
+                         "in the port; 'compact' is not ported yet (ROADMAP M11)")
+    # not ported yet: each raises when given
+    ap.add_argument("--multi-host", action="store_true", help="not ported yet (ROADMAP M12)")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="model axis size; above 1 not ported yet (ROADMAP M12)")
+    ap.add_argument("--sharded-exchange", choices=["dense", "alltoall"], default=None,
+                    help="not ported yet (ROADMAP M12)")
+    ap.add_argument("--exchange-capacity-factor", type=float, default=None,
+                    help="not ported yet (ROADMAP M12)")
+    ap.add_argument("--exchange-wire-dtype", choices=["float32", "bfloat16"], default=None,
+                    help="not ported yet (ROADMAP M12)")
+    ap.add_argument("--wire-cache", default=None, metavar="DIR",
+                    help="not ported yet (ROADMAP M11)")
+    ap.add_argument("--wire-cache-order", choices=["auto", "loader", "rotate", "shuffle"],
+                    default=None, help="not ported yet (ROADMAP M11)")
+    ap.add_argument("--wire-cache-generations", type=int, default=None,
+                    help="not ported yet (ROADMAP M11)")
+    ap.add_argument("--checkpoint-dir", default=None, help="not ported yet (ROADMAP M8b)")
+    ap.add_argument("--resume", action="store_true", help="not ported yet (ROADMAP M8b)")
+    return ap.parse_args(argv)
+
+
+def refuse_unported(args: argparse.Namespace) -> None:
+    """Raise for a flag whose module the port does not have yet."""
+    for name, (unset, item) in _UNPORTED.items():
+        if getattr(args, name) != unset:
+            raise NotImplementedError(f"--{name.replace('_', '-')} is not ported to the PyTorch "
+                                      f"package yet (ROADMAP.md Queue 1, {item})")
+    if args.mesh_model != 1:
+        raise NotImplementedError("--mesh-model above 1 is not ported to the PyTorch package "
+                                  "yet (ROADMAP.md Queue 1, M12, multi-GPU)")
+    if args.wire_format == "compact":
+        raise NotImplementedError("--wire-format compact is not ported to the PyTorch package "
+                                  "yet (ROADMAP.md Queue 1, M11, the compact wire)")
+
+
+def block_sorted_kernel_auto(mcfg: cfg_lib.ModelConfig, sorted_feature: str | None,
+                             compute_dtype: str) -> str:
+    """The port's `--block-sorted-kernel auto`: the kernels wherever the
+    port's kernels take the shapes. One kernel serves every table at every
+    size, so only the pair the reference refuses (a host-sorted bf16 table)
+    stays off; the gradients' dtype follows the tower compute's."""
+    if sorted_feature and mcfg.table_dtype_of(mcfg.feature(sorted_feature).table) == "bfloat16":
+        return "off"
+    return "bfloat16" if compute_dtype == "bfloat16" else "float32"
+
+
+def main(argv: list[str] | None = None) -> dict:
+    """Train, evaluate and export; returns {"metrics": train_val_test's
+    results, "epochs": each epoch's train stats, "captures"/"replays" of the
+    packed path's multi-step, "run_dir"}."""
+    args = parse_args(argv)
+    refuse_unported(args)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    device = resolve_device(args.device)
+
+    mcfg = cfg_lib.two_tower_model_config(
+        num_users=args.num_users, num_items=args.num_items, embedding_dim=args.embedding_dim,
+        layer_sizes=tuple(args.layer_sizes), compute_dtype=args.compute_dtype)
+    if args.table_dtype != "float32":
+        mcfg = dataclasses.replace(mcfg, table_dtype=args.table_dtype)
+    sorted_feature = args.sorted_feature
+    if sorted_feature == "off":
+        sorted_feature = None
+    elif sorted_feature == "auto":
+        sorted_feature = auto_sorted_feature(mcfg) if not args.no_packed else None
+        log.info("sorted-feature auto: %s", sorted_feature)
+    elif args.no_packed:
+        # the host-sorted ids live in the packed path: the per-batch Featurizer does not sort
+        raise SystemExit("--sorted-feature requires the packed path")
+    block_kernel = args.block_sorted_kernel
+    if block_kernel == "auto":
+        block_kernel = block_sorted_kernel_auto(mcfg, sorted_feature, args.compute_dtype)
+        log.info("block-sorted-kernel auto: %s", block_kernel)
+    tcfg = cfg_lib.TrainConfig(
+        epochs=args.epochs, batch_size=args.batch_size, learning_rate=args.learning_rate,
+        sparse_learning_rate=args.sparse_learning_rate, loss=args.loss, seed=args.seed,
+        validation_freq=args.validation_freq, softmax_temperature=args.softmax_temperature,
+        limit_train_batches=args.limit_train_batches,
+        limit_val_batches=args.limit_val_batches, limit_test_batches=args.limit_test_batches,
+        sorted_feature=sorted_feature, block_sorted_kernel=block_kernel)
+
+    state, dense_opt = create_train_state(torch.Generator(device=device).manual_seed(args.seed),
+                                          mcfg, tcfg)
+    train_step = make_train_step(mcfg, tcfg, dense_opt)
+    eval_step = make_eval_step(mcfg, tcfg)
+    featurizer = Featurizer(mcfg, device="cpu")  # host batches; the loop moves them
+
+    logger = ExperimentLogger(args.runs_root)
+    logger.log_params({
+        "num_users": args.num_users, "num_items": args.num_items,
+        "embedding_dim": args.embedding_dim, "layer_sizes": args.layer_sizes,
+        "batch_size": args.batch_size, "loss": args.loss, "devices": 1, "hosts": 1,
+        "platform": "gpu" if device.type == "cuda" else device.type,
+        "device_kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "devices_per_host": 1,
+    })
+
+    train_loader = StreamLoader(os.path.join(args.data_dir, "train"), args.batch_size,
+                                seed=args.seed)
+    if args.no_packed and train_loader.dataset.index.get("packed"):
+        raise SystemExit("--no-packed cannot train on a PRE-PACKED dataset (its columns are "
+                         "device-layout packed_ids, not raw features): drop --no-packed or "
+                         "prepare the data without --packed")
+
+    def eval_factory(split):
+        return lambda: StreamLoader(os.path.join(args.data_dir, split), args.batch_size,
+                                    shuffle=False, drop_last=False)
+
+    epochs: list[dict] = []
+    multi = None
+    if args.no_packed:
+        def train_epoch_fn(state, epoch):
+            train_loader.set_epoch(epoch)
+            state, stats = train_one_epoch(state, train_step, train_loader, featurizer, tcfg,
+                                           eval_step, eval_factory("val"), logger, epoch)
+            epochs.append(stats)
+            return state, stats
+    else:
+        if train_loader.dataset.index.get("packed"):
+            packed_feat = PrepackedFeaturizer.for_dataset(train_loader.dataset, mcfg,
+                                                          sort_feature=sorted_feature)
+        else:
+            packed_feat = PackedFeaturizer(mcfg, pack_label=True, sort_feature=sorted_feature)
+        # unpack with the featurizer's own label encoding: a pre-packed dataset
+        # written with pack_label=False keeps its labels in a column of their own
+        pl = packed_feat.pack_label
+        multi = make_multi_step(lambda s, pb: train_step(s, unpack_batch(pb, mcfg,
+                                                                         pack_label=pl)))
+        tail_step = make_packed_train_step(train_step, mcfg, pack_label=pl)
+        val_ds = ShardedDataset(os.path.join(args.data_dir, "val"))
+        if val_ds.index.get("packed"):  # pre-packed val/test evaluate through the packed step
+            featurizer = PrepackedFeaturizer.for_dataset(val_ds, mcfg)
+            eval_step = make_packed_eval_step(eval_step, mcfg, pack_label=featurizer.pack_label)
+
+        def train_epoch_fn(state, epoch):
+            train_loader.set_epoch(epoch)
+            state, stats = train_one_epoch_packed(
+                state, multi, train_loader, packed_feat, macro=args.macro_batches,
+                train_cfg=tcfg, tail_step=tail_step, eval_step=eval_step,
+                val_batches_factory=eval_factory("val"), val_featurizer=featurizer,
+                logger=logger, epoch=epoch)
+            epochs.append(stats)
+            return state, stats
+
+    # --select-best on a retrieval metric: an exact top-k on a val-user subsample
+    # each epoch (val AUROC is no selection signal for the in-batch objective)
+    retrieval_eval_fn = None
+    if args.select_best and any(t in args.select_best
+                                for t in ("recall", "ndcg", "mrr", "precision", "hit")):
+        positives = split_positives(os.path.join(args.data_dir, "val"))
+        m = re.search(r"_at_(\d+)$", args.select_best)
+        k_sel = int(m.group(1)) if m else 100
+        retrieval_eval_fn = make_retrieval_eval_fn(mcfg, positives, k=max(k_sel, 100),
+                                                   ks=(k_sel,),
+                                                   max_users=args.retrieval_eval_users)
+        print(f"per-epoch retrieval eval: {len(positives)} users with val positives, "
+              f"subsample {args.retrieval_eval_users}, selecting on {args.select_best}")
+
+    state, results = train_val_test(
+        state, train_step, eval_step, mcfg, tcfg, featurizer,
+        train_batches_factory=None, val_batches_factory=eval_factory("val"),
+        test_batches_factory=eval_factory("test"), logger=logger,
+        train_epoch_fn=train_epoch_fn, select_best=args.select_best,
+        retrieval_eval_fn=retrieval_eval_fn)
+    print({k: round(v, 5) for k, v in results.items()})
+    if args.export_dir:
+        export_model(args.export_dir, mcfg, state)
+        print(f"exported model to {args.export_dir}")
+    return {"metrics": results, "epochs": epochs,
+            "captures": multi.captures if multi else 0, "replays": multi.replays if multi else 0,
+            "run_dir": logger.run_dir}
+
+
+if __name__ == "__main__":
+    main()

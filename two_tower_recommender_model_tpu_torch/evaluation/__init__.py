@@ -3,4 +3,5 @@ from two_tower_recommender_model_tpu_torch.evaluation.retrieval import (  # noqa
     export_feature_embeddings,
     make_retrieval_eval_fn,
     retrieval_metrics,
+    split_positives,
 )

@@ -1,13 +1,13 @@
 """Full-corpus tower embedding export and the retrieval evaluation.
 
 Port of `two_tower_recommender_model_tpu/evaluation/retrieval.py`:
-`export_feature_embeddings`, `retrieval_metrics`, `evaluate_retrieval` and
-`make_retrieval_eval_fn`. The row gather goes through `pooled_lookup` with
-one slot and weight 1, so on a CUDA model the export runs the pooled-gather
-kernel too; an int8 table's rows come straight from the int8 gather kernel
-(the reference dequantizes the whole table first; the rows are the same).
-`split_positives` (it needs the shard reader) and
-`per_user_retrieval_table` (pandas) are not ported yet.
+`export_feature_embeddings`, `retrieval_metrics`, `split_positives`,
+`evaluate_retrieval` and `make_retrieval_eval_fn`. The row gather goes
+through `pooled_lookup` with one slot and weight 1, so on a CUDA model the
+export runs the pooled-gather kernel too; an int8 table's rows come straight
+from the int8 gather kernel (the reference dequantizes the whole table
+first; the rows are the same). `per_user_retrieval_table` returns a pandas
+DataFrame in the reference and is not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -115,6 +115,56 @@ def retrieval_metrics(
             ideal = (1.0 / np.log2(np.arange(2, min(len(tgt), k) + 2))).sum()
             out.setdefault(f"ndcg_at_{k}", []).append(dcg / ideal if ideal > 0 else 0.0)
     return {name: float(np.mean(vals)) for name, vals in out.items()}
+
+
+def split_positives(
+    split_path: str,
+    user_col: str = "user_id",
+    item_col: str = "product_id",
+    label_col: str = "label",
+) -> dict[int, list]:
+    """Held-out positives grouped per user from a TTRS split directory (raw
+    columns or pre-packed), in the split's row order: the eval set of the
+    retrieval protocol."""
+    from two_tower_recommender_model_tpu_torch.data.loader import StreamLoader
+    from two_tower_recommender_model_tpu_torch.data.shards import ShardedDataset
+
+    dataset = ShardedDataset(split_path)
+    packed_meta = dataset.index.get("packed")
+    if packed_meta:
+        # the feature -> slot mapping comes from the dataset's RECORDED layout
+        # (multi-slot features or another feature order shift the slots)
+        slot_of, off = {}, 0
+        for name, L, _n in packed_meta["slots"]:
+            slot_of[name] = off
+            off += L
+        if user_col not in slot_of or item_col not in slot_of:
+            raise ValueError(f"packed split {split_path}: features {list(slot_of)} do not "
+                             f"include {user_col!r}/{item_col!r}")
+        u_slot, i_slot = slot_of[user_col], slot_of[item_col]
+    columns = None if packed_meta else [user_col, item_col, label_col]
+    user_positives: dict[int, list] = {}
+    loader = StreamLoader(dataset, 1 << 16, shuffle=False, drop_last=False, columns=columns)
+    for cols in loader:
+        if packed_meta:
+            ids = np.asarray(cols["packed_ids"])
+            us = ids[:, u_slot]
+            if packed_meta["pack_label"]:
+                labels = (ids[:, 0] >> 30) & 1  # the label bit rides bit 30 of slot 0
+                if u_slot == 0:
+                    us = us & ((1 << 30) - 1)
+            else:
+                labels = np.asarray(cols["labels"])
+            ps = ids[:, i_slot]
+            if packed_meta["pack_label"] and i_slot == 0:
+                ps = ps & ((1 << 30) - 1)
+        else:
+            labels = np.asarray(cols[label_col])
+            us, ps = np.asarray(cols[user_col]), np.asarray(cols[item_col])
+        m = labels == 1
+        for u, p in zip(us[m], ps[m]):
+            user_positives.setdefault(int(u), []).append(int(p))
+    return user_positives
 
 
 def evaluate_retrieval(
