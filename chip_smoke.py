@@ -3,9 +3,12 @@ against its plain PyTorch version, serve the full-width flagship model over
 HTTP, train it with BCE (f32, int8 and bf16 tables) and with the in-batch
 sampled softmax, eagerly and as CUDA graphs of 16 steps, serve the int8- and
 the bf16-trained model, run the gather probe, train the small learnable
-models to a target AUROC and a target recall@10, and run the Instacart
+models to a target AUROC and a target recall@10, run the Instacart
 pipeline (replica -> prepare -> train -> recall@100) through its entry
-points.
+points, and on its shards the rest of a user's workflow: train with
+checkpoints -> crash -> restart and resume -> register -> promote -> serve
+by stage -> batch-score a split -> the per-user retrieval table, and a
+profiler trace of replayed steps.
 
     python3 chip_smoke.py [--profile]
 
@@ -163,13 +166,43 @@ without a card. Phases (any failure raises and exits non-zero):
    the retrieval exports'; BCE recall@100 over every test user >= 0.35;
    the replica, prepare, train epochs (and examples/s) and eval seconds
    beside the card's name and power limit;
-21. with --profile, torch.profiler traces of the serving calls, of the
+21. `[resume]` on phase 20's shards, BCE, 3 epochs of 8,192, --fast's
+   flags: `cli.train --checkpoint-dir` uninterrupted, then under
+   `resilient_fit` a run whose first attempt raises an OSError right after
+   epoch 1's checkpoint and whose restart runs `cli.train --resume`. The
+   two last checkpoints (tables, accumulators, towers, Adam's moments and
+   counts, step) must be equal bit for bit; restarts 1, resumed at epoch 1's
+   step; each run's launches equal its steps' and evals' (the restart adds
+   one capture and one baseline eval); the checkpoint's bytes, save and
+   restore seconds and the resumed epoch's seconds beside the card line. The
+   same with `--table-dtype int8` (#5, #6);
+22. `[registry]` each resumed run's state registered with
+   `register_from_run` (its `ExperimentLogger` run) and promoted to
+   Production, f32 then int8: the first becomes Archived; each version's
+   files equal the run's own export; `load_scorer_from_registry` on the card
+   predicts bit for bit what `load_scorer` of the run's export predicts; a
+   `ModelServer` on that scorer answers three `/invocations` (2 launches of
+   #1 each);
+23. `[batch-predict]` `batch_predict` with the registry's scorer over the
+   smoke test split (raw columns, prepared from the same CSVs): as many rows
+   as the input's index, each batch's `prediction` bit for bit
+   `Scorer.predict` of its rows, 2 launches of #1 a batch, rows/s;
+24. `[per-user-table]` `cli.evaluate_retrieval --per-user-table` in a child
+   process on the Production model: one CSV row per evaluated user, the
+   mean of its recall_at_100 column within 1e-6 of the run's recall@100;
+25. `[profile-trace]` `profile_trace` around one replay of 3 captured steps
+   on the smoke shards: the trace names the gather (#1) and Adagrad (#4)
+   kernels; `device_memory_stats()` and a `StepTimer` summary of 5 replays;
+26. with --profile, torch.profiler traces of the serving calls, of the
    three train steps and of a graph replay: device busy time, idle share and
    the largest device items, the gather kernel's (#1 or #5) device ms a call
    or a replayed step; and for each graph the SM clock and the active
    throttle reasons (nvidia-smi) before, during and after 20 more replays.
 
 The process must not have imported JAX, the JAX package, pandas or pyarrow.
+The card's machine has pandas and pyarrow, but the port's data path runs on
+numpy and the standard library by choice; the per-user table (a pandas
+DataFrame, as the reference's) is written in a child process.
 The line before the last is a JSON object describing each kernel; the last
 line is `{"ok": true, "device": {...}}`.
 """
@@ -179,6 +212,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import csv
 import dataclasses
 import json
 import os
@@ -201,6 +235,9 @@ from two_tower_recommender_model_tpu_torch.data.device_featurizer import (
     unpack_batch,
 )
 from two_tower_recommender_model_tpu_torch.data.featurizer import Featurizer
+from two_tower_recommender_model_tpu_torch.data.loader import StreamLoader
+from two_tower_recommender_model_tpu_torch.data.prepacked import PrepackedFeaturizer
+from two_tower_recommender_model_tpu_torch.data.shards import ShardedDataset
 from two_tower_recommender_model_tpu_torch.data.synthetic import SyntheticClickstream
 from two_tower_recommender_model_tpu_torch.evaluation.retrieval import (
     export_feature_embeddings,
@@ -245,14 +282,31 @@ from two_tower_recommender_model_tpu_torch.ops.tower_bwd import (
     tower_backward_reference,
 )
 from two_tower_recommender_model_tpu_torch.serving import RetrievalService, Scorer
-from two_tower_recommender_model_tpu_torch.serving.scorer import load_scorer
+from two_tower_recommender_model_tpu_torch.serving.batch import batch_predict
+from two_tower_recommender_model_tpu_torch.serving.scorer import (
+    load_scorer,
+    load_scorer_from_registry,
+)
 from two_tower_recommender_model_tpu_torch.serving.server import ModelServer
 from two_tower_recommender_model_tpu_torch.train import optimizer as opt_lib
 from two_tower_recommender_model_tpu_torch.train import step as step_lib
 from two_tower_recommender_model_tpu_torch.tools import probe_consumer
 from two_tower_recommender_model_tpu_torch.train.loop import train_one_epoch_packed, train_val_test
-from two_tower_recommender_model_tpu_torch.train.pipeline import map_leaves
-from two_tower_recommender_model_tpu_torch.utils.checkpoint import export_model
+from two_tower_recommender_model_tpu_torch.train.pipeline import device_put_batch, map_leaves
+from two_tower_recommender_model_tpu_torch.train.resilient import resilient_fit
+from two_tower_recommender_model_tpu_torch.utils.checkpoint import (
+    STATE_FILE,
+    Checkpointer,
+    export_model,
+    load_model,
+)
+from two_tower_recommender_model_tpu_torch.utils.profiling import (
+    StepTimer,
+    device_memory_stats,
+    profile_trace,
+)
+from two_tower_recommender_model_tpu_torch.utils.registry import ModelRegistry, register_from_run
+from two_tower_recommender_model_tpu_torch.utils.tracking import ExperimentLogger
 
 NUM_USERS, NUM_ITEMS, DIM, LAYERS = 206_209, 49_688, 128, (128, 64)
 BAGS = 8192
@@ -2732,28 +2786,29 @@ def card_line() -> str:
 
 
 def expected_train_launches(train_out: dict, per_step: dict[str, int], eval_batches: int,
-                            exports: int) -> tuple[dict[str, int], dict[str, int]]:
+                            exports: int, gather: str = "pooled_gather",
+                            ) -> tuple[dict[str, int], dict[str, int]]:
     """(launches the wrappers count, launches the card runs) of a cli.train
     run on the packed path: Python launches a step's kernels in the
     multi-step's warm-up and capture (WARMUP_STEPS + K steps a capture) and
     in each eager tail step; a replay runs the K captured steps without
-    Python. Each eval batch gathers from both tables (#1), and so does each
-    retrieval export chunk."""
+    Python. Each eval batch gathers from both tables (`gather`: #1, or #5
+    for int8 tables), and so does each retrieval export chunk."""
     steps = sum(e["train_steps"] for e in train_out["epochs"])
     replayed = train_out["replays"] * PIPELINE_K
     python_steps = train_out["captures"] * (step_lib.WARMUP_STEPS + PIPELINE_K) + steps - replayed
     card_steps = train_out["captures"] * step_lib.WARMUP_STEPS + steps
     gathers = 2 * eval_batches + exports
-    counted = {k: n * python_steps + (gathers if k == "pooled_gather" else 0)
+    counted = {k: n * python_steps + (gathers if k == gather else 0)
                for k, n in per_step.items()}
-    on_card = {k: n * card_steps + (gathers if k == "pooled_gather" else 0)
+    on_card = {k: n * card_steps + (gathers if k == gather else 0)
                for k, n in per_step.items()}
     return counted, on_card
 
 
-def phase_pipeline(dev: torch.device) -> dict[str, dict[str, int]]:
-    """`[pipeline]` the Instacart pipeline through its entry points, in a
-    temporary work directory: `cli.instacart_pipeline.main` on the --smoke
+def phase_pipeline(dev: torch.device, work: str) -> tuple[dict[str, dict[str, int]], dict]:
+    """`[pipeline]` the Instacart pipeline through its entry points, in the
+    work directory `work`: `cli.instacart_pipeline.main` on the --smoke
     replica (8,000 users, 4,000 products, seed 0), --packed --fast, the
     flagship widths (dim 128, towers [128, 64]), BCE, 3 epochs of batch
     8,192, on the card; then one epoch of the sampled softmax on the same
@@ -2761,39 +2816,37 @@ def phase_pipeline(dev: torch.device) -> dict[str, dict[str, int]]:
     launches are checked against its steps x a step's launches (+ the eval
     batches' and the retrieval exports' gathers); BCE recall@100 over every
     test user must reach BCE_RECALL_FLOOR; the host stages' seconds are
-    printed beside the card's name and power limit."""
+    printed beside the card's name and power limit. Returns the two runs'
+    launches and the pipeline's result (the later phases train on its
+    shards)."""
     from two_tower_recommender_model_tpu_torch.cli import (
         evaluate_retrieval as eval_cli,
         instacart_pipeline,
         train as train_cli,
     )
 
-    work = tempfile.mkdtemp(prefix="ttrm_pipeline_")
-    try:
-        # --- the path, counted ---------------------------------------------------
-        reset_launches()
-        t0 = time.perf_counter()
-        out = instacart_pipeline.main(["--work", work, "--smoke", "--packed", "--fast",
-                                       "--seed", "0", "--epochs", "3", "--batch-size", "8192",
-                                       "--loss", "bce"])
-        seconds = time.perf_counter() - t0
-        bce_launches = read_launches()
-        shards, meta = os.path.join(work, "shards"), out["prepare"]["meta"]
-        reset_launches()
-        t1 = time.perf_counter()
-        softmax = train_cli.main([
-            "--data-dir", shards, "--num-users", str(meta["num_users"]),
-            "--num-items", str(meta["num_items"]), "--epochs", "1", "--batch-size", "8192",
-            "--loss", "sampled_softmax", "--sparse-learning-rate", "0.1", "--seed", "0",
-            "--runs-root", os.path.join(work, "runs"),
-            "--export-dir", os.path.join(work, "model-softmax"), *PIPELINE_FAST])
-        softmax_train_s = time.perf_counter() - t1
-        softmax_retrieval = eval_cli.main(["--model-dir", os.path.join(work, "model-softmax"),
-                                           "--data-dir", shards, "--k", "100",
-                                           "--max-users", "10000"])
-        softmax_launches = read_launches()
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    # --- the path, counted -------------------------------------------------------
+    reset_launches()
+    t0 = time.perf_counter()
+    out = instacart_pipeline.main(["--work", work, "--smoke", "--packed", "--fast",
+                                   "--seed", "0", "--epochs", "3", "--batch-size", "8192",
+                                   "--loss", "bce"])
+    seconds = time.perf_counter() - t0
+    bce_launches = read_launches()
+    shards, meta = os.path.join(work, "shards"), out["prepare"]["meta"]
+    reset_launches()
+    t1 = time.perf_counter()
+    softmax = train_cli.main([
+        "--data-dir", shards, "--num-users", str(meta["num_users"]),
+        "--num-items", str(meta["num_items"]), "--epochs", "1", "--batch-size", "8192",
+        "--loss", "sampled_softmax", "--sparse-learning-rate", "0.1", "--seed", "0",
+        "--runs-root", os.path.join(work, "runs"),
+        "--export-dir", os.path.join(work, "model-softmax"), *PIPELINE_FAST])
+    softmax_train_s = time.perf_counter() - t1
+    softmax_retrieval = eval_cli.main(["--model-dir", os.path.join(work, "model-softmax"),
+                                       "--data-dir", shards, "--k", "100",
+                                       "--max-users", "10000"])
+    softmax_launches = read_launches()
     # --- checks, not counted ------------------------------------------------------
     rows = out["prepare"]["rows"]
     eval_batches = {split: -(-rows[split] // 8192) for split in ("val", "test")}
@@ -2838,7 +2891,352 @@ def phase_pipeline(dev: torch.device) -> dict[str, dict[str, int]]:
             f"{int(ret['num_users'])} test users at k=100: recall@10={ret['recall_at_10']!r} "
             f"recall@100={ret['recall_at_100']!r} ndcg@100={ret['ndcg_at_100']!r}; launches "
             f"counted {made} (= the steps' and evals' expectation), run on the card {on_card}")
-    return {"pipeline": bce_launches, "pipeline-softmax": softmax_launches}
+    return {"pipeline": bce_launches, "pipeline-softmax": softmax_launches}, out
+
+
+RESUME_EPOCHS, RESUME_CRASH_EPOCH = 3, 1  # the first attempt crashes after epoch 1's checkpoint
+REGISTRY_NAME = "instacart_two_tower"
+PROFILE_K = 3  # steps a graph in [profile-trace]
+
+
+def smoke_model_config(meta: dict, table_dtype: str) -> cfg_lib.ModelConfig:
+    """The model cli.train builds for the smoke shards with --fast's flags."""
+    cfg = cfg_lib.two_tower_model_config(meta["num_users"], meta["num_items"], embedding_dim=DIM,
+                                         layer_sizes=LAYERS, compute_dtype="bfloat16")
+    return cfg if table_dtype == "float32" else dataclasses.replace(cfg, table_dtype=table_dtype)
+
+
+def restored_state(dev: torch.device, cfg, ckpt_dir: str):
+    """The state of the latest checkpoint in `ckpt_dir`, on the card."""
+    template, _ = step_lib.create_train_state(torch.Generator(device=dev).manual_seed(1), cfg,
+                                              cfg_lib.TrainConfig())
+    return Checkpointer(ckpt_dir).restore(template)[0]
+
+
+def last_checkpoint(ckpt_dir: str) -> dict:
+    ckpt = Checkpointer(ckpt_dir)
+    return torch.load(os.path.join(ckpt.step_dir(ckpt.latest_step()), STATE_FILE),
+                      map_location="cpu", weights_only=True)
+
+
+def phase_resume(dev: torch.device, work: str, pipeline: dict, table_dtype: str):
+    """`[resume]` cli.train with checkpoints on the pipeline's smoke shards,
+    uninterrupted, then crashed after epoch RESUME_CRASH_EPOCH's checkpoint
+    (an OSError) and restarted with --resume by `resilient_fit`: the two
+    runs' last checkpoints (the whole training state) bit for bit equal.
+    Each run is counted alone; the restarted run's launches are the
+    uninterrupted run's plus one more capture (the restart captures its own
+    graph) and one more baseline validation. Returns both runs' launches and
+    the restarted run's directories."""
+    from two_tower_recommender_model_tpu_torch.cli import train as train_cli
+
+    tag = "[resume]" if table_dtype == "float32" else f"[resume-{table_dtype}]"
+    per_step = BCE_F32 if table_dtype == "float32" else BCE_INT8
+    gather = "pooled_gather" if table_dtype == "float32" else "quantized_pooled_gather"
+    shards, meta = os.path.join(work, "shards"), pipeline["prepare"]["meta"]
+
+    def argv(run: str, *extra) -> list[str]:
+        return ["--data-dir", shards, "--num-users", str(meta["num_users"]),
+                "--num-items", str(meta["num_items"]), "--epochs", str(RESUME_EPOCHS),
+                "--batch-size", "8192", "--loss", "bce", "--sparse-learning-rate", "0.1",
+                "--seed", "0", "--table-dtype", table_dtype,
+                "--runs-root", os.path.join(work, "runs"),
+                "--checkpoint-dir", os.path.join(work, f"ckpt-{table_dtype}-{run}"),
+                "--export-dir", os.path.join(work, f"model-{table_dtype}-{run}"), *PIPELINE_FAST,
+                *extra]
+
+    class CrashAfterCheckpoint(Checkpointer):
+        def save(self, step, state, loader_state=None, extra=None, wait=False):
+            super().save(step, state, loader_state, extra, wait)
+            if extra["completed_epoch"] == RESUME_CRASH_EPOCH:
+                raise OSError(f"injected crash after epoch {RESUME_CRASH_EPOCH}'s checkpoint")
+
+    def attempt(restart: int) -> dict:
+        if restart:
+            return train_cli.main(argv("crashed", "--resume"))
+        train_cli.Checkpointer = CrashAfterCheckpoint
+        try:
+            return train_cli.main(argv("crashed"))
+        finally:
+            train_cli.Checkpointer = Checkpointer
+
+    # --- the path, counted: each run alone ---------------------------------------------
+    t0 = time.perf_counter()
+    reset_launches()
+    whole = train_cli.main(argv("whole"))
+    whole_launches = read_launches()
+    t1 = time.perf_counter()
+    reset_launches()
+    crashed = resilient_fit(attempt, max_restarts=1, backoff_s=0.0)
+    crashed_launches = read_launches()
+    t2 = time.perf_counter()
+    # --- checks, not counted ------------------------------------------------------
+    got = last_checkpoint(os.path.join(work, f"ckpt-{table_dtype}-crashed"))
+    want = last_checkpoint(os.path.join(work, f"ckpt-{table_dtype}-whole"))
+    if got["tensors"].keys() != want["tensors"].keys() or got["step"] != want["step"]:
+        raise AssertionError(f"{tag} the last checkpoints hold different tensors or steps: "
+                             f"{got['step']} != {want['step']}")
+    differ = {k: (got["tensors"][k].float() - t.float()).abs().max().item()
+              for k, t in want["tensors"].items() if not bitwise_equal(got["tensors"][k], t)}
+    if differ:
+        worst = max(differ, key=differ.get)
+        raise AssertionError(f"{tag} the resumed run is not bit for bit the uninterrupted run: "
+                             f"{len(differ)} tensors differ, the largest by {differ[worst]!r} in "
+                             f"{worst}")
+    steps = whole["metrics"]["train_steps"]
+    if (crashed["restarts"], crashed["resumed_from"], whole["resumed_from"]) != (
+            1, (RESUME_CRASH_EPOCH + 1) * steps, None) or "OSError" not in crashed["failures"][0]:
+        raise AssertionError(f"{tag} restarts {crashed['restarts']}, resumed from "
+                             f"{crashed['resumed_from']}, failures {crashed['failures']}")
+    if crashed["metrics"]["test_auroc"] != whole["metrics"]["test_auroc"]:
+        raise AssertionError(f"{tag} test AUROC {crashed['metrics']['test_auroc']} != "
+                             f"{whole['metrics']['test_auroc']}")
+    rows = pipeline["prepare"]["rows"]
+    val, test = (-(-rows[split] // 8192) for split in ("val", "test"))
+    counted, _ = expected_train_launches(whole, per_step, (1 + RESUME_EPOCHS) * val + test, 0,
+                                         gather)
+    made = {k: v for k, v in whole_launches.items() if v}
+    restart = {k: n * crashed["captures"] * (step_lib.WARMUP_STEPS + PIPELINE_K)
+               + (2 * val if k == gather else 0) for k, n in per_step.items()}
+    made_crashed = {k: v for k, v in crashed_launches.items() if v}
+    want_crashed = {k: counted[k] + restart[k] for k in counted}
+    if made != counted or made_crashed != want_crashed:
+        raise AssertionError(f"{tag} launches {made} / {made_crashed} != {counted} / "
+                             f"{want_crashed}")
+    if (whole["captures"], crashed["captures"]) != (1, 1):
+        raise AssertionError(f"{tag} captures {whole['captures']}, {crashed['captures']}")
+    saves = whole["checkpoints"]
+    log(f"{tag} {card_line()}: uninterrupted {RESUME_EPOCHS} epochs ({steps} steps each) and "
+        f"crashed after epoch {RESUME_CRASH_EPOCH} + resumed: the last checkpoints bit for bit "
+        f"equal ({len(want['tensors'])} tensors, step {want['step']}); "
+        f"restarts={crashed['restarts']} resumed_from={crashed['resumed_from']}; checkpoint "
+        f"bytes {saves[-1]['bytes']}, save s {[c['seconds'] for c in saves]!r}, restore s "
+        f"{crashed['restore_seconds']!r}; resumed epoch s "
+        f"{[e['epoch_time_s'] for e in crashed['epochs']]!r} examples/s "
+        f"{[e['examples_per_sec'] for e in crashed['epochs']]!r} (uninterrupted epochs s "
+        f"{[e['epoch_time_s'] for e in whole['epochs']]!r}); launches counted {made} and "
+        f"{made_crashed} (= the steps' and evals' expectation, the restart's capture and "
+        f"baseline eval included); runs {t1 - t0!r} s and {t2 - t1!r} s")
+    return whole_launches, crashed_launches, {
+        "cfg": smoke_model_config(meta, table_dtype), "out": crashed,
+        "ckpt": os.path.join(work, f"ckpt-{table_dtype}-crashed"),
+        "export": os.path.join(work, f"model-{table_dtype}-crashed")}
+
+
+def phase_registry(dev: torch.device, work: str, pipeline: dict, runs: dict):
+    """`[registry]` the resumed runs registered from their `ExperimentLogger`
+    runs and promoted to Production in turn (f32, then int8: the f32
+    version becomes Archived); the registry serves Production on the card
+    bit for bit as `load_scorer` serves the run's own export, and through a
+    `ModelServer`. Counted: building the registry's scorer and three
+    requests. Returns the launches, the scorer and the Production model's
+    directory."""
+    meta = pipeline["prepare"]["meta"]
+    t0 = time.perf_counter()
+    reg = ModelRegistry(os.path.join(work, "registry"))
+    versions = {}
+    for table_dtype, run in runs.items():
+        state = restored_state(dev, run["cfg"], run["ckpt"])
+        logger = ExperimentLogger(os.path.dirname(run["out"]["run_dir"]),
+                                  run_id=os.path.basename(run["out"]["run_dir"]))
+        v = register_from_run(reg, REGISTRY_NAME, logger, run["cfg"], state,
+                              description=f"{table_dtype} tables, resumed after a crash")
+        reg.set_stage(REGISTRY_NAME, v, "Production")
+        versions[table_dtype] = v
+        del state
+        entry = reg.get_version(REGISTRY_NAME, v)
+        if entry["run_id"] != logger.run_id or "test_auroc" not in entry["metrics"]:
+            raise AssertionError(f"[registry] v{v} carries {entry}")
+        got_cfg, got = load_model(reg.model_dir(REGISTRY_NAME, v))
+        want_cfg, want = load_model(run["export"])
+        if got_cfg != want_cfg or not all(
+                np.array_equal(a, b) for a, b in zip(param_leaves(got), param_leaves(want))):
+            raise AssertionError(f"[registry] v{v} differs from the run's own export")
+    stages = {e["version"]: e["stage"] for e in reg.versions(REGISTRY_NAME)}
+    if stages != {versions["float32"]: "Archived", versions["int8"]: "Production"}:
+        raise AssertionError(f"[registry] stages {stages}")
+    rng = np.random.default_rng(3)
+    requests = [{"user_id": rng.integers(0, meta["num_users"], n),
+                 "product_id": rng.integers(0, meta["num_items"], n)} for n in (1, 100, BAGS)]
+    # --- the path, counted: the registry's scorer on the card, served over HTTP --------
+    reset_launches()
+    scorer = load_scorer_from_registry(reg.root, REGISTRY_NAME)
+    server = ModelServer(scorer, host="127.0.0.1", port=0).start()
+    try:
+        served = [post(server.url + "/invocations",
+                       {"inputs": {k: v.tolist() for k, v in r.items()}})[0]["predictions"]
+                  for r in requests]
+    finally:
+        server.stop()
+    launches = read_launches()
+    # --- checks, not counted ------------------------------------------------------
+    if launches["pooled_gather"] != 2 * len(requests) or sum(launches.values()) != 2 * len(
+            requests):
+        raise AssertionError(f"[registry] launches {launches}")
+    if scorer.model.device.type != "cuda":
+        raise AssertionError("[registry] the registry's scorer is not on the card")
+    direct = load_scorer(runs["int8"]["export"])
+    for r, preds in zip(requests, served):
+        got = scorer.predict(r)
+        if not np.array_equal(got, direct.predict(r)):
+            raise AssertionError(f"[registry] {len(preds)} rows: the registry's scorer and "
+                                 "load_scorer of the run's export disagree")
+        np.testing.assert_array_equal(np.asarray(preds, np.float32), got)
+    log(f"[registry] {card_line()}: v{versions['float32']} (f32 tables) Archived, "
+        f"v{versions['int8']} (int8 tables) Production, each equal to its run's export; "
+        f"load_scorer_from_registry(Production) on the card bit for bit load_scorer of the "
+        f"export on {[len(r['user_id']) for r in requests]} rows; /invocations answered; "
+        f"launches counted { {k: v for k, v in launches.items() if v} }; "
+        f"{time.perf_counter() - t0!r} s")
+    return launches, scorer, reg.model_dir(REGISTRY_NAME, "Production")
+
+
+def param_leaves(params: dict) -> list[np.ndarray]:
+    """The arrays of a `load_model` params tree, in a fixed order."""
+    out = [params["tables"][k] for k in sorted(params["tables"])]
+    for tower in ("query_tower", "candidate_tower"):
+        for layer in sorted(params[tower]):
+            out += [params[tower][layer][p] for p in ("kernel", "bias")]
+    return out
+
+
+def phase_batch_predict(work: str, scorer: Scorer) -> dict[str, int]:
+    """`[batch-predict]` the registry's scorer over the smoke test split with
+    raw columns (`cli.prepare_instacart` without --packed on the pipeline's
+    CSVs, set-up not counted), 8,192 rows a batch: the output's rows, its
+    columns, and each batch's predictions bit for bit `Scorer.predict` of
+    the same rows."""
+    from two_tower_recommender_model_tpu_torch.cli import prepare_instacart
+
+    raw = os.path.join(work, "shards-raw")
+    t_prepare = time.perf_counter()
+    with contextlib.redirect_stdout(None):
+        prepare_instacart.main(["--csv-dir", os.path.join(work, "csv"), "--out", raw,
+                                "--seed", "0"])
+    t_prepare = time.perf_counter() - t_prepare
+    src, out_dir = os.path.join(raw, "test"), os.path.join(work, "scored")
+    # --- the path, counted -------------------------------------------------------
+    reset_launches()
+    t0 = time.perf_counter()
+    index = batch_predict(scorer, src, out_dir, batch_size=8192)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    # --- checks, not counted ------------------------------------------------------
+    rows = ShardedDataset(src).total_rows
+    batches = -(-rows // 8192)
+    if index["total_rows"] != rows:
+        raise AssertionError(f"[batch-predict] {index['total_rows']} rows out of {rows}")
+    if {k: v for k, v in launches.items() if v} != {"pooled_gather": 2 * batches}:
+        raise AssertionError(f"[batch-predict] launches {launches} for {batches} batches")
+    scored = ShardedDataset(out_dir)
+    got = {k: np.concatenate([scored.read_shard(i)[k] for i in range(scored.num_shards)])
+           for k in scored.schema()}
+    start = 0
+    for cols in StreamLoader(src, 8192, shuffle=False, drop_last=False):
+        n = len(cols["user_id"])
+        if set(got) != set(cols) | {"prediction"}:
+            raise AssertionError(f"[batch-predict] columns {sorted(got)}")
+        for k, v in cols.items():
+            np.testing.assert_array_equal(got[k][start:start + n], v)
+        if not np.array_equal(got["prediction"][start:start + n], scorer.predict(cols)):
+            raise AssertionError(f"[batch-predict] rows {start}-{start + n}: predictions differ "
+                                 "from Scorer.predict")
+        start += n
+    log(f"[batch-predict] {card_line()}: {rows} test rows in {batches} batches of 8,192, "
+        f"{len(index['shards'])} output shards, each batch's predictions bit for bit "
+        f"Scorer.predict's; {seconds!r} s, rows_per_s={rows / seconds!r}; launches counted "
+        f"{ {k: v for k, v in launches.items() if v} }; the raw split's prepare (set-up) "
+        f"{t_prepare!r} s")
+    return launches
+
+
+def phase_per_user_table(work: str, model_dir: str) -> None:
+    """`[per-user-table]` cli.evaluate_retrieval --per-user-table in a child
+    process (pandas is loaded there, not here): one CSV row per evaluated
+    user, and the mean of its recall_at_100 column equals the run's
+    recall@100 to 1e-6."""
+    table, metrics_path = os.path.join(work, "per_user.csv"), os.path.join(work, "per_user.json")
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-m", "two_tower_recommender_model_tpu_torch.cli.evaluate_retrieval",
+         "--model-dir", model_dir, "--data-dir", os.path.join(work, "shards"), "--k", "100",
+         "--max-users", "10000", "--per-user-table", table, "--json-out", metrics_path],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=600)
+    seconds = time.perf_counter() - t0
+    if child.returncode != 0:
+        raise AssertionError(f"[per-user-table] the child failed:\n{child.stderr[-4000:]}")
+    with open(metrics_path) as f:
+        metrics = json.load(f)
+    with open(table, newline="") as f:
+        rows = list(csv.DictReader(f))
+    recall = statistics.fmean(float(r["recall_at_100"]) for r in rows)
+    if len(rows) != metrics["num_users"] or abs(recall - metrics["recall_at_100"]) > 1e-6:
+        raise AssertionError(f"[per-user-table] {len(rows)} rows for {metrics['num_users']} "
+                             f"users, mean recall@100 {recall} != {metrics['recall_at_100']}")
+    log(f"[per-user-table] {card_line()}: {len(rows)} rows (one per evaluated user), mean "
+        f"recall_at_100 {recall!r} against the run's {metrics['recall_at_100']!r}; child "
+        f"process {seconds!r} s")
+
+
+def phase_profile_trace(dev: torch.device, work: str, pipeline: dict, run: dict) -> dict:
+    """`[profile-trace]` the f32 resumed state, PROFILE_K packed steps on
+    the smoke shards captured into a graph (counted: the warm-up and
+    capture), then `profile_trace` around one replay: the trace must name
+    the gather (#1) and row-wise Adagrad (#4) kernels. `device_memory_stats`
+    and a `StepTimer` over 5 more replays."""
+    t0 = time.perf_counter()
+    cfg = run["cfg"]
+    tcfg = cfg_lib.TrainConfig(batch_size=8192, sparse_learning_rate=0.1,
+                               sorted_feature="user_id", block_sorted_kernel="bfloat16")
+    state = restored_state(dev, cfg, run["ckpt"])
+    dense_opt = opt_lib.dense_optimizer(tcfg.learning_rate)
+    core = step_lib.make_train_step(cfg, tcfg, dense_opt)
+    loader = StreamLoader(os.path.join(work, "shards", "train"), 8192, seed=0)
+    feat = PrepackedFeaturizer.for_dataset(loader.dataset, cfg, sort_feature="user_id")
+    batches = iter(loader)
+    stacked = device_put_batch(step_lib.stack_batches(
+        [feat(next(batches)) for _ in range(PROFILE_K)]), dev)
+    batches.close()
+    multi = step_lib.make_multi_step(
+        lambda s, pb: core(s, unpack_batch(pb, cfg, pack_label=feat.pack_label)))
+    # --- the path, counted: warm-up and capture; then a traced replay --------------------
+    reset_launches()
+    state, _ = multi(state, stacked)
+    launches = read_launches()
+    for attempt in range(1, TRACE_TRIES + 1):  # a trace can miss launches: retried, as --profile
+        trace_dir = os.path.join(work, f"trace-{attempt}")
+        with profile_trace(trace_dir):
+            state, _ = multi(state, stacked)
+            torch.cuda.synchronize()
+        (trace_file,) = os.listdir(trace_dir)
+        with open(os.path.join(trace_dir, trace_file)) as f:
+            events = json.load(f)["traceEvents"]
+        names = {e.get("name", "") for e in events}
+        named = {"#1": sorted(n for n in names if "pooled_gather" in n),
+                 "#4": sorted(n for n in names if is_rowwise_adagrad(n))}
+        if all(named.values()):
+            break
+        log(f"[profile-trace] trace {attempt} lacks {[k for k, v in named.items() if not v]}: "
+            "thrown away")
+    else:
+        raise AssertionError(f"[profile-trace] no trace named #1 and #4 in {TRACE_TRIES} tries")
+    timer = StepTimer(window=5)
+    for _ in range(5):
+        state, _ = multi(state, stacked)
+        torch.cuda.synchronize()
+        timer.update(PROFILE_K * 8192)
+    # --- checks, not counted ------------------------------------------------------
+    want = {k: n * (step_lib.WARMUP_STEPS + PROFILE_K) for k, n in BCE_F32.items()}
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"[profile-trace] launches {launches} != {want}")
+    kernels = sum(e.get("cat", "").lower() == "kernel" for e in events)
+    log(f"[profile-trace] {card_line()}: a replay of {PROFILE_K} steps traced (try {attempt}) "
+        f"into {os.path.getsize(os.path.join(trace_dir, trace_file))} bytes, {kernels} kernel "
+        f"events, #1 as {named['#1'][0][:70]!r}, #4 as {named['#4'][0][:70]!r}; "
+        f"device_memory_stats {device_memory_stats()}; StepTimer {timer.summary()}; launches "
+        f"counted {want} (warm-up and capture); {time.perf_counter() - t0!r} s")
+    return launches
 
 
 def main() -> int:
@@ -2893,7 +3291,21 @@ def main() -> int:
     paths["serve-bf16tab"] = phase_serve_trained(dev, bf16_state, bf16_cfg, args.profile,
                                                  "[serve-bf16tab]", "pooled_gather")
     del bf16_state
-    paths.update(phase_pipeline(dev))
+    work = tempfile.mkdtemp(prefix="ttrm_pipeline_")
+    try:
+        pipeline_paths, pipeline = phase_pipeline(dev, work)
+        paths.update(pipeline_paths)
+        runs = {}
+        for table_dtype in ("float32", "int8"):
+            tag = "resume" if table_dtype == "float32" else "resume-int8"
+            paths[tag], paths[tag + "-restart"], runs[table_dtype] = phase_resume(
+                dev, work, pipeline, table_dtype)
+        paths["registry"], scorer, production = phase_registry(dev, work, pipeline, runs)
+        paths["batch-predict"] = phase_batch_predict(work, scorer)
+        phase_per_user_table(work, production)
+        paths["profile-trace"] = phase_profile_trace(dev, work, pipeline, runs["float32"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     torch.cuda.synchronize()
     leaked = [m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "optax", "two_tower_recommender_model_tpu", "pandas", "pyarrow")]

@@ -49,6 +49,18 @@ from two_tower_recommender_model_tpu_torch.train import step as port_step
 from two_tower_recommender_model_tpu_torch.train.loop import train_val_test
 from two_tower_recommender_model_tpu_torch.utils.checkpoint import export_model, load_model
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the test steps are small, and the suite runs
+    several test processes on the same cores, where torch's thread pools
+    would contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ULP = 2.0 ** -7  # one bf16 ulp of x is at most this times |x|
 
 

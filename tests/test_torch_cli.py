@@ -1,8 +1,10 @@
 """The port's entry points (`cli/`): `prepare_instacart` writes what
 `scripts/prepare_instacart.py` writes, byte for byte; `train` and
-`evaluate_retrieval` run on the CPU with `--device cpu` and learn; the
-pipeline runs end to end; every flag whose module is not ported raises,
-naming its ROADMAP item."""
+`evaluate_retrieval` run on the CPU with `--device cpu` and learn; `train`
+checkpoints and resumes (a crashed run resumed equals an uninterrupted one
+bit for bit); `evaluate_retrieval --per-user-table` writes a table that reads
+back to the run's metrics; the pipeline runs end to end; every flag whose
+module is not ported raises, naming its ROADMAP item."""
 
 import dataclasses
 import json
@@ -24,6 +26,8 @@ from two_tower_recommender_model_tpu_torch.cli import (
     prepare_instacart,
     train,
 )
+from two_tower_recommender_model_tpu_torch.train.resilient import resilient_fit
+from two_tower_recommender_model_tpu_torch.utils.checkpoint import STATE_FILE, Checkpointer
 from two_tower_recommender_model_tpu_torch.utils.tracking import latest_run, list_runs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -175,8 +179,7 @@ def test_block_sorted_kernel_auto():
     (["--sharded-exchange", "dense"], "M12"), (["--exchange-capacity-factor", "1.5"], "M12"),
     (["--exchange-wire-dtype", "bfloat16"], "M12"), (["--wire-cache", "wc"], "M11"),
     (["--wire-format", "compact"], "M11"), (["--wire-cache-order", "loader"], "M11"),
-    (["--wire-cache-generations", "2"], "M11"), (["--checkpoint-dir", "ck"], "M8b"),
-    (["--resume"], "M8b"),
+    (["--wire-cache-generations", "2"], "M11"),
 ])
 def test_unported_train_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
@@ -185,9 +188,6 @@ def test_unported_train_flags_raise(flags, item):
 
 
 def test_unported_eval_and_pipeline_flags_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*M8a-2"):
-        evaluate_retrieval.main(["--model-dir", "m", "--data-dir", "d", "--device", "cpu",
-                                 "--per-user-table", "t.csv"])
     with pytest.raises(NotImplementedError, match="ROADMAP.*M11"):
         instacart_pipeline.main(["--work", str(tmp_path), "--wire-cache", "--device", "cpu"])
 
@@ -216,3 +216,132 @@ def test_pipeline_end_to_end_on_the_cpu(csv_dir, tmp_path):
     assert out["train"]["epochs"][0]["train_steps"] > 0
     assert out["retrieval"]["num_users"] > 250 and 0 < out["retrieval"]["recall_at_100"] <= 1
     assert os.path.exists(os.path.join(work, "model", "params.npz"))
+
+
+def _final_checkpoint(directory):
+    ckpt = Checkpointer(directory)
+    return torch.load(os.path.join(ckpt.step_dir(ckpt.latest_step()), STATE_FILE),
+                      weights_only=True)
+
+
+def test_resume_after_the_last_epoch_trains_none(shards, tmp_path):
+    data_dir, meta = shards["packed"]
+    ck = str(tmp_path / "ck")
+    first = train.main(train_argv(data_dir, meta, tmp_path, "--epochs", "2", "--macro-batches",
+                                  "4", "--checkpoint-dir", ck))
+    assert first["resumed_from"] is None and first["restore_seconds"] is None
+    saves = first["checkpoints"]
+    steps = first["metrics"]["train_steps"]
+    assert [(c["step"], c["epoch"]) for c in saves] == [(steps, 0), (2 * steps, 1)]
+    assert all(c["bytes"] > 0 and c["seconds"] >= 0 for c in saves)
+    again = train.main(train_argv(data_dir, meta, tmp_path, "--epochs", "2", "--macro-batches",
+                                  "4", "--checkpoint-dir", ck, "--resume"))
+    assert again["resumed_from"] == 2 * steps and again["epochs"] == [] == again["checkpoints"]
+    assert again["restore_seconds"] >= 0
+    assert again["metrics"]["test_auroc"] == first["metrics"]["test_auroc"]
+    # --resume with nothing to resume from starts from scratch
+    fresh = train.main(train_argv(data_dir, meta, tmp_path, "--epochs", "1", "--checkpoint-dir",
+                                  str(tmp_path / "empty"), "--resume"))
+    assert fresh["resumed_from"] is None and len(fresh["epochs"]) == 1
+
+
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16", "int8"])
+def test_a_crash_after_epoch_0_resumes_to_the_uninterrupted_run(shards, tmp_path, monkeypatch,
+                                                                table_dtype):
+    """An OSError right after epoch 0's checkpoint; `resilient_fit` restarts
+    the run with --resume, which trains epochs 1 and 2. The last checkpoint
+    (the whole training state) equals an uninterrupted run's bit for bit."""
+    data_dir, meta = shards["packed"]
+
+    def argv(ck, *extra):
+        return train_argv(data_dir, meta, tmp_path, "--epochs", "3", "--macro-batches", "4",
+                          "--table-dtype", table_dtype, "--checkpoint-dir", ck, *extra)
+
+    whole = train.main(argv(str(tmp_path / "whole")))
+
+    class CrashAfterEpoch0(Checkpointer):
+        def save(self, step, state, loader_state=None, extra=None, wait=False):
+            super().save(step, state, loader_state, extra, wait)
+            if extra["completed_epoch"] == 0:
+                raise OSError("injected crash after epoch 0's checkpoint")
+
+    def attempt(restart):
+        if restart == 0:
+            with monkeypatch.context() as m:
+                m.setattr(train, "Checkpointer", CrashAfterEpoch0)
+                return train.main(argv(str(tmp_path / "crashed")))
+        return train.main(argv(str(tmp_path / "crashed"), "--resume"))
+
+    out = resilient_fit(attempt, max_restarts=1, backoff_s=0.0)
+    steps = whole["metrics"]["train_steps"]
+    assert out["restarts"] == 1 and out["resumed_from"] == steps
+    assert len(out["epochs"]) == 2 and [c["epoch"] for c in out["checkpoints"]] == [1, 2]
+    got, want = _final_checkpoint(str(tmp_path / "crashed")), _final_checkpoint(
+        str(tmp_path / "whole"))
+    assert got["step"] == want["step"] == 3 * steps
+    assert got["tensors"].keys() == want["tensors"].keys()
+    for name, t in want["tensors"].items():
+        assert torch.equal(got["tensors"][name], t), name
+    assert out["metrics"]["test_auroc"] == whole["metrics"]["test_auroc"]
+
+
+def test_per_user_table_reads_back_to_the_run_metrics(shards, tmp_path):
+    import pandas as pd
+
+    data_dir, meta = shards["packed"]
+    train.main(train_argv(data_dir, meta, tmp_path, "--epochs", "1", "--export-dir",
+                          str(tmp_path / "model")))
+    table = str(tmp_path / "users.csv")
+    metrics = evaluate_retrieval.main(["--model-dir", str(tmp_path / "model"), "--data-dir",
+                                       data_dir, "--device", "cpu", "--per-user-table", table])
+    df = pd.read_csv(table)
+    assert len(df) == metrics["num_users"] > 250
+    assert list(df.columns[:3]) == ["user_id", "product_id_list", "product_id_pred"]
+    assert df["user_id"].is_monotonic_increasing
+    for name in ("recall_at_100", "ndcg_at_100", "mrr"):
+        assert abs(df[name].mean() - metrics[name]) <= 1e-6, name
+
+
+def test_full_scale_quality_tool_runs_at_a_small_scale(tmp_path):
+    """The full-scale quality tool's whole path at 300 users on the CPU: the
+    replica, the packed shards, the BCE run with its checkpoints, the
+    retrieval eval, and its JSON record. The run's own directory inside
+    `--work` is removed after, and what was there before is left alone."""
+    from two_tower_recommender_model_tpu_torch.tools import full_scale_quality
+
+    work, record = tmp_path / "work", tmp_path / "out" / "full_scale.json"
+    work.mkdir()
+    (work / "keep.txt").write_text("not the tool's")
+    out = full_scale_quality.main(["--work", str(work), "--users", "300", "--products", "150",
+                                   "--runs", "bce", "--device", "cpu", "--json-out", str(record)])
+    assert [p.name for p in work.iterdir()] == ["keep.txt"]
+    assert json.loads(record.read_text()) == out
+    run = out["runs"]["bce"]
+    assert set(out["seconds"]) == {"fetch", "prepare"} and out["rows"]["train"] > 16384
+    assert [c["epoch"] for c in run["checkpoints"]] == [0, 1, 2]
+    assert all(c["bytes"] > 0 for c in run["checkpoints"])
+    assert len(run["epochs"]) == 3 and run["epochs"][0]["train_steps"] >= 1
+    assert run["retrieval"]["num_users"] > 250 and 0 < run["retrieval"]["recall_at_100"] <= 1
+    assert 0 <= run["val_auroc"] <= 1
+
+
+def test_full_scale_quality_tool_keeps_a_failed_runs_checkpoints(tmp_path, monkeypatch):
+    """A run that fails after training keeps its directory (shards,
+    checkpoints, export), so `cli.train --resume` can pick it up; nothing
+    else in `--work` is touched."""
+    from two_tower_recommender_model_tpu_torch.cli import evaluate_retrieval
+    from two_tower_recommender_model_tpu_torch.tools import full_scale_quality
+    from two_tower_recommender_model_tpu_torch.utils import Checkpointer
+
+    def fail(argv):
+        raise OSError("eval host lost")
+
+    monkeypatch.setattr(evaluate_retrieval, "main", fail)
+    work = tmp_path / "work"
+    with pytest.raises(OSError, match="eval host lost"):
+        full_scale_quality.main(["--work", str(work), "--users", "300", "--products", "150",
+                                 "--runs", "bce", "--device", "cpu"])
+    (kept,) = work.iterdir()
+    assert kept.name.startswith("full_scale_")
+    assert (kept / "shards").is_dir() and (kept / "bce" / "model").is_dir()
+    assert Checkpointer(str(kept / "bce" / "ckpt")).latest_step() is not None

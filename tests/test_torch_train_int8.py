@@ -48,6 +48,18 @@ from two_tower_recommender_model_tpu_torch.train.loop import train_val_test
 from two_tower_recommender_model_tpu_torch.train.pipeline import map_leaves
 from two_tower_recommender_model_tpu_torch.utils.checkpoint import export_model, load_model
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the test steps are small, and the suite runs
+    several test processes on the same cores, where torch's thread pools
+    would contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 USERS, ITEMS, D, B = 300, 80, 128, 256
 
 

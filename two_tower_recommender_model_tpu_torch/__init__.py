@@ -9,8 +9,10 @@ JAX package.
 
 What it covers today: serving, training (BCE and the in-batch sampled
 softmax; eager steps and K steps as one CUDA graph), int8 and bf16 table
-storage, the gather probe, and the Instacart pipeline from CSVs to
-recall@100 (host side on numpy and the standard library: no pandas):
+storage, the gather probe, the Instacart pipeline from CSVs to recall@100
+(host side on numpy and the standard library: no pandas), and the workflow
+around it: checkpoints and resume, crash restarts, the model registry,
+batch scoring, profiling and the per-user table:
 
 - `config`                 — the model dataclasses and `TrainConfig`, equal
                              field for field to the JAX package's.
@@ -57,20 +59,29 @@ recall@100 (host side on numpy and the standard library: no pandas):
 - `train`                  — optimizers, the train and eval steps, the
                              multi-step (K steps in one call: on the card one
                              CUDA graph), the input pipeline, the train/val/test
-                             loop and the packed macro-step epoch.
+                             loop, the packed macro-step epoch, and
+                             `resilient_fit` (restarts on transient errors).
 - `tools.probe_consumer`   — the gather probe (`python -m ...tools.probe_consumer`).
 - `evaluation.retrieval`   — full-corpus tower embedding export, the retriever
-                             metrics, a split's held-out positives and the
-                             per-epoch retrieval eval.
+                             metrics, a split's held-out positives, the
+                             per-epoch retrieval eval and the per-user table
+                             (a pandas DataFrame; pandas loads only there).
 - `device`                 — `default_device()`: the card, or an error that
                              says to pass `device="cpu"`.
-- `serving`                — `Scorer`, `RetrievalService`, HTTP `ModelServer`.
-- `utils.checkpoint`       — the portable export: `export_model`, `load_model`.
+- `serving`                — `Scorer`, `RetrievalService`, HTTP `ModelServer`,
+                             `load_scorer_from_registry`, `batch.batch_predict`.
+- `utils.checkpoint`       — `Checkpointer` (whole training states, atomic
+                             steps, in-place restore) and the portable export:
+                             `export_model`, `load_model`.
+- `utils.registry`         — `ModelRegistry`: numbered versions, stages.
+- `utils.profiling`        — `profile_trace`, `StepTimer`, `device_memory_stats`.
 - `utils.tracking`         — `ExperimentLogger`: params, metrics, artifacts a run.
 - `cli`                    — the pipeline's entry points (`python -m
                              ...cli.instacart_pipeline`, `fetch_instacart`,
                              `prepare_instacart`, `train`, `evaluate_retrieval`).
 - `tools.pipeline_host_timing` — the host stages' seconds and peak memory.
+- `tools.full_scale_quality` — the full-scale quality runs (BCE, sampled
+                             softmax) through the entry points.
 
 Numerics: float32 matmuls run in full float32. Importing this package sets
 `torch.backends.cuda.matmul.allow_tf32 = False` and

@@ -3,11 +3,13 @@ user from a split, an exact top-k search (k = 100 over up to 10,000 users),
 retriever metrics averaged per user.
 
     python -m two_tower_recommender_model_tpu_torch.cli.evaluate_retrieval \\
-        --model-dir out/model --data-dir out/instacart [--k 100] [--max-users 10000]
+        --model-dir out/model --data-dir out/instacart [--k 100] [--max-users 10000] \\
+        [--per-user-table users.csv]
 
 The port of `scripts/evaluate_retrieval.py`: `load_model` -> `split_positives`
--> `evaluate_retrieval`, on the card unless given `--device cpu`. Its
-`--per-user-table` (a pandas DataFrame) is not ported yet (ROADMAP).
+-> `evaluate_retrieval`, on the card unless given `--device cpu`.
+`--per-user-table` also writes one CSV row per evaluated user
+(`per_user_retrieval_table`, a pandas DataFrame).
 """
 
 from __future__ import annotations
@@ -16,12 +18,17 @@ import argparse
 import json
 import os
 
+import numpy as np
+
 from two_tower_recommender_model_tpu_torch.device import resolve_device
 from two_tower_recommender_model_tpu_torch.evaluation.retrieval import (
     evaluate_retrieval,
+    export_feature_embeddings,
+    per_user_retrieval_table,
     split_positives,
 )
 from two_tower_recommender_model_tpu_torch.models.two_tower import params_from_numpy
+from two_tower_recommender_model_tpu_torch.ops.topk import chunked_topk
 from two_tower_recommender_model_tpu_torch.utils.checkpoint import load_model
 
 
@@ -34,16 +41,12 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--k", type=int, default=100)
     ap.add_argument("--max-users", type=int, default=10_000)
     ap.add_argument("--per-user-table", default=None,
-                    help="not ported yet (ROADMAP.md Queue 1, M8a-2: per_user_retrieval_table)")
+                    help="write the per-user results table (csv) here")
     ap.add_argument("--json-out", default=None)
     ap.add_argument("--device", default=None,
                     help="torch device; default the card (raises without one): pass cpu to "
                          "run on the CPU")
     args = ap.parse_args(argv)
-    if args.per_user_table:
-        raise NotImplementedError(
-            "--per-user-table is not ported to the PyTorch package yet (ROADMAP.md Queue 1, "
-            "M8a-2: per_user_retrieval_table returns a pandas DataFrame)")
     device = resolve_device(args.device)
 
     model_cfg, params = load_model(args.model_dir)
@@ -58,6 +61,16 @@ def main(argv: list[str] | None = None) -> dict:
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump(metrics, f, indent=1)
+
+    if args.per_user_table:
+        users = np.array(sorted(user_positives.keys())[: args.max_users])
+        q = export_feature_embeddings(model, "user_id", ids=users)
+        c = export_feature_embeddings(model, "product_id")
+        _, idx = chunked_topk(q, c[1:], k=args.k)
+        df = per_user_retrieval_table(idx.cpu().numpy() + 1, users,
+                                      [user_positives[u] for u in users], ks=(args.k,))
+        df.to_csv(args.per_user_table, index=False)
+        print(f"per-user table -> {args.per_user_table}")
     return metrics
 
 

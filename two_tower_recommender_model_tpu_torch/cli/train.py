@@ -9,11 +9,14 @@ packed on the host) through `train_one_epoch_packed` and `make_multi_step`
 (on the card one CUDA graph of `--macro-batches` steps, replayed), or the
 per-batch loop with `--no-packed`; validation, the test eval, the run logged
 through `ExperimentLogger`, the model exported with `export_model`.
+`--checkpoint-dir` saves the whole training state and the loader's position
+after every epoch (`utils.checkpoint.Checkpointer`); `--resume` restores the
+latest one before anything is captured and trains on from the next epoch.
 
 Flags whose modules are not ported yet raise, naming their ROADMAP item:
 `--multi-host`, `--mesh-model` > 1 and the exchange flags (M12, multi-GPU),
 `--wire-cache`, `--wire-format compact` and `--wire-cache-*` (M11, the
-compact wire), `--checkpoint-dir` and `--resume` (M8b, checkpoints).
+compact wire).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import dataclasses
 import logging
 import os
 import re
+import time
 
 import torch
 
@@ -54,7 +58,7 @@ from two_tower_recommender_model_tpu_torch.train.step import (
     make_multi_step,
     make_train_step,
 )
-from two_tower_recommender_model_tpu_torch.utils.checkpoint import export_model
+from two_tower_recommender_model_tpu_torch.utils.checkpoint import Checkpointer, export_model
 from two_tower_recommender_model_tpu_torch.utils.tracking import ExperimentLogger
 
 log = logging.getLogger(__name__)
@@ -68,8 +72,6 @@ _UNPORTED = {
     "wire_cache": (None, "M11, the compact wire and cached batches"),
     "wire_cache_order": (None, "M11, the compact wire and cached batches"),
     "wire_cache_generations": (None, "M11, the compact wire and cached batches"),
-    "checkpoint_dir": (None, "M8b, checkpoints"),
-    "resume": (False, "M8b, checkpoints"),
 }
 
 
@@ -147,8 +149,11 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                     default=None, help="not ported yet (ROADMAP M11)")
     ap.add_argument("--wire-cache-generations", type=int, default=None,
                     help="not ported yet (ROADMAP M11)")
-    ap.add_argument("--checkpoint-dir", default=None, help="not ported yet (ROADMAP M8b)")
-    ap.add_argument("--resume", action="store_true", help="not ported yet (ROADMAP M8b)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="save the training state and the loader position here every epoch")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest checkpoint of --checkpoint-dir and train on from "
+                         "the epoch after it")
     return ap.parse_args(argv)
 
 
@@ -179,8 +184,11 @@ def block_sorted_kernel_auto(mcfg: cfg_lib.ModelConfig, sorted_feature: str | No
 
 def main(argv: list[str] | None = None) -> dict:
     """Train, evaluate and export; returns {"metrics": train_val_test's
-    results, "epochs": each epoch's train stats, "captures"/"replays" of the
-    packed path's multi-step, "run_dir"}."""
+    results, "epochs": each epoch's train stats (of the epochs this run
+    trained), "captures"/"replays" of the packed path's multi-step,
+    "run_dir", "resumed_from" (the restored checkpoint's step, or None),
+    "restore_seconds" and "checkpoints" (each save's step, epoch, seconds
+    and bytes)}."""
     args = parse_args(argv)
     refuse_unported(args)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
@@ -228,12 +236,32 @@ def main(argv: list[str] | None = None) -> dict:
         "devices_per_host": 1,
     })
 
+    ckpt = Checkpointer(args.checkpoint_dir) if args.checkpoint_dir else None
     train_loader = StreamLoader(os.path.join(args.data_dir, "train"), args.batch_size,
                                 seed=args.seed)
     if args.no_packed and train_loader.dataset.index.get("packed"):
         raise SystemExit("--no-packed cannot train on a PRE-PACKED dataset (its columns are "
                          "device-layout packed_ids, not raw features): drop --no-packed or "
                          "prepare the data without --packed")
+    start_epoch, resumed_from, restore_seconds = 0, None, None
+    if args.resume and ckpt is not None and ckpt.latest_step() is not None:
+        t0 = time.perf_counter()
+        state, _, extra = ckpt.restore(state)
+        restore_seconds = time.perf_counter() - t0
+        # checkpoints are taken at epoch boundaries: resume at the NEXT epoch
+        start_epoch = int(extra.get("completed_epoch", -1)) + 1
+        resumed_from = state.step
+        print(f"resumed from step {state.step}, epoch {start_epoch}")
+    saves: list[dict] = []
+
+    def checkpoint_fn(s, epoch):
+        if ckpt is None:
+            return
+        t0 = time.perf_counter()
+        ckpt.save(s.step, s, loader_state=train_loader.state_dict(),
+                  extra={"completed_epoch": epoch}, wait=True)
+        saves.append({"step": s.step, "epoch": epoch, "seconds": time.perf_counter() - t0,
+                      "bytes": sum(e.stat().st_size for e in os.scandir(ckpt.step_dir(s.step)))})
 
     def eval_factory(split):
         return lambda: StreamLoader(os.path.join(args.data_dir, split), args.batch_size,
@@ -293,6 +321,7 @@ def main(argv: list[str] | None = None) -> dict:
         state, train_step, eval_step, mcfg, tcfg, featurizer,
         train_batches_factory=None, val_batches_factory=eval_factory("val"),
         test_batches_factory=eval_factory("test"), logger=logger,
+        checkpoint_fn=checkpoint_fn, start_epoch=start_epoch,
         train_epoch_fn=train_epoch_fn, select_best=args.select_best,
         retrieval_eval_fn=retrieval_eval_fn)
     print({k: round(v, 5) for k, v in results.items()})
@@ -301,7 +330,8 @@ def main(argv: list[str] | None = None) -> dict:
         print(f"exported model to {args.export_dir}")
     return {"metrics": results, "epochs": epochs,
             "captures": multi.captures if multi else 0, "replays": multi.replays if multi else 0,
-            "run_dir": logger.run_dir}
+            "run_dir": logger.run_dir, "resumed_from": resumed_from,
+            "restore_seconds": restore_seconds, "checkpoints": saves}
 
 
 if __name__ == "__main__":

@@ -2,12 +2,14 @@
 
 Port of `two_tower_recommender_model_tpu/evaluation/retrieval.py`:
 `export_feature_embeddings`, `retrieval_metrics`, `split_positives`,
-`evaluate_retrieval` and `make_retrieval_eval_fn`. The row gather goes
-through `pooled_lookup` with one slot and weight 1, so on a CUDA model the
-export runs the pooled-gather kernel too; an int8 table's rows come straight
+`evaluate_retrieval`, `make_retrieval_eval_fn` and `per_user_retrieval_table`.
+The row gather goes through `pooled_lookup` with one slot and weight 1, so on
+a CUDA model the export runs the pooled-gather kernel too; an int8 table's
+rows come straight
 from the int8 gather kernel (the reference dequantizes the whole table
 first; the rows are the same). `per_user_retrieval_table` returns a pandas
-DataFrame in the reference and is not ported yet (ROADMAP).
+DataFrame, as the reference's does: pandas is imported inside it, so
+importing this module (and the port) loads no pandas.
 """
 
 from __future__ import annotations
@@ -233,3 +235,23 @@ def make_retrieval_eval_fn(
         return {f"{metric_prefix}{name}": v for name, v in m.items()}
 
     return fn
+
+
+def per_user_retrieval_table(
+    pred_ids: np.ndarray, users: np.ndarray, targets: list, ks: tuple[int, ...] = (100,)
+):
+    """The per-user eval table, a pandas DataFrame: one row per user with
+    its targets, its predictions and its own retriever metrics
+    (`retrieval_metrics` of that user alone)."""
+    import pandas as pd
+
+    rows = []
+    for u, preds, tgt in zip(users, np.asarray(pred_ids), targets):
+        m = retrieval_metrics(preds[None, :], [tgt], ks=ks)
+        rows.append({
+            "user_id": u,
+            "product_id_list": list(map(int, tgt)),
+            "product_id_pred": [int(p) for p in preds],
+            **m,
+        })
+    return pd.DataFrame(rows)

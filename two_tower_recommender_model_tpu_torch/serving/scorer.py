@@ -57,3 +57,13 @@ def load_scorer(path: str, device: torch.device | str | None = None, **kwargs) -
 
     model_cfg, params = load_model(path)
     return Scorer(params_from_numpy(params, model_cfg, device), **kwargs)
+
+
+def load_scorer_from_registry(registry_root: str, name: str, version="Production",
+                              device: torch.device | str | None = None, **kwargs) -> Scorer:
+    """A Scorer on `device` for a registered model by stage, number or
+    "latest" (the `models:/<name>/<stage>` serving-URI role)."""
+    from two_tower_recommender_model_tpu_torch.utils.registry import ModelRegistry
+
+    model_cfg, params = ModelRegistry(registry_root).load(name, version)
+    return Scorer(params_from_numpy(params, model_cfg, device), **kwargs)

@@ -61,6 +61,7 @@ from two_tower_recommender_model_tpu_torch.models.two_tower import (
     TwoTower,
     forward,
     init_params,
+    params_from_numpy,
     pooled_embeddings,
     towers_forward,
 )
@@ -147,6 +148,55 @@ def create_train_state(generator: torch.Generator, model_cfg: ModelConfig,
         item_counts=item_counts,
     )
     return state, dense_opt
+
+
+def train_state_from_numpy(state: dict, model_cfg: ModelConfig, train_cfg: TrainConfig,
+                           device: torch.device | str | None = None,
+                           ) -> tuple[TrainState, opt_lib.DenseOptimizer]:
+    """A training state on `device` from the JAX package's `TrainState` as
+    numpy arrays, so the port continues a run the JAX package started. The
+    layout extends `params_from_numpy`'s:
+
+        {"step": int, "tables": ..., "query_tower": ..., "candidate_tower": ...,
+         "adagrad_acc": {table: [N] f32},
+         "adam": {"count": int, "mu": {tower: {layer_i: {kernel, bias}}}, "nu": ...},
+         "item_counts": [N] f32 or None}
+
+    `adam` is optax Adam's state (`ScaleByAdamState`): its moments become
+    torch Adam's `exp_avg` / `exp_avg_sq` (kernels transposed, as the
+    weights are) and its `count` each parameter's `step`, from which both
+    packages take the bias correction. Returns the state and the towers'
+    optimizer recipe, as `create_train_state` does."""
+    _check_table_dtypes(model_cfg)
+    model = params_from_numpy(state, model_cfg, device)
+    dense_opt = opt_lib.dense_optimizer(train_cfg.learning_rate)
+    opt = dense_opt.build(tower_parameters(model))
+    adam = state["adam"]
+    with torch.no_grad():
+        for key in ("query_tower", "candidate_tower"):
+            for i, layer in enumerate(getattr(model, key).layers):
+                for pname, p in (("kernel", layer.weight), ("bias", layer.bias)):
+                    for moment, name in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+                        src = np.asarray(adam[moment][key][f"layer_{i}"][pname], np.float32)
+                        opt.state[p][name].copy_(torch.from_numpy(
+                            np.ascontiguousarray(src.T if pname == "kernel" else src)))
+                    opt.state[p]["step"].fill_(int(adam["count"]))
+
+    def f32(a) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(a, np.float32).copy()).to(model.device)
+
+    item_counts = state.get("item_counts")
+    if (item_counts is not None) != (train_cfg.loss == "sampled_softmax"
+                                     and train_cfg.logq_correction):
+        raise ValueError("item_counts must be given exactly when the sampled softmax's logQ "
+                         "correction is on")
+    return TrainState(
+        step=int(state["step"]),
+        model=model,
+        adagrad_acc={name: f32(state["adagrad_acc"][name]) for name in model.tables.keys()},
+        dense_opt_state=opt,
+        item_counts=None if item_counts is None else f32(item_counts),
+    ), dense_opt
 
 
 def _table_flat_grads(model_cfg: ModelConfig, batch: Batch,
