@@ -1,11 +1,12 @@
 """On-card smoke run of the PyTorch port: build the CUDA kernels, hold each
 against its plain PyTorch version, serve the full-width flagship model over
 HTTP, train it with BCE (f32, int8 and bf16 tables) and with the in-batch
-sampled softmax, eagerly and as CUDA graphs of 16 steps, serve the int8- and
-the bf16-trained model, run the gather probe, train the small learnable
-models to a target AUROC and a target recall@10, run the Instacart
-pipeline (replica -> prepare -> train -> recall@100) through its entry
-points, and on its shards the rest of a user's workflow: train with
+sampled softmax, eagerly and as CUDA graphs of 16 steps, fed packed and
+compact batches, serve the int8- and the bf16-trained model, run the gather
+probe, train the small learnable models to a target AUROC and a target
+recall@10, run the Instacart pipeline (replica -> prepare -> train through
+a wire cache -> recall@100) through its entry points, and on its shards the
+rest of a user's workflow: train with
 checkpoints -> crash -> restart and resume -> register -> promote -> serve
 by stage -> batch-score a split -> the per-user retrieval table, and a
 profiler trace of replayed steps.
@@ -43,6 +44,11 @@ without a card. Phases (any failure raises and exits non-zero):
    their largest magnitude with cosine > 0.99999, two launches of each of
    the three bit for bit equal; beside #10 and #11 the time of the same
    function as bf16 GEMMs and elementwise calls (`composed_ms`);
+   the fused tower forward's bias and ReLU (relu_ties) at the BCE step's
+   four calls (layer 1 [262,144, 128], layer 2 [262,144, 64], K = 128) and
+   on a layer whose every sum sits at a bf16 rounding tie: bit for bit its
+   plain version (values), two launches bit for bit, the share of values
+   it sums again in k order, its ms a call and a BCE step;
    beside each kernel's time: its plain version's, the card's bound for the
    same work (bytes, operations, or for the softmax kernels one exp a score), and where one PyTorch call computes the same function
    (`embedding_bag` for the pooled gather) that call's time;
@@ -59,10 +65,12 @@ without a card. Phases (any failure raises and exits non-zero):
    user id with the label packed into the ids, through `create_train_state`
    and `make_train_step`: two warm-up steps, then ten counted steps, each of
    which must launch the pooled gather, row-wise Adagrad and the tower
-   backward exactly twice. After the count: the loss is finite, untouched
-   table rows kept their bits, one step from a copied state agrees with the
-   same step on the host CPU (where every wrapper takes its plain version),
-   and a few validation batches give the eval loss and AUROC;
+   backward exactly twice and relu_ties four times. After the count: the
+   loss is finite, untouched table rows kept their bits, one step from a
+   copied state agrees with the same step on the host CPU (where every
+   wrapper takes its plain version; each quantity's margin, its largest
+   difference over its bound, printed), and a few validation batches give
+   the eval loss and AUROC;
 6. `[learn]` the verify drive on the card: a (64, 32) model on 2,000 x 500
    learnable synthetic interactions, 2 epochs x 120 batches x 1,024 through
    `train_val_test`; the validation AUROC must start within 0.45-0.55 and
@@ -109,8 +117,9 @@ without a card. Phases (any failure raises and exits non-zero):
 10. `[train-int8]` phase 5 with `table_dtype="int8"`: each counted step must
    launch the int8 gather, the int8 Adagrad and the tower backward twice and
    the f32 tables' kernels never; tables still int8, untouched rows' bytes
-   and scales kept, the host check (one quantization step on top), eval.
-   Then three steps with a 20,000,000-row int8 user table (2.56e9 int8
+   and scales kept, the host check (one quantization step on top), and the
+   same check with the forward's tie repair taken out (its margins printed
+   beside, not held), eval. Then three steps with a 20,000,000-row int8 user table (2.56e9 int8
    elements), created chunk by chunk: a named row past 2^24 changes, its
    unnamed neighbour does not;
 11. `[train-override]` the f32 flagship in f32 compute: three steps each with
@@ -118,7 +127,8 @@ without a card. Phases (any failure raises and exits non-zero):
    twice a step) and `sparse_update=pallas_sparse_rowwise_adagrad` (#7,
    twice a step); the three end states agree within rtol 1e-5 / atol 1e-6;
 12. `[serve-int8]` the int8-trained model through `Scorer` (1, 100, 8,192
-   rows: 2 int8 gather launches each) and `RetrievalService` (7 for the
+   rows: 2 int8 gather launches each, and 4 of relu_ties in the bf16 predict
+   of 8,192 rows) and `RetrievalService` (7 for the
    corpus export, 1 per retrieve), against a plain forward over the
    dequantized tables and a brute-force top-k; then `export_model` ->
    `load_scorer` predicts the same within 1e-6;
@@ -141,12 +151,24 @@ without a card. Phases (any failure raises and exits non-zero):
    moments and counts, item counts), bit for bit; then the median time per
    step eager and replayed over 5 macros of distinct payloads, the launches
    captured per step, the replays, and the peak memory both ways;
+16b. `[train-compact]` phase 16's BCE step with f32 tables fed the compact
+   wire (the user slot delta-encoded): the decode on the card bit for bit
+   `unpack_batch` (with and without the delta slot, and a batch whose
+   sidecar holds exceptions); K = 16 graphs over CompactBatch payloads
+   beside the same batches as PackedBatch payloads from two copies of one
+   state, 2 macros, the end states bit for bit equal; the compact graph's
+   warm-up and capture are counted (the BCE step's launches a step); the
+   payload bytes a step of both, their replayed ms a step, a macro's
+   host-to-device copy ms and the decode's device ms a step;
 17. `[train-skew]` phase 16's BCE step with f32 tables on a heavy-tailed
    catalogue: `SyntheticClickstream(popularity=1.0)` draws items as rank^-1
    (item runs of thousands of positions in each batch, printed), K = 16
    graph against eager steps as in phase 16, then, from a fresh state after
-   12 eager steps, one step against the host CPU as in phase 5; under
-   --profile #4's device ms a replayed step;
+   12 eager steps, one step against the host CPU as in phase 5, and, from
+   another, after 560 steps replayed as graphs, the same; both again with
+   the forward's tie repair taken out (measured, not held), the margins
+   side by side;
+   under --profile #4's device ms a replayed step;
 18. `[learn-packed]` the verify drive through `train_one_epoch_packed`
    (macro 8, a tail step, mid-epoch validation): 2 epochs x 125 batches,
    steps and examples counted, val AUROC 0.45-0.55 -> 0.70 or above;
@@ -158,16 +180,19 @@ without a card. Phases (any failure raises and exits non-zero):
    tables) and `[serve-bf16tab]` (phase 12 on the bf16-trained state);
 20. `[pipeline]` the Instacart pipeline through its entry points, in a
    temporary directory: `cli.instacart_pipeline.main` with --smoke (8,000
-   users, 4,000 products, seed 0) --packed --fast, flagship widths, BCE, 3
-   epochs of batch 8,192, on the card; then one sampled-softmax epoch on the
-   same shards (`cli.train`, `cli.evaluate_retrieval`). Each run's launches
-   must equal its steps x a step's launches (warm-up, capture and tail
-   steps; replays run without Python) plus two gathers an eval batch and
-   the retrieval exports'; BCE recall@100 over every test user >= 0.35;
-   the replica, prepare, train epochs (and examples/s) and eval seconds
-   beside the card's name and power limit;
+   users, 4,000 products, seed 0) --packed --fast (the compact wire through
+   a wire cache the run builds), flagship widths, BCE, 3 epochs of batch
+   8,192, on the card; then one sampled-softmax epoch on the same shards
+   (`cli.train` reusing the cache, `cli.evaluate_retrieval`). Each run's
+   launches must equal its steps x a step's launches (warm-up, capture and
+   tail steps; replays run without Python) plus two gathers an eval batch
+   (and four relu_ties an eval batch of a multiple of 512 rows) and the
+   retrieval exports'; BCE recall@100 over every test user >= 0.35; the
+   replica, prepare, the cache's build seconds and bytes, train epochs (and
+   examples/s) and eval seconds beside the card's name and power limit;
 21. `[resume]` on phase 20's shards, BCE, 3 epochs of 8,192, --fast's
-   flags: `cli.train --checkpoint-dir` uninterrupted, then under
+   flags (each run its own wire cache, which the restart reuses):
+   `cli.train --checkpoint-dir` uninterrupted, then under
    `resilient_fit` a run whose first attempt raises an OSError right after
    epoch 1's checkpoint and whose restart runs `cli.train --resume`. The
    two last checkpoints (tables, accumulators, towers, Adam's moments and
@@ -182,11 +207,12 @@ without a card. Phases (any failure raises and exits non-zero):
    files equal the run's own export; `load_scorer_from_registry` on the card
    predicts bit for bit what `load_scorer` of the run's export predicts; a
    `ModelServer` on that scorer answers three `/invocations` (2 launches of
-   #1 each);
+   #1 each, and relu_ties 4 in the bf16 one of 8,192 rows);
 23. `[batch-predict]` `batch_predict` with the registry's scorer over the
    smoke test split (raw columns, prepared from the same CSVs): as many rows
    as the input's index, each batch's `prediction` bit for bit
-   `Scorer.predict` of its rows, 2 launches of #1 a batch, rows/s;
+   `Scorer.predict` of its rows, 2 launches of #1 a batch (and 4 of
+   relu_ties a full batch: bf16 compute), rows/s;
 24. `[per-user-table]` `cli.evaluate_retrieval --per-user-table` in a child
    process on the Production model: one CSV row per evaluated user, the
    mean of its recall_at_100 column within 1e-6 of the run's recall@100;
@@ -228,6 +254,12 @@ import numpy as np
 import torch
 
 from two_tower_recommender_model_tpu_torch import config as cfg_lib
+from two_tower_recommender_model_tpu_torch.data.compact import (
+    CompactScheme,
+    batch_from_compact,
+    compact_from_packed,
+    make_compact_train_step,
+)
 from two_tower_recommender_model_tpu_torch.data.device_featurizer import (
     PackedFeaturizer,
     make_packed_eval_step,
@@ -272,6 +304,11 @@ from two_tower_recommender_model_tpu_torch.ops.quantized_kernel import (
     quantized_pooled_gather_reference,
     quantized_rowwise_adagrad_fused,
     quantized_rowwise_adagrad_fused_reference,
+)
+from two_tower_recommender_model_tpu_torch.ops.relu_ties import (
+    relu_ties,
+    relu_ties_reference,
+    tie_mask,
 )
 from two_tower_recommender_model_tpu_torch.ops.row_subtract import (
     row_subtract,
@@ -359,12 +396,19 @@ KERNELS = {  # wrapper name -> (wrapper, source, the TPU kernel it replaces)
     "probe_block_sums2": (probe_block_sums2,
                           "two_tower_recommender_model_tpu_torch/csrc/probe_sum.cu",
                           "tools/probe_consumer.py:80"),
+    # not a pallas_call: the bias and ReLU of the fused tower's bf16 forward, which XLA
+    # fuses into the reference's GEMMs; the kernel decides its rounding ties in k order
+    "relu_ties": (relu_ties, "two_tower_recommender_model_tpu_torch/csrc/relu_ties.cu",
+                  "two_tower_recommender_model_tpu/models/mlp.py:89"),
 }
-# kernels a BCE bf16 step launches twice: the f32 tables' and the int8 tables'
-BCE_F32 = {"pooled_gather": 2, "rowwise_adagrad": 2, "tower_bwd": 2}
-BCE_INT8 = {"quantized_pooled_gather": 2, "quantized_rowwise_adagrad": 2, "tower_bwd": 2}
+# kernels a BCE bf16 step launches: the f32 tables' and the int8 tables'; relu_ties after
+# each of the two towers' two layers
+BCE_F32 = {"pooled_gather": 2, "rowwise_adagrad": 2, "tower_bwd": 2, "relu_ties": 4}
+BCE_INT8 = {"quantized_pooled_gather": 2, "quantized_rowwise_adagrad": 2, "tower_bwd": 2,
+            "relu_ties": 4}
 SOFTMAX_F32 = {"pooled_gather": 2, "rowwise_adagrad": 2, "softmax_lse_fwd": 1, "softmax_lse_dq": 1,
-               "softmax_lse_dc": 1}  # f32 compute: off the tower kernel's gate
+               "softmax_lse_dc": 1}  # f32 compute: off the tower kernels' gate
+SOFTMAX_BF16 = {**SOFTMAX_F32, "tower_bwd": 2, "relu_ties": 4}
 
 
 def log(msg: str) -> None:
@@ -567,11 +611,25 @@ def phase_kernel(dev: torch.device) -> dict:
     torch.testing.assert_close(library(), pooled_gather_reference(user_table, ids1, w1,
                                                                   torch.float32))
     library_ms = median_ms(library, flush)
+    # and at the BCE step's user call (262,144 sorted bags; the library's output is f32)
+    step_ids, step_offsets = user_train_ids[:, 0].long(), torch.arange(TRAIN_BATCH, device=dev)
+
+    def library_step():
+        return torch.nn.functional.embedding_bag(step_ids, user_table, step_offsets, mode="sum",
+                                                 per_sample_weights=train_ones[:, 0])
+
+    torch.testing.assert_close(library_step(), pooled_gather_reference(
+        user_table, user_train_ids, train_ones, torch.float32))
+    library_step_ms = median_ms(library_step, flush)
     main, floor = results["user f32 L=1"], results["user f32 L=1 B=1"]
     host = {b: host_ms(lambda: pooled_gather(user_table, ids, w, torch.float32))
             for b, ids, w in ((BAGS, ids1, w1), (1, ids1[:1], w1[:1]))}
     out = torch.empty((BAGS, DIM), device=dev)
     plan_ms = host_ms(lambda: pooled_gather.plan(user_table, ids1, out))
+    step = results["user f32->bf16 sorted (the train step's)"]
+    log(f"[kernel] pooled_gather at the BCE step's {TRAIN_BATCH} sorted user bags: kernel_ms="
+        f"{step['ms']!r} (into bf16), library_ms={library_step_ms!r} (F.embedding_bag, sum, "
+        f"per-sample weights, into f32)")
     log(f"[kernel] pooled_gather user f32 L=1: library_ms={library_ms!r} (F.embedding_bag); "
         f"latency floor (1 bag) {floor['ms']!r} ms; {BAGS} bags {main['ms']!r} ms, "
         f"{main['ms'] - floor['ms']!r} above the floor against a bound of {main['bound_ms']!r}; "
@@ -579,7 +637,8 @@ def phase_kernel(dev: torch.device) -> dict:
         f"of it the plan alone {plan_ms!r}")
     return {"max_abs_err": max(r["max_abs_err"] for r in results.values()), "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": library_ms}
+            "bound_by": main["bound_by"], "library_ms": library_ms,
+            "ms_bce_step_call": step["ms"], "library_ms_bce_step_call": library_step_ms}
 
 
 LR, EPS = 0.05, 1e-10  # row-wise Adagrad's learning rate and epsilon in the kernel phase
@@ -1211,6 +1270,95 @@ def phase_tower_kernel(dev: torch.device) -> dict:
             **b, "library_ms": None, "composed_ms": composed_ms}
 
 
+def wall_ms(fn, reps: int = 5) -> float:
+    """Median host ms of `fn` between two synchronizes: for a plain version
+    that synchronizes inside (a `nonzero`), where device events would also
+    take in the host's wait."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def tie_inputs(b: int, n: int, seed: int):
+    """A layer whose every sum sits within a few f32 ulps of a bf16 rounding
+    midpoint against -bias (as `tests/torch_tie_cases.py` builds it): column
+    c of w starts with m_c in [1, 2) and 2^-8 against a's leading 1, 1, the
+    bias is -m_c, and the other 126 products are ~2^-24."""
+    rng = np.random.default_rng(seed)
+    m = 1 + rng.integers(0, 128, n) / 128
+    a = rng.normal(size=(b, DIM))
+    a[:, :2] = 1.0
+    w = rng.normal(size=(DIM, n)) * 2.0 ** -24
+    w[0], w[1] = m, 2.0 ** -8
+    return a, w, -m
+
+
+def phase_relu_ties_kernel(dev: torch.device) -> dict:
+    """relu_ties against its plain version at the BCE step's four calls a
+    step (layer 1 [262,144, 128] and layer 2 [262,144, 64] of each tower,
+    K = 128) on draws at the towers' scales, and on a layer whose every sum
+    sits at a rounding tie (every value recomputed): bit for bit (values),
+    two launches bit for bit; the share of values the tie test recomputes;
+    the kernel's ms a call and a BCE step beside the plain version's, the
+    bound and the two PyTorch calls it replaces (`relu(y + b)`, not the same
+    function at a tie)."""
+    rng = np.random.default_rng(9)
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
+
+    def on_card(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, torch.bfloat16)
+
+    lim = 1 / DIM ** 0.5  # init_mlp's bound
+    x = on_card(rng.normal(size=(TRAIN_BATCH, DIM), scale=0.05))
+    w1, b1 = on_card(rng.uniform(-lim, lim, (DIM, DIM))), on_card(rng.uniform(-lim, lim, DIM))
+    w2 = on_card(rng.uniform(-lim, lim, (DIM, LAYERS[1])))
+    b2 = on_card(rng.uniform(-lim, lim, LAYERS[1]))
+    y1 = torch.matmul(x, w1)
+    h1 = relu_ties(y1, b1, x, w1)
+    ta, tw, tb = (on_card(v) for v in tie_inputs(16_384, DIM, 10))
+    cases = {"layer 1": (y1, b1, x, w1), "layer 2": (torch.matmul(h1, w2), b2, h1, w2),
+             "every sum at a tie": (torch.matmul(ta, tw), tb, ta, tw)}
+    out = {}
+    for label, args in cases.items():
+        got = relu_ties(*args).clone()
+        again = relu_ties(*args)
+        want = relu_ties_reference(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = (got != want).sum().item()
+            raise AssertionError(f"relu_ties {label}: {bad} values differ from the plain version")
+        if not bitwise_equal(got, again):
+            raise AssertionError(f"relu_ties {label}: two launches on the same inputs differ")
+        y, bias, a, w = args
+        ties = tie_mask(y, bias)
+        marked = int(ties.sum())
+        rows, n = y.shape
+        ms = median_ms(lambda: relu_ties(*args), flush)
+        plain_ms = wall_ms(lambda: relu_ties_reference(*args))
+        composed_ms = median_ms(lambda: torch.relu(y + bias), flush)
+        # y read and out written; b; each row of a and column of w that a tie sums, once
+        tie_rows = int(ties.any(1).sum() + ties.any(0).sum())
+        b = bound(4 * rows * n + 2 * n + 2 * a.shape[1] * tie_rows, 2 * marked * a.shape[1],
+                  PEAK_F32)
+        out[label] = (ms, plain_ms, b)
+        log(f"[kernel] relu_ties {label} [{rows}, {n}], K={a.shape[1]}: bit for bit the plain "
+            f"version (values), two launches bit for bit; recomputed {marked} of {y.numel()} "
+            f"({marked / y.numel()!r}); kernel_ms={ms!r} plain_ms={plain_ms!r} (host ms, it "
+            f"synchronizes) bound_ms={b['bound_ms']!r} by {b['bound_by']}; relu(y + b) "
+            f"(2 PyTorch calls, the route it replaces) {composed_ms!r} ms")
+    (ms1, plain1, b1_), (ms2, plain2, b2_) = out["layer 1"], out["layer 2"]
+    log(f"[kernel] relu_ties a BCE step (2 towers x the two layers): kernel "
+        f"{2 * (ms1 + ms2)!r} ms, bound {2 * (b1_['bound_ms'] + b2_['bound_ms'])!r} ms")
+    return {"max_abs_err": 0.0, "ms": ms1, "plain_ms": plain1, **b1_, "library_ms": None,
+            "ms_a_bce_step": 2 * (ms1 + ms2)}
+
+
 def softmax_case(dev, rng, bq: int, bk: int, row_offset: int, n_valid: int | None, d: int = 64):
     """Inputs of one softmax kernel case: bf16-valued q and c, item ids as
     drawn from the flagship's 49,688 items (they repeat) plus forced repeats,
@@ -1372,6 +1520,16 @@ def read_launches() -> dict[str, int]:
     return {name: wrapper.launches for name, (wrapper, _, _) in KERNELS.items()}
 
 
+def tie_launches(cfg, batch_sizes) -> int:
+    """relu_ties launches of two-tower forwards over batches of these sizes:
+    under bf16 compute on the card each tower whose shapes pass the fused
+    tower's gate (B % 512 == 0 at the flagship's widths) runs its two layers
+    through relu_ties."""
+    if cfg.compute_dtype != "bfloat16":
+        return 0
+    return 4 * sum(1 for n in batch_sizes if n % 512 == 0)
+
+
 def timed_steps(train_step, state, pool, first: int, n: int):
     """`n` steps over the pool starting at batch `first`, each ended by a
     synchronize: (state, last out, per-step ms)."""
@@ -1469,8 +1627,14 @@ def phase_train(dev: torch.device, profile: bool, batches: tuple[list, list],
         log(f"{tag} {name}: {int(keep.sum())} untouched rows kept their bits; "
             f"{moved} of {int(touched[name].sum())} touched rows moved")
     # "auto" is on, on the card
-    check_against_host(tag, state, dataclasses.replace(cfg, fused_tower_backward="on"),
-                       tcfg, dense_opt, train_step, pool[0])
+    after = check_against_host(tag, state, dataclasses.replace(cfg, fused_tower_backward="on"),
+                               tcfg, dense_opt, train_step, pool[0])
+    if table_dtype == "int8":  # the margin the forward's tie repair moved, same steps
+        with forward_without_tie_repair():
+            before_repair = host_check_after(f"{tag} without the tie repair:", dev, cfg, tcfg,
+                                             pool, strict=False)
+        log(f"{tag} host-check margin (largest diff / bound) with the tie repair "
+            f"{max(after.values())!r}, without {before_repair!r}")
     evaluate_card(tag, state, cfg, tcfg, val)
     if profile:
         profile_direct(lambda: train_step(state, pool[0]), f"{tag[1:-1]} step", 2, calls=5,
@@ -1875,7 +2039,7 @@ def phase_train_graphs(dev: torch.device, profile: bool, pool: list) -> dict[str
     paths["train-graph-softmax-bf16"] = phase_train_graph(
         dev, "sampled softmax + logQ, f32 tables, bf16 compute",
         dataclasses.replace(soft, compute_dtype="bfloat16"), soft_tcfg, soft_pool,
-        {**SOFTMAX_F32, "tower_bwd": 2}, profile)
+        SOFTMAX_BF16, profile)
     return paths
 
 
@@ -1887,6 +2051,178 @@ def flagship_bce():
     tcfg = cfg_lib.TrainConfig(batch_size=TRAIN_BATCH, sorted_feature="user_id",
                                block_sorted_kernel="bfloat16", loss="bce")
     return cfg, tcfg
+
+
+def batch_tensors(batch) -> list[torch.Tensor]:
+    """A decoded `Batch`'s labels, then each feature's ids and mask."""
+    out = [batch.labels]
+    for name in sorted(batch.features):
+        out += [batch.features[name].ids, batch.features[name].mask]
+    return out
+
+
+def same_batch(a, b) -> bool:
+    return all(x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+               for x, y in zip(batch_tensors(a), batch_tensors(b)))
+
+
+def host_bytes(batch) -> int:
+    """The bytes of a flat batch's array fields (numpy arrays or tensors)."""
+    leaves = (getattr(batch, f.name) for f in dataclasses.fields(batch))
+    return sum(leaf.nbytes for leaf in leaves if leaf is not None)
+
+
+def graph_ms(fn) -> float:
+    """Median device ms of one replay of `fn` captured alone into a CUDA
+    graph (no launch gaps, no host), over REPS replays timed with events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    times = []
+    for _ in range(REPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_train_compact(dev: torch.device, profile: bool) -> dict[str, int]:
+    """`[train-compact]`: the flagship BCE step of `[train-graph]` (f32
+    tables, bf16 compute, batch 262,144 sorted by user id) fed the compact
+    wire (`data/compact.py`, the user slot delta-encoded): K = 16 steps as
+    one CUDA graph over CompactBatch payloads, beside the same batches as
+    PackedBatch payloads through another graph, from two copies of one
+    state, for 2 macros: the end states bit for bit equal. Before that the
+    decode on the card against `unpack_batch`, bit for bit, with and without
+    the delta slot and on a batch whose sidecar holds exceptions. The main
+    path (counted) is the compact graph's first call (warm-up and capture).
+    Printed beside the card line: the payload bytes a step (from the scheme,
+    and the host arrays'), the replayed ms a step of both payloads, a
+    macro's host-to-device copy ms from pinned memory, and the decode's
+    device ms a step (the decode alone in a graph, beside `unpack_batch`'s)
+    and its share of the replayed step."""
+    tag, k = "[train-compact]", GRAPH_K
+    cfg, tcfg = flagship_bce()
+    feat = PackedFeaturizer(cfg, pack_label=True, sort_feature="user_id")
+    ds = SyntheticClickstream(NUM_USERS - 1, NUM_ITEMS - 1, seed=0)
+    pbs = [feat(cols) for cols in ds.batches(TRAIN_BATCH, GRAPH_POOL, split="train")]
+    scheme = CompactScheme.from_model(cfg, pack_label=True, delta_feature="user_id")
+    cbs = [compact_from_packed(pb, scheme) for pb in pbs]
+
+    def on_card(batch):
+        return map_leaves(batch, lambda t: t.to(dev))
+
+    # --- the decode on the card, bit for bit unpack_batch's ------------------------------
+    rng = np.random.default_rng(12)
+    sparse = feat({"user_id": rng.integers(1, NUM_USERS, 512),
+                   "product_id": rng.integers(1, NUM_ITEMS, 512), "label": rng.integers(0, 2, 512)})
+    no_delta = CompactScheme.from_model(cfg, pack_label=True)
+    decode_cases = [("delta slot", scheme, pb) for pb in pbs[:2]] + [
+        ("no delta slot", no_delta, pbs[0]), ("delta slot, sparse users", scheme, sparse)]
+    for label, sch, pb in decode_cases:
+        cb = compact_from_packed(pb, sch)
+        got = batch_from_compact(on_card(cb), cfg, sch)
+        if not same_batch(got, unpack_batch(on_card(pb), cfg, pack_label=True)):
+            raise AssertionError(f"{tag} decode ({label}) differs from unpack_batch")
+    exceptions = int((compact_from_packed(sparse, scheme).delta_extra > 0).sum())
+    if exceptions < 100:
+        raise AssertionError(f"{tag} the sparse batch holds {exceptions} delta exceptions")
+    log(f"{tag} the decode on the card equals unpack_batch bit for bit (ids, masks, labels): "
+        f"the user slot delta-encoded ({len(pbs[:2])} batches of {TRAIN_BATCH}), not delta-"
+        f"encoded, and a batch of 512 users spread over the table ({exceptions} deltas > 255 "
+        f"in the sidecar)")
+    wire_step = scheme.wire_bytes_per_example * TRAIN_BATCH + 8 * scheme.delta_capacity
+    if host_bytes(cbs[0]) != wire_step:
+        raise AssertionError(f"{tag} a compact batch holds {host_bytes(cbs[0])} bytes, the scheme "
+                             f"says {wire_step}")
+
+    # --- graphs of the two payloads from two copies of one state ------------------------
+    base, dense_opt = step_lib.create_train_state(torch.Generator(device=dev).manual_seed(0),
+                                                  cfg, tcfg)
+    core = step_lib.make_train_step(cfg, tcfg, dense_opt)
+    multis = {"packed": step_lib.make_multi_step(make_packed_train_step(core, cfg,
+                                                                        pack_label=True)),
+              "compact": step_lib.make_multi_step(make_compact_train_step(core, cfg, scheme))}
+    hosts = {"packed": pbs, "compact": cbs}
+
+    def macro(kind, j, pinned=False):
+        stacked = step_lib.stack_batches([hosts[kind][(j + i) % len(pbs)] for i in range(k)])
+        moved = map_leaves(stacked, lambda t: t.pin_memory() if pinned else t.to(dev))
+        return moved
+
+    states = {"packed": base.copy(), "compact": base.copy()}
+    del base
+    payloads = {kind: [macro(kind, j) for j in range(2 + GRAPH_MACROS)] for kind in hosts}
+    torch.cuda.synchronize()
+    # --- the main path, counted: the compact graph's warm-up, capture and first replay ----
+    reset_launches()
+    states["compact"], out_c = multis["compact"](states["compact"], payloads["compact"][0])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    # --- checks, not counted ------------------------------------------------------------
+    calls = k + step_lib.WARMUP_STEPS
+    for kernel, n in launches.items():
+        if n != BCE_F32.get(kernel, 0) * calls:
+            raise AssertionError(f"{tag} {kernel}: {n} launches in {calls} steps, expected "
+                                 f"{BCE_F32.get(kernel, 0)} a step")
+    states["packed"], out_p = multis["packed"](states["packed"], payloads["packed"][0])
+    for kind in hosts:
+        states[kind], _ = multis[kind](states[kind], payloads[kind][1])
+    verdict = compare_states(f"{tag} after {2 * k} steps", states["packed"], states["compact"])
+    if not verdict.startswith("bit for bit") or not bitwise_equal(out_c["loss"], out_p["loss"]):
+        raise AssertionError(f"{tag} the compact-fed graph is not the packed-fed one bit for "
+                             f"bit: {verdict}")
+    # --- times ------------------------------------------------------------------------------
+    replayed = {}
+    for kind in hosts:
+        times = []
+        for j in range(2, 2 + GRAPH_MACROS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states[kind], _ = multis[kind](states[kind], payloads[kind][j])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / k)
+        replayed[kind] = statistics.median(times)
+    h2d = {}
+    for kind in hosts:
+        pinned = macro(kind, 0, pinned=True)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            map_leaves(pinned, lambda t: t.to(dev, non_blocking=True))
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        h2d[kind] = (statistics.median(times), host_bytes(pinned))
+    one_c, one_p = on_card(cbs[0]), on_card(pbs[0])
+    decode_ms = graph_ms(lambda: batch_from_compact(one_c, cfg, scheme))
+    unpack_ms = graph_ms(lambda: unpack_batch(one_p, cfg, pack_label=True))
+    card = card_line()
+    log(f"{tag} {card}: batch {TRAIN_BATCH}, K={k}: end states after {2 * k} steps of the "
+        f"compact-fed graph against the packed-fed one {verdict}; payload bytes a step "
+        f"compact {wire_step} ({scheme.wire_bytes_per_example} B an example + a sidecar of "
+        f"8 x {scheme.delta_capacity} B) against packed {host_bytes(pbs[0])} (8 B an example); "
+        f"replayed_ms_per_step compact={replayed['compact']!r} packed={replayed['packed']!r} "
+        f"(n={GRAPH_MACROS} macros of distinct payloads on the card, payload copy included); "
+        f"a macro's host-to-device copy from pinned memory: compact {h2d['compact'][0]!r} ms for "
+        f"{h2d['compact'][1]} B, packed {h2d['packed'][0]!r} ms for {h2d['packed'][1]} B; "
+        f"decode device ms a step {decode_ms!r} (unpack_batch {unpack_ms!r}; the decode alone "
+        f"in a graph, n={REPS}), {decode_ms / replayed['compact']!r} of the replayed step; "
+        f"launches captured per step { {k_: v // calls for k_, v in launches.items() if v} }, "
+        f"captures={multis['compact'].captures} replays={multis['compact'].replays}")
+    if profile:
+        profile_direct(lambda: multis["compact"](states["compact"], payloads["compact"][0]),
+                       f"train-compact replay of {k} steps", 2 * k, calls=3)
+    return launches
 
 
 def phase_train_skew(dev: torch.device, profile: bool) -> dict[str, int]:
@@ -1912,15 +2248,52 @@ def phase_train_skew(dev: torch.device, profile: bool) -> dict[str, int]:
         f"batch: {longest}")
     launches = phase_train_graph(dev, "BCE, f32 tables, bf16 compute, rank^-1 items", cfg, tcfg,
                                  pool, BCE_F32, profile, tag="[train-skew]")
+    margins = {}
+    for repaired in (True, False):
+        with contextlib.nullcontext() if repaired else forward_without_tie_repair():
+            margins[repaired] = host_check_after(
+                "[train-skew]" if repaired else "[train-skew] without the tie repair:", dev, cfg,
+                tcfg, pool, strict=repaired, replayed_steps=SKEW_REPLAYED_STEPS)
+    log(f"[train-skew] host-check margins (largest diff / bound) with the tie repair "
+        f"{margins[True]!r}, without {margins[False]!r}")
+    return launches
+
+
+SKEW_REPLAYED_STEPS = 560  # 35 replays of a 16-step graph over the 6 skewed batches
+
+
+def host_check_after(tag, dev, cfg, tcfg, pool, strict=True, replayed_steps=0) -> dict:
+    """`check_against_host` on a fresh state after WARMUP_STEPS +
+    TRAIN_STEPS eager steps over `pool`, and, with `replayed_steps`, on a
+    fresh state after that many steps replayed as GRAPH_K-step graphs over
+    rotations of the pool; each fails over its bound when `strict`. Returns
+    each check's largest margin (diff / bound)."""
+    out = {}
     state, dense_opt = step_lib.create_train_state(torch.Generator(device=dev).manual_seed(0),
                                                    cfg, tcfg)
     train_step = make_packed_train_step(step_lib.make_train_step(cfg, tcfg, dense_opt), cfg,
                                         pack_label=True)
     state, _, _ = timed_steps(train_step, state, pool, 0, WARMUP_STEPS + TRAIN_STEPS)
-    # "auto" is on, on the card
-    check_against_host("[train-skew]", state, dataclasses.replace(cfg, fused_tower_backward="on"),
-                       tcfg, dense_opt, train_step, pool[0])
-    return launches
+    host_cfg = dataclasses.replace(cfg, fused_tower_backward="on")  # "auto" is on, on the card
+    eager = check_against_host(f"{tag} after {WARMUP_STEPS + TRAIN_STEPS} eager steps", state,
+                               host_cfg, tcfg, dense_opt, train_step, pool[0], strict)
+    out[f"{WARMUP_STEPS + TRAIN_STEPS} eager steps"] = max(eager.values())
+    if replayed_steps:
+        del state
+        state, dense_opt = step_lib.create_train_state(
+            torch.Generator(device=dev).manual_seed(0), cfg, tcfg)
+        train_step = make_packed_train_step(step_lib.make_train_step(cfg, tcfg, dense_opt), cfg,
+                                            pack_label=True)
+        multi = step_lib.make_multi_step(train_step)
+        macros = [stack_on_card([pool[(j + i) % len(pool)] for i in range(GRAPH_K)])
+                  for j in range(len(pool))]
+        for j in range(replayed_steps // GRAPH_K):
+            state, _ = multi(state, macros[j % len(macros)])
+        replayed = check_against_host(f"{tag} after {state.step} replayed steps", state, host_cfg,
+                                      tcfg, dense_opt, train_step, pool[0], strict)
+        out[f"{state.step} replayed steps"] = max(replayed.values())
+        del macros
+    return out
 
 
 def phase_learn_packed(dev: torch.device) -> dict[str, int]:
@@ -2068,7 +2441,8 @@ def phase_train_bf16tab(dev: torch.device, batches: tuple[list, list]):
     return launches, state, cfg
 
 
-def check_against_host(tag, state, host_cfg, tcfg, dense_opt, train_step, pb) -> None:
+def check_against_host(tag, state, host_cfg, tcfg, dense_opt, train_step, pb,
+                       strict: bool = True) -> dict[str, float]:
     """One step from a copy of the state on the card, against the same step
     on the host CPU, where every wrapper takes its plain version. Two bf16
     ulps of each quantity's largest magnitude (2^-7): under bf16 compute the
@@ -2077,7 +2451,8 @@ def check_against_host(tag, state, host_cfg, tcfg, dense_opt, train_step, pb) ->
     either way in the two. An int8 table's dequantized rows get one
     quantization step of the row (scale / 127) on top: a value on a rounding
     boundary lands on either side. The item counts are integers and must be
-    equal."""
+    equal. Returns each quantity's margin, its largest difference over its
+    bound (at most 1 to pass); `strict=False` measures without failing."""
     card = state.copy()
     host = state.copy("cpu")
     host.model.cfg = host_cfg
@@ -2090,8 +2465,22 @@ def check_against_host(tag, state, host_cfg, tcfg, dense_opt, train_step, pb) ->
     host, hout = host_step(host, map_leaves(pb, lambda t: t.cpu()))
     host_s = time.perf_counter() - t0
     rel = 2.0 ** -7
-    errs = {"loss": within_rel(cout["loss"].cpu().reshape(1), hout["loss"].reshape(1), rel, "loss"),
-            "logits": within_rel(cout["logits"].cpu(), hout["logits"], rel, "logits")}
+    errs, margins = {}, {}
+
+    def held(label, diff, bound):
+        """Record |got - want| against its bound; fail over it when strict."""
+        errs[label] = max(errs.get(label, 0.0), diff)
+        margins[label] = max(margins.get(label, 0.0), diff / bound if bound else float(diff > 0))
+        if strict and diff > bound:
+            raise AssertionError(f"{tag} host check {label}: max abs diff {diff!r} > its bound "
+                                 f"{bound!r}")
+
+    def rel_held(label, got, want):
+        held(label, (got.float() - want.float()).abs().max().item(),
+             rel * want.float().abs().max().item())
+
+    rel_held("loss", cout["loss"].cpu().reshape(1), hout["loss"].reshape(1))
+    rel_held("logits", cout["logits"].cpu(), hout["logits"])
     for name, t0_ in before_f32.items():
         got_t, want_t = card.model.tables[name], host.model.tables[name]
         same = torch.ones(t0_.shape[0], dtype=torch.bool)
@@ -2105,28 +2494,45 @@ def check_against_host(tag, state, host_cfg, tcfg, dense_opt, train_step, pb) ->
         if isinstance(got_t, QuantizedTable):
             step = torch.maximum(got_t.scales.cpu(), want_t.scales)[:, None] / 127
             diff = (got - want).abs()
-            if (diff > rel * (want - t0_).abs().max() + step).any():
+            over = diff / (rel * (want - t0_).abs().max() + step)
+            errs[name] = diff.max().item()
+            margins[name] = over.max().item()
+            if strict and margins[name] > 1:
                 raise AssertionError(f"host check {name}: dequantized rows differ by "
                                      f"{diff.max().item()!r}, more than 2^-7 x max|update| plus "
                                      "one quantization step")
-            errs[name] = diff.max().item()
             errs[f"{name} values that differ"] = (
                 (got_t.values.cpu() != want_t.values).sum().item() / got_t.values.numel())
         else:
-            errs[name] = within_rel(got - t0_, want - t0_, rel, f"{name} update")
-        errs[f"{name} acc"] = within_rel(card.adagrad_acc[name].cpu(), host.adagrad_acc[name],
-                                         rel, f"{name} accumulator")
+            rel_held(f"{name} update", got - t0_, want - t0_)
+        rel_held(f"{name} acc", card.adagrad_acc[name].cpu(), host.adagrad_acc[name])
     for (pc, sc), (ph, sh) in zip(card.dense_opt_state.state.items(),
                                   host.dense_opt_state.state.items()):
-        errs.setdefault("tower grads", 0.0)
-        errs["tower grads"] = max(errs["tower grads"], within_rel(
-            sc["exp_avg"].cpu(), sh["exp_avg"], rel, "tower gradient (Adam's first moment)"))
+        rel_held("tower grads", sc["exp_avg"].cpu(), sh["exp_avg"])
     if card.item_counts is not None:
         if not torch.equal(card.item_counts.cpu(), host.item_counts):
             raise AssertionError(f"{tag} host check: item counts differ")
         errs["item_counts"] = 0.0
     log(f"{tag} one step from a copied state, card against host CPU (plain versions, "
-        f"{host_s!r} s): within 2^-7 x max|host| each; max abs diffs {errs!r}")
+        f"{host_s!r} s): " + ("within 2^-7 x max|host| each" if strict else "measured") +
+        f"; max abs diffs {errs!r}; margins (diff / bound, at most 1 passes) {margins!r}, the "
+        f"largest {max(margins.values())!r}")
+    return margins
+
+
+@contextlib.contextmanager
+def forward_without_tie_repair():
+    """The fused tower's bf16 forward as it was before relu_ties: `relu(y +
+    b)` of each GEMM's own sums on the card (the measure of what the repair
+    moved; nothing counts as a relu_ties launch inside)."""
+    from two_tower_recommender_model_tpu_torch.models import mlp
+
+    saved = mlp.relu_ties
+    mlp.relu_ties = lambda y, b, a, w: torch.relu(y + b)
+    try:
+        yield
+    finally:
+        mlp.relu_ties = saved
 
 
 def evaluate_card(tag, state, cfg, tcfg, val) -> None:
@@ -2220,7 +2626,7 @@ def phase_train_softmax(dev: torch.device, profile: bool) -> dict[str, int]:
             f"after 1 warm-up step), loss={out['loss'].item()!r}, "
             f"peak_memory_gb={torch.cuda.max_memory_allocated() / 1e9!r}")
 
-    # bf16 compute: the tower backward (#8) launches beside the softmax kernels
+    # bf16 compute: the tower backward (#8) and relu_ties launch beside the softmax kernels
     bcfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
     btcfg = dataclasses.replace(tcfg, block_sorted_kernel="bfloat16")
     bstate, bopt = step_lib.create_train_state(torch.Generator(device=dev).manual_seed(0),
@@ -2230,8 +2636,7 @@ def phase_train_softmax(dev: torch.device, profile: bool) -> dict[str, int]:
     before = read_launches()
     bstate, out, btimes = timed_steps(bstep, bstate, pool, 0, 2)
     made = {k: v - before[k] for k, v in read_launches().items() if v - before[k]}
-    want = {"pooled_gather": 4, "rowwise_adagrad": 4, "tower_bwd": 4, "softmax_lse_fwd": 2,
-            "softmax_lse_dq": 2, "softmax_lse_dc": 2}
+    want = {k: 2 * n for k, n in SOFTMAX_BF16.items()}
     if made != want or not np.isfinite(out["loss"].float().item()):
         raise AssertionError(f"[train-softmax] bf16: launches {made}, expected {want}; "
                              f"loss {out['loss'].float().item()}")
@@ -2721,8 +3126,11 @@ def phase_serve_trained(dev: torch.device, state, cfg, profile: bool, tag: str =
                   for users in retrieve_users]
     launches = read_launches()
     # --- checks, not counted -----------------------------------------------------
-    if {k for k, v in launches.items() if v} != {gather_name}:
-        raise AssertionError(f"{tag} launches {launches}: only {gather_name} may run")
+    ties = tie_launches(cfg, [len(r["user_id"]) for r in requests])
+    if {k: v for k, v in launches.items() if v and k != gather_name} != (
+            {"relu_ties": ties} if ties else {}):
+        raise AssertionError(f"{tag} launches {launches}: only {gather_name} may run, and "
+                             f"relu_ties {ties} times in the bf16 predicts")
     deq = {name: table_f32(t) for name, t in model.tables.items()}
     compute = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     for inputs, got in zip(requests, preds):
@@ -2774,8 +3182,12 @@ def phase_serve_trained(dev: torch.device, state, cfg, profile: bool, tag: str =
 
 
 PIPELINE_K = 32  # cli.train's default --macro-batches: steps a CUDA graph
-PIPELINE_FAST = ["--sorted-feature", "user_id", "--block-sorted-kernel", "bfloat16",
-                 "--compute-dtype", "bfloat16"]  # what the pipeline's --fast passes cli.train
+def pipeline_fast(wire_cache: str) -> list[str]:
+    """What the pipeline's --fast passes cli.train, with its wire cache in
+    `wire_cache`."""
+    return ["--sorted-feature", "user_id", "--block-sorted-kernel", "bfloat16",
+            "--compute-dtype", "bfloat16", "--wire-cache", wire_cache]
+
 BCE_RECALL_FLOOR = 0.35  # recall@100 of the smoke BCE run (the JAX pipeline's smoke: 0.374)
 
 
@@ -2785,40 +3197,49 @@ def card_line() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def expected_train_launches(train_out: dict, per_step: dict[str, int], eval_batches: int,
+def eval_sizes(rows: int, batch: int = 8192) -> list[int]:
+    """The batch sizes of one eval pass over `rows` rows (the last ragged)."""
+    return [min(batch, rows - i) for i in range(0, rows, batch)]
+
+
+def expected_train_launches(train_out: dict, per_step: dict[str, int], eval_batches: list[int],
                             exports: int, gather: str = "pooled_gather",
                             ) -> tuple[dict[str, int], dict[str, int]]:
     """(launches the wrappers count, launches the card runs) of a cli.train
     run on the packed path: Python launches a step's kernels in the
     multi-step's warm-up and capture (WARMUP_STEPS + K steps a capture) and
     in each eager tail step; a replay runs the K captured steps without
-    Python. Each eval batch gathers from both tables (`gather`: #1, or #5
-    for int8 tables), and so does each retrieval export chunk."""
+    Python. Each eval batch (`eval_batches`: their sizes) gathers from both
+    tables (`gather`: #1, or #5 for int8 tables), and so does each retrieval
+    export chunk; under bf16 compute (relu_ties in `per_step`) an eval batch
+    of a multiple of 512 rows runs both towers' layers through relu_ties
+    (the retrieval exports run the towers unfused)."""
     steps = sum(e["train_steps"] for e in train_out["epochs"])
     replayed = train_out["replays"] * PIPELINE_K
     python_steps = train_out["captures"] * (step_lib.WARMUP_STEPS + PIPELINE_K) + steps - replayed
     card_steps = train_out["captures"] * step_lib.WARMUP_STEPS + steps
-    gathers = 2 * eval_batches + exports
-    counted = {k: n * python_steps + (gathers if k == gather else 0)
-               for k, n in per_step.items()}
-    on_card = {k: n * card_steps + (gathers if k == gather else 0)
-               for k, n in per_step.items()}
+    extra = {gather: 2 * len(eval_batches) + exports}
+    if "relu_ties" in per_step:
+        extra["relu_ties"] = 4 * sum(1 for n in eval_batches if n % 512 == 0)
+    counted = {name: n * python_steps + extra.get(name, 0) for name, n in per_step.items()}
+    on_card = {name: n * card_steps + extra.get(name, 0) for name, n in per_step.items()}
     return counted, on_card
 
 
 def phase_pipeline(dev: torch.device, work: str) -> tuple[dict[str, dict[str, int]], dict]:
     """`[pipeline]` the Instacart pipeline through its entry points, in the
     work directory `work`: `cli.instacart_pipeline.main` on the --smoke
-    replica (8,000 users, 4,000 products, seed 0), --packed --fast, the
-    flagship widths (dim 128, towers [128, 64]), BCE, 3 epochs of batch
-    8,192, on the card; then one epoch of the sampled softmax on the same
-    shards through `cli.train` and `cli.evaluate_retrieval`. Each run's
+    replica (8,000 users, 4,000 products, seed 0), --packed --fast (the
+    compact wire through a wire cache built in the run), the flagship widths
+    (dim 128, towers [128, 64]), BCE, 3 epochs of batch 8,192, on the card;
+    then one epoch of the sampled softmax on the same shards through
+    `cli.train` (reusing the cache) and `cli.evaluate_retrieval`. Each run's
     launches are checked against its steps x a step's launches (+ the eval
-    batches' and the retrieval exports' gathers); BCE recall@100 over every
-    test user must reach BCE_RECALL_FLOOR; the host stages' seconds are
-    printed beside the card's name and power limit. Returns the two runs'
-    launches and the pipeline's result (the later phases train on its
-    shards)."""
+    batches' and the retrieval exports'); BCE recall@100 over every test
+    user must reach BCE_RECALL_FLOOR; the host stages' seconds and the
+    cache's build seconds and bytes are printed beside the card's name and
+    power limit. Returns the two runs' launches and the pipeline's result
+    (the later phases train on its shards)."""
     from two_tower_recommender_model_tpu_torch.cli import (
         evaluate_retrieval as eval_cli,
         instacart_pipeline,
@@ -2841,7 +3262,8 @@ def phase_pipeline(dev: torch.device, work: str) -> tuple[dict[str, dict[str, in
         "--num-items", str(meta["num_items"]), "--epochs", "1", "--batch-size", "8192",
         "--loss", "sampled_softmax", "--sparse-learning-rate", "0.1", "--seed", "0",
         "--runs-root", os.path.join(work, "runs"),
-        "--export-dir", os.path.join(work, "model-softmax"), *PIPELINE_FAST])
+        "--export-dir", os.path.join(work, "model-softmax"),
+        *pipeline_fast(os.path.join(work, "wirecache"))])  # the BCE run's cache, reused
     softmax_train_s = time.perf_counter() - t1
     softmax_retrieval = eval_cli.main(["--model-dir", os.path.join(work, "model-softmax"),
                                        "--data-dir", shards, "--k", "100",
@@ -2849,7 +3271,7 @@ def phase_pipeline(dev: torch.device, work: str) -> tuple[dict[str, dict[str, in
     softmax_launches = read_launches()
     # --- checks, not counted ------------------------------------------------------
     rows = out["prepare"]["rows"]
-    eval_batches = {split: -(-rows[split] // 8192) for split in ("val", "test")}
+    eval_batches = {split: eval_sizes(rows[split]) for split in ("val", "test")}
     retrieval = out["retrieval"]
     exports = (-(-int(retrieval["num_users"]) // EXPORT_BATCH)
                + -(-meta["num_items"] // EXPORT_BATCH))
@@ -2857,7 +3279,7 @@ def phase_pipeline(dev: torch.device, work: str) -> tuple[dict[str, dict[str, in
     for tag, train_out, launches, per_step, epochs, ret in (
             ("[pipeline]", out["train"], bce_launches, BCE_F32, 3, retrieval),
             ("[pipeline-softmax]", softmax, softmax_launches,
-             {**SOFTMAX_F32, "tower_bwd": 2}, 1, softmax_retrieval)):
+             SOFTMAX_BF16, 1, softmax_retrieval)):
         # baseline + each epoch's validation, and the test eval
         n_eval = (1 + epochs) * eval_batches["val"] + eval_batches["test"]
         counted, on_card = expected_train_launches(train_out, per_step, n_eval, exports)
@@ -2869,6 +3291,11 @@ def phase_pipeline(dev: torch.device, work: str) -> tuple[dict[str, dict[str, in
         if train_out["captures"] != 1 or train_out["replays"] < epochs:
             raise AssertionError(f"{tag} captures {train_out['captures']}, replays "
                                  f"{train_out['replays']}: the epochs did not replay a graph")
+        (gen,) = train_out["wire_cache"]
+        if train_out["wire_format"] != "compact" or gen["built"] != (tag == "[pipeline]") or any(
+                e["train_steps"] != gen["num_batches"] for e in train_out["epochs"]):
+            raise AssertionError(f"{tag} wire {train_out['wire_format']}, cache {gen}, steps "
+                                 f"{[e['train_steps'] for e in train_out['epochs']]}")
         checks.append((tag, train_out, made, on_card, ret))
     bce = out["retrieval"]
     if not bce["recall_at_100"] >= BCE_RECALL_FLOOR:
@@ -2879,7 +3306,9 @@ def phase_pipeline(dev: torch.device, work: str) -> tuple[dict[str, dict[str, in
     log(f"[pipeline] {card}: replica {st['fetch']!r} s ({out['fetch']['orders']} orders, "
         f"{out['fetch']['prior_rows']} prior rows), prepare {st['prepare']!r} s (rows {rows}), "
         f"train {st['train']!r} s, eval {st['retrieval']!r} s, pipeline {seconds!r} s in all; "
-        f"softmax epoch train {softmax_train_s!r} s")
+        f"softmax epoch train {softmax_train_s!r} s; the wire cache (compact wire, user slot "
+        f"delta-encoded): {out['train']['wire_cache'][0]!r}, built in the train stage, reused "
+        f"by the softmax run")
     for tag, train_out, made, on_card, ret in checks:
         m = train_out["metrics"]
         epochs = train_out["epochs"]
@@ -2942,8 +3371,8 @@ def phase_resume(dev: torch.device, work: str, pipeline: dict, table_dtype: str)
                 "--seed", "0", "--table-dtype", table_dtype,
                 "--runs-root", os.path.join(work, "runs"),
                 "--checkpoint-dir", os.path.join(work, f"ckpt-{table_dtype}-{run}"),
-                "--export-dir", os.path.join(work, f"model-{table_dtype}-{run}"), *PIPELINE_FAST,
-                *extra]
+                "--export-dir", os.path.join(work, f"model-{table_dtype}-{run}"),
+                *pipeline_fast(os.path.join(work, f"wirecache-{table_dtype}-{run}")), *extra]
 
     class CrashAfterCheckpoint(Checkpointer):
         def save(self, step, state, loader_state=None, extra=None, wait=False):
@@ -2992,12 +3421,15 @@ def phase_resume(dev: torch.device, work: str, pipeline: dict, table_dtype: str)
         raise AssertionError(f"{tag} test AUROC {crashed['metrics']['test_auroc']} != "
                              f"{whole['metrics']['test_auroc']}")
     rows = pipeline["prepare"]["rows"]
-    val, test = (-(-rows[split] // 8192) for split in ("val", "test"))
+    val, test = (eval_sizes(rows[split]) for split in ("val", "test"))
     counted, _ = expected_train_launches(whole, per_step, (1 + RESUME_EPOCHS) * val + test, 0,
                                          gather)
     made = {k: v for k, v in whole_launches.items() if v}
-    restart = {k: n * crashed["captures"] * (step_lib.WARMUP_STEPS + PIPELINE_K)
-               + (2 * val if k == gather else 0) for k, n in per_step.items()}
+    # the restart's own capture and baseline validation
+    baseline, _ = expected_train_launches({"epochs": [], "captures": 0, "replays": 0}, per_step,
+                                          val, 0, gather)
+    restart = {k: n * crashed["captures"] * (step_lib.WARMUP_STEPS + PIPELINE_K) + baseline[k]
+               for k, n in per_step.items()}
     made_crashed = {k: v for k, v in crashed_launches.items() if v}
     want_crashed = {k: counted[k] + restart[k] for k in counted}
     if made != counted or made_crashed != want_crashed:
@@ -3005,6 +3437,9 @@ def phase_resume(dev: torch.device, work: str, pipeline: dict, table_dtype: str)
                              f"{want_crashed}")
     if (whole["captures"], crashed["captures"]) != (1, 1):
         raise AssertionError(f"{tag} captures {whole['captures']}, {crashed['captures']}")
+    if not whole["wire_cache"][0]["built"] or crashed["wire_cache"][0]["built"]:
+        raise AssertionError(f"{tag} the restart must reuse the cache its first attempt built: "
+                             f"{whole['wire_cache']}, {crashed['wire_cache']}")
     saves = whole["checkpoints"]
     log(f"{tag} {card_line()}: uninterrupted {RESUME_EPOCHS} epochs ({steps} steps each) and "
         f"crashed after epoch {RESUME_CRASH_EPOCH} + resumed: the last checkpoints bit for bit "
@@ -3070,8 +3505,9 @@ def phase_registry(dev: torch.device, work: str, pipeline: dict, runs: dict):
         server.stop()
     launches = read_launches()
     # --- checks, not counted ------------------------------------------------------
-    if launches["pooled_gather"] != 2 * len(requests) or sum(launches.values()) != 2 * len(
-            requests):
+    ties = tie_launches(scorer.model.cfg, [len(r["user_id"]) for r in requests])
+    if {k: v for k, v in launches.items() if v} != {"pooled_gather": 2 * len(requests),
+                                                      **({"relu_ties": ties} if ties else {})}:
         raise AssertionError(f"[registry] launches {launches}")
     if scorer.model.device.type != "cuda":
         raise AssertionError("[registry] the registry's scorer is not on the card")
@@ -3126,7 +3562,9 @@ def phase_batch_predict(work: str, scorer: Scorer) -> dict[str, int]:
     batches = -(-rows // 8192)
     if index["total_rows"] != rows:
         raise AssertionError(f"[batch-predict] {index['total_rows']} rows out of {rows}")
-    if {k: v for k, v in launches.items() if v} != {"pooled_gather": 2 * batches}:
+    ties = tie_launches(scorer.model.cfg, [min(8192, rows - i * 8192) for i in range(batches)])
+    if {k: v for k, v in launches.items() if v} != {"pooled_gather": 2 * batches,
+                                                      **({"relu_ties": ties} if ties else {})}:
         raise AssertionError(f"[batch-predict] launches {launches} for {batches} batches")
     scored = ShardedDataset(out_dir)
     got = {k: np.concatenate([scored.read_shard(i)[k] for i in range(scored.num_shards)])
@@ -3263,7 +3701,8 @@ def main() -> int:
                 log(f"[build]   {line.strip()}")
 
     stats = {"pooled_gather": phase_kernel(dev), "rowwise_adagrad": phase_adagrad_kernel(dev),
-             "tower_bwd": phase_tower_kernel(dev), **phase_softmax_kernel(dev),
+             "tower_bwd": phase_tower_kernel(dev), "relu_ties": phase_relu_ties_kernel(dev),
+             **phase_softmax_kernel(dev),
              **phase_int8_kernels(dev), **phase_probe_kernels(dev)}
     stats["rowwise_adagrad"]["max_abs_err"] = max(
         stats["rowwise_adagrad"]["max_abs_err"],
@@ -3284,6 +3723,7 @@ def main() -> int:
     paths["learn-int8"] = phase_learn(dev, "int8")
     paths["probe"] = phase_probe(dev)
     paths.update(phase_train_graphs(dev, args.profile, batches[0]))
+    paths["train-compact"] = phase_train_compact(dev, args.profile)
     paths["train-skew"] = phase_train_skew(dev, args.profile)
     paths["learn-packed"] = phase_learn_packed(dev)
     paths["train-bf16tab"], bf16_state, bf16_cfg = phase_train_bf16tab(dev, batches)

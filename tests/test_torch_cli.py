@@ -3,8 +3,9 @@
 `evaluate_retrieval` run on the CPU with `--device cpu` and learn; `train`
 checkpoints and resumes (a crashed run resumed equals an uninterrupted one
 bit for bit); `evaluate_retrieval --per-user-table` writes a table that reads
-back to the run's metrics; the pipeline runs end to end; every flag whose
-module is not ported raises, naming its ROADMAP item."""
+back to the run's metrics; the pipeline runs end to end; the compact wire
+and the wire cache train as the packed path does; every flag whose module is
+not ported raises, naming its ROADMAP item."""
 
 import dataclasses
 import json
@@ -177,9 +178,7 @@ def test_block_sorted_kernel_auto():
 @pytest.mark.parametrize("flags,item", [
     (["--multi-host"], "M12"), (["--mesh-model", "2"], "M12"),
     (["--sharded-exchange", "dense"], "M12"), (["--exchange-capacity-factor", "1.5"], "M12"),
-    (["--exchange-wire-dtype", "bfloat16"], "M12"), (["--wire-cache", "wc"], "M11"),
-    (["--wire-format", "compact"], "M11"), (["--wire-cache-order", "loader"], "M11"),
-    (["--wire-cache-generations", "2"], "M11"),
+    (["--exchange-wire-dtype", "bfloat16"], "M12"),
 ])
 def test_unported_train_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
@@ -187,9 +186,188 @@ def test_unported_train_flags_raise(flags, item):
                     "--device", "cpu", *flags])
 
 
-def test_unported_eval_and_pipeline_flags_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*M11"):
-        instacart_pipeline.main(["--work", str(tmp_path), "--wire-cache", "--device", "cpu"])
+def _last_state(directory):
+    return _final_checkpoint(directory)["tensors"]
+
+
+def _assert_states_equal(got, want):
+    assert got.keys() == want.keys()
+    for name, t in want.items():
+        assert torch.equal(got[name], t), name
+
+
+@pytest.mark.parametrize("layout", ["packed", "raw"])
+def test_wire_format_compact_trains_as_packed(shards, tmp_path, layout):
+    """`--wire-format compact` (the sorted user slot delta-encoded) ends in the
+    training state of `--wire-format packed`, bit for bit, on pre-packed and
+    on raw shards."""
+    data_dir, meta = shards[layout]
+    runs = {}
+    for wire in ("packed", "compact"):
+        out = train.main(train_argv(data_dir, meta, tmp_path, "--epochs", "2", "--macro-batches",
+                                    "3", "--wire-format", wire, "--checkpoint-dir",
+                                    str(tmp_path / wire)))
+        assert out["wire_format"] == wire and out["wire_cache"] is None
+        runs[wire] = out
+    _assert_states_equal(_last_state(str(tmp_path / "compact")),
+                         _last_state(str(tmp_path / "packed")))
+    for k in ("train_loss", "val_auroc", "test_auroc", "test_loss"):
+        assert runs["compact"]["metrics"][k] == runs["packed"]["metrics"][k], k
+
+
+def test_wire_format_auto_is_compact_at_a_batch_multiple_of_8(shards, tmp_path):
+    """`auto` ships the compact wire when the batch size is a multiple of 8
+    (the reference's rule for one device), else the packed one; the per-batch
+    route has no wire."""
+    data_dir, meta = shards["packed"]
+    for batch, want in (("256", "compact"), ("252", "packed")):
+        out = train.main(train_argv(data_dir, meta, tmp_path, "--epochs", "1", "--batch-size",
+                                    batch, "--limit-train-batches", "4"))
+        assert out["wire_format"] == want, batch
+    raw_dir, raw_meta = shards["raw"]
+    out = train.main(train_argv(raw_dir, raw_meta, tmp_path, "--epochs", "1", "--no-packed",
+                                "--limit-train-batches", "2", "--limit-val-batches", "1"))
+    assert out["wire_format"] is None
+
+
+def test_wire_cache_trains_as_the_dynamic_path_and_is_reused(shards, tmp_path):
+    """`--wire-cache DIR`: the first run builds DIR/gen-0 and trains 3 epochs
+    from it (epoch 0 in the loader's order, then rotations); a second run
+    reuses the cache without building and ends in the same state bit for
+    bit. One epoch through a fresh cache equals one epoch of the dynamic
+    path (no cache), bit for bit."""
+    data_dir, meta = shards["packed"]
+    wc = str(tmp_path / "wc")
+
+    def run(name, *extra):
+        return train.main(train_argv(data_dir, meta, tmp_path, "--macro-batches", "3",
+                                     "--checkpoint-dir", str(tmp_path / name), *extra))
+
+    first = run("first", "--epochs", "3", "--wire-cache", wc)
+    (gen,) = first["wire_cache"]
+    assert gen["built"] and gen["dir"] == os.path.join(wc, "gen-0") and gen["bytes"] > 0
+    assert gen["num_batches"] == first["metrics"]["train_steps"] and gen["build_seconds"] > 0
+    assert json.load(open(os.path.join(wc, "gen-0", "meta.json")))["fingerprint"]["data_dir"] \
+        == os.path.abspath(data_dir)
+    again = run("again", "--epochs", "3", "--wire-cache", wc)
+    assert not again["wire_cache"][0]["built"] and again["wire_cache"][0]["build_seconds"] == 0
+    _assert_states_equal(_last_state(str(tmp_path / "again")), _last_state(str(tmp_path / "first")))
+    cached = run("cached", "--epochs", "1", "--wire-cache", str(tmp_path / "wc1"))
+    dynamic = run("dynamic", "--epochs", "1")
+    assert cached["metrics"]["train_steps"] == dynamic["metrics"]["train_steps"]
+    _assert_states_equal(_last_state(str(tmp_path / "cached")),
+                         _last_state(str(tmp_path / "dynamic")))
+
+
+@pytest.mark.parametrize("order", ["loader", "rotate", "shuffle"])
+def test_wire_cache_order_trains(shards, tmp_path, order):
+    """Each `--wire-cache-order` trains the cache's batches and learns; only
+    "loader" keeps the build's order, so only it ends where two epochs of
+    the dynamic path end."""
+    data_dir, meta = shards["packed"]
+    out = train.main(train_argv(data_dir, meta, tmp_path, "--epochs", "2", "--macro-batches",
+                                "3", "--wire-cache", str(tmp_path / "wc"), "--wire-cache-order",
+                                order, "--checkpoint-dir", str(tmp_path / order)))
+    m = out["metrics"]
+    assert m["train_steps"] == out["wire_cache"][0]["num_batches"]
+    assert m["val_auroc"] > m["baseline_val_auroc"] + 0.05
+    loader = train.main(train_argv(data_dir, meta, tmp_path, "--epochs", "2", "--macro-batches",
+                                   "3", "--wire-cache", str(tmp_path / "wc"), "--wire-cache-order",
+                                   "loader", "--checkpoint-dir", str(tmp_path / "ref")))
+    same = all(torch.equal(a, b) for a, b in zip(_last_state(str(tmp_path / order)).values(),
+                                                 _last_state(str(tmp_path / "ref")).values()))
+    assert same == (order == "loader")
+    assert loader["wire_cache"][0]["built"] is False
+
+
+def test_wire_cache_generations_build_one_cache_each(shards, tmp_path):
+    """`--wire-cache-generations 2` builds gen-0 and gen-1 from the loader's
+    epochs 0 and 1 (different row shuffles, so different bytes) and trains
+    epoch e from gen-(e % 2): two fresh generations in the loader's order,
+    then a rotation of gen-0."""
+    data_dir, meta = shards["packed"]
+    wc = tmp_path / "wc"
+    out = train.main(train_argv(data_dir, meta, tmp_path, "--epochs", "3", "--macro-batches", "3",
+                                "--wire-cache", str(wc), "--wire-cache-generations", "2"))
+    assert [g["dir"] for g in out["wire_cache"]] == [str(wc / "gen-0"), str(wc / "gen-1")]
+    assert all(g["built"] for g in out["wire_cache"])
+    assert (wc / "gen-0" / "wire.bin").read_bytes() != (wc / "gen-1" / "wire.bin").read_bytes()
+    assert [e["train_steps"] for e in out["epochs"]] == [out["wire_cache"][0]["num_batches"]] * 3
+    assert out["metrics"]["val_auroc"] > out["metrics"]["baseline_val_auroc"] + 0.05
+
+
+def test_wire_cache_refusals(shards, tmp_path):
+    """The reference's refusals: a wire cache needs the packed path and the
+    compact wire; the compact wire needs the packed path; a cache built at
+    another batch size is stale and must be rebuilt."""
+    data_dir, meta = shards["packed"]
+    raw_dir, raw_meta = shards["raw"]
+    wc = str(tmp_path / "wc")
+    with pytest.raises(SystemExit, match="compact wire format"):
+        train.main(train_argv(data_dir, meta, tmp_path, "--wire-cache", wc, "--wire-format",
+                              "packed"))
+    with pytest.raises(SystemExit, match="packed path"):
+        train.main(train_argv(raw_dir, raw_meta, tmp_path, "--wire-cache", wc, "--no-packed"))
+    with pytest.raises(SystemExit, match="packed path"):
+        train.main(train_argv(raw_dir, raw_meta, tmp_path, "--wire-format", "compact",
+                              "--no-packed"))
+    train.main(train_argv(data_dir, meta, tmp_path, "--epochs", "0", "--wire-cache", wc))
+    with pytest.raises(SystemExit, match="batch_size=256.*rebuild"):
+        train.main(train_argv(data_dir, meta, tmp_path, "--epochs", "0", "--wire-cache", wc,
+                              "--batch-size", "128"))
+
+
+def test_a_crash_resumes_through_the_wire_cache(shards, tmp_path, monkeypatch):
+    """A run through the wire cache crashed after epoch 0's checkpoint and
+    restarted with --resume (which reuses the cache it built) ends in the
+    uninterrupted run's state, bit for bit."""
+    data_dir, meta = shards["packed"]
+
+    def argv(name, *extra):
+        return train_argv(data_dir, meta, tmp_path, "--epochs", "3", "--macro-batches", "4",
+                          "--wire-cache", str(tmp_path / f"wc-{name}"), "--checkpoint-dir",
+                          str(tmp_path / name), *extra)
+
+    whole = train.main(argv("whole"))
+
+    class CrashAfterEpoch0(Checkpointer):
+        def save(self, step, state, loader_state=None, extra=None, wait=False):
+            super().save(step, state, loader_state, extra, wait)
+            if extra["completed_epoch"] == 0:
+                raise OSError("injected crash after epoch 0's checkpoint")
+
+    def attempt(restart):
+        if restart == 0:
+            with monkeypatch.context() as m:
+                m.setattr(train, "Checkpointer", CrashAfterEpoch0)
+                return train.main(argv("crashed"))
+        return train.main(argv("crashed", "--resume"))
+
+    out = resilient_fit(attempt, max_restarts=1, backoff_s=0.0)
+    assert out["restarts"] == 1 and out["resumed_from"] == whole["metrics"]["train_steps"]
+    assert out["wire_cache"][0]["built"] is False  # the restart reuses the first attempt's
+    _assert_states_equal(_last_state(str(tmp_path / "crashed")), _last_state(str(tmp_path /
+                                                                                   "whole")))
+
+
+def test_pipeline_wire_cache_flag_trains(csv_dir, tmp_path):
+    """`instacart_pipeline --wire-cache` (without --fast) trains through a
+    cache under <work>/wirecache, which the pipeline's `--fast` also turns
+    on."""
+    work = tmp_path / "work"
+    out = instacart_pipeline.main(["--work", str(work), "--csv-dir", csv_dir, "--packed",
+                                   "--wire-cache", "--device", "cpu", "--epochs", "1",
+                                   "--batch-size", "512", "--macro-batches", "4"])
+    (gen,) = out["train"]["wire_cache"]
+    assert gen["dir"] == str(work / "wirecache" / "gen-0") and gen["built"]
+    assert out["train"]["wire_format"] == "compact"
+    assert out["train"]["epochs"][0]["train_steps"] == gen["num_batches"] > 0
+    assert 0 < out["retrieval"]["recall_at_100"] <= 1
+    args = instacart_pipeline.argparse.Namespace(wire_cache=False, packed=False,
+                                                 sorted_feature=None, block_sorted_kernel=None,
+                                                 compute_dtype=None)
+    instacart_pipeline.apply_fast_preset(args)
+    assert args.wire_cache and args.packed
 
 
 def test_entry_points_take_the_card_unless_told_otherwise(tmp_path):
@@ -216,6 +394,8 @@ def test_pipeline_end_to_end_on_the_cpu(csv_dir, tmp_path):
     assert out["train"]["epochs"][0]["train_steps"] > 0
     assert out["retrieval"]["num_users"] > 250 and 0 < out["retrieval"]["recall_at_100"] <= 1
     assert os.path.exists(os.path.join(work, "model", "params.npz"))
+    # --fast trains through the wire cache, on the compact wire
+    assert out["train"]["wire_format"] == "compact" and out["train"]["wire_cache"][0]["built"]
 
 
 def _final_checkpoint(directory):
@@ -323,6 +503,22 @@ def test_full_scale_quality_tool_runs_at_a_small_scale(tmp_path):
     assert len(run["epochs"]) == 3 and run["epochs"][0]["train_steps"] >= 1
     assert run["retrieval"]["num_users"] > 250 and 0 < run["retrieval"]["recall_at_100"] <= 1
     assert 0 <= run["val_auroc"] <= 1
+
+
+def test_full_scale_quality_tool_runs_bce_through_a_wire_cache(tmp_path):
+    """The tool's "bce-wirecache" run at 300 users on the CPU: the "bce"
+    flags through a wire cache of one generation built in the run (its build
+    seconds and bytes in the record), 3 epochs of the cache's batches."""
+    from two_tower_recommender_model_tpu_torch.tools import full_scale_quality
+
+    out = full_scale_quality.main(["--work", str(tmp_path / "work"), "--users", "300",
+                                   "--products", "150", "--runs", "bce-wirecache", "--device",
+                                   "cpu"])
+    run = out["runs"]["bce-wirecache"]
+    (gen,) = run["wire_cache"]
+    assert run["wire_format"] == "compact" and gen["built"] and gen["bytes"] > 0
+    assert [e["train_steps"] for e in run["epochs"]] == [gen["num_batches"]] * 3
+    assert run["retrieval"]["num_users"] > 250 and 0 < run["retrieval"]["recall_at_100"] <= 1
 
 
 def test_full_scale_quality_tool_keeps_a_failed_runs_checkpoints(tmp_path, monkeypatch):

@@ -39,9 +39,10 @@ from two_tower_recommender_model_tpu_torch.ops.row_subtract import row_subtract
 from two_tower_recommender_model_tpu_torch.ops.softmax_kernel import (
     softmax_lse_dc, softmax_lse_dq, softmax_lse_fwd)
 from two_tower_recommender_model_tpu_torch.ops.tower_bwd import tower_backward
+from two_tower_recommender_model_tpu_torch.ops.relu_ties import relu_ties
 for wrapper in (pooled_gather, rowwise_adagrad, tower_backward, softmax_lse_fwd, softmax_lse_dq,
                 softmax_lse_dc, quantized_pooled_gather, quantized_rowwise_adagrad_fused,
-                block_sorted_aggregate, row_subtract):
+                block_sorted_aggregate, row_subtract, relu_ties):
     assert wrapper._built is None and wrapper.launches == 0
 for name in ("train.step", "train.loop", "train.pipeline", "train.optimizer",
              "data.device_featurizer", "data.synthetic", "models.losses", "models.metrics",
@@ -51,7 +52,8 @@ for name in ("train.step", "train.loop", "train.pipeline", "train.optimizer",
              "data.ingest", "data.feature_engineering", "data.replica", "utils.tracking", "cli",
              "cli.fetch_instacart", "cli.prepare_instacart", "cli.train",
              "cli.evaluate_retrieval", "cli.instacart_pipeline", "train.resilient",
-             "utils.registry", "utils.profiling", "serving.batch"):
+             "utils.registry", "utils.profiling", "serving.batch", "data.compact",
+             "data.wirecache", "data.device_pool", "ops.relu_ties"):
     assert pkg.__name__ + "." + name in names, name
 print(len(names))
 """
@@ -63,7 +65,7 @@ def test_port_imports_no_jax_and_builds_nothing():
     out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True, text=True,
                          env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 56  # every module was imported
+    assert int(out.stdout.strip().splitlines()[-1]) >= 60  # every module was imported
 
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -99,7 +101,8 @@ def test_chip_smoke_imports_no_jax():
 _CARD_TESTS = ["tests/test_torch_embedding_cuda.py", "tests/test_torch_train_cuda.py",
                "tests/test_torch_softmax_cuda.py", "tests/test_torch_quantized_cuda.py",
                "tests/test_torch_device_default.py", "tests/test_torch_probe_cuda.py",
-               "tests/test_torch_graph_cuda.py", "tests/test_torch_checkpoint_cuda.py"]
+               "tests/test_torch_graph_cuda.py", "tests/test_torch_checkpoint_cuda.py",
+               "tests/test_torch_compact_cuda.py", "tests/test_torch_tower_fwd_cuda.py"]
 
 
 def test_every_card_test_file_is_listed():

@@ -297,8 +297,10 @@ def test_bf16_tower_forward_gemms_match_the_widened_route(dev, h2):
     to f32 and rounds the product. Products of bf16 values are exact in f32,
     so only the order of the sums differs: each layer's product is within
     one bf16 ulp of the widened route's on the same inputs, and the bias add
-    and ReLU are the same code."""
+    and ReLU are `relu_ties`'s, which equals its plain version on the same
+    GEMM outputs."""
     from two_tower_recommender_model_tpu_torch.models.mlp import _mlp2_fwd_impl, _mm
+    from two_tower_recommender_model_tpu_torch.ops.relu_ties import relu_ties_reference
 
     assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     rng = np.random.default_rng(h2)
@@ -308,7 +310,7 @@ def test_bf16_tower_forward_gemms_match_the_widened_route(dev, h2):
     x = t(rng.normal(size=(262_144, 128)))
     w1, b1 = t(rng.normal(size=(128, 128), scale=0.1)), t(rng.normal(size=128, scale=0.1))
     w2, b2 = t(rng.normal(size=(128, h2), scale=0.1)), t(rng.normal(size=h2, scale=0.1))
-    h1 = torch.relu(_mm(x, w1) + b1)
+    h1 = relu_ties_reference(_mm(x, w1), b1, x, w1)
     for a, w in ((x, w1), (h1, w2)):
         got = _mm(a, w)
         want = torch.matmul(a.float(), w.float()).to(torch.bfloat16)
@@ -317,4 +319,4 @@ def test_bf16_tower_forward_gemms_match_the_widened_route(dev, h2):
         assert ok, worst
         assert (got != want).float().mean().item() < 0.01
     out = _mlp2_fwd_impl(w1, b1, w2, b2, x)
-    assert torch.equal(out, torch.relu(_mm(h1, w2) + b2))
+    assert torch.equal(out, relu_ties_reference(_mm(h1, w2), b2, h1, w2))

@@ -13,7 +13,9 @@ card unless given `--device cpu`):
   2. prepare_instacart    ingest, negatives, per-user split, id indexing,
                           TTRS shards
   3. train                the flagship two-tower (dim 128, towers [128, 64]),
-                          the packed path, the model exported
+                          the packed path (through a wire cache under
+                          <work>/wirecache with --wire-cache), the model
+                          exported
   4. evaluate_retrieval   recall@100 over up to 10,000 test users
 
 `--smoke` runs the same path on 8,000 users and 4,000 products.
@@ -38,11 +40,12 @@ SMOKE_USERS, SMOKE_PRODUCTS = 8000, 4000
 
 
 def apply_fast_preset(args: argparse.Namespace) -> None:
-    """`--fast`: pre-packed mmap shards, batches sorted by user id, bf16
+    """`--fast`: pre-packed mmap shards and a wire cache (the per-epoch host
+    work drops to mmap and one copy), batches sorted by user id, bf16
     gradients into the table kernels and bf16 tower compute (params and both
-    optimizers stay f32); flags given explicitly win. The reference's preset
-    also turns on its wire cache, which is not ported (ROADMAP M11)."""
+    optimizers stay f32); flags given explicitly win."""
     args.packed = True
+    args.wire_cache = True
     if args.sorted_feature is None:
         args.sorted_feature = "user_id"
     if args.block_sorted_kernel is None:
@@ -72,28 +75,25 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--block-sorted-kernel", default=None, choices=["off", "float32", "bfloat16"],
                     help="passed to cli.train")
     ap.add_argument("--wire-cache", action="store_true",
-                    help="not ported yet (ROADMAP M11, the compact wire and cached batches)")
+                    help="train through a pre-encoded wire cache under <work>/wirecache "
+                         "(data/wirecache.py)")
     ap.add_argument("--macro-batches", type=int, default=None, help="passed to cli.train")
     ap.add_argument("--sorted-feature", default=None, help="passed to cli.train")
     ap.add_argument("--compute-dtype", default=None, choices=["float32", "bfloat16"],
                     help="tower matmul dtype, passed to cli.train")
     ap.add_argument("--fast", action="store_true",
-                    help="the single-card preset: pre-packed shards, batches sorted by user "
-                         "id, bf16 table-kernel gradients, bf16 tower compute; the "
-                         "reference's wire cache is left out until ROADMAP M11")
+                    help="the single-card preset: pre-packed shards, the wire cache, batches "
+                         "sorted by user id, bf16 table-kernel gradients, bf16 tower compute")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device for training and eval; default the card (raises "
                          "without one): pass cpu to run on the CPU")
     args = ap.parse_args(argv)
-    if args.wire_cache:
-        raise NotImplementedError("--wire-cache is not ported to the PyTorch package yet "
-                                  "(ROADMAP.md Queue 1, M11, the compact wire and cached batches)")
     device = str(resolve_device(args.device))  # before any stage: no card, no run
     if args.fast:
         apply_fast_preset(args)
-        print("--fast: packed shards, sorted user_id, bf16 table kernels, bf16 compute; the "
-              "wire cache is left out (not ported: ROADMAP M11)", flush=True)
+        print("--fast: packed shards, wire cache, sorted user_id, bf16 table kernels, bf16 "
+              "compute", flush=True)
 
     csv_dir = args.csv_dir or os.path.join(args.work, "csv")
     shards = os.path.join(args.work, "shards")
@@ -128,7 +128,7 @@ def main(argv: list[str] | None = None) -> dict:
         "--softmax-temperature", str(args.softmax_temperature), "--seed", str(args.seed),
         "--runs-root", os.path.join(args.work, "runs"), "--export-dir", model_dir,
         "--device", device,
-    ]
+    ] + (["--wire-cache", os.path.join(args.work, "wirecache")] if args.wire_cache else [])
     for flag, value in (("--sorted-feature", args.sorted_feature),
                         ("--block-sorted-kernel", args.block_sorted_kernel),
                         ("--macro-batches", args.macro_batches),

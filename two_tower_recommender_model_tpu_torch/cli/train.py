@@ -8,15 +8,17 @@ given `--device cpu`: the packed epoch (pre-packed shards or raw columns
 packed on the host) through `train_one_epoch_packed` and `make_multi_step`
 (on the card one CUDA graph of `--macro-batches` steps, replayed), or the
 per-batch loop with `--no-packed`; validation, the test eval, the run logged
-through `ExperimentLogger`, the model exported with `export_model`.
+through `ExperimentLogger`, the model exported with `export_model`. The
+packed path ships batches on the compact wire (`data/compact.py`) when
+`--wire-format` says so, which `auto` does when the batch size is a multiple
+of 8; `--wire-cache DIR` encodes the epoch's batches once into a wire cache
+(`data/wirecache.py`) and streams them from it every epoch.
 `--checkpoint-dir` saves the whole training state and the loader's position
 after every epoch (`utils.checkpoint.Checkpointer`); `--resume` restores the
 latest one before anything is captured and trains on from the next epoch.
 
 Flags whose modules are not ported yet raise, naming their ROADMAP item:
-`--multi-host`, `--mesh-model` > 1 and the exchange flags (M12, multi-GPU),
-`--wire-cache`, `--wire-format compact` and `--wire-cache-*` (M11, the
-compact wire).
+`--multi-host`, `--mesh-model` > 1 and the exchange flags (M12, multi-GPU).
 """
 
 from __future__ import annotations
@@ -31,6 +33,12 @@ import time
 import torch
 
 from two_tower_recommender_model_tpu_torch import config as cfg_lib
+from two_tower_recommender_model_tpu_torch.data.compact import (
+    CompactFeaturizer,
+    CompactScheme,
+    batch_from_compact,
+    make_compact_train_step,
+)
 from two_tower_recommender_model_tpu_torch.data.device_featurizer import (
     PackedFeaturizer,
     make_packed_eval_step,
@@ -41,6 +49,7 @@ from two_tower_recommender_model_tpu_torch.data.featurizer import Featurizer
 from two_tower_recommender_model_tpu_torch.data.loader import StreamLoader
 from two_tower_recommender_model_tpu_torch.data.prepacked import PrepackedFeaturizer
 from two_tower_recommender_model_tpu_torch.data.shards import ShardedDataset
+from two_tower_recommender_model_tpu_torch.data.wirecache import WireCache, build_wire_cache
 from two_tower_recommender_model_tpu_torch.device import resolve_device
 from two_tower_recommender_model_tpu_torch.evaluation.retrieval import (
     make_retrieval_eval_fn,
@@ -69,9 +78,6 @@ _UNPORTED = {
     "sharded_exchange": (None, "M12, multi-GPU"),
     "exchange_capacity_factor": (None, "M12, multi-GPU"),
     "exchange_wire_dtype": (None, "M12, multi-GPU"),
-    "wire_cache": (None, "M11, the compact wire and cached batches"),
-    "wire_cache_order": (None, "M11, the compact wire and cached batches"),
-    "wire_cache_generations": (None, "M11, the compact wire and cached batches"),
 }
 
 
@@ -131,8 +137,11 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--table-dtype", choices=["float32", "bfloat16", "int8"], default="float32",
                     help="embedding-table storage dtype (Adagrad math stays float32)")
     ap.add_argument("--wire-format", choices=["auto", "packed", "compact"], default="auto",
-                    help="host->device batch encoding of the packed path: 'auto' is 'packed' "
-                         "in the port; 'compact' is not ported yet (ROADMAP M11)")
+                    help="host->device batch encoding of the packed path: 'compact' ships "
+                         "pre-hashed ids at their bit width (3.125 B an example for the "
+                         "flagship with the sorted user slot delta-encoded, against 8; the "
+                         "same numerics). 'auto' (default) picks compact when the batch size "
+                         "is a multiple of 8")
     # not ported yet: each raises when given
     ap.add_argument("--multi-host", action="store_true", help="not ported yet (ROADMAP M12)")
     ap.add_argument("--mesh-model", type=int, default=1,
@@ -144,11 +153,21 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--exchange-wire-dtype", choices=["float32", "bfloat16"], default=None,
                     help="not ported yet (ROADMAP M12)")
     ap.add_argument("--wire-cache", default=None, metavar="DIR",
-                    help="not ported yet (ROADMAP M11)")
+                    help="pre-encoded batch cache (data/wirecache.py): built on first use "
+                         "from the loader's order, reused after; an epoch's host work drops "
+                         "to mmap and one copy. Epochs reorder whole batches (a batch's rows "
+                         "are fixed at build: rebuild to re-roll them) and the ragged last "
+                         "batch is dropped. Needs the packed path and the compact wire")
     ap.add_argument("--wire-cache-order", choices=["auto", "loader", "rotate", "shuffle"],
-                    default=None, help="not ported yet (ROADMAP M11)")
-    ap.add_argument("--wire-cache-generations", type=int, default=None,
-                    help="not ported yet (ROADMAP M11)")
+                    default="auto",
+                    help="batch order of a wire-cache epoch. 'auto' (default): the loader's "
+                         "order on a fresh generation (bit for bit the dynamic path), a "
+                         "seeded rotation on reuse. A uniform 'shuffle' cost recall at full "
+                         "scale in the reference (0.222-0.227 against 0.249; "
+                         "BENCH_FULL_SCALE.md)")
+    ap.add_argument("--wire-cache-generations", type=int, default=1,
+                    help="distinct batch compositions to pre-encode (DIR/gen-N, one per "
+                         "loader epoch's row shuffle), cycled across the epochs")
     ap.add_argument("--checkpoint-dir", default=None,
                     help="save the training state and the loader position here every epoch")
     ap.add_argument("--resume", action="store_true",
@@ -166,9 +185,6 @@ def refuse_unported(args: argparse.Namespace) -> None:
     if args.mesh_model != 1:
         raise NotImplementedError("--mesh-model above 1 is not ported to the PyTorch package "
                                   "yet (ROADMAP.md Queue 1, M12, multi-GPU)")
-    if args.wire_format == "compact":
-        raise NotImplementedError("--wire-format compact is not ported to the PyTorch package "
-                                  "yet (ROADMAP.md Queue 1, M11, the compact wire)")
 
 
 def block_sorted_kernel_auto(mcfg: cfg_lib.ModelConfig, sorted_feature: str | None,
@@ -182,13 +198,64 @@ def block_sorted_kernel_auto(mcfg: cfg_lib.ModelConfig, sorted_feature: str | No
     return "bfloat16" if compute_dtype == "bfloat16" else "float32"
 
 
+def open_wire_caches(args: argparse.Namespace, train_loader: StreamLoader,
+                     featurizer) -> tuple[list[WireCache], list[dict]]:
+    """`--wire-cache`: each generation's cache (DIR/gen-N), built from the
+    loader's epoch N when it is missing, opened with the run's scheme, batch
+    size and dataset fingerprint. Returns the caches and, for each, its
+    directory, whether this run built it, the build's seconds, its bytes and
+    batch counts."""
+    scheme = getattr(featurizer, "scheme", None)
+    if scheme is None:
+        raise SystemExit("--wire-cache requires the compact wire format "
+                         "(drop --wire-format packed)")
+    # the dataset's identity: a reused cache must come from the same shards at the
+    # same batch size (a stale cache would train old data)
+    fingerprint = {
+        "data_dir": os.path.abspath(args.data_dir),
+        "total_rows": train_loader.dataset.index.get("total_rows"),
+        "num_shards": len(train_loader.dataset.index.get("shards", [])),
+    }
+    caches, info = [], []
+    for g in range(max(1, args.wire_cache_generations)):
+        gdir = os.path.join(args.wire_cache, f"gen-{g}")
+        built, seconds = False, 0.0
+        if not os.path.exists(os.path.join(gdir, "meta.json")):
+            train_loader.set_epoch(g)
+            t0 = time.perf_counter()
+            meta = build_wire_cache(gdir, train_loader, featurizer, fingerprint=fingerprint)
+            built, seconds = True, time.perf_counter() - t0
+            log.info("wire cache built: %d batches (%d tail rows dropped) -> %s in %.2f s",
+                     meta["num_batches"], meta["dropped_tail_rows"], gdir, seconds)
+        try:
+            cache = WireCache(gdir, scheme=scheme, seed=args.seed, batch_size=args.batch_size,
+                              fingerprint=fingerprint)
+        except ValueError as e:
+            raise SystemExit(f"--wire-cache: {e}")
+        caches.append(cache)
+        info.append({"dir": gdir, "built": built, "build_seconds": seconds,
+                     "bytes": sum(e.stat().st_size for e in os.scandir(gdir)),
+                     "num_batches": cache.num_batches,
+                     "dropped_tail_rows": cache.meta["dropped_tail_rows"]})
+    if args.loss == "sampled_softmax" and len(caches) < args.epochs:
+        # the reference measured recall at parity (0.2924 against 0.2942), but the
+        # in-batch objective's val AUROC drifts faster when negatives repeat
+        log.warning("wire cache: %d generation(s) < %d epochs with an in-batch loss: "
+                    "reused compositions speed up the val-AUROC drift (retrieval recall "
+                    "unaffected; BENCH_FULL_SCALE.md). --wire-cache-generations %d gives "
+                    "fresh compositions.", len(caches), args.epochs, args.epochs)
+    return caches, info
+
+
 def main(argv: list[str] | None = None) -> dict:
     """Train, evaluate and export; returns {"metrics": train_val_test's
     results, "epochs": each epoch's train stats (of the epochs this run
     trained), "captures"/"replays" of the packed path's multi-step,
     "run_dir", "resumed_from" (the restored checkpoint's step, or None),
-    "restore_seconds" and "checkpoints" (each save's step, epoch, seconds
-    and bytes)}."""
+    "restore_seconds", "checkpoints" (each save's step, epoch, seconds and
+    bytes), "wire_format" (the packed path's "packed" or "compact", None on
+    --no-packed) and "wire_cache" (`open_wire_caches`'s per-generation
+    facts, or None)}."""
     args = parse_args(argv)
     refuse_unported(args)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
@@ -208,6 +275,10 @@ def main(argv: list[str] | None = None) -> dict:
     elif args.no_packed:
         # the host-sorted ids live in the packed path: the per-batch Featurizer does not sort
         raise SystemExit("--sorted-feature requires the packed path")
+    if args.wire_format == "compact" and args.no_packed:
+        raise SystemExit("--wire-format compact requires the packed path")
+    if args.wire_cache and args.no_packed:
+        raise SystemExit("--wire-cache requires the packed path (drop --no-packed)")
     block_kernel = args.block_sorted_kernel
     if block_kernel == "auto":
         block_kernel = block_sorted_kernel_auto(mcfg, sorted_feature, args.compute_dtype)
@@ -269,6 +340,7 @@ def main(argv: list[str] | None = None) -> dict:
 
     epochs: list[dict] = []
     multi = None
+    wire, wire_cache_info = None, None
     if args.no_packed:
         def train_epoch_fn(state, epoch):
             train_loader.set_epoch(epoch)
@@ -285,21 +357,55 @@ def main(argv: list[str] | None = None) -> dict:
         # unpack with the featurizer's own label encoding: a pre-packed dataset
         # written with pack_label=False keeps its labels in a column of their own
         pl = packed_feat.pack_label
-        multi = make_multi_step(lambda s, pb: train_step(s, unpack_batch(pb, mcfg,
-                                                                         pack_label=pl)))
-        tail_step = make_packed_train_step(train_step, mcfg, pack_label=pl)
+        wire = args.wire_format
+        if wire == "auto":
+            wire = "compact" if args.batch_size % 8 == 0 else "packed"
+        log.info("wire format: %s", wire)
+        if wire == "compact":
+            # a sorted slot ships as uint8 deltas (3.125 B an example for the
+            # flagship against 4.375; the same numerics: data/compact.py)
+            scheme = CompactScheme.from_model(mcfg, pack_label=pl, delta_feature=sorted_feature)
+            packed_feat = CompactFeaturizer(packed_feat, scheme)
+            multi = make_multi_step(lambda s, cb: train_step(s, batch_from_compact(cb, mcfg,
+                                                                                   scheme)))
+            tail_step = make_compact_train_step(train_step, mcfg, scheme)
+        else:
+            multi = make_multi_step(lambda s, pb: train_step(s, unpack_batch(pb, mcfg,
+                                                                             pack_label=pl)))
+            tail_step = make_packed_train_step(train_step, mcfg, pack_label=pl)
         val_ds = ShardedDataset(os.path.join(args.data_dir, "val"))
         if val_ds.index.get("packed"):  # pre-packed val/test evaluate through the packed step
             featurizer = PrepackedFeaturizer.for_dataset(val_ds, mcfg)
             eval_step = make_packed_eval_step(eval_step, mcfg, pack_label=featurizer.pack_label)
 
+        if args.wire_cache:
+            wire_caches, wire_cache_info = open_wire_caches(args, train_loader, packed_feat)
+            wc_limit = min(c.num_batches for c in wire_caches)
+            if wc_limit != wire_caches[0].num_batches:
+                log.info("wire cache: truncating %d -> %d batches (the fewest of the "
+                         "generations)", wire_caches[0].num_batches, wc_limit)
+
         def train_epoch_fn(state, epoch):
-            train_loader.set_epoch(epoch)
+            if args.wire_cache:
+                # the macro clamped to the cache, so a small dataset still takes the
+                # macro path; the leftover (< one macro) trains batch by batch
+                macro = max(1, min(args.macro_batches, wc_limit))
+                cache = wire_caches[epoch % len(wire_caches)]
+                mode = args.wire_cache_order
+                if mode == "auto":
+                    # a fresh generation in the loader's order (the dynamic path, bit
+                    # for bit); on reuse a rotation (variety without the uniform
+                    # shuffle's recall cost)
+                    mode = "loader" if epoch < len(wire_caches) else "rotate"
+                batches, feat = cache.batches(epoch, limit_batches=wc_limit,
+                                              order_mode=mode), (lambda cb: cb)
+            else:
+                train_loader.set_epoch(epoch)
+                macro, batches, feat = args.macro_batches, train_loader, packed_feat
             state, stats = train_one_epoch_packed(
-                state, multi, train_loader, packed_feat, macro=args.macro_batches,
-                train_cfg=tcfg, tail_step=tail_step, eval_step=eval_step,
-                val_batches_factory=eval_factory("val"), val_featurizer=featurizer,
-                logger=logger, epoch=epoch)
+                state, multi, batches, feat, macro=macro, train_cfg=tcfg, tail_step=tail_step,
+                eval_step=eval_step, val_batches_factory=eval_factory("val"),
+                val_featurizer=featurizer, logger=logger, epoch=epoch)
             epochs.append(stats)
             return state, stats
 
@@ -331,7 +437,8 @@ def main(argv: list[str] | None = None) -> dict:
     return {"metrics": results, "epochs": epochs,
             "captures": multi.captures if multi else 0, "replays": multi.replays if multi else 0,
             "run_dir": logger.run_dir, "resumed_from": resumed_from,
-            "restore_seconds": restore_seconds, "checkpoints": saves}
+            "restore_seconds": restore_seconds, "checkpoints": saves,
+            "wire_format": wire, "wire_cache": wire_cache_info}
 
 
 if __name__ == "__main__":

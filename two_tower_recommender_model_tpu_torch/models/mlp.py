@@ -13,8 +13,10 @@ transposes between them).
 The fused tower backward (`_mlp2_relu` of the reference): with
 `fused_backward=True`, a two-layer ReLU tower with the final ReLU on whose
 shapes pass `ops.tower_bwd.fits` runs as `Mlp2Relu`, an autograd Function
-whose forward is the plain two-layer forward and whose backward is the
-fused tower-backward kernel (`ops/tower_bwd.py`, kernel #8).
+whose forward is the two-layer forward (on CUDA bf16 with each layer's bias
+and ReLU in `ops/relu_ties.py`, which decides rounding ties in k order) and
+whose backward is the fused tower-backward kernel (`ops/tower_bwd.py`,
+kernel #8).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from two_tower_recommender_model_tpu_torch.device import resolve_device
 import torch.nn.functional as F
 from torch import nn
 
+from two_tower_recommender_model_tpu_torch.ops.relu_ties import relu_ties
 from two_tower_recommender_model_tpu_torch.ops.tower_bwd import fits, tower_backward
 
 _ACTIVATIONS = {
@@ -137,18 +140,28 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _mlp2_fwd_impl(w1, b1, w2, b2, x):
     """`relu(relu(x @ w1 + b1) @ w2 + b2)` under the forward's dtype rule,
-    with w1 [in, h1] and w2 [h1, h2] in the reference's layout."""
+    with w1 [in, h1] and w2 [h1, h2] in the reference's layout.
+
+    On CUDA bf16 each layer's bias and ReLU run in `relu_ties` (kernel
+    `csrc/relu_ties.cu`): the GEMM sums in the tensor cores' order, and a
+    sum at a bf16 rounding tie against -b is summed again in k order, so the
+    forward makes the ReLU decisions the tower backward (#8), the plain
+    route and the host make."""
+    if x.is_cuda and all(t.dtype == torch.bfloat16 for t in (x, w1, b1, w2, b2)):
+        h1 = relu_ties(_mm(x, w1), b1, x, w1)
+        return relu_ties(_mm(h1, w2), b2, h1, w2)
     h1 = torch.relu(_mm(x, w1) + b1)
     return torch.relu(_mm(h1, w2) + b2)
 
 
 class Mlp2Relu(torch.autograd.Function):
-    """The flagship tower with the fused backward: the forward is plain
-    PyTorch (the reference leaves it to XLA), the backward one launch of the
-    tower-backward kernel. The weight gradients come back in f32 and are cast
-    to the weights' dtype, as the reference's `_mlp2_relu_bwd` does: under
-    bf16 compute they are rounded to bf16 once, and the cast of the weights
-    to bf16 widens them back to f32 in its own backward."""
+    """The flagship tower with the fused backward: the forward is two GEMMs
+    (the reference leaves it to XLA) with the bias and ReLU in `relu_ties` on
+    CUDA bf16, the backward one launch of the tower-backward kernel. The
+    weight gradients come back in f32 and are cast to the weights' dtype, as
+    the reference's `_mlp2_relu_bwd` does: under bf16 compute they are
+    rounded to bf16 once, and the cast of the weights to bf16 widens them
+    back to f32 in its own backward."""
 
     @staticmethod
     def forward(ctx, w1, b1, w2, b2, x):

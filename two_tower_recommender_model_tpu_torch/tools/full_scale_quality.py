@@ -8,6 +8,10 @@ points: the replica at the real scale (206,209 users, 49,688 products; seed
   `--block-sorted-kernel float32`, sparse learning rate 0.1 (the reference
   pipeline's); the reference's seed band is recall@100 0.2371-0.2487
   (BENCH_FULL_SCALE.md, round 2c);
+- "bce-wirecache": "bce" through a wire cache of one generation in `auto`
+  order (epoch 0 in the loader's order, then rotations), the cache built in
+  the run; the reference's one-generation run gave 0.2482, inside the same
+  band (BENCH_FULL_SCALE.md, round 3);
 - "softmax": the in-batch sampled softmax, 4 epochs of 8,192, the epoch kept
   by `--select-best val_recall_at_100` over 10,000 val users,
   `--sorted-feature auto`, sparse learning rate 0.1 (the reference
@@ -21,7 +25,7 @@ points: the replica at the real scale (206,209 users, 49,688 products; seed
 Prints the card's name and power limit (nvidia-smi) where there is one, one
 JSON line a run (the retrieval metrics, val AUROC, each epoch's seconds,
 examples/s and val metrics, the eval's seconds, each checkpoint's bytes and
-save seconds)
+save seconds, the wire cache's build seconds and bytes)
 and, last, one JSON line of everything; `--json-out` writes that too. The
 CSVs, shards, checkpoints and exports go into a new directory made inside
 `--work` (nothing else there is touched), removed when every run has ended
@@ -46,10 +50,15 @@ _MODULE = "two_tower_recommender_model_tpu_torch.tools.full_scale_quality"
 RUNS = {
     "bce": ["--loss", "bce", "--epochs", "3", "--batch-size", "16384", "--sorted-feature",
             "user_id", "--block-sorted-kernel", "float32", "--sparse-learning-rate", "0.1"],
+    "bce-wirecache": ["--loss", "bce", "--epochs", "3", "--batch-size", "16384",
+                      "--sorted-feature", "user_id", "--block-sorted-kernel", "float32",
+                      "--sparse-learning-rate", "0.1", "--wire-cache-generations", "1",
+                      "--wire-cache-order", "auto"],
     "softmax": ["--loss", "sampled_softmax", "--batch-size", "8192", "--epochs", "4",
                 "--select-best", "val_recall_at_100", "--retrieval-eval-users", "10000",
                 "--sorted-feature", "auto", "--sparse-learning-rate", "0.1"],
 }
+CACHED = {"bce-wirecache"}  # runs that train through a wire cache in their directory
 
 
 def card_line() -> str:
@@ -102,13 +111,15 @@ def main(argv: list[str] | None = None) -> dict:
         out["rows"], meta = prepared["rows"], prepared["meta"]
         for name in args.runs:
             run_dir = os.path.join(work, name)
+            cache = ["--wire-cache", os.path.join(run_dir, "wirecache")] if name in CACHED else []
             t0 = time.perf_counter()
             trained = train.main([
                 "--data-dir", shards, "--num-users", str(meta["num_users"]),
                 "--num-items", str(meta["num_items"]), "--seed", "0",
                 "--runs-root", os.path.join(run_dir, "runs"),
                 "--checkpoint-dir", os.path.join(run_dir, "ckpt"),
-                "--export-dir", os.path.join(run_dir, "model"), "--device", device, *RUNS[name]])
+                "--export-dir", os.path.join(run_dir, "model"), "--device", device, *RUNS[name],
+                *cache])
             train_s = time.perf_counter() - t0
             t0 = time.perf_counter()
             retrieval = evaluate_retrieval.main([
@@ -128,7 +139,8 @@ def main(argv: list[str] | None = None) -> dict:
                    "val_by_epoch": [{k: v for k, v in line.items()
                                      if k in ("epoch", "val_auroc", "val_recall_at_100")}
                                     for line in logged if "epoch" in line],
-                   "checkpoints": trained["checkpoints"]}
+                   "checkpoints": trained["checkpoints"],
+                   "wire_format": trained["wire_format"], "wire_cache": trained["wire_cache"]}
             out["runs"][name] = rec
             print(json.dumps({"run": name, **rec}), flush=True)
     except BaseException:

@@ -15,8 +15,8 @@ Batches come through `train.pipeline.prefetch_to_device` onto the state's
 device. The training loss is read once, at the end of the epoch, so the
 host never waits for the card inside the loop.
 
-`train_one_epoch_packed` is the high-throughput epoch: packed batches,
-grouped K at a time into macro-batches that `train.step.make_multi_step`
+`train_one_epoch_packed` is the high-throughput epoch: packed (or compact)
+batches, grouped K at a time into macro-batches that `train.step.make_multi_step`
 trains in one call (on the card: one replay of a CUDA graph of K steps).
 
 The reference's sharding, padding and exchange-overflow arguments wait for
@@ -178,8 +178,11 @@ def train_val_test(state: TrainState, train_step: Callable, eval_step: Callable,
 
 
 def _macro_dims(mb) -> tuple[int, int]:
-    """(K steps, B examples a step) of a stacked `PackedBatch`
-    (`ids_raw [K, B, S]`)."""
+    """(K steps, B examples a step) of a stacked macro payload: a
+    `PackedBatch` (`ids_raw [K, B, S]`) or a `CompactBatch` (`wire [K, W, B]`,
+    the batch axis last)."""
+    if hasattr(mb, "wire"):
+        return mb.wire.shape[0], mb.wire.shape[-1]
     return mb.ids_raw.shape[0], mb.ids_raw.shape[1]
 
 

@@ -10,7 +10,7 @@ device: the host does not block), so the copy of batch k+1 overlaps the step
 on batch k.
 
 A batch is any nest of dataclasses (`Batch`, `SparseFeature`,
-`PackedBatch`) and dicts whose leaves are numpy arrays or tensors.
+`PackedBatch`, `CompactBatch`) and dicts whose leaves are numpy arrays or tensors.
 
 `macro_stream` groups a stream of column dicts into K-deep macro-batches (a
 leading axis K on every leaf) for `train.step.make_multi_step`;
@@ -38,7 +38,10 @@ def map_leaves(obj: Any, fn: Callable[[torch.Tensor], torch.Tensor]) -> Any:
     if isinstance(obj, torch.Tensor):
         return fn(obj)
     if isinstance(obj, np.ndarray):
-        return fn(torch.from_numpy(np.ascontiguousarray(obj)))
+        arr = np.ascontiguousarray(obj)
+        # a read-only array (a wire cache's mmap view) is copied: a tensor owns
+        # writable memory
+        return fn(torch.from_numpy(arr if arr.flags.writeable else arr.copy()))
     if isinstance(obj, dict):
         return {k: map_leaves(v, fn) for k, v in obj.items()}
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
