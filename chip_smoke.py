@@ -44,11 +44,19 @@ without a card. Phases (any failure raises and exits non-zero):
    their largest magnitude with cosine > 0.99999, two launches of each of
    the three bit for bit equal; beside #10 and #11 the time of the same
    function as bf16 GEMMs and elementwise calls (`composed_ms`);
-   the fused tower forward's bias and ReLU (relu_ties) at the BCE step's
-   four calls (layer 1 [262,144, 128], layer 2 [262,144, 64], K = 128) and
-   on a layer whose every sum sits at a bf16 rounding tie: bit for bit its
-   plain version (values), two launches bit for bit, the share of values
-   it sums again in k order, its ms a call and a BCE step;
+   the fused tower forward (tower_fwd: both layers' GEMMs, biases and
+   ReLUs, ties summed again in k order, h1 kept on chip) at the BCE step's
+   two tower calls ([262,144, 128 -> 128 -> 64]), at H2 = 128 and on
+   inputs whose every layer-1 sum sits at a bf16 rounding tie: within 2^-8
+   x max|plain| of its plain version, two launches bit for bit, the share
+   bit for bit, the ReLU decisions that differ (none from the k-order
+   route's at the ties), the share of each layer recomputed, its ms beside
+   the two-GEMM route's (cuBLAS `_mm` and relu_ties a layer) split by call;
+   relu_ties (that route's bias and ReLU, off the main path) at its four
+   calls a BCE step (layer 1 [262,144, 128], layer 2 [262,144, 64], K =
+   128) and on a layer whose every sum sits at a bf16 rounding tie: bit for
+   bit its plain version (values), two launches bit for bit, the share of
+   values it sums again in k order, its ms a call and a BCE step;
    beside each kernel's time: its plain version's, the card's bound for the
    same work (bytes, operations, or for the softmax kernels one exp a score), and where one PyTorch call computes the same function
    (`embedding_bag` for the pooled gather) that call's time;
@@ -65,7 +73,7 @@ without a card. Phases (any failure raises and exits non-zero):
    user id with the label packed into the ids, through `create_train_state`
    and `make_train_step`: two warm-up steps, then ten counted steps, each of
    which must launch the pooled gather, row-wise Adagrad and the tower
-   backward exactly twice and relu_ties four times. After the count: the
+   backward exactly twice and tower_fwd twice. After the count: the
    loss is finite, untouched table rows kept their bits, one step from a
    copied state agrees with the same step on the host CPU (where every
    wrapper takes its plain version; each quantity's margin, its largest
@@ -127,7 +135,7 @@ without a card. Phases (any failure raises and exits non-zero):
    twice a step) and `sparse_update=pallas_sparse_rowwise_adagrad` (#7,
    twice a step); the three end states agree within rtol 1e-5 / atol 1e-6;
 12. `[serve-int8]` the int8-trained model through `Scorer` (1, 100, 8,192
-   rows: 2 int8 gather launches each, and 4 of relu_ties in the bf16 predict
+   rows: 2 int8 gather launches each, and 2 of tower_fwd in the bf16 predict
    of 8,192 rows) and `RetrievalService` (7 for the
    corpus export, 1 per retrieve), against a plain forward over the
    dequantized tables and a brute-force top-k; then `export_model` ->
@@ -186,7 +194,7 @@ without a card. Phases (any failure raises and exits non-zero):
    (`cli.train` reusing the cache, `cli.evaluate_retrieval`). Each run's
    launches must equal its steps x a step's launches (warm-up, capture and
    tail steps; replays run without Python) plus two gathers an eval batch
-   (and four relu_ties an eval batch of a multiple of 512 rows) and the
+   (and two tower_fwd an eval batch of a multiple of 512 rows) and the
    retrieval exports'; BCE recall@100 over every test user >= 0.35; the
    replica, prepare, the cache's build seconds and bytes, train epochs (and
    examples/s) and eval seconds beside the card's name and power limit;
@@ -207,12 +215,12 @@ without a card. Phases (any failure raises and exits non-zero):
    files equal the run's own export; `load_scorer_from_registry` on the card
    predicts bit for bit what `load_scorer` of the run's export predicts; a
    `ModelServer` on that scorer answers three `/invocations` (2 launches of
-   #1 each, and relu_ties 4 in the bf16 one of 8,192 rows);
+   #1 each, and tower_fwd 2 in the bf16 one of 8,192 rows);
 23. `[batch-predict]` `batch_predict` with the registry's scorer over the
    smoke test split (raw columns, prepared from the same CSVs): as many rows
    as the input's index, each batch's `prediction` bit for bit
    `Scorer.predict` of its rows, 2 launches of #1 a batch (and 4 of
-   relu_ties a full batch: bf16 compute), rows/s;
+   tower_fwd a full batch: bf16 compute), rows/s;
 24. `[per-user-table]` `cli.evaluate_retrieval --per-user-table` in a child
    process on the Production model: one CSV row per evaluated user, the
    mean of its recall_at_100 column within 1e-6 of the run's recall@100;
@@ -223,7 +231,8 @@ without a card. Phases (any failure raises and exits non-zero):
    three train steps and of a graph replay: device busy time, idle share and
    the largest device items, the gather kernel's (#1 or #5) device ms a call
    or a replayed step; and for each graph the SM clock and the active
-   throttle reasons (nvidia-smi) before, during and after 20 more replays.
+   throttle reasons (nvidia-smi) before, during and after 20 more replays;
+   and the device kernels of one bf16 tower forward: one tower_fwd, no GEMM.
 
 The process must not have imported JAX, the JAX package, pandas or pyarrow.
 The card's machine has pandas and pyarrow, but the port's data path runs on
@@ -318,6 +327,11 @@ from two_tower_recommender_model_tpu_torch.ops.tower_bwd import (
     tower_backward,
     tower_backward_reference,
 )
+from two_tower_recommender_model_tpu_torch.ops.tower_fwd import (
+    _mm,
+    tower_forward,
+    tower_forward_reference,
+)
 from two_tower_recommender_model_tpu_torch.serving import RetrievalService, Scorer
 from two_tower_recommender_model_tpu_torch.serving.batch import batch_predict
 from two_tower_recommender_model_tpu_torch.serving.scorer import (
@@ -396,19 +410,24 @@ KERNELS = {  # wrapper name -> (wrapper, source, the TPU kernel it replaces)
     "probe_block_sums2": (probe_block_sums2,
                           "two_tower_recommender_model_tpu_torch/csrc/probe_sum.cu",
                           "tools/probe_consumer.py:80"),
-    # not a pallas_call: the bias and ReLU of the fused tower's bf16 forward, which XLA
-    # fuses into the reference's GEMMs; the kernel decides its rounding ties in k order
+    # not a pallas_call: the bias and ReLU of the two-GEMM route of the fused tower's bf16
+    # forward (XLA fuses them into the reference's GEMMs), ties decided in k order; off the
+    # main path since tower_fwd, checked and timed as that route's
     "relu_ties": (relu_ties, "two_tower_recommender_model_tpu_torch/csrc/relu_ties.cu",
                   "two_tower_recommender_model_tpu/models/mlp.py:89"),
+    # not a pallas_call: the fused tower's whole bf16 forward (both GEMMs, biases, ReLUs and
+    # relu_ties's tie recompute), the reference's two dots that XLA fuses
+    "tower_fwd": (tower_forward, "two_tower_recommender_model_tpu_torch/csrc/tower_fwd.cu",
+                  "two_tower_recommender_model_tpu/models/mlp.py:89"),
 }
-# kernels a BCE bf16 step launches: the f32 tables' and the int8 tables'; relu_ties after
-# each of the two towers' two layers
-BCE_F32 = {"pooled_gather": 2, "rowwise_adagrad": 2, "tower_bwd": 2, "relu_ties": 4}
+# kernels a BCE bf16 step launches: the f32 tables' and the int8 tables'; tower_fwd for each
+# of the two towers
+BCE_F32 = {"pooled_gather": 2, "rowwise_adagrad": 2, "tower_bwd": 2, "tower_fwd": 2}
 BCE_INT8 = {"quantized_pooled_gather": 2, "quantized_rowwise_adagrad": 2, "tower_bwd": 2,
-            "relu_ties": 4}
+            "tower_fwd": 2}
 SOFTMAX_F32 = {"pooled_gather": 2, "rowwise_adagrad": 2, "softmax_lse_fwd": 1, "softmax_lse_dq": 1,
                "softmax_lse_dc": 1}  # f32 compute: off the tower kernels' gate
-SOFTMAX_BF16 = {**SOFTMAX_F32, "tower_bwd": 2, "relu_ties": 4}
+SOFTMAX_BF16 = {**SOFTMAX_F32, "tower_bwd": 2, "tower_fwd": 2}
 
 
 def log(msg: str) -> None:
@@ -1300,14 +1319,14 @@ def tie_inputs(b: int, n: int, seed: int):
 
 
 def phase_relu_ties_kernel(dev: torch.device) -> dict:
-    """relu_ties against its plain version at the BCE step's four calls a
-    step (layer 1 [262,144, 128] and layer 2 [262,144, 64] of each tower,
-    K = 128) on draws at the towers' scales, and on a layer whose every sum
-    sits at a rounding tie (every value recomputed): bit for bit (values),
-    two launches bit for bit; the share of values the tie test recomputes;
-    the kernel's ms a call and a BCE step beside the plain version's, the
-    bound and the two PyTorch calls it replaces (`relu(y + b)`, not the same
-    function at a tie)."""
+    """relu_ties against its plain version at the four calls a BCE step of
+    the two-GEMM route takes (layer 1 [262,144, 128] and layer 2 [262,144,
+    64] of each tower, K = 128; off the main path since tower_fwd) on draws
+    at the towers' scales, and on a layer whose every sum sits at a rounding
+    tie (every value recomputed): bit for bit (values), two launches bit for
+    bit; the share of values the tie test recomputes; the kernel's ms a call
+    and a BCE step beside the plain version's, the bound and the two PyTorch
+    calls it replaced (`relu(y + b)`, not the same function at a tie)."""
     rng = np.random.default_rng(9)
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
 
@@ -1353,10 +1372,148 @@ def phase_relu_ties_kernel(dev: torch.device) -> dict:
             f"synchronizes) bound_ms={b['bound_ms']!r} by {b['bound_by']}; relu(y + b) "
             f"(2 PyTorch calls, the route it replaces) {composed_ms!r} ms")
     (ms1, plain1, b1_), (ms2, plain2, b2_) = out["layer 1"], out["layer 2"]
-    log(f"[kernel] relu_ties a BCE step (2 towers x the two layers): kernel "
-        f"{2 * (ms1 + ms2)!r} ms, bound {2 * (b1_['bound_ms'] + b2_['bound_ms'])!r} ms")
+    log(f"[kernel] relu_ties a BCE step of the two-GEMM route (2 towers x the two layers): "
+        f"kernel {2 * (ms1 + ms2)!r} ms, bound {2 * (b1_['bound_ms'] + b2_['bound_ms'])!r} ms")
     return {"max_abs_err": 0.0, "ms": ms1, "plain_ms": plain1, **b1_, "library_ms": None,
             "ms_a_bce_step": 2 * (ms1 + ms2)}
+
+
+def k_order_tower(x, w1, b1, w2, b2) -> torch.Tensor:
+    """The fused tower's bf16 forward with every product summed in k order
+    (a product of bf16 values is exact in f32 and each add rounds once: an
+    f32 GEMM's fmaf chain): the k-order route, whose ReLU decisions the
+    forward must make at rounding ties."""
+    def layer(a, w, b):
+        a, w = a.float(), w.float()
+        s = torch.zeros(a.shape[0], w.shape[1], dtype=torch.float32, device=a.device)
+        for k in range(a.shape[1]):
+            s = s + a[:, k:k + 1] * w[k]
+        return torch.relu(s.to(torch.bfloat16) + b)
+    return layer(layer(x, w1, b1), w2, b2)
+
+
+def two_gemm_route(x, w1, b1, w2, b2) -> torch.Tensor:
+    """The forward before tower_fwd: a cuBLAS GEMM and relu_ties a layer (the
+    same function as the fused kernel's, up to the order of the sums)."""
+    h1 = relu_ties(_mm(x, w1), b1, x, w1)
+    return relu_ties(_mm(h1, w2), b2, h1, w2)
+
+
+def phase_tower_fwd_kernel(dev: torch.device, profile: bool) -> dict:
+    """tower_fwd (the fused tower's bf16 forward) against its plain version
+    (`tower_forward_reference`: cuBLAS GEMMs and relu_ties's plain version)
+    at the BCE step's two tower calls ([262,144, 128 -> 128 -> 64], draws at
+    the towers' scales, the weights as the towers pass them: `nn.Linear`
+    weights' transposed views), at H2 = 128, on the tie inputs (every
+    layer-1 sum at a rounding tie) at 16,384 rows, and at 65,536 rows with
+    two layer-1 columns at ties (the towers' few ties a tile, but in every
+    row): values within 2^-8 x
+    max|plain| (another order of the tensor cores' sums), two launches bit
+    for bit, the share of values bit for bit the plain version's, the ReLU
+    decisions that differ from the plain version's and, where every layer-1
+    sum ties, from the k-order route's (none may; with two tied columns, h1
+    in them, W2 = I, bit for bit the k-order route's), the share of each layer's values
+    the plain route recomputes; the kernel's ms beside the plain version's,
+    the bound (bytes: x read, out written, the weights; FLOPs: both products
+    and the ties' recompute) and the two-GEMM route's ms, split into its
+    `_mm` and relu_ties calls. Under --profile, the device kernels of one
+    bf16 tower forward through `Mlp2Relu`'s path: one tower_fwd, no GEMM."""
+    rng = np.random.default_rng(12)
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
+
+    def on_card(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, torch.bfloat16)
+
+    lim = 1 / DIM ** 0.5  # init_mlp's bound
+
+    def towers_draw(rows: int, h2: int):
+        x = on_card(rng.normal(size=(rows, DIM), scale=0.05))
+        w1 = on_card(rng.uniform(-lim, lim, (DIM, DIM))).T  # an nn.Linear weight's .T
+        w2 = on_card(rng.uniform(-lim, lim, (h2, DIM))).T
+        return x, w1, on_card(rng.uniform(-lim, lim, DIM)), w2, on_card(rng.uniform(-lim, lim, h2))
+
+    ta, tw, tb = tie_inputs(16_384, DIM, 13)
+    sa, sw, sb = tie_inputs(65_536, DIM, 14)  # two columns at ties, the rest drawn
+    sw[:, 2:], sb[2:] = rng.uniform(-lim, lim, (DIM, DIM - 2)), rng.uniform(-lim, lim, DIM - 2)
+
+    def layer2():
+        return (on_card(rng.normal(size=(DIM, LAYERS[1]), scale=0.1)),
+                on_card(rng.normal(size=LAYERS[1], scale=0.1)))
+
+    cases = {"user tower": towers_draw(TRAIN_BATCH, LAYERS[1]),
+             "item tower": towers_draw(TRAIN_BATCH, LAYERS[1]),
+             "H2 = 128": towers_draw(TRAIN_BATCH, 128),
+             "every layer-1 sum at a tie": (on_card(ta), on_card(tw), on_card(tb), *layer2()),
+             "two layer-1 columns at a tie": (on_card(sa), on_card(sw), on_card(sb), *layer2())}
+    out = {}
+    for label, args in cases.items():
+        x, w1, b1, w2, b2 = args
+        rows, h2 = x.shape[0], w2.shape[1]
+        got = tower_forward(*args).clone()
+        again = tower_forward(*args)
+        want = tower_forward_reference(*args)
+        torch.cuda.synchronize()
+        err = within_rel(got, want, 2.0 ** -8, f"tower_fwd {label}")
+        if not bitwise_equal(got, again):
+            raise AssertionError(f"tower_fwd {label}: two launches on the same inputs differ")
+        same = (got == want).float().mean().item()
+        flips = int(((got > 0) != (want > 0)).sum())
+        k_note = ""
+        if label == "every layer-1 sum at a tie":  # h1 is the k-order route's
+            k_flips = int(((got > 0) != (k_order_tower(*args) > 0)).sum())
+            if k_flips:
+                raise AssertionError(f"tower_fwd {label}: {k_flips} ReLU decisions differ from "
+                                     "the k-order route's")
+            k_note = "; 0 decisions differ from the k-order route's"
+        elif label == "two layer-1 columns at a tie":  # out = h1 with W2 = I, b2 = 0
+            eye = torch.eye(DIM, dtype=torch.bfloat16, device=dev)
+            zero = torch.zeros(DIM, dtype=torch.bfloat16, device=dev)
+            h1_k = k_order_tower(x, w1, b1, eye, zero)[:, :2]
+            if not torch.equal(tower_forward(x, w1, b1, eye, zero)[:, :2], h1_k):
+                raise AssertionError(f"tower_fwd {label}: h1 in the tied columns is not the "
+                                     "k-order route's")
+            k_note = "; h1 in the tied columns bit for bit the k-order route's"
+        y1 = _mm(x, w1)
+        h1 = relu_ties_reference(y1, b1, x, w1)
+        y2 = _mm(h1, w2)
+        ties = (int(tie_mask(y1, b1).sum()), int(tie_mask(y2, b2).sum()))
+        ms = median_ms(lambda: tower_forward(*args), flush)
+        plain_ms = wall_ms(lambda: tower_forward_reference(*args))
+        route = {"_mm 1": median_ms(lambda: _mm(x, w1), flush),
+                 "relu_ties 1": median_ms(lambda: relu_ties(y1, b1, x, w1), flush),
+                 "_mm 2": median_ms(lambda: _mm(h1, w2), flush),
+                 "relu_ties 2": median_ms(lambda: relu_ties(y2, b2, h1, w2), flush)}
+        route_ms = median_ms(lambda: two_gemm_route(*args), flush)
+        n_bytes = 2 * (rows * (DIM + h2) + DIM * DIM + DIM + DIM * h2 + h2)
+        b = bound(n_bytes, 2 * rows * DIM * (DIM + h2) + 2 * DIM * sum(ties), PEAK_BF16)
+        out[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+                      "route_ms": route_ms}
+        log(f"[kernel] tower_fwd {label} [{rows}, {DIM}] -> [{DIM}] -> [{h2}] bf16: within "
+            f"2^-8 x max|plain| (max_abs_err={err!r}), two launches bit for bit, "
+            f"{same!r} of the values bit for bit the plain version's, {flips} ReLU decisions "
+            f"differ from it{k_note}; the plain route recomputes {ties[0]} of {rows * DIM} "
+            f"({ties[0] / (rows * DIM)!r}) in layer 1, {ties[1]} of {rows * h2} "
+            f"({ties[1] / (rows * h2)!r}) in layer 2; kernel_ms={ms!r} plain_ms={plain_ms!r} "
+            f"(host ms, it synchronizes) bound_ms={b['bound_ms']!r} by {b['bound_by']} "
+            f"({b['bound_ms'] / ms!r} of it); the two-GEMM route {route_ms!r} ms "
+            f"({ {k: v for k, v in route.items()} }), {route_ms / ms!r}x the kernel")
+    user, item = out["user tower"], out["item tower"]
+    log(f"[kernel] tower_fwd a BCE step (2 towers): kernel {user['ms'] + item['ms']!r} ms, bound "
+        f"{user['bound_ms'] + item['bound_ms']!r} ms; the two-GEMM route "
+        f"{user['route_ms'] + item['route_ms']!r} ms")
+    if profile:
+        from two_tower_recommender_model_tpu_torch.models.mlp import _mlp2_fwd_impl
+
+        x, w1, b1, w2, b2 = cases["user tower"]
+        kernels = profile_direct(lambda: _mlp2_fwd_impl(w1, b1, w2, b2, x),
+                                 "bf16 tower forward", 1, calls=5, marker="tower_fwd")
+        gemms = [name for name in kernels if any(
+            m in name.lower() for m in ("gemm", "xmma", "cutlass", "sm90_", "ampere_"))]
+        if gemms or len(kernels) != 1:
+            raise AssertionError(f"[profile] the bf16 tower forward runs {sorted(kernels)}: "
+                                 f"one tower_fwd and no GEMM expected")
+    return {**user, "library_ms": None, "max_abs_err": max(r["max_abs_err"] for r in out.values()),
+            "ms_a_bce_step": user["ms"] + item["ms"]}
 
 
 def softmax_case(dev, rng, bq: int, bk: int, row_offset: int, n_valid: int | None, d: int = 64):
@@ -1520,14 +1677,13 @@ def read_launches() -> dict[str, int]:
     return {name: wrapper.launches for name, (wrapper, _, _) in KERNELS.items()}
 
 
-def tie_launches(cfg, batch_sizes) -> int:
-    """relu_ties launches of two-tower forwards over batches of these sizes:
+def tower_fwd_launches(cfg, batch_sizes) -> int:
+    """tower_fwd launches of two-tower forwards over batches of these sizes:
     under bf16 compute on the card each tower whose shapes pass the fused
-    tower's gate (B % 512 == 0 at the flagship's widths) runs its two layers
-    through relu_ties."""
+    tower's gate (B % 512 == 0 at the flagship's widths) is one launch."""
     if cfg.compute_dtype != "bfloat16":
         return 0
-    return 4 * sum(1 for n in batch_sizes if n % 512 == 0)
+    return 2 * sum(1 for n in batch_sizes if n % 512 == 0)
 
 
 def timed_steps(train_step, state, pool, first: int, n: int):
@@ -2522,17 +2678,18 @@ def check_against_host(tag, state, host_cfg, tcfg, dense_opt, train_step, pb,
 
 @contextlib.contextmanager
 def forward_without_tie_repair():
-    """The fused tower's bf16 forward as it was before relu_ties: `relu(y +
-    b)` of each GEMM's own sums on the card (the measure of what the repair
-    moved; nothing counts as a relu_ties launch inside)."""
+    """The fused tower's bf16 forward without the tie repair: two cuBLAS GEMMs
+    (`_mm`), each with `relu(y + b)` of its own sums on the card (the measure
+    of what the repair moved; nothing counts as a tower_fwd launch inside)."""
     from two_tower_recommender_model_tpu_torch.models import mlp
 
-    saved = mlp.relu_ties
-    mlp.relu_ties = lambda y, b, a, w: torch.relu(y + b)
+    saved = mlp.tower_forward
+    mlp.tower_forward = lambda x, w1, b1, w2, b2: torch.relu(
+        _mm(torch.relu(_mm(x, w1) + b1), w2) + b2)
     try:
         yield
     finally:
-        mlp.relu_ties = saved
+        mlp.tower_forward = saved
 
 
 def evaluate_card(tag, state, cfg, tcfg, val) -> None:
@@ -2626,7 +2783,7 @@ def phase_train_softmax(dev: torch.device, profile: bool) -> dict[str, int]:
             f"after 1 warm-up step), loss={out['loss'].item()!r}, "
             f"peak_memory_gb={torch.cuda.max_memory_allocated() / 1e9!r}")
 
-    # bf16 compute: the tower backward (#8) and relu_ties launch beside the softmax kernels
+    # bf16 compute: the tower backward (#8) and forward launch beside the softmax kernels
     bcfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
     btcfg = dataclasses.replace(tcfg, block_sorted_kernel="bfloat16")
     bstate, bopt = step_lib.create_train_state(torch.Generator(device=dev).manual_seed(0),
@@ -3126,11 +3283,11 @@ def phase_serve_trained(dev: torch.device, state, cfg, profile: bool, tag: str =
                   for users in retrieve_users]
     launches = read_launches()
     # --- checks, not counted -----------------------------------------------------
-    ties = tie_launches(cfg, [len(r["user_id"]) for r in requests])
+    fused = tower_fwd_launches(cfg, [len(r["user_id"]) for r in requests])
     if {k: v for k, v in launches.items() if v and k != gather_name} != (
-            {"relu_ties": ties} if ties else {}):
+            {"tower_fwd": fused} if fused else {}):
         raise AssertionError(f"{tag} launches {launches}: only {gather_name} may run, and "
-                             f"relu_ties {ties} times in the bf16 predicts")
+                             f"tower_fwd {fused} times in the bf16 predicts")
     deq = {name: table_f32(t) for name, t in model.tables.items()}
     compute = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     for inputs, got in zip(requests, preds):
@@ -3211,16 +3368,16 @@ def expected_train_launches(train_out: dict, per_step: dict[str, int], eval_batc
     in each eager tail step; a replay runs the K captured steps without
     Python. Each eval batch (`eval_batches`: their sizes) gathers from both
     tables (`gather`: #1, or #5 for int8 tables), and so does each retrieval
-    export chunk; under bf16 compute (relu_ties in `per_step`) an eval batch
-    of a multiple of 512 rows runs both towers' layers through relu_ties
-    (the retrieval exports run the towers unfused)."""
+    export chunk; under bf16 compute (tower_fwd in `per_step`) an eval batch
+    of a multiple of 512 rows runs each tower through tower_fwd (the
+    retrieval exports run the towers unfused)."""
     steps = sum(e["train_steps"] for e in train_out["epochs"])
     replayed = train_out["replays"] * PIPELINE_K
     python_steps = train_out["captures"] * (step_lib.WARMUP_STEPS + PIPELINE_K) + steps - replayed
     card_steps = train_out["captures"] * step_lib.WARMUP_STEPS + steps
     extra = {gather: 2 * len(eval_batches) + exports}
-    if "relu_ties" in per_step:
-        extra["relu_ties"] = 4 * sum(1 for n in eval_batches if n % 512 == 0)
+    if "tower_fwd" in per_step:
+        extra["tower_fwd"] = 2 * sum(1 for n in eval_batches if n % 512 == 0)
     counted = {name: n * python_steps + extra.get(name, 0) for name, n in per_step.items()}
     on_card = {name: n * card_steps + extra.get(name, 0) for name, n in per_step.items()}
     return counted, on_card
@@ -3505,9 +3662,9 @@ def phase_registry(dev: torch.device, work: str, pipeline: dict, runs: dict):
         server.stop()
     launches = read_launches()
     # --- checks, not counted ------------------------------------------------------
-    ties = tie_launches(scorer.model.cfg, [len(r["user_id"]) for r in requests])
+    fused = tower_fwd_launches(scorer.model.cfg, [len(r["user_id"]) for r in requests])
     if {k: v for k, v in launches.items() if v} != {"pooled_gather": 2 * len(requests),
-                                                      **({"relu_ties": ties} if ties else {})}:
+                                                      **({"tower_fwd": fused} if fused else {})}:
         raise AssertionError(f"[registry] launches {launches}")
     if scorer.model.device.type != "cuda":
         raise AssertionError("[registry] the registry's scorer is not on the card")
@@ -3562,9 +3719,10 @@ def phase_batch_predict(work: str, scorer: Scorer) -> dict[str, int]:
     batches = -(-rows // 8192)
     if index["total_rows"] != rows:
         raise AssertionError(f"[batch-predict] {index['total_rows']} rows out of {rows}")
-    ties = tie_launches(scorer.model.cfg, [min(8192, rows - i * 8192) for i in range(batches)])
+    fused = tower_fwd_launches(scorer.model.cfg,
+                               [min(8192, rows - i * 8192) for i in range(batches)])
     if {k: v for k, v in launches.items() if v} != {"pooled_gather": 2 * batches,
-                                                      **({"relu_ties": ties} if ties else {})}:
+                                                      **({"tower_fwd": fused} if fused else {})}:
         raise AssertionError(f"[batch-predict] launches {launches} for {batches} batches")
     scored = ShardedDataset(out_dir)
     got = {k: np.concatenate([scored.read_shard(i)[k] for i in range(scored.num_shards)])
@@ -3702,6 +3860,7 @@ def main() -> int:
 
     stats = {"pooled_gather": phase_kernel(dev), "rowwise_adagrad": phase_adagrad_kernel(dev),
              "tower_bwd": phase_tower_kernel(dev), "relu_ties": phase_relu_ties_kernel(dev),
+             "tower_fwd": phase_tower_fwd_kernel(dev, args.profile),
              **phase_softmax_kernel(dev),
              **phase_int8_kernels(dev), **phase_probe_kernels(dev)}
     stats["rowwise_adagrad"]["max_abs_err"] = max(

@@ -40,9 +40,10 @@ from two_tower_recommender_model_tpu_torch.ops.softmax_kernel import (
     softmax_lse_dc, softmax_lse_dq, softmax_lse_fwd)
 from two_tower_recommender_model_tpu_torch.ops.tower_bwd import tower_backward
 from two_tower_recommender_model_tpu_torch.ops.relu_ties import relu_ties
+from two_tower_recommender_model_tpu_torch.ops.tower_fwd import tower_forward
 for wrapper in (pooled_gather, rowwise_adagrad, tower_backward, softmax_lse_fwd, softmax_lse_dq,
                 softmax_lse_dc, quantized_pooled_gather, quantized_rowwise_adagrad_fused,
-                block_sorted_aggregate, row_subtract, relu_ties):
+                block_sorted_aggregate, row_subtract, relu_ties, tower_forward):
     assert wrapper._built is None and wrapper.launches == 0
 for name in ("train.step", "train.loop", "train.pipeline", "train.optimizer",
              "data.device_featurizer", "data.synthetic", "models.losses", "models.metrics",
@@ -53,7 +54,7 @@ for name in ("train.step", "train.loop", "train.pipeline", "train.optimizer",
              "cli.fetch_instacart", "cli.prepare_instacart", "cli.train",
              "cli.evaluate_retrieval", "cli.instacart_pipeline", "train.resilient",
              "utils.registry", "utils.profiling", "serving.batch", "data.compact",
-             "data.wirecache", "data.device_pool", "ops.relu_ties"):
+             "data.wirecache", "data.device_pool", "ops.relu_ties", "ops.tower_fwd"):
     assert pkg.__name__ + "." + name in names, name
 print(len(names))
 """

@@ -296,11 +296,13 @@ def test_bf16_tower_forward_gemms_match_the_widened_route(dev, h2):
     bf16 GEMMs (f32 sums, one rounding); the CPU's route widens the operands
     to f32 and rounds the product. Products of bf16 values are exact in f32,
     so only the order of the sums differs: each layer's product is within
-    one bf16 ulp of the widened route's on the same inputs, and the bias add
-    and ReLU are `relu_ties`'s, which equals its plain version on the same
-    GEMM outputs."""
+    one bf16 ulp of the widened route's on the same inputs. The forward
+    itself is the fused kernel's (`ops/tower_fwd.py`), whose tensor cores sum
+    in a third order: within 2^-8 x max|plain| of its plain version, the two
+    GEMMs with relu_ties's bias and ReLU."""
     from two_tower_recommender_model_tpu_torch.models.mlp import _mlp2_fwd_impl, _mm
     from two_tower_recommender_model_tpu_torch.ops.relu_ties import relu_ties_reference
+    from two_tower_recommender_model_tpu_torch.ops.tower_fwd import tower_forward_reference
 
     assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     rng = np.random.default_rng(h2)
@@ -319,4 +321,7 @@ def test_bf16_tower_forward_gemms_match_the_widened_route(dev, h2):
         assert ok, worst
         assert (got != want).float().mean().item() < 0.01
     out = _mlp2_fwd_impl(w1, b1, w2, b2, x)
-    assert torch.equal(out, relu_ties_reference(_mm(h1, w2), b2, h1, w2))
+    want = tower_forward_reference(x, w1, b1, w2, b2)
+    assert torch.equal(want, relu_ties_reference(_mm(h1, w2), b2, h1, w2))
+    torch.testing.assert_close(out.float(), want.float(), rtol=0,
+                               atol=2.0 ** -8 * want.float().abs().max().item())

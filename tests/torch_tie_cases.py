@@ -18,9 +18,11 @@ def bf16_values(a) -> np.ndarray:
     return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16).float().numpy()
 
 
-def tie_inputs(b: int, h2: int, seed: int):
+def tie_inputs(b: int, h2: int, seed: int, tie_cols: int = 128):
     """(x [b, 128], w1 [128, 128], b1 [128], w2 [128, h2], b2 [h2]) as float32
-    arrays of bf16 values, w in the reference's [in, out] layout."""
+    arrays of bf16 values, w in the reference's [in, out] layout. With
+    `tie_cols` < 128 only the first `tie_cols` columns of layer 1 sit on
+    ties; the others are drawn as a tower's weights and biases."""
     rng = np.random.default_rng(seed)
     m = 1 + rng.integers(0, 128, 128) / 128  # bf16 values in [1, 2)
     x = rng.normal(size=(b, 128))
@@ -28,8 +30,12 @@ def tie_inputs(b: int, h2: int, seed: int):
     w1 = rng.normal(size=(128, 128)) * 2.0 ** -24
     w1[0], w1[1] = m, 2.0 ** -8
     w2 = rng.normal(size=(128, h2), scale=0.1)
-    return (bf16_values(x), bf16_values(w1), bf16_values(-m), bf16_values(w2),
-            bf16_values(rng.normal(size=h2, scale=0.1)))
+    b1, b2 = -m, rng.normal(size=h2, scale=0.1)
+    if tie_cols < 128:
+        w1[:, tie_cols:] = rng.normal(size=(128, 128 - tie_cols), scale=0.1)
+        b1[tie_cols:] = rng.normal(size=128 - tie_cols, scale=0.1)
+    return (bf16_values(x), bf16_values(w1), bf16_values(b1), bf16_values(w2),
+            bf16_values(b2))
 
 
 def k_order_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

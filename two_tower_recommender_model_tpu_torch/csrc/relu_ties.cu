@@ -9,15 +9,15 @@
 // for y [B, N], a [B, K] (the layer's input), W [K, N] (passed transposed,
 // wt [N, K], so column c of W is one contiguous row) and b [N], all bf16.
 //
-// Why: the fused tower's forward (models/mlp.py:_mlp2_fwd_impl, the
-// reference's `_mlp2_fwd_impl` of two_tower_recommender_model_tpu/models/
-// mlp.py) runs each layer as one bf16 cuBLAS GEMM, which sums in its own
-// order on the tensor cores. Where a pre-activation's f32 sum lies within a
-// few f32 ulps of a bf16 rounding midpoint, another order can round it to
-// the other bf16 neighbour; where the two neighbours straddle -b, that moves
-// a ReLU decision, and with it a whole row of the tower backward's dx (the
-// backward, kernel #8 of csrc/tower_bwd.cu, recomputes such layer-1 sums in k
-// order, an f32 GEMM's fmaf chain, as does the plain version of this
+// Why: the fused tower's forward (the reference's `_mlp2_fwd_impl` of
+// two_tower_recommender_model_tpu/models/mlp.py), run as one bf16 cuBLAS
+// GEMM a layer, sums in cuBLAS's own order on the tensor cores. Where a
+// pre-activation's f32 sum lies within a few f32 ulps of a bf16 rounding
+// midpoint, another order can round it to the other bf16 neighbour; where
+// the two neighbours straddle -b, that moves a ReLU decision, and with it a
+// whole row of the tower backward's dx (the backward, kernel #8 of
+// csrc/tower_bwd.cu, recomputes such layer-1 sums in k order, an f32 GEMM's
+// fmaf chain, as does the plain version of this
 // kernel). Only the rounded r is left after the GEMM, so the test is taken on
 // r: another order can only have moved r by one bf16 ulp, and r's decision
 // can differ from a neighbour's only where r is -b or the bf16 value next
@@ -46,6 +46,10 @@
 //     fmaf chain) and its output overwritten. Each output is written once
 //     a pass: no atomics, and the result does not depend on timing.
 //
+// `relu_tie`, `ordered_dot` and `finish` live in relu_ties.cuh, shared with
+// the fused tower forward (tower_fwd.cu), which took this kernel's place on
+// the main path.
+//
 // Binding: a plain C interface loaded with ctypes. Both launches go to the
 // caller's stream, nothing synchronises, nothing is allocated (the wrapper
 // passes the flags), and the entry point returns cudaGetLastError() after
@@ -55,73 +59,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "relu_ties.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ float rnd(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// Whether r (bf16 bits u) is a tie against the bias b (bf16 bits bb):
-// whether a bf16 neighbour of r decides bf16(v + b) > 0 other than r. The
-// decision is v > -b (an f32 add of two bf16 values keeps the sign of the
-// exact sum, and bf16 rounding keeps it too, a positive sum of bf16 values
-// being at least the smallest subnormal), so the ties are t = -b and the
-// value next above it, a zero standing for both zeros. (The plain version's
-// `tie_mask` is this test; its CPU test holds it to the neighbours'
-// decisions over every bf16 value.)
-__device__ __forceinline__ bool relu_tie(uint16_t u, uint16_t bb) {
-  const uint16_t t = bb ^ 0x8000u;  // -b
-  const uint16_t above = (t & 0x7fffu) == 0 ? 0x0001u : (t & 0x8000u) ? t - 1 : t + 1;
-  const bool zero = (u & 0x7fffu) == 0;
-  return u == t || u == above || (zero && ((t & 0x7fffu) == 0 || (above & 0x7fffu) == 0));
-}
-
-// a_row . wt_row as an f32 GEMM sums it, one fmaf a k in k order. Rows of
-// a multiple of 8 values on 16-byte boundaries are read 4 x 16 bytes of each
-// operand at a time, all started before their 32 fmaf; the order stays k's.
-__device__ __forceinline__ float ordered_dot(const bf16* __restrict__ a_row,
-                                          const bf16* __restrict__ w_row, int64_t k) {
-  float s = 0.f;
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(a_row) | reinterpret_cast<uintptr_t>(w_row);
-  if ((k & 7) == 0 && (addr & 15) == 0) {
-    const uint4* av = reinterpret_cast<const uint4*>(a_row);
-    const uint4* wv = reinterpret_cast<const uint4*>(w_row);
-    const int64_t n = k >> 3;
-    for (int64_t j0 = 0; j0 < n; j0 += 4) {
-      uint4 ab[4], wb[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if (j0 + u < n) {
-          ab[u] = __ldg(av + j0 + u);
-          wb[u] = __ldg(wv + j0 + u);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if (j0 + u < n) {
-          const bf16* x = reinterpret_cast<const bf16*>(&ab[u]);
-          const bf16* y = reinterpret_cast<const bf16*>(&wb[u]);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) s = fmaf(__bfloat162float(x[e]), __bfloat162float(y[e]), s);
-        }
-      }
-    }
-    return s;
-  }
-  for (int64_t j = 0; j < k; ++j)
-    s = fmaf(__bfloat162float(a_row[j]), __bfloat162float(w_row[j]), s);
-  return s;
-}
-
-// relu(bf16(r + b)) as bf16 bits, positive zero below
-__device__ __forceinline__ uint16_t finish(float r, float b) {
-  const float pre = rnd(r + b);
-  return __bfloat16_as_ushort(__float2bfloat16_rn(pre > 0.f ? pre : 0.f));
-}
+using relu_ties::finish;
+using relu_ties::ordered_dot;
+using relu_ties::relu_tie;
+using relu_ties::rnd;
 
 // Pass 1: V elements a thread (V = 8: 16-byte vectors, N % 8 == 0; or 1);
 // threads up to `groups` (a multiple of 4) each write their flag byte.

@@ -13,10 +13,10 @@ transposes between them).
 The fused tower backward (`_mlp2_relu` of the reference): with
 `fused_backward=True`, a two-layer ReLU tower with the final ReLU on whose
 shapes pass `ops.tower_bwd.fits` runs as `Mlp2Relu`, an autograd Function
-whose forward is the two-layer forward (on CUDA bf16 with each layer's bias
-and ReLU in `ops/relu_ties.py`, which decides rounding ties in k order) and
-whose backward is the fused tower-backward kernel (`ops/tower_bwd.py`,
-kernel #8).
+whose forward is the two-layer forward (on CUDA bf16 one launch of the fused
+tower-forward kernel, `ops/tower_fwd.py`, which decides rounding ties in k
+order) and whose backward is the fused tower-backward kernel
+(`ops/tower_bwd.py`, kernel #8).
 """
 
 from __future__ import annotations
@@ -29,8 +29,8 @@ from two_tower_recommender_model_tpu_torch.device import resolve_device
 import torch.nn.functional as F
 from torch import nn
 
-from two_tower_recommender_model_tpu_torch.ops.relu_ties import relu_ties
 from two_tower_recommender_model_tpu_torch.ops.tower_bwd import fits, tower_backward
+from two_tower_recommender_model_tpu_torch.ops.tower_fwd import _mm, tower_forward
 
 _ACTIVATIONS = {
     "relu": torch.relu,
@@ -126,42 +126,30 @@ def init_mlp(
 # --- the fused-backward two-layer ReLU tower -----------------------------------------
 
 
-def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """`a @ w` in a's dtype, summed in f32 and rounded once (the reference's
-    `preferred_element_type=f32` then cast). On CUDA bf16 operands this is one
-    bf16 GEMM: cuBLAS sums in f32, and the package turns off its bf16
-    reduction of split-K partials at import. Elsewhere the operands are
-    widened to f32 (products of bf16 values are exact in f32, so the two
-    routes differ only in the order of the sum)."""
-    if a.is_cuda and a.dtype == w.dtype == torch.bfloat16:
-        return torch.matmul(a, w)
-    return torch.matmul(a.float(), w.float()).to(a.dtype)
-
-
 def _mlp2_fwd_impl(w1, b1, w2, b2, x):
     """`relu(relu(x @ w1 + b1) @ w2 + b2)` under the forward's dtype rule,
     with w1 [in, h1] and w2 [h1, h2] in the reference's layout.
 
-    On CUDA bf16 each layer's bias and ReLU run in `relu_ties` (kernel
-    `csrc/relu_ties.cu`): the GEMM sums in the tensor cores' order, and a
+    On CUDA bf16 the whole forward is one launch of `tower_forward` (kernel
+    `csrc/tower_fwd.cu`): its products sum in the tensor cores' order, and a
     sum at a bf16 rounding tie against -b is summed again in k order, so the
     forward makes the ReLU decisions the tower backward (#8), the plain
-    route and the host make."""
+    route and the host make. Elsewhere each layer is `_mm`, the bias add in
+    bf16 and the ReLU."""
     if x.is_cuda and all(t.dtype == torch.bfloat16 for t in (x, w1, b1, w2, b2)):
-        h1 = relu_ties(_mm(x, w1), b1, x, w1)
-        return relu_ties(_mm(h1, w2), b2, h1, w2)
+        return tower_forward(x, w1, b1, w2, b2)
     h1 = torch.relu(_mm(x, w1) + b1)
     return torch.relu(_mm(h1, w2) + b2)
 
 
 class Mlp2Relu(torch.autograd.Function):
     """The flagship tower with the fused backward: the forward is two GEMMs
-    (the reference leaves it to XLA) with the bias and ReLU in `relu_ties` on
-    CUDA bf16, the backward one launch of the tower-backward kernel. The
-    weight gradients come back in f32 and are cast to the weights' dtype, as
-    the reference's `_mlp2_relu_bwd` does: under bf16 compute they are
-    rounded to bf16 once, and the cast of the weights to bf16 widens them
-    back to f32 in its own backward."""
+    with their bias and ReLU (the reference leaves it to XLA), on CUDA bf16
+    one launch of the tower-forward kernel, the backward one launch of the
+    tower-backward kernel. The weight gradients come back in f32 and are cast
+    to the weights' dtype, as the reference's `_mlp2_relu_bwd` does: under
+    bf16 compute they are rounded to bf16 once, and the cast of the weights
+    to bf16 widens them back to f32 in its own backward."""
 
     @staticmethod
     def forward(ctx, w1, b1, w2, b2, x):

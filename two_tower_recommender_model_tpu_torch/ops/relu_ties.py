@@ -7,12 +7,14 @@ plain version.
     r'  = tie ? bf16(sum_k a[i, k] * w[k, c], f32 in k order) : r
     out = relu(bf16(r' + b[c]))
 
-The fused tower's forward (`models/mlp.py:_mlp2_fwd_impl`) runs each layer
-as one bf16 GEMM, which sums in its own order; where a sum lies at a bf16
-rounding midpoint against -b, another order decides that ReLU the other way.
-The tower backward (kernel #8), the plain version and the host decide such
-sums in k order, so the forward does too (`csrc/relu_ties.cu` has the
-design).
+A tower layer run as one bf16 GEMM sums in the GEMM's own order; where a
+sum lies at a bf16 rounding midpoint against -b, another order decides that
+ReLU the other way. The tower backward (kernel #8), the plain version and the
+host decide such sums in k order, so this pass does too (`csrc/relu_ties.cu`
+has the design). The fused tower's forward (`ops/tower_fwd.py`) takes the
+same test, recompute and rounding in its own kernel, and its plain version is
+two `_mm` + `relu_ties_reference` layers; this kernel is that two-GEMM
+route's bias and ReLU.
 
 `relu_ties` launches the hand-written kernel of `csrc/relu_ties.cu` on CUDA
 tensors and takes `relu_ties_reference` only for tensors that lie on the
