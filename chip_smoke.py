@@ -2,14 +2,17 @@
 against its plain PyTorch version, serve the full-width flagship model over
 HTTP, train it with BCE (f32, int8 and bf16 tables) and with the in-batch
 sampled softmax, eagerly and as CUDA graphs of 16 steps, fed packed and
-compact batches, serve the int8- and the bf16-trained model, run the gather
+compact batches, with the bf16 aggregation buffer, serve the int8- and the
+bf16-trained model, train the concat-MLP ranker, several seeds and sweeps
+over spawned workers, run the gather
 probe, train the small learnable models to a target AUROC and a target
 recall@10, run the Instacart pipeline (replica -> prepare -> train through
 a wire cache -> recall@100) through its entry points, and on its shards the
 rest of a user's workflow: train with
 checkpoints -> crash -> restart and resume -> register -> promote -> serve
-by stage -> batch-score a split -> the per-user retrieval table, and a
-profiler trace of replayed steps.
+by stage -> batch-score a split (TTRS and parquet) -> the per-user
+retrieval table, and a profiler trace of replayed steps; and the
+text-side-features example.
 
     python3 chip_smoke.py [--profile]
 
@@ -227,7 +230,33 @@ without a card. Phases (any failure raises and exits non-zero):
 25. `[profile-trace]` `profile_trace` around one replay of 3 captured steps
    on the smoke shards: the trace names the gather (#1) and Adagrad (#4)
    kernels; `device_memory_stats()` and a `StepTimer` summary of 5 replays;
-26. with --profile, torch.profiler traces of the serving calls, of the
+26. the bf16 buffer, the ranker, tuning, parquet input and text features:
+   `[kernel]` #4 and #6 with `buffer_dtype=bf16` at 262,144 sorted user ids
+   and on rank^-1 item ids (a hot run of about 21,800 positions): on probe
+   inputs (rows 0, accumulators 2^60, lr 1) bit for bit their plain
+   versions, two launches too, and not the f32 sums; on ordinary inputs
+   within rtol 1e-5; their times beside the f32 buffer's on the same
+   inputs; #3 with the device sort's permutation at the ranker's 8,192
+   slots into the user and the item table: bit for bit the CPU's ordered
+   sum, `zeros.index_add_` beside it;
+   `[train-bf16buf]` phase 16's BCE graph with `block_sorted_kernel="off"`
+   and `scatter_buffer_dtype="bfloat16"`, f32 and int8 tables (the user
+   table's update seen taking the bf16 buffer), each with the host check
+   after eager steps, and the same f32-table config with the f32 buffer
+   beside it;
+   `[batch-predict-parquet]` and `[text-features]` in a child process
+   (pandas and pyarrow load there): the smoke test split written as
+   parquet and scored through `batch_predict(input_format="parquet")`,
+   predictions bit for bit `[batch-predict]`'s; the text-side-features
+   example on the card;
+   `[ranker]` the concat-MLP ranker at flagship widths, batch 8,192, three
+   Adam steps (2 launches of #1 and 2 of #3 a step) against the plain route
+   on the card and a host step;
+   `[multi-seed]` `multi_seed_train` with 3 seeds at flagship widths, 4
+   steps of 8,192 and an eval batch; seed 1 alone bit for bit;
+   `[sweep]` random (3 trials) and TPE (4 trials) sweeps over 2 spawned
+   worker processes, each trial training the flagship on this card;
+27. with --profile, torch.profiler traces of the serving calls, of the
    three train steps and of a graph replay: device busy time, idle share and
    the largest device items, the gather kernel's (#1 or #5) device ms a call
    or a replayed step; and for each graph the SM clock and the active
@@ -237,7 +266,8 @@ without a card. Phases (any failure raises and exits non-zero):
 The process must not have imported JAX, the JAX package, pandas or pyarrow.
 The card's machine has pandas and pyarrow, but the port's data path runs on
 numpy and the standard library by choice; the per-user table (a pandas
-DataFrame, as the reference's) is written in a child process.
+DataFrame, as the reference's), the parquet input and the text features run
+in child processes.
 The line before the last is a JSON object describing each kernel; the last
 line is `{"ok": true, "device": {...}}`.
 """
@@ -285,6 +315,8 @@ from two_tower_recommender_model_tpu_torch.evaluation.retrieval import (
     make_retrieval_eval_fn,
 )
 from two_tower_recommender_model_tpu_torch.models.metrics import auroc_compute, mean_compute
+from two_tower_recommender_model_tpu_torch.models import concat_mlp
+from two_tower_recommender_model_tpu_torch.models.two_tower import forward as two_tower_forward
 from two_tower_recommender_model_tpu_torch.models.two_tower import init_params, towers_forward
 from two_tower_recommender_model_tpu_torch.ops.adagrad_kernel import (
     block_sorted_aggregate,
@@ -342,7 +374,11 @@ from two_tower_recommender_model_tpu_torch.serving.server import ModelServer
 from two_tower_recommender_model_tpu_torch.train import optimizer as opt_lib
 from two_tower_recommender_model_tpu_torch.train import step as step_lib
 from two_tower_recommender_model_tpu_torch.tools import probe_consumer
-from two_tower_recommender_model_tpu_torch.train.loop import train_one_epoch_packed, train_val_test
+from two_tower_recommender_model_tpu_torch.train.loop import (
+    evaluate,
+    train_one_epoch_packed,
+    train_val_test,
+)
 from two_tower_recommender_model_tpu_torch.train.pipeline import device_put_batch, map_leaves
 from two_tower_recommender_model_tpu_torch.train.resilient import resilient_fit
 from two_tower_recommender_model_tpu_torch.utils.checkpoint import (
@@ -3835,15 +3871,570 @@ def phase_profile_trace(dev: torch.device, work: str, pipeline: dict, run: dict)
     return launches
 
 
+# --- the bf16 buffer, the ranker, multi-seed, sweeps, parquet and text features -----------
+
+BF16 = torch.bfloat16
+PROBE_ACC = 2.0 ** 60  # the bf16 buffer's probe accumulator (see phase_bf16_buffer_kernels)
+PLAIN_REPS = 3  # timed runs of the bf16 buffer's plain version: it loops over the longest run
+RANKER_BATCH, RANKER_HIDDEN, RANKER_STEPS = 8192, (128, 64), 3
+SEEDS, SEED_STEPS, SEED_BATCH = (0, 1, 2), 4, 8192
+SWEEP_STEPS, SWEEP_BATCH = 4, 8192
+
+
+def phase_bf16_buffer_kernels(dev: torch.device) -> None:
+    """`[kernel]` #4 and #6 with the bf16 buffer (`buffer_dtype=bf16`, the
+    reference's `scatter_buffer_dtype="bfloat16"`) at the `[train-bf16buf]`
+    step's shapes: 262,144 sorted user ids with f32 gradients (the block
+    kernels off: the step passes f32), and item ids drawn as rank^-1 through
+    the device sort (a hot run of about 21,800 positions, which pass 2 walks
+    whole). Each case twice:
+    - the probe: every row 0 (int8: values and scales 0), accumulators 2^60,
+      lr 1, eps 0, so mean(g^2) adds nothing to an accumulator (it lies
+      below half an ulp of 2^60), sqrt(2^60) = 2^30 exactly, and a new row
+      is -buffer x 2^-30 in any order of the mean: kernel and plain version
+      must agree bit for bit on every output, two launches too;
+    - ordinary rows and accumulators: untouched rows bitwise, the rest within
+      rtol 1e-5 (int8: scales and accumulators, values within one step).
+    Times: the bf16 mode, the f32 mode on the same inputs, and the plain
+    version (PLAIN_REPS runs: it loops over the longest run), with the bound
+    by bytes (f32 mode's formula)."""
+    rng = np.random.default_rng(21)
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
+    ids = rng.integers(0, NUM_USERS, TRAIN_BATCH)
+    ids[rng.random(TRAIN_BATCH) < 0.05] = NUM_USERS
+    uniform = torch.sort(torch.from_numpy(ids.astype(np.int32)).to(dev)).values
+    skewed, perm = skewed_item_ids(np.random.default_rng(7), TRAIN_BATCH, dev)
+    grads = torch.from_numpy(rng.normal(size=(TRAIN_BATCH, DIM)).astype(np.float32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for case, n, ids_t, perm_t in (("user f32 sorted", NUM_USERS, uniform, None),
+                                   (SKEWED.replace("bf16", "f32"), NUM_ITEMS, skewed, perm)):
+        live = torch.zeros(n, dtype=torch.bool, device=dev)
+        live[ids_t[ids_t < n].long()] = True
+        touched, longest = int(live.sum()), longest_run(ids_t, n)
+        for name in ("rowwise_adagrad", "quantized_rowwise_adagrad"):
+            int8 = name == "quantized_rowwise_adagrad"
+            kernel = quantized_rowwise_adagrad_fused if int8 else rowwise_adagrad
+            plain = (quantized_rowwise_adagrad_fused_reference if int8
+                     else rowwise_adagrad_reference)
+
+            def table(probe: bool) -> list[torch.Tensor]:
+                if int8:
+                    if probe:
+                        return [torch.zeros((n, DIM), dtype=torch.int8, device=dev),
+                                torch.zeros(n, device=dev), torch.full((n,), PROBE_ACC, device=dev)]
+                    qt = quantize_table(torch.rand((n, DIM), device=dev, generator=gen) - 0.5)
+                    return [qt.values, qt.scales, torch.rand(n, device=dev, generator=gen)]
+                if probe:
+                    return [torch.zeros((n, DIM), device=dev), torch.full((n,), PROBE_ACC,
+                                                                          device=dev)]
+                return [torch.rand((n, DIM), device=dev, generator=gen) - 0.5,
+                        torch.rand(n, device=dev, generator=gen)]
+
+            def run(fn, parts, lr, eps, buffer=BF16):
+                return fn(*parts, ids_t, grads, lr, eps, perm=perm_t, buffer_dtype=buffer)
+
+            label = f"{name} bf16 buffer, {case}: {TRAIN_BATCH} ids into [{n}, {DIM}]"
+            start = table(True)
+            k1, k2, p = ([t.clone() for t in start] for _ in range(3))
+            run(kernel, k1, 1.0, 0.0)
+            run(kernel, k2, 1.0, 0.0)
+            run(plain, p, 1.0, 0.0)
+            torch.cuda.synchronize()
+            for a, b, c in zip(k1, k2, p):
+                if not bitwise_equal(a, b):
+                    raise AssertionError(f"{label}: two launches on the probe differ")
+                if not bitwise_equal(a, c):
+                    raise AssertionError(f"{label}: the probe's outputs differ from the plain "
+                                         f"version's (max abs diff "
+                                         f"{(a.float() - c.float()).abs().max().item()!r})")
+            f32_mode = [t.clone() for t in start]
+            run(kernel, f32_mode, 1.0, 0.0, None)
+            torch.cuda.synchronize()
+            if bitwise_equal(f32_mode[0], k1[0]):
+                raise AssertionError(f"{label}: the bf16 buffer gave the f32 sums' rows")
+            del k2, p, f32_mode
+            start = table(False)
+            k1, p = [t.clone() for t in start], [t.clone() for t in start]
+            run(kernel, k1, LR, EPS)
+            run(plain, p, LR, EPS)
+            torch.cuda.synchronize()
+            for a, s in zip(k1, start):
+                if not bitwise_equal(a[~live], s[~live]):
+                    raise AssertionError(f"{label}: rows no live id names changed")
+            if int8:
+                if (k1[0].int() - p[0].int()).abs().max().item() > 1:
+                    raise AssertionError(f"{label}: int8 values more than one step apart")
+                for a, c in zip(k1[1:], p[1:]):
+                    torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-7)
+                err = max((a - c).abs().max().item() for a, c in zip(k1[1:], p[1:]))
+            else:
+                for a, c in zip(k1, p):
+                    torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-6)
+                err = max((a - c).abs().max().item() for a, c in zip(k1, p))
+            ms = median_ms(lambda: run(kernel, k1, LR, EPS), flush)
+            f32_ms = median_ms(lambda: run(kernel, k1, LR, EPS, None), flush)
+            plain_ms = median_ms(lambda: run(plain, p, LR, EPS), flush, reps=PLAIN_REPS)
+            row_bytes = DIM + 8 if int8 else (DIM + 1) * 4  # int8: values, scale and accumulator
+            b = bound(TRAIN_BATCH * DIM * 4 + TRAIN_BATCH * (4 if perm_t is None else 8)
+                      + touched * row_bytes * 2, 4 * TRAIN_BATCH * DIM, PEAK_F32)
+            log(f"[kernel] {label}, {touched} rows touched, longest run {longest}: the probe "
+                f"bit for bit the plain version (two launches too; not the f32 sums), ordinary "
+                f"rows untouched bitwise and the rest within rtol 1e-5"
+                f"{' (int8 values within one step)' if int8 else ''}; max_abs_err={err!r}, "
+                f"kernel_ms={ms!r} (the f32 buffer on the same inputs {f32_ms!r}), "
+                f"plain_ms={plain_ms!r} (n={PLAIN_REPS}), bound_ms={b['bound_ms']!r} by "
+                f"{b['bound_by']}; no single PyTorch call computes it")
+
+
+def phase_aggregate_perm_kernel(dev: torch.device) -> None:
+    """`[kernel]` #3 with the device sort's permutation at the ranker's
+    shapes: one feature's 8,192 slots (ids unsorted, a few dead), sorted
+    stably on the card, f32 slot rows, into the user table [206,209, 128] and
+    the item table [49,688, 128], f32. Bit for bit the CPU's `index_add_` in
+    stable-sorted order (the runs are complete: a few positions each), two
+    launches bit for bit; `zeros.index_add_` beside it."""
+    rng = np.random.default_rng(23)
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
+    for table, n in (("user", NUM_USERS), ("item", NUM_ITEMS)):
+        ids = rng.integers(0, n, RANKER_BATCH)
+        ids[rng.random(RANKER_BATCH) < 0.02] = n  # missing ids: the sentinel
+        rows = torch.from_numpy(rng.normal(size=(RANKER_BATCH, DIM)).astype(np.float32)).to(dev)
+        sids, perm = torch.sort(torch.from_numpy(ids.astype(np.int32)).to(dev), stable=True)
+        perm = perm.to(torch.int32)
+        got = block_sorted_aggregate(n, sids, rows, perm=perm)
+        again = block_sorted_aggregate(n, sids, rows, perm=perm)
+        want = block_sorted_aggregate_reference(n, sids.cpu(), rows.cpu(), perm.cpu())
+        torch.cuda.synchronize()
+        if not bitwise_equal(got, again):
+            raise AssertionError(f"block_sorted_aggregate with perm, {table}: two launches differ")
+        if not bitwise_equal(got.cpu(), want):
+            raise AssertionError(f"block_sorted_aggregate with perm, {table}: not the CPU's "
+                                 "ordered sum")
+        live = torch.from_numpy(ids < n).to(dev)
+        ids64 = torch.from_numpy(ids[ids < n]).to(dev)
+        live_rows = rows[live]
+        ms = median_ms(lambda: block_sorted_aggregate(n, sids, rows, perm=perm), flush)
+        plain_ms = median_ms(
+            lambda: block_sorted_aggregate_reference(n, sids, rows, perm=perm), flush)
+        library_ms = median_ms(
+            lambda: torch.zeros((n, DIM), device=dev).index_add_(0, ids64, live_rows), flush)
+        b = bound(RANKER_BATCH * DIM * 4 + RANKER_BATCH * 8 + n * DIM * 4, RANKER_BATCH * DIM,
+                  PEAK_F32)
+        log(f"[kernel] block_sorted_aggregate with perm (the ranker's table gradient), {table} "
+            f"table: {RANKER_BATCH} slots into f32 [{n}, {DIM}] (zeroed by the wrapper, timed "
+            f"with it), longest run {longest_run(sids, n)}; bit for bit the CPU's ordered sum, "
+            f"two launches bit for bit; kernel_ms={ms!r}, plain_ms={plain_ms!r}, "
+            f"bound_ms={b['bound_ms']!r} by {b['bound_by']}, library_ms={library_ms!r} "
+            "(zeros.index_add_ on int64 live ids, unsorted)")
+
+
+def buffer_modes(cfg, tcfg, pb, dev: torch.device) -> dict[int, object]:
+    """{table rows: the buffer dtype} of the sorted table's update in one
+    eager step from a fresh state (the device-sorted table's calls go
+    through the optimizer module and are not seen)."""
+    seen: dict[int, object] = {}
+    real = (step_lib.rowwise_adagrad, step_lib.quantized_rowwise_adagrad_fused)
+
+    def spy(fn):
+        def call(*args, buffer_dtype=None, **kwargs):
+            seen[args[0].shape[0]] = buffer_dtype
+            return fn(*args, buffer_dtype=buffer_dtype, **kwargs)
+        return call
+
+    step_lib.rowwise_adagrad, step_lib.quantized_rowwise_adagrad_fused = map(spy, real)
+    try:
+        state, dense_opt = step_lib.create_train_state(
+            torch.Generator(device=dev).manual_seed(0), cfg, tcfg)
+        step = make_packed_train_step(step_lib.make_train_step(cfg, tcfg, dense_opt), cfg,
+                                      pack_label=True)
+        step(state, pb)
+        torch.cuda.synchronize()
+    finally:
+        step_lib.rowwise_adagrad, step_lib.quantized_rowwise_adagrad_fused = real
+    return seen
+
+
+def phase_train_bf16buf(dev: torch.device, profile: bool, pool: list) -> dict[str, dict]:
+    """`[train-bf16buf]` the flagship BCE at 262,144 in bf16 compute, sorted
+    by user id, `block_sorted_kernel="off"`, `scatter_buffer_dtype=
+    "bfloat16"`: the user table (206,209 rows <= 8 x 262,144 slots) takes
+    the bf16 buffer, the item table the device sort and f32 sums. With f32
+    and with int8 tables: the routing seen in one step, then
+    `phase_train_graph` (K = 16, eager against replayed, bit for bit) and
+    the host check after eager steps; the f32-table config with the f32
+    buffer through the same graph, its replayed ms beside."""
+    cfg, tcfg = flagship_bce()
+    tcfg = dataclasses.replace(tcfg, block_sorted_kernel="off", scatter_buffer_dtype="bfloat16")
+    paths = {}
+    for name, c, want, marker in (
+            ("f32 tables", cfg, BCE_F32, "pooled_gather"),
+            ("int8 tables", dataclasses.replace(cfg, table_dtype="int8"), BCE_INT8,
+             "quantized_gather")):
+        seen = buffer_modes(c, tcfg, pool[0], dev)
+        if seen != {NUM_USERS: BF16}:
+            raise AssertionError(f"[train-bf16buf] {name}: the sorted table's update took {seen}")
+        paths[f"train-bf16buf {name}"] = phase_train_graph(
+            dev, f"BCE, {name}, bf16 compute, bf16 buffer", c, tcfg, pool, want, profile,
+            marker=marker, tag="[train-bf16buf]")
+        host_check_after(f"[train-bf16buf] {name}:", dev, c, tcfg, pool)
+    f32_buffer = dataclasses.replace(tcfg, scatter_buffer_dtype="float32")
+    seen = buffer_modes(cfg, f32_buffer, pool[0], dev)
+    if seen != {NUM_USERS: None}:
+        raise AssertionError(f"[train-bf16buf] the f32 buffer's update took {seen}")
+    paths["train-bf16buf f32 buffer"] = phase_train_graph(
+        dev, "BCE, f32 tables, bf16 compute, f32 buffer (beside)", cfg, f32_buffer, pool,
+        BCE_F32, profile, tag="[train-bf16buf]")
+    return paths
+
+
+def ranker_batches(cfg, dev: torch.device, n: int, split: str = "train") -> list:
+    ds = SyntheticClickstream(NUM_USERS - 1, NUM_ITEMS - 1, seed=5)
+    feat = Featurizer(cfg, device=dev)
+    return [feat(cols) for cols in ds.batches(RANKER_BATCH, n, split=split)]
+
+
+def phase_ranker(dev: torch.device) -> dict[str, int]:
+    """`[ranker]` the concat-MLP ranker at flagship widths (206,209 x 49,688
+    x 128, hidden (128, 64) -> 1, f32), batch 8,192, RANKER_STEPS Adam steps
+    through `make_ranker_train_step` (counted: each step 2 launches of the
+    gather #1 forward and 2 of the aggregate #3 for the tables' gradients).
+    Then, not counted: the same steps through the plain versions on the card
+    (the first step's logits and every Adam first moment within 1e-5 x max,
+    the later losses within rtol 1e-4: Adam's first updates are about +-lr
+    whatever a gradient's size, so a near-zero gradient that rounds
+    differently moves a weight by up to 2 lr), and the first step on the host
+    CPU against the card's (the same bounds)."""
+    cfg = cfg_lib.two_tower_model_config(NUM_USERS, NUM_ITEMS, embedding_dim=DIM,
+                                         layer_sizes=LAYERS)
+    batches = ranker_batches(cfg, dev, RANKER_STEPS)
+    step, init = concat_mlp.make_ranker_train_step(cfg, learning_rate=1e-3)
+
+    def fresh(device):
+        state = init(torch.Generator(device=dev).manual_seed(0), RANKER_HIDDEN)
+        if device != dev:
+            params = state["params"].to(device)
+            state = {**state, "params": params,
+                     "opt": concat_mlp.dense_optimizer(1e-3).build(params.parameters())}
+        return state
+
+    def moments(state) -> dict[str, torch.Tensor]:
+        opt = state["opt"]
+        return {name: opt.state[p]["exp_avg"].detach().cpu().clone()
+                for name, p in state["params"].named_parameters()}
+
+    def run(state, bs, record_first=False):
+        outs, first = [], None
+        for i, b in enumerate(bs):
+            state, out = step(state, b)
+            outs.append(out)
+            if i == 0 and record_first:
+                first = moments(state)
+        torch.cuda.synchronize()
+        return state, outs, first
+
+    state = fresh(dev)
+    torch.cuda.synchronize()
+    # --- the main path, counted -----------------------------------------------------
+    reset_launches()
+    t0 = time.perf_counter()
+    state, outs, _ = run(state, batches)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    # --- checks, not counted -----------------------------------------------------------
+    want = {"pooled_gather": 2 * RANKER_STEPS, "block_sorted_aggregate": 2 * RANKER_STEPS}
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"[ranker] launches {launches}, expected {want}")
+    losses = [o["loss"].item() for o in outs]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[ranker] losses {losses}")
+    _, kouts, kfirst = run(fresh(dev), batches, record_first=True)
+    saved = concat_mlp.pooled_lookup, concat_mlp.block_sorted_aggregate
+
+    def plain_lookup(table, ids, mask, pooling, compute_dtype):
+        w = mask.to(torch.float32)
+        if pooling == "mean":
+            w = w / torch.clamp(w.sum(dim=1, keepdim=True), min=1.0)
+        return pooled_gather_reference(table, ids.to(torch.int32), w, compute_dtype)
+
+    concat_mlp.pooled_lookup = plain_lookup
+    concat_mlp.block_sorted_aggregate = block_sorted_aggregate_reference
+    try:
+        _, pouts, pfirst = run(fresh(dev), batches, record_first=True)
+    finally:
+        concat_mlp.pooled_lookup, concat_mlp.block_sorted_aggregate = saved
+    host_batch = map_leaves(batches[0], lambda t: t.cpu())
+    t_host = time.perf_counter()
+    _, houts, hfirst = run(fresh(torch.device("cpu")), [host_batch], record_first=True)
+    t_host = time.perf_counter() - t_host
+    step_ms = []  # steps after the first calls' set-up, each ended by a synchronize
+    for b in batches:
+        t0 = time.perf_counter()
+        state, _ = step(state, b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    margins = {}
+    for other, outs_o, first_o in (("plain", pouts, pfirst), ("host", houts, hfirst)):
+        d = (kouts[0]["logits"].cpu() - outs_o[0]["logits"].cpu()).abs().max().item()
+        margin = d / (1e-5 * outs_o[0]["logits"].abs().max().item())
+        for name, m in first_o.items():
+            diff = (kfirst[name] - m).abs().max().item()
+            margin = max(margin, diff / (1e-5 * max(m.abs().max().item(), 1e-30)))
+        for ko, oo in zip(kouts[1:], outs_o[1:]):
+            margin = max(margin, abs(ko["loss"].item() - oo["loss"].item())
+                         / (1e-4 * abs(oo["loss"].item())))
+        if margin > 1:
+            raise AssertionError(f"[ranker] against the {other} route: margin {margin!r}")
+        margins[other] = margin
+    log(f"[ranker] {card_line()}: the concat-MLP ranker, tables [{NUM_USERS}, {DIM}] + "
+        f"[{NUM_ITEMS}, {DIM}] and MLP {2 * DIM} -> {RANKER_HIDDEN} -> 1 in f32, batch "
+        f"{RANKER_BATCH}, {RANKER_STEPS} Adam steps in {seconds!r} s (the first calls' "
+        f"set-up included; {RANKER_STEPS} more steps median_step_ms="
+        f"{statistics.median(step_ms)!r}, eager), losses {losses}; launches counted "
+        f"{ {k: v for k, v in launches.items() if v} }; against the plain route on the card and "
+        f"the host CPU ({t_host!r} s a step): first-step logits and Adam moments within 1e-5 x "
+        f"max, later losses within rtol 1e-4, margins {margins!r}")
+    return launches
+
+
+def phase_multi_seed(dev: torch.device) -> dict[str, int]:
+    """`[multi-seed]` `multi_seed_train` at flagship widths in bf16 compute
+    (no sorted feature: every table through the device sort), seeds
+    SEEDS, SEED_STEPS steps of SEED_BATCH and the eval of one batch (counted:
+    each step's BCE launches a seed, 2 gathers and 2 tower_fwd a seed's
+    eval); then, not counted, seed 1 alone through `create_train_state` and
+    `make_train_step` on the same batches: its last loss and AUROC bit for
+    bit the multi-seed run's."""
+    from two_tower_recommender_model_tpu_torch.models.metrics import exact_auroc
+    from two_tower_recommender_model_tpu_torch.tuning import multi_seed_train
+
+    cfg, _ = flagship_bce()
+    tcfg = cfg_lib.TrainConfig(batch_size=SEED_BATCH, block_sorted_kernel="bfloat16")
+    ds = SyntheticClickstream(NUM_USERS - 1, NUM_ITEMS - 1, seed=6)
+    cols = list(ds.batches(SEED_BATCH, SEED_STEPS, split="train"))
+    eval_cols = ds.sample(SEED_BATCH, "val")
+    # --- the main path, counted -----------------------------------------------------
+    reset_launches()
+    t0 = time.perf_counter()
+    out = multi_seed_train(cfg, tcfg, SEEDS, cols, eval_cols, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    # --- checks, not counted -----------------------------------------------------------
+    want = {k: v * len(SEEDS) * SEED_STEPS for k, v in BCE_F32.items()}
+    want["pooled_gather"] += 2 * len(SEEDS)
+    want["tower_fwd"] += tower_fwd_launches(cfg, [SEED_BATCH]) * len(SEEDS)
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"[multi-seed] launches {launches}, expected {want}")
+    # different seeds, different models (the bf16 losses agree to their rounding)
+    if not (np.isfinite(out["final_train_loss"]).all()
+            and len(set(out["eval_auroc"].tolist())) == len(SEEDS)):
+        raise AssertionError(f"[multi-seed] {out}")
+    feat = Featurizer(cfg, device=dev)
+    state, dense_opt = step_lib.create_train_state(torch.Generator(device=dev).manual_seed(1),
+                                                   cfg, tcfg)
+    step = step_lib.make_train_step(cfg, tcfg, dense_opt)
+    for c in cols:
+        state, o = step(state, feat(c))
+    ev = feat(eval_cols)
+    with torch.no_grad():
+        q, c_ = two_tower_forward(state.model, ev)
+        auroc = exact_auroc(torch.sum(q * c_, dim=1).float().cpu().numpy(),
+                            ev.labels.cpu().numpy())
+    i = SEEDS.index(1)
+    if o["loss"].float().item() != out["final_train_loss"][i] or auroc != out["eval_auroc"][i]:
+        raise AssertionError(f"[multi-seed] seed 1 alone: loss {o['loss'].item()!r}, AUROC "
+                             f"{auroc!r}; in the multi-seed run {out['final_train_loss'][i]!r}, "
+                             f"{out['eval_auroc'][i]!r}")
+    log(f"[multi-seed] {card_line()}: seeds {list(SEEDS)} at flagship widths, bf16 compute, "
+        f"{SEED_STEPS} steps of {SEED_BATCH} and one eval batch in {seconds!r} s; final train "
+        f"losses {out['final_train_loss'].tolist()}, eval AUROC {out['eval_auroc'].tolist()}; "
+        f"seed 1 alone bit for bit its multi-seed loss and AUROC; launches counted "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def sweep_trial(config: dict) -> dict:
+    """A sweep trial in a spawned worker: the flagship (bf16 compute, no
+    sorted feature) from a fresh state on the card, SWEEP_STEPS steps of
+    SWEEP_BATCH at the config's rates, then the eval of two batches; the
+    metrics with the worker's kernel launches, card and pid."""
+    dev = torch.device("cuda", 0)
+    cfg, _ = flagship_bce()
+    tcfg = cfg_lib.TrainConfig(batch_size=SWEEP_BATCH, block_sorted_kernel="bfloat16",
+                               learning_rate=config["lr"],
+                               sparse_learning_rate=config["sparse_lr"])
+    ds = SyntheticClickstream(NUM_USERS - 1, NUM_ITEMS - 1, seed=8)
+    feat = Featurizer(cfg, device=dev)
+    state, dense_opt = step_lib.create_train_state(torch.Generator(device=dev).manual_seed(0),
+                                                   cfg, tcfg)
+    step = step_lib.make_train_step(cfg, tcfg, dense_opt)
+    reset_launches()
+    for cols in ds.batches(SWEEP_BATCH, SWEEP_STEPS, split="train"):
+        state, _ = step(state, feat(cols))
+    metrics = evaluate(state, step_lib.make_eval_step(cfg, tcfg),
+                       ds.batches(SWEEP_BATCH, 2, split="val"), Featurizer(cfg, device="cpu"))
+    torch.cuda.synchronize()
+    return {**metrics, "launches": read_launches(), "device": torch.cuda.get_device_name(0),
+            "pid": os.getpid()}
+
+
+def phase_sweep(dev: torch.device) -> dict[str, int]:
+    """`[sweep]` `run_sweep` random (3 trials) and `run_adaptive_sweep` TPE
+    (4 trials, 2 random first) over `sweep_trial`, each with max_workers=2:
+    worker processes started by spawn, each trial on the card. Every trial
+    must complete on this card in a process other than this one, with a
+    finite val_loss and its BCE launches (a step's, SWEEP_STEPS times, plus
+    2 gathers and 2 tower_fwd an eval batch); the launches the workers
+    report are the path's."""
+    from two_tower_recommender_model_tpu_torch.tuning import Choice, LogUniform, run_sweep
+    from two_tower_recommender_model_tpu_torch.tuning.adaptive import run_adaptive_sweep
+
+    space = {"lr": LogUniform(1e-4, 1e-2), "sparse_lr": LogUniform(1e-3, 2e-1),
+             "batch": Choice((SWEEP_BATCH,))}
+    cfg, _ = flagship_bce()
+    per_trial = {k: v * SWEEP_STEPS for k, v in BCE_F32.items()}
+    per_trial["pooled_gather"] += 2 * 2
+    per_trial["tower_fwd"] += tower_fwd_launches(cfg, [SWEEP_BATCH] * 2)
+    launches = {name: 0 for name in KERNELS}
+    for search, n in (("random", 3), ("tpe", 4)):
+        t0 = time.perf_counter()
+        if search == "random":
+            res = run_sweep(sweep_trial, space, num_trials=n, metric="val_loss", seed=0,
+                            max_workers=2)
+        else:
+            res = run_adaptive_sweep(sweep_trial, space, num_trials=n, metric="val_loss",
+                                     seed=0, max_workers=2, n_startup=2)
+        seconds = time.perf_counter() - t0
+        done = res.completed()
+        if len(done) != n or any(t.error for t in res.trials):
+            raise AssertionError(f"[sweep] {search}: {[t.error for t in res.trials]}")
+        for t in done:
+            made = {k: v for k, v in t.metrics["launches"].items() if v}
+            if (t.metrics["device"] != torch.cuda.get_device_name(0) or made != per_trial
+                    or t.metrics["pid"] == os.getpid()
+                    or not np.isfinite(t.metrics["val_loss"])):
+                raise AssertionError(f"[sweep] {search} trial {t.index}: {t.metrics}")
+            for k, v in made.items():
+                launches[k] += v
+        pids = sorted({t.metrics["pid"] for t in done})
+        log(f"[sweep] {card_line()}: {search}, {n} trials of the flagship ({SWEEP_STEPS} steps "
+            f"of {SWEEP_BATCH}, bf16 compute) over 2 spawned workers (pids {pids}) in "
+            f"{seconds!r} s; ranked val_loss "
+            f"{[round(t.metrics['val_loss'], 6) for t in res.ranked()]}; best {res.best().config}; "
+            f"each trial's launches {per_trial}")
+    return launches
+
+
+PARQUET_ROWS_PER_FILE = 50_000
+
+
+def phase_parquet_text(work: str, model_dir: str) -> tuple[dict[str, int], dict[str, int]]:
+    """`[batch-predict-parquet]` and `[text-features]` in a child process
+    (`chip_smoke.py --child parquet-text`: pandas and pyarrow load there,
+    not here); returns the launches each reported."""
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--child", "parquet-text", "--work", work,
+         "--model-dir", model_dir], cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    for line in child.stdout.splitlines():
+        if not line.startswith("CHILD "):
+            log(line)
+    if child.returncode != 0:
+        raise AssertionError(f"[parquet-text] the child failed:\n{child.stderr[-4000:]}")
+    result = json.loads([line for line in child.stdout.splitlines()
+                         if line.startswith("CHILD ")][-1][len("CHILD "):])
+    log(f"[parquet-text] child process {time.perf_counter() - t0!r} s")
+    return result["batch-predict-parquet"], result["text-features"]
+
+
+def child_parquet_text(work: str, model_dir: str) -> None:
+    """The child of `phase_parquet_text`, on the card:
+    - `[batch-predict-parquet]`: the smoke test split (raw columns, from
+      `[batch-predict]`) written by `write_parquet_dataset`, then
+      `batch_predict(input_format="parquet")` with the Production model
+      (`model_dir`, its export),
+      8,192 rows a batch (counted: 2 gathers a batch, tower_fwd as a bf16
+      predict of its rows): the rows in order and each prediction bit for
+      bit the TTRS route's (`[batch-predict]`'s output) on the same rows;
+    - `[text-features]`: the text-side-features example at its default size
+      (2,000 users, 500 items, 200 steps of 1,024; text vectors of 32 as the
+      candidate tower's dense input) on the card (counted), recall@10 above
+      2 x random (the example's bar: over initial draws it spans 0.05-0.13,
+      in either package).
+    Prints its launches as one `CHILD {json}` line."""
+    from two_tower_recommender_model_tpu_torch.data.parquet import write_parquet_dataset
+    from two_tower_recommender_model_tpu_torch.examples import text_side_features
+
+    dev = torch.device("cuda", 0)
+    scorer = load_scorer(model_dir, device=dev)  # the Production version's export
+    src = ShardedDataset(os.path.join(work, "shards-raw", "test"))
+    cols = {k: np.concatenate([src.read_shard(i)[k] for i in range(src.num_shards)])
+            for k in src.schema()}
+    rows = len(cols["user_id"])
+    t0 = time.perf_counter()
+    files = write_parquet_dataset(os.path.join(work, "parquet"), cols,
+                                  rows_per_file=PARQUET_ROWS_PER_FILE)
+    t_write = time.perf_counter() - t0
+    out_dir = os.path.join(work, "scored-parquet")
+    reset_launches()
+    t0 = time.perf_counter()
+    index = batch_predict(scorer, os.path.join(work, "parquet"), out_dir, batch_size=8192,
+                          input_format="parquet")
+    seconds = time.perf_counter() - t0
+    parquet_launches = read_launches()
+    sizes = [min(8192, rows - i) for i in range(0, rows, 8192)]
+    want = {"pooled_gather": 2 * len(sizes)}
+    fused = tower_fwd_launches(scorer.model.cfg, sizes)
+    if fused:
+        want["tower_fwd"] = fused
+    if {k: v for k, v in parquet_launches.items() if v} != want or index["total_rows"] != rows:
+        raise AssertionError(f"[batch-predict-parquet] launches {parquet_launches} for "
+                             f"{len(sizes)} batches, {index['total_rows']} rows of {rows}")
+    scored, ttrs = ShardedDataset(out_dir), ShardedDataset(os.path.join(work, "scored"))
+    got = {k: np.concatenate([scored.read_shard(i)[k] for i in range(scored.num_shards)])
+           for k in scored.schema()}
+    ttrs_pred = np.concatenate([ttrs.read_shard(i)["prediction"] for i in range(ttrs.num_shards)])
+    for k, v in cols.items():
+        np.testing.assert_array_equal(got[k], v)
+    if not np.array_equal(got["prediction"], ttrs_pred):
+        raise AssertionError("[batch-predict-parquet] predictions differ from the TTRS route's")
+    log(f"[batch-predict-parquet] {card_line()}: {rows} test rows written as {len(files)} parquet "
+        f"files in {t_write!r} s, scored through input_format='parquet' in {len(sizes)} batches "
+        f"in {seconds!r} s (rows_per_s={rows / seconds!r}); rows in order, predictions bit for "
+        f"bit the TTRS route's; launches counted "
+        f"{ {k: v for k, v in parquet_launches.items() if v} }")
+    reset_launches()
+    t0 = time.perf_counter()
+    out = text_side_features.main(device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    text_launches = read_launches()
+    if not out["recall_at_10"] > 2 * 10 / 500 or not text_launches["pooled_gather"]:
+        raise AssertionError(f"[text-features] {out}, launches {text_launches}")
+    log(f"[text-features] {card_line()}: the text-side-features example (2,000 users, 500 "
+        f"items, 200 steps of 1,024, text vectors of 32 in the candidate tower) in {seconds!r} "
+        f"s: loss {out['loss']!r}, recall@10 {out['recall_at_10']!r} (random 0.02, the bar "
+        f"0.04); launches counted { {k: v for k, v in text_launches.items() if v} }")
+    print("CHILD " + json.dumps({"batch-predict-parquet": parquet_launches,
+                                 "text-features": text_launches}), flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also trace the direct calls with torch.profiler and print "
                              "device busy time, idle share and the largest device items")
+    parser.add_argument("--child", choices=["parquet-text"], help=argparse.SUPPRESS)
+    parser.add_argument("--work", help=argparse.SUPPRESS)
+    parser.add_argument("--model-dir", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    if args.child == "parquet-text":  # a phase's child process (see phase_parquet_text)
+        child_parquet_text(args.work, args.model_dir)
+        return 0
     dev = torch.device("cuda", 0)
     log(card_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
@@ -3867,6 +4458,8 @@ def main() -> int:
         stats["rowwise_adagrad"]["max_abs_err"],
         stats.pop("rowwise_adagrad on skewed ids")["max_abs_err"])
     phase_adagrad_bf16_table(dev)
+    phase_bf16_buffer_kernels(dev)
+    phase_aggregate_perm_kernel(dev)
     serve = phase_serve(dev, args.profile)
     batches = flagship_batches(dev)
     first = (batches[0][:POOL], batches[1])  # the earlier phases' pool
@@ -3882,6 +4475,7 @@ def main() -> int:
     paths["learn-int8"] = phase_learn(dev, "int8")
     paths["probe"] = phase_probe(dev)
     paths.update(phase_train_graphs(dev, args.profile, batches[0]))
+    paths.update(phase_train_bf16buf(dev, args.profile, batches[0]))
     paths["train-compact"] = phase_train_compact(dev, args.profile)
     paths["train-skew"] = phase_train_skew(dev, args.profile)
     paths["learn-packed"] = phase_learn_packed(dev)
@@ -3902,9 +4496,14 @@ def main() -> int:
         paths["registry"], scorer, production = phase_registry(dev, work, pipeline, runs)
         paths["batch-predict"] = phase_batch_predict(work, scorer)
         phase_per_user_table(work, production)
+        paths["batch-predict-parquet"], paths["text-features"] = phase_parquet_text(
+            work, production)
         paths["profile-trace"] = phase_profile_trace(dev, work, pipeline, runs["float32"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    paths["ranker"] = phase_ranker(dev)
+    paths["multi-seed"] = phase_multi_seed(dev)
+    paths["sweep"] = phase_sweep(dev)
     torch.cuda.synchronize()
     leaked = [m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "optax", "two_tower_recommender_model_tpu", "pandas", "pyarrow")]

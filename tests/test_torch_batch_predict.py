@@ -95,9 +95,12 @@ def test_batch_predict_keeps_the_named_columns_and_scores_batch_by_batch(scored,
         scorer.predict({k: v[i:i + 1_024] for k, v in cols.items()})
         for i in range(0, ROWS, 1_024)])
     np.testing.assert_array_equal(got["prediction"], want)
-    # the unfinished parquet route and unknown formats are refused
-    with pytest.raises(NotImplementedError, match="ROADMAP.*M13"):
-        batch_predict(scorer, "d", str(tmp_path / "p"), input_format="parquet")
+    # parquet input from a path with no parquet files, and unknown formats, are refused
+    # (the parquet route itself: tests/test_torch_parquet_text.py)
+    (tmp_path / "empty").mkdir()
+    with pytest.raises(FileNotFoundError, match="no parquet files"):
+        batch_predict(scorer, str(tmp_path / "empty"), str(tmp_path / "p"),
+                      input_format="parquet")
     with pytest.raises(ValueError, match="input_format"):
         batch_predict(scorer, "d", str(tmp_path / "p"), input_format="csv")
 

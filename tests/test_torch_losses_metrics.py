@@ -37,6 +37,27 @@ def test_bce_matches_jax(weighted):
         jnp.asarray(logits), jnp.asarray(labels))), **F32)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bce_gradient_matches_jax_at_a_zero_logit(dtype):
+    """The gradient of the mean BCE, with some logits exactly 0 (frequent in
+    bf16): the reference's there, bit for bit (its `jnp.maximum(logits, 0)`
+    passes no gradient at the tie); the rest within the dtype's rounding."""
+    import jax
+
+    logits, labels, _ = _logits(64, seed=1)
+    logits[::5] = 0.0
+    jl = jnp.asarray(logits).astype(dtype)
+    want = jax.grad(lambda x: jax_losses.bce_with_logits(x, jnp.asarray(labels)))(jl)
+    want = np.asarray(want.astype(jnp.float32))
+    x = torch.from_numpy(logits).to(getattr(torch, dtype)).requires_grad_(True)
+    losses.bce_with_logits(x, torch.from_numpy(labels)).backward()
+    got = x.grad.float().numpy()
+    zero = logits == 0.0
+    np.testing.assert_array_equal(got[zero], want[zero])
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=(1e-7 if dtype == "float32" else 2.0 ** -8) / 64)
+
+
 def test_weighted_bce_and_loss_fns_match_jax():
     rng = np.random.default_rng(1)
     n, d = 64, 8

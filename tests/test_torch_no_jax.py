@@ -54,7 +54,12 @@ for name in ("train.step", "train.loop", "train.pipeline", "train.optimizer",
              "cli.fetch_instacart", "cli.prepare_instacart", "cli.train",
              "cli.evaluate_retrieval", "cli.instacart_pipeline", "train.resilient",
              "utils.registry", "utils.profiling", "serving.batch", "data.compact",
-             "data.wirecache", "data.device_pool", "ops.relu_ties", "ops.tower_fwd"):
+             "data.wirecache", "data.device_pool", "ops.relu_ties", "ops.tower_fwd",
+             "models.concat_mlp", "tuning", "tuning.sweep", "tuning.adaptive",
+             "tuning.multi_seed", "data.parquet", "data.text_features", "examples",
+             "examples.end_to_end_instacart_style", "examples.full_scale_synthetic",
+             "examples.sweep_example", "examples.text_side_features",
+             "examples.tune_retrieval_smoke", "examples.workshop_ratings_style"):
     assert pkg.__name__ + "." + name in names, name
 print(len(names))
 """
@@ -103,7 +108,8 @@ _CARD_TESTS = ["tests/test_torch_embedding_cuda.py", "tests/test_torch_train_cud
                "tests/test_torch_softmax_cuda.py", "tests/test_torch_quantized_cuda.py",
                "tests/test_torch_device_default.py", "tests/test_torch_probe_cuda.py",
                "tests/test_torch_graph_cuda.py", "tests/test_torch_checkpoint_cuda.py",
-               "tests/test_torch_compact_cuda.py", "tests/test_torch_tower_fwd_cuda.py"]
+               "tests/test_torch_compact_cuda.py", "tests/test_torch_tower_fwd_cuda.py",
+               "tests/test_torch_scatter_buffer_cuda.py", "tests/test_torch_ranker_cuda.py"]
 
 
 def test_every_card_test_file_is_listed():

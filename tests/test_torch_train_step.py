@@ -283,7 +283,6 @@ def test_unsorted_ids_for_the_sorted_table_are_refused():
 
 @pytest.mark.parametrize("make", [
     lambda m, t: ({}, "packed sharding"),
-    lambda m, t: ({"t": dataclasses.replace(t, scatter_buffer_dtype="bfloat16")}, "step"),
     lambda m, t: ({"t": dataclasses.replace(t, device_sorted_gather=True)}, "step"),
     lambda m, t: ({"t": dataclasses.replace(t, loss="sampled_softmax")}, "sharded loss"),
 ])

@@ -31,6 +31,11 @@
 //   - a row that no live id names, or whose summed gradient is exactly zero
 //     in every column, keeps its exact bytes, scale and accumulator:
 //     requantizing is not idempotent, so such a row is not written at all;
+//   - buffer_dtype kBF16 (`scatter_buffer_dtype="bfloat16"` on the sorted
+//     table): g_r is the reference's bf16 buffer, each run summed in
+//     position order with a rounding to bf16 after every add
+//     (sorted_runs.cuh), and every named row is written, also one whose sum
+//     is zero, as the reference's masked dense update does;
 //   - the rounding: the division by 127 (and by the new scale) is a true
 //     division and the product a separate multiply, as the plain version
 //     computes them; round-half-to-even (rintf), then the clamp.
@@ -105,6 +110,7 @@ struct QuantizedUpdate {
   float* scales;
   float* acc;
   float lr, eps;
+  bool named;  // write every named row, also one whose sum is zero (the bf16 buffer)
 
   // The table row r as this lane's chunks of int8 values, its scale and its
   // accumulator.
@@ -129,7 +135,7 @@ struct QuantizedUpdate {
   }
 
   // The update of row r from its summed gradient g and the row as it was. A
-  // sum that is zero in every column writes nothing.
+  // sum that is zero in every column writes nothing, unless `named`.
   template <int V, int NC>
   __device__ __forceinline__ void apply(int32_t r, float (&g)[NC][V], const Row<V, NC>& t,
                                         int64_t d) const {
@@ -143,7 +149,7 @@ struct QuantizedUpdate {
       }
     // an all-zero sum: the row keeps its bytes (every lane takes part in the ballot)
     const unsigned any = (__ballot_sync(kFullWarp, nonzero) >> (kLanes * half)) & 0xffffu;
-    const bool write = r >= 0 && any != 0;
+    const bool write = r >= 0 && (named || any != 0);
     const float sum = half_sum_squares<V, NC>(g, d, hl);
     const float new_acc = t.acc + sum / static_cast<float>(d);
     const float denom = sqrtf(new_acc) + eps;
@@ -184,28 +190,30 @@ extern "C" {
 
 // Returns a cudaError_t code: 0 on a successful launch. n_slots is the length
 // of part_id (part holds n_slots rows of D): at least 2 * ceil(M / 32).
+// buffer_dtype: kF32, or kBF16 for the bf16 buffer (sorted_runs.cuh), which
+// also writes every named row.
 int ttrm_quantized_adagrad(void* values, void* scales, void* acc, const void* ids,
                            const void* grads, int grad_dtype, const void* perm, void* part,
                            void* part_id, int64_t n_slots, int64_t n_rows, int64_t d, int64_t m,
-                           float lr, float eps, void* stream) {
+                           float lr, float eps, int buffer_dtype, void* stream) {
   if (m <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
   Walk p;
   if (!make_walk(ids, grads, perm, part, part_id, n_slots, n_rows, d, m, &p) ||
       !aligned(values, 4))
     return static_cast<int>(cudaErrorInvalidValue);
   const QuantizedUpdate epi{static_cast<int8_t*>(values), static_cast<float*>(scales),
-                            static_cast<float*>(acc), lr, eps};
+                            static_cast<float*>(acc), lr, eps, buffer_dtype == kBF16};
   const auto s = static_cast<cudaStream_t>(stream);
   if (grad_dtype == kF32) {
     if (!aligned(grads, 16)) return static_cast<int>(cudaErrorMisalignedAddress);
-    return launch_walk<float, 4>(p, epi, s);
+    return launch_walk<float, 4>(p, epi, buffer_dtype, s);
   }
   if (grad_dtype == kBF16) {
     if (!aligned(grads, 8)) return static_cast<int>(cudaErrorMisalignedAddress);
     // 16-byte loads (and 8-byte int8 chunks) where the rows' alignment allows them
     if (d % 8 == 0 && aligned(grads, 16) && aligned(values, 8))
-      return launch_walk<uint16_t, 8>(p, epi, s);
-    return launch_walk<uint16_t, 4>(p, epi, s);
+      return launch_walk<uint16_t, 8>(p, epi, buffer_dtype, s);
+    return launch_walk<uint16_t, 4>(p, epi, buffer_dtype, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -38,6 +38,11 @@
 //     the span walk's scratch, allocated by the wrapper on the caller's
 //     stream (so a CUDA graph captures it).
 //   Rows that no live id names keep their exact bits.
+//   - buffer_dtype kBF16 (`scatter_buffer_dtype="bfloat16"` on the sorted
+//     table): g_r is the reference's bf16 buffer instead, each run summed in
+//     position order with a rounding to bf16 after every add
+//     (sorted_runs.cuh: long runs walked whole by pass 2); the epilogue is
+//     the same.
 //
 // What bounds it: memory. Each id reads its D-wide gradient row (512 B f32,
 // 256 B bf16 at D = 128) and each distinct row reads and writes its table row
@@ -217,16 +222,16 @@ struct AggregateStore {
 // columns, `rows_align16`) allow them, else 8-byte loads.
 template <typename E>
 int launch_for_grads(const Walk& p, const E& epi, int grad_dtype, bool rows_align16,
-                     cudaStream_t s) {
+                     int buffer_dtype, cudaStream_t s) {
   if (grad_dtype == kF32) {
     if (!aligned(p.grads, 16)) return static_cast<int>(cudaErrorMisalignedAddress);
-    return launch_walk<float, 4>(p, epi, s);
+    return launch_walk<float, 4>(p, epi, buffer_dtype, s);
   }
   if (grad_dtype == kBF16) {
     if (!aligned(p.grads, 8)) return static_cast<int>(cudaErrorMisalignedAddress);
     if (p.d % 8 == 0 && aligned(p.grads, 16) && rows_align16)
-      return launch_walk<uint16_t, 8>(p, epi, s);
-    return launch_walk<uint16_t, 4>(p, epi, s);
+      return launch_walk<uint16_t, 8>(p, epi, buffer_dtype, s);
+    return launch_walk<uint16_t, 4>(p, epi, buffer_dtype, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -237,10 +242,11 @@ extern "C" {
 
 // Returns a cudaError_t code: 0 on a successful launch. n_slots is the length
 // of part_id (part holds n_slots rows of D): at least 2 * ceil(M / 32).
+// buffer_dtype: kF32, or kBF16 for the bf16 buffer (sorted_runs.cuh).
 int ttrm_rowwise_adagrad(void* table, int table_dtype, void* acc, const void* ids,
                          const void* grads, int grad_dtype, const void* perm, void* part,
                          void* part_id, int64_t n_slots, int64_t n_rows, int64_t d, int64_t m,
-                         float lr, float eps, void* stream) {
+                         float lr, float eps, int buffer_dtype, void* stream) {
   if (m <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
   Walk p;
   if (!make_walk(ids, grads, perm, part, part_id, n_slots, n_rows, d, m, &p))
@@ -250,27 +256,28 @@ int ttrm_rowwise_adagrad(void* table, int table_dtype, void* acc, const void* id
   if (table_dtype == kF32) {
     if (!aligned(table, 16)) return static_cast<int>(cudaErrorMisalignedAddress);
     return launch_for_grads(p, AdagradUpdate<float>{static_cast<float*>(table), a, lr, eps},
-                            grad_dtype, true, s);
+                            grad_dtype, true, buffer_dtype, s);
   }
   if (table_dtype == kBF16) {
     if (!aligned(table, 8)) return static_cast<int>(cudaErrorMisalignedAddress);
     return launch_for_grads(p, AdagradUpdate<uint16_t>{static_cast<uint16_t*>(table), a, lr, eps},
-                            grad_dtype, aligned(table, 16), s);
+                            grad_dtype, aligned(table, 16), buffer_dtype, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// `out` [N, D] f32 must arrive zeroed and 16-byte aligned. Returns a
+// `out` [N, D] f32 must arrive zeroed and 16-byte aligned; perm [M] int32 or
+// null (the j-th sorted id's gradient row is grads[perm[j]]). Returns a
 // cudaError_t code.
 int ttrm_sorted_aggregate(void* out, const void* ids, const void* grads, int grad_dtype,
-                          void* part, void* part_id, int64_t n_slots, int64_t n_rows, int64_t d,
-                          int64_t m, void* stream) {
+                          const void* perm, void* part, void* part_id, int64_t n_slots,
+                          int64_t n_rows, int64_t d, int64_t m, void* stream) {
   if (m <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
   Walk p;
-  if (!make_walk(ids, grads, nullptr, part, part_id, n_slots, n_rows, d, m, &p) ||
+  if (!make_walk(ids, grads, perm, part, part_id, n_slots, n_rows, d, m, &p) ||
       !aligned(out, 16))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_for_grads(p, AggregateStore{static_cast<float*>(out)}, grad_dtype, true,
+  return launch_for_grads(p, AggregateStore{static_cast<float*>(out)}, grad_dtype, true, kF32,
                           static_cast<cudaStream_t>(stream));
 }
 

@@ -63,12 +63,35 @@
 // warp, each half-warp with its own row and r < 0 for a half-warp without
 // one, which must still take part in any shuffle or ballot.
 //
+// The bf16 buffer (template flag B16: `scatter_buffer_dtype="bfloat16"` on
+// the sorted table). The reference sums a run into a bf16 buffer, which XLA
+// does in position order with a rounding after every add:
+//   acc = bf16(f32(acc) + f32(bf16(g_j))),  acc from 0.
+// Such a sum cannot be cut into pieces summed apart: every piecewise or tree
+// order gives other bits. So in this mode a complete run is summed as above
+// (sum_rows rounds after each add), pass 1 sums no piece of a long run (it
+// only names the run's first span, part_id[2 w]), and pass 2
+// (long_runs_b16_kernel) walks each long run from its first position to its
+// last, one dependent add a row: 7 producer warps stream the run's gradient
+// rows, rounded to bf16, through a ring of 3 chunks of shared memory (of
+// up to 160 rows of D = 128, each chunk one round trip of loads; named
+// barriers FULL and EMPTY a chunk) while warp 0 adds them in order, lane l
+// holding the four columns 4 (l + 32 c) as two bf16x2 sums (__hadd2). A
+// correctly rounded bf16 add is the reference's f32 add rounded to bf16: the
+// f32 sum of two bf16 values is exact unless their exponents lie 16 or more
+// apart, and then both roundings give the larger; one instruction a pair of
+// columns in place of an f32 add, a rounding and a widening a column. A hot
+// id of 21,842 positions is so 21,842 dependent steps of one warp; the
+// producers keep two chunks ahead of it. The epilogue is the f32 mode's.
+//
 // Scratch: part [2 * ceil(M / 32), D] f32 and part_id [2 * ceil(M / 32)]
 // int32, allocated by the caller on its stream; nothing carries over between
-// calls. Both passes go to the caller's stream and allocate nothing.
+// calls (the bf16 buffer's walk uses part_id alone). Both passes go to the
+// caller's stream and allocate nothing.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -82,6 +105,16 @@ constexpr int kLanes = 16;           // lanes that hold one row: a half-warp
 constexpr int kMaxD = 512;
 constexpr int kWarpRows = 64;        // pass 2: a run of at most this many pieces is one warp's
 constexpr unsigned kFullWarp = 0xffffffffu;
+// the bf16 buffer's pass 2: a ring of kRing chunks of at most kRingRows rows
+// and kRingElems bf16 values each (dynamic shared memory), filled by the
+// block's warps but the first, each producer lane copying up to kCopies
+// words of four values a chunk at D = 128
+constexpr int kRing = 3;
+constexpr int kRingElems = 20480;
+constexpr int kRingBytes = kRing * kRingElems * 2;
+constexpr int kRingRows = 192;
+constexpr int kProducers = kThreads - 32;
+constexpr int kCopies = (kRingElems / 128 + kProducers / 32 - 1) / (kProducers / 32);
 
 // dtype codes shared with the Python wrappers
 constexpr int kF32 = 0;
@@ -134,6 +167,34 @@ __device__ __forceinline__ void add_to(float (&g)[8], const uint4& v) {
   }
 }
 
+// x rounded to bf16 (nearest even), as an f32
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The bf16 buffer's adds: acc = bf16(acc + bf16(x)); bf16 gradients are
+// exact bf16 already.
+__device__ __forceinline__ void add_round(float (&g)[4], const float4& v) {
+  g[0] = bf16r(g[0] + bf16r(v.x));
+  g[1] = bf16r(g[1] + bf16r(v.y));
+  g[2] = bf16r(g[2] + bf16r(v.z));
+  g[3] = bf16r(g[3] + bf16r(v.w));
+}
+__device__ __forceinline__ void add_round(float (&g)[4], const uint2& v) {
+  g[0] = bf16r(g[0] + lo16(v.x));
+  g[1] = bf16r(g[1] + hi16(v.x));
+  g[2] = bf16r(g[2] + lo16(v.y));
+  g[3] = bf16r(g[3] + hi16(v.y));
+}
+__device__ __forceinline__ void add_round(float (&g)[8], const uint4& v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    g[2 * i] = bf16r(g[2 * i] + lo16(w[i]));
+    g[2 * i + 1] = bf16r(g[2 * i + 1] + hi16(w[i]));
+  }
+}
+
 // The first column of chunk c of lane hl of a 16-lane row: V columns each,
 // the 16 lanes' chunks side by side.
 template <int V>
@@ -176,7 +237,8 @@ __device__ __forceinline__ float half_sum_squares(const float (&g)[NC][V], int64
 // g = the gradient rows of window positions [b, e) added in position order
 // (src: their source rows), this lane's chunks: groups of U rows whose loads
 // are all issued before the first add, so a short run is one round trip.
-template <typename G, int V, int NC>
+// B16: each add rounded to bf16 (the bf16 buffer).
+template <typename G, int V, int NC, bool B16 = false>
 __device__ __forceinline__ void sum_rows(const Walk& p, const int* src, int b, int e, int hl,
                                          float (&g)[NC][V]) {
   using VT = typename Vec<G, V>::T;
@@ -203,7 +265,12 @@ __device__ __forceinline__ void sum_rows(const Walk& p, const int* src, int b, i
       if (k + u < e) {
 #pragma unroll
         for (int c = 0; c < NC; ++c)
-          if (col_of<V>(c, hl) < d) add_to(g[c], raw[u][c]);
+          if (col_of<V>(c, hl) < d) {
+            if constexpr (B16)
+              add_round(g[c], raw[u][c]);
+            else
+              add_to(g[c], raw[u][c]);
+          }
       }
   }
 }
@@ -239,7 +306,7 @@ __device__ __forceinline__ void store_piece(const Walk& p, const int* src, int b
 }
 
 // Pass 1: each warp's span of sorted positions (see the header).
-template <typename G, int V, int NC, typename E>
+template <typename G, int V, int NC, bool B16, typename E>
 __global__ void __launch_bounds__(kThreads) span_runs_kernel(const Walk p, const E epi) {
   __shared__ int s_ids[kWarps][kWindow + 1];  // ids of window positions 0 .. 64
   __shared__ int s_src[kWarps][kWindow];      // their gradient rows
@@ -277,7 +344,9 @@ __global__ void __launch_bounds__(kThreads) span_runs_kernel(const Walk p, const
   // the last run is long when no change follows it up to and including position 64
   const bool long_run = last >= 0 && (change >> (last + 1)) == 0 && !change_at_end;
   const bool later_piece = w >= 2 && !(lo & 1u) && (live & 1u) && back == ids[0];
-  if (share == 0) {  // the pieces of long runs: the span's first warp
+  if (B16) {  // a long run is named for pass 2, which sums it whole
+    if (share == 0 && lane == 0) p.part_id[2 * w] = long_run ? ids[last] : -1;
+  } else if (share == 0) {  // the pieces of long runs: the span's first warp
     if (lane == 0) {
       if (!long_run) p.part_id[2 * w] = -1;
       if (!later_piece) p.part_id[2 * w + 1] = -1;
@@ -312,7 +381,7 @@ __global__ void __launch_bounds__(kThreads) span_runs_kernel(const Walk p, const
     }
     const auto t = epi.template load<V, NC>(r, hl, p.d);
     float g[NC][V];
-    sum_rows<G, V, NC>(p, src, b, e, hl, g);
+    sum_rows<G, V, NC, B16>(p, src, b, e, hl, g);
     epi.template apply<V, NC>(r, g, t, p.d);
   }
 }
@@ -467,26 +536,245 @@ __global__ void __launch_bounds__(kThreads) long_runs_kernel(const Walk p, const
   }
 }
 
+// acc += four bf16 values (a word of two bf16x2 pairs), as two correctly
+// rounded bf16x2 adds
+__device__ __forceinline__ void add_pair(__nv_bfloat162 (&acc)[2], const uint2& w) {
+  acc[0] = __hadd2(acc[0], *reinterpret_cast<const __nv_bfloat162*>(&w.x));
+  acc[1] = __hadd2(acc[1], *reinterpret_cast<const __nv_bfloat162*>(&w.y));
+}
+
+// Named barriers of the bf16 buffer's pass 2 (0 is __syncthreads'): chunk
+// b of the ring is full (the producers arrive, warp 0 waits) and empty (warp
+// 0 arrives, the producers wait); the producers' own.
+__device__ __forceinline__ int bar_full(int b) { return 1 + b; }
+__device__ __forceinline__ int bar_empty(int b) { return 1 + kRing + b; }
+constexpr int kBarProducers = 1 + 2 * kRing;
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// Four gradient values of a source row, rounded to bf16, as raw bf16 pairs.
+__device__ __forceinline__ uint32_t bf16_pair_bits(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // one packed conversion
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ uint2 four_bf16(const float* row) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(row));
+  return make_uint2(bf16_pair_bits(v.x, v.y), bf16_pair_bits(v.z, v.w));
+}
+__device__ __forceinline__ uint2 four_bf16(const uint16_t* row) {
+  return __ldg(reinterpret_cast<const uint2*>(row));
+}
+
+// Pass 2 of the bf16 buffer: the long runs whose first span lies in the
+// block's 32 spans, one at a time, each summed in position order with a
+// rounding after every add (see the header). Warp 0 adds; warps 1-7 fill the
+// ring: for chunk k of a run, positions [start + k R, start + (k + 1) R),
+// producer t < R reads position t's id and source row (one chunk ahead), a
+// row of the run gets src >= 0 in s_src, the others -1 (the ids are sorted,
+// so the run's rows are a prefix of the chunk); then the producers copy the
+// run's rows, four values a thread, rounded to bf16, into the chunk. A
+// chunk whose last row is not the run's is the run's last. Every chunk warp
+// 0 empties is waited for once by the producers: before they refill it, or
+// after the run's last chunk.
 template <typename G, int V, int NC, typename E>
+__global__ void __launch_bounds__(kThreads) long_runs_b16_kernel(const Walk p, const E epi) {
+  constexpr int NC4 = (NC * kLanes * V + 127) / 128;  // float4 chunks of 32 lanes a row
+  extern __shared__ __align__(16) uint16_t s_ring[];  // kRing chunks of kRingElems
+  uint16_t(*s_g)[kRingElems] = reinterpret_cast<uint16_t(*)[kRingElems]>(s_ring);
+  __shared__ int s_src[kRing][kRingRows];
+  __shared__ __align__(16) float s_sum[kMaxD];
+  __shared__ unsigned s_heads;
+  __shared__ int64_t s_start;
+  const int wib = threadIdx.x >> 5, lane = threadIdx.x & 31, half = lane >> 4, hl = lane & 15;
+  const int64_t w_base = static_cast<int64_t>(blockIdx.x) * 32;
+  const int64_t d = p.d;
+  if (wib == 0) {
+    const int64_t w = w_base + lane;
+    const unsigned heads = __ballot_sync(kFullWarp, w < p.n_spans && p.part_id[2 * w] >= 0);
+    if (lane == 0) s_heads = heads;
+  }
+  __syncthreads();
+  const unsigned heads = s_heads;
+  if (heads == 0) return;  // uniform across the block
+  const int rows = static_cast<int>(kRingElems / d < kRingRows ? kRingElems / d : kRingRows);
+
+  for (unsigned rest = heads; rest; rest &= rest - 1) {
+    const int64_t w0 = w_base + __ffs(rest) - 1;
+    const int32_t r = p.part_id[2 * w0];
+    if (wib == 0) {  // the run starts at its first position in span w0
+      const int64_t pos = w0 * kSpan + lane;
+      const unsigned in_run = __ballot_sync(kFullWarp, pos < p.m && __ldg(p.ids + pos) == r);
+      if (lane == 0) s_start = w0 * kSpan + __ffs(in_run) - 1;
+    }
+    __syncthreads();
+    const int64_t start = s_start;
+
+    if (wib == 0) {  // the adds, one row at a time, two columns an instruction
+      constexpr int kAhead = 8;  // rows whose shared-memory loads go out before their adds
+      const int stride = static_cast<int>(d / 4);  // a row's 8-byte words
+      bool on[NC4];
+      __nv_bfloat162 s[NC4][2];
+#pragma unroll
+      for (int c = 0; c < NC4; ++c) {
+        on[c] = (c * 32 + lane) * 4 < d;
+        s[c][0] = s[c][1] = __float2bfloat162_rn(0.f);
+      }
+      for (int k = 0;; ++k) {
+        const int b = k % kRing;
+        bar_sync(bar_full(b), kThreads);
+        int n = 0;  // the run's rows in the chunk: a prefix
+        for (int j0 = 0; j0 < rows; j0 += 32) {
+          const bool in_run = j0 + lane < rows && s_src[b][j0 + lane] >= 0;
+          const int c = __popc(__ballot_sync(kFullWarp, in_run));
+          n += c;
+          if (c < 32) break;
+        }
+        // lane's four columns of row j of the chunk: words[j * stride + 32 c]
+        const uint2* words = reinterpret_cast<const uint2*>(s_g[b]) + lane;
+        int j = 0;
+        for (; j + kAhead <= n; j += kAhead) {  // kAhead rows' loads, then their adds
+          uint2 v[kAhead][NC4];
+#pragma unroll
+          for (int u = 0; u < kAhead; ++u)
+#pragma unroll
+            for (int c = 0; c < NC4; ++c)
+              if (on[c]) v[u][c] = words[(j + u) * stride + 32 * c];
+#pragma unroll
+          for (int u = 0; u < kAhead; ++u)
+#pragma unroll
+            for (int c = 0; c < NC4; ++c)
+              if (on[c]) add_pair(s[c], v[u][c]);
+        }
+        for (; j < n; ++j)
+#pragma unroll
+          for (int c = 0; c < NC4; ++c)
+            if (on[c]) add_pair(s[c], words[j * stride + 32 * c]);
+        bar_arrive(bar_empty(b), kThreads);
+        if (n < rows) break;
+      }
+#pragma unroll
+      for (int c = 0; c < NC4; ++c) {
+        const int col = (c * 32 + lane) * 4;
+        if (col < d)
+          *reinterpret_cast<float4*>(s_sum + col) =
+              make_float4(__low2float(s[c][0]), __high2float(s[c][0]), __low2float(s[c][1]),
+                          __high2float(s[c][1]));
+      }
+      __syncwarp();
+      const int32_t mine = half == 0 ? r : -1;  // half-warp 0 applies the epilogue
+      const auto t = epi.template load<V, NC>(mine, hl, d);
+      float g[NC][V];
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          g[c][i] = col_of<V>(c, hl) < d ? s_sum[col_of<V>(c, hl) + i] : 0.f;
+      epi.template apply<V, NC>(mine, g, t, d);
+    } else {  // the producers
+      const int t = threadIdx.x - 32;
+      // position t of chunk k: its id and source row, loaded with no wait on them
+      auto load = [&](int k, int& id, int& sr) {
+        const int64_t pos = start + static_cast<int64_t>(k) * rows + t;
+        id = -1;
+        sr = 0;
+        if (t < rows && pos < p.m) {
+          id = __ldg(p.ids + pos);
+          sr = p.perm != nullptr ? __ldg(p.perm + pos) : static_cast<int>(pos);
+        }
+      };
+      constexpr int kPW = kProducers / 32, kU = kCopies;  // producer warps; rows a batch
+      const int pw = wib - 1;
+      const G* grads = static_cast<const G*>(p.grads);
+      int id, sr;
+      load(0, id, sr);
+      int k = 0;
+      for (;; ++k) {
+        const int b = k % kRing;
+        int next_id, next_sr;
+        load(k + 1, next_id, next_sr);  // in flight while this chunk fills
+        if (k >= kRing) bar_sync(bar_empty(b), kThreads);
+        if (t < rows) s_src[b][t] = id == r ? sr : -1;
+        bar_sync(kBarProducers, kProducers);
+        // producer warp pw copies rows pw, pw + 7, ...: a lane the units lane,
+        // lane + 32, ... of each; kU rows' addresses first, then their loads with no
+        // branch between them (a row outside the run loads row 0 and stores
+        // nothing), then the stores
+        for (int row0 = pw; row0 < rows; row0 += kU * kPW)
+          for (int col = lane * 4; col < d; col += 128) {
+            const G* from[kU];
+            int off[kU];
+#pragma unroll
+            for (int i = 0; i < kU; ++i) {
+              const int row = row0 + i * kPW;
+              const int src = row < rows ? s_src[b][row] : -1;
+              off[i] = src >= 0 ? row * static_cast<int>(d) + col : -1;
+              from[i] = grads + static_cast<int64_t>(src >= 0 ? src : 0) * d + col;
+            }
+            uint2 v[kU];
+#pragma unroll
+            for (int i = 0; i < kU; ++i) v[i] = four_bf16(from[i]);
+#pragma unroll
+            for (int i = 0; i < kU; ++i)
+              if (off[i] >= 0) *reinterpret_cast<uint2*>(s_g[b] + off[i]) = v[i];
+          }
+        const bool last = s_src[b][rows - 1] < 0;
+        __threadfence_block();
+        bar_arrive(bar_full(b), kThreads);
+        if (last) break;
+        id = next_id;
+        sr = next_sr;
+      }
+      // the chunks warp 0 empties that no refill waited for: the last kRing
+      for (int j = k - kRing + 1 > 0 ? k - kRing + 1 : 0; j <= k; ++j)
+        bar_sync(bar_empty(j % kRing), kThreads);
+    }
+    __syncthreads();  // s_src, s_g and s_sum are free for the next run
+  }
+}
+
+template <typename G, int V, int NC, bool B16, typename E>
 int launch_passes(const Walk& p, const E& epi, cudaStream_t s) {
   const unsigned blocks1 = static_cast<unsigned>((p.n_spans * p.split + kWarps - 1) / kWarps);
-  span_runs_kernel<G, V, NC, E><<<blocks1, kThreads, 0, s>>>(p, epi);
+  span_runs_kernel<G, V, NC, B16, E><<<blocks1, kThreads, 0, s>>>(p, epi);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks2 = static_cast<unsigned>((p.n_spans + 31) / 32);
-  long_runs_kernel<V, NC, E><<<blocks2, kThreads, 0, s>>>(p, epi);
+  if constexpr (B16) {
+    static bool ring_set = false;  // the ring's shared memory, allowed once an instantiation
+    if (!ring_set) {
+      const cudaError_t set = cudaFuncSetAttribute(
+          long_runs_b16_kernel<G, V, NC, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kRingBytes);
+      if (set != cudaSuccess) return static_cast<int>(set);
+      ring_set = true;
+    }
+    long_runs_b16_kernel<G, V, NC, E><<<blocks2, kThreads, kRingBytes, s>>>(p, epi);
+  } else
+    long_runs_kernel<V, NC, E><<<blocks2, kThreads, 0, s>>>(p, epi);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Both passes at the instantiation for D: NC chunks of 16 lanes x V columns
-// cover the row. Returns a cudaError_t code.
-template <typename G, int V, typename E>
+// cover the row; B16 for the bf16 buffer. Returns a cudaError_t code.
+template <typename G, int V, bool B16, typename E>
 int launch_walk(const Walk& p, const E& epi, cudaStream_t s) {
   const int64_t nc = (p.d + kLanes * V - 1) / (kLanes * V);
-  if (nc <= 1) return launch_passes<G, V, 1>(p, epi, s);
-  if (nc <= 2) return launch_passes<G, V, 2>(p, epi, s);
-  if (nc <= 4) return launch_passes<G, V, 4>(p, epi, s);
-  if constexpr (V == 4) return launch_passes<G, V, 8>(p, epi, s);
+  if (nc <= 1) return launch_passes<G, V, 1, B16>(p, epi, s);
+  if (nc <= 2) return launch_passes<G, V, 2, B16>(p, epi, s);
+  if (nc <= 4) return launch_passes<G, V, 4, B16>(p, epi, s);
+  if constexpr (V == 4) return launch_passes<G, V, 8, B16>(p, epi, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// launch_walk with the buffer's dtype code (kF32 or kBF16) as the flag.
+template <typename G, int V, typename E>
+int launch_walk(const Walk& p, const E& epi, int buffer_dtype, cudaStream_t s) {
+  if (buffer_dtype == kF32) return launch_walk<G, V, false>(p, epi, s);
+  if (buffer_dtype == kBF16) return launch_walk<G, V, true>(p, epi, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

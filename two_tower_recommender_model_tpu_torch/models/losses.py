@@ -33,9 +33,12 @@ from two_tower_recommender_model_tpu_torch.ops.softmax_kernel import (
 
 
 def bce_per_example(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Element-wise binary cross-entropy on logits, in the stable form."""
+    """Element-wise binary cross-entropy on logits, in the stable form. The
+    max with 0 is `torch.relu`, whose gradient at 0 is 0, as the
+    reference's `jnp.maximum(logits, 0)` has it: at a logit of exactly 0
+    (frequent in bf16) the gradient is -label in both packages."""
     labels = labels.to(logits.dtype)
-    return torch.clamp(logits, min=0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
+    return torch.relu(logits) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
 
 
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,

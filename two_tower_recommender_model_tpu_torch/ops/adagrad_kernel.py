@@ -10,7 +10,12 @@ sentinels: never read, never written):
     acc[r]   += mean(g_r ** 2)
     table[r] -= lr * g_r / (sqrt(acc[r]) + eps)
 
-in place on `table` and `acc`. The table may be f32 or bf16: a bf16 row is
+in place on `table` and `acc`. With `buffer_dtype=torch.bfloat16` (the
+reference's `scatter_buffer_dtype="bfloat16"` on the host-sorted table) g_r
+is instead the reference's bf16 aggregation buffer: each run of equal ids
+summed in position order, rounded to bf16 after every add
+(`acc = bf16(f32(acc) + f32(bf16(g_j)))`, from 0; `bf16_buffer_sums`), and
+that sum widened to f32 for the update. The table may be f32 or bf16: a bf16 row is
 widened, updated with the same f32 math and rounded to nearest even once, as
 the reference's plain updates do (`new_rows.astype(table.dtype)`), and the
 accumulator stays f32. The gradients may be f32 or bf16 (bf16 is
@@ -27,9 +32,11 @@ counts its kernel launches in `rowwise_adagrad.launches`.
 `block_sorted_aggregate` is the port of the Pallas TPU kernel
 `ops/block_sorted.py:block_sorted_aggregate` (`_aggregate_kernel`): the dense
 `[N, D]` f32 sum of `grads[j]` over `ids[j] == r`, exact zeros for rows no
-live id names. Its kernel lives in the same source; the same rules hold
-(sorted ids on CUDA tensors, the plain version only on the CPU, launches
-counted in `block_sorted_aggregate.launches`).
+live id names; with `perm` the j-th id's row is `grads[perm[j]]` (the
+ranker's table gradient passes its stable device sort's permutation). Its
+kernel lives in the same source; the same rules hold (sorted ids on CUDA
+tensors, the plain version only on the CPU, launches counted in
+`block_sorted_aggregate.launches`).
 
 Both kernels (and the int8 one of `quantized_kernel.py`) walk the sorted ids
 in spans of `SPAN` positions (`csrc/sorted_runs.cuh`): a run longer than a
@@ -46,7 +53,7 @@ import torch
 
 from two_tower_recommender_model_tpu_torch.ops import _build
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # also the buffer codes
 MAX_DIM = 512  # the kernels keep a row's gradient in registers, across 16 lanes
 SPAN = 32  # sorted positions per warp of the span walk (`kSpan` in csrc/sorted_runs.cuh)
 
@@ -90,19 +97,74 @@ def _check(table, acc, ids, grads, perm) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def buffer_code(buffer_dtype: torch.dtype | None) -> int:
+    """The kernels' code of an aggregation buffer dtype: None and f32 sum in
+    f32, bf16 is the reference's bf16 buffer."""
+    if buffer_dtype is None:
+        return _DTYPE_CODES[torch.float32]
+    if buffer_dtype not in _DTYPE_CODES:
+        raise ValueError(f"buffer_dtype must be None, float32 or bfloat16, got {buffer_dtype}")
+    return _DTYPE_CODES[buffer_dtype]
+
+
+@torch.no_grad()
+def bf16_buffer_sums(ids: torch.Tensor, grads: torch.Tensor,
+                     n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's bf16 aggregation buffer, `zeros((n, D), bf16).at[ids]
+    .add(grads.astype(bf16))`, which XLA sums in position order with a
+    rounding after every add: for each distinct live id (in [0, n)), in
+    ascending order, `acc = bf16(f32(acc) + f32(bf16(g_j)))` from 0 over its
+    positions j. Returns (rows [R] int64, sums [R, D] f32).
+
+    The loop runs over the rank of a position within its id's positions, not
+    over positions: step k adds every id's k-th gradient at once (the rows of
+    a step are distinct), so it takes as many steps as the longest run."""
+    live = (ids >= 0) & (ids < n)
+    idx = ids[live].long()
+    g = grads[live].to(torch.bfloat16)
+    rows, inv = torch.unique(idx, return_inverse=True)
+    order = torch.argsort(inv, stable=True)
+    counts = torch.bincount(inv, minlength=rows.shape[0])
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.empty_like(inv)
+    rank[order] = torch.arange(inv.shape[0], device=ids.device) - starts[inv[order]]
+    by_rank = torch.argsort(rank, stable=True)
+    buf = torch.zeros((rows.shape[0], grads.shape[1]), dtype=torch.bfloat16, device=ids.device)
+    off = 0
+    for c in torch.bincount(rank).tolist():
+        sel = by_rank[off:off + c]
+        off += c
+        r = inv[sel]
+        buf[r] = (buf[r].float() + g[sel].float()).bfloat16()
+    return rows, buf.float()
+
+
+@torch.no_grad()
+def run_sums(ids: torch.Tensor, grads: torch.Tensor, n: int,
+             buffer_dtype: torch.dtype | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(rows [R] int64, their summed gradients [R, D] f32) for the distinct
+    live ids, ascending: an f32 `index_add_` (duplicates in position order),
+    or with `buffer_dtype=torch.bfloat16` the bf16 buffer's sums."""
+    if buffer_code(buffer_dtype) == _DTYPE_CODES[torch.bfloat16]:
+        return bf16_buffer_sums(ids, grads, n)
+    live = (ids >= 0) & (ids < n)
+    rows, inv = torch.unique(ids[live].long(), return_inverse=True)
+    return rows, torch.zeros((rows.shape[0], grads.shape[1]), dtype=torch.float32,
+                             device=grads.device).index_add_(0, inv,
+                                                             grads[live].to(torch.float32))
+
+
 @torch.no_grad()
 def rowwise_adagrad_reference(table: torch.Tensor, acc: torch.Tensor, ids: torch.Tensor,
                               grads: torch.Tensor, lr: float, eps: float = 1e-10,
-                              perm: torch.Tensor | None = None):
+                              perm: torch.Tensor | None = None,
+                              buffer_dtype: torch.dtype | None = None):
     """The plain PyTorch version of the kernel: the same contract, in place,
-    for ids in any order (duplicates summed by `index_add_` in f32); a bf16
-    table's rows are widened, updated in f32 and rounded once."""
-    n = table.shape[0]
-    g = (grads if perm is None else grads[perm.long()]).to(torch.float32)
-    live = (ids >= 0) & (ids < n)
-    rows, inv = torch.unique(ids[live].long(), return_inverse=True)
-    g_sum = torch.zeros((rows.shape[0], table.shape[1]), dtype=torch.float32,
-                        device=table.device).index_add_(0, inv, g[live])
+    for ids in any order (duplicates summed by `index_add_` in f32, or in the
+    bf16 buffer); a bf16 table's rows are widened, updated in f32 and
+    rounded once."""
+    g = grads if perm is None else grads[perm.long()]
+    rows, g_sum = run_sums(ids, g, table.shape[0], buffer_dtype)
     new_acc = acc[rows] + (g_sum * g_sum).mean(dim=1)
     denom = torch.sqrt(new_acc) + eps
     table[rows] = (table[rows].float() - lr * g_sum / denom[:, None]).to(table.dtype)
@@ -123,15 +185,18 @@ class RowwiseAdagrad(_build.KernelLibrary):
         super().__init__("rowwise_adagrad", "ttrm_rowwise_adagrad", [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_float])
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_float,
+            ctypes.c_int])
 
     def __call__(self, table: torch.Tensor, acc: torch.Tensor, ids: torch.Tensor,
                  grads: torch.Tensor, lr: float, eps: float = 1e-10,
-                 perm: torch.Tensor | None = None):
-        """Update `table` and `acc` in place; returns them."""
+                 perm: torch.Tensor | None = None, buffer_dtype: torch.dtype | None = None):
+        """Update `table` and `acc` in place; returns them. `buffer_dtype=
+        torch.bfloat16` sums each run in the reference's bf16 buffer."""
         _check(table, acc, ids, grads, perm)
+        buf = buffer_code(buffer_dtype)
         if table.device.type == "cpu":
-            return rowwise_adagrad_reference(table, acc, ids, grads, lr, eps, perm)
+            return rowwise_adagrad_reference(table, acc, ids, grads, lr, eps, perm, buffer_dtype)
         if table.device.type != "cuda":
             raise ValueError(f"rowwise_adagrad runs on cpu or cuda tensors, got {table.device}")
         n, d = table.shape
@@ -148,17 +213,21 @@ class RowwiseAdagrad(_build.KernelLibrary):
             self.launch(table.device, table.data_ptr(), _DTYPE_CODES[table.dtype],
                         acc.data_ptr(), ids.data_ptr(), grads.data_ptr(),
                         _DTYPE_CODES[grads.dtype], None if perm is None else perm.data_ptr(),
-                        part.data_ptr(), part_id.data_ptr(), part.shape[0], n, d, m, lr, eps)
+                        part.data_ptr(), part_id.data_ptr(), part.shape[0], n, d, m, lr, eps,
+                        buf)
         return table, acc
 
 
 rowwise_adagrad = RowwiseAdagrad()
 
 
-def block_sorted_aggregate_reference(table_rows: int, sids: torch.Tensor,
-                                     grads: torch.Tensor) -> torch.Tensor:
+def block_sorted_aggregate_reference(table_rows: int, sids: torch.Tensor, grads: torch.Tensor,
+                                     perm: torch.Tensor | None = None) -> torch.Tensor:
     """The plain PyTorch version of the aggregate kernel: `[table_rows, D]`
-    f32, ids in any order, ids outside `[0, table_rows)` dropped."""
+    f32, ids in any order, ids outside `[0, table_rows)` dropped; the j-th
+    id's row is `grads[perm[j]]` when `perm` is given."""
+    if perm is not None:
+        grads = grads[perm.long()]
     live = (sids >= 0) & (sids < table_rows)
     return torch.zeros((table_rows, grads.shape[1]), dtype=torch.float32,
                        device=grads.device).index_add_(0, sids[live].long(),
@@ -174,25 +243,34 @@ class BlockSortedAggregate(_build.KernelLibrary):
     def __init__(self):
         super().__init__("block_sorted_aggregate", "ttrm_sorted_aggregate", [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64],
-            source="rowwise_adagrad.cu")
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64], source="rowwise_adagrad.cu")
 
-    def __call__(self, table_rows: int, sids: torch.Tensor, grads: torch.Tensor) -> torch.Tensor:
+    def __call__(self, table_rows: int, sids: torch.Tensor, grads: torch.Tensor,
+                 perm: torch.Tensor | None = None) -> torch.Tensor:
         """`[table_rows, D]` f32: each run of equal ids summed into its row.
         `sids` `[M]` int32 must be non-decreasing on CUDA tensors (sentinels
-        >= `table_rows` last); `grads` `[M, D]` f32 or bf16."""
+        >= `table_rows` last); `grads` `[M, D]` f32 or bf16, or `[*, D]`
+        read as `grads[perm[j]]` under `perm` `[M]` int32."""
         if sids.dim() != 1 or sids.dtype != torch.int32:
             raise ValueError(f"sids must be [M] int32, got {tuple(sids.shape)} {sids.dtype}")
+        m = sids.shape[0]
         if grads.dtype not in _DTYPE_CODES:
             raise TypeError(f"grads dtype must be float32 or bfloat16, got {grads.dtype}")
-        if grads.dim() != 2 or grads.shape[0] != sids.shape[0]:
-            raise ValueError(f"grads must be [M={sids.shape[0]}, D], got {tuple(grads.shape)}")
-        if grads.device != sids.device:
-            raise ValueError("sids and grads must share a device")
-        if not (sids.is_contiguous() and grads.is_contiguous()):
-            raise ValueError("sids and grads must be contiguous")
+        if grads.dim() != 2 or (perm is None and grads.shape[0] != m):
+            raise ValueError(f"grads must be [M={m}, D] ([*, D] under a permutation), got "
+                             f"{tuple(grads.shape)}")
+        tensors = [sids, grads]
+        if perm is not None:
+            if perm.shape != (m,) or perm.dtype != torch.int32:
+                raise ValueError(f"perm must be [M] int32, got {tuple(perm.shape)} {perm.dtype}")
+            tensors.append(perm)
+        if len({t.device for t in tensors}) != 1:
+            raise ValueError("sids, grads and perm must share a device")
+        if not all(t.is_contiguous() for t in tensors):
+            raise ValueError("sids, grads and perm must be contiguous")
         if grads.device.type == "cpu":
-            return block_sorted_aggregate_reference(table_rows, sids, grads)
+            return block_sorted_aggregate_reference(table_rows, sids, grads, perm)
         if grads.device.type != "cuda":
             raise ValueError(f"block_sorted_aggregate runs on cpu or cuda tensors, got "
                              f"{grads.device}")
@@ -203,12 +281,11 @@ class BlockSortedAggregate(_build.KernelLibrary):
         if grads.data_ptr() % grad_align:
             raise ValueError(f"the CUDA kernel needs {grad_align}-byte aligned grads")
         out = torch.zeros((table_rows, d), dtype=torch.float32, device=grads.device)
-        m = sids.shape[0]
         if out.numel() and m:
             part, part_id = span_scratch(m, d, grads.device)
             self.launch(grads.device, out.data_ptr(), sids.data_ptr(), grads.data_ptr(),
-                        _DTYPE_CODES[grads.dtype], part.data_ptr(), part_id.data_ptr(),
-                        part.shape[0], table_rows, d, m)
+                        _DTYPE_CODES[grads.dtype], None if perm is None else perm.data_ptr(),
+                        part.data_ptr(), part_id.data_ptr(), part.shape[0], table_rows, d, m)
         return out
 
 

@@ -142,18 +142,19 @@ def quantized_rowwise_adagrad(qt: QuantizedTable, acc: torch.Tensor, flat_ids: t
 @torch.no_grad()
 def quantized_dense_rowwise_adagrad(qt: QuantizedTable, acc: torch.Tensor,
                                     flat_ids: torch.Tensor, flat_grads: torch.Tensor, lr: float,
-                                    eps: float = 1e-10) -> tuple[QuantizedTable, torch.Tensor]:
+                                    eps: float = 1e-10, *, ids_sorted: bool = False,
+                                    buffer_dtype: torch.dtype | None = None,
+                                    ) -> tuple[QuantizedTable, torch.Tensor]:
     """The transient-dense variant, plain PyTorch: sum the batch's gradients
-    into an `[N, D]` f32 buffer, then dequantize, update and requantize under
-    a mask of the named rows. Rows no id names keep their exact bytes.
-    Returns new tensors."""
-    n, d = qt.shape
-    live = (flat_ids >= 0) & (flat_ids < n)
-    idx = flat_ids[live].long()
-    g = torch.zeros((n, d), dtype=torch.float32, device=acc.device).index_add_(
-        0, idx, flat_grads[live].to(torch.float32))
-    touched = torch.zeros(n, dtype=torch.bool, device=acc.device)
-    touched[idx] = True
+    into an `[N, D]` buffer (f32, or the reference's bf16 buffer under
+    `buffer_dtype=torch.bfloat16`: `train.optimizer.dense_buffer`), then
+    dequantize, update and requantize under a mask of the named rows. Rows no
+    id names keep their exact bytes. `ids_sorted` is the reference's hint;
+    the sums do not depend on it. Returns new tensors."""
+    from two_tower_recommender_model_tpu_torch.train.optimizer import dense_buffer
+
+    del ids_sorted
+    g, touched = dense_buffer(qt.shape[0], flat_ids, flat_grads, buffer_dtype)
     new_acc = torch.where(touched, acc + torch.mean(g * g, dim=1), acc)
     new_rows = dequantize_table(qt) - lr * g / (torch.sqrt(new_acc) + eps)[:, None]
     q, scales = quantize_rows(new_rows)

@@ -24,7 +24,11 @@ gradient is not zero in every column, dequantize the row, apply row-wise
 Adagrad in f32, requantize with a fresh absmax; in place on `values`,
 `scales` and `acc`. Every other row keeps its exact bytes, scale and
 accumulator (requantizing is not idempotent). The ids MUST be non-decreasing
-on CUDA tensors; `perm` makes the kernel read `grads[perm[j]]`.
+on CUDA tensors; `perm` makes the kernel read `grads[perm[j]]`. With
+`buffer_dtype=torch.bfloat16` (the reference's `scatter_buffer_dtype=
+"bfloat16"` on the sorted table, `quantized_dense_rowwise_adagrad`'s bf16
+buffer) each run is summed in position order with a rounding to bf16 after
+every add, and every named row is updated, also one whose sum is zero.
 
 Each wrapper launches its hand-written kernel on CUDA tensors, takes its
 plain version (`*_reference`) only for tensors that lie on the CPU, raises
@@ -39,7 +43,11 @@ import ctypes
 import torch
 
 from two_tower_recommender_model_tpu_torch.ops import _build
-from two_tower_recommender_model_tpu_torch.ops.adagrad_kernel import span_scratch
+from two_tower_recommender_model_tpu_torch.ops.adagrad_kernel import (
+    buffer_code,
+    run_sums,
+    span_scratch,
+)
 from two_tower_recommender_model_tpu_torch.ops.gather_plan import GatherKernel, GatherPlan
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -171,27 +179,29 @@ quantized_pooled_gather = QuantizedPooledGather()
 @torch.no_grad()
 def quantized_rowwise_adagrad_fused_reference(
         values: torch.Tensor, scales: torch.Tensor, acc: torch.Tensor, ids: torch.Tensor,
-        grads: torch.Tensor, lr: float, eps: float = 1e-10, perm: torch.Tensor | None = None):
+        grads: torch.Tensor, lr: float, eps: float = 1e-10, perm: torch.Tensor | None = None,
+        buffer_dtype: torch.dtype | None = None):
     """The plain PyTorch version of the Adagrad kernel: the same contract, in
     place, for ids in any order (duplicates summed by `index_add_` in f32). A
-    row whose summed gradient is zero in every column is not written."""
-    n, d = values.shape
-    g = (grads if perm is None else grads[perm.long()]).to(torch.float32)
-    live = (ids >= 0) & (ids < n)
-    rows, inv = torch.unique(ids[live].long(), return_inverse=True)
-    g_sum = torch.zeros((rows.shape[0], d), dtype=torch.float32,
-                        device=values.device).index_add_(0, inv, g[live])
-    return apply_rowwise_update(values, scales, acc, rows, g_sum, lr, eps)
+    row whose summed gradient is zero in every column is not written, except
+    under the bf16 buffer, which sums as the reference's and writes every
+    named row."""
+    g = grads if perm is None else grads[perm.long()]
+    rows, g_sum = run_sums(ids, g, values.shape[0], buffer_dtype)
+    named = buffer_dtype == torch.bfloat16
+    return apply_rowwise_update(values, scales, acc, rows, g_sum, lr, eps, named)
 
 
 @torch.no_grad()
 def apply_rowwise_update(values: torch.Tensor, scales: torch.Tensor, acc: torch.Tensor,
-                         rows: torch.Tensor, g_sum: torch.Tensor, lr: float, eps: float):
+                         rows: torch.Tensor, g_sum: torch.Tensor, lr: float, eps: float,
+                         named: bool = False):
     """The update of distinct `rows` from their summed f32 gradients `g_sum`
     `[R, D]`, in place: a row whose sum is zero in every column is not
-    written."""
-    touched = (g_sum != 0).any(dim=1)
-    rows, g_sum = rows[touched], g_sum[touched]
+    written, unless `named`."""
+    if not named:
+        touched = (g_sum != 0).any(dim=1)
+        rows, g_sum = rows[touched], g_sum[touched]
     new_acc = acc[rows] + (g_sum * g_sum).mean(dim=1)
     denom = torch.sqrt(new_acc) + eps
     new_rows = dequantize_rows(values[rows], scales[rows]) - lr * g_sum / denom[:, None]
@@ -211,13 +221,15 @@ class QuantizedRowwiseAdagrad(_build.KernelLibrary):
         super().__init__("quantized_rowwise_adagrad", "ttrm_quantized_adagrad", [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_float],
-            source="quantized_adagrad.cu")
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_float,
+            ctypes.c_int], source="quantized_adagrad.cu")
 
     def __call__(self, values: torch.Tensor, scales: torch.Tensor, acc: torch.Tensor,
                  ids: torch.Tensor, grads: torch.Tensor, lr: float, eps: float = 1e-10,
-                 perm: torch.Tensor | None = None):
-        """Update `values`, `scales` and `acc` in place; returns them."""
+                 perm: torch.Tensor | None = None, buffer_dtype: torch.dtype | None = None):
+        """Update `values`, `scales` and `acc` in place; returns them.
+        `buffer_dtype=torch.bfloat16` sums each run in the reference's bf16
+        buffer and writes every named row."""
         _check_table(values, scales)
         n, d = values.shape
         if acc.shape != (n,) or acc.dtype != torch.float32:
@@ -237,9 +249,10 @@ class QuantizedRowwiseAdagrad(_build.KernelLibrary):
                 raise ValueError(f"perm must be [M] int32, got {tuple(perm.shape)} {perm.dtype}")
             tensors.append(("perm", perm))
         _require(tensors)
+        buf = buffer_code(buffer_dtype)
         if values.device.type == "cpu":
             return quantized_rowwise_adagrad_fused_reference(values, scales, acc, ids, grads, lr,
-                                                             eps, perm)
+                                                             eps, perm, buffer_dtype)
         if values.device.type != "cuda":
             raise ValueError(f"quantized_rowwise_adagrad_fused runs on cpu or cuda tensors, got "
                              f"{values.device}")
@@ -252,7 +265,7 @@ class QuantizedRowwiseAdagrad(_build.KernelLibrary):
             self.launch(values.device, values.data_ptr(), scales.data_ptr(), acc.data_ptr(),
                         ids.data_ptr(), grads.data_ptr(), _DTYPE_CODES[grads.dtype],
                         None if perm is None else perm.data_ptr(), part.data_ptr(),
-                        part_id.data_ptr(), part.shape[0], n, d, m, lr, eps)
+                        part_id.data_ptr(), part.shape[0], n, d, m, lr, eps, buf)
         return values, scales, acc
 
 

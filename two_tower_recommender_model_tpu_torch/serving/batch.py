@@ -1,10 +1,10 @@
 """Offline batch inference over a dataset directory.
 
-Port of `two_tower_recommender_model_tpu/serving/batch.py`: stream a TTRS
-dataset through `Scorer.predict` in order, add a `prediction` column, and
-write TTRS shards out. The loader's reader thread reads the next shard while
-the card scores the current batch. The reference's parquet input
-(`data/parquet.py`) is not ported yet.
+Port of `two_tower_recommender_model_tpu/serving/batch.py`: stream a TTRS or
+parquet dataset through `Scorer.predict` in order, add a `prediction`
+column, and write TTRS shards out. The TTRS loader's reader thread reads the
+next shard while the card scores the current batch; parquet input
+(`data/parquet.py`, pyarrow) is read a row group at a time.
 """
 
 from __future__ import annotations
@@ -28,13 +28,14 @@ def batch_predict(
     """Score every row of the dataset, in its order; returns the output
     dataset's index. The output keeps the input's columns (only
     `keep_columns` when given) and adds `prediction` (f32)."""
-    if input_format == "parquet":
-        raise NotImplementedError(
-            "input_format='parquet' is not ported to the PyTorch package yet (ROADMAP.md "
-            "Queue 1, M13: data/parquet.py)")
-    if input_format != "ttrs":
+    if input_format == "ttrs":
+        batches = StreamLoader(dataset_path, batch_size, shuffle=False, drop_last=False)
+    elif input_format == "parquet":
+        from two_tower_recommender_model_tpu_torch.data.parquet import parquet_batches
+
+        batches = parquet_batches(dataset_path, batch_size)
+    else:
         raise ValueError(f"unknown input_format {input_format!r}")
-    batches = StreamLoader(dataset_path, batch_size, shuffle=False, drop_last=False)
     with ShardWriter(output_path, rows_per_shard) as w:
         for cols in batches:
             preds = scorer.predict(cols)

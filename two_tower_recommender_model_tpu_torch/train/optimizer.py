@@ -46,6 +46,7 @@ import torch
 from two_tower_recommender_model_tpu_torch.ops.adagrad_kernel import (
     block_sorted_aggregate,
     rowwise_adagrad,
+    run_sums,
 )
 from two_tower_recommender_model_tpu_torch.ops.quantized import QuantizedTable
 from two_tower_recommender_model_tpu_torch.ops.quantized_kernel import (
@@ -119,18 +120,31 @@ def masked_rowwise_adagrad_epilogue(table: torch.Tensor, acc: torch.Tensor, g: t
     return new_table.to(table.dtype), new_acc.to(acc.dtype)
 
 
+def dense_buffer(n: int, flat_ids: torch.Tensor, flat_grads: torch.Tensor,
+                 buffer_dtype: torch.dtype | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The transient-dense updates' `[n, D]` f32 gradient buffer and its
+    `[n]` mask of named rows: the grads summed by id in f32, or with
+    `buffer_dtype=torch.bfloat16` in the reference's bf16 buffer (each id's
+    grads in position order, rounded to bf16 after every add), widened."""
+    g = torch.zeros((n, flat_grads.shape[1]), dtype=torch.float32, device=flat_grads.device)
+    rows, sums = run_sums(flat_ids, flat_grads, n, buffer_dtype)
+    g[rows] = sums
+    touched = torch.zeros(n, dtype=torch.bool, device=flat_grads.device)
+    touched[rows] = True
+    return g, touched
+
+
 def dense_rowwise_adagrad(table: torch.Tensor, acc: torch.Tensor, flat_ids: torch.Tensor,
-                          flat_grads: torch.Tensor, lr: float,
-                          eps: float = 1e-10) -> tuple[torch.Tensor, torch.Tensor]:
-    """Transient-dense row-wise Adagrad: sum the grads into a table-shaped f32
-    buffer, then the masked epilogue. Returns new tensors."""
-    n, d = table.shape
-    live = (flat_ids >= 0) & (flat_ids < n)
-    idx = flat_ids[live].long()
-    g = torch.zeros((n, d), dtype=torch.float32, device=table.device).index_add_(
-        0, idx, flat_grads[live].to(torch.float32))
-    touched = torch.zeros(n, dtype=torch.bool, device=table.device)
-    touched[idx] = True
+                          flat_grads: torch.Tensor, lr: float, eps: float = 1e-10, *,
+                          ids_sorted: bool = False, buffer_dtype: torch.dtype | None = None,
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Transient-dense row-wise Adagrad: sum the grads into a table-shaped
+    buffer (f32, or bf16 under `buffer_dtype=torch.bfloat16`:
+    `dense_buffer`), then the masked epilogue. `ids_sorted` is the
+    reference's hint that the ids are non-decreasing; the sums here do not
+    depend on it. Returns new tensors."""
+    del ids_sorted
+    g, touched = dense_buffer(table.shape[0], flat_ids, flat_grads, buffer_dtype)
     return masked_rowwise_adagrad_epilogue(table, acc, g, touched, lr, eps)
 
 

@@ -33,8 +33,13 @@ call: a plain loop on CPU tensors, and on CUDA tensors one CUDA graph of the
 K steps, captured at the first call and replayed after, so the host issues
 one launch for K steps' device work.
 
-Not ported yet (each raises `NotImplementedError` naming its ROADMAP item):
-`scatter_buffer_dtype="bfloat16"` and `device_sorted_gather`.
+`scatter_buffer_dtype="bfloat16"` sums the host-sorted table's gradients in
+the reference's bf16 buffer (kernels #4 and #6 in their bf16 mode) exactly
+where the reference takes that buffer: see `pick_table_update_fn`.
+
+Not ported yet: `device_sorted_gather` (raises `NotImplementedError`; ROADMAP
+Queue 1 item 5: sorted ids gained 6-7% on a table that fits the card's 50 MB
+L2, so it waits for a measurement on a larger table the host does not sort).
 """
 
 from __future__ import annotations
@@ -274,17 +279,27 @@ def pick_table_update_fn(
     - else kernel #4.
 
     One kernel serves every table whatever its size and whatever
-    `block_sorted_kernel` says (so `n_flat_ids`, which picks between the
-    reference's routes, picks nothing here): the option only sets the
-    gradients' dtype, "bfloat16" rounds them to bf16, "off" and "float32"
-    pass f32. A bf16 table never reaches a block kernel in the reference, so
-    its gradients go in as f32 under every value of the option. The
-    host-sorted table's ids go straight in (they arrive sorted; an async
-    device assert holds them to it, since unsorted ids would race in the
-    kernel); every other table goes through the device-sort front-end."""
-    del n_flat_ids
+    `block_sorted_kernel` says: the option only sets the gradients' dtype,
+    "bfloat16" rounds them to bf16, "off" and "float32" pass f32. A bf16
+    table never reaches a block kernel in the reference, so its gradients go
+    in as f32 under every value of the option. The host-sorted table's ids
+    go straight in (they arrive sorted; an async device assert holds them to
+    it, since unsorted ids would race in the kernel); every other table goes
+    through the device-sort front-end.
+
+    `scatter_buffer_dtype="bfloat16"` takes the kernel's bf16 buffer
+    (`buffer_dtype=torch.bfloat16`) where the reference sums into its bf16
+    buffer: the host-sorted table, no `sparse_update` override,
+    `block_sorted_kernel="off"`, and the reference's transient-dense route
+    chosen by its size policy, `num_rows <= 8 * n_flat_ids`
+    (`pick_sparse_update`, `pick_quantized_update`). Everywhere else the
+    option changes nothing, as in the reference."""
     if sparse_update is not None and not quantized:
         return sparse_update
+    bf16_buffer = (train_cfg.scatter_buffer_dtype == "bfloat16" and tname == sorted_table
+                   and sparse_update is None and train_cfg.block_sorted_kernel == "off"
+                   and model_cfg.table(tname).num_embeddings <= 8 * n_flat_ids)
+    buffer = {"buffer_dtype": torch.bfloat16} if bf16_buffer else {}
     matmul_dtype = "bfloat16" if train_cfg.block_sorted_kernel == "bfloat16" else "float32"
     if model_cfg.table_dtype_of(tname) == "bfloat16" or sparse_update is not None:
         matmul_dtype = "float32"
@@ -301,9 +316,9 @@ def pick_table_update_fn(
         fids, fgrads = fids.contiguous(), fgrads.to(grad_dtype).contiguous()
         if quantized:
             quantized_rowwise_adagrad_fused(table.values, table.scales, acc, fids, fgrads, lr,
-                                            eps)
+                                            eps, **buffer)
             return table, acc
-        return rowwise_adagrad(table, acc, fids, fgrads, lr, eps)
+        return rowwise_adagrad(table, acc, fids, fgrads, lr, eps, **buffer)
     return upd_sorted
 
 
@@ -311,10 +326,9 @@ def _check_train_config(model_cfg: ModelConfig, train_cfg: TrainConfig) -> None:
     if train_cfg.block_sorted_kernel not in ("off", "float32", "bfloat16"):
         raise ValueError(f"block_sorted_kernel must be off|float32|bfloat16, got "
                          f"{train_cfg.block_sorted_kernel!r}")
-    if train_cfg.scatter_buffer_dtype != "float32":
-        raise NotImplementedError(
-            "scatter_buffer_dtype='bfloat16' is not ported to the PyTorch package yet "
-            "(ROADMAP, after the training slice): the row-wise Adagrad kernel sums in f32")
+    if train_cfg.scatter_buffer_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"scatter_buffer_dtype must be float32|bfloat16, got "
+                         f"{train_cfg.scatter_buffer_dtype!r}")
     if train_cfg.device_sorted_gather:
         raise NotImplementedError(
             "device_sorted_gather is not ported to the PyTorch package yet (ROADMAP)")
