@@ -256,6 +256,21 @@ without a card. Phases (any failure raises and exits non-zero):
    steps of 8,192 and an eval batch; seed 1 alone bit for bit;
    `[sweep]` random (3 trials) and TPE (4 trials) sweeps over 2 spawned
    worker processes, each trial training the flagship on this card;
+26b. data parallelism with sharded tables: `[mesh]` the flagship BCE step
+   (bf16 compute, f32 tables, batch 262,144 sorted by user) on a one-rank
+   NCCL group, its plan the planner's at 2-8 devices (user table
+   row-sharded, item table table-wise) forced on one: 3 eager sharded steps
+   counted (#1, #4, #8 and tower_fwd twice a step), against the one-device
+   step from the same start at the reference's bars (largest differences
+   printed), then K = 16 sharded steps as one CUDA graph with its NCCL
+   collectives captured, bit for bit the eager sharded steps, its replayed
+   ms a step beside the one-device graph's; `[shard-kernels]` the
+   shard-local work of 4 ranks run in turn on the gathered global batch,
+   the user table row-sharded (sorted path) and the item table as a
+   table-wise bucket (device sort): the partial pools (#1) sum to the
+   one-device gather bit for bit, each shard's #4 update is the one-device
+   update's rows bit for bit (padded and untouched rows unchanged), each
+   shard's #4 ms beside the one-device call's;
 27. with --profile, torch.profiler traces of the serving calls, of the
    three train steps and of a graph replay: device busy time, idle share and
    the largest device items, the gather kernel's (#1 or #5) device ms a call
@@ -328,6 +343,7 @@ from two_tower_recommender_model_tpu_torch.ops.embedding_kernel import (
     pooled_gather,
     pooled_gather_reference,
 )
+from two_tower_recommender_model_tpu_torch.ops.embedding_ops import block_sorted_lookup
 from two_tower_recommender_model_tpu_torch.ops import softmax_kernel as sk
 from two_tower_recommender_model_tpu_torch.ops.probe_sum import (
     probe_block_sums,
@@ -363,6 +379,18 @@ from two_tower_recommender_model_tpu_torch.ops.tower_fwd import (
     _mm,
     tower_forward,
     tower_forward_reference,
+)
+from two_tower_recommender_model_tpu_torch.parallel import launch
+from two_tower_recommender_model_tpu_torch.parallel.mesh import make_mesh
+from two_tower_recommender_model_tpu_torch.parallel.planner import plan_sharding
+from two_tower_recommender_model_tpu_torch.parallel.sharded import (
+    make_sharded_multi_step,
+    make_sharded_train_step,
+    partial_pool,
+    shard_local_ids,
+    shard_train_state,
+    sorted_partial_rows,
+    unshard_train_state,
 )
 from two_tower_recommender_model_tpu_torch.serving import RetrievalService, Scorer
 from two_tower_recommender_model_tpu_torch.serving.batch import batch_predict
@@ -3874,6 +3902,249 @@ def phase_profile_trace(dev: torch.device, work: str, pipeline: dict, run: dict)
 # --- the bf16 buffer, the ranker, multi-seed, sweeps, parquet and text features -----------
 
 BF16 = torch.bfloat16
+MESH_STEPS = 3  # eager sharded steps of [mesh]
+SHARD_WORLD = 4  # the ranks whose shard-local work [shard-kernels] runs in turn
+
+
+def mesh_plan(cfg):
+    """The flagship's plan at 2, 4 and 8 devices (user table row-sharded,
+    item table table-wise, the same at each), forced onto one rank."""
+    plans = {n: plan_sharding(cfg, n) for n in (2, 4, 8)}
+    force = {name: spec.strategy for name, spec in plans[2].specs.items()}
+    if force != {"t_user_id": "row_sharded", "t_product_id": "table_wise"} or any(
+            {k: v.strategy for k, v in p.specs.items()} != force for p in plans.values()):
+        raise AssertionError(f"[mesh] the planner's flagship plans changed: "
+                             f"{ {n: p.describe() for n, p in plans.items()} }")
+    return plan_sharding(cfg, 1, force=force)
+
+
+def numpy_start(cfg, seed: int = 0) -> dict:
+    """A fresh training state as numpy arrays in `train_state_from_numpy`'s
+    layout: tables U(-sqrt(1/N), sqrt(1/N)), towers U(-1/sqrt(in), ...),
+    zero accumulators and Adam moments."""
+    rng = np.random.default_rng(seed)
+    start = {"step": 0, "tables": {}, "adagrad_acc": {}, "item_counts": None}
+    for t in cfg.tables:
+        bound = (1.0 / t.num_embeddings) ** 0.5
+        start["tables"][t.name] = rng.uniform(-bound, bound, (t.num_embeddings, t.embedding_dim)
+                                              ).astype(np.float32)
+        start["adagrad_acc"][t.name] = np.zeros(t.num_embeddings, np.float32)
+    moments = {}
+    for key in ("query_tower", "candidate_tower"):
+        sizes = [DIM, *getattr(cfg, key).layer_sizes]
+        start[key], moments[key] = {}, {}
+        for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:])):
+            start[key][f"layer_{i}"] = {
+                "kernel": rng.uniform(-a ** -0.5, a ** -0.5, (a, b)).astype(np.float32),
+                "bias": rng.uniform(-a ** -0.5, a ** -0.5, b).astype(np.float32)}
+            moments[key][f"layer_{i}"] = {"kernel": np.zeros((a, b), np.float32),
+                                          "bias": np.zeros(b, np.float32)}
+    start["adam"] = {"count": 0, "mu": moments, "nu": moments}
+    return start
+
+
+def phase_mesh(dev: torch.device, pool: list) -> dict[str, int]:
+    """`[mesh]`: the sharded step on a one-rank NCCL group at the flagship
+    widths (bf16 compute, BCE, batch 262,144 sorted by user), its plan the
+    planner's at 2-8 devices (user table row-sharded through the sorted
+    path, item table table-wise in a bucket through the device sort).
+    MESH_STEPS eager sharded steps are the main path, counted: #1, #4, #8
+    and tower_fwd twice a step. Against the one-device step from the same
+    numpy start (`numpy_start`): losses, tables, accumulators, towers and Adam's moments at the
+    reference's bars (rtol 1e-5 the loss, rtol 1e-4 / atol 1e-6 the rest),
+    the largest differences printed. Then a K = 16 macro of sharded steps as
+    one CUDA graph (`make_sharded_multi_step`, the NCCL collectives
+    captured; its warm-up and capture counted too) bit for bit the same
+    steps run eagerly, and the replayed ms a step beside the one-device
+    graph's, in this call."""
+    tag, k = "[mesh]", GRAPH_K
+    launch.initialize_distributed(dev, world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1)
+        cfg, tcfg = flagship_bce()
+        plan = mesh_plan(cfg)
+        log(f"{tag} one-rank {mesh.backend} group on {mesh.device}; the flagship plan at 2-8 "
+            f"devices, forced on 1:\n{plan.describe()}")
+        base, dense_opt = step_lib.train_state_from_numpy(numpy_start(cfg), cfg, tcfg, dev)
+        one = base.copy()
+        one_step = make_packed_train_step(step_lib.make_train_step(cfg, tcfg, dense_opt), cfg,
+                                          pack_label=True)
+        sh = shard_train_state(base, plan, mesh)
+        sh_step = make_packed_train_step(make_sharded_train_step(cfg, tcfg, dense_opt, mesh,
+                                                                 plan), cfg, pack_label=True)
+        # --- the main path, counted ---------------------------------------------------
+        reset_launches()
+        sh, sh_out, sh_times = timed_steps(sh_step, sh, pool, 0, MESH_STEPS)
+        launches = read_launches()
+        # --- checks, not counted ------------------------------------------------------
+        for name, n in launches.items():
+            if n != BCE_F32.get(name, 0) * MESH_STEPS:
+                raise AssertionError(f"{tag} {name}: {n} launches in {MESH_STEPS} sharded steps, "
+                                     f"expected {BCE_F32.get(name, 0)} a step")
+        one, one_out, one_times = timed_steps(one_step, one, pool, 0, MESH_STEPS)
+        whole = unshard_train_state(sh, plan, cfg, mesh, dst=0)
+        diffs, bitwise = {}, 0
+        a, b = state_tensors(whole), state_tensors(one)
+        for name in b:
+            got, want = a[name].float(), b[name].float()
+            diffs[name] = (got - want).abs().max().item()
+            bitwise += bitwise_equal(a[name], b[name])
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6,
+                                       msg=lambda m: f"{tag} {name}: {m}")
+        sh_loss, one_loss = sh_out["loss"].float().item(), one_out["loss"].float().item()
+        if not np.isfinite(sh_loss) or abs(sh_loss - one_loss) > 1e-5 * abs(one_loss):
+            raise AssertionError(f"{tag} loss {sh_loss!r} against the one-device {one_loss!r}")
+        log(f"{tag} {MESH_STEPS} sharded steps against the one-device steps from one numpy start: "
+            f"loss {sh_loss!r} / {one_loss!r}; {bitwise} of {len(b)} state tensors bit for bit, "
+            f"the rest within rtol 1e-4 / atol 1e-6, largest abs diffs "
+            f"{ {n: d for n, d in diffs.items() if d} }; launches per step "
+            f"{ {n: v // MESH_STEPS for n, v in launches.items() if v} }; eager median_step_ms "
+            f"sharded={statistics.median(sh_times)!r} one-device={statistics.median(one_times)!r}")
+        del whole, one, sh
+        # --- K sharded steps as one CUDA graph against the same steps run eagerly ---------
+        eager, graphed = shard_train_state(base, plan, mesh), shard_train_state(base, plan, mesh)
+        multi = make_sharded_multi_step(cfg, tcfg, dense_opt, mesh, plan, pack_label=True)
+        macro = [pool[i % len(pool)] for i in range(k)]
+        losses = []
+        for pb in macro:
+            eager, out = sh_step(eager, pb)
+            losses.append(out["loss"].float())
+        reset_launches()
+        graphed, out_g = multi(graphed, stack_on_card(macro))
+        torch.cuda.synchronize()
+        captured = read_launches()
+        calls = k + step_lib.WARMUP_STEPS
+        for name, n in captured.items():
+            if n != BCE_F32.get(name, 0) * calls:
+                raise AssertionError(f"{tag} {name}: {n} launches for the macro's warm-up and "
+                                     f"capture, expected {BCE_F32.get(name, 0)} a step")
+        same = compare_states(f"{tag} the sharded macro after {k} steps", eager, graphed)
+        if not same.startswith("bit for bit") or not bitwise_equal(out_g["loss"].float(),
+                                                                   torch.stack(losses)):
+            raise AssertionError(f"{tag} the captured sharded macro is not the eager steps bit "
+                                 f"for bit: {same}")
+        for name in captured:
+            launches[name] += captured[name]
+        one_multi = step_lib.make_multi_step(one_step)
+        one_graphed = base.copy()
+        one_multi(one_graphed, stack_on_card(macro))
+        times = {"sharded": [], "one-device": []}
+        for j in range(1, 1 + GRAPH_MACROS):
+            stacked = stack_on_card([pool[(j + i) % len(pool)] for i in range(k)])
+            for label, fn, st in (("sharded", multi, graphed), ("one-device", one_multi,
+                                                                one_graphed)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(st, stacked)
+                torch.cuda.synchronize()
+                times[label].append((time.perf_counter() - t0) * 1e3 / k)
+        sh_ms, one_ms = (statistics.median(times[x]) for x in ("sharded", "one-device"))
+        log(f"{tag} K={k} sharded steps as one CUDA graph (NCCL collectives captured): {same}, "
+            f"{k} losses bitwise equal, captures={multi.captures} replays={multi.replays}; "
+            f"replayed_ms_per_step sharded={sh_ms!r} one-device={one_ms!r} (ratio "
+            f"{sh_ms / one_ms!r}, n={GRAPH_MACROS} macros each, interleaved), "
+            f"examples_per_s sharded={TRAIN_BATCH / sh_ms * 1e3!r}; {card_line()}")
+        return launches
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_shard_kernels(dev: torch.device, pool: list) -> None:
+    """`[shard-kernels]`: each of SHARD_WORLD ranks' shard-local work run in
+    turn on the card, on the gathered global batch of the flagship step
+    (262,144 ids, sorted by user): the user table row-sharded (the sorted
+    path: each shard's local ids non-decreasing, those below it negative and
+    those above past its rows) and the item table as a table-wise bucket
+    (the device-sort path). The partial pools (#1) sum to the one-device
+    gather bit for bit; each shard's update (#4, bf16 gradients as the bf16
+    block mode passes them) equals the matching rows of the one-device
+    update bit for bit, its untouched and padded rows unchanged. Each
+    shard's #4 ms beside the one-device call's: every shard walks all the
+    gathered ids."""
+    tag = "[shard-kernels]"
+    cfg, tcfg = flagship_bce()
+    plan = plan_sharding(cfg, SHARD_WORLD, force={"t_user_id": "row_sharded",
+                                                  "t_product_id": "table_wise"})
+    batch = unpack_batch(pool[0], cfg, pack_label=True)
+    rng = torch.Generator(device=dev).manual_seed(7)
+    lr, eps = tcfg.sparse_learning_rate, tcfg.adagrad_eps
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    for fc_name, tname in (("user_id", "t_user_id"), ("product_id", "t_product_id")):
+        spec = plan[tname]
+        feat = batch.features[fc_name]
+        ids, w = feat.ids[:, 0].contiguous(), feat.mask[:, 0].contiguous()
+        n, d = spec.num_embeddings, spec.embedding_dim
+        full = torch.rand((n, d), generator=rng, device=dev) - 0.5
+        acc = torch.rand(n, generator=rng, device=dev)
+        grads = (torch.randn((ids.shape[0], d), generator=rng, device=dev) * 0.1).bfloat16()
+        if spec.strategy == "row_sharded":
+            rows, base, route = spec.padded_rows // SHARD_WORLD, 0, "sorted"
+            sentinel = SHARD_WORLD * rows
+        else:
+            rows = plan.buckets[spec.bucket].rows_per_device
+            base, route = spec.owner * rows + spec.bucket_offset, "device sort"
+            sentinel = SHARD_WORLD * rows
+        keys = torch.where(w > 0, ids + base, sentinel).to(torch.int32)
+        flat_ids = torch.where(w > 0, ids, n).to(torch.int32)
+        # the one-device calls
+        want_pool = (block_sorted_lookup(full, ids, w, out_dtype=torch.float32)
+                     if route == "sorted" else pooled_gather(full, ids[:, None].contiguous(),
+                                                             w[:, None].contiguous(),
+                                                             out_dtype=torch.float32))
+        upd_fn = step_lib.pick_table_update_fn(cfg, tcfg, "t_user_id" if route == "sorted"
+                                               else None, tname, ids.shape[0], quantized=False)
+        want_t, want_a = full.clone(), acc.clone()
+        upd_fn(want_t, want_a, flat_ids, grads, lr, eps)
+        scratch_t, scratch_a = full.clone(), acc.clone()  # timed in place: the same ids each time
+        one_ms = median_ms(lambda: upd_fn(scratch_t, scratch_a, flat_ids, grads, lr, eps), flush)
+        # the ranks' shards: the padded global array cut in SHARD_WORLD pieces
+        padded_t = torch.zeros((SHARD_WORLD * rows, d), device=dev)
+        padded_a = torch.zeros(SHARD_WORLD * rows, device=dev)
+        padded_t[base:base + n], padded_a[base:base + n] = full, acc
+        got_pool = torch.zeros_like(want_pool)
+        shard_ms = []
+        for r in range(SHARD_WORLD):
+            t = padded_t[r * rows:(r + 1) * rows].clone()
+            a = padded_a[r * rows:(r + 1) * rows].clone()
+            if route == "sorted":
+                got_pool += sorted_partial_rows(t, keys, w, r, out_dtype=torch.float32)
+                local = (keys - r * rows).to(torch.int32)
+                negative = int((local < 0).sum())
+                above = int((local >= rows).sum())
+            else:
+                got_pool += partial_pool(t, keys[:, None], w[:, None], r)
+                local = shard_local_ids(keys, r, rows)
+                negative, above = 0, int((local == rows).sum())
+            shard_fn = step_lib.pick_table_update_fn(
+                cfg, tcfg, tname if route == "sorted" else None, tname, ids.shape[0],
+                quantized=False, table_dtype="float32", num_rows=rows)
+            shard_fn(t, a, local, grads, lr, eps)
+            torch.cuda.synchronize()
+            lo, hi = max(r * rows, base), min((r + 1) * rows, base + n)
+            want_rows = torch.zeros((rows, d), device=dev)
+            want_acc = torch.zeros(rows, device=dev)
+            if hi > lo:
+                want_rows[lo - r * rows:hi - r * rows] = want_t[lo - base:hi - base]
+                want_acc[lo - r * rows:hi - r * rows] = want_a[lo - base:hi - base]
+            if not (bitwise_equal(t, want_rows) and bitwise_equal(a, want_acc)):
+                raise AssertionError(f"{tag} {tname} shard {r}: not the one-device update's rows "
+                                     f"bit for bit (max abs diff "
+                                     f"{(t - want_rows).abs().max().item()!r})")
+            scratch_t, scratch_a = t.clone(), a.clone()
+            shard_ms.append(median_ms(lambda: shard_fn(scratch_t, scratch_a, local, grads, lr,
+                                                       eps), flush))
+            log(f"{tag} {tname} shard {r} of {SHARD_WORLD} ({route}, rows [{r * rows}, "
+                f"{(r + 1) * rows}) of the padded {SHARD_WORLD * rows}): {negative} local ids "
+                f"below the shard, {above} past it; the update bit for bit the one-device "
+                f"update's rows (padded and untouched rows unchanged); #4 ms={shard_ms[-1]!r}")
+        if not bitwise_equal(got_pool, want_pool):
+            raise AssertionError(f"{tag} {tname}: the {SHARD_WORLD} partial pools do not sum to "
+                                 "the one-device gather bit for bit")
+        log(f"{tag} {tname}: the {SHARD_WORLD} partial pools sum to the one-device #1 output bit "
+            f"for bit; #4 ms a shard {shard_ms!r} (sum {sum(shard_ms)!r}) against the one-device "
+            f"call's {one_ms!r}, each over all {ids.shape[0]} gathered ids; {card_line()}")
+
+
 PROBE_ACC = 2.0 ** 60  # the bf16 buffer's probe accumulator (see phase_bf16_buffer_kernels)
 PLAIN_REPS = 3  # timed runs of the bf16 buffer's plain version: it loops over the longest run
 RANKER_BATCH, RANKER_HIDDEN, RANKER_STEPS = 8192, (128, 64), 3
@@ -4476,6 +4747,8 @@ def main() -> int:
     paths["probe"] = phase_probe(dev)
     paths.update(phase_train_graphs(dev, args.profile, batches[0]))
     paths.update(phase_train_bf16buf(dev, args.profile, batches[0]))
+    paths["mesh"] = phase_mesh(dev, batches[0])
+    phase_shard_kernels(dev, batches[0])
     paths["train-compact"] = phase_train_compact(dev, args.profile)
     paths["train-skew"] = phase_train_skew(dev, args.profile)
     paths["learn-packed"] = phase_learn_packed(dev)

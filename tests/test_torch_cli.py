@@ -175,15 +175,38 @@ def test_block_sorted_kernel_auto():
     assert train.block_sorted_kernel_auto(bf16, None, "bfloat16") == "bfloat16"
 
 
+# flag -> the ROADMAP item it names (the ids keep the item's family)
+UNPORTED = {"--multi-host": r"M12\(c\)", "--sharded-exchange": r"M12\(b\)",
+            "--exchange-capacity-factor": r"M12\(b\)", "--exchange-wire-dtype": r"M12\(b\)",
+            "--wire-cache": r"M12\(c\)", "--wire-format": r"M12\(c\)"}
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--multi-host"], "M12"), (["--mesh-model", "2"], "M12"),
-    (["--sharded-exchange", "dense"], "M12"), (["--exchange-capacity-factor", "1.5"], "M12"),
-    (["--exchange-wire-dtype", "bfloat16"], "M12"),
+    (["--multi-host"], "M12"), (["--sharded-exchange", "alltoall"], "M12"),
+    (["--exchange-capacity-factor", "1.5"], "M12"),
+    (["--exchange-wire-dtype", "bfloat16"], "M12"), (["--wire-cache", "somewhere"], "M12"),
 ])
-def test_unported_train_flags_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+def test_unported_train_flags_raise(flags, item, monkeypatch):
+    """On a mesh of two ranks (the flags raise before the process group
+    starts) each flag names its part of M12."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}.*{UNPORTED[flags[0]][3:]}"):
         train.main(["--data-dir", "nowhere", "--num-users", "10", "--num-items", "10",
                     "--device", "cpu", *flags])
+
+
+def test_mesh_only_flags_need_a_mesh(monkeypatch):
+    """`--wire-format compact` raises on a mesh only (M12(c)); `--mesh-model`
+    above 1 without torchrun's ranks is refused; `--sharded-exchange dense`
+    is the ported exchange."""
+    argv = ["--data-dir", "nowhere", "--num-users", "10", "--num-items", "10", "--device", "cpu"]
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.*M12\(c\)"):
+        train.main(argv + ["--wire-format", "compact"])
+    monkeypatch.delenv("WORLD_SIZE")
+    with pytest.raises(SystemExit, match="mesh"):
+        train.main(argv + ["--mesh-model", "2"])
+    train.refuse_unported(train.parse_args(argv + ["--sharded-exchange", "dense"]))
 
 
 def _last_state(directory):

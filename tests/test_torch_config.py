@@ -83,3 +83,12 @@ def test_train_config_matches_jax_field_for_field(kwargs):
     assert [f.name for f in dataclasses.fields(got)] == [f.name for f in dataclasses.fields(want)]
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert port_config.to_json(got) == jax_config.to_json(want)
+
+
+@pytest.mark.parametrize("kwargs", [{}, dict(data=4), dict(data=2, model=2)])
+def test_mesh_config_matches_jax_field_for_field(kwargs):
+    got, want = port_config.MeshConfig(**kwargs), jax_config.MeshConfig(**kwargs)
+    assert [f.name for f in dataclasses.fields(got)] == [f.name for f in dataclasses.fields(want)]
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.num_devices == want.num_devices
+    assert port_config.to_json(got) == jax_config.to_json(want)

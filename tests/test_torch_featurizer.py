@@ -93,3 +93,39 @@ def test_pad_batch_matches_reference(multiple):
     for name, feat in ref.features.items():
         np.testing.assert_array_equal(got.features[name].ids.numpy(), np.asarray(feat.ids))
         np.testing.assert_array_equal(got.features[name].mask.numpy(), np.asarray(feat.mask))
+
+
+@pytest.mark.parametrize("rows", [0, 13, 64])
+@pytest.mark.parametrize("packed", [False, True])
+def test_pad_batch_to_matches_jax(rows, packed):
+    """`pad_batch_to` grows a batch (a 0-row one too) to exactly 64 rows of
+    zero-weight padding, as the reference's does, for a `Batch` and for a
+    numpy `PackedBatch` with its label packed (the empty label placeholder
+    kept); more rows than asked for raise."""
+    from two_tower_recommender_model_tpu.data.device_featurizer import (
+        PackedFeaturizer as JaxPacked,
+    )
+    from two_tower_recommender_model_tpu.data.featurizer import pad_batch_to as jax_pad_to
+    from two_tower_recommender_model_tpu_torch.data.device_featurizer import PackedFeaturizer
+    from two_tower_recommender_model_tpu_torch.data.featurizer import pad_batch_to
+
+    cfg = _config()
+    rng = np.random.default_rng(rows)
+    cols = {"user_id": rng.integers(0, 1000, rows), "product_id": rng.integers(0, 300, rows),
+            "history": rng.integers(0, 300, (rows, 3)), "label": rng.integers(0, 2, rows)}
+    if packed:
+        want = jax_pad_to(JaxPacked(cfg, pack_label=True)(cols), 64)
+        got = pad_batch_to(PackedFeaturizer(_port(cfg), pack_label=True)(cols), 64)
+        leaves = [(got.ids_raw, want.ids_raw), (got.labels, want.labels),
+                  (got.weights, want.weights)]
+    else:
+        want = jax_pad_to(JaxFeaturizer(cfg)(cols), 64)
+        got = pad_batch_to(Featurizer(_port(cfg), device="cpu")(cols), 64)
+        leaves = [(got.labels, want.labels), (got.weights, want.weights)]
+        leaves += [(got.features[k].ids, want.features[k].ids) for k in want.features]
+        leaves += [(got.features[k].mask, want.features[k].mask) for k in want.features]
+    assert got.batch_size == want.batch_size == 64
+    for g, w in leaves:
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+    with pytest.raises(ValueError):
+        pad_batch_to(got, 32)

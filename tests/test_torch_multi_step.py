@@ -7,6 +7,7 @@ holds its own; and the port's multi-step against the JAX package's
 card the multi-step is a CUDA graph: `tests/test_torch_graph_cuda.py`."""
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -424,8 +425,34 @@ def test_train_one_epoch_packed_of_an_empty_stream():
 @pytest.mark.parametrize("arg", ["sharding", "tail_sharding", "val_sharding", "pad_multiple",
                                  "pad_to"])
 def test_the_packed_epochs_multi_device_arguments_wait(arg):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md"):
-        train_one_epoch_packed(None, None, [], None, **{arg: 8})
+    """The packed epoch takes the reference's mesh arguments (on a mesh:
+    `test_torch_parallel_*.py`). What still waits is the reference's pytree
+    of per-leaf placements, and a compact macro-batch on a mesh (ROADMAP
+    M12(c))."""
+    state = types.SimpleNamespace(device=torch.device("cpu"), step=0)
+    value = _WholeBatch() if arg.endswith("sharding") else 8
+    _, stats = train_one_epoch_packed(state, None, [], None, **{arg: value})
+    assert stats["train_steps"] == 0
+    if arg.endswith("sharding"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP.*M12\(c\)"):
+            train_one_epoch_packed(state, None, [], None, **{arg: {"ids_raw": None}})
+    if arg == "sharding":
+        with pytest.raises(NotImplementedError, match=r"ROADMAP.*M12\(c\)"):
+            train_one_epoch_packed(state, None, [{}], lambda cols: _Wire(np.zeros((2, 8))),
+                                   macro=1, sharding=value)
+
+
+class _WholeBatch:
+    """A one-rank placement: each leaf whole, on the CPU."""
+    device, parts = torch.device("cpu"), 1
+
+    def __call__(self, t):
+        return t
+
+
+@dataclasses.dataclass
+class _Wire:
+    wire: np.ndarray
 
 
 # --- the towers' optimizer, as the multi-step needs it -------------------------------------------

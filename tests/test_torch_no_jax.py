@@ -59,7 +59,9 @@ for name in ("train.step", "train.loop", "train.pipeline", "train.optimizer",
              "tuning.multi_seed", "data.parquet", "data.text_features", "examples",
              "examples.end_to_end_instacart_style", "examples.full_scale_synthetic",
              "examples.sweep_example", "examples.text_side_features",
-             "examples.tune_retrieval_smoke", "examples.workshop_ratings_style"):
+             "examples.tune_retrieval_smoke", "examples.workshop_ratings_style",
+             "parallel", "parallel.mesh", "parallel.launch", "parallel.planner",
+             "parallel.sharded"):
     assert pkg.__name__ + "." + name in names, name
 print(len(names))
 """
@@ -117,6 +119,13 @@ def test_every_card_test_file_is_listed():
 
     found = {os.path.relpath(f, _ROOT) for f in glob.glob(os.path.join(_ROOT, "tests", "*_cuda.py"))}
     assert found <= set(_CARD_TESTS), found - set(_CARD_TESTS)
+
+
+def test_the_parallel_tests_ranks_import_no_jax():
+    """The gloo ranks of the parallel tests run the port alone."""
+    roots = _import_roots("tests/torch_parallel_ranks.py")
+    assert "two_tower_recommender_model_tpu_torch" in roots
+    assert not roots & _NOT_IMPORTED
 
 
 @pytest.mark.parametrize("path", _CARD_TESTS)

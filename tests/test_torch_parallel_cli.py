@@ -1,0 +1,124 @@
+"""`cli.train` on a mesh: two gloo ranks under torchrun (`--device cpu`)
+against the one-rank run on the same shards, at the flagship's table sizes,
+where the default plan row-shards the user table (host-sorted) and puts the
+item table table-wise, through the default packed path. The metrics at the
+reference's loss bar (rtol 1e-5), the exports at the tables' and towers'
+bars of `test_torch_parallel_step.py`, the export loadable by `load_scorer`;
+a run stopped after its first epoch's checkpoint and resumed on two ranks
+equals the uninterrupted one bit for bit, and one rank resumes the two
+ranks' checkpoint."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from two_tower_recommender_model_tpu_torch.cli import fetch_instacart, prepare_instacart
+from two_tower_recommender_model_tpu_torch.serving.scorer import load_scorer
+
+USERS, ITEMS = 206_209, 49_688  # the flagship's tables: user row-sharded, items table-wise
+TIMEOUT_S = 300
+
+
+@pytest.fixture(scope="module")
+def data_dir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("mesh_cli")
+    fetch_instacart.main(["--out", str(d / "csv"), "--replica", "--replica-users", "300",
+                          "--replica-products", "150", "--seed", "4"])
+    prepare_instacart.main(["--csv-dir", str(d / "csv"), "--out", str(d / "data"),
+                            "--rows-per-shard", "4096"])
+    return str(d / "data")
+
+
+def _train(ranks, data_dir, work, *extra):
+    """`cli.train` under torchrun with `ranks` CPU ranks: (rank 0's results
+    dict as printed, stdout)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(ranks), "-m", "two_tower_recommender_model_tpu_torch.cli.train",
+           "--data-dir", data_dir, "--num-users", str(USERS), "--num-items", str(ITEMS),
+           "--embedding-dim", "128", "--layer-sizes", "16", "8", "--batch-size", "256",
+           "--sparse-learning-rate", "0.1", "--learning-rate", "0.003", "--macro-batches", "4",
+           "--runs-root", str(work / "runs"), "--device", "cpu", *extra]
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=TIMEOUT_S, env=env)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-6000:]
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{'baseline_val_loss'")]
+    assert len(lines) == 1, proc.stdout[-3000:]  # rank 0 prints, the others do not
+    return ast.literal_eval(lines[0]), proc.stdout
+
+
+@pytest.fixture(scope="module")
+def runs(data_dir, tmp_path_factory):
+    work = tmp_path_factory.mktemp("mesh_runs")
+    out = {}
+    for name, ranks in (("two", 2), ("one", 1)):
+        out[name] = _train(ranks, data_dir, work / name, "--epochs", "2",
+                           "--export-dir", str(work / name / "export"))
+    return work, out
+
+
+def _params(path):
+    with np.load(os.path.join(path, "params.npz")) as f:
+        return {k: f[k] for k in f.files}
+
+
+def test_two_ranks_train_like_one(runs):
+    work, out = runs
+    (two, stdout), (one, _) = out["two"], out["one"]
+    assert "EmbeddingShardingPlan over 2 device(s)" in stdout
+    plan = [ln.split() for ln in stdout.splitlines() if ln.startswith("t_")]
+    assert {p[0]: p[1] for p in plan} == {"t_user_id": "row_sharded",
+                                          "t_product_id": "table_wise"}
+    assert two["train_steps"] == one["train_steps"] and two["train_examples"] == \
+        one["train_examples"]
+    for key in ("baseline_val_loss", "val_loss", "test_loss", "train_loss"):
+        np.testing.assert_allclose(two[key], one[key], rtol=1e-5, err_msg=key)
+    for key in ("baseline_val_auroc", "val_auroc", "test_auroc"):
+        np.testing.assert_allclose(two[key], one[key], rtol=1e-4, err_msg=key)
+    assert two["val_auroc"] > two["baseline_val_auroc"] + 0.1
+    got, want = _params(work / "two" / "export"), _params(work / "one" / "export")
+    assert sorted(got) == sorted(want)
+    for k in want:
+        atol = 1e-5 if k.startswith("tables/") else 1e-6
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=atol, err_msg=k)
+    rng = np.random.default_rng(0)
+    inputs = {"user_id": rng.integers(1, 300, 64), "product_id": rng.integers(1, 150, 64)}
+    scores = [load_scorer(str(work / name / "export"), device="cpu").predict(inputs)
+              for name in ("two", "one")]
+    np.testing.assert_allclose(scores[0], scores[1], rtol=1e-4, atol=1e-5)
+
+
+def test_two_rank_resume_equals_the_uninterrupted_run(runs, data_dir, tmp_path):
+    """Two ranks stop after epoch 0's checkpoint (rank 0 saves the unsharded
+    state) and two ranks resume it: the export is the uninterrupted run's,
+    bit for bit. One rank resumes the same checkpoint (any mesh restores
+    it) and lands at the bars of the two-rank run."""
+    work, out = runs
+    ckpt = tmp_path / "ckpt"
+    _train(2, data_dir, tmp_path / "a", "--epochs", "1", "--checkpoint-dir", str(ckpt))
+    saved = sorted(os.listdir(ckpt))
+    assert saved == [str(out["two"][0]["train_steps"])]
+    ckpt1 = tmp_path / "ckpt1"
+    shutil.copytree(ckpt, ckpt1)
+    resumed, stdout = _train(2, data_dir, tmp_path / "b", "--epochs", "2", "--checkpoint-dir",
+                             str(ckpt), "--resume", "--export-dir", str(tmp_path / "b" / "export"))
+    assert "resumed from step" in stdout
+    want = _params(work / "two" / "export")
+    got = _params(tmp_path / "b" / "export")
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for key in ("val_loss", "test_loss", "val_auroc", "test_auroc"):
+        assert resumed[key] == out["two"][0][key]
+    _train(1, data_dir, tmp_path / "d", "--epochs", "2", "--checkpoint-dir", str(ckpt1),
+           "--resume", "--export-dir", str(tmp_path / "d" / "export"))
+    got = _params(tmp_path / "d" / "export")
+    for k in want:
+        atol = 1e-5 if k.startswith("tables/") else 1e-6
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=atol, err_msg=k)
+    assert torch.load(os.path.join(ckpt1, saved[0], "state.pt"), weights_only=True)["step"] \
+        == out["two"][0]["train_steps"]

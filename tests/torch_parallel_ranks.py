@@ -1,0 +1,262 @@
+"""Gloo ranks for the parallel tests: a pool of N spawned processes in one
+process group (`device="cpu"`), and the tasks they run.
+
+The pool starts once a test module (each rank is a process that imports
+torch and the port, a few seconds) and runs tasks by name on every rank:
+`pool.run("train_steps", **kwargs)` returns each rank's result in rank
+order. Inputs and results are numpy: the JAX side of a test lives in the
+parent process only, and nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import multiprocessing as mp
+import queue
+import socket
+import sys
+import traceback
+
+import numpy as np
+
+TIMEOUT_S = 240  # a task's longest wait; the ranks' collectives time out first
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class RankPool:
+    """`world` gloo ranks, started by spawn, serving tasks until `close`."""
+
+    def __init__(self, world: int):
+        ctx = mp.get_context("spawn")
+        port = _free_port()
+        self.world = world
+        self.inboxes = [ctx.Queue() for _ in range(world)]
+        self.outbox = ctx.Queue()
+        self.procs = [ctx.Process(target=_serve, args=(r, world, port, self.inboxes[r],
+                                                      self.outbox), daemon=True)
+                      for r in range(world)]
+        for p in self.procs:
+            p.start()
+
+    def run(self, task: str, **kwargs) -> list:
+        for box in self.inboxes:
+            box.put((task, kwargs))
+        got: dict[int, object] = {}
+        while len(got) < self.world:
+            try:
+                rank, ok, value = self.outbox.get(timeout=TIMEOUT_S)
+            except queue.Empty:
+                raise TimeoutError(f"task {task}: ranks {sorted(set(range(self.world)) - set(got))}"
+                                   f" gave no answer in {TIMEOUT_S} s") from None
+            if not ok:
+                raise RuntimeError(f"task {task} failed on rank {rank}:\n{value}")
+            got[rank] = value
+        return [got[r] for r in range(self.world)]
+
+    def close(self) -> None:
+        for box in self.inboxes:
+            box.put(None)
+        for p in self.procs:
+            p.join(timeout=20)
+            if p.is_alive():
+                p.terminate()
+
+
+def _serve(rank, world, port, inbox, outbox) -> None:
+    import torch
+
+    torch.set_num_threads(1)
+    from two_tower_recommender_model_tpu_torch.parallel import launch
+
+    launch.initialize_distributed("cpu", world, rank, f"tcp://127.0.0.1:{port}", timeout_s=120)
+    this = sys.modules[__name__]
+    while True:
+        item = inbox.get()
+        if item is None:
+            break
+        name, kwargs = item
+        try:
+            outbox.put((rank, True, getattr(this, name)(**kwargs)))
+        except BaseException:  # noqa: BLE001 - sent to the parent, which raises it
+            outbox.put((rank, False, traceback.format_exc()))
+    assert not any(m.split(".")[0] in ("jax", "two_tower_recommender_model_tpu")
+                   for m in sys.modules), "a rank imported JAX or the JAX package"
+    torch.distributed.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the tasks (every rank runs each; helpers shared with the parent process)
+
+_MESHES: dict = {}
+
+
+def mesh_of(shape):
+    """This rank's mesh of `shape` (data, model), made once: every rank
+    makes every mesh, in one order (None beyond the mesh)."""
+    from two_tower_recommender_model_tpu_torch.parallel.mesh import make_mesh
+
+    shape = tuple(shape)
+    if shape not in _MESHES:
+        _MESHES[shape] = make_mesh(*shape)
+    return _MESHES[shape]
+
+
+def configs(cfg: dict, tcfg: dict):
+    from two_tower_recommender_model_tpu_torch import config as port_config
+
+    tcfg = {k: tuple(v) if isinstance(v, list) else v for k, v in tcfg.items()}
+    return port_config.model_config_from_dict(cfg), port_config.TrainConfig(**tcfg)
+
+
+def start_state(start: dict, pcfg, ptcfg, device="cpu"):
+    """The port's state from a numpy start (`train_state_from_numpy`'s
+    layout), f32 tables rounded into a bf16 model's tables."""
+    from two_tower_recommender_model_tpu_torch.train.step import train_state_from_numpy
+
+    return train_state_from_numpy(start, pcfg, ptcfg, device=device)
+
+
+def port_batch(nb: dict):
+    """A port `Batch` of CPU tensors from its numpy arrays:
+    {"features": {name: (ids, mask)}, "labels", "weights"?, "dense"?}."""
+    import torch
+
+    from two_tower_recommender_model_tpu_torch.data.featurizer import Batch, SparseFeature
+
+    t = lambda a: None if a is None else torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    return Batch(features={k: SparseFeature(ids=t(i), mask=t(m))
+                           for k, (i, m) in nb["features"].items()},
+                 labels=t(nb["labels"]), dense=t(nb.get("dense")), weights=t(nb.get("weights")))
+
+
+def state_numpy(state) -> dict:
+    """Tables (f32), accumulators, towers in the JAX layout, Adam's moments
+    in the JAX layout, and the step."""
+    from two_tower_recommender_model_tpu_torch.models.two_tower import params_to_numpy
+
+    out = params_to_numpy(state.model)
+    out["adagrad_acc"] = {k: v.numpy().copy() for k, v in state.adagrad_acc.items()}
+    opt = state.dense_opt_state
+    for moment, name in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+        out[moment] = {}
+        for key in ("query_tower", "candidate_tower"):
+            out[moment][key] = {}
+            for i, layer in enumerate(getattr(state.model, key).layers):
+                out[moment][key][f"layer_{i}"] = {
+                    "kernel": opt.state[layer.weight][name].numpy().T.copy(),
+                    "bias": opt.state[layer.bias][name].numpy().copy()}
+    out["step"] = state.step
+    return out
+
+
+def _sharded_setup(cfg, tcfg, start, mesh_shape, force):
+    from two_tower_recommender_model_tpu_torch.parallel.planner import plan_sharding
+    from two_tower_recommender_model_tpu_torch.parallel.sharded import shard_train_state
+
+    mesh = mesh_of(mesh_shape)
+    if mesh is None:
+        return None
+    pcfg, ptcfg = configs(cfg, tcfg)
+    state, opt = start_state(start, pcfg, ptcfg)
+    plan = plan_sharding(pcfg, mesh.size, force=force)
+    return mesh, pcfg, ptcfg, plan, shard_train_state(state, plan, mesh), opt
+
+
+def train_steps(cfg, tcfg, start, batches, mesh_shape, force, packed_columns=None):
+    """The sharded train step over `batches` (numpy `Batch`es); with
+    `packed_columns`, also the packed macro-step over those columns from the
+    same start. Rank 0 returns {"losses", "state", "plan"} (and
+    {"macro_losses", "macro_state"}); the others None."""
+    import torch
+
+    from two_tower_recommender_model_tpu_torch.data.device_featurizer import PackedFeaturizer
+    from two_tower_recommender_model_tpu_torch.parallel.sharded import (
+        batch_sharding,
+        macro_batch_sharding,
+        make_sharded_multi_step,
+        make_sharded_train_step,
+        shard_train_state,
+        unshard_train_state,
+    )
+    from two_tower_recommender_model_tpu_torch.train.pipeline import device_put_batch
+    from two_tower_recommender_model_tpu_torch.train.step import stack_batches
+
+    setup = _sharded_setup(cfg, tcfg, start, mesh_shape, force)
+    if setup is None:
+        return None
+    mesh, pcfg, ptcfg, plan, sh, opt = setup
+    step = make_sharded_train_step(pcfg, ptcfg, opt, mesh, plan)
+    losses = []
+    for nb in batches:
+        sh, out = step(sh, device_put_batch(port_batch(nb), sharding=batch_sharding(mesh)))
+        losses.append(out["loss"].float().item())
+        assert out["logits"].shape[0] == nb["labels"].shape[0] // mesh.data
+    full = unshard_train_state(sh, plan, pcfg, mesh, dst=0)
+    result = None if mesh.rank else {"losses": losses, "state": state_numpy(full),
+                                     "plan": plan.describe()}
+    if packed_columns is not None:
+        state, _ = start_state(start, pcfg, ptcfg)
+        sh = shard_train_state(state, plan, mesh)
+        multi = make_sharded_multi_step(pcfg, ptcfg, opt, mesh, plan, pack_label=True)
+        pf = PackedFeaturizer(pcfg, pack_label=True, sort_feature=ptcfg.sorted_feature)
+        mb = stack_batches([pf(c) for c in packed_columns])
+        sh, out = multi(sh, device_put_batch(mb, sharding=macro_batch_sharding(mesh)))
+        full = unshard_train_state(sh, plan, pcfg, mesh, dst=0)
+        if result is not None:
+            result.update(macro_losses=out["loss"].float().tolist(),
+                          macro_state=state_numpy(full))
+    torch.distributed.barrier(group=mesh.group)
+    return result
+
+
+def evaluate_columns(cfg, tcfg, start, columns, mesh_shape, force, pad_multiple=None,
+                     pad_to=None):
+    """`train.loop.evaluate` on the mesh over `columns`: every rank's
+    metrics."""
+    from two_tower_recommender_model_tpu_torch.data.featurizer import Featurizer
+    from two_tower_recommender_model_tpu_torch.parallel.sharded import (
+        batch_sharding,
+        make_sharded_eval_step,
+    )
+    from two_tower_recommender_model_tpu_torch.train.loop import evaluate
+
+    setup = _sharded_setup(cfg, tcfg, start, mesh_shape, force)
+    if setup is None:
+        return None
+    mesh, pcfg, ptcfg, plan, sh, _ = setup
+    return evaluate(sh, make_sharded_eval_step(pcfg, ptcfg, mesh, plan), columns,
+                    Featurizer(pcfg, device="cpu"), stage="val", sharding=batch_sharding(mesh),
+                    pad_multiple=pad_multiple, pad_to=pad_to)
+
+
+def sharded_lookup(table, ids, w, mesh_shape):
+    """`make_sharded_lookup` on a row-sharded `table`: the pooled rows of
+    the whole batch (each data rank's slice, gathered), on every rank."""
+    import torch
+
+    from two_tower_recommender_model_tpu_torch.parallel.sharded import (
+        _all_gather,
+        batch_sharding,
+        make_sharded_lookup,
+    )
+
+    mesh = mesh_of(mesh_shape)
+    if mesh is None:
+        return None
+    rows = table.shape[0] // mesh.size
+    shard = torch.from_numpy(table[mesh.rank * rows:(mesh.rank + 1) * rows].copy())
+    cut = batch_sharding(mesh)
+    out = make_sharded_lookup(mesh)(shard, cut(torch.from_numpy(ids)), cut(torch.from_numpy(w)))
+    return _all_gather(out, mesh.data_group, mesh.data).numpy()
+
+
+def batch_numpy(batch) -> dict:
+    """A `Batch` (JAX arrays or tensors) as `port_batch`'s numpy layout."""
+    a = lambda x: None if x is None else np.asarray(x)  # noqa: E731
+    return {"features": {k: (a(f.ids), a(f.mask)) for k, f in batch.features.items()},
+            "labels": a(batch.labels), "weights": a(batch.weights), "dense": a(batch.dense)}
+

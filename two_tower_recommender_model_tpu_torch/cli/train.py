@@ -1,10 +1,11 @@
-"""Train the two-tower model on TTRS shards, on one device.
+"""Train the two-tower model on TTRS shards, on one device or on N ranks.
 
     python -m two_tower_recommender_model_tpu_torch.cli.train \\
         --data-dir out/instacart --num-users 206210 --num-items 49689
+    python -m torch.distributed.run --nproc-per-node 2 \\
+        -m two_tower_recommender_model_tpu_torch.cli.train --data-dir ... [--device cpu]
 
-The port of `scripts/train.py`'s single-device route, on the card unless
-given `--device cpu`: the packed epoch (pre-packed shards or raw columns
+The port of `scripts/train.py`, on the card unless given `--device cpu`: the packed epoch (pre-packed shards or raw columns
 packed on the host) through `train_one_epoch_packed` and `make_multi_step`
 (on the card one CUDA graph of `--macro-batches` steps, replayed), or the
 per-batch loop with `--no-packed`; validation, the test eval, the run logged
@@ -17,8 +18,22 @@ of 8; `--wire-cache DIR` encodes the epoch's batches once into a wire cache
 after every epoch (`utils.checkpoint.Checkpointer`); `--resume` restores the
 latest one before anything is captured and trains on from the next epoch.
 
+Under torchrun with more than one rank (and without `--no-shard`) it takes
+the mesh path of `scripts/train.py`: a `data x model` mesh (`--mesh-model`)
+of NCCL ranks, one a card (gloo ranks with `--device cpu`); the plan of
+`parallel.planner.plan_sharding` within the card's memory, printed by rank
+0; every rank runs the same loader and trains on its slice of each global
+batch through the sharded step (`parallel/sharded.py`), the packed path as
+one CUDA graph of `--macro-batches` sharded steps. The sorted feature's auto
+choice turns itself off where the plan puts its table where the sorted
+paths do not go. Rank 0 logs, saves the checkpoint of the unsharded state
+(any mesh, or one device, restores it) and exports it. On a mesh
+`--wire-format auto` resolves to packed (compact batches train bit for bit
+as packed ones; only the link's bytes differ).
+
 Flags whose modules are not ported yet raise, naming their ROADMAP item:
-`--multi-host`, `--mesh-model` > 1 and the exchange flags (M12, multi-GPU).
+`--multi-host`, `--wire-format compact` and `--wire-cache` on a mesh
+(M12(c)), `--sharded-exchange alltoall` and the exchange flags (M12(b)).
 """
 
 from __future__ import annotations
@@ -55,6 +70,17 @@ from two_tower_recommender_model_tpu_torch.evaluation.retrieval import (
     make_retrieval_eval_fn,
     split_positives,
 )
+from two_tower_recommender_model_tpu_torch.parallel import launch, planner
+from two_tower_recommender_model_tpu_torch.parallel.mesh import make_mesh, topology_summary
+from two_tower_recommender_model_tpu_torch.parallel.sharded import (
+    batch_sharding,
+    macro_batch_sharding,
+    make_sharded_eval_step,
+    make_sharded_multi_step,
+    make_sharded_train_step,
+    shard_train_state,
+    unshard_train_state,
+)
 from two_tower_recommender_model_tpu_torch.train.loop import (
     train_one_epoch,
     train_one_epoch_packed,
@@ -66,6 +92,7 @@ from two_tower_recommender_model_tpu_torch.train.step import (
     make_eval_step,
     make_multi_step,
     make_train_step,
+    validate_sorted_feature,
 )
 from two_tower_recommender_model_tpu_torch.utils.checkpoint import Checkpointer, export_model
 from two_tower_recommender_model_tpu_torch.utils.tracking import ExperimentLogger
@@ -74,10 +101,9 @@ log = logging.getLogger(__name__)
 
 # flag -> (the value that means "not asked for", the ROADMAP item it waits for)
 _UNPORTED = {
-    "multi_host": (False, "M12, multi-GPU"),
-    "sharded_exchange": (None, "M12, multi-GPU"),
-    "exchange_capacity_factor": (None, "M12, multi-GPU"),
-    "exchange_wire_dtype": (None, "M12, multi-GPU"),
+    "multi_host": (False, "M12(c), per-host loader slices"),
+    "exchange_capacity_factor": (None, "M12(b), the all-to-all exchange"),
+    "exchange_wire_dtype": (None, "M12(b), the all-to-all exchange"),
 }
 
 
@@ -142,16 +168,20 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                          "flagship with the sorted user slot delta-encoded, against 8; the "
                          "same numerics). 'auto' (default) picks compact when the batch size "
                          "is a multiple of 8")
-    # not ported yet: each raises when given
-    ap.add_argument("--multi-host", action="store_true", help="not ported yet (ROADMAP M12)")
     ap.add_argument("--mesh-model", type=int, default=1,
-                    help="model axis size; above 1 not ported yet (ROADMAP M12)")
+                    help="model axis of the mesh under torchrun (ranks = data x model)")
+    ap.add_argument("--no-shard", action="store_true",
+                    help="skip the mesh: the one-device path in each process")
     ap.add_argument("--sharded-exchange", choices=["dense", "alltoall"], default=None,
-                    help="not ported yet (ROADMAP M12)")
+                    help="the sharded tables' exchange: dense (default); alltoall is not "
+                         "ported yet (ROADMAP M12(b))")
+    # not ported yet: each raises when given
+    ap.add_argument("--multi-host", action="store_true",
+                    help="not ported yet (ROADMAP M12(c))")
     ap.add_argument("--exchange-capacity-factor", type=float, default=None,
-                    help="not ported yet (ROADMAP M12)")
+                    help="not ported yet (ROADMAP M12(b))")
     ap.add_argument("--exchange-wire-dtype", choices=["float32", "bfloat16"], default=None,
-                    help="not ported yet (ROADMAP M12)")
+                    help="not ported yet (ROADMAP M12(b))")
     ap.add_argument("--wire-cache", default=None, metavar="DIR",
                     help="pre-encoded batch cache (data/wirecache.py): built on first use "
                          "from the loader's order, reused after; an epoch's host work drops "
@@ -182,9 +212,21 @@ def refuse_unported(args: argparse.Namespace) -> None:
         if getattr(args, name) != unset:
             raise NotImplementedError(f"--{name.replace('_', '-')} is not ported to the PyTorch "
                                       f"package yet (ROADMAP.md Queue 1, {item})")
-    if args.mesh_model != 1:
-        raise NotImplementedError("--mesh-model above 1 is not ported to the PyTorch package "
-                                  "yet (ROADMAP.md Queue 1, M12, multi-GPU)")
+    if args.sharded_exchange == "alltoall":
+        raise NotImplementedError("--sharded-exchange alltoall is not ported to the PyTorch "
+                                  "package yet (ROADMAP.md Queue 1, M12(b), the all-to-all "
+                                  "exchange)")
+
+
+def refuse_unported_on_mesh(args: argparse.Namespace) -> None:
+    """Raise for a flag the mesh path does not have yet."""
+    if args.wire_format == "compact":
+        raise NotImplementedError("--wire-format compact on a mesh is not ported to the "
+                                  "PyTorch package yet (ROADMAP.md Queue 1, M12(c)): packed "
+                                  "batches train the same")
+    if args.wire_cache:
+        raise NotImplementedError("--wire-cache on a mesh is not ported to the PyTorch package "
+                                  "yet (ROADMAP.md Queue 1, M12(c))")
 
 
 def block_sorted_kernel_auto(mcfg: cfg_lib.ModelConfig, sorted_feature: str | None,
@@ -251,26 +293,45 @@ def main(argv: list[str] | None = None) -> dict:
     """Train, evaluate and export; returns {"metrics": train_val_test's
     results, "epochs": each epoch's train stats (of the epochs this run
     trained), "captures"/"replays" of the packed path's multi-step,
-    "run_dir", "resumed_from" (the restored checkpoint's step, or None),
-    "restore_seconds", "checkpoints" (each save's step, epoch, seconds and
-    bytes), "wire_format" (the packed path's "packed" or "compact", None on
-    --no-packed) and "wire_cache" (`open_wire_caches`'s per-generation
-    facts, or None)}."""
+    "run_dir" (None on ranks but 0), "resumed_from" (the restored
+    checkpoint's step, or None), "restore_seconds", "checkpoints" (each
+    save's step, epoch, seconds and bytes), "wire_format" (the packed path's
+    "packed" or "compact", None on --no-packed), "wire_cache"
+    (`open_wire_caches`'s per-generation facts, or None), "rank" and "mesh"
+    ({"data", "model", "plan"} on the mesh path, else None)}."""
     args = parse_args(argv)
     refuse_unported(args)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
-    device = resolve_device(args.device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    sharded = world > 1 and not args.no_shard
+    if args.mesh_model != 1 and not sharded:
+        raise SystemExit("--mesh-model needs a mesh: run data x model ranks under torchrun")
+    if sharded:
+        refuse_unported_on_mesh(args)
+        if args.batch_size % world:
+            raise SystemExit(f"--batch-size {args.batch_size} must be divisible by {world} "
+                             "ranks")
+        device = launch.initialize_distributed(args.device)
+        try:
+            return _main(args, device, make_mesh(model=args.mesh_model))
+        finally:
+            torch.distributed.destroy_process_group()
+    return _main(args, resolve_device(args.device), None)
 
+
+def _main(args: argparse.Namespace, device: torch.device, mesh) -> dict:
+    rank0 = mesh is None or mesh.rank == 0
     mcfg = cfg_lib.two_tower_model_config(
         num_users=args.num_users, num_items=args.num_items, embedding_dim=args.embedding_dim,
         layer_sizes=tuple(args.layer_sizes), compute_dtype=args.compute_dtype)
     if args.table_dtype != "float32":
         mcfg = dataclasses.replace(mcfg, table_dtype=args.table_dtype)
-    sorted_feature = args.sorted_feature
+    sorted_feature, sorted_auto = args.sorted_feature, False
     if sorted_feature == "off":
         sorted_feature = None
     elif sorted_feature == "auto":
         sorted_feature = auto_sorted_feature(mcfg) if not args.no_packed else None
+        sorted_auto = sorted_feature is not None
         log.info("sorted-feature auto: %s", sorted_feature)
     elif args.no_packed:
         # the host-sorted ids live in the packed path: the per-batch Featurizer does not sort
@@ -289,23 +350,40 @@ def main(argv: list[str] | None = None) -> dict:
         validation_freq=args.validation_freq, softmax_temperature=args.softmax_temperature,
         limit_train_batches=args.limit_train_batches,
         limit_val_batches=args.limit_val_batches, limit_test_batches=args.limit_test_batches,
-        sorted_feature=sorted_feature, block_sorted_kernel=block_kernel)
+        sorted_feature=sorted_feature, block_sorted_kernel=block_kernel,
+        sharded_exchange=args.sharded_exchange or "dense")
+
+    plan = None
+    if mesh is not None:
+        hbm = torch.cuda.mem_get_info(device)[1] if device.type == "cuda" else None
+        plan = planner.plan_sharding(mcfg, mesh.size, hbm_budget_bytes=hbm)
+        if sorted_auto:
+            # the auto choice steps aside where the plan puts the sorted table where the
+            # sorted paths do not go (the block kernels stay on, in device-sort mode)
+            strategy = plan[validate_sorted_feature(mcfg, tcfg)].strategy
+            if strategy not in (planner.ROW_SHARDED, planner.REPLICATED) or (
+                    block_kernel != "off" and strategy != planner.ROW_SHARDED):
+                log.info("sorted-feature auto: off (table is %s)", strategy)
+                sorted_feature = None
+                tcfg = dataclasses.replace(tcfg, sorted_feature=None)
+        if tcfg.print_sharding_plan and rank0:
+            print(plan.describe())
 
     state, dense_opt = create_train_state(torch.Generator(device=device).manual_seed(args.seed),
                                           mcfg, tcfg)
-    train_step = make_train_step(mcfg, tcfg, dense_opt)
-    eval_step = make_eval_step(mcfg, tcfg)
     featurizer = Featurizer(mcfg, device="cpu")  # host batches; the loop moves them
 
-    logger = ExperimentLogger(args.runs_root)
-    logger.log_params({
-        "num_users": args.num_users, "num_items": args.num_items,
-        "embedding_dim": args.embedding_dim, "layer_sizes": args.layer_sizes,
-        "batch_size": args.batch_size, "loss": args.loss, "devices": 1, "hosts": 1,
-        "platform": "gpu" if device.type == "cuda" else device.type,
-        "device_kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-        "devices_per_host": 1,
-    })
+    topo = topology_summary(device)
+    logger = ExperimentLogger(args.runs_root) if rank0 else None
+    if logger is not None:
+        logger.log_params({
+            "num_users": args.num_users, "num_items": args.num_items,
+            "embedding_dim": args.embedding_dim, "layer_sizes": args.layer_sizes,
+            "batch_size": args.batch_size, "loss": args.loss,
+            "devices": 1 if mesh is None else mesh.size, "hosts": topo.num_hosts,
+            "platform": topo.platform, "device_kind": topo.device_kind,
+            "devices_per_host": 1 if mesh is None else topo.devices_per_host,
+        })
 
     ckpt = Checkpointer(args.checkpoint_dir) if args.checkpoint_dir else None
     train_loader = StreamLoader(os.path.join(args.data_dir, "train"), args.batch_size,
@@ -317,22 +395,42 @@ def main(argv: list[str] | None = None) -> dict:
     start_epoch, resumed_from, restore_seconds = 0, None, None
     if args.resume and ckpt is not None and ckpt.latest_step() is not None:
         t0 = time.perf_counter()
+        # the checkpoint holds the whole state: restored whole, then sharded
         state, _, extra = ckpt.restore(state)
         restore_seconds = time.perf_counter() - t0
         # checkpoints are taken at epoch boundaries: resume at the NEXT epoch
         start_epoch = int(extra.get("completed_epoch", -1)) + 1
         resumed_from = state.step
-        print(f"resumed from step {state.step}, epoch {start_epoch}")
+        if rank0:
+            print(f"resumed from step {state.step}, epoch {start_epoch}")
+
+    sharding, pad_multiple = None, None
+    if mesh is None:
+        train_step = make_train_step(mcfg, tcfg, dense_opt)
+        eval_step = make_eval_step(mcfg, tcfg)
+    else:
+        state = shard_train_state(state, plan, mesh)
+        train_step = make_sharded_train_step(mcfg, tcfg, dense_opt, mesh, plan)
+        eval_step = make_sharded_eval_step(mcfg, tcfg, mesh, plan)
+        sharding, pad_multiple = batch_sharding(mesh), mesh.size
+
+    def whole(s):
+        """The unsharded state on rank 0 (None elsewhere; every rank takes part)."""
+        return s if mesh is None else unshard_train_state(s, plan, mcfg, mesh, dst=0)
+
     saves: list[dict] = []
 
     def checkpoint_fn(s, epoch):
         if ckpt is None:
             return
         t0 = time.perf_counter()
-        ckpt.save(s.step, s, loader_state=train_loader.state_dict(),
+        full = whole(s)
+        if not rank0:
+            return
+        ckpt.save(full.step, full, loader_state=train_loader.state_dict(),
                   extra={"completed_epoch": epoch}, wait=True)
-        saves.append({"step": s.step, "epoch": epoch, "seconds": time.perf_counter() - t0,
-                      "bytes": sum(e.stat().st_size for e in os.scandir(ckpt.step_dir(s.step)))})
+        saves.append({"step": full.step, "epoch": epoch, "seconds": time.perf_counter() - t0,
+                      "bytes": sum(e.stat().st_size for e in os.scandir(ckpt.step_dir(full.step)))})
 
     def eval_factory(split):
         return lambda: StreamLoader(os.path.join(args.data_dir, split), args.batch_size,
@@ -345,7 +443,8 @@ def main(argv: list[str] | None = None) -> dict:
         def train_epoch_fn(state, epoch):
             train_loader.set_epoch(epoch)
             state, stats = train_one_epoch(state, train_step, train_loader, featurizer, tcfg,
-                                           eval_step, eval_factory("val"), logger, epoch)
+                                           eval_step, eval_factory("val"), logger, epoch,
+                                           sharding, pad_multiple)
             epochs.append(stats)
             return state, stats
     else:
@@ -358,10 +457,20 @@ def main(argv: list[str] | None = None) -> dict:
         # written with pack_label=False keeps its labels in a column of their own
         pl = packed_feat.pack_label
         wire = args.wire_format
-        if wire == "auto":
+        if wire == "auto" and mesh is not None:
+            wire = "packed"
+            log.info("wire format auto on a mesh: packed (the compact wire on a mesh is "
+                     "ROADMAP M12(c); it trains bit for bit as packed, only the link's bytes "
+                     "differ)")
+        elif wire == "auto":
             wire = "compact" if args.batch_size % 8 == 0 else "packed"
         log.info("wire format: %s", wire)
-        if wire == "compact":
+        macro_sh = tail_sh = None
+        if mesh is not None:
+            multi = make_sharded_multi_step(mcfg, tcfg, dense_opt, mesh, plan, pack_label=pl)
+            tail_step = make_packed_train_step(train_step, mcfg, pack_label=pl)
+            macro_sh, tail_sh = macro_batch_sharding(mesh), sharding
+        elif wire == "compact":
             # a sorted slot ships as uint8 deltas (3.125 B an example for the
             # flagship against 4.375; the same numerics: data/compact.py)
             scheme = CompactScheme.from_model(mcfg, pack_label=pl, delta_feature=sorted_feature)
@@ -405,7 +514,8 @@ def main(argv: list[str] | None = None) -> dict:
             state, stats = train_one_epoch_packed(
                 state, multi, batches, feat, macro=macro, train_cfg=tcfg, tail_step=tail_step,
                 eval_step=eval_step, val_batches_factory=eval_factory("val"),
-                val_featurizer=featurizer, logger=logger, epoch=epoch)
+                val_featurizer=featurizer, logger=logger, epoch=epoch, sharding=macro_sh,
+                tail_sharding=tail_sh, val_sharding=sharding, pad_multiple=pad_multiple)
             epochs.append(stats)
             return state, stats
 
@@ -417,28 +527,40 @@ def main(argv: list[str] | None = None) -> dict:
         positives = split_positives(os.path.join(args.data_dir, "val"))
         m = re.search(r"_at_(\d+)$", args.select_best)
         k_sel = int(m.group(1)) if m else 100
+        params_fn = None
+        if mesh is not None:
+            def params_fn(s):
+                return unshard_train_state(s, plan, mcfg, mesh, dst=None).model
         retrieval_eval_fn = make_retrieval_eval_fn(mcfg, positives, k=max(k_sel, 100),
                                                    ks=(k_sel,),
-                                                   max_users=args.retrieval_eval_users)
-        print(f"per-epoch retrieval eval: {len(positives)} users with val positives, "
-              f"subsample {args.retrieval_eval_users}, selecting on {args.select_best}")
+                                                   max_users=args.retrieval_eval_users,
+                                                   params_fn=params_fn)
+        if rank0:
+            print(f"per-epoch retrieval eval: {len(positives)} users with val positives, "
+                  f"subsample {args.retrieval_eval_users}, selecting on {args.select_best}")
 
     state, results = train_val_test(
         state, train_step, eval_step, mcfg, tcfg, featurizer,
         train_batches_factory=None, val_batches_factory=eval_factory("val"),
         test_batches_factory=eval_factory("test"), logger=logger,
-        checkpoint_fn=checkpoint_fn, start_epoch=start_epoch,
-        train_epoch_fn=train_epoch_fn, select_best=args.select_best,
+        checkpoint_fn=checkpoint_fn, sharding=sharding, pad_multiple=pad_multiple,
+        start_epoch=start_epoch, train_epoch_fn=train_epoch_fn, select_best=args.select_best,
         retrieval_eval_fn=retrieval_eval_fn)
-    print({k: round(v, 5) for k, v in results.items()})
+    if rank0:
+        print({k: round(v, 5) for k, v in results.items()})
     if args.export_dir:
-        export_model(args.export_dir, mcfg, state)
-        print(f"exported model to {args.export_dir}")
+        full = whole(state)
+        if rank0:
+            export_model(args.export_dir, mcfg, full)
+            print(f"exported model to {args.export_dir}")
     return {"metrics": results, "epochs": epochs,
             "captures": multi.captures if multi else 0, "replays": multi.replays if multi else 0,
-            "run_dir": logger.run_dir, "resumed_from": resumed_from,
-            "restore_seconds": restore_seconds, "checkpoints": saves,
-            "wire_format": wire, "wire_cache": wire_cache_info}
+            "run_dir": logger.run_dir if logger is not None else None,
+            "resumed_from": resumed_from, "restore_seconds": restore_seconds,
+            "checkpoints": saves, "wire_format": wire, "wire_cache": wire_cache_info,
+            "rank": 0 if mesh is None else mesh.rank,
+            "mesh": None if mesh is None else {"data": mesh.data, "model": mesh.model,
+                                               "plan": plan.describe()}}
 
 
 if __name__ == "__main__":

@@ -191,11 +191,29 @@ class TrainConfig:
     block_sorted_gather: bool = True
     device_sorted_gather: bool = False  # not ported (ROADMAP)
     softmax_kernel: str = "auto"  # only for sampled_softmax
-    sharded_exchange: str = "dense"  # multi-GPU slice
-    exchange_capacity_factor: float = 1.25  # multi-GPU slice
-    exchange_wire_dtype: str = "float32"  # multi-GPU slice
+    # "dense" (the all-gather / reduce-scatter exchange of `parallel/sharded.py`)
+    # | "alltoall" (not ported: ROADMAP M12(b))
+    sharded_exchange: str = "dense"
+    exchange_capacity_factor: float = 1.25  # alltoall only (M12(b))
+    exchange_wire_dtype: str = "float32"  # alltoall only (M12(b))
     checkpoint_dir: str | None = None
     checkpoint_every_epochs: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Logical device mesh of `data x model` ranks (`parallel/mesh.py`).
+    `data` is the batch / data-parallel axis; `model` the second table axis.
+    Tables row-shard over the flattened (data, model) ranks, one global copy
+    of every row, while the dense towers replicate and sync their gradients
+    over `data`."""
+
+    data: int = 1
+    model: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.model
 
 
 def to_json(cfg: Any) -> str:

@@ -15,6 +15,7 @@ from two_tower_recommender_model_tpu_torch.data.featurizer import (  # noqa: F40
     Featurizer,
     SparseFeature,
     pad_batch,
+    pad_batch_to,
 )
 from two_tower_recommender_model_tpu_torch.data.synthetic import SyntheticClickstream  # noqa: F401
 

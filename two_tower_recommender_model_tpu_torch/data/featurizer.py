@@ -53,21 +53,47 @@ class Batch:
         return self.labels.shape[0]
 
 
-def pad_batch(batch: Batch, multiple: int) -> Batch:
+def pad_batch(batch, multiple: int):
     """Pad to a multiple of `multiple` rows with zero-weight samples (id 0,
-    mask 0, label 0), so a ragged tail batch keeps a fixed shape without
-    skewing metrics."""
-    pad = (-batch.batch_size) % multiple
+    mask 0, label 0), so a ragged tail batch keeps a fixed shape (or splits
+    evenly over the data ranks of a mesh) without skewing metrics. Takes a
+    `Batch` or a `PackedBatch` (packed rows pad with id 0, the missing
+    sentinel; `labels` may be the empty placeholder of a packed label), with
+    tensor or numpy leaves."""
+    return _pad_rows(batch, (-batch.batch_size) % multiple)
+
+
+def pad_batch_to(batch, rows: int):
+    """Pad to exactly `rows` rows with zero-weight samples. Unlike
+    `pad_batch` this also grows a 0-row batch into an all-padding one of the
+    common shape, which still runs its step (and a mesh's collectives)."""
+    pad = rows - batch.batch_size
+    if pad < 0:
+        raise ValueError(f"batch has {batch.batch_size} rows > pad_to={rows}")
+    return _pad_rows(batch, pad)
+
+
+def _pad_rows(batch, pad: int):
+    def padrows(x):
+        if isinstance(x, torch.Tensor):
+            return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        x = np.asarray(x)
+        return np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
+
+    b = batch.batch_size
     weights = batch.weights
     if weights is None:
-        weights = torch.ones(batch.batch_size, dtype=torch.float32,
-                             device=batch.labels.device)
+        like = batch.ids_raw if hasattr(batch, "ids_raw") else batch.labels
+        weights = (torch.ones(b, dtype=torch.float32, device=like.device)
+                   if isinstance(like, torch.Tensor) else np.ones(b, np.float32))
     if pad == 0:
         return dataclasses.replace(batch, weights=weights)
-
-    def padrows(x: torch.Tensor) -> torch.Tensor:
-        return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
-
+    if hasattr(batch, "ids_raw"):  # a PackedBatch
+        return dataclasses.replace(
+            batch, ids_raw=padrows(batch.ids_raw),
+            labels=batch.labels if batch.labels.shape[0] == 0 else padrows(batch.labels),
+            dense=None if batch.dense is None else padrows(batch.dense),
+            weights=padrows(weights))
     return Batch(
         features={k: SparseFeature(ids=padrows(v.ids), mask=padrows(v.mask))
                   for k, v in batch.features.items()},

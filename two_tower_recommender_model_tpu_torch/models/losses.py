@@ -13,7 +13,7 @@ Port of `two_tower_recommender_model_tpu/models/losses.py`:
   the backward above that, padded to a multiple of 512 where no block size
   divides the batch), and the fused route through the CUDA kernels of
   `ops/softmax_kernel.py`. The data-parallel route
-  (`sharded_in_batch_sampled_softmax`) waits for the multi-card slice.
+  (`sharded_in_batch_sampled_softmax`) is ROADMAP M12(c).
 
 The BCE losses run in the logits' dtype (bf16 under bf16 compute), as the
 reference's do; the softmax's scores are f32 sums.
@@ -178,7 +178,7 @@ def sharded_in_batch_sampled_softmax(mesh, *args, **kwargs):
     through the fused kernels with `row_offset`). Not ported yet."""
     raise NotImplementedError(
         "the sharded in-batch sampled softmax is not ported to the PyTorch package yet "
-        "(ROADMAP M12: the multi-card slice); the kernels already take row_offset")
+        "(ROADMAP M12(c)); the kernels already take row_offset")
 
 
 def item_log_q_from_counts(counts: torch.Tensor, item_ids: torch.Tensor) -> torch.Tensor:
@@ -237,7 +237,8 @@ def make_loss_fn(name: str, candidate_id_feature: str | None = None,
 def loss_fn_from_config(train_cfg, model_cfg, sharded: bool = False, mesh=None):
     """The training loss of a `TrainConfig` and a `ModelConfig`: the single
     point where the train steps select it. `sharded` with a `mesh` is the
-    data-parallel softmax route, which is not ported yet."""
+    data-parallel softmax route, which is not ported yet (M12(c)); the
+    sharded step's BCE is `parallel.sharded`'s own."""
     return make_loss_fn(
         train_cfg.loss,
         candidate_id_feature=model_cfg.candidate_tower.features[0],

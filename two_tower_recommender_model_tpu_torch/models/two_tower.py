@@ -137,9 +137,13 @@ class TwoTower(nn.Module):
     Parameters are allocated uninitialized on `device` (the card when None:
     `device.default_device`); `init_params` draws
     them and `params_from_numpy` copies them in. The tables take no autograd
-    gradient (the reference updates them sparsely, outside autodiff)."""
+    gradient (the reference updates them sparsely, outside autodiff).
+    `tables`, when given, are used as they are instead of allocated: a
+    sharded state's model holds its rank's shards and buckets
+    (`parallel/sharded.py`)."""
 
-    def __init__(self, cfg: ModelConfig, device: torch.device | str | None = None):
+    def __init__(self, cfg: ModelConfig, device: torch.device | str | None = None,
+                 tables: dict | None = None):
         super().__init__()
         cfg.validate()
         self.cfg = cfg
@@ -153,7 +157,8 @@ class TwoTower(nn.Module):
                     torch.empty(t.num_embeddings, dtype=torch.float32, device=device))
             return torch.empty(shape, dtype=torch_dtype(dtype), device=device)
 
-        self.tables = TableDict({t.name: empty_table(t) for t in cfg.tables})
+        self.tables = TableDict(tables if tables is not None
+                                else {t.name: empty_table(t) for t in cfg.tables})
         dtype = torch_dtype(cfg.param_dtype)
         for key in _TOWERS:
             tower = getattr(cfg, key)

@@ -19,8 +19,14 @@ host never waits for the card inside the loop.
 batches, grouped K at a time into macro-batches that `train.step.make_multi_step`
 trains in one call (on the card: one replay of a CUDA graph of K steps).
 
-The reference's sharding, padding and exchange-overflow arguments wait for
-the multi-card slice.
+On a mesh (`parallel/`) the loops take the reference's `sharding` (this
+rank's slice of each global batch: `parallel.sharded.batch_sharding`, or
+`macro_batch_sharding` for the packed epoch's macro-batches), `pad_multiple`
+(eval batches padded with zero-weight rows to a multiple of the data ranks)
+and `pad_to` (every eval batch padded to that many rows, a 0-row one into a
+batch of padding that still runs its step and its collectives). Every rank
+runs the same batches, so every rank runs every collective. The all-to-all
+exchange's overflow counts are ROADMAP M12(b).
 """
 
 from __future__ import annotations
@@ -33,8 +39,10 @@ from typing import Callable, Iterable
 import torch
 
 from two_tower_recommender_model_tpu_torch.config import ModelConfig, TrainConfig
+from two_tower_recommender_model_tpu_torch.data.featurizer import pad_batch, pad_batch_to
 from two_tower_recommender_model_tpu_torch.models.metrics import auroc_compute, mean_compute
 from two_tower_recommender_model_tpu_torch.train.pipeline import (
+    check_sharding,
     device_put_batch,
     prefetch_to_device,
 )
@@ -48,14 +56,23 @@ log = logging.getLogger(__name__)
 
 
 def evaluate(state: TrainState, eval_step: Callable, batches: Iterable[dict], featurizer,
-             limit_batches: int | None = None, stage: str = "val") -> dict[str, float]:
-    """One pass of eval: {"<stage>_loss", "<stage>_auroc"}."""
+             limit_batches: int | None = None, stage: str = "val", sharding=None,
+             pad_multiple: int | None = None, pad_to: int | None = None) -> dict[str, float]:
+    """One pass of eval: {"<stage>_loss", "<stage>_auroc"}. `pad_multiple`
+    pads ragged batches with zero-weight rows so they split over the data
+    ranks without dropping or skewing a sample; `pad_to` pads every batch to
+    that many rows, a 0-row batch into one of padding alone."""
     es = eval_state_init(device=state.device)
     it = iter(batches)
     if limit_batches is not None:
         it = itertools.islice(it, limit_batches)
+    featurize = featurizer
+    if pad_to:
+        featurize = lambda cols: pad_batch_to(featurizer(cols), pad_to)  # noqa: E731
+    elif pad_multiple:
+        featurize = lambda cols: pad_batch(featurizer(cols), pad_multiple)  # noqa: E731
     n = 0
-    for batch in prefetch_to_device(it, featurizer, state.device):
+    for batch in prefetch_to_device(it, featurize, state.device, sharding=sharding):
         es = eval_step(state, es, batch)
         n += 1
     loss = float(mean_compute(es.loss)) if n else float("nan")
@@ -66,22 +83,25 @@ def evaluate(state: TrainState, eval_step: Callable, batches: Iterable[dict], fe
 def train_one_epoch(state: TrainState, train_step: Callable, batches: Iterable[dict],
                     featurizer, train_cfg: TrainConfig, eval_step: Callable | None = None,
                     val_batches_factory: Callable[[], Iterable[dict]] | None = None,
-                    logger=None, epoch: int = 0) -> tuple[TrainState, dict[str, float]]:
+                    logger=None, epoch: int = 0, sharding=None, pad_multiple: int | None = None,
+                    pad_to: int | None = None) -> tuple[TrainState, dict[str, float]]:
     it = iter(batches)
     if train_cfg.limit_train_batches is not None:
         it = itertools.islice(it, train_cfg.limit_train_batches)
     steps = examples = 0
     t0 = time.perf_counter()
     last_loss = None
-    for batch in prefetch_to_device(it, featurizer, state.device):
+    parts = sharding.parts if sharding is not None else 1
+    for batch in prefetch_to_device(it, featurizer, state.device, sharding=sharding):
         state, out = train_step(state, batch)
         last_loss = out["loss"]
         steps += 1
-        examples += batch.batch_size
+        examples += batch.batch_size * parts
         if (train_cfg.validation_freq and eval_step is not None
                 and val_batches_factory is not None and steps % train_cfg.validation_freq == 0):
             metrics = evaluate(state, eval_step, val_batches_factory(), featurizer,
-                               train_cfg.limit_val_batches, "val")
+                               train_cfg.limit_val_batches, "val", sharding, pad_multiple,
+                               pad_to)
             log.info("epoch %d step %d mid-epoch %s", epoch, steps, metrics)
             if logger is not None:
                 logger.log_metrics(metrics, step=state.step)
@@ -105,6 +125,7 @@ def train_val_test(state: TrainState, train_step: Callable, eval_step: Callable,
                    val_batches_factory: Callable[[], Iterable[dict]],
                    test_batches_factory: Callable[[], Iterable[dict]], logger=None,
                    checkpoint_fn: Callable[[TrainState, int], None] | None = None,
+                   sharding=None, pad_multiple: int | None = None, pad_to: int | None = None,
                    start_epoch: int = 0,
                    train_epoch_fn: Callable | None = None,
                    select_best: str | None = None,
@@ -125,7 +146,10 @@ def train_val_test(state: TrainState, train_step: Callable, eval_step: Callable,
     "loss" means lower is better): the state of the best epoch is kept, the
     final test eval runs on it, it is what is returned, and the results hold
     `best_epoch`. The kept state is a copy, because a train step updates its
-    state in place."""
+    state in place.
+
+    `sharding`, `pad_multiple` and `pad_to` go to every eval and to the
+    per-batch epoch (`evaluate`)."""
     del model_cfg  # the reference's signature; the state's model carries it
     results: dict[str, float] = {}
     best_state, best_metric, best_epoch = None, None, None
@@ -136,7 +160,7 @@ def train_val_test(state: TrainState, train_step: Callable, eval_step: Callable,
         return val < best_metric if "loss" in select_best else val > best_metric
 
     metrics = evaluate(state, eval_step, val_batches_factory(), featurizer,
-                       train_cfg.limit_val_batches, "val")
+                       train_cfg.limit_val_batches, "val", sharding, pad_multiple, pad_to)
     if retrieval_eval_fn is not None:
         metrics.update(retrieval_eval_fn(state))
     log.info("baseline %s", metrics)
@@ -149,9 +173,10 @@ def train_val_test(state: TrainState, train_step: Callable, eval_step: Callable,
         else:
             state, stats = train_one_epoch(state, train_step, train_batches_factory(epoch),
                                            featurizer, train_cfg, eval_step,
-                                           val_batches_factory, logger, epoch)
+                                           val_batches_factory, logger, epoch, sharding,
+                                           pad_multiple, pad_to)
         metrics = evaluate(state, eval_step, val_batches_factory(), featurizer,
-                           train_cfg.limit_val_batches, "val")
+                           train_cfg.limit_val_batches, "val", sharding, pad_multiple, pad_to)
         if retrieval_eval_fn is not None:
             metrics.update(retrieval_eval_fn(state))
         log.info("epoch %d train %s val %s", epoch, stats, metrics)
@@ -169,7 +194,7 @@ def train_val_test(state: TrainState, train_step: Callable, eval_step: Callable,
         results["best_epoch"] = float(best_epoch)
         state = best_state
     metrics = evaluate(state, eval_step, test_batches_factory(), featurizer,
-                       train_cfg.limit_test_batches, "test")
+                       train_cfg.limit_test_batches, "test", sharding, pad_multiple, pad_to)
     log.info("test %s", metrics)
     results.update(metrics)
     if logger is not None:
@@ -207,16 +232,12 @@ def train_one_epoch_packed(state: TrainState, multi_step: Callable, batches: Ite
       `make_packed_train_step(...)`) instead of being dropped; without a
       `tail_step` it is dropped.
 
-    `num_workers` threads featurize and stack macro groups, in order. The
-    sharding and padding arguments are the reference's multi-device surface
-    and are not ported yet."""
-    for name, arg in (("sharding", sharding), ("tail_sharding", tail_sharding),
-                      ("val_sharding", val_sharding), ("pad_multiple", pad_multiple),
-                      ("pad_to", pad_to)):
-        if arg is not None:
-            raise NotImplementedError(
-                f"train_one_epoch_packed({name}=...) is not ported to the PyTorch package yet "
-                "(ROADMAP.md M12: the multi-card slice)")
+    `num_workers` threads featurize and stack macro groups, in order. On a
+    mesh `sharding` cuts each macro-batch (`macro_batch_sharding`),
+    `tail_sharding` each tail batch (`batch_sharding`), and the mid-epoch
+    validation takes `val_sharding`, `pad_multiple` and `pad_to`."""
+    for placement in (sharding, tail_sharding, val_sharding):
+        check_sharding(placement)
     it = iter(batches)
     if train_cfg is not None and train_cfg.limit_train_batches is not None:
         it = itertools.islice(it, train_cfg.limit_train_batches)
@@ -234,14 +255,18 @@ def train_one_epoch_packed(state: TrainState, multi_step: Callable, batches: Ite
         tail.extend(g)
 
     def assemble(group):
-        return stack_batches([packed_featurizer(c) for c in group])
+        mb = stack_batches([packed_featurizer(c) for c in group])
+        if sharding is not None and hasattr(mb, "wire"):
+            raise NotImplementedError("the compact wire on a mesh is not ported to the PyTorch "
+                                      "package yet (ROADMAP M12(c)): use packed batches")
+        return mb
 
     def maybe_validate(steps, next_val):
         if not can_validate or steps < next_val:
             return next_val
         metrics = evaluate(state, eval_step, val_batches_factory(),
                            val_featurizer or packed_featurizer, train_cfg.limit_val_batches,
-                           "val")
+                           "val", val_sharding, pad_multiple, pad_to)
         log.info("epoch %d step %d mid-epoch %s", epoch, steps, metrics)
         if logger is not None:
             logger.log_metrics(metrics, step=state.step)
@@ -253,21 +278,22 @@ def train_one_epoch_packed(state: TrainState, multi_step: Callable, batches: Ite
     next_val = vfreq or 0
     t0 = time.perf_counter()
     last_loss = None
+    parts = sharding.parts if sharding is not None else 1
     for mb in prefetch_to_device(groups(), assemble, state.device, prefetch=prefetch,
-                                 num_workers=num_workers):
+                                 num_workers=num_workers, sharding=sharding):
         state, out = multi_step(state, mb)
         last_loss = out["loss"][-1]
         k, b = _macro_dims(mb)
         steps += k
-        examples += k * b
+        examples += k * b * parts
         next_val = maybe_validate(steps, next_val)
     if tail and tail_step is not None:
         for cols in tail:
-            pb = device_put_batch(packed_featurizer(cols), state.device)
+            pb = device_put_batch(packed_featurizer(cols), state.device, tail_sharding)
             state, out = tail_step(state, pb)
             last_loss = out["loss"]
             steps += 1
-            examples += pb.batch_size
+            examples += pb.batch_size * (tail_sharding.parts if tail_sharding else 1)
             next_val = maybe_validate(steps, next_val)
     if last_loss is not None:
         last_loss = float(last_loss)  # the one read of the epoch

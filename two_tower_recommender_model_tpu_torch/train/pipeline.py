@@ -54,14 +54,25 @@ def _pin(t: torch.Tensor) -> torch.Tensor:
     return t if t.device.type != "cpu" or t.is_pinned() else t.pin_memory()
 
 
+def check_sharding(sharding) -> None:
+    """A placement the port has: None, or a callable leaf -> this rank's
+    slice (`parallel.sharded.batch_sharding`). The reference's pytree of
+    per-leaf placements (the compact wire on a mesh) is ROADMAP M12(c)."""
+    if sharding is not None and not callable(sharding):
+        raise NotImplementedError(
+            "a pytree of per-leaf placements (the compact wire on a mesh) is not ported to the "
+            "PyTorch package yet (ROADMAP M12(c)): pass a batch_sharding")
+
+
 def device_put_batch(batch: Any, device: torch.device | str | None = None, sharding=None) -> Any:
     """A host batch with every array leaf on `device` (the card when None).
-    `sharding` is the reference's multi-device placement and waits for the
-    multi-card slice."""
+    `sharding` (`parallel.sharded.batch_sharding` or `macro_batch_sharding`
+    of a mesh) cuts each leaf to this rank's slice of the global batch
+    first, and `device` then defaults to the mesh's."""
+    check_sharding(sharding)
     if sharding is not None:
-        raise NotImplementedError(
-            "sharded placement of a batch is not ported to the PyTorch package yet "
-            "(ROADMAP.md M12: the multi-card slice)")
+        device = sharding.device if device is None else torch.device(device)
+        return map_leaves(batch, lambda t: sharding(t).to(device))
     device = resolve_device(device)
     return map_leaves(batch, lambda t: t.to(device))
 
@@ -125,16 +136,22 @@ def _background(columns_iter: Iterable[dict], make: Callable, depth: int) -> Ite
 
 def prefetch_to_device(columns_iter: Iterable[dict], featurize: Callable[[dict], Any],
                        device: torch.device | str | None = None,
-                       prefetch: int = 2, num_workers: int = 1) -> Iterator[Any]:
+                       prefetch: int = 2, num_workers: int = 1, sharding=None) -> Iterator[Any]:
     """Yield batches on `device`, keeping `prefetch` host-to-device copies in
     flight. `featurize` builds a host batch from a dict of columns, in a
     background thread; `num_workers > 1` featurizes on that many threads
-    (order kept), for when the host's featurization limits the throughput."""
+    (order kept), for when the host's featurization limits the throughput.
+    `sharding` cuts each host batch to this rank's slice before it is pinned
+    and copied (`device_put_batch`); `device` then defaults to the mesh's."""
+    check_sharding(sharding)
+    if sharding is not None and device is None:
+        device = sharding.device
     device = resolve_device(device)
     cuda = device.type == "cuda"
+    cut = sharding if sharding is not None else (lambda t: t)
 
     def host_batch(cols):
-        return map_leaves(featurize(cols), _pin if cuda else (lambda t: t))
+        return map_leaves(featurize(cols), (lambda t: _pin(cut(t))) if cuda else cut)
 
     if num_workers > 1:
         source = _pooled(columns_iter, host_batch, num_workers)

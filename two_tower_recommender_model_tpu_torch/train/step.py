@@ -266,6 +266,9 @@ def pick_table_update_fn(
     n_flat_ids: int,
     quantized: bool,
     sparse_update: Callable | None = None,
+    *,
+    table_dtype: str | None = None,
+    num_rows: int | None = None,
 ) -> Callable:
     """The per-table update `(table, acc, flat_ids, flat_grads, lr, eps) ->
     (table, acc)`, with the reference's signature and priorities:
@@ -293,15 +296,21 @@ def pick_table_update_fn(
     `block_sorted_kernel="off"`, and the reference's transient-dense route
     chosen by its size policy, `num_rows <= 8 * n_flat_ids`
     (`pick_sparse_update`, `pick_quantized_update`). Everywhere else the
-    option changes nothing, as in the reference."""
+    option changes nothing, as in the reference.
+
+    The sharded step (`parallel/sharded.py`) updates a shard or a bucket:
+    `table_dtype` and `num_rows` then give its dtype and its local rows, where
+    the reference's sharded updates apply the same size rule."""
     if sparse_update is not None and not quantized:
         return sparse_update
+    rows = model_cfg.table(tname).num_embeddings if num_rows is None else num_rows
     bf16_buffer = (train_cfg.scatter_buffer_dtype == "bfloat16" and tname == sorted_table
                    and sparse_update is None and train_cfg.block_sorted_kernel == "off"
-                   and model_cfg.table(tname).num_embeddings <= 8 * n_flat_ids)
+                   and rows <= 8 * n_flat_ids)
     buffer = {"buffer_dtype": torch.bfloat16} if bf16_buffer else {}
     matmul_dtype = "bfloat16" if train_cfg.block_sorted_kernel == "bfloat16" else "float32"
-    if model_cfg.table_dtype_of(tname) == "bfloat16" or sparse_update is not None:
+    dtype = model_cfg.table_dtype_of(tname) if table_dtype is None else table_dtype
+    if dtype == "bfloat16" or sparse_update is not None:
         matmul_dtype = "float32"
     if tname != sorted_table:
         def upd(table, acc, fids, fgrads, lr, eps):
