@@ -271,6 +271,31 @@ without a card. Phases (any failure raises and exits non-zero):
    one-device gather bit for bit, each shard's #4 update is the one-device
    update's rows bit for bit (padded and untouched rows unchanged), each
    shard's #4 ms beside the one-device call's;
+26c. M12(b) on the same one-rank group: `[mesh-int8]` `[mesh]` with int8
+   tables under the planner's int8 plan (items in `__tw_bucket_d128_int8__`):
+   3 counted steps (#5, #6, #8, tower_fwd twice a step) against the
+   one-device int8 steps, the K = 16 graph bit for bit, replayed ms beside
+   the one-device int8 graph's; `[mesh-a2a]` the item table forced
+   row-sharded through `sharded_exchange="alltoall"` (capacity 1.25): 3
+   counted steps (#1 three times, #3 once a step), one step against the dense exchange
+   from one start (the forward and the towers bit for bit, the item rows
+   within one bf16 rounding of their pre-aggregated sums), 3 steps with the
+   block kernels in f32 against the dense exchange at the reference's bars,
+   the bf16 wire at the reference's bars, a capacity of 0.05 that overflows
+   (the count, and `train_one_epoch_packed` raising), the K = 16 graph with
+   `all_to_all_single` captured bit for bit, replayed ms beside the dense
+   sharded and one-device graphs'; `[mesh-column]` the item table forced
+   column-sharded: a batch's pools bit for bit the one-device step's, 3
+   counted steps (#1 twice, #4, #3 once a step) within atol 1e-5 of the
+   one-device steps, the K = 16 graph bit for bit; `[shard-kernels]` again
+   with int8 tables (#5 pools, #6 rows bit for bit), the all-to-all exchange
+   by hand over 4 ranks (routes, #3, the buffers transposed, each owner's #1
+   and #4: the pool bit for bit, the tables within atol 1e-5, the overflow
+   the plain route's) and 4 column shards (#1 joined bit for bit, #3 and the
+   epilogue within atol 1e-5), each shard's ms beside the one-device call's;
+   `[kernel]` #1 with `round_rows` (bags of 4 and 16 slots into bf16 and the
+   BCE step's item call): bit for bit its plain version, its ms beside the
+   mode off;
 27. with --profile, torch.profiler traces of the serving calls, of the
    three train steps and of a graph replay: device busy time, idle share and
    the largest device items, the gather kernel's (#1 or #5) device ms a call
@@ -333,6 +358,9 @@ from two_tower_recommender_model_tpu_torch.models.metrics import auroc_compute, 
 from two_tower_recommender_model_tpu_torch.models import concat_mlp
 from two_tower_recommender_model_tpu_torch.models.two_tower import forward as two_tower_forward
 from two_tower_recommender_model_tpu_torch.models.two_tower import init_params, towers_forward
+from two_tower_recommender_model_tpu_torch.models.two_tower import (
+    pooled_embeddings as two_tower_pooled,
+)
 from two_tower_recommender_model_tpu_torch.ops.adagrad_kernel import (
     block_sorted_aggregate,
     block_sorted_aggregate_reference,
@@ -357,6 +385,7 @@ from two_tower_recommender_model_tpu_torch.ops.quantized import (
     quantize_table,
 )
 from two_tower_recommender_model_tpu_torch.ops.quantized_kernel import (
+    quantize_rows,
     quantized_pooled_gather,
     quantized_pooled_gather_reference,
     quantized_rowwise_adagrad_fused,
@@ -384,6 +413,16 @@ from two_tower_recommender_model_tpu_torch.parallel import launch
 from two_tower_recommender_model_tpu_torch.parallel.mesh import make_mesh
 from two_tower_recommender_model_tpu_torch.parallel.planner import plan_sharding
 from two_tower_recommender_model_tpu_torch.parallel.sharded import (
+    a2a_cap,
+    a2a_owner_rows,
+    a2a_pool,
+    a2a_responsible,
+    a2a_route,
+    a2a_send_grads,
+    a2a_send_ids,
+    alltoall_tables,
+    macro_batch_sharding,
+    make_sharded_forward,
     make_sharded_multi_step,
     make_sharded_train_step,
     partial_pool,
@@ -657,10 +696,22 @@ def phase_kernel(dev: torch.device) -> dict:
         ("item f32->bf16 (the softmax step's)", (item_table, on_card(srng.integers(
             0, NUM_ITEMS, (BAGS, 1)).astype(np.int32)), ones, torch.bfloat16), True),
     ]
+    # the lookup's mode under bf16 compute on an f32 table (`round_rows`: each row rounded
+    # to bf16, the bag summed in slot order, rounded once), the mask as the weights: bags of
+    # 4 and 16 slots, ~30% dead, and the BCE step's item call (one slot, as the step makes it)
+    for bag_l in (4, 16):
+        live_l = srng.random((BAGS, bag_l)) > 0.3
+        cases.append((f"user f32->bf16 L={bag_l} round_rows (a bag under bf16 compute)", (
+            user_table, on_card(np.where(live_l, srng.integers(0, NUM_USERS, (BAGS, bag_l)), 0)
+                                .astype(np.int32)), on_card(live_l.astype(np.float32)),
+            torch.bfloat16, True), True))
+    cases.append(("item f32->bf16 round_rows (the train step's)",
+                  (item_table, item_train_ids, train_ones, torch.bfloat16, True), True))
     results = {}
-    for name, (table, ids, w, out_dtype), exact in cases:
-        got = pooled_gather(table, ids, w, out_dtype)
-        want = pooled_gather_reference(table, ids, w, out_dtype)
+    for name, (table, ids, w, out_dtype, *mode), exact in cases:
+        round_rows = bool(mode and mode[0])
+        got = pooled_gather(table, ids, w, out_dtype, round_rows=round_rows)
+        want = pooled_gather_reference(table, ids, w, out_dtype, round_rows=round_rows)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         if exact:
@@ -672,15 +723,17 @@ def phase_kernel(dev: torch.device) -> dict:
             zero_rows = got[ids_s[:, 0] >= NUM_USERS]
             if zero_rows.numel() == 0 or torch.count_nonzero(zero_rows).item() != 0:
                 raise AssertionError("sentinel ids must give exact zero rows")
-        ms = median_ms(lambda: pooled_gather(table, ids, w, out_dtype), flush)
-        plain_ms = median_ms(lambda: pooled_gather_reference(table, ids, w, out_dtype), flush)
+        ms = median_ms(lambda: pooled_gather(table, ids, w, out_dtype, round_rows=round_rows),
+                       flush)
+        plain_ms = median_ms(lambda: pooled_gather_reference(table, ids, w, out_dtype,
+                                                             round_rows=round_rows), flush)
         b = gather_bound(table.shape[1] * table.element_size(), ids, w, table.shape[0], got)
         log(f"[kernel] {name}: [{ids.shape[0]}, {ids.shape[1]}] from [{table.shape[0]}, "
             f"{table.shape[1]}] {table.dtype} -> {out_dtype} "
             f"{'bitwise equal' if exact else 'within 1e-5 x max|plain|'}, max_abs_err={err!r}, "
             f"kernel_ms={ms!r}, plain_ms={plain_ms!r}, bound_ms={b['bound_ms']!r} by "
             f"{b['bound_by']} ({b['rows']} distinct live rows)"
-            f"{plan_note(pooled_gather, table, ids, got)}")
+            f"{plan_note(pooled_gather, table, ids, got, round_rows)}")
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
     # the main case (one slot, the serving lookup): the one PyTorch call that computes
     # the same function, timed here and used nowhere in the port
@@ -709,6 +762,11 @@ def phase_kernel(dev: torch.device) -> dict:
             for b, ids, w in ((BAGS, ids1, w1), (1, ids1[:1], w1[:1]))}
     out = torch.empty((BAGS, DIM), device=dev)
     plan_ms = host_ms(lambda: pooled_gather.plan(user_table, ids1, out))
+    rounded, plain_mode = (results[f"item f32->bf16{m} (the train step's)"]
+                           for m in (" round_rows", ""))
+    log(f"[kernel] pooled_gather round_rows at the BCE step's item call: kernel_ms="
+        f"{rounded['ms']!r} against the mode off on the same inputs {plain_mode['ms']!r} "
+        f"(ratio {rounded['ms'] / plain_mode['ms']!r})")
     step = results["user f32->bf16 sorted (the train step's)"]
     log(f"[kernel] pooled_gather at the BCE step's {TRAIN_BATCH} sorted user bags: kernel_ms="
         f"{step['ms']!r} (into bf16), library_ms={library_step_ms!r} (F.embedding_bag, sum, "
@@ -3908,11 +3966,14 @@ SHARD_WORLD = 4  # the ranks whose shard-local work [shard-kernels] runs in turn
 
 def mesh_plan(cfg):
     """The flagship's plan at 2, 4 and 8 devices (user table row-sharded,
-    item table table-wise, the same at each), forced onto one rank."""
+    item table table-wise in the bucket of its dim and dtype, the same at
+    each), forced onto one rank."""
     plans = {n: plan_sharding(cfg, n) for n in (2, 4, 8)}
     force = {name: spec.strategy for name, spec in plans[2].specs.items()}
+    bucket = "__tw_bucket_d128_int8__" if cfg.table_dtype == "int8" else "__tw_bucket_d128__"
     if force != {"t_user_id": "row_sharded", "t_product_id": "table_wise"} or any(
-            {k: v.strategy for k, v in p.specs.items()} != force for p in plans.values()):
+            {k: v.strategy for k, v in p.specs.items()} != force or set(p.buckets) != {bucket}
+            for p in plans.values()):
         raise AssertionError(f"[mesh] the planner's flagship plans changed: "
                              f"{ {n: p.describe() for n, p in plans.items()} }")
     return plan_sharding(cfg, 1, force=force)
@@ -3920,14 +3981,18 @@ def mesh_plan(cfg):
 
 def numpy_start(cfg, seed: int = 0) -> dict:
     """A fresh training state as numpy arrays in `train_state_from_numpy`'s
-    layout: tables U(-sqrt(1/N), sqrt(1/N)), towers U(-1/sqrt(in), ...),
-    zero accumulators and Adam moments."""
+    layout: tables U(-sqrt(1/N), sqrt(1/N)) (an int8 table's rows
+    quantized), towers U(-1/sqrt(in), ...), zero accumulators and Adam
+    moments."""
     rng = np.random.default_rng(seed)
     start = {"step": 0, "tables": {}, "adagrad_acc": {}, "item_counts": None}
     for t in cfg.tables:
         bound = (1.0 / t.num_embeddings) ** 0.5
-        start["tables"][t.name] = rng.uniform(-bound, bound, (t.num_embeddings, t.embedding_dim)
-                                              ).astype(np.float32)
+        rows = rng.uniform(-bound, bound, (t.num_embeddings, t.embedding_dim)).astype(np.float32)
+        if cfg.table_dtype_of(t.name) == "int8":
+            values, scales = quantize_rows(torch.from_numpy(rows))
+            rows = {"values": values.numpy(), "scales": scales.numpy()}
+        start["tables"][t.name] = rows
         start["adagrad_acc"][t.name] = np.zeros(t.num_embeddings, np.float32)
     moments = {}
     for key in ("query_tower", "candidate_tower"):
@@ -3943,126 +4008,439 @@ def numpy_start(cfg, seed: int = 0) -> dict:
     return start
 
 
-def phase_mesh(dev: torch.device, pool: list) -> dict[str, int]:
-    """`[mesh]`: the sharded step on a one-rank NCCL group at the flagship
-    widths (bf16 compute, BCE, batch 262,144 sorted by user), its plan the
-    planner's at 2-8 devices (user table row-sharded through the sorted
-    path, item table table-wise in a bucket through the device sort).
-    MESH_STEPS eager sharded steps are the main path, counted: #1, #4, #8
-    and tower_fwd twice a step. Against the one-device step from the same
-    numpy start (`numpy_start`): losses, tables, accumulators, towers and Adam's moments at the
-    reference's bars (rtol 1e-5 the loss, rtol 1e-4 / atol 1e-6 the rest),
-    the largest differences printed. Then a K = 16 macro of sharded steps as
-    one CUDA graph (`make_sharded_multi_step`, the NCCL collectives
-    captured; its warm-up and capture counted too) bit for bit the same
-    steps run eagerly, and the replayed ms a step beside the one-device
-    graph's, in this call."""
-    tag, k = "[mesh]", GRAPH_K
+def sharded_step(cfg, tcfg, dense_opt, mesh, plan):
+    """The sharded train step over packed batches."""
+    return make_packed_train_step(make_sharded_train_step(cfg, tcfg, dense_opt, mesh, plan), cfg,
+                                  pack_label=True)
+
+
+def one_device_step(cfg, tcfg, dense_opt):
+    return make_packed_train_step(step_lib.make_train_step(cfg, tcfg, dense_opt), cfg,
+                                  pack_label=True)
+
+
+def counted_steps(tag: str, step, state, pool: list, per_step: dict[str, int]):
+    """MESH_STEPS steps of the main path, counted: each must launch every
+    kernel as often as `per_step` says. Returns (state, last out, per-step
+    ms, launches)."""
+    reset_launches()
+    state, out, times = timed_steps(step, state, pool, 0, MESH_STEPS)
+    launches = read_launches()
+    for name, n in launches.items():
+        if n != per_step.get(name, 0) * MESH_STEPS:
+            raise AssertionError(f"{tag} {name}: {n} launches in {MESH_STEPS} steps, expected "
+                                 f"{per_step.get(name, 0)} a step")
+    return state, out, times, launches
+
+
+def held_states(tag: str, got, want, rtol: float = 1e-4, atol: float = 1e-6,
+                table_atol: float | None = None) -> str:
+    """`got` against `want`, tensor by tensor (`state_tensors`): int8 values
+    within one step, the rest within rtol / atol (the tables' rows within
+    `table_atol` where given). Returns how many were bit for bit and the
+    largest differences."""
+    a, b = state_tensors(got), state_tensors(want)
+    if a.keys() != b.keys():
+        raise AssertionError(f"{tag} the states hold different tensors")
+    diffs, bitwise = {}, 0
+    tables = set(got.model.tables)
+    for name in b:
+        g, w = a[name].float(), b[name].float()
+        diffs[name] = (g - w).abs().max().item() if g.numel() else 0.0
+        bitwise += bitwise_equal(a[name], b[name])
+        if a[name].dtype == torch.int8:
+            if diffs[name] > 1:
+                raise AssertionError(f"{tag} {name}: int8 values {diffs[name]} steps apart")
+        elif name in tables and table_atol is not None:
+            torch.testing.assert_close(g, w, rtol=0, atol=table_atol,
+                                       msg=lambda m: f"{tag} {name}: {m}")
+        else:
+            torch.testing.assert_close(g, w, rtol=rtol, atol=atol,
+                                       msg=lambda m: f"{tag} {name}: {m}")
+    return (f"{bitwise} of {len(b)} state tensors bit for bit, largest abs diffs "
+            f"{ {n: d for n, d in diffs.items() if d} }")
+
+
+def check_loss(tag: str, got: dict, want: dict, rtol: float = 1e-5) -> str:
+    g, w = got["loss"].float().item(), want["loss"].float().item()
+    if not np.isfinite(g) or abs(g - w) > rtol * abs(w):
+        raise AssertionError(f"{tag} loss {g!r} against {w!r} (rtol {rtol})")
+    return f"loss {g!r} / {w!r}"
+
+
+def graph_against_eager(tag: str, cfg, tcfg, dense_opt, mesh, plan, base, pool: list, step,
+                        per_step: dict[str, int]):
+    """K = GRAPH_K sharded steps as one CUDA graph (`make_sharded_multi_step`,
+    the collectives captured; its warm-up and capture counted) against the
+    same steps run eagerly by `step`: bit for bit, the losses too. Returns
+    (launches, multi, graphed state, the comparison's text)."""
+    k = GRAPH_K
+    eager, graphed = shard_train_state(base, plan, mesh), shard_train_state(base, plan, mesh)
+    multi = make_sharded_multi_step(cfg, tcfg, dense_opt, mesh, plan, pack_label=True)
+    macro = [pool[i % len(pool)] for i in range(k)]
+    losses, overflow = [], 0
+    for pb in macro:
+        eager, out = step(eager, pb)
+        losses.append(out["loss"].float())
+        overflow += int(out.get("exchange_overflow", 0))
+    reset_launches()
+    graphed, out_g = multi(graphed, stack_on_card(macro))
+    torch.cuda.synchronize()
+    captured = read_launches()
+    for name, n in captured.items():
+        if n != per_step.get(name, 0) * (k + step_lib.WARMUP_STEPS):
+            raise AssertionError(f"{tag} {name}: {n} launches for the macro's warm-up and "
+                                 f"capture, expected {per_step.get(name, 0)} a step")
+    same = compare_states(f"{tag} the sharded macro after {k} steps", eager, graphed)
+    if not same.startswith("bit for bit") or not bitwise_equal(out_g["loss"].float(),
+                                                               torch.stack(losses)):
+        raise AssertionError(f"{tag} the captured sharded macro is not the eager steps bit "
+                             f"for bit: {same}")
+    if ("exchange_overflow" in out_g) != ("exchange_overflow" in out) or \
+            int(out_g.get("exchange_overflow", 0)) != overflow:
+        raise AssertionError(f"{tag} the macro's overflow {out_g.get('exchange_overflow')} "
+                             f"against the eager steps' {overflow}")
+    return captured, multi, graphed, same
+
+
+def one_device_graph(cfg, tcfg, dense_opt, base, pool: list):
+    """The one-device step's K = GRAPH_K graph from a copy of `base`,
+    captured: (multi, state)."""
+    multi = step_lib.make_multi_step(one_device_step(cfg, tcfg, dense_opt))
+    state = base.copy()
+    multi(state, stack_on_card([pool[i % len(pool)] for i in range(GRAPH_K)]))
+    return multi, state
+
+
+def replayed_ms(graphs: dict, pool: list) -> dict[str, float]:
+    """Median replayed ms a step of each captured graph ({label: (multi,
+    state)}) over GRAPH_MACROS macros of distinct payloads, interleaved."""
+    times = {label: [] for label in graphs}
+    for j in range(1, 1 + GRAPH_MACROS):
+        stacked = stack_on_card([pool[(j + i) % len(pool)] for i in range(GRAPH_K)])
+        for label, (fn, st) in graphs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(st, stacked)
+            torch.cuda.synchronize()
+            times[label].append((time.perf_counter() - t0) * 1e3 / GRAPH_K)
+    return {label: statistics.median(t) for label, t in times.items()}
+
+
+def ms_note(ms: dict[str, float]) -> str:
+    return ", ".join(f"{label}={v!r}" for label, v in ms.items())
+
+
+def phase_meshes(dev: torch.device, pool: list) -> dict[str, dict[str, int]]:
+    """`[mesh]`, `[mesh-int8]`, `[mesh-a2a]` and `[mesh-column]` on one
+    one-rank NCCL group (NCCL refuses two ranks on one card). Returns each
+    phase's launches."""
     launch.initialize_distributed(dev, world_size=1, rank=0)
     try:
         mesh = make_mesh(1, 1)
-        cfg, tcfg = flagship_bce()
-        plan = mesh_plan(cfg)
-        log(f"{tag} one-rank {mesh.backend} group on {mesh.device}; the flagship plan at 2-8 "
-            f"devices, forced on 1:\n{plan.describe()}")
-        base, dense_opt = step_lib.train_state_from_numpy(numpy_start(cfg), cfg, tcfg, dev)
-        one = base.copy()
-        one_step = make_packed_train_step(step_lib.make_train_step(cfg, tcfg, dense_opt), cfg,
-                                          pack_label=True)
-        sh = shard_train_state(base, plan, mesh)
-        sh_step = make_packed_train_step(make_sharded_train_step(cfg, tcfg, dense_opt, mesh,
-                                                                 plan), cfg, pack_label=True)
-        # --- the main path, counted ---------------------------------------------------
-        reset_launches()
-        sh, sh_out, sh_times = timed_steps(sh_step, sh, pool, 0, MESH_STEPS)
-        launches = read_launches()
-        # --- checks, not counted ------------------------------------------------------
-        for name, n in launches.items():
-            if n != BCE_F32.get(name, 0) * MESH_STEPS:
-                raise AssertionError(f"{tag} {name}: {n} launches in {MESH_STEPS} sharded steps, "
-                                     f"expected {BCE_F32.get(name, 0)} a step")
-        one, one_out, one_times = timed_steps(one_step, one, pool, 0, MESH_STEPS)
-        whole = unshard_train_state(sh, plan, cfg, mesh, dst=0)
-        diffs, bitwise = {}, 0
-        a, b = state_tensors(whole), state_tensors(one)
-        for name in b:
-            got, want = a[name].float(), b[name].float()
-            diffs[name] = (got - want).abs().max().item()
-            bitwise += bitwise_equal(a[name], b[name])
-            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6,
-                                       msg=lambda m: f"{tag} {name}: {m}")
-        sh_loss, one_loss = sh_out["loss"].float().item(), one_out["loss"].float().item()
-        if not np.isfinite(sh_loss) or abs(sh_loss - one_loss) > 1e-5 * abs(one_loss):
-            raise AssertionError(f"{tag} loss {sh_loss!r} against the one-device {one_loss!r}")
-        log(f"{tag} {MESH_STEPS} sharded steps against the one-device steps from one numpy start: "
-            f"loss {sh_loss!r} / {one_loss!r}; {bitwise} of {len(b)} state tensors bit for bit, "
-            f"the rest within rtol 1e-4 / atol 1e-6, largest abs diffs "
-            f"{ {n: d for n, d in diffs.items() if d} }; launches per step "
-            f"{ {n: v // MESH_STEPS for n, v in launches.items() if v} }; eager median_step_ms "
-            f"sharded={statistics.median(sh_times)!r} one-device={statistics.median(one_times)!r}")
-        del whole, one, sh
-        # --- K sharded steps as one CUDA graph against the same steps run eagerly ---------
-        eager, graphed = shard_train_state(base, plan, mesh), shard_train_state(base, plan, mesh)
-        multi = make_sharded_multi_step(cfg, tcfg, dense_opt, mesh, plan, pack_label=True)
-        macro = [pool[i % len(pool)] for i in range(k)]
-        losses = []
-        for pb in macro:
-            eager, out = sh_step(eager, pb)
-            losses.append(out["loss"].float())
-        reset_launches()
-        graphed, out_g = multi(graphed, stack_on_card(macro))
-        torch.cuda.synchronize()
-        captured = read_launches()
-        calls = k + step_lib.WARMUP_STEPS
-        for name, n in captured.items():
-            if n != BCE_F32.get(name, 0) * calls:
-                raise AssertionError(f"{tag} {name}: {n} launches for the macro's warm-up and "
-                                     f"capture, expected {BCE_F32.get(name, 0)} a step")
-        same = compare_states(f"{tag} the sharded macro after {k} steps", eager, graphed)
-        if not same.startswith("bit for bit") or not bitwise_equal(out_g["loss"].float(),
-                                                                   torch.stack(losses)):
-            raise AssertionError(f"{tag} the captured sharded macro is not the eager steps bit "
-                                 f"for bit: {same}")
-        for name in captured:
-            launches[name] += captured[name]
-        one_multi = step_lib.make_multi_step(one_step)
-        one_graphed = base.copy()
-        one_multi(one_graphed, stack_on_card(macro))
-        times = {"sharded": [], "one-device": []}
-        for j in range(1, 1 + GRAPH_MACROS):
-            stacked = stack_on_card([pool[(j + i) % len(pool)] for i in range(k)])
-            for label, fn, st in (("sharded", multi, graphed), ("one-device", one_multi,
-                                                                one_graphed)):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn(st, stacked)
-                torch.cuda.synchronize()
-                times[label].append((time.perf_counter() - t0) * 1e3 / k)
-        sh_ms, one_ms = (statistics.median(times[x]) for x in ("sharded", "one-device"))
-        log(f"{tag} K={k} sharded steps as one CUDA graph (NCCL collectives captured): {same}, "
-            f"{k} losses bitwise equal, captures={multi.captures} replays={multi.replays}; "
-            f"replayed_ms_per_step sharded={sh_ms!r} one-device={one_ms!r} (ratio "
-            f"{sh_ms / one_ms!r}, n={GRAPH_MACROS} macros each, interleaved), "
-            f"examples_per_s sharded={TRAIN_BATCH / sh_ms * 1e3!r}; {card_line()}")
-        return launches
+        log(f"[mesh] one-rank {mesh.backend} group on {mesh.device}")
+        return {"mesh": phase_mesh(mesh, pool), "mesh-int8": phase_mesh_int8(mesh, pool),
+                "mesh-a2a": phase_mesh_a2a(mesh, pool),
+                "mesh-column": phase_mesh_column(mesh, pool)}
     finally:
         torch.distributed.destroy_process_group()
 
 
-def phase_shard_kernels(dev: torch.device, pool: list) -> None:
+def phase_mesh(mesh, pool: list) -> dict[str, int]:
+    """`[mesh]`: the sharded step at the flagship widths (bf16 compute, BCE,
+    batch 262,144 sorted by user), its plan the planner's at 2-8 devices
+    (user table row-sharded through the sorted path, item table table-wise
+    in a bucket through the device sort). MESH_STEPS eager sharded steps are
+    the main path, counted: #1, #4, #8 and tower_fwd twice a step. Against
+    the one-device step from the same numpy start (`numpy_start`): losses,
+    tables, accumulators, towers and Adam's moments at the reference's bars
+    (rtol 1e-5 the loss, rtol 1e-4 / atol 1e-6 the rest), the largest
+    differences printed. Then a K = 16 macro of sharded steps as one CUDA
+    graph bit for bit the same steps run eagerly, and the replayed ms a step
+    beside the one-device graph's, in this call."""
+    tag = "[mesh]"
+    cfg, tcfg = flagship_bce()
+    plan = mesh_plan(cfg)
+    log(f"{tag} the flagship plan at 2-8 devices, forced on 1:\n{plan.describe()}")
+    base, dense_opt = step_lib.train_state_from_numpy(numpy_start(cfg), cfg, tcfg, mesh.device)
+    step = sharded_step(cfg, tcfg, dense_opt, mesh, plan)
+    sh, sh_out, sh_times, launches = counted_steps(tag, step, shard_train_state(base, plan, mesh),
+                                                   pool, BCE_F32)
+    one, one_out, one_times = timed_steps(one_device_step(cfg, tcfg, dense_opt), base.copy(),
+                                          pool, 0, MESH_STEPS)
+    note = held_states(tag, unshard_train_state(sh, plan, cfg, mesh, dst=0), one)
+    log(f"{tag} {MESH_STEPS} sharded steps against the one-device steps from one numpy start: "
+        f"{check_loss(tag, sh_out, one_out)}; {note}; launches per step "
+        f"{ {n: v // MESH_STEPS for n, v in launches.items() if v} }; eager median_step_ms "
+        f"sharded={statistics.median(sh_times)!r} one-device={statistics.median(one_times)!r}")
+    del sh, one
+    captured, multi, graphed, same = graph_against_eager(tag, cfg, tcfg, dense_opt, mesh, plan,
+                                                         base, pool, step, BCE_F32)
+    for name in captured:
+        launches[name] += captured[name]
+    ms = replayed_ms({"sharded": (multi, graphed),
+                      "one-device": one_device_graph(cfg, tcfg, dense_opt, base, pool)}, pool)
+    log(f"{tag} K={GRAPH_K} sharded steps as one CUDA graph (NCCL collectives captured): "
+        f"{same}, {GRAPH_K} losses bitwise equal, captures={multi.captures} "
+        f"replays={multi.replays}; replayed_ms_per_step {ms_note(ms)} (ratio "
+        f"{ms['sharded'] / ms['one-device']!r}, n={GRAPH_MACROS} macros each, interleaved), "
+        f"examples_per_s sharded={TRAIN_BATCH / ms['sharded'] * 1e3!r}; {card_line()}")
+    return launches
+
+
+def phase_mesh_int8(mesh, pool: list) -> dict[str, int]:
+    """`[mesh-int8]`: `[mesh]` with int8 tables under the planner's int8
+    plan at 2-8 devices forced on one (user row-sharded through the sorted
+    path, items in `__tw_bucket_d128_int8__`): MESH_STEPS counted sharded
+    steps (#5, #6, #8, tower_fwd twice a step) against the one-device int8
+    steps (predicted bit for bit; held at int8 values within one step, the
+    rest at `[mesh]`'s bars), the K = 16 graph bit for bit the eager steps,
+    its replayed ms beside the one-device int8 graph's."""
+    tag = "[mesh-int8]"
+    cfg, tcfg = flagship_bce()
+    cfg = dataclasses.replace(cfg, table_dtype="int8")
+    plan = mesh_plan(cfg)
+    base, dense_opt = step_lib.train_state_from_numpy(numpy_start(cfg), cfg, tcfg, mesh.device)
+    step = sharded_step(cfg, tcfg, dense_opt, mesh, plan)
+    sh, sh_out, _, launches = counted_steps(tag, step, shard_train_state(base, plan, mesh), pool,
+                                            BCE_INT8)
+    one, one_out, _ = timed_steps(one_device_step(cfg, tcfg, dense_opt), base.copy(), pool, 0,
+                                  MESH_STEPS)
+    whole = unshard_train_state(sh, plan, cfg, mesh, dst=0)
+    if not all(isinstance(t, QuantizedTable) for t in whole.model.tables.values()):
+        raise AssertionError(f"{tag} the gathered tables are not int8")
+    log(f"{tag} plan {sorted(plan.buckets)}; {MESH_STEPS} sharded steps against the one-device "
+        f"int8 steps: {check_loss(tag, sh_out, one_out)}; {held_states(tag, whole, one)}; "
+        f"launches per step { {n: v // MESH_STEPS for n, v in launches.items() if v} }")
+    del sh, one, whole
+    captured, multi, graphed, same = graph_against_eager(tag, cfg, tcfg, dense_opt, mesh, plan,
+                                                         base, pool, step, BCE_INT8)
+    for name in captured:
+        launches[name] += captured[name]
+    ms = replayed_ms({"sharded int8": (multi, graphed),
+                      "one-device int8": one_device_graph(cfg, tcfg, dense_opt, base, pool)},
+                     pool)
+    log(f"{tag} K={GRAPH_K} graph: {same}; replayed_ms_per_step {ms_note(ms)} (ratio "
+        f"{ms['sharded int8'] / ms['one-device int8']!r}); {card_line()}")
+    return launches
+
+
+# the all-to-all step's launches: the sorted user table's #1 and #4, the item owner's #1 and
+# #4, the item pool from the answers (#1), the item sender's pre-aggregation #3, the towers'
+BCE_A2A = {**BCE_F32, "pooled_gather": 3, "block_sorted_aggregate": 1}
+A2A_OVERFLOW_FACTOR = 0.05  # a bucket of 13,112 distinct ids on one rank: most items overflow
+
+
+def phase_mesh_a2a(mesh, pool: list) -> dict[str, int]:
+    """`[mesh-a2a]`: `[mesh]`'s config with `sharded_exchange="alltoall"`,
+    capacity 1.25, the item table forced row-sharded (it takes the exchange;
+    the user table stays on its sorted path). MESH_STEPS counted steps (#1
+    three times a step: the user rows, the owner's rows and the pool from
+    the answers; #4, #8, tower_fwd twice, #3 once), no id dropped. Against the
+    dense exchange on the same plan: in the bf16 block mode one step from
+    one start (the forward and the towers bit for bit; the owner's update
+    takes each item's pre-aggregated sum rounded to bf16, as the reference's
+    casts `recv_g`, so the item rows' change within 2^-7 x its largest, the
+    accumulators within rtol 2^-6); with the block kernels in f32 MESH_STEPS
+    steps at the reference's bars (tables atol 1e-5, loss rtol 1e-5), bit
+    for bit predicted. The bf16 wire at the reference's bars (rtol 2e-2
+    loss, rtol 2e-2 / atol 2e-3 tables). The K = 16 graph with
+    `all_to_all_single` captured bit for bit the eager steps, its replayed
+    ms beside the dense sharded graph's and the one-device graph's. At
+    capacity 0.05 a step's count is nonzero and `train_one_epoch_packed`
+    raises the reference's error."""
+    tag = "[mesh-a2a]"
+    cfg, dense_cfg = flagship_bce()
+    plan = plan_sharding(cfg, 1, force={"t_user_id": "row_sharded",
+                                        "t_product_id": "row_sharded"})
+    tcfg = dataclasses.replace(dense_cfg, sharded_exchange="alltoall",
+                               exchange_capacity_factor=1.25)
+    routed = alltoall_tables(cfg, tcfg, plan, "t_user_id")
+    if routed != {"t_product_id"}:
+        raise AssertionError(f"{tag} the exchange takes {routed}, expected the item table")
+    base, dense_opt = step_lib.train_state_from_numpy(numpy_start(cfg), cfg, tcfg, mesh.device)
+    step = sharded_step(cfg, tcfg, dense_opt, mesh, plan)
+    sh, out, times, launches = counted_steps(tag, step, shard_train_state(base, plan, mesh), pool,
+                                             BCE_A2A)
+    if int(out["exchange_overflow"]) != 0:
+        raise AssertionError(f"{tag} {int(out['exchange_overflow'])} ids overflowed")
+    # the bf16 block mode: one step each way from one start
+    dense_step = sharded_step(cfg, dense_cfg, dense_opt, mesh, plan)
+    start = shard_train_state(base, plan, mesh)
+    a, a_out = step(shard_train_state(base, plan, mesh), pool[0])
+    d, d_out = dense_step(shard_train_state(base, plan, mesh), pool[0])
+    if not bitwise_equal(a_out["loss"], d_out["loss"]):
+        raise AssertionError(f"{tag} the forward is not the dense exchange's bit for bit")
+    at, dt, st = state_tensors(a), state_tensors(d), state_tensors(start)
+    differ = {}
+    for name in dt:
+        if bitwise_equal(at[name], dt[name]):
+            continue
+        if not name.startswith("t_product_id"):
+            raise AssertionError(f"{tag} {name} differs from the dense exchange's")
+        diff = (at[name] - dt[name]).abs().max().item()
+        differ[name] = diff
+        if name.endswith(".acc"):
+            torch.testing.assert_close(at[name], dt[name], rtol=2.0 ** -6, atol=1e-12)
+        elif diff > 2.0 ** -7 * (dt[name] - st[name]).abs().max().item():
+            raise AssertionError(f"{tag} {name} {diff} from the dense exchange's")
+    log(f"{tag} one step from one start against the dense exchange (bf16 block mode): the loss "
+        f"bit for bit, {len(dt) - len(differ)} of {len(dt)} state tensors bit for bit, the item "
+        f"table's rows and accumulators (each item's pre-aggregated sum rounded to bf16 before "
+        f"#4) within 2^-7 x the largest change / rtol 2^-6: max abs diffs {differ!r}")
+    del a, d, start
+    # the block kernels in f32: MESH_STEPS steps each way
+    f32 = {"block_sorted_kernel": "float32"}
+    a, a_out, _ = timed_steps(sharded_step(cfg, dataclasses.replace(tcfg, **f32), dense_opt, mesh,
+                                           plan), shard_train_state(base, plan, mesh), pool, 0,
+                              MESH_STEPS)
+    d, d_out, _ = timed_steps(sharded_step(cfg, dataclasses.replace(dense_cfg, **f32), dense_opt,
+                                           mesh, plan), shard_train_state(base, plan, mesh),
+                              pool, 0, MESH_STEPS)
+    log(f"{tag} block kernels in f32, {MESH_STEPS} steps against the dense exchange: "
+        f"{check_loss(tag, a_out, d_out)}; {held_states(tag, a, d, table_atol=1e-5)}")
+    del a, d
+    # the bf16 wire against the f32 wire
+    w, w_out, _ = timed_steps(sharded_step(cfg, dataclasses.replace(
+        tcfg, exchange_wire_dtype="bfloat16"), dense_opt, mesh, plan),
+        shard_train_state(base, plan, mesh), pool, 0, MESH_STEPS)
+    a, b = state_tensors(w), state_tensors(sh)
+    wire_diff = {}
+    for name in ("t_user_id", "t_product_id"):
+        torch.testing.assert_close(a[name], b[name], rtol=2e-2, atol=2e-3,
+                                   msg=lambda m: f"{tag} bf16 wire {name}: {m}")
+        wire_diff[name] = (a[name] - b[name]).abs().max().item()
+    log(f"{tag} exchange_wire_dtype=bfloat16, {MESH_STEPS} steps against the f32 wire: "
+        f"{check_loss(tag, w_out, out, rtol=2e-2)}; tables within rtol 2e-2 / atol 2e-3, max "
+        f"abs diffs {wire_diff!r}")
+    del w, sh
+    # a capacity that overflows
+    small = dataclasses.replace(tcfg, exchange_capacity_factor=A2A_OVERFLOW_FACTOR)
+    _, o_out = sharded_step(cfg, small, dense_opt, mesh, plan)(
+        shard_train_state(base, plan, mesh), pool[0])
+    dropped = int(o_out["exchange_overflow"])
+    if dropped <= 0:
+        raise AssertionError(f"{tag} capacity {A2A_OVERFLOW_FACTOR}: no id overflowed")
+    host = [map_leaves(pb, lambda t: t.cpu()) for pb in pool[:2]]
+    try:
+        train_one_epoch_packed(shard_train_state(base, plan, mesh),
+                               make_sharded_multi_step(cfg, small, dense_opt, mesh, plan),
+                               host, lambda pb: pb, macro=2, num_workers=1, train_cfg=small,
+                               sharding=macro_batch_sharding(mesh))
+        raise AssertionError(f"{tag} train_one_epoch_packed did not raise on the overflow")
+    except RuntimeError as e:
+        if "the alltoall exchange dropped" not in str(e):
+            raise
+        raised = str(e).split(" — ")[0]
+    log(f"{tag} capacity factor {A2A_OVERFLOW_FACTOR}: a step's exchange_overflow={dropped} "
+        f"(forward and backward); train_one_epoch_packed raised: {raised!r}")
+    # K steps as one graph, all_to_all_single captured
+    captured, multi, graphed, same = graph_against_eager(tag, cfg, tcfg, dense_opt, mesh, plan,
+                                                         base, pool, step, BCE_A2A)
+    for name in captured:
+        launches[name] += captured[name]
+    dense_multi = make_sharded_multi_step(cfg, dense_cfg, dense_opt, mesh, plan, pack_label=True)
+    dense_graphed = shard_train_state(base, plan, mesh)
+    dense_multi(dense_graphed, stack_on_card([pool[i % len(pool)] for i in range(GRAPH_K)]))
+    ms = replayed_ms({"alltoall": (multi, graphed), "dense": (dense_multi, dense_graphed),
+                      "one-device": one_device_graph(cfg, dense_cfg, dense_opt, base, pool)},
+                     pool)
+    log(f"{tag} K={GRAPH_K} graph (all_to_all_single captured): {same}; eager median_step_ms "
+        f"{statistics.median(times)!r}; replayed_ms_per_step {ms_note(ms)} (ratio to dense "
+        f"{ms['alltoall'] / ms['dense']!r}); {card_line()}")
+    return launches
+
+
+# the column-sharded item table's step: the user table's #1 and #4, the item slice's #1 and
+# #3, the towers' kernels
+BCE_COLUMN = {"pooled_gather": 2, "rowwise_adagrad": 1, "block_sorted_aggregate": 1,
+              "tower_bwd": 2, "tower_fwd": 2}
+
+
+def phase_mesh_column(mesh, pool: list) -> dict[str, int]:
+    """`[mesh-column]`: `[mesh]`'s config with the item table forced
+    column-sharded (f32): the pools of one batch bit for bit the one-device
+    step's; MESH_STEPS counted steps (#1 twice, #4 once, #3 once, the towers'
+    kernels twice a step) against the one-device steps, the tables within
+    atol 1e-5 (the accumulator's sum of squares in another order than #4's
+    mean); the K = 16 graph bit for bit the eager steps, its replayed ms
+    beside the one-device graph's."""
+    tag = "[mesh-column]"
+    cfg, tcfg = flagship_bce()
+    plan = plan_sharding(cfg, 1, force={"t_user_id": "row_sharded",
+                                        "t_product_id": "column_sharded"})
+    base, dense_opt = step_lib.train_state_from_numpy(numpy_start(cfg), cfg, tcfg, mesh.device)
+    sh = shard_train_state(base, plan, mesh)
+    batch = unpack_batch(pool[0], cfg, pack_label=True)
+    _, sharded_pool = make_sharded_forward(cfg, mesh, plan, block_sorted_feature="user_id",
+                                           block_sorted_dtype="bfloat16", train_cfg=tcfg)
+    with torch.no_grad():
+        got = sharded_pool(sh.model.tables, batch)[0]
+        want = two_tower_pooled(base.model.tables, batch, cfg, block_sorted_feature="user_id",
+                                block_sorted_dtype="bfloat16")
+    for name in want:
+        if not bitwise_equal(got[name], want[name]):
+            raise AssertionError(f"{tag} the pool of {name} is not the one-device pool bit for bit")
+    step = sharded_step(cfg, tcfg, dense_opt, mesh, plan)
+    sh, sh_out, _, launches = counted_steps(tag, step, sh, pool, BCE_COLUMN)
+    one, one_out, _ = timed_steps(one_device_step(cfg, tcfg, dense_opt), base.copy(), pool, 0,
+                                  MESH_STEPS)
+    note = held_states(tag, unshard_train_state(sh, plan, cfg, mesh, dst=0), one,
+                       table_atol=1e-5)
+    log(f"{tag} the pools of a batch bit for bit the one-device step's; {MESH_STEPS} steps "
+        f"against the one-device steps: {check_loss(tag, sh_out, one_out)}; {note}; launches "
+        f"per step { {n: v // MESH_STEPS for n, v in launches.items() if v} }")
+    del sh, one
+    captured, multi, graphed, same = graph_against_eager(tag, cfg, tcfg, dense_opt, mesh, plan,
+                                                         base, pool, step, BCE_COLUMN)
+    for name in captured:
+        launches[name] += captured[name]
+    ms = replayed_ms({"column": (multi, graphed),
+                      "one-device": one_device_graph(cfg, tcfg, dense_opt, base, pool)}, pool)
+    log(f"{tag} K={GRAPH_K} graph: {same}; replayed_ms_per_step {ms_note(ms)}; {card_line()}")
+    return launches
+
+
+def card_table(gen: torch.Generator, n: int, d: int, dtype: str, dev: torch.device):
+    """A table of U(-0.5, 0.5) rows on the card, f32 or quantized to int8."""
+    rows = torch.rand((n, d), generator=gen, device=dev) - 0.5
+    return QuantizedTable(*quantize_rows(rows)) if dtype == "int8" else rows
+
+
+def table_like(t, rows: int):
+    """Zero rows of `t`'s kind and width."""
+    parts = [torch.zeros((rows,) + tuple(p.shape[1:]), dtype=p.dtype, device=p.device)
+             for p in table_parts(t)]
+    return QuantizedTable(*parts) if isinstance(t, QuantizedTable) else parts[0]
+
+
+def table_slice(t, lo: int, hi: int):
+    """A copy of rows [lo, hi) of `t`."""
+    parts = [p[lo:hi].clone() for p in table_parts(t)]
+    return QuantizedTable(*parts) if isinstance(t, QuantizedTable) else parts[0]
+
+
+def tables_equal(a, b) -> bool:
+    return all(bitwise_equal(x, y) for x, y in zip(table_parts(a), table_parts(b)))
+
+
+def phase_shard_kernels(dev: torch.device, pool: list, table_dtype: str = "float32") -> None:
     """`[shard-kernels]`: each of SHARD_WORLD ranks' shard-local work run in
     turn on the card, on the gathered global batch of the flagship step
-    (262,144 ids, sorted by user): the user table row-sharded (the sorted
-    path: each shard's local ids non-decreasing, those below it negative and
-    those above past its rows) and the item table as a table-wise bucket
-    (the device-sort path). The partial pools (#1) sum to the one-device
-    gather bit for bit; each shard's update (#4, bf16 gradients as the bf16
-    block mode passes them) equals the matching rows of the one-device
-    update bit for bit, its untouched and padded rows unchanged. Each
-    shard's #4 ms beside the one-device call's: every shard walks all the
-    gathered ids."""
+    (262,144 ids, sorted by user), f32 or int8 tables: the user table
+    row-sharded (the sorted path: each shard's local ids non-decreasing,
+    those below it negative and those above past its rows) and the item
+    table as a table-wise bucket (the device-sort path). The partial pools
+    (#1, #5 for int8) sum to the one-device gather bit for bit; each shard's
+    update (#4, #6 for int8; bf16 gradients as the bf16 block mode passes
+    them) equals the matching rows of the one-device update bit for bit, its
+    untouched and padded rows unchanged. Each shard's pool and update ms
+    beside the one-device calls': every shard walks all the gathered ids."""
     tag = "[shard-kernels]"
+    int8 = table_dtype == "int8"
+    gather_k, update_k = ("#5", "#6") if int8 else ("#1", "#4")
     cfg, tcfg = flagship_bce()
+    cfg = dataclasses.replace(cfg, table_dtype=table_dtype)
     plan = plan_sharding(cfg, SHARD_WORLD, force={"t_user_id": "row_sharded",
                                                   "t_product_id": "table_wise"})
     batch = unpack_batch(pool[0], cfg, pack_label=True)
@@ -4074,75 +4452,240 @@ def phase_shard_kernels(dev: torch.device, pool: list) -> None:
         feat = batch.features[fc_name]
         ids, w = feat.ids[:, 0].contiguous(), feat.mask[:, 0].contiguous()
         n, d = spec.num_embeddings, spec.embedding_dim
-        full = torch.rand((n, d), generator=rng, device=dev) - 0.5
+        full = card_table(rng, n, d, table_dtype, dev)
         acc = torch.rand(n, generator=rng, device=dev)
         grads = (torch.randn((ids.shape[0], d), generator=rng, device=dev) * 0.1).bfloat16()
         if spec.strategy == "row_sharded":
             rows, base, route = spec.padded_rows // SHARD_WORLD, 0, "sorted"
-            sentinel = SHARD_WORLD * rows
         else:
             rows = plan.buckets[spec.bucket].rows_per_device
             base, route = spec.owner * rows + spec.bucket_offset, "device sort"
-            sentinel = SHARD_WORLD * rows
+        sentinel = SHARD_WORLD * rows
         keys = torch.where(w > 0, ids + base, sentinel).to(torch.int32)
         flat_ids = torch.where(w > 0, ids, n).to(torch.int32)
         # the one-device calls
-        want_pool = (block_sorted_lookup(full, ids, w, out_dtype=torch.float32)
-                     if route == "sorted" else pooled_gather(full, ids[:, None].contiguous(),
-                                                             w[:, None].contiguous(),
-                                                             out_dtype=torch.float32))
+        if route == "sorted":
+            def one_pool():
+                return block_sorted_lookup(full, ids, w, out_dtype=torch.float32)
+        else:
+            def one_pool():
+                return partial_pool(full, ids[:, None], w[:, None], 0)
+        want_pool = one_pool()
         upd_fn = step_lib.pick_table_update_fn(cfg, tcfg, "t_user_id" if route == "sorted"
-                                               else None, tname, ids.shape[0], quantized=False)
-        want_t, want_a = full.clone(), acc.clone()
+                                               else None, tname, ids.shape[0], quantized=int8)
+        want_t, want_a = table_slice(full, 0, n), acc.clone()
         upd_fn(want_t, want_a, flat_ids, grads, lr, eps)
-        scratch_t, scratch_a = full.clone(), acc.clone()  # timed in place: the same ids each time
+        scratch_t, scratch_a = table_slice(full, 0, n), acc.clone()  # timed in place: the same ids
         one_ms = median_ms(lambda: upd_fn(scratch_t, scratch_a, flat_ids, grads, lr, eps), flush)
+        one_pool_ms = median_ms(one_pool, flush)
         # the ranks' shards: the padded global array cut in SHARD_WORLD pieces
-        padded_t = torch.zeros((SHARD_WORLD * rows, d), device=dev)
+        padded_t = table_like(full, SHARD_WORLD * rows)
         padded_a = torch.zeros(SHARD_WORLD * rows, device=dev)
-        padded_t[base:base + n], padded_a[base:base + n] = full, acc
+        for dst, src in zip(table_parts(padded_t), table_parts(full)):
+            dst[base:base + n] = src
+        padded_a[base:base + n] = acc
         got_pool = torch.zeros_like(want_pool)
-        shard_ms = []
+        shard_ms, pool_ms = [], []
         for r in range(SHARD_WORLD):
-            t = padded_t[r * rows:(r + 1) * rows].clone()
+            t = table_slice(padded_t, r * rows, (r + 1) * rows)
             a = padded_a[r * rows:(r + 1) * rows].clone()
             if route == "sorted":
-                got_pool += sorted_partial_rows(t, keys, w, r, out_dtype=torch.float32)
+                def shard_pool(t=t, r=r):
+                    return sorted_partial_rows(t, keys, w, r, out_dtype=torch.float32)
                 local = (keys - r * rows).to(torch.int32)
                 negative = int((local < 0).sum())
                 above = int((local >= rows).sum())
             else:
-                got_pool += partial_pool(t, keys[:, None], w[:, None], r)
+                def shard_pool(t=t, r=r):
+                    return partial_pool(t, keys[:, None], w[:, None], r)
                 local = shard_local_ids(keys, r, rows)
                 negative, above = 0, int((local == rows).sum())
+            got_pool += shard_pool()
+            pool_ms.append(median_ms(shard_pool, flush))
             shard_fn = step_lib.pick_table_update_fn(
                 cfg, tcfg, tname if route == "sorted" else None, tname, ids.shape[0],
-                quantized=False, table_dtype="float32", num_rows=rows)
+                quantized=int8, table_dtype=table_dtype, num_rows=rows)
             shard_fn(t, a, local, grads, lr, eps)
             torch.cuda.synchronize()
             lo, hi = max(r * rows, base), min((r + 1) * rows, base + n)
-            want_rows = torch.zeros((rows, d), device=dev)
+            want_rows = table_like(full, rows)
             want_acc = torch.zeros(rows, device=dev)
             if hi > lo:
-                want_rows[lo - r * rows:hi - r * rows] = want_t[lo - base:hi - base]
+                for dst, src in zip(table_parts(want_rows), table_parts(want_t)):
+                    dst[lo - r * rows:hi - r * rows] = src[lo - base:hi - base]
                 want_acc[lo - r * rows:hi - r * rows] = want_a[lo - base:hi - base]
-            if not (bitwise_equal(t, want_rows) and bitwise_equal(a, want_acc)):
-                raise AssertionError(f"{tag} {tname} shard {r}: not the one-device update's rows "
-                                     f"bit for bit (max abs diff "
-                                     f"{(t - want_rows).abs().max().item()!r})")
-            scratch_t, scratch_a = t.clone(), a.clone()
+            if not (tables_equal(t, want_rows) and bitwise_equal(a, want_acc)):
+                raise AssertionError(f"{tag} {table_dtype} {tname} shard {r}: not the one-device "
+                                     f"update's rows bit for bit")
+            scratch_t, scratch_a = table_slice(t, 0, rows), a.clone()
             shard_ms.append(median_ms(lambda: shard_fn(scratch_t, scratch_a, local, grads, lr,
                                                        eps), flush))
-            log(f"{tag} {tname} shard {r} of {SHARD_WORLD} ({route}, rows [{r * rows}, "
-                f"{(r + 1) * rows}) of the padded {SHARD_WORLD * rows}): {negative} local ids "
-                f"below the shard, {above} past it; the update bit for bit the one-device "
-                f"update's rows (padded and untouched rows unchanged); #4 ms={shard_ms[-1]!r}")
+            log(f"{tag} {table_dtype} {tname} shard {r} of {SHARD_WORLD} ({route}, rows "
+                f"[{r * rows}, {(r + 1) * rows}) of the padded {SHARD_WORLD * rows}): {negative} "
+                f"local ids below the shard, {above} past it; the update bit for bit the "
+                f"one-device update's rows (padded and untouched rows unchanged); {gather_k} "
+                f"ms={pool_ms[-1]!r}, {update_k} ms={shard_ms[-1]!r}")
         if not bitwise_equal(got_pool, want_pool):
-            raise AssertionError(f"{tag} {tname}: the {SHARD_WORLD} partial pools do not sum to "
-                                 "the one-device gather bit for bit")
-        log(f"{tag} {tname}: the {SHARD_WORLD} partial pools sum to the one-device #1 output bit "
-            f"for bit; #4 ms a shard {shard_ms!r} (sum {sum(shard_ms)!r}) against the one-device "
-            f"call's {one_ms!r}, each over all {ids.shape[0]} gathered ids; {card_line()}")
+            raise AssertionError(f"{tag} {table_dtype} {tname}: the {SHARD_WORLD} partial pools "
+                                 "do not sum to the one-device gather bit for bit")
+        log(f"{tag} {table_dtype} {tname}: the {SHARD_WORLD} partial pools sum to the one-device "
+            f"{gather_k} output bit for bit; {gather_k} ms a shard {pool_ms!r} against the "
+            f"one-device call's {one_pool_ms!r}; {update_k} ms a shard {shard_ms!r} (sum "
+            f"{sum(shard_ms)!r}) against the one-device call's {one_ms!r}, each over all "
+            f"{ids.shape[0]} gathered ids; {card_line()}")
+
+
+def phase_shard_exchange(dev: torch.device, pool: list) -> None:
+    """`[shard-kernels]` the all-to-all exchange of the flagship item table
+    row-sharded over SHARD_WORLD ranks, by hand: each sender's slice of the
+    262,144 ids routed (`a2a_route`, capacity 1.25) and its gradients
+    pre-aggregated (#3); the send buffers transposed as `all_to_all_single`
+    transposes them; each owner's rows (#1 at one slot) and update (#4 after
+    the device sort); each sender's pool from the answers (#1). The pool is
+    bit for bit the dense exchange's (one
+    slot), the tables within atol 1e-5 of the one-device update (f32
+    gradients: the sums' association differs), the overflow the plain
+    route's (on the host). Each sender's #3 and each owner's #1 and #4 ms
+    beside the one-device #1 and #4."""
+    tag = "[shard-kernels]"
+    cfg, tcfg = flagship_bce()
+    tcfg = dataclasses.replace(tcfg, block_sorted_kernel="float32")
+    plan = plan_sharding(cfg, SHARD_WORLD, force={"t_user_id": "row_sharded",
+                                                  "t_product_id": "row_sharded"})
+    spec = plan["t_product_id"]
+    rows, n, d = spec.padded_rows // SHARD_WORLD, spec.num_embeddings, spec.embedding_dim
+    feat = unpack_batch(pool[0], cfg, pack_label=True).features["product_id"]
+    ids, w = feat.ids[:, 0].contiguous(), feat.mask[:, 0].contiguous()
+    b_loc = ids.shape[0] // SHARD_WORLD
+    cap = a2a_cap(b_loc, SHARD_WORLD, 1.25, rows)
+    rng = torch.Generator(device=dev).manual_seed(9)
+    full = torch.rand((n, d), generator=rng, device=dev) - 0.5
+    acc = torch.rand(n, generator=rng, device=dev)
+    grads = torch.randn((ids.shape[0], d), generator=rng, device=dev) * 0.1
+    lr, eps = tcfg.sparse_learning_rate, tcfg.adagrad_eps
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    upd_fn = step_lib.pick_table_update_fn(cfg, tcfg, None, "t_product_id", ids.shape[0],
+                                           quantized=False)
+    want_pool = pooled_gather(full, ids[:, None], w[:, None], out_dtype=torch.float32)
+    want_t, want_a = full.clone(), acc.clone()
+    upd_fn(want_t, want_a, torch.where(w > 0, ids, n).to(torch.int32), grads, lr, eps)
+    padded_t = torch.zeros((SHARD_WORLD * rows, d), device=dev)
+    padded_a = torch.zeros(SHARD_WORLD * rows, device=dev)
+    padded_t[:n], padded_a[:n] = full, acc
+    shards = [padded_t[r * rows:(r + 1) * rows].clone() for r in range(SHARD_WORLD)]
+    accs = [padded_a[r * rows:(r + 1) * rows].clone() for r in range(SHARD_WORLD)]
+    # each sender: route, send ids, pre-aggregate
+    routes, send_ids, send_g, agg_ms, overflow, plain_overflow = [], [], [], [], 0, 0
+    for s in range(SHARD_WORLD):
+        sl = slice(s * b_loc, (s + 1) * b_loc)
+        f_ids, f_w = ids[sl].to(torch.int32), w[sl]
+        resp = a2a_responsible(f_ids, rows, SHARD_WORLD, 1, 0)
+        slot, ok, ovf = a2a_route(f_ids, f_w, rows, SHARD_WORLD, cap, resp)
+        plain = a2a_route(f_ids.cpu(), f_w.cpu(), rows, SHARD_WORLD, cap, resp.cpu())
+        if not (torch.equal(slot.cpu(), plain[0]) and int(ovf) == int(plain[2])):
+            raise AssertionError(f"{tag} sender {s}: the route differs from the plain route's")
+        overflow, plain_overflow = overflow + int(ovf), plain_overflow + int(plain[2])
+        routes.append((slot, ok, f_w))
+        send_ids.append(a2a_send_ids(f_ids, slot, ok, SHARD_WORLD * cap, SHARD_WORLD * rows))
+        g = grads[sl].contiguous()
+        send_g.append(a2a_send_grads(slot, ok, g, SHARD_WORLD * cap))
+        agg_ms.append(median_ms(lambda: a2a_send_grads(slot, ok, g, SHARD_WORLD * cap), flush))
+    # each owner: its block of every sender's buffers, as all_to_all_single lays them out
+    block = lambda bufs, o: torch.cat([b[o * cap:(o + 1) * cap] for b in bufs])  # noqa: E731
+    answers, gather_ms, update_ms = [], [], []
+    for o in range(SHARD_WORLD):
+        recv_ids, recv_g = block(send_ids, o), block(send_g, o)
+        answers.append(a2a_owner_rows(shards[o], recv_ids, o, torch.float32))
+        gather_ms.append(median_ms(lambda: a2a_owner_rows(shards[o], recv_ids, o, torch.float32),
+                                   flush))
+        local = shard_local_ids(recv_ids, o, rows)
+        scratch_t, scratch_a = shards[o].clone(), accs[o].clone()
+        upd_fn(shards[o], accs[o], local, recv_g, lr, eps)
+        update_ms.append(median_ms(lambda: upd_fn(scratch_t, scratch_a, local, recv_g, lr, eps),
+                                   flush))
+    got_pool = torch.cat([a2a_pool(block(answers, s), *routes[s], b_loc, 1)
+                          for s in range(SHARD_WORLD)])
+    if not bitwise_equal(got_pool, want_pool):
+        raise AssertionError(f"{tag} the exchange's pool is not the dense exchange's bit for bit")
+    got_t, got_a = torch.cat(shards)[:n], torch.cat(accs)[:n]
+    torch.testing.assert_close(got_t, want_t, rtol=0, atol=1e-5,
+                               msg=lambda m: f"{tag} the exchange's update: {m}")
+    torch.testing.assert_close(got_a, want_a, rtol=1e-5, atol=1e-6,
+                               msg=lambda m: f"{tag} the exchange's accumulators: {m}")
+    one_gather_ms = median_ms(lambda: pooled_gather(full, ids[:, None], w[:, None],
+                                                    out_dtype=torch.float32), flush)
+    scratch_t, scratch_a = full.clone(), acc.clone()
+    flat = torch.where(w > 0, ids, n).to(torch.int32)
+    one_update_ms = median_ms(lambda: upd_fn(scratch_t, scratch_a, flat, grads, lr, eps), flush)
+    log(f"{tag} all-to-all exchange by hand, {SHARD_WORLD} ranks, item table {rows} rows a "
+        f"shard, {b_loc} ids a sender, capacity {cap} a bucket: the pool bit for bit the dense "
+        f"exchange's; the tables within atol 1e-5 of the one-device update (max abs diff "
+        f"{(got_t - want_t).abs().max().item()!r}); overflow {overflow} (the plain route's "
+        f"{plain_overflow}); #3 ms a sender {agg_ms!r}; #1 ms an owner {gather_ms!r} against "
+        f"the one-device #1 {one_gather_ms!r}; #4 ms an owner {update_ms!r} against the "
+        f"one-device #4 {one_update_ms!r}; {card_line()}")
+
+
+def phase_shard_columns(dev: torch.device, pool: list) -> None:
+    """`[shard-kernels]` the flagship item table column-sharded over
+    SHARD_WORLD ranks (32 columns each), by hand: each shard's #1 pool of
+    its columns, joined in column order, bit for bit the one-device pool;
+    each shard's #3 sums and the epilogue on the rows' squared gradients
+    summed over the shards (the all-reduce) within atol 1e-5 of the
+    one-device #4 update, the shards' accumulators equal. Each shard's #1
+    and #3 ms beside the one-device #1 and #4."""
+    tag = "[shard-kernels]"
+    cfg, tcfg = flagship_bce()
+    tcfg = dataclasses.replace(tcfg, block_sorted_kernel="float32")
+    feat = unpack_batch(pool[0], cfg, pack_label=True).features["product_id"]
+    ids, w = feat.ids.contiguous(), feat.mask.contiguous()
+    n, d = NUM_ITEMS, DIM
+    cols = d // SHARD_WORLD
+    rng = torch.Generator(device=dev).manual_seed(11)
+    full = torch.rand((n, d), generator=rng, device=dev) - 0.5
+    acc = torch.rand(n, generator=rng, device=dev)
+    grads = torch.randn((ids.shape[0], d), generator=rng, device=dev) * 0.1
+    lr, eps = tcfg.sparse_learning_rate, tcfg.adagrad_eps
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    flat = torch.where(w[:, 0] > 0, ids[:, 0], n).to(torch.int32)
+    want_pool = pooled_gather(full, ids, w, out_dtype=torch.float32)
+    upd_fn = step_lib.pick_table_update_fn(cfg, tcfg, None, "t_product_id", ids.shape[0],
+                                           quantized=False)
+    want_t, want_a = full.clone(), acc.clone()
+    upd_fn(want_t, want_a, flat, grads, lr, eps)
+    shards = [full[:, c * cols:(c + 1) * cols].contiguous() for c in range(SHARD_WORLD)]
+    parts, pool_ms, sums, sums_ms = [], [], [], []
+    for c, shard in enumerate(shards):
+        parts.append(pooled_gather(shard, ids, w, out_dtype=torch.float32))
+        pool_ms.append(median_ms(lambda: pooled_gather(shard, ids, w, out_dtype=torch.float32),
+                                  flush))
+        g_cols = grads[:, c * cols:(c + 1) * cols].contiguous()
+        sums.append(opt_lib.column_grad_sums(n, flat, g_cols))
+        sums_ms.append(median_ms(lambda: opt_lib.column_grad_sums(n, flat, g_cols), flush))
+    if not bitwise_equal(torch.cat(parts, dim=1), want_pool):
+        raise AssertionError(f"{tag} the column shards' pools are not the one-device pool")
+    g2 = sum(torch.sum(g * g, dim=1) for g, _ in sums)  # the all-reduce over the shards
+    shard_accs = []
+    for shard, (g, touched) in zip(shards, sums):
+        a = acc.clone()
+        opt_lib.column_adagrad_epilogue(shard, a, g, touched, g2, lr, eps, d)
+        shard_accs.append(a)
+    if not all(bitwise_equal(a, shard_accs[0]) for a in shard_accs):
+        raise AssertionError(f"{tag} the column shards' accumulators differ")
+    got_t = torch.cat(shards, dim=1)
+    torch.testing.assert_close(got_t, want_t, rtol=0, atol=1e-5,
+                               msg=lambda m: f"{tag} the column update: {m}")
+    torch.testing.assert_close(shard_accs[0], want_a, rtol=1e-5, atol=1e-6,
+                               msg=lambda m: f"{tag} the column accumulators: {m}")
+    one_pool_ms = median_ms(lambda: pooled_gather(full, ids, w, out_dtype=torch.float32), flush)
+    scratch_t, scratch_a = full.clone(), acc.clone()
+    one_update_ms = median_ms(lambda: upd_fn(scratch_t, scratch_a, flat, grads, lr, eps), flush)
+    log(f"{tag} item table column-sharded over {SHARD_WORLD} ranks ({cols} columns each): the "
+        f"joined #1 pools bit for bit the one-device pool; the #3 + epilogue update within atol "
+        f"1e-5 (max abs diff {(got_t - want_t).abs().max().item()!r}), the shards' "
+        f"accumulators equal; #1 ms a shard {pool_ms!r} against the one-device "
+        f"{one_pool_ms!r}; #3 ms a shard {sums_ms!r} against the one-device #4 "
+        f"{one_update_ms!r}; {card_line()}")
 
 
 PROBE_ACC = 2.0 ** 60  # the bf16 buffer's probe accumulator (see phase_bf16_buffer_kernels)
@@ -4747,8 +5290,11 @@ def main() -> int:
     paths["probe"] = phase_probe(dev)
     paths.update(phase_train_graphs(dev, args.profile, batches[0]))
     paths.update(phase_train_bf16buf(dev, args.profile, batches[0]))
-    paths["mesh"] = phase_mesh(dev, batches[0])
-    phase_shard_kernels(dev, batches[0])
+    paths.update(phase_meshes(dev, batches[0]))
+    for table_dtype in ("float32", "int8"):
+        phase_shard_kernels(dev, batches[0], table_dtype)
+    phase_shard_exchange(dev, batches[0])
+    phase_shard_columns(dev, batches[0])
     paths["train-compact"] = phase_train_compact(dev, args.profile)
     paths["train-skew"] = phase_train_skew(dev, args.profile)
     paths["learn-packed"] = phase_learn_packed(dev)

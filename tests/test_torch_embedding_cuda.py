@@ -183,3 +183,32 @@ def test_two_launches_agree(dev, bag_l):
             torch.cuda.synchronize()
             view = torch.int32 if out_dtype == torch.float32 else torch.int16
             assert torch.equal(first.view(view), second.view(view))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bag_l", [1, 4, 16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_round_rows_mode_matches_plain(bag_l, out_dtype):
+    """`round_rows` (the lookup's mode under bf16 compute on an f32 table):
+    each row rounded to the output dtype, the bag summed in slot order,
+    rounded once. With the slot mask as the weights, bit for bit the plain
+    version, on the wide path (D = 128) and the narrow one (D = 130), with
+    dead slots; at one slot bit for bit the mode off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    rng = np.random.default_rng(bag_l)
+    dev = torch.device("cuda")
+    for d in (128, 130):
+        table = torch.from_numpy((rng.normal(size=(700, d)) * 3).astype(np.float32)).to(dev)
+        for b in (1, 33, 4096):
+            ids = rng.integers(-3, 705, (b, bag_l)).astype(np.int32)
+            w = (rng.random((b, bag_l)) > 0.3).astype(np.float32)
+            ids_t, w_t = torch.from_numpy(ids).to(dev), torch.from_numpy(w).to(dev)
+            before = pooled_gather.launches
+            got = pooled_gather(table, ids_t, w_t, out_dtype, round_rows=True)
+            torch.cuda.synchronize()
+            assert pooled_gather.launches == before + 1
+            want = pooled_gather_reference(table, ids_t, w_t, out_dtype, round_rows=True)
+            assert torch.equal(got, want), (d, b, (got.float() - want.float()).abs().max())
+            if bag_l == 1:
+                assert torch.equal(got, pooled_gather(table, ids_t, w_t, out_dtype))

@@ -6,10 +6,13 @@ reference's loss bar (rtol 1e-5), the exports at the tables' and towers'
 bars of `test_torch_parallel_step.py`, the export loadable by `load_scorer`;
 a run stopped after its first epoch's checkpoint and resumed on two ranks
 equals the uninterrupted one bit for bit, and one rank resumes the two
-ranks' checkpoint."""
+ranks' checkpoint. Two ranks also train through the all-to-all exchange and
+with int8 tables (each checkpointing and exporting), and a run whose
+exchange drops ids exits with the overflow error."""
 
 import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -122,3 +125,67 @@ def test_two_rank_resume_equals_the_uninterrupted_run(runs, data_dir, tmp_path):
         np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=atol, err_msg=k)
     assert torch.load(os.path.join(ckpt1, saved[0], "state.pt"), weights_only=True)["step"] \
         == out["two"][0]["train_steps"]
+
+
+def _trains(result, stdout, export, plan):
+    """A run that trained, printed its plan and exported a model that
+    `load_scorer` serves."""
+    rows = [ln.split() for ln in stdout.splitlines() if ln.startswith("t_")]
+    assert {p[0]: p[1] for p in rows} == plan
+    assert result["val_auroc"] > result["baseline_val_auroc"] + 0.1
+    rng = np.random.default_rng(0)
+    inputs = {"user_id": rng.integers(1, 300, 64), "product_id": rng.integers(1, 150, 64)}
+    assert np.isfinite(load_scorer(str(export), device="cpu").predict(inputs)).all()
+
+
+def test_two_ranks_train_through_the_alltoall_exchange(runs, data_dir, tmp_path):
+    """`--sharded-exchange alltoall` with the user table unsorted
+    (`--sorted-feature off`), so the row-sharded user table takes the
+    exchange and the item bucket the dense one: it trains, checkpoints and
+    exports, and lands at the dense two-rank run's metrics (the same
+    updates; only the batch rows' order differs, unsorted)."""
+    ckpt = tmp_path / "ckpt"
+    result, stdout = _train(2, data_dir, tmp_path, "--epochs", "2", "--sorted-feature", "off",
+                            "--sharded-exchange", "alltoall", "--exchange-capacity-factor", "2",
+                            "--checkpoint-dir", str(ckpt), "--export-dir",
+                            str(tmp_path / "export"))
+    assert "alltoall exchange: t_user_id" in stdout
+    _trains(result, stdout, tmp_path / "export",
+            {"t_user_id": "row_sharded", "t_product_id": "table_wise"})
+    assert sorted(os.listdir(ckpt))
+    dense = runs[1]["two"][0]
+    for key in ("val_loss", "test_loss"):
+        np.testing.assert_allclose(result[key], dense[key], rtol=1e-4, err_msg=key)
+
+
+def test_two_ranks_train_int8_tables(data_dir, tmp_path):
+    """`--table-dtype int8`: the planner's int8 flagship plan (user
+    row-sharded, items in the int8 bucket) trains, checkpoints the unsharded
+    int8 state and exports it."""
+    ckpt = tmp_path / "ckpt"
+    result, stdout = _train(2, data_dir, tmp_path, "--epochs", "2", "--table-dtype", "int8",
+                            "--checkpoint-dir", str(ckpt), "--export-dir",
+                            str(tmp_path / "export"))
+    assert "__tw_bucket_d128_int8__" in stdout
+    _trains(result, stdout, tmp_path / "export",
+            {"t_user_id": "row_sharded", "t_product_id": "table_wise"})
+    saved = sorted(os.listdir(ckpt))
+    state = torch.load(os.path.join(ckpt, saved[-1], "state.pt"), weights_only=True)
+    assert state["tensors"]["model/tables.t_user_id.values"].dtype == torch.int8
+    assert state["tensors"]["model/tables.t_product_id.values"].shape == (ITEMS, 128)
+
+
+def test_a_tiny_capacity_factor_exits_with_the_overflow_error(data_dir, tmp_path):
+    """A capacity far below the batch's distinct users: the run exits with
+    the reference's overflow error instead of training on dropped ids."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "2", "-m", "two_tower_recommender_model_tpu_torch.cli.train", "--data-dir", data_dir,
+           "--num-users", str(USERS), "--num-items", str(ITEMS), "--embedding-dim", "128",
+           "--layer-sizes", "16", "8", "--batch-size", "256", "--epochs", "1",
+           "--sorted-feature", "off", "--sharded-exchange", "alltoall",
+           "--exchange-capacity-factor", "0.001", "--runs-root", str(tmp_path / "runs"),
+           "--device", "cpu"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=TIMEOUT_S,
+                          env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode != 0
+    assert re.search(r"dropped \d+ distinct ids past", proc.stderr), proc.stderr[-3000:]

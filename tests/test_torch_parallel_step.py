@@ -411,26 +411,27 @@ def test_block_kernel_requires_row_sharded():
 @pytest.mark.parametrize("what", ["int8-table", "column-sharded", "alltoall",
                                   "sampled-softmax", "compact-wire", "per-host-slices"])
 def test_m12b_and_m12c_configurations_raise(what):
-    """What the sharded path does not have yet raises, naming M12(b) or
-    M12(c)."""
+    """What the sharded path refuses (as the reference does: an int8 table
+    cut by columns, a column-sharded host-sorted table, an exchange that is
+    neither dense nor alltoall) or does not have yet (M12(c)) raises."""
     opt = port_step.opt_lib.dense_optimizer(1e-3)
     if what == "int8-table":
-        mcfg, plan = _plan({"t_user_id": ROW, "t_product_id": REP}, table_dtype="int8")
+        mcfg, plan = _plan({"t_user_id": "column_sharded", "t_product_id": REP},
+                           table_dtype="int8")
         state, _ = port_step.create_train_state(torch.Generator().manual_seed(0), mcfg,
                                                 port_config.TrainConfig())
-        with pytest.raises(NotImplementedError, match=r"M12\(b\)"):
+        with pytest.raises(NotImplementedError, match="per-row scales do not split by columns"):
             port_sharded.shard_train_state(state, plan, _Mesh())
     elif what == "column-sharded":
         mcfg, plan = _plan({"t_user_id": "column_sharded", "t_product_id": REP})
-        state, _ = port_step.create_train_state(torch.Generator().manual_seed(0), mcfg,
-                                                port_config.TrainConfig())
-        with pytest.raises(NotImplementedError, match=r"M12\(b\)"):
-            port_sharded.shard_train_state(state, plan, _Mesh())
+        with pytest.raises(ValueError, match="row_sharded or replicated"):
+            port_sharded.make_sharded_train_step(
+                mcfg, port_config.TrainConfig(sorted_feature="user_id"), opt, _Mesh(), plan)
     elif what == "alltoall":
         mcfg, plan = _plan({"t_user_id": ROW, "t_product_id": REP})
-        with pytest.raises(NotImplementedError, match=r"M12\(b\)"):
+        with pytest.raises(ValueError, match="dense|alltoall"):
             port_sharded.make_sharded_train_step(
-                mcfg, port_config.TrainConfig(sharded_exchange="alltoall"), opt, _Mesh(), plan)
+                mcfg, port_config.TrainConfig(sharded_exchange="ring"), opt, _Mesh(), plan)
     elif what == "sampled-softmax":
         mcfg, plan = _plan({"t_user_id": ROW, "t_product_id": REP})
         with pytest.raises(NotImplementedError, match=r"M12\(c\)"):

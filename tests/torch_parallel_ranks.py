@@ -190,14 +190,16 @@ def train_steps(cfg, tcfg, start, batches, mesh_shape, force, packed_columns=Non
         return None
     mesh, pcfg, ptcfg, plan, sh, opt = setup
     step = make_sharded_train_step(pcfg, ptcfg, opt, mesh, plan)
-    losses = []
+    losses, overflow = [], []
     for nb in batches:
         sh, out = step(sh, device_put_batch(port_batch(nb), sharding=batch_sharding(mesh)))
         losses.append(out["loss"].float().item())
+        if "exchange_overflow" in out:
+            overflow.append(int(out["exchange_overflow"]))
         assert out["logits"].shape[0] == nb["labels"].shape[0] // mesh.data
     full = unshard_train_state(sh, plan, pcfg, mesh, dst=0)
     result = None if mesh.rank else {"losses": losses, "state": state_numpy(full),
-                                     "plan": plan.describe()}
+                                     "plan": plan.describe(), "overflow": overflow}
     if packed_columns is not None:
         state, _ = start_state(start, pcfg, ptcfg)
         sh = shard_train_state(state, plan, mesh)
@@ -208,7 +210,9 @@ def train_steps(cfg, tcfg, start, batches, mesh_shape, force, packed_columns=Non
         full = unshard_train_state(sh, plan, pcfg, mesh, dst=0)
         if result is not None:
             result.update(macro_losses=out["loss"].float().tolist(),
-                          macro_state=state_numpy(full))
+                          macro_state=state_numpy(full),
+                          macro_overflow=(int(out["exchange_overflow"])
+                                          if "exchange_overflow" in out else None))
     torch.distributed.barrier(group=mesh.group)
     return result
 
@@ -231,6 +235,69 @@ def evaluate_columns(cfg, tcfg, start, columns, mesh_shape, force, pad_multiple=
     return evaluate(sh, make_sharded_eval_step(pcfg, ptcfg, mesh, plan), columns,
                     Featurizer(pcfg, device="cpu"), stage="val", sharding=batch_sharding(mesh),
                     pad_multiple=pad_multiple, pad_to=pad_to)
+
+
+def round_trip(cfg, tcfg, start, mesh_shape, force):
+    """`shard_train_state` then `unshard_train_state` on every rank
+    (`dst=None`) and on rank 0: each rank's gathered state, and rank 0's."""
+    from two_tower_recommender_model_tpu_torch.parallel.sharded import unshard_train_state
+
+    setup = _sharded_setup(cfg, tcfg, start, mesh_shape, force)
+    if setup is None:
+        return None
+    mesh, pcfg, _, plan, sh, _ = setup
+    everywhere = state_numpy(unshard_train_state(sh, plan, pcfg, mesh, dst=None))
+    at0 = unshard_train_state(sh, plan, pcfg, mesh, dst=0)
+    return {"everywhere": everywhere, "at0": None if at0 is None else state_numpy(at0)}
+
+
+def loops_raise(cfg, tcfg, start, columns, mesh_shape, force):
+    """`evaluate`, `train_one_epoch` and `train_one_epoch_packed` on the
+    mesh over `columns`: each one's error message (None where it returned)."""
+    from two_tower_recommender_model_tpu_torch.data.device_featurizer import (
+        PackedFeaturizer,
+        make_packed_train_step,
+    )
+    from two_tower_recommender_model_tpu_torch.data.featurizer import Featurizer
+    from two_tower_recommender_model_tpu_torch.parallel.sharded import (
+        batch_sharding,
+        macro_batch_sharding,
+        make_sharded_eval_step,
+        make_sharded_multi_step,
+        make_sharded_train_step,
+    )
+    from two_tower_recommender_model_tpu_torch.train.loop import (
+        evaluate,
+        train_one_epoch,
+        train_one_epoch_packed,
+    )
+
+    setup = _sharded_setup(cfg, tcfg, start, mesh_shape, force)
+    if setup is None:
+        return None
+    mesh, pcfg, ptcfg, plan, sh, opt = setup
+    feat, sharding = Featurizer(pcfg, device="cpu"), batch_sharding(mesh)
+    step = make_sharded_train_step(pcfg, ptcfg, opt, mesh, plan)
+    pf = PackedFeaturizer(pcfg, pack_label=True)
+    runs = {
+        "evaluate": lambda: evaluate(sh, make_sharded_eval_step(pcfg, ptcfg, mesh, plan),
+                                     columns, feat, sharding=sharding),
+        "train_one_epoch": lambda: train_one_epoch(sh, step, columns, feat, ptcfg,
+                                                   sharding=sharding),
+        "train_one_epoch_packed": lambda: train_one_epoch_packed(
+            sh, make_sharded_multi_step(pcfg, ptcfg, opt, mesh, plan), columns, pf,
+            macro=2, num_workers=1, train_cfg=ptcfg,
+            tail_step=make_packed_train_step(step, pcfg, pack_label=True),
+            sharding=macro_batch_sharding(mesh), tail_sharding=sharding),
+    }
+    out = {}
+    for name, run in runs.items():
+        try:
+            run()
+            out[name] = None
+        except RuntimeError as e:
+            out[name] = str(e)
+    return out
 
 
 def sharded_lookup(table, ids, w, mesh_shape):

@@ -24,7 +24,11 @@ of NCCL ranks, one a card (gloo ranks with `--device cpu`); the plan of
 `parallel.planner.plan_sharding` within the card's memory, printed by rank
 0; every rank runs the same loader and trains on its slice of each global
 batch through the sharded step (`parallel/sharded.py`), the packed path as
-one CUDA graph of `--macro-batches` sharded steps. The sorted feature's auto
+one CUDA graph of `--macro-batches` sharded steps; f32, bf16 and int8 tables
+(`--table-dtype`), and the all-to-all exchange for the row-sharded float
+tables the host does not sort (`--sharded-exchange alltoall`,
+`--exchange-capacity-factor`, `--exchange-wire-dtype`; an epoch or an eval
+that dropped ids past the capacity raises). The sorted feature's auto
 choice turns itself off where the plan puts its table where the sorted
 paths do not go. Rank 0 logs, saves the checkpoint of the unsharded state
 (any mesh, or one device, restores it) and exports it. On a mesh
@@ -33,7 +37,7 @@ as packed ones; only the link's bytes differ).
 
 Flags whose modules are not ported yet raise, naming their ROADMAP item:
 `--multi-host`, `--wire-format compact` and `--wire-cache` on a mesh
-(M12(c)), `--sharded-exchange alltoall` and the exchange flags (M12(b)).
+(M12(c)).
 """
 
 from __future__ import annotations
@@ -73,6 +77,7 @@ from two_tower_recommender_model_tpu_torch.evaluation.retrieval import (
 from two_tower_recommender_model_tpu_torch.parallel import launch, planner
 from two_tower_recommender_model_tpu_torch.parallel.mesh import make_mesh, topology_summary
 from two_tower_recommender_model_tpu_torch.parallel.sharded import (
+    alltoall_tables,
     batch_sharding,
     macro_batch_sharding,
     make_sharded_eval_step,
@@ -102,8 +107,6 @@ log = logging.getLogger(__name__)
 # flag -> (the value that means "not asked for", the ROADMAP item it waits for)
 _UNPORTED = {
     "multi_host": (False, "M12(c), per-host loader slices"),
-    "exchange_capacity_factor": (None, "M12(b), the all-to-all exchange"),
-    "exchange_wire_dtype": (None, "M12(b), the all-to-all exchange"),
 }
 
 
@@ -172,16 +175,22 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                     help="model axis of the mesh under torchrun (ranks = data x model)")
     ap.add_argument("--no-shard", action="store_true",
                     help="skip the mesh: the one-device path in each process")
-    ap.add_argument("--sharded-exchange", choices=["dense", "alltoall"], default=None,
-                    help="the sharded tables' exchange: dense (default); alltoall is not "
-                         "ported yet (ROADMAP M12(b))")
-    # not ported yet: each raises when given
+    ap.add_argument("--sharded-exchange", choices=["dense", "alltoall"], default="dense",
+                    help="the exchange of the row-sharded float tables the host does not "
+                         "sort on a mesh: 'alltoall' sends each id's row and gradient "
+                         "straight between its data rank and its owner through buckets of "
+                         "fixed capacity (distinct ids; the epoch raises if any overflow); "
+                         "'dense' (default) all-gathers and reduce-scatters")
+    ap.add_argument("--exchange-capacity-factor", type=float, default=1.25,
+                    help="alltoall: a bucket holds this multiple of B_local * L / ranks "
+                         "distinct ids")
+    ap.add_argument("--exchange-wire-dtype", choices=["float32", "bfloat16"],
+                    default="float32",
+                    help="alltoall: the rows' and gradients' dtype on the wire (bfloat16 "
+                         "rounds them once)")
+    # not ported yet: raises when given
     ap.add_argument("--multi-host", action="store_true",
                     help="not ported yet (ROADMAP M12(c))")
-    ap.add_argument("--exchange-capacity-factor", type=float, default=None,
-                    help="not ported yet (ROADMAP M12(b))")
-    ap.add_argument("--exchange-wire-dtype", choices=["float32", "bfloat16"], default=None,
-                    help="not ported yet (ROADMAP M12(b))")
     ap.add_argument("--wire-cache", default=None, metavar="DIR",
                     help="pre-encoded batch cache (data/wirecache.py): built on first use "
                          "from the loader's order, reused after; an epoch's host work drops "
@@ -212,10 +221,6 @@ def refuse_unported(args: argparse.Namespace) -> None:
         if getattr(args, name) != unset:
             raise NotImplementedError(f"--{name.replace('_', '-')} is not ported to the PyTorch "
                                       f"package yet (ROADMAP.md Queue 1, {item})")
-    if args.sharded_exchange == "alltoall":
-        raise NotImplementedError("--sharded-exchange alltoall is not ported to the PyTorch "
-                                  "package yet (ROADMAP.md Queue 1, M12(b), the all-to-all "
-                                  "exchange)")
 
 
 def refuse_unported_on_mesh(args: argparse.Namespace) -> None:
@@ -351,7 +356,9 @@ def _main(args: argparse.Namespace, device: torch.device, mesh) -> dict:
         limit_train_batches=args.limit_train_batches,
         limit_val_batches=args.limit_val_batches, limit_test_batches=args.limit_test_batches,
         sorted_feature=sorted_feature, block_sorted_kernel=block_kernel,
-        sharded_exchange=args.sharded_exchange or "dense")
+        sharded_exchange=args.sharded_exchange,
+        exchange_capacity_factor=args.exchange_capacity_factor,
+        exchange_wire_dtype=args.exchange_wire_dtype)
 
     plan = None
     if mesh is not None:
@@ -368,6 +375,9 @@ def _main(args: argparse.Namespace, device: torch.device, mesh) -> dict:
                 tcfg = dataclasses.replace(tcfg, sorted_feature=None)
         if tcfg.print_sharding_plan and rank0:
             print(plan.describe())
+            if tcfg.sharded_exchange == "alltoall":
+                print("alltoall exchange: " + (", ".join(sorted(alltoall_tables(
+                    mcfg, tcfg, plan, validate_sorted_feature(mcfg, tcfg)))) or "no table"))
 
     state, dense_opt = create_train_state(torch.Generator(device=device).manual_seed(args.seed),
                                           mcfg, tcfg)

@@ -191,11 +191,15 @@ class TrainConfig:
     block_sorted_gather: bool = True
     device_sorted_gather: bool = False  # not ported (ROADMAP)
     softmax_kernel: str = "auto"  # only for sampled_softmax
-    # "dense" (the all-gather / reduce-scatter exchange of `parallel/sharded.py`)
-    # | "alltoall" (not ported: ROADMAP M12(b))
+    # the exchange of the row-sharded float tables that the host does not sort
+    # (`parallel/sharded.py`): "dense" (all-gather / reduce-scatter) | "alltoall"
+    # (each id's row and gradient straight between its data rank and its owner,
+    # through buckets of fixed capacity; the ids past it are counted, and the
+    # loops raise on a nonzero count)
     sharded_exchange: str = "dense"
-    exchange_capacity_factor: float = 1.25  # alltoall only (M12(b))
-    exchange_wire_dtype: str = "float32"  # alltoall only (M12(b))
+    # alltoall: a bucket holds this multiple of B_local * L / ranks distinct ids
+    exchange_capacity_factor: float = 1.25
+    exchange_wire_dtype: str = "float32"  # alltoall: the rows' and gradients' wire dtype
     checkpoint_dir: str | None = None
     checkpoint_every_epochs: int = 1
 

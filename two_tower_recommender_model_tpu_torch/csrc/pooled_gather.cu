@@ -21,7 +21,13 @@
 //     alignment;
 //   - the rounding, the same on both paths: acc = fmaf(w, x, acc) from 0 in
 //     slot order, so at one slot the result is w * x rounded once, the plain
-//     version's bit for bit.
+//     version's bit for bit;
+//   - `round_rows` (f32 table, bf16 out): each row is first rounded to bf16,
+//     acc = fmaf(w, bf16(x), acc), and the sum rounded once: the reference's
+//     rounding of a bag under bf16 compute (ops/embedding_ops.py:67-75, each
+//     row cast to bf16, the bag summed in f32 in slot order, rounded once).
+//     For any other dtype pair a row already is in the output dtype, so the
+//     flag changes nothing.
 //
 // What bounds it: memory at the train step's 262,144 bags (each live slot
 // reads one D-wide row, 512 B at f32 and D = 128, each bag writes one row,
@@ -76,8 +82,14 @@ __device__ __forceinline__ void unpack(const uint4& r, float (&v)[8]) {
   }
 }
 
-// The float rows of the wide path: 16 bytes a chunk, no extra a slot.
-template <typename Tin>
+// x rounded to the nearest bf16 (ties to even), widened back to f32
+__device__ __forceinline__ float round_bf16(float x) {
+  return __uint_as_float(gather::bf16_bits(x) << 16);
+}
+
+// The float rows of the wide path: 16 bytes a chunk, no extra a slot; ROUND
+// rounds each element to bf16 before it is added.
+template <typename Tin, bool ROUND = false>
 struct FloatRows {
   static constexpr int VEC = 16 / sizeof(Tin);
   static constexpr bool kExtra = false;
@@ -93,21 +105,21 @@ struct FloatRows {
     float x[VEC];
     unpack(raw, x);
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[i] = fmaf(wt, x[i], acc[i]);
+    for (int i = 0; i < VEC; ++i) acc[i] = fmaf(wt, ROUND ? round_bf16(x[i]) : x[i], acc[i]);
   }
 };
 
-template <typename Tin, typename Tout, gather::Walk WALK>
+template <typename Tin, typename Tout, bool ROUND, gather::Walk WALK>
 __global__ void __launch_bounds__(gather::kMaxWarpsPerBlock * 32,
-                                  (gather::kBlocksPerSm<WALK, FloatRows<Tin>, Tout>))
-pooled_gather_wide(FloatRows<Tin> rows, const int32_t* __restrict__ ids,
+                                  (gather::kBlocksPerSm<WALK, FloatRows<Tin, ROUND>, Tout>))
+pooled_gather_wide(FloatRows<Tin, ROUND> rows, const int32_t* __restrict__ ids,
                    const float* __restrict__ w, Tout* __restrict__ out, int64_t n_rows, int64_t d,
                    int64_t batch, int64_t bag_l, int64_t run_bags) {
   gather::gather_wide<WALK>(rows, ids, w, out, n_rows, d, batch, bag_l, run_bags);
 }
 
 // The narrow path: one warp a bag, one element a lane; any D, any alignment.
-template <typename Tin, typename Tout>
+template <typename Tin, typename Tout, bool ROUND>
 __global__ void __launch_bounds__(gather::kMaxWarpsPerBlock * 32)
 pooled_gather_narrow(const Tin* __restrict__ table, const int32_t* __restrict__ ids,
                      const float* __restrict__ w, Tout* __restrict__ out, int64_t n_rows,
@@ -123,33 +135,36 @@ pooled_gather_narrow(const Tin* __restrict__ table, const int32_t* __restrict__ 
       const int32_t id = __ldg(bag_ids + l);
       const float wt = __ldg(bag_w + l);
       if (id < 0 || id >= n_rows || wt == 0.f) continue;
-      acc = fmaf(wt, load_elem(table + id * d + c), acc);
+      const float x = load_elem(table + id * d + c);
+      acc = fmaf(wt, ROUND ? round_bf16(x) : x, acc);
     }
     store_elem(out + bag * d + c, acc);
   }
 }
 
 // The wide walk's kernel, picked by the plan's walk code.
-template <typename Tin, typename Tout>
-auto wide_kernel(int walk) -> decltype(&pooled_gather_wide<Tin, Tout, gather::Walk::kOne>) {
+template <typename Tin, typename Tout, bool ROUND>
+auto wide_kernel(int walk) -> decltype(&pooled_gather_wide<Tin, Tout, ROUND, gather::Walk::kOne>) {
   using gather::Walk;
-  if (walk == static_cast<int>(Walk::kOne)) return &pooled_gather_wide<Tin, Tout, Walk::kOne>;
-  if (walk == static_cast<int>(Walk::kRuns)) return &pooled_gather_wide<Tin, Tout, Walk::kRuns>;
-  if (walk == static_cast<int>(Walk::kItems)) return &pooled_gather_wide<Tin, Tout, Walk::kItems>;
+  if (walk == static_cast<int>(Walk::kOne)) return &pooled_gather_wide<Tin, Tout, ROUND, Walk::kOne>;
+  if (walk == static_cast<int>(Walk::kRuns))
+    return &pooled_gather_wide<Tin, Tout, ROUND, Walk::kRuns>;
+  if (walk == static_cast<int>(Walk::kItems))
+    return &pooled_gather_wide<Tin, Tout, ROUND, Walk::kItems>;
   return nullptr;
 }
 
-template <typename Tin, typename Tout>
+template <typename Tin, typename Tout, bool ROUND = false>
 int occupancy(int walk) {
-  const auto kernel = wide_kernel<Tin, Tout>(walk);
+  const auto kernel = wide_kernel<Tin, Tout, ROUND>(walk);
   return kernel ? gather::blocks_per_sm(kernel) : -static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename Tin, typename Tout>
+template <typename Tin, typename Tout, bool ROUND = false>
 int launch(const void* table, const void* ids, const void* w, void* out, int64_t n_rows,
            int64_t d, int64_t batch, int64_t bag_l, int walk, int64_t run_bags,
            int warps_per_block, int64_t blocks, cudaStream_t stream) {
-  if (!gather::plan_fits(walk, batch, d, FloatRows<Tin>::VEC, bag_l, table, out, run_bags,
+  if (!gather::plan_fits(walk, batch, d, FloatRows<Tin, ROUND>::VEC, bag_l, table, out, run_bags,
                          warps_per_block, blocks))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* t = static_cast<const Tin*>(table);
@@ -158,12 +173,12 @@ int launch(const void* table, const void* ids, const void* w, void* out, int64_t
   auto* o = static_cast<Tout*>(out);
   const dim3 grid(static_cast<unsigned>(blocks)), block(warps_per_block * 32);
   if (walk == static_cast<int>(gather::Walk::kNarrow)) {
-    pooled_gather_narrow<Tin, Tout><<<grid, block, 0, stream>>>(t, i, wt, o, n_rows, d, batch,
-                                                                bag_l);
+    pooled_gather_narrow<Tin, Tout, ROUND><<<grid, block, 0, stream>>>(t, i, wt, o, n_rows, d,
+                                                                       batch, bag_l);
   } else {
-    const auto kernel = wide_kernel<Tin, Tout>(walk);
-    kernel<<<grid, block, 0, stream>>>(FloatRows<Tin>{t, d}, i, wt, o, n_rows, d, batch, bag_l,
-                                       run_bags);
+    const auto kernel = wide_kernel<Tin, Tout, ROUND>(walk);
+    kernel<<<grid, block, 0, stream>>>(FloatRows<Tin, ROUND>{t, d}, i, wt, o, n_rows, d, batch,
+                                       bag_l, run_bags);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -172,12 +187,14 @@ int launch(const void* table, const void* ids, const void* w, void* out, int64_t
 
 extern "C" {
 
-// Returns a cudaError_t code: 0 on a successful launch. `walk`, `run_bags`,
+// Returns a cudaError_t code: 0 on a successful launch. `round_rows` nonzero
+// rounds each f32 row to bf16 before it is added (f32 table, bf16 out; no
+// effect on another pair). `walk`, `run_bags`,
 // `warps_per_block` and `blocks` are the plan of ops/gather_plan.py (one run
 // of `run_bags` bags a warp); a plan that does not fit the shape
 // (`gather::plan_fits`) returns cudaErrorInvalidValue and launches nothing.
 int ttrm_pooled_gather(const void* table, int table_dtype, const void* ids, const void* w,
-                       void* out, int out_dtype, int64_t n_rows, int64_t d, int64_t batch,
+                       void* out, int out_dtype, int round_rows, int64_t n_rows, int64_t d, int64_t batch,
                        int64_t bag_l, int walk, int64_t run_bags, int warps_per_block,
                        int64_t blocks, void* stream) {
   if (batch <= 0 || d <= 0) return static_cast<int>(cudaSuccess);
@@ -186,6 +203,9 @@ int ttrm_pooled_gather(const void* table, int table_dtype, const void* ids, cons
   if (table_dtype == kF32 && out_dtype == kF32)
     return launch<float, float>(table, ids, w, out, n_rows, d, batch, bag_l, walk, run_bags,
                                 warps_per_block, blocks, s);
+  if (table_dtype == kF32 && out_dtype == kBF16 && round_rows)
+    return launch<float, uint16_t, true>(table, ids, w, out, n_rows, d, batch, bag_l, walk,
+                                         run_bags, warps_per_block, blocks, s);
   if (table_dtype == kF32 && out_dtype == kBF16)
     return launch<float, uint16_t>(table, ids, w, out, n_rows, d, batch, bag_l, walk, run_bags,
                                    warps_per_block, blocks, s);
@@ -199,8 +219,11 @@ int ttrm_pooled_gather(const void* table, int table_dtype, const void* ids, cons
 }
 
 // The 256-thread blocks an SM the wide walk `walk` reaches for these dtypes
-// on the current card (the plan's capacity), or a negative cudaError_t.
-int ttrm_pooled_gather_blocks_per_sm(int table_dtype, int out_dtype, int walk) {
+// and `round_rows` on the current card (the plan's capacity), or a negative
+// cudaError_t.
+int ttrm_pooled_gather_blocks_per_sm(int table_dtype, int out_dtype, int round_rows, int walk) {
+  if (table_dtype == kF32 && out_dtype == kBF16 && round_rows)
+    return occupancy<float, uint16_t, true>(walk);
   if (table_dtype == kF32 && out_dtype == kF32) return occupancy<float, float>(walk);
   if (table_dtype == kF32 && out_dtype == kBF16) return occupancy<float, uint16_t>(walk);
   if (table_dtype == kBF16 && out_dtype == kF32) return occupancy<uint16_t, float>(walk);

@@ -5,7 +5,9 @@ always goes through the pooled-gather wrapper (`ops/embedding_kernel.py`):
 on a CUDA tensor that launches the CUDA kernel, on a CPU tensor it takes the
 kernel's plain version. Mean pooling pre-scales the slot weights by the
 live-slot count, as the reference's kernel route does, and the kernel emits
-`compute_dtype` directly. An int8 `QuantizedTable` (`ops/quantized.py`)
+`compute_dtype` directly; under a compute dtype narrower than a float
+table's, the rows are rounded first and a mean divides after, as the
+reference's pool rounds. An int8 `QuantizedTable` (`ops/quantized.py`)
 takes the same two functions through the int8 pooled-gather kernel
 (`ops/quantized_kernel.py`, Pallas kernel #5).
 
@@ -51,13 +53,29 @@ def pooled_lookup(
     """Gather + masked pool. `mean` divides by the live-slot count (0-length
     bags pool to zero, matching dropped falsy ids). The result is in
     `compute_dtype`, or in the table's dtype when it is None (f32 for an int8
-    table)."""
+    table).
+
+    A `compute_dtype` narrower than a float table's rounds where the
+    reference's pool rounds (`ops/embedding_ops.py:67-75`): each row to the
+    compute dtype, the bag's rows summed in f32 in slot order and rounded
+    once (kernel #1 with `round_rows`, the mask as the weights), and a mean
+    then divides that sum by the count in the compute dtype, a rounding more.
+    A bag of one live slot gives the bits of the weighted route either way.
+    An int8 table keeps the weighted route, as the reference pools it in f32
+    and casts once (`:49-57`)."""
+    if pooling not in ("sum", "mean"):
+        raise ValueError(f"unknown pooling {pooling!r}")
     w = mask.to(torch.float32)
+    if (compute_dtype is not None and not isinstance(table, QuantizedTable)
+            and torch.finfo(compute_dtype).bits < torch.finfo(table.dtype).bits):
+        out = pooled_gather(table, ids.to(torch.int32).contiguous(), w.contiguous(),
+                            out_dtype=compute_dtype, round_rows=True)
+        if pooling == "mean" and ids.shape[1] > 1:  # one slot: a count of 0 or 1
+            out = out / torch.clamp(w.sum(dim=1, keepdim=True), min=1.0).to(compute_dtype)
+        return out
     if pooling == "mean":
         counts = w.sum(dim=1, keepdim=True)
         w = w / torch.clamp(counts, min=1.0)
-    elif pooling != "sum":
-        raise ValueError(f"unknown pooling {pooling!r}")
     return _gather(table, ids, w, compute_dtype)
 
 

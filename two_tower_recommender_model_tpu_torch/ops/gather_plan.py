@@ -117,7 +117,8 @@ class GatherKernel(_build.KernelLibrary):
             fn = getattr(lib, f"{self._entry}_blocks_per_sm")
             fn.argtypes = [ctypes.c_int] * (len(dtypes) + 1)
             fn.restype = ctypes.c_int
-            codes = [DTYPE_CODES[t] for t in dtypes]
+            # a dtype by its code; a flag of the entry point (#1's round_rows) as it is
+            codes = [DTYPE_CODES[t] if isinstance(t, torch.dtype) else int(t) for t in dtypes]
             with torch.cuda.device(device):
                 blocks = {walk: fn(*codes, walk) for walk in WIDE_WALKS}
             bad = {walk.name: n for walk, n in blocks.items() if n < 1}
@@ -130,8 +131,8 @@ class GatherKernel(_build.KernelLibrary):
 
     def blocks_per_sm(self, device: torch.device, *dtypes: torch.dtype) -> dict[Walk, int]:
         """The blocks of 256 threads an SM each wide walk reaches on this card
-        for these dtypes (the entry point's: table and output for #1, output
-        for #5)."""
+        for these dtypes (the entry point's: table, output and round_rows for
+        #1, output for #5)."""
         return dict(self._card(device, dtypes)[1])
 
     def plan_for(self, device: torch.device, dtypes: tuple[torch.dtype, ...], batch: int,

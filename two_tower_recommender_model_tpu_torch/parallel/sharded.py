@@ -1,42 +1,60 @@
 """Sharded tables and the data-parallel train step, on `torch.distributed`.
 
-Port of `two_tower_recommender_model_tpu/parallel/sharded.py` (the dense
-exchange). Tables are row-sharded over the flat rank index of the mesh
-(`parallel/mesh.py`; each row exists once globally), table-wise tables live
-in per-(dim, dtype) buckets that row-shard the same way, small tables are
-replicated, and the dense towers are replicated with data-parallel
-gradients:
+Port of `two_tower_recommender_model_tpu/parallel/sharded.py`. Tables are
+row-sharded over the flat rank index of the mesh (`parallel/mesh.py`; each
+row exists once globally), table-wise tables live in per-(dim, dtype)
+buckets that row-shard the same way, column-sharded tables split their dim
+over the ranks (every rank holds every row's slice, and the rows'
+accumulator whole), small tables are replicated, and the dense towers are
+replicated with data-parallel gradients. The dense exchange:
 
   forward   all_gather(ids, weights over data)       # B_glob x L
-            partial pool from this rank's rows         # kernel #1
+            partial pool from this rank's rows         # kernel #1 (#5 int8)
             reduce_scatter(partials over data)         # B_glob x D f32
             all_reduce(over model)                     # B_loc x D (model > 1)
   backward  all_reduce(tower gradients over data)     # one flat f32 buffer
             all_gather(ids, row gradients over data)  # B_glob x L x D
-            row-wise Adagrad on this rank's rows only  # kernel #4
+            row-wise Adagrad on this rank's rows only  # kernel #4 (#6 int8)
 
-A rank's local work is a plain function of (its shard, the gathered ids /
-weights / gradients, its shard index): `partial_pool`, `sorted_partial_rows`,
-`shard_local_ids` and the update picked by `train.step.pick_table_update_fn`.
-The collectives wrap them, so one process can run every shard's work in turn
-(`chip_smoke.py [shard-kernels]`).
+The all-to-all exchange (`sharded_exchange="alltoall"`) takes a row-sharded
+float table the host does not sort: each id's row and gradient go straight
+between the data rank of its example and the rank that owns it, through a
+`[ranks, cap]` bucket of fixed capacity per (sender, owner) pair that holds
+each distinct id once (`a2a_cap`, `a2a_route`); the distinct ids past the
+capacity are dropped from the step and counted (`exchange_overflow`, a
+device tensor the loops raise on):
 
-Every update goes through kernel #4 (`ops/adagrad_kernel.py`), as the
-one-device step's: the host-sorted table's shard passes its non-decreasing
-local ids straight in (ids below the shard go negative, above it reach past
-its rows: both are sentinels), every other table takes the stable device
-sort first, which keeps replicas bit for bit in step. The fused tower
-forward and backward run on each rank's slice of the batch. Each rank's BCE
-is its sum over the global batch size, so the summed gradients are the
-global batch's.
+  forward   route, all_to_all(ids) -> the owner's rows (#1 at one slot)
+            -> all_to_all back -> each bag pooled from the answers (#1)
+  backward  route, pre-aggregate by slot (#3), all_to_all(ids, gradients)
+            -> the owner's update (#4 after the stable device sort)
+
+As the reference routes them, the host-sorted table, table-wise buckets and
+int8 tables keep the dense exchange whatever `sharded_exchange` says.
+
+A rank's local work is a plain function of (its shard, the gathered or
+received tensors, its shard index): `partial_pool`, `sorted_partial_rows`,
+`shard_local_ids`, `a2a_route`, `a2a_send_grads`, `a2a_owner_rows`,
+`a2a_pool` and the updates picked by `train.step.pick_table_update_fn`. The collectives wrap them, so one process
+can run every shard's work in turn (`chip_smoke.py [shard-kernels]`).
+
+Every row-wise update goes through kernel #4 (#6 for an int8 table:
+`ops/quantized_kernel.py`), as the one-device step's: the host-sorted
+table's shard passes its non-decreasing local ids straight in (ids below the
+shard go negative, above it reach past its rows: both are sentinels), every
+other table takes the stable device sort first, which keeps replicas bit for
+bit in step. A column slice takes kernel #3 and the epilogue
+(`train.optimizer.sparse_rowwise_adagrad_columns`). The fused tower forward
+and backward run on each rank's slice of the batch. Each rank's BCE is its
+sum over the global batch size, so the summed gradients are the global
+batch's.
 
 One host feeds a global batch (`batch_sharding`): the ranks of a data group
 see its slices in order, so a batch sorted by the host-sorted feature stays
 sorted after the all-gather.
 
-Not ported here: int8 sharded tables, column-sharded tables and the
-all-to-all exchange (ROADMAP M12(b)); the sharded sampled softmax, sharded
-top-k and the compact wire on a mesh (M12(c)).
+Not ported here: the sharded sampled softmax, sharded top-k and the compact
+wire on a mesh (ROADMAP M12(c)).
 """
 
 from __future__ import annotations
@@ -56,8 +74,9 @@ from two_tower_recommender_model_tpu_torch.models.two_tower import (
     torch_dtype,
     towers_forward,
 )
-from two_tower_recommender_model_tpu_torch.ops.embedding_kernel import pooled_gather
+from two_tower_recommender_model_tpu_torch.ops.adagrad_kernel import block_sorted_aggregate
 from two_tower_recommender_model_tpu_torch.ops.embedding_ops import (
+    _gather,
     block_sorted_lookup,
     row_grads_from_pooled,
 )
@@ -149,6 +168,15 @@ def _reduce_scatter(t: torch.Tensor, group, n: int) -> torch.Tensor:
     return out
 
 
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """`[n * cap, ...]`: block j of `t` goes to rank j, and block i of the
+    result came from rank i (equal splits, so a CUDA graph can capture it)."""
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=group)
+    return out
+
+
 def _reduce_partials(part: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The partial pools [B_glob, D] of the ranks summed: this rank's
     [B_loc, D] slice over data, then over model."""
@@ -162,29 +190,46 @@ def _reduce_partials(part: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 # state placement
 
 
-def _check_plan(state_tables: dict, plan: ShardingPlan, mesh: Mesh) -> None:
+def _check_plan(plan: ShardingPlan, mesh: Mesh) -> None:
     if plan.num_devices != mesh.size:
         raise ValueError(f"plan for {plan.num_devices} devices on a {mesh.size}-rank mesh")
-    for name, t in state_tables.items():
-        if isinstance(t, QuantizedTable):
-            raise NotImplementedError(
-                f"table {name!r} is int8: sharded int8 tables are not ported to the PyTorch "
-                "package yet (ROADMAP M12(b))")
-    for name, spec in plan.specs.items():
-        if spec.strategy == COLUMN_SHARDED:
-            raise NotImplementedError(
-                f"table {name!r} is column_sharded: column-wise tables are not ported to the "
-                "PyTorch package yet (ROADMAP M12(b))")
 
 
 def _shard_rows(plan: ShardingPlan, name: str) -> int:
     """Rows of one rank's shard: the bucket's rows a device, the padded rows
-    over the ranks for a row-sharded table, all of them when replicated."""
+    over the ranks for a row-sharded table, all of them otherwise."""
     if name in plan.buckets:
         return plan.buckets[name].rows_per_device
     spec = plan[name]
     return spec.padded_rows // plan.num_devices if spec.strategy == ROW_SHARDED \
         else spec.num_embeddings
+
+
+def _tensors(t) -> tuple[torch.Tensor, ...]:
+    """A float table as itself, an int8 table as (values, scales)."""
+    return (t.values, t.scales) if isinstance(t, QuantizedTable) else (t,)
+
+
+def _zero_rows(like, rows: int, device: torch.device):
+    """A table of `rows` zero rows of `like`'s kind, width and dtype."""
+    if isinstance(like, QuantizedTable):
+        return QuantizedTable(torch.zeros((rows, like.shape[1]), dtype=torch.int8, device=device),
+                              torch.zeros(rows, dtype=torch.float32, device=device))
+    return torch.zeros((rows, like.shape[1]), dtype=like.dtype, device=device)
+
+
+def _put_rows(dst, at: int, src, lo: int = 0, hi: int | None = None) -> None:
+    """`src`'s rows [lo, hi) into `dst` from row `at`."""
+    for d, s in zip(_tensors(dst), _tensors(src)):
+        part = s[lo:hi]
+        d[at:at + part.shape[0]] = part.to(d.device)
+
+
+def _copy_table(t, device: torch.device):
+    if isinstance(t, QuantizedTable):
+        return QuantizedTable(t.values.to(device, copy=True).contiguous(),
+                              t.scales.to(device, copy=True).contiguous())
+    return t.to(device, copy=True).contiguous()
 
 
 def _sharded_model(cfg: ModelConfig, towers_from: TwoTower, tables: dict,
@@ -201,14 +246,19 @@ def shard_train_state(state: TrainState, plan: ShardingPlan, mesh: Mesh) -> Trai
     a row-sharded table's rows `[r * R, (r + 1) * R)` of its padded rows
     (the padding zeros, never written), each bucket's shard holding the
     table-wise tables this rank owns at their offsets (the tables themselves
-    are gone from the state), replicated tables whole; f32 or bf16. The
-    towers, their optimizer's state and the step are copied."""
-    _check_plan(state.model.tables, plan, mesh)
+    are gone from the state), a column-sharded table's columns `[r * C,
+    (r + 1) * C)` of its dim padded to `padded_dim` with its accumulator
+    whole, replicated tables whole; f32, bf16 or int8 (values and scales cut
+    alike). The towers, their optimizer's state and the step are copied."""
+    _check_plan(plan, mesh)
     dev, r = mesh.device, mesh.rank
     tables, accs = {}, {}
     for bname, b in plan.buckets.items():
-        member0 = state.model.tables[b.tables[0]]
-        big = torch.zeros((b.rows_per_device, b.embedding_dim), dtype=member0.dtype, device=dev)
+        members = [state.model.tables[t] for t in b.tables]
+        quantized = isinstance(members[0], QuantizedTable)
+        if any(isinstance(t, QuantizedTable) != quantized for t in members):
+            raise ValueError(f"bucket {bname} mixes quantized and float tables")
+        big = _zero_rows(members[0], b.rows_per_device, dev)
         big_acc = torch.zeros(b.rows_per_device, dtype=torch.float32, device=dev)
         for tname in b.tables:
             spec = plan[tname]
@@ -217,24 +267,35 @@ def shard_train_state(state: TrainState, plan: ShardingPlan, mesh: Mesh) -> Trai
             t, a = state.model.tables[tname], state.adagrad_acc[tname]
             if t.dtype != big.dtype:
                 raise ValueError(f"bucket {bname} mixes {t.dtype} and {big.dtype} tables")
-            big[spec.bucket_offset:spec.bucket_offset + t.shape[0]] = t.to(dev)
+            _put_rows(big, spec.bucket_offset, t)
             big_acc[spec.bucket_offset:spec.bucket_offset + t.shape[0]] = a.to(dev)
         tables[bname], accs[bname] = big, big_acc
     for name, spec in plan.specs.items():
         if spec.strategy == TABLE_WISE:
             continue  # lives inside its bucket
         t, a = state.model.tables[name], state.adagrad_acc[name]
+        if isinstance(t, QuantizedTable) and spec.strategy == COLUMN_SHARDED:
+            raise NotImplementedError(
+                f"int8 table {name!r}: per-row scales do not split by columns; "
+                "use row_sharded or replicated")
         if spec.strategy == ROW_SHARDED:
             rows = _shard_rows(plan, name)
             lo, hi = r * rows, min((r + 1) * rows, spec.num_embeddings)
-            shard = torch.zeros((rows, t.shape[1]), dtype=t.dtype, device=dev)
+            shard = _zero_rows(t, rows, dev)
             acc = torch.zeros(rows, dtype=torch.float32, device=dev)
             if hi > lo:
-                shard[:hi - lo] = t[lo:hi].to(dev)
+                _put_rows(shard, 0, t, lo, hi)
                 acc[:hi - lo] = a[lo:hi].to(dev)
             tables[name], accs[name] = shard, acc
+        elif spec.strategy == COLUMN_SHARDED:
+            cols = spec.padded_dim // plan.num_devices
+            lo, hi = r * cols, min((r + 1) * cols, spec.embedding_dim)
+            shard = torch.zeros((spec.num_embeddings, cols), dtype=t.dtype, device=dev)
+            if hi > lo:
+                shard[:, :hi - lo] = t[:, lo:hi].to(dev)
+            tables[name], accs[name] = shard, a.to(dev, copy=True)
         else:
-            tables[name], accs[name] = t.to(dev, copy=True), a.to(dev, copy=True)
+            tables[name], accs[name] = _copy_table(t, dev), a.to(dev, copy=True)
     model = _sharded_model(state.model.cfg, state.model, tables, dev)
     opt = opt_lib.clone_dense_optimizer(state.dense_opt_state, tower_parameters(model))
     return TrainState(step=state.step, model=model, adagrad_acc=accs, dense_opt_state=opt,
@@ -242,15 +303,34 @@ def shard_train_state(state: TrainState, plan: ShardingPlan, mesh: Mesh) -> Trai
                       else state.item_counts.to(dev, copy=True))
 
 
-def _gather_rows(t: torch.Tensor, mesh: Mesh, dst: int | None) -> torch.Tensor | None:
-    """The ranks' shards stacked in flat rank order: on every rank
-    (`dst=None`) or on rank `dst` (None elsewhere)."""
+def _gather_parts(t: torch.Tensor, mesh: Mesh, dst: int | None, dim: int = 0):
+    """The ranks' shards joined in flat rank order along `dim`: on every
+    rank (`dst=None`) or on rank `dst` (None elsewhere)."""
     t = t.contiguous()
-    if dst is None:
+    if dst is None and dim == 0:
         return _all_gather(t, mesh.group, mesh.size)
-    parts = [torch.empty_like(t) for _ in range(mesh.size)] if mesh.rank == dst else None
-    dist.gather(t, gather_list=parts, dst=dst, group=mesh.group)
-    return None if parts is None else torch.cat(parts)
+    parts = [torch.empty_like(t) for _ in range(mesh.size)]
+    if dst is None:
+        dist.all_gather(parts, t, group=mesh.group)
+    else:
+        dist.gather(t, gather_list=parts if mesh.rank == dst else None, dst=dst,
+                    group=mesh.group)
+        if mesh.rank != dst:
+            return None
+    return torch.cat(parts, dim=dim)
+
+
+def _gather_table(t, mesh: Mesh, dst: int | None, dim: int = 0):
+    parts = [_gather_parts(x, mesh, dst, dim) for x in _tensors(t)]
+    if parts[0] is None:
+        return None
+    return QuantizedTable(*parts) if isinstance(t, QuantizedTable) else parts[0]
+
+
+def _table_rows(t, lo: int, hi: int):
+    if isinstance(t, QuantizedTable):
+        return QuantizedTable(t.values[lo:hi], t.scales[lo:hi])
+    return t[lo:hi]
 
 
 @torch.no_grad()
@@ -260,13 +340,21 @@ def unshard_train_state(state: TrainState, plan: ShardingPlan, model_cfg: ModelC
     """The whole one-device state gathered from the ranks' parts: on rank
     `dst` (None on the others, which take part), or on every rank with
     `dst=None`; on `device` (the mesh's when None). Row padding is stripped,
-    table-wise tables are cut back out of their buckets; towers, optimizer
+    table-wise tables are cut back out of their buckets, a column-sharded
+    table's columns are joined and its dim padding cut; towers, optimizer
     state and step come from this rank's copy."""
     device = mesh.device if device is None else torch.device(device)
-    gathered = {name: (_gather_rows(state.model.tables[name], mesh, dst),
-                       _gather_rows(state.adagrad_acc[name], mesh, dst))
-                for name in [*plan.buckets,
-                             *(n for n, s in plan.specs.items() if s.strategy == ROW_SHARDED)]}
+    gathered = {}
+    for name in [*plan.buckets, *plan.specs]:
+        spec = plan.specs.get(name)
+        if spec is not None and spec.strategy not in (ROW_SHARDED, COLUMN_SHARDED):
+            continue
+        if spec is not None and spec.strategy == COLUMN_SHARDED:
+            gathered[name] = (_gather_table(state.model.tables[name], mesh, dst, dim=1),
+                              state.adagrad_acc[name])
+        else:
+            gathered[name] = (_gather_table(state.model.tables[name], mesh, dst),
+                              _gather_parts(state.adagrad_acc[name], mesh, dst))
     if dst is not None and mesh.rank != dst:
         return None
     tables, accs = {}, {}
@@ -275,13 +363,16 @@ def unshard_train_state(state: TrainState, plan: ShardingPlan, model_cfg: ModelC
         if spec.strategy == TABLE_WISE:
             start = spec.owner * plan.buckets[spec.bucket].rows_per_device + spec.bucket_offset
             t, a = gathered[spec.bucket]
-            t, a = t[start:start + n], a[start:start + n]
+            t, a = _table_rows(t, start, start + n), a[start:start + n]
         elif spec.strategy == ROW_SHARDED:
             t, a = gathered[name]
-            t, a = t[:n], a[:n]
+            t, a = _table_rows(t, 0, n), a[:n]
+        elif spec.strategy == COLUMN_SHARDED:
+            t, a = gathered[name]
+            t = t[:, :spec.embedding_dim]
         else:
             t, a = state.model.tables[name], state.adagrad_acc[name]
-        tables[name] = t.to(device, copy=True).contiguous()
+        tables[name] = _copy_table(t, device)
         accs[name] = a.to(device, copy=True).contiguous()
     model = _sharded_model(model_cfg, state.model, {t.name: tables[t.name]
                                                     for t in model_cfg.tables}, device)
@@ -303,24 +394,116 @@ def shard_local_ids(ids_all: torch.Tensor, shard_index: int, rows: int) -> torch
     return torch.where((local >= 0) & (local < rows), local, rows).to(torch.int32)
 
 
-def partial_pool(shard: torch.Tensor, ids_all: torch.Tensor, w_all: torch.Tensor,
+def partial_pool(shard, ids_all: torch.Tensor, w_all: torch.Tensor,
                  shard_index: int) -> torch.Tensor:
     """[B_glob, D] f32: each bag's weighted sum over the slots this shard
-    owns (the reference's `_local_partial_pool`); slots outside the shard
-    take weight 0. One launch of kernel #1."""
-    local = shard_local_ids(ids_all, shard_index, shard.shape[0]).contiguous()
-    w = torch.where(local < shard.shape[0], w_all, 0.0).contiguous()
-    return pooled_gather(shard, local, w, out_dtype=torch.float32)
+    owns (the reference's `_local_partial_pool`, and for an int8 shard
+    `make_quantized_sharded_lookup`'s); slots outside the shard take weight
+    0. One launch of kernel #1 (#5 for an int8 shard)."""
+    local = shard_local_ids(ids_all, shard_index, shard.shape[0])
+    w = torch.where(local < shard.shape[0], w_all, 0.0)
+    return _gather(shard, local, w, torch.float32)
 
 
-def sorted_partial_rows(shard: torch.Tensor, keys_all: torch.Tensor, w_all: torch.Tensor,
+def sorted_partial_rows(shard, keys_all: torch.Tensor, w_all: torch.Tensor,
                         shard_index: int, out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """[M, D]: `w * shard[key - shard_index * rows]` for the host-sorted
     single-slot feature's gathered keys (dead slots keyed past every shard),
     zero rows for the keys outside the shard, which go negative below it and
-    past its rows above it: kernel #1 through the sorted lookup's call site."""
+    past its rows above it: kernel #1 (#5 for an int8 shard, f32 out when
+    `out_dtype` is None) through the sorted lookup's call site."""
     local = (keys_all.reshape(-1) - shard_index * shard.shape[0]).to(torch.int32)
     return block_sorted_lookup(shard, local, w_all.reshape(-1), out_dtype=out_dtype)
+
+
+def a2a_cap(m: int, ndev: int, capacity_factor: float, rows: int) -> int:
+    """The all-to-all bucket's capacity in distinct ids: `int(m *
+    capacity_factor) // ndev` (at least 1), at most the owner's `rows` (a
+    sender cannot name more distinct rows of a shard than it holds, so where
+    that bound binds nothing can overflow), rounded up to a multiple of 8.
+    The reference's rule as its code computes it (`sharded.py:_a2a_cap`)."""
+    cap = max(int(m * capacity_factor) // ndev, 1)
+    cap = min(cap, rows)
+    return -(-cap // 8) * 8
+
+
+def a2a_responsible(flat_ids: torch.Tensor, rows: int, ndev: int, model: int,
+                    model_index: int) -> torch.Tensor:
+    """[M] bool: the ids this rank routes. The `model` ranks of a data slice
+    hold the same batch, so the one whose model coordinate is the owner's
+    flat index modulo `model` routes it: each id once globally."""
+    owner = torch.clamp(torch.div(flat_ids, rows, rounding_mode="floor"), 0, ndev - 1)
+    return (owner % model) == model_index
+
+
+def a2a_route(flat_ids: torch.Tensor, w_flat: torch.Tensor, rows: int, ndev: int, cap: int,
+              responsible: torch.Tensor):
+    """The deduplicated bucket slots of the all-to-all exchange (the
+    reference's `_a2a_route`): each distinct id takes ONE slot of its
+    owner's bucket, however many positions repeat it. Returns (slot [M]
+    int32 in [0, ndev * cap], where ndev * cap is the dump slot of the ids
+    that do not route; ok [M] bool; overflow, the 0-dim count of DISTINCT ids
+    past the capacity). The ids sorted (stably), each one's unique rank
+    within its owner's group, slot = owner * cap + rank."""
+    m = flat_ids.shape[0]
+    ok = (w_flat != 0) & responsible
+    key = torch.where(ok, flat_ids, ndev * rows).to(torch.int32)
+    skey, pos = torch.sort(key, stable=True)
+    owner = torch.clamp(torch.div(skey, rows, rounding_mode="floor"), max=ndev)
+    is_new = torch.ones(m, dtype=torch.int32, device=flat_ids.device)
+    is_new[1:] = (skey[1:] != skey[:-1]).to(torch.int32)
+    urank = torch.cumsum(is_new, 0) - 1
+    first = torch.searchsorted(owner, owner, side="left")
+    rank = urank - urank[first]
+    fits = (owner < ndev) & (rank < cap)
+    slot_sorted = torch.where(fits, owner * cap + rank, ndev * cap).to(torch.int32)
+    slot = torch.zeros(m, dtype=torch.int32, device=flat_ids.device).scatter_(0, pos,
+                                                                              slot_sorted)
+    overflow = torch.sum(is_new * ((owner < ndev) & (rank >= cap)).to(torch.int32))
+    return slot, ok, overflow
+
+
+def a2a_send_ids(flat_ids: torch.Tensor, slot: torch.Tensor, ok: torch.Tensor, n_slots: int,
+                 sentinel: int) -> torch.Tensor:
+    """[n_slots] int32: each routed id at its slot, the sentinel in the
+    empty ones."""
+    send = torch.full((n_slots + 1,), sentinel, dtype=torch.int32, device=flat_ids.device)
+    send.scatter_(0, slot.long(), torch.where(ok, flat_ids, sentinel).to(torch.int32))
+    return send[:n_slots]
+
+
+def a2a_send_grads(slot: torch.Tensor, ok: torch.Tensor, g_flat: torch.Tensor,
+                   n_slots: int) -> torch.Tensor:
+    """[n_slots, D] f32: the gradients of each slot's positions summed, in
+    position order (the reference's `send_g.at[slot].add`): kernel #3 on the
+    stably sorted slots with the sort's permutation. The positions that do
+    not route land in the dump slot, which is cut off."""
+    slot = torch.where(ok, slot, n_slots).to(torch.int32)
+    sslot, perm = torch.sort(slot, stable=True)
+    agg = block_sorted_aggregate(n_slots + 1, sslot.contiguous(), g_flat.contiguous(),
+                                 perm=perm.to(torch.int32))
+    return agg[:n_slots]
+
+
+def a2a_owner_rows(shard: torch.Tensor, recv_ids: torch.Tensor, shard_index: int,
+                   wire_dtype: torch.dtype) -> torch.Tensor:
+    """[n_slots, D] in the wire dtype: the owner's row of each received id,
+    a zero row for an empty slot: kernel #1 at one slot, weight 1, through
+    the sorted lookup's call site (an id outside the shard is dead there)."""
+    local = (recv_ids - shard_index * shard.shape[0]).to(torch.int32)
+    ones = torch.ones(local.shape, dtype=torch.float32, device=local.device)
+    return block_sorted_lookup(shard, local, ones, out_dtype=wire_dtype)
+
+
+def a2a_pool(resp: torch.Tensor, slot: torch.Tensor, ok: torch.Tensor, w_flat: torch.Tensor,
+             b: int, slots: int) -> torch.Tensor:
+    """[B, D] f32: each position reads its slot's row of the answers (in the
+    wire dtype), weighted by `w` where it routed (a position that did not
+    route reads nothing: the reference's dump slot, a zero row), pooled over
+    the bag in f32: one launch of kernel #1 on the answers as a table."""
+    ids = torch.where(ok, slot, resp.shape[0]).reshape(b, slots)
+    w = torch.where(ok, w_flat, 0.0).reshape(b, slots)
+    return _gather(resp, ids, w, torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -329,7 +512,7 @@ def sorted_partial_rows(shard: torch.Tensor, keys_all: torch.Tensor, w_all: torc
 
 def make_sharded_lookup(mesh: Mesh) -> Callable:
     """`lookup(shard, ids [B_loc, L], w [B_loc, L]) -> [B_loc, D]` f32: the
-    weighted-sum pool of a row-sharded table (or bucket)."""
+    weighted-sum pool of a row-sharded table (or bucket), f32 or int8."""
 
     def lookup(shard, ids, w):
         ids_all = _all_gather(ids.to(torch.int32), mesh.data_group, mesh.data)
@@ -341,10 +524,10 @@ def make_sharded_lookup(mesh: Mesh) -> Callable:
 
 def make_sorted_sharded_lookup(mesh: Mesh) -> Callable:
     """`lookup(shard, ids [B_loc, 1], w [B_loc, 1], out_dtype) -> [B_loc, D]`
-    for the host-sorted feature's row-sharded table: after the all-gather
-    the keys are non-decreasing, and each shard's rows come from kernel #1
-    at one slot (`sorted_partial_rows`). One shard owns each row, so the sum
-    of the partials is exact, in `out_dtype` too."""
+    for the host-sorted feature's row-sharded table (f32 or int8): after the
+    all-gather the keys are non-decreasing, and each shard's rows come from
+    kernel #1 (#5) at one slot (`sorted_partial_rows`). One shard owns each
+    row, so the sum of the partials is exact, in `out_dtype` too."""
 
     def lookup(shard, ids, w, out_dtype=None):
         ids_all = _all_gather(ids.to(torch.int32), mesh.data_group, mesh.data)
@@ -356,16 +539,79 @@ def make_sorted_sharded_lookup(mesh: Mesh) -> Callable:
     return lookup
 
 
+def make_column_lookup(mesh: Mesh) -> Callable:
+    """`lookup(cols [N, D_pad / W], ids [B_loc, L], w) -> [B_loc, D_pad]` f32
+    for a column-sharded table: the ids and weights all-gathered over data,
+    this rank's column slice pooled for the global batch (kernel #1), the
+    slices all-gathered over the mesh and joined in column order, and this
+    rank's data rows kept."""
+
+    def lookup(cols, ids, w):
+        ids_all = _all_gather(ids.to(torch.int32), mesh.data_group, mesh.data)
+        w_all = _all_gather(w.to(torch.float32), mesh.data_group, mesh.data)
+        part = _gather(cols, ids_all, w_all, torch.float32)  # [B_glob, D_loc]
+        b_glob, d_loc = part.shape
+        b_loc = b_glob // mesh.data
+        full = _all_gather(part, mesh.group, mesh.size).view(mesh.size, b_glob, d_loc)
+        mine = full[:, mesh.d * b_loc:(mesh.d + 1) * b_loc]
+        return mine.permute(1, 0, 2).reshape(b_loc, mesh.size * d_loc)
+
+    return lookup
+
+
+def _a2a_setup(mesh: Mesh, ids: torch.Tensor, w: torch.Tensor, rows: int,
+               capacity_factor: float):
+    """(flat ids, flat weights, cap, slot, ok, overflow) of this rank's
+    batch slice for the all-to-all exchange."""
+    m = ids.numel()
+    cap = a2a_cap(m, mesh.size, capacity_factor, rows)
+    flat_ids = ids.reshape(m).to(torch.int32)
+    w_flat = w.reshape(m).to(torch.float32)
+    responsible = a2a_responsible(flat_ids, rows, mesh.size, mesh.model,
+                                  mesh.rank % mesh.model)
+    slot, ok, overflow = a2a_route(flat_ids, w_flat, rows, mesh.size, cap, responsible)
+    return flat_ids, w_flat, cap, slot, ok, overflow
+
+
+def make_alltoall_lookup(mesh: Mesh, capacity_factor: float = 1.25,
+                         wire_dtype: str = "float32") -> Callable:
+    """`lookup(shard, ids [B_loc, L], w) -> (pooled [B_loc, D] f32, overflow)`
+    over a row-sharded float table by the all-to-all exchange: the routed
+    ids go to their owners, each owner answers with its rows (#1 at one
+    slot, in the wire dtype: `"bfloat16"` rounds a row once on the wire),
+    the answers come back and each bag pools its slots' rows in f32 (#1).
+    Over the model group the pools are summed. `overflow` is the distinct
+    ids dropped, summed over the mesh."""
+    wire = torch_dtype(wire_dtype)
+
+    def lookup(shard, ids, w):
+        rows = shard.shape[0]
+        b, slots = ids.shape
+        flat_ids, w_flat, cap, slot, ok, overflow = _a2a_setup(mesh, ids, w, rows,
+                                                               capacity_factor)
+        send = a2a_send_ids(flat_ids, slot, ok, mesh.size * cap, mesh.size * rows)
+        recv = _all_to_all(send, mesh.group)
+        resp = _all_to_all(a2a_owner_rows(shard, recv, mesh.rank, wire), mesh.group)
+        pooled = a2a_pool(resp, slot, ok, w_flat, b, slots)
+        if mesh.model > 1:
+            dist.all_reduce(pooled, group=mesh.model_group)
+        dist.all_reduce(overflow, group=mesh.group)
+        return pooled, overflow
+
+    return lookup
+
+
 # ---------------------------------------------------------------------------
 # updates
 
 
 def make_sharded_update(mesh: Mesh, update_fn: Callable) -> Callable:
     """`update(shard, acc, keys [B_loc, L], row_g [B_loc, L, D], lr, eps)`
-    on a row-sharded table or a bucket (dead slots keyed past every shard):
-    the keys and gradients all-gathered over data, then `update_fn` on this
-    shard's local ids (`shard_local_ids`: kernel #4 after the stable device
-    sort). Every row is updated once globally, by its owner."""
+    on a row-sharded table or a bucket, f32 or int8 (dead slots keyed past
+    every shard): the keys and gradients all-gathered over data, then
+    `update_fn` on this shard's local ids (`shard_local_ids`: kernel #4, #6
+    for int8, after the stable device sort). Every row is updated once
+    globally, by its owner."""
 
     def update(shard, acc, keys, row_g, lr, eps):
         keys_all = _all_gather(keys, mesh.data_group, mesh.data).reshape(-1)
@@ -377,10 +623,11 @@ def make_sharded_update(mesh: Mesh, update_fn: Callable) -> Callable:
 
 
 def make_sorted_sharded_update(mesh: Mesh, update_fn: Callable) -> Callable:
-    """The host-sorted feature's row-sharded table: the gathered keys minus
-    the shard base stay non-decreasing, so `update_fn` (kernel #4 behind the
-    sortedness assert, with the bf16 buffer where the reference takes it)
-    takes them straight, negative and past-the-shard ids as sentinels."""
+    """The host-sorted feature's row-sharded table (f32 or int8): the
+    gathered keys minus the shard base stay non-decreasing, so `update_fn`
+    (kernel #4 or #6 behind the sortedness assert, with the bf16 buffer where
+    the reference takes it) takes them straight, negative and past-the-shard
+    ids as sentinels."""
 
     def update(shard, acc, keys, row_g, lr, eps):
         keys_all = _all_gather(keys, mesh.data_group, mesh.data).reshape(-1)
@@ -392,11 +639,12 @@ def make_sorted_sharded_update(mesh: Mesh, update_fn: Callable) -> Callable:
 
 
 def make_replicated_update(mesh: Mesh, update_fn: Callable) -> Callable:
-    """A replicated table, as DDP does it: the batch's keys (dead slots
-    keyed N) and gradients all-gathered over data, then the same
-    deterministic update on every rank: `update_fn` is kernel #4 after the
-    stable device sort, or for the host-sorted feature's table straight
-    (`make_replicated_sorted_update`), so replicas stay bit for bit equal."""
+    """A replicated table (f32, bf16 or int8), as DDP does it: the batch's
+    keys (dead slots keyed N) and gradients all-gathered over data, then the
+    same deterministic update on every rank: `update_fn` is kernel #4 (#6)
+    after the stable device sort, or for the host-sorted feature's table
+    straight (`make_replicated_sorted_update`), so replicas stay bit for bit
+    equal."""
 
     def update(table, acc, keys, row_g, lr, eps):
         keys_all = _all_gather(keys, mesh.data_group, mesh.data).reshape(-1)
@@ -408,6 +656,55 @@ def make_replicated_update(mesh: Mesh, update_fn: Callable) -> Callable:
 
 
 make_replicated_sorted_update = make_replicated_update
+
+
+def make_column_update(mesh: Mesh, full_dim: int) -> Callable:
+    """`update(cols, acc, keys [B_loc, L], row_g [B_loc, L, D_pad], lr, eps)`
+    on a column-sharded table: the keys and gradients all-gathered over
+    data, this rank's columns of the gradients, then
+    `sparse_rowwise_adagrad_columns` (kernel #3 and the epilogue, the rows'
+    squared gradients all-reduced over the mesh and divided by `full_dim`,
+    the unpadded dim). Every rank updates the same accumulator."""
+
+    def update(cols, acc, keys, row_g, lr, eps):
+        keys_all = _all_gather(keys, mesh.data_group, mesh.data).reshape(-1)
+        g_all = _all_gather(row_g, mesh.data_group, mesh.data)
+        d_loc = cols.shape[1]
+        g_cols = g_all[..., mesh.rank * d_loc:(mesh.rank + 1) * d_loc].reshape(-1, d_loc)
+        return opt_lib.sparse_rowwise_adagrad_columns(cols, acc, keys_all, g_cols, lr, eps,
+                                                      full_dim, psum_group=mesh.group)
+
+    return update
+
+
+def make_alltoall_update(mesh: Mesh, update_fn: Callable, capacity_factor: float = 1.25,
+                         wire_dtype: str = "float32") -> Callable:
+    """`update(shard, acc, keys [B_loc, L], row_g [B_loc, L, D], lr, eps) ->
+    (shard, acc, overflow)` on a row-sharded float table by the all-to-all
+    exchange (dead slots keyed past every shard): this rank's slice routed
+    as the lookup routes it, each slot's gradients pre-aggregated in f32
+    (#3), the ids and the gradients (in the wire dtype) sent to their
+    owners, and each owner's `update_fn` (kernel #4 after the stable device
+    sort) on the received ids, an empty slot's as the sentinel. `overflow`
+    is summed over the mesh."""
+    wire = torch_dtype(wire_dtype)
+
+    def update(shard, acc, keys, row_g, lr, eps):
+        rows = shard.shape[0]
+        sentinel = mesh.size * rows
+        live = (keys != sentinel).to(torch.float32)
+        flat_ids, _, cap, slot, ok, overflow = _a2a_setup(mesh, keys, live, rows,
+                                                          capacity_factor)
+        n_slots = mesh.size * cap
+        send_ids = a2a_send_ids(flat_ids, slot, ok, n_slots, sentinel)
+        send_g = a2a_send_grads(slot, ok, row_g.reshape(flat_ids.shape[0], -1), n_slots)
+        recv_ids = _all_to_all(send_ids, mesh.group)
+        recv_g = _all_to_all(send_g.to(wire), mesh.group).to(torch.float32)
+        update_fn(shard, acc, shard_local_ids(recv_ids, mesh.rank, rows), recv_g, lr, eps)
+        dist.all_reduce(overflow, group=mesh.group)
+        return shard, acc, overflow
+
+    return update
 
 
 # ---------------------------------------------------------------------------
@@ -429,15 +726,15 @@ def _bucket_base(plan: ShardingPlan, spec) -> int:
 
 def _check_step_config(model_cfg: ModelConfig, train_cfg: TrainConfig,
                        plan: ShardingPlan) -> str | None:
-    """The reference's checks of the sharded step (`sharded.py:983-1004`)
-    and the port's refusals; returns the host-sorted table's name."""
+    """The reference's checks of the sharded step (`sharded.py:983-1004`);
+    returns the host-sorted table's name."""
     _check_train_config(model_cfg, train_cfg)
-    if train_cfg.sharded_exchange == "alltoall":
-        raise NotImplementedError("sharded_exchange='alltoall' is not ported to the PyTorch "
-                                  "package yet (ROADMAP M12(b)); the dense exchange is")
-    if train_cfg.sharded_exchange != "dense":
+    if train_cfg.sharded_exchange not in ("dense", "alltoall"):
         raise ValueError(f"sharded_exchange must be dense|alltoall, got "
                          f"{train_cfg.sharded_exchange!r}")
+    if train_cfg.exchange_wire_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"exchange_wire_dtype must be float32|bfloat16, got "
+                         f"{train_cfg.exchange_wire_dtype!r}")
     sorted_table = validate_sorted_feature(model_cfg, train_cfg)
     if sorted_table is not None:
         strategy = plan[sorted_table].strategy
@@ -452,47 +749,74 @@ def _check_step_config(model_cfg: ModelConfig, train_cfg: TrainConfig,
     return sorted_table
 
 
+def alltoall_tables(model_cfg: ModelConfig, train_cfg: TrainConfig, plan: ShardingPlan,
+                     sorted_table: str | None) -> set[str]:
+    """The tables the all-to-all exchange takes (the reference's routing,
+    `sharded.py:921-930`, `:1135-1142`): row-sharded float tables other than
+    the host-sorted one; none under the dense exchange."""
+    if train_cfg.sharded_exchange != "alltoall":
+        return set()
+    return {t.name for t in model_cfg.tables
+            if plan[t.name].strategy == ROW_SHARDED and t.name != sorted_table
+            and model_cfg.table_dtype_of(t.name) != "int8"}
+
+
 def make_sharded_forward(model_cfg: ModelConfig, mesh: Mesh, plan: ShardingPlan,
                          block_sorted_feature: str | None = None,
-                         block_sorted_dtype: str = "float32"):
-    """(forward(state, batch) -> (q, c), pooled_embeddings(tables, batch) ->
-    (pooled, weights)): the towers on this rank's slice, each feature
-    pooled by its table's placement. `block_sorted_feature` takes the
-    sorted lookup, its rows rounded to bf16 under `block_sorted_dtype=
-    "bfloat16"` as the one-device step's are. The pooled outputs are in the
-    compute dtype when it differs from the tables' (`models/two_tower.py`)."""
+                         block_sorted_dtype: str = "float32",
+                         train_cfg: TrainConfig | None = None):
+    """(forward(state, batch) -> (q, c, overflow), pooled_embeddings(tables,
+    batch) -> (pooled, weights, overflow)): the towers on this rank's slice,
+    each feature pooled by its table's placement. `block_sorted_feature`
+    takes the sorted lookup, its rows rounded to bf16 under
+    `block_sorted_dtype="bfloat16"` as the one-device step's are. The pooled
+    outputs are in the compute dtype when it differs from the tables'
+    (`models/two_tower.py`). `train_cfg` picks the exchange: `overflow` is
+    the all-to-all exchange's dropped-id count summed over its tables' lookups
+    (None when no table takes it)."""
     lookup = make_sharded_lookup(mesh)
     sorted_lookup = make_sorted_sharded_lookup(mesh)
+    column_lookup = make_column_lookup(mesh)
+    train_cfg = train_cfg or TrainConfig()
+    a2a = alltoall_tables(model_cfg, train_cfg, plan,
+                           validate_sorted_feature(model_cfg, train_cfg))
+    a2a_lookup = make_alltoall_lookup(mesh, train_cfg.exchange_capacity_factor,
+                                      train_cfg.exchange_wire_dtype)
     compute = (torch_dtype(model_cfg.compute_dtype)
                if model_cfg.compute_dtype != model_cfg.resolved_table_dtype else None)
 
     def pooled_embeddings(tables, batch: Batch):
-        pooled, weights = {}, {}
+        pooled, weights, overflow = {}, {}, None
         for fc in model_cfg.features:
             feat = batch.features[fc.name]
             w = _pool_weights(fc, feat.mask)
             weights[fc.name] = w
             spec = plan[fc.table]
+            table = tables[spec.bucket if spec.strategy == TABLE_WISE else fc.table]
+            quantized = isinstance(table, QuantizedTable)
             if spec.strategy == TABLE_WISE:
-                table = tables[spec.bucket]
                 out = lookup(table, feat.ids + _bucket_base(plan, spec), w)
             elif spec.strategy == ROW_SHARDED and fc.name == block_sorted_feature:
-                table = tables[fc.table]
-                rows_dtype = torch.bfloat16 if block_sorted_dtype == "bfloat16" else compute
+                rows_dtype = compute
+                if block_sorted_dtype == "bfloat16" and not quantized:
+                    rows_dtype = torch.bfloat16
                 out = sorted_lookup(table, feat.ids, w, rows_dtype)
+            elif spec.strategy == ROW_SHARDED and fc.table in a2a:
+                out, ovf = a2a_lookup(table, feat.ids, w)
+                overflow = ovf if overflow is None else overflow + ovf
             elif spec.strategy == ROW_SHARDED:
-                table = tables[fc.table]
                 out = lookup(table, feat.ids, w)
+            elif spec.strategy == COLUMN_SHARDED:
+                out = column_lookup(table, feat.ids, w)[:, :spec.embedding_dim]
             else:
-                table = tables[fc.table]
-                out = pooled_gather(table, feat.ids.to(torch.int32).contiguous(), w.contiguous(),
-                                    out_dtype=torch.float32)
-            pooled[fc.name] = out.to(compute or table.dtype)
-        return pooled, weights
+                out = _gather(table, feat.ids, w, torch.float32)
+            pooled[fc.name] = out.to(compute or (torch.float32 if quantized else table.dtype))
+        return pooled, weights, overflow
 
     def forward(state: TrainState, batch: Batch):
-        pooled, _ = pooled_embeddings(state.model.tables, batch)
-        return towers_forward(state.model, pooled, batch.dense)
+        pooled, _, overflow = pooled_embeddings(state.model.tables, batch)
+        q, c = towers_forward(state.model, pooled, batch.dense)
+        return q, c, overflow
 
     return forward, pooled_embeddings
 
@@ -558,7 +882,9 @@ def make_sharded_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     batch: the one-device step's two-stage backward with the sharded
     lookups and updates. In place, as the one-device step. `out["loss"]` is
     the global batch's loss (on every rank), `out["logits"]` this rank's
-    slice's."""
+    slice's, and under the all-to-all exchange `out["exchange_overflow"]`
+    the distinct ids its forward and backward dropped past the capacity,
+    summed over the mesh (a device tensor: nothing here reads it)."""
     sorted_table = _check_step_config(model_cfg, train_cfg, plan)
     loss_fn = _sharded_loss_fn(train_cfg, mesh)
     bs_kernel = train_cfg.block_sorted_kernel
@@ -567,7 +893,14 @@ def make_sharded_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         block_sorted_feature=(train_cfg.sorted_feature
                               if bs_kernel != "off" and train_cfg.block_sorted_gather
                               else None),
-        block_sorted_dtype=bs_kernel if bs_kernel != "off" else "float32")
+        block_sorted_dtype=bs_kernel if bs_kernel != "off" else "float32",
+        train_cfg=train_cfg)
+    a2a = alltoall_tables(model_cfg, train_cfg, plan, sorted_table)
+
+    def a2a_update(mesh, fn):
+        return make_alltoall_update(mesh, fn, train_cfg.exchange_capacity_factor,
+                                    train_cfg.exchange_wire_dtype)
+
     # per table or bucket: its sentinel key and the maker of its placement's update
     groups: dict[str, tuple[int, Callable]] = {}
     for fc in model_cfg.features:
@@ -578,7 +911,10 @@ def make_sharded_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         elif spec.strategy == ROW_SHARDED:
             groups[fc.table] = (mesh.size * _shard_rows(plan, fc.table),
                                 make_sorted_sharded_update if fc.table == sorted_table
-                                else make_sharded_update)
+                                else a2a_update if fc.table in a2a else make_sharded_update)
+        elif spec.strategy == COLUMN_SHARDED:
+            groups[fc.table] = (spec.num_embeddings,
+                                lambda mesh, fn, d=spec.embedding_dim: make_column_update(mesh, d))
         else:
             groups[fc.table] = (spec.num_embeddings, make_replicated_update)
     updates: dict[str, Callable] = {}  # per table or bucket, picked at its first batch
@@ -587,7 +923,7 @@ def make_sharded_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         model = state.model
         b_glob = batch.batch_size * mesh.data
         with torch.no_grad():  # stage A
-            pooled, weights = pooled_embeddings(model.tables, batch)
+            pooled, weights, overflow = pooled_embeddings(model.tables, batch)
         pooled = {k: v.detach().requires_grad_(True) for k, v in pooled.items()}
 
         state.dense_opt_state.zero_grad(set_to_none=True)  # stage B
@@ -610,8 +946,11 @@ def make_sharded_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
                 ids = feat.ids + _bucket_base(plan, spec) if spec.strategy == TABLE_WISE \
                     else feat.ids
                 keys = torch.where(feat.mask > 0, ids, groups[name][0]).to(torch.int32)
-                parts.setdefault(name, []).append(
-                    (keys, row_grads_from_pooled(g, feat.mask, fc.pooling)))
+                row_g = row_grads_from_pooled(g, feat.mask, fc.pooling)
+                if spec.strategy == COLUMN_SHARDED and spec.padded_dim > spec.embedding_dim:
+                    row_g = torch.nn.functional.pad(
+                        row_g, (0, spec.padded_dim - spec.embedding_dim))
+                parts.setdefault(name, []).append((keys, row_g))
             for name, group in parts.items():
                 keys = torch.cat([p[0] for p in group], dim=1) if len(group) > 1 else group[0][0]
                 row_g = torch.cat([p[1] for p in group], dim=1) if len(group) > 1 \
@@ -620,18 +959,24 @@ def make_sharded_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
                 if name not in updates:
                     fn = pick_table_update_fn(
                         model_cfg, train_cfg, sorted_table, name, keys.numel() * mesh.data,
-                        quantized=False, table_dtype=str(table.dtype).replace("torch.", ""),
+                        quantized=isinstance(table, QuantizedTable),
+                        table_dtype=str(table.dtype).replace("torch.", ""),
                         num_rows=table.shape[0])
                     updates[name] = groups[name][1](mesh, fn)
-                new_table, new_acc = updates[name](table, acc, keys, row_g,
-                                                   train_cfg.sparse_learning_rate,
-                                                   train_cfg.adagrad_eps)
-                if new_table is not table or new_acc is not acc:
+                new = updates[name](table, acc, keys, row_g, train_cfg.sparse_learning_rate,
+                                    train_cfg.adagrad_eps)
+                if name in a2a:
+                    overflow = new[2] if overflow is None else overflow + new[2]
+                if new[0] is not table or new[1] is not acc:
                     raise RuntimeError(f"the update of {name!r} replaced its tensors")
             total = value.clone()
             dist.all_reduce(total, group=mesh.data_group)
         state.step += 1
-        return state, {"loss": total.to(logits.dtype), "logits": logits.detach()}
+        out = {"loss": total.to(logits.dtype), "logits": logits.detach()}
+        if overflow is not None:
+            # nonzero: ids were dropped this step; raise exchange_capacity_factor
+            out["exchange_overflow"] = overflow
+        return state, out
 
     return step
 
@@ -642,7 +987,8 @@ def make_sharded_multi_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     """K sharded train steps over a stacked packed macro-batch in one call
     (`make_multi_step` over the sharded step and `unpack_batch`): on the card
     one CUDA graph of the K steps with their collectives captured. Place the
-    macro payload with `macro_batch_sharding`."""
+    macro payload with `macro_batch_sharding`. Under the all-to-all exchange
+    the result carries the K steps' `exchange_overflow` summed."""
     core = make_sharded_train_step(model_cfg, train_cfg, dense_opt, mesh, plan)
     return make_multi_step(lambda s, pb: core(s, unpack_batch(pb, model_cfg,
                                                               pack_label=pack_label)))
@@ -653,14 +999,14 @@ def make_sharded_eval_step(model_cfg: ModelConfig, train_cfg: TrainConfig, mesh:
     """`step(state, eval_state, batch) -> eval_state` on this rank's slice:
     the logits, labels and weights all-gathered over data, then the
     one-device eval step's BCE and AUROC on the global batch, so every rank
-    holds the same metrics. A batch of padding alone still runs its
-    collectives."""
-    del train_cfg
-    forward, _ = make_sharded_forward(model_cfg, mesh, plan)
+    holds the same metrics; the all-to-all exchange's overflow counts added
+    into `eval_state.exchange_overflow`. A batch of padding alone still runs
+    its collectives."""
+    forward, _ = make_sharded_forward(model_cfg, mesh, plan, train_cfg=train_cfg)
 
     @torch.no_grad()
     def step(state: TrainState, eval_state: EvalState, batch: Batch) -> EvalState:
-        q, c = forward(state, batch)
+        q, c, overflow = forward(state, batch)
         logits = _all_gather(torch.sum(q * c, dim=1), mesh.data_group, mesh.data)
         labels = _all_gather(batch.labels, mesh.data_group, mesh.data)
         w = None if batch.weights is None else _all_gather(batch.weights.to(torch.float32),
@@ -671,7 +1017,10 @@ def make_sharded_eval_step(model_cfg: ModelConfig, train_cfg: TrainConfig, mesh:
         else:
             n = w.sum()
             loss = losses_lib.bce_with_logits(logits, labels, w)
+        total = eval_state.exchange_overflow
+        if overflow is not None:
+            total = overflow if total is None else total + overflow
         return EvalState(auroc=auroc_update(eval_state.auroc, logits, labels, w),
-                         loss=mean_update(eval_state.loss, loss, n))
+                         loss=mean_update(eval_state.loss, loss, n), exchange_overflow=total)
 
     return step

@@ -26,7 +26,9 @@ rank's slice of each global batch: `parallel.sharded.batch_sharding`, or
 and `pad_to` (every eval batch padded to that many rows, a 0-row one into a
 batch of padding that still runs its step and its collectives). Every rank
 runs the same batches, so every rank runs every collective. The all-to-all
-exchange's overflow counts are ROADMAP M12(b).
+exchange's overflow counts (`exchange_overflow`, summed over the mesh) are
+added up on the device and read once: `evaluate` raises at the end of its
+pass, the epochs at the end of the epoch, with the reference's messages.
 """
 
 from __future__ import annotations
@@ -77,7 +79,36 @@ def evaluate(state: TrainState, eval_step: Callable, batches: Iterable[dict], fe
         n += 1
     loss = float(mean_compute(es.loss)) if n else float("nan")
     auroc = float(auroc_compute(es.auroc)) if n else float("nan")
+    if es.exchange_overflow is not None and int(es.exchange_overflow) > 0:
+        raise RuntimeError(
+            f"{stage} eval dropped {int(es.exchange_overflow)} distinct ids "
+            "past the alltoall bucket capacity — metrics would be computed "
+            "on corrupted pooled embeddings; raise "
+            "TrainConfig.exchange_capacity_factor (or use the dense exchange)"
+        )
     return {f"{stage}_loss": loss, f"{stage}_auroc": auroc}
+
+
+def _accumulate_overflow(total, out: dict):
+    """The all-to-all exchange's dropped-id counts summed over the steps, on
+    the device (no read in the loop); checked once at the epoch's end by
+    `_check_overflow`."""
+    ovf = out.get("exchange_overflow")
+    if ovf is None:
+        return total
+    ovf = ovf.sum() if ovf.dim() else ovf
+    return ovf if total is None else total + ovf
+
+
+def _check_overflow(total, where: str) -> None:
+    if total is not None and int(total) > 0:
+        raise RuntimeError(
+            f"{where}: the alltoall exchange dropped {int(total)} distinct "
+            "ids past its bucket capacity this epoch — their embeddings did "
+            "not train. This is a configuration error: raise "
+            "TrainConfig.exchange_capacity_factor (or use "
+            "sharded_exchange='dense')."
+        )
 
 
 def train_one_epoch(state: TrainState, train_step: Callable, batches: Iterable[dict],
@@ -90,11 +121,12 @@ def train_one_epoch(state: TrainState, train_step: Callable, batches: Iterable[d
         it = itertools.islice(it, train_cfg.limit_train_batches)
     steps = examples = 0
     t0 = time.perf_counter()
-    last_loss = None
+    last_loss = overflow = None
     parts = sharding.parts if sharding is not None else 1
     for batch in prefetch_to_device(it, featurizer, state.device, sharding=sharding):
         state, out = train_step(state, batch)
         last_loss = out["loss"]
+        overflow = _accumulate_overflow(overflow, out)
         steps += 1
         examples += batch.batch_size * parts
         if (train_cfg.validation_freq and eval_step is not None
@@ -107,6 +139,7 @@ def train_one_epoch(state: TrainState, train_step: Callable, batches: Iterable[d
                 logger.log_metrics(metrics, step=state.step)
     if last_loss is not None:
         last_loss = float(last_loss)  # the one read of the epoch
+    _check_overflow(overflow, f"epoch {epoch}")
     if state.device.type == "cuda":
         torch.cuda.synchronize(state.device)  # the last step's updates are in the time
     dt = time.perf_counter() - t0
@@ -277,12 +310,13 @@ def train_one_epoch_packed(state: TrainState, multi_step: Callable, batches: Ite
     steps = examples = 0
     next_val = vfreq or 0
     t0 = time.perf_counter()
-    last_loss = None
+    last_loss = overflow = None
     parts = sharding.parts if sharding is not None else 1
     for mb in prefetch_to_device(groups(), assemble, state.device, prefetch=prefetch,
                                  num_workers=num_workers, sharding=sharding):
         state, out = multi_step(state, mb)
         last_loss = out["loss"][-1]
+        overflow = _accumulate_overflow(overflow, out)
         k, b = _macro_dims(mb)
         steps += k
         examples += k * b * parts
@@ -292,11 +326,13 @@ def train_one_epoch_packed(state: TrainState, multi_step: Callable, batches: Ite
             pb = device_put_batch(packed_featurizer(cols), state.device, tail_sharding)
             state, out = tail_step(state, pb)
             last_loss = out["loss"]
+            overflow = _accumulate_overflow(overflow, out)
             steps += 1
             examples += pb.batch_size * (tail_sharding.parts if tail_sharding else 1)
             next_val = maybe_validate(steps, next_val)
     if last_loss is not None:
         last_loss = float(last_loss)  # the one read of the epoch
+    _check_overflow(overflow, f"epoch {epoch}")
     if state.device.type == "cuda":
         torch.cuda.synchronize(state.device)
     dt = time.perf_counter() - t0

@@ -21,7 +21,8 @@ Two more routes compute the same update for a float table and are what
 masked epilogue) and `pallas_sparse_rowwise_adagrad` (the sorted-segment
 aggregation, then the row-subtract kernel #7). They keep the names of their
 counterparts in the JAX package's `ops/block_sorted.py` and
-`ops/pallas_update.py`.
+`ops/pallas_update.py`. `sparse_rowwise_adagrad_columns` updates a column
+slice of a column-sharded table (kernel #3, then the epilogue).
 
 `dense_optimizer` is the towers' Adam / AdamW recipe with the JAX package's
 learning-rate schedules (constant, linear, cosine, with warmup). Over CUDA
@@ -42,6 +43,7 @@ import math
 from typing import Callable, Iterable
 
 import torch
+import torch.distributed as dist
 
 from two_tower_recommender_model_tpu_torch.ops.adagrad_kernel import (
     block_sorted_aggregate,
@@ -146,6 +148,55 @@ def dense_rowwise_adagrad(table: torch.Tensor, acc: torch.Tensor, flat_ids: torc
     del ids_sorted
     g, touched = dense_buffer(table.shape[0], flat_ids, flat_grads, buffer_dtype)
     return masked_rowwise_adagrad_epilogue(table, acc, g, touched, lr, eps)
+
+
+@torch.no_grad()
+def column_grad_sums(n: int, flat_ids: torch.Tensor,
+                     flat_grads_cols: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A column slice's `[n, D_local]` f32 gradient sums and the `[n]` mask
+    of the rows the ids name (sentinels outside [0, n) name none): kernel #3
+    after a stable device sort, with its permutation."""
+    sids, perm = torch.sort(flat_ids.to(torch.int32), stable=True)
+    g = block_sorted_aggregate(n, sids.contiguous(), flat_grads_cols.contiguous(),
+                               perm=perm.to(torch.int32))
+    live = (flat_ids >= 0) & (flat_ids < n)
+    touched = torch.zeros(n + 1, dtype=torch.bool, device=g.device).index_fill_(
+        0, torch.where(live, flat_ids, n).long(), True)[:n]
+    return g, touched
+
+
+@torch.no_grad()
+def column_adagrad_epilogue(table_cols: torch.Tensor, acc: torch.Tensor, g: torch.Tensor,
+                            touched: torch.Tensor, g2: torch.Tensor, lr: float, eps: float,
+                            full_dim: int):
+    """Row-wise Adagrad on the touched rows of a column slice, in place: `g2`
+    `[n]` is the rows' squared gradients summed over every column shard,
+    divided here by the FULL dim. Returns (table_cols, acc)."""
+    acc32 = acc.to(torch.float32)
+    new_acc = torch.where(touched, acc32 + g2 / full_dim, acc32)
+    denom = torch.sqrt(new_acc) + eps
+    new_table = torch.where(touched[:, None],
+                            table_cols.to(torch.float32) - lr * g / denom[:, None], table_cols)
+    table_cols.copy_(new_table)
+    acc.copy_(new_acc)
+    return table_cols, acc
+
+
+def sparse_rowwise_adagrad_columns(table_cols: torch.Tensor, acc: torch.Tensor,
+                                   flat_ids: torch.Tensor, flat_grads_cols: torch.Tensor,
+                                   lr: float, eps: float, full_dim: int, psum_group=None):
+    """Row-wise Adagrad on a column slice `[N, D_local]` of a table whose
+    rows' accumulator `acc` `[N]` is kept whole on every column shard: each
+    row's gradients summed over the local columns (`column_grad_sums`,
+    kernel #3), their squares summed and all-reduced over `psum_group` (None
+    on one device), then the update of the local columns
+    (`column_adagrad_epilogue`), in place. Every shard computes the same
+    accumulator, so the copies stay equal. Returns (table_cols, acc)."""
+    g, touched = column_grad_sums(table_cols.shape[0], flat_ids, flat_grads_cols)
+    g2 = torch.sum(g * g, dim=1)
+    if psum_group is not None:
+        dist.all_reduce(g2, group=psum_group)
+    return column_adagrad_epilogue(table_cols, acc, g, touched, g2, lr, eps, full_dim)
 
 
 def grad_wire_dtype(matmul_dtype: str) -> torch.dtype:

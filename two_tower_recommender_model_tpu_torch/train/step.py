@@ -487,6 +487,7 @@ class _CapturedMacro:
         self.payload = map_leaves(stacked, torch.clone)
         self.lr = torch.zeros(k, dtype=torch.float32, device=device)
         self.losses = torch.zeros(k, dtype=torch.float32, device=device)
+        self.overflow = None  # [K] the all-to-all exchange's counts, when the step reports them
         self.k = k
         self.graph = torch.cuda.CUDAGraph()
         step0, before = state.step, _addresses(_state_tensors(state))
@@ -498,6 +499,10 @@ class _CapturedMacro:
                     state.device_lr = self.lr[i]
                     out = step_fn(state, map_leaves(self.payload, lambda t: t[i]))[1]
                     self.losses[i].copy_(out["loss"].detach().float())
+                    if "exchange_overflow" in out:
+                        if self.overflow is None:
+                            self.overflow = torch.zeros(k, dtype=torch.int64, device=device)
+                        self.overflow[i].copy_(out["exchange_overflow"])
         finally:  # a capture records and does not run: the state is where it was
             state.device_lr, state.step = None, step0
         if _addresses(_state_tensors(state)) != before:
@@ -505,7 +510,7 @@ class _CapturedMacro:
                 "the train step replaced a tensor of the state while it was captured; a CUDA "
                 "graph replays the addresses it saw, so the step must update the state in place")
 
-    def replay(self, state: TrainState, stacked: Any) -> torch.Tensor:
+    def replay(self, state: TrainState, stacked: Any) -> dict[str, torch.Tensor]:
         for dst, src in zip(_leaves(self.payload), _leaves(stacked)):
             dst.copy_(src, non_blocking=True)
         schedule = state.dense_opt_state.lr_schedule
@@ -513,7 +518,10 @@ class _CapturedMacro:
         self.lr.copy_(torch.tensor(rates, dtype=torch.float32))
         self.graph.replay()
         state.step += self.k
-        return self.losses.clone()  # the next replay overwrites the buffer
+        out = {"loss": self.losses.clone()}  # the next replay overwrites the buffers
+        if self.overflow is not None:
+            out["exchange_overflow"] = self.overflow.sum()
+        return out
 
 
 def _leaves(batch: Any) -> list[torch.Tensor]:
@@ -523,7 +531,7 @@ def _leaves(batch: Any) -> list[torch.Tensor]:
 
 
 class MultiStep:
-    """`multi(state, stacked) -> (state, {"loss": [K]})`: K train steps over a
+    """`multi(state, stacked) -> (state, {"loss": [K], ...})`: K train steps over a
     macro-batch whose every leaf has a leading axis K (`stack_batches`).
 
     On CPU tensors it is a plain loop over the K slices, bitwise equal to K
@@ -540,7 +548,9 @@ class MultiStep:
     train it), captures, and replays.
 
     `captures` and `replays` count what their names say; kernel wrappers
-    count launches where Python calls them, so a replay counts none."""
+    count launches where Python calls them, so a replay counts none. Where
+    the step reports `exchange_overflow` (the all-to-all exchange), the
+    macro-step reports the sum of its K steps' counts, on the device."""
 
     def __init__(self, step_fn: Callable):
         self.step_fn = step_fn
@@ -551,20 +561,26 @@ class MultiStep:
     def __call__(self, state: TrainState, stacked: Any):
         leaves = _leaves(stacked)
         if not leaves[0].is_cuda:
-            losses = []
+            losses, overflow = [], None
             for i in range(leaves[0].shape[0]):
                 state, out = self.step_fn(state, map_leaves(stacked, lambda t: t[i]))
                 losses.append(out["loss"].detach())
-            return state, {"loss": torch.stack(losses)}
+                if "exchange_overflow" in out:
+                    ovf = out["exchange_overflow"]
+                    overflow = ovf if overflow is None else overflow + ovf
+            out = {"loss": torch.stack(losses)}
+            if overflow is not None:
+                out["exchange_overflow"] = overflow
+            return state, out
         key = (_addresses(_state_tensors(state)),
                tuple((tuple(t.shape), t.dtype) for t in leaves))
         macro = self._captured.get(key)
         if macro is None:
             macro = self._captured[key] = _CapturedMacro(self.step_fn, state, stacked)
             self.captures += 1
-        losses = macro.replay(state, stacked)
+        out = macro.replay(state, stacked)
         self.replays += 1
-        return state, {"loss": losses}
+        return state, out
 
 
 def make_multi_step(step_fn: Callable) -> MultiStep:
@@ -577,10 +593,14 @@ def make_multi_step(step_fn: Callable) -> MultiStep:
 
 @dataclasses.dataclass
 class EvalState:
-    """Running eval metrics: the binned AUROC and the mean BCE loss."""
+    """Running eval metrics: the binned AUROC and the mean BCE loss, and
+    the distinct ids the all-to-all exchange dropped past its capacity in
+    the eval forwards (a device tensor; None on the dense exchange and one
+    device), which `train.loop.evaluate` raises on when nonzero."""
 
     auroc: AUROCState
     loss: MeanState
+    exchange_overflow: torch.Tensor | None = None
 
 
 def eval_state_init(bins: int = 8192, device: torch.device | str | None = None) -> EvalState:
