@@ -296,6 +296,26 @@ without a card. Phases (any failure raises and exits non-zero):
    `[kernel]` #1 with `round_rows` (bags of 4 and 16 slots into bf16 and the
    BCE step's item call): bit for bit its plain version, its ms beside the
    mode off;
+26d. M12(c) on the same one-rank group: `[serve-mesh]`
+   `RetrievalService(mesh=)` over the 49,687-item corpus, k = 100, for 16
+   and 1,000 users (counted: 7 + 2 launches of #1), items and scores bit for
+   bit the one-device service's, then the corpus in 4 shards by hand
+   (`topk_shard_candidates`, the pad row masked, `topk_merge`) bit for bit
+   the one-device top-k, each shard's and the merge's device ms and the
+   direct calls' ms beside the one-device service's; `[mesh-softmax]`
+   `[train-softmax]`'s f32 batch of 8,192 with logQ through the sharded
+   step (the data-parallel softmax's stripe at row offset 0): 3 counted
+   steps (#1, #4 twice, #9, #10, #11 once a step) against the one-device
+   steps, the K = 16 graph with the all-gather, the backward's
+   reduce-scatter and the count's all-reduce captured bit for bit the eager
+   steps, replayed ms beside the one-device graph's; `[mesh-compact]`
+   `[mesh]`'s graph fed compact payloads placed by `compact_shardings`
+   (counted: its first call), bit for bit the sharded packed graph and the
+   one-device compact graph after 32 steps, replayed ms of the three;
+   `[shard-kernels]` the 8,192 batch's 4 stripes of [2,048, 8,192] at row
+   offsets 0-6,144: #9, #10 and #11 against their plain versions, the
+   stripes' dc summed against the square's, (num, den) summed against the
+   whole batch's, each stripe's kernel ms beside its bound;
 27. with --profile, torch.profiler traces of the serving calls, of the
    three train steps and of a graph replay: device busy time, idle share and
    the largest device items, the gather kernel's (#1 or #5) device ms a call
@@ -412,6 +432,7 @@ from two_tower_recommender_model_tpu_torch.ops.tower_fwd import (
 from two_tower_recommender_model_tpu_torch.parallel import launch
 from two_tower_recommender_model_tpu_torch.parallel.mesh import make_mesh
 from two_tower_recommender_model_tpu_torch.parallel.planner import plan_sharding
+from two_tower_recommender_model_tpu_torch.ops.topk import chunked_topk
 from two_tower_recommender_model_tpu_torch.parallel.sharded import (
     a2a_cap,
     a2a_owner_rows,
@@ -421,7 +442,9 @@ from two_tower_recommender_model_tpu_torch.parallel.sharded import (
     a2a_send_grads,
     a2a_send_ids,
     alltoall_tables,
+    compact_shardings,
     macro_batch_sharding,
+    make_sharded_compact_multi_step,
     make_sharded_forward,
     make_sharded_multi_step,
     make_sharded_train_step,
@@ -429,6 +452,8 @@ from two_tower_recommender_model_tpu_torch.parallel.sharded import (
     shard_local_ids,
     shard_train_state,
     sorted_partial_rows,
+    topk_merge,
+    topk_shard_candidates,
     unshard_train_state,
 )
 from two_tower_recommender_model_tpu_torch.serving import RetrievalService, Scorer
@@ -4132,16 +4157,19 @@ def ms_note(ms: dict[str, float]) -> str:
 
 
 def phase_meshes(dev: torch.device, pool: list) -> dict[str, dict[str, int]]:
-    """`[mesh]`, `[mesh-int8]`, `[mesh-a2a]` and `[mesh-column]` on one
-    one-rank NCCL group (NCCL refuses two ranks on one card). Returns each
-    phase's launches."""
+    """`[mesh]`, `[mesh-int8]`, `[mesh-a2a]`, `[mesh-column]`,
+    `[serve-mesh]`, `[mesh-softmax]` and `[mesh-compact]` on one one-rank
+    NCCL group (NCCL refuses two ranks on one card). Returns each phase's
+    launches."""
     launch.initialize_distributed(dev, world_size=1, rank=0)
     try:
         mesh = make_mesh(1, 1)
         log(f"[mesh] one-rank {mesh.backend} group on {mesh.device}")
         return {"mesh": phase_mesh(mesh, pool), "mesh-int8": phase_mesh_int8(mesh, pool),
                 "mesh-a2a": phase_mesh_a2a(mesh, pool),
-                "mesh-column": phase_mesh_column(mesh, pool)}
+                "mesh-column": phase_mesh_column(mesh, pool),
+                "serve-mesh": phase_serve_mesh(mesh), "mesh-softmax": phase_mesh_softmax(mesh),
+                "mesh-compact": phase_mesh_compact(mesh, pool)}
     finally:
         torch.distributed.destroy_process_group()
 
@@ -4399,6 +4427,301 @@ def phase_mesh_column(mesh, pool: list) -> dict[str, int]:
                       "one-device": one_device_graph(cfg, tcfg, dense_opt, base, pool)}, pool)
     log(f"{tag} K={GRAPH_K} graph: {same}; replayed_ms_per_step {ms_note(ms)}; {card_line()}")
     return launches
+
+
+SERVE_K = 100  # the retrieval depth of [serve-mesh], as [serve]'s
+
+
+def bits_equal(a: np.ndarray, b: np.ndarray) -> bool:
+    """Host arrays of one shape and dtype, equal bit for bit."""
+    return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def phase_serve_mesh(mesh) -> dict[str, int]:
+    """`[serve-mesh]`: `RetrievalService(mesh=)` at the flagship widths (the
+    49,687-item corpus, k = 100), built and asked for 16 and 1,000 users:
+    the main path, counted (#1 exports the corpus, 7 launches, and embeds
+    each request's users, 1 launch). Its items and scores bit for bit the
+    one-device service's. Then 4 ranks' shards of the corpus padded to 4 x
+    12,422 rows by hand: each shard's candidates (`topk_shard_candidates`,
+    the pad row masked by `valid`) merged (`topk_merge`), bit for bit the
+    one-device top-k. The direct calls' ms beside the one-device service's,
+    and each shard's and the merge's device ms."""
+    tag, dev = "[serve-mesh]", mesh.device
+    cfg = cfg_lib.two_tower_model_config(NUM_USERS, NUM_ITEMS, embedding_dim=DIM,
+                                         layer_sizes=LAYERS)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(3)
+    users = {n: rng.integers(1, NUM_USERS, n) for n in (16, 1000)}
+    # --- the main path, counted ---------------------------------------------------------------
+    reset_launches()
+    svc = RetrievalService(model, mesh=mesh)
+    got = {n: svc.retrieve(u, k=SERVE_K) for n, u in users.items()}
+    torch.cuda.synchronize()
+    launches = read_launches()
+    # --- checks, not counted ------------------------------------------------------------------
+    want = {"pooled_gather": -(-NUM_ITEMS // EXPORT_BATCH) + len(users)}
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"{tag} launches {launches}, expected {want}")
+    one = RetrievalService(model)
+    for n, u in users.items():
+        items, scores = one.retrieve(u, k=SERVE_K)
+        if not (bits_equal(got[n][0], items) and bits_equal(got[n][1], scores)):
+            raise AssertionError(f"{tag} {n} users: not the one-device service's answer bit "
+                                 "for bit")
+    corpus, n_rows = one.corpus, one.corpus_size
+    rows = -(-n_rows // SHARD_WORLD)
+    padded = torch.zeros((SHARD_WORLD * rows, corpus.shape[1]), device=dev)
+    padded[:n_rows] = corpus
+    q = export_feature_embeddings(model, "user_id", ids=users[1000])
+    want_vals, want_idx = chunked_topk(q, corpus, k=SERVE_K)
+    shards = [padded[r * rows:(r + 1) * rows] for r in range(SHARD_WORLD)]
+
+    def candidates(r):
+        return topk_shard_candidates(q, shards[r], SERVE_K, 4096, r, n_rows)
+
+    parts = [candidates(r) for r in range(SHARD_WORLD)]
+    stacked = (torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts]))
+    vals, idx = topk_merge(*stacked, SERVE_K)
+    torch.cuda.synchronize()
+    if not (bitwise_equal(idx, want_idx) and bitwise_equal(vals, want_vals)):
+        raise AssertionError(f"{tag} the merge of {SERVE_K} candidates from {SHARD_WORLD} shards "
+                             f"is not the one-device top-k bit for bit: "
+                             f"{int((idx != want_idx).sum())} rows differ")
+    if (stacked[1] >= n_rows).any() or torch.isinf(stacked[0]).any():
+        raise AssertionError(f"{tag} a pad row or an empty slot reached the candidates")
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    shard_ms = [median_ms(lambda r=r: candidates(r), flush, 10) for r in range(SHARD_WORLD)]
+    merge_ms = median_ms(lambda: topk_merge(*stacked, SERVE_K), flush, 10)
+    one_ms = median_ms(lambda: chunked_topk(q, corpus, k=SERVE_K), flush, 10)
+    direct = {n: (wall_ms(lambda u=u: svc.retrieve(u, k=SERVE_K)),
+                  wall_ms(lambda u=u: one.retrieve(u, k=SERVE_K))) for n, u in users.items()}
+    log(f"{tag} {card_line()}: the mesh service over the {n_rows}-row corpus, k={SERVE_K}, "
+        f"for 16 and 1,000 users: items and scores bit for bit the one-device service's; "
+        f"launches {want}; {SHARD_WORLD} shards of {rows} rows by hand (1 pad row masked): the "
+        f"merge bit for bit the one-device top-k for 1,000 users; device ms a shard's "
+        f"candidates {shard_ms!r}, the merge {merge_ms!r}, the one-device top-k {one_ms!r} "
+        f"(n=10); direct-call host ms (mesh, one-device): "
+        + ", ".join(f"{n} users {a!r} / {b!r}" for n, (a, b) in direct.items()))
+    return launches
+
+
+def softmax_flagship():
+    """`[train-softmax]`'s configuration: f32, batch 8,192 sorted by user,
+    logQ, accidental-hit masking, the fused kernels on."""
+    cfg = cfg_lib.two_tower_model_config(NUM_USERS, NUM_ITEMS, embedding_dim=DIM,
+                                         layer_sizes=LAYERS)
+    tcfg = cfg_lib.TrainConfig(batch_size=SOFTMAX_BATCH, sorted_feature="user_id",
+                               block_sorted_kernel="float32", loss="sampled_softmax",
+                               softmax_kernel="on")
+    return cfg, tcfg
+
+
+def phase_mesh_softmax(mesh) -> dict[str, int]:
+    """`[mesh-softmax]`: the sharded step with the data-parallel sampled
+    softmax in `[train-softmax]`'s configuration on the one-rank group (its
+    stripe is the whole `[8,192, 8,192]` score matrix at row offset 0; the
+    candidates all-gathered, their gradient reduce-scattered, the logQ
+    counts of the gathered ids), the planner's flagship plan forced on one:
+    MESH_STEPS eager sharded steps counted (#1 and #4 twice, #9, #10 and #11
+    once a step) against the one-device softmax steps from one numpy start,
+    the K = 16 graph with the collectives captured (the reduce-scatter in
+    the backward too) bit for bit the eager steps, its replayed ms a step
+    beside the one-device graph's."""
+    tag = "[mesh-softmax]"
+    cfg, tcfg = softmax_flagship()
+    plan = mesh_plan(cfg)
+    feat = PackedFeaturizer(cfg, pack_label=True, sort_feature="user_id")
+    ds = SyntheticClickstream(NUM_USERS - 1, NUM_ITEMS - 1, seed=0)
+    pool = [map_leaves(feat(cols), lambda t: t.to(mesh.device))
+            for cols in ds.batches(SOFTMAX_BATCH, GRAPH_POOL, split="train")]
+    start = {**numpy_start(cfg), "item_counts": np.zeros(NUM_ITEMS, np.float32)}
+    base, dense_opt = step_lib.train_state_from_numpy(start, cfg, tcfg, mesh.device)
+    step = sharded_step(cfg, tcfg, dense_opt, mesh, plan)
+    sh, sh_out, sh_times, launches = counted_steps(tag, step, shard_train_state(base, plan, mesh),
+                                                   pool, SOFTMAX_F32)
+    one, one_out, one_times = timed_steps(one_device_step(cfg, tcfg, dense_opt), base.copy(),
+                                          pool, 0, MESH_STEPS)
+    whole = unshard_train_state(sh, plan, cfg, mesh, dst=0)
+    counted = whole.item_counts.sum().item()
+    if counted != MESH_STEPS * SOFTMAX_BATCH:
+        raise AssertionError(f"{tag} item_counts sums to {counted}")
+    note = held_states(tag, whole, one)
+    log(f"{tag} {MESH_STEPS} sharded softmax steps against the one-device steps from one numpy "
+        f"start: {check_loss(tag, sh_out, one_out)} (bit for bit: "
+        f"{bitwise_equal(sh_out['loss'], one_out['loss'])}); {note}; item_counts sum "
+        f"{counted!r}; launches per step { {n: v // MESH_STEPS for n, v in launches.items() if v} }"
+        f"; eager median_step_ms sharded={statistics.median(sh_times)!r} "
+        f"one-device={statistics.median(one_times)!r}")
+    del sh, one, whole
+    captured, multi, graphed, same = graph_against_eager(tag, cfg, tcfg, dense_opt, mesh, plan,
+                                                         base, pool, step, SOFTMAX_F32)
+    for name in captured:
+        launches[name] += captured[name]
+    ms = replayed_ms({"sharded": (multi, graphed),
+                      "one-device": one_device_graph(cfg, tcfg, dense_opt, base, pool)}, pool)
+    log(f"{tag} K={GRAPH_K} sharded softmax steps as one CUDA graph (the all-gather, the "
+        f"backward's reduce-scatter and the count's all-reduce captured): {same}, {GRAPH_K} "
+        f"losses bitwise equal, captures={multi.captures} replays={multi.replays}; "
+        f"replayed_ms_per_step {ms_note(ms)} (ratio {ms['sharded'] / ms['one-device']!r}, "
+        f"n={GRAPH_MACROS} macros each, interleaved); {card_line()}")
+    return launches
+
+
+def phase_mesh_compact(mesh, pool: list) -> dict[str, int]:
+    """`[mesh-compact]`: `[mesh]`'s configuration (the flagship BCE step,
+    bf16 compute, batch 262,144 sorted by user) fed `CompactBatch` payloads
+    (the user slot delta-encoded) placed by `compact_shardings`, through
+    `make_sharded_compact_multi_step` (each rank decodes its slice, the delta
+    slot's prefix all-gathered over data inside the graph): the main path,
+    counted, is its first call (warm-up, capture, replay; #1, #4, #8 and
+    tower_fwd twice a step). After 2 macros of K = 16 its end state bit for
+    bit the packed sharded graph's and the one-device compact graph's
+    (`[train-compact]`'s), the losses too; the replayed ms a step of the
+    three beside each other."""
+    tag, k, dev = "[mesh-compact]", GRAPH_K, mesh.device
+    cfg, tcfg = flagship_bce()
+    plan = mesh_plan(cfg)
+    scheme = CompactScheme.from_model(cfg, pack_label=True, delta_feature="user_id")
+    cbs = [map_leaves(compact_from_packed(map_leaves(pb, lambda t: t.cpu()), scheme),
+                      lambda t: t.to(dev)) for pb in pool]
+    placement = compact_shardings(mesh, scheme, TRAIN_BATCH)
+    base, dense_opt = step_lib.train_state_from_numpy(numpy_start(cfg), cfg, tcfg, dev)
+    one_core = step_lib.make_train_step(cfg, tcfg, dense_opt)
+    multis = {
+        "sharded compact": make_sharded_compact_multi_step(cfg, tcfg, dense_opt, mesh, plan,
+                                                           scheme),
+        "sharded packed": make_sharded_multi_step(cfg, tcfg, dense_opt, mesh, plan,
+                                                  pack_label=True),
+        "one-device compact": step_lib.make_multi_step(make_compact_train_step(one_core, cfg,
+                                                                               scheme))}
+    states = {"sharded compact": shard_train_state(base, plan, mesh),
+              "sharded packed": shard_train_state(base, plan, mesh),
+              "one-device compact": base.copy()}
+    del base
+
+    def payload(kind, j):
+        if kind == "sharded packed":
+            return stack_on_card([pool[(j + i) % len(pool)] for i in range(k)])
+        stacked = stack_on_card([cbs[(j + i) % len(cbs)] for i in range(k)])
+        return device_put_batch(stacked, sharding=placement) if kind.startswith("sharded") \
+            else stacked
+
+    # --- the main path, counted: the sharded compact graph's first call ------------------------
+    first = payload("sharded compact", 0)
+    torch.cuda.synchronize()
+    reset_launches()
+    states["sharded compact"], out = multis["sharded compact"](states["sharded compact"], first)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    # --- checks, not counted --------------------------------------------------------------------
+    calls = k + step_lib.WARMUP_STEPS
+    for kernel, n in launches.items():
+        if n != BCE_F32.get(kernel, 0) * calls:
+            raise AssertionError(f"{tag} {kernel}: {n} launches in {calls} steps, expected "
+                                 f"{BCE_F32.get(kernel, 0)} a step")
+    losses = {"sharded compact": [out["loss"]]}
+    for kind in ("sharded packed", "one-device compact"):
+        states[kind], o = multis[kind](states[kind], payload(kind, 0))
+        losses[kind] = [o["loss"]]
+    for kind in multis:
+        states[kind], o = multis[kind](states[kind], payload(kind, 1))
+        losses[kind].append(o["loss"])
+    whole = unshard_train_state(states["sharded compact"], plan, cfg, mesh, dst=0)
+    verdicts = {
+        "sharded packed": compare_states(f"{tag} after {2 * k} steps", states["sharded packed"],
+                                         states["sharded compact"]),
+        "one-device compact": compare_states(f"{tag} after {2 * k} steps",
+                                             states["one-device compact"], whole)}
+    for kind, verdict in verdicts.items():
+        same_losses = all(bitwise_equal(a, b) for a, b in zip(losses[kind],
+                                                              losses["sharded compact"]))
+        if not verdict.startswith("bit for bit") or not same_losses:
+            raise AssertionError(f"{tag} the sharded compact graph is not the {kind} graph bit "
+                                 f"for bit: {verdict}; losses equal {same_losses}")
+    del whole
+    times = {kind: [] for kind in multis}
+    for j in range(2, 2 + GRAPH_MACROS):
+        for kind in multis:
+            p = payload(kind, j)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states[kind], _ = multis[kind](states[kind], p)
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t0) * 1e3 / k)
+    ms = {kind: statistics.median(t) for kind, t in times.items()}
+    log(f"{tag} {card_line()}: batch {TRAIN_BATCH}, K={k}, the user slot delta-encoded "
+        f"({scheme.wire_bytes_per_example} B an example): after {2 * k} steps the sharded "
+        f"compact graph's end state against the sharded packed graph's "
+        f"{verdicts['sharded packed']}, against the one-device compact graph's "
+        f"{verdicts['one-device compact']}, the {2 * k} losses bitwise equal; launches captured "
+        f"per step { {n: v // calls for n, v in launches.items() if v} }, captures="
+        f"{multis['sharded compact'].captures}; replayed_ms_per_step {ms_note(ms)} "
+        f"(n={GRAPH_MACROS} macros each, interleaved, payload copy included)")
+    return launches
+
+
+def phase_shard_softmax(dev: torch.device) -> None:
+    """`[shard-kernels]` the data-parallel softmax's stripes by hand: the
+    `[train-softmax]` batch of 8,192 cut in SHARD_WORLD stripes of 2,048
+    rows at row offsets 0, 2,048, 4,096 and 6,144, each against all 8,192
+    columns through #9, #10 and #11, held against their plain versions at
+    `[kernel]`'s bars (lse rtol 2e-5 / atol 1e-5; dq and dc within 1e-3 x
+    max and cosine > 0.99999, the backward fed the plain lse), each
+    stripe's lse equal to its rows of #9's on the whole batch within rtol
+    1e-6;
+    the stripes' dc summed against the whole batch's dc (#11 on the square)
+    at the dc bar; the stripes' (num, den) summed against the whole batch's
+    within rtol 1e-5. Each stripe's kernel ms beside its bound."""
+    tag, bk = "[shard-kernels]", SOFTMAX_BATCH
+    bq = bk // SHARD_WORLD
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
+    whole, g_whole = softmax_case(dev, np.random.default_rng(5), bk, bk, 0, None)
+    lse_whole = sk.lse_forward_reference(*whole)
+    lse_whole_kernel = sk.softmax_lse_fwd(*whole)
+    dc_whole = sk.softmax_lse_dc(*whole, lse_whole, g_whole)
+    labels = (g_whole > 0).float()
+    q16, c16, adj, ids = whole[0], whole[1], whole[2], whole[3]
+    parts_whole = sk.sampled_softmax_fused_parts(q16.float(), c16.float(), labels, ids, ids, adj)
+    dc_sum = torch.zeros_like(dc_whole)
+    num = den = 0.0
+    d = q16.shape[1]
+    small = (bq + bk) * (d * 2 + 12)
+    for r in range(SHARD_WORLD):
+        off = r * bq
+        args, g = softmax_case(dev, np.random.default_rng(5), bq, bk, off, None)
+        label = f"stripe {r} of {SHARD_WORLD} [{bq} x {bk}, row_offset={off}]"
+        lse = sk.softmax_lse_fwd(*args)
+        want_lse = sk.lse_forward_reference(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=1e-5)
+        torch.testing.assert_close(lse, lse_whole_kernel[off:off + bq], rtol=1e-6, atol=1e-6)
+        dq, dc = sk.softmax_lse_dq(*args, want_lse, g), sk.softmax_lse_dc(*args, want_lse, g)
+        want_dq, want_dc = sk.lse_backward_reference(*args, want_lse, g)
+        errs = {"#9": (lse - want_lse).abs().max().item(),
+                "#10": grad_close(dq, want_dq, f"{tag} {label} dq"),
+                "#11": grad_close(dc, want_dc, f"{tag} {label} dc")}
+        dc_sum += dc
+        n_, d_ = sk.sampled_softmax_fused_parts(q16[off:off + bq].float(), c16.float(),
+                                                labels[off:off + bq], ids[off:off + bq], ids,
+                                                adj, row_offset=off)
+        num, den = num + n_.item(), den + d_.item()
+        calls = {"#9": (lambda: sk.softmax_lse_fwd(*args),
+                        bound(small + bq * 4, 2 * bq * bk * d, PEAK_BF16, bq * bk)),
+                 "#10": (lambda: sk.softmax_lse_dq(*args, want_lse, g),
+                         bound(small + bq * d * 4, 4 * bq * bk * d, PEAK_BF16, bq * bk)),
+                 "#11": (lambda: sk.softmax_lse_dc(*args, want_lse, g),
+                         bound(small + bk * d * 4, 4 * bq * bk * d, PEAK_BF16, bq * bk))}
+        log(f"{tag} softmax {label}: each kernel against its plain version, max_abs_err "
+            f"{errs!r}; kernel ms / bound ms " + ", ".join(
+                f"{name} {median_ms(fn, flush, 10)!r} / {b['bound_ms']!r}"
+                for name, (fn, b) in calls.items()))
+    err = grad_close(dc_sum, dc_whole, f"{tag} the stripes' dc summed")
+    got, want = torch.tensor([num, den]), torch.tensor([p.item() for p in parts_whole])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    log(f"{tag} softmax: the {SHARD_WORLD} stripes' dc summed against the whole batch's #11 "
+        f"dc: max_abs_err {err!r} (x max {err / dc_whole.abs().max().item()!r}); (num, den) "
+        f"summed {got.tolist()!r} against the whole batch's {want.tolist()!r}; {card_line()}")
 
 
 def card_table(gen: torch.Generator, n: int, d: int, dtype: str, dev: torch.device):
@@ -5295,6 +5618,7 @@ def main() -> int:
         phase_shard_kernels(dev, batches[0], table_dtype)
     phase_shard_exchange(dev, batches[0])
     phase_shard_columns(dev, batches[0])
+    phase_shard_softmax(dev)
     paths["train-compact"] = phase_train_compact(dev, args.profile)
     paths["train-skew"] = phase_train_skew(dev, args.profile)
     paths["learn-packed"] = phase_learn_packed(dev)

@@ -175,45 +175,35 @@ def test_block_sorted_kernel_auto():
     assert train.block_sorted_kernel_auto(bf16, None, "bfloat16") == "bfloat16"
 
 
-# flag -> the ROADMAP item it names (the ids keep the item's family; M12(b)'s are ported)
-UNPORTED = {"--multi-host": r"M12\(c\)", "--sharded-exchange": r"M12\(b\)",
-            "--exchange-capacity-factor": r"M12\(b\)", "--exchange-wire-dtype": r"M12\(b\)",
-            "--wire-cache": r"M12\(c\)", "--wire-format": r"M12\(c\)"}
-
-
 @pytest.mark.parametrize("flags,item", [
     (["--multi-host"], "M12"), (["--sharded-exchange", "alltoall"], "M12"),
     (["--exchange-capacity-factor", "1.5"], "M12"),
     (["--exchange-wire-dtype", "bfloat16"], "M12"), (["--wire-cache", "somewhere"], "M12"),
 ])
 def test_unported_train_flags_raise(flags, item, monkeypatch):
-    """On a mesh of two ranks (the flags raise before the process group
-    starts) each flag still unported names its part of M12; the exchange
-    flags, ported with M12(b), pass and reach the process group's start
-    (which needs torchrun's rendezvous here)."""
+    """On a mesh of two ranks every flag of M12 is ported: each passes and
+    reaches the process group's start, which raises here (it needs
+    torchrun's rendezvous); none names a ROADMAP item any more."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    if UNPORTED[flags[0]] == r"M12\(b\)":
-        with pytest.raises(RuntimeError, match="rendezvous"):
-            train.main(["--data-dir", "nowhere", "--num-users", "10", "--num-items", "10",
-                        "--device", "cpu", *flags])
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}.*{UNPORTED[flags[0]][3:]}"):
+    with pytest.raises(RuntimeError, match="rendezvous"):
         train.main(["--data-dir", "nowhere", "--num-users", "10", "--num-items", "10",
                     "--device", "cpu", *flags])
+    del item  # every part of M12 is ported
 
 
 def test_mesh_only_flags_need_a_mesh(monkeypatch):
-    """`--wire-format compact` raises on a mesh only (M12(c)); `--mesh-model`
-    above 1 without torchrun's ranks is refused; `--sharded-exchange dense`
-    is the ported exchange."""
+    """`--wire-format compact` on a mesh passes and reaches the process
+    group's start; `--mesh-model` above 1 without torchrun's ranks is
+    refused; `--batch-size` must split over a host's ranks."""
     argv = ["--data-dir", "nowhere", "--num-users", "10", "--num-items", "10", "--device", "cpu"]
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*M12\(c\)"):
+    with pytest.raises(RuntimeError, match="rendezvous"):
         train.main(argv + ["--wire-format", "compact"])
+    with pytest.raises(SystemExit, match="divisible by 2 ranks"):
+        train.main(argv + ["--batch-size", "5"])
     monkeypatch.delenv("WORLD_SIZE")
     with pytest.raises(SystemExit, match="mesh"):
         train.main(argv + ["--mesh-model", "2"])
-    train.refuse_unported(train.parse_args(argv + ["--sharded-exchange", "dense"]))
 
 
 def _last_state(directory):

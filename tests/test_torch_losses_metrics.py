@@ -85,11 +85,10 @@ def test_loss_fn_from_config_and_refusals():
     with pytest.raises(ValueError, match="type_weights"):
         losses.make_loss_fn("weighted_bce")
     assert callable(losses.make_loss_fn("sampled_softmax"))
-    with pytest.raises(NotImplementedError, match="M12"):
-        losses.make_loss_fn("sampled_softmax", mesh=object())
-    with pytest.raises(NotImplementedError, match="M12"):
-        losses.loss_fn_from_config(port_config.TrainConfig(loss="sampled_softmax"), mcfg,
-                                   sharded=True, mesh=object())
+    # the data-parallel softmax: built here, its collectives run at the call
+    assert callable(losses.make_loss_fn("sampled_softmax", mesh=object()))
+    assert callable(losses.loss_fn_from_config(port_config.TrainConfig(loss="sampled_softmax"),
+                                               mcfg, sharded=True, mesh=object()))
     with pytest.raises(ValueError, match="unknown loss"):
         losses.make_loss_fn("hinge")
 

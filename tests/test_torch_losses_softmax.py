@@ -246,5 +246,16 @@ def test_loss_fn_from_config_reads_the_softmax_fields():
         torch.from_numpy(q), torch.from_numpy(c), torch.from_numpy(labels), torch.from_numpy(ids),
         torch.from_numpy(log_q), temperature=0.5, implementation="off")
     assert got.item() == want.item()
-    with pytest.raises(NotImplementedError, match="M12"):
-        losses.sharded_in_batch_sampled_softmax(object())
+    # on a one-rank group the data-parallel softmax's stripe is the whole batch
+    from two_tower_recommender_model_tpu_torch.parallel import launch
+    from two_tower_recommender_model_tpu_torch.parallel.mesh import make_mesh
+
+    launch.initialize_distributed("cpu", 1, 0)
+    try:
+        loss = losses.sharded_in_batch_sampled_softmax(
+            make_mesh(1, 1), torch.from_numpy(q), torch.from_numpy(c),
+            torch.from_numpy(labels), torch.from_numpy(ids), torch.from_numpy(log_q),
+            temperature=0.5, implementation="off")
+    finally:
+        torch.distributed.destroy_process_group()
+    np.testing.assert_allclose(loss.item(), want.item(), rtol=1e-6)

@@ -426,20 +426,27 @@ def test_train_one_epoch_packed_of_an_empty_stream():
                                  "pad_to"])
 def test_the_packed_epochs_multi_device_arguments_wait(arg):
     """The packed epoch takes the reference's mesh arguments (on a mesh:
-    `test_torch_parallel_*.py`). What still waits is the reference's pytree
-    of per-leaf placements, and a compact macro-batch on a mesh (ROADMAP
-    M12(c))."""
+    `test_torch_parallel_*.py`), a placement pytree too (the compact wire
+    on a mesh: a `CompactBatch` of slicers); what is no placement raises."""
     state = types.SimpleNamespace(device=torch.device("cpu"), step=0)
     value = _WholeBatch() if arg.endswith("sharding") else 8
     _, stats = train_one_epoch_packed(state, None, [], None, **{arg: value})
     assert stats["train_steps"] == 0
     if arg.endswith("sharding"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.*M12\(c\)"):
+        with pytest.raises(TypeError, match="not a placement"):
+            train_one_epoch_packed(state, None, [], None, **{arg: {"ids_raw": 3}})
+        with pytest.raises(ValueError, match="no slicer"):
             train_one_epoch_packed(state, None, [], None, **{arg: {"ids_raw": None}})
-    if arg == "sharding":
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.*M12\(c\)"):
-            train_one_epoch_packed(state, None, [{}], lambda cols: _Wire(np.zeros((2, 8))),
-                                   macro=1, sharding=value)
+    if arg == "sharding":  # a compact macro-batch cut leaf by leaf, whole here
+        seen = []
+
+        def multi(s, mb):
+            seen.append(mb.wire.shape)
+            return s, {"loss": torch.zeros(1)}
+
+        _, stats = train_one_epoch_packed(state, multi, [{}], lambda cols: _Wire(
+            np.zeros((2, 8))), macro=1, sharding=_Wire(value))
+        assert seen == [(1, 2, 8)] and stats["train_examples"] == 8
 
 
 class _WholeBatch:

@@ -129,6 +129,34 @@ def test_the_parallel_tests_ranks_import_no_jax():
     assert not roots & _NOT_IMPORTED
 
 
+# the parallel tests whose port side runs on gloo ranks: a pool of
+# `torch_parallel_ranks` (JAX-free, above) or `cli.train` under torchrun
+_RANK_TESTS = ["tests/test_torch_parallel_step.py", "tests/test_torch_parallel_eval.py",
+               "tests/test_torch_parallel_cli.py", "tests/test_torch_parallel_alltoall.py",
+               "tests/test_torch_parallel_column.py", "tests/test_torch_parallel_int8.py",
+               "tests/test_torch_parallel_topk.py", "tests/test_torch_parallel_softmax.py",
+               "tests/test_torch_parallel_compact.py", "tests/test_torch_parallel_multihost.py"]
+
+
+def test_every_parallel_test_file_is_listed():
+    import glob
+
+    found = {os.path.relpath(f, _ROOT)
+             for f in glob.glob(os.path.join(_ROOT, "tests", "test_torch_parallel_*.py"))}
+    assert found - set(_RANK_TESTS) == {"tests/test_torch_parallel_planner.py"}
+
+
+@pytest.mark.parametrize("path", _RANK_TESTS)
+def test_parallel_tests_run_the_port_on_jax_free_ranks(path):
+    """Each file starts its ranks through `torch_parallel_ranks.RankPool` or
+    torchrun, so what runs on a rank imports no JAX, whatever the test's
+    own process does."""
+    with open(os.path.join(_ROOT, path)) as f:
+        src = f.read()
+    assert "ranks.RankPool(" in src or "torch.distributed.run" in src
+    assert "import torch_parallel_ranks as ranks" in src or "cli.train" in src
+
+
 @pytest.mark.parametrize("path", _CARD_TESTS)
 def test_card_tests_import_no_jax(path):
     roots = _import_roots(path)

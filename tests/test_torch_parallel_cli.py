@@ -8,7 +8,17 @@ a run stopped after its first epoch's checkpoint and resumed on two ranks
 equals the uninterrupted one bit for bit, and one rank resumes the two
 ranks' checkpoint. Two ranks also train through the all-to-all exchange and
 with int8 tables (each checkpointing and exporting), and a run whose
-exchange drops ids exits with the overflow error."""
+exchange drops ids exits with the overflow error.
+
+M12(c): on two ranks `--wire-format auto` takes the compact wire (each rank
+decodes its slice, the sorted user slot delta-encoded), which trains bit for
+bit as `--wire-format packed` and as `--wire-cache` (a generation an epoch,
+streamed in the loader's order); `--loss sampled_softmax` trains each rank's
+stripe of the score matrix and lands at the one-rank run's metrics (rtol
+1e-3 after four steps; see its test); `--multi-host` runs two
+torchrun nodes of one rank each on a small synthetic set
+(`tests/test_multihost.py:129`, `:390`): each host streams its own shards,
+the metrics are real numbers, and `--wire-cache` builds one cache a host."""
 
 import ast
 import os
@@ -40,7 +50,7 @@ def data_dir(tmp_path_factory):
 
 def _train(ranks, data_dir, work, *extra):
     """`cli.train` under torchrun with `ranks` CPU ranks: (rank 0's results
-    dict as printed, stdout)."""
+    dict as printed, stdout and then stderr)."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(ranks), "-m", "two_tower_recommender_model_tpu_torch.cli.train",
            "--data-dir", data_dir, "--num-users", str(USERS), "--num-items", str(ITEMS),
@@ -52,7 +62,7 @@ def _train(ranks, data_dir, work, *extra):
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-6000:]
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{'baseline_val_loss'")]
     assert len(lines) == 1, proc.stdout[-3000:]  # rank 0 prints, the others do not
-    return ast.literal_eval(lines[0]), proc.stdout
+    return ast.literal_eval(lines[0]), proc.stdout + proc.stderr
 
 
 @pytest.fixture(scope="module")
@@ -189,3 +199,132 @@ def test_a_tiny_capacity_factor_exits_with_the_overflow_error(data_dir, tmp_path
                           env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert proc.returncode != 0
     assert re.search(r"dropped \d+ distinct ids past", proc.stderr), proc.stderr[-3000:]
+
+
+def _assert_exports_equal(got_dir, want_dir):
+    got, want = _params(got_dir), _params(want_dir)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_two_ranks_compact_wire_trains_as_packed(runs, data_dir, tmp_path):
+    """The two-rank run's `auto` wire is the compact one, its user slot
+    delta-encoded; `--wire-format packed` ends in the same export bit for
+    bit, and so does `--wire-cache` with a generation an epoch (each built
+    by rank 0, streamed in the loader's order)."""
+    work, out = runs
+    assert "wire format: compact" in out["two"][1]
+    assert re.search(r"sorted-feature auto: user_id", out["two"][1])
+    packed, log = _train(2, data_dir, tmp_path / "p", "--epochs", "2", "--wire-format", "packed",
+                         "--export-dir", str(tmp_path / "p" / "export"))
+    assert "wire format: packed" in log
+    _assert_exports_equal(tmp_path / "p" / "export", work / "two" / "export")
+    cached, log = _train(2, data_dir, tmp_path / "c", "--epochs", "2", "--wire-cache",
+                         str(tmp_path / "wc"), "--wire-cache-generations", "2",
+                         "--export-dir", str(tmp_path / "c" / "export"))
+    assert log.count("wire cache built") == 2  # rank 0 builds each generation once
+    assert sorted(os.listdir(tmp_path / "wc")) == ["gen-0", "gen-1"]
+    _assert_exports_equal(tmp_path / "c" / "export", work / "two" / "export")
+    for key in ("val_loss", "test_loss", "train_loss"):
+        assert packed[key] == cached[key] == out["two"][0][key]
+
+
+def test_two_ranks_train_the_sampled_softmax_like_one(data_dir, tmp_path):
+    """`--loss sampled_softmax` on two ranks (each its [128, 256] stripe of
+    the score matrix, the logQ counts of the global batch) against one rank
+    on the same shards, four steps. The losses within rtol 1e-3: the
+    stripes' candidate gradients are summed in another f32 order than the
+    one-rank softmax's, and row-wise Adagrad at the flagship's sparse rate
+    0.1 moves a row whose gradients nearly cancel by lr x g / rms(g), where
+    that order shows (after four steps the val loss moved 1.0e-4 relative on
+    a CPU); the step itself is held at rtol 1e-5 by
+    `test_torch_parallel_softmax.py`."""
+    got = {}
+    for ranks in (2, 1):
+        got[ranks], _ = _train(ranks, data_dir, tmp_path / str(ranks), "--epochs", "1",
+                               "--loss", "sampled_softmax", "--limit-train-batches", "4",
+                               "--limit-val-batches", "4", "--limit-test-batches", "4")
+    for key in ("baseline_val_loss", "val_loss", "test_loss", "train_loss"):
+        np.testing.assert_allclose(got[2][key], got[1][key], rtol=1e-3, err_msg=key)
+        assert np.isfinite(got[2][key])
+
+
+@pytest.fixture(scope="module")
+def small_data(tmp_path_factory):
+    """The reference's multi-host set: 2,000 train rows in shards of 256,
+    400 val and 400 test rows (`test_multihost.py:135`)."""
+    from two_tower_recommender_model_tpu_torch.data.shards import write_dataset
+    from two_tower_recommender_model_tpu_torch.data.synthetic import SyntheticClickstream
+
+    d = tmp_path_factory.mktemp("multihost")
+    ds = SyntheticClickstream(60, 40, seed=1)
+    for split, n in (("train", 2000), ("val", 400), ("test", 400)):
+        write_dataset(str(d / split), ds.sample(n, split), rows_per_shard=256)
+    return str(d)
+
+
+def _two_hosts(data_dir, work, *extra):
+    """`cli.train --multi-host` as two torchrun nodes of one rank each on
+    one host (127.0.0.1): each node's stdout and stderr."""
+    port = str(_free_port())
+    procs = []
+    for node in range(2):
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "2", "--node-rank",
+               str(node), "--nproc-per-node", "1", "--master-addr", "127.0.0.1",
+               "--master-port", port, "-m", "two_tower_recommender_model_tpu_torch.cli.train",
+               "--data-dir", data_dir, "--num-users", "61", "--num-items", "41",
+               "--batch-size", "64", "--embedding-dim", "8", "--layer-sizes", "16", "8",
+               "--limit-val-batches", "2", "--limit-test-batches", "2", "--multi-host",
+               "--runs-root", str(work / f"runs{node}"), "--device", "cpu", *extra]
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True, env={**os.environ, "OMP_NUM_THREADS": "1"}))
+    outs = []
+    for p in procs:
+        out, err = p.communicate(timeout=TIMEOUT_S)
+        assert p.returncode == 0, out[-3000:] + err[-6000:]
+        outs.append((out, err))
+    return outs
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _finite_results(stdout):
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("{'baseline_val_loss'")]
+    assert len(lines) == 1, stdout[-2000:]
+    result = ast.literal_eval(lines[0])
+    for key in ("baseline_val_auroc", "val_loss", "val_auroc", "test_loss", "test_auroc"):
+        assert np.isfinite(result[key]), (key, result)
+    return result
+
+
+def test_cli_multihost_two_hosts(small_data, tmp_path):
+    """`--multi-host` over two nodes: the hosts' disjoint streams make the
+    global batches, rank 0 prints the plan and real metrics (every host's
+    eval batches padded to the batch size and run to the longest host's
+    count), the other rank prints nothing."""
+    (out0, err0), (out1, _) = _two_hosts(small_data, tmp_path, "--epochs", "1",
+                                         "--limit-train-batches", "8")
+    assert "EmbeddingShardingPlan over 2 device(s)" in out0 and "EmbeddingShardingPlan" not in out1
+    result = _finite_results(out0)
+    assert result["train_examples"] == 8 * 2 * 64  # each step the two hosts' batches
+    assert "sorted-feature auto: None" in err0 and "wire format: packed" in err0
+
+
+def test_cli_multihost_wire_cache(small_data, tmp_path):
+    """`--multi-host --wire-format compact --wire-cache`: each host encodes
+    its own loader slice into its own cache (`host-{i}-of-2`), its user slot
+    sorted and delta-encoded as one of two segments, and the epochs train
+    the fewest batches of the hosts' caches."""
+    (out0, err0), _ = _two_hosts(small_data, tmp_path, "--epochs", "2", "--wire-format",
+                                 "compact", "--wire-cache", str(tmp_path / "wc"))
+    for host in (0, 1):
+        assert os.path.exists(tmp_path / "wc" / f"host-{host}-of-2" / "gen-0" / "meta.json")
+    assert "wire cache built" in err0 and "multi-host delta wire" in err0
+    assert _finite_results(out0)["train_steps"] > 0

@@ -413,7 +413,9 @@ def test_block_kernel_requires_row_sharded():
 def test_m12b_and_m12c_configurations_raise(what):
     """What the sharded path refuses (as the reference does: an int8 table
     cut by columns, a column-sharded host-sorted table, an exchange that is
-    neither dense nor alltoall) or does not have yet (M12(c)) raises."""
+    neither dense nor alltoall, a placement pytree without a slicer, a
+    delta wire across hosts with another segment count) raises; what M12(c)
+    brought builds (the sampled softmax's step) or cuts (a host's batch)."""
     opt = port_step.opt_lib.dense_optimizer(1e-3)
     if what == "int8-table":
         mcfg, plan = _plan({"t_user_id": "column_sharded", "t_product_id": REP},
@@ -434,18 +436,27 @@ def test_m12b_and_m12c_configurations_raise(what):
                 mcfg, port_config.TrainConfig(sharded_exchange="ring"), opt, _Mesh(), plan)
     elif what == "sampled-softmax":
         mcfg, plan = _plan({"t_user_id": ROW, "t_product_id": REP})
-        with pytest.raises(NotImplementedError, match=r"M12\(c\)"):
-            port_sharded.make_sharded_train_step(
-                mcfg, port_config.TrainConfig(loss="sampled_softmax"), opt, _Mesh(), plan)
+        assert callable(port_sharded.make_sharded_train_step(
+            mcfg, port_config.TrainConfig(loss="sampled_softmax"), opt, _Mesh(), plan))
     elif what == "compact-wire":
+        from two_tower_recommender_model_tpu_torch.data.compact import CompactScheme
         from two_tower_recommender_model_tpu_torch.train.pipeline import device_put_batch
 
-        with pytest.raises(NotImplementedError, match=r"M12\(c\)"):
+        with pytest.raises(ValueError, match="no slicer"):
             device_put_batch({"x": np.zeros(4)}, sharding={"x": None})
+        mcfg, _ = _plan({"t_user_id": ROW, "t_product_id": REP})
+        scheme = CompactScheme.from_model(mcfg, delta_feature="user_id")
+        with pytest.raises(ValueError, match="delta_segments=2"):
+            port_sharded.sharded_compact_decoder(mcfg, scheme, _Mesh(), hosts=2)
+        with pytest.raises(ValueError, match="must divide by data axis 4"):
+            port_sharded.compact_shardings(_Mesh(), scheme, batch_size=6)
     else:
         from two_tower_recommender_model_tpu_torch.parallel import launch
 
-        with pytest.MonkeyPatch.context() as m:
-            m.setattr(launch, "host_info", lambda: {"num_hosts": 2})
-            with pytest.raises(NotImplementedError, match=r"M12\(c\)"):
-                launch.put_global_batch({"x": np.zeros(4)}, _Mesh())
+        with pytest.MonkeyPatch.context() as m:  # rank 2 of 4: host 1's first data slice
+            m.setattr(launch, "host_info", lambda: {
+                "num_hosts": 2, "local_devices": 2, "process_count": 4, "host_index": 1})
+            mesh = _Mesh()
+            mesh.rank = mesh.d = 2
+            got = launch.put_global_batch({"x": np.arange(4)}, mesh)
+            np.testing.assert_array_equal(got["x"].numpy(), [0, 1])

@@ -4,7 +4,9 @@ the all-to-all exchange's routing, pre-aggregation (#3), the owner's rows
 (#1 at one slot) and update (#4 after the device sort), the column slice's
 update (#3 and the epilogue), and the int8 shards' partial pools (#5) and
 updates (#6, after the device sort, and on the host-sorted shard's local ids
-as they are, with and without the bf16 buffer). This file imports no JAX,
+as they are, with and without the bf16 buffer); the data-parallel softmax's
+four stripes through #9, #10 and #11 at their row offsets; the sharded
+top-k's merge of four shards by hand. This file imports no JAX,
 so it runs where the card is:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_shard_local_cuda.py
@@ -15,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from two_tower_recommender_model_tpu_torch.ops import softmax_kernel as sk
 from two_tower_recommender_model_tpu_torch.ops.adagrad_kernel import (
     block_sorted_aggregate,
     rowwise_adagrad,
@@ -26,6 +29,7 @@ from two_tower_recommender_model_tpu_torch.ops.quantized_kernel import (
     quantized_pooled_gather,
     quantized_rowwise_adagrad_fused,
 )
+from two_tower_recommender_model_tpu_torch.ops.topk import chunked_topk
 from two_tower_recommender_model_tpu_torch.parallel import sharded
 from two_tower_recommender_model_tpu_torch.train import optimizer as opt_lib
 
@@ -218,3 +222,77 @@ def test_int8_shard_updates_match_cpu(dev, route):
         assert torch.equal(got[0][torch.from_numpy(outside)], torch.from_numpy(values[outside]))
     torch.testing.assert_close(dequantize_rows(*out[1][:2]), dequantize_rows(*out[0][:2]),
                                rtol=0, atol=1.01 * float(out[0][1].max()) / 127)
+
+
+def _within(got, want, rel, what):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= rel * want.float().abs().max().item(), f"{what}: {err}"
+
+
+@pytest.mark.cuda
+def test_softmax_stripes_match_plain_and_the_whole_batch(dev):
+    """Four data-parallel stripes of a [2,048, 2,048] batch, [512, 2,048]
+    each at row offsets 0, 512, 1,024 and 1,536, through #9, #10 and #11
+    against their plain versions at `[kernel]`'s bars (lse rtol 2e-5, dq
+    and dc within 1e-3 x max); the stripes' lse are the whole batch's rows,
+    their dc summed is the whole batch's dc (1e-3 x max), and their (num,
+    den) summed is the whole batch's (rtol 1e-5)."""
+    rng = np.random.default_rng(11)
+    bk, bq, d, inv_t = 2048, 512, 64, 1.25
+    q16 = torch.from_numpy(rng.normal(size=(bk, d)).astype(np.float32)).to(dev, torch.bfloat16)
+    c16 = torch.from_numpy(rng.normal(size=(bk, d)).astype(np.float32)).to(dev, torch.bfloat16)
+    ids = torch.from_numpy(rng.integers(1, 300, bk).astype(np.int32)).to(dev)
+    adj = torch.from_numpy(rng.normal(size=bk).astype(np.float32)).to(dev)
+    labels = torch.from_numpy((rng.random(bk) < 0.7).astype(np.float32)).to(dev)
+    g = labels / labels.sum()
+    whole = (q16, c16, adj, ids, ids, 0, inv_t)
+    lse_all = sk.lse_forward_reference(*whole)
+    dc_all = sk.lse_backward_reference(*whole, lse_all, g)[1]
+    dc_sum = torch.zeros_like(dc_all)
+    for off in range(0, bk, bq):
+        args = (q16[off:off + bq].contiguous(), c16, adj, ids[off:off + bq].contiguous(), ids,
+                off, inv_t)
+        before = [k.launches for k in (sk.softmax_lse_fwd, sk.softmax_lse_dq, sk.softmax_lse_dc)]
+        lse = sk.softmax_lse_fwd(*args)
+        want = sk.lse_forward_reference(*args)
+        torch.testing.assert_close(lse, want, rtol=2e-5, atol=1e-5)
+        torch.testing.assert_close(lse, lse_all[off:off + bq], rtol=2e-5, atol=1e-5)
+        dq = sk.softmax_lse_dq(*args, want, g[off:off + bq].contiguous())
+        dc = sk.softmax_lse_dc(*args, want, g[off:off + bq].contiguous())
+        want_dq, want_dc = sk.lse_backward_reference(*args, want, g[off:off + bq].contiguous())
+        assert [k.launches for k in (sk.softmax_lse_fwd, sk.softmax_lse_dq, sk.softmax_lse_dc)] \
+            == [n + 1 for n in before]
+        _within(dq, want_dq, 1e-3, f"dq at {off}")
+        _within(dc, want_dc, 1e-3, f"dc at {off}")
+        dc_sum += dc
+    _within(dc_sum, dc_all, 1e-3, "the stripes' dc summed")
+    num = den = 0.0
+    for off in range(0, bk, bq):
+        n, m = sk.sampled_softmax_fused_parts(
+            q16[off:off + bq].float(), c16.float(), labels[off:off + bq], ids[off:off + bq],
+            ids, adj, 1 / inv_t, row_offset=off)
+        num, den = num + n.item(), den + m.item()
+    n, m = sk.sampled_softmax_fused_parts(q16.float(), c16.float(), labels, ids, ids, adj,
+                                          1 / inv_t)
+    np.testing.assert_allclose([num, den], [n.item(), m.item()], rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_sharded_topk_merge_matches_one_device(dev):
+    """Four shards of a 10,001-row corpus (the last padded by three rows,
+    masked by `valid`), each shard's candidates (`topk_shard_candidates`)
+    merged by hand (`topk_merge`): the one-device `chunked_topk`'s rows and
+    scores, the scores within rtol 1e-6 (the same products, other chunks)."""
+    rng = np.random.default_rng(12)
+    corpus = torch.from_numpy(rng.normal(size=(10001, 64)).astype(np.float32)).to(dev)
+    queries = torch.from_numpy(rng.normal(size=(16, 64)).astype(np.float32)).to(dev)
+    want_vals, want_idx = chunked_topk(queries, corpus, k=100)
+    rows = -(-corpus.shape[0] // WORLD)
+    padded = torch.zeros((WORLD * rows, 64), device=dev)
+    padded[:corpus.shape[0]] = corpus
+    parts = [sharded.topk_shard_candidates(queries, padded[r * rows:(r + 1) * rows], 100, 4096,
+                                           r, corpus.shape[0]) for r in range(WORLD)]
+    vals, idx = sharded.topk_merge(torch.stack([p[0] for p in parts]),
+                                   torch.stack([p[1] for p in parts]), 100)
+    assert torch.equal(idx, want_idx)
+    torch.testing.assert_close(vals, want_vals, rtol=1e-6, atol=0)

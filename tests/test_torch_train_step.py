@@ -287,17 +287,23 @@ def test_unsorted_ids_for_the_sorted_table_are_refused():
     lambda m, t: ({"t": dataclasses.replace(t, loss="sampled_softmax")}, "sharded loss"),
 ])
 def test_features_not_ported_raise(make):
+    """`device_sorted_gather` still waits (ROADMAP); the packed epoch's
+    multi-device placement and the data-parallel softmax are ported: a
+    placement must be a slicer or a pytree of them, and the sharded loss
+    builds (its collectives run at the call)."""
     _, _, pcfg, ptcfg = _configs("float32", "off", "float32")
     change, where = make(pcfg, ptcfg)
     mcfg, tcfg = change.get("m", pcfg), change.get("t", ptcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if where == "packed sharding":  # the packed epoch's multi-device placement
+    if where == "packed sharding":  # the packed epoch's multi-device placement
+        with pytest.raises(TypeError, match="not a placement"):
             train_one_epoch_packed(None, None, [], None, sharding=object())
-        elif where == "sharded loss":  # the data-parallel softmax waits for the mesh
-            port_losses.loss_fn_from_config(tcfg, mcfg, sharded=True, mesh=object())
-        else:
+    elif where == "sharded loss":  # the data-parallel softmax, built for a mesh
+        assert callable(port_losses.loss_fn_from_config(tcfg, mcfg, sharded=True,
+                                                        mesh=object()))
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             port_step.make_train_step(mcfg, tcfg, port_opt.dense_optimizer(1e-3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="not a placement"):
         device_put_batch({}, "cpu", sharding=object())
 
 

@@ -150,6 +150,7 @@ def state_numpy(state) -> dict:
                     "kernel": opt.state[layer.weight][name].numpy().T.copy(),
                     "bias": opt.state[layer.bias][name].numpy().copy()}
     out["step"] = state.step
+    out["item_counts"] = None if state.item_counts is None else state.item_counts.numpy().copy()
     return out
 
 
@@ -327,3 +328,200 @@ def batch_numpy(batch) -> dict:
     return {"features": {k: (a(f.ids), a(f.mask)) for k, f in batch.features.items()},
             "labels": a(batch.labels), "weights": a(batch.weights), "dense": a(batch.dense)}
 
+
+
+# ---------------------------------------------------------------------------
+# M12(c): sharded top-k and retrieval, the compact wire on a mesh, several hosts
+
+
+def topk_ranks(corpus, queries, k, chunk, mesh_shape):
+    """`make_sharded_topk` over `corpus` cut by `shard_corpus` (padded to a
+    multiple of the ranks, the real rows passed as `valid`): every rank's
+    (scores, rows)."""
+    import torch
+
+    from two_tower_recommender_model_tpu_torch.parallel.sharded import (
+        make_sharded_topk,
+        shard_corpus,
+    )
+
+    mesh = mesh_of(mesh_shape)
+    if mesh is None:
+        return None
+    shard, n = shard_corpus(torch.from_numpy(corpus), mesh)
+    vals, idx = make_sharded_topk(mesh, k, chunk)(torch.from_numpy(queries), shard, valid=n)
+    return vals.numpy(), idx.numpy()
+
+
+def retrieval_ranks(cfg, params, users, ks, mesh_shape, params2=None, k2=5):
+    """`RetrievalService(mesh=)` on every rank: (items, scores) for each k of
+    `ks`, then after `refresh(params2)` at `k2`."""
+    from two_tower_recommender_model_tpu_torch import config as port_config
+    from two_tower_recommender_model_tpu_torch.models.two_tower import params_from_numpy
+    from two_tower_recommender_model_tpu_torch.serving.retrieval_service import RetrievalService
+
+    mesh = mesh_of(mesh_shape)
+    if mesh is None:
+        return None
+    pcfg = port_config.model_config_from_dict(cfg)
+    svc = RetrievalService(params_from_numpy(params, pcfg, "cpu"), mesh=mesh)
+    out = [svc.retrieve(users, k) for k in ks]
+    if params2 is not None:
+        svc.refresh(params_from_numpy(params2, pcfg, "cpu"))
+        out.append(svc.retrieve(users, k2))
+    return out
+
+
+class _hosts:
+    """torchrun's view of `n` hosts of equal ranks (`GROUP_RANK`,
+    `LOCAL_WORLD_SIZE`), set in this rank's environment for a task."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __enter__(self):
+        import os
+
+        import torch.distributed as dist
+
+        world, rank = dist.get_world_size(), dist.get_rank()
+        local = world // self.n
+        self.saved = {k: os.environ.get(k) for k in ("GROUP_RANK", "LOCAL_WORLD_SIZE",
+                                                    "LOCAL_RANK")}
+        os.environ.update(GROUP_RANK=str(rank // local), LOCAL_WORLD_SIZE=str(local),
+                          LOCAL_RANK=str(rank % local))
+        return self
+
+    def __exit__(self, *exc):
+        import os
+
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _compact_scheme(pcfg, delta_feature, segments=1):
+    from two_tower_recommender_model_tpu_torch.data.compact import CompactScheme
+
+    return CompactScheme.from_model(pcfg, pack_label=True, delta_feature=delta_feature,
+                                    delta_segments=segments)
+
+
+def _compact_featurizer(pcfg, scheme):
+    from two_tower_recommender_model_tpu_torch.data.compact import CompactFeaturizer
+    from two_tower_recommender_model_tpu_torch.data.device_featurizer import PackedFeaturizer
+
+    return CompactFeaturizer(PackedFeaturizer(pcfg, pack_label=True,
+                                              sort_feature=scheme.delta_feature), scheme)
+
+
+def compact_steps(cfg, tcfg, start, columns, mesh_shape, force, delta_feature=None):
+    """The compact wire on the mesh: the K batches of `columns` encoded
+    (host-sorted and delta-encoded by `delta_feature`), placed leaf by leaf
+    (`compact_shardings`) and trained as one `make_sharded_compact_multi_step`
+    call; and each batch's slices decoded (`sharded_compact_decoder`),
+    gathered over data, against the one-device decode of the whole batch.
+    Rank 0 returns {"losses", "state", "decoded_equal"}; the others None."""
+    import torch
+
+    from two_tower_recommender_model_tpu_torch.data.compact import batch_from_compact
+    from two_tower_recommender_model_tpu_torch.parallel.sharded import (
+        _all_gather,
+        compact_shardings,
+        make_sharded_compact_multi_step,
+        sharded_compact_decoder,
+        unshard_train_state,
+    )
+    from two_tower_recommender_model_tpu_torch.train.pipeline import device_put_batch, map_leaves
+    from two_tower_recommender_model_tpu_torch.train.step import stack_batches
+
+    setup = _sharded_setup(cfg, tcfg, start, mesh_shape, force)
+    if setup is None:
+        return None
+    mesh, pcfg, ptcfg, plan, sh, opt = setup
+    scheme = _compact_scheme(pcfg, delta_feature)
+    cf = _compact_featurizer(pcfg, scheme)
+    encoded = [cf(c) for c in columns]
+    placement = compact_shardings(mesh, scheme, encoded[0].batch_size)
+    decode = sharded_compact_decoder(pcfg, scheme, mesh)
+    equal = True
+    for cb in encoded:
+        got = decode(device_put_batch(cb, sharding=placement))
+        want = batch_from_compact(map_leaves(cb, lambda t: t), pcfg, scheme)
+        for name, f in want.features.items():
+            for a, b in ((got.features[name].ids, f.ids), (got.features[name].mask, f.mask)):
+                equal &= torch.equal(_all_gather(a.contiguous(), mesh.data_group, mesh.data), b)
+        equal &= torch.equal(_all_gather(got.labels, mesh.data_group, mesh.data), want.labels)
+    multi = make_sharded_compact_multi_step(pcfg, ptcfg, opt, mesh, plan, scheme)
+    sh, out = multi(sh, device_put_batch(stack_batches(encoded), sharding=placement))
+    full = unshard_train_state(sh, plan, pcfg, mesh, dst=0)
+    torch.distributed.barrier(group=mesh.group)
+    if mesh.rank:
+        return None
+    return {"losses": out["loss"].float().tolist(), "state": state_numpy(full),
+            "decoded_equal": bool(equal)}
+
+
+def multihost_steps(cfg, tcfg, start, columns, force, hosts, route, mesh_shape=(4, 1)):
+    """`hosts` hosts of equal ranks (`_hosts`), each host featurizing its own
+    slice of every batch of `columns` (host h: rows [h * B / hosts, (h + 1)
+    * B / hosts)), as the reference's multi-host workers do: `route` "step"
+    (`put_global_batch` into the sharded step), "packed" (one macro-batch,
+    `macro_batch_sharding(mesh, hosts)`), "compact" or "delta" (the compact
+    wire, `compact_shardings(..., hosts)`; "delta" sorts each host's batch by
+    user and encodes it as one of `hosts` segments). Rank 0 returns {"losses",
+    "state"}; the others None."""
+    import torch
+
+    from two_tower_recommender_model_tpu_torch.data.device_featurizer import PackedFeaturizer
+    from two_tower_recommender_model_tpu_torch.data.featurizer import Featurizer
+    from two_tower_recommender_model_tpu_torch.parallel import launch
+    from two_tower_recommender_model_tpu_torch.parallel.sharded import (
+        compact_shardings,
+        macro_batch_sharding,
+        make_sharded_compact_multi_step,
+        make_sharded_multi_step,
+        make_sharded_train_step,
+        unshard_train_state,
+    )
+    from two_tower_recommender_model_tpu_torch.train.pipeline import device_put_batch
+    from two_tower_recommender_model_tpu_torch.train.step import stack_batches
+
+    setup = _sharded_setup(cfg, tcfg, start, mesh_shape, force)
+    if setup is None:
+        return None
+    mesh, pcfg, ptcfg, plan, sh, opt = setup
+    with _hosts(hosts):
+        h, n = launch.per_host_loader_slice()
+        assert n == hosts and launch.mesh_hosts(mesh) == hosts
+        local = []
+        for cols in columns:
+            b = len(next(iter(cols.values()))) // n
+            local.append({k: v[h * b:(h + 1) * b] for k, v in cols.items()})
+        losses = []
+        if route == "step":
+            step = make_sharded_train_step(pcfg, ptcfg, opt, mesh, plan)
+            feat = Featurizer(pcfg, device="cpu")
+            for cols in local:
+                sh, out = step(sh, launch.put_global_batch(feat(cols), mesh))
+                losses.append(out["loss"].float().item())
+        elif route == "packed":
+            multi = make_sharded_multi_step(pcfg, ptcfg, opt, mesh, plan)
+            pf = PackedFeaturizer(pcfg, pack_label=True)
+            mb = stack_batches([pf(c) for c in local])
+            sh, out = multi(sh, device_put_batch(mb, sharding=macro_batch_sharding(mesh, n)))
+            losses = out["loss"].float().tolist()
+        else:
+            scheme = _compact_scheme(pcfg, "user_id" if route == "delta" else None,
+                                     n if route == "delta" else 1)
+            cf = _compact_featurizer(pcfg, scheme)
+            mb = stack_batches([cf(c) for c in local])
+            placement = compact_shardings(mesh, scheme, mb.wire.shape[-1], n)
+            multi = make_sharded_compact_multi_step(pcfg, ptcfg, opt, mesh, plan, scheme, n)
+            sh, out = multi(sh, device_put_batch(mb, sharding=placement))
+            losses = out["loss"].float().tolist()
+    full = unshard_train_state(sh, plan, pcfg, mesh, dst=0)
+    torch.distributed.barrier(group=mesh.group)
+    return None if mesh.rank else {"losses": losses, "state": state_numpy(full)}

@@ -28,16 +28,26 @@ one CUDA graph of `--macro-batches` sharded steps; f32, bf16 and int8 tables
 (`--table-dtype`), and the all-to-all exchange for the row-sharded float
 tables the host does not sort (`--sharded-exchange alltoall`,
 `--exchange-capacity-factor`, `--exchange-wire-dtype`; an epoch or an eval
-that dropped ids past the capacity raises). The sorted feature's auto
-choice turns itself off where the plan puts its table where the sorted
-paths do not go. Rank 0 logs, saves the checkpoint of the unsharded state
-(any mesh, or one device, restores it) and exports it. On a mesh
-`--wire-format auto` resolves to packed (compact batches train bit for bit
-as packed ones; only the link's bytes differ).
+that dropped ids past the capacity raises), the sampled softmax (each rank
+its stripe of the score matrix), and the compact wire (each rank decodes its
+slice; `auto` picks it when the batch splits into groups of 8 a rank, on
+one host) with `--wire-cache` (the host's first rank builds it). The sorted
+feature's auto choice turns itself off where the plan puts its table where
+the sorted paths do not go. Rank 0 logs, saves the checkpoint of the
+unsharded state (any mesh, or one device, restores it) and exports it.
 
-Flags whose modules are not ported yet raise, naming their ROADMAP item:
-`--multi-host`, `--wire-format compact` and `--wire-cache` on a mesh
-(M12(c)).
+`--multi-host` under torchrun over several nodes (`--nnodes`): each host
+streams its own slice of the shards (`--batch-size` is a host's batch; the
+global batch is the hosts' batches), every rank keeps its data slice of its
+host's batch (`parallel.launch.put_global_batch`), the evals pad every batch
+to the batch size and run every host to the longest host's count, the
+sorted feature is off (a host sorts only its own batch; the compact wire
+still delta-encodes each host's batch as one segment), and the wire cache
+is one a host (`DIR/host-{i}-of-{n}`):
+
+    python -m torch.distributed.run --nnodes 2 --node-rank 0 --nproc-per-node 4 \
+        --master-addr HOST0 --master-port 29500 \
+        -m two_tower_recommender_model_tpu_torch.cli.train --multi-host --data-dir ...
 """
 
 from __future__ import annotations
@@ -79,11 +89,14 @@ from two_tower_recommender_model_tpu_torch.parallel.mesh import make_mesh, topol
 from two_tower_recommender_model_tpu_torch.parallel.sharded import (
     alltoall_tables,
     batch_sharding,
+    compact_shardings,
     macro_batch_sharding,
+    make_sharded_compact_multi_step,
     make_sharded_eval_step,
     make_sharded_multi_step,
     make_sharded_train_step,
     shard_train_state,
+    sharded_compact_decoder,
     unshard_train_state,
 )
 from two_tower_recommender_model_tpu_torch.train.loop import (
@@ -103,12 +116,6 @@ from two_tower_recommender_model_tpu_torch.utils.checkpoint import Checkpointer,
 from two_tower_recommender_model_tpu_torch.utils.tracking import ExperimentLogger
 
 log = logging.getLogger(__name__)
-
-# flag -> (the value that means "not asked for", the ROADMAP item it waits for)
-_UNPORTED = {
-    "multi_host": (False, "M12(c), per-host loader slices"),
-}
-
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="python -m two_tower_recommender_model_tpu_torch.cli.train",
@@ -188,9 +195,10 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                     default="float32",
                     help="alltoall: the rows' and gradients' dtype on the wire (bfloat16 "
                          "rounds them once)")
-    # not ported yet: raises when given
     ap.add_argument("--multi-host", action="store_true",
-                    help="not ported yet (ROADMAP M12(c))")
+                    help="torchrun over several hosts: each host streams its own slice of "
+                         "the shards at --batch-size a host, the global batch the hosts' "
+                         "batches")
     ap.add_argument("--wire-cache", default=None, metavar="DIR",
                     help="pre-encoded batch cache (data/wirecache.py): built on first use "
                          "from the loader's order, reused after; an epoch's host work drops "
@@ -215,25 +223,6 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def refuse_unported(args: argparse.Namespace) -> None:
-    """Raise for a flag whose module the port does not have yet."""
-    for name, (unset, item) in _UNPORTED.items():
-        if getattr(args, name) != unset:
-            raise NotImplementedError(f"--{name.replace('_', '-')} is not ported to the PyTorch "
-                                      f"package yet (ROADMAP.md Queue 1, {item})")
-
-
-def refuse_unported_on_mesh(args: argparse.Namespace) -> None:
-    """Raise for a flag the mesh path does not have yet."""
-    if args.wire_format == "compact":
-        raise NotImplementedError("--wire-format compact on a mesh is not ported to the "
-                                  "PyTorch package yet (ROADMAP.md Queue 1, M12(c)): packed "
-                                  "batches train the same")
-    if args.wire_cache:
-        raise NotImplementedError("--wire-cache on a mesh is not ported to the PyTorch package "
-                                  "yet (ROADMAP.md Queue 1, M12(c))")
-
-
 def block_sorted_kernel_auto(mcfg: cfg_lib.ModelConfig, sorted_feature: str | None,
                              compute_dtype: str) -> str:
     """The port's `--block-sorted-kernel auto`: the kernels wherever the
@@ -245,13 +234,16 @@ def block_sorted_kernel_auto(mcfg: cfg_lib.ModelConfig, sorted_feature: str | No
     return "bfloat16" if compute_dtype == "bfloat16" else "float32"
 
 
-def open_wire_caches(args: argparse.Namespace, train_loader: StreamLoader,
-                     featurizer) -> tuple[list[WireCache], list[dict]]:
-    """`--wire-cache`: each generation's cache (DIR/gen-N), built from the
-    loader's epoch N when it is missing, opened with the run's scheme, batch
-    size and dataset fingerprint. Returns the caches and, for each, its
-    directory, whether this run built it, the build's seconds, its bytes and
-    batch counts."""
+def open_wire_caches(args: argparse.Namespace, train_loader: StreamLoader, featurizer,
+                     host_index: int = 0, num_hosts: int = 1
+                     ) -> tuple[list[WireCache], list[dict]]:
+    """`--wire-cache`: each generation's cache (DIR/gen-N, across hosts
+    DIR/host-{i}-of-{n}/gen-N from the host's own loader slice), built from
+    the loader's epoch N when it is missing, by the host's first rank while
+    its other ranks wait, opened with the run's scheme, batch size and
+    dataset fingerprint. Returns the caches and, for each, its directory,
+    whether this run built it, the build's seconds, its bytes and batch
+    counts."""
     scheme = getattr(featurizer, "scheme", None)
     if scheme is None:
         raise SystemExit("--wire-cache requires the compact wire format "
@@ -263,17 +255,25 @@ def open_wire_caches(args: argparse.Namespace, train_loader: StreamLoader,
         "total_rows": train_loader.dataset.index.get("total_rows"),
         "num_shards": len(train_loader.dataset.index.get("shards", [])),
     }
+    root = args.wire_cache
+    if num_hosts > 1:
+        root = os.path.join(root, f"host-{host_index}-of-{num_hosts}")
+    # every rank of a host streams the same batches: its first rank builds, the rest wait
+    first_rank = int(os.environ.get("LOCAL_RANK", "0")) == 0
+    distributed = torch.distributed.is_initialized()
     caches, info = [], []
     for g in range(max(1, args.wire_cache_generations)):
-        gdir = os.path.join(args.wire_cache, f"gen-{g}")
+        gdir = os.path.join(root, f"gen-{g}")
         built, seconds = False, 0.0
-        if not os.path.exists(os.path.join(gdir, "meta.json")):
+        if first_rank and not os.path.exists(os.path.join(gdir, "meta.json")):
             train_loader.set_epoch(g)
             t0 = time.perf_counter()
             meta = build_wire_cache(gdir, train_loader, featurizer, fingerprint=fingerprint)
             built, seconds = True, time.perf_counter() - t0
             log.info("wire cache built: %d batches (%d tail rows dropped) -> %s in %.2f s",
                      meta["num_batches"], meta["dropped_tail_rows"], gdir, seconds)
+        if distributed:
+            torch.distributed.barrier()
         try:
             cache = WireCache(gdir, scheme=scheme, seed=args.seed, batch_size=args.batch_size,
                               fingerprint=fingerprint)
@@ -303,18 +303,18 @@ def main(argv: list[str] | None = None) -> dict:
     save's step, epoch, seconds and bytes), "wire_format" (the packed path's
     "packed" or "compact", None on --no-packed), "wire_cache"
     (`open_wire_caches`'s per-generation facts, or None), "rank" and "mesh"
-    ({"data", "model", "plan"} on the mesh path, else None)}."""
+    ({"data", "model", "hosts", "plan"} on the mesh path, else None)}."""
     args = parse_args(argv)
-    refuse_unported(args)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     world = int(os.environ.get("WORLD_SIZE", "1"))
     sharded = world > 1 and not args.no_shard
     if args.mesh_model != 1 and not sharded:
         raise SystemExit("--mesh-model needs a mesh: run data x model ranks under torchrun")
     if sharded:
-        refuse_unported_on_mesh(args)
-        if args.batch_size % world:
-            raise SystemExit(f"--batch-size {args.batch_size} must be divisible by {world} "
+        # a host's batch splits over its ranks (the whole mesh's on one host)
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", world)) if args.multi_host else world
+        if args.batch_size % local:
+            raise SystemExit(f"--batch-size {args.batch_size} must be divisible by {local} "
                              "ranks")
         device = launch.initialize_distributed(args.device)
         try:
@@ -326,6 +326,9 @@ def main(argv: list[str] | None = None) -> dict:
 
 def _main(args: argparse.Namespace, device: torch.device, mesh) -> dict:
     rank0 = mesh is None or mesh.rank == 0
+    # --multi-host: this host's slice of the shards, and the hosts the mesh spans
+    host_index, num_hosts = launch.per_host_loader_slice() if args.multi_host else (0, 1)
+    hosts = 1 if mesh is None else launch.mesh_hosts(mesh) if args.multi_host else 1
     mcfg = cfg_lib.two_tower_model_config(
         num_users=args.num_users, num_items=args.num_items, embedding_dim=args.embedding_dim,
         layer_sizes=tuple(args.layer_sizes), compute_dtype=args.compute_dtype)
@@ -335,12 +338,14 @@ def _main(args: argparse.Namespace, device: torch.device, mesh) -> dict:
     if sorted_feature == "off":
         sorted_feature = None
     elif sorted_feature == "auto":
-        sorted_feature = auto_sorted_feature(mcfg) if not args.no_packed else None
+        # across hosts a host sorts only its own batch: the sorted paths need the global one
+        sorted_feature = (auto_sorted_feature(mcfg) if not args.no_packed and num_hosts == 1
+                          else None)
         sorted_auto = sorted_feature is not None
         log.info("sorted-feature auto: %s", sorted_feature)
-    elif args.no_packed:
+    elif args.no_packed or num_hosts > 1:
         # the host-sorted ids live in the packed path: the per-batch Featurizer does not sort
-        raise SystemExit("--sorted-feature requires the packed path")
+        raise SystemExit("--sorted-feature requires the packed path on a single host")
     if args.wire_format == "compact" and args.no_packed:
         raise SystemExit("--wire-format compact requires the packed path")
     if args.wire_cache and args.no_packed:
@@ -397,7 +402,7 @@ def _main(args: argparse.Namespace, device: torch.device, mesh) -> dict:
 
     ckpt = Checkpointer(args.checkpoint_dir) if args.checkpoint_dir else None
     train_loader = StreamLoader(os.path.join(args.data_dir, "train"), args.batch_size,
-                                seed=args.seed)
+                                seed=args.seed, host_index=host_index, num_hosts=num_hosts)
     if args.no_packed and train_loader.dataset.index.get("packed"):
         raise SystemExit("--no-packed cannot train on a PRE-PACKED dataset (its columns are "
                          "device-layout packed_ids, not raw features): drop --no-packed or "
@@ -414,7 +419,7 @@ def _main(args: argparse.Namespace, device: torch.device, mesh) -> dict:
         if rank0:
             print(f"resumed from step {state.step}, epoch {start_epoch}")
 
-    sharding, pad_multiple = None, None
+    sharding, pad_multiple, pad_to = None, None, None
     if mesh is None:
         train_step = make_train_step(mcfg, tcfg, dense_opt)
         eval_step = make_eval_step(mcfg, tcfg)
@@ -422,7 +427,12 @@ def _main(args: argparse.Namespace, device: torch.device, mesh) -> dict:
         state = shard_train_state(state, plan, mesh)
         train_step = make_sharded_train_step(mcfg, tcfg, dense_opt, mesh, plan)
         eval_step = make_sharded_eval_step(mcfg, tcfg, mesh, plan)
-        sharding, pad_multiple = batch_sharding(mesh), mesh.size
+        sharding, pad_multiple = batch_sharding(mesh, hosts), mesh.size
+        if num_hosts > 1:
+            # every host's eval batches padded to the batch size, and every host run to the
+            # longest host's count (align_hosts="pad"): the collectives line up, no sample
+            # is dropped
+            pad_to = args.batch_size
 
     def whole(s):
         """The unsharded state on rank 0 (None elsewhere; every rank takes part)."""
@@ -444,7 +454,9 @@ def _main(args: argparse.Namespace, device: torch.device, mesh) -> dict:
 
     def eval_factory(split):
         return lambda: StreamLoader(os.path.join(args.data_dir, split), args.batch_size,
-                                    shuffle=False, drop_last=False)
+                                    shuffle=False, drop_last=False, host_index=host_index,
+                                    num_hosts=num_hosts,
+                                    align_hosts="pad" if num_hosts > 1 else "truncate")
 
     epochs: list[dict] = []
     multi = None
@@ -454,7 +466,7 @@ def _main(args: argparse.Namespace, device: torch.device, mesh) -> dict:
             train_loader.set_epoch(epoch)
             state, stats = train_one_epoch(state, train_step, train_loader, featurizer, tcfg,
                                            eval_step, eval_factory("val"), logger, epoch,
-                                           sharding, pad_multiple)
+                                           sharding, pad_multiple, pad_to)
             epochs.append(stats)
             return state, stats
     else:
@@ -467,27 +479,50 @@ def _main(args: argparse.Namespace, device: torch.device, mesh) -> dict:
         # written with pack_label=False keeps its labels in a column of their own
         pl = packed_feat.pack_label
         wire = args.wire_format
-        if wire == "auto" and mesh is not None:
-            wire = "packed"
-            log.info("wire format auto on a mesh: packed (the compact wire on a mesh is "
-                     "ROADMAP M12(c); it trains bit for bit as packed, only the link's bytes "
-                     "differ)")
-        elif wire == "auto":
-            wire = "compact" if args.batch_size % 8 == 0 else "packed"
+        if wire == "auto":
+            # bit groups of 8 examples, then the groups split over the ranks; across
+            # hosts auto stays packed, as the reference's does
+            ranks = 1 if mesh is None else mesh.size
+            wire = ("compact" if args.batch_size % (8 * ranks) == 0 and num_hosts == 1
+                    else "packed")
         log.info("wire format: %s", wire)
         macro_sh = tail_sh = None
-        if mesh is not None:
+        if wire == "compact":
+            # a sorted slot ships as uint8 deltas (3.125 B an example for the flagship
+            # against 4.375; the same numerics: data/compact.py)
+            delta_feature, segments = sorted_feature, 1
+            if num_hosts > 1:
+                # the wire needs no global sort: each host sorts its own batch (the loss
+                # does not depend on the rows' order) and encodes it as one segment
+                delta_feature, segments = auto_sorted_feature(mcfg), num_hosts
+                if delta_feature is not None:
+                    packed_feat = (PrepackedFeaturizer.for_dataset(
+                        train_loader.dataset, mcfg, sort_feature=delta_feature)
+                        if train_loader.dataset.index.get("packed") else PackedFeaturizer(
+                            mcfg, pack_label=True, sort_feature=delta_feature))
+                    pl = packed_feat.pack_label
+                    log.info("multi-host delta wire: a host's sort by %s (%d segments)",
+                             delta_feature, segments)
+            scheme = CompactScheme.from_model(mcfg, pack_label=pl, delta_feature=delta_feature,
+                                              delta_segments=segments)
+            packed_feat = CompactFeaturizer(packed_feat, scheme)
+            if mesh is None:
+                multi = make_multi_step(lambda s, cb: train_step(
+                    s, batch_from_compact(cb, mcfg, scheme)))
+                tail_step = make_compact_train_step(train_step, mcfg, scheme)
+            else:
+                try:
+                    macro_sh = tail_sh = compact_shardings(mesh, scheme, args.batch_size, hosts)
+                except ValueError as e:
+                    raise SystemExit(f"--wire-format compact: {e}")
+                multi = make_sharded_compact_multi_step(mcfg, tcfg, dense_opt, mesh, plan,
+                                                        scheme, hosts)
+                decode = sharded_compact_decoder(mcfg, scheme, mesh, hosts)
+                tail_step = lambda s, cb: train_step(s, decode(cb))  # noqa: E731
+        elif mesh is not None:
             multi = make_sharded_multi_step(mcfg, tcfg, dense_opt, mesh, plan, pack_label=pl)
             tail_step = make_packed_train_step(train_step, mcfg, pack_label=pl)
-            macro_sh, tail_sh = macro_batch_sharding(mesh), sharding
-        elif wire == "compact":
-            # a sorted slot ships as uint8 deltas (3.125 B an example for the
-            # flagship against 4.375; the same numerics: data/compact.py)
-            scheme = CompactScheme.from_model(mcfg, pack_label=pl, delta_feature=sorted_feature)
-            packed_feat = CompactFeaturizer(packed_feat, scheme)
-            multi = make_multi_step(lambda s, cb: train_step(s, batch_from_compact(cb, mcfg,
-                                                                                   scheme)))
-            tail_step = make_compact_train_step(train_step, mcfg, scheme)
+            macro_sh, tail_sh = macro_batch_sharding(mesh, hosts), sharding
         else:
             multi = make_multi_step(lambda s, pb: train_step(s, unpack_batch(pb, mcfg,
                                                                              pack_label=pl)))
@@ -498,11 +533,18 @@ def _main(args: argparse.Namespace, device: torch.device, mesh) -> dict:
             eval_step = make_packed_eval_step(eval_step, mcfg, pack_label=featurizer.pack_label)
 
         if args.wire_cache:
-            wire_caches, wire_cache_info = open_wire_caches(args, train_loader, packed_feat)
+            wire_caches, wire_cache_info = open_wire_caches(args, train_loader, packed_feat,
+                                                            host_index, num_hosts)
             wc_limit = min(c.num_batches for c in wire_caches)
+            if num_hosts > 1:
+                # every host takes as many steps: the fewest of the hosts' caches
+                fewest = torch.tensor([wc_limit], device=device)
+                torch.distributed.all_reduce(fewest, op=torch.distributed.ReduceOp.MIN)
+                wc_limit = int(fewest.item())
             if wc_limit != wire_caches[0].num_batches:
                 log.info("wire cache: truncating %d -> %d batches (the fewest of the "
-                         "generations)", wire_caches[0].num_batches, wc_limit)
+                         "generations%s)", wire_caches[0].num_batches, wc_limit,
+                         " and hosts" if num_hosts > 1 else "")
 
         def train_epoch_fn(state, epoch):
             if args.wire_cache:
@@ -525,7 +567,8 @@ def _main(args: argparse.Namespace, device: torch.device, mesh) -> dict:
                 state, multi, batches, feat, macro=macro, train_cfg=tcfg, tail_step=tail_step,
                 eval_step=eval_step, val_batches_factory=eval_factory("val"),
                 val_featurizer=featurizer, logger=logger, epoch=epoch, sharding=macro_sh,
-                tail_sharding=tail_sh, val_sharding=sharding, pad_multiple=pad_multiple)
+                tail_sharding=tail_sh, val_sharding=sharding, pad_multiple=pad_multiple,
+                pad_to=pad_to)
             epochs.append(stats)
             return state, stats
 
@@ -554,8 +597,8 @@ def _main(args: argparse.Namespace, device: torch.device, mesh) -> dict:
         train_batches_factory=None, val_batches_factory=eval_factory("val"),
         test_batches_factory=eval_factory("test"), logger=logger,
         checkpoint_fn=checkpoint_fn, sharding=sharding, pad_multiple=pad_multiple,
-        start_epoch=start_epoch, train_epoch_fn=train_epoch_fn, select_best=args.select_best,
-        retrieval_eval_fn=retrieval_eval_fn)
+        pad_to=pad_to, start_epoch=start_epoch, train_epoch_fn=train_epoch_fn,
+        select_best=args.select_best, retrieval_eval_fn=retrieval_eval_fn)
     if rank0:
         print({k: round(v, 5) for k, v in results.items()})
     if args.export_dir:
@@ -570,7 +613,7 @@ def _main(args: argparse.Namespace, device: torch.device, mesh) -> dict:
             "checkpoints": saves, "wire_format": wire, "wire_cache": wire_cache_info,
             "rank": 0 if mesh is None else mesh.rank,
             "mesh": None if mesh is None else {"data": mesh.data, "model": mesh.model,
-                                               "plan": plan.describe()}}
+                                               "hosts": hosts, "plan": plan.describe()}}
 
 
 if __name__ == "__main__":

@@ -251,10 +251,18 @@ def _add_exceptions(d: torch.Tensor, pos: torch.Tensor, extra: torch.Tensor) -> 
 
 
 def batch_from_compact(cb: CompactBatch, model_cfg: ModelConfig,
-                       scheme: CompactScheme) -> Batch:
+                       scheme: CompactScheme, part: tuple | None = None) -> Batch:
     """Device half: byte planes -> hashed ids + masks + labels, on the
     planes' device, without a host synchronisation (it runs inside a captured
-    CUDA graph). Equal to `unpack_batch(PackedBatch)` on the same data."""
+    CUDA graph). Equal to `unpack_batch(PackedBatch)` on the same data.
+
+    `part=(i, n, prefix)` decodes slice i of n equal slices of a batch (a
+    data-parallel rank's: planes, rem groups, labels, dense and weights cut
+    on the batch axis, the delta sidecars whole): the delta slot takes the
+    sidecar's exceptions that fall in the slice, and `prefix(total)` gives
+    the exclusive prefix of the slice's deltas within its sorted segment (the
+    sums of the slices before it; `parallel.sharded.delta_prefix`), so each
+    row decodes to the whole batch's value bit for bit."""
     del model_cfg  # the reference's signature; the scheme carries the layout
     wire = cb.wire
     labels = cb.labels
@@ -280,7 +288,18 @@ def batch_from_compact(cb: CompactBatch, model_cfg: ModelConfig,
         if sp.delta:
             d = wire[sp.byte_start].to(torch.int32)
             s = scheme.delta_segments
-            if s > 1:
+            if part is not None:
+                i, n, prefix = part
+                kcap = scheme.delta_capacity
+                held = cb.delta_pos.shape[-1] // kcap  # segments in the sliced batch
+                seg = b * n // held
+                pos = (cb.delta_pos.reshape(held, kcap)
+                       + torch.arange(held, dtype=torch.int32, device=dev)[:, None] * seg)
+                # exceptions outside the slice (and the padding entries) drop out
+                d = _add_exceptions(d, pos.reshape(-1) - i * b, cb.delta_extra.reshape(-1))
+                k = torch.cumsum(d, dim=0, dtype=torch.int32)
+                k = k + prefix(k[-1])
+            elif s > 1:
                 # separately sorted slices: sidecar positions are segment-relative
                 # ([S*K]) and the cumsum resets at each segment's start
                 seg = b // s

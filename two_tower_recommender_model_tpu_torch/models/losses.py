@@ -13,7 +13,8 @@ Port of `two_tower_recommender_model_tpu/models/losses.py`:
   the backward above that, padded to a multiple of 512 where no block size
   divides the batch), and the fused route through the CUDA kernels of
   `ops/softmax_kernel.py`. The data-parallel route
-  (`sharded_in_batch_sampled_softmax`) is ROADMAP M12(c).
+  (`sharded_in_batch_sampled_softmax`) runs each rank's `[B_local, B]`
+  stripe of the score matrix through the same kernels at its row offset.
 
 The BCE losses run in the logits' dtype (bf16 under bf16 compute), as the
 reference's do; the softmax's scores are f32 sums.
@@ -28,6 +29,7 @@ import torch.utils.checkpoint
 from two_tower_recommender_model_tpu_torch.ops.softmax_kernel import (
     NEG,
     sampled_softmax_fused,
+    sampled_softmax_fused_parts,
     softmax_kernel_shapes_ok,
 )
 
@@ -60,8 +62,10 @@ def weighted_bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
     return bce_with_logits(logits, labels, weights)
 
 
-def _use_fused_softmax(b: int, d: int, implementation: str, device: torch.device) -> bool:
-    """Whether a batch takes the fused kernels. "off" never does, and shapes
+def _use_fused_softmax(b: int, d: int, implementation: str, device: torch.device,
+                       b_local: int | None = None) -> bool:
+    """Whether a batch (or, with `b_local`, one rank's `[b_local, b]`
+    stripe of it) takes the fused kernels. "off" never does, and shapes
     outside `softmax_kernel_shapes_ok` never do. "on" takes the fused route
     on any device (on CPU tensors its wrappers run their plain versions, with
     the kernels' bf16 rounding points); "auto" takes it for CUDA tensors. The
@@ -70,7 +74,7 @@ def _use_fused_softmax(b: int, d: int, implementation: str, device: torch.device
     measured times."""
     if implementation not in ("auto", "on", "off"):
         raise ValueError(f"softmax implementation must be auto|on|off, got {implementation!r}")
-    if implementation == "off" or not softmax_kernel_shapes_ok(b, d):
+    if implementation == "off" or not softmax_kernel_shapes_ok(b, d, b_local):
         return False
     return implementation == "on" or device.type == "cuda"
 
@@ -143,7 +147,19 @@ def _chunked_sampled_softmax(q, c, labels, item_ids, log_q, temperature, r,
     O(B^2) matrix is kept neither for the forward nor for the backward. Each
     row's logsumexp is whole within its block, so the math is the dense
     path's; only the final sum over blocks reorders f32 additions."""
-    b = q.shape[0]
+    tot, cnt = _stripe_parts(q, c, labels, item_ids, item_ids, log_q, temperature, r, 0,
+                             n_valid)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _stripe_parts(q, c, labels, row_ids, col_ids, log_q, temperature, r: int, row_offset: int,
+                  n_valid: int | None = None, checkpoint: bool = True):
+    """(sum over label == 1 rows of lse_i - s_i,pos, their count) for the q
+    rows [row_offset, row_offset + BQ) of the in-batch softmax over all BK
+    columns of `c`, in row blocks of `r` (the last may be shorter), each
+    checkpointed unless `checkpoint` is False: the plain route of a batch
+    (`row_offset` 0) and of one data-parallel stripe."""
+    b = c.shape[0]
     ct = c.to(q.dtype).T  # [D, B], shared by every block
     adj = None if log_q is None else log_q.float()
     cols = torch.arange(b, device=q.device)
@@ -155,9 +171,9 @@ def _chunked_sampled_softmax(q, c, labels, item_ids, log_q, temperature, r,
         if n_valid is not None and n_valid < b:
             # pad columns must not act as in-batch negatives
             scores = scores.masked_fill((cols >= n_valid)[None, :], NEG)
-        eye = (base + cols[:r])[:, None] == cols[None, :]
+        eye = (base + cols[:qc.shape[0]])[:, None] == cols[None, :]
         if ids_c is not None:
-            scores = scores.masked_fill((item_ids[None, :] == ids_c[:, None]) & ~eye, NEG)
+            scores = scores.masked_fill((col_ids[None, :] == ids_c[:, None]) & ~eye, NEG)
         lse = torch.logsumexp(scores, dim=1)
         pos = torch.sum(torch.where(eye, scores, 0.0), dim=1)  # s_ii
         w = lab_c.float()
@@ -165,20 +181,60 @@ def _chunked_sampled_softmax(q, c, labels, item_ids, log_q, temperature, r,
 
     tot = torch.zeros((), dtype=torch.float32, device=q.device)
     cnt = torch.zeros((), dtype=torch.float32, device=q.device)
-    for base in range(0, b, r):
-        s, n = torch.utils.checkpoint.checkpoint(
-            block_loss, q[base:base + r], labels[base:base + r],
-            None if item_ids is None else item_ids[base:base + r], base, use_reentrant=False)
+    for lo in range(0, q.shape[0], r):
+        args = (q[lo:lo + r], labels[lo:lo + r],
+                None if row_ids is None else row_ids[lo:lo + r], row_offset + lo)
+        if checkpoint:
+            s, n = torch.utils.checkpoint.checkpoint(block_loss, *args, use_reentrant=False)
+        else:
+            s, n = block_loss(*args)
         tot, cnt = tot + s, cnt + n
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot, cnt
 
 
-def sharded_in_batch_sampled_softmax(mesh, *args, **kwargs):
-    """The data-parallel in-batch softmax (each card its [B_local, B] stripe
-    through the fused kernels with `row_offset`). Not ported yet."""
-    raise NotImplementedError(
-        "the sharded in-batch sampled softmax is not ported to the PyTorch package yet "
-        "(ROADMAP M12(c)); the kernels already take row_offset")
+def sharded_in_batch_sampled_softmax(
+    mesh,
+    query_emb: torch.Tensor,  # [B_local, D]: this rank's slice of the batch
+    cand_emb: torch.Tensor,  # [B_local, D]
+    labels: torch.Tensor,  # [B_local]
+    item_ids: torch.Tensor | None = None,  # [B_local]
+    log_q: torch.Tensor | None = None,  # [B_local]
+    temperature: float = 1.0,
+    implementation: str = "auto",
+) -> torch.Tensor:
+    """The data-parallel in-batch sampled softmax, one rank's part: the
+    candidate embeddings, their item ids and logQ all-gathered over the data
+    group (the embeddings differentiably: the gradient of the all-gather is
+    the reduce-scatter of each rank's dc to the candidate's owner), and this
+    rank's `[B_local, B]` stripe of the score matrix at `row_offset = d x
+    B_local`: through the fused kernels (#9-#11, their plain versions on CPU
+    tensors) where `_use_fused_softmax` takes the stripe's shape, else the
+    plain row blocks, never the whole `[B, B]`. The count of label-1 rows is
+    summed over the data group (it does not depend on the parameters).
+    Returns this rank's loss `num_local / max(den_global, 1)`: its gradients
+    summed over data are the global batch's, and so is its value."""
+    from two_tower_recommender_model_tpu_torch.parallel.sharded import (
+        _all_gather,
+        all_gather_rows,
+    )
+
+    b_local, d = query_emb.shape
+    group, n = mesh.data_group, mesh.data
+    b, off = b_local * n, mesh.d * b_local
+    c_all = all_gather_rows(cand_emb, group, n)
+    ids_all = None if item_ids is None else _all_gather(item_ids.to(torch.int32), group, n)
+    lq_all = None if log_q is None else _all_gather(log_q.float(), group, n)
+    row_ids = None if item_ids is None else item_ids.to(torch.int32)
+    if _use_fused_softmax(b, d, implementation, query_emb.device, b_local):
+        num, den = sampled_softmax_fused_parts(query_emb, c_all, labels, row_ids, ids_all,
+                                               lq_all, temperature, row_offset=off)
+    else:
+        r = b_local if b <= 4096 else max(1, min(b_local, (1 << 24) // b))
+        num, den = _stripe_parts(query_emb, c_all, labels, row_ids, ids_all, lq_all,
+                                 temperature, r, off, checkpoint=b > 4096)
+    den = den.detach().clone()
+    torch.distributed.all_reduce(den, group=group)
+    return num / torch.clamp(den, min=1.0)
 
 
 def item_log_q_from_counts(counts: torch.Tensor, item_ids: torch.Tensor) -> torch.Tensor:
@@ -218,17 +274,19 @@ def make_loss_fn(name: str, candidate_id_feature: str | None = None,
                                             tw), logits
         return loss_fn
     if name == "sampled_softmax":
-        if mesh is not None:
-            sharded_in_batch_sampled_softmax(mesh)
-
         def loss_fn(q, c, batch, log_q=None):
             logits = torch.sum(q * c, dim=1)
             item_ids = None
             if candidate_id_feature is not None and candidate_id_feature in batch.features:
                 item_ids = batch.features[candidate_id_feature].ids[:, 0]
-            loss = in_batch_sampled_softmax(q, c, batch.labels, item_ids, log_q,
-                                            temperature=temperature,
-                                            implementation=softmax_implementation)
+            if mesh is not None:
+                loss = sharded_in_batch_sampled_softmax(
+                    mesh, q, c, batch.labels, item_ids, log_q, temperature=temperature,
+                    implementation=softmax_implementation)
+            else:
+                loss = in_batch_sampled_softmax(q, c, batch.labels, item_ids, log_q,
+                                                temperature=temperature,
+                                                implementation=softmax_implementation)
             return loss, logits
         return loss_fn
     raise ValueError(f"unknown loss {name!r}")
@@ -236,9 +294,10 @@ def make_loss_fn(name: str, candidate_id_feature: str | None = None,
 
 def loss_fn_from_config(train_cfg, model_cfg, sharded: bool = False, mesh=None):
     """The training loss of a `TrainConfig` and a `ModelConfig`: the single
-    point where the train steps select it. `sharded` with a `mesh` is the
-    data-parallel softmax route, which is not ported yet (M12(c)); the
-    sharded step's BCE is `parallel.sharded`'s own."""
+    point where the train steps select it. `sharded` with a `mesh` routes the
+    sampled softmax through `sharded_in_batch_sampled_softmax` (each rank its
+    stripe; the loss is this rank's part, its gradients summed over data the
+    global batch's); the sharded step's BCE is `parallel.sharded`'s own."""
     return make_loss_fn(
         train_cfg.loss,
         candidate_id_feature=model_cfg.candidate_tower.features[0],

@@ -5,7 +5,9 @@ are a `[Q, I]` float32 product that never materializes whole: queries are
 taken `query_chunk` at a time, the corpus `corpus_chunk` rows at a time, and
 a running top-k is merged with each chunk's scores. Columns past the last
 corpus row (the ragged tail of the last chunk) score -inf, so they can never
-evict a real entry.
+evict a real entry; so do the rows at or past `valid` where the caller
+passes it (a corpus padded to a multiple of the ranks, kept resident: the
+sharded top-k's shards), masked before each merge.
 
 Tie rule: among equal scores the lower corpus index wins, as with
 `jax.lax.top_k`. Each merge selects from the concatenation (running top-k,
@@ -35,13 +37,16 @@ def chunked_topk(
     k: int = 100,
     corpus_chunk: int = 4096,
     query_chunk: int = 1024,
+    valid: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k dot-product retrieval. Returns (scores [Q, k] float32,
     indices [Q, k] int64) with indices into `corpus` rows, sorted descending
-    by score, ties to the lower index. Where k exceeds the corpus, the
-    missing entries score -inf with index 0."""
+    by score, ties to the lower index. Rows at or past `valid` (default:
+    every row is real) score -inf before the merge, as padding does. Where k
+    exceeds the real rows, the missing entries score -inf with index 0."""
     qn = queries.shape[0]
     n_items = corpus.shape[0]
+    valid = n_items if valid is None else max(0, min(int(valid), n_items))
     corpus_chunk = min(corpus_chunk, max(128, n_items))
     query_chunk = min(query_chunk, max(1, qn))
     dev = queries.device
@@ -56,6 +61,8 @@ def chunked_topk(
             scores = qc @ chunk.T
             if chunk.shape[0] < corpus_chunk:  # ragged last chunk: pad columns score -inf
                 scores = F.pad(scores, (0, corpus_chunk - chunk.shape[0]), value=float("-inf"))
+            if valid < cs + chunk.shape[0]:  # rows past the real corpus, masked pre-selection
+                scores[:, max(valid - cs, 0):] = float("-inf")
             cand_idx = torch.arange(cs, cs + corpus_chunk, device=dev)[None, :]
             top_vals, top_idx = _merge(top_vals, top_idx, scores, cand_idx, k)
         out_vals.append(top_vals)

@@ -19,8 +19,13 @@ rendezvouses on a free loopback port.
 
 One host feeds a global batch, as the reference's single process does:
 every rank runs the same loader and keeps its data slice of each batch
-(`parallel.sharded.batch_sharding`). Per-host loader slices (`--multi-host`)
-are ROADMAP M12(c).
+(`parallel.sharded.batch_sharding`). Across hosts (`--multi-host`, torchrun
+with `--nnodes`), each host streams a disjoint slice of the data
+(`per_host_loader_slice`) and the global batch is the hosts' batches in
+host order: every rank of a host runs the host's loader and keeps its data
+slice of the host's batch (`put_global_batch`), with no collective. A host
+is torchrun's node (`GROUP_RANK`, `LOCAL_WORLD_SIZE` ranks), not a process:
+the reference runs one process a host, the port one a device.
 """
 
 from __future__ import annotations
@@ -112,7 +117,8 @@ def devices_for(method: TrainingMethod) -> list[torch.device]:
 
 def host_info() -> dict:
     """This rank's place: its index and the number of ranks, the ranks on
-    this host and in all, and the host's index among the hosts."""
+    this host and in all, and the host's index among the hosts (torchrun's
+    `GROUP_RANK` and `LOCAL_WORLD_SIZE`)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
@@ -136,14 +142,32 @@ def global_batch_slice(global_batch_size: int) -> int:
     return global_batch_size // n
 
 
+def mesh_hosts(mesh) -> int:
+    """The hosts a mesh spans, checked against its layout: the ranks `r = d
+    x model + m` of a host hold whole data slices, in host order, only when
+    every host has the same number of ranks, a multiple of `model`."""
+    info = host_info()
+    hosts, local = info["num_hosts"], info["local_devices"]
+    if hosts == 1:
+        return 1
+    if local * hosts != info["process_count"] or mesh.size != info["process_count"]:
+        raise ValueError(f"a {mesh.data}x{mesh.model} mesh over {hosts} hosts of {local} "
+                         f"ranks needs every rank of the {info['process_count']} in it")
+    if local % mesh.model:
+        raise ValueError(f"{local} ranks a host do not hold whole data slices of a mesh with "
+                         f"model={mesh.model}: pick LOCAL_WORLD_SIZE a multiple of it")
+    if info["host_index"] != mesh.rank // local:
+        raise ValueError(f"rank {mesh.rank} is on host {info['host_index']}, not on "
+                         f"{mesh.rank // local}: the hosts' ranks must be numbered in order")
+    return hosts
+
+
 def put_global_batch(local_batch, mesh):
-    """This rank's part of a global batch that its host holds whole: its
-    data slice, on its device (`device_put_batch` with `batch_sharding`).
-    Assembling a global batch from per-host slices is ROADMAP M12(c)."""
+    """This rank's part of a global batch from its host's local batch: its
+    data slice of the host's batch (the hosts' batches in host order make
+    the global one), on its device, with no collective. On one host it is
+    `device_put_batch` with `batch_sharding`."""
     from two_tower_recommender_model_tpu_torch.parallel.sharded import batch_sharding
     from two_tower_recommender_model_tpu_torch.train.pipeline import device_put_batch
 
-    if host_info()["num_hosts"] > 1:
-        raise NotImplementedError("a global batch from per-host slices (--multi-host) is not "
-                                  "ported to the PyTorch package yet (ROADMAP M12(c))")
-    return device_put_batch(local_batch, sharding=batch_sharding(mesh))
+    return device_put_batch(local_batch, sharding=batch_sharding(mesh, mesh_hosts(mesh)))

@@ -51,10 +51,19 @@ batch's.
 
 One host feeds a global batch (`batch_sharding`): the ranks of a data group
 see its slices in order, so a batch sorted by the host-sorted feature stays
-sorted after the all-gather.
+sorted after the all-gather. Across hosts each host's ranks cut its own
+batch (`batch_sharding(mesh, hosts)`, `launch.put_global_batch`).
 
-Not ported here: the sharded sampled softmax, sharded top-k and the compact
-wire on a mesh (ROADMAP M12(c)).
+The sampled softmax runs each rank's `[B_local, B]` stripe of the score
+matrix at `row_offset = d x B_local` through kernels #9-#11
+(`models.losses.sharded_in_batch_sampled_softmax`): the candidates are
+all-gathered, their gradient reduce-scattered back (`all_gather_rows`), the
+count of positives summed; the replicated logQ counts take the global
+batch's candidate ids. The compact wire decodes each rank's slice
+(`sharded_compact_decoder`; the delta-encoded sorted slot through an
+exclusive prefix over the data group), placed leaf by leaf
+(`compact_shardings`). Retrieval scans a row-sharded corpus on every rank
+and merges the ranks' candidates (`make_sharded_topk`).
 """
 
 from __future__ import annotations
@@ -81,6 +90,7 @@ from two_tower_recommender_model_tpu_torch.ops.embedding_ops import (
     row_grads_from_pooled,
 )
 from two_tower_recommender_model_tpu_torch.ops.quantized import QuantizedTable
+from two_tower_recommender_model_tpu_torch.ops.topk import chunked_topk
 from two_tower_recommender_model_tpu_torch.parallel.mesh import Mesh
 from two_tower_recommender_model_tpu_torch.parallel.planner import (
     COLUMN_SHARDED,
@@ -109,14 +119,21 @@ _reduce_scatter_into = getattr(dist, "reduce_scatter_single", None) or dist.redu
 
 
 class BatchSharding:
-    """Leaf -> this rank's slice of a global host batch along `axis` (0 for
-    a batch, 1 for a `[K, B, ...]` macro-batch), the rows its data
-    coordinate `d` owns. A macro leaf with fewer than two axes or an empty
-    last axis (a packed label's placeholder) is kept whole, as the
-    reference replicates it. `device` is the mesh's."""
+    """Leaf -> this rank's slice of a host batch along `axis` (0 for a
+    batch, 1 for a `[K, B, ...]` macro-batch, -1 for the compact wire's
+    planes, whose batch axis is last; -2 for its dense features). The batch
+    a rank holds is the global batch when one host feeds every rank
+    (`hosts=1`), else its host's part (`--multi-host`: the data slices of a
+    host's ranks, in order), cut in `pieces` equal slices of which this rank
+    keeps the one its data coordinate owns. A macro leaf with fewer than two
+    axes or an empty last axis (a packed label's placeholder) is kept whole,
+    as the reference replicates it. `device` is the mesh's; `parts` is the
+    data ranks, the factor from a slice's examples to the global batch's."""
 
-    def __init__(self, mesh: Mesh, axis: int = 0):
-        self.mesh, self.axis = mesh, axis
+    def __init__(self, mesh: Mesh, axis: int = 0, hosts: int = 1):
+        if mesh.data % hosts:
+            raise ValueError(f"{mesh.data} data ranks do not split over {hosts} hosts")
+        self.mesh, self.axis, self.hosts = mesh, axis, hosts
 
     @property
     def device(self) -> torch.device:
@@ -126,26 +143,36 @@ class BatchSharding:
     def parts(self) -> int:
         return self.mesh.data
 
+    @property
+    def pieces(self) -> int:
+        """The slices of the batch this rank holds."""
+        return self.mesh.data // self.hosts
+
+    @property
+    def index(self) -> int:
+        """This rank's slice of the batch it holds."""
+        return self.mesh.d % self.pieces
+
     def __call__(self, t: torch.Tensor) -> torch.Tensor:
-        if self.axis and (t.dim() <= self.axis or t.shape[-1] == 0):
+        if self.axis > 0 and (t.dim() <= self.axis or t.shape[-1] == 0):
             return t
         n = t.shape[self.axis]
-        if n % self.mesh.data:
-            raise ValueError(f"batch of {n} rows does not split over {self.mesh.data} data "
+        if n % self.pieces:
+            raise ValueError(f"batch of {n} rows does not split over {self.pieces} data "
                              "ranks: pad it (pad_batch) or pick a multiple")
-        part = n // self.mesh.data
-        return t.narrow(self.axis, self.mesh.d * part, part).contiguous()
+        part = n // self.pieces
+        return t.narrow(self.axis, self.index * part, part).contiguous()
 
 
-def batch_sharding(mesh: Mesh) -> BatchSharding:
+def batch_sharding(mesh: Mesh, hosts: int = 1) -> BatchSharding:
     """Leaf -> this rank's slice of the leading (batch) axis."""
-    return BatchSharding(mesh, 0)
+    return BatchSharding(mesh, 0, hosts)
 
 
-def macro_batch_sharding(mesh: Mesh) -> BatchSharding:
+def macro_batch_sharding(mesh: Mesh, hosts: int = 1) -> BatchSharding:
     """Leaf -> this rank's slice of a stacked `[K, B, ...]` macro-batch's
     batch axis; the K axis whole."""
-    return BatchSharding(mesh, 1)
+    return BatchSharding(mesh, 1, hosts)
 
 
 # ---------------------------------------------------------------------------
@@ -184,6 +211,29 @@ def _reduce_partials(part: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     if mesh.model > 1:
         dist.all_reduce(out, group=mesh.model_group)
     return out
+
+
+class _AllGatherRows(torch.autograd.Function):
+    """`[n * B, ...]`: the group's tensors in rank order (all-gather); its
+    gradient is the reduce-scatter of the incoming one: each rank's rows
+    get the sum over the group of what every rank's loss sent them."""
+
+    @staticmethod
+    def forward(ctx, t, group, n):
+        ctx.group, ctx.n = group, n
+        return _all_gather(t, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.group, ctx.n), None, None
+
+
+def all_gather_rows(t: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The differentiable all-gather along axis 0 (`_AllGatherRows`): as the
+    reference's `all_gather` under `shard_map`, whose transpose is the
+    `psum_scatter`. Both collectives run on the current stream, so a CUDA
+    graph captures them."""
+    return _AllGatherRows.apply(t, group, n)
 
 
 # ---------------------------------------------------------------------------
@@ -821,17 +871,23 @@ def make_sharded_forward(model_cfg: ModelConfig, mesh: Mesh, plan: ShardingPlan,
     return forward, pooled_embeddings
 
 
-def _sharded_loss_fn(train_cfg: TrainConfig, mesh: Mesh) -> Callable:
-    """`loss_fn(q, c, batch, b_glob) -> (local loss, its value, logits)`:
-    this rank's part of the global batch's loss (its sum over the global
-    batch size, or over the global weight, in f32), whose gradients summed
-    over data are the global batch's; and the part of the reported loss,
-    which on one rank is the one-device step's value bit for bit (its mean
-    in the logits' dtype)."""
+def _sharded_loss_fn(model_cfg: ModelConfig, train_cfg: TrainConfig, mesh: Mesh) -> Callable:
+    """`loss_fn(q, c, batch, b_glob, log_q=None) -> (local loss, its value,
+    logits)`: this rank's part of the global batch's loss (its sum over the
+    global batch size, or over the global weight, or for the sampled softmax
+    its stripe's sum over the global count of label-1 rows, in f32), whose
+    gradients summed over data are the global batch's; and the part of the
+    reported loss, which on one rank is the one-device step's value bit for
+    bit (the BCE's mean in the logits' dtype)."""
     if train_cfg.loss == "sampled_softmax":
-        losses_lib.sharded_in_batch_sampled_softmax(mesh)
+        softmax = losses_lib.loss_fn_from_config(train_cfg, model_cfg, sharded=True, mesh=mesh)
+
+        def loss_fn(q, c, batch, b_glob, log_q=None):
+            loss, logits = softmax(q, c, batch, log_q=log_q)
+            return loss, loss.detach(), logits
+        return loss_fn
     if train_cfg.loss == "bce":
-        def loss_fn(q, c, batch, b_glob):
+        def loss_fn(q, c, batch, b_glob, log_q=None):
             logits = torch.sum(q * c, dim=1)
             per = losses_lib.bce_per_example(logits, batch.labels)
             value = per.detach().mean().float() * (per.shape[0] / b_glob)
@@ -843,7 +899,7 @@ def _sharded_loss_fn(train_cfg: TrainConfig, mesh: Mesh) -> Callable:
         lo = train_cfg.loss_type_onehot_start
         hi = lo + len(train_cfg.loss_type_weights)
 
-        def loss_fn(q, c, batch, b_glob):
+        def loss_fn(q, c, batch, b_glob, log_q=None):
             logits = torch.sum(q * c, dim=1)
             if batch.dense is None:
                 raise ValueError("weighted_bce needs dense one-hot type columns in the batch")
@@ -886,7 +942,8 @@ def make_sharded_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     the distinct ids its forward and backward dropped past the capacity,
     summed over the mesh (a device tensor: nothing here reads it)."""
     sorted_table = _check_step_config(model_cfg, train_cfg, plan)
-    loss_fn = _sharded_loss_fn(train_cfg, mesh)
+    loss_fn = _sharded_loss_fn(model_cfg, train_cfg, mesh)
+    cand_feature = model_cfg.candidate_tower.features[0]
     bs_kernel = train_cfg.block_sorted_kernel
     _, pooled_embeddings = make_sharded_forward(
         model_cfg, mesh, plan,
@@ -924,11 +981,23 @@ def make_sharded_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         b_glob = batch.batch_size * mesh.data
         with torch.no_grad():  # stage A
             pooled, weights, overflow = pooled_embeddings(model.tables, batch)
+            # streaming logQ: the replicated counts take the GLOBAL batch's candidate
+            # ids (gathered over data), so every rank's counts stay the one-device
+            # step's; then each row's logQ from the new counts
+            log_q = None
+            if state.item_counts is not None:
+                cand_ids = batch.features[cand_feature].ids[:, 0]
+                cand_all = _all_gather(cand_ids.to(torch.int32), mesh.data_group,
+                                       mesh.data).long()
+                state.item_counts.index_add_(
+                    0, cand_all, torch.ones(cand_all.shape, dtype=torch.float32,
+                                            device=cand_all.device))
+                log_q = losses_lib.item_log_q_from_counts(state.item_counts, cand_ids)
         pooled = {k: v.detach().requires_grad_(True) for k, v in pooled.items()}
 
         state.dense_opt_state.zero_grad(set_to_none=True)  # stage B
         q, c = towers_forward(model, pooled, batch.dense)
-        loss, value, logits = loss_fn(q, c, batch, b_glob)
+        loss, value, logits = loss_fn(q, c, batch, b_glob, log_q)
         loss.backward()
         params = tower_parameters(model)
         _sync_tower_grads(params, mesh)
@@ -972,7 +1041,9 @@ def make_sharded_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
             total = value.clone()
             dist.all_reduce(total, group=mesh.data_group)
         state.step += 1
-        out = {"loss": total.to(logits.dtype), "logits": logits.detach()}
+        # the softmax's loss is f32 as the one-device step's; the BCEs' in the logits' dtype
+        out = {"loss": total if train_cfg.loss == "sampled_softmax" else total.to(logits.dtype),
+               "logits": logits.detach()}
         if overflow is not None:
             # nonzero: ids were dropped this step; raise exchange_capacity_factor
             out["exchange_overflow"] = overflow
@@ -1024,3 +1095,152 @@ def make_sharded_eval_step(model_cfg: ModelConfig, train_cfg: TrainConfig, mesh:
                          loss=mean_update(eval_state.loss, loss, n), exchange_overflow=total)
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# the compact wire on a mesh
+
+
+def compact_shardings(mesh: Mesh, scheme=None, batch_size: int | None = None,
+                      hosts: int = 1):
+    """The per-leaf placement of a `CompactBatch`, one batch or a stacked
+    `[K, ...]` macro-batch alike: a `CompactBatch` of slicers, `wire`,
+    `rem`, `labels` and `weights` cut on their last (batch, batch-group)
+    axis, `dense` on its batch axis, the delta sidecars kept whole (the
+    segment's positions: `batch_from_compact` takes the slice's own). The
+    reference's `compact_macro_shardings` and
+    `compact_macro_shardings_for_scheme` in one (their macro and one-batch
+    placements are the same slicers), with the divisibility errors when
+    `scheme` and `batch_size` (the host's batch under `hosts > 1`) are
+    given."""
+    from two_tower_recommender_model_tpu_torch.data.compact import CompactBatch
+
+    last = BatchSharding(mesh, -1, hosts)
+    if batch_size is not None:
+        if batch_size % last.pieces:
+            raise ValueError(f"batch {batch_size} must divide by data axis {last.pieces}")
+        if scheme is not None and scheme.rem_bits_total and (batch_size // 8) % last.pieces:
+            raise ValueError(
+                f"compact rem groups {batch_size // 8} must divide by the data axis "
+                f"{last.pieces} (need batch % {8 * last.pieces} == 0)")
+    return CompactBatch(wire=last, rem=last, labels=last, dense=BatchSharding(mesh, -2, hosts),
+                        weights=last, delta_pos=None, delta_extra=None)
+
+
+def delta_prefix(mesh: Mesh, pieces: int, segments: int) -> Callable:
+    """`prefix(total) -> the exclusive prefix of this rank's slice`: the
+    sums of the delta-encoded slot over the slices before this rank's in its
+    segment, from the slices' totals all-gathered over the data group (int32,
+    exact; a collective a CUDA graph captures). A rank holds slice
+    `d % pieces` of its batch, whose `segments` sorted segments each span
+    `pieces // segments` slices."""
+    if pieces % segments:
+        raise ValueError(f"{segments} delta segments do not split over {pieces} data slices")
+    per_segment = pieces // segments
+    start = mesh.d // per_segment * per_segment
+
+    def prefix(total: torch.Tensor) -> torch.Tensor:
+        totals = _all_gather(total.reshape(1), mesh.data_group, mesh.data)
+        return totals[start:mesh.d].sum(dtype=torch.int32)
+
+    return prefix
+
+
+def sharded_compact_decoder(model_cfg: ModelConfig, scheme, mesh: Mesh,
+                            hosts: int = 1) -> Callable:
+    """`decode(cb) -> Batch`: `batch_from_compact` of this rank's slice of a
+    compact batch (placed by `compact_shardings`), the delta-encoded slot
+    decoded from its slice, the sidecar exceptions that fall in it and the
+    exclusive prefix over the data group (`delta_prefix`): bit for bit the
+    one-device decode's rows."""
+    from two_tower_recommender_model_tpu_torch.data.compact import batch_from_compact
+
+    if scheme.delta_feature is not None and hosts > 1 and scheme.delta_segments != hosts:
+        raise ValueError(f"delta wire across hosts needs CompactScheme.from_model(..., "
+                         f"delta_segments={hosts}) — got {scheme.delta_segments}")
+    pieces = mesh.data // hosts
+    index = mesh.d % pieces
+    held = scheme.delta_segments if hosts == 1 else 1  # segments in the batch a rank holds
+    prefix = delta_prefix(mesh, pieces, held) if scheme.delta_feature is not None else None
+
+    def decode(cb):
+        return batch_from_compact(cb, model_cfg, scheme, part=(index, pieces, prefix))
+
+    return decode
+
+
+def make_sharded_compact_multi_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
+                                    dense_opt: opt_lib.DenseOptimizer, mesh: Mesh,
+                                    plan: ShardingPlan, scheme, hosts: int = 1):
+    """K sharded train steps over a stacked `CompactBatch` in one call, each
+    decoding its slice (`sharded_compact_decoder`): on the card one CUDA
+    graph of the K steps, decode and collectives captured. Place the payload
+    with `compact_shardings`. A delta slot across hosts needs
+    `scheme.delta_segments == hosts` (each host sorts and encodes its own
+    part)."""
+    core = make_sharded_train_step(model_cfg, train_cfg, dense_opt, mesh, plan)
+    decode = sharded_compact_decoder(model_cfg, scheme, mesh, hosts)
+    return make_multi_step(lambda s, cb: core(s, decode(cb)))
+
+
+# ---------------------------------------------------------------------------
+# sharded retrieval
+
+
+def shard_corpus(corpus: torch.Tensor, mesh: Mesh) -> tuple[torch.Tensor, int]:
+    """(this rank's shard of `corpus` padded with zero rows to a multiple of
+    the ranks, the real rows): row shard `r` holds global rows `[r * R, (r +
+    1) * R)`, the flat rank order of the tables."""
+    n = corpus.shape[0]
+    rows = -(-n // mesh.size)
+    lo, hi = mesh.rank * rows, min((mesh.rank + 1) * rows, n)
+    shard = corpus.new_zeros((rows, corpus.shape[1]))
+    if hi > lo:
+        shard[:hi - lo] = corpus[lo:hi]
+    return shard, n
+
+
+def topk_shard_candidates(queries: torch.Tensor, shard: torch.Tensor, k: int, corpus_chunk: int,
+                          shard_index: int, valid: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One shard's k candidates, (scores [Q, k], global rows [Q, k]): the
+    chunked running merge (`ops/topk.py`) over its rows, those at or past
+    the global `valid` masked to -inf before the selection, local rows made
+    global."""
+    rows = shard.shape[0]
+    local_valid = max(0, min(valid - shard_index * rows, rows))
+    vals, idx = chunked_topk(queries, shard, k=k, corpus_chunk=min(corpus_chunk, rows),
+                             valid=local_valid)
+    return vals, idx + shard_index * rows
+
+
+def topk_merge(vals: torch.Tensor, idx: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The top k of every shard's candidates (`[n, Q, k]` each, in shard
+    order): concatenated in shard order and selected by a stable descending
+    sort, so equal scores keep the lower shard and, within a shard, the
+    lower row: ties go to the lower global row, as on one device."""
+    n, q, _ = vals.shape
+    av = vals.permute(1, 0, 2).reshape(q, n * k)
+    ai = idx.permute(1, 0, 2).reshape(q, n * k)
+    best, pos = torch.sort(av, dim=1, descending=True, stable=True)
+    return best[:, :k], torch.gather(ai, 1, pos[:, :k])
+
+
+def make_sharded_topk(mesh: Mesh, k: int, corpus_chunk: int = 4096) -> Callable:
+    """`topk(queries [Q, D], shard [R, D], valid=None) -> (scores [Q, k],
+    global rows [Q, k])`: the exact top-k over a corpus row-sharded over the
+    mesh's flat ranks (`shard_corpus`), every rank passing the same queries.
+    Each rank scans its shard (`topk_shard_candidates`), the k candidates of
+    every rank are all-gathered (O(ranks x Q x k), never the scores) and
+    merged (`topk_merge`). `valid` is the real rows of a padded corpus (its
+    pad rows can never evict a real candidate); default every row."""
+
+    def topk(queries: torch.Tensor, shard: torch.Tensor, valid: int | None = None):
+        n = mesh.size
+        valid = n * shard.shape[0] if valid is None else valid
+        vals, idx = topk_shard_candidates(queries, shard, k, corpus_chunk, mesh.rank, valid)
+        q = queries.shape[0]
+        av = _all_gather(vals, mesh.group, n).view(n, q, k)
+        ai = _all_gather(idx, mesh.group, n).view(n, q, k)
+        return topk_merge(av, ai, k)
+
+    return topk

@@ -21,11 +21,13 @@ trains in one call (on the card: one replay of a CUDA graph of K steps).
 
 On a mesh (`parallel/`) the loops take the reference's `sharding` (this
 rank's slice of each global batch: `parallel.sharded.batch_sharding`, or
-`macro_batch_sharding` for the packed epoch's macro-batches), `pad_multiple`
+`macro_batch_sharding` for the packed epoch's macro-batches and the per-leaf
+`compact_shardings` for compact ones), `pad_multiple`
 (eval batches padded with zero-weight rows to a multiple of the data ranks)
 and `pad_to` (every eval batch padded to that many rows, a 0-row one into a
 batch of padding that still runs its step and its collectives). Every rank
-runs the same batches, so every rank runs every collective. The all-to-all
+of a host runs the same batches, and every host as many (`--multi-host`:
+the loader's `align_hosts`), so every rank runs every collective. The all-to-all
 exchange's overflow counts (`exchange_overflow`, summed over the mesh) are
 added up on the device and read once: `evaluate` raises at the end of its
 pass, the epochs at the end of the epoch, with the reference's messages.
@@ -46,6 +48,7 @@ from two_tower_recommender_model_tpu_torch.models.metrics import auroc_compute, 
 from two_tower_recommender_model_tpu_torch.train.pipeline import (
     check_sharding,
     device_put_batch,
+    placement_parts,
     prefetch_to_device,
 )
 from two_tower_recommender_model_tpu_torch.train.step import (
@@ -122,7 +125,7 @@ def train_one_epoch(state: TrainState, train_step: Callable, batches: Iterable[d
     steps = examples = 0
     t0 = time.perf_counter()
     last_loss = overflow = None
-    parts = sharding.parts if sharding is not None else 1
+    parts = placement_parts(sharding)
     for batch in prefetch_to_device(it, featurizer, state.device, sharding=sharding):
         state, out = train_step(state, batch)
         last_loss = out["loss"]
@@ -266,8 +269,9 @@ def train_one_epoch_packed(state: TrainState, multi_step: Callable, batches: Ite
       `tail_step` it is dropped.
 
     `num_workers` threads featurize and stack macro groups, in order. On a
-    mesh `sharding` cuts each macro-batch (`macro_batch_sharding`),
-    `tail_sharding` each tail batch (`batch_sharding`), and the mid-epoch
+    mesh `sharding` cuts each macro-batch (`macro_batch_sharding`, or for
+    compact batches the per-leaf `compact_shardings`), `tail_sharding` each
+    tail batch (`batch_sharding`, `compact_shardings(macro=False)`), and the mid-epoch
     validation takes `val_sharding`, `pad_multiple` and `pad_to`."""
     for placement in (sharding, tail_sharding, val_sharding):
         check_sharding(placement)
@@ -288,11 +292,7 @@ def train_one_epoch_packed(state: TrainState, multi_step: Callable, batches: Ite
         tail.extend(g)
 
     def assemble(group):
-        mb = stack_batches([packed_featurizer(c) for c in group])
-        if sharding is not None and hasattr(mb, "wire"):
-            raise NotImplementedError("the compact wire on a mesh is not ported to the PyTorch "
-                                      "package yet (ROADMAP M12(c)): use packed batches")
-        return mb
+        return stack_batches([packed_featurizer(c) for c in group])
 
     def maybe_validate(steps, next_val):
         if not can_validate or steps < next_val:
@@ -311,7 +311,7 @@ def train_one_epoch_packed(state: TrainState, multi_step: Callable, batches: Ite
     next_val = vfreq or 0
     t0 = time.perf_counter()
     last_loss = overflow = None
-    parts = sharding.parts if sharding is not None else 1
+    parts = placement_parts(sharding)
     for mb in prefetch_to_device(groups(), assemble, state.device, prefetch=prefetch,
                                  num_workers=num_workers, sharding=sharding):
         state, out = multi_step(state, mb)
@@ -328,7 +328,7 @@ def train_one_epoch_packed(state: TrainState, multi_step: Callable, batches: Ite
             last_loss = out["loss"]
             overflow = _accumulate_overflow(overflow, out)
             steps += 1
-            examples += pb.batch_size * (tail_sharding.parts if tail_sharding else 1)
+            examples += pb.batch_size * placement_parts(tail_sharding)
             next_val = maybe_validate(steps, next_val)
     if last_loss is not None:
         last_loss = float(last_loss)  # the one read of the epoch

@@ -54,25 +54,68 @@ def _pin(t: torch.Tensor) -> torch.Tensor:
     return t if t.device.type != "cpu" or t.is_pinned() else t.pin_memory()
 
 
+def _placements(sharding) -> list:
+    """The slicers of a placement: itself, or the leaves of a pytree of
+    per-leaf placements (None leaves: kept whole)."""
+    if callable(sharding):
+        return [sharding]
+    if isinstance(sharding, dict):
+        return [p for v in sharding.values() for p in _placements(v)]
+    if dataclasses.is_dataclass(sharding) and not isinstance(sharding, type):
+        return [p for f in dataclasses.fields(sharding)
+                for p in _placements(getattr(sharding, f.name))]
+    if sharding is None:
+        return []
+    raise TypeError(f"not a placement: {sharding!r}")
+
+
 def check_sharding(sharding) -> None:
-    """A placement the port has: None, or a callable leaf -> this rank's
-    slice (`parallel.sharded.batch_sharding`). The reference's pytree of
-    per-leaf placements (the compact wire on a mesh) is ROADMAP M12(c)."""
-    if sharding is not None and not callable(sharding):
-        raise NotImplementedError(
-            "a pytree of per-leaf placements (the compact wire on a mesh) is not ported to the "
-            "PyTorch package yet (ROADMAP M12(c)): pass a batch_sharding")
+    """A placement the port has: None; a callable leaf -> this rank's slice
+    (`parallel.sharded.batch_sharding`); or a pytree of those, one per leaf,
+    None where a leaf is kept whole (`parallel.sharded.compact_shardings`,
+    the compact wire on a mesh)."""
+    if sharding is not None and not _placements(sharding):
+        raise ValueError("a placement pytree with no slicer in it")
+
+
+def placement_device(sharding) -> torch.device:
+    """The device of a placement's mesh."""
+    return _placements(sharding)[0].device
+
+
+def placement_parts(sharding) -> int:
+    """The factor from the examples of a rank's slice to the global batch's
+    (1 without a placement)."""
+    return 1 if sharding is None else _placements(sharding)[0].parts
+
+
+def cut_batch(batch: Any, sharding, fn: Callable[[torch.Tensor], torch.Tensor] = lambda t: t):
+    """`fn` of this rank's part of every leaf: each leaf cut by `sharding`
+    when it is one callable, by its own placement in a pytree of them (a
+    None there keeps the leaf whole), or whole without a placement."""
+    if sharding is None:
+        return map_leaves(batch, fn)
+    if callable(sharding):
+        return map_leaves(batch, lambda t: fn(sharding(t)))
+    if isinstance(batch, dict):
+        return {k: cut_batch(v, sharding.get(k), fn) for k, v in batch.items()}
+    if dataclasses.is_dataclass(batch) and not isinstance(batch, type):
+        return dataclasses.replace(batch, **{
+            f.name: cut_batch(getattr(batch, f.name), getattr(sharding, f.name), fn)
+            for f in dataclasses.fields(batch)})
+    return map_leaves(batch, fn)
 
 
 def device_put_batch(batch: Any, device: torch.device | str | None = None, sharding=None) -> Any:
     """A host batch with every array leaf on `device` (the card when None).
     `sharding` (`parallel.sharded.batch_sharding` or `macro_batch_sharding`
-    of a mesh) cuts each leaf to this rank's slice of the global batch
-    first, and `device` then defaults to the mesh's."""
+    of a mesh, or a pytree of per-leaf placements: `compact_shardings`) cuts
+    each leaf to this rank's slice of the batch first, and `device` then
+    defaults to the mesh's."""
     check_sharding(sharding)
     if sharding is not None:
-        device = sharding.device if device is None else torch.device(device)
-        return map_leaves(batch, lambda t: sharding(t).to(device))
+        device = placement_device(sharding) if device is None else torch.device(device)
+        return cut_batch(batch, sharding, lambda t: t.to(device))
     device = resolve_device(device)
     return map_leaves(batch, lambda t: t.to(device))
 
@@ -145,13 +188,12 @@ def prefetch_to_device(columns_iter: Iterable[dict], featurize: Callable[[dict],
     and copied (`device_put_batch`); `device` then defaults to the mesh's."""
     check_sharding(sharding)
     if sharding is not None and device is None:
-        device = sharding.device
+        device = placement_device(sharding)
     device = resolve_device(device)
     cuda = device.type == "cuda"
-    cut = sharding if sharding is not None else (lambda t: t)
 
     def host_batch(cols):
-        return map_leaves(featurize(cols), (lambda t: _pin(cut(t))) if cuda else cut)
+        return cut_batch(featurize(cols), sharding, _pin if cuda else (lambda t: t))
 
     if num_workers > 1:
         source = _pooled(columns_iter, host_batch, num_workers)
