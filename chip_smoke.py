@@ -313,9 +313,26 @@ without a card. Phases (any failure raises and exits non-zero):
    (counted: its first call), bit for bit the sharded packed graph and the
    one-device compact graph after 32 steps, replayed ms of the three;
    `[shard-kernels]` the 8,192 batch's 4 stripes of [2,048, 8,192] at row
-   offsets 0-6,144: #9, #10 and #11 against their plain versions, the
-   stripes' dc summed against the square's, (num, den) summed against the
-   whole batch's, each stripe's kernel ms beside its bound;
+   offsets 0-6,144, at D = 64 and again at D = 256: #9, #10 and #11 against
+   their plain versions (each launched, counted), the stripes' dc summed
+   against the square's, (num, den) summed against the whole batch's, each
+   stripe's kernel ms beside its bound;
+26e. the wide softmax and the device-sorted gather: `[kernel]` #9, #10 and
+   #11 at D = 192 and 256 on the 8,192 square and at D = 2,048 on a 4,096
+   square and its stripe of 1,024 rows (equal to the square's rows), with
+   `[kernel]`'s bars, two launches bit for bit, kernel, plain, bound and
+   composed ms; `[train-softmax-wide]` `[train-softmax]` with towers (512,
+   256), so D = 256 at the loss: 3 eager steps counted (#9, #10, #11 once,
+   #1 and #4 twice a step), 3 more each against the host CPU's plain step,
+   the K = 16 graph against eager steps as in phase 16, and eager steps of
+   the chunked plain route beside the kernels'; `[train-devsort]` phase
+   16's BCE step with f32 tables and no host sort (`sorted_feature=None`),
+   `device_sorted_gather=True` beside False from one state: 3 eager steps of
+   each (#1 twice a step either way), their states compared (bit for bit,
+   else within rtol 1e-5 / atol 1e-6, printed), the K = 16 graph of each,
+   the device ms of the route's gather, its sort and its permute beside the
+   plain gather's on the 105.6 MB user table and the item table; then an
+   int8 user table (#5 on the route): 3 eager steps against False;
 27. with --profile, torch.profiler traces of the serving calls, of the
    three train steps and of a graph replay: device busy time, idle share and
    the largest device items, the gather kernel's (#1 or #5) device ms a call
@@ -391,7 +408,11 @@ from two_tower_recommender_model_tpu_torch.ops.embedding_kernel import (
     pooled_gather,
     pooled_gather_reference,
 )
-from two_tower_recommender_model_tpu_torch.ops.embedding_ops import block_sorted_lookup
+from two_tower_recommender_model_tpu_torch.ops.embedding_ops import (
+    block_sorted_lookup,
+    device_sorted_lookup,
+    pooled_lookup,
+)
 from two_tower_recommender_model_tpu_torch.ops import softmax_kernel as sk
 from two_tower_recommender_model_tpu_torch.ops.probe_sum import (
     probe_block_sums,
@@ -1717,29 +1738,40 @@ def softmax_composed(q16, c16, adj, row_ids, col_ids, row_offset, inv_t, lse, g,
 SOFTMAX_COMPOSED_CALLS = 16
 
 
+WIDE_SQUARE = 4096  # the D = 2,048 square of [kernel] (its stripe: a quarter of the rows)
+
+
 def phase_softmax_kernel(dev: torch.device) -> dict[str, dict]:
     """Kernels #9, #10 and #11 against their plain versions: the square case
     at the production batch (with and without padded columns) and at the
     large batch, and one stripe of a four-way data-parallel split, which must
-    also equal its rows of the square case. Two launches of each kernel on
-    the same inputs must agree bit for bit in every case. The bounds count
-    one exp a score. At the main
-    path's shape, beside the kernels' times: `softmax_composed`'s (bf16
-    GEMMs and elementwise calls)."""
+    also equal its rows of the square case; then at wide D (the kernels'
+    depth slices): the production square at D = 192 and 256, and a square
+    of WIDE_SQUARE and its stripe at D = 2,048. Two launches of each kernel
+    on the same inputs must agree bit for bit in every case. The bounds
+    count one exp a score. At the main path's shape (D = 64), and at D = 256
+    and 2,048, beside the kernels' times: `softmax_composed`'s (bf16 GEMMs
+    and elementwise calls)."""
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
     names = ("softmax_lse_fwd", "softmax_lse_dq", "softmax_lse_dc")
     stats: dict[str, dict] = {n: {"max_abs_err": 0.0} for n in names}
-    square_big = None
-    for label, bq, bk, off, n_valid, reps in (
-            ("square", SOFTMAX_BATCH, SOFTMAX_BATCH, 0, None, 20),
-            ("square, padded columns", SOFTMAX_BATCH, SOFTMAX_BATCH, 0, SOFTMAX_BATCH - 192, 5),
-            ("large square", SOFTMAX_BIG, SOFTMAX_BIG, 0, None, 3),
+    squares = {}  # (bk, d) -> the square case's (lse, dq), for its stripe
+    for label, bq, bk, off, n_valid, reps, d in (
+            ("square", SOFTMAX_BATCH, SOFTMAX_BATCH, 0, None, 20, 64),
+            ("square, padded columns", SOFTMAX_BATCH, SOFTMAX_BATCH, 0, SOFTMAX_BATCH - 192, 5,
+             64),
+            ("large square", SOFTMAX_BIG, SOFTMAX_BIG, 0, None, 3, 64),
             ("stripe of the large square", SOFTMAX_BIG // 4, SOFTMAX_BIG, SOFTMAX_BIG // 2, None,
-             3)):
+             3, 64),
+            ("wide square", SOFTMAX_BATCH, SOFTMAX_BATCH, 0, None, 5, 192),
+            ("wide square", SOFTMAX_BATCH, SOFTMAX_BATCH, 0, None, 10, 256),
+            ("wide square", WIDE_SQUARE, WIDE_SQUARE, 0, None, 5, 2048),
+            ("stripe of the wide square", WIDE_SQUARE // 4, WIDE_SQUARE, WIDE_SQUARE // 2, None,
+             5, 2048)):
         label = f"{label} [{bq} x {bk}, row_offset={off}, n_valid={n_valid}]"
-        # the stripe reuses the large case's draws, so its rows are that case's rows
-        seed = 6 if bk == SOFTMAX_BIG else 5
-        args, g = softmax_case(dev, np.random.default_rng(seed), bq, bk, off, n_valid)
+        # a stripe reuses its square's draws, so its rows are that case's rows
+        seed = 6 if bk in (SOFTMAX_BIG, WIDE_SQUARE) else 5
+        args, g = softmax_case(dev, np.random.default_rng(seed), bq, bk, off, n_valid, d)
         lse, lse2 = sk.softmax_lse_fwd(*args), sk.softmax_lse_fwd(*args)
         want_lse = sk.lse_forward_reference(*args)
         torch.cuda.synchronize()
@@ -1763,13 +1795,13 @@ def phase_softmax_kernel(dev: torch.device) -> dict[str, dict]:
                   "softmax_lse_dc": want_dc.abs().max().item()}
         if n_valid is not None and not (want_dc[n_valid:] == 0).all() & (dc[n_valid:] == 0).all():
             raise AssertionError(f"{label}: padded columns took a gradient")
-        main_case = (bq, bk, n_valid) == (SOFTMAX_BATCH, SOFTMAX_BATCH, None)
-        if (bq, bk) == (SOFTMAX_BIG, SOFTMAX_BIG):
-            square_big = (lse, dq)
+        main_case = (bq, bk, n_valid, d) == (SOFTMAX_BATCH, SOFTMAX_BATCH, None, 64)
+        if bq == bk and bk in (SOFTMAX_BIG, WIDE_SQUARE):
+            squares[bk, d] = (lse, dq)
         if off:  # the stripe is rows [off, off + bq) of the square case
-            torch.testing.assert_close(lse, square_big[0][off:off + bq], rtol=1e-6, atol=1e-6)
-            torch.testing.assert_close(dq, square_big[1][off:off + bq], rtol=1e-5, atol=1e-9)
-        d = args[0].shape[1]
+            square = squares[bk, d]
+            torch.testing.assert_close(lse, square[0][off:off + bq], rtol=1e-6, atol=1e-6)
+            torch.testing.assert_close(dq, square[1][off:off + bq], rtol=1e-5, atol=1e-9)
         small = (bq + bk) * (d * 2 + 12)  # q and c in bf16; ids, adj, lse, g
         calls = {
             "softmax_lse_fwd": (lambda: sk.softmax_lse_fwd(*args),
@@ -1794,7 +1826,9 @@ def phase_softmax_kernel(dev: torch.device) -> dict[str, dict]:
             st["max_abs_err"] = max(st["max_abs_err"], errs[name])
             if main_case:  # the main path's shape: the train step's batch
                 st.update(ms=ms, plain_ms=plain_ms, **b, library_ms=None)
-        if main_case:
+            elif bq == bk and d > 64:
+                st[f"D={d}"] = {"ms": ms, "plain_ms": plain_ms, **b}
+        if main_case or (bq == bk and d in (256, 2048)):
             pos = torch.arange(bk, device=dev)
             for name, which, want in (("softmax_lse_dq", "dq", want_dq),
                                       ("softmax_lse_dc", "dc", want_dc)):
@@ -1807,11 +1841,15 @@ def phase_softmax_kernel(dev: torch.device) -> dict[str, dict]:
                 comp_err = ((comp - want).abs().max() / want.abs().max()).item()
                 composed_ms = median_ms(
                     lambda: softmax_composed(*args, want_lse, g, which, pos), flush, reps)
-                log(f"[kernel] {name} {label}: composed_ms={composed_ms!r} "
+                row = stats[name] if main_case else stats[name][f"D={d}"]
+                log(f"[kernel] {name} {label} D={d}: composed_ms={composed_ms!r} "
                     f"({SOFTMAX_COMPOSED_CALLS} PyTorch calls, 2 of them bf16 GEMMs; max abs "
                     f"diff from the plain version over its max: {comp_err!r}) against "
-                    f"kernel_ms={stats[name]['ms']!r}")
-                stats[name]["composed_ms"] = composed_ms
+                    f"kernel_ms={row['ms']!r}")
+                row["composed_ms"] = composed_ms
+    for name in names:
+        wide = {k: stats[name].pop(k) for k in [k for k in stats[name] if k.startswith("D=")]}
+        log(f"[kernel] {name} at wide D (squares): {wide!r}; {card_line()}")
     return stats
 
 
@@ -2946,6 +2984,167 @@ def phase_train_softmax(dev: torch.device, profile: bool) -> dict[str, int]:
                              f"loss {out['loss'].float().item()}")
     log(f"[train-softmax] bf16 compute, batch {SOFTMAX_BATCH}: 2 steps, launches {made}, "
         f"second_step_ms={btimes[1]!r}, loss={out['loss'].float().item()!r}")
+    return launches
+
+
+WIDE_LAYERS = (512, 256)  # [train-softmax-wide]'s towers: D = 256 at the loss
+HOST_CHECKS = 3  # eager steps of [train-softmax-wide] held against the host's
+
+
+def phase_train_softmax_wide(dev: torch.device, profile: bool) -> dict[str, int]:
+    """`[train-softmax-wide]`: `[train-softmax]`'s configuration (the
+    flagship tables, f32, batch 8,192, logQ, accidental-hit masking, the
+    kernels on, user-sorted, block kernels in f32) with towers WIDE_LAYERS,
+    so the loss sees D = 256 and #9, #10 and #11 take their depth slices.
+    Through `create_train_state` -> `make_train_step` -> `make_multi_step`:
+    HOST_CHECKS eager steps counted (#9, #10 and #11 once a step, #1 and #4
+    twice; the wide towers miss #8's and tower_fwd's gates, as in the
+    reference) and each held against the host's plain step from the same
+    state (`check_against_host`); the K = 16 graph against eager steps
+    (`phase_train_graph`); and eager steps of the plain chunked route
+    (`softmax_kernel="off"`) beside the kernels' in the same call."""
+    tag = "[train-softmax-wide]"
+    cfg = cfg_lib.two_tower_model_config(NUM_USERS, NUM_ITEMS, embedding_dim=DIM,
+                                         layer_sizes=WIDE_LAYERS)
+    _, tcfg = softmax_flagship()
+    feat = PackedFeaturizer(cfg, pack_label=True, sort_feature="user_id")
+    ds = SyntheticClickstream(NUM_USERS - 1, NUM_ITEMS - 1, seed=0)
+    pool = [map_leaves(feat(cols), lambda t: t.to(dev))
+            for cols in ds.batches(SOFTMAX_BATCH, GRAPH_POOL, "train")]
+    state, dense_opt = step_lib.create_train_state(torch.Generator(device=dev).manual_seed(0),
+                                                   cfg, tcfg)
+
+    def packed_step(t):
+        return make_packed_train_step(step_lib.make_train_step(cfg, t, dense_opt), cfg,
+                                      pack_label=True)
+
+    train_step = packed_step(tcfg)
+    # --- the main path, counted ---------------------------------------------------
+    reset_launches()
+    state, out, times = timed_steps(train_step, state, pool, 0, HOST_CHECKS)
+    launches = read_launches()
+    # --- checks, not counted ------------------------------------------------------
+    for name, n in launches.items():
+        if n != SOFTMAX_F32.get(name, 0) * HOST_CHECKS:
+            raise AssertionError(f"{tag} {name}: {n} launches in {HOST_CHECKS} steps, expected "
+                                 f"{SOFTMAX_F32.get(name, 0)} a step")
+    if not np.isfinite(out["loss"].item()):
+        raise AssertionError(f"{tag} loss is not finite: {out['loss'].item()}")
+    log(f"{tag} towers {WIDE_LAYERS}, D={WIDE_LAYERS[-1]} at the loss, f32, batch "
+        f"{SOFTMAX_BATCH}: {HOST_CHECKS} eager steps, step_ms={times!r}, loss="
+        f"{out['loss'].item()!r}, launches per step "
+        f"{ {k: v // HOST_CHECKS for k, v in launches.items() if v} }")
+    margins = []
+    for i in range(HOST_CHECKS):  # each step from the state the one before left
+        pb = pool[HOST_CHECKS + i]
+        margins.append(check_against_host(f"{tag} step {HOST_CHECKS + i}", state, cfg, tcfg,
+                                          dense_opt, train_step, pb))
+        state, _ = train_step(state, pb)
+    log(f"{tag} the largest margin of the {HOST_CHECKS} host checks: "
+        f"{max(max(m.values()) for m in margins)!r}")
+    graph = phase_train_graph(dev, f"sampled softmax + logQ, towers {WIDE_LAYERS}, f32", cfg,
+                              tcfg, pool, SOFTMAX_F32, profile, tag=tag)
+    launches = {k: v + graph[k] for k, v in launches.items()}
+    # the plain chunked route in the same call, for the record
+    state, _, on_times = timed_steps(train_step, state, pool, 0, 5)
+    off_step = packed_step(dataclasses.replace(tcfg, softmax_kernel="off"))
+    before = read_launches()
+    state, _, _ = timed_steps(off_step, state, pool, 0, 1)
+    state, out, off_times = timed_steps(off_step, state, pool, 1, 5)
+    made = {k: v - before[k] for k, v in read_launches().items() if k.startswith("softmax")}
+    if set(made.values()) != {0} or not np.isfinite(out["loss"].item()):
+        raise AssertionError(f"{tag} softmax_kernel=off: launches {made}, loss "
+                             f"{out['loss'].item()}")
+    log(f"{tag} eager median_step_ms kernels={statistics.median(on_times)!r} "
+        f"softmax_kernel=off (chunked plain route)={statistics.median(off_times)!r} (n=5 each, "
+        f"in turns after the graph); {card_line()}")
+    return launches
+
+
+def phase_train_devsort(dev: torch.device, profile: bool) -> dict[str, int]:
+    """`[train-devsort]`: the flagship BCE graph's configuration (f32
+    tables, bf16 compute, batch 262,144, block kernels in bf16) with no host
+    sort (`sorted_feature=None`), so with `device_sorted_gather=True` both
+    features take the device-sorted gather: the 105.6 MB user table and the
+    25.4 MB item table, each a sort, #1 at one slot and the inverse permute.
+    Beside it, from one state on the same batches, the same configuration
+    with the flag off (the plain pooled gather): 3 eager steps of each,
+    counted, whose states must agree bit for bit (both gathers emit the same
+    bf16 rows) or within `compare_states`' bars, printed; the K = 16 graph of
+    each (`phase_train_graph`, their replayed ms a step); the device ms of
+    each route's gather and of the sort and the permute alone (CUDA events
+    on a captured replay, `graph_ms`). Then an int8 user table (#5): 3
+    eager steps against the flag off."""
+    tag = "[train-devsort]"
+    bce, bce_tcfg = flagship_bce()
+    off_tcfg = dataclasses.replace(bce_tcfg, sorted_feature=None)
+    on_tcfg = dataclasses.replace(off_tcfg, device_sorted_gather=True)
+    feat = PackedFeaturizer(bce, pack_label=True)  # no host sort
+    ds = SyntheticClickstream(NUM_USERS - 1, NUM_ITEMS - 1, seed=0)
+    pool = [map_leaves(feat(cols), lambda t: t.to(dev))
+            for cols in ds.batches(TRAIN_BATCH, GRAPH_POOL, "train")]
+    batch = unpack_batch(pool[0], bce, pack_label=True)
+    if step_lib.device_sorted_features(bce, on_tcfg, batch) != ("user_id", "product_id"):
+        raise AssertionError(f"{tag} the route takes "
+                             f"{step_lib.device_sorted_features(bce, on_tcfg, batch)}")
+    launches = {}
+
+    def eager_pair(cfg, want, label):
+        """3 eager steps with the flag on (counted) and off from one state."""
+        base, dense_opt = step_lib.create_train_state(
+            torch.Generator(device=dev).manual_seed(0), cfg, on_tcfg)
+        states = {}
+        for flag, t in (("on", on_tcfg), ("off", off_tcfg)):
+            step = make_packed_train_step(step_lib.make_train_step(cfg, t, dense_opt), cfg,
+                                          pack_label=True)
+            before = read_launches()
+            state, out, times = timed_steps(step, base.copy(), pool, 0, 3)
+            made = {k: v - before[k] for k, v in read_launches().items()}
+            if any(n != want.get(k, 0) * 3 for k, n in made.items()):
+                raise AssertionError(f"{tag} {label} flag {flag}: launches {made}, expected "
+                                     f"{want} a step")
+            if flag == "on":
+                for k, n in made.items():
+                    launches[k] = launches.get(k, 0) + n
+            states[flag] = (state, out["loss"], times)
+        same = compare_states(f"{tag} {label}", states["off"][0], states["on"][0])
+        log(f"{tag} {label}, 3 eager steps from one state: device-sorted gather against the "
+            f"plain gather: {same}; last loss bitwise equal "
+            f"{bitwise_equal(states['on'][1], states['off'][1])}; step_ms on="
+            f"{states['on'][2]!r} off={states['off'][2]!r}")
+
+    eager_pair(bce, BCE_F32, "f32 tables")
+    for flag, t in (("on", on_tcfg), ("off", off_tcfg)):
+        made = phase_train_graph(dev, f"BCE, f32 tables, no host sort, device_sorted_gather={flag}",
+                                 bce, t, pool, BCE_F32, profile, tag=tag)
+        if flag == "on":
+            for k, n in made.items():
+                launches[k] = launches.get(k, 0) + n
+    # the device ms of each route's gather, and of the sort and the permute alone
+    state, _ = step_lib.create_train_state(torch.Generator(device=dev).manual_seed(0), bce,
+                                           on_tcfg)
+    for fname, tname in (("user_id", "t_user_id"), ("product_id", "t_product_id")):
+        table, f = state.model.tables[tname], batch.features[fname]
+        ids = torch.where(f.mask[:, 0] > 0, f.ids[:, 0].to(torch.int32), table.shape[0])
+        sids, perm = torch.sort(ids, stable=True)
+        rows = device_sorted_lookup(table, ids, matmul_dtype="bfloat16", out_dtype=torch.bfloat16)
+        ms = {"route": graph_ms(lambda: device_sorted_lookup(
+                  table, ids, matmul_dtype="bfloat16", out_dtype=torch.bfloat16)),
+              "sort": graph_ms(lambda: torch.sort(ids, stable=True)),
+              "permute": graph_ms(lambda: torch.empty_like(rows).index_copy_(0, perm, rows)),
+              "plain gather": graph_ms(lambda: pooled_lookup(table, f.ids, f.mask, "sum",
+                                                             torch.bfloat16))}
+        mb = table.numel() * table.element_size() / 1e6
+        log(f"{tag} {tname} ({mb!r} MB, {TRAIN_BATCH} ids unsorted) device ms (CUDA events, a "
+            f"captured replay, n={REPS}): {ms!r}")
+    del state
+    # an int8 user table: #5 on the route
+    int8 = dataclasses.replace(bce, tables=(dataclasses.replace(bce.tables[0], dtype="int8"),
+                                            *bce.tables[1:]))
+    eager_pair(int8, {"quantized_pooled_gather": 1, "pooled_gather": 1,
+                      "quantized_rowwise_adagrad": 1, "rowwise_adagrad": 1, "tower_bwd": 2,
+                      "tower_fwd": 2}, "int8 user table")
+    log(f"{tag} {card_line()}")
     return launches
 
 
@@ -4661,11 +4860,13 @@ def phase_mesh_compact(mesh, pool: list) -> dict[str, int]:
     return launches
 
 
-def phase_shard_softmax(dev: torch.device) -> None:
+def phase_shard_softmax(dev: torch.device, d: int = 64) -> None:
     """`[shard-kernels]` the data-parallel softmax's stripes by hand: the
-    `[train-softmax]` batch of 8,192 cut in SHARD_WORLD stripes of 2,048
-    rows at row offsets 0, 2,048, 4,096 and 6,144, each against all 8,192
-    columns through #9, #10 and #11, held against their plain versions at
+    `[train-softmax]` batch of 8,192 at D = `d` (64, the flagship's; 256,
+    `[train-softmax-wide]`'s, the kernels' depth slices) cut in SHARD_WORLD
+    stripes of 2,048 rows at row offsets 0, 2,048, 4,096 and 6,144, each
+    against all 8,192 columns through #9, #10 and #11 (each launch counted),
+    held against their plain versions at
     `[kernel]`'s bars (lse rtol 2e-5 / atol 1e-5; dq and dc within 1e-3 x
     max and cosine > 0.99999, the backward fed the plain lse), each
     stripe's lse equal to its rows of #9's on the whole batch within rtol
@@ -4673,10 +4874,11 @@ def phase_shard_softmax(dev: torch.device) -> None:
     the stripes' dc summed against the whole batch's dc (#11 on the square)
     at the dc bar; the stripes' (num, den) summed against the whole batch's
     within rtol 1e-5. Each stripe's kernel ms beside its bound."""
-    tag, bk = "[shard-kernels]", SOFTMAX_BATCH
+    tag, bk = f"[shard-kernels] D={d}", SOFTMAX_BATCH
     bq = bk // SHARD_WORLD
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
-    whole, g_whole = softmax_case(dev, np.random.default_rng(5), bk, bk, 0, None)
+    before = read_launches()
+    whole, g_whole = softmax_case(dev, np.random.default_rng(5), bk, bk, 0, None, d)
     lse_whole = sk.lse_forward_reference(*whole)
     lse_whole_kernel = sk.softmax_lse_fwd(*whole)
     dc_whole = sk.softmax_lse_dc(*whole, lse_whole, g_whole)
@@ -4685,11 +4887,11 @@ def phase_shard_softmax(dev: torch.device) -> None:
     parts_whole = sk.sampled_softmax_fused_parts(q16.float(), c16.float(), labels, ids, ids, adj)
     dc_sum = torch.zeros_like(dc_whole)
     num = den = 0.0
-    d = q16.shape[1]
     small = (bq + bk) * (d * 2 + 12)
+    striped = read_launches()
     for r in range(SHARD_WORLD):
         off = r * bq
-        args, g = softmax_case(dev, np.random.default_rng(5), bq, bk, off, None)
+        args, g = softmax_case(dev, np.random.default_rng(5), bq, bk, off, None, d)
         label = f"stripe {r} of {SHARD_WORLD} [{bq} x {bk}, row_offset={off}]"
         lse = sk.softmax_lse_fwd(*args)
         want_lse = sk.lse_forward_reference(*args)
@@ -4712,16 +4914,22 @@ def phase_shard_softmax(dev: torch.device) -> None:
                          bound(small + bq * d * 4, 4 * bq * bk * d, PEAK_BF16, bq * bk)),
                  "#11": (lambda: sk.softmax_lse_dc(*args, want_lse, g),
                          bound(small + bk * d * 4, 4 * bq * bk * d, PEAK_BF16, bq * bk))}
+        if r == 0:  # the launches of one stripe, before its timing
+            made = {k: v - striped[k] for k, v in read_launches().items() if v - striped[k]}
+            if set(made) != {"softmax_lse_fwd", "softmax_lse_dq", "softmax_lse_dc"}:
+                raise AssertionError(f"{tag} stripe 0 launched {made}")
         log(f"{tag} softmax {label}: each kernel against its plain version, max_abs_err "
-            f"{errs!r}; kernel ms / bound ms " + ", ".join(
+            f"{errs!r}; launches of stripe 0 {made!r}; kernel ms / bound ms " + ", ".join(
                 f"{name} {median_ms(fn, flush, 10)!r} / {b['bound_ms']!r}"
                 for name, (fn, b) in calls.items()))
     err = grad_close(dc_sum, dc_whole, f"{tag} the stripes' dc summed")
     got, want = torch.tensor([num, den]), torch.tensor([p.item() for p in parts_whole])
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    made = {k: v - before[k] for k, v in read_launches().items() if v - before[k]}
     log(f"{tag} softmax: the {SHARD_WORLD} stripes' dc summed against the whole batch's #11 "
         f"dc: max_abs_err {err!r} (x max {err / dc_whole.abs().max().item()!r}); (num, den) "
-        f"summed {got.tolist()!r} against the whole batch's {want.tolist()!r}; {card_line()}")
+        f"summed {got.tolist()!r} against the whole batch's {want.tolist()!r}; launches in all "
+        f"(checks and timing) {made!r}; {card_line()}")
 
 
 def card_table(gen: torch.Generator, n: int, d: int, dtype: str, dev: torch.device):
@@ -5612,13 +5820,16 @@ def main() -> int:
     paths["learn-int8"] = phase_learn(dev, "int8")
     paths["probe"] = phase_probe(dev)
     paths.update(phase_train_graphs(dev, args.profile, batches[0]))
+    paths["train-softmax-wide"] = phase_train_softmax_wide(dev, args.profile)
+    paths["train-devsort"] = phase_train_devsort(dev, args.profile)
     paths.update(phase_train_bf16buf(dev, args.profile, batches[0]))
     paths.update(phase_meshes(dev, batches[0]))
     for table_dtype in ("float32", "int8"):
         phase_shard_kernels(dev, batches[0], table_dtype)
     phase_shard_exchange(dev, batches[0])
     phase_shard_columns(dev, batches[0])
-    phase_shard_softmax(dev)
+    for d in (64, 256):
+        phase_shard_softmax(dev, d)
     paths["train-compact"] = phase_train_compact(dev, args.profile)
     paths["train-skew"] = phase_train_skew(dev, args.profile)
     paths["learn-packed"] = phase_learn_packed(dev)

@@ -212,3 +212,41 @@ def test_round_rows_mode_matches_plain(bag_l, out_dtype):
             assert torch.equal(got, want), (d, b, (got.float() - want.float()).abs().max())
             if bag_l == 1:
                 assert torch.equal(got, pooled_gather(table, ids_t, w_t, out_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["float32", "bfloat16-mode", "int8"])
+def test_device_sorted_lookup_matches_the_plain_gather(dev, kind):
+    """`device_sorted_lookup` (a device sort, one launch of #1 or #5 at one
+    slot, the inverse permute) against the plain gather of the same ids in
+    batch order: unsorted ids with repeats and sentinels, rows bit for bit
+    the plain version's (`table[ids]`; rounded to bf16 under the bf16 mode;
+    an int8 table's rows dequantized in f32), in f32 and bf16 out."""
+    from two_tower_recommender_model_tpu_torch.ops.embedding_ops import device_sorted_lookup
+    from two_tower_recommender_model_tpu_torch.ops.quantized import (
+        dequantize_table,
+        quantize_table,
+    )
+    from two_tower_recommender_model_tpu_torch.ops.quantized_kernel import (
+        quantized_pooled_gather,
+    )
+
+    rng = np.random.default_rng(5)
+    n, m = 5000, 4096
+    table = _table(rng, n, 128, torch.float32, dev)
+    if kind == "int8":
+        table = quantize_table(table)
+    ids = torch.from_numpy(rng.integers(0, n + 50, m).astype(np.int32)).to(dev)  # sentinels
+    rows = dequantize_table(table) if kind == "int8" else table
+    plain = torch.where((ids < n)[:, None], rows[ids.clamp(max=n - 1).long()], 0.0)
+    mode = "bfloat16" if kind == "bfloat16-mode" else "float32"
+    if mode == "bfloat16":
+        plain = plain.bfloat16().float()
+    counter = quantized_pooled_gather if kind == "int8" else pooled_gather
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = counter.launches
+        got = device_sorted_lookup(table, ids, matmul_dtype=mode, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        assert got.dtype == out_dtype and got.shape == (m, 128)
+        assert torch.equal(got, plain.to(out_dtype))

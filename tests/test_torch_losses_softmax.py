@@ -184,6 +184,30 @@ def test_fused_route_on_equals_off_and_the_reference(use_ids, use_logq):
     _assert_same(on, want, grad_tol=kernel_tol)
 
 
+@pytest.mark.parametrize("use_ids,use_logq", [(False, True), (True, True)])
+def test_fused_route_at_a_wide_dim_matches_the_reference(use_ids, use_logq):
+    """D = 256, past the flagship's 64: the route the kernels take at a wide
+    D ("on"; the plain versions on CPU tensors, D zero-padded to 256 as the
+    kernels see it) against the JAX package's fused route (its Pallas
+    kernels in interpret mode) and the port's plain route, at the kernel
+    tolerances above."""
+    b = 512
+    q, c, labels, ids, log_q = _setup(b, d=256, seed=6, bf16_values=True)
+    args = (torch.from_numpy(labels), torch.from_numpy(ids) if use_ids else None,
+            torch.from_numpy(log_q) if use_logq else None)
+    assert losses._use_fused_softmax(b, 256, "on", torch.device("cpu"))
+    on = _torch_value_and_grad(lambda qt, ct: losses.in_batch_sampled_softmax(
+        qt, ct, *args, temperature=0.9, implementation="on"), q, c)
+    off = _torch_value_and_grad(lambda qt, ct: losses.in_batch_sampled_softmax(
+        qt, ct, *args, temperature=0.9, implementation="off"), q, c)
+    kernel_tol = dict(atol=2e-4, rtol=2e-2)  # p is a bf16 operand in the fused backward
+    _assert_same(on, off, grad_tol=kernel_tol)
+    want = _jax_value_and_grad(lambda qa, ca: jax_losses.in_batch_sampled_softmax(
+        qa, ca, jnp.asarray(labels), jnp.asarray(ids) if use_ids else None,
+        jnp.asarray(log_q) if use_logq else None, temperature=0.9, implementation="on"), q, c)
+    _assert_same(on, want, grad_tol=kernel_tol)
+
+
 def test_routing_of_the_softmax_kernel_option():
     cpu, card = torch.device("cpu"), torch.device("cuda")
     use = losses._use_fused_softmax
@@ -192,7 +216,8 @@ def test_routing_of_the_softmax_kernel_option():
     assert use(8192, 64, "auto", card) and use(65536, 64, "auto", card)
     assert not use(8192, 64, "auto", cpu)  # the plain routes, on the CPU
     assert not use(8200, 64, "on", card)  # the shapes' gate holds under "on" too
-    assert not use(8192, 256, "on", card)  # the port's cap on D
+    assert use(8192, 256, "on", card) and use(8192, 2048, "auto", card)  # wide D
+    assert not use(8192, 2049, "on", card)  # the reference's cap on D
     with pytest.raises(ValueError, match="auto|on|off"):
         use(8192, 64, "yes", card)
 

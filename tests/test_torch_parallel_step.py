@@ -263,6 +263,29 @@ def test_sorted_routes_match_jax(pool, case):
     _check(got, one, sharded, plan, _port_one_device(mcfg, tcfg, start, batches), atol)
 
 
+def test_sharded_step_ignores_device_sorted_gather(pool):
+    """`device_sorted_gather=True` changes nothing in the sharded step, as in
+    the reference, whose sharded step builds its own lookups and never reads
+    the flag: the port's sharded run with it equals the run without it bit
+    for bit, and both hold the JAX package's steps as "device-sort-4x1"
+    does (the one-device reference without the flag)."""
+    mesh_shape, force = (4, 1), {"t_user_id": ROW, "t_product_id": REP}
+    mcfg, batches = _setup(dim=128, batch=128, n=3, seed=7)
+    tcfg = cfg_lib.TrainConfig(sparse_learning_rate=0.05, learning_rate=1e-3,
+                               block_sorted_kernel="float32", device_sorted_gather=True)
+    ref_tcfg = cfg_lib.TrainConfig(sparse_learning_rate=0.05, learning_rate=1e-3)
+    start, one, sharded, plan = _jax_pair(mcfg, tcfg, batches, mesh_shape, force, ref_tcfg)
+    got = _port(pool, mcfg, tcfg, start, batches, mesh_shape, force)
+    without = _port(pool, mcfg, dataclasses.replace(tcfg, device_sorted_gather=False), start,
+                    batches, mesh_shape, force)
+    assert got["losses"] == without["losses"]
+    for a, b in zip(jax.tree.leaves(got["state"]), jax.tree.leaves(without["state"])):
+        np.testing.assert_array_equal(a, b)
+    mine = _port_one_device(mcfg, dataclasses.replace(tcfg, device_sorted_gather=False), start,
+                            batches)
+    _check(got, one, sharded, plan, mine)
+
+
 def test_sorted_shard_takes_the_bf16_buffer_like_jax(pool):
     """`scatter_buffer_dtype="bfloat16"`: the host-sorted row-sharded table's
     shard sums each run in the bf16 buffer where the reference's sharded

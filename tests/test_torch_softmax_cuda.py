@@ -175,6 +175,38 @@ def test_backward_is_deterministic_at_the_production_batch(dev, d, bq, row_offse
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [192, 256, 1024, 2048])
+@pytest.mark.parametrize("bq,row_offset,n_valid", [(512, 0, 400), (128, 256, None),
+                                                   (256, 256, 448)])
+def test_wide_dims_match_plain(dev, d, bq, row_offset, n_valid):
+    """128 < D <= 2,048: the kernels sum a score over D in slices of 64 and
+    cut dq and dc in column slices of 128 across the grid. The square with
+    padded columns and stripes at a row offset, item ids and logQ: each
+    kernel against its plain version, two launches bit for bit, dq and dc
+    of the original width (192 is padded to 256), padded columns without
+    gradient, and a stripe's lse equal to its rows of the square case."""
+    bk = 512
+    q16, c16, ids, log_q, g = _inputs(dev, bk, bk, d, seed=d + bq, n_ids=200)
+    adj = sk._merged_adj(log_q, n_valid, bk, dev)
+    rows = slice(row_offset, row_offset + bq)
+    args = (q16[rows].contiguous(), c16, adj, ids[rows].contiguous(), ids, row_offset, 1 / 0.7)
+    g = g[rows].contiguous()
+    lse = _compare(args, g)
+    want_lse = sk.lse_forward_reference(*args)
+    again = (sk.softmax_lse_fwd(*args), sk.softmax_lse_dq(*args, want_lse, g),
+             sk.softmax_lse_dc(*args, want_lse, g))
+    first = (lse, sk.softmax_lse_dq(*args, want_lse, g), sk.softmax_lse_dc(*args, want_lse, g))
+    square = sk.softmax_lse_fwd(q16, c16, adj, ids, ids, 0, 1 / 0.7)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, again):
+        assert torch.equal(a.view(torch.int32), b_.view(torch.int32))
+    assert first[1].shape == (bq, d) and first[2].shape == (bk, d)
+    if n_valid is not None:
+        assert (first[2][n_valid:] == 0).all()
+    assert torch.equal(lse.view(torch.int32), square[rows].view(torch.int32))
+
+
+@pytest.mark.cuda
 def test_fully_masked_rows_stay_finite(dev):
     """Every id equal and the last 128 columns padded: rows at or past
     `n_valid` have no live column. The lse is finite (about -1e9) and the
@@ -219,7 +251,7 @@ def test_shapes_outside_the_gate_raise_on_the_card(dev):
     q16, c16, ids, log_q, _ = _inputs(dev, 384, 384, 64, seed=2)
     with pytest.raises(ValueError, match="softmax_kernel_shapes_ok"):
         sk.softmax_lse_fwd(q16[:200].contiguous(), c16, None, None, None, 0, 1.0)
-    q16, c16, _, _, _ = _inputs(dev, 256, 256, 160, seed=2)
+    q16, c16, _, _, _ = _inputs(dev, 256, 256, 2049, seed=2)  # past the reference's cap
     with pytest.raises(ValueError, match="softmax_kernel_shapes_ok"):
         sk.softmax_lse_fwd(q16, c16, None, None, None, 0, 1.0)
     q16, c16, _, log_q, g = _inputs(dev, 256, 256, 64, seed=2)

@@ -1,6 +1,7 @@
 """The port's fused sampled softmax on the CPU (its wrappers run the kernels'
 plain versions there) against the JAX package's fused Pallas kernels in
-interpret mode, on the same numpy inputs, at B = 512 with D = 128 and D = 64.
+interpret mode, on the same numpy inputs, at B = 512 with D = 64, 128 and the
+wide 192 and 256.
 
 Inputs are pre-rounded to bf16 values, as `tests/test_softmax_kernel.py`
 does, so both versions multiply identical operands.
@@ -142,17 +143,66 @@ def test_rectangular_stripes_sum_to_square(use_ids, use_logq):
 
 
 def test_shapes_gate_matches_the_reference_up_to_the_dim_cap():
-    """The reference's rule for the batch dims; D at most 128 here (2,048
-    there): the CUDA kernels keep a [rows, D] accumulator in registers."""
-    assert sk.MAX_DIM == 128
+    """The reference's rule, its cap on D (2,048) included: the CUDA kernels
+    take a wide D in depth slices (`csrc/softmax_lse.cu`, "wide D"). The
+    wrappers pad D to 64, 128 or a multiple of 128."""
+    assert sk.MAX_DIM == 2048
     cases = [(65536, 128, None), (65536, 64, None), (65536, 4096, None), (1000, 128, None),
              (128, 128, None), (65536, 64, 8192), (65536, 64, 96), (512, 64, 384),
-             (512, 1, None), (512, 0, None), (256, 128, 128)]
+             (512, 1, None), (512, 0, None), (256, 128, 128), (8192, 129, None),
+             (8192, 256, None), (8192, 2048, None), (8192, 2049, None), (8192, 2048, 2048),
+             (8192, 192, 1024)]
     for bk, d, bq in cases:
         assert sk.softmax_kernel_shapes_ok(bk, d, bq) == jax_sk.softmax_kernel_shapes_ok(bk, d, bq)
-    assert sk.softmax_kernel_shapes_ok(8192, 128)
-    assert not sk.softmax_kernel_shapes_ok(8192, 129)  # the port's cap
-    assert jax_sk.softmax_kernel_shapes_ok(8192, 129)
+    assert sk.softmax_kernel_shapes_ok(8192, 129) and sk.softmax_kernel_shapes_ok(8192, 2048)
+    assert not sk.softmax_kernel_shapes_ok(8192, 2049)
+    assert [sk._padded_dim(d) for d in (1, 64, 65, 128, 129, 192, 256, 2000, 2048)] == [
+        64, 64, 128, 128, 256, 256, 256, 2048, 2048]
+
+
+WIDE = [192, 256]  # past 128: the kernels' depth slices; 192 pads to 256
+
+
+@pytest.mark.parametrize("d", WIDE)
+@pytest.mark.parametrize("use_ids,use_logq,n_valid", [MASKS[2], MASKS[3]])
+def test_wide_dims_match_the_pallas_kernels(use_ids, use_logq, n_valid, d):
+    """At D = 192 and 256 (the reference pads D to a multiple of 128 and
+    runs its kernels; the port pads to 256 and takes the wide kernels on the
+    card, their plain versions here): `lse_and_pos` at LSE_TOL, and the
+    fused loss at LSE_TOL with dq and dc within one bf16 ulp of the largest
+    magnitude and cosine > 0.99999, against the JAX kernels in interpret
+    mode."""
+    q, c, labels, ids, log_q = _setup(seed=21 + d, d=d)
+    if n_valid is not None:
+        labels = labels * (np.arange(B) < n_valid)
+    ids_f = jnp.asarray(ids).astype(jnp.float32)
+    pad = lambda a: jnp.asarray(np.pad(a, ((0, 0), (0, 256 - d))))  # noqa: E731
+    want_lse, want_pos = jax_sk.lse_and_pos(
+        pad(q), pad(c), ids_f, ids_f, jnp.asarray(log_q), jnp.arange(B, dtype=jnp.float32),
+        0.7, n_valid, (use_ids, use_logq), True)
+    t_ids = torch.from_numpy(ids) if use_ids else None
+    t_lq = torch.from_numpy(log_q) if use_logq else None
+    got_lse, got_pos = sk.lse_and_pos(torch.from_numpy(q), torch.from_numpy(c), t_ids, t_ids,
+                                      t_lq, 0, 0.7, n_valid)
+    np.testing.assert_allclose(got_lse.detach().numpy(), np.asarray(want_lse), **LSE_TOL)
+    np.testing.assert_allclose(got_pos.detach().numpy(), np.asarray(want_pos), **LSE_TOL)
+
+    def jax_loss(qa, ca):
+        return jax_sk.sampled_softmax_fused(
+            qa, ca, jnp.asarray(labels), jnp.asarray(ids) if use_ids else None,
+            jnp.asarray(log_q) if use_logq else None, 0.7, n_valid=n_valid, interpret=True)
+
+    want, (want_dq, want_dc) = jax.value_and_grad(jax_loss, argnums=(0, 1))(
+        jnp.asarray(q), jnp.asarray(c))
+    qt = torch.from_numpy(q).requires_grad_(True)
+    ct = torch.from_numpy(c).requires_grad_(True)
+    got = sk.sampled_softmax_fused(qt, ct, torch.from_numpy(labels), t_ids, t_lq, 0.7,
+                                   n_valid=n_valid)
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(want), **LSE_TOL)
+    assert qt.grad.shape == (B, d) and ct.grad.shape == (B, d)
+    _assert_grad_close(qt.grad.numpy(), want_dq, "dq")
+    _assert_grad_close(ct.grad.numpy(), want_dc, "dc")
 
 
 def test_wrappers_on_cpu_are_the_plain_versions_and_count_nothing():
@@ -215,17 +265,41 @@ def test_plain_versions_block_the_rows(monkeypatch):
     torch.testing.assert_close(dc2, dc, rtol=1e-4, atol=1e-5)  # summed over blocks
 
 
+def _scores_in_kernel_order(dots, d):
+    """The f32 scores from their 16-deep chunk sums `dots` [.., D / 16]
+    (float64, each exact) as the kernels add them: at D <= 128 in order into
+    one accumulator, each add one rounding to f32 (an mma adds 16 products to
+    its accumulator in one step); above 128, per 64-deep slice its 4 chunks
+    from zero that way, then the slices' partials added in f32 in order
+    (`score_slice` of the wide kernels)."""
+    def chunked(chunks):
+        acc = torch.zeros(chunks.shape[:-1])
+        for k in range(chunks.shape[-1]):
+            acc = (acc.double() + chunks[..., k]).float()
+        return acc
+
+    if d <= 128:
+        return chunked(dots)
+    s = torch.zeros(dots.shape[:-1])
+    for k in range(0, d // 16, 4):
+        s = s + chunked(dots[..., k:k + 4])
+    return s
+
+
 def _tensor_core_order_backward(q16, c16, adj, row_ids, col_ids, inv_t, lse, g):
     """(dq, dc) of the square case summed in the order of kernels #10 and
     #11 on the tensor cores. An mma adds 16 products to its f32 accumulator
     in one step (modelled here exactly, in float64, with one rounding to
     f32), and the 16-deep chunks follow in order: the depth for a score, the
-    streamed rows for the second product. A p of weight (exp(s - lse) >=
+    streamed rows for the second product (the depth's chunks as
+    `_scores_in_kernel_order` adds them). A p of weight (exp(s - lse) >=
     2^-10) whose f32 value lies within 0x2000 ulps of a bf16 rounding
     midpoint takes its score summed in k order instead (the kernels'
-    `near_tie` / `ordered_dot`). The exp is torch's; the kernels' ex2.approx
+    `near_tie` / `ordered_dot`; above D = 128 summed in f64 and rounded,
+    `rounded_dot_global`). The exp is torch's; the kernels' ex2.approx
     lies a few f32 ulps from it, far inside that window. Of the NG warp
-    groups of a block (4 at D = 64, 2 at 128), group k sums the 64-row tiles
+    groups of a block (4 at D = 64, 2 at 128 and above), group k sums the
+    64-row tiles
     k, k + NG, ..., and group 0 adds the others' sums to its own in group
     order; then times 1/T."""
     b, d = q16.shape
@@ -248,11 +322,16 @@ def _tensor_core_order_backward(q16, c16, adj, row_ids, col_ids, inv_t, lse, g):
         return ex * g[:, None], ex
 
     dots = torch.einsum("ikc,jkc->ijk", qd.reshape(b, d // 16, 16), cd.reshape(b, d // 16, 16))
-    p, ex = p_of(chunked(torch.zeros(b, b), dots))
-    # products of bf16 values are exact in f32, so each step below is one fmaf
-    ordered = torch.zeros(b, b)
-    for k in range(d):
-        ordered = ordered + q16[:, k, None].float() * c16[None, :, k].float()
+    p, ex = p_of(_scores_in_kernel_order(dots, d))
+    # the tie score: at D <= 128 one fmaf a product in k order (products of
+    # bf16 values are exact in f32, so each step below is one fmaf); above,
+    # summed in f64 and rounded once (the wide kernels' `rounded_dot_global`)
+    if d > 128:
+        ordered = (qd @ cd.T).float()
+    else:
+        ordered = torch.zeros(b, b)
+        for k in range(d):
+            ordered = ordered + q16[:, k, None].float() * c16[None, :, k].float()
     low = p.view(torch.int32) & 0xFFFF
     tie = (ex >= 2.0 ** -10) & ((low - 0x8000).abs() <= 0x2000)
     p = torch.where(tie, p_of(ordered)[0], p).to(torch.bfloat16).double()
@@ -271,7 +350,7 @@ def _tensor_core_order_backward(q16, c16, adj, row_ids, col_ids, inv_t, lse, g):
 
 @pytest.mark.parametrize("d,use_ids,use_logq,n_valid", [
     (64, True, True, None), (64, True, True, 384), (16, True, False, None),
-    (128, False, True, 400)])
+    (128, False, True, 400), (256, True, True, 384), (192, True, False, None)])
 def test_tensor_core_summation_order_stays_within_the_card_tolerances(d, use_ids, use_logq,
                                                                       n_valid):
     """The backward kernels sum each score in 16-deep chunks (and the
@@ -284,13 +363,13 @@ def test_tensor_core_summation_order_stays_within_the_card_tolerances(d, use_ids
     q, c, _, ids, log_q = _setup(seed=13, d=d)
     g = (np.random.default_rng(14).normal(size=B) / B).astype(np.float32)
     ids_f = jnp.asarray(ids).astype(jnp.float32)
-    pad = lambda a: jnp.asarray(np.pad(a, ((0, 0), (0, 128 - d))))  # noqa: E731
+    pad = lambda a: jnp.asarray(np.pad(a, ((0, 0), (0, -d % 128))))  # noqa: E731
     _, vjp = jax.vjp(
         lambda qa, ca: jax_sk._lse_fused(qa, ca, ids_f, ids_f, jnp.asarray(log_q),
                                          jnp.arange(B, dtype=jnp.float32), 0.7, n_valid,
                                          (use_ids, use_logq), True), pad(q), pad(c))
     want_dq, want_dc = (np.asarray(x)[:, :d] for x in vjp(jnp.asarray(g)))
-    # the kernels see D zero-padded to 64 or 128, as the wrapper pads it
+    # the kernels see D zero-padded to 64, 128 or a multiple of 128, as the wrapper pads it
     q16, c16 = (sk._pad_dim(torch.from_numpy(x).to(torch.bfloat16)) for x in (q, c))
     ids_t = torch.from_numpy(ids) if use_ids else None
     adj = sk._merged_adj(torch.from_numpy(log_q) if use_logq else None, n_valid, B,
@@ -305,9 +384,8 @@ def test_tensor_core_summation_order_stays_within_the_card_tolerances(d, use_ids
 
 def _tensor_core_order_forward(q16, c16, adj, row_ids, col_ids, inv_t):
     """lse of the square case in the order of kernel #9 on the tensor cores.
-    Each score: the 16-deep chunks of the depth added in order (an mma adds
-    16 products to its f32 accumulator in one step, modelled exactly in
-    float64 with one rounding to f32), times 1/T, minus adj, the mask. The
+    Each score: the 16-deep chunks of the depth added as
+    `_scores_in_kernel_order` adds them, times 1/T, minus adj, the mask. The
     64-column tiles are split over the 4 warp groups (group k takes the tiles
     k, k + 4, ...). A thread holds columns 8n + 2t and 8n + 2t + 1 (n = 0..7)
     of each tile of a row: per tile the row's max over the 64 columns (the
@@ -320,10 +398,7 @@ def _tensor_core_order_forward(q16, c16, adj, row_ids, col_ids, inv_t):
     bk = c16.shape[0]
     dots = torch.einsum("ikc,jkc->ijk", q16.double().reshape(b, d // 16, 16),
                         c16.double().reshape(bk, d // 16, 16))
-    s = torch.zeros(b, bk)
-    for k in range(d // 16):
-        s = (s.double() + dots[..., k]).float()
-    s = s * inv_t
+    s = _scores_in_kernel_order(dots, d) * inv_t
     if adj is not None:
         s = s - adj[None, :]
     if row_ids is not None:
@@ -357,7 +432,8 @@ def _tensor_core_order_forward(q16, c16, adj, row_ids, col_ids, inv_t):
 
 @pytest.mark.parametrize("d,use_ids,use_logq,n_valid", [
     (64, True, True, None), (64, True, True, 384), (16, True, False, None),
-    (128, False, True, 400), (128, True, True, None)])
+    (128, False, True, 400), (128, True, True, None), (256, True, True, None),
+    (192, True, True, 384)])
 def test_forward_tensor_core_order_stays_within_the_card_tolerance(d, use_ids, use_logq,
                                                                    n_valid):
     """Kernel #9 sums each score in 16-deep chunks on the tensor cores and
@@ -368,11 +444,11 @@ def test_forward_tensor_core_order_stays_within_the_card_tolerance(d, use_ids, u
     2e-5, atol 1e-5) of the reference's `_lse_fused` in interpret mode."""
     q, c, _, ids, log_q = _setup(seed=17, d=d)
     ids_f = jnp.asarray(ids).astype(jnp.float32)
-    pad = lambda a: jnp.asarray(np.pad(a, ((0, 0), (0, 128 - d))))  # noqa: E731
+    pad = lambda a: jnp.asarray(np.pad(a, ((0, 0), (0, -d % 128))))  # noqa: E731
     want = jax_sk._lse_fused(pad(q), pad(c), ids_f, ids_f, jnp.asarray(log_q),
                              jnp.arange(B, dtype=jnp.float32), 0.7, n_valid,
                              (use_ids, use_logq), True)
-    # the kernel sees D zero-padded to 64 or 128, as the wrapper pads it
+    # the kernel sees D zero-padded to 64, 128 or a multiple of 128, as the wrapper pads it
     q16, c16 = (sk._pad_dim(torch.from_numpy(x).to(torch.bfloat16)) for x in (q, c))
     ids_t = torch.from_numpy(ids) if use_ids else None
     adj = sk._merged_adj(torch.from_numpy(log_q) if use_logq else None, n_valid, B,

@@ -287,10 +287,12 @@ def test_unsorted_ids_for_the_sorted_table_are_refused():
     lambda m, t: ({"t": dataclasses.replace(t, loss="sampled_softmax")}, "sharded loss"),
 ])
 def test_features_not_ported_raise(make):
-    """`device_sorted_gather` still waits (ROADMAP); the packed epoch's
-    multi-device placement and the data-parallel softmax are ported: a
-    placement must be a slicer or a pytree of them, and the sharded loss
-    builds (its collectives run at the call)."""
+    """Nothing of these waits any more: `device_sorted_gather` builds (its
+    steps are held against the JAX package's in
+    `test_torch_device_sorted_gather.py`), the packed epoch's multi-device
+    placement and the data-parallel softmax are ported: a placement must be
+    a slicer or a pytree of them, and the sharded loss builds (its
+    collectives run at the call)."""
     _, _, pcfg, ptcfg = _configs("float32", "off", "float32")
     change, where = make(pcfg, ptcfg)
     mcfg, tcfg = change.get("m", pcfg), change.get("t", ptcfg)
@@ -301,8 +303,8 @@ def test_features_not_ported_raise(make):
         assert callable(port_losses.loss_fn_from_config(tcfg, mcfg, sharded=True,
                                                         mesh=object()))
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_step.make_train_step(mcfg, tcfg, port_opt.dense_optimizer(1e-3))
+        assert tcfg.device_sorted_gather
+        assert callable(port_step.make_train_step(mcfg, tcfg, port_opt.dense_optimizer(1e-3)))
     with pytest.raises(TypeError, match="not a placement"):
         device_put_batch({}, "cpu", sharding=object())
 

@@ -181,7 +181,7 @@ class TrainConfig:
     # a single-slot feature whose hashed ids arrive sorted within each batch
     # (the featurizer sorts rows by it): its table's update skips the sort
     sorted_feature: str | None = None
-    # "float32" only in the port ("bfloat16" aggregation buffers: ROADMAP)
+    # "float32" | "bfloat16": the host-sorted table's aggregation buffer (`train/step.py`)
     scatter_buffer_dtype: str = "float32"
     # "off" | "float32" | "bfloat16": the dtype of the [M, D] gradient rows
     # the row-wise Adagrad kernel sums ("off" and "float32" pass f32)
@@ -189,7 +189,10 @@ class TrainConfig:
     # route the sorted feature's forward gather through the sorted-lookup
     # call site (the pooled-gather kernel either way)
     block_sorted_gather: bool = True
-    device_sorted_gather: bool = False  # not ported (ROADMAP)
+    # gather the single-slot features the host does not sort through a device
+    # sort, kernel #1 / #5 at one slot and the inverse permute (`train/step.py:
+    # device_sorted_features`); the one-device step only, as in the reference
+    device_sorted_gather: bool = False
     softmax_kernel: str = "auto"  # only for sampled_softmax
     # the exchange of the row-sharded float tables that the host does not sort
     # (`parallel/sharded.py`): "dense" (all-gather / reduce-scatter) | "alltoall"

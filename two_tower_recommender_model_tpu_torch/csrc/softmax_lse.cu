@@ -25,8 +25,9 @@
 // index row, the (1024, 512) blocks, the pre-transposed c and the sequential
 // grid axis that carried the running max / sum / accumulator in VMEM.
 //
-// Contract: q [BQ, DP] and c [BK, DP] bf16, row-major, DP 64 or 128 (the
-// wrapper zero-pads D); BQ and BK multiples of 128; adj [BK] f32 or null;
+// Contract: q [BQ, DP] and c [BK, DP] bf16, row-major, DP 64, 128 or a
+// multiple of 128 up to 2,048 (the wrapper zero-pads D, as the reference
+// pads it to 128 lanes, to the reference's cap); BQ and BK multiples of 128; adj [BK] f32 or null;
 // row_ids [BQ] and col_ids [BK] int32, both or neither; lse, g [BQ] f32;
 // outputs f32; every pointer 16-byte aligned. q row i has global row index
 // row_offset + i, the column of its positive, so one stripe of a
@@ -39,7 +40,10 @@
 // special-function units' 16 a clock per SM (about 0.016 ms for the 67M
 // scores at 8,192^2), and ~10 (forward) to ~15 (backward) instructions a
 // score of the adjustment and the epilogue at 128 a clock per SM (~0.02 to
-// 0.04 ms): they, not the products, set the time.
+// 0.04 ms): they, not the products, set the time. At a wide D the products
+// do: 0.0347 ms for #9 and 0.0695 ms for #10 or #11 at 8,192^2, D = 256;
+// 0.278 and 0.556 ms at D = 2,048 (the kernels at 128 < D <= 2,048 are at
+// "wide D" below).
 //
 // The three kernels share one skeleton (`stream_tiles`) and one score
 // product (`score_tile`, then `adjust_tile`), on the tensor cores
@@ -160,7 +164,7 @@ struct Args {
   const float* lse;     // [BQ], backward only
   const float* g;       // [BQ], backward only
   float* out;           // forward: lse [BQ]; backward: dq [BQ, DP] or dc [BK, DP]
-  int bq, bk, row_offset;
+  int bq, bk, dp, row_offset;  // dp: the padded depth, the row stride of q, c and out
   float inv_t;
 };
 
@@ -226,6 +230,21 @@ __device__ __forceinline__ OwnRows load_own_rows(const Args& a, int r0, bool use
   return o;
 }
 
+// The scalars of a tile of streamed rows o0 .. o0 + 63 into `sc` (adj of c
+// rows, or lse and g of q rows; the ids): cp.async by the group's 128
+// threads (gt), 16 pieces of 4 scalars per array: threads 0-15 the first,
+// 16-31 the second, 32-47 the ids. Not waited for here.
+template <bool OWN_Q>
+__device__ __forceinline__ void load_scalars(const Args& a, int o0, float* sc, int gt,
+                                             bool use_ids) {
+  const int part = gt >> 4, i4 = (gt & 15) * 4;
+  const float* first = OWN_Q ? a.adj : a.lse;
+  if (part == 0 && first != nullptr) cp_async16(sc + i4, first + o0 + i4);
+  if (part == 1 && !OWN_Q) cp_async16(sc + kSub + i4, a.g + o0 + i4);
+  if (part == 2 && use_ids)
+    cp_async16(sc + 2 * kSub + i4, (OWN_Q ? a.col_ids : a.row_ids) + o0 + i4);
+}
+
 // One tile of the streamed operand (rows o0 .. o0 + 63) and its scalars into
 // a stage: cp.async by the group's 128 threads (gt), not waited for here.
 template <int DP, bool OWN_Q>
@@ -236,13 +255,7 @@ __device__ __forceinline__ void load_tile(const Args& a, const uint16_t* __restr
   for (int idx = gt; idx < kSub * V; idx += kGroupThreads)
     cp_async16(dst + (idx / V) * LD + (idx % V) * 8,
                other + static_cast<size_t>(o0 + idx / V) * DP + (idx % V) * 8);
-  // 16 pieces of 4 scalars per array: threads 0-15 the first, 16-31 the second, 32-47 ids
-  const int part = gt >> 4, i4 = (gt & 15) * 4;
-  const float* first = OWN_Q ? a.adj : a.lse;
-  if (part == 0 && first != nullptr) cp_async16(sc + i4, first + o0 + i4);
-  if (part == 1 && !OWN_Q) cp_async16(sc + kSub + i4, a.g + o0 + i4);
-  if (part == 2 && use_ids)
-    cp_async16(sc + 2 * kSub + i4, (OWN_Q ? a.col_ids : a.row_ids) + o0 + i4);
+  load_scalars<OWN_Q>(a, o0, sc, gt, use_ids);
 }
 
 // The skeleton of the three kernels. Copies the block's 64 own rows to
@@ -303,6 +316,13 @@ __device__ __forceinline__ void stream_tiles(const Args& a, unsigned char* smem,
   }
 }
 
+__device__ __forceinline__ void zero_scores(float (&s)[8][4]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+}
+
 // The raw dot products of the warp's 16 own rows (A fragments af) with a
 // tile's 64 streamed rows: s[n] is the 16 x 8 block of streamed rows 8n ..
 // 8n + 7 (the accumulator layout of mma_sm90.cuh), each score the DP / 16
@@ -312,10 +332,7 @@ __device__ __forceinline__ void score_tile(float (&s)[8][4], const uint32_t (&af
                                            const bf16* tile) {
   constexpr int LD = tile_ld<DP>();
   const int lane = threadIdx.x & 31, r8 = lane & 7, mat = lane >> 3;
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+  zero_scores(s);
 #pragma unroll
   for (int ks = 0; ks < DP / 16; ++ks)
 #pragma unroll
@@ -350,6 +367,63 @@ __device__ __forceinline__ void adjust_tile(float (&s)[8][4], const float* sc, c
   }
 }
 
+// The online max and sum of kernel #9 over one tile's adjusted scores: a
+// thread holds 2 own rows x 16 columns; the tile's row max is the max of the
+// thread's 16 scores, then of its quad's; l is rescaled by exp(m_old - m_new)
+// before the tile's 16 exps are added in column order.
+__device__ __forceinline__ void online_tile(const float (&s)[8][4], float (&m)[2], float (&l)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mt = kNeg;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) mt = fmaxf(mt, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));  // the quad: the row's 64 columns
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+    const float m_new = fmaxf(m[h], mt);
+    float sum = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      sum += exp_approx(s[n][2 * h] - m_new);
+      sum += exp_approx(s[n][2 * h + 1] - m_new);
+    }
+    l[h] = l[h] * exp_approx(m[h] - m_new) + sum;
+    m[h] = m_new;
+  }
+}
+
+// The end of kernel #9: the quad's four sums of a row, then the NG groups'
+// (m, l) merged in group order through `ml` ([NG][64] in shared memory that
+// no group reads any more), lse = M + log(L) for the block's 64 rows.
+template <int NG>
+__device__ __forceinline__ void finish_lse(float2* ml, float (&m)[2], float (&l)[2], float* out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int group = warp >> 2, wr = (warp & 3) * 16;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  __syncthreads();  // every group is past its tiles: the buffers are free
+  if (t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) ml[group * kOwn + wr + g + 8 * h] = make_float2(m[h], l[h]);
+  }
+  __syncthreads();
+  if (threadIdx.x < kOwn) {
+    float mx = kNeg;
+#pragma unroll
+    for (int k = 0; k < NG; ++k) mx = fmaxf(mx, ml[k * kOwn + threadIdx.x].x);
+    float sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < NG; ++k) {
+      const float2 v = ml[k * kOwn + threadIdx.x];
+      sum += v.y * expf(v.x - mx);
+    }
+    out[threadIdx.x] = mx + logf(sum);
+  }
+}
+
 // Kernel #9: lse for the block's 64 q rows, streaming c.
 template <int DP>
 __global__ void __launch_bounds__(kFwdGroups * kGroupThreads) lse_fwd_kernel(const Args a) {
@@ -359,8 +433,7 @@ __global__ void __launch_bounds__(kFwdGroups * kGroupThreads) lse_fwd_kernel(con
   extern __shared__ float4 smem4[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int group = warp >> 2, wr = (warp & 3) * 16;
-  const int g = lane >> 2, t = lane & 3;  // fragment row and column pair
+  const int wr = (warp & 3) * 16, g = lane >> 2;  // the warp's first own row; fragment row
   const bool use_ids = a.row_ids != nullptr;
   const int own0 = blockIdx.x * kOwn;
   const OwnRows own = load_own_rows<true, false>(a, own0 + wr + g, use_ids);
@@ -371,50 +444,9 @@ __global__ void __launch_bounds__(kFwdGroups * kGroupThreads) lse_fwd_kernel(con
     float s[8][4];
     score_tile<DP>(s, af, tile);
     adjust_tile<true>(s, sc, own, o0, a, use_ids);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mt = kNeg;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) mt = fmaxf(mt, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));  // the quad: the row's 64 columns
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-      const float m_new = fmaxf(m[h], mt);
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        sum += exp_approx(s[n][2 * h] - m_new);
-        sum += exp_approx(s[n][2 * h + 1] - m_new);
-      }
-      l[h] = l[h] * exp_approx(m[h] - m_new) + sum;
-      m[h] = m_new;
-    }
+    online_tile(s, m, l);
   });
-
-  // the quad's four sums of a row, then the groups' (m, l) merged in group order
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-  }
-  __syncthreads();  // every group is past its tiles: the buffers are free
-  float2* ml = reinterpret_cast<float2*>(smem + L::stream);  // [NG][64] (m, l)
-  if (t == 0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) ml[group * kOwn + wr + g + 8 * h] = make_float2(m[h], l[h]);
-  }
-  __syncthreads();
-  if (threadIdx.x < kOwn) {
-    float mx = kNeg;
-#pragma unroll
-    for (int k = 0; k < kFwdGroups; ++k) mx = fmaxf(mx, ml[k * kOwn + threadIdx.x].x);
-    float sum = 0.f;
-#pragma unroll
-    for (int k = 0; k < kFwdGroups; ++k) {
-      const float2 v = ml[k * kOwn + threadIdx.x];
-      sum += v.y * expf(v.x - mx);
-    }
-    a.out[own0 + threadIdx.x] = mx + logf(sum);
-  }
+  finish_lse<kFwdGroups>(reinterpret_cast<float2*>(smem + L::stream), m, l, a.out + own0);
 }
 
 // ---- kernels #10 and #11 ------------------------------------------------------
@@ -464,6 +496,142 @@ __device__ float ordered_dot(const bf16* a, const bf16* b) {
   return s;
 }
 
+// The wide kernels' tie score: a . b over dp bf16 values of two rows in
+// device memory (no whole row is in shared memory), summed in f64 in k order
+// and rounded to f32 once, as the plain version takes a score at a wide D.
+// An f32 sum of 2,048 products depends on its order by tens of ulps, and the
+// order of the library's f32 GEMM there is its own choice: on an H100 a
+// [1,024, 4,096] stripe took another than the [4,096, 4,096] square. The
+// products of bf16 values are exact, and an f64 sum of them rounds to the
+// same f32 in any order.
+__device__ float rounded_dot_global(const uint16_t* a, const uint16_t* b, int dp) {
+  double s = 0.0;
+  for (int k = 0; k < dp; k += 8) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(a + k));
+    const uint4 w = __ldg(reinterpret_cast<const uint4*>(b + k));
+    const uint32_t au[4] = {u.x, u.y, u.z, u.w}, bu[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      s = fma(static_cast<double>(bf16_lo(au[m])), static_cast<double>(bf16_lo(bu[m])), s);
+      s = fma(static_cast<double>(bf16_hi(au[m])), static_cast<double>(bf16_hi(bu[m])), s);
+    }
+  }
+  return __double2float_rn(s);
+}
+
+// The backward's work on one tile after adjust_tile: the epilogue turns the
+// warp's adjusted scores `s` into p in place (exp(s - lse) * g), computes
+// again each p of weight that lies near a bf16 rounding tie from its score
+// summed in k order (`tie_dot(h, c)`: own row g + 8h against streamed row c
+// of the tile), then adds the second product p (16 x 64, rounded to bf16 in
+// the registers) @ `tile` (64 x 8 ND, row stride LD) to `acc`.
+template <bool OWN_Q, int ND, int LD, typename TieDot>
+__device__ __forceinline__ void bwd_tile(float (&s)[8][4], const float* sc, const OwnRows& own,
+                                         int o0, const Args& a, bool use_ids, float (&acc)[ND][4],
+                                         const bf16* tile, TieDot&& tie_dot) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int r8 = lane & 7, mat = lane >> 3;  // ldmatrix: row within a matrix, matrix
+  // the epilogue, in place: s[n][e] becomes p for own row g + 8 (e / 2) and
+  // streamed row 8n + 2t + (e % 2); bit 4n + e of `ties` marks a p to recompute
+  uint32_t ties = 0;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int c = n * 8 + 2 * t;
+    const float2 x0 = OWN_Q ? make_float2(0.f, 0.f)
+                            : *reinterpret_cast<const float2*>(sc + c);  // lse (dc)
+    const float2 x1 = OWN_Q ? make_float2(1.f, 1.f)
+                            : *reinterpret_cast<const float2*>(sc + kSub + c);  // g (dc)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1, j = e & 1;
+      float ex;
+      s[n][e] = p_value<true>(s[n][e], OWN_Q ? own.x[h] : (j ? x0.y : x0.x),
+                              OWN_Q ? own.g[h] : (j ? x1.y : x1.x), ex);
+      if (ex >= kTieFloor && near_tie(s[n][e])) ties |= 1u << (4 * n + e);
+    }
+  }
+  // a p of weight (exp(s - lse) >= 2^-10) whose f32 value lies near a bf16
+  // rounding tie: again as the plain version computes it (k-order score, expf)
+  while (__any_sync(0xffffffffu, ties != 0)) {
+    const bool mine = ties != 0;
+    const int i = mine ? __ffs(ties) - 1 : 0;
+    ties &= ties - 1;
+    const int h = (i >> 1) & 1, c = (i >> 2) * 8 + 2 * t + (i & 1);
+    float p = 0.f;
+    if (mine) {
+      const float dot = tie_dot(h, c);
+      const int oid = use_ids ? reinterpret_cast<const int*>(sc)[2 * kSub + c] : 0;
+      const bool masked = use_ids && (h ? own.id[1] : own.id[0]) == oid &&
+                          (h ? own.pos[1] : own.pos[0]) != (OWN_Q ? 0 : a.row_offset) + o0 + c;
+      const float ox = h ? own.x[1] : own.x[0];
+      float ex;
+      p = p_value<false>(adjusted_score(dot, a.inv_t, OWN_Q ? sc[c] : ox, masked),
+                         OWN_Q ? ox : sc[c], OWN_Q ? (h ? own.g[1] : own.g[0]) : sc[kSub + c],
+                         ex);
+    }
+#pragma unroll
+    for (int k = 0; k < 32; ++k)
+      if (mine && k == i) s[k >> 2][k & 3] = p;
+  }
+
+  // the second product: p (16 x 64, from the registers) @ tile (64 x 8 ND)
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t pa[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
+                            pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
+                            pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                            pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+    for (int n = 0; n < ND; n += 2) {
+      uint32_t b[4];  // matrices (16kk, 8n), (16kk + 8, 8n), (16kk, 8n + 8), (16kk + 8, 8n + 8)
+      ldsm_x4_trans(b, tile + (kk * 16 + r8 + (mat & 1) * 8) * LD + n * 8 + (mat >> 1) * 8);
+      mma_bf16(acc[n], pa, b[0], b[1]);
+      mma_bf16(acc[n + 1], pa, b[2], b[3]);
+    }
+  }
+}
+
+// The end of kernels #10 and #11: groups 1 .. NG-1 write their partial sums
+// to `part` ([NG - 1][64][RLD] f32 in shared memory that no group reads any
+// more); group 0 adds them to its own in group order, times 1/T once, and
+// writes the block's 64 rows x 8 ND columns at out + row * ld.
+template <int NG, int ND, int RLD>
+__device__ __forceinline__ void finish_grad(const float (&acc)[ND][4], float* part, float* out,
+                                            size_t ld, float inv_t) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int group = warp >> 2, wr = (warp & 3) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  __syncthreads();
+  if (group > 0) {
+    float* mine = part + (group - 1) * kOwn * RLD;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(mine + (wr + g + 8 * h) * RLD + n * 8 + 2 * t) =
+            make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+  }
+  __syncthreads();
+  if (group == 0) {
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wr + g + 8 * h;
+        float2 v = make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+#pragma unroll
+        for (int k = 0; k < NG - 1; ++k) {
+          const float2 o =
+              *reinterpret_cast<const float2*>(part + (k * kOwn + r) * RLD + n * 8 + 2 * t);
+          v.x += o.x;
+          v.y += o.y;
+        }
+        *reinterpret_cast<float2*>(out + r * ld + n * 8 + 2 * t) =
+            make_float2(v.x * inv_t, v.y * inv_t);
+      }
+  }
+}
+
 // Kernels #10 (OWN_Q: dq for the block's 64 q rows, streaming c) and #11 (dc
 // for the block's 64 c rows, streaming q).
 template <int DP, bool OWN_Q>
@@ -477,9 +645,7 @@ __global__ void __launch_bounds__(bwd_groups<DP>() * kGroupThreads) lse_bwd_kern
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
   const bf16* own_s = reinterpret_cast<const bf16*>(smem + L::own);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int group = warp >> 2, wr = (warp & 3) * 16;  // the warp's first own row in the block
-  const int g = lane >> 2, t = lane & 3;       // fragment row and column pair
-  const int r8 = lane & 7, mat = lane >> 3;    // ldmatrix: row within a matrix, matrix
+  const int wr = (warp & 3) * 16, g = lane >> 2;  // the warp's first own row; fragment row
   const int own0 = blockIdx.x * kOwn;
   const bool use_ids = a.row_ids != nullptr;
   const OwnRows own = load_own_rows<OWN_Q, true>(a, own0 + wr + g, use_ids);
@@ -494,117 +660,255 @@ __global__ void __launch_bounds__(bwd_groups<DP>() * kGroupThreads) lse_bwd_kern
     float s[8][4];
     score_tile<DP>(s, af, tile);
     adjust_tile<OWN_Q>(s, sc, own, o0, a, use_ids);
-
-    // the epilogue, in place: s[n][e] becomes p for own row g + 8 (e / 2) and
-    // streamed row 8n + 2t + (e % 2); bit 4n + e of `ties` marks a p to recompute
-    uint32_t ties = 0;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int c = n * 8 + 2 * t;
-      const float2 x0 = OWN_Q ? make_float2(0.f, 0.f)
-                              : *reinterpret_cast<const float2*>(sc + c);  // lse (dc)
-      const float2 x1 = OWN_Q ? make_float2(1.f, 1.f)
-                              : *reinterpret_cast<const float2*>(sc + kSub + c);  // g (dc)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1, j = e & 1;
-        float ex;
-        s[n][e] = p_value<true>(s[n][e], OWN_Q ? own.x[h] : (j ? x0.y : x0.x),
-                                OWN_Q ? own.g[h] : (j ? x1.y : x1.x), ex);
-        if (ex >= kTieFloor && near_tie(s[n][e])) ties |= 1u << (4 * n + e);
-      }
-    }
-    // a p of weight (exp(s - lse) >= 2^-10) whose f32 value lies near a bf16
-    // rounding tie: again as the plain version computes it (k-order score, expf)
-    while (__any_sync(0xffffffffu, ties != 0)) {
-      const bool mine = ties != 0;
-      const int i = mine ? __ffs(ties) - 1 : 0;
-      ties &= ties - 1;
-      const int h = (i >> 1) & 1, c = (i >> 2) * 8 + 2 * t + (i & 1);
-      float p = 0.f;
-      if (mine) {
-        const float dot = ordered_dot<DP>(own_s + (wr + g + 8 * h) * LD, tile + c * LD);
-        const int oid = use_ids ? reinterpret_cast<const int*>(sc)[2 * kSub + c] : 0;
-        const bool masked = use_ids && (h ? own.id[1] : own.id[0]) == oid &&
-                            (h ? own.pos[1] : own.pos[0]) != (OWN_Q ? 0 : a.row_offset) + o0 + c;
-        const float ox = h ? own.x[1] : own.x[0];
-        float ex;
-        p = p_value<false>(adjusted_score(dot, a.inv_t, OWN_Q ? sc[c] : ox, masked),
-                           OWN_Q ? ox : sc[c], OWN_Q ? (h ? own.g[1] : own.g[0]) : sc[kSub + c],
-                           ex);
-      }
-#pragma unroll
-      for (int k = 0; k < 32; ++k)
-        if (mine && k == i) s[k >> 2][k & 3] = p;
-    }
-
-    // the second product: p (16 x 64, from the registers) @ tile (64 x DP)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < ND; n += 2) {
-        uint32_t b[4];  // matrices (16kk, 8n), (16kk + 8, 8n), (16kk, 8n + 8), (16kk + 8, 8n + 8)
-        ldsm_x4_trans(b, tile + (kk * 16 + r8 + (mat & 1) * 8) * LD + n * 8 + (mat >> 1) * 8);
-        mma_bf16(acc[n], pa, b[0], b[1]);
-        mma_bf16(acc[n + 1], pa, b[2], b[3]);
-      }
-    }
+    bwd_tile<OWN_Q, ND, LD>(s, sc, own, o0, a, use_ids, acc, tile, [&](int h, int c) {
+      return ordered_dot<DP>(own_s + (wr + g + 8 * h) * LD, tile + c * LD);
+    });
   });
+  finish_grad<NG, ND, L::RLD>(acc, reinterpret_cast<float*>(smem + L::stream),
+                              a.out + static_cast<size_t>(own0) * DP, DP, a.inv_t);
+}
 
-  // groups 1 .. NG-1 write their partial sums to shared memory (the tile
-  // buffers); group 0 adds them to its own in group order, times 1/T once
-  __syncthreads();
-  float* part = reinterpret_cast<float*>(smem + L::stream);  // [NG - 1][64][RLD]
-  if (group > 0) {
-    float* mine = part + (group - 1) * kOwn * L::RLD;
+// ---- wide D: 128 < D <= 2,048 --------------------------------------------------
+//
+// A [64, D] bf16 tile of 2,048 columns is 256 KB, past the 227 KB a block may
+// hold, and a warp's [16, D] f32 slice of dq or dc would be 128 KB of
+// registers. So at a padded D of 256 to 2,048 (a multiple of 128):
+//   - The score product runs over D in slices of kSlice = 64 columns: for each
+//     streamed tile the group copies slice k of its 64 own rows and of the
+//     tile's 64 rows into shared memory (two [64, 72] bf16 buffers, double
+//     buffered by cp.async over the flat sequence of (tile, slice) steps), and
+//     each warp sums the slice's 4 chunks of 16 from zero on the tensor cores
+//     and adds that to its 16 x 64 fragment of f32 scores on the CUDA cores
+//     (`score_slice`), the slices in order. Nothing of the depth stays in
+//     registers between slices but that fragment.
+//   - The backward's output is cut in slices of kOutCols = 128 columns across
+//     the grid (gridDim.y = D / 128). Each block recomputes its 64 own rows'
+//     full-depth scores, p and the tie recompute for every streamed tile, and
+//     adds p @ (the tile's 128 columns of its slice) to a warp's [16, 128]
+//     f32 accumulator: D / 128 times the score products of one pass. The
+//     score and p of a (row, column) are the same bits in every block of a
+//     row of the grid: the same instructions on the same operands in the same
+//     order, so every output slice sees the same p (its tie decision
+//     included), each computed once in a block, by one warp.
+//   - A tie's score is summed again from the two rows in device memory (no
+//     whole row is in shared memory), in f64 and rounded to f32 once, as the
+//     plain version takes a score at a wide D (`rounded_dot_global`).
+//   - 4 warp groups for #9 (153,600 bytes of shared memory a block), 2 for
+//     #10 and #11 (146,432 bytes: each group also double-buffers the tile's
+//     [64, 136] output-slice columns); the groups split the streamed tiles by
+//     tile index and merge in group order, as at D <= 128, so two launches
+//     agree bit for bit and a stripe's rows equal the square case's.
+// The own rows are read again for every streamed tile (from L2): twice the
+// operand traffic of a design that keeps them, and D / 128 times the
+// backward's score products. Left for later: wgmma with the own rows' slices
+// resident across a cluster, and a backward that keeps p for several output
+// slices.
+
+constexpr int kSlice = 64;       // the score product's depth per step
+constexpr int kSliceLd = kSlice + 8;
+constexpr int kOutCols = 128;    // the backward's output columns per block
+constexpr int kOutLd = kOutCols + 8;
+constexpr int kWideBwdGroups = 2;
+constexpr int kMaxDim = 2048;
+
+// The raw dot products of one depth slice of the wide kernels, added to `s`:
+// per pair of n8 blocks the slice's 4 chunks of 16 summed from zero on the
+// tensor cores, then that partial added to the running score in f32 on the
+// CUDA cores (__fadd_rn). An mma adds to its accumulator with truncation, not
+// rounding to nearest: at D = 2,048 the 128 chunks of one running
+// accumulator drifted ~1e-3 from a k-order sum of a score near 160 (an H100),
+// p by ~2^-10, past the tie window. A partial of 64 products stays small, and
+// the slices' sums round to nearest.
+__device__ __forceinline__ void score_slice(float (&s)[8][4], const uint32_t (&af)[kSlice / 16][4],
+                                            const bf16* tile) {
+  const int lane = threadIdx.x & 31, r8 = lane & 7, mat = lane >> 3;
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
+  for (int n = 0; n < 8; n += 2) {
+    float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float2*>(mine + (wr + g + 8 * h) * L::RLD + n * 8 + 2 * t) =
-            make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
-  }
-  __syncthreads();
-  if (group == 0) {
+    for (int ks = 0; ks < kSlice / 16; ++ks) {
+      uint32_t b[4];  // matrices (rows 8n, k), (8n, k + 8), (8n + 8, k), (8n + 8, k + 8)
+      ldsm_x4(b, tile + (n * 8 + r8 + (mat >> 1) * 8) * kSliceLd + ks * 16 + (mat & 1) * 8);
+      mma_bf16(p0, af[ks], b[0], b[1]);
+      mma_bf16(p1, af[ks], b[2], b[3]);
+    }
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wr + g + 8 * h;
-        float2 v = make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
-#pragma unroll
-        for (int k = 0; k < NG - 1; ++k) {
-          const float2 o =
-              *reinterpret_cast<const float2*>(part + (k * kOwn + r) * L::RLD + n * 8 + 2 * t);
-          v.x += o.x;
-          v.y += o.y;
-        }
-        *reinterpret_cast<float2*>(a.out + static_cast<size_t>(own0 + r) * DP + n * 8 + 2 * t) =
-            make_float2(v.x * a.inv_t, v.y * a.inv_t);
-      }
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] = __fadd_rn(s[n][e], p0[e]);
+      s[n + 1][e] = __fadd_rn(s[n + 1][e], p1[e]);
+    }
   }
 }
 
+// Shared memory of a group of the wide kernels, in bytes from its base:
+// 2 stages x (own slice, streamed slice) [64][72] bf16; for the backward 2
+// stages x the tile's output-slice columns [64][136] bf16; 2 stages x the
+// tile's scalars.
+template <bool BWD>
+struct WideLayout {
+  static constexpr int slice_elems = kSub * kSliceLd;
+  static constexpr int out_elems = kSub * kOutLd;
+  static constexpr int scal_floats = 3 * kSub;
+  static constexpr size_t outs = size_t(4) * slice_elems * 2;
+  static constexpr size_t scal = outs + (BWD ? size_t(2) * out_elems * 2 : 0);
+  static constexpr size_t group_bytes = scal + size_t(2) * scal_floats * 4;
+};
+
+// The skeleton of the wide kernels: walks the group's tiles (group, group +
+// NG, ...), each in dp / 64 depth slices, and calls body(s, sc, out_tile, o0)
+// once a tile's scores are whole: `s` the warp's raw 16 x 64 dot products,
+// `sc` the tile's scalars, `out_tile` its [64, 128] output-slice columns
+// (BWD), `o0` its first streamed row. The buffers stay in use until every
+// group is past its loop (the caller's __syncthreads()).
+template <int NG, bool OWN_Q, bool BWD, typename Body>
+__device__ __forceinline__ void stream_sliced(const Args& a, unsigned char* smem, Body&& body) {
+  using L = WideLayout<BWD>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int group = warp >> 2, wr = (warp & 3) * 16;  // the warp's first own row in the block
+  const int gt = threadIdx.x & (kGroupThreads - 1);
+  const int r8 = lane & 7, mat = lane >> 3;  // ldmatrix: row within a matrix, matrix
+  const bool use_ids = a.row_ids != nullptr;
+  const uint16_t* own = OWN_Q ? a.q : a.c;
+  const uint16_t* other = OWN_Q ? a.c : a.q;
+  const int own0 = blockIdx.x * kOwn, dp = a.dp;
+  const int n_tiles = (OWN_Q ? a.bk : a.bq) / kSub;
+  const int n_mine = (n_tiles - group + NG - 1) / NG;  // tiles of this group (may be 0)
+  const int n_slices = dp / kSlice;
+  const int steps = n_mine * n_slices;
+  unsigned char* base = smem + group * L::group_bytes;
+  bf16* slices = reinterpret_cast<bf16*>(base);  // [stage][own, streamed][64][72]
+  bf16* outs = reinterpret_cast<bf16*>(base + L::outs);
+  float* scal = reinterpret_cast<float*>(base + L::scal);
+
+  // step j: slice j % n_slices of the group's tile j / n_slices
+  auto load = [&](int j) {
+    const int it = j / n_slices, sl = j - it * n_slices;
+    const int o0 = (group + NG * it) * kSub;
+    bf16* od = slices + (j & 1) * 2 * L::slice_elems;
+    bf16* td = od + L::slice_elems;
+    for (int idx = gt; idx < kSub * (kSlice / 8); idx += kGroupThreads) {
+      const int r = idx >> 3, k = sl * kSlice + (idx & 7) * 8;
+      cp_async16(od + r * kSliceLd + (idx & 7) * 8, own + static_cast<size_t>(own0 + r) * dp + k);
+      cp_async16(td + r * kSliceLd + (idx & 7) * 8, other + static_cast<size_t>(o0 + r) * dp + k);
+    }
+    if (sl == 0) {
+      load_scalars<OWN_Q>(a, o0, scal + (it & 1) * L::scal_floats, gt, use_ids);
+      if (BWD) {
+        bf16* ob = outs + (it & 1) * L::out_elems;
+        const int col0 = blockIdx.y * kOutCols;
+        for (int idx = gt; idx < kSub * (kOutCols / 8); idx += kGroupThreads) {
+          const int r = idx >> 4, k = (idx & 15) * 8;
+          cp_async16(ob + r * kOutLd + k, other + static_cast<size_t>(o0 + r) * dp + col0 + k);
+        }
+      }
+    }
+  };
+
+  if (OWN_Q && a.adj == nullptr)  // no adjustment: adj reads as 0 in both stages
+    for (int i = gt; i < kSub; i += kGroupThreads) scal[i] = scal[L::scal_floats + i] = 0.f;
+  if (steps > 0) load(0);
+  cp_async_commit();
+  float s[8][4];
+  for (int j = 0; j < steps; ++j) {
+    if (j + 1 < steps) {
+      load(j + 1);
+      cp_async_commit();
+      cp_async_wait_one();
+    } else {
+      cp_async_wait_all();
+    }
+    group_sync(group);  // step j is whole for every thread of the group
+    const int it = j / n_slices, sl = j - it * n_slices;
+    const bf16* od = slices + (j & 1) * 2 * L::slice_elems;
+    uint32_t af[kSlice / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < kSlice / 16; ++ks)
+      ldsm_x4(af[ks], od + (wr + r8 + (mat & 1) * 8) * kSliceLd + ks * 16 + (mat >> 1) * 8);
+    if (sl == 0) zero_scores(s);
+    score_slice(s, af, od + L::slice_elems);
+    if (sl == n_slices - 1)
+      body(s, static_cast<const float*>(scal + (it & 1) * L::scal_floats),
+           static_cast<const bf16*>(outs + (it & 1) * L::out_elems), (group + NG * it) * kSub);
+    group_sync(group);  // every thread of the group is done with this stage
+  }
+}
+
+// Kernel #9 at a wide D: lse for the block's 64 q rows, streaming c.
+__global__ void __launch_bounds__(kFwdGroups * kGroupThreads) lse_fwd_wide_kernel(const Args a) {
+  static_assert(size_t(kFwdGroups) * kOwn * 2 * 4 <= WideLayout<false>::group_bytes,
+                "the groups' (m, l) fit the tile buffers");
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wr = (warp & 3) * 16, g = lane >> 2;
+  const bool use_ids = a.row_ids != nullptr;
+  const int own0 = blockIdx.x * kOwn;
+  const OwnRows own = load_own_rows<true, false>(a, own0 + wr + g, use_ids);
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  stream_sliced<kFwdGroups, true, false>(
+      a, smem, [&](float (&s)[8][4], const float* sc, const bf16*, int o0) {
+        adjust_tile<true>(s, sc, own, o0, a, use_ids);
+        online_tile(s, m, l);
+      });
+  finish_lse<kFwdGroups>(reinterpret_cast<float2*>(smem), m, l, a.out + own0);
+}
+
+// Kernels #10 (OWN_Q) and #11 at a wide D: output columns blockIdx.y * 128 ..
+// + 127 of dq (dc) for the block's 64 q (c) rows.
+template <bool OWN_Q>
+__global__ void __launch_bounds__(kWideBwdGroups * kGroupThreads)
+    lse_bwd_wide_kernel(const Args a) {
+  constexpr int NG = kWideBwdGroups, ND = kOutCols / 8;
+  static_assert(size_t(NG - 1) * kOwn * kOutLd * 4 <= WideLayout<true>::group_bytes,
+                "the partial sums fit the tile buffers");
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wr = (warp & 3) * 16, g = lane >> 2;
+  const int own0 = blockIdx.x * kOwn;
+  const bool use_ids = a.row_ids != nullptr;
+  const uint16_t* own_rows = OWN_Q ? a.q : a.c;
+  const uint16_t* other = OWN_Q ? a.c : a.q;
+  const OwnRows own = load_own_rows<OWN_Q, true>(a, own0 + wr + g, use_ids);
+  float acc[ND][4];  // the warp's [16, 128] of dq or dc
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  stream_sliced<NG, OWN_Q, true>(
+      a, smem, [&](float (&s)[8][4], const float* sc, const bf16* out_tile, int o0) {
+        adjust_tile<OWN_Q>(s, sc, own, o0, a, use_ids);
+        bwd_tile<OWN_Q, ND, kOutLd>(s, sc, own, o0, a, use_ids, acc, out_tile, [&](int h, int c) {
+          return rounded_dot_global(own_rows + static_cast<size_t>(own0 + wr + g + 8 * h) * a.dp,
+                                    other + static_cast<size_t>(o0 + c) * a.dp, a.dp);
+        });
+      });
+  finish_grad<NG, ND, kOutLd>(acc, reinterpret_cast<float*>(smem),
+                              a.out + static_cast<size_t>(own0) * a.dp + blockIdx.y * kOutCols,
+                              a.dp, a.inv_t);
+}
+
 template <typename K>
-int launch(K kernel, const Args& a, int n_own, int threads, size_t smem, cudaStream_t stream) {
+int launch(K kernel, const Args& a, dim3 grid, int threads, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<n_own / kOwn, threads, smem, stream>>>(a);
+  kernel<<<grid, threads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+// The padded depths the kernels take: 64, 128, or a multiple of 128 up to 2,048.
+bool depth_ok(int64_t dp) {
+  return dp == 64 || (dp % kOutCols == 0 && dp >= kOutCols && dp <= kMaxDim);
+}
+
 // The shapes the kernels take (the contract above).
 bool shapes_ok(int64_t bq, int64_t bk, int64_t dp, int64_t row_offset, const void* row_ids,
                const void* col_ids) {
   return bq > 0 && bk > 0 && bq % kRowMultiple == 0 && bk % kRowMultiple == 0 &&
-         bk < (1LL << 30) && (dp == 64 || dp == 128) && row_offset >= 0 && row_offset + bq <= bk &&
+         bk < (1LL << 30) && depth_ok(dp) && row_offset >= 0 && row_offset + bq <= bk &&
          (row_ids == nullptr) == (col_ids == nullptr);
 }
 
@@ -615,7 +919,7 @@ bool all_aligned(const Args& a) {
 
 Args make_args(const void* q, const void* c, const void* adj, const void* row_ids,
                const void* col_ids, const void* lse, const void* g, void* out, int64_t bq,
-               int64_t bk, int64_t row_offset, float inv_t) {
+               int64_t bk, int64_t dp, int64_t row_offset, float inv_t) {
   Args a;
   a.q = static_cast<const uint16_t*>(q);
   a.c = static_cast<const uint16_t*>(c);
@@ -627,19 +931,23 @@ Args make_args(const void* q, const void* c, const void* adj, const void* row_id
   a.out = static_cast<float*>(out);
   a.bq = static_cast<int>(bq);
   a.bk = static_cast<int>(bk);
+  a.dp = static_cast<int>(dp);
   a.row_offset = static_cast<int>(row_offset);
   a.inv_t = inv_t;
   return a;
 }
 
 template <bool OWN_Q>
-int launch_bwd(const Args& a, int64_t dp, cudaStream_t s) {
+int launch_bwd(const Args& a, cudaStream_t s) {
   const int n_own = OWN_Q ? a.bq : a.bk;
-  if (dp == 64)
-    return launch(lse_bwd_kernel<64, OWN_Q>, a, n_own, bwd_groups<64>() * kGroupThreads,
+  if (a.dp == 64)
+    return launch(lse_bwd_kernel<64, OWN_Q>, a, dim3(n_own / kOwn), bwd_groups<64>() * kGroupThreads,
                   Layout<64, bwd_groups<64>()>::bytes, s);
-  return launch(lse_bwd_kernel<128, OWN_Q>, a, n_own, bwd_groups<128>() * kGroupThreads,
-                Layout<128, bwd_groups<128>()>::bytes, s);
+  if (a.dp == 128)
+    return launch(lse_bwd_kernel<128, OWN_Q>, a, dim3(n_own / kOwn),
+                  bwd_groups<128>() * kGroupThreads, Layout<128, bwd_groups<128>()>::bytes, s);
+  return launch(lse_bwd_wide_kernel<OWN_Q>, a, dim3(n_own / kOwn, a.dp / kOutCols),
+                kWideBwdGroups * kGroupThreads, kWideBwdGroups * WideLayout<true>::group_bytes, s);
 }
 
 }  // namespace
@@ -654,13 +962,17 @@ int ttrm_softmax_lse_fwd(const void* q, const void* c, const void* adj, const vo
                          int64_t row_offset, float inv_t, void* stream) {
   if (!shapes_ok(bq, bk, dp, row_offset, row_ids, col_ids))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a = make_args(q, c, adj, row_ids, col_ids, nullptr, nullptr, lse_out, bq, bk,
+  const Args a = make_args(q, c, adj, row_ids, col_ids, nullptr, nullptr, lse_out, bq, bk, dp,
                            row_offset, inv_t);
   if (!all_aligned(a)) return static_cast<int>(cudaErrorMisalignedAddress);
   const auto s = static_cast<cudaStream_t>(stream);
   constexpr int threads = kFwdGroups * kGroupThreads;
-  if (dp == 64) return launch(lse_fwd_kernel<64>, a, a.bq, threads, Layout<64, kFwdGroups>::bytes, s);
-  return launch(lse_fwd_kernel<128>, a, a.bq, threads, Layout<128, kFwdGroups>::bytes, s);
+  const dim3 grid(a.bq / kOwn);
+  if (dp == 64) return launch(lse_fwd_kernel<64>, a, grid, threads, Layout<64, kFwdGroups>::bytes, s);
+  if (dp == 128)
+    return launch(lse_fwd_kernel<128>, a, grid, threads, Layout<128, kFwdGroups>::bytes, s);
+  return launch(lse_fwd_wide_kernel, a, grid, threads, kFwdGroups * WideLayout<false>::group_bytes,
+                s);
 }
 
 int ttrm_softmax_lse_dq(const void* q, const void* c, const void* adj, const void* row_ids,
@@ -669,9 +981,10 @@ int ttrm_softmax_lse_dq(const void* q, const void* c, const void* adj, const voi
                         void* stream) {
   if (!shapes_ok(bq, bk, dp, row_offset, row_ids, col_ids))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a = make_args(q, c, adj, row_ids, col_ids, lse, g, dq_out, bq, bk, row_offset, inv_t);
+  const Args a = make_args(q, c, adj, row_ids, col_ids, lse, g, dq_out, bq, bk, dp, row_offset,
+                           inv_t);
   if (!all_aligned(a)) return static_cast<int>(cudaErrorMisalignedAddress);
-  return launch_bwd<true>(a, dp, static_cast<cudaStream_t>(stream));
+  return launch_bwd<true>(a, static_cast<cudaStream_t>(stream));
 }
 
 int ttrm_softmax_lse_dc(const void* q, const void* c, const void* adj, const void* row_ids,
@@ -680,9 +993,10 @@ int ttrm_softmax_lse_dc(const void* q, const void* c, const void* adj, const voi
                         void* stream) {
   if (!shapes_ok(bq, bk, dp, row_offset, row_ids, col_ids))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a = make_args(q, c, adj, row_ids, col_ids, lse, g, dc_out, bq, bk, row_offset, inv_t);
+  const Args a = make_args(q, c, adj, row_ids, col_ids, lse, g, dc_out, bq, bk, dp, row_offset,
+                           inv_t);
   if (!all_aligned(a)) return static_cast<int>(cudaErrorMisalignedAddress);
-  return launch_bwd<false>(a, dp, static_cast<cudaStream_t>(stream));
+  return launch_bwd<false>(a, static_cast<cudaStream_t>(stream));
 }
 
 const char* ttrm_error_string(int code) {

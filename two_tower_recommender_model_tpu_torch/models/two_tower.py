@@ -9,7 +9,9 @@ The forward keeps the reference's two stages, so the train step can keep
 the embedding backward sparse:
   - `pooled_embeddings(tables, batch, cfg)` — gather + pool, through the
     pooled-gather kernel on CUDA tensors (the host-sorted feature of a train
-    step through the sorted-lookup call site, `block_sorted_feature`),
+    step through the sorted-lookup call site, `block_sorted_feature`; the
+    single-slot features the host did not sort through the device-sorted
+    front-end, `device_sorted_features`),
   - `towers_forward(model, pooled, dense)` — the dense towers, with the fused
     tower backward where `cfg.fused_tower_backward` resolves to on.
 
@@ -19,7 +21,7 @@ kernel. A table stored as bf16 (`table_dtype="bfloat16"`) is a bf16 tensor:
 the pooled-gather kernel widens its rows, sums a bag in f32 and emits the
 compute dtype, rounding once (the reference sums a bag's slots in the
 compute dtype: equal at one slot, within one ulp of the largest partial sum
-at several). The `device_sorted_features` gather route is not ported yet.
+at several).
 
 Weights cross between the packages as numpy arrays in the JAX pytree layout
 (`params_from_numpy` / `params_to_numpy`):
@@ -47,6 +49,7 @@ from two_tower_recommender_model_tpu_torch.data.featurizer import Batch
 from two_tower_recommender_model_tpu_torch.models.mlp import MLP, init_mlp
 from two_tower_recommender_model_tpu_torch.ops.embedding_ops import (
     block_sorted_lookup,
+    device_sorted_lookup,
     pooled_lookup,
 )
 from two_tower_recommender_model_tpu_torch.ops.quantized import (
@@ -276,7 +279,8 @@ def params_to_numpy(model: TwoTower, dequantize: bool = False) -> dict:
 
 def pooled_embeddings(tables, batch: Batch, cfg: ModelConfig,
                       block_sorted_feature: str | None = None,
-                      block_sorted_dtype: str = "float32") -> dict[str, torch.Tensor]:
+                      block_sorted_dtype: str = "float32",
+                      device_sorted_features: tuple[str, ...] = ()) -> dict[str, torch.Tensor]:
     """Per-feature pooled embeddings `{feature: [B, D_f]}`, cast to the
     compute dtype when it differs from the table storage dtype.
 
@@ -288,7 +292,15 @@ def pooled_embeddings(tables, batch: Batch, cfg: ModelConfig,
     rows of a float table are rounded to bf16, as the reference's bf16
     one-hot gather rounds them; an int8 table's rows are dequantized in f32
     whatever that option says, as the reference's int8 gather leaves them
-    (f32 out where no compute dtype is set)."""
+    (f32 out where no compute dtype is set).
+
+    `device_sorted_features` names (single-slot) features the host did not
+    sort whose gathers take the device-sorted front-end
+    (`ops.embedding_ops.device_sorted_lookup`; `TrainConfig.
+    device_sorted_gather`): a dead slot's id becomes the sentinel N, an
+    exact zero row, and the rows are multiplied by the slot mask and cast to
+    the compute dtype, with the same bf16 rounding of float rows under
+    `block_sorted_dtype="bfloat16"`."""
     compute_dtype = (
         torch_dtype(cfg.compute_dtype)
         if cfg.compute_dtype != cfg.resolved_table_dtype
@@ -308,6 +320,16 @@ def pooled_embeddings(tables, batch: Batch, cfg: ModelConfig,
             rows = block_sorted_lookup(table, feat.ids[:, 0], feat.mask[:, 0],
                                        out_dtype=rows_dtype)
             out[fc.name] = rows.to(compute_dtype or (torch.float32 if quantized else table.dtype))
+            continue
+        if fc.name in device_sorted_features:
+            table = tables[fc.table]
+            quantized = isinstance(table, QuantizedTable)
+            n = cfg.table(fc.table).num_embeddings
+            ids = torch.where(feat.mask[:, 0] > 0, feat.ids[:, 0].to(torch.int32), n)
+            dtype = compute_dtype or (torch.float32 if quantized else table.dtype)
+            rows = device_sorted_lookup(table, ids, matmul_dtype=block_sorted_dtype,
+                                        out_dtype=dtype)
+            out[fc.name] = rows * feat.mask[:, :1].to(dtype)
             continue
         out[fc.name] = pooled_lookup(
             tables[fc.table], feat.ids, feat.mask, fc.pooling, compute_dtype

@@ -16,6 +16,10 @@ takes the same two functions through the int8 pooled-gather kernel
 with zero rows for sentinel ids >= N. On Hopper the pooled-gather kernel at
 one slot computes exactly that, so #2's call site goes through it, and an
 int8 table's (`block_sorted_lookup_quantized`, #5) through the int8 kernel.
+`device_sorted_lookup` is the reference's front-end for ids the host did not
+sort (`TrainConfig.device_sorted_gather`): a device sort, that one launch on
+the sorted ids, and the inverse permute. `block_sorted_shapes_ok` is the
+reference's gate of the block kernels, which decides what takes that route.
 
 The backward is not taken through autograd: `row_grads_from_pooled` turns
 the gradient of the pooled outputs into per-slot row gradients, which the
@@ -88,6 +92,39 @@ def block_sorted_lookup(table: torch.Tensor | QuantizedTable, sids: torch.Tensor
     sorted to stream the table in blocks); the train step passes the
     host-sorted feature's."""
     return _gather(table, sids.reshape(-1, 1), w.reshape(-1, 1), out_dtype)
+
+
+def block_sorted_shapes_ok(d: int, m: int, c: int = 512) -> bool:
+    """The reference's gate of its block-sorted kernels (`ops/block_sorted.py:
+    block_sorted_shapes_ok`): `[M]` ids of rows of width D fit their tiling,
+    D a multiple of 128 and M a multiple of the chunk min(c, M), itself a
+    multiple of 128. The port's kernels need none of it; the train step keeps
+    it so that the same features take the device-sorted route as in the
+    reference, whose rounding differs from the plain gather's."""
+    c = min(c, m)
+    return d % 128 == 0 and c % 128 == 0 and m % c == 0
+
+
+def device_sorted_lookup(table: torch.Tensor | QuantizedTable, flat_ids: torch.Tensor, *,
+                         matmul_dtype: str = "float32",
+                         out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """`table[flat_ids]` `[M, D]` in batch order for ids in any order, with
+    zero rows for sentinel ids >= N: a stable device sort of the ids with
+    their positions, one launch of the table's gather kernel at one slot on
+    the sorted ids (#1, or #5 for an int8 `QuantizedTable`) and the inverse
+    permute. `matmul_dtype="bfloat16"` rounds a float table's rows to bf16,
+    as the reference's one-hot bf16 gather does; an int8 table's rows are
+    dequantized in f32 whatever it says, as the reference's. The result is
+    in `out_dtype` (f32 when None, as the reference's)."""
+    if matmul_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"matmul_dtype must be float32|bfloat16, got {matmul_dtype!r}")
+    quantized = isinstance(table, QuantizedTable)
+    out_dtype = out_dtype or torch.float32
+    rows_dtype = torch.bfloat16 if matmul_dtype == "bfloat16" and not quantized else out_dtype
+    sids, perm = torch.sort(flat_ids.to(torch.int32), stable=True)
+    ones = torch.ones(sids.shape, dtype=torch.float32, device=sids.device)
+    rows = block_sorted_lookup(table, sids, ones, out_dtype=rows_dtype).to(out_dtype)
+    return torch.empty_like(rows).index_copy_(0, perm, rows)
 
 
 def row_grads_from_pooled(

@@ -17,7 +17,8 @@ and q row i has the global row index `row_offset + i` (the column of its
 positive), so one stripe of a data-parallel split runs the same kernels.
 
 Rounding points, the reference's: q and c are rounded to bf16 once; every
-product of a score is bf16 x bf16 summed in f32; times 1/T, minus the merged
+product of a score is bf16 x bf16 summed in f32 (above D = 128 the plain
+versions sum in f64 and round once, see `_dots`); times 1/T, minus the merged
 adjustment (logQ plus 1e9 on padded columns), then the duplicate mask; in the
 backward p = exp(s - lse) * g is rounded to bf16 before the second product,
 which sums in f32 and is multiplied by 1/T once.
@@ -38,26 +39,39 @@ import torch.nn.functional as F
 from two_tower_recommender_model_tpu_torch.ops import _build
 
 NEG = -1e9
-MAX_DIM = 128  # the kernels hold a [rows, D] f32 accumulator in registers
+# The reference's cap on D. Above 128 the kernels sum a score over D in slices
+# of 64 and cut dq and dc in column slices of 128 across the grid
+# (`csrc/softmax_lse.cu`, "wide D")
+MAX_DIM = 2048
 _PLAIN_BLOCK = 1 << 24  # most score elements the plain versions hold at once
 
 
 def softmax_kernel_shapes_ok(bk: int, d: int, bq: int | None = None) -> bool:
-    """Shapes the fused kernels take: the reference's rule for the batch dims
-    (128-divisible, q rows may be a stripe of the columns), and an embedding
-    dim of at most 128 where the reference allows 2,048: the CUDA kernels
-    keep a thread's share of a [rows, D] accumulator in registers. D itself
-    need not be aligned: the wrappers zero-pad it to 64 or 128."""
+    """Shapes the fused kernels take, the reference's rule: 128-divisible
+    batch dims (q rows may be a stripe of the columns) and an embedding dim
+    of at most 2,048. D itself need not be aligned: the wrappers zero-pad it
+    to 64, 128 or a multiple of 128."""
     if bq is None:
         bq = bk
     return (bk % 128 == 0 and bk >= 256 and bq % 128 == 0 and bq >= 128
             and bk % bq == 0 and 0 < d <= MAX_DIM)
 
 
+def _dots(qf: torch.Tensor, cf: torch.Tensor) -> torch.Tensor:
+    """The raw f32 scores of bf16-valued rows. Above D = 128 each is summed in
+    f64 and rounded once, as the wide kernels' tie recompute takes it: an f32
+    GEMM's order over thousands of products is the library's choice and
+    changes with the shapes, by tens of ulps (one of a p near a bf16 tie is
+    enough to round it the other way)."""
+    if qf.shape[1] > 128:
+        return (qf.double() @ cf.double().T).float()
+    return qf @ cf.T
+
+
 def _scores(qf: torch.Tensor, cf: torch.Tensor, adj, row_ids, col_ids, rows: torch.Tensor,
             cols: torch.Tensor, inv_t: float) -> torch.Tensor:
     """The adjusted scores of a block of q rows against every column."""
-    s = (qf @ cf.T) * inv_t
+    s = _dots(qf, cf) * inv_t
     if adj is not None:
         s = s - adj[None, :]
     if row_ids is not None:
@@ -151,11 +165,16 @@ def _check(q16, c16, adj, row_ids, col_ids, row_offset, lse=None, g=None) -> Non
                          "every tensor must start on a 16-byte boundary")
 
 
+def _padded_dim(d: int) -> int:
+    """The depth the kernels see: 64, 128, or D rounded up to a multiple of 128."""
+    return 64 if d <= 64 else -(-d // 128) * 128
+
+
 def _pad_dim(x16: torch.Tensor) -> torch.Tensor:
-    """Zero-pad D to the kernels' 64 or 128: zero columns add zero to every
-    dot product. The flagship's D = 64 passes through."""
+    """Zero-pad D to the kernels' depth: zero columns add zero to every dot
+    product. The flagship's D = 64 passes through."""
     d = x16.shape[1]
-    dp = 64 if d <= 64 else 128
+    dp = _padded_dim(d)
     return x16 if d == dp else F.pad(x16, (0, dp - d))
 
 

@@ -37,9 +37,13 @@ one launch for K steps' device work.
 the reference's bf16 buffer (kernels #4 and #6 in their bf16 mode) exactly
 where the reference takes that buffer: see `pick_table_update_fn`.
 
-Not ported yet: `device_sorted_gather` (raises `NotImplementedError`; ROADMAP
-Queue 1 item 5: sorted ids gained 6-7% on a table that fits the card's 50 MB
-L2, so it waits for a measurement on a larger table the host does not sort).
+`device_sorted_gather=True` gathers each single-slot feature that the host
+did not sort through the device-sorted front-end (`ops.embedding_ops.
+device_sorted_lookup`: a device sort, kernel #1 or #5 at one slot, the
+inverse permute) where the reference's rule takes it: see
+`device_sorted_features`. Under `block_sorted_kernel="bfloat16"` that route
+rounds a float table's rows to bf16, as the reference's does, so the option
+changes the numbers and not only the speed.
 """
 
 from __future__ import annotations
@@ -71,7 +75,10 @@ from two_tower_recommender_model_tpu_torch.models.two_tower import (
     towers_forward,
 )
 from two_tower_recommender_model_tpu_torch.ops.adagrad_kernel import rowwise_adagrad
-from two_tower_recommender_model_tpu_torch.ops.embedding_ops import row_grads_from_pooled
+from two_tower_recommender_model_tpu_torch.ops.embedding_ops import (
+    block_sorted_shapes_ok,
+    row_grads_from_pooled,
+)
 from two_tower_recommender_model_tpu_torch.ops.quantized import QuantizedTable
 from two_tower_recommender_model_tpu_torch.ops.quantized_kernel import (
     quantized_rowwise_adagrad_fused,
@@ -338,9 +345,6 @@ def _check_train_config(model_cfg: ModelConfig, train_cfg: TrainConfig) -> None:
     if train_cfg.scatter_buffer_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"scatter_buffer_dtype must be float32|bfloat16, got "
                          f"{train_cfg.scatter_buffer_dtype!r}")
-    if train_cfg.device_sorted_gather:
-        raise NotImplementedError(
-            "device_sorted_gather is not ported to the PyTorch package yet (ROADMAP)")
     _check_table_dtypes(model_cfg)
     sorted_table = validate_sorted_feature(model_cfg, train_cfg)
     if train_cfg.block_sorted_kernel != "off" and sorted_table is not None:
@@ -348,6 +352,24 @@ def _check_train_config(model_cfg: ModelConfig, train_cfg: TrainConfig) -> None:
             raise ValueError(
                 f"block_sorted_kernel supports float32 and int8 tables; "
                 f"table {sorted_table!r} is {model_cfg.table_dtype_of(sorted_table)}")
+
+
+def device_sorted_features(model_cfg: ModelConfig, train_cfg: TrainConfig,
+                           batch: Batch) -> tuple[str, ...]:
+    """The features whose gathers take the device-sorted front-end under
+    `device_sorted_gather=True`, the reference's rule (`train/step.py:
+    _device_sorted_features`), read from the batch's shapes: a block mode
+    on, single-slot, not the host-sorted feature, a float32 or int8 table,
+    and the block kernels' tiling (`block_sorted_shapes_ok`)."""
+    if train_cfg.block_sorted_kernel == "off" or not train_cfg.device_sorted_gather:
+        return ()
+    return tuple(
+        fc.name for fc in model_cfg.features
+        if fc.max_ids_per_sample == 1
+        and fc.name != train_cfg.sorted_feature
+        and model_cfg.table_dtype_of(fc.table) in ("float32", "int8")
+        and block_sorted_shapes_ok(model_cfg.table(fc.table).embedding_dim,
+                                   batch.features[fc.name].ids.shape[0]))
 
 
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
@@ -373,7 +395,8 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         with torch.no_grad():  # stage A
             pooled = pooled_embeddings(
                 model.tables, batch, model_cfg, block_sorted_feature=block_feature,
-                block_sorted_dtype=bs_kernel if bs_kernel != "off" else "float32")
+                block_sorted_dtype=bs_kernel if bs_kernel != "off" else "float32",
+                device_sorted_features=device_sorted_features(model_cfg, train_cfg, batch))
             # Streaming logQ: counts first, then logQ from the new counts, so a batch
             # sees its own occurrences. Every duplicate counts (index_add_). The counts
             # are integers held in f32: on the card the atomic adds of 1.0 are exact
