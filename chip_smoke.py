@@ -314,16 +314,24 @@ without a card. Phases (any failure raises and exits non-zero):
    one-device compact graph after 32 steps, replayed ms of the three;
    `[shard-kernels]` the 8,192 batch's 4 stripes of [2,048, 8,192] at row
    offsets 0-6,144, at D = 64 and again at D = 256: #9, #10 and #11 against
-   their plain versions (each launched, counted), the stripes' dc summed
+   their plain versions (each launched, counted; at D = 256 each of #10 and
+   #11 after its p kernel), the stripes' dc summed
    against the square's, (num, den) summed against the whole batch's, each
    stripe's kernel ms beside its bound;
 26e. the wide softmax and the device-sorted gather: `[kernel]` #9, #10 and
    #11 at D = 192 and 256 on the 8,192 square and at D = 2,048 on a 4,096
-   square and its stripe of 1,024 rows (equal to the square's rows), with
-   `[kernel]`'s bars, two launches bit for bit, kernel, plain, bound and
-   composed ms; `[train-softmax-wide]` `[train-softmax]` with towers (512,
-   256), so D = 256 at the loss: 3 eager steps counted (#9, #10, #11 once,
-   #1 and #4 twice a step), 3 more each against the host CPU's plain step,
+   square and its stripe of 1,024 rows (its lse equal to the square's rows,
+   its dq bit for bit), with `[kernel]`'s bars, two launches bit for bit,
+   kernel, plain, bound and composed ms; there #10 and #11 are the p kernel
+   (`softmax_lse_p`) and two products: the p kernel's panel against the
+   plain one (every p of weight bit for bit, the rest within one bf16 ulp),
+   each product against its plain version, `softmax_lse_grads` bit for bit
+   the single wrappers, each piece's and the whole backward's kernel, plain
+   and bound ms (the function's and the three launches'), and at 8,192^2, D
+   = 256 the backward in panels of 32 MB against one panel;
+   `[train-softmax-wide]` `[train-softmax]` with towers (512,
+   256), so D = 256 at the loss: 3 eager steps counted (#9, #10, #11 and the
+   p kernel once, #1 and #4 twice a step), 3 more each against the host CPU's plain step,
    the K = 16 graph against eager steps as in phase 16, and eager steps of
    the chunked plain route beside the kernels'; `[train-devsort]` phase
    16's BCE step with f32 tables and no host sort (`sorted_feature=None`),
@@ -542,6 +550,11 @@ KERNELS = {  # wrapper name -> (wrapper, source, the TPU kernel it replaces)
     "softmax_lse_dc": (sk.softmax_lse_dc,
                        "two_tower_recommender_model_tpu_torch/csrc/softmax_lse.cu",
                        "two_tower_recommender_model_tpu/ops/softmax_kernel.py:138"),
+    # part of #10 and #11 at a wide D: p of a panel of q rows, which both compute (`_dq_kernel`
+    # :111, `_dc_kernel` :138), once, for their products (counted in softmax_lse_dq / _dc)
+    "softmax_lse_p": (sk.softmax_lse_p,
+                      "two_tower_recommender_model_tpu_torch/csrc/softmax_lse.cu",
+                      "two_tower_recommender_model_tpu/ops/softmax_kernel.py:111"),
     "quantized_pooled_gather": (quantized_pooled_gather,
                                 "two_tower_recommender_model_tpu_torch/csrc/quantized_gather.cu",
                                 "two_tower_recommender_model_tpu/ops/block_sorted.py:460"),
@@ -577,6 +590,8 @@ BCE_INT8 = {"quantized_pooled_gather": 2, "quantized_rowwise_adagrad": 2, "tower
 SOFTMAX_F32 = {"pooled_gather": 2, "rowwise_adagrad": 2, "softmax_lse_fwd": 1, "softmax_lse_dq": 1,
                "softmax_lse_dc": 1}  # f32 compute: off the tower kernels' gate
 SOFTMAX_BF16 = {**SOFTMAX_F32, "tower_bwd": 2, "tower_fwd": 2}
+# at a wide D (128 < D): the backward's p kernel once a panel, one panel at the batch of 8,192
+SOFTMAX_WIDE_F32 = {**SOFTMAX_F32, "softmax_lse_p": 1}
 
 
 def log(msg: str) -> None:
@@ -1739,6 +1754,125 @@ SOFTMAX_COMPOSED_CALLS = 16
 
 
 WIDE_SQUARE = 4096  # the D = 2,048 square of [kernel] (its stripe: a quarter of the rows)
+SMALL_PANEL_BYTES = 32 << 20  # a panel that may stay in the 50 MB L2 between its three passes
+
+
+def p_close(got: torch.Tensor, want: torch.Tensor, ex: torch.Tensor, g: torch.Tensor,
+            label: str) -> float:
+    """A panel of p (bf16) against the plain one: every p of weight
+    (exp(s - lse) >= 2^-10) bit for bit, the rest within one bf16 ulp (the
+    spacing at the larger magnitude, 2^-133 below 2^-126) or within 2^-126 |g|
+    (ex2.approx flushes an exp below 2^-126 to zero); the max abs
+    difference."""
+    weighty = ex >= 2.0 ** -10
+    if not bitwise_equal(got[weighty], want[weighty]):
+        n = int((got[weighty].view(torch.int16) != want[weighty].view(torch.int16)).sum())
+        raise AssertionError(f"{label}: {n} p of weight differ from the plain version's bits")
+    a, b = got.float(), want.float()
+    m = torch.maximum(torch.maximum(a.abs(), b.abs()), torch.tensor(2.0 ** -126, device=a.device))
+    _, e = torch.frexp(m)
+    ulp = torch.maximum(torch.ldexp(torch.ones_like(m), e - 8), 2.0 ** -126 * g.abs()[:, None])
+    diff = (a - b).abs()
+    if not (diff <= ulp).all():
+        raise AssertionError(f"{label}: {int((diff > ulp).sum())} p past one bf16 ulp")
+    return diff.max().item()
+
+
+def softmax_wide_parts(dev, label: str, args, lse, g, got: tuple, want: tuple, flush,
+                       reps: int) -> dict:
+    """#10 and #11 at a wide D, a piece at a time, on the case's inputs (one
+    panel: every case here fits one): the p kernel's panel against
+    `p_panel_reference` (`p_close`), two launches bit for bit; each product
+    on that panel against its plain version at `grad_close`'s bars; the
+    both-gradients entry (`softmax_lse_grads`, one p for both) bit for bit
+    the single wrappers' dq and dc (`got`) and within `grad_close` of the
+    plain backward (`want`). Kernel and plain ms of the p kernel, of each
+    product and of the backward as a whole, each with its bound: the p
+    kernel's by its 2 BQ BK D operations, its exps and its bytes (q, c and
+    the scalars read, P written); a product's by its 2 BQ BK D and the
+    bytes of P, its operand and its output; the whole backward's as a
+    function (6 BQ BK D: the score once and the two products; q, c, dq and
+    dc) and as these three launches (P written once and read twice beside).
+    At the main path's square (8,192, D = 256) also the backward in panels
+    of SMALL_PANEL_BYTES against one panel: dq bit for bit, dc within
+    `grad_close`, both timed."""
+    q16, c16, adj, row_ids, col_ids, off, inv_t = args
+    (bq, d), bk = q16.shape, c16.shape[0]
+    qp, cp = sk._pad_dim(q16), sk._pad_dim(c16)
+    dp = qp.shape[1]
+    largs = (*args, lse, g)
+    cols = torch.arange(bk, device=dev)
+    s = sk._scores(qp.float(), cp.float(), adj, row_ids, col_ids, cols[off:off + bq], cols, inv_t)
+    ex = torch.exp(s - lse[:, None])
+    del s
+    p = sk.softmax_lse_p(*largs, 0, bq)
+    p2 = sk.softmax_lse_p(*largs, 0, bq)
+    want_p = sk.p_panel_reference(*largs, 0, bq)
+    torch.cuda.synchronize()
+    if not bitwise_equal(p, p2):
+        raise AssertionError(f"{label}: two launches of the p kernel differ")
+    p_err = p_close(p, want_p, ex, g, f"{label} p")
+    n_weighty = int((ex >= 2.0 ** -10).sum())
+    del p2, want_p, ex
+    dq_o = torch.empty((bq, dp), dtype=torch.float32, device=dev)
+    dc_o = torch.empty((bk, dp), dtype=torch.float32, device=dev)
+    sk.softmax_lse_dq.product(p, cp, dq_o, inv_t)
+    sk.softmax_lse_dc.product(p, qp, dc_o, inv_t)
+    want_dq_o = sk.dq_product_reference(p, cp, inv_t)
+    want_dc_o = sk.dc_product_reference(p, qp, torch.empty_like(dc_o), inv_t, True, True)
+    both = sk.softmax_lse_grads(*largs)
+    torch.cuda.synchronize()
+    errs = {"dq_product": grad_close(dq_o, want_dq_o, f"{label} dq product"),
+            "dc_product": grad_close(dc_o, want_dc_o, f"{label} dc product")}
+    del want_dq_o, want_dc_o
+    if not (bitwise_equal(both[0], got[0]) and bitwise_equal(both[1], got[1])):
+        raise AssertionError(f"{label}: softmax_lse_grads differs from the single wrappers")
+    grad_close(both[0], want[0], f"{label} softmax_lse_grads dq")
+    grad_close(both[1], want[1], f"{label} softmax_lse_grads dc")
+    small = (bq + bk) * (dp * 2 + 12)  # q and c in bf16; ids, adj, lse, g
+    p_bytes, flops = bq * bk * 2, 2 * bq * bk * dp
+    calls = {
+        "p": (lambda: sk.softmax_lse_p(*largs, 0, bq, out=p),
+              lambda: sk.p_panel_reference(*largs, 0, bq),
+              bound(small + p_bytes, flops, PEAK_BF16, bq * bk)),
+        "dq_product": (lambda: sk.softmax_lse_dq.product(p, cp, dq_o, inv_t),
+                       lambda: sk.dq_product_reference(p, cp, inv_t),
+                       bound(p_bytes + bk * dp * 2 + bq * dp * 4, flops, PEAK_BF16)),
+        "dc_product": (lambda: sk.softmax_lse_dc.product(p, qp, dc_o, inv_t),
+                       lambda: sk.dc_product_reference(p, qp, dc_o, inv_t, True, True),
+                       bound(p_bytes + bq * dp * 2 + bk * dp * 4, flops, PEAK_BF16)),
+        "backward": (lambda: sk.softmax_lse_grads(*largs),
+                     lambda: sk.lse_backward_reference(*largs),
+                     bound(small + (bq + bk) * dp * 4, 3 * flops, PEAK_BF16, bq * bk)),
+    }
+    out: dict = {"rows_of_weight": n_weighty, "p_max_abs_err": p_err,
+                 **{f"{k}_max_abs_err": v for k, v in errs.items()}}
+    for name, (kernel, plain, b) in calls.items():
+        out[f"{name}_ms"] = median_ms(kernel, flush, reps)
+        out[f"{name}_plain_ms"] = median_ms(plain, flush, reps)
+        out[f"{name}_bound_ms"], out[f"{name}_bound_by"] = b["bound_ms"], b["bound_by"]
+    three = bound(small + 3 * p_bytes + (bq + bk) * dp * 4, 3 * flops, PEAK_BF16, bq * bk)
+    out["three_launches_bound_ms"], out["three_launches_bound_by"] = (three["bound_ms"],
+                                                                      three["bound_by"])
+    out["p"] = {"ms": out["p_ms"], "plain_ms": out["p_plain_ms"],
+                **calls["p"][2], "library_ms": None}
+    if (bq, bk, d) == (SOFTMAX_BATCH, SOFTMAX_BATCH, 256):
+        panel = sk.PANEL_BYTES
+        try:
+            sk.PANEL_BYTES = SMALL_PANEL_BYTES
+            rows = sk.panel_rows(bq, bk)
+            small_panels = sk.softmax_lse_grads(*largs)
+            torch.cuda.synchronize()
+            if not bitwise_equal(small_panels[0], both[0]):
+                raise AssertionError(f"{label}: dq in panels of {rows} rows differs")
+            grad_close(small_panels[1], both[1], f"{label} dc in panels of {rows} rows")
+            out[f"backward_ms_in_panels_of_{rows}_rows"] = median_ms(
+                lambda: sk.softmax_lse_grads(*largs), flush, reps)
+        finally:
+            sk.PANEL_BYTES = panel
+        out["backward_ms_one_panel_again"] = median_ms(lambda: sk.softmax_lse_grads(*largs),
+                                                       flush, reps)
+    return out
 
 
 def phase_softmax_kernel(dev: torch.device) -> dict[str, dict]:
@@ -1751,10 +1885,13 @@ def phase_softmax_kernel(dev: torch.device) -> dict[str, dict]:
     on the same inputs must agree bit for bit in every case. The bounds
     count one exp a score. At the main path's shape (D = 64), and at D = 256
     and 2,048, beside the kernels' times: `softmax_composed`'s (bf16 GEMMs
-    and elementwise calls)."""
+    and elementwise calls). At a wide D, #10 and #11 are the p kernel and
+    their products (`softmax_wide_parts`), and a stripe's dq rows must be bit
+    for bit its square's."""
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
     names = ("softmax_lse_fwd", "softmax_lse_dq", "softmax_lse_dc")
-    stats: dict[str, dict] = {n: {"max_abs_err": 0.0} for n in names}
+    stats: dict[str, dict] = {n: {"max_abs_err": 0.0} for n in (*names, "softmax_lse_p")}
+    wide: dict[str, dict] = {}  # label -> the wide backward's parts
     squares = {}  # (bk, d) -> the square case's (lse, dq), for its stripe
     for label, bq, bk, off, n_valid, reps, d in (
             ("square", SOFTMAX_BATCH, SOFTMAX_BATCH, 0, None, 20, 64),
@@ -1801,7 +1938,11 @@ def phase_softmax_kernel(dev: torch.device) -> dict[str, dict]:
         if off:  # the stripe is rows [off, off + bq) of the square case
             square = squares[bk, d]
             torch.testing.assert_close(lse, square[0][off:off + bq], rtol=1e-6, atol=1e-6)
-            torch.testing.assert_close(dq, square[1][off:off + bq], rtol=1e-5, atol=1e-9)
+            if d > 128:  # the same p rows meet the same columns in the same k order
+                if not bitwise_equal(dq, square[1][off:off + bq]):
+                    raise AssertionError(f"{label}: the stripe's dq rows differ from the square's")
+            else:
+                torch.testing.assert_close(dq, square[1][off:off + bq], rtol=1e-5, atol=1e-9)
         small = (bq + bk) * (d * 2 + 12)  # q and c in bf16; ids, adj, lse, g
         calls = {
             "softmax_lse_fwd": (lambda: sk.softmax_lse_fwd(*args),
@@ -1847,6 +1988,17 @@ def phase_softmax_kernel(dev: torch.device) -> dict[str, dict]:
                     f"diff from the plain version over its max: {comp_err!r}) against "
                     f"kernel_ms={row['ms']!r}")
                 row["composed_ms"] = composed_ms
+        if d > 128:
+            key = f"{label} D={d}"
+            wide[key] = softmax_wide_parts(dev, key, args, want_lse, g, (dq, dc),
+                                           (want_dq, want_dc), flush, reps)
+            stats["softmax_lse_p"]["max_abs_err"] = max(stats["softmax_lse_p"]["max_abs_err"],
+                                                        wide[key]["p_max_abs_err"])
+            if (bq, bk, d) == (SOFTMAX_BATCH, SOFTMAX_BATCH, 256):  # [train-softmax-wide]'s
+                stats["softmax_lse_p"].update(wide[key]["p"])
+    for label, parts in wide.items():
+        log(f"[kernel] the wide backward {label}: " + ", ".join(
+            f"{k} {v!r}" for k, v in parts.items() if k != "p") + f"; {card_line()}")
     for name in names:
         wide = {k: stats[name].pop(k) for k in [k for k in stats[name] if k.startswith("D=")]}
         log(f"[kernel] {name} at wide D (squares): {wide!r}; {card_line()}")
@@ -2958,7 +3110,8 @@ def phase_train_softmax(dev: torch.device, profile: bool) -> dict[str, int]:
         state, _, _ = timed_steps(big_step, state, big, 0, 1)
         state, out, big_times = timed_steps(big_step, state, big, 1, 3)
         made = {k: v - before[k] for k, v in read_launches().items() if k.startswith("softmax")}
-        if set(made.values()) != {4 if kernel == "on" else 0}:
+        # D = 64: #9, #10 and #11 once a step, no p kernel (the wide backward's)
+        if made != {k: 4 if kernel == "on" and k != "softmax_lse_p" else 0 for k in made}:
             raise AssertionError(f"[train-softmax] batch {SOFTMAX_BIG} {kernel}: {made}")
         if not np.isfinite(out["loss"].item()):
             raise AssertionError(f"[train-softmax] batch {SOFTMAX_BIG}: loss is not finite")
@@ -2997,9 +3150,10 @@ def phase_train_softmax_wide(dev: torch.device, profile: bool) -> dict[str, int]
     kernels on, user-sorted, block kernels in f32) with towers WIDE_LAYERS,
     so the loss sees D = 256 and #9, #10 and #11 take their depth slices.
     Through `create_train_state` -> `make_train_step` -> `make_multi_step`:
-    HOST_CHECKS eager steps counted (#9, #10 and #11 once a step, #1 and #4
-    twice; the wide towers miss #8's and tower_fwd's gates, as in the
-    reference) and each held against the host's plain step from the same
+    HOST_CHECKS eager steps counted (#9, #10 and #11 once a step, the p
+    kernel once (one panel of 8,192 rows), #1 and #4 twice; the wide towers
+    miss #8's and tower_fwd's gates, as in the reference) and each held
+    against the host's plain step from the same
     state (`check_against_host`); the K = 16 graph against eager steps
     (`phase_train_graph`); and eager steps of the plain chunked route
     (`softmax_kernel="off"`) beside the kernels' in the same call."""
@@ -3025,9 +3179,9 @@ def phase_train_softmax_wide(dev: torch.device, profile: bool) -> dict[str, int]
     launches = read_launches()
     # --- checks, not counted ------------------------------------------------------
     for name, n in launches.items():
-        if n != SOFTMAX_F32.get(name, 0) * HOST_CHECKS:
+        if n != SOFTMAX_WIDE_F32.get(name, 0) * HOST_CHECKS:
             raise AssertionError(f"{tag} {name}: {n} launches in {HOST_CHECKS} steps, expected "
-                                 f"{SOFTMAX_F32.get(name, 0)} a step")
+                                 f"{SOFTMAX_WIDE_F32.get(name, 0)} a step")
     if not np.isfinite(out["loss"].item()):
         raise AssertionError(f"{tag} loss is not finite: {out['loss'].item()}")
     log(f"{tag} towers {WIDE_LAYERS}, D={WIDE_LAYERS[-1]} at the loss, f32, batch "
@@ -3043,7 +3197,7 @@ def phase_train_softmax_wide(dev: torch.device, profile: bool) -> dict[str, int]
     log(f"{tag} the largest margin of the {HOST_CHECKS} host checks: "
         f"{max(max(m.values()) for m in margins)!r}")
     graph = phase_train_graph(dev, f"sampled softmax + logQ, towers {WIDE_LAYERS}, f32", cfg,
-                              tcfg, pool, SOFTMAX_F32, profile, tag=tag)
+                              tcfg, pool, SOFTMAX_WIDE_F32, profile, tag=tag)
     launches = {k: v + graph[k] for k, v in launches.items()}
     # the plain chunked route in the same call, for the record
     state, _, on_times = timed_steps(train_step, state, pool, 0, 5)
@@ -3058,7 +3212,58 @@ def phase_train_softmax_wide(dev: torch.device, profile: bool) -> dict[str, int]
     log(f"{tag} eager median_step_ms kernels={statistics.median(on_times)!r} "
         f"softmax_kernel=off (chunked plain route)={statistics.median(off_times)!r} (n=5 each, "
         f"in turns after the graph); {card_line()}")
+    trained_p_kernel(tag, train_step, state, pool)
     return launches
+
+
+TRAINED_STEPS = 100  # eager steps before the p kernel's inputs are kept
+
+
+def trained_p_kernel(tag: str, train_step, state, pool: list) -> None:
+    """The wide backward's p kernel on a trained state's inputs (not
+    counted): TRAINED_STEPS more steps over the pool (a model's p
+    concentrate as it trains), then one whose p kernel's arguments are kept;
+    the p of weight
+    (exp(s - lse) >= 2^-10) and the ties among them that the kernel sums
+    again (`csrc/softmax_lse.cu`: their cost grows as a model's p
+    concentrate), the panel against the plain one (`p_close`), and its ms
+    beside its bound."""
+    seen, p_kernel = [], sk.softmax_lse_p
+
+    def keep(*args, **kwargs):
+        if not seen:
+            seen.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        return p_kernel(*args, **kwargs)
+
+    for i in range(TRAINED_STEPS):
+        state, _ = train_step(state, pool[i % len(pool)])
+    sk.softmax_lse_p = keep
+    try:
+        train_step(state, pool[0])
+    finally:
+        sk.softmax_lse_p = p_kernel
+    torch.cuda.synchronize()
+    q, c, adj, row_ids, col_ids, off, inv_t, lse, g, lo, hi = seen[0]
+    (bq, dp), bk = q.shape, c.shape[0]
+    cols = torch.arange(bk, device=q.device)
+    ex = torch.exp(sk._scores(q.float(), c.float(), adj, row_ids, col_ids, cols[off:off + bq],
+                              cols, inv_t) - lse[:, None])
+    p_f32 = ex * g[:, None]
+    weighty = ex >= 2.0 ** -10
+    ties = int((weighty & (((p_f32.view(torch.int32) & 0xFFFF) - 0x8000).abs() <= 0x2000)).sum())
+    del p_f32
+    args = (q, c, adj, row_ids, col_ids, off, inv_t, lse, g)
+    work = torch.empty((bq, bk), dtype=torch.bfloat16, device=q.device)
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=q.device)
+    ms = median_ms(lambda: p_kernel(*args, lo, hi, out=work), flush, 10)
+    err = p_close(work, sk.p_panel_reference(*args, lo, hi), ex, g, f"{tag} trained p")
+    b = bound((bq + bk) * (dp * 2 + 12) + bq * bk * 2, 2 * bq * bk * dp, PEAK_BF16, bq * bk)
+    log(f"{tag} the p kernel on the inputs of a step after {TRAINED_STEPS} more "
+        f"[{bq} x {bk}], D={dp}: "
+        f"{int(weighty.sum())} p of weight in {int(weighty.any(1).sum())} rows (at most "
+        f"{int(weighty.sum(1).max())} a row), {ties} of them near a bf16 tie (summed again); "
+        f"max_abs_err {err!r} against the plain p; kernel_ms={ms!r} bound_ms={b['bound_ms']!r} "
+        f"by {b['bound_by']} (n=10); {card_line()}")
 
 
 def phase_train_devsort(dev: torch.device, profile: bool) -> dict[str, int]:
@@ -3428,6 +3633,10 @@ def timed_direct(fn, label: str) -> None:
     log(f"[direct] {label}: median_ms={statistics.median(lat)!r} (n={REQ_REPS})")
 
 
+# the port's kernels in a trace: those of csrc/ (anonymous namespaces, and the span walk's)
+PORT_KERNEL_MARKS = ("(anonymous namespace)::", "sorted_runs::")
+
+
 def profile_direct(fn, label: str, gathers_per_call: int, calls: int = 10,
                    marker: str = "pooled_gather") -> dict[str, list]:
     """Where a direct call's time goes on the card: `torch.profiler` traces
@@ -3481,6 +3690,12 @@ def profile_direct(fn, label: str, gathers_per_call: int, calls: int = 10,
     log(f"[profile] {label}: wall_ms={wall!r} device_busy_ms={busy!r} "
         f"idle_share={1 - busy / wall!r} device_items={len(spans) / calls!r} "
         f"(per call, {calls} calls)")
+    port = [(ms, n) for name, (ms, n) in by_name.items()
+            if any(mark in name for mark in PORT_KERNEL_MARKS)]
+    log(f"[profile] {label}: the port's kernels {sum(m for m, _ in port)!r} ms in "
+        f"{sum(n for _, n in port) / calls!r} launches, other device items (PyTorch's kernels, "
+        f"copies, memsets) {sum(m for m, _ in by_name.values()) - sum(m for m, _ in port)!r} ms "
+        f"(per call, by item; overlapping items count twice)")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         log(f"[profile]   {ms!r} ms in {n / calls!r} launches: {name[:160]}")
     return {name: [ms, n / calls] for name, (ms, n) in by_name.items()}
@@ -4916,8 +5131,12 @@ def phase_shard_softmax(dev: torch.device, d: int = 64) -> None:
                          bound(small + bk * d * 4, 4 * bq * bk * d, PEAK_BF16, bq * bk))}
         if r == 0:  # the launches of one stripe, before its timing
             made = {k: v - striped[k] for k, v in read_launches().items() if v - striped[k]}
-            if set(made) != {"softmax_lse_fwd", "softmax_lse_dq", "softmax_lse_dc"}:
-                raise AssertionError(f"{tag} stripe 0 launched {made}")
+            # the forward twice: the check above and the stripe's (num, den)
+            want = {"softmax_lse_fwd": 2, "softmax_lse_dq": 1, "softmax_lse_dc": 1}
+            if d > 128:  # each of dq and dc: the p kernel, then its product
+                want["softmax_lse_p"] = 2
+            if made != want:
+                raise AssertionError(f"{tag} stripe 0 launched {made}, expected {want}")
         log(f"{tag} softmax {label}: each kernel against its plain version, max_abs_err "
             f"{errs!r}; launches of stripe 0 {made!r}; kernel ms / bound ms " + ", ".join(
                 f"{name} {median_ms(fn, flush, 10)!r} / {b['bound_ms']!r}"
@@ -5765,6 +5984,25 @@ def child_parquet_text(work: str, model_dir: str) -> None:
                                  "text-features": text_launches}), flush=True)
 
 
+def timed_phase(fn):
+    """`fn`, logging its wall seconds as `[time] <name>` when it returns or
+    raises (a phase inside another is timed too): where the run's time
+    goes."""
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            log(f"[time] {fn.__name__}: {time.perf_counter() - t0!r} s")
+    run.__name__ = run.__qualname__ = fn.__name__
+    run.__doc__ = fn.__doc__
+    return run
+
+
+for _name in [n for n in globals() if n.startswith("phase_")]:
+    globals()[_name] = timed_phase(globals()[_name])
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -5780,6 +6018,7 @@ def main() -> int:
     if args.child == "parquet-text":  # a phase's child process (see phase_parquet_text)
         child_parquet_text(args.work, args.model_dir)
         return 0
+    t_run = time.perf_counter()
     dev = torch.device("cuda", 0)
     log(card_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
@@ -5865,7 +6104,8 @@ def main() -> int:
         raise AssertionError(f"JAX, the JAX package, pandas or pyarrow was imported: "
                              f"{leaked[:5]}")
 
-    launches = {name: sum(path[name] for path in paths.values()) for name in KERNELS}
+    log(f"[time] the whole run (build included): {time.perf_counter() - t_run!r} s")
+    launches = {name: sum(path.get(name, 0) for path in paths.values()) for name in KERNELS}
     launches["pooled_gather"] += serve
     log(f"launches on the main paths: serve pooled_gather={serve}, " + ", ".join(
         f"{path} { {k: v for k, v in made.items() if v} }" for path, made in paths.items()))

@@ -258,3 +258,109 @@ def test_shapes_outside_the_gate_raise_on_the_card(dev):
     off = torch.zeros(257, dtype=torch.float32, device=dev)[1:]  # 4 bytes past a boundary
     with pytest.raises(ValueError, match="16-byte boundary"):
         sk.softmax_lse_dq(q16, c16, off, None, None, 0, 1.0, log_q, g)
+
+
+def _one_ulp(got: torch.Tensor, want: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Where a panel of p (bf16) lies within one bf16 ulp of the plain one
+    (the spacing of bf16 values at the larger magnitude, 2^-133 below the
+    smallest normal, 2^-126), or within 2^-126 |g| of it: ex2.approx flushes
+    an exp(s - lse) below 2^-126 to zero, where the plain version's expf
+    keeps it, and such a p, times g, may still round to a bf16 subnormal."""
+    a, b = got.float(), want.float()
+    m = torch.maximum(torch.maximum(a.abs(), b.abs()), torch.tensor(2.0 ** -126, device=a.device))
+    _, e = torch.frexp(m)  # m = f 2^e, 0.5 <= f < 1: bf16's spacing there is 2^(e - 8), exactly
+    ulp = torch.maximum(torch.ldexp(torch.ones_like(m), e - 8), 2.0 ** -126 * g.abs()[:, None])
+    return (a - b).abs() <= ulp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [256, 2048])
+@pytest.mark.parametrize("bq,row_offset,n_valid", [(512, 0, 400), (256, 256, None)])
+def test_p_kernel_matches_plain_p(dev, d, bq, row_offset, n_valid):
+    """The p kernel of the wide backward against `p_panel_reference`: every p
+    of weight (exp(s - lse) >= 2^-10) bit for bit, the rest within one bf16
+    ulp (ex2.approx and the tensor cores' order move them by a few f32 ulps;
+    `_one_ulp`, with the exp's flush to zero below 2^-126).
+    The square with padded columns and a stripe at a row offset, whose panel
+    rows are bit for bit those of the square; two launches bit for bit."""
+    bk = 512
+    q16, c16, ids, log_q, g = _inputs(dev, bk, bk, d, seed=d + bq + 1, n_ids=200)
+    adj = sk._merged_adj(log_q, n_valid, bk, dev)
+    lse = sk.lse_forward_reference(q16, c16, adj, ids, ids, 0, 1 / 0.7)
+    rows = slice(row_offset, row_offset + bq)
+    args = (q16[rows].contiguous(), c16, adj, ids[rows].contiguous(), ids, row_offset, 1 / 0.7,
+            lse[rows].contiguous(), g[rows].contiguous())
+    before = sk.softmax_lse_p.launches
+    got, again = sk.softmax_lse_p(*args, 0, bq), sk.softmax_lse_p(*args, 0, bq)
+    square = sk.softmax_lse_p(q16, c16, adj, ids, ids, 0, 1 / 0.7, lse, g, 0, bk)
+    want = sk.p_panel_reference(*args, 0, bq)
+    cols = torch.arange(bk, device=dev)
+    s = sk._scores(args[0].float(), c16.float(), adj, args[3], ids, cols[rows], cols, 1 / 0.7)
+    weighty = torch.exp(s - args[7][:, None]) >= 2.0 ** -10
+    torch.cuda.synchronize()
+    assert sk.softmax_lse_p.launches == before + 3
+    assert got.shape == (bq, bk) and got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    assert torch.equal(got.view(torch.int16), square[rows].view(torch.int16))
+    assert weighty.any()
+    assert torch.equal(got[weighty].view(torch.int16), want[weighty].view(torch.int16))
+    assert _one_ulp(got, want, args[8]).all()
+    if n_valid is not None:
+        assert (got[:, n_valid:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [256, 1024])
+def test_panels_match_one_panel_and_plain(dev, d, monkeypatch):
+    """A backward walked in four panels of 128 q rows (a small PANEL_BYTES)
+    against the one-panel backward and the plain version: dq bit for bit
+    (each row meets the same p and the same k order), dc within the grad
+    bars (the panels' sums are added in f32 in panel order); a launch of the
+    p kernel and of each product per panel."""
+    b = 512
+    q16, c16, ids, log_q, g = _inputs(dev, b, b, d, seed=d + 3, n_ids=200)
+    adj = sk._merged_adj(log_q, 448, b, dev)
+    args = (q16, c16, adj, ids, ids, 0, 1 / 0.7)
+    lse = sk.lse_forward_reference(*args)
+    one = sk.wide_backward(*args, lse, g)
+    monkeypatch.setattr(sk, "PANEL_BYTES", 128 * 2 * b)
+    assert sk.panel_rows(b, b) == 128
+    wrappers = (sk.softmax_lse_p, sk.softmax_lse_dq, sk.softmax_lse_dc)
+    before = [w.launches for w in wrappers]
+    four = sk.wide_backward(*args, lse, g)
+    want = sk.lse_backward_reference(*args, lse, g)
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == [n + 4 for n in before]
+    assert torch.equal(four[0].view(torch.int32), one[0].view(torch.int32))
+    _grad_close(four[1], one[1], "dc, four panels against one")
+    for got, w, label in zip(four, want, ("dq", "dc")):
+        assert got.shape == w.shape == (b, d)
+        _grad_close(got, w, label)
+    assert (four[1][448:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 256, 2048])
+def test_both_gradients_entry_matches_the_single_wrappers(dev, d):
+    """`softmax_lse_grads` (one p a panel for both products at a wide D; the
+    narrow kernels #10 and #11 at D = 64) against `softmax_lse_dq` and
+    `softmax_lse_dc` called one at a time: bit for bit, on a stripe with ids,
+    logQ and padded columns. At a wide D it launches the p kernel once where
+    the two single wrappers launch it twice."""
+    bq, bk, off = 256, 512, 128
+    q16, c16, ids, log_q, g = _inputs(dev, bk, bk, d, seed=d + 7, n_ids=200)
+    adj = sk._merged_adj(log_q, 480, bk, dev)
+    rows = slice(off, off + bq)
+    args = (q16[rows].contiguous(), c16, adj, ids[rows].contiguous(), ids, off, 1 / 0.7)
+    lse = sk.lse_forward_reference(*args)
+    args = (*args, lse, g[rows].contiguous())
+    p_before = sk.softmax_lse_p.launches
+    both = sk.softmax_lse_grads(*args)
+    p_both = sk.softmax_lse_p.launches - p_before
+    single = (sk.softmax_lse_dq(*args), sk.softmax_lse_dc(*args))
+    torch.cuda.synchronize()
+    assert p_both == (1 if d > 128 else 0)
+    assert sk.softmax_lse_p.launches - p_before == 3 * p_both
+    for a, b_, label in zip(both, single, ("dq", "dc")):
+        assert a.shape == b_.shape, label
+        assert torch.equal(a.view(torch.int32), b_.view(torch.int32)), label

@@ -29,6 +29,17 @@ from two_tower_recommender_model_tpu_torch.ops import softmax_kernel as sk
 
 B = 512
 LSE_TOL = dict(rtol=2e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the tests are small, and the suite runs several
+    test processes on the same cores, where torch's thread pools would
+    contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 MASKS = [  # use_ids, use_logq, n_valid: the reference's mask surface
     (False, False, None),
     (True, False, None),
@@ -271,7 +282,7 @@ def _scores_in_kernel_order(dots, d):
     one accumulator, each add one rounding to f32 (an mma adds 16 products to
     its accumulator in one step); above 128, per 64-deep slice its 4 chunks
     from zero that way, then the slices' partials added in f32 in order
-    (`score_slice` of the wide kernels)."""
+    (#9's `score_slice`; the p kernel's slices on wgmma)."""
     def chunked(chunks):
         acc = torch.zeros(chunks.shape[:-1])
         for k in range(chunks.shape[-1]):
@@ -286,22 +297,25 @@ def _scores_in_kernel_order(dots, d):
     return s
 
 
-def _tensor_core_order_backward(q16, c16, adj, row_ids, col_ids, inv_t, lse, g):
+def _tensor_core_order_backward(q16, c16, adj, row_ids, col_ids, inv_t, lse, g,
+                                panel_rows=None):
     """(dq, dc) of the square case summed in the order of kernels #10 and
-    #11 on the tensor cores. An mma adds 16 products to its f32 accumulator
-    in one step (modelled here exactly, in float64, with one rounding to
-    f32), and the 16-deep chunks follow in order: the depth for a score, the
-    streamed rows for the second product (the depth's chunks as
-    `_scores_in_kernel_order` adds them). A p of weight (exp(s - lse) >=
-    2^-10) whose f32 value lies within 0x2000 ulps of a bf16 rounding
-    midpoint takes its score summed in k order instead (the kernels'
-    `near_tie` / `ordered_dot`; above D = 128 summed in f64 and rounded,
-    `rounded_dot_global`). The exp is torch's; the kernels' ex2.approx
-    lies a few f32 ulps from it, far inside that window. Of the NG warp
-    groups of a block (4 at D = 64, 2 at 128 and above), group k sums the
-    64-row tiles
-    k, k + NG, ..., and group 0 adds the others' sums to its own in group
-    order; then times 1/T."""
+    #11 on the tensor cores. An mma or a wgmma adds 16 products to its f32
+    accumulator in one step (modelled here exactly, in float64, with one
+    rounding to f32), and the 16-deep chunks follow in order: the depth for a
+    score (as `_scores_in_kernel_order` adds them), the streamed rows for the
+    second product. A p of weight (exp(s - lse) >= 2^-10) whose f32 value
+    lies within 0x2000 ulps of a bf16 rounding midpoint takes its score
+    summed in k order instead (the kernels' `near_tie` / `ordered_dot`;
+    above D = 128 summed in f64 and rounded, `rounded_dot_group`). The exp is
+    torch's; the kernels' ex2.approx lies a few f32 ulps from it, far inside
+    that window. At D <= 128, of the NG warp groups of a block (4 at D = 64,
+    2 at 128), group k sums the 64-row tiles k, k + NG, ..., and group 0
+    adds the others' sums to its own in group order; then times 1/T. Above
+    (the p kernel and the two products), p once, then dq's sum over all
+    columns and dc's over a panel's rows each in one chain of 16-deep
+    chunks; dc's panels (`panel_rows` q rows each, all of them when None)
+    added in f32 in panel order; then times 1/T."""
     b, d = q16.shape
     qd, cd = q16.double(), c16.double()
 
@@ -325,7 +339,7 @@ def _tensor_core_order_backward(q16, c16, adj, row_ids, col_ids, inv_t, lse, g):
     p, ex = p_of(_scores_in_kernel_order(dots, d))
     # the tie score: at D <= 128 one fmaf a product in k order (products of
     # bf16 values are exact in f32, so each step below is one fmaf); above,
-    # summed in f64 and rounded once (the wide kernels' `rounded_dot_global`)
+    # summed in f64 and rounded once (the p kernel's `rounded_dot_group`)
     if d > 128:
         ordered = (qd @ cd.T).float()
     else:
@@ -336,16 +350,26 @@ def _tensor_core_order_backward(q16, c16, adj, row_ids, col_ids, inv_t, lse, g):
     tie = (ex >= 2.0 ** -10) & ((low - 0x8000).abs() <= 0x2000)
     p = torch.where(tie, p_of(ordered)[0], p).to(torch.bfloat16).double()
 
-    def second(pm, other):  # pm [own, streamed] @ other [streamed, D] in the kernels' order
-        chunks = torch.einsum("ick,ckd->idc", pm.reshape(pm.shape[0], -1, 16),
-                              other.reshape(-1, 16, d))
-        tiles = chunks.reshape(pm.shape[0], d, -1, 4)  # [own, D, tile, chunk of the tile]
+    def chunk_sums(pm, other):  # pm [own, streamed] @ other [streamed, D]: 16-deep chunks
+        return torch.einsum("ick,ckd->idc", pm.reshape(pm.shape[0], -1, 16),
+                            other.reshape(-1, 16, d))
+
+    def second(pm, other):  # the narrow kernels' order: tiles over warp groups
+        tiles = chunk_sums(pm, other).reshape(pm.shape[0], d, -1, 4)  # [own, D, tile, chunk]
         groups = 4 if d == 64 else 2
         part = [chunked(torch.zeros(pm.shape[0], d), tiles[:, :, k::groups].flatten(2))
                 for k in range(groups)]
         return sum(part[1:], part[0]) * inv_t
 
-    return second(p, cd), second(p.T, qd)
+    if d <= 128:
+        return second(p, cd), second(p.T, qd)
+    dq = chunked(torch.zeros(b, d), chunk_sums(p, cd)) * inv_t
+    rows = panel_rows or b
+    dc = None
+    for lo in range(0, b, rows):
+        part = chunked(torch.zeros(c16.shape[0], d), chunk_sums(p[lo:lo + rows].T, qd[lo:lo + rows]))
+        dc = part if dc is None else dc + part
+    return dq, dc * inv_t
 
 
 @pytest.mark.parametrize("d,use_ids,use_logq,n_valid", [
@@ -380,6 +404,150 @@ def test_tensor_core_summation_order_stays_within_the_card_tolerances(d, use_ids
                                          torch.from_numpy(g))
     _assert_grad_close(dq[:, :d].numpy(), want_dq, "dq")
     _assert_grad_close(dc[:, :d].numpy(), want_dc, "dc")
+
+
+@pytest.mark.parametrize("d,use_ids,use_logq,n_valid,panel_rows", [
+    (256, True, True, None, 128), (192, True, True, 400, 256), (256, False, True, 384, 128)])
+def test_wide_panel_order_stays_within_the_card_tolerances(d, use_ids, use_logq, n_valid,
+                                                          panel_rows):
+    """The wide backward walked in panels of q rows (as a batch wider than
+    one panel is): p once, dq's sum over the columns in one chain of 16-deep
+    chunks, dc's over each panel's rows, the panels' dc added in f32 in panel
+    order. Recomputed in that order, dq and dc stay within the card tests'
+    tolerances (2^-8 x max, cosine > 0.99999) of the reference's `_lse_bwd`
+    in interpret mode."""
+    q, c, _, ids, log_q = _setup(seed=19, d=d)
+    g = (np.random.default_rng(20).normal(size=B) / B).astype(np.float32)
+    ids_f = jnp.asarray(ids).astype(jnp.float32)
+    pad = lambda a: jnp.asarray(np.pad(a, ((0, 0), (0, -d % 128))))  # noqa: E731
+    _, vjp = jax.vjp(
+        lambda qa, ca: jax_sk._lse_fused(qa, ca, ids_f, ids_f, jnp.asarray(log_q),
+                                         jnp.arange(B, dtype=jnp.float32), 0.7, n_valid,
+                                         (use_ids, use_logq), True), pad(q), pad(c))
+    want_dq, want_dc = (np.asarray(x)[:, :d] for x in vjp(jnp.asarray(g)))
+    q16, c16 = (sk._pad_dim(torch.from_numpy(x).to(torch.bfloat16)) for x in (q, c))
+    ids_t = torch.from_numpy(ids) if use_ids else None
+    adj = sk._merged_adj(torch.from_numpy(log_q) if use_logq else None, n_valid, B,
+                         torch.device("cpu"))
+    args = (q16, c16, adj, ids_t, ids_t, 0, 1 / 0.7)
+    lse = sk.lse_forward_reference(*args)
+    dq, dc = _tensor_core_order_backward(q16, c16, adj, ids_t, ids_t, 1 / 0.7, lse,
+                                         torch.from_numpy(g), panel_rows=panel_rows)
+    _assert_grad_close(dq[:, :d].numpy(), want_dq, "dq")
+    _assert_grad_close(dc[:, :d].numpy(), want_dc, "dc")
+
+
+def _wide_args(seed, d, bq=B, row_offset=0, n_valid=None, use_ids=True, use_logq=True):
+    """The wide backward's inputs on the CPU: a stripe of `bq` rows at
+    `row_offset` of the square draws, bf16 operands, the merged adj, the
+    plain lse and a cotangent."""
+    q, c, _, ids, log_q = _setup(seed=seed, d=d)
+    g = (np.random.default_rng(seed + 1).normal(size=B) / B).astype(np.float32)
+    q16, c16 = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, c))
+    ids_t = torch.from_numpy(ids) if use_ids else None
+    adj = sk._merged_adj(torch.from_numpy(log_q) if use_logq else None, n_valid, B,
+                         torch.device("cpu"))
+    rows = slice(row_offset, row_offset + bq)
+    args = (q16[rows].contiguous(), c16, adj, None if ids_t is None else ids_t[rows].contiguous(),
+            ids_t, row_offset, 1 / 0.7)
+    lse = sk.lse_forward_reference(*args)
+    return (*args, lse, torch.from_numpy(g[rows]).contiguous())
+
+
+@pytest.mark.parametrize("d,panel_rows,n_valid", [(256, 128, None), (256, 256, 400),
+                                                  (192, 384, None), (2048, 128, 384)])
+def test_panel_route_matches_the_plain_backward(d, panel_rows, n_valid, monkeypatch):
+    """The wide backward's plain steps walked in panels (`wide_backward` on
+    CPU tensors, a small PANEL_BYTES forcing `panel_rows` rows a panel): the
+    panels' p are the one-panel p bit for bit, and dq / dc equal
+    `lse_backward_reference` within rtol 1e-5 / 1e-4 (dc is summed over the
+    panels, as the plain version sums its row blocks). `softmax_lse_grads`
+    takes the same route on the CPU."""
+    args = _wide_args(7 + d, d, n_valid=n_valid)
+    whole = sk.p_panel_reference(*args, 0, B)
+    want_dq, want_dc = sk.lse_backward_reference(*args)
+    monkeypatch.setattr(sk, "PANEL_BYTES", panel_rows * 2 * B)
+    assert sk.panel_rows(B, B) == panel_rows
+    pieces = [sk.softmax_lse_p(*args, lo, min(lo + panel_rows, B))
+              for lo in range(0, B, panel_rows)]
+    assert torch.equal(torch.cat(pieces).view(torch.int16), whole.view(torch.int16))
+    for dq, dc in (sk.wide_backward(*args), sk.softmax_lse_grads(*args)):
+        assert dq.shape == (B, d) and dc.shape == (B, d)
+        torch.testing.assert_close(dq, want_dq, rtol=1e-5, atol=1e-7)
+        torch.testing.assert_close(dc, want_dc, rtol=1e-4, atol=1e-6)
+    if n_valid is not None:
+        assert (whole[:, n_valid:] == 0).all() and (dc[n_valid:] == 0).all()
+    dq_only, none = sk.wide_backward(*args, need_dc=False)
+    assert none is None and torch.equal(dq_only, dq)
+
+
+@pytest.mark.parametrize("use_ids,use_logq,n_valid", [MASKS[2], MASKS[3]])
+def test_wide_panels_match_the_pallas_kernels(use_ids, use_logq, n_valid, monkeypatch):
+    """D = 256 in four panels of 128 q rows (a small PANEL_BYTES): the plain
+    steps of the wide backward (`softmax_lse_grads` on the CPU) against the
+    JAX package's `_lse_bwd` in interpret mode, reached through the fused
+    loss's custom VJP, at `test_wide_dims_match_the_pallas_kernels`'s
+    tolerances (one bf16 ulp of the largest magnitude, cosine > 0.99999)."""
+    d = 256
+    q, c, _, ids, log_q = _setup(seed=31, d=d)
+    g = (np.random.default_rng(32).normal(size=B) / B).astype(np.float32)
+    ids_f = jnp.asarray(ids).astype(jnp.float32)
+    _, vjp = jax.vjp(
+        lambda qa, ca: jax_sk._lse_fused(qa, ca, ids_f, ids_f, jnp.asarray(log_q),
+                                         jnp.arange(B, dtype=jnp.float32), 0.7, n_valid,
+                                         (use_ids, use_logq), True), jnp.asarray(q),
+        jnp.asarray(c))
+    want_dq, want_dc = (np.asarray(x) for x in vjp(jnp.asarray(g)))
+    monkeypatch.setattr(sk, "PANEL_BYTES", 128 * 2 * B)
+    assert sk.panel_rows(B, B) == 128
+    q16, c16 = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, c))
+    ids_t = torch.from_numpy(ids) if use_ids else None
+    adj = sk._merged_adj(torch.from_numpy(log_q) if use_logq else None, n_valid, B,
+                         torch.device("cpu"))
+    args = (q16, c16, adj, ids_t, ids_t, 0, 1 / 0.7)
+    dq, dc = sk.softmax_lse_grads(*args, sk.lse_forward_reference(*args), torch.from_numpy(g))
+    _assert_grad_close(dq.numpy(), want_dq, "dq")
+    _assert_grad_close(dc.numpy(), want_dc, "dc")
+
+
+@pytest.mark.parametrize("d", [192, 256])
+def test_a_stripes_panel_rows_are_the_square_rows(d, monkeypatch):
+    """A stripe of 128 q rows at row offset 256: its p panel is bit for bit
+    the square's rows, and its dq rows are the square's (the same p rows
+    against the same columns), with the square walked in panels of 128
+    rows."""
+    square = _wide_args(41 + d, d)
+    stripe = _wide_args(41 + d, d, bq=128, row_offset=256)
+    rows = slice(256, 384)
+    assert torch.equal(stripe[7], square[7][rows])
+    p_square = sk.p_panel_reference(*square, 0, B)
+    p_stripe = sk.p_panel_reference(*stripe, 0, 128)
+    assert torch.equal(p_stripe.view(torch.int16), p_square[rows].view(torch.int16))
+    monkeypatch.setattr(sk, "PANEL_BYTES", 128 * 2 * B)
+    dq_square, _ = sk.wide_backward(*square)
+    dq_stripe, _ = sk.wide_backward(*stripe)
+    torch.testing.assert_close(dq_stripe, dq_square[rows], rtol=1e-6, atol=0)
+
+
+def test_the_wide_wrappers_check_their_panels():
+    """The p wrapper takes rows on 128-row boundaries and a workspace of the
+    panel's shape; the products take the panel's p and operands of matching
+    shapes. On CPU tensors nothing is counted."""
+    args = _wide_args(3, 256)
+    before = [w.launches for w in (sk.softmax_lse_p, sk.softmax_lse_dq, sk.softmax_lse_dc)]
+    with pytest.raises(ValueError, match="128-row boundaries"):
+        sk.softmax_lse_p(*args, 64, 256)
+    with pytest.raises(ValueError, match="out must be"):
+        sk.softmax_lse_p(*args, 0, 128, out=torch.empty(128, 256, dtype=torch.bfloat16))
+    p = sk.softmax_lse_p(*args, 0, 128)
+    with pytest.raises(ValueError, match="other must be"):
+        sk.softmax_lse_dq.product(p, args[1][:128].contiguous(), torch.empty(128, 256), 1.0)
+    with pytest.raises(ValueError, match="out must be"):
+        sk.softmax_lse_dc.product(p, args[0][:128].contiguous(), torch.empty(128, 256), 1.0)
+    dc = torch.full((B, 256), 7.0)
+    sk.softmax_lse_dc.product(p, args[0][:128].contiguous(), dc, 2.0, first=True, last=False)
+    torch.testing.assert_close(dc, p.float().T @ args[0][:128].float())
+    assert [w.launches for w in (sk.softmax_lse_p, sk.softmax_lse_dq, sk.softmax_lse_dc)] == before
 
 
 def _tensor_core_order_forward(q16, c16, adj, row_ids, col_ids, inv_t):

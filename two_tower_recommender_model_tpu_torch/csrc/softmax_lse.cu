@@ -29,7 +29,8 @@
 // multiple of 128 up to 2,048 (the wrapper zero-pads D, as the reference
 // pads it to 128 lanes, to the reference's cap); BQ and BK multiples of 128; adj [BK] f32 or null;
 // row_ids [BQ] and col_ids [BK] int32, both or neither; lse, g [BQ] f32;
-// outputs f32; every pointer 16-byte aligned. q row i has global row index
+// outputs f32 (and at a wide D the caller's workspace P, [rows, BK] bf16,
+// rows a multiple of 128); every pointer 16-byte aligned. q row i has global row index
 // row_offset + i, the column of its positive, so one stripe of a
 // data-parallel split runs the same kernel.
 //
@@ -43,7 +44,8 @@
 // 0.04 ms): they, not the products, set the time. At a wide D the products
 // do: 0.0347 ms for #9 and 0.0695 ms for #10 or #11 at 8,192^2, D = 256;
 // 0.278 and 0.556 ms at D = 2,048 (the kernels at 128 < D <= 2,048 are at
-// "wide D" below).
+// "wide D" below: #9 in depth slices, #10 and #11 as a p kernel that writes
+// p once and two wgmma products that read it).
 //
 // The three kernels share one skeleton (`stream_tiles`) and one score
 // product (`score_tile`, then `adjust_tile`), on the tensor cores
@@ -118,24 +120,28 @@
 //     and group 0 adds them to its own in group order, times 1/T once. Four
 //     groups instead of two took #10 from 0.150 to 0.123 ms at 8,192^2 on an
 //     H100, and ex2.approx instead of expf to 0.107.
-// Left for later: wgmma with TMA loads (warp-specialised producers), warps
-// that own 32 rows (half the ldmatrix traffic: each tile is read twice by
-// each warp of a group, 8 MB per SM at 8,192^2), fewer instructions in the
-// epilogue (the mask per 8 columns), and one barrier a tile instead of two.
+// Left for later at D <= 128: wgmma with TMA loads (the wide backward's
+// ring, below), warps that own 32 rows (half the ldmatrix traffic: each tile
+// is read twice by each warp of a group, 8 MB per SM at 8,192^2), fewer
+// instructions in the epilogue (the mask per 8 columns), and one barrier a
+// tile instead of two.
 //
 // Binding: a plain C interface loaded with ctypes. Each launch goes to the
 // caller's stream, does not synchronise and allocates nothing; each entry
 // point returns cudaGetLastError().
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched through the runtime
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "mma_sm90.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
 using namespace mma_sm90;
+using namespace wgmma_sm90;
 using bf16 = __nv_bfloat16;
 
 constexpr float kNeg = -1e9f;
@@ -496,27 +502,40 @@ __device__ float ordered_dot(const bf16* a, const bf16* b) {
   return s;
 }
 
-// The wide kernels' tie score: a . b over dp bf16 values of two rows in
-// device memory (no whole row is in shared memory), summed in f64 in k order
-// and rounded to f32 once, as the plain version takes a score at a wide D.
-// An f32 sum of 2,048 products depends on its order by tens of ulps, and the
-// order of the library's f32 GEMM there is its own choice: on an H100 a
+// The wide backward's tie score: a . b over dp bf16 values of two rows in
+// device memory (no whole row is in shared memory), the products summed in
+// f64 and rounded to f32 once, as the plain version takes a score at a wide
+// D. An f32 sum of 2,048 products depends on its order by tens of ulps, and
+// the order of the library's f32 GEMM there is its own choice: on an H100 a
 // [1,024, 4,096] stripe took another than the [4,096, 4,096] square. The
 // products of bf16 values are exact, and an f64 sum of them rounds to the
-// same f32 in any order.
-__device__ float rounded_dot_global(const uint16_t* a, const uint16_t* b, int dp) {
-  double s = 0.0;
-  for (int k = 0; k < dp; k += 8) {
+// same f32 in any order. So `lanes` lanes (a power of 2, aligned) sum one
+// score together, every lane of the group called with the same rows: lane l
+// of the group takes the 8-value chunks l, l + lanes, ..., in two running
+// sums, and the group's sums meet in a butterfly (every lane of the group
+// ends with the same value). A thread alone took one L2 round trip a chunk:
+// ~70 us a tie at D = 2,048; the whole warp on one tie, ~1 us at D = 256,
+// left a warp whose rows hold dozens of ties (a trained step's) waiting on
+// them in turn. `tie_lanes`: 8 at D = 256 (4 ties a round), 32 from D =
+// 1,024 (on an H100, 8 and 32 lanes against 4 and 32 at D = 256 and 2,048).
+__device__ __forceinline__ int tie_lanes(int dp) { return min(32, max(8, dp / 32)); }
+
+__device__ float rounded_dot_group(const uint16_t* a, const uint16_t* b, int dp, int lanes) {
+  double s[2] = {0.0, 0.0};
+#pragma unroll 4
+  for (int k = (threadIdx.x & (lanes - 1)) * 8; k < dp; k += 8 * lanes) {
     const uint4 u = __ldg(reinterpret_cast<const uint4*>(a + k));
     const uint4 w = __ldg(reinterpret_cast<const uint4*>(b + k));
     const uint32_t au[4] = {u.x, u.y, u.z, u.w}, bu[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
-      s = fma(static_cast<double>(bf16_lo(au[m])), static_cast<double>(bf16_lo(bu[m])), s);
-      s = fma(static_cast<double>(bf16_hi(au[m])), static_cast<double>(bf16_hi(bu[m])), s);
+      s[0] = fma(static_cast<double>(bf16_lo(au[m])), static_cast<double>(bf16_lo(bu[m])), s[0]);
+      s[1] = fma(static_cast<double>(bf16_hi(au[m])), static_cast<double>(bf16_hi(bu[m])), s[1]);
     }
   }
-  return __double2float_rn(s);
+  double t = s[0] + s[1];
+  for (int o = 1; o < lanes; o <<= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+  return __double2float_rn(t);
 }
 
 // The backward's work on one tile after adjust_tile: the epilogue turns the
@@ -673,52 +692,72 @@ __global__ void __launch_bounds__(bwd_groups<DP>() * kGroupThreads) lse_bwd_kern
 // A [64, D] bf16 tile of 2,048 columns is 256 KB, past the 227 KB a block may
 // hold, and a warp's [16, D] f32 slice of dq or dc would be 128 KB of
 // registers. So at a padded D of 256 to 2,048 (a multiple of 128):
-//   - The score product runs over D in slices of kSlice = 64 columns: for each
-//     streamed tile the group copies slice k of its 64 own rows and of the
-//     tile's 64 rows into shared memory (two [64, 72] bf16 buffers, double
-//     buffered by cp.async over the flat sequence of (tile, slice) steps), and
-//     each warp sums the slice's 4 chunks of 16 from zero on the tensor cores
-//     and adds that to its 16 x 64 fragment of f32 scores on the CUDA cores
-//     (`score_slice`), the slices in order. Nothing of the depth stays in
-//     registers between slices but that fragment.
-//   - The backward's output is cut in slices of kOutCols = 128 columns across
-//     the grid (gridDim.y = D / 128). Each block recomputes its 64 own rows'
-//     full-depth scores, p and the tie recompute for every streamed tile, and
-//     adds p @ (the tile's 128 columns of its slice) to a warp's [16, 128]
-//     f32 accumulator: D / 128 times the score products of one pass. The
-//     score and p of a (row, column) are the same bits in every block of a
-//     row of the grid: the same instructions on the same operands in the same
-//     order, so every output slice sees the same p (its tie decision
-//     included), each computed once in a block, by one warp.
-//   - A tie's score is summed again from the two rows in device memory (no
-//     whole row is in shared memory), in f64 and rounded to f32 once, as the
-//     plain version takes a score at a wide D (`rounded_dot_global`).
-//   - 4 warp groups for #9 (153,600 bytes of shared memory a block), 2 for
-//     #10 and #11 (146,432 bytes: each group also double-buffers the tile's
-//     [64, 136] output-slice columns); the groups split the streamed tiles by
-//     tile index and merge in group order, as at D <= 128, so two launches
-//     agree bit for bit and a stripe's rows equal the square case's.
-// The own rows are read again for every streamed tile (from L2): twice the
-// operand traffic of a design that keeps them, and D / 128 times the
-// backward's score products. Left for later: wgmma with the own rows' slices
-// resident across a cluster, and a backward that keeps p for several output
-// slices.
+//
+// Kernel #9 (lse_fwd_wide_kernel) sums a score over D in slices of kSlice =
+// 64 columns: for each streamed tile the group copies slice k of its 64 own
+// rows and of the tile's 64 rows into shared memory (two [64, 72] bf16
+// buffers, double buffered by cp.async over the flat sequence of (tile,
+// slice) steps), and each warp sums the slice's 4 chunks of 16 from zero on
+// the tensor cores and adds that to its 16 x 64 fragment of f32 scores on the
+// CUDA cores (`score_slice`), the slices in order. 4 warp groups, 153,600
+// bytes of shared memory a block; the groups split the streamed tiles by tile
+// index and merge in group order, as at D <= 128.
+//
+// Kernels #10 and #11: p once, then two products. A backward is three
+// launches per panel of q rows [lo, hi) (the wrapper's workspace holds the
+// panel's P, [hi - lo, BK] bf16, at most 256 MB):
+//   1. lse_p_kernel writes P = p for the panel's rows against all BK columns.
+//      Scores on wgmma (m64n128k16) from a ring of kStages shared-memory
+//      stages that TMA fills (q and c tiles [128, 64] with the 128-byte
+//      swizzle), one producer thread feeding two consumer warpgroups, a 128 x
+//      128 output tile a block at a time (persistent blocks, one an SM). Each
+//      64-deep slice is summed from zero (scale-d = 0 on its first k step)
+//      and added to the running f32 score with __fadd_rn, slices in order: a
+//      wgmma adds to its accumulator by truncation, as mma.sync does, and 128
+//      chunks in one accumulator drifted ~1e-3 from a k-order sum of a score
+//      near 160 at D = 2,048 (an H100), p by ~2^-10, past the tie window.
+//      The epilogue is the narrow kernels': `adjusted_score`, `p_value` with
+//      ex2.approx, and each p of weight near a bf16 tie summed again from the
+//      two rows in device memory in f64 by a group of lanes together (8 at
+//      D = 256, 32 from 1,024: `tie_lanes`), rounded once
+//      (`rounded_dot_group`, as the plain version takes a score at a wide
+//      D); a warpgroup pools its tile's ties in shared memory and its four
+//      warps share them. Every p of weight gets the plain version's bf16 bits.
+//      A warpgroup's [64, 128] of P is staged in shared memory (the ties
+//      written over it there) and stored in rows of 256 bytes.
+//   2. lse_product_kernel<false>: dq[lo:hi] = (1/T) P C (P K-major, C [BK,
+//      D] row-major read MN-major), and
+//   3. lse_product_kernel<true>: dc += P^T Q[lo:hi] (P^T read MN-major), f32,
+//      times 1/T once after the last panel, as the plain version does.
+//   Both products are one GEMM skeleton: TMA into the same ring, two
+//   consumer warpgroups of 64 output rows x 128 columns, wgmma m64n128k16
+//   with one k-block in flight. The f32 sum over the contracted axis runs in
+//   k order in one accumulator (no split, no atomics), so two launches agree
+//   bit for bit and a stripe's dq rows are the square's: the same P rows
+//   meet the same k order.
+// What bounds it: a score is computed once a backward (a grid that cut dq
+// and dc in 128-column slices summed it 2 x D / 128 times), so the three
+// launches do 3 x 2 BQ BK D FLOPs and move P three times (written once, read
+// by each product): 0.104 ms of products and 0.115 ms of P at 8,192^2, D =
+// 256 on an H100; 0.208 ms of products at 4,096^2, D = 2,048. Measured there
+// (700 W): p 0.18 ms, the products 0.064 and 0.066 ms at 8,192^2, D = 256;
+// p 0.17, the products 0.12 and 0.13 ms at 4,096^2, D = 2,048. In the p
+// kernel the epilogue does not overlap the products (both warpgroups run
+// each tile's products, then its epilogue, in step), and ties cost more as
+// a model trains and its p concentrate (`chip_smoke.py`
+// `[train-softmax-wide]` counts them on its trained state).
+// Left for later: the epilogue of one tile under the next tile's products,
+// 128 x 256 product tiles at D >= 512 (less operand traffic from L2).
 
-constexpr int kSlice = 64;       // the score product's depth per step
+constexpr int kSlice = 64;       // #9's depth per step
 constexpr int kSliceLd = kSlice + 8;
-constexpr int kOutCols = 128;    // the backward's output columns per block
-constexpr int kOutLd = kOutCols + 8;
-constexpr int kWideBwdGroups = 2;
 constexpr int kMaxDim = 2048;
 
-// The raw dot products of one depth slice of the wide kernels, added to `s`:
+// The raw dot products of one depth slice of #9 at a wide D, added to `s`:
 // per pair of n8 blocks the slice's 4 chunks of 16 summed from zero on the
 // tensor cores, then that partial added to the running score in f32 on the
-// CUDA cores (__fadd_rn). An mma adds to its accumulator with truncation, not
-// rounding to nearest: at D = 2,048 the 128 chunks of one running
-// accumulator drifted ~1e-3 from a k-order sum of a score near 160 (an H100),
-// p by ~2^-10, past the tie window. A partial of 64 products stays small, and
-// the slices' sums round to nearest.
+// CUDA cores (__fadd_rn): a partial of 64 products stays small, and the
+// slices' sums round to nearest.
 __device__ __forceinline__ void score_slice(float (&s)[8][4], const uint32_t (&af)[kSlice / 16][4],
                                             const bf16* tile) {
   const int lane = threadIdx.x & 31, r8 = lane & 7, mat = lane >> 3;
@@ -740,29 +779,24 @@ __device__ __forceinline__ void score_slice(float (&s)[8][4], const uint32_t (&a
   }
 }
 
-// Shared memory of a group of the wide kernels, in bytes from its base:
-// 2 stages x (own slice, streamed slice) [64][72] bf16; for the backward 2
-// stages x the tile's output-slice columns [64][136] bf16; 2 stages x the
-// tile's scalars.
-template <bool BWD>
+// Shared memory of a group of #9 at a wide D, in bytes from its base: 2
+// stages x (own slice, streamed slice) [64][72] bf16; 2 stages x the tile's
+// scalars.
 struct WideLayout {
   static constexpr int slice_elems = kSub * kSliceLd;
-  static constexpr int out_elems = kSub * kOutLd;
   static constexpr int scal_floats = 3 * kSub;
-  static constexpr size_t outs = size_t(4) * slice_elems * 2;
-  static constexpr size_t scal = outs + (BWD ? size_t(2) * out_elems * 2 : 0);
+  static constexpr size_t scal = size_t(4) * slice_elems * 2;
   static constexpr size_t group_bytes = scal + size_t(2) * scal_floats * 4;
 };
 
-// The skeleton of the wide kernels: walks the group's tiles (group, group +
-// NG, ...), each in dp / 64 depth slices, and calls body(s, sc, out_tile, o0)
-// once a tile's scores are whole: `s` the warp's raw 16 x 64 dot products,
-// `sc` the tile's scalars, `out_tile` its [64, 128] output-slice columns
-// (BWD), `o0` its first streamed row. The buffers stay in use until every
-// group is past its loop (the caller's __syncthreads()).
-template <int NG, bool OWN_Q, bool BWD, typename Body>
+// The skeleton of #9 at a wide D: walks the group's tiles (group, group +
+// NG, ...), each in dp / 64 depth slices, and calls body(s, sc, o0) once a
+// tile's scores are whole: `s` the warp's raw 16 x 64 dot products, `sc` the
+// tile's scalars, `o0` its first streamed row. The buffers stay in use until
+// every group is past its loop (the caller's __syncthreads()).
+template <int NG, bool OWN_Q, typename Body>
 __device__ __forceinline__ void stream_sliced(const Args& a, unsigned char* smem, Body&& body) {
-  using L = WideLayout<BWD>;
+  using L = WideLayout;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int group = warp >> 2, wr = (warp & 3) * 16;  // the warp's first own row in the block
   const int gt = threadIdx.x & (kGroupThreads - 1);
@@ -777,7 +811,6 @@ __device__ __forceinline__ void stream_sliced(const Args& a, unsigned char* smem
   const int steps = n_mine * n_slices;
   unsigned char* base = smem + group * L::group_bytes;
   bf16* slices = reinterpret_cast<bf16*>(base);  // [stage][own, streamed][64][72]
-  bf16* outs = reinterpret_cast<bf16*>(base + L::outs);
   float* scal = reinterpret_cast<float*>(base + L::scal);
 
   // step j: slice j % n_slices of the group's tile j / n_slices
@@ -791,17 +824,7 @@ __device__ __forceinline__ void stream_sliced(const Args& a, unsigned char* smem
       cp_async16(od + r * kSliceLd + (idx & 7) * 8, own + static_cast<size_t>(own0 + r) * dp + k);
       cp_async16(td + r * kSliceLd + (idx & 7) * 8, other + static_cast<size_t>(o0 + r) * dp + k);
     }
-    if (sl == 0) {
-      load_scalars<OWN_Q>(a, o0, scal + (it & 1) * L::scal_floats, gt, use_ids);
-      if (BWD) {
-        bf16* ob = outs + (it & 1) * L::out_elems;
-        const int col0 = blockIdx.y * kOutCols;
-        for (int idx = gt; idx < kSub * (kOutCols / 8); idx += kGroupThreads) {
-          const int r = idx >> 4, k = (idx & 15) * 8;
-          cp_async16(ob + r * kOutLd + k, other + static_cast<size_t>(o0 + r) * dp + col0 + k);
-        }
-      }
-    }
+    if (sl == 0) load_scalars<OWN_Q>(a, o0, scal + (it & 1) * L::scal_floats, gt, use_ids);
   };
 
   if (OWN_Q && a.adj == nullptr)  // no adjustment: adj reads as 0 in both stages
@@ -827,15 +850,14 @@ __device__ __forceinline__ void stream_sliced(const Args& a, unsigned char* smem
     if (sl == 0) zero_scores(s);
     score_slice(s, af, od + L::slice_elems);
     if (sl == n_slices - 1)
-      body(s, static_cast<const float*>(scal + (it & 1) * L::scal_floats),
-           static_cast<const bf16*>(outs + (it & 1) * L::out_elems), (group + NG * it) * kSub);
+      body(s, static_cast<const float*>(scal + (it & 1) * L::scal_floats), (group + NG * it) * kSub);
     group_sync(group);  // every thread of the group is done with this stage
   }
 }
 
 // Kernel #9 at a wide D: lse for the block's 64 q rows, streaming c.
 __global__ void __launch_bounds__(kFwdGroups * kGroupThreads) lse_fwd_wide_kernel(const Args a) {
-  static_assert(size_t(kFwdGroups) * kOwn * 2 * 4 <= WideLayout<false>::group_bytes,
+  static_assert(size_t(kFwdGroups) * kOwn * 2 * 4 <= WideLayout::group_bytes,
                 "the groups' (m, l) fit the tile buffers");
   extern __shared__ float4 smem4[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
@@ -845,48 +867,374 @@ __global__ void __launch_bounds__(kFwdGroups * kGroupThreads) lse_fwd_wide_kerne
   const int own0 = blockIdx.x * kOwn;
   const OwnRows own = load_own_rows<true, false>(a, own0 + wr + g, use_ids);
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
-  stream_sliced<kFwdGroups, true, false>(
-      a, smem, [&](float (&s)[8][4], const float* sc, const bf16*, int o0) {
-        adjust_tile<true>(s, sc, own, o0, a, use_ids);
-        online_tile(s, m, l);
-      });
+  stream_sliced<kFwdGroups, true>(a, smem, [&](float (&s)[8][4], const float* sc, int o0) {
+    adjust_tile<true>(s, sc, own, o0, a, use_ids);
+    online_tile(s, m, l);
+  });
   finish_lse<kFwdGroups>(reinterpret_cast<float2*>(smem), m, l, a.out + own0);
 }
 
-// Kernels #10 (OWN_Q) and #11 at a wide D: output columns blockIdx.y * 128 ..
-// + 127 of dq (dc) for the block's 64 q (c) rows.
-template <bool OWN_Q>
-__global__ void __launch_bounds__(kWideBwdGroups * kGroupThreads)
-    lse_bwd_wide_kernel(const Args a) {
-  constexpr int NG = kWideBwdGroups, ND = kOutCols / 8;
-  static_assert(size_t(NG - 1) * kOwn * kOutLd * 4 <= WideLayout<true>::group_bytes,
-                "the partial sums fit the tile buffers");
-  extern __shared__ float4 smem4[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wr = (warp & 3) * 16, g = lane >> 2;
-  const int own0 = blockIdx.x * kOwn;
-  const bool use_ids = a.row_ids != nullptr;
-  const uint16_t* own_rows = OWN_Q ? a.q : a.c;
-  const uint16_t* other = OWN_Q ? a.c : a.q;
-  const OwnRows own = load_own_rows<OWN_Q, true>(a, own0 + wr + g, use_ids);
-  float acc[ND][4];  // the warp's [16, 128] of dq or dc
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  stream_sliced<NG, OWN_Q, true>(
-      a, smem, [&](float (&s)[8][4], const float* sc, const bf16* out_tile, int o0) {
-        adjust_tile<OWN_Q>(s, sc, own, o0, a, use_ids);
-        bwd_tile<OWN_Q, ND, kOutLd>(s, sc, own, o0, a, use_ids, acc, out_tile, [&](int h, int c) {
-          return rounded_dot_global(own_rows + static_cast<size_t>(own0 + wr + g + 8 * h) * a.dp,
-                                    other + static_cast<size_t>(o0 + c) * a.dp, a.dp);
-        });
-      });
-  finish_grad<NG, ND, kOutLd>(acc, reinterpret_cast<float*>(smem),
-                              a.out + static_cast<size_t>(own0) * a.dp + blockIdx.y * kOutCols,
-                              a.dp, a.inv_t);
+// ---- #10 and #11 at a wide D: the ring, the p kernel, the products ------------------
+
+constexpr int kTileM = 128;                       // output rows of a tile: 2 warpgroups x 64
+constexpr int kTileN = 128;                       // output columns: one m64n128k16 a warpgroup
+constexpr int kTileK = 64;                        // depth of a stage: a 128-byte swizzled row
+constexpr int kStages = 5;                        // the shared-memory ring
+constexpr int kHalfBytes = 64 * kTileK * 2;       // one [64, 64] bf16 TMA box: 8 KB
+constexpr int kStageBytes = 4 * kHalfBytes;       // A [128, 64] and B [128, 64]: 32 KB
+constexpr int kConsumerWarps = 8;                 // two consumer warpgroups
+constexpr int kWideThreads = 3 * kGroupThreads;   // a producer warpgroup and two consumers
+constexpr size_t kRingBytes = size_t(kStages) * kStageBytes;
+constexpr size_t kWideSmem = kRingBytes + 2 * kStages * 8 + 1024;  // barriers; alignment
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 128 x 40 + 256 x 232 <= 65,536
+constexpr int kStagedLd = kTileN + 8;  // the p kernel's staged P rows: padded, no bank conflict
+constexpr size_t kStagedAt = kRingBytes + 1024;  // past the ring's barriers: two [64, 136]
+constexpr size_t kColsAt = kStagedAt + size_t(2) * 64 * kStagedLd * 2;  // two x [2][128] scalars
+constexpr int kTieList = 2048;  // ties a warpgroup's tile pools (row << 7 | column, 2 bytes each)
+constexpr size_t kTiesAt = kColsAt + size_t(2) * 2 * kTileN * 4;  // two lists, then two counts
+constexpr size_t kPSmem = kTiesAt + size_t(2) * kTieList * 2 + 2 * 4 + 1024;
+
+// The ring: kStages stages of [A 16 KB | B 16 KB] on 1,024-byte boundaries (the
+// 128-byte swizzle's atoms), a `full` barrier a stage (one arrival, the
+// producer's, and the TMA bytes) and an `empty` one (an arrival from each
+// consumer warp).
+struct Ring {
+  unsigned char* tiles;
+  uint64_t* full;
+  uint64_t* empty;
+};
+
+__device__ __forceinline__ Ring ring_init(unsigned char* smem_raw) {
+  Ring r;
+  r.tiles = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  r.full = reinterpret_cast<uint64_t*>(r.tiles + kRingBytes);
+  r.empty = r.full + kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(r.full + s, 1);
+      mbar_init(r.empty + s, kConsumerWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  return r;
 }
+
+// A position in the ring: the stage and the parity of its current round.
+struct Slot {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void next() {
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// The producer (one thread): for each of the block's tiles (blockIdx.x,
+// + gridDim.x, ...) its n_kb k-blocks, each into the next free stage:
+// load(tile, kb, stage, bar) issues the TMA boxes, kStageBytes in all.
+template <typename Load>
+__device__ __forceinline__ void produce(const Ring& r, int n_tiles, int n_kb, Load&& load) {
+  Slot s;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x)
+    for (int kb = 0; kb < n_kb; ++kb) {
+      mbar_wait(r.empty + s.stage, s.phase ^ 1);
+      mbar_arrive_expect_tx(r.full + s.stage, kStageBytes);
+      load(t, kb, r.tiles + size_t(s.stage) * kStageBytes, r.full + s.stage);
+      s.next();
+    }
+}
+
+// K-major and MN-major descriptors of the 128-byte-swizzled boxes of a stage,
+// at k step ks (16 deep) of the k-block
+__device__ __forceinline__ uint64_t kmajor_sw128(const unsigned char* tile, int ks) {
+  return smem_desc(tile + 32 * ks, 16, 1024, wgmma_sm90::kSwizzle128);
+}
+__device__ __forceinline__ uint64_t mnmajor_sw128(const unsigned char* tile, int ks) {
+  return smem_desc(tile + 2048 * ks, kHalfBytes, 1024, wgmma_sm90::kSwizzle128);
+}
+
+// The p kernel: P[r, j] = bf16(exp(s - lse) * g) for q rows lo + r (r < rows)
+// against every column j, into p ([rows, bk] bf16). mq: q [bq, dp], mc: c
+// [bk, dp], both in boxes of [128 rows, 64].
+__global__ void __launch_bounds__(kWideThreads, 1)
+    lse_p_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mc,
+                 const Args a, uint16_t* __restrict__ p, int lo, int rows) {
+  extern __shared__ unsigned char smem_raw[];
+  const Ring r = ring_init(smem_raw);
+  const int n_tn = a.bk / kTileN, n_tiles = (rows / kTileM) * n_tn, n_kb = a.dp / kTileK;
+  const int wg = threadIdx.x / kGroupThreads;
+  if (wg == 0) {
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      tma_prefetch_map(&mq);
+      tma_prefetch_map(&mc);
+      produce(r, n_tiles, n_kb, [&](int t, int kb, unsigned char* st, uint64_t* bar) {
+        const int tm = t / n_tn, tn = t - tm * n_tn;
+        tma_load_2d(st, &mq, bar, kb * kTileK, lo + tm * kTileM);
+        tma_load_2d(st + 2 * kHalfBytes, &mc, bar, kb * kTileK, tn * kTileN);
+      });
+    }
+    return;
+  }
+  regs_inc<kConsumerRegs>();
+  const int cw = wg - 1;  // rows 64 cw .. 64 cw + 63 of each tile
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int ct = threadIdx.x & (kGroupThreads - 1);
+  const bool use_ids = a.row_ids != nullptr;
+  // this warpgroup's staged P [64, 136] and its tile's column scalars: adj
+  // [128] (0 without one), ids [128] (-1 without ids; the rows' are then -2)
+  uint16_t* staged = reinterpret_cast<uint16_t*>(r.tiles + kStagedAt) + cw * 64 * kStagedLd;
+  float* col_adj = reinterpret_cast<float*>(r.tiles + kColsAt) + cw * 2 * kTileN;
+  int* col_id = reinterpret_cast<int*>(col_adj + kTileN);
+  uint16_t* tie_list = reinterpret_cast<uint16_t*>(r.tiles + kTiesAt) + cw * kTieList;
+  int* tie_count = reinterpret_cast<int*>(r.tiles + kTiesAt + size_t(2) * kTieList * 2) + cw;
+  Slot s;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int tm = tile / n_tn, tn = tile - tm * n_tn;
+    const int c0 = tn * kTileN;
+    // the scalars of the tile's columns and of the thread's two rows, on their
+    // way while the scores are summed (the last tile's readers are past the
+    // barrier that closed it)
+    if (ct == 0) *tie_count = 0;  // published by the barrier before the epilogue
+    if (ct < kTileN / 4) {
+      if (a.adj != nullptr)
+        cp_async16(col_adj + 4 * ct, a.adj + c0 + 4 * ct);
+      else
+        *reinterpret_cast<float4*>(col_adj + 4 * ct) = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else if (ct < kTileN / 2) {
+      const int i = 4 * (ct - kTileN / 4);
+      if (use_ids)
+        cp_async16(col_id + i, a.col_ids + c0 + i);
+      else
+        *reinterpret_cast<int4*>(col_id + i) = make_int4(-1, -1, -1, -1);
+    }
+    cp_async_commit();
+    const int pr = tm * kTileM + cw * 64 + warp * 16 + g;  // panel row of the fragment's row 0
+    float lse_r[2], g_r[2];
+    int id_r[2], pos_r[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qr = lo + pr + 8 * h;
+      lse_r[h] = __ldg(a.lse + qr);
+      g_r[h] = __ldg(a.g + qr);
+      id_r[h] = use_ids ? __ldg(a.row_ids + qr) : -2;
+      pos_r[h] = a.row_offset + qr;
+    }
+
+    float sc[64];  // the running scores, in the accumulator layout
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+    for (int kb = 0; kb < n_kb; ++kb) {
+      mbar_wait(r.full + s.stage, s.phase);
+      const unsigned char* st = r.tiles + size_t(s.stage) * kStageBytes;
+      float part[64];  // the slice's 64-deep sums, from zero
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kTileK / 16; ++ks)
+        wgmma_bf16<128, 0, 0>(part, kmajor_sw128(st + cw * kHalfBytes, ks),
+                              kmajor_sw128(st + 2 * kHalfBytes, ks), ks);
+      wgmma_commit_wait();
+      fence_operands(part);
+      if (lane == 0) mbar_arrive(r.empty + s.stage);
+      s.next();
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sc[i] = __fadd_rn(sc[i], part[i]);
+    }
+    cp_async_wait_all();
+    group_sync(cw);  // the column scalars are whole for the warpgroup
+
+    // the epilogue: adjusted score, p, its bf16 rounding into the staging; ties flagged
+    uint64_t ties = 0;  // bit i: accumulator i is a p of weight near a bf16 tie
+#pragma unroll
+    for (int j = 0; j < kTileN / 8; ++j) {
+      const int cl = 8 * j + 2 * t;  // the pair's first column in the tile
+      const float2 adj = *reinterpret_cast<const float2*>(col_adj + cl);
+      const int2 cid = *reinterpret_cast<const int2*>(col_id + cl);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float pv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h + e;
+          const bool masked = id_r[h] == (e ? cid.y : cid.x) && pos_r[h] != c0 + cl + e;
+          float ex;
+          pv[e] = p_value<true>(adjusted_score(sc[i], a.inv_t, e ? adj.y : adj.x, masked),
+                                lse_r[h], g_r[h], ex);
+          if (ex >= kTieFloor && near_tie(pv[e])) ties |= 1ull << i;
+        }
+        *reinterpret_cast<uint32_t*>(staged + (warp * 16 + g + 8 * h) * kStagedLd + cl) =
+            pack_bf16x2(pv[0], pv[1]);
+      }
+    }
+    // a p of weight near a bf16 rounding tie: again as the plain version takes
+    // it (the score in f64, rounded once; expf), over its staged value. The
+    // warpgroup pools its ties (a row's weighty p sit in few warps) and its
+    // 4 warps share them: a round of a warp takes 32 / tl of them, each
+    // summed by a group of tl lanes, whose first lane computes and stages
+    // its p. Ties past the pool's room stay with their lanes (`rest`).
+    const int tl = tie_lanes(a.dp);
+    {
+      const int n = __popcll(static_cast<long long>(ties));
+      const int at = n ? atomicAdd(tie_count, n) : 0;
+      for (int k = 0; k < n && at + k < kTieList; ++k) {
+        const int i = __ffsll(static_cast<long long>(ties)) - 1;
+        ties &= ties - 1;
+        tie_list[at + k] = static_cast<uint16_t>(
+            (warp * 16 + g + 8 * ((i >> 1) & 1)) << 7 | (2 * t + 8 * (i >> 2) + (i & 1)));
+      }
+    }
+    group_sync(cw);  // the pool is whole
+    const int pooled = min(*tie_count, kTieList);
+    for (int base = 0; base < pooled; base += 4 * (32 / tl)) {
+      const int e = base + warp * (32 / tl) + lane / tl;
+      const int ent = e < pooled ? tie_list[e] : 0;
+      const int wr = ent >> 7, cl = ent & (kTileN - 1);  // row in the warpgroup's 64, column
+      const int qr = lo + tm * kTileM + cw * 64 + wr;
+      // every lane in the call (its shuffles); a group without a tie sums nothing
+      const float dot = rounded_dot_group(a.q + static_cast<size_t>(qr) * a.dp,
+                                          a.c + static_cast<size_t>(c0 + cl) * a.dp,
+                                          e < pooled ? a.dp : 0, tl);
+      if (e < pooled && (lane & (tl - 1)) == 0) {
+        const bool masked = (use_ids ? __ldg(a.row_ids + qr) : -2) == col_id[cl] &&
+                            a.row_offset + qr != c0 + cl;
+        float ex;
+        const float pv = p_value<false>(adjusted_score(dot, a.inv_t, col_adj[cl], masked),
+                                        __ldg(a.lse + qr), __ldg(a.g + qr), ex);
+        staged[wr * kStagedLd + cl] = __bfloat16_as_ushort(__float2bfloat16_rn(pv));
+      }
+    }
+    // `rest`: a round takes the lowest tie of each of the first 32 / tl
+    // lanes of the warp that still hold one
+    while (__any_sync(0xffffffffu, ties != 0)) {
+      const unsigned have = __ballot_sync(0xffffffffu, ties != 0);
+      const int rank = __popc(have & ((1u << lane) - 1));  // among the lanes with a tie
+      const int mine = ties != 0 ? __ffsll(static_cast<long long>(ties)) - 1 : 0;
+      unsigned left = have;  // the group's lane: the (lane / tl)-th of `have`
+      for (int k = 0; k < lane / tl; ++k) left &= left - 1;
+      const int src = left != 0 ? __ffs(left) - 1 : 0;
+      const int i = __shfl_sync(0xffffffffu, mine, src);
+      const int h = (i >> 1) & 1, cl = 2 * (src & 3) + 8 * (i >> 2) + (i & 1);
+      const int wr = warp * 16 + (src >> 2) + 8 * h;  // the tie's row in the warpgroup's 64
+      float dot = rounded_dot_group(
+          a.q + static_cast<size_t>(lo + tm * kTileM + cw * 64 + wr) * a.dp,
+          a.c + static_cast<size_t>(c0 + cl) * a.dp, left != 0 ? a.dp : 0, tl);
+      dot = __shfl_sync(0xffffffffu, dot, (rank % (32 / tl)) * tl);
+      if (ties != 0 && rank < 32 / tl) {
+        const int mh = (mine >> 1) & 1, mcl = 2 * t + 8 * (mine >> 2) + (mine & 1);
+        const bool masked =
+            (mh ? id_r[1] : id_r[0]) == col_id[mcl] && (mh ? pos_r[1] : pos_r[0]) != c0 + mcl;
+        float ex;
+        const float pv = p_value<false>(adjusted_score(dot, a.inv_t, col_adj[mcl], masked),
+                                        mh ? lse_r[1] : lse_r[0], mh ? g_r[1] : g_r[0], ex);
+        staged[(warp * 16 + g + 8 * mh) * kStagedLd + mcl] =
+            __bfloat16_as_ushort(__float2bfloat16_rn(pv));
+        ties &= ties - 1;
+      }
+    }
+    group_sync(cw);  // the staged rows are whole
+    // the warpgroup's 64 rows of 256 bytes, 16 threads a row
+    const size_t row0 = static_cast<size_t>(tm) * kTileM + cw * 64;
+#pragma unroll
+    for (int e = ct; e < 64 * (kTileN / 8); e += kGroupThreads) {
+      const int rr = e >> 4, ch = e & 15;
+      *reinterpret_cast<uint4*>(p + (row0 + rr) * a.bk + c0 + ch * 8) =
+          *reinterpret_cast<const uint4*>(staged + rr * kStagedLd + ch * 8);
+    }
+    group_sync(cw);  // the staging and the column scalars are free for the next tile
+  }
+}
+
+// The products: out (n_tm 128-row x n_tn 128-column tiles, row stride ld) =
+// the contraction over n_kb k-blocks of 64 of A and B. DC = false (#10's dq):
+// A = P [rows, bk] K-major (ma: boxes [128, 64]), B = c [bk, dp] (mb: boxes
+// [64, 64] read MN-major), out = dq[lo:hi], times 1/T. DC = true (#11's dc):
+// A = P^T (ma: P in boxes [64 rows, 64 columns] read MN-major), B = q[lo:hi]
+// (mb: boxes [64, 64] read MN-major), out = dc: the panel's sum added to dc
+// unless `first`, times 1/T if `last`.
+template <bool DC>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    lse_product_kernel(const __grid_constant__ CUtensorMap ma,
+                       const __grid_constant__ CUtensorMap mb, float* __restrict__ out, int n_tm,
+                       int n_tn, int n_kb, int ld, float inv_t, int first, int last) {
+  extern __shared__ unsigned char smem_raw[];
+  const Ring r = ring_init(smem_raw);
+  const int n_tiles = n_tm * n_tn;
+  const int wg = threadIdx.x / kGroupThreads;
+  if (wg == 0) {
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      tma_prefetch_map(&ma);
+      tma_prefetch_map(&mb);
+      produce(r, n_tiles, n_kb, [&](int t, int kb, unsigned char* st, uint64_t* bar) {
+        const int tm = t / n_tn, tn = t - tm * n_tn;
+        if (DC) {  // P^T: the tile's 128 columns of P, 64 rows of P (the k-block)
+          tma_load_2d(st, &ma, bar, tm * kTileM, kb * kTileK);
+          tma_load_2d(st + kHalfBytes, &ma, bar, tm * kTileM + 64, kb * kTileK);
+        } else {  // P: the tile's 128 rows, 64 columns (the k-block)
+          tma_load_2d(st, &ma, bar, kb * kTileK, tm * kTileM);
+        }
+        tma_load_2d(st + 2 * kHalfBytes, &mb, bar, tn * kTileN, kb * kTileK);
+        tma_load_2d(st + 3 * kHalfBytes, &mb, bar, tn * kTileN + 64, kb * kTileK);
+      });
+    }
+    return;
+  }
+  regs_inc<kConsumerRegs>();
+  const int cw = wg - 1;  // output rows 64 cw .. 64 cw + 63 of each tile
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  Slot s;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int tm = tile / n_tn, tn = tile - tm * n_tn;
+    float acc[64];
+    int held = -1;  // the stage whose products are still in flight
+    for (int kb = 0; kb < n_kb; ++kb) {
+      mbar_wait(r.full + s.stage, s.phase);
+      const unsigned char* st = r.tiles + size_t(s.stage) * kStageBytes;
+      fence_operands(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kTileK / 16; ++ks)
+        wgmma_bf16<128, DC ? 1 : 0, 1>(
+            acc, DC ? mnmajor_sw128(st + cw * kHalfBytes, ks) : kmajor_sw128(st + cw * kHalfBytes, ks),
+            mnmajor_sw128(st + 2 * kHalfBytes, ks), kb | ks);
+      wgmma_commit();
+      wgmma_wait<1>();  // the k-block before is done: its stage is free
+      fence_operands(acc);
+      if (held >= 0 && lane == 0) mbar_arrive(r.empty + held);
+      held = s.stage;
+      s.next();
+    }
+    wgmma_wait<0>();
+    fence_operands(acc);
+    if (lane == 0) mbar_arrive(r.empty + held);
+
+    const int row = tm * kTileM + cw * 64 + warp * 16 + g;
+#pragma unroll
+    for (int j = 0; j < kTileN / 8; ++j) {
+      const int col = tn * kTileN + 8 * j + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float2* o = reinterpret_cast<float2*>(out + static_cast<size_t>(row + 8 * h) * ld + col);
+        float2 v = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        if (DC) {
+          if (!first) {
+            const float2 before = *o;
+            v = make_float2(__fadd_rn(before.x, v.x), __fadd_rn(before.y, v.y));
+          }
+          if (last) v = make_float2(__fmul_rn(v.x, inv_t), __fmul_rn(v.y, inv_t));
+        } else {
+          v = make_float2(__fmul_rn(v.x, inv_t), __fmul_rn(v.y, inv_t));
+        }
+        *o = v;
+      }
+    }
+  }
+}
+
+// ---- host side ---------------------------------------------------------------
 
 template <typename K>
 int launch(K kernel, const Args& a, dim3 grid, int threads, size_t smem, cudaStream_t stream) {
@@ -897,12 +1245,66 @@ int launch(K kernel, const Args& a, dim3 grid, int threads, size_t smem, cudaStr
   return static_cast<int>(cudaGetLastError());
 }
 
+// The wide backward's kernels: persistent blocks, at most one an SM.
+template <typename K, typename... P>
+int launch_ring(K kernel, int n_tiles, size_t smem, cudaStream_t stream, const P&... params) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<n_tiles < sms ? n_tiles : sms, kWideThreads, smem, stream>>>(params...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A tensor map of a row-major bf16 matrix [outer, inner] in boxes of
+// [box_outer, 64] with the 128-byte swizzle
+bool bf16_map(CUtensorMap* m, const void* base, int64_t inner, int64_t outer, int box_outer) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kTileK), static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // The padded depths the kernels take: 64, 128, or a multiple of 128 up to 2,048.
 bool depth_ok(int64_t dp) {
-  return dp == 64 || (dp % kOutCols == 0 && dp >= kOutCols && dp <= kMaxDim);
+  return dp == 64 || (dp % kTileN == 0 && dp >= kTileN && dp <= kMaxDim);
 }
+bool wide(int64_t dp) { return dp > kTileN && depth_ok(dp); }
 
 // The shapes the kernels take (the contract above).
 bool shapes_ok(int64_t bq, int64_t bk, int64_t dp, int64_t row_offset, const void* row_ids,
@@ -910,6 +1312,12 @@ bool shapes_ok(int64_t bq, int64_t bk, int64_t dp, int64_t row_offset, const voi
   return bq > 0 && bk > 0 && bq % kRowMultiple == 0 && bk % kRowMultiple == 0 &&
          bk < (1LL << 30) && depth_ok(dp) && row_offset >= 0 && row_offset + bq <= bk &&
          (row_ids == nullptr) == (col_ids == nullptr);
+}
+
+// A panel of P: `rows` rows of bk columns
+bool panel_ok(int64_t rows, int64_t bk, int64_t dp) {
+  return rows > 0 && rows % kTileM == 0 && bk > 0 && bk % kTileM == 0 && bk < (1LL << 30) &&
+         rows * bk < (1LL << 31) && wide(dp);
 }
 
 bool all_aligned(const Args& a) {
@@ -946,8 +1354,7 @@ int launch_bwd(const Args& a, cudaStream_t s) {
   if (a.dp == 128)
     return launch(lse_bwd_kernel<128, OWN_Q>, a, dim3(n_own / kOwn),
                   bwd_groups<128>() * kGroupThreads, Layout<128, bwd_groups<128>()>::bytes, s);
-  return launch(lse_bwd_wide_kernel<OWN_Q>, a, dim3(n_own / kOwn, a.dp / kOutCols),
-                kWideBwdGroups * kGroupThreads, kWideBwdGroups * WideLayout<true>::group_bytes, s);
+  return static_cast<int>(cudaErrorInvalidValue);  // a wide D: the p kernel and the products
 }
 
 }  // namespace
@@ -971,10 +1378,10 @@ int ttrm_softmax_lse_fwd(const void* q, const void* c, const void* adj, const vo
   if (dp == 64) return launch(lse_fwd_kernel<64>, a, grid, threads, Layout<64, kFwdGroups>::bytes, s);
   if (dp == 128)
     return launch(lse_fwd_kernel<128>, a, grid, threads, Layout<128, kFwdGroups>::bytes, s);
-  return launch(lse_fwd_wide_kernel, a, grid, threads, kFwdGroups * WideLayout<false>::group_bytes,
-                s);
+  return launch(lse_fwd_wide_kernel, a, grid, threads, kFwdGroups * WideLayout::group_bytes, s);
 }
 
+// #10 and #11 at D <= 128 (a padded depth of 64 or 128)
 int ttrm_softmax_lse_dq(const void* q, const void* c, const void* adj, const void* row_ids,
                         const void* col_ids, const void* lse, const void* g, void* dq_out,
                         int64_t bq, int64_t bk, int64_t dp, int64_t row_offset, float inv_t,
@@ -997,6 +1404,61 @@ int ttrm_softmax_lse_dc(const void* q, const void* c, const void* adj, const voi
                            inv_t);
   if (!all_aligned(a)) return static_cast<int>(cudaErrorMisalignedAddress);
   return launch_bwd<false>(a, static_cast<cudaStream_t>(stream));
+}
+
+// The p kernel at a wide D: P of q rows [lo, lo + rows) into p_out ([rows, bk]
+// bf16, contiguous); lo and rows multiples of 128.
+int ttrm_softmax_lse_p(const void* q, const void* c, const void* adj, const void* row_ids,
+                       const void* col_ids, const void* lse, const void* g, void* p_out,
+                       int64_t bq, int64_t bk, int64_t dp, int64_t row_offset, int64_t lo,
+                       int64_t rows, float inv_t, void* stream) {
+  if (!shapes_ok(bq, bk, dp, row_offset, row_ids, col_ids) || !panel_ok(rows, bk, dp) ||
+      lo < 0 || lo % kTileM != 0 || lo + rows > bq)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a = make_args(q, c, adj, row_ids, col_ids, lse, g, p_out, bq, bk, dp, row_offset,
+                           inv_t);
+  if (!all_aligned(a)) return static_cast<int>(cudaErrorMisalignedAddress);
+  CUtensorMap mq, mc;
+  if (!bf16_map(&mq, q, dp, bq, kTileM) || !bf16_map(&mc, c, dp, bk, kTileN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_tiles = static_cast<int>(rows / kTileM * (bk / kTileN));
+  return launch_ring(lse_p_kernel, n_tiles, kPSmem, static_cast<cudaStream_t>(stream), mq, mc, a,
+                     static_cast<uint16_t*>(p_out), static_cast<int>(lo), static_cast<int>(rows));
+}
+
+// #10's product at a wide D: dq_out ([rows, dp] f32) = (1/T) p ([rows, bk]
+// bf16) @ c ([bk, dp] bf16).
+int ttrm_softmax_lse_dq_product(const void* p, const void* c, void* dq_out, int64_t rows,
+                                int64_t bk, int64_t dp, float inv_t, void* stream) {
+  if (!panel_ok(rows, bk, dp)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned16(p) || !aligned16(c) || !aligned16(dq_out))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  CUtensorMap ma, mb;
+  if (!bf16_map(&ma, p, bk, rows, kTileM) || !bf16_map(&mb, c, dp, bk, kTileK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_tm = static_cast<int>(rows / kTileM), n_tn = static_cast<int>(dp / kTileN);
+  return launch_ring(lse_product_kernel<false>, n_tm * n_tn, kWideSmem,
+                     static_cast<cudaStream_t>(stream),
+                     ma, mb, static_cast<float*>(dq_out), n_tm, n_tn,
+                     static_cast<int>(bk / kTileK), static_cast<int>(dp), inv_t, 1, 1);
+}
+
+// #11's product at a wide D: dc ([bk, dp] f32) = (first ? 0 : dc) + p^T
+// ([rows, bk] bf16) @ q_rows ([rows, dp] bf16), then times 1/T if `last`.
+int ttrm_softmax_lse_dc_product(const void* p, const void* q_rows, void* dc, int64_t rows,
+                                int64_t bk, int64_t dp, float inv_t, int64_t first, int64_t last,
+                                void* stream) {
+  if (!panel_ok(rows, bk, dp)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned16(p) || !aligned16(q_rows) || !aligned16(dc))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  CUtensorMap ma, mb;
+  if (!bf16_map(&ma, p, bk, rows, kTileK) || !bf16_map(&mb, q_rows, dp, rows, kTileK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_tm = static_cast<int>(bk / kTileM), n_tn = static_cast<int>(dp / kTileN);
+  return launch_ring(lse_product_kernel<true>, n_tm * n_tn, kWideSmem,
+                     static_cast<cudaStream_t>(stream),
+                     ma, mb, static_cast<float*>(dc), n_tm, n_tn, static_cast<int>(rows / kTileK),
+                     static_cast<int>(dp), inv_t, first != 0 ? 1 : 0, last != 0 ? 1 : 0);
 }
 
 const char* ttrm_error_string(int code) {

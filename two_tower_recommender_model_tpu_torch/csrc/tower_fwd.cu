@@ -73,6 +73,7 @@
 
 #include "mma_sm90.cuh"
 #include "relu_ties.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
@@ -86,6 +87,10 @@ using relu_ties::relu2;
 using relu_ties::rnd;
 using relu_ties::tie_ceiling;
 using relu_ties::ties2;
+using wgmma_sm90::smem_desc;
+using wgmma_sm90::wgmma_bf16;
+using wgmma_sm90::wgmma_commit_wait;
+using wgmma_sm90::wgmma_fence;
 
 using bf16 = __nv_bfloat16;
 using bf162 = __nv_bfloat162;
@@ -146,67 +151,7 @@ __device__ __forceinline__ void fence_async_shared() {
 // A wgmma matrix descriptor of a K-major tile at p, no swizzle: 16-byte core
 // matrix rows, 128 bytes between core matrices along k, 2,048 along m / n.
 __device__ __forceinline__ uint64_t kmajor_desc(const void* p) {
-  return uint64_t((smem_addr(p) & 0x3ffff) >> 4) | (uint64_t(128 >> 4) << 16) |
-         (uint64_t(kBlockBytes >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// d (64 x N, f32; scale_d = 0 overwrites it) += A (64 x 16) . B (N x 16)^T, both
-// bf16 from shared memory. Fragment of d: warp w of the warpgroup holds rows
-// 16 w + g and 16 w + g + 8 (g = lane / 4); d[4 j], d[4 j + 1] are row 16 w + g,
-// columns 8 j + 2 t, 8 j + 2 t + 1 (t = lane % 4); d[4 j + 2], d[4 j + 3] row
-// 16 w + g + 8.
-template <int N>
-__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a, uint64_t b,
-                                           int scale_d);
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t a, uint64_t b,
-                                                int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t a, uint64_t b,
-                                               int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
+  return smem_desc(p, 128, kBlockBytes, wgmma_sm90::kNoSwizzle);
 }
 
 // acc (64 x N) = A tile (64 x 128) . B tile (N x 128)^T, both K-major in shared memory
@@ -215,7 +160,7 @@ __device__ __forceinline__ void tile_product(float (&acc)[N / 2], const bf16* a,
   wgmma_fence();
 #pragma unroll
   for (int ks = 0; ks < kD / 16; ++ks)  // a 16-wide k step is two core matrices: 128 elements
-    wgmma_bf16<N>(acc, kmajor_desc(a + ks * 128), kmajor_desc(b + ks * 128), ks > 0);
+    wgmma_bf16<N, 0, 0>(acc, kmajor_desc(a + ks * 128), kmajor_desc(b + ks * 128), ks > 0);
   wgmma_commit_wait();
 }
 

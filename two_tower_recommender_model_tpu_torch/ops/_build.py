@@ -104,14 +104,19 @@ class KernelLibrary:
     device, raises if it returns a CUDA error, and counts the launch in
     `launches` (a kernel wrapper's count: it moves only where the kernel is
     launched). `source` names the file under `csrc/` when it holds several
-    kernels and so is not `<name>.cu`."""
+    kernels and so is not `<name>.cu`. `extra` maps further entry points of
+    the same kernel (another launch shape of it, counted in the same
+    `launches`) to their argtypes; `launch(..., entry=name)` calls one."""
 
-    def __init__(self, name: str, entry: str, argtypes: list, source: str | None = None):
+    def __init__(self, name: str, entry: str, argtypes: list, source: str | None = None,
+                 extra: dict[str, list] | None = None):
         self.name = name
         self.source = source or f"{name}.cu"
         self.launches = 0
         self._entry = entry
-        self._argtypes = [*argtypes, ctypes.c_void_p]  # the stream comes last
+        # the stream comes last
+        self._entries = {entry: [*argtypes, ctypes.c_void_p],
+                         **{e: [*a, ctypes.c_void_p] for e, a in (extra or {}).items()}}
         self._built: BuiltLibrary | None = None
         self._lock = threading.Lock()
 
@@ -120,19 +125,20 @@ class KernelLibrary:
         with self._lock:
             if self._built is None:
                 built = shared_library(self.source)
-                fn = getattr(built.lib, self._entry)
-                fn.argtypes = self._argtypes
-                fn.restype = ctypes.c_int
+                for entry, argtypes in self._entries.items():
+                    fn = getattr(built.lib, entry)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
                 built.lib.ttrm_error_string.argtypes = [ctypes.c_int]
                 built.lib.ttrm_error_string.restype = ctypes.c_char_p
                 self._built = built
             return self._built
 
-    def launch(self, device: torch.device, *args) -> None:
+    def launch(self, device: torch.device, *args, entry: str | None = None) -> None:
         lib = self.load().lib
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            err = getattr(lib, self._entry)(*args, stream)
+            err = getattr(lib, entry or self._entry)(*args, stream)
         if err != 0:
             raise RuntimeError(
                 f"{self.name} launch failed: {lib.ttrm_error_string(err).decode()} ({err})")

@@ -26,7 +26,12 @@ which sums in f32 and is multiplied by 1/T once.
 `softmax_lse_fwd`, `softmax_lse_dq` and `softmax_lse_dc` launch the
 hand-written kernels of `csrc/softmax_lse.cu` on CUDA tensors and take
 `lse_forward_reference` / `lse_backward_reference` only for tensors that lie
-on the CPU; each counts its kernel launches in `.launches`.
+on the CPU; each counts its kernel launches in `.launches`. Above a padded
+D of 128 a backward is computed per panel of q rows (`wide_backward`): the
+p kernel (`softmax_lse_p`) writes the panel's bf16 p into a workspace, and
+#10's and #11's products (`LseBackward.product`, counted in
+`softmax_lse_dq` / `softmax_lse_dc`) read it. `softmax_lse_grads` returns
+both gradients from one p; the fused loss's backward takes it on the card.
 """
 
 from __future__ import annotations
@@ -39,11 +44,14 @@ import torch.nn.functional as F
 from two_tower_recommender_model_tpu_torch.ops import _build
 
 NEG = -1e9
-# The reference's cap on D. Above 128 the kernels sum a score over D in slices
-# of 64 and cut dq and dc in column slices of 128 across the grid
-# (`csrc/softmax_lse.cu`, "wide D")
+# The reference's cap on D. Above 128 kernel #9 sums a score over D in slices
+# of 64, and #10 / #11 are a p kernel and two products (`csrc/softmax_lse.cu`,
+# "wide D")
 MAX_DIM = 2048
 _PLAIN_BLOCK = 1 << 24  # most score elements the plain versions hold at once
+# The wide backward's workspace: the bf16 p of a panel of q rows against every
+# column, at most this many bytes (and at least 128 rows)
+PANEL_BYTES = 256 << 20
 
 
 def softmax_kernel_shapes_ok(bk: int, d: int, bq: int | None = None) -> bool:
@@ -131,6 +139,55 @@ def lse_backward_reference(q16: torch.Tensor, c16: torch.Tensor, adj: torch.Tens
     return dq, dc
 
 
+def p_panel_reference(q16: torch.Tensor, c16: torch.Tensor, adj: torch.Tensor | None,
+                      row_ids: torch.Tensor | None, col_ids: torch.Tensor | None,
+                      row_offset: int, inv_t: float, lse: torch.Tensor, g: torch.Tensor,
+                      lo: int, hi: int, out: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain version of the p kernel: p of q rows [lo, hi) against every
+    column, [hi - lo, BK] bf16, from `_scores` as `lse_backward_reference`
+    takes it (row blocks of at most 2^24 scores), into `out` when given."""
+    qf, cf = q16.float(), c16.float()
+    bk = cf.shape[0]
+    cols = torch.arange(bk, device=qf.device)
+    if out is None:
+        out = torch.empty((hi - lo, bk), dtype=torch.bfloat16, device=qf.device)
+    for a, b in _row_blocks(hi - lo, bk):
+        r0, r1 = lo + a, lo + b
+        s = _scores(qf[r0:r1], cf, adj, None if row_ids is None else row_ids[r0:r1], col_ids,
+                    cols[r0:r1] + row_offset, cols, inv_t)
+        out[a:b] = torch.exp(s - lse[r0:r1, None]) * g[r0:r1, None]
+    return out
+
+
+def dq_product_reference(p: torch.Tensor, c16: torch.Tensor, inv_t: float,
+                         out: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain version of #10's product at a wide D: (p @ c) / T in f32, p
+    the bf16 panel, into `out` when given."""
+    res = (p.float() @ c16.float()) * inv_t
+    return res if out is None else out.copy_(res)
+
+
+def dc_product_reference(p: torch.Tensor, q16_rows: torch.Tensor, dc: torch.Tensor,
+                         inv_t: float, first: bool, last: bool) -> torch.Tensor:
+    """The plain version of #11's product at a wide D, in place on `dc`: the
+    panel's p.T @ q added to dc (its first panel starts it), times 1/T after
+    the last panel, as `lse_backward_reference` sums its row blocks."""
+    part = p.float().T @ q16_rows.float()
+    if first:
+        dc.copy_(part)
+    else:
+        dc += part
+    if last:
+        dc *= inv_t
+    return dc
+
+
+def panel_rows(bq: int, bk: int) -> int:
+    """Rows of a panel of the wide backward: PANEL_BYTES of bf16 p against BK
+    columns, a multiple of 128, at least 128 and at most BQ."""
+    return min(bq, max(128, PANEL_BYTES // (2 * bk) // 128 * 128))
+
+
 def _check(q16, c16, adj, row_ids, col_ids, row_offset, lse=None, g=None) -> None:
     if q16.dim() != 2 or c16.dim() != 2 or q16.shape[1] != c16.shape[1]:
         raise ValueError(f"q and c must be [BQ, D] and [BK, D], got {tuple(q16.shape)}, "
@@ -208,15 +265,89 @@ class LseForward(_build.KernelLibrary):
         return lse
 
 
-class LseBackward(_build.KernelLibrary):
-    """The wrapper of kernel #10 (`which="dq"`: [BQ, D] f32) or #11 ("dc":
-    [BK, D] f32). A CPU call takes `lse_backward_reference` and does not
+class LseP(_build.KernelLibrary):
+    """The p kernel's wrapper, part of #10 and #11 at a wide D: p of q rows
+    [lo, hi) against every column, [hi - lo, BK] bf16, into `out` (a
+    contiguous workspace) or a new tensor. lo and hi are multiples of 128
+    (hi may be BQ). A CPU call takes `p_panel_reference` and does not
     count."""
 
+    def __init__(self):
+        super().__init__("softmax_lse_p", "ttrm_softmax_lse_p",
+                         [_PTR] * 8 + [_I64] * 6 + [ctypes.c_float], source="softmax_lse.cu")
+
+    def __call__(self, q16, c16, adj, row_ids, col_ids, row_offset: int, inv_t: float,
+                 lse: torch.Tensor, g: torch.Tensor, lo: int, hi: int,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+        _check(q16, c16, adj, row_ids, col_ids, row_offset, lse, g)
+        (bq, d), bk = q16.shape, c16.shape[0]
+        if not (0 <= lo < hi <= bq and lo % 128 == 0 and (hi % 128 == 0 or hi == bq)):
+            raise ValueError(f"the p kernel takes q rows [lo, hi) on 128-row boundaries, got "
+                             f"[{lo}, {hi}) of {bq}")
+        if out is not None and (out.shape != (hi - lo, bk) or out.dtype != torch.bfloat16
+                                or out.device != q16.device or not out.is_contiguous()):
+            raise ValueError(f"out must be a contiguous [{hi - lo}, {bk}] bfloat16 tensor on "
+                             f"{q16.device}")
+        if q16.device.type == "cpu":
+            return p_panel_reference(q16, c16, adj, row_ids, col_ids, row_offset, inv_t, lse, g,
+                                     lo, hi, out)
+        if _padded_dim(d) <= 128:
+            raise ValueError(f"the p kernel runs at a padded D above 128, got D={d}: kernels "
+                             "#10 and #11 take the whole backward there")
+        qp, cp = _pad_dim(q16), _pad_dim(c16)
+        if out is None:
+            out = torch.empty((hi - lo, bk), dtype=torch.bfloat16, device=qp.device)
+        if out.data_ptr() % 16:
+            raise ValueError("the p kernel's workspace must start on a 16-byte boundary")
+        self.launch(qp.device, qp.data_ptr(), cp.data_ptr(), _ptr(adj), _ptr(row_ids),
+                    _ptr(col_ids), lse.data_ptr(), g.data_ptr(), out.data_ptr(), bq, bk,
+                    qp.shape[1], row_offset, lo, hi - lo, inv_t)
+        return out
+
+
+class LseBackward(_build.KernelLibrary):
+    """The wrapper of kernel #10 (`which="dq"`: [BQ, D] f32) or #11 ("dc":
+    [BK, D] f32). At a padded D above 128 it is `wide_backward`: the p kernel
+    and this kernel's product (`product`, counted here), a panel at a time. A
+    CPU call takes `lse_backward_reference` and does not count."""
+
     def __init__(self, which: str):
+        tail = [_I64] * 3 + [ctypes.c_float] + ([_I64] * 2 if which == "dc" else [])
         super().__init__(f"softmax_lse_{which}", f"ttrm_softmax_lse_{which}", [_PTR] * 8 + _TAIL,
-                         source="softmax_lse.cu")
+                         source="softmax_lse.cu",
+                         extra={f"ttrm_softmax_lse_{which}_product": [_PTR] * 3 + tail})
         self.which = which
+
+    def product(self, p: torch.Tensor, other: torch.Tensor, out: torch.Tensor, inv_t: float,
+                first: bool = True, last: bool = True) -> torch.Tensor:
+        """This kernel's product at a wide D, on one panel's p ([rows, BK]
+        bf16): dq (`out` [rows, DP] f32) = (p @ c) / T with `other` = c [BK,
+        DP]; dc (`out` [BK, DP] f32) = (first ? 0 : dc) + p.T @ q_rows, times
+        1/T if `last`, with `other` = the panel's q rows [rows, DP]. DP is
+        the padded depth. A CPU call takes the plain version."""
+        dq = self.which == "dq"
+        rows, bk = p.shape
+        dp = other.shape[1]
+        want = {"p": (p, (rows, bk), torch.bfloat16),
+                "other": (other, (bk if dq else rows, dp), torch.bfloat16),
+                "out": (out, (rows if dq else bk, dp), torch.float32)}
+        for name, (t, shape, dtype) in want.items():
+            if t.shape != shape or t.dtype != dtype or t.device != p.device or not t.is_contiguous():
+                raise ValueError(f"{name} must be a contiguous {list(shape)} {dtype} tensor on "
+                                 f"{p.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+        if p.device.type == "cpu":
+            return (dq_product_reference(p, other, inv_t, out) if dq else
+                    dc_product_reference(p, other, out, inv_t, first, last))
+        if rows % 128 or bk % 128 or dp % 128 or not 128 < dp <= MAX_DIM:
+            raise ValueError(f"the {self.which} product takes 128-row panels and a padded D of "
+                             f"256 to {MAX_DIM}, got p {tuple(p.shape)}, D {dp}")
+        if any(t.data_ptr() % 16 for t in (p, other, out)):
+            raise ValueError("the products load their operands 16 bytes at a time: every tensor "
+                             "must start on a 16-byte boundary")
+        args = (p.data_ptr(), other.data_ptr(), out.data_ptr(), rows, bk, dp, inv_t)
+        self.launch(p.device, *args, *(() if dq else (int(first), int(last))),
+                    entry=f"ttrm_softmax_lse_{self.which}_product")
+        return out
 
     def __call__(self, q16, c16, adj, row_ids, col_ids, row_offset: int, inv_t: float,
                  lse: torch.Tensor, g: torch.Tensor):
@@ -225,6 +356,9 @@ class LseBackward(_build.KernelLibrary):
         if q16.device.type == "cpu":
             return lse_backward_reference(q16, c16, adj, row_ids, col_ids, row_offset, inv_t,
                                           lse, g, need_dq=dq, need_dc=not dq)[0 if dq else 1]
+        if _padded_dim(q16.shape[1]) > 128:
+            return wide_backward(q16, c16, adj, row_ids, col_ids, row_offset, inv_t, lse, g,
+                                 need_dq=dq, need_dc=not dq)[0 if dq else 1]
         d = q16.shape[1]
         qp, cp = _pad_dim(q16), _pad_dim(c16)
         bq, bk = qp.shape[0], cp.shape[0]
@@ -237,8 +371,56 @@ class LseBackward(_build.KernelLibrary):
 
 
 softmax_lse_fwd = LseForward()
+softmax_lse_p = LseP()
 softmax_lse_dq = LseBackward("dq")
 softmax_lse_dc = LseBackward("dc")
+
+
+def wide_backward(q16, c16, adj, row_ids, col_ids, row_offset: int, inv_t: float,
+                  lse: torch.Tensor, g: torch.Tensor, need_dq: bool = True,
+                  need_dc: bool = True):
+    """(dq [BQ, D], dc [BK, D]) f32 at any D, None for the one not asked for,
+    a panel of `panel_rows` q rows at a time: the panel's p once into a bf16
+    workspace (`softmax_lse_p`), then dq's rows (#10's product) and dc's
+    running sum over the panels (#11's, times 1/T after the last). The
+    kernels' path at a padded D above 128; on CPU tensors every step takes
+    its plain version."""
+    _check(q16, c16, adj, row_ids, col_ids, row_offset, lse, g)
+    d = q16.shape[1]
+    qp, cp = _pad_dim(q16), _pad_dim(c16)
+    (bq, dp), bk = qp.shape, cp.shape[0]
+    rows = panel_rows(bq, bk)
+    work = torch.empty((rows, bk), dtype=torch.bfloat16, device=qp.device)
+    dq = torch.empty((bq, dp), dtype=torch.float32, device=qp.device) if need_dq else None
+    dc = torch.empty((bk, dp), dtype=torch.float32, device=qp.device) if need_dc else None
+    for lo in range(0, bq, rows):
+        hi = min(lo + rows, bq)
+        p = softmax_lse_p(qp, cp, adj, row_ids, col_ids, row_offset, inv_t, lse, g, lo, hi,
+                          out=work[:hi - lo])
+        if need_dq:
+            softmax_lse_dq.product(p, cp, dq[lo:hi], inv_t)
+        if need_dc:
+            softmax_lse_dc.product(p, qp[lo:hi], dc, inv_t, first=lo == 0, last=hi == bq)
+    if d != dp:
+        dq = None if dq is None else dq[:, :d]
+        dc = None if dc is None else dc[:, :d]
+    return dq, dc
+
+
+def softmax_lse_grads(q16, c16, adj, row_ids, col_ids, row_offset: int, inv_t: float,
+                      lse: torch.Tensor, g: torch.Tensor):
+    """Both gradients of the lse, (dq [BQ, D], dc [BK, D]) f32, from one p:
+    at a padded D above 128 `wide_backward` (p once a panel, then both
+    products; on the CPU its plain steps); at D <= 128 kernels #10 and #11
+    as `softmax_lse_dq` and `softmax_lse_dc` launch them (on the CPU
+    `lse_backward_reference`, one pass for both)."""
+    _check(q16, c16, adj, row_ids, col_ids, row_offset, lse, g)
+    args = (q16, c16, adj, row_ids, col_ids, row_offset, inv_t, lse, g)
+    if _padded_dim(q16.shape[1]) > 128:
+        return wide_backward(*args)
+    if q16.device.type == "cpu":
+        return lse_backward_reference(*args)
+    return softmax_lse_dq(*args), softmax_lse_dc(*args)
 
 
 def _merged_adj(log_q: torch.Tensor | None, n_valid: int | None, bk: int,
@@ -256,7 +438,8 @@ def _merged_adj(log_q: torch.Tensor | None, n_valid: int | None, bk: int,
 
 class _LseFused(torch.autograd.Function):
     """lse [BQ] of the adjusted score matrix, differentiable in q and c: the
-    forward is kernel #9, the backward kernels #10 and #11."""
+    forward is kernel #9, the backward kernels #10 and #11 (at a wide D the p
+    kernel and their products, through `softmax_lse_grads`)."""
 
     @staticmethod
     def forward(ctx, q, c, row_ids, col_ids, log_q, row_offset, temperature, n_valid):
@@ -279,8 +462,8 @@ class _LseFused(torch.autograd.Function):
         args = (q16, c16, adj, row_ids, col_ids, ctx.row_offset, ctx.inv_t, lse, g)
         if q16.device.type == "cpu":  # one pass over the scores for both
             dq, dc = lse_backward_reference(*args)
-        else:
-            dq, dc = softmax_lse_dq(*args), softmax_lse_dc(*args)
+        else:  # at a wide D one p for both
+            dq, dc = softmax_lse_grads(*args)
         return (dq.to(ctx.dtypes[0]), dc.to(ctx.dtypes[1]), None, None, None, None, None, None)
 
 
