@@ -333,7 +333,16 @@ without a card. Phases (any failure raises and exits non-zero):
    256), so D = 256 at the loss: 3 eager steps counted (#9, #10, #11 and the
    p kernel once, #1 and #4 twice a step), 3 more each against the host CPU's plain step,
    the K = 16 graph against eager steps as in phase 16, and eager steps of
-   the chunked plain route beside the kernels'; `[train-devsort]` phase
+   the chunked plain route beside the kernels', and the p kernel and #9
+   timed on the state 100 steps later; `[train-wide-table]` the flagship
+   tables at D = 1,024 (f32 and int8, batch 65,536) and D = 30 (f32,
+   8,192), BCE in f32: 3 eager steps counted a case (#1 and #4, or #5 and
+   #6, twice a step), 3 more each against the host CPU's plain step (rows
+   fed by a sample whose ReLU gate opens on one side only counted and
+   exempt from the update's bound), then the D = 1,024 int8 model served
+   (#5); `[kernel]` #3-#7 at D = 1,024 and 30 (the span walk's general
+   route) and `[pipeline-wide]` (`cli.train --embedding-dim 1024`, one
+   epoch on the pipeline's shards); `[train-devsort]` phase
    16's BCE step with f32 tables and no host sort (`sorted_feature=None`),
    `device_sorted_gather=True` beside False from one state: 3 eager steps of
    each (#1 twice a step either way), their states compared (bit for bit,
@@ -1409,6 +1418,148 @@ def tower_composed(x, dq, out, w1, b1, w2):
 TOWER_COMPOSED_CALLS = 15
 
 
+WIDE_KERNEL_CASES = ((1024, 65_536), (30, 8192))  # (D, sorted ids): [train-wide-table]'s calls
+
+
+def phase_wide_table_kernels(dev: torch.device) -> None:
+    """#3, #4, #5, #6 and #7 at the widths of `[train-wide-table]` (D =
+    1,024 at 65,536 ids, D = 30 at 8,192: the general walk, #5's wide and
+    one-int8-a-lane paths, #7's element path) on the flagship user table,
+    uniform sorted ids (and #4 on rank^-1 item ids through the device sort,
+    in f32 and bf16-buffer mode: long runs, pass 2), each against its plain
+    version at the card tests' tolerances, two launches bit for bit, and
+    its time beside its bound (bytes: each input read once, each output
+    written once) and, where one PyTorch call computes the same, its time."""
+    rng = np.random.default_rng(21)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
+    reps = 20
+
+    def line(name, label, got_err, fn, plain, n_bytes, library=None, note="", plain_reps=reps):
+        ms, plain_ms = median_ms(fn, flush, reps), median_ms(plain, flush, plain_reps)
+        b = bound(n_bytes, 0, PEAK_F32)
+        lib = f"library_ms={median_ms(library, flush, reps)!r}" if library else "no single " \
+            "PyTorch call computes it"
+        log(f"[kernel] {name} {label}: max_abs_err={got_err!r}{note}, kernel_ms={ms!r}, "
+            f"plain_ms={plain_ms!r}, bound_ms={b['bound_ms']!r} by {b['bound_by']} (n={reps}); "
+            f"{lib}; {card_line()}")
+
+    def twice_equal(label, fn):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            if not bitwise_equal(x, y):
+                raise AssertionError(f"{label}: two launches on the same inputs differ")
+
+    for d, m in WIDE_KERNEL_CASES:
+        n = NUM_USERS
+        ids = torch.from_numpy(np.sort(rng.integers(0, n, m)).astype(np.int32)).to(dev)
+        grads = torch.empty((m, d), device=dev).normal_(generator=gen)
+        table = torch.empty((n, d), device=dev).uniform_(-1, 1, generator=gen)
+        acc = torch.empty(n, device=dev).uniform_(0, 1, generator=gen)
+        rows = int(torch.unique(ids).numel())
+        label = f"D={d}, {m} sorted ids into [{n}, {d}], f32 grads, {rows} rows touched"
+        # #4
+        t_k, a_k, t_p, a_p = table.clone(), acc.clone(), table.clone(), acc.clone()
+        rowwise_adagrad(t_k, a_k, ids, grads, 0.05)
+        rowwise_adagrad_reference(t_p, a_p, ids, grads, 0.05)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(t_k, t_p, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(a_k, a_p, rtol=1e-5, atol=1e-6)
+        twice_equal(f"rowwise_adagrad {label}", lambda: [rowwise_adagrad(
+            table.clone(), acc.clone(), ids, grads, 0.05)[0]])
+        line("rowwise_adagrad", label, (t_k - t_p).abs().max().item(),
+             lambda: rowwise_adagrad(t_k, a_k, ids, grads, 0.05),
+             lambda: rowwise_adagrad_reference(t_p, a_p, ids, grads, 0.05),
+             m * d * 4 + m * 4 + rows * (d * 4 * 2 + 8))
+        del t_k, t_p
+        # #3
+        got = block_sorted_aggregate(n, ids, grads)
+        want = block_sorted_aggregate_reference(n, ids, grads)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+        twice_equal(f"block_sorted_aggregate {label}",
+                    lambda: [block_sorted_aggregate(n, ids, grads)])
+        line("block_sorted_aggregate", label + " (memset included)",
+             (got - want).abs().max().item(), lambda: block_sorted_aggregate(n, ids, grads),
+             lambda: block_sorted_aggregate_reference(n, ids, grads),
+             m * d * 4 + m * 4 + n * d * 4,
+             library=lambda: torch.zeros((n, d), device=dev).index_add_(0, ids.long(), grads))
+        del got, want
+        # #6 and #5 on the table quantized
+        qt = quantize_table(table)
+        k = (qt.values.clone(), qt.scales.clone(), acc.clone())
+        p = (qt.values.clone(), qt.scales.clone(), acc.clone())
+        quantized_rowwise_adagrad_fused(*k, ids, grads, 0.05)
+        quantized_rowwise_adagrad_fused_reference(*p, ids, grads, 0.05)
+        torch.cuda.synchronize()
+        steps = (k[0].int() - p[0].int()).abs().max().item()
+        if steps > 1:
+            raise AssertionError(f"quantized_rowwise_adagrad {label}: int8 values {steps} steps "
+                                 "apart")
+        torch.testing.assert_close(k[1], p[1], rtol=1e-5, atol=1e-6)
+        twice_equal(f"quantized_rowwise_adagrad {label}", lambda: list(
+            quantized_rowwise_adagrad_fused(qt.values.clone(), qt.scales.clone(), acc.clone(),
+                                            ids, grads, 0.05)))
+        line("quantized_rowwise_adagrad", label, float(steps),
+             lambda: quantized_rowwise_adagrad_fused(*k, ids, grads, 0.05),
+             lambda: quantized_rowwise_adagrad_fused_reference(*p, ids, grads, 0.05),
+             m * d * 4 + m * 4 + rows * (d * 2 + 16), note=" (int8 steps)")
+        bags = ids[:, None]
+        w = torch.ones((m, 1), device=dev)
+        got = quantized_pooled_gather(qt.values, qt.scales, bags, w)
+        want = quantized_pooled_gather_reference(qt.values, qt.scales, bags, w)
+        torch.cuda.synchronize()
+        if not bitwise_equal(got, want):
+            raise AssertionError(f"quantized_pooled_gather {label}: kernel != plain version")
+        line("quantized_pooled_gather", f"D={d}, [{m}, 1] bags into f32", 0.0,
+             lambda: quantized_pooled_gather(qt.values, qt.scales, bags, w),
+             lambda: quantized_pooled_gather_reference(qt.values, qt.scales, bags, w),
+             rows * (d + 4) + m * d * 4 + m * 8,  # distinct rows and scales, the output, ids, w
+             note=f" (bitwise equal{plan_note(quantized_pooled_gather, qt.values, bags, got)})")
+        del qt, k, p, got, want
+        # #7: one id a run, distinct
+        uniq = torch.unique(ids).int()
+        upd = grads[:uniq.numel()].contiguous()
+        s_k, s_p = table.clone(), table.clone()
+        row_subtract(s_k, uniq, upd)
+        row_subtract_reference(s_p, uniq, upd)
+        torch.cuda.synchronize()
+        if not bitwise_equal(s_k, s_p):
+            raise AssertionError(f"row_subtract D={d}: kernel != plain version")
+        line("row_subtract", f"D={d}, {uniq.numel()} distinct ids into [{n}, {d}]", 0.0,
+             lambda: row_subtract(s_k, uniq, upd), lambda: row_subtract_reference(s_p, uniq, upd),
+             uniq.numel() * (d * 4 * 3 + 4),
+             library=lambda: s_p.index_add_(0, uniq.long(), upd, alpha=-1), note=" (bitwise)")
+        del s_k, s_p, table, grads
+    # #4 on rank^-1 item ids at D = 1,024: the device sort's permutation, long runs
+    d, m = WIDE_KERNEL_CASES[0]
+    raw, perm = skewed_item_ids(rng, m, dev)
+    run = longest_run(raw, NUM_ITEMS)
+    grads = torch.empty((m, d), device=dev).normal_(generator=gen)
+    table = torch.empty((NUM_ITEMS, d), device=dev).uniform_(-1, 1, generator=gen)
+    acc = torch.empty(NUM_ITEMS, device=dev).uniform_(0, 1, generator=gen)
+    rows = int(torch.unique(raw).numel())
+    for buf in (None, torch.bfloat16):
+        mode = "bf16 buffer" if buf is not None else "f32 sums"
+        label = (f"D={d}, {m} rank^-1 item ids (longest run {run}) into [{NUM_ITEMS}, {d}] "
+                 f"through the sort's perm, {mode}")
+        t_k, a_k, t_p, a_p = table.clone(), acc.clone(), table.clone(), acc.clone()
+        rowwise_adagrad(t_k, a_k, raw, grads, 0.05, perm=perm, buffer_dtype=buf)
+        rowwise_adagrad_reference(t_p, a_p, raw, grads, 0.05, perm=perm, buffer_dtype=buf)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(t_k, t_p, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(a_k, a_p, rtol=1e-5, atol=1e-6)
+        twice_equal(f"rowwise_adagrad {label}", lambda: [rowwise_adagrad(
+            table.clone(), acc.clone(), raw, grads, 0.05, perm=perm, buffer_dtype=buf)[0]])
+        line("rowwise_adagrad", label, (t_k - t_p).abs().max().item(),
+             lambda: rowwise_adagrad(t_k, a_k, raw, grads, 0.05, perm=perm, buffer_dtype=buf),
+             lambda: rowwise_adagrad_reference(t_p, a_p, raw, grads, 0.05, perm=perm,
+                                               buffer_dtype=buf),
+             m * d * 4 + m * 8 + rows * (d * 4 * 2 + 8),
+             plain_reps=3 if buf is not None else reps)  # the bf16 buffer's loop: a step a rank
+
+
 def phase_tower_kernel(dev: torch.device) -> dict:
     """Kernel #8 against its plain version at the flagship tower's shapes,
     with bf16 io (the bf16 step's) and f32 io. dx, dW1 and dW2 within one
@@ -1880,7 +2031,7 @@ def phase_softmax_kernel(dev: torch.device) -> dict[str, dict]:
     at the production batch (with and without padded columns) and at the
     large batch, and one stripe of a four-way data-parallel split, which must
     also equal its rows of the square case; then at wide D (the kernels'
-    depth slices): the production square at D = 192 and 256, and a square
+    TMA + wgmma ring): the production square at D = 192 and 256, and a square
     of WIDE_SQUARE and its stripe at D = 2,048. Two launches of each kernel
     on the same inputs must agree bit for bit in every case. The bounds
     count one exp a score. At the main path's shape (D = 64), and at D = 256
@@ -1941,6 +2092,9 @@ def phase_softmax_kernel(dev: torch.device) -> dict[str, dict]:
             if d > 128:  # the same p rows meet the same columns in the same k order
                 if not bitwise_equal(dq, square[1][off:off + bq]):
                     raise AssertionError(f"{label}: the stripe's dq rows differ from the square's")
+                # #9's column chunks follow BK alone, merged in chunk order
+                if not bitwise_equal(lse, square[0][off:off + bq]):
+                    raise AssertionError(f"{label}: the stripe's lse differs from the square's rows")
             else:
                 torch.testing.assert_close(dq, square[1][off:off + bq], rtol=1e-5, atol=1e-9)
         small = (bq + bk) * (d * 2 + 12)  # q and c in bf16; ids, adj, lse, g
@@ -2934,8 +3088,52 @@ def phase_train_bf16tab(dev: torch.device, batches: tuple[list, list]):
     return launches, state, cfg
 
 
+def table_rows(t, keep: torch.Tensor):
+    """The rows `keep` of a table (an int8 table's values and scales)."""
+    if isinstance(t, QuantizedTable):
+        return QuantizedTable(t.values[keep.to(t.values.device)], t.scales[keep.to(t.values.device)])
+    return t.detach()[keep.to(t.device)]
+
+
+@torch.no_grad()
+def gate_flip_rows(state, pb) -> tuple[dict[str, torch.Tensor], int]:
+    """(per table the [N] bool mask of rows fed by a sample whose ReLU gate
+    decision differs between the card's towers and the host's on the same
+    state and batch, the number of such samples). Both forwards start from
+    the same pooled rows (the gathers agree bit for bit); a pre-activation
+    within the f32 summation-order noise of 0 can open its gate on one side
+    only, and the two then back-propagate through different units, so
+    those samples' rows take another update by the two products' orders,
+    not by a kernel (an f32 step, `apply_mlp`'s matmul, bias, ReLU)."""
+    model, cfg = state.model, state.model.cfg
+    batch = unpack_batch(pb, cfg, pack_label=True)
+    pooled = two_tower_pooled(model.tables, batch, cfg)
+    flipped = torch.zeros(batch.labels.shape[0], dtype=torch.bool, device=batch.labels.device)
+    for mlp, tower in ((model.query_tower, cfg.query_tower),
+                       (model.candidate_tower, cfg.candidate_tower)):
+        x = torch.cat([pooled[f] for f in tower.features], dim=1).float()
+        xc, xh = x, x.cpu()
+        n = len(mlp.layers)
+        for i, layer in enumerate(mlp.layers):
+            w, b = layer.weight.detach().float(), layer.bias.detach().float()
+            zc = torch.matmul(xc, w.T) + b
+            zh = torch.matmul(xh, w.cpu().T) + b.cpu()
+            if i < n - 1 or mlp.final_activation:
+                flipped |= ((zc > 0).cpu() != (zh > 0)).any(dim=1).to(flipped.device)
+                zc, zh = torch.relu(zc), torch.relu(zh)
+            xc, xh = zc, zh
+    rows = {t.name: torch.zeros(t.num_embeddings, dtype=torch.bool, device=flipped.device)
+            for t in cfg.tables}
+    for fc in cfg.features:
+        f = batch.features[fc.name]
+        live = (f.mask > 0) & flipped[:, None]
+        rows[fc.table][f.ids[live].long()] = True
+    return rows, int(flipped.sum())
+
+
 def check_against_host(tag, state, host_cfg, tcfg, dense_opt, train_step, pb,
-                       strict: bool = True) -> dict[str, float]:
+                       strict: bool = True,
+                       exempt: dict[str, torch.Tensor] | None = None) -> dict[str, float]:
     """One step from a copy of the state on the card, against the same step
     on the host CPU, where every wrapper takes its plain version. Two bf16
     ulps of each quantity's largest magnitude (2^-7): under bf16 compute the
@@ -2945,7 +3143,9 @@ def check_against_host(tag, state, host_cfg, tcfg, dense_opt, train_step, pb,
     quantization step of the row (scale / 127) on top: a value on a rounding
     boundary lands on either side. The item counts are integers and must be
     equal. Returns each quantity's margin, its largest difference over its
-    bound (at most 1 to pass); `strict=False` measures without failing."""
+    bound (at most 1 to pass); `strict=False` measures without failing.
+    `exempt` (per table, a [N] bool mask: `gate_flip_rows`) takes rows out of
+    the update's bound, counted in the log; every other check is as above."""
     card = state.copy()
     host = state.copy("cpu")
     host.model.cfg = host_cfg
@@ -2984,6 +3184,11 @@ def check_against_host(tag, state, host_cfg, tcfg, dense_opt, train_step, pb,
                 raise AssertionError(f"host check {name}: rows the host step kept moved on the "
                                      "card")
         got, want = table_f32(got_t).cpu(), table_f32(want_t)
+        if exempt is not None and exempt[name].any():
+            keep = ~exempt[name].cpu()
+            errs[f"{name} rows exempt"] = int((~keep).sum())
+            got, want, t0_ = got[keep], want[keep], t0_[keep]
+            got_t, want_t = (table_rows(got_t, keep), table_rows(want_t, keep))
         if isinstance(got_t, QuantizedTable):
             step = torch.maximum(got_t.scales.cpu(), want_t.scales)[:, None] / 127
             diff = (got - want).abs()
@@ -3216,6 +3421,90 @@ def phase_train_softmax_wide(dev: torch.device, profile: bool) -> dict[str, int]
     return launches
 
 
+# [train-wide-table]: (D, table dtype, batch) - tables past the half-warp walk's 512
+# columns and at D % 4 != 0, which the span walk's general route and #5's wide and
+# one-int8-a-lane paths take
+WIDE_TABLE_DIM = 1024
+WIDE_TABLE_CASES = ((WIDE_TABLE_DIM, "float32", 65_536), (WIDE_TABLE_DIM, "int8", 65_536),
+                    (30, "float32", 8192))
+WIDE_TABLE_STEPS = 3  # counted eager steps of each case, then as many host checks
+BCE_WIDE_F32 = {"pooled_gather": 2, "rowwise_adagrad": 2}  # f32 compute: no tower kernels
+BCE_WIDE_INT8 = {"quantized_pooled_gather": 2, "quantized_rowwise_adagrad": 2}
+
+
+def phase_train_wide_table(dev: torch.device, profile: bool) -> dict[str, int]:
+    """`[train-wide-table]`: the flagship tables (NUM_USERS x NUM_ITEMS) at
+    widths the JAX package trains and the half-warp walk does not take: D =
+    1,024 with f32 and with int8 tables at batch 65,536, D = 30 (D % 4 != 0)
+    with f32 tables at 8,192; BCE, f32 compute, sorted by user id, the block
+    kernels in f32. Through `create_train_state` -> `make_train_step`:
+    WIDE_TABLE_STEPS eager steps counted (#1 and #4, or #5 and #6 for int8
+    tables, twice a step; nothing else), each then held against the host's
+    plain step from the same state (`check_against_host`), the rows fed by a
+    sample whose ReLU gate opens on one side only (`gate_flip_rows`: at most
+    1 in 1,000 samples) counted and exempt from the update's bound. Then the D =
+    1,024 int8 model through `Scorer` and `RetrievalService`
+    (`phase_serve_trained`: #5 at every lookup)."""
+    tag = "[train-wide-table]"
+    launches = {name: 0 for name in KERNELS}
+    int8_model = None
+    pools = {}  # (D, batch) -> the packed batches, shared by the f32 and int8 cases
+    for d, table_dtype, batch in WIDE_TABLE_CASES:
+        label = f"{tag} D={d} {table_dtype} tables, batch {batch}"
+        cfg = dataclasses.replace(
+            cfg_lib.two_tower_model_config(NUM_USERS, NUM_ITEMS, embedding_dim=d,
+                                           layer_sizes=LAYERS), table_dtype=table_dtype)
+        tcfg = cfg_lib.TrainConfig(batch_size=batch, sorted_feature="user_id",
+                                   block_sorted_kernel="float32", loss="bce")
+        if (d, batch) not in pools:  # the packing does not depend on the tables' storage
+            feat = PackedFeaturizer(cfg, pack_label=True, sort_feature="user_id")
+            ds = SyntheticClickstream(NUM_USERS - 1, NUM_ITEMS - 1, seed=0)
+            pools[d, batch] = [map_leaves(feat(cols), lambda t: t.to(dev))
+                               for cols in ds.batches(batch, WIDE_TABLE_STEPS, "train")]
+        pool = pools[d, batch]
+        state, dense_opt = step_lib.create_train_state(
+            torch.Generator(device=dev).manual_seed(0), cfg, tcfg)
+        train_step = make_packed_train_step(step_lib.make_train_step(cfg, tcfg, dense_opt), cfg,
+                                            pack_label=True)
+        # --- the main path, counted -----------------------------------------------
+        reset_launches()
+        state, out, times = timed_steps(train_step, state, pool, 0, WIDE_TABLE_STEPS)
+        made = read_launches()
+        # --- checks, not counted --------------------------------------------------
+        want = BCE_WIDE_INT8 if table_dtype == "int8" else BCE_WIDE_F32
+        for name, n in made.items():
+            if n != want.get(name, 0) * WIDE_TABLE_STEPS:
+                raise AssertionError(f"{label} {name}: {n} launches in {WIDE_TABLE_STEPS} steps, "
+                                     f"expected {want.get(name, 0)} a step")
+            launches[name] += n
+        if not np.isfinite(out["loss"].item()):
+            raise AssertionError(f"{label}: loss {out['loss'].item()} is not finite")
+        tables = table_bytes(state.model)
+        log(f"{label}: {WIDE_TABLE_STEPS} eager steps, step_ms={times!r}, loss="
+            f"{out['loss'].item()!r}, launches per step "
+            f"{ {k: v // WIDE_TABLE_STEPS for k, v in made.items() if v} }, table bytes {tables}")
+        margins = []
+        for i in range(WIDE_TABLE_STEPS):  # each step from the state the one before left
+            pb = pool[i]
+            exempt, samples = gate_flip_rows(state, pb)
+            rows = sum(int(m.sum()) for m in exempt.values())
+            if samples > batch // 1000:  # f32 order flips a few; a coarser product thousands
+                raise AssertionError(f"{label}: {samples} samples whose ReLU gates open on one "
+                                     "side only (at most 1 in 1,000 allowed)")
+            log(f"{label} step {WIDE_TABLE_STEPS + i}: {samples} samples with a ReLU gate open "
+                f"on one side only, their {rows} table rows exempt from the update's bound")
+            margins.append(check_against_host(f"{label} step {WIDE_TABLE_STEPS + i}", state, cfg,
+                                              tcfg, dense_opt, train_step, pb, exempt=exempt))
+            state, _ = train_step(state, pb)
+        log(f"{label}: the largest margin of the {WIDE_TABLE_STEPS} host checks "
+            f"{max(max(m.values()) for m in margins)!r}; {card_line()}")
+        if (d, table_dtype) == (WIDE_TABLE_DIM, "int8"):
+            int8_model = (state, cfg)
+        del state, pool
+    served = phase_serve_trained(dev, *int8_model, profile, f"{tag} serve D=1024 int8")
+    return {name: n + served.get(name, 0) for name, n in launches.items()}
+
+
 TRAINED_STEPS = 100  # eager steps before the p kernel's inputs are kept
 
 
@@ -3264,6 +3553,17 @@ def trained_p_kernel(tag: str, train_step, state, pool: list) -> None:
         f"{int(weighty.sum(1).max())} a row), {ties} of them near a bf16 tie (summed again); "
         f"max_abs_err {err!r} against the plain p; kernel_ms={ms!r} bound_ms={b['bound_ms']!r} "
         f"by {b['bound_by']} (n=10); {card_line()}")
+    # #9 on the same trained inputs: the lse the step's forward takes
+    fwd = args[:7]
+    lse_k = sk.softmax_lse_fwd(*fwd)
+    lse_p = sk.lse_forward_reference(*fwd)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse_k, lse_p, rtol=2e-5, atol=1e-5)
+    fwd_ms = median_ms(lambda: sk.softmax_lse_fwd(*fwd), flush, 10)
+    b9 = bound((bq + bk) * (dp * 2 + 12) + bq * 4, 2 * bq * bk * dp, PEAK_BF16, bq * bk)
+    log(f"{tag} #9 on the same trained inputs [{bq} x {bk}], D={dp}: max_abs_err "
+        f"{(lse_k - lse_p).abs().max().item()!r} against the plain lse; kernel_ms={fwd_ms!r} "
+        f"bound_ms={b9['bound_ms']!r} by {b9['bound_by']} (n=10); {card_line()}")
 
 
 def phase_train_devsort(dev: torch.device, profile: bool) -> dict[str, int]:
@@ -3987,6 +4287,18 @@ def phase_pipeline(dev: torch.device, work: str) -> tuple[dict[str, dict[str, in
                                        "--data-dir", shards, "--k", "100",
                                        "--max-users", "10000"])
     softmax_launches = read_launches()
+    # a table the half-warp walk does not take: D = 1,024, f32 compute, one epoch
+    reset_launches()
+    t2 = time.perf_counter()
+    wide = train_cli.main([
+        "--data-dir", shards, "--num-users", str(meta["num_users"]),
+        "--num-items", str(meta["num_items"]), "--epochs", "1", "--batch-size", "8192",
+        "--loss", "bce", "--embedding-dim", str(WIDE_TABLE_DIM), "--seed", "0",
+        "--runs-root", os.path.join(work, "runs"), "--sorted-feature", "user_id",
+        "--block-sorted-kernel", "float32", "--compute-dtype", "float32",
+        "--wire-cache", os.path.join(work, "wirecache")])
+    wide_train_s = time.perf_counter() - t2
+    wide_launches = read_launches()
     # --- checks, not counted ------------------------------------------------------
     rows = out["prepare"]["rows"]
     eval_batches = {split: eval_sizes(rows[split]) for split in ("val", "test")}
@@ -4015,6 +4327,14 @@ def phase_pipeline(dev: torch.device, work: str) -> tuple[dict[str, dict[str, in
             raise AssertionError(f"{tag} wire {train_out['wire_format']}, cache {gen}, steps "
                                  f"{[e['train_steps'] for e in train_out['epochs']]}")
         checks.append((tag, train_out, made, on_card, ret))
+    # the D = 1,024 run: #1 and #4 as a step's and the evals' expectation, nothing else
+    wide_want, wide_on_card = expected_train_launches(
+        wide, BCE_WIDE_F32, 2 * eval_batches["val"] + eval_batches["test"], 0)
+    wide_made = {k: v for k, v in wide_launches.items() if v}
+    if wide_made != wide_want or wide["captures"] != 1 or not np.isfinite(
+            wide["metrics"]["test_auroc"]):
+        raise AssertionError(f"[pipeline-wide] launches {wide_made} != {wide_want}, captures "
+                             f"{wide['captures']}, metrics {wide['metrics']}")
     bce = out["retrieval"]
     if not bce["recall_at_100"] >= BCE_RECALL_FLOOR:
         raise AssertionError(f"[pipeline] BCE recall@100 {bce['recall_at_100']} < "
@@ -4038,7 +4358,16 @@ def phase_pipeline(dev: torch.device, work: str) -> tuple[dict[str, dict[str, in
             f"{int(ret['num_users'])} test users at k=100: recall@10={ret['recall_at_10']!r} "
             f"recall@100={ret['recall_at_100']!r} ndcg@100={ret['ndcg_at_100']!r}; launches "
             f"counted {made} (= the steps' and evals' expectation), run on the card {on_card}")
-    return {"pipeline": bce_launches, "pipeline-softmax": softmax_launches}, out
+    m = wide["metrics"]
+    log(f"[pipeline-wide] {card}: cli.train --embedding-dim {WIDE_TABLE_DIM} (f32 compute, "
+        f"the wire cache reused): train {wide_train_s!r} s, epoch examples/s "
+        f"{[e['examples_per_sec'] for e in wide['epochs']]!r}, steps "
+        f"{[e['train_steps'] for e in wide['epochs']]} captures={wide['captures']} "
+        f"replays={wide['replays']}; baseline_val_auroc={m['baseline_val_auroc']!r} "
+        f"val_auroc={m['val_auroc']!r} test_auroc={m['test_auroc']!r}; launches counted "
+        f"{wide_made} (= the steps' and evals' expectation), run on the card {wide_on_card}")
+    return {"pipeline": bce_launches, "pipeline-softmax": softmax_launches,
+            "pipeline-wide": wide_launches}, out
 
 
 RESUME_EPOCHS, RESUME_CRASH_EPOCH = 3, 1  # the first attempt crashes after epoch 1's checkpoint
@@ -6042,6 +6371,7 @@ def main() -> int:
         stats["rowwise_adagrad"]["max_abs_err"],
         stats.pop("rowwise_adagrad on skewed ids")["max_abs_err"])
     phase_adagrad_bf16_table(dev)
+    phase_wide_table_kernels(dev)
     phase_bf16_buffer_kernels(dev)
     phase_aggregate_perm_kernel(dev)
     serve = phase_serve(dev, args.profile)
@@ -6060,6 +6390,7 @@ def main() -> int:
     paths["probe"] = phase_probe(dev)
     paths.update(phase_train_graphs(dev, args.profile, batches[0]))
     paths["train-softmax-wide"] = phase_train_softmax_wide(dev, args.profile)
+    paths["train-wide-table"] = phase_train_wide_table(dev, args.profile)
     paths["train-devsort"] = phase_train_devsort(dev, args.profile)
     paths.update(phase_train_bf16buf(dev, args.profile, batches[0]))
     paths.update(phase_meshes(dev, batches[0]))

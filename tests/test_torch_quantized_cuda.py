@@ -1,6 +1,7 @@
 """The int8 slice's CUDA kernels against their plain PyTorch versions, on the
 card: the int8 pooled gather (kernel #5: its 16-byte and narrow paths, the
-launch plan's batch edges, dead slots, pointers off a 16-byte boundary),
+launch plan's batch edges, dead slots, pointers off a 16-byte boundary, D
+% 4 != 0 and D > 512),
 the fused int8 row-wise Adagrad (#6), the dense aggregate (#3) and the row
 subtract (#7), at odd shapes. This
 file imports no JAX, so it runs where the card is:
@@ -101,18 +102,21 @@ def test_quantized_gather_matches_plain(dev, d, out_dtype, slots):
 
 @pytest.mark.cuda
 def test_quantized_gather_empty_batch_and_bad_dim(dev):
+    """An empty batch launches nothing; D % 4 != 0 (6: one int8 a lane) and
+    D > 512 (516: the narrow path, D % 16 != 0) launch the kernel and give
+    the plain version's bits."""
     rng = np.random.default_rng(0)
     values, scales = _table(rng, 50, 8, dev)
     before = quantized_pooled_gather.launches
     out = quantized_pooled_gather(values, scales, torch.zeros((0, 1), dtype=torch.int32, device=dev),
                                   torch.zeros((0, 1), device=dev))
     assert out.shape == (0, 8) and quantized_pooled_gather.launches == before
-    for d in (6, 516):  # D % 4 != 0, D > 512: refused, never a quiet plain route
+    for d in (6, 516):  # every D the reference trains runs on the card, never a plain route
         values, scales = _table(rng, 50, d, dev)
-        with pytest.raises(ValueError, match="D % 4 == 0"):
-            quantized_pooled_gather(values, scales, torch.zeros((4, 1), dtype=torch.int32,
-                                                                device=dev),
-                                    torch.ones((4, 1), device=dev))
+        ids = torch.from_numpy(rng.integers(-1, 52, (40, 1)).astype(np.int32)).to(dev)
+        w = torch.ones((40, 1), device=dev)
+        got, want = _gather(values, scales, ids, w, torch.float32)
+        assert got.shape == (40, d) and torch.equal(got, want)
 
 
 def _gather(values, scales, ids, w, out_dtype, out=None):
@@ -356,14 +360,33 @@ def test_row_subtract_matches_plain(dev, d, case):
 
 @pytest.mark.cuda
 def test_bad_dims_are_refused_on_the_card(dev):
-    """D % 4 != 0 raises ValueError on CUDA tensors for each kernel."""
-    ids = torch.zeros(4, dtype=torch.int32, device=dev)
-    g = torch.zeros((4, 6), device=dev)
-    with pytest.raises(ValueError, match="D % 4 == 0"):
-        block_sorted_aggregate(10, ids, g)
-    with pytest.raises(ValueError, match="D % 4 == 0"):
-        row_subtract(torch.zeros((10, 6), device=dev), ids, g)
-    with pytest.raises(ValueError, match="D % 4 == 0"):
-        quantized_rowwise_adagrad_fused(
-            torch.zeros((10, 6), dtype=torch.int8, device=dev), torch.zeros(10, device=dev),
-            torch.zeros(10, device=dev), ids, g, 0.1)
+    """D % 4 != 0 (6) and D > 512 (516) run on CUDA tensors for each kernel
+    (#3, #7, #6: the scalar path or the general walk) and match the plain
+    versions: #3 within rtol 1e-5, #7 bit for bit, #6 within one int8 step
+    (scales rtol 1e-5). Each launches once."""
+    rng = np.random.default_rng(6)
+    ids = torch.tensor([0, 0, 3, 7, 7, 7, 10], dtype=torch.int32, device=dev)  # 10: a sentinel
+    for d in (6, 516):
+        g = torch.from_numpy(rng.normal(size=(7, d)).astype(np.float32)).to(dev)
+        before = (block_sorted_aggregate.launches, row_subtract.launches,
+                  quantized_rowwise_adagrad_fused.launches)
+        torch.testing.assert_close(block_sorted_aggregate(10, ids, g),
+                                   block_sorted_aggregate_reference(10, ids, g),
+                                   rtol=1e-5, atol=1e-5)
+        table = torch.from_numpy(rng.normal(size=(10, d)).astype(np.float32)).to(dev)
+        sub_ids = torch.tensor([1, 4, 9, 12], dtype=torch.int32, device=dev)
+        t_k, t_p = table.clone(), table.clone()
+        row_subtract(t_k, sub_ids, g[:4].contiguous())
+        row_subtract_reference(t_p, sub_ids, g[:4].contiguous())
+        assert torch.equal(t_k, t_p)
+        values, scales = _table(rng, 10, d, dev)
+        acc = torch.ones(10, device=dev)
+        k = (values.clone(), scales.clone(), acc.clone())
+        p = (values.clone(), scales.clone(), acc.clone())
+        quantized_rowwise_adagrad_fused(*k, ids, g, 0.1)
+        quantized_rowwise_adagrad_fused_reference(*p, ids, g, 0.1)
+        torch.cuda.synchronize()
+        assert (block_sorted_aggregate.launches, row_subtract.launches,
+                quantized_rowwise_adagrad_fused.launches) == tuple(x + 1 for x in before)
+        assert (k[0].int() - p[0].int()).abs().max().item() <= 1
+        torch.testing.assert_close(k[1], p[1], rtol=1e-5, atol=1e-6)

@@ -107,14 +107,16 @@ def test_both_tile_sizes_agree(dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,bq,row_offset", [(64, 8192, 0), (128, 8192, 0), (64, 128, 4096),
-                                             (128, 1024, 7168)])
+                                             (128, 1024, 7168), (256, 8192, 0), (256, 1024, 3072),
+                                             (2048, 1024, 7168)])
 def test_forward_is_deterministic_at_the_production_batch(dev, d, bq, row_offset):
     """Kernel #9 at B = 8,192 columns with item ids (they repeat), logQ and
     192 padded columns: two launches on the same inputs agree bit for bit,
     the lse holds the plain version, and a stripe of BQ rows at a row offset
     is bit for bit those rows of the square case (the warp groups split the
     columns by tile index alone, and a row's sums do not depend on its
-    block)."""
+    block; at a wide D the column chunks follow BK alone and merge in chunk
+    order, 2 tiles a chunk at 8,192 columns)."""
     bk = 8192
     q16, c16, ids, log_q, _ = _inputs(dev, bk, bk, d, seed=d + bq, n_ids=5000)
     adj = sk._merged_adj(log_q, bk - 192, bk, dev)
@@ -179,8 +181,8 @@ def test_backward_is_deterministic_at_the_production_batch(dev, d, bq, row_offse
 @pytest.mark.parametrize("bq,row_offset,n_valid", [(512, 0, 400), (128, 256, None),
                                                    (256, 256, 448)])
 def test_wide_dims_match_plain(dev, d, bq, row_offset, n_valid):
-    """128 < D <= 2,048: the kernels sum a score over D in slices of 64 and
-    cut dq and dc in column slices of 128 across the grid. The square with
+    """128 < D <= 2,048: the kernels' TMA + wgmma ring (#9 over column
+    chunks and a merge; the p kernel and two products). The square with
     padded columns and stripes at a row offset, item ids and logQ: each
     kernel against its plain version, two launches bit for bit, dq and dc
     of the original width (192 is padded to 256), padded columns without

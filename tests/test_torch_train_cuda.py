@@ -29,12 +29,13 @@ def dev():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [128, 32, 256, 4])
+@pytest.mark.parametrize("d", [128, 32, 256, 4, 1024, 30])
 @pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_perm", [False, True])
 def test_rowwise_adagrad_matches_plain(dev, d, grad_dtype, with_perm):
     """Touched rows and accumulators within rtol 1e-5 (f32 summation order),
-    untouched rows bitwise; duplicates, a long run and sentinels."""
+    untouched rows bitwise; duplicates, a long run and sentinels. D = 1,024
+    and 30 take the general walk."""
     rng = np.random.default_rng(d)
     n, m = 2000, 4096
     ids = rng.integers(0, n // 3, m)
@@ -65,7 +66,7 @@ def test_rowwise_adagrad_matches_plain(dev, d, grad_dtype, with_perm):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [128, 32, 512, 4])
+@pytest.mark.parametrize("d", [128, 32, 512, 4, 1024, 30])
 @pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_perm", [False, True])
 def test_rowwise_adagrad_bf16_table_matches_plain(dev, d, grad_dtype, with_perm):

@@ -23,9 +23,13 @@
 //     would give two owners one row, and they would race;
 //   - grads [*, D] f32 or bf16, summed in f32; perm [M] int32 or null;
 //   - values: [N, D] int8, scales: [N] f32 (the row's absmax), acc: [N] f32;
-//   - D % 4 == 0 and D <= 512; values 4-byte aligned, f32 gradients 16-byte
-//     and bf16 gradients 8-byte aligned (the wrapper checks);
-//   - part [2 * ceil(M / 32), D] f32 and part_id [2 * ceil(M / 32)] int32:
+//   - any D >= 1 and any alignment: D % 4 == 0, D <= 512 with values 4-byte
+//     aligned, f32 gradients 16-byte and bf16 gradients 8-byte aligned take
+//     the half-warp walk; everything else the general walk of
+//     sorted_runs.cuh (four-element accesses where D % 4 == 0 and the
+//     pointers allow them, else scalar ones);
+//   - part [2 * ceil(M / 32) (+ the general walk's rows), D] f32 and part_id
+//     [2 * ceil(M / 32)] int32:
 //     scratch that the wrapper allocates on the caller's stream (nothing
 //     carries over between calls);
 //   - a row that no live id names, or whose summed gradient is exactly zero
@@ -182,40 +186,97 @@ struct QuantizedUpdate {
       acc[r] = new_acc;
     }
   }
+
+  // The general walk: a run is summed in the warp's stash row; the update
+  // reads it back, writes the new f32 row over it while it finds the new
+  // absmax, then reads that to quantize: V columns a lane, V int8 values a
+  // load or store (one 4-byte word at V = 4).
+  __device__ __forceinline__ float* sum_row(int32_t, float* stash, int64_t) const { return stash; }
+
+  template <int V>
+  __device__ __forceinline__ void apply_row(int32_t r, float* row, RowStats st, int64_t d) const {
+    if (!named && !st.nonzero) return;  // an all-zero sum: the row keeps its bytes
+    const int lane = threadIdx.x & 31;
+    const float new_acc = acc[r] + st.sumsq / static_cast<float>(d);
+    const float denom = sqrtf(new_acc) + eps;
+    const float mult = __fdiv_rn(scales[r], 127.f);
+    int8_t* vrow = values + static_cast<int64_t>(r) * d;
+    float amax = 0.f;
+    for (int64_t col = gcol<V>(0, lane); col < d; col += 32 * V) {
+      float g[V];
+      load_f32<V>(row + col, g);
+      uint32_t q;
+      if constexpr (V == 4)
+        q = *reinterpret_cast<const uint32_t*>(vrow + col);
+      else
+        q = static_cast<uint8_t>(vrow[col]);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float x = __fmul_rn(int8_at(q, i), mult);
+        g[i] = __fsub_rn(x, __fdiv_rn(__fmul_rn(lr, g[i]), denom));
+        amax = fmaxf(amax, fabsf(g[i]));
+      }
+      store_f32<V>(row + col, g);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(kFullWarp, amax, off));
+    const float qdenom = amax > 0.f ? amax : 1.f;
+    for (int64_t col = gcol<V>(0, lane); col < d; col += 32 * V) {
+      float x[V];
+      load_f32<V>(row + col, x);
+      if constexpr (V == 4)
+        *reinterpret_cast<uint32_t*>(vrow + col) = pack4(x, qdenom);
+      else
+        vrow[col] = static_cast<int8_t>(quantize(x[0], qdenom));
+    }
+    if (lane == 0) {
+      scales[r] = amax;
+      acc[r] = new_acc;
+    }
+  }
 };
+
+// The general walk for the gradients' dtype, V columns a lane's access.
+template <int V>
+int launch_general_for_grads(const Walk& p, const QuantizedUpdate& epi, int grad_dtype,
+                             int buffer_dtype, cudaStream_t s) {
+  if (grad_dtype == kF32) return launch_general<float, V>(p, epi, buffer_dtype, s);
+  if (grad_dtype == kBF16) return launch_general<uint16_t, V>(p, epi, buffer_dtype, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 }  // namespace
 
 extern "C" {
 
-// Returns a cudaError_t code: 0 on a successful launch. n_slots is the length
-// of part_id (part holds n_slots rows of D): at least 2 * ceil(M / 32).
-// buffer_dtype: kF32, or kBF16 for the bf16 buffer (sorted_runs.cuh), which
-// also writes every named row.
+// Returns a cudaError_t code: 0 on a successful launch. n_slots is the rows
+// of D in part (part_id holds 2 * ceil(M / 32)): at least 2 * ceil(M / 32), and
+// for the general walk (D % 4 != 0, D > 512, or values or gradients off the
+// alignment of four-element accesses) n_spans * split more (sorted_runs.cuh:
+// make_walk). buffer_dtype: kF32, or kBF16 for the bf16 buffer
+// (sorted_runs.cuh), which also writes every named row.
 int ttrm_quantized_adagrad(void* values, void* scales, void* acc, const void* ids,
                            const void* grads, int grad_dtype, const void* perm, void* part,
                            void* part_id, int64_t n_slots, int64_t n_rows, int64_t d, int64_t m,
                            float lr, float eps, int buffer_dtype, void* stream) {
   if (m <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
+  if (grad_dtype != kF32 && grad_dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
+  const bool four = d % 4 == 0 && aligned(values, 4) && aligned(grads, grad_dtype == kF32 ? 16 : 8);
+  const bool general = !(four && half_warp_dim(d));
   Walk p;
-  if (!make_walk(ids, grads, perm, part, part_id, n_slots, n_rows, d, m, &p) ||
-      !aligned(values, 4))
+  if (!make_walk(ids, grads, perm, part, part_id, n_slots, n_rows, d, m, general, &p))
     return static_cast<int>(cudaErrorInvalidValue);
   const QuantizedUpdate epi{static_cast<int8_t*>(values), static_cast<float*>(scales),
                             static_cast<float*>(acc), lr, eps, buffer_dtype == kBF16};
   const auto s = static_cast<cudaStream_t>(stream);
-  if (grad_dtype == kF32) {
-    if (!aligned(grads, 16)) return static_cast<int>(cudaErrorMisalignedAddress);
-    return launch_walk<float, 4>(p, epi, buffer_dtype, s);
-  }
-  if (grad_dtype == kBF16) {
-    if (!aligned(grads, 8)) return static_cast<int>(cudaErrorMisalignedAddress);
-    // 16-byte loads (and 8-byte int8 chunks) where the rows' alignment allows them
-    if (d % 8 == 0 && aligned(grads, 16) && aligned(values, 8))
-      return launch_walk<uint16_t, 8>(p, epi, buffer_dtype, s);
-    return launch_walk<uint16_t, 4>(p, epi, buffer_dtype, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (general)
+    return four ? launch_general_for_grads<4>(p, epi, grad_dtype, buffer_dtype, s)
+                : launch_general_for_grads<1>(p, epi, grad_dtype, buffer_dtype, s);
+  if (grad_dtype == kF32) return launch_walk<float, 4>(p, epi, buffer_dtype, s);
+  // 16-byte loads (and 8-byte int8 chunks) where the rows' alignment allows them
+  if (d % 8 == 0 && aligned(grads, 16) && aligned(values, 8))
+    return launch_walk<uint16_t, 8>(p, epi, buffer_dtype, s);
+  return launch_walk<uint16_t, 4>(p, epi, buffer_dtype, s);
 }
 
 const char* ttrm_error_string(int code) {

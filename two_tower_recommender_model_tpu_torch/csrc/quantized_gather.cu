@@ -14,15 +14,15 @@
 // Contract:
 //   - a slot whose id lies outside [0, N) or whose weight is 0 contributes
 //     nothing, and neither its row nor its scale is read;
-//   - values: [N, D] int8, row-major, contiguous, 4-byte aligned; scales: [N]
-//     f32; ids: [B, L] int32 in any order; w: [B, L] f32 (mean pooling comes
-//     pre-scaled); out: [B, D] f32 or bf16;
-//   - D % 4 == 0 and D <= 512 (the wrapper raises for any other D);
+//   - values: [N, D] int8, row-major, contiguous; scales: [N] f32; ids: [B,
+//     L] int32 in any order; w: [B, L] f32 (mean pooling comes pre-scaled);
+//     out: [B, D] f32 or bf16; any D >= 1;
 //   - two paths, picked by the wrapper's plan (ops/gather_plan.py) from D and
 //     the pointers: the wide path (the walks of csrc/gather_rows.cuh, picked
-//     by B and L) for D % 16 == 0 with values and out 16-byte aligned; the
-//     narrow path, one warp a bag and four int8 a lane, for every other D or
-//     alignment;
+//     by B and L; any row of whole 16-byte chunks) for D % 16 == 0 with
+//     values and out 16-byte aligned; the narrow path, one warp a bag, for
+//     every other D or alignment: four int8 (one 4-byte word) a lane where D
+//     % 4 == 0 and values are 4-byte aligned, else one int8 a lane;
 //   - the rounding, the same on both paths: scale / 127 is one true
 //     division of the slot's scale; the dequantized element and its weighting are
 //     separate multiplies and the sum a separate add (no fused multiply-add),
@@ -51,8 +51,6 @@
 #include "gather_rows.cuh"
 
 namespace {
-
-constexpr int kMaxDim = 512;
 
 // dtype codes shared with the Python wrapper
 constexpr int kF32 = 0;
@@ -103,9 +101,20 @@ __device__ __forceinline__ void store_elem(uint16_t* p, float x) {
   *p = static_cast<uint16_t>(gather::bf16_bits(x));
 }
 
-// The narrow path: one warp a bag, four int8 (one 4-byte word) a lane,
-// element stores (any output alignment).
-template <typename Tout>
+// V int8 of a row from `p`: one 4-byte word (V = 4, 4-byte aligned) or one
+// byte, as a little-endian word.
+template <int V>
+__device__ __forceinline__ uint32_t load_int8s(const int8_t* p) {
+  if constexpr (V == 4)
+    return __ldg(reinterpret_cast<const uint32_t*>(p));
+  else
+    return static_cast<uint8_t>(__ldg(reinterpret_cast<const char*>(p)));
+}
+
+// The narrow path: one warp a bag, V int8 a lane (4: one 4-byte word; 1:
+// one byte, for D % 4 != 0 or values off a 4-byte boundary), element stores
+// (any output alignment).
+template <typename Tout, int V>
 __global__ void __launch_bounds__(gather::kMaxWarpsPerBlock * 32)
 quantized_gather_narrow(const int8_t* __restrict__ values, const float* __restrict__ scales,
                         const int32_t* __restrict__ ids, const float* __restrict__ w,
@@ -116,20 +125,21 @@ quantized_gather_narrow(const int8_t* __restrict__ values, const float* __restri
   if (bag >= batch) return;
   const int32_t* bag_ids = ids + bag * bag_l;
   const float* bag_w = w + bag * bag_l;
-  for (int64_t col = lane * 4; col < d; col += 128) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int64_t col = lane * V; col < d; col += 32 * V) {
+    float acc[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] = 0.f;
     for (int64_t l = 0; l < bag_l; ++l) {
       const int32_t id = __ldg(bag_ids + l);
       const float wt = __ldg(bag_w + l);
       if (id < 0 || id >= n_rows || wt == 0.f) continue;  // dead slot: nothing read
       const float mult = __fdiv_rn(__ldg(scales + id), 127.f);
-      const uint32_t word = __ldg(
-          reinterpret_cast<const uint32_t*>(values + static_cast<int64_t>(id) * d + col));
+      const uint32_t word = load_int8s<V>(values + static_cast<int64_t>(id) * d + col);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i] = add_elem(acc[i], int8_at(word, i), mult, wt);
+      for (int i = 0; i < V; ++i) acc[i] = add_elem(acc[i], int8_at(word, i), mult, wt);
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) store_elem(out + bag * d + col + i, acc[i]);
+    for (int i = 0; i < V; ++i) store_elem(out + bag * d + col + i, acc[i]);
   }
 }
 
@@ -155,8 +165,12 @@ int launch(const int8_t* values, const float* scales, const int32_t* ids, const 
            int64_t run_bags, int warps_per_block, int64_t blocks, cudaStream_t s) {
   const dim3 grid(static_cast<unsigned>(blocks)), block(warps_per_block * 32);
   if (walk == static_cast<int>(gather::Walk::kNarrow)) {
-    quantized_gather_narrow<Tout><<<grid, block, 0, s>>>(values, scales, ids, w, out, n_rows, d,
-                                                         batch, bag_l);
+    if (d % 4 == 0 && reinterpret_cast<uintptr_t>(values) % 4 == 0)
+      quantized_gather_narrow<Tout, 4><<<grid, block, 0, s>>>(values, scales, ids, w, out,
+                                                              n_rows, d, batch, bag_l);
+    else
+      quantized_gather_narrow<Tout, 1><<<grid, block, 0, s>>>(values, scales, ids, w, out,
+                                                              n_rows, d, batch, bag_l);
   } else {
     const auto kernel = wide_kernel<Tout>(walk);
     kernel<<<grid, block, 0, s>>>(Int8Rows{values, scales, d}, ids, w, out, n_rows, d, batch,
@@ -178,8 +192,7 @@ int ttrm_quantized_gather(const void* values, const void* scales, const void* id
                           int64_t bag_l, int walk, int64_t run_bags, int warps_per_block,
                           int64_t blocks, void* stream) {
   if (batch <= 0) return static_cast<int>(cudaSuccess);
-  if (d <= 0 || d % 4 != 0 || d > kMaxDim || bag_l < 0 ||
-      reinterpret_cast<uintptr_t>(values) % 4 != 0 ||
+  if (d <= 0 || bag_l < 0 ||
       !gather::plan_fits(walk, batch, d, Int8Rows::VEC, bag_l, values, out, run_bags,
                          warps_per_block, blocks))
     return static_cast<int>(cudaErrorInvalidValue);

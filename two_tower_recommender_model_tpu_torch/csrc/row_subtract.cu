@@ -17,7 +17,8 @@
 //     pallas_sparse_rowwise_adagrad) passes one id per segment of equal ids,
 //     which are distinct by construction. With distinct ids the result is
 //     deterministic and equals one f32 subtraction per element;
-//   - D % 4 == 0; table and updates 16-byte aligned (the wrapper checks).
+//   - any D >= 1: 16-byte loads and stores where D % 4 == 0 and table and
+//     updates are 16-byte aligned, else one element a lane.
 //
 // What bounds it: memory: a live position reads its update row and reads and
 // writes its table row, 12 D bytes against D subtractions. The design: one
@@ -36,6 +37,8 @@ namespace {
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarpsPerBlock * 32;
 
+// V = 4: a float4 a lane; V = 1: one element a lane (any D, any alignment).
+template <int V>
 __global__ void __launch_bounds__(kThreads)
 row_subtract_kernel(float* __restrict__ table, const int32_t* __restrict__ ids,
                     const float* __restrict__ updates, int64_t n_rows, int64_t d, int64_t m) {
@@ -46,14 +49,18 @@ row_subtract_kernel(float* __restrict__ table, const int32_t* __restrict__ ids,
   if (r < 0 || r >= n_rows) return;  // sentinel: skipped
   float* trow = table + static_cast<int64_t>(r) * d;
   const float* urow = updates + j * d;
-  for (int64_t col = lane * 4; col < d; col += 128) {
-    const float4 u = __ldg(reinterpret_cast<const float4*>(urow + col));
-    float4 t = *reinterpret_cast<float4*>(trow + col);
-    t.x -= u.x;
-    t.y -= u.y;
-    t.z -= u.z;
-    t.w -= u.w;
-    *reinterpret_cast<float4*>(trow + col) = t;
+  for (int64_t col = lane * V; col < d; col += 32 * V) {
+    if constexpr (V == 4) {
+      const float4 u = __ldg(reinterpret_cast<const float4*>(urow + col));
+      float4 t = *reinterpret_cast<float4*>(trow + col);
+      t.x -= u.x;
+      t.y -= u.y;
+      t.z -= u.z;
+      t.w -= u.w;
+      *reinterpret_cast<float4*>(trow + col) = t;
+    } else {
+      trow[col] -= __ldg(urow + col);
+    }
   }
 }
 
@@ -65,13 +72,19 @@ extern "C" {
 int ttrm_row_subtract(void* table, const void* ids, const void* updates, int64_t n_rows,
                       int64_t d, int64_t m, void* stream) {
   if (m <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
-  if (d <= 0 || d % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (m > static_cast<int64_t>(0x7fffffff) * kWarpsPerBlock)
+  if (d <= 0 || m > static_cast<int64_t>(0x7fffffff) * kWarpsPerBlock)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>((m + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  row_subtract_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(table), static_cast<const int32_t*>(ids),
-      static_cast<const float*>(updates), n_rows, d, m);
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* t = static_cast<float*>(table);
+  const auto* i = static_cast<const int32_t*>(ids);
+  const auto* u = static_cast<const float*>(updates);
+  const bool four = d % 4 == 0 && reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(updates) % 16 == 0;
+  if (four)
+    row_subtract_kernel<4><<<grid, kThreads, 0, s>>>(t, i, u, n_rows, d, m);
+  else
+    row_subtract_kernel<1><<<grid, kThreads, 0, s>>>(t, i, u, n_rows, d, m);
   return static_cast<int>(cudaGetLastError());
 }
 

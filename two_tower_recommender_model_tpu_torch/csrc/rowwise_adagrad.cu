@@ -32,11 +32,14 @@
 //     (train/optimizer.py: device_sorted_fused_adagrad) passes its stable
 //     sort's permutation here, so the kernel reads grads[perm[j]] in place
 //     and no permuted [M, D] copy is ever written;
-//   - D % 4 == 0 and D <= 512; an f32 table and f32 grads 16-byte aligned, a
-//     bf16 table and bf16 grads 8-byte aligned (the wrapper checks all of it);
-//   - part [2 * ceil(M / 32), D] f32 and part_id [2 * ceil(M / 32)] int32:
-//     the span walk's scratch, allocated by the wrapper on the caller's
-//     stream (so a CUDA graph captures it).
+//   - any D >= 1 and any alignment of the table and the grads: D % 4 == 0,
+//     D <= 512 with an f32 table and f32 grads 16-byte aligned (a bf16 one
+//     8-byte) take the half-warp walk; everything else the general walk of
+//     sorted_runs.cuh (four-element accesses where D % 4 == 0 and the
+//     pointers allow them, else scalar ones);
+//   - part [2 * ceil(M / 32) (+ the general walk's rows), D] f32 and part_id
+//     [2 * ceil(M / 32)] int32: the span walk's scratch, allocated by the
+//     wrapper on the caller's stream (so a CUDA graph captures it).
 //   Rows that no live id names keep their exact bits.
 //   - buffer_dtype kBF16 (`scatter_buffer_dtype="bfloat16"` on the sorted
 //     table): g_r is the reference's bf16 buffer instead, each run summed in
@@ -143,6 +146,24 @@ struct Chunk<uint16_t, V> {
   }
 };
 
+// One element of each: the general walk's scalar path (V = 1).
+template <>
+struct Chunk<float, 1> {
+  float x[1];
+  __device__ __forceinline__ void load(const float* p) { x[0] = *p; }
+  __device__ __forceinline__ float at(int) const { return x[0]; }
+  static __device__ __forceinline__ void store(float* p, const float (&y)[1]) { *p = y[0]; }
+};
+template <>
+struct Chunk<uint16_t, 1> {
+  uint32_t w;
+  __device__ __forceinline__ void load(const uint16_t* p) { w = *p; }
+  __device__ __forceinline__ float at(int) const { return lo16(w); }
+  static __device__ __forceinline__ void store(uint16_t* p, const float (&y)[1]) {
+    *p = __bfloat16_as_ushort(__float2bfloat16_rn(y[0]));
+  }
+};
+
 // Kernel #4's epilogue: the row-wise Adagrad update of row r, in place.
 template <typename T>
 struct AdagradUpdate {
@@ -187,6 +208,29 @@ struct AdagradUpdate {
       }
     if (hl == 0) acc[r] = new_acc;
   }
+
+  // The general walk: a run is summed in the warp's stash row, then the
+  // update reads it back, V columns a lane.
+  __device__ __forceinline__ float* sum_row(int32_t, float* stash, int64_t) const { return stash; }
+
+  template <int V>
+  __device__ __forceinline__ void apply_row(int32_t r, const float* row, RowStats st,
+                                            int64_t d) const {
+    const int lane = threadIdx.x & 31;
+    const float new_acc = acc[r] + st.sumsq / static_cast<float>(d);
+    const float denom = sqrtf(new_acc) + eps;
+    T* trow = table + static_cast<int64_t>(r) * d;
+    for (int64_t col = gcol<V>(0, lane); col < d; col += 32 * V) {
+      Chunk<T, V> t;
+      t.load(trow + col);
+      float g[V], y[V];
+      load_f32<V>(row + col, g);
+#pragma unroll
+      for (int i = 0; i < V; ++i) y[i] = t.at(i) - lr * g[i] / denom;
+      Chunk<T, V>::store(trow + col, y);
+    }
+    if (lane == 0) acc[r] = new_acc;
+  }
 };
 
 // Kernel #3's epilogue: the run's sum written to its row of `out`.
@@ -215,6 +259,24 @@ struct AggregateStore {
           *reinterpret_cast<float4*>(orow + col_of<V>(c, hl) + i) =
               make_float4(g[c][i], g[c][i + 1], g[c][i + 2], g[c][i + 3]);
   }
+
+  // The general walk: pass 1 sums a run straight into its output row; pass
+  // 2's sum, in a scratch row, is copied there.
+  __device__ __forceinline__ float* sum_row(int32_t r, float*, int64_t d) const {
+    return out + static_cast<int64_t>(r) * d;
+  }
+
+  template <int V>
+  __device__ __forceinline__ void apply_row(int32_t r, const float* row, RowStats,
+                                            int64_t d) const {
+    float* orow = out + static_cast<int64_t>(r) * d;
+    if (row == orow) return;
+    for (int64_t col = gcol<V>(0, threadIdx.x & 31); col < d; col += 32 * V) {
+      float x[V];
+      load_f32<V>(row + col, x);
+      store_f32<V>(orow + col, x);
+    }
+  }
 };
 
 // The walk for the gradients' dtype: bf16 rows as 16-byte loads where D and
@@ -236,49 +298,78 @@ int launch_for_grads(const Walk& p, const E& epi, int grad_dtype, bool rows_alig
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The general walk for the gradients' dtype, V columns a lane's access.
+template <int V, typename E>
+int launch_general_for_grads(const Walk& p, const E& epi, int grad_dtype, int buffer_dtype,
+                             cudaStream_t s) {
+  if (grad_dtype == kF32) return launch_general<float, V>(p, epi, buffer_dtype, s);
+  if (grad_dtype == kBF16) return launch_general<uint16_t, V>(p, epi, buffer_dtype, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The walk for D and the pointers: the half-warp walk where it takes them,
+// else the general one, with four columns an access where D % 4 == 0 and the
+// pointers are aligned for it (`four`), else one.
+template <typename E>
+int launch_any(const Walk& p, const E& epi, bool general, bool four, int grad_dtype,
+               bool rows_align16, int buffer_dtype, cudaStream_t s) {
+  if (!general) return launch_for_grads(p, epi, grad_dtype, rows_align16, buffer_dtype, s);
+  if (four) return launch_general_for_grads<4>(p, epi, grad_dtype, buffer_dtype, s);
+  return launch_general_for_grads<1>(p, epi, grad_dtype, buffer_dtype, s);
+}
+
+bool dtype_ok(int code) { return code == kF32 || code == kBF16; }
+
+// The bytes of four elements: an f32 or a bf16 chunk of the walks' accesses.
+uintptr_t four_bytes(int dtype) { return dtype == kF32 ? 16 : 8; }
+
 }  // namespace
 
 extern "C" {
 
-// Returns a cudaError_t code: 0 on a successful launch. n_slots is the length
-// of part_id (part holds n_slots rows of D): at least 2 * ceil(M / 32).
-// buffer_dtype: kF32, or kBF16 for the bf16 buffer (sorted_runs.cuh).
+// Returns a cudaError_t code: 0 on a successful launch. n_slots is the rows
+// of D in part (part_id holds 2 * ceil(M / 32)): at least 2 * ceil(M / 32), and
+// for the general walk (D % 4 != 0, D > 512, or a table or gradients off
+// the alignment of four-element accesses) n_spans * split more
+// (sorted_runs.cuh: make_walk). buffer_dtype: kF32, or kBF16 for the bf16
+// buffer (sorted_runs.cuh).
 int ttrm_rowwise_adagrad(void* table, int table_dtype, void* acc, const void* ids,
                          const void* grads, int grad_dtype, const void* perm, void* part,
                          void* part_id, int64_t n_slots, int64_t n_rows, int64_t d, int64_t m,
                          float lr, float eps, int buffer_dtype, void* stream) {
   if (m <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
+  if (!dtype_ok(table_dtype) || !dtype_ok(grad_dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool four = d % 4 == 0 && aligned(table, four_bytes(table_dtype)) &&
+                    aligned(grads, four_bytes(grad_dtype));
+  const bool general = !(four && half_warp_dim(d));
   Walk p;
-  if (!make_walk(ids, grads, perm, part, part_id, n_slots, n_rows, d, m, &p))
+  if (!make_walk(ids, grads, perm, part, part_id, n_slots, n_rows, d, m, general, &p))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   auto* a = static_cast<float*>(acc);
-  if (table_dtype == kF32) {
-    if (!aligned(table, 16)) return static_cast<int>(cudaErrorMisalignedAddress);
-    return launch_for_grads(p, AdagradUpdate<float>{static_cast<float*>(table), a, lr, eps},
-                            grad_dtype, true, buffer_dtype, s);
-  }
-  if (table_dtype == kBF16) {
-    if (!aligned(table, 8)) return static_cast<int>(cudaErrorMisalignedAddress);
-    return launch_for_grads(p, AdagradUpdate<uint16_t>{static_cast<uint16_t*>(table), a, lr, eps},
-                            grad_dtype, aligned(table, 16), buffer_dtype, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (table_dtype == kF32)
+    return launch_any(p, AdagradUpdate<float>{static_cast<float*>(table), a, lr, eps}, general,
+                      four, grad_dtype, true, buffer_dtype, s);
+  return launch_any(p, AdagradUpdate<uint16_t>{static_cast<uint16_t*>(table), a, lr, eps},
+                    general, four, grad_dtype, aligned(table, 16), buffer_dtype, s);
 }
 
-// `out` [N, D] f32 must arrive zeroed and 16-byte aligned; perm [M] int32 or
-// null (the j-th sorted id's gradient row is grads[perm[j]]). Returns a
-// cudaError_t code.
+// `out` [N, D] f32 must arrive zeroed; perm [M] int32 or null (the j-th
+// sorted id's gradient row is grads[perm[j]]); n_slots as above (out off a
+// 16-byte boundary also takes the general walk). Returns a cudaError_t code.
 int ttrm_sorted_aggregate(void* out, const void* ids, const void* grads, int grad_dtype,
                           const void* perm, void* part, void* part_id, int64_t n_slots,
                           int64_t n_rows, int64_t d, int64_t m, void* stream) {
   if (m <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
+  if (!dtype_ok(grad_dtype)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool four = d % 4 == 0 && aligned(out, 16) && aligned(grads, four_bytes(grad_dtype));
+  const bool general = !(four && half_warp_dim(d));
   Walk p;
-  if (!make_walk(ids, grads, perm, part, part_id, n_slots, n_rows, d, m, &p) ||
-      !aligned(out, 16))
+  if (!make_walk(ids, grads, perm, part, part_id, n_slots, n_rows, d, m, general, &p))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_for_grads(p, AggregateStore{static_cast<float*>(out)}, grad_dtype, true, kF32,
-                          static_cast<cudaStream_t>(stream));
+  return launch_any(p, AggregateStore{static_cast<float*>(out)}, general, four, grad_dtype, true,
+                    kF32, static_cast<cudaStream_t>(stream));
 }
 
 const char* ttrm_error_string(int code) {

@@ -29,8 +29,9 @@
 // multiple of 128 up to 2,048 (the wrapper zero-pads D, as the reference
 // pads it to 128 lanes, to the reference's cap); BQ and BK multiples of 128; adj [BK] f32 or null;
 // row_ids [BQ] and col_ids [BK] int32, both or neither; lse, g [BQ] f32;
-// outputs f32 (and at a wide D the caller's workspace P, [rows, BK] bf16,
-// rows a multiple of 128); every pointer 16-byte aligned. q row i has global row index
+// outputs f32 (and at a wide D the caller's workspaces: #9's chunk partials
+// [n_chunks, BQ] f32 pairs, the backward's P [rows, BK] bf16, rows a
+// multiple of 128); every pointer 16-byte aligned. q row i has global row index
 // row_offset + i, the column of its positive, so one stripe of a
 // data-parallel split runs the same kernel.
 //
@@ -44,10 +45,11 @@
 // 0.04 ms): they, not the products, set the time. At a wide D the products
 // do: 0.0347 ms for #9 and 0.0695 ms for #10 or #11 at 8,192^2, D = 256;
 // 0.278 and 0.556 ms at D = 2,048 (the kernels at 128 < D <= 2,048 are at
-// "wide D" below: #9 in depth slices, #10 and #11 as a p kernel that writes
-// p once and two wgmma products that read it).
+// "wide D" below: one TMA + wgmma skeleton, #9 over column chunks with a
+// merge, #10 and #11 as a p kernel that writes p once and two wgmma products
+// that read it).
 //
-// The three kernels share one skeleton (`stream_tiles`) and one score
+// At D <= 128 the three kernels share one skeleton (`stream_tiles`) and one score
 // product (`score_tile`, then `adjust_tile`), on the tensor cores
 // (mma.sync.m16n8k16, bf16 x bf16 -> f32, mma_sm90.cuh):
 //   - A block owns 64 rows of one operand (q rows for #9 and #10, c rows for
@@ -691,35 +693,49 @@ __global__ void __launch_bounds__(bwd_groups<DP>() * kGroupThreads) lse_bwd_kern
 //
 // A [64, D] bf16 tile of 2,048 columns is 256 KB, past the 227 KB a block may
 // hold, and a warp's [16, D] f32 slice of dq or dc would be 128 KB of
-// registers. So at a padded D of 256 to 2,048 (a multiple of 128):
+// registers. So at a padded D of 256 to 2,048 (a multiple of 128) all three
+// kernels run on one skeleton, the ring: persistent blocks (at most one an
+// SM) of a producer warpgroup, whose one thread keeps kStages shared-memory
+// stages filled by TMA (a q box and a c box of [128, 64] with the 128-byte
+// swizzle, or the products' operands), and two consumer warpgroups on wgmma
+// m64n128k16, each 64 rows x 128 columns of a 128 x 128 output tile. The
+// scores of a tile (`ring_scores`): each 64-deep slice summed from zero
+// (scale-d = 0 on its first k step) and added to the running f32 score with
+// __fadd_rn, slices in order: a wgmma adds to its accumulator by
+// truncation, as mma.sync does, and 128 chunks in one accumulator drifted
+// ~1e-3 from a k-order sum of a score near 160 at D = 2,048 (an H100), p by
+// ~2^-10, past the tie window. #9 and the p kernel take a score the same
+// way, so it has the same bits in both.
 //
-// Kernel #9 (lse_fwd_wide_kernel) sums a score over D in slices of kSlice =
-// 64 columns: for each streamed tile the group copies slice k of its 64 own
-// rows and of the tile's 64 rows into shared memory (two [64, 72] bf16
-// buffers, double buffered by cp.async over the flat sequence of (tile,
-// slice) steps), and each warp sums the slice's 4 chunks of 16 from zero on
-// the tensor cores and adds that to its 16 x 64 fragment of f32 scores on the
-// CUDA cores (`score_slice`), the slices in order. 4 warp groups, 153,600
-// bytes of shared memory a block; the groups split the streamed tiles by tile
-// index and merge in group order, as at D <= 128.
+// Kernel #9 (lse_fwd_wide_kernel, then lse_merge_kernel). The score matrix's
+// columns are cut in n_chunks chunks of whole 128-column tiles (the wrapper's
+// `fwd_chunks`: a function of BK alone, so a stripe's rows meet the same
+// chunks as the square's), and a block walks (row tile, chunk) items, so the
+// grid fills the card whatever BQ is: a [1,024 x 4,096] stripe is 8 row
+// tiles x 32 chunks. For each of the chunk's tiles a consumer warpgroup
+// adjusts its 64 x 128 scores in registers (`adjusted_score`: 1/T, adj,
+// the duplicate mask; the column scalars arrive by cp.async during the
+// products) and carries the online (m, l) of each of its thread's two rows
+// (`online_ring_tile`: the tile's max of the thread's 32 scores, then of its
+// quad's; l rescaled by exp(m_old - m_new) before the tile's 32 exps are
+// added in column order). At the chunk's end the quad's four l are added
+// and the row's (m, l) goes to the workspace `part` [n_chunks, BQ] f32 x 2.
+// A second launch merges each row's chunks in chunk order (M = max m_k, L =
+// sum_k l_k exp(m_k - M), lse = M + log(L)), as the narrow kernel merges its
+// groups. No atomics, no order between blocks: two launches agree bit for
+// bit; the workspace is the wrapper's, on the current stream, and nothing
+// syncs with the host, so it runs inside a CUDA graph. No P, no ties: lse is
+// not rounded to bf16.
 //
 // Kernels #10 and #11: p once, then two products. A backward is three
 // launches per panel of q rows [lo, hi) (the wrapper's workspace holds the
 // panel's P, [hi - lo, BK] bf16, at most 256 MB):
 //   1. lse_p_kernel writes P = p for the panel's rows against all BK columns.
-//      Scores on wgmma (m64n128k16) from a ring of kStages shared-memory
-//      stages that TMA fills (q and c tiles [128, 64] with the 128-byte
-//      swizzle), one producer thread feeding two consumer warpgroups, a 128 x
-//      128 output tile a block at a time (persistent blocks, one an SM). Each
-//      64-deep slice is summed from zero (scale-d = 0 on its first k step)
-//      and added to the running f32 score with __fadd_rn, slices in order: a
-//      wgmma adds to its accumulator by truncation, as mma.sync does, and 128
-//      chunks in one accumulator drifted ~1e-3 from a k-order sum of a score
-//      near 160 at D = 2,048 (an H100), p by ~2^-10, past the tie window.
-//      The epilogue is the narrow kernels': `adjusted_score`, `p_value` with
-//      ex2.approx, and each p of weight near a bf16 tie summed again from the
-//      two rows in device memory in f64 by a group of lanes together (8 at
-//      D = 256, 32 from 1,024: `tie_lanes`), rounded once
+//      Scores on the ring (`ring_scores`), a 128 x 128 output tile a block
+//      at a time. The epilogue is the narrow kernels': `adjusted_score`,
+//      `p_value` with ex2.approx, and each p of weight near a bf16 tie summed
+//      again from the two rows in device memory in f64 by a group of lanes
+//      together (8 at D = 256, 32 from 1,024: `tie_lanes`), rounded once
 //      (`rounded_dot_group`, as the plain version takes a score at a wide
 //      D); a warpgroup pools its tile's ties in shared memory and its four
 //      warps share them. Every p of weight gets the plain version's bf16 bits.
@@ -735,144 +751,23 @@ __global__ void __launch_bounds__(bwd_groups<DP>() * kGroupThreads) lse_bwd_kern
 //   k order in one accumulator (no split, no atomics), so two launches agree
 //   bit for bit and a stripe's dq rows are the square's: the same P rows
 //   meet the same k order.
-// What bounds it: a score is computed once a backward (a grid that cut dq
-// and dc in 128-column slices summed it 2 x D / 128 times), so the three
-// launches do 3 x 2 BQ BK D FLOPs and move P three times (written once, read
-// by each product): 0.104 ms of products and 0.115 ms of P at 8,192^2, D =
-// 256 on an H100; 0.208 ms of products at 4,096^2, D = 2,048. Measured there
-// (700 W): p 0.18 ms, the products 0.064 and 0.066 ms at 8,192^2, D = 256;
-// p 0.17, the products 0.12 and 0.13 ms at 4,096^2, D = 2,048. In the p
-// kernel the epilogue does not overlap the products (both warpgroups run
-// each tile's products, then its epilogue, in step), and ties cost more as
-// a model trains and its p concentrate (`chip_smoke.py`
-// `[train-softmax-wide]` counts them on its trained state).
+// What bounds them: #9 does 2 BQ BK D FLOPs (0.0347 ms at 8,192^2, D = 256;
+// 0.0695 ms at 4,096^2, D = 2,048, at 989 TFLOP/s). A score is computed once
+// a backward (a grid that cut dq and dc in 128-column slices summed it 2 x D
+// / 128 times), so the three launches do 3 x 2 BQ BK D FLOPs and move P
+// three times (written once, read by each product): 0.104 ms of products
+// and 0.115 ms of P at 8,192^2, D = 256 on an H100; 0.208 ms of products at
+// 4,096^2, D = 2,048. Measured there (700 W): p 0.18 ms, the products 0.064
+// and 0.066 ms at 8,192^2, D = 256; p 0.17, the products 0.12 and 0.13 ms
+// at 4,096^2, D = 2,048. In the p kernel and #9 the epilogue does not
+// overlap its warpgroup's products (each tile's products, then its
+// epilogue), and ties cost more as a model trains and its p concentrate
+// (`chip_smoke.py` `[train-softmax-wide]` counts them on its trained state).
 // Left for later: the epilogue of one tile under the next tile's products,
-// 128 x 256 product tiles at D >= 512 (less operand traffic from L2).
+// 128 x 256 product tiles at D >= 512 (less operand traffic from L2), #9's
+// q box kept in shared memory across a chunk's tiles where D allows.
 
-constexpr int kSlice = 64;       // #9's depth per step
-constexpr int kSliceLd = kSlice + 8;
 constexpr int kMaxDim = 2048;
-
-// The raw dot products of one depth slice of #9 at a wide D, added to `s`:
-// per pair of n8 blocks the slice's 4 chunks of 16 summed from zero on the
-// tensor cores, then that partial added to the running score in f32 on the
-// CUDA cores (__fadd_rn): a partial of 64 products stays small, and the
-// slices' sums round to nearest.
-__device__ __forceinline__ void score_slice(float (&s)[8][4], const uint32_t (&af)[kSlice / 16][4],
-                                            const bf16* tile) {
-  const int lane = threadIdx.x & 31, r8 = lane & 7, mat = lane >> 3;
-#pragma unroll
-  for (int n = 0; n < 8; n += 2) {
-    float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int ks = 0; ks < kSlice / 16; ++ks) {
-      uint32_t b[4];  // matrices (rows 8n, k), (8n, k + 8), (8n + 8, k), (8n + 8, k + 8)
-      ldsm_x4(b, tile + (n * 8 + r8 + (mat >> 1) * 8) * kSliceLd + ks * 16 + (mat & 1) * 8);
-      mma_bf16(p0, af[ks], b[0], b[1]);
-      mma_bf16(p1, af[ks], b[2], b[3]);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[n][e] = __fadd_rn(s[n][e], p0[e]);
-      s[n + 1][e] = __fadd_rn(s[n + 1][e], p1[e]);
-    }
-  }
-}
-
-// Shared memory of a group of #9 at a wide D, in bytes from its base: 2
-// stages x (own slice, streamed slice) [64][72] bf16; 2 stages x the tile's
-// scalars.
-struct WideLayout {
-  static constexpr int slice_elems = kSub * kSliceLd;
-  static constexpr int scal_floats = 3 * kSub;
-  static constexpr size_t scal = size_t(4) * slice_elems * 2;
-  static constexpr size_t group_bytes = scal + size_t(2) * scal_floats * 4;
-};
-
-// The skeleton of #9 at a wide D: walks the group's tiles (group, group +
-// NG, ...), each in dp / 64 depth slices, and calls body(s, sc, o0) once a
-// tile's scores are whole: `s` the warp's raw 16 x 64 dot products, `sc` the
-// tile's scalars, `o0` its first streamed row. The buffers stay in use until
-// every group is past its loop (the caller's __syncthreads()).
-template <int NG, bool OWN_Q, typename Body>
-__device__ __forceinline__ void stream_sliced(const Args& a, unsigned char* smem, Body&& body) {
-  using L = WideLayout;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int group = warp >> 2, wr = (warp & 3) * 16;  // the warp's first own row in the block
-  const int gt = threadIdx.x & (kGroupThreads - 1);
-  const int r8 = lane & 7, mat = lane >> 3;  // ldmatrix: row within a matrix, matrix
-  const bool use_ids = a.row_ids != nullptr;
-  const uint16_t* own = OWN_Q ? a.q : a.c;
-  const uint16_t* other = OWN_Q ? a.c : a.q;
-  const int own0 = blockIdx.x * kOwn, dp = a.dp;
-  const int n_tiles = (OWN_Q ? a.bk : a.bq) / kSub;
-  const int n_mine = (n_tiles - group + NG - 1) / NG;  // tiles of this group (may be 0)
-  const int n_slices = dp / kSlice;
-  const int steps = n_mine * n_slices;
-  unsigned char* base = smem + group * L::group_bytes;
-  bf16* slices = reinterpret_cast<bf16*>(base);  // [stage][own, streamed][64][72]
-  float* scal = reinterpret_cast<float*>(base + L::scal);
-
-  // step j: slice j % n_slices of the group's tile j / n_slices
-  auto load = [&](int j) {
-    const int it = j / n_slices, sl = j - it * n_slices;
-    const int o0 = (group + NG * it) * kSub;
-    bf16* od = slices + (j & 1) * 2 * L::slice_elems;
-    bf16* td = od + L::slice_elems;
-    for (int idx = gt; idx < kSub * (kSlice / 8); idx += kGroupThreads) {
-      const int r = idx >> 3, k = sl * kSlice + (idx & 7) * 8;
-      cp_async16(od + r * kSliceLd + (idx & 7) * 8, own + static_cast<size_t>(own0 + r) * dp + k);
-      cp_async16(td + r * kSliceLd + (idx & 7) * 8, other + static_cast<size_t>(o0 + r) * dp + k);
-    }
-    if (sl == 0) load_scalars<OWN_Q>(a, o0, scal + (it & 1) * L::scal_floats, gt, use_ids);
-  };
-
-  if (OWN_Q && a.adj == nullptr)  // no adjustment: adj reads as 0 in both stages
-    for (int i = gt; i < kSub; i += kGroupThreads) scal[i] = scal[L::scal_floats + i] = 0.f;
-  if (steps > 0) load(0);
-  cp_async_commit();
-  float s[8][4];
-  for (int j = 0; j < steps; ++j) {
-    if (j + 1 < steps) {
-      load(j + 1);
-      cp_async_commit();
-      cp_async_wait_one();
-    } else {
-      cp_async_wait_all();
-    }
-    group_sync(group);  // step j is whole for every thread of the group
-    const int it = j / n_slices, sl = j - it * n_slices;
-    const bf16* od = slices + (j & 1) * 2 * L::slice_elems;
-    uint32_t af[kSlice / 16][4];
-#pragma unroll
-    for (int ks = 0; ks < kSlice / 16; ++ks)
-      ldsm_x4(af[ks], od + (wr + r8 + (mat & 1) * 8) * kSliceLd + ks * 16 + (mat >> 1) * 8);
-    if (sl == 0) zero_scores(s);
-    score_slice(s, af, od + L::slice_elems);
-    if (sl == n_slices - 1)
-      body(s, static_cast<const float*>(scal + (it & 1) * L::scal_floats), (group + NG * it) * kSub);
-    group_sync(group);  // every thread of the group is done with this stage
-  }
-}
-
-// Kernel #9 at a wide D: lse for the block's 64 q rows, streaming c.
-__global__ void __launch_bounds__(kFwdGroups * kGroupThreads) lse_fwd_wide_kernel(const Args a) {
-  static_assert(size_t(kFwdGroups) * kOwn * 2 * 4 <= WideLayout::group_bytes,
-                "the groups' (m, l) fit the tile buffers");
-  extern __shared__ float4 smem4[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wr = (warp & 3) * 16, g = lane >> 2;
-  const bool use_ids = a.row_ids != nullptr;
-  const int own0 = blockIdx.x * kOwn;
-  const OwnRows own = load_own_rows<true, false>(a, own0 + wr + g, use_ids);
-  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
-  stream_sliced<kFwdGroups, true>(a, smem, [&](float (&s)[8][4], const float* sc, int o0) {
-    adjust_tile<true>(s, sc, own, o0, a, use_ids);
-    online_tile(s, m, l);
-  });
-  finish_lse<kFwdGroups>(reinterpret_cast<float2*>(smem), m, l, a.out + own0);
-}
 
 // ---- #10 and #11 at a wide D: the ring, the p kernel, the products ------------------
 
@@ -893,6 +788,9 @@ constexpr size_t kColsAt = kStagedAt + size_t(2) * 64 * kStagedLd * 2;  // two x
 constexpr int kTieList = 2048;  // ties a warpgroup's tile pools (row << 7 | column, 2 bytes each)
 constexpr size_t kTiesAt = kColsAt + size_t(2) * 2 * kTileN * 4;  // two lists, then two counts
 constexpr size_t kPSmem = kTiesAt + size_t(2) * kTieList * 2 + 2 * 4 + 1024;
+// #9 at a wide D: past the ring's barriers, each consumer's column scalars [2][128]
+constexpr size_t kFwdColsAt = kRingBytes + 1024;
+constexpr size_t kFwdSmem = kFwdColsAt + size_t(2) * 2 * kTileN * 4 + 1024;
 
 // The ring: kStages stages of [A 16 KB | B 16 KB] on 1,024-byte boundaries (the
 // 128-byte swizzle's atoms), a `full` barrier a stage (one arrival, the
@@ -932,19 +830,25 @@ struct Slot {
   }
 };
 
+// The producer's step: the next free stage gets the TMA boxes of load(stage,
+// bar), kStageBytes in all.
+template <typename Load>
+__device__ __forceinline__ void produce_stage(const Ring& r, Slot& s, Load&& load) {
+  mbar_wait(r.empty + s.stage, s.phase ^ 1);
+  mbar_arrive_expect_tx(r.full + s.stage, kStageBytes);
+  load(r.tiles + size_t(s.stage) * kStageBytes, r.full + s.stage);
+  s.next();
+}
+
 // The producer (one thread): for each of the block's tiles (blockIdx.x,
 // + gridDim.x, ...) its n_kb k-blocks, each into the next free stage:
-// load(tile, kb, stage, bar) issues the TMA boxes, kStageBytes in all.
+// load(tile, kb, stage, bar) issues the TMA boxes.
 template <typename Load>
 __device__ __forceinline__ void produce(const Ring& r, int n_tiles, int n_kb, Load&& load) {
   Slot s;
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x)
-    for (int kb = 0; kb < n_kb; ++kb) {
-      mbar_wait(r.empty + s.stage, s.phase ^ 1);
-      mbar_arrive_expect_tx(r.full + s.stage, kStageBytes);
-      load(t, kb, r.tiles + size_t(s.stage) * kStageBytes, r.full + s.stage);
-      s.next();
-    }
+    for (int kb = 0; kb < n_kb; ++kb)
+      produce_stage(r, s, [&](unsigned char* st, uint64_t* bar) { load(t, kb, st, bar); });
 }
 
 // K-major and MN-major descriptors of the 128-byte-swizzled boxes of a stage,
@@ -954,6 +858,54 @@ __device__ __forceinline__ uint64_t kmajor_sw128(const unsigned char* tile, int 
 }
 __device__ __forceinline__ uint64_t mnmajor_sw128(const unsigned char* tile, int ks) {
   return smem_desc(tile + 2048 * ks, kHalfBytes, 1024, wgmma_sm90::kSwizzle128);
+}
+
+// The raw scores of consumer warpgroup cw's 64 rows x 128 columns of a tile
+// whose n_kb k-blocks come through the ring from `s` on (a stage: the q box
+// at A, the c box at B), in the accumulator layout: each 64-deep k-block
+// summed from zero on the tensor cores, then added to sc with __fadd_rn,
+// k-blocks in order. The p kernel and #9 both take their scores here.
+__device__ __forceinline__ void ring_scores(const Ring& r, Slot& s, int cw, int n_kb,
+                                            float (&sc)[64]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+  for (int kb = 0; kb < n_kb; ++kb) {
+    mbar_wait(r.full + s.stage, s.phase);
+    const unsigned char* st = r.tiles + size_t(s.stage) * kStageBytes;
+    float part[64];  // the slice's 64-deep sums, from zero
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kTileK / 16; ++ks)
+      wgmma_bf16<128, 0, 0>(part, kmajor_sw128(st + cw * kHalfBytes, ks),
+                            kmajor_sw128(st + 2 * kHalfBytes, ks), ks);
+    wgmma_commit_wait();
+    fence_operands(part);
+    if (lane == 0) mbar_arrive(r.empty + s.stage);
+    s.next();
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] = __fadd_rn(sc[i], part[i]);
+  }
+}
+
+// The column scalars of the tile at column c0 into a consumer's [2][128]:
+// adj (0 without one) and ids (-1 without ids; the rows' are then -2), by
+// cp.async from the warpgroup's threads ct < 64; not waited for here.
+__device__ __forceinline__ void load_col_scalars(const Args& a, int c0, float* col_adj,
+                                                 int* col_id, int ct) {
+  if (ct < kTileN / 4) {
+    if (a.adj != nullptr)
+      cp_async16(col_adj + 4 * ct, a.adj + c0 + 4 * ct);
+    else
+      *reinterpret_cast<float4*>(col_adj + 4 * ct) = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else if (ct < kTileN / 2) {
+    const int i = 4 * (ct - kTileN / 4);
+    if (a.row_ids != nullptr)
+      cp_async16(col_id + i, a.col_ids + c0 + i);
+    else
+      *reinterpret_cast<int4*>(col_id + i) = make_int4(-1, -1, -1, -1);
+  }
+  cp_async_commit();
 }
 
 // The p kernel: P[r, j] = bf16(exp(s - lse) * g) for q rows lo + r (r < rows)
@@ -999,19 +951,7 @@ __global__ void __launch_bounds__(kWideThreads, 1)
     // way while the scores are summed (the last tile's readers are past the
     // barrier that closed it)
     if (ct == 0) *tie_count = 0;  // published by the barrier before the epilogue
-    if (ct < kTileN / 4) {
-      if (a.adj != nullptr)
-        cp_async16(col_adj + 4 * ct, a.adj + c0 + 4 * ct);
-      else
-        *reinterpret_cast<float4*>(col_adj + 4 * ct) = make_float4(0.f, 0.f, 0.f, 0.f);
-    } else if (ct < kTileN / 2) {
-      const int i = 4 * (ct - kTileN / 4);
-      if (use_ids)
-        cp_async16(col_id + i, a.col_ids + c0 + i);
-      else
-        *reinterpret_cast<int4*>(col_id + i) = make_int4(-1, -1, -1, -1);
-    }
-    cp_async_commit();
+    load_col_scalars(a, c0, col_adj, col_id, ct);
     const int pr = tm * kTileM + cw * 64 + warp * 16 + g;  // panel row of the fragment's row 0
     float lse_r[2], g_r[2];
     int id_r[2], pos_r[2];
@@ -1025,24 +965,7 @@ __global__ void __launch_bounds__(kWideThreads, 1)
     }
 
     float sc[64];  // the running scores, in the accumulator layout
-#pragma unroll
-    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
-    for (int kb = 0; kb < n_kb; ++kb) {
-      mbar_wait(r.full + s.stage, s.phase);
-      const unsigned char* st = r.tiles + size_t(s.stage) * kStageBytes;
-      float part[64];  // the slice's 64-deep sums, from zero
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < kTileK / 16; ++ks)
-        wgmma_bf16<128, 0, 0>(part, kmajor_sw128(st + cw * kHalfBytes, ks),
-                              kmajor_sw128(st + 2 * kHalfBytes, ks), ks);
-      wgmma_commit_wait();
-      fence_operands(part);
-      if (lane == 0) mbar_arrive(r.empty + s.stage);
-      s.next();
-#pragma unroll
-      for (int i = 0; i < 64; ++i) sc[i] = __fadd_rn(sc[i], part[i]);
-    }
+    ring_scores(r, s, cw, n_kb, sc);
     cp_async_wait_all();
     group_sync(cw);  // the column scalars are whole for the warpgroup
 
@@ -1145,6 +1068,138 @@ __global__ void __launch_bounds__(kWideThreads, 1)
     }
     group_sync(cw);  // the staging and the column scalars are free for the next tile
   }
+}
+
+// The online max and sum of #9 at a wide D over one tile's adjusted scores
+// (the accumulator layout: a thread holds 2 rows x 32 columns): the tile's
+// row max is the max of the thread's 32 scores, then of its quad's (the 4
+// lanes of a row); l is rescaled by exp(m_old - m_new) before the tile's 32
+// exps are added in column order.
+__device__ __forceinline__ void online_ring_tile(const float (&sc)[64], float (&m)[2],
+                                                 float (&l)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mt = kNeg;
+#pragma unroll
+    for (int j = 0; j < kTileN / 8; ++j) mt = fmaxf(mt, fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));  // the quad: the row's 128 columns
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+    const float m_new = fmaxf(m[h], mt);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kTileN / 8; ++j) {
+      sum += exp_approx(sc[4 * j + 2 * h] - m_new);
+      sum += exp_approx(sc[4 * j + 2 * h + 1] - m_new);
+    }
+    l[h] = l[h] * exp_approx(m[h] - m_new) + sum;
+    m[h] = m_new;
+  }
+}
+
+// The first column tile of chunk k of n_chunks over n_tn tiles.
+__device__ __forceinline__ int chunk_first(int k, int n_tn, int n_chunks) {
+  return static_cast<int>(static_cast<int64_t>(k) * n_tn / n_chunks);
+}
+
+// Kernel #9 at a wide D: the (m, l) of each q row over each chunk of columns
+// into part ([n_chunks, bq] of (m, l)); items (row tile tm, chunk k) =
+// tm * n_chunks + k, a block's blockIdx.x, + gridDim.x, ... mq: q [bq, dp],
+// mc: c [bk, dp], both in boxes of [128 rows, 64].
+__global__ void __launch_bounds__(kWideThreads, 1)
+    lse_fwd_wide_kernel(const __grid_constant__ CUtensorMap mq,
+                        const __grid_constant__ CUtensorMap mc, const Args a,
+                        float2* __restrict__ part, int n_chunks) {
+  extern __shared__ unsigned char smem_raw[];
+  const Ring r = ring_init(smem_raw);
+  const int n_tn = a.bk / kTileN, n_items = (a.bq / kTileM) * n_chunks, n_kb = a.dp / kTileK;
+  const int wg = threadIdx.x / kGroupThreads;
+  if (wg == 0) {
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      tma_prefetch_map(&mq);
+      tma_prefetch_map(&mc);
+      Slot s;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+        const int tm = item / n_chunks, k = item - tm * n_chunks;
+        const int tn1 = chunk_first(k + 1, n_tn, n_chunks);
+        for (int tn = chunk_first(k, n_tn, n_chunks); tn < tn1; ++tn)
+          for (int kb = 0; kb < n_kb; ++kb)
+            produce_stage(r, s, [&](unsigned char* st, uint64_t* bar) {
+              tma_load_2d(st, &mq, bar, kb * kTileK, tm * kTileM);
+              tma_load_2d(st + 2 * kHalfBytes, &mc, bar, kb * kTileK, tn * kTileN);
+            });
+      }
+    }
+    return;
+  }
+  regs_inc<kConsumerRegs>();
+  const int cw = wg - 1;  // rows 64 cw .. 64 cw + 63 of each tile
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int ct = threadIdx.x & (kGroupThreads - 1);
+  const bool use_ids = a.row_ids != nullptr;
+  float* col_adj = reinterpret_cast<float*>(r.tiles + kFwdColsAt) + cw * 2 * kTileN;
+  int* col_id = reinterpret_cast<int*>(col_adj + kTileN);
+  Slot s;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int tm = item / n_chunks, k = item - tm * n_chunks;
+    const int qr = tm * kTileM + cw * 64 + warp * 16 + g;  // the fragment's row 0
+    int id_r[2], pos_r[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      id_r[h] = use_ids ? __ldg(a.row_ids + qr + 8 * h) : -2;
+      pos_r[h] = a.row_offset + qr + 8 * h;
+    }
+    float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};  // rows qr and qr + 8: running max, sum
+    const int tn1 = chunk_first(k + 1, n_tn, n_chunks);
+    for (int tn = chunk_first(k, n_tn, n_chunks); tn < tn1; ++tn) {
+      const int c0 = tn * kTileN;
+      // the tile's column scalars, on their way while the scores are summed
+      // (the last tile's readers are past the barrier that closed it)
+      load_col_scalars(a, c0, col_adj, col_id, ct);
+      float sc[64];
+      ring_scores(r, s, cw, n_kb, sc);
+      cp_async_wait_all();
+      group_sync(cw);  // the column scalars are whole for the warpgroup
+#pragma unroll
+      for (int j = 0; j < kTileN / 8; ++j) {
+        const int cl = 8 * j + 2 * t;  // the pair's first column in the tile
+        const float2 adj = *reinterpret_cast<const float2*>(col_adj + cl);
+        const int2 cid = *reinterpret_cast<const int2*>(col_id + cl);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * h + e;
+            const bool masked = id_r[h] == (e ? cid.y : cid.x) && pos_r[h] != c0 + cl + e;
+            sc[i] = adjusted_score(sc[i], a.inv_t, e ? adj.y : adj.x, masked);
+          }
+      }
+      online_ring_tile(sc, m, l);
+      group_sync(cw);  // the column scalars are free for the next tile
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // the quad's four sums of a row
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      if (t == 0) part[static_cast<size_t>(k) * a.bq + qr + 8 * h] = make_float2(m[h], l[h]);
+    }
+  }
+}
+
+// The end of #9 at a wide D: each row's chunks merged in chunk order, M =
+// max m_k, L = sum_k l_k exp(m_k - M), lse = M + log(L).
+__global__ void __launch_bounds__(256)
+    lse_merge_kernel(const float2* __restrict__ part, int n_chunks, int bq, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= bq) return;
+  float mx = kNeg;
+  for (int k = 0; k < n_chunks; ++k) mx = fmaxf(mx, part[static_cast<size_t>(k) * bq + i].x);
+  float sum = 0.f;
+  for (int k = 0; k < n_chunks; ++k) {
+    const float2 v = part[static_cast<size_t>(k) * bq + i];
+    sum += v.y * expf(v.x - mx);
+  }
+  out[i] = mx + logf(sum);
 }
 
 // The products: out (n_tm 128-row x n_tn 128-column tiles, row stride ld) =
@@ -1378,7 +1433,35 @@ int ttrm_softmax_lse_fwd(const void* q, const void* c, const void* adj, const vo
   if (dp == 64) return launch(lse_fwd_kernel<64>, a, grid, threads, Layout<64, kFwdGroups>::bytes, s);
   if (dp == 128)
     return launch(lse_fwd_kernel<128>, a, grid, threads, Layout<128, kFwdGroups>::bytes, s);
-  return launch(lse_fwd_wide_kernel, a, grid, threads, kFwdGroups * WideLayout::group_bytes, s);
+  return static_cast<int>(cudaErrorInvalidValue);  // a wide D: ttrm_softmax_lse_fwd_wide
+}
+
+// #9 at a wide D: lse_out [bq] through the caller's workspace part ([n_chunks,
+// bq] f32 pairs, 16-byte aligned), n_chunks from 1 to bk / 128 (the column
+// chunks: a function of bk alone, so a stripe's lse is the square's rows).
+// Two launches: the chunks' (m, l), then their merge.
+int ttrm_softmax_lse_fwd_wide(const void* q, const void* c, const void* adj, const void* row_ids,
+                              const void* col_ids, void* lse_out, void* part, int64_t n_chunks,
+                              int64_t bq, int64_t bk, int64_t dp, int64_t row_offset,
+                              float inv_t, void* stream) {
+  if (!shapes_ok(bq, bk, dp, row_offset, row_ids, col_ids) || !wide(dp) || n_chunks < 1 ||
+      n_chunks > bk / kTileN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a = make_args(q, c, adj, row_ids, col_ids, nullptr, nullptr, lse_out, bq, bk, dp,
+                           row_offset, inv_t);
+  if (!all_aligned(a) || !aligned16(part)) return static_cast<int>(cudaErrorMisalignedAddress);
+  CUtensorMap mq, mc;
+  if (!bf16_map(&mq, q, dp, bq, kTileM) || !bf16_map(&mc, c, dp, bk, kTileN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* pr = static_cast<float2*>(part);
+  const int chunks = static_cast<int>(n_chunks);
+  const int err = launch_ring(lse_fwd_wide_kernel, static_cast<int>(bq / kTileM) * chunks,
+                              kFwdSmem, s, mq, mc, a, pr, chunks);
+  if (err != 0) return err;
+  lse_merge_kernel<<<static_cast<unsigned>((bq + 255) / 256), 256, 0, s>>>(
+      pr, chunks, static_cast<int>(bq), static_cast<float*>(lse_out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // #10 and #11 at D <= 128 (a padded depth of 64 or 128)

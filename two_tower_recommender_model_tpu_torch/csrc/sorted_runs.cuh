@@ -9,7 +9,9 @@
 // [0, N) are sentinels (dead slots), never read and never written. Unsorted
 // ids would give two owners one row, and they would race. Gradient rows
 // src(j) = perm[j] when a permutation is given, else j; f32 or bf16 (widened
-// exactly), summed in f32. D % 4 == 0 and D <= 512.
+// exactly), summed in f32. Any D >= 1: the half-warp walk below takes D % 4
+// == 0, D <= 512 with the caller's alignment; every other D or alignment
+// takes the general walk (at the end of this header).
 //
 // Pass 1 (span_runs_kernel): warp w takes the 32 sorted positions of its
 // span [32 w, 32 w + 32) and reads their ids, the next 32 and one more (and
@@ -86,8 +88,38 @@
 //
 // Scratch: part [2 * ceil(M / 32), D] f32 and part_id [2 * ceil(M / 32)]
 // int32, allocated by the caller on its stream; nothing carries over between
-// calls (the bf16 buffer's walk uses part_id alone). Both passes go to the
-// caller's stream and allocate nothing.
+// calls (the bf16 buffer's walk uses part_id alone). The general walk needs
+// one more row of D f32 for each warp of its pass 1 (`general_slots`). Both
+// passes go to the caller's stream and allocate nothing.
+//
+// The general walk (any D, any alignment). A half-warp holds its row in
+// registers, V x NC floats a lane, so the walk above stops at D = 512; and
+// its loads are 8 or 16 bytes wide, so it needs D % 4 == 0. Every other D
+// or alignment takes this walk: the same spans, runs and pieces, with
+//   - one warp a run, its lane l holding the columns of chunks (l + 32 k) V
+//     .. + V - 1 (V = 4 where D % 4 == 0 and the pointers allow 8- or
+//     16-byte accesses, else 1: scalar loads and stores);
+//   - the run summed a column slice at a time (32 V x kSliceChunks columns:
+//     in registers, in position order, each column from 0) and each slice
+//     written as f32 to the run's "sum row": the warp's own row of the
+//     scratch (`stash`), or where the epilogue keeps its result (#3's output
+//     row). The row's whole-row figures an epilogue needs, sum(g^2) and
+//     whether any g is nonzero (`RowStats`), are taken on the way, lane l
+//     in chunk order then the warp's xor tree, the order `row_stats` reads
+//     them back in; then the epilogue reads the row again (`apply_row`): a
+//     sum outlives its slice, and the slicing orders no sum;
+//   - a long run's pieces summed by the whole warp in position order and
+//     written to `part` as above; pass 2 (`long_runs_general_kernel`) adds
+//     a run's T pieces in segment order, thread t the columns (t + 256 k) V,
+//     into the first piece's row, which the epilogue then reads; in the bf16
+//     buffer's mode (`long_runs_b16_general_kernel`) thread t walks the run
+//     from its first position to its last for its columns, the positions'
+//     source rows staged 256 at a time in shared memory, one rounding after
+//     every add, and writes the sum to the run's `part` row (which that
+//     mode leaves free).
+// The sum orders: each column in position order (pieces in segment order);
+// sum(g^2) as `row_stats`. Fixed, so two launches agree bit for bit; they
+// are not the half-warp walk's, which keeps its own bits.
 
 #pragma once
 
@@ -127,6 +159,7 @@ struct Walk {
   const int32_t* perm;  // or null
   float* part;          // [2 * n_spans, d] f32: pieces of long runs
   int32_t* part_id;     // [2 * n_spans]: each piece's row, or -1
+  float* stash;         // the general walk: [n_spans * split, d] f32, a row a warp of pass 1
   int64_t n_rows, d, m, n_spans;
   int split;            // warps a span in pass 1 (a power of two): each takes every split-th pair
 };
@@ -305,19 +338,22 @@ __device__ __forceinline__ void store_piece(const Walk& p, const int* src, int b
   }
 }
 
-// Pass 1: each warp's span of sorted positions (see the header).
-template <typename G, int V, int NC, bool B16, typename E>
-__global__ void __launch_bounds__(kThreads) span_runs_kernel(const Walk p, const E epi) {
-  __shared__ int s_ids[kWarps][kWindow + 1];  // ids of window positions 0 .. 64
-  __shared__ int s_src[kWarps][kWindow];      // their gradient rows
-  const int wib = threadIdx.x >> 5, lane = threadIdx.x & 31, half = lane >> 4, hl = lane & 15;
-  const int64_t gw = static_cast<int64_t>(blockIdx.x) * kWarps + wib;
-  const int64_t w = gw / p.split;      // the span
-  const int share = gw & (p.split - 1);  // the pairs of complete runs this warp takes
-  if (w >= p.n_spans) return;  // uniform across the warp
+// What a warp finds in its span w: the window's ids (positions 32 w .. 32 w
+// + 64) and source rows, read into shared memory, and the runs.
+struct Span {
+  uint64_t change;   // bit i: ids[i] != ids[i - 1]
+  unsigned lo;       // its bits of the span's 32 positions
+  unsigned starts;   // the runs this warp owns: they start in the span, live ids
+  int last;          // the last of them, or -1
+  bool long_run;     // the last one reaches past the window
+  bool later_piece;  // position 0 continues a run that started 33 or more positions before
+};
+
+// Reads span w's window into ids ([65]) and src ([64]) and finds its runs;
+// called by the whole warp.
+__device__ __forceinline__ Span read_span(const Walk& p, int64_t w, int* ids, int* src) {
+  const int lane = threadIdx.x & 31;
   const int64_t s0 = w * kSpan;
-  int* ids = s_ids[wib];
-  int* src = s_src[wib];
   for (int i = lane; i <= kWindow; i += 32) {
     const int64_t pos = s0 + i;
     ids[i] = pos < p.m ? __ldg(p.ids + pos) : -1;  // past M: a dead id, unlike any live one
@@ -344,6 +380,26 @@ __global__ void __launch_bounds__(kThreads) span_runs_kernel(const Walk p, const
   // the last run is long when no change follows it up to and including position 64
   const bool long_run = last >= 0 && (change >> (last + 1)) == 0 && !change_at_end;
   const bool later_piece = w >= 2 && !(lo & 1u) && (live & 1u) && back == ids[0];
+  return Span{change, lo, starts, last, long_run, later_piece};
+}
+
+// Pass 1: each warp's span of sorted positions (see the header).
+template <typename G, int V, int NC, bool B16, typename E>
+__global__ void __launch_bounds__(kThreads) span_runs_kernel(const Walk p, const E epi) {
+  __shared__ int s_ids[kWarps][kWindow + 1];  // ids of window positions 0 .. 64
+  __shared__ int s_src[kWarps][kWindow];      // their gradient rows
+  const int wib = threadIdx.x >> 5, lane = threadIdx.x & 31, half = lane >> 4, hl = lane & 15;
+  const int64_t gw = static_cast<int64_t>(blockIdx.x) * kWarps + wib;
+  const int64_t w = gw / p.split;      // the span
+  const int share = gw & (p.split - 1);  // the pairs of complete runs this warp takes
+  if (w >= p.n_spans) return;  // uniform across the warp
+  int* ids = s_ids[wib];
+  int* src = s_src[wib];
+  const Span sp = read_span(p, w, ids, src);
+  const uint64_t change = sp.change;
+  const unsigned lo = sp.lo, starts = sp.starts;
+  const int last = sp.last;
+  const bool long_run = sp.long_run, later_piece = sp.later_piece;
   if (B16) {  // a long run is named for pass 2, which sums it whole
     if (share == 0 && lane == 0) p.part_id[2 * w] = long_run ? ids[last] : -1;
   } else if (share == 0) {  // the pieces of long runs: the span's first warp
@@ -441,6 +497,18 @@ __device__ __forceinline__ void add_pieces(const Walk& p, int64_t w0, int64_t j0
     if ((c * 32 + lane) * 4 < d) *reinterpret_cast<float4*>(out + (c * 32 + lane) * 4) = s[c];
 }
 
+// The long runs whose first piece lies in spans [32 b, 32 b + 32), as a
+// bit mask of those spans (the block's first warp reads them).
+__device__ __forceinline__ unsigned block_heads(const Walk& p, unsigned* s_heads) {
+  if ((threadIdx.x >> 5) == 0) {
+    const int64_t w = static_cast<int64_t>(blockIdx.x) * 32 + (threadIdx.x & 31);
+    const unsigned heads = __ballot_sync(kFullWarp, w < p.n_spans && p.part_id[2 * w] >= 0);
+    if ((threadIdx.x & 31) == 0) *s_heads = heads;
+  }
+  __syncthreads();
+  return *s_heads;
+}
+
 // Pass 2: the long runs whose first piece lies in the block's 32 spans.
 template <int V, int NC, typename E>
 __global__ void __launch_bounds__(kThreads) long_runs_kernel(const Walk p, const E epi) {
@@ -449,13 +517,7 @@ __global__ void __launch_bounds__(kThreads) long_runs_kernel(const Walk p, const
   __shared__ unsigned s_heads, s_big[kWarps];
   const int wib = threadIdx.x >> 5, lane = threadIdx.x & 31, half = lane >> 4, hl = lane & 15;
   const int64_t w_base = static_cast<int64_t>(blockIdx.x) * 32;
-  if (wib == 0) {
-    const int64_t w = w_base + lane;
-    const unsigned heads = __ballot_sync(kFullWarp, w < p.n_spans && p.part_id[2 * w] >= 0);
-    if (lane == 0) s_heads = heads;
-  }
-  __syncthreads();
-  const unsigned heads = s_heads;
+  const unsigned heads = block_heads(p, &s_heads);
   if (heads == 0) return;  // uniform across the block
 
   // a run of at most kWarpRows pieces: one warp adds them in order (warp k
@@ -592,13 +654,7 @@ __global__ void __launch_bounds__(kThreads) long_runs_b16_kernel(const Walk p, c
   const int wib = threadIdx.x >> 5, lane = threadIdx.x & 31, half = lane >> 4, hl = lane & 15;
   const int64_t w_base = static_cast<int64_t>(blockIdx.x) * 32;
   const int64_t d = p.d;
-  if (wib == 0) {
-    const int64_t w = w_base + lane;
-    const unsigned heads = __ballot_sync(kFullWarp, w < p.n_spans && p.part_id[2 * w] >= 0);
-    if (lane == 0) s_heads = heads;
-  }
-  __syncthreads();
-  const unsigned heads = s_heads;
+  const unsigned heads = block_heads(p, &s_heads);
   if (heads == 0) return;  // uniform across the block
   const int rows = static_cast<int>(kRingElems / d < kRingRows ? kRingElems / d : kRingRows);
 
@@ -736,6 +792,350 @@ __global__ void __launch_bounds__(kThreads) long_runs_b16_kernel(const Walk p, c
   }
 }
 
+// ---- the general walk: any D, any alignment (see the header) ---------------------
+
+template <>
+struct Vec<float, 1> { using T = float; };
+template <>
+struct Vec<uint16_t, 1> { using T = uint16_t; };
+
+__device__ __forceinline__ void add_to(float (&g)[1], float v) { g[0] += v; }
+__device__ __forceinline__ void add_to(float (&g)[1], uint16_t v) { g[0] += lo16(v); }
+__device__ __forceinline__ void add_round(float (&g)[1], float v) {
+  g[0] = bf16r(g[0] + bf16r(v));
+}
+__device__ __forceinline__ void add_round(float (&g)[1], uint16_t v) {
+  g[0] = bf16r(g[0] + lo16(v));
+}
+
+// Chunks of V columns a lane sums at once: a column slice of 32 V x this.
+template <int V>
+constexpr int kSliceChunks = V == 1 ? 8 : 4;
+
+// The first column of chunk k of lane l: V columns each, the 32 lanes' chunks
+// side by side.
+template <int V>
+__device__ __forceinline__ int64_t gcol(int64_t k, int lane) {
+  return (k * 32 + lane) * V;
+}
+
+// V f32 values at p, 16-byte aligned when V = 4.
+template <int V>
+__device__ __forceinline__ void load_f32(const float* p, float (&x)[V]) {
+  if constexpr (V == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+  } else {
+    x[0] = *p;
+  }
+}
+template <int V>
+__device__ __forceinline__ void store_f32(float* p, const float (&x)[V]) {
+  if constexpr (V == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  else
+    *p = x[0];
+}
+
+// The whole-row figures of a run's sum that an epilogue needs.
+struct RowStats {
+  float sumsq;   // sum(g^2): lane l over its chunks in order, then the xor tree
+  bool nonzero;  // some g != 0
+};
+
+template <int V>
+__device__ __forceinline__ void stats_add(float& sq, bool& nz, const float (&x)[V]) {
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    sq = fmaf(x[i], x[i], sq);
+    nz = nz || x[i] != 0.f;
+  }
+}
+
+__device__ __forceinline__ RowStats stats_reduce(float sq, bool nz) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(kFullWarp, sq, off);
+  return RowStats{sq, __any_sync(kFullWarp, nz) != 0};
+}
+
+// The stats of a sum row of D f32, read by the whole warp in the order
+// sum_run takes them.
+template <int V>
+__device__ __forceinline__ RowStats row_stats(const float* row, int64_t d) {
+  float sq = 0.f;
+  bool nz = false;
+  for (int64_t col = gcol<V>(0, threadIdx.x & 31); col < d; col += 32 * V) {
+    float x[V];
+    load_f32<V>(row + col, x);
+    stats_add<V>(sq, nz, x);
+  }
+  return stats_reduce(sq, nz);
+}
+
+// The gradient rows of window positions [b, e) (source rows src) added in
+// position order by the whole warp, a column slice at a time, each slice
+// written as f32 to out ([D]); B16: each add rounded to bf16. Returns the
+// row's stats. U rows' loads go out before their adds.
+template <typename G, int V, bool B16>
+__device__ RowStats sum_run(const Walk& p, const int* src, int b, int e, float* out) {
+  using VT = typename Vec<G, V>::T;
+  constexpr int KS = kSliceChunks<V>, U = V == 1 ? 4 : 2;
+  const int lane = threadIdx.x & 31;
+  const G* grads = static_cast<const G*>(p.grads);
+  const int64_t d = p.d;
+  float sq = 0.f;
+  bool nz = false;
+  for (int64_t k0 = 0; gcol<V>(k0, 0) < d; k0 += KS) {
+    float g[KS][V];
+#pragma unroll
+    for (int c = 0; c < KS; ++c)
+#pragma unroll
+      for (int i = 0; i < V; ++i) g[c][i] = 0.f;
+    for (int k = b; k < e; k += U) {
+      VT raw[U][KS];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (k + u < e) {
+          const G* row = grads + static_cast<int64_t>(src[k + u]) * d;
+#pragma unroll
+          for (int c = 0; c < KS; ++c)
+            if (gcol<V>(k0 + c, lane) < d)
+              raw[u][c] = __ldg(reinterpret_cast<const VT*>(row + gcol<V>(k0 + c, lane)));
+        }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (k + u < e) {
+#pragma unroll
+          for (int c = 0; c < KS; ++c)
+            if (gcol<V>(k0 + c, lane) < d) {
+              if constexpr (B16)
+                add_round(g[c], raw[u][c]);
+              else
+                add_to(g[c], raw[u][c]);
+            }
+        }
+    }
+#pragma unroll
+    for (int c = 0; c < KS; ++c)
+      if (gcol<V>(k0 + c, lane) < d) {
+        store_f32<V>(out + gcol<V>(k0 + c, lane), g[c]);
+        stats_add<V>(sq, nz, g[c]);
+      }
+  }
+  return stats_reduce(sq, nz);
+}
+
+// An epilogue E of the general walk gives
+//   float* sum_row(int32_t r, float* stash, int64_t d) const;  where run r is summed
+//   template <int V> void apply_row(int32_t r, float* row, RowStats st, int64_t d) const;
+// apply_row is called by one whole warp for one row r >= 0, its summed
+// gradient in `row` (lane l reads the columns of its chunks, which it wrote
+// itself in pass 1; pass 2 synchronises its block first); it may write over
+// `row`.
+
+// Pass 1 of the general walk: the warp's span; its complete runs one at a
+// time (with `split`, every split-th of them).
+template <typename G, int V, bool B16, typename E>
+__global__ void __launch_bounds__(kThreads) span_runs_general_kernel(const Walk p, const E epi) {
+  __shared__ int s_ids[kWarps][kWindow + 1];
+  __shared__ int s_src[kWarps][kWindow];
+  const int wib = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t gw = static_cast<int64_t>(blockIdx.x) * kWarps + wib;
+  const int64_t w = gw / p.split;
+  const int share = gw & (p.split - 1);
+  if (w >= p.n_spans) return;  // uniform across the warp
+  int* ids = s_ids[wib];
+  int* src = s_src[wib];
+  const Span sp = read_span(p, w, ids, src);
+  const int64_t d = p.d;
+  if (B16) {  // a long run is named for pass 2, which sums it whole
+    if (share == 0 && lane == 0) p.part_id[2 * w] = sp.long_run ? ids[sp.last] : -1;
+  } else if (share == 0) {  // the pieces of long runs: the span's first warp
+    if (lane == 0) {
+      p.part_id[2 * w] = sp.long_run ? ids[sp.last] : -1;
+      p.part_id[2 * w + 1] = sp.later_piece ? ids[0] : -1;
+    }
+    if (sp.later_piece) {
+      const unsigned rest = sp.lo & ~1u;
+      sum_run<G, V, false>(p, src, 0, rest ? __ffs(rest) - 1 : kSpan, p.part + (2 * w + 1) * d);
+    }
+    if (sp.long_run) sum_run<G, V, false>(p, src, sp.last, kWindow, p.part + 2 * w * d);
+  }
+  unsigned todo = sp.long_run ? sp.starts & ~(1u << sp.last) : sp.starts;
+  if (p.split > 1) {  // this warp's runs: set bits i with i % split == share
+    unsigned keep = 0;
+    int k = 0;
+    for (unsigned rest = todo; rest; rest &= rest - 1, ++k)
+      if ((k & (p.split - 1)) == share) keep |= rest & (0u - rest);
+    todo = keep;
+  }
+  float* stash = p.stash + gw * d;
+  for (unsigned rest = todo; rest; rest &= rest - 1) {
+    const int b = __ffs(rest) - 1;
+    const uint64_t after = sp.change >> (b + 1);
+    const int e = after ? b + __ffsll(static_cast<long long>(after)) : kWindow;
+    const int32_t r = ids[b];
+    float* row = epi.sum_row(r, stash, d);
+    const RowStats st = sum_run<G, V, B16>(p, src, b, e, row);
+    epi.template apply_row<V>(r, row, st, d);
+  }
+}
+
+// Pass 2 of the general walk: each long run of the block's spans in turn,
+// the whole block; thread t adds the T pieces in segment order for the
+// columns (t + 256 k) V, over the first piece's row; then warp 0 applies
+// the epilogue to that row.
+template <int V, typename E>
+__global__ void __launch_bounds__(kThreads) long_runs_general_kernel(const Walk p, const E epi) {
+  __shared__ unsigned s_heads;
+  const unsigned heads = block_heads(p, &s_heads);
+  if (heads == 0) return;  // uniform across the block
+  const int64_t d = p.d;
+  for (unsigned rest = heads; rest; rest &= rest - 1) {
+    const int64_t w0 = static_cast<int64_t>(blockIdx.x) * 32 + __ffs(rest) - 1;
+    const int32_t r = p.part_id[2 * w0];
+    int64_t later = 0;  // the later pieces name r in consecutive spans from w0 + 2
+    for (;;) {
+      const int64_t w = w0 + 2 + later + threadIdx.x;
+      const int n = __syncthreads_count(w < p.n_spans && p.part_id[2 * w + 1] == r);
+      later += n;
+      if (n < kThreads) break;
+    }
+    const int64_t n_pieces = 1 + later;
+    float* row = p.part + 2 * w0 * d;  // piece 0: each thread reads its columns, then writes them
+    for (int64_t col = static_cast<int64_t>(threadIdx.x) * V; col < d; col += kThreads * V) {
+      float s[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) s[i] = 0.f;
+      int64_t j = 0;
+      for (; j + 4 <= n_pieces; j += 4) {
+        float x[4][V];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) load_f32<V>(piece(p, w0, j + u) + col, x[u]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int i = 0; i < V; ++i) s[i] += x[u][i];
+      }
+      for (; j < n_pieces; ++j) {
+        float x[V];
+        load_f32<V>(piece(p, w0, j) + col, x);
+#pragma unroll
+        for (int i = 0; i < V; ++i) s[i] += x[i];
+      }
+      store_f32<V>(row + col, s);
+    }
+    __syncthreads();  // the row is whole
+    if (threadIdx.x < 32) epi.template apply_row<V>(r, row, row_stats<V>(row, d), d);
+  }
+}
+
+// Pass 2 of the general walk in the bf16 buffer's mode: each long run of the
+// block's spans in turn, the whole block; for each group of columns (thread
+// t: (t + 256 c) V for c < kC, from the group's first), the run's positions
+// 256 at a time, their source rows staged in shared memory (the run's rows
+// are a prefix of each stage: the ids are sorted), and thread t adds its
+// columns of each row in position order, rounding to bf16 after every add,
+// from 0; the sum goes to the run's part row, then warp 0 applies the
+// epilogue to it. The adds are one dependent chain a column, so a thread
+// keeps kU rows' loads in flight ahead of them.
+template <typename G, int V, typename E>
+__global__ void __launch_bounds__(kThreads) long_runs_b16_general_kernel(const Walk p, const E epi) {
+  using VT = typename Vec<G, V>::T;
+  constexpr int kC = 1, kU = 16;  // chunks a thread holds; rows whose loads go out together
+  __shared__ int s_src[kThreads];
+  __shared__ unsigned s_heads;
+  __shared__ int64_t s_start;
+  const unsigned heads = block_heads(p, &s_heads);
+  if (heads == 0) return;  // uniform across the block
+  const int lane = threadIdx.x & 31;
+  const int64_t d = p.d;
+  const G* grads = static_cast<const G*>(p.grads);
+  for (unsigned rest = heads; rest; rest &= rest - 1) {
+    const int64_t w0 = static_cast<int64_t>(blockIdx.x) * 32 + __ffs(rest) - 1;
+    const int32_t r = p.part_id[2 * w0];
+    if (threadIdx.x < 32) {  // the run starts at its first position in span w0
+      const int64_t pos = w0 * kSpan + lane;
+      const unsigned in_run = __ballot_sync(kFullWarp, pos < p.m && __ldg(p.ids + pos) == r);
+      if (lane == 0) s_start = w0 * kSpan + __ffs(in_run) - 1;
+    }
+    __syncthreads();
+    const int64_t start = s_start;
+    float* row = p.part + 2 * w0 * d;  // not used by this mode's pass 1
+    for (int64_t c0 = 0; c0 < d; c0 += static_cast<int64_t>(kThreads) * V * kC) {
+      int64_t col[kC];
+      float acc[kC][V];
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        col[c] = c0 + (static_cast<int64_t>(c) * kThreads + threadIdx.x) * V;
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[c][i] = 0.f;
+      }
+      for (int64_t pos0 = start;; pos0 += kThreads) {
+        const int64_t pos = pos0 + threadIdx.x;
+        const bool in_run = pos < p.m && __ldg(p.ids + pos) == r;
+        const int sr = in_run ? (p.perm != nullptr ? __ldg(p.perm + pos) : static_cast<int>(pos)) : 0;
+        __syncthreads();  // the stage before is read
+        s_src[threadIdx.x] = sr;
+        const int n = __syncthreads_count(in_run);
+        int j = 0;
+        for (; j + kU <= n; j += kU) {
+          VT v[kU][kC];
+#pragma unroll
+          for (int u = 0; u < kU; ++u) {
+            const G* g = grads + static_cast<int64_t>(s_src[j + u]) * d;
+#pragma unroll
+            for (int c = 0; c < kC; ++c)
+              if (col[c] < d) v[u][c] = __ldg(reinterpret_cast<const VT*>(g + col[c]));
+          }
+#pragma unroll
+          for (int u = 0; u < kU; ++u)
+#pragma unroll
+            for (int c = 0; c < kC; ++c)
+              if (col[c] < d) add_round(acc[c], v[u][c]);
+        }
+        for (; j < n; ++j) {
+          const G* g = grads + static_cast<int64_t>(s_src[j]) * d;
+#pragma unroll
+          for (int c = 0; c < kC; ++c)
+            if (col[c] < d) add_round(acc[c], __ldg(reinterpret_cast<const VT*>(g + col[c])));
+        }
+        if (n < kThreads) break;
+      }
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+        if (col[c] < d) store_f32<V>(row + col[c], acc[c]);
+    }
+    __syncthreads();  // the row is whole
+    if (threadIdx.x < 32) epi.template apply_row<V>(r, row, row_stats<V>(row, d), d);
+    __syncthreads();  // s_start and s_src are free for the next run
+  }
+}
+
+// Both passes of the general walk; B16 for the bf16 buffer. Returns a
+// cudaError_t code.
+template <typename G, int V, bool B16, typename E>
+int launch_general(const Walk& p, const E& epi, cudaStream_t s) {
+  const unsigned blocks1 = static_cast<unsigned>((p.n_spans * p.split + kWarps - 1) / kWarps);
+  span_runs_general_kernel<G, V, B16, E><<<blocks1, kThreads, 0, s>>>(p, epi);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks2 = static_cast<unsigned>((p.n_spans + 31) / 32);
+  if constexpr (B16)
+    long_runs_b16_general_kernel<G, V, E><<<blocks2, kThreads, 0, s>>>(p, epi);
+  else
+    long_runs_general_kernel<V, E><<<blocks2, kThreads, 0, s>>>(p, epi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// launch_general with the buffer's dtype code (kF32 or kBF16) as the flag.
+template <typename G, int V, typename E>
+int launch_general(const Walk& p, const E& epi, int buffer_dtype, cudaStream_t s) {
+  if (buffer_dtype == kF32) return launch_general<G, V, false>(p, epi, s);
+  if (buffer_dtype == kBF16) return launch_general<G, V, true>(p, epi, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename G, int V, int NC, bool B16, typename E>
 int launch_passes(const Walk& p, const E& epi, cudaStream_t s) {
   const unsigned blocks1 = static_cast<unsigned>((p.n_spans * p.split + kWarps - 1) / kWarps);
@@ -782,13 +1182,22 @@ inline bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) % bytes) == 0;
 }
 
+// Whether the half-warp walk takes D when the caller's pointers allow its
+// loads; every other D takes the general walk.
+inline bool half_warp_dim(int64_t d) { return d % 4 == 0 && d <= kMaxD; }
+
 // The walk over M sorted ids, or false when M, D or the scratch (n_slots
-// rows of D f32, 16-byte aligned) is outside what the kernels take.
+// rows of D f32, 16-byte aligned: 2 * n_spans, and for the general walk one
+// more a warp of its pass 1, n_spans * split) is outside what the kernels
+// take.
 inline bool make_walk(const void* ids, const void* grads, const void* perm, void* part,
                       void* part_id, int64_t n_slots, int64_t n_rows, int64_t d, int64_t m,
-                      Walk* p) {
+                      bool general, Walk* p) {
   const int64_t n_spans = (m + kSpan - 1) / kSpan;
-  if (d <= 0 || d % 4 != 0 || d > kMaxD || m > 0x7fffffffLL || n_slots < 2 * n_spans ||
+  int split = 1;
+  while (split < 16 && n_spans * split < 2048) split *= 2;
+  const int64_t rows = 2 * n_spans + (general ? n_spans * split : 0);
+  if (d <= 0 || (!general && !half_warp_dim(d)) || m > 0x7fffffffLL || n_slots < rows ||
       !aligned(part, 16))
     return false;
   p->ids = static_cast<const int32_t*>(ids);
@@ -796,12 +1205,12 @@ inline bool make_walk(const void* ids, const void* grads, const void* perm, void
   p->perm = static_cast<const int32_t*>(perm);
   p->part = static_cast<float*>(part);
   p->part_id = static_cast<int32_t*>(part_id);
+  p->stash = general ? p->part + 2 * n_spans * d : nullptr;
   p->n_rows = n_rows;
   p->d = d;
   p->m = m;
   p->n_spans = n_spans;
-  p->split = 1;
-  while (p->split < 16 && n_spans * p->split < 2048) p->split *= 2;
+  p->split = split;
   return true;
 }
 

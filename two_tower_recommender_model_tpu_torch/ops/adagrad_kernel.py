@@ -42,7 +42,11 @@ Both kernels (and the int8 one of `quantized_kernel.py`) walk the sorted ids
 in spans of `SPAN` positions (`csrc/sorted_runs.cuh`): a run longer than a
 warp's window is summed in pieces by many warps and finished by a second
 pass, which needs the scratch of `span_scratch`. A wrapper call launches both
-passes and counts one launch.
+passes and counts one launch. Every D >= 1 runs on the card: the kernels
+take D % 4 == 0 up to 512 with the pointers aligned for four-element
+accesses on the half-warp walk, which holds a run's row in registers, and
+every other D or alignment on the general walk, which sums a run a column
+slice at a time into a scratch row a warp.
 """
 
 from __future__ import annotations
@@ -54,18 +58,29 @@ import torch
 from two_tower_recommender_model_tpu_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # also the buffer codes
-MAX_DIM = 512  # the kernels keep a row's gradient in registers, across 16 lanes
 SPAN = 32  # sorted positions per warp of the span walk (`kSpan` in csrc/sorted_runs.cuh)
 
 
+def span_split(n_spans: int) -> int:
+    """Warps a span in pass 1 (`make_walk` in csrc/sorted_runs.cuh)."""
+    split = 1
+    while split < 16 and n_spans * split < 2048:
+        split *= 2
+    return split
+
+
 def span_scratch(m: int, d: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The span walk's scratch for M sorted ids of D columns: two slots a
-    span (a long run's first piece, a later one), `[slots, D]` f32 rows and
-    `[slots]` int32 ids. Allocated on the current stream, so a CUDA graph
-    captures it; the kernels write every slot they read."""
-    slots = 2 * -(-m // SPAN)
-    return (torch.empty((slots, d), dtype=torch.float32, device=device),
-            torch.empty(slots, dtype=torch.int32, device=device))
+    """The span walk's scratch for M sorted ids of D columns: `[rows, D]` f32
+    and `[2 * spans]` int32 ids, two rows a span (a long run's first piece,
+    a later one) and, for the general walk, one row a warp of its pass 1
+    (where a run is summed; spans x `span_split` rows, at most 16 a span: a
+    few MB, so it is there whichever walk the kernel takes for D and the
+    pointers). Allocated on the current stream, so a CUDA graph captures
+    it; the kernels write every row they read."""
+    spans = -(-m // SPAN)
+    return (torch.empty((2 * spans + spans * span_split(spans), d), dtype=torch.float32,
+                        device=device),
+            torch.empty(2 * spans, dtype=torch.int32, device=device))
 
 
 def _check(table, acc, ids, grads, perm) -> None:
@@ -200,13 +215,6 @@ class RowwiseAdagrad(_build.KernelLibrary):
         if table.device.type != "cuda":
             raise ValueError(f"rowwise_adagrad runs on cpu or cuda tensors, got {table.device}")
         n, d = table.shape
-        if d % 4 or d > MAX_DIM:
-            raise ValueError(f"the CUDA kernel needs D % 4 == 0 and D <= {MAX_DIM}, got D={d}")
-        table_align = 16 if table.dtype == torch.float32 else 8
-        grad_align = 16 if grads.dtype == torch.float32 else 8
-        if table.data_ptr() % table_align or grads.data_ptr() % grad_align:
-            raise ValueError(f"the CUDA kernel needs a {table_align}-byte aligned table and "
-                             f"{grad_align}-byte aligned grads")
         m = ids.shape[0]
         if n and m:
             part, part_id = span_scratch(m, d, table.device)
@@ -275,11 +283,6 @@ class BlockSortedAggregate(_build.KernelLibrary):
             raise ValueError(f"block_sorted_aggregate runs on cpu or cuda tensors, got "
                              f"{grads.device}")
         d = grads.shape[1]
-        if d % 4 or d > MAX_DIM:
-            raise ValueError(f"the CUDA kernel needs D % 4 == 0 and D <= {MAX_DIM}, got D={d}")
-        grad_align = 16 if grads.dtype == torch.float32 else 8
-        if grads.data_ptr() % grad_align:
-            raise ValueError(f"the CUDA kernel needs {grad_align}-byte aligned grads")
         out = torch.zeros((table_rows, d), dtype=torch.float32, device=grads.device)
         if out.numel() and m:
             part, part_id = span_scratch(m, d, grads.device)

@@ -30,10 +30,11 @@ on CUDA tensors; `perm` makes the kernel read `grads[perm[j]]`. With
 buffer) each run is summed in position order with a rounding to bf16 after
 every add, and every named row is updated, also one whose sum is zero.
 
-Each wrapper launches its hand-written kernel on CUDA tensors, takes its
-plain version (`*_reference`) only for tensors that lie on the CPU, raises
-`ValueError` for a shape the kernel does not take (D % 4 != 0 or D > 512),
-and counts its kernel launches in `.launches`.
+Each wrapper launches its hand-written kernel on CUDA tensors at any D
+(a narrow D or alignment takes the kernel's scalar path: the gather's one
+int8 a lane, the Adagrad's general walk), takes its plain version
+(`*_reference`) only for tensors that lie on the CPU, and counts its kernel
+launches in `.launches`.
 """
 
 from __future__ import annotations
@@ -51,7 +52,6 @@ from two_tower_recommender_model_tpu_torch.ops.adagrad_kernel import (
 from two_tower_recommender_model_tpu_torch.ops.gather_plan import GatherKernel, GatherPlan
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_DIM = 512  # both kernels hold a row in registers
 
 
 def _check_table(values: torch.Tensor, scales: torch.Tensor) -> None:
@@ -59,14 +59,6 @@ def _check_table(values: torch.Tensor, scales: torch.Tensor) -> None:
         raise ValueError(f"values must be [N, D] int8, got {tuple(values.shape)} {values.dtype}")
     if scales.shape != (values.shape[0],) or scales.dtype != torch.float32:
         raise ValueError(f"scales must be [N] float32, got {tuple(scales.shape)} {scales.dtype}")
-
-
-def _check_cuda_dim(values: torch.Tensor) -> None:
-    d = values.shape[1]
-    if d % 4 or d > MAX_DIM:
-        raise ValueError(f"the CUDA kernel needs D % 4 == 0 and D <= {MAX_DIM}, got D={d}")
-    if values.data_ptr() % 4:
-        raise ValueError("the CUDA kernel needs 4-byte aligned values")
 
 
 def _require(tensors: list[tuple[str, torch.Tensor]]) -> None:
@@ -146,7 +138,6 @@ class QuantizedPooledGather(GatherKernel):
         if values.device.type != "cuda":
             raise ValueError(f"quantized_pooled_gather runs on cpu or cuda tensors, got "
                              f"{values.device}")
-        _check_cuda_dim(values)
         out = torch.empty((ids.shape[0], values.shape[1]), dtype=out_dtype, device=values.device)
         if out.numel():
             self._launch(out, values, scales, ids, w)
@@ -256,10 +247,6 @@ class QuantizedRowwiseAdagrad(_build.KernelLibrary):
         if values.device.type != "cuda":
             raise ValueError(f"quantized_rowwise_adagrad_fused runs on cpu or cuda tensors, got "
                              f"{values.device}")
-        _check_cuda_dim(values)
-        grad_align = 16 if grads.dtype == torch.float32 else 8
-        if grads.data_ptr() % grad_align:
-            raise ValueError(f"the CUDA kernel needs {grad_align}-byte aligned grads")
         if values.numel() and m:
             part, part_id = span_scratch(m, d, values.device)
             self.launch(values.device, values.data_ptr(), scales.data_ptr(), acc.data_ptr(),

@@ -16,8 +16,10 @@ of equal ids, distinct by construction; with distinct ids the result is
 deterministic and is one f32 subtraction per element.
 
 `row_subtract` launches the hand-written kernel of `csrc/row_subtract.cu` on
-CUDA tensors and takes `row_subtract_reference` only for tensors that lie on
-the CPU. It counts its kernel launches in `row_subtract.launches`.
+CUDA tensors at any D (16-byte accesses where D % 4 == 0 and the pointers
+allow them, else one element a lane) and takes `row_subtract_reference` only
+for tensors that lie on the CPU. It counts its kernel launches in
+`row_subtract.launches`.
 """
 
 from __future__ import annotations
@@ -71,10 +73,6 @@ class RowSubtract(_build.KernelLibrary):
             return row_subtract_reference(table, ids, updates)
         if table.device.type != "cuda":
             raise ValueError(f"row_subtract runs on cpu or cuda tensors, got {table.device}")
-        if d % 4:
-            raise ValueError(f"the CUDA kernel needs D % 4 == 0, got D={d}")
-        if table.data_ptr() % 16 or updates.data_ptr() % 16:
-            raise ValueError("the CUDA kernel needs a 16-byte aligned table and updates")
         if table.numel() and ids.numel():
             self.launch(table.device, table.data_ptr(), ids.data_ptr(), updates.data_ptr(), n, d,
                         ids.shape[0])

@@ -44,10 +44,11 @@ import torch.nn.functional as F
 from two_tower_recommender_model_tpu_torch.ops import _build
 
 NEG = -1e9
-# The reference's cap on D. Above 128 kernel #9 sums a score over D in slices
-# of 64, and #10 / #11 are a p kernel and two products (`csrc/softmax_lse.cu`,
-# "wide D")
+# The reference's cap on D. Above 128 the kernels run on one TMA + wgmma ring:
+# #9 over column chunks with a merge, #10 / #11 a p kernel and two products
+# (`csrc/softmax_lse.cu`, "wide D")
 MAX_DIM = 2048
+FWD_CHUNKS = 32  # #9's most column chunks at a wide D (`fwd_chunks`)
 _PLAIN_BLOCK = 1 << 24  # most score elements the plain versions hold at once
 # The wide backward's workspace: the bf16 p of a panel of q rows against every
 # column, at most this many bytes (and at least 128 rows)
@@ -243,25 +244,43 @@ _PTR, _I64 = ctypes.c_void_p, ctypes.c_int64
 _TAIL = [_I64, _I64, _I64, _I64, ctypes.c_float]  # bq, bk, dp, row_offset, 1/T
 
 
+def fwd_chunks(bk: int) -> int:
+    """The column chunks of #9 at a wide D: up to FWD_CHUNKS chunks of whole
+    128-column tiles. A function of BK alone, so a stripe's rows meet the
+    same chunks (and get the same lse bits) as the square's, and enough
+    chunks that a stripe of a few row tiles still fills the card."""
+    return min(bk // 128, FWD_CHUNKS)
+
+
 class LseForward(_build.KernelLibrary):
     """Kernel #9's wrapper: lse [BQ] f32 of the adjusted scores. Checks its
-    inputs, allocates the output and launches on the current stream (no
-    sync). `launches` counts kernel launches and nothing else: a CPU call
+    inputs, allocates the output (and at a padded D above 128 the chunks'
+    (m, l) workspace, `[fwd_chunks(BK), BQ, 2]` f32) and launches on the
+    current stream (no sync). `launches` counts kernel launches and nothing
+    else (the wide route's chunk and merge launches count one): a CPU call
     takes `lse_forward_reference` and does not count."""
 
     def __init__(self):
         super().__init__("softmax_lse_fwd", "ttrm_softmax_lse_fwd", [_PTR] * 6 + _TAIL,
-                         source="softmax_lse.cu")
+                         source="softmax_lse.cu",
+                         extra={"ttrm_softmax_lse_fwd_wide": [_PTR] * 7 + [_I64] + _TAIL})
 
     def __call__(self, q16, c16, adj, row_ids, col_ids, row_offset: int, inv_t: float):
         _check(q16, c16, adj, row_ids, col_ids, row_offset)
         if q16.device.type == "cpu":
             return lse_forward_reference(q16, c16, adj, row_ids, col_ids, row_offset, inv_t)
         qp, cp = _pad_dim(q16), _pad_dim(c16)
-        bq, bk = qp.shape[0], cp.shape[0]
+        (bq, dp), bk = qp.shape, cp.shape[0]
         lse = torch.empty(bq, dtype=torch.float32, device=qp.device)
-        self.launch(qp.device, qp.data_ptr(), cp.data_ptr(), _ptr(adj), _ptr(row_ids),
-                    _ptr(col_ids), lse.data_ptr(), bq, bk, qp.shape[1], row_offset, inv_t)
+        ptrs = (qp.data_ptr(), cp.data_ptr(), _ptr(adj), _ptr(row_ids), _ptr(col_ids),
+                lse.data_ptr())
+        if dp > 128:
+            chunks = fwd_chunks(bk)
+            part = torch.empty((chunks, bq, 2), dtype=torch.float32, device=qp.device)
+            self.launch(qp.device, *ptrs, part.data_ptr(), chunks, bq, bk, dp, row_offset, inv_t,
+                        entry="ttrm_softmax_lse_fwd_wide")
+        else:
+            self.launch(qp.device, *ptrs, bq, bk, dp, row_offset, inv_t)
         return lse
 
 
