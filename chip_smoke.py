@@ -3,7 +3,8 @@ against its plain PyTorch version, serve the full-width flagship model over
 HTTP, train it with BCE (f32, int8 and bf16 tables) and with the in-batch
 sampled softmax, eagerly and as CUDA graphs of 16 steps, fed packed and
 compact batches, with the bf16 aggregation buffer, serve the int8- and the
-bf16-trained model, train the concat-MLP ranker, several seeds and sweeps
+bf16-trained model, train with bf16 parameters, train the concat-MLP
+ranker (f32 and bf16), several seeds and sweeps
 over spawned workers, run the gather
 probe, train the small learnable models to a target AUROC and a target
 recall@10, run the Instacart pipeline (replica -> prepare -> train through
@@ -350,6 +351,22 @@ without a card. Phases (any failure raises and exits non-zero):
    the device ms of the route's gather, its sort and its permute beside the
    plain gather's on the 105.6 MB user table and the item table; then an
    int8 user table (#5 on the route): 3 eager steps against False;
+26f. bf16 parameters and the native reader: `[kernel]` #3's bf16 mode
+   (`buffer_dtype=bf16`, a bf16 table's gradient) at the ranker's 8,192
+   slots with the device sort's permutation into bf16 [206,209, 128] and
+   [49,688, 128] and on 262,144 rank^-1 item ids: bit for bit its plain
+   version, two launches too, its ms beside the f32 mode's;
+   `[train-bf16param]` the flagship at `param_dtype="bfloat16"` (bf16
+   tables and towers under `OptaxAdam`, bf16 compute, batch 262,144,
+   `block_sorted_kernel="off"`): 2 macros of 16 through
+   `train_one_epoch_packed` counted (#1, #4, #8 and tower_fwd twice a
+   step), the state's addresses kept and Adam's moments moved in place, bit
+   for bit 32 eager steps, one step against the host CPU's, the replayed
+   ms; `[ranker-bf16]` `[ranker]` with bf16 tables and MLP (2 launches of
+   #1 and 2 of #3's bf16 mode a step; the tables after one step bit for bit
+   the plain route's on the card, the host CPU's within the CPU tests'
+   bars); `[native-reader]` the smoke replica's compressed split through
+   the native C++ reader and numpy, bit for bit, their seconds;
 27. with --profile, torch.profiler traces of the serving calls, of the
    three train steps and of a graph replay: device busy time, idle share and
    the largest device items, the gather kernel's (#1 or #5) device ms a call
@@ -542,6 +559,26 @@ OVERRIDE_STEPS = 3  # steps per update route in [train-override]
 PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 # exps: the special-function units' 16 a clock per SM, at the H100 SXM's 1,980 MHz boost clock
 EXP_PER_CLOCK_PER_SM, EXP_CLOCK = 16, 1.98e9
+class ModeCount:
+    """A kernel mode's entry in KERNELS: its wrapper's library, and the
+    wrapper's count of that mode's launches (e.g. `block_sorted_aggregate.
+    bf16_launches`), read and reset as a wrapper's `launches` is."""
+
+    def __init__(self, wrapper, attr: str):
+        self.wrapper, self.attr = wrapper, attr
+
+    def load(self):
+        return self.wrapper.load()
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.wrapper, self.attr)
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        setattr(self.wrapper, self.attr, n)
+
+
 KERNELS = {  # wrapper name -> (wrapper, source, the TPU kernel it replaces)
     "pooled_gather": (pooled_gather, "two_tower_recommender_model_tpu_torch/csrc/pooled_gather.cu",
                       "two_tower_recommender_model_tpu/ops/pallas_embedding.py:40"),
@@ -573,6 +610,11 @@ KERNELS = {  # wrapper name -> (wrapper, source, the TPU kernel it replaces)
     "block_sorted_aggregate": (block_sorted_aggregate,
                                "two_tower_recommender_model_tpu_torch/csrc/rowwise_adagrad.cu",
                                "two_tower_recommender_model_tpu/ops/block_sorted.py:156"),
+    # #3's bf16 mode (a bf16 table's gradient: the ranker at param_dtype="bfloat16"); its
+    # launches are also block_sorted_aggregate's
+    "block_sorted_aggregate_bf16": (ModeCount(block_sorted_aggregate, "bf16_launches"),
+                                    "two_tower_recommender_model_tpu_torch/csrc/rowwise_adagrad.cu",
+                                    "two_tower_recommender_model_tpu/ops/block_sorted.py:156"),
     "row_subtract": (row_subtract, "two_tower_recommender_model_tpu_torch/csrc/row_subtract.cu",
                      "two_tower_recommender_model_tpu/ops/pallas_update.py:35"),
     "probe_block_sums": (probe_block_sums,
@@ -3104,22 +3146,31 @@ def gate_flip_rows(state, pb) -> tuple[dict[str, torch.Tensor], int]:
     within the f32 summation-order noise of 0 can open its gate on one side
     only, and the two then back-propagate through different units, so
     those samples' rows take another update by the two products' orders,
-    not by a kernel (an f32 step, `apply_mlp`'s matmul, bias, ReLU)."""
+    not by a kernel (an f32 step, `apply_mlp`'s matmul, bias, ReLU). Under
+    bf16 compute each pre-activation is the step's: the product rounded to
+    bf16 (`_mm`), the bias added in bf16, where a sum on a rounding tie
+    against -b decides either way; the card's fused tower decides its
+    output's gates in tower_fwd (ties summed again in k order), the host's
+    plain route by its own sums."""
     model, cfg = state.model, state.model.cfg
+    dt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     batch = unpack_batch(pb, cfg, pack_label=True)
     pooled = two_tower_pooled(model.tables, batch, cfg)
     flipped = torch.zeros(batch.labels.shape[0], dtype=torch.bool, device=batch.labels.device)
     for mlp, tower in ((model.query_tower, cfg.query_tower),
                        (model.candidate_tower, cfg.candidate_tower)):
-        x = torch.cat([pooled[f] for f in tower.features], dim=1).float()
+        x = torch.cat([pooled[f] for f in tower.features], dim=1).to(dt)
         xc, xh = x, x.cpu()
+        # the card's output gates under bf16 compute: the fused forward's (tower_fwd)
+        fused = mlp(x, dt, fused_backward=True) > 0 if dt == torch.bfloat16 else None
         n = len(mlp.layers)
         for i, layer in enumerate(mlp.layers):
-            w, b = layer.weight.detach().float(), layer.bias.detach().float()
-            zc = torch.matmul(xc, w.T) + b
-            zh = torch.matmul(xh, w.cpu().T) + b.cpu()
+            w, b = layer.weight.detach().to(dt), layer.bias.detach().to(dt)
+            zc = _mm(xc, w.T) + b
+            zh = _mm(xh, w.cpu().T) + b.cpu()
             if i < n - 1 or mlp.final_activation:
-                flipped |= ((zc > 0).cpu() != (zh > 0)).any(dim=1).to(flipped.device)
+                card = fused if fused is not None and i == n - 1 else zc > 0
+                flipped |= (card.cpu() != (zh > 0)).any(dim=1).to(flipped.device)
                 zc, zh = torch.relu(zc), torch.relu(zh)
             xc, xh = zc, zh
     rows = {t.name: torch.zeros(t.num_embeddings, dtype=torch.bool, device=flipped.device)
@@ -3131,9 +3182,13 @@ def gate_flip_rows(state, pb) -> tuple[dict[str, torch.Tensor], int]:
     return rows, int(flipped.sum())
 
 
+BF16_STORE_APART = 1e-3  # check_against_host(bf16_store=True): the share of values that may differ
+
+
 def check_against_host(tag, state, host_cfg, tcfg, dense_opt, train_step, pb,
                        strict: bool = True,
-                       exempt: dict[str, torch.Tensor] | None = None) -> dict[str, float]:
+                       exempt: dict[str, torch.Tensor] | None = None,
+                       bf16_store: bool = False) -> dict[str, float]:
     """One step from a copy of the state on the card, against the same step
     on the host CPU, where every wrapper takes its plain version. Two bf16
     ulps of each quantity's largest magnitude (2^-7): under bf16 compute the
@@ -3145,7 +3200,13 @@ def check_against_host(tag, state, host_cfg, tcfg, dense_opt, train_step, pb,
     equal. Returns each quantity's margin, its largest difference over its
     bound (at most 1 to pass); `strict=False` measures without failing.
     `exempt` (per table, a [N] bool mask: `gate_flip_rows`) takes rows out of
-    the update's bound, counted in the log; every other check is as above."""
+    the update's bound, counted in the log; every other check is as above.
+    `bf16_store` gives a bf16 table's rows one bf16 ulp of each stored value
+    on top, as an int8 table's get a quantization step: the updated value
+    rounds to bf16 once, and one on a rounding boundary lands on either
+    side. Such flips are rare, so at most BF16_STORE_APART of the table's
+    values may differ at all: a store that rounds another way (truncates,
+    say) moves about half of the updated values by an ulp and fails."""
     card = state.copy()
     host = state.copy("cpu")
     host.model.cfg = host_cfg
@@ -3201,6 +3262,23 @@ def check_against_host(tag, state, host_cfg, tcfg, dense_opt, train_step, pb,
                                      "one quantization step")
             errs[f"{name} values that differ"] = (
                 (got_t.values.cpu() != want_t.values).sum().item() / got_t.values.numel())
+        elif bf16_store and got_t.dtype == torch.bfloat16:
+            big = torch.maximum(got.abs(), want.abs()).clamp(min=2.0 ** -126)
+            ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+            diff = (got - want).abs()
+            margin = (diff / (rel * (want - t0_).abs().max() + ulp)).max().item()
+            apart = (got != want).float().mean().item()
+            errs[f"{name} update"], margins[f"{name} update"] = diff.max().item(), margin
+            errs[f"{name} values that differ"] = apart
+            margins[f"{name} values that differ"] = apart / BF16_STORE_APART
+            if strict and margin > 1:
+                raise AssertionError(f"{tag} host check {name}: rows differ by "
+                                     f"{diff.max().item()!r}, more than 2^-7 x max|update| plus "
+                                     "one bf16 ulp of the value")
+            if strict and apart > BF16_STORE_APART:
+                raise AssertionError(f"{tag} host check {name}: {apart!r} of the values differ, "
+                                     f"more than {BF16_STORE_APART!r}: not rounding boundaries "
+                                     "alone")
         else:
             rel_held(f"{name} update", got - t0_, want - t0_)
         rel_held(f"{name} acc", card.adagrad_acc[name].cpu(), host.adagrad_acc[name])
@@ -5921,6 +5999,213 @@ def phase_aggregate_perm_kernel(dev: torch.device) -> None:
             "(zeros.index_add_ on int64 live ids, unsorted)")
 
 
+def phase_aggregate_bf16_kernel(dev: torch.device) -> dict:
+    """`[kernel]` #3's bf16 mode (`buffer_dtype=bf16`: a bf16 table's
+    gradient, each id's rows summed in position order from bf16 zero with a
+    rounding after every add) at `[ranker-bf16]`'s shapes: one feature's
+    8,192 slots (unsorted, 2% dead) sorted stably on the card, f32 slot
+    rows, into bf16 [206,209, 128] and [49,688, 128]; and 262,144 item ids
+    drawn as rank^-1 (a run of ~21,800 positions, which pass 2 walks whole)
+    into bf16 [49,688, 128]. Bit for bit the plain version on the card, two
+    launches bit for bit; kernel, f32-mode and plain ms (the plain version
+    PLAIN_REPS runs on the skewed ids: it loops over the longest run), the
+    bound by bytes, and the library's one call: a bf16 `index_add_` on the
+    live ids and the rows in sorted order, prepared for it (it rounds after
+    every add too, in an order of its own; how far it lands from the plain
+    version is printed). Returns the user-table case's stats, the ranker's
+    main path."""
+    rng = np.random.default_rng(29)
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
+    cases = []
+    for table, n in (("user", NUM_USERS), ("item", NUM_ITEMS)):
+        ids = rng.integers(0, n, RANKER_BATCH)
+        ids[rng.random(RANKER_BATCH) < 0.02] = n  # missing ids: the sentinel
+        sids, perm = torch.sort(torch.from_numpy(ids.astype(np.int32)).to(dev), stable=True)
+        cases.append((f"the ranker's {table} table", n, sids, perm.to(torch.int32), REPS))
+    skewed, perm = skewed_item_ids(np.random.default_rng(7), TRAIN_BATCH, dev)
+    cases.append(("item ids drawn as rank^-1", NUM_ITEMS, skewed, perm, PLAIN_REPS))
+    out = None
+    for label, n, sids, perm, plain_reps in cases:
+        m = sids.shape[0]
+        rows = torch.from_numpy(rng.normal(size=(m, DIM)).astype(np.float32)).to(dev)
+
+        def run(fn):
+            return fn(n, sids, rows, perm, buffer_dtype=BF16)
+
+        got, again = run(block_sorted_aggregate), run(block_sorted_aggregate)
+        want = run(block_sorted_aggregate_reference)
+        torch.cuda.synchronize()
+        label = f"block_sorted_aggregate bf16 mode, {label}: {m} slots with perm into bf16 [{n}, {DIM}]"
+        if got.dtype != BF16 or not bitwise_equal(got, again):
+            raise AssertionError(f"[kernel] {label}: two launches differ")
+        if not bitwise_equal(got, want):
+            raise AssertionError(f"[kernel] {label}: not the plain version's bits (max abs diff "
+                                 f"{(got.float() - want.float()).abs().max().item()!r})")
+        live = (sids >= 0) & (sids < n)
+        ids64, rows16 = sids[live].long(), rows[perm.long()[live]].to(BF16)
+
+        def aggregate_library():  # on ids and rows prepared for it (int64, bf16, live only)
+            return torch.zeros((n, DIM), dtype=BF16, device=dev).index_add_(0, ids64, rows16)
+
+        lib_out = aggregate_library()
+        lib_share = (lib_out != want).float().mean().item()
+        lib_diff = (lib_out.float() - want.float()).abs().max().item()
+        del lib_out
+        del again, want
+        ms = median_ms(lambda: run(block_sorted_aggregate), flush)
+        f32_ms = median_ms(lambda: block_sorted_aggregate(n, sids, rows, perm), flush)
+        plain_ms = median_ms(lambda: run(block_sorted_aggregate_reference), flush, reps=plain_reps)
+        library_ms = median_ms(aggregate_library, flush)
+        # the rows and the ids and permutation read once, the bf16 output written once
+        b = bound(m * DIM * 4 + m * 8 + n * DIM * 2, m * DIM, PEAK_F32)
+        log(f"[kernel] {label} (zeroed by the wrapper, timed with it), longest run "
+            f"{longest_run(sids, n)}: bit for bit the plain version, two launches bit for bit; "
+            f"kernel_ms={ms!r} (the f32 mode on the same inputs {f32_ms!r}), plain_ms="
+            f"{plain_ms!r} (n={plain_reps}), bound_ms={b['bound_ms']!r} by {b['bound_by']}, "
+            f"library_ms={library_ms!r} (bf16 index_add_: rounds after every add, in its own "
+            f"order; apart from the plain version on a share {lib_share!r} of elements, by at "
+            f"most {lib_diff!r})")
+        if out is None:
+            out = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **b,
+                   "library_ms": library_ms}
+    return out
+
+
+def bf16_apart(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(the share of elements that differ, the largest difference in bf16
+    ulps of `want`, 8 significant bits) of two tensors of bf16 values."""
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
+    apart = g != w
+    if not apart.any():
+        return 0.0, 0.0
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=2.0 ** -126))) - 7)
+    return apart.float().mean().item(), ((g - w).abs() / ulp)[apart].max().item()
+
+
+BF16PARAM_MACROS = 2  # [train-bf16param]: macros of GRAPH_K steps through train_one_epoch_packed
+
+
+def phase_train_bf16param(dev: torch.device, profile: bool) -> dict[str, int]:
+    """`[train-bf16param]` the flagship at `param_dtype="bfloat16"`: bf16
+    tables and towers (the towers' Adam `OptaxAdam`, optax's arithmetic in
+    bf16, capturable), bf16 compute, batch 262,144 sorted by user id,
+    `block_sorted_kernel="off"` (the reference's rule for bf16 tables), as
+    `[train-bf16tab]`. The main path, counted: BF16PARAM_MACROS macros of
+    GRAPH_K steps through `train_one_epoch_packed` (one capture: its
+    warm-up and captured steps launch from Python; #1 and #4 twice a step,
+    and under bf16 compute the bf16 towers take #8 and tower_fwd twice a
+    step). Then: the state's tensors (tables, accumulators, towers, Adam's
+    moments and counts) kept their addresses, the moments moved and count
+    the steps (Adam updated in place under capture); eager steps over the
+    same batches from a copy of the start end bit for bit where the replays
+    do; one step from the trained state against the host CPU's within 2^-7
+    x max (`check_against_host`, test_torch_train_step.py's bf16 bar, and
+    one bf16 ulp of each stored table value on top: the updated values
+    reach 0.03-0.06 in 32 steps, where an ulp, 2^-12, is 3x that bound of a
+    step's update, with at most BF16_STORE_APART of a table's values apart;
+    rows fed by a sample whose ReLU gate opens on one side only exempt,
+    `gate_flip_rows`); the replayed ms a step over
+    GRAPH_MACROS macros. (Not
+    from a fresh state: there every row's accumulator is 0, the first update
+    is the summed gradient over its own rms, and a user's two samples that
+    cancel make that direction the summation order's; measured on the card,
+    the f32-parameter and f32-table configuration misses 2^-7 x max by 12x
+    there as the bf16 one does.)"""
+    tag = "[train-bf16param]"
+    cfg = dataclasses.replace(
+        cfg_lib.two_tower_model_config(NUM_USERS, NUM_ITEMS, embedding_dim=DIM,
+                                       layer_sizes=LAYERS, compute_dtype="bfloat16"),
+        param_dtype="bfloat16")
+    tcfg = cfg_lib.TrainConfig(batch_size=TRAIN_BATCH, sorted_feature="user_id",
+                               block_sorted_kernel="off", loss="bce")
+    steps = BF16PARAM_MACROS * GRAPH_K
+    ds = SyntheticClickstream(NUM_USERS - 1, NUM_ITEMS - 1, seed=0)
+    cols = list(ds.batches(TRAIN_BATCH, steps, split="bf16param"))
+    feat = PackedFeaturizer(cfg, pack_label=True, sort_feature="user_id")
+    state, dense_opt = step_lib.create_train_state(torch.Generator(device=dev).manual_seed(0),
+                                                   cfg, tcfg)
+    towers = step_lib.tower_parameters(state.model)
+    if (type(state.dense_opt_state) is not opt_lib.OptaxAdam
+            or {t.dtype for t in state.model.tables.values()} != {BF16}
+            or {p.dtype for p in towers} != {BF16}):
+        raise AssertionError(f"{tag} not bf16 tables and towers under OptaxAdam")
+    step = make_packed_train_step(step_lib.make_train_step(cfg, tcfg, dense_opt), cfg,
+                                  pack_label=True)
+    multi = step_lib.make_multi_step(step)
+    eager = state.copy()
+    addresses = {name: t.data_ptr() for name, t in state_tensors(state).items()}
+    start = {name: t.clone() for name, t in state_tensors(state).items()}
+    torch.cuda.synchronize()
+    # --- the main path, counted ---------------------------------------------------
+    reset_launches()
+    t0 = time.perf_counter()
+    state, stats = train_one_epoch_packed(state, multi, iter(cols), feat, macro=GRAPH_K,
+                                          train_cfg=tcfg)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    # --- checks, not counted ------------------------------------------------------
+    calls = GRAPH_K + step_lib.WARMUP_STEPS
+    for kernel, n in launches.items():
+        if n != BCE_F32.get(kernel, 0) * calls:
+            raise AssertionError(f"{tag} {kernel}: {n} launches for {step_lib.WARMUP_STEPS} "
+                                 f"warm-up and {GRAPH_K} captured steps, expected "
+                                 f"{BCE_F32.get(kernel, 0)} a step")
+    if ((multi.captures, multi.replays) != (1, BF16PARAM_MACROS) or state.step != steps
+            or stats["train_steps"] != steps):
+        raise AssertionError(f"{tag} captures {multi.captures}, replays {multi.replays}, step "
+                             f"{state.step}, epoch {stats}")
+    now = state_tensors(state)
+    if {name: t.data_ptr() for name, t in now.items()} != addresses:
+        raise AssertionError(f"{tag} a tensor of the state was replaced")
+    opt_state = state.dense_opt_state.state
+    for i, p in enumerate(towers):
+        if (opt_state[p]["step"].item() != steps or opt_state[p]["exp_avg"].dtype != BF16
+                or bitwise_equal(opt_state[p]["exp_avg"], start[f"tower{i}.exp_avg"])
+                or bitwise_equal(p.detach(), start[f"tower{i}"])):
+            raise AssertionError(f"{tag} tower {i}: Adam's state did not move in place")
+    packed = [map_leaves(feat(c), lambda t: t.to(dev)) for c in cols]
+    for pb in packed:
+        eager, _ = step(eager, pb)
+    same = compare_states(f"{tag} after {steps} steps", eager, state)
+    if not same.startswith("bit for bit"):
+        raise AssertionError(f"{tag} the replayed steps are not the eager steps': {same}")
+    del eager
+    exempt, samples = gate_flip_rows(state, packed[0])
+    rows = sum(int(m.sum()) for m in exempt.values())
+    if samples > TRAIN_BATCH // 1000:
+        raise AssertionError(f"{tag} {samples} samples whose ReLU gates open on one side only "
+                             "(at most 1 in 1,000 allowed)")
+    log(f"{tag} after {steps} steps: {samples} samples with a ReLU gate open on one side only, "
+        f"their {rows} table rows exempt from the update's bound")
+    check_against_host(f"{tag} after {steps} steps:", state, dataclasses.replace(
+        cfg, fused_tower_backward="on"), tcfg, dense_opt, step, packed[0], exempt=exempt,
+        bf16_store=True)
+    replay_ms = []
+    for j in range(GRAPH_MACROS):
+        stacked = stack_on_card([packed[(j + i) % steps] for i in range(GRAPH_K)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = multi(state, stacked)
+        torch.cuda.synchronize()
+        replay_ms.append((time.perf_counter() - t0) * 1e3 / GRAPH_K)
+    graph_ms_ = statistics.median(replay_ms)
+    log(f"{tag} {card_line()}: flagship bf16 tables {table_bytes(state.model)} bytes and bf16 "
+        f"towers (OptaxAdam), bf16 compute, block_sorted_kernel=off, batch {TRAIN_BATCH}: "
+        f"{BF16PARAM_MACROS} macros of {GRAPH_K} through train_one_epoch_packed in {seconds!r} "
+        f"s (capture included; examples_per_s={stats['examples_per_sec']!r}), launches per "
+        f"step { {k: v // calls for k, v in launches.items() if v} } over "
+        f"{step_lib.WARMUP_STEPS} warm-up and {GRAPH_K} captured steps, captures=1 replays="
+        f"{BF16PARAM_MACROS}; every state tensor kept its address, Adam's moments moved and "
+        f"count {steps}; {steps} eager steps from the same start {same}; "
+        f"replayed_ms_per_step={graph_ms_!r} (min {min(replay_ms)!r}, n={GRAPH_MACROS} macros "
+        f"of distinct payloads), examples_per_s={TRAIN_BATCH / graph_ms_ * 1e3!r}")
+    if profile:
+        stacked = stack_on_card(packed[:GRAPH_K])
+        profile_direct(lambda: multi(state, stacked), f"train-bf16param, replay of {GRAPH_K} "
+                       "steps", 2 * GRAPH_K, calls=3)
+    return launches
+
+
 def buffer_modes(cfg, tcfg, pb, dev: torch.device) -> dict[int, object]:
     """{table rows: the buffer dtype} of the sorted table's update in one
     eager step from a fresh state (the device-sorted table's calls go
@@ -5986,6 +6271,27 @@ def ranker_batches(cfg, dev: torch.device, n: int, split: str = "train") -> list
     return [feat(cols) for cols in ds.batches(RANKER_BATCH, n, split=split)]
 
 
+def ranker_plain_lookup(table, ids, mask, pooling, compute_dtype):
+    """`pooled_lookup` of the ranker's single-slot features through the
+    gather's plain version."""
+    w = mask.to(torch.float32)
+    if pooling == "mean":
+        w = w / torch.clamp(w.sum(dim=1, keepdim=True), min=1.0)
+    return pooled_gather_reference(table, ids.to(torch.int32), w, compute_dtype)
+
+
+@contextlib.contextmanager
+def ranker_plain_route():
+    """The ranker's kernels #1 and #3 swapped for their plain versions."""
+    saved = concat_mlp.pooled_lookup, concat_mlp.block_sorted_aggregate
+    concat_mlp.pooled_lookup = ranker_plain_lookup
+    concat_mlp.block_sorted_aggregate = block_sorted_aggregate_reference
+    try:
+        yield
+    finally:
+        concat_mlp.pooled_lookup, concat_mlp.block_sorted_aggregate = saved
+
+
 def phase_ranker(dev: torch.device) -> dict[str, int]:
     """`[ranker]` the concat-MLP ranker at flagship widths (206,209 x 49,688
     x 128, hidden (128, 64) -> 1, f32), batch 8,192, RANKER_STEPS Adam steps
@@ -6041,20 +6347,8 @@ def phase_ranker(dev: torch.device) -> dict[str, int]:
     if not all(np.isfinite(losses)):
         raise AssertionError(f"[ranker] losses {losses}")
     _, kouts, kfirst = run(fresh(dev), batches, record_first=True)
-    saved = concat_mlp.pooled_lookup, concat_mlp.block_sorted_aggregate
-
-    def plain_lookup(table, ids, mask, pooling, compute_dtype):
-        w = mask.to(torch.float32)
-        if pooling == "mean":
-            w = w / torch.clamp(w.sum(dim=1, keepdim=True), min=1.0)
-        return pooled_gather_reference(table, ids.to(torch.int32), w, compute_dtype)
-
-    concat_mlp.pooled_lookup = plain_lookup
-    concat_mlp.block_sorted_aggregate = block_sorted_aggregate_reference
-    try:
+    with ranker_plain_route():
         _, pouts, pfirst = run(fresh(dev), batches, record_first=True)
-    finally:
-        concat_mlp.pooled_lookup, concat_mlp.block_sorted_aggregate = saved
     host_batch = map_leaves(batches[0], lambda t: t.cpu())
     t_host = time.perf_counter()
     _, houts, hfirst = run(fresh(torch.device("cpu")), [host_batch], record_first=True)
@@ -6087,6 +6381,158 @@ def phase_ranker(dev: torch.device) -> dict[str, int]:
         f"the host CPU ({t_host!r} s a step): first-step logits and Adam moments within 1e-5 x "
         f"max, later losses within rtol 1e-4, margins {margins!r}")
     return launches
+
+
+def phase_ranker_bf16(dev: torch.device) -> dict[str, int]:
+    """`[ranker-bf16]` `[ranker]` at `param_dtype="bfloat16"`: the flagship
+    widths (206,209 x 49,688 x 128, hidden (128, 64) -> 1) in bf16, f32
+    compute, batch 8,192, RANKER_STEPS steps of one `OptaxAdam` over the
+    tables and the MLP (counted: each step 2 launches of the gather #1 and 2
+    of #3 in its bf16 mode for the tables' bf16 gradients). Then, not
+    counted: one step from the fresh state through the plain versions on
+    the card, whose tables must equal the kernels' bit for bit (the rest
+    printed); the same step on the host CPU, where each parameter and Adam
+    moment may differ from the card's on at most 0.1% of its elements, each
+    within 2 bf16 ulps (the second moments 8), and the f32 logits within
+    1e-5 x max: test_torch_ranker_bf16.py's bars against the JAX package
+    (the MLP's f32 sums in another order round a bf16 gradient element the
+    other way now and then); the eager step's ms."""
+    tag = "[ranker-bf16]"
+    cfg = dataclasses.replace(cfg_lib.two_tower_model_config(
+        NUM_USERS, NUM_ITEMS, embedding_dim=DIM, layer_sizes=LAYERS), param_dtype="bfloat16")
+    batches = ranker_batches(cfg, dev, RANKER_STEPS)
+    step, init = concat_mlp.make_ranker_train_step(cfg, learning_rate=1e-3)
+
+    def fresh(device):
+        state = init(torch.Generator(device=dev).manual_seed(0), RANKER_HIDDEN)
+        if device != dev:
+            params = state["params"].to(device)
+            state = {**state, "params": params,
+                     "opt": concat_mlp.dense_optimizer(1e-3).build(params.parameters())}
+        return state
+
+    def after_one_step(state, batch) -> dict[str, torch.Tensor]:
+        state, out = step(state, batch)
+        got = {"logits": out["logits"].detach().float().cpu()}
+        for name, p in state["params"].named_parameters():
+            got[name] = p.detach().cpu().clone()
+            for key in ("exp_avg", "exp_avg_sq"):
+                got[f"{name}.{key}"] = state["opt"].state[p][key].cpu().clone()
+        return got
+
+    state = fresh(dev)
+    if type(state["opt"]) is not opt_lib.OptaxAdam or {
+            p.dtype for p in state["params"].parameters()} != {BF16}:
+        raise AssertionError(f"{tag} not bf16 parameters under OptaxAdam")
+    torch.cuda.synchronize()
+    # --- the main path, counted -----------------------------------------------------
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = []
+    for b in batches:
+        state, out = step(state, b)
+        outs.append(out)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    # --- checks, not counted -----------------------------------------------------------
+    want = {"pooled_gather": 2 * RANKER_STEPS, "block_sorted_aggregate": 2 * RANKER_STEPS,
+            "block_sorted_aggregate_bf16": 2 * RANKER_STEPS}
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"{tag} launches {launches}, expected {want}")
+    losses = [o["loss"].item() for o in outs]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag} losses {losses}")
+    kernels = after_one_step(fresh(dev), batches[0])
+    with ranker_plain_route():
+        plain = after_one_step(fresh(dev), batches[0])
+    tables = [f"tables.{t.name}" for t in cfg.tables]
+    for name in tables:
+        if not bitwise_equal(kernels[name], plain[name]):
+            raise AssertionError(f"{tag} {name} after one step: the kernels' route is not the "
+                                 "plain versions' bit for bit")
+    plain_apart = {k: v for k, v in kernels.items() if not bitwise_equal(v, plain[k])}
+    t_host = time.perf_counter()
+    host = after_one_step(fresh(torch.device("cpu")), map_leaves(batches[0], lambda t: t.cpu()))
+    t_host = time.perf_counter() - t_host
+    torch.testing.assert_close(kernels["logits"], host["logits"], rtol=0,
+                               atol=1e-5 * host["logits"].abs().max().item())
+    worst = {}
+    for name, want_t in host.items():
+        if name == "logits":
+            continue
+        share, ulps = bf16_apart(kernels[name], want_t)
+        worst[name] = (share, ulps)
+        if share > 1e-3 or ulps > (8 if name.endswith("exp_avg_sq") else 2):
+            raise AssertionError(f"{tag} {name} after one step against the host CPU: "
+                                 f"{share!r} of the elements apart, up to {ulps!r} bf16 ulps")
+    step_ms = []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, _ = step(state, b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"{tag} {card_line()}: the concat-MLP ranker in bf16 (tables [{NUM_USERS}, {DIM}] + "
+        f"[{NUM_ITEMS}, {DIM}], MLP {2 * DIM} -> {RANKER_HIDDEN} -> 1), f32 compute, OptaxAdam, "
+        f"batch {RANKER_BATCH}, {RANKER_STEPS} steps in {seconds!r} s (the first calls' set-up "
+        f"included; {RANKER_STEPS} more steps median_step_ms={statistics.median(step_ms)!r}, "
+        f"eager), losses {losses}; launches counted "
+        f"{ {k: v for k, v in launches.items() if v} }; after one step the tables bit for bit "
+        f"the plain versions' on the card (other tensors apart: {sorted(plain_apart)}); "
+        f"against the host CPU ({t_host!r} s a step) the largest share apart "
+        f"{max(v[0] for v in worst.values())!r} and ulps {max(v[1] for v in worst.values())!r} "
+        f"(bars 0.001 and 2, second moments 8)")
+    return launches
+
+
+def phase_native_reader(work: str) -> None:
+    """`[native-reader]` the smoke replica's compressed shards (`shards-raw`,
+    the raw-column split `[batch-predict]` prepared: a zlib stream a column)
+    read through `ShardedDataset(use_native=True)` (the native C++ reader of
+    `native/`, built with g++ at its first use in this run) and through
+    `use_native=False` (numpy): every array of every shard bit for bit
+    equal (dtype, shape and bytes). After an untimed pass (the page cache
+    warm for both), one timed pass of each; the build's seconds."""
+    from two_tower_recommender_model_tpu_torch.native import build as native_build
+
+    raw = os.path.join(work, "shards-raw")
+    splits = sorted(d for d in os.listdir(raw) if os.path.exists(os.path.join(raw, d, "index.json")))
+    pairs = [(ShardedDataset(os.path.join(raw, d), use_native=True),
+              ShardedDataset(os.path.join(raw, d), use_native=False)) for d in splits]
+    shards = sum(nat.num_shards for nat, _ in pairs)
+    if not pairs or any(nat.mmap or not nat.use_native for nat, _ in pairs):
+        raise AssertionError(f"[native-reader] {raw}: {splits}: not compressed shards read "
+                             "natively")
+    seconds = {"native": 0.0, "numpy": 0.0}
+    nbytes = arrays = 0
+    for timed in (False, True):
+        for nat, py in pairs:
+            for i in range(nat.num_shards):
+                t0 = time.perf_counter()
+                a = nat.read_shard(i)
+                t1 = time.perf_counter()
+                b = py.read_shard(i)
+                t2 = time.perf_counter()
+                if timed:
+                    seconds["native"] += t1 - t0
+                    seconds["numpy"] += t2 - t1
+                    continue
+                if list(a) != list(b):
+                    raise AssertionError(f"[native-reader] {nat.path} shard {i}: columns "
+                                         f"{list(a)} != {list(b)}")
+                for k in a:
+                    if (a[k].dtype != b[k].dtype or a[k].shape != b[k].shape
+                            or a[k].tobytes() != b[k].tobytes()):
+                        raise AssertionError(f"[native-reader] {nat.path} shard {i} {k}: the "
+                                             "native reader's array differs")
+                    nbytes += a[k].nbytes
+                    arrays += 1
+    log(f"[native-reader] {card_line()} (the host's CPU: {os.cpu_count()} cores): the smoke "
+        f"replica's compressed splits {splits}, {shards} shards, {arrays} arrays, {nbytes} "
+        f"bytes: bit for bit the numpy reader's; read seconds (warm page cache) native="
+        f"{seconds['native']!r} numpy={seconds['numpy']!r} (ratio "
+        f"{seconds['numpy'] / max(seconds['native'], 1e-9)!r}); the library's g++ build "
+        f"{native_build.build_seconds!r} s (0.0 when a library built before was loaded)")
 
 
 def phase_multi_seed(dev: torch.device) -> dict[str, int]:
@@ -6374,6 +6820,7 @@ def main() -> int:
     phase_wide_table_kernels(dev)
     phase_bf16_buffer_kernels(dev)
     phase_aggregate_perm_kernel(dev)
+    stats["block_sorted_aggregate_bf16"] = phase_aggregate_bf16_kernel(dev)
     serve = phase_serve(dev, args.profile)
     batches = flagship_batches(dev)
     first = (batches[0][:POOL], batches[1])  # the earlier phases' pool
@@ -6408,6 +6855,7 @@ def main() -> int:
     paths["serve-bf16tab"] = phase_serve_trained(dev, bf16_state, bf16_cfg, args.profile,
                                                  "[serve-bf16tab]", "pooled_gather")
     del bf16_state
+    paths["train-bf16param"] = phase_train_bf16param(dev, args.profile)
     work = tempfile.mkdtemp(prefix="ttrm_pipeline_")
     try:
         pipeline_paths, pipeline = phase_pipeline(dev, work)
@@ -6419,6 +6867,7 @@ def main() -> int:
                 dev, work, pipeline, table_dtype)
         paths["registry"], scorer, production = phase_registry(dev, work, pipeline, runs)
         paths["batch-predict"] = phase_batch_predict(work, scorer)
+        phase_native_reader(work)
         phase_per_user_table(work, production)
         paths["batch-predict-parquet"], paths["text-features"] = phase_parquet_text(
             work, production)
@@ -6426,6 +6875,7 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     paths["ranker"] = phase_ranker(dev)
+    paths["ranker-bf16"] = phase_ranker_bf16(dev)
     paths["multi-seed"] = phase_multi_seed(dev)
     paths["sweep"] = phase_sweep(dev)
     torch.cuda.synchronize()

@@ -112,8 +112,11 @@ def test_sharded_dataset(tmp_path):
     for i in range(ds.num_shards):
         got, want = ds.read_shard(i, ["user_id"]), rds.read_shard(i, ["user_id"])
         np.testing.assert_array_equal(got["user_id"], want["user_id"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_shards.ShardedDataset(str(tmp_path / "d"), use_native=True)
+    native = port_shards.ShardedDataset(str(tmp_path / "d"), use_native=True)
+    assert native.use_native and ds.use_native  # compressed shards: native when it builds
+    for i in range(ds.num_shards):
+        got, want = native.read_shard(i, ["user_id"]), rds.read_shard(i, ["user_id"])
+        np.testing.assert_array_equal(got["user_id"], want["user_id"])
     (tmp_path / "e").mkdir()
     (tmp_path / "e" / "index.json").write_text('{"format": "other"}')
     with pytest.raises(ValueError, match="not a ttrs dataset"):

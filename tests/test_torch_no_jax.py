@@ -61,7 +61,7 @@ for name in ("train.step", "train.loop", "train.pipeline", "train.optimizer",
              "examples.sweep_example", "examples.text_side_features",
              "examples.tune_retrieval_smoke", "examples.workshop_ratings_style",
              "parallel", "parallel.mesh", "parallel.launch", "parallel.planner",
-             "parallel.sharded"):
+             "parallel.sharded", "native", "native.build", "native.ttrs", "buildroot"):
     assert pkg.__name__ + "." + name in names, name
 print(len(names))
 """
@@ -112,7 +112,8 @@ _CARD_TESTS = ["tests/test_torch_embedding_cuda.py", "tests/test_torch_train_cud
                "tests/test_torch_graph_cuda.py", "tests/test_torch_checkpoint_cuda.py",
                "tests/test_torch_compact_cuda.py", "tests/test_torch_tower_fwd_cuda.py",
                "tests/test_torch_scatter_buffer_cuda.py", "tests/test_torch_ranker_cuda.py",
-               "tests/test_torch_shard_local_cuda.py", "tests/test_torch_any_width_cuda.py"]
+               "tests/test_torch_shard_local_cuda.py", "tests/test_torch_any_width_cuda.py",
+               "tests/test_torch_bf16_params_cuda.py"]
 
 
 def test_every_card_test_file_is_listed():

@@ -356,8 +356,9 @@ def test_init_and_shapes():
         assert t.abs().max().item() <= bound
     assert [tuple(layer.weight.T.shape) for layer in model.mlp.layers] == [
         ref["mlp"][f"layer_{i}"]["kernel"].shape for i in range(3)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_ranker.Ranker(dataclasses.replace(pcfg, param_dtype="bfloat16"), (8,), "cpu")
+    bf16 = port_ranker.Ranker(dataclasses.replace(pcfg, param_dtype="bfloat16"), (8,), "cpu")
+    assert {p.dtype for p in bf16.tables.values()} == {torch.bfloat16}
+    assert {p.dtype for p in bf16.mlp.parameters()} == {torch.bfloat16}
 
 
 def test_dropout_is_deterministic_given_the_generator():

@@ -77,6 +77,13 @@
 // What bounds it: memory, the N x D f32 output above all (106 MB at the
 // flagship's user table against 67 MB of bf16 gradients).
 //
+// Its bf16 mode (buffer_dtype kBF16) is the gradient of a bf16 table under
+// plain autodiff (the ranker at param_dtype="bfloat16"): the reference's
+// transpose of `jnp.take`, a bf16 scatter-add that XLA sums in (b, l) order
+// from bf16 zero with a rounding after every add. The walk's bf16-buffer
+// mode (sorted_runs.cuh) gives those sums in both walks; `out` is [N, D]
+// bf16, half the f32 output's bytes.
+//
 // Binding: a plain C interface loaded with ctypes. The launches go to the
 // caller's stream, do not synchronise, and the entry point returns
 // cudaGetLastError() right after them.
@@ -233,9 +240,12 @@ struct AdagradUpdate {
   }
 };
 
-// Kernel #3's epilogue: the run's sum written to its row of `out`.
+// Kernel #3's epilogue: the run's sum written to its row of `out`, f32, or
+// bf16 in the bf16 buffer's mode (T = uint16_t, raw bits), where each sum is
+// a bf16 value already and the store is exact.
+template <typename T>
 struct AggregateStore {
-  float* out;
+  T* out;
 
   template <int V, int NC>
   struct Row {};
@@ -250,34 +260,46 @@ struct AggregateStore {
                                         int64_t d) const {
     if (r < 0) return;
     const int hl = threadIdx.x & 15;
-    float* orow = out + static_cast<int64_t>(r) * d;
+    T* orow = out + static_cast<int64_t>(r) * d;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      if (col_of<V>(c, hl) < d)
-#pragma unroll
-        for (int i = 0; i < V; i += 4)
-          *reinterpret_cast<float4*>(orow + col_of<V>(c, hl) + i) =
-              make_float4(g[c][i], g[c][i + 1], g[c][i + 2], g[c][i + 3]);
+      if (col_of<V>(c, hl) < d) Chunk<T, V>::store(orow + col_of<V>(c, hl), g[c]);
   }
 
-  // The general walk: pass 1 sums a run straight into its output row; pass
-  // 2's sum, in a scratch row, is copied there.
-  __device__ __forceinline__ float* sum_row(int32_t r, float*, int64_t d) const {
-    return out + static_cast<int64_t>(r) * d;
+  // The general walk: an f32 output's pass 1 sums a run straight into its
+  // output row; a bf16 one's in the warp's stash row; a sum held elsewhere
+  // (pass 2's scratch row, the stash) is copied there.
+  __device__ __forceinline__ float* sum_row(int32_t r, float* stash, int64_t d) const {
+    if constexpr (sizeof(T) == sizeof(float))
+      return out + static_cast<int64_t>(r) * d;
+    else
+      return stash;
   }
 
   template <int V>
   __device__ __forceinline__ void apply_row(int32_t r, const float* row, RowStats,
                                             int64_t d) const {
-    float* orow = out + static_cast<int64_t>(r) * d;
-    if (row == orow) return;
+    T* orow = out + static_cast<int64_t>(r) * d;
+    if (static_cast<const void*>(row) == static_cast<const void*>(orow)) return;
     for (int64_t col = gcol<V>(0, threadIdx.x & 31); col < d; col += 32 * V) {
       float x[V];
       load_f32<V>(row + col, x);
-      store_f32<V>(orow + col, x);
+      Chunk<T, V>::store(orow + col, x);
     }
   }
 };
+
+}  // namespace
+
+namespace sorted_runs {
+// A bf16 output takes the bf16 buffer's sums only: its f32-sum walks are never built.
+template <>
+struct TakesF32Sums<AggregateStore<uint16_t>> {
+  static constexpr bool value = false;
+};
+}  // namespace sorted_runs
+
+namespace {
 
 // The walk for the gradients' dtype: bf16 rows as 16-byte loads where D and
 // the alignment of the gradients (and of the rows the epilogue moves in V
@@ -355,21 +377,30 @@ int ttrm_rowwise_adagrad(void* table, int table_dtype, void* acc, const void* id
                     general, four, grad_dtype, aligned(table, 16), buffer_dtype, s);
 }
 
-// `out` [N, D] f32 must arrive zeroed; perm [M] int32 or null (the j-th
+// `out` [N, D] must arrive zeroed: f32 under buffer_dtype kF32, bf16 (raw
+// bits) under kBF16, the bf16 buffer's mode (each run summed in position
+// order, rounded to bf16 after every add); perm [M] int32 or null (the j-th
 // sorted id's gradient row is grads[perm[j]]); n_slots as above (out off a
-// 16-byte boundary also takes the general walk). Returns a cudaError_t code.
-int ttrm_sorted_aggregate(void* out, const void* ids, const void* grads, int grad_dtype,
-                          const void* perm, void* part, void* part_id, int64_t n_slots,
-                          int64_t n_rows, int64_t d, int64_t m, void* stream) {
+// 16-byte boundary, 8-byte for bf16, also takes the general walk). Returns a
+// cudaError_t code.
+int ttrm_sorted_aggregate(void* out, int buffer_dtype, const void* ids, const void* grads,
+                          int grad_dtype, const void* perm, void* part, void* part_id,
+                          int64_t n_slots, int64_t n_rows, int64_t d, int64_t m, void* stream) {
   if (m <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
-  if (!dtype_ok(grad_dtype)) return static_cast<int>(cudaErrorInvalidValue);
-  const bool four = d % 4 == 0 && aligned(out, 16) && aligned(grads, four_bytes(grad_dtype));
+  if (!dtype_ok(grad_dtype) || !dtype_ok(buffer_dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool four = d % 4 == 0 && aligned(out, four_bytes(buffer_dtype)) &&
+                    aligned(grads, four_bytes(grad_dtype));
   const bool general = !(four && half_warp_dim(d));
   Walk p;
   if (!make_walk(ids, grads, perm, part, part_id, n_slots, n_rows, d, m, general, &p))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_any(p, AggregateStore{static_cast<float*>(out)}, general, four, grad_dtype, true,
-                    kF32, static_cast<cudaStream_t>(stream));
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (buffer_dtype == kF32)
+    return launch_any(p, AggregateStore<float>{static_cast<float*>(out)}, general, four,
+                      grad_dtype, true, kF32, s);
+  return launch_any(p, AggregateStore<uint16_t>{static_cast<uint16_t*>(out)}, general, four,
+                    grad_dtype, aligned(out, 16), kBF16, s);
 }
 
 const char* ttrm_error_string(int code) {

@@ -152,6 +152,13 @@ constexpr int kCopies = (kRingElems / 128 + kProducers / 32 - 1) / (kProducers /
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
 
+// Whether an epilogue takes f32 sums. One that takes only the bf16 buffer's
+// specializes this to false, and its f32 walks are not instantiated.
+template <typename E>
+struct TakesF32Sums {
+  static constexpr bool value = true;
+};
+
 // The sorted ids, their gradients and the scratch of long runs.
 struct Walk {
   const int32_t* ids;
@@ -1131,7 +1138,8 @@ int launch_general(const Walk& p, const E& epi, cudaStream_t s) {
 // launch_general with the buffer's dtype code (kF32 or kBF16) as the flag.
 template <typename G, int V, typename E>
 int launch_general(const Walk& p, const E& epi, int buffer_dtype, cudaStream_t s) {
-  if (buffer_dtype == kF32) return launch_general<G, V, false>(p, epi, s);
+  if constexpr (TakesF32Sums<E>::value)
+    if (buffer_dtype == kF32) return launch_general<G, V, false>(p, epi, s);
   if (buffer_dtype == kBF16) return launch_general<G, V, true>(p, epi, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1173,7 +1181,8 @@ int launch_walk(const Walk& p, const E& epi, cudaStream_t s) {
 // launch_walk with the buffer's dtype code (kF32 or kBF16) as the flag.
 template <typename G, int V, typename E>
 int launch_walk(const Walk& p, const E& epi, int buffer_dtype, cudaStream_t s) {
-  if (buffer_dtype == kF32) return launch_walk<G, V, false>(p, epi, s);
+  if constexpr (TakesF32Sums<E>::value)
+    if (buffer_dtype == kF32) return launch_walk<G, V, false>(p, epi, s);
   if (buffer_dtype == kBF16) return launch_walk<G, V, true>(p, epi, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

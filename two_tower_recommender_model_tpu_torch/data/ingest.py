@@ -6,13 +6,15 @@ numpy and the standard library (the card's machine has no pandas): a table
 is a `data.Frame`, with the columns and values `pd.read_csv` gives the
 reference. Tables with a string column go through the `csv` module (quoted
 fields, commas inside quotes); all-integer tables (the ~30M-row
-`order_products__prior.csv`) through `np.loadtxt`, at C speed. The
-reference's `write_parquet` needs pyarrow and is not ported (ROADMAP).
+`order_products__prior.csv`) through `np.loadtxt`, at C speed.
+`write_parquet` writes a table as the reference's `df.to_parquet` does,
+through pyarrow, which it imports when it is called.
 """
 
 from __future__ import annotations
 
 import csv
+import os
 import warnings
 
 import numpy as np
@@ -85,6 +87,27 @@ def read_csv_table(path: str, table: str) -> Frame:
                              f"{len(header)}")
     cols = list(zip(*rows)) if rows else [()] * len(header)
     return {c: _column(v, schema.get(c)) for c, v in zip(header, cols)}
+
+
+def write_parquet(df: Frame, out_dir: str, name: str) -> str:
+    """`out_dir/name.parquet` with the frame's columns in order, as the
+    reference's `df.to_parquet(path, index=False)` writes them: each column
+    converted as pandas hands one to pyarrow (`from_pandas`: a float NaN or
+    a missing string is null), a string column as `large_string` (pandas 3's
+    string dtype; pandas 2's object columns wrote `string`, the same
+    values), snappy-compressed by `pq.write_table`'s default, which pandas
+    keeps. Returns the path."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    def column(values: np.ndarray):
+        col = pa.array(np.asarray(values), from_pandas=True)
+        return col.cast(pa.large_string()) if pa.types.is_string(col.type) else col
+
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"{name}.parquet")
+    pq.write_table(pa.table({c: column(v) for c, v in df.items()}), path)
+    return path
 
 
 def _merge_inner(left: Frame, right: Frame, on: str) -> Frame:

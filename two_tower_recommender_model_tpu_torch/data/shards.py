@@ -15,8 +15,9 @@ Layout of one shard file:
     payload per-column bytes, in header order
 
 The payload is raw C-order little-endian array data, mmapped when
-uncompressed. The reference's native C++ reader (`native/`) is not ported:
-`ShardedDataset` reads in Python.
+uncompressed. `ShardedDataset` reads a shard through the native C++ reader
+(`native/`: the columns inflated on a thread each) where it builds, as the
+reference does, and in numpy (`read_shard`) otherwise.
 """
 
 from __future__ import annotations
@@ -27,6 +28,9 @@ import zlib
 from typing import Iterator, Mapping, Sequence
 
 import numpy as np
+
+from two_tower_recommender_model_tpu_torch.native.build import load_ttrs_reader
+from two_tower_recommender_model_tpu_torch.native.ttrs import native_available, native_read_shard
 
 MAGIC = b"TTRS1\n"
 INDEX_NAME = "index.json"
@@ -197,18 +201,15 @@ def write_dataset(
 
 
 class ShardedDataset:
-    """A TTRS dataset directory: index + lazy shard reads, in Python.
+    """A TTRS dataset directory: index + lazy shard reads.
 
-    `use_native=None` (and False) reads with `read_shard`. The reference's
-    native reader is not ported, so `use_native=True` raises rather than
-    read in Python under that name."""
+    The reference's rule for the reader: `use_native=None` reads through the
+    native C++ reader (`native/ttrs_reader.cpp`, parallel zlib inflate) when
+    the shards are not mmapped and the library builds here, else in numpy;
+    `True` reads through it and raises if it cannot be built; `False` reads
+    in numpy. Mmapped datasets read in numpy whatever `use_native` says."""
 
     def __init__(self, path: str, use_native: bool | None = None, mmap: bool | None = None):
-        if use_native:
-            raise NotImplementedError(
-                "the native TTRS reader (the JAX package's native/) is not ported to the "
-                "PyTorch package (ROADMAP.md, 'Not to port': native/ waits for a measured "
-                "need); pass use_native=None to read in Python")
         self.path = path
         with open(os.path.join(path, INDEX_NAME)) as f:
             self.index = json.load(f)
@@ -216,8 +217,15 @@ class ShardedDataset:
             raise ValueError(f"{path}: not a ttrs dataset")
         self.shard_files = [s["file"] for s in self.index["shards"]]
         self.shard_row_counts = [s["rows"] for s in self.index["shards"]]
-        # pre-packed uncompressed datasets default to the zero-copy mmap reader
+        # pre-packed uncompressed datasets default to the zero-copy mmap reader;
+        # the native reader's parallel inflate pays only where there is something
+        # to inflate
         self.mmap = bool(self.index.get("uncompressed")) if mmap is None else mmap
+        if use_native is None:
+            use_native = not self.mmap and native_available()
+        elif use_native:
+            load_ttrs_reader(required=True)
+        self.use_native = use_native
 
     @property
     def total_rows(self) -> int:
@@ -237,4 +245,7 @@ class ShardedDataset:
         return sch
 
     def read_shard(self, i: int, columns: Sequence[str] | None = None) -> dict[str, np.ndarray]:
-        return read_shard(os.path.join(self.path, self.shard_files[i]), columns, mmap=self.mmap)
+        path = os.path.join(self.path, self.shard_files[i])
+        if self.use_native and not self.mmap:
+            return native_read_shard(path, list(columns) if columns is not None else None)
+        return read_shard(path, columns, mmap=self.mmap)

@@ -14,9 +14,12 @@ gradient:
   order: the pooled gradient divided by the bag's live count for mean
   pooling, then masked, in the compute dtype), their ids sorted stably on
   the device, and kernel #3 (`block_sorted_aggregate`, with the sort's
-  permutation) sums them by id into a dense `[N, D]` f32 table gradient. A
-  stable sort keeps each id's rows in (b, l) order, the order in which
-  XLA's CPU scatter sums the reference's transpose of `jnp.take`.
+  permutation) sums them by id into a dense `[N, D]` table gradient of the
+  table's dtype. A stable sort keeps each id's rows in (b, l) order, the
+  order in which XLA's CPU scatter sums the reference's transpose of
+  `jnp.take`. A bf16 table's gradient is that scatter in bf16: each slot row
+  rounded to bf16 (the transpose of the cast to the compute dtype), then
+  added from bf16 zero with a rounding after every add, #3's bf16 mode.
 
 The MLP's products are `_mm` (f32 sums, one rounding to the compute dtype),
 the bias added in the compute dtype, as the reference's `jnp.dot` with
@@ -24,9 +27,9 @@ the bias added in the compute dtype, as the reference's `jnp.dot` with
 `torch.Generator`, so a step is deterministic given it (its draws are not
 `jax.random`'s).
 
-Tables are float32 (`param_dtype="float32"`): the reference's bf16
-parameters would sum the table gradient in a bf16 scatter, which kernel #3
-does not do, and raise `NotImplementedError` here (ROADMAP).
+The tables and the MLP take `cfg.param_dtype` (f32 or bf16), as the
+reference's; over bf16 parameters the one Adam is `OptaxAdam`, optax's
+arithmetic in bf16.
 """
 
 from __future__ import annotations
@@ -41,7 +44,11 @@ from two_tower_recommender_model_tpu_torch.config import ModelConfig
 from two_tower_recommender_model_tpu_torch.data.featurizer import Batch
 from two_tower_recommender_model_tpu_torch.models.losses import bce_with_logits
 from two_tower_recommender_model_tpu_torch.models.mlp import MLP, init_mlp
-from two_tower_recommender_model_tpu_torch.models.two_tower import init_table, torch_dtype
+from two_tower_recommender_model_tpu_torch.models.two_tower import (
+    copy_from_numpy,
+    init_table,
+    torch_dtype,
+)
 from two_tower_recommender_model_tpu_torch.ops.adagrad_kernel import block_sorted_aggregate
 from two_tower_recommender_model_tpu_torch.ops.embedding_ops import pooled_lookup
 from two_tower_recommender_model_tpu_torch.ops.tower_fwd import _mm
@@ -60,17 +67,19 @@ def slot_row_grads(g: torch.Tensor, mask: torch.Tensor, pooling: str) -> torch.T
     return g[:, None, :] * mask[..., None].to(g.dtype)
 
 
-def table_grad(num_rows: int, ids: torch.Tensor, mask: torch.Tensor,
-               rows: torch.Tensor) -> torch.Tensor:
-    """The dense `[num_rows, D]` f32 gradient of a table from its slots'
-    rows `[B, L, D]`: dead slots dropped (the sentinel id), the ids sorted
-    stably on the device, each id's rows summed in (b, l) order by kernel #3
-    with the sort's permutation."""
+def table_grad(num_rows: int, ids: torch.Tensor, mask: torch.Tensor, rows: torch.Tensor,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The dense `[num_rows, D]` gradient of a table of `dtype` from its
+    slots' rows `[B, L, D]`: dead slots dropped (the sentinel id), the ids
+    sorted stably on the device, each id's rows summed in (b, l) order by
+    kernel #3 with the sort's permutation: in f32, or for a bf16 table in
+    #3's bf16 mode (the rows rounded to bf16, a rounding after every add)."""
     flat = torch.where(mask.reshape(-1) > 0, ids.reshape(-1).to(torch.int32), num_rows)
     sids, perm = torch.sort(flat, stable=True)
+    mode = {"buffer_dtype": torch.bfloat16} if dtype == torch.bfloat16 else {}
     return block_sorted_aggregate(num_rows, sids.contiguous(),
                                   rows.reshape(-1, rows.shape[-1]).contiguous(),
-                                  perm=perm.to(torch.int32))
+                                  perm=perm.to(torch.int32), **mode)
 
 
 class PooledLookup(torch.autograd.Function):
@@ -81,42 +90,41 @@ class PooledLookup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, ids, mask, pooling, compute_dtype):
         ctx.save_for_backward(ids, mask)
-        ctx.pooling, ctx.num_rows = pooling, table.shape[0]
+        ctx.pooling, ctx.num_rows, ctx.dtype = pooling, table.shape[0], table.dtype
         return pooled_lookup(table.detach(), ids, mask, pooling, compute_dtype)
 
     @staticmethod
     def backward(ctx, g):
         ids, mask = ctx.saved_tensors
         rows = slot_row_grads(g, mask, ctx.pooling)
-        return table_grad(ctx.num_rows, ids, mask, rows), None, None, None, None
+        return table_grad(ctx.num_rows, ids, mask, rows, ctx.dtype), None, None, None, None
 
 
 class Ranker(nn.Module):
     """The ranker's parameters: `tables` (one `[N, D]` parameter a table) and
-    `mlp` (hidden layers, then one logit), filled by `init_ranker_params` or
-    `ranker_params_from_numpy`."""
+    `mlp` (hidden layers, then one logit), both of `cfg.param_dtype`, filled
+    by `init_ranker_params` or `ranker_params_from_numpy`."""
 
     def __init__(self, cfg: ModelConfig, hidden_sizes: Sequence[int],
                  device: torch.device | str):
         super().__init__()
-        if cfg.param_dtype != "float32":
-            raise NotImplementedError(
-                "the ranker's tables are float32 in the PyTorch package (ROADMAP: a bf16 "
-                "table's gradient is a bf16 scatter, which kernel #3 does not sum)")
+        dtype = torch_dtype(cfg.param_dtype)
         self.tables = nn.ParameterDict({
-            t.name: nn.Parameter(torch.empty((t.num_embeddings, t.embedding_dim),
+            t.name: nn.Parameter(torch.empty((t.num_embeddings, t.embedding_dim), dtype=dtype,
                                              device=device))
             for t in cfg.tables})
         in_dim = sum(cfg.feature_table(f.name).embedding_dim for f in cfg.features)
         in_dim += cfg.query_tower.dense_dim + cfg.candidate_tower.dense_dim
-        self.mlp = MLP(in_dim, (*hidden_sizes, 1), final_activation=False, device=device)
+        self.mlp = MLP(in_dim, (*hidden_sizes, 1), final_activation=False, dtype=dtype,
+                       device=device)
 
 
 def init_ranker_params(generator: torch.Generator, cfg: ModelConfig,
                        hidden_sizes: tuple[int, ...] = (128, 64)) -> Ranker:
     """Every feature (both "towers") concatenated into one MLP ending in one
     logit; tables drawn as the two-tower model's (`init_table`), the MLP as
-    torch's Linear (`init_mlp`), on the generator's device."""
+    torch's Linear (`init_mlp`), in f32 on the generator's device, then
+    rounded to `cfg.param_dtype`."""
     model = Ranker(cfg, hidden_sizes, generator.device)
     with torch.no_grad():
         for t in cfg.tables:
@@ -131,7 +139,9 @@ def ranker_params_from_numpy(params: dict, cfg: ModelConfig,
                              device: torch.device | str | None = None) -> Ranker:
     """A `Ranker` from the JAX package's params as numpy arrays,
     `{"tables": {name: [N, D]}, "mlp": {"layer_i": {"kernel": [in, out],
-    "bias": [out]}}}` (kernels transposed into `nn.Linear` layout)."""
+    "bias": [out]}}}` (kernels transposed into `nn.Linear` layout). A bf16
+    parameter takes its values as f32 (rounded once) or as bf16 bits: an
+    `ml_dtypes` bfloat16 array or its uint16 view, as `params_from_numpy`."""
     from two_tower_recommender_model_tpu_torch.device import resolve_device
 
     hidden = tuple(np.asarray(params["mlp"][f"layer_{i}"]["bias"]).shape[0]
@@ -139,12 +149,11 @@ def ranker_params_from_numpy(params: dict, cfg: ModelConfig,
     model = Ranker(cfg, hidden, resolve_device(device))
     with torch.no_grad():
         for name, t in params["tables"].items():
-            model.tables[name].copy_(torch.from_numpy(np.array(t, np.float32)))
+            copy_from_numpy(model.tables[name], t, name)
         for i, layer in enumerate(model.mlp.layers):
             src = params["mlp"][f"layer_{i}"]
-            layer.weight.copy_(torch.from_numpy(np.ascontiguousarray(
-                np.asarray(src["kernel"], np.float32).T)))
-            layer.bias.copy_(torch.from_numpy(np.array(src["bias"], np.float32)))
+            copy_from_numpy(layer.weight, src["kernel"], f"mlp/layer_{i}/kernel", transpose=True)
+            copy_from_numpy(layer.bias, src["bias"], f"mlp/layer_{i}/bias")
     return model
 
 

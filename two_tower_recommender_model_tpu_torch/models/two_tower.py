@@ -206,6 +206,24 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> TwoTower:
     return model
 
 
+def copy_from_numpy(dst: torch.Tensor, src, name: str, transpose: bool = False) -> None:
+    """Copy a numpy array into a parameter: f32 values (rounded once into a
+    bf16 parameter), or bf16 bits (an `ml_dtypes` bfloat16 array or its
+    uint16 view) into a bf16 one, exactly."""
+    src = np.asarray(src)
+    if src.dtype.name == "bfloat16":  # an `ml_dtypes` array: numpy has no bf16 of its own
+        src = src.view(np.uint16)
+    if transpose:
+        src = src.T
+    if src.dtype == np.uint16:  # the raw bits of bf16 values
+        if dst.dtype != torch.bfloat16:
+            raise ValueError(f"{name} is {dst.dtype}: bf16 bits (uint16) are for a bfloat16 "
+                             "table or parameter")
+        dst.copy_(torch.from_numpy(np.array(src, order="C").view(np.int16)).view(torch.bfloat16))
+    else:
+        dst.copy_(torch.from_numpy(np.array(src, np.float32, order="C")))
+
+
 def params_from_numpy(params: dict, cfg: ModelConfig,
                       device: torch.device | str | None = None) -> TwoTower:
     """Build the port's module from the JAX pytree layout as numpy arrays."""
@@ -228,16 +246,7 @@ def params_from_numpy(params: dict, cfg: ModelConfig,
             src = np.asarray(src)
             if src.shape != tuple(table.shape):
                 raise ValueError(f"table {name!r}: shape {src.shape} != {tuple(table.shape)}")
-            if src.dtype.name == "bfloat16":  # an `ml_dtypes` array: numpy has no bf16 of its own
-                src = src.view(np.uint16)
-            if src.dtype == np.uint16:  # the raw bits of bf16 values
-                if table.dtype != torch.bfloat16:
-                    raise ValueError(f"table {name!r} is {table.dtype}: bf16 bits (uint16) "
-                                     "are for a bfloat16 table")
-                bits = torch.from_numpy(src.view(np.int16).copy())
-                table.copy_(bits.view(torch.bfloat16))
-                continue
-            table.copy_(torch.from_numpy(src.astype(np.float32)))  # rounds into a bf16 table
+            copy_from_numpy(table, src, f"table {name!r}")
         for key in _TOWERS:
             layers = getattr(model, key).layers
             if len(params[key]) != len(layers):

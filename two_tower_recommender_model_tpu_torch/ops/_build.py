@@ -1,13 +1,10 @@
 """Build a CUDA source of `csrc/` into a shared library and load it.
 
 Plain `nvcc` into a shared library with a C interface, loaded with `ctypes`:
-no PyTorch headers, so a build takes seconds. The library goes to
-`<root>/<name>-<hash>/`, keyed by a hash of the source and the flags, so a
-changed source rebuilds and an unchanged one loads what is there. `<root>` is
-`$TTRM_TORCH_BUILD_DIR` when set, else `build/torch_kernels/` at the root of
-the checkout (listed in `.gitignore`). In an installed copy that default
-lands beside the `site-packages` directory, which may not be writable: set
-`TTRM_TORCH_BUILD_DIR` there.
+no PyTorch headers, so a build takes seconds. The library goes to the
+package's build root (`buildroot.py`: `$TTRM_TORCH_BUILD_DIR`, else
+`build/torch_kernels/` at the root of the checkout) as `<name>-<hash>/`,
+keyed by the source, the shared headers and the flags.
 
 Nothing here runs at import: a `KernelLibrary` builds its library at its
 first launch on a CUDA tensor. A failed build raises with nvcc's output;
@@ -17,18 +14,16 @@ there is no fallback.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 import threading
-import time
 from pathlib import Path
 
 import torch
 
+from two_tower_recommender_model_tpu_torch.buildroot import PerProcess, compile_once
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-DEFAULT_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -59,43 +54,20 @@ def load_library(name: str, source: str) -> BuiltLibrary:
     src = CSRC / source
     # the shared headers are part of every source's key: a changed header rebuilds them all
     code = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    key = hashlib.sha256(code + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    root = Path(os.environ.get("TTRM_TORCH_BUILD_DIR") or DEFAULT_BUILD_ROOT)
-    out_dir = root / f"{name}-{key}"
-    lib_path = out_dir / f"lib{name}.so"
-    log_path = out_dir / "nvcc.log"
-    seconds = 0.0
-    if not lib_path.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed (exit {proc.returncode}) building {src}:\n{log}")
-        log_path.write_text(log)
-        os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or nothing
-    log = log_path.read_text() if log_path.exists() else ""
-    return BuiltLibrary(ctypes.CDLL(str(lib_path)), lib_path, seconds, log)
+    path, seconds, log = compile_once(
+        name, code + " ".join(NVCC_FLAGS).encode(),
+        lambda out: [find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)])
+    return BuiltLibrary(ctypes.CDLL(str(path)), path, seconds, log)
 
 
-_SHARED: dict[str, list] = {}  # source -> [its lock, its BuiltLibrary or None]
-_SHARED_LOCK = threading.Lock()
+_SHARED = PerProcess()  # source -> its BuiltLibrary
 
 
 def shared_library(source: str) -> BuiltLibrary:
     """The library of `csrc/<source>`, built once per process however many
     kernels (entry points) it holds; builds of different sources do not wait
     for each other."""
-    with _SHARED_LOCK:
-        slot = _SHARED.setdefault(source, [threading.Lock(), None])
-    with slot[0]:
-        if slot[1] is None:
-            slot[1] = load_library(Path(source).stem, source)
-        return slot[1]
+    return _SHARED.get(source, lambda: load_library(Path(source).stem, source))
 
 
 class KernelLibrary:

@@ -33,7 +33,10 @@ counts its kernel launches in `rowwise_adagrad.launches`.
 `ops/block_sorted.py:block_sorted_aggregate` (`_aggregate_kernel`): the dense
 `[N, D]` f32 sum of `grads[j]` over `ids[j] == r`, exact zeros for rows no
 live id names; with `perm` the j-th id's row is `grads[perm[j]]` (the
-ranker's table gradient passes its stable device sort's permutation). Its
+ranker's table gradient passes its stable device sort's permutation). With
+`buffer_dtype=torch.bfloat16` it is the bf16 table's gradient of plain
+autodiff (the reference's bf16 scatter-add, the ranker's bf16 tables): a
+`[N, D]` bf16 output, each id's rows summed in the bf16 buffer's order. Its
 kernel lives in the same source; the same rules hold (sorted ids on CUDA
 tensors, the plain version only on the CPU, launches counted in
 `block_sorted_aggregate.launches`).
@@ -230,12 +233,22 @@ rowwise_adagrad = RowwiseAdagrad()
 
 
 def block_sorted_aggregate_reference(table_rows: int, sids: torch.Tensor, grads: torch.Tensor,
-                                     perm: torch.Tensor | None = None) -> torch.Tensor:
+                                     perm: torch.Tensor | None = None,
+                                     buffer_dtype: torch.dtype | None = None) -> torch.Tensor:
     """The plain PyTorch version of the aggregate kernel: `[table_rows, D]`
     f32, ids in any order, ids outside `[0, table_rows)` dropped; the j-th
-    id's row is `grads[perm[j]]` when `perm` is given."""
+    id's row is `grads[perm[j]]` when `perm` is given. With `buffer_dtype=
+    torch.bfloat16` the output is bf16: each id's rows summed in position
+    order from bf16 zero, rounded to bf16 after every add
+    (`bf16_buffer_sums`)."""
     if perm is not None:
         grads = grads[perm.long()]
+    if buffer_code(buffer_dtype) == _DTYPE_CODES[torch.bfloat16]:
+        rows, sums = bf16_buffer_sums(sids, grads, table_rows)
+        out = torch.zeros((table_rows, grads.shape[1]), dtype=torch.bfloat16,
+                          device=grads.device)
+        out[rows] = sums.to(torch.bfloat16)
+        return out
     live = (sids >= 0) & (sids < table_rows)
     return torch.zeros((table_rows, grads.shape[1]), dtype=torch.float32,
                        device=grads.device).index_add_(0, sids[live].long(),
@@ -244,22 +257,28 @@ def block_sorted_aggregate_reference(table_rows: int, sids: torch.Tensor, grads:
 
 class BlockSortedAggregate(_build.KernelLibrary):
     """The dense-aggregate wrapper: checks its inputs, allocates the zeroed
-    `[N, D]` f32 output and the span walk's scratch and launches the CUDA
-    kernel's two passes on the current stream (no sync). `launches` counts
-    calls that launch the kernel and nothing else."""
+    `[N, D]` output (f32, or bf16 in the bf16 buffer's mode) and the span
+    walk's scratch and launches the CUDA kernel's two passes on the current
+    stream (no sync). `launches` counts calls that launch the kernel and
+    nothing else; `bf16_launches` those of them in the bf16 mode."""
 
     def __init__(self):
         super().__init__("block_sorted_aggregate", "ttrm_sorted_aggregate", [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64], source="rowwise_adagrad.cu")
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int64], source="rowwise_adagrad.cu")
+        self.bf16_launches = 0
 
     def __call__(self, table_rows: int, sids: torch.Tensor, grads: torch.Tensor,
-                 perm: torch.Tensor | None = None) -> torch.Tensor:
-        """`[table_rows, D]` f32: each run of equal ids summed into its row.
-        `sids` `[M]` int32 must be non-decreasing on CUDA tensors (sentinels
-        >= `table_rows` last); `grads` `[M, D]` f32 or bf16, or `[*, D]`
-        read as `grads[perm[j]]` under `perm` `[M]` int32."""
+                 perm: torch.Tensor | None = None,
+                 buffer_dtype: torch.dtype | None = None) -> torch.Tensor:
+        """`[table_rows, D]` f32: each run of equal ids summed into its row;
+        with `buffer_dtype=torch.bfloat16` `[table_rows, D]` bf16, each run
+        summed in position order with a rounding to bf16 after every add (the
+        reference's bf16 scatter-add). `sids` `[M]` int32 must be
+        non-decreasing on CUDA tensors (sentinels >= `table_rows` last);
+        `grads` `[M, D]` f32 or bf16, or `[*, D]` read as `grads[perm[j]]`
+        under `perm` `[M]` int32."""
         if sids.dim() != 1 or sids.dtype != torch.int32:
             raise ValueError(f"sids must be [M] int32, got {tuple(sids.shape)} {sids.dtype}")
         m = sids.shape[0]
@@ -268,6 +287,7 @@ class BlockSortedAggregate(_build.KernelLibrary):
         if grads.dim() != 2 or (perm is None and grads.shape[0] != m):
             raise ValueError(f"grads must be [M={m}, D] ([*, D] under a permutation), got "
                              f"{tuple(grads.shape)}")
+        buf = buffer_code(buffer_dtype)
         tensors = [sids, grads]
         if perm is not None:
             if perm.shape != (m,) or perm.dtype != torch.int32:
@@ -278,17 +298,20 @@ class BlockSortedAggregate(_build.KernelLibrary):
         if not all(t.is_contiguous() for t in tensors):
             raise ValueError("sids, grads and perm must be contiguous")
         if grads.device.type == "cpu":
-            return block_sorted_aggregate_reference(table_rows, sids, grads, perm)
+            return block_sorted_aggregate_reference(table_rows, sids, grads, perm, buffer_dtype)
         if grads.device.type != "cuda":
             raise ValueError(f"block_sorted_aggregate runs on cpu or cuda tensors, got "
                              f"{grads.device}")
         d = grads.shape[1]
-        out = torch.zeros((table_rows, d), dtype=torch.float32, device=grads.device)
+        out_dtype = torch.bfloat16 if buf == _DTYPE_CODES[torch.bfloat16] else torch.float32
+        out = torch.zeros((table_rows, d), dtype=out_dtype, device=grads.device)
         if out.numel() and m:
             part, part_id = span_scratch(m, d, grads.device)
-            self.launch(grads.device, out.data_ptr(), sids.data_ptr(), grads.data_ptr(),
+            self.launch(grads.device, out.data_ptr(), buf, sids.data_ptr(), grads.data_ptr(),
                         _DTYPE_CODES[grads.dtype], None if perm is None else perm.data_ptr(),
                         part.data_ptr(), part_id.data_ptr(), part.shape[0], table_rows, d, m)
+            if out_dtype == torch.bfloat16:
+                self.bf16_launches += 1
         return out
 
 

@@ -77,6 +77,12 @@ def pooled_lookup(
         if pooling == "mean" and ids.shape[1] > 1:  # one slot: a count of 0 or 1
             out = out / torch.clamp(w.sum(dim=1, keepdim=True), min=1.0).to(compute_dtype)
         return out
+    if (pooling == "mean" and ids.shape[1] > 1 and not isinstance(table, QuantizedTable)
+            and table.dtype == torch.bfloat16):
+        # a bf16 table's mean as the reference's: the bag's sum in the output
+        # dtype, then divided by the count in it
+        out = _gather(table, ids, w, compute_dtype)
+        return out / torch.clamp(w.sum(dim=1, keepdim=True), min=1.0).to(out.dtype)
     if pooling == "mean":
         counts = w.sum(dim=1, keepdim=True)
         w = w / torch.clamp(counts, min=1.0)

@@ -34,6 +34,14 @@ rate. The capturable path computes Adam's bias corrections with f32 tensor
 arithmetic and holds the rate in f32, the plain one with Python doubles:
 the two agree to a few f32 ulps of each update (the rate times a ratio of
 order 1), not bit for bit.
+
+Over f32 parameters the recipe builds `torch.optim.Adam` / `AdamW`. Over
+parameters of another dtype (`param_dtype="bfloat16"`) it builds
+`OptaxAdam`, which rounds where optax rounds: every operation in the
+parameters' dtype, each Python constant rounded to it first (through f32, as
+JAX converts a Python number), the bias corrections `1 - b**count` in f32
+and then rounded. torch's Adam computes in f32 and rounds once, so on bf16
+weights it lands one ulp away from optax at a share of the elements.
 """
 
 from __future__ import annotations
@@ -274,6 +282,71 @@ def _cosine(init: float, steps: int, alpha: float) -> Callable[[int], float]:
     return lr
 
 
+class OptaxAdam(torch.optim.Optimizer):
+    """Adam, or AdamW with `weight_decay`, op for op as optax 0.2.6's
+    `scale_by_adam` -> (`add_decayed_weights`) -> `scale_by_learning_rate`
+    -> `apply_updates`, each operation rounded to the parameter's dtype:
+
+        mu = (1-b1)·g + b1·mu;  nu = (1-b2)·(g·g) + b2·nu
+        u  = (mu / c1) / (sqrt(nu / c2) + eps)     c = round(1 - b**count in f32)
+        u  = u + wd·p  (AdamW);  p = p + (-lr)·u
+
+    The learning rate is held in f32 (a Python double or a 0-dim f32 device
+    tensor, as `torch.optim.Adam` holds it) and rounded to the dtype at each
+    step, as optax rounds its f32 schedule value and its Python constant
+    alike. The state keys are torch Adam's (`step`, `exp_avg`,
+    `exp_avg_sq`), the moments in the parameter's dtype as optax's. In
+    place; `capturable` keeps the step counts on the parameters' device."""
+
+    def __init__(self, params, lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0,
+                 capturable=False):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay,
+                                      capturable=capturable))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("OptaxAdam takes no closure")
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            for dtype in dict.fromkeys(p.dtype for p in params):
+                self._update([p for p in params if p.dtype == dtype], group, dtype)
+
+    def _update(self, params: list[torch.Tensor], group: dict, dtype: torch.dtype) -> None:
+        def rounded(x: float) -> float:  # a Python constant as JAX converts it: via f32
+            return torch.tensor(x, dtype=torch.float32).to(dtype).item()
+
+        b1, b2 = group["betas"]
+        grads = [p.grad for p in params]
+        states = [self.state[p] for p in params]
+        mus = [s["exp_avg"] for s in states]
+        nus = [s["exp_avg_sq"] for s in states]
+        torch._foreach_add_([s["step"] for s in states], 1)
+        step = states[0]["step"]
+        # mu = (1-b1)·g + b1·mu; nu = (1-b2)·g² + b2·nu: three roundings each
+        torch._foreach_mul_(mus, rounded(b1))
+        torch._foreach_add_(mus, torch._foreach_mul(grads, rounded(1 - b1)))
+        g2 = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(g2, rounded(1 - b2))
+        torch._foreach_mul_(nus, rounded(b2))
+        torch._foreach_add_(nus, g2)
+        # the bias corrections: b**count in f32 (f32 base), 1 - it, then rounded
+        c1, c2 = ((1 - torch.pow(torch.full_like(step, b), step)).to(dtype) for b in (b1, b2))
+        m_hat = torch._foreach_div(mus, c1)
+        denom = torch._foreach_div(nus, c2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, rounded(group["eps"]))
+        updates = torch._foreach_div(m_hat, denom)
+        if group["weight_decay"]:
+            torch._foreach_add_(updates,
+                                torch._foreach_mul(params, rounded(group["weight_decay"])))
+        lr = group["lr"]
+        rate = -(lr.to(dtype) if torch.is_tensor(lr) else
+                 torch.tensor(lr, dtype=torch.float32).to(dtype))
+        torch._foreach_mul_(updates, rate)
+        torch._foreach_add_(params, updates)
+
+
 def init_adam_state(opt: torch.optim.Optimizer) -> None:
     """Create Adam's per-parameter state (zero moments, step 0) now instead
     of at the first `step()`, as `torch.optim.Adam` itself creates it: a CUDA
@@ -304,8 +377,9 @@ class DenseOptimizer:
 
     def build(self, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
         """Adam (AdamW with `weight_decay`) over `params`, its state created
-        at once. Over CUDA parameters it is capturable and its rate is a
-        0-dim device tensor."""
+        at once: torch's over f32 parameters, `OptaxAdam` over any other
+        dtype. Over CUDA parameters it is capturable and its rate is a 0-dim
+        device tensor."""
         params = list(params)
         cuda = bool(params) and params[0].is_cuda
         lr = self.schedule(0)
@@ -313,7 +387,9 @@ class DenseOptimizer:
             lr = torch.tensor(lr, dtype=torch.float32, device=params[0].device)
         # optax's defaults: b1 0.9, b2 0.999, eps 1e-8; AdamW decays the
         # weights decoupled from the Adam direction, as optax.adamw does
-        if self.weight_decay:
+        if any(p.dtype != torch.float32 for p in params):
+            opt = OptaxAdam(params, lr=lr, weight_decay=self.weight_decay, capturable=cuda)
+        elif self.weight_decay:
             opt = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                     weight_decay=self.weight_decay, capturable=cuda)
         else:
@@ -348,7 +424,8 @@ def clone_dense_optimizer(opt: torch.optim.Optimizer,
     """An optimizer of `opt`'s kind and hyperparameters over `params` (the
     same parameters in the same order, on any device: theirs decides whether
     it is capturable), with a copy of `opt`'s state."""
-    decay = opt.param_groups[0]["weight_decay"] if type(opt) is torch.optim.AdamW else 0.0
+    decay = (opt.param_groups[0]["weight_decay"]
+             if type(opt) in (torch.optim.AdamW, OptaxAdam) else 0.0)
     new = DenseOptimizer(opt.lr_schedule, decay).build(params)
     olds = [p for g in opt.param_groups for p in g["params"]]
     news = [p for g in new.param_groups for p in g["params"]]
