@@ -54,8 +54,11 @@ without a card. Phases (any failure raises and exits non-zero):
    inputs whose every layer-1 sum sits at a bf16 rounding tie: within 2^-8
    x max|plain| of its plain version, two launches bit for bit, the share
    bit for bit, the ReLU decisions that differ (none from the k-order
-   route's at the ties), the share of each layer recomputed, its ms beside
-   the two-GEMM route's (cuBLAS `_mm` and relu_ties a layer) split by call;
+   route's at the ties), the share of each layer recomputed, its ms and
+   share of its bound beside the two-GEMM route's (cuBLAS `_mm` and
+   relu_ties a layer) split by call, a BCE step's two calls, and a tile's
+   time split into the kernel's stages (x loads, products, epilogues, tie
+   rounds, output stores: each stage's ms added to the run up to it);
    relu_ties (that route's bias and ReLU, off the main path) at its four
    calls a BCE step (layer 1 [262,144, 128], layer 2 [262,144, 64], K =
    128) and on a layer whose every sum sits at a bf16 rounding tie: bit for
@@ -386,6 +389,7 @@ line is `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import contextlib
 import csv
@@ -480,6 +484,7 @@ from two_tower_recommender_model_tpu_torch.ops.tower_bwd import (
     tower_backward_reference,
 )
 from two_tower_recommender_model_tpu_torch.ops.tower_fwd import (
+    SPLIT_STAGES,
     _mm,
     tower_forward,
     tower_forward_reference,
@@ -1775,6 +1780,20 @@ def two_gemm_route(x, w1, b1, w2, b2) -> torch.Tensor:
     return relu_ties(_mm(h1, w2), b2, h1, w2)
 
 
+def tower_fwd_split(launch, flush: torch.Tensor) -> dict[str, dict[str, float]]:
+    """A tile's time split into its stages: `launch(stage)` runs the kernel
+    up to that stage (the x loads alone; and the products; and the
+    epilogues, ties taken as none; and the tie rounds; and the output
+    stores: the whole kernel), and a stage's ms is what it adds to the run
+    before it, so the parts sum to the whole kernel's median."""
+    upto = {stage: median_ms(lambda: launch(stage), flush) for stage in SPLIT_STAGES}
+    split, before = {}, 0.0
+    for stage in SPLIT_STAGES:
+        split[stage] = upto[stage] - before
+        before = upto[stage]
+    return {"upto_ms": upto, "split_ms": split}
+
+
 def phase_tower_fwd_kernel(dev: torch.device, profile: bool) -> dict:
     """tower_fwd (the fused tower's bf16 forward) against its plain version
     (`tower_forward_reference`: cuBLAS GEMMs and relu_ties's plain version)
@@ -1791,9 +1810,11 @@ def phase_tower_fwd_kernel(dev: torch.device, profile: bool) -> dict:
     in them, W2 = I, bit for bit the k-order route's), the share of each layer's values
     the plain route recomputes; the kernel's ms beside the plain version's,
     the bound (bytes: x read, out written, the weights; FLOPs: both products
-    and the ties' recompute) and the two-GEMM route's ms, split into its
-    `_mm` and relu_ties calls. Under --profile, the device kernels of one
-    bf16 tower forward through `Mlp2Relu`'s path: one tower_fwd, no GEMM."""
+    and the ties' recompute) and its share, and the two-GEMM route's ms,
+    split into its `_mm` and relu_ties calls; at the BCE step's shape the
+    kernel's tile split (`tower_fwd_split`). Under --profile, the device
+    kernels of one bf16 tower forward through `Mlp2Relu`'s path: one
+    tower_fwd, no GEMM."""
     rng = np.random.default_rng(12)
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
 
@@ -1875,8 +1896,9 @@ def phase_tower_fwd_kernel(dev: torch.device, profile: bool) -> dict:
             f"({ {k: v for k, v in route.items()} }), {route_ms / ms!r}x the kernel")
     user, item = out["user tower"], out["item tower"]
     log(f"[kernel] tower_fwd a BCE step (2 towers): kernel {user['ms'] + item['ms']!r} ms, bound "
-        f"{user['bound_ms'] + item['bound_ms']!r} ms; the two-GEMM route "
-        f"{user['route_ms'] + item['route_ms']!r} ms")
+        f"{user['bound_ms'] + item['bound_ms']!r} ms "
+        f"({(user['bound_ms'] + item['bound_ms']) / (user['ms'] + item['ms'])!r} of it); the "
+        f"two-GEMM route {user['route_ms'] + item['route_ms']!r} ms")
     if profile:
         from two_tower_recommender_model_tpu_torch.models.mlp import _mlp2_fwd_impl
 
@@ -1888,6 +1910,11 @@ def phase_tower_fwd_kernel(dev: torch.device, profile: bool) -> dict:
         if gemms or len(kernels) != 1:
             raise AssertionError(f"[profile] the bf16 tower forward runs {sorted(kernels)}: "
                                  f"one tower_fwd and no GEMM expected")
+    args = cases["user tower"]
+    split = tower_fwd_split(lambda stage: tower_forward.split(stage, *args), flush)
+    log(f"[kernel] tower_fwd tile split at [{TRAIN_BATCH}, {DIM}] -> [{DIM}] -> [{LAYERS[1]}] "
+        f"(ms each stage adds to the kernel run up to it): {split['split_ms']!r}; the runs up "
+        f"to each stage {split['upto_ms']!r}")
     return {**user, "library_ms": None, "max_abs_err": max(r["max_abs_err"] for r in out.values()),
             "ms_a_bce_step": user["ms"] + item["ms"]}
 
@@ -4051,8 +4078,10 @@ def profile_direct(fn, label: str, gathers_per_call: int, calls: int = 10,
         gathers = sum(marker in name for _, _, name in spans)
         if gathers == gathers_per_call * calls:
             break
+        held = collections.Counter(name for _, _, name in spans).most_common(3)
         log(f"[profile] {label}: trace {attempt} holds {gathers} {marker} launches, "
-            f"expected {gathers_per_call * calls}: thrown away")
+            f"expected {gathers_per_call * calls}: thrown away (its most frequent device "
+            f"items: {held})")
     else:
         raise AssertionError(f"{label}: no complete trace in {TRACE_TRIES} tries")
     busy, (lo, hi) = 0.0, spans[0][:2]

@@ -167,6 +167,22 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         tower_forward(x, w1, b1, w2.to("meta"), b2)
 
 
+def test_split_launch_refuses_cpu_tensors_and_unknown_stages():
+    """A split launch (the kernel run up to a stage, for timing) has no plain
+    version: on CPU tensors it raises, as for a stage it does not know or
+    inputs the kernel does not take, and it builds and counts nothing."""
+    x, w1, b1, w2, b2 = (_bf(a) for a in _draws(512, 64, 7))
+    before = tower_forward.launches
+    with pytest.raises(ValueError, match="stage must be one of"):
+        tower_forward.split("epilogues", x, w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="H2 = 64 on CUDA tensors"):
+        tower_forward.split("ties", x, w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="B % 512"):
+        tower_forward.split("loads", x[:500], w1, b1, w2, b2)
+    assert tower_forward.launches == before
+    assert tower_forward._built is None
+
+
 def test_mlp2relu_on_cpu_keeps_the_widened_route():
     """`Mlp2Relu` on CPU tensors: the forward stays the widened route (f32
     GEMMs, bf16 add, ReLU) and launches nothing; its backward runs through

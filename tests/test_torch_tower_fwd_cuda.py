@@ -215,3 +215,142 @@ def test_tower_forward_sums_sparse_ties_in_k_order(dev, tie_cols):
     plain = tower_forward_reference(x, w1, b1, w2, b2)
     torch.testing.assert_close(got.float(), plain.float(), rtol=0,
                                atol=2.0 ** -8 * plain.float().abs().max().item())
+
+
+def _walkers(batch, h2, sms):
+    """(blocks, consumer warpgroups a block) of tower_fwd's launch, as
+    `csrc/tower_fwd.cu` sets them: tile t (64 rows) goes to block t %
+    blocks, and there to consumer (t // blocks) % consumers, whose tiles
+    follow one another in that order."""
+    consumers = 4 if h2 <= 64 else 3  # the layouts' consumers: as many as shared memory holds
+    return min(sms, -(-(batch // 64) // consumers)), consumers
+
+
+def _tied_tiles(dev, n_tiles, h2, tiles, seed):
+    """Inputs whose layer-1 sums sit at bf16 rounding ties in every column of
+    the rows of `tiles` (the tie inputs' W1 and b1, x's leading 1, 1) and
+    nowhere else (x's leading 2.5, 0 there: pre ~ 1.5 m, far from -b1), with
+    W2 = I and b2 = 0, so that out = h1 and each zero of h1 ties in layer
+    2: ties of both layers in those tiles only. Returns the inputs and the
+    tied rows."""
+    x, w1, b1, _, _ = tie_inputs(64 * n_tiles, 8, seed)
+    tied = np.zeros(64 * n_tiles, dtype=bool)
+    for t in tiles:
+        tied[64 * t:64 * t + 64] = True
+    x[~tied, 0], x[~tied, 1] = 2.5, 0.0
+    x, w1, b1 = _on(dev, x, w1, b1)
+    w2 = torch.eye(128, dtype=torch.bfloat16, device=dev)[:, :h2]
+    return (x, w1, b1, w2, torch.zeros(h2, dtype=torch.bfloat16, device=dev)), tied
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h2", [64, 128])
+@pytest.mark.parametrize("where", ["consecutive tiles of a walker", "last tiles of walkers"])
+def test_ties_in_chosen_tiles_of_the_walk(dev, h2, where):
+    """Ties of both layers only in chosen tiles of the kernel's walk, at 1,096
+    tiles (not a multiple of the walkers, the consumers a block times 132):
+    the first two tiles of one walker, whose layer-2 ties are settled under
+    the next tile's product, or the last tile of every walker (its layer-2
+    ties settled after the walk, before the last store) and the tile before
+    it. With W2 = I and b2 = 0, out = h1: the tied rows bit for bit the
+    k-order route's h1 (every value of theirs summed again), the others
+    within 2^-8 x max|plain| of the plain version; the ReLU decisions the
+    plain version's; two launches bit for bit."""
+    n_tiles = 1096
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks, consumers = _walkers(64 * n_tiles, h2, sms)
+    walkers = blocks * consumers
+    assert n_tiles % walkers
+    if where == "consecutive tiles of a walker":
+        tiles = [0, walkers]
+    else:  # each walker's last tile and the one before it
+        tiles = sorted({t for w in range(walkers) for t in (
+            max(u for u in range(n_tiles) if u % walkers == w) - d * walkers for d in (0, 1))})
+    args, tied = _tied_tiles(dev, n_tiles, h2, tiles, 40 + h2)
+    got = tower_forward(*args).clone()
+    again = tower_forward(*args)
+    plain = tower_forward_reference(*args)
+    h1_k, _ = k_order_forward(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    rows = torch.from_numpy(tied).to(dev)
+    assert torch.equal(got[rows], h1_k[rows, :h2])
+    assert torch.equal(got > 0, plain > 0)
+    assert 0.3 < (got[rows] > 0).float().mean().item() < 0.7  # layer 2 ties at the zeros
+    torch.testing.assert_close(got.float(), plain.float(), rtol=0,
+                               atol=2.0 ** -8 * plain.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 3, 5])
+@pytest.mark.parametrize("h2", [37, 64, 128])
+def test_batches_of_fewer_tiles_than_the_ring(dev, k, h2):
+    """B = 64 k for k below and about the ring's depth of 4 tiles (the kernel
+    takes any multiple of 64; the wrapper's granule of 512 is the tower
+    backward's): one block a tile for each consumer at most, consumers with
+    no tile at all, and the ring's first loads the whole walk. Called below
+    the wrapper's check; values within 2^-8 x max|plain| of the plain
+    version and the ties of the tie inputs' rows in k order."""
+    rng = np.random.default_rng(k * h2)
+    x, w1, b1, w2, b2 = _tower_case(dev, 64 * k, h2, 100 + k * h2, linear_layout=True)
+    got = tower_forward._launch(x, w1, b1, w2, b2)
+    want = tower_forward_reference(x, w1, b1, w2, b2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=2.0 ** -8 * want.float().abs().max().item())
+    tx, tw1, tb1, _, _ = _on(dev, *tie_inputs(64 * k, h2, int(rng.integers(1 << 16))))
+    eye = torch.eye(128, dtype=torch.bfloat16, device=dev)[:, :h2]
+    zero = torch.zeros(h2, dtype=torch.bfloat16, device=dev)
+    h1_k, _ = k_order_forward(tx, tw1, tb1, eye, zero)
+    assert torch.equal(tower_forward._launch(tx, tw1, tb1, eye, zero), h1_k[:, :h2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h2", [1, 37, 64, 100, 128])
+def test_widths_and_weight_layouts_agree(dev, h2):
+    """Every width H2 the kernel takes (the no-branch instance at 64 and
+    128, the padded one elsewhere; TMA box stores at 64 and 128, one bulk
+    copy a tile elsewhere), at 70,144 rows: `nn.Linear` weights' transposed
+    views give the bits of contiguous [in, out] weights, and both lie within
+    2^-8 x max|plain| of the plain version."""
+    x, w1, b1, w2, b2 = _tower_case(dev, 70_144, h2, 7 * h2)
+    got = tower_forward(x, w1, b1, w2, b2)
+    linear = tower_forward(x, w1.T.contiguous().T, b1, w2.T.contiguous().T, b2)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), linear.view(torch.int16))
+    want = tower_forward_reference(x, w1, b1, w2, b2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=2.0 ** -8 * want.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h2", [37, 64, 128])
+def test_two_launches_and_a_captured_graph_agree(dev, h2):
+    """The kernel allocates nothing and does not synchronize, so it is
+    captured in a CUDA graph: the graph's replays, on the inputs as they lie
+    and after new values are copied into them, give the bits of eager
+    launches, which give each other's; one launch counted per eager call
+    and none per replay."""
+    args = _tower_case(dev, 65_536, h2, 9 + h2, linear_layout=True)
+    first = tower_forward(*args).clone()
+    second = tower_forward(*args).clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        tower_forward(*args)  # a warm-up launch on the capturing stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tower_forward(*args)
+    before = tower_forward.launches
+    graph.replay()
+    torch.cuda.synchronize()
+    assert tower_forward.launches == before
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+    assert torch.equal(out.view(torch.int16), first.view(torch.int16))
+    fresh = _tower_case(dev, 65_536, h2, 10 + h2, linear_layout=True)
+    for t, v in zip(args, fresh):
+        t.copy_(v)
+    graph.replay()
+    want = tower_forward(*fresh)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int16), want.view(torch.int16))

@@ -132,18 +132,20 @@
 // caller's stream, does not synchronise and allocates nothing; each entry
 // point returns cudaGetLastError().
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched through the runtime
+#include <cuda.h>  // CUtensorMap and its enums
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "mma_sm90.cuh"
+#include "tma_map.cuh"
 #include "wgmma_sm90.cuh"
 
 namespace {
 
 using namespace mma_sm90;
 using namespace wgmma_sm90;
+using tma_map::bf16_map;
 using bf16 = __nv_bfloat16;
 
 constexpr float kNeg = -1e9f;
@@ -774,6 +776,7 @@ constexpr int kMaxDim = 2048;
 constexpr int kTileM = 128;                       // output rows of a tile: 2 warpgroups x 64
 constexpr int kTileN = 128;                       // output columns: one m64n128k16 a warpgroup
 constexpr int kTileK = 64;                        // depth of a stage: a 128-byte swizzled row
+static_assert(kTileK == tma_map::kBoxCols, "a stage's depth is one TMA box wide");
 constexpr int kStages = 5;                        // the shared-memory ring
 constexpr int kHalfBytes = 64 * kTileK * 2;       // one [64, 64] bf16 TMA box: 8 KB
 constexpr int kStageBytes = 4 * kHalfBytes;       // A [128, 64] and B [128, 64]: 32 KB
@@ -1312,45 +1315,6 @@ int launch_ring(K kernel, int n_tiles, size_t smem, cudaStream_t stream, const P
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<n_tiles < sms ? n_tiles : sms, kWideThreads, smem, stream>>>(params...);
   return static_cast<int>(cudaGetLastError());
-}
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A tensor map of a row-major bf16 matrix [outer, inner] in boxes of
-// [box_outer, 64] with the 128-byte swizzle
-bool bf16_map(CUtensorMap* m, const void* base, int64_t inner, int64_t outer, int box_outer) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 2};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kTileK), static_cast<cuuint32_t>(box_outer)};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }

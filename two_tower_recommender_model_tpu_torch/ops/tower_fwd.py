@@ -12,11 +12,13 @@ tie against -b is summed again in k order, so the forward makes the ReLU
 decisions that the tower backward (#8), the plain version and the host make.
 
 `tower_forward` launches the hand-written kernel of `csrc/tower_fwd.cu` (both
-layers in one kernel, h1 kept in shared memory) on CUDA tensors and takes
-`tower_forward_reference` only for tensors that lie on the CPU. It counts its
-kernel launches in `tower_forward.launches`. No TPU kernel is replaced: the
-reference's `_mlp2_fwd_impl` (`models/mlp.py:89` of the JAX package) is two
-dots that XLA fuses with their bias and ReLU.
+layers in one kernel, h1 kept in shared memory; x by TMA into a ring that a
+producer warp keeps full, each tile's ties pooled and summed again by one
+warp, the output out by TMA stores) on CUDA tensors and takes
+`tower_forward_reference` only for tensors that lie on the CPU. It
+counts its kernel launches in `tower_forward.launches`. No TPU kernel is
+replaced: the reference's `_mlp2_fwd_impl` (`models/mlp.py:89` of the JAX
+package) is two dots that XLA fuses with their bias and ReLU.
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ from two_tower_recommender_model_tpu_torch.ops import _build
 from two_tower_recommender_model_tpu_torch.ops.relu_ties import relu_ties_reference
 from two_tower_recommender_model_tpu_torch.ops.tower_bwd import fits
 
-_TILE_ROWS = 64  # rows of a tile of the CUDA kernel
-_GROUPS = 3  # tile walkers (warpgroups) in a block of the CUDA kernel
+# the stages a split launch runs the kernel up to (`TowerForward.split`), in its order
+SPLIT_STAGES = ("loads", "products", "epilogue", "ties", "stores")
 
 
 def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -54,6 +56,11 @@ def tower_forward_reference(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return relu_ties_reference(_mm(h1, w2), b2, h1, w2)
 
 
+_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
+
+
 class TowerForward(_build.KernelLibrary):
     """The wrapper: checks its inputs, allocates the output and launches the
     CUDA kernel on the current stream (no sync), one launch in `launches`,
@@ -61,16 +68,37 @@ class TowerForward(_build.KernelLibrary):
     `tower_forward_reference` and does not count."""
 
     def __init__(self):
-        super().__init__("tower_fwd", "ttrm_tower_fwd", [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64])
+        super().__init__("tower_fwd", "ttrm_tower_fwd", _ARGS,
+                         extra={"ttrm_tower_fwd_split": [*_ARGS, ctypes.c_int64]})
 
     def __call__(self, x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                  b2: torch.Tensor) -> torch.Tensor:
         """`relu(relu(x @ w1 + b1) @ w2 + b2)` [B, H2] bf16. The weights may
         have any strides (an `nn.Linear` weight's `.T` is read as it lies);
         x is made contiguous and must then lie on a 16-byte boundary."""
+        x, b1, b2 = self._check(x, w1, b1, w2, b2)
+        if x.device.type == "cpu":
+            return tower_forward_reference(x, w1, b1, w2, b2)
+        return self._launch(x, w1, b1, w2, b2)
+
+    def split(self, stage: str, x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+              w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+        """One launch of the kernel run up to `stage` of `SPLIT_STAGES` (the
+        x loads alone; and the products; and the epilogues, ties taken as
+        none; and the tie rounds; "stores" is the whole kernel), at H2 = 64
+        on CUDA tensors: for timing a tile's parts. Before "stores" the
+        output is not the function's."""
+        if stage not in SPLIT_STAGES:
+            raise ValueError(f"stage must be one of {SPLIT_STAGES}, got {stage!r}")
+        x, b1, b2 = self._check(x, w1, b1, w2, b2)
+        if x.device.type != "cuda" or w2.shape[1] != 64:
+            raise ValueError("a split launch runs the CUDA kernel at H2 = 64 on CUDA tensors")
+        return self._launch(x, w1, b1, w2, b2, split=(SPLIT_STAGES.index(stage) + 1) % 5)
+
+    @staticmethod
+    def _check(x, w1, b1, w2, b2) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Refuses what the kernel and its plain version do not take; x, b1
+        and b2 as they are passed on."""
         if x.dim() != 2 or w1.dim() != 2 or w2.dim() != 2 or b1.dim() != 1 or b2.dim() != 1:
             raise ValueError("x, w1, w2 must be 2-d and b1, b2 1-d")
         (batch, d_in), h1, h2 = x.shape, w1.shape[1], w2.shape[1]
@@ -86,19 +114,25 @@ class TowerForward(_build.KernelLibrary):
         if len({t.device for t in (x, w1, b1, w2, b2)}) != 1:
             raise ValueError("x, w1, b1, w2 and b2 must share a device")
         if x.device.type == "cpu":
-            return tower_forward_reference(x, w1, b1, w2, b2)
+            return x, b1, b2
         if x.device.type != "cuda":
             raise ValueError(f"tower_forward runs on cpu or cuda tensors, got {x.device}")
         x, b1, b2 = x.contiguous(), b1.contiguous(), b2.contiguous()
         if x.data_ptr() % 16:
-            raise ValueError("x must lie on a 16-byte boundary (the kernel copies 16-byte chunks)")
+            raise ValueError("x must lie on a 16-byte boundary (the kernel's TMA reads it)")
+        return x, b1, b2
+
+    def _launch(self, x, w1, b1, w2, b2, split: int | None = None) -> torch.Tensor:
+        (batch, _), h2 = x.shape, w2.shape[1]
         out = torch.empty((batch, h2), dtype=torch.bfloat16, device=x.device)
-        if batch:
+        if batch:  # the kernel's grid: from B and the SM count
             sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-            n_blocks = min(-(-(batch // _TILE_ROWS) // _GROUPS), sms)
-            self.launch(x.device, x.data_ptr(), w1.data_ptr(), *w1.stride(), b1.data_ptr(),
-                        w2.data_ptr(), *w2.stride(), b2.data_ptr(), out.data_ptr(), batch, h2,
-                        n_blocks)
+            args = (x.data_ptr(), w1.data_ptr(), *w1.stride(), b1.data_ptr(), w2.data_ptr(),
+                    *w2.stride(), b2.data_ptr(), out.data_ptr(), batch, h2, sms)
+            if split is None:
+                self.launch(x.device, *args)
+            else:
+                self.launch(x.device, *args, split, entry="ttrm_tower_fwd_split")
         return out
 
 

@@ -39,6 +39,8 @@ import socket
 import torch
 import torch.distributed as dist
 
+from two_tower_recommender_model_tpu_torch.device import resolve_device
+
 log = logging.getLogger(__name__)
 
 
@@ -106,11 +108,13 @@ def initialize_multi_host(coordinator_address: str | None = None,
     return initialize_distributed(device, num_processes, process_id, init_method)
 
 
-def devices_for(method: TrainingMethod) -> list[torch.device]:
+def devices_for(method: TrainingMethod,
+                device: torch.device | str | None = None) -> list[torch.device]:
     """The devices a method runs on from this host: the first card, or all
-    of them (a rank each)."""
-    if not torch.cuda.is_available():
-        return [torch.device("cpu")]
+    of them (a rank each). `device="cpu"` gives the CPU; with no device
+    named and no card it raises (`resolve_device`)."""
+    if resolve_device(device).type != "cuda":
+        return [torch.device(device)]
     n = 1 if method == TrainingMethod.SINGLE_CHIP else torch.cuda.device_count()
     return [torch.device("cuda", i) for i in range(n)]
 

@@ -26,6 +26,8 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from two_tower_recommender_model_tpu_torch.device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
@@ -108,13 +110,14 @@ class Topology:
 def topology_summary(device: torch.device | str | None = None) -> Topology:
     """The topology from the process group and the device: ranks (one a
     device), hosts (torchrun's `LOCAL_WORLD_SIZE` ranks a host), the
-    platform ("gpu" or "cpu"), the card's name and its memory."""
+    platform ("gpu" or "cpu"), the card's name and its memory. With no
+    device named it is the current card, and with no card it raises
+    (`resolve_device`): the CPU only when asked, `device="cpu"`."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     per_host = int(os.environ.get("LOCAL_WORLD_SIZE", world)) or 1
-    if device is None:
-        device = torch.device("cuda", torch.cuda.current_device()) \
-            if torch.cuda.is_available() else torch.device("cpu")
-    device = torch.device(device)
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     cuda = device.type == "cuda"
     return Topology(
         num_devices=world,
