@@ -396,6 +396,7 @@ import csv
 import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -480,6 +481,7 @@ from two_tower_recommender_model_tpu_torch.ops.row_subtract import (
     row_subtract_reference,
 )
 from two_tower_recommender_model_tpu_torch.ops.tower_bwd import (
+    SPLIT_STAGES as BWD_SPLIT_STAGES,
     tower_backward,
     tower_backward_reference,
 )
@@ -1609,14 +1611,18 @@ def phase_wide_table_kernels(dev: torch.device) -> None:
 
 def phase_tower_kernel(dev: torch.device) -> dict:
     """Kernel #8 against its plain version at the flagship tower's shapes,
-    with bf16 io (the bf16 step's) and f32 io. dx, dW1 and dW2 within one
-    bf16 ulp of their largest magnitude: each product takes bf16-rounded
-    intermediates (pre1, d1, dx), and where an f32 sum lands on a bf16
-    rounding boundary the two versions, which sum in different orders, round
-    it to neighbouring bf16 values. db1 and db2 sum unrounded f32 values:
-    within 1e-5 x max. Two launches on the same inputs must agree bit for
-    bit. Beside the kernel's time: the plain version's, the bound, and
-    `tower_composed`'s (bf16 GEMMs and masks)."""
+    with bf16 io (the bf16 step's) and f32 io, and at H2 = 128. dx, dW1 and
+    dW2 within one bf16 ulp of their largest magnitude: each product takes
+    bf16-rounded intermediates (pre1, d1, dx), and where an f32 sum lands on
+    a bf16 rounding boundary the two versions, which sum in different
+    orders, round it to neighbouring bf16 values. db1 and db2 sum unrounded
+    f32 values: within 1e-5 x max. Then the layer whose every layer-1 sum
+    sits at a bf16 rounding tie (`tie_inputs`), held to the plain version
+    with pre1 summed in k order (the decisions the kernel takes there). Two
+    launches on the same inputs must agree bit for bit. Beside the kernel's
+    time: the plain version's, the bound and the kernel's share of it, and
+    `tower_composed`'s (bf16 GEMMs and masks); then the registers and spills
+    of the kernel's instantiations and, at the BCE shape, its tile split."""
     rng = np.random.default_rng(3)
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
     h2 = LAYERS[1]
@@ -1624,31 +1630,54 @@ def phase_tower_kernel(dev: torch.device) -> dict:
     def on_card(a, dtype=torch.float32):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
 
-    x = on_card(rng.normal(size=(TRAIN_BATCH, DIM)), torch.bfloat16)
-    dq = on_card(rng.normal(size=(TRAIN_BATCH, h2)) / TRAIN_BATCH, torch.bfloat16)
-    out = on_card(np.maximum(rng.normal(size=(TRAIN_BATCH, h2)), 0), torch.bfloat16)
-    w1, b1 = on_card(rng.normal(size=(DIM, DIM), scale=0.1)), on_card(rng.normal(size=DIM) * 0.1)
-    w2 = on_card(rng.normal(size=(DIM, h2), scale=0.1))
-    w1, b1, w2 = (w.to(torch.bfloat16) for w in (w1, b1, w2))  # as the towers pass them
+    def draw(rows: int, width: int):
+        x = on_card(rng.normal(size=(rows, DIM)), torch.bfloat16)
+        dq = on_card(rng.normal(size=(rows, width)) / rows, torch.bfloat16)
+        out = on_card(np.maximum(rng.normal(size=(rows, width)), 0), torch.bfloat16)
+        w1 = on_card(rng.normal(size=(DIM, DIM), scale=0.1))
+        b1 = on_card(rng.normal(size=DIM) * 0.1)
+        w2 = on_card(rng.normal(size=(DIM, width), scale=0.1))
+        # the weights as the towers pass them: bf16
+        return (x, dq, out, *(w.to(torch.bfloat16) for w in (w1, b1, w2)))
+
+    x, dq, out, w1, b1, w2 = draw(TRAIN_BATCH, h2)
+    ta, tw, tb = tie_inputs(16_384, DIM, 4)
+    tie_case = (on_card(ta, torch.bfloat16), on_card(rng.normal(loc=0.5, size=(16_384, h2)),
+                                                     torch.bfloat16),
+                on_card(np.maximum(rng.normal(size=(16_384, h2)), 0), torch.bfloat16),
+                on_card(tw, torch.bfloat16), on_card(tb, torch.bfloat16),
+                on_card(rng.normal(size=(DIM, h2), scale=0.1), torch.bfloat16))
+    cases = {"bf16 io": ((x, dq, out, w1, b1, w2), tower_backward_reference),
+             "f32 io": ((x.float(), dq.float(), out.float(), w1, b1, w2),
+                        tower_backward_reference),
+             "bf16 io, H2 = 128": (draw(TRAIN_BATCH, 128), tower_backward_reference),
+             "every layer-1 sum at a tie": (tie_case, k_order_backward)}
     labels = ("dx", "dW1", "db1", "dW2", "db2")
     results = {}
-    for io in (torch.bfloat16, torch.float32):
-        args = (x.to(io), dq.to(io), out.to(io), w1, b1, w2)
+    for case, (args, plain) in cases.items():
         got = [t.clone() for t in tower_backward(*args)]
         again = tower_backward(*args)
-        want = tower_backward_reference(*args)
+        want = plain(*args)
         torch.cuda.synchronize()
-        errs = [within_rel(g, w, 2.0 ** -8 if i in (0, 1, 3) else 1e-5, f"tower_bwd {io} {label}")
+        errs = [within_rel(g, w, 2.0 ** -8 if i in (0, 1, 3) else 1e-5, f"tower_bwd {case} {label}")
                 for i, (g, w, label) in enumerate(zip(got, want, labels))]
         if not all(bitwise_equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"tower_bwd {io}: two launches on the same inputs differ")
+            raise AssertionError(f"tower_bwd {case}: two launches on the same inputs differ")
+        rows, width = args[0].shape[0], args[1].shape[1]
+        io_bytes = args[0].element_size()
+        # x, dq and out read and dx written, the weights read, their gradients written
+        b = bound(rows * (2 * DIM + 2 * width) * io_bytes + 2 * (DIM * DIM + DIM + DIM * width)
+                  + 4 * (DIM * DIM + DIM + DIM * width + width),
+                  2 * rows * DIM * (3 * DIM + 2 * width), PEAK_BF16)
         ms = median_ms(lambda: tower_backward(*args), flush)
-        plain_ms = median_ms(lambda: tower_backward_reference(*args), flush)
-        log(f"[kernel] tower_bwd [{TRAIN_BATCH}, {DIM}] -> [{DIM}] -> [{h2}] {io}: dx, dW1, dW2 "
+        plain_ms = median_ms(lambda: plain(*args), flush, reps=5 if plain is k_order_backward
+                             else REPS)
+        log(f"[kernel] tower_bwd {case} [{rows}, {DIM}] -> [{DIM}] -> [{width}]: dx, dW1, dW2 "
             f"within 2^-8 x max|plain|, db within 1e-5 x max|plain|, two launches bit for bit "
             f"equal; max_abs_err(dx, dW1, db1, dW2, db2)={errs!r}, kernel_ms={ms!r}, "
-            f"plain_ms={plain_ms!r}")
-        results[io] = (max(errs), ms, plain_ms)
+            f"plain_ms={plain_ms!r}, bound_ms={b['bound_ms']!r} by {b['bound_by']} "
+            f"({b['bound_ms'] / ms!r} of it)")
+        results[case] = (max(errs), ms, plain_ms, b)
     # the yardstick's own distance from the plain version, printed, not held: its bf16
     # GEMMs sum on the tensor cores and take ReLU decisions at rounding ties as they fall
     composed = tower_composed(x, dq, out, w1, b1, w2)
@@ -1659,15 +1688,58 @@ def phase_tower_kernel(dev: torch.device) -> dict:
     comp_errs = [((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
                  for g, w in zip(composed, want)]
     composed_ms = median_ms(lambda: tower_composed(x, dq, out, w1, b1, w2), flush)
-    # x, dq and out read and dx written in bf16, the weights read, their gradients written
-    b = bound(TRAIN_BATCH * (2 * DIM + 2 * h2) * 2 + 2 * (DIM * DIM + DIM + DIM * h2 + h2) * 4,
-              2 * TRAIN_BATCH * DIM * (3 * DIM + 2 * h2), PEAK_BF16)
-    _, ms, plain_ms = results[torch.bfloat16]
-    log(f"[kernel] tower_bwd: bound_ms={b['bound_ms']!r} by {b['bound_by']}; no single PyTorch "
-        f"call computes it; composed_ms={composed_ms!r} ({TOWER_COMPOSED_CALLS} PyTorch calls, "
-        f"5 of them bf16 GEMMs; max abs diff from the plain version over its max: {comp_errs!r})")
+    _, ms, plain_ms, b = results["bf16 io"]
+    log(f"[kernel] tower_bwd: bound_ms={b['bound_ms']!r} by {b['bound_by']} "
+        f"({b['bound_ms'] / ms!r} of the kernel's time); no single PyTorch call computes it; "
+        f"composed_ms={composed_ms!r} ({TOWER_COMPOSED_CALLS} PyTorch calls, 5 of them bf16 "
+        f"GEMMs; max abs diff from the plain version over its max: {comp_errs!r})")
+    for line in ptxas_kernels(tower_backward.load().log, "tower_bwd_kernel"):
+        log(f"[kernel] tower_bwd build: {line}")
+    split = tile_split(lambda stage: tower_backward.split(stage, x, dq, out, w1, b1, w2), flush,
+                       BWD_SPLIT_STAGES)
+    log(f"[kernel] tower_bwd tile split at [{TRAIN_BATCH}, {DIM}] -> [{DIM}] -> [{h2}] bf16 io "
+        f"(ms each stage adds to the kernel run up to it): {split['split_ms']!r}; the runs up "
+        f"to each stage {split['upto_ms']!r}")
     return {"max_abs_err": max(r[0] for r in results.values()), "ms": ms, "plain_ms": plain_ms,
             **b, "library_ms": None, "composed_ms": composed_ms}
+
+
+def k_order_backward(x, dq, out, w1, b1, w2):
+    """The plain version of kernel #8 with pre1 summed in k order (one fmaf a
+    k, as an f32 GEMM sums it): the ReLU decisions the kernel, the forward
+    and the host take where a layer-1 sum sits at a bf16 rounding tie."""
+    def bf(t):
+        return t.to(torch.bfloat16).float()
+    d2 = torch.where(out.float() > 0, dq.float(), 0.0)
+    a, w = bf(x), bf(w1)
+    s = torch.zeros(a.shape[0], w.shape[1], dtype=torch.float32, device=a.device)
+    for k in range(a.shape[1]):
+        s = s + a[:, k:k + 1] * w[k]
+    pre1 = (s.to(torch.bfloat16) + b1.to(torch.bfloat16)).float()
+    d1 = torch.where(pre1 > 0, bf(d2) @ bf(w2).T, 0.0)
+    dx = (bf(d1) @ bf(w1).T).to(x.dtype)
+    return dx, a.T @ bf(d1), d1.sum(0), torch.relu(pre1).T @ bf(d2), d2.sum(0)
+
+
+def ptxas_kernels(build_log: str, name: str) -> list[str]:
+    """Each instantiation of the kernel `name` in a build's `-Xptxas -v` log:
+    its template arguments (io dtype, then its integer arguments), its
+    registers a thread and its spill bytes."""
+    found, entry, spill = [], None, ""
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry, spill = (m.group(1) if name in m.group(1) else None), ""
+        elif entry and "spill" in line:
+            spill = line.strip()
+        elif entry and "Used" in line and "registers" in line:
+            tail = entry[entry.index(name) + len(name):]
+            io = "bf16" if tail.startswith("I13__nv_bfloat16") else "f32"
+            ints = re.findall(r"L[ib](\d+)E", tail.split("CUtensorMap")[0])
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            found.append(f"<{io}, {', '.join(ints)}>: {regs} registers; {spill}")
+            entry = None
+    return found
 
 
 def wall_ms(fn, reps: int = 5) -> float:
@@ -1780,15 +1852,16 @@ def two_gemm_route(x, w1, b1, w2, b2) -> torch.Tensor:
     return relu_ties(_mm(h1, w2), b2, h1, w2)
 
 
-def tower_fwd_split(launch, flush: torch.Tensor) -> dict[str, dict[str, float]]:
+def tile_split(launch, flush: torch.Tensor, stages) -> dict[str, dict[str, float]]:
     """A tile's time split into its stages: `launch(stage)` runs the kernel
-    up to that stage (the x loads alone; and the products; and the
-    epilogues, ties taken as none; and the tie rounds; and the output
-    stores: the whole kernel), and a stage's ms is what it adds to the run
-    before it, so the parts sum to the whole kernel's median."""
-    upto = {stage: median_ms(lambda: launch(stage), flush) for stage in SPLIT_STAGES}
+    up to that stage of `stages` (the last: the whole kernel; e.g.
+    tower_fwd's x loads alone; and the products; and the epilogues, ties
+    taken as none; and the tie rounds; and the output stores), and a
+    stage's ms is what it adds to the run before it, so the parts sum to the
+    whole kernel's median."""
+    upto = {stage: median_ms(lambda: launch(stage), flush) for stage in stages}
     split, before = {}, 0.0
-    for stage in SPLIT_STAGES:
+    for stage in stages:
         split[stage] = upto[stage] - before
         before = upto[stage]
     return {"upto_ms": upto, "split_ms": split}
@@ -1812,7 +1885,7 @@ def phase_tower_fwd_kernel(dev: torch.device, profile: bool) -> dict:
     the bound (bytes: x read, out written, the weights; FLOPs: both products
     and the ties' recompute) and its share, and the two-GEMM route's ms,
     split into its `_mm` and relu_ties calls; at the BCE step's shape the
-    kernel's tile split (`tower_fwd_split`). Under --profile, the device
+    kernel's tile split (`tile_split`). Under --profile, the device
     kernels of one bf16 tower forward through `Mlp2Relu`'s path: one
     tower_fwd, no GEMM."""
     rng = np.random.default_rng(12)
@@ -1911,7 +1984,7 @@ def phase_tower_fwd_kernel(dev: torch.device, profile: bool) -> dict:
             raise AssertionError(f"[profile] the bf16 tower forward runs {sorted(kernels)}: "
                                  f"one tower_fwd and no GEMM expected")
     args = cases["user tower"]
-    split = tower_fwd_split(lambda stage: tower_forward.split(stage, *args), flush)
+    split = tile_split(lambda stage: tower_forward.split(stage, *args), flush, SPLIT_STAGES)
     log(f"[kernel] tower_fwd tile split at [{TRAIN_BATCH}, {DIM}] -> [{DIM}] -> [{LAYERS[1]}] "
         f"(ms each stage adds to the kernel run up to it): {split['split_ms']!r}; the runs up "
         f"to each stage {split['upto_ms']!r}")

@@ -19,6 +19,7 @@ from two_tower_recommender_model_tpu_torch.ops.tower_bwd import (
     tower_backward_reference,
 )
 from torch_sorted_runs import RUN_CASES, run_case_ids
+from torch_tie_cases import tower_bwd_inputs as _tower_inputs
 
 
 @pytest.fixture
@@ -162,32 +163,6 @@ def test_rowwise_adagrad_run_lengths(dev, case, d, table_dtype, grad_dtype, with
 
 
 TOWER_TILE = {torch.bfloat16: 64, torch.float32: 32}  # rows per tile of kernel #8
-
-
-def _tower_inputs(dev, b, h2, io_dtype, seed):
-    """x and W1 on coarse grids (x in steps of 1/8 up to 1, W1 in steps of
-    2^-7 up to 1/8), so that every partial sum of x @ W1 is a multiple of
-    2^-10 below 2^5: exact in f32 in any order, on the tensor cores as on
-    the CUDA cores. Both versions then take the same layer-1 ReLU decisions.
-    With normal draws, a pre-activation lands within an f32 rounding of a
-    bf16 boundary against -b1 about once in 3e7 values; the two summation
-    orders then decide that ReLU differently, which moves a whole row of dx
-    by a tenth of its largest value. dq is drawn around 0.5: db2 is held to
-    1e-5 x its largest value, and at H2 = 1 a zero-mean draw cancels the one
-    column's sum of 262,144 values to ~1e-5 of their magnitudes' sum, below
-    what two f32 summation orders agree on. The other operands are normal
-    draws."""
-    rng = np.random.default_rng(seed)
-
-    def t(a, dtype=torch.float32):
-        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
-    x = t(rng.integers(-8, 9, size=(b, 128)) / 8, io_dtype)
-    dq = t(rng.normal(loc=0.5, size=(b, h2)), io_dtype)
-    out = t(np.maximum(rng.normal(size=(b, h2)), 0), io_dtype)
-    w1 = t(rng.integers(-16, 17, size=(128, 128)) / 128)
-    b1 = t(rng.normal(size=128, scale=0.1))
-    w2 = t(rng.normal(size=(128, h2), scale=0.1))
-    return x, dq, out, w1, b1, w2
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 """Tower inputs whose layer-1 sums sit on bf16 rounding ties against -b1,
-and the forward that sums every product in k order: shared by the CPU tests
-of `ops/relu_ties.py` and its card tests (this module imports no JAX).
+the forward and the tower backward (#8) that sum layer 1 in k order, and the
+backward's inputs on coarse grids: shared by the CPU and card tests of the
+towers' kernels (this module imports no JAX).
 
 Column c of W1 starts with m_c (a bf16 value in [1, 2)) and 2^-8, against
 x's leading 1, 1, and b1[c] = -m_c: the first two terms sum to the midpoint
@@ -56,3 +57,43 @@ def k_order_forward(x, w1, b1, w2, b2) -> tuple[torch.Tensor, torch.Tensor]:
         return torch.relu(pre)
     h1 = layer(x, w1, b1)
     return h1, layer(h1, w2, b2)
+
+
+def k_order_backward(x, dq, out, w1, b1, w2):
+    """The tower backward's plain version (`tower_backward_reference`) with
+    pre1 summed in k order: the ReLU decisions the forward and the backward
+    take at bf16 rounding ties."""
+    def bf(t):
+        return t.to(torch.bfloat16).float()
+    d2 = torch.where(out.float() > 0, dq.float(), 0.0)
+    pre1 = (k_order_matmul(bf(x), bf(w1)).to(torch.bfloat16) + b1.to(torch.bfloat16)).float()
+    h1 = torch.relu(pre1)
+    d1 = torch.where(pre1 > 0, bf(d2) @ bf(w2).T, 0.0)
+    dx = (bf(d1) @ bf(w1).T).to(x.dtype)
+    return dx, bf(x).T @ bf(d1), d1.sum(0), h1.T @ bf(d2), d2.sum(0)
+
+
+def tower_bwd_inputs(dev, b, h2, io_dtype, seed):
+    """(x, dq, out, w1, b1, w2) of the tower backward on `dev`: x and W1 on
+    coarse grids (x in steps of 1/8 up to 1, W1 in steps of 2^-7 up to 1/8),
+    so that every partial sum of x @ W1 is a multiple of 2^-10 below 2^5:
+    exact in f32 in any order, on the tensor cores as on the CUDA cores.
+    Both versions then take the same layer-1 ReLU decisions. With normal
+    draws, a pre-activation lands within an f32 rounding of a bf16 boundary
+    against -b1 about once in 3e7 values; the two summation orders then
+    decide that ReLU differently, which moves a whole row of dx by a tenth
+    of its largest value. dq is drawn around 0.5: db2 is held to 1e-5 x its
+    largest value, and at H2 = 1 a zero-mean draw cancels the one column's
+    sum of 262,144 values to ~1e-5 of their magnitudes' sum, below what two
+    f32 summation orders agree on. The other operands are normal draws."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+    x = t(rng.integers(-8, 9, size=(b, 128)) / 8, io_dtype)
+    dq = t(rng.normal(loc=0.5, size=(b, h2)), io_dtype)
+    out = t(np.maximum(rng.normal(size=(b, h2)), 0), io_dtype)
+    w1 = t(rng.integers(-16, 17, size=(128, 128)) / 128)
+    b1 = t(rng.normal(size=128, scale=0.1))
+    w2 = t(rng.normal(size=(128, h2), scale=0.1))
+    return x, dq, out, w1, b1, w2

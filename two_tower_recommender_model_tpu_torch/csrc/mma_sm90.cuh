@@ -1,7 +1,8 @@
-// PTX helpers for the tensor-core kernels of this package (sm_90a): 16-byte
+// PTX helpers of the mma.sync kernels of this package (sm_90a): 16-byte
 // asynchronous copies into shared memory, ldmatrix fragment loads and the
-// m16n8k16 bf16 x bf16 -> f32 mma.sync. Shared by tower_bwd.cu (kernel #8)
-// and softmax_lse.cu (kernels #10 and #11).
+// m16n8k16 bf16 x bf16 -> f32 mma.sync. Used by softmax_lse.cu (kernels #9,
+// #10 and #11 at D <= 128); the other tensor-core kernels run on wgmma
+// (wgmma_sm90.cuh).
 //
 // Fragments of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4), from the PTX
 // ISA's tables:

@@ -1,6 +1,6 @@
 // The ReLU of a tower layer at bf16 rounding ties, shared by relu_ties.cu
-// (the bias-and-ReLU pass after a bf16 GEMM) and tower_fwd.cu (the fused
-// tower forward):
+// (the bias-and-ReLU pass after a bf16 GEMM), tower_fwd.cu (the fused tower
+// forward) and tower_bwd.cu (its backward, #8, which recomputes layer 1):
 //
 //   r   = the layer's f32 sum, rounded to bf16    (the GEMM's, in its own order)
 //   tie = a bf16 neighbour of r decides the ReLU other than r does
@@ -12,8 +12,8 @@
 // sum of bf16 values being at least the smallest subnormal). Another
 // summation order moves r by at most one bf16 ulp, so the ties are t = -b and
 // the value next above it, a zero standing for both zeros. Those are summed
-// again in k order, as an f32 GEMM (and the host, and the tower backward #8)
-// sums them.
+// again in k order, as an f32 GEMM (and the host) sums them: the forward and
+// the backward take the same decisions.
 
 #pragma once
 

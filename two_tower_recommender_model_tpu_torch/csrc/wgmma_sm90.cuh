@@ -1,8 +1,8 @@
 // PTX helpers for this package's warpgroup kernels (sm_90a): wgmma matrix
 // descriptors and the bf16 x bf16 -> f32 wgmma, mbarriers, TMA tile loads
 // and register hand-over between warpgroups. Shared by tower_fwd.cu (the
-// fused tower's forward) and softmax_lse.cu (kernels #10 and #11 at a wide
-// D).
+// fused tower's forward), tower_bwd.cu (its backward, #8) and softmax_lse.cu
+// (kernels #9-#11 at a wide D).
 //
 // Fragment of a wgmma accumulator d (64 x N, f32) in a warpgroup: warp w
 // holds rows 16 w + g and 16 w + g + 8 (g = lane / 4); d[4 j], d[4 j + 1]

@@ -10,8 +10,14 @@ operands and sums in f32, as the reference's `_mm` does; db1 and db2 sum the
 unrounded f32 gradients. Returns (dx in x's dtype, dW1, db1, dW2, db2 in f32).
 
 `tower_backward` launches the hand-written kernel of `csrc/tower_bwd.cu` on
-CUDA tensors and takes `tower_backward_reference` only for tensors that lie
-on the CPU. It counts its kernel launches in `tower_backward.launches`.
+CUDA tensors (two row warpgroups a block: x by TMA into a ring of tiles, dq
+and out prefetched into L2 by bulk copies; the five products on wgmma; the
+weight gradients in registers across a block's tiles, of two gradient
+warpgroups at bf16 io and H2 <= 64, else of the row warpgroups; dx out by
+TMA stores; layer 1's ReLU ties settled by the forward's rule,
+`csrc/relu_ties.cuh`) and takes `tower_backward_reference` only for tensors
+that lie on the CPU. The weights reach the kernel as they lie (bf16 or f32,
+any strides). It counts its kernel launches in `tower_backward.launches`.
 `fits` is the reference's shape gate, unchanged, so both packages route the
 same shapes through the fused backward.
 """
@@ -26,9 +32,13 @@ from two_tower_recommender_model_tpu_torch.ops import _build
 
 MIN_TILE = 512  # the reference's batch granule (its smallest TPU tile)
 _LANE = 128
-# rows per tile of the CUDA kernel: 64 for bf16 io, 32 for f32 io (the same staged bytes)
+# the batch multiple the CUDA kernel takes: its tiles are 64 rows, and at f32
+# io the last may be 32 (the TMA fills the rest with zeros)
 _TILE_ROWS = {torch.bfloat16: 64, torch.float32: 32}
+_KERNEL_TILE = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the stages a split launch runs the kernel up to (`TowerBackward.split`), in its order
+SPLIT_STAGES = ("loads", "row products", "epilogues", "gradient products", "stores")
 
 
 def fits(d_in: int, h1: int, h2: int, batch: int) -> bool:
@@ -78,6 +88,13 @@ def _check(x, dq, out, w1, b1, w2) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,      # x, dq, out, io
+         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,      # w1, strides, b1
+         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,         # w2, strides, w
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,                    # dx, partials, grads
+         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]                       # B, H2, blocks
+
+
 class TowerBackward(_build.KernelLibrary):
     """The tower-backward wrapper: checks its inputs, allocates the outputs
     and the per-block partial sums, and launches the CUDA kernel on the
@@ -88,10 +105,8 @@ class TowerBackward(_build.KernelLibrary):
     and does not count."""
 
     def __init__(self):
-        super().__init__("tower_bwd", "ttrm_tower_bwd", [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64])
+        super().__init__("tower_bwd", "ttrm_tower_bwd", _ARGS,
+                         extra={"ttrm_tower_bwd_split": [*_ARGS, ctypes.c_int64]})
 
     def __call__(self, x: torch.Tensor, dq: torch.Tensor, out: torch.Tensor, w1: torch.Tensor,
                  b1: torch.Tensor, w2: torch.Tensor):
@@ -102,22 +117,51 @@ class TowerBackward(_build.KernelLibrary):
             return tower_backward_reference(x, dq, out, w1, b1, w2)
         if x.device.type != "cuda":
             raise ValueError(f"tower_backward runs on cpu or cuda tensors, got {x.device}")
+        return self._launch(x, dq, out, w1, b1, w2)
+
+    def split(self, stage: str, x: torch.Tensor, dq: torch.Tensor, out: torch.Tensor,
+              w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor):
+        """One launch of the kernel run up to `stage` of `SPLIT_STAGES` (the
+        loads alone; and the row products; and their epilogues and ties; and
+        the gradient products; "stores" is the whole kernel), at bf16 io and
+        H2 = 64 on CUDA tensors: for timing a tile's parts. Before "stores"
+        the outputs are not the function's."""
+        if stage not in SPLIT_STAGES:
+            raise ValueError(f"stage must be one of {SPLIT_STAGES}, got {stage!r}")
+        _check(x, dq, out, w1, b1, w2)
+        if x.device.type != "cuda" or x.dtype != torch.bfloat16 or w2.shape[1] != 64:
+            raise ValueError("a split launch runs the CUDA kernel at bf16 io and H2 = 64 on "
+                             "CUDA tensors")
+        return self._launch(x, dq, out, w1, b1, w2,
+                            split=(SPLIT_STAGES.index(stage) + 1) % len(SPLIT_STAGES))
+
+    def _launch(self, x, dq, out, w1, b1, w2, split: int | None = None):
         b, h2 = x.shape[0], w2.shape[1]
         tile = _TILE_ROWS[x.dtype]
         if b % tile:
             raise ValueError(f"the CUDA kernel needs B % {tile} == 0 for {x.dtype} io, got B={b}")
-        # the kernel copies 16-byte chunks: an offset view is copied to a fresh buffer
+        # the kernel's TMA and bulk copies read 16-byte aligned rows: an offset view is copied
+        # to a fresh buffer
         x, dq, out = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, dq, out))
-        w1f, b1f, w2f = (t.to(torch.float32).contiguous() for t in (w1, b1, w2))
+        # the weights as they lie (the kernel rounds them to bf16 as it loads them), in
+        # one dtype of the two it reads
+        if not (w1.dtype == b1.dtype == w2.dtype and w1.dtype in _DTYPE_CODES):
+            w1, b1, w2 = (t.to(torch.float32) for t in (w1, b1, w2))
+        b1 = b1.contiguous()
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        n_blocks = min(b // tile, sms)  # persistent: one block of up to 217 KB per SM
+        n_blocks = min(-(-b // _KERNEL_TILE), sms)  # persistent: one block an SM
         n_out = _LANE * _LANE + _LANE + _LANE * h2 + h2
         dx = torch.empty_like(x)
         partials = torch.empty((n_blocks, n_out), dtype=torch.float32, device=x.device)
         grads = torch.empty(n_out, dtype=torch.float32, device=x.device)
-        self.launch(x.device, x.data_ptr(), dq.data_ptr(), out.data_ptr(),
-                    _DTYPE_CODES[x.dtype], w1f.data_ptr(), b1f.data_ptr(), w2f.data_ptr(),
-                    dx.data_ptr(), partials.data_ptr(), grads.data_ptr(), b, h2, n_blocks)
+        args = (x.data_ptr(), dq.data_ptr(), out.data_ptr(), _DTYPE_CODES[x.dtype],
+                w1.data_ptr(), *w1.stride(), b1.data_ptr(), w2.data_ptr(), *w2.stride(),
+                _DTYPE_CODES[w1.dtype], dx.data_ptr(), partials.data_ptr(), grads.data_ptr(),
+                b, h2, n_blocks)
+        if split is None:
+            self.launch(x.device, *args)
+        else:
+            self.launch(x.device, *args, split, entry="ttrm_tower_bwd_split")
         o = _LANE * _LANE
         return (dx, grads[:o].view(_LANE, _LANE), grads[o:o + _LANE],
                 grads[o + _LANE:o + _LANE + _LANE * h2].view(_LANE, h2),
