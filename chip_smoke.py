@@ -43,10 +43,13 @@ without a card. Phases (any failure raises and exits non-zero):
    the fused sampled softmax (#9 forward, #10 dq, #11 dc; D = 64, bf16-valued
    inputs, repeating item ids and logQ): 8,192 x 8,192, the same with
    `n_valid` = 8,000, 65,536 x 65,536, and the stripe of 16,384 rows at row
-   offset 32,768 against 65,536 columns, which must also equal those rows of
-   the square case; lse within rtol 2e-5 / atol 1e-5, dq and dc within 1e-3 x
-   their largest magnitude with cosine > 0.99999, two launches of each of
-   the three bit for bit equal; beside #10 and #11 the time of the same
+   offset 32,768 against 65,536 columns; 8,192 x 8,192 at D = 128, and
+   stripes of 2,048 rows at D = 64 and 128; a stripe's lse must equal those
+   rows of the square case and its dq be them bit for bit; lse within rtol
+   2e-5 / atol 1e-5, dq and dc within 1e-3 x their largest magnitude with
+   cosine > 0.99999, two launches of each of the three bit for bit equal;
+   #10's and #11's share of the bound, registers and spills, and launch
+   plan (chunks, a merge launch); beside #10 and #11 the time of the same
    function as bf16 GEMMs and elementwise calls (`composed_ms`);
    the fused tower forward (tower_fwd: both layers' GEMMs, biases and
    ReLUs, ties summed again in k order, h1 kept on chip) at the BCE step's
@@ -165,7 +168,9 @@ without a card. Phases (any failure raises and exits non-zero):
    states compared tensor by tensor (tables, accumulators, towers, Adam's
    moments and counts, item counts), bit for bit; then the median time per
    step eager and replayed over 5 macros of distinct payloads, the launches
-   captured per step, the replays, and the peak memory both ways;
+   captured per step, the replays, and the peak memory both ways; under
+   --profile a replay's trace, and in the softmax steps #10's and #11's
+   device ms a replayed step (with their merge launches) beside #9's;
 16b. `[train-compact]` phase 16's BCE step with f32 tables fed the compact
    wire (the user slot delta-encoded): the decode on the card bit for bit
    `unpack_batch` (with and without the delta slot, and a batch whose
@@ -2188,6 +2193,11 @@ def phase_softmax_kernel(dev: torch.device) -> dict[str, dict]:
     squares = {}  # (bk, d) -> the square case's (lse, dq), for its stripe
     for label, bq, bk, off, n_valid, reps, d in (
             ("square", SOFTMAX_BATCH, SOFTMAX_BATCH, 0, None, 20, 64),
+            ("stripe of the square", SOFTMAX_BATCH // 4, SOFTMAX_BATCH, SOFTMAX_BATCH // 4, None,
+             20, 64),
+            ("square", SOFTMAX_BATCH, SOFTMAX_BATCH, 0, None, 20, 128),
+            ("stripe of the square", SOFTMAX_BATCH // 4, SOFTMAX_BATCH, 3 * SOFTMAX_BATCH // 4,
+             None, 20, 128),
             ("square, padded columns", SOFTMAX_BATCH, SOFTMAX_BATCH, 0, SOFTMAX_BATCH - 192, 5,
              64),
             ("large square", SOFTMAX_BIG, SOFTMAX_BIG, 0, None, 3, 64),
@@ -2226,19 +2236,18 @@ def phase_softmax_kernel(dev: torch.device) -> dict[str, dict]:
         if n_valid is not None and not (want_dc[n_valid:] == 0).all() & (dc[n_valid:] == 0).all():
             raise AssertionError(f"{label}: padded columns took a gradient")
         main_case = (bq, bk, n_valid, d) == (SOFTMAX_BATCH, SOFTMAX_BATCH, None, 64)
-        if bq == bk and bk in (SOFTMAX_BIG, WIDE_SQUARE):
+        if bq == bk and n_valid is None:
             squares[bk, d] = (lse, dq)
         if off:  # the stripe is rows [off, off + bq) of the square case
             square = squares[bk, d]
             torch.testing.assert_close(lse, square[0][off:off + bq], rtol=1e-6, atol=1e-6)
-            if d > 128:  # the same p rows meet the same columns in the same k order
-                if not bitwise_equal(dq, square[1][off:off + bq]):
-                    raise AssertionError(f"{label}: the stripe's dq rows differ from the square's")
-                # #9's column chunks follow BK alone, merged in chunk order
+            # the same p rows meet the same column chunks and tiles in the same order
+            # (at D <= 128 `bwd_chunks` follows BK alone; wider, the same k order)
+            if not bitwise_equal(dq, square[1][off:off + bq]):
+                raise AssertionError(f"{label}: the stripe's dq rows differ from the square's")
+            if d > 128:  # #9's column chunks follow BK alone, merged in chunk order
                 if not bitwise_equal(lse, square[0][off:off + bq]):
                     raise AssertionError(f"{label}: the stripe's lse differs from the square's rows")
-            else:
-                torch.testing.assert_close(dq, square[1][off:off + bq], rtol=1e-5, atol=1e-9)
         small = (bq + bk) * (d * 2 + 12)  # q and c in bf16; ids, adj, lse, g
         calls = {
             "softmax_lse_fwd": (lambda: sk.softmax_lse_fwd(*args),
@@ -2258,7 +2267,8 @@ def phase_softmax_kernel(dev: torch.device) -> dict[str, dict]:
             log(f"[kernel] {name} {label} D={d}: max_abs_err={errs[name]!r} "
                 f"(x max|plain| {errs[name] / scales[name]!r}) kernel_ms={ms!r} "
                 f"plain_ms={plain_ms!r} bound_ms={b['bound_ms']!r} by {b['bound_by']} "
-                f"(n={reps}); no single PyTorch call computes it")
+                f"(share of the bound {b['bound_ms'] / ms!r}; n={reps}); no single PyTorch "
+                "call computes it")
             st = stats[name]
             st["max_abs_err"] = max(st["max_abs_err"], errs[name])
             if main_case:  # the main path's shape: the train step's batch
@@ -2292,6 +2302,19 @@ def phase_softmax_kernel(dev: torch.device) -> dict[str, dict]:
                                                         wide[key]["p_max_abs_err"])
             if (bq, bk, d) == (SOFTMAX_BATCH, SOFTMAX_BATCH, 256):  # [train-softmax-wide]'s
                 stats["softmax_lse_p"].update(wide[key]["p"])
+    build_log = sk.softmax_lse_dq.load().log
+    for line in ptxas_kernels(build_log, "lse_bwd_kernel"):  # <io, DP, OWN_Q>
+        log(f"[kernel] #10 / #11 at D <= 128, lse_bwd_kernel{line}; {card_line()}")
+    for name in ("softmax_lse_dq", "softmax_lse_dc"):
+        for dp in (64, 128):
+            plan = getattr(sk, name).plan(dev, SOFTMAX_BATCH, dp)
+            if plan["chunks"] != sk.bwd_chunks(SOFTMAX_BATCH):  # the kernel's rule is the wrapper's
+                raise AssertionError(f"{name}: the kernel cuts {SOFTMAX_BATCH} streamed rows in "
+                                     f"{plan['chunks']} chunks, bwd_chunks in "
+                                     f"{sk.bwd_chunks(SOFTMAX_BATCH)}")
+            log(f"[kernel] {name} at D={dp} over {SOFTMAX_BATCH} streamed rows: {plan!r} "
+                f"({'chunk sums to a workspace, then a merge launch' if plan['chunks'] > 1 else 'one launch'}; "
+                "no thread-block clusters)")
     for label, parts in wide.items():
         log(f"[kernel] the wide backward {label}: " + ", ".join(
             f"{k} {v!r}" for k, v in parts.items() if k != "p") + f"; {card_line()}")
@@ -2743,7 +2766,25 @@ def phase_train_graph(dev: torch.device, name: str, cfg, tcfg, pool: list, want:
             f"{sum(v[0] for v in adagrad) / k!r} in {sum(v[1] for v in adagrad) / k!r} launches "
             "(all passes, all tables)" if adagrad else "none in the trace"))
         log_gather_ms(tag, device_ms, marker, per=k)
+        if "softmax" in name:
+            log_softmax_bwd_ms(tag, device_ms, per=k)
     return launches
+
+
+def log_softmax_bwd_ms(label: str, device_ms: dict[str, list], per: int) -> None:
+    """#10's and #11's device ms and launches a replayed step in a profile of
+    `profile_direct`: at D <= 128 `lse_bwd_kernel<DP, OWN_Q>` (OWN_Q true for
+    #10, false for #11) and their chunks' merge launches, at a wide D the p
+    kernel and the products."""
+    def ms_of(test):
+        items = [v for name, v in device_ms.items() if test(name)]
+        return f"{sum(v[0] for v in items) / per!r} in {sum(v[1] for v in items) / per!r} launches"
+
+    log(f"{label} #10 device ms a replayed step: "
+        f"{ms_of(lambda n: 'lse_bwd_kernel<' in n and 'true>' in n)}; #11: "
+        f"{ms_of(lambda n: 'lse_bwd_kernel<' in n and 'false>' in n)}; their merges: "
+        f"{ms_of(lambda n: 'lse_bwd_merge_kernel' in n)}; #9: "
+        f"{ms_of(lambda n: 'lse_fwd_kernel<' in n)}")
 
 
 def log_gather_ms(label: str, device_ms: dict[str, list], marker: str, per: int = 1) -> None:

@@ -113,7 +113,8 @@ _CARD_TESTS = ["tests/test_torch_embedding_cuda.py", "tests/test_torch_train_cud
                "tests/test_torch_compact_cuda.py", "tests/test_torch_tower_fwd_cuda.py",
                "tests/test_torch_scatter_buffer_cuda.py", "tests/test_torch_ranker_cuda.py",
                "tests/test_torch_shard_local_cuda.py", "tests/test_torch_any_width_cuda.py",
-               "tests/test_torch_bf16_params_cuda.py", "tests/test_torch_tower_bwd_cuda.py"]
+               "tests/test_torch_bf16_params_cuda.py", "tests/test_torch_tower_bwd_cuda.py",
+               "tests/test_torch_fresh_thread_cuda.py"]
 
 
 def test_every_card_test_file_is_listed():

@@ -134,14 +134,16 @@ def test_forward_is_deterministic_at_the_production_batch(dev, d, bq, row_offset
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,bq,row_offset", [(64, 8192, 0), (128, 8192, 0), (16, 8192, 0),
-                                             (64, 128, 4096), (128, 128, 8064)])
+                                             (64, 128, 4096), (128, 128, 8064), (64, 2048, 2048),
+                                             (128, 2048, 6144)])
 def test_backward_is_deterministic_at_the_production_batch(dev, d, bq, row_offset):
     """Kernels #10 and #11 at B = 8,192 columns with item ids (they
     repeat), logQ and 192 padded columns: two launches on the same inputs
     agree bit for bit, both match the plain version, and a stripe of BQ =
-    128 rows gives dq bit for bit equal to those rows of the square case
-    (the streamed rows are split between the warp groups by tile index
-    alone). D = 16 is zero-padded to 64 by the wrapper.
+    128 or 2,048 rows (a four-way data-parallel split) gives dq bit for bit
+    equal to those rows of the square case (the streamed rows are cut in
+    chunks by BK alone, and between the warpgroups by tile index). D = 16
+    is zero-padded to 64 by the wrapper.
 
     q and c lie on a grid of 1/8 in [-2, 2], so every score is exact in any
     summation order and the kernel and the plain version round the same p:
@@ -174,6 +176,56 @@ def test_backward_is_deterministic_at_the_production_batch(dev, d, bq, row_offse
         square = sk.softmax_lse_dq(q16, c16, adj, ids, ids, 0, 1 / 0.7, lse, g)
         torch.cuda.synchronize()
         assert torch.equal(first[0].view(torch.int32), square[rows].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_a_stripes_dq_rows_are_the_square_rows_on_normal_draws(dev, d):
+    """A [2,048 x 8,192] stripe (a four-way data-parallel split) at row
+    offset 4,096 on normal draws with ids, logQ and padded columns: dq bit
+    for bit those rows of the square case (its rows meet the same chunks,
+    merged in the same order, and the same ties); dc of the stripe within
+    the grad bars of the plain version."""
+    bk, bq, off = 8192, 2048, 4096
+    q16, c16, ids, log_q, g = _inputs(dev, bk, bk, d, seed=d + 11, n_ids=5000)
+    adj = sk._merged_adj(log_q, bk - 192, bk, dev)
+    lse = sk.lse_forward_reference(q16, c16, adj, ids, ids, 0, 1.0)
+    rows = slice(off, off + bq)
+    args = (q16[rows].contiguous(), c16, adj, ids[rows].contiguous(), ids, off, 1.0,
+            lse[rows].contiguous(), g[rows].contiguous())
+    square = sk.softmax_lse_dq(q16, c16, adj, ids, ids, 0, 1.0, lse, g)
+    stripe, dc = sk.softmax_lse_dq(*args), sk.softmax_lse_dc(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(stripe.view(torch.int32), square[rows].view(torch.int32))
+    _grad_close(dc, sk.lse_backward_reference(*args, need_dq=False)[1], "dc")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bk", [2048, 4096, 6144, 8192])
+@pytest.mark.parametrize("d", [64, 128])
+def test_backward_at_each_chunk_count_matches_plain(dev, bk, d):
+    """#10 and #11 on a BQ = 128 stripe at row offset BK / 2 of BK columns,
+    BK at each count of `bwd_chunks` (1, 2, 3, 4 chunks of the c tiles for
+    dq, a block each, merged by a second launch; one chunk of q rows for
+    dc), with ids, logQ and padded columns: each against its plain version,
+    two launches bit for bit."""
+    assert sk.bwd_chunks(bk) == bk // 2048
+    bq, off = 128, bk // 2
+    q16, c16, ids, log_q, g = _inputs(dev, bk, bk, d, seed=bk + d, n_ids=500)
+    adj = sk._merged_adj(log_q, bk - 64, bk, dev)
+    rows = slice(off, off + bq)
+    args = (q16[rows].contiguous(), c16, adj, ids[rows].contiguous(), ids, off, 1.0)
+    lse = sk.lse_forward_reference(*args)
+    args = (*args, lse, g[rows].contiguous())
+    got = (sk.softmax_lse_dq(*args), sk.softmax_lse_dc(*args))
+    again = (sk.softmax_lse_dq(*args), sk.softmax_lse_dc(*args))
+    want = sk.lse_backward_reference(*args)
+    torch.cuda.synchronize()
+    for a, b_, w, label in zip(got, again, want, ("dq", "dc")):
+        assert a.shape == w.shape, label
+        assert torch.equal(a.view(torch.int32), b_.view(torch.int32)), f"{label}: two launches"
+        _grad_close(a, w, label)
+    assert (got[1][bk - 64:] == 0).all()
 
 
 @pytest.mark.cuda

@@ -298,7 +298,7 @@ def _scores_in_kernel_order(dots, d):
 
 
 def _tensor_core_order_backward(q16, c16, adj, row_ids, col_ids, inv_t, lse, g,
-                                panel_rows=None):
+                                panel_rows=None, row_offset=0):
     """(dq, dc) of the square case summed in the order of kernels #10 and
     #11 on the tensor cores. An mma or a wgmma adds 16 products to its f32
     accumulator in one step (modelled here exactly, in float64, with one
@@ -309,14 +309,19 @@ def _tensor_core_order_backward(q16, c16, adj, row_ids, col_ids, inv_t, lse, g,
     summed in k order instead (the kernels' `near_tie` / `ordered_dot`;
     above D = 128 summed in f64 and rounded, `rounded_dot_group`). The exp is
     torch's; the kernels' ex2.approx lies a few f32 ulps from it, far inside
-    that window. At D <= 128, of the NG warp groups of a block (4 at D = 64,
-    2 at 128), group k sums the 64-row tiles k, k + NG, ..., and group 0
-    adds the others' sums to its own in group order; then times 1/T. Above
-    (the p kernel and the two products), p once, then dq's sum over all
+    that window. At D <= 128 the streamed rows (c rows for dq, q rows for dc)
+    are cut in `bwd_chunks` chunks of 128-row tiles; in each chunk NW
+    warpgroups (3 at D = 64, 2 at 128) take its tiles in turn (warpgroup w
+    the tiles w, w + NW, ...), each into its own f32 sum from zero, the sums
+    added in warpgroup order, the chunks' sums in chunk order; then times
+    1/T.
+    Above (the p kernel and the two products), p once, then dq's sum over all
     columns and dc's over a panel's rows each in one chain of 16-deep
     chunks; dc's panels (`panel_rows` q rows each, all of them when None)
-    added in f32 in panel order; then times 1/T."""
+    added in f32 in panel order; then times 1/T. The q rows may be a stripe
+    of the columns at `row_offset` (global row row_offset + i)."""
     b, d = q16.shape
+    bk = c16.shape[0]
     qd, cd = q16.double(), c16.double()
 
     def chunked(acc, chunks):  # add [.., n] chunk sums to an f32 accumulator in order
@@ -329,13 +334,13 @@ def _tensor_core_order_backward(q16, c16, adj, row_ids, col_ids, inv_t, lse, g,
         if adj is not None:
             s = s - adj[None, :]
         if row_ids is not None:
-            rows = torch.arange(b)
-            s = s.masked_fill((row_ids[:, None] == col_ids[None, :]) & (rows[:, None] != rows),
+            rows, cols = torch.arange(b) + row_offset, torch.arange(bk)
+            s = s.masked_fill((row_ids[:, None] == col_ids[None, :]) & (rows[:, None] != cols),
                               sk.NEG)
         ex = torch.exp(s - lse[:, None])
         return ex * g[:, None], ex
 
-    dots = torch.einsum("ikc,jkc->ijk", qd.reshape(b, d // 16, 16), cd.reshape(b, d // 16, 16))
+    dots = torch.einsum("ikc,jkc->ijk", qd.reshape(b, d // 16, 16), cd.reshape(bk, d // 16, 16))
     p, ex = p_of(_scores_in_kernel_order(dots, d))
     # the tie score: at D <= 128 one fmaf a product in k order (products of
     # bf16 values are exact in f32, so each step below is one fmaf); above,
@@ -343,7 +348,7 @@ def _tensor_core_order_backward(q16, c16, adj, row_ids, col_ids, inv_t, lse, g,
     if d > 128:
         ordered = (qd @ cd.T).float()
     else:
-        ordered = torch.zeros(b, b)
+        ordered = torch.zeros(b, bk)
         for k in range(d):
             ordered = ordered + q16[:, k, None].float() * c16[None, :, k].float()
     low = p.view(torch.int32) & 0xFFFF
@@ -354,12 +359,20 @@ def _tensor_core_order_backward(q16, c16, adj, row_ids, col_ids, inv_t, lse, g,
         return torch.einsum("ick,ckd->idc", pm.reshape(pm.shape[0], -1, 16),
                             other.reshape(-1, 16, d))
 
-    def second(pm, other):  # the narrow kernels' order: tiles over warp groups
-        tiles = chunk_sums(pm, other).reshape(pm.shape[0], d, -1, 4)  # [own, D, tile, chunk]
-        groups = 4 if d == 64 else 2
-        part = [chunked(torch.zeros(pm.shape[0], d), tiles[:, :, k::groups].flatten(2))
-                for k in range(groups)]
-        return sum(part[1:], part[0]) * inv_t
+    def second(pm, other):  # the narrow kernels' order: chunks, tiles over warpgroups
+        sums = chunk_sums(pm, other)  # [own, D, streamed / 16]: 8 k steps a 128-row tile
+        nw = 3 if d == 64 else 2
+        total = None
+        for first, end in sk.bwd_chunk_tiles(pm.shape[1]):
+            part = [torch.zeros(pm.shape[0], d) for _ in range(nw)]
+            for w in range(nw):
+                for tile in range(first + w, end, nw):
+                    part[w] = chunked(part[w], sums[:, :, 8 * tile:8 * tile + 8])
+            v = part[0]
+            for w in range(1, nw):
+                v = v + part[w]
+            total = v if total is None else total + v
+        return total * inv_t
 
     if d <= 128:
         return second(p, cd), second(p.T, qd)
@@ -367,7 +380,7 @@ def _tensor_core_order_backward(q16, c16, adj, row_ids, col_ids, inv_t, lse, g,
     rows = panel_rows or b
     dc = None
     for lo in range(0, b, rows):
-        part = chunked(torch.zeros(c16.shape[0], d), chunk_sums(p[lo:lo + rows].T, qd[lo:lo + rows]))
+        part = chunked(torch.zeros(bk, d), chunk_sums(p[lo:lo + rows].T, qd[lo:lo + rows]))
         dc = part if dc is None else dc + part
     return dq, dc * inv_t
 
@@ -404,6 +417,52 @@ def test_tensor_core_summation_order_stays_within_the_card_tolerances(d, use_ids
                                          torch.from_numpy(g))
     _assert_grad_close(dq[:, :d].numpy(), want_dq, "dq")
     _assert_grad_close(dc[:, :d].numpy(), want_dc, "dc")
+
+
+@pytest.mark.parametrize("d,use_logq,n_valid", [(64, True, 4000), (128, False, None)])
+def test_tensor_core_order_of_a_stripe_stays_within_the_card_tolerances(d, use_logq, n_valid):
+    """A data-parallel stripe at D <= 128: 256 q rows at row offset 1,024
+    of 4,096 columns, whose dq sums meet two chunks of c tiles (`bwd_chunks`)
+    and each chunk's tiles over the warpgroups, summed in the kernels' order,
+    stay within the card tests' tolerances (2^-8 x max, cosine > 0.99999) of the
+    reference's `_lse_bwd` in interpret mode on the same stripe."""
+    bq, bk, off = 256, 4096, 1024
+    assert sk.bwd_chunks(bk) == 2 and sk.bwd_chunks(bq) == 1
+    q, c, _, ids, log_q = _setup(seed=31, d=d, b=bk)
+    g = (np.random.default_rng(32).normal(size=bq) / bq).astype(np.float32)
+    ids_f = jnp.asarray(ids).astype(jnp.float32)
+    rows = slice(off, off + bq)
+    pad = lambda a: jnp.asarray(np.pad(a, ((0, 0), (0, -d % 128))))  # noqa: E731
+    _, vjp = jax.vjp(
+        lambda qa, ca: jax_sk._lse_fused(qa, ca, ids_f[rows], ids_f, jnp.asarray(log_q),
+                                         jnp.arange(off, off + bq, dtype=jnp.float32), 0.7,
+                                         n_valid, (True, use_logq), True), pad(q[rows]), pad(c))
+    want_dq, want_dc = (np.asarray(x)[:, :d] for x in vjp(jnp.asarray(g)))
+    q16, c16 = (sk._pad_dim(torch.from_numpy(x).to(torch.bfloat16)) for x in (q[rows], c))
+    ids_t = torch.from_numpy(ids)
+    adj = sk._merged_adj(torch.from_numpy(log_q) if use_logq else None, n_valid, bk,
+                         torch.device("cpu"))
+    args = (q16, c16, adj, ids_t[rows].contiguous(), ids_t, off, 1 / 0.7)
+    lse = sk.lse_forward_reference(*args)
+    dq, dc = _tensor_core_order_backward(q16, c16, adj, ids_t[rows].contiguous(), ids_t,
+                                         1 / 0.7, lse, torch.from_numpy(g), row_offset=off)
+    _assert_grad_close(dq[:, :d].numpy(), want_dq, "dq")
+    _assert_grad_close(dc[:, :d].numpy(), want_dc, "dc")
+
+
+def test_backward_chunks_follow_the_streamed_length_alone():
+    """The chunk rule of #10 and #11 at D <= 128 (`bwd_chunks`, a block
+    each): a function of the streamed length alone, N / 2,048 clamped to
+    1..4 chunks of whole 128-row tiles that cover the range in order, 16
+    tiles at least each where there are several; 4 at the flagship's 8,192,
+    so a [2,048 x 8,192] stripe's dq rows meet the square's chunks."""
+    for n in range(128, 70_000, 128):
+        tiles = sk.bwd_chunk_tiles(n)
+        assert len(tiles) == sk.bwd_chunks(n) == min(4, max(1, n // 2048))
+        assert tiles[0][0] == 0 and tiles[-1][1] == n // 128
+        assert all(a[1] == b[0] for a, b in zip(tiles, tiles[1:]))
+        assert all(end - first >= (16 if len(tiles) > 1 else 1) for first, end in tiles)
+    assert [sk.bwd_chunks(n) for n in (128, 2048, 4096, 6144, 8192, 65_536)] == [1, 1, 2, 3, 4, 4]
 
 
 @pytest.mark.parametrize("d,use_ids,use_logq,n_valid,panel_rows", [

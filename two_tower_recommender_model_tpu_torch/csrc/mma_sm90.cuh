@@ -1,8 +1,7 @@
 // PTX helpers of the mma.sync kernels of this package (sm_90a): 16-byte
 // asynchronous copies into shared memory, ldmatrix fragment loads and the
-// m16n8k16 bf16 x bf16 -> f32 mma.sync. Used by softmax_lse.cu (kernels #9,
-// #10 and #11 at D <= 128); the other tensor-core kernels run on wgmma
-// (wgmma_sm90.cuh).
+// m16n8k16 bf16 x bf16 -> f32 mma.sync. Used by softmax_lse.cu (kernel #9
+// at D <= 128); the other tensor-core kernels run on wgmma (wgmma_sm90.cuh).
 //
 // Fragments of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4), from the PTX
 // ISA's tables:
@@ -46,11 +45,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // Four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of matrix l / 8.
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
 }

@@ -49,20 +49,20 @@
 // merge, #10 and #11 as a p kernel that writes p once and two wgmma products
 // that read it).
 //
-// At D <= 128 the three kernels share one skeleton (`stream_tiles`) and one score
+// Kernel #9 at D <= 128 runs on one skeleton (`stream_tiles`) and one score
 // product (`score_tile`, then `adjust_tile`), on the tensor cores
 // (mma.sync.m16n8k16, bf16 x bf16 -> f32, mma_sm90.cuh):
-//   - A block owns 64 rows of one operand (q rows for #9 and #10, c rows for
-//     #11) and streams the other in tiles of 64 rows. Its warps form NG
-//     groups of 4; group k takes the tiles k, k + NG, k + 2 NG, ..., and each
-//     warp of a group owns 16 own rows, which it holds as mma A fragments in
-//     registers, loaded once with ldmatrix from a bf16 copy in shared memory.
+//   - A block owns 64 q rows and streams c in tiles of 64 rows. Its warps
+//     form NG groups of 4; group k takes the tiles k, k + NG, k + 2 NG, ...,
+//     and each warp of a group owns 16 own rows, which it holds as mma A
+//     fragments in registers, loaded once with ldmatrix from a bf16 copy in
+//     shared memory.
 //   - Each group double-buffers its tiles (bf16 rows and the per-row scalars
-//     the epilogue needs: adj and ids of c rows; lse, g and ids of q rows)
-//     with cp.async: the next tile is in flight while the current one is
-//     computed, and a group waits only on its own named barrier. Rows are
-//     padded by 8 bf16 values (144 or 272 bytes), so the 8 row addresses of
-//     an ldmatrix fall on 8 different 16-byte bank groups.
+//     the epilogue needs: adj and ids of c rows) with cp.async: the next tile
+//     is in flight while the current one is computed, and a group waits only
+//     on its own named barrier. Rows are padded by 8 bf16 values (144 or 272
+//     bytes), so the 8 row addresses of an ldmatrix fall on 8 different
+//     16-byte bank groups.
 //   - The score product: a warp's 16 x 64 scores of a tile are 8 n8 blocks
 //     of accumulators (32 registers a thread); the tile's rows are the B
 //     operand, read with ldmatrix (a row-major [rows, D] tile is B^T in the
@@ -75,9 +75,6 @@
 //     bit. The split of the streamed range follows the tile index alone, so
 //     a row's result is the same in a stripe (any BQ, row_offset) as in the
 //     square case.
-//   - Occupancy: 64 own rows give 128 blocks at B = 8,192 (one per SM) and
-//     1,024 at 65,536; the groups and the 8 independent n8 chains of each
-//     product hide ldmatrix, mma and exp latency.
 //
 // Kernel #9 (lse_fwd_kernel): the online max and sum on the score fragments.
 //   - A thread holds 2 own rows x 16 columns of each tile. The tile's row max
@@ -97,36 +94,76 @@
 //   - No tie repair: lse is not rounded to bf16, and it sits a few f32 ulps
 //     from the plain version's, far inside the backward's tie window.
 //
-// Kernels #10 and #11 (lse_bwd_kernel<DP, OWN_Q>): dq and dc are one kernel
-// with the operands' roles swapped (the score is symmetric in them, and both
-// second products contract over the streamed rows). 4 groups at DP = 64, 2 at
-// DP = 128 (each warp also holds its [16, DP] of dq or dc in registers).
-//   - The epilogue: exp(s - lse) * g on the adjusted fragment, then the bf16
-//     rounding, two values packed per register. Those registers ARE the
-//     second product's A fragments (mma_sm90.cuh), so p never goes through
-//     memory.
+// Kernels #10 and #11 at D <= 128 (lse_bwd_kernel<DP, OWN_Q>, DP 64 or 128):
+// dq and dc are one kernel with the operands' roles swapped (the score is
+// symmetric in them, and both second products contract over the streamed
+// rows), on Hopper's warpgroup products and TMA (wgmma_sm90.cuh):
+//   - A block owns 64 rows of one operand (q rows for #10, c rows for #11),
+//     loaded once by TMA, and NW warpgroups of 4 warps (3 at DP = 64, 2 at
+//     128: `bwd_warpgroups`) take the streamed tiles of 128 rows of its range
+//     in turn: warpgroup w the tiles t0 + w, t0 + w + NW, ... Each keeps a
+//     ring of 3 stages of its own: its first thread refills a stage by TMA
+//     (the rows, in 64-column boxes with the 128-byte swizzle) and bulk
+//     copies (the tile's scalars: adj and ids of c rows, or lse, g and ids
+//     of q rows) once the warpgroup's barrier says that every warp is done
+//     with it.
+//   - The score: wgmma m64n128k16 over DP / 16 k steps in one f32
+//     accumulator, A the own tile, B the streamed tile, both K-major in
+//     shared memory: 64 accumulators a thread. It is issued before the
+//     tile's mask test and barrier and waited for after them.
+//   - The mask: the own rows' ids are sorted once a block, and each thread
+//     looks one column's id up (a binary search); the warpgroup's barrier
+//     ORs the answers. A tile with no id of an own row (most tiles) takes
+//     an epilogue without the mask, the others the one with it (an own
+//     row's own column holds its id too: the mask spares it).
+//   - The epilogue on the accumulator fragment in registers, with the plain
+//     version's rounding points: `adjusted_score` (1/T, adj, the mask), then
+//     exp(s - lse) (ex2.approx of the prescaled argument) times g, rounded
+//     to bf16 and packed in pairs, which are the second product's A
+//     fragments (the score's accumulator layout is the A-register layout:
+//     p never goes through memory).
 //   - Ties: the tensor cores sum a score in another order than an f32 GEMM,
 //     and a p whose f32 value lies near a bf16 rounding midpoint then rounds
 //     to the other neighbour, which moves a row's gradient by up to 2^-7 of
-//     its largest p. The epilogue marks such p of weight in a bit mask (a
-//     small share of the scores) and computes them again as the plain
-//     version does: the score summed in k order on the CUDA cores, and expf
-//     (`near_tie`, `ordered_dot`). The window (1/8 of a bf16 ulp) is far
-//     wider than what either the order or ex2.approx moves p by, so every p
-//     of weight rounds as the plain version's and the host's.
-//   - The second product reads the same shared-memory tile with
-//     ldmatrix.trans as its B operand (c rows for dq, q rows for dc) and
-//     accumulates a warp's [16, DP] of dq or dc in f32 registers across the
-//     group's whole range.
-//   - At the end groups 1 .. NG-1 write their partial sums to shared memory
-//     and group 0 adds them to its own in group order, times 1/T once. Four
-//     groups instead of two took #10 from 0.150 to 0.123 ms at 8,192^2 on an
-//     H100, and ex2.approx instead of expf to 0.107.
-// Left for later at D <= 128: wgmma with TMA loads (the wide backward's
-// ring, below), warps that own 32 rows (half the ldmatrix traffic: each tile
-// is read twice by each warp of a group, 8 MB per SM at 8,192^2), fewer
-// instructions in the epilogue (the mask per 8 columns), and one barrier a
-// tile instead of two.
+//     its largest p. The epilogue marks a p of weight (exp(s - lse) >=
+//     kTieFloor) whose low bits lie within kTieWindow of the midpoint
+//     (`near_tie`'s window, tested as `weight_of` and `near_tie_fast`: an
+//     FMA-pipe weight and one integer multiply-add, no branch) by its pair
+//     (a row's two columns of one packed register), and the thread computes
+//     the pair's two p again as the plain version does: the scores summed in
+//     k order on the CUDA cores from the swizzled streamed tile and, at DP =
+//     64, an f32 copy of the own rows (`ordered_dot2`, two chains side by
+//     side), expf. The window (1/8 of a bf16 ulp) is far wider than what
+//     either the order or ex2.approx moves p by, so every p of weight
+//     rounds as the plain version's.
+//   - The second product: wgmma m64nDPk16 over the tile's 8 k steps, A = p
+//     from registers, B = the same streamed tile read MN-major. It is
+//     waited for one tile later, so it runs under the next tile's score
+//     issue and mask test; the [64, DP] f32 sum stays in registers across
+//     the warpgroup's tiles.
+//   - Filling the card: the streamed range is cut into `bwd_chunks`
+//     (n_str / 2,048, 1 to 4) chunks of whole tiles, a function of its
+//     length alone, each a block of its own (512 blocks at 8,192^2, 128 on
+//     a [2,048 x 8,192] stripe, where one block an own tile gave 32). At
+//     the end the warpgroups' sums are added in warpgroup order; with one
+//     chunk the block writes its rows times 1/T, with several it writes its
+//     chunk's sums to the caller's workspace and a second launch
+//     (`lse_bwd_merge_kernel`) adds them in chunk order, times 1/T once. No
+//     atomics: two launches agree bit for bit, and a stripe's dq rows meet
+//     the same chunks and tiles in the same order as the square's, so they
+//     are the square's bit for bit. Thread-block clusters of an own tile's
+//     chunks, merged through distributed shared memory, were tried first:
+//     a cluster of 4 at this shared memory held 120 of the 132 SMs (30
+//     clusters), so the square took 5 waves and the stripe's 128 blocks 2,
+//     and a cluster's blocks waited for each other at the merge (an H100).
+//   - One block an SM (its shared memory: 188 KiB at DP = 64, 222 KiB at
+//     128); a thread holds 64 scores, 32 or 64 sums and 32 packed p (155
+//     and 190 registers on an H100's ptxas, no spill).
+// Left for later: the ties outside the warpgroup's critical path (a tile's
+// tied pairs delay all four warps at the next warpgroup product), the next
+// tile's scores in flight during the epilogue (tried: ptxas then serialized
+// the products, C7515), chunks that split evenly over 3 warpgroups (16
+// tiles a chunk at 8,192 give 6, 5 and 5).
 //
 // Binding: a plain C interface loaded with ctypes. Each launch goes to the
 // caller's stream, does not synchronise and allocates nothing; each entry
@@ -136,6 +173,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_sm90.cuh"
 #include "tma_map.cuh"
@@ -155,11 +194,6 @@ constexpr int kOwn = 64;            // own rows per block: 4 warps x 16
 constexpr int kSub = 64;            // streamed rows per tile
 constexpr int kGroupThreads = 128;  // a warp group: 4 warps, 64 own rows
 constexpr int kFwdGroups = 4;       // the forward's warp groups (16 warps)
-
-// The backward's warp groups: 4 (16 warps) where a thread's registers fit 128
-// (DP = 64), else 2.
-template <int DP>
-__host__ __device__ constexpr int bwd_groups() { return DP == 64 ? 4 : 2; }
 
 // The bf16 row stride of a tile in shared memory: rows padded by 8 values.
 template <int DP>
@@ -193,7 +227,6 @@ __device__ __forceinline__ float exp_approx(float x) {
 template <int DP, int NG>
 struct Layout {
   static constexpr int LD = tile_ld<DP>();
-  static constexpr int RLD = DP + 8;  // f32 row stride of the backward's partial sums
   static constexpr int tile_elems = kSub * LD;
   static constexpr int scal_floats = 3 * kSub;  // adj or lse, g, ids of one tile
   static constexpr size_t own = 0;                                        // [64][LD] bf16
@@ -213,13 +246,13 @@ __device__ __forceinline__ float adjusted_score(float dot, float inv_t, float ad
 }
 
 // The own rows of a thread's fragment (rows g and g + 8 of its warp's 16):
-// id and global position; lse and g of a q row (backward), adj of a c row.
+// id and global position; adj of a c row.
 struct OwnRows {
   int id[2], pos[2];
   float x[2], g[2];
 };
 
-template <bool OWN_Q, bool BWD>
+template <bool OWN_Q>
 __device__ __forceinline__ OwnRows load_own_rows(const Args& a, int r0, bool use_ids) {
   OwnRows o;
 #pragma unroll
@@ -228,8 +261,8 @@ __device__ __forceinline__ OwnRows load_own_rows(const Args& a, int r0, bool use
     if (OWN_Q) {
       o.id[h] = use_ids ? __ldg(a.row_ids + r) : 0;
       o.pos[h] = a.row_offset + r;
-      o.x[h] = BWD ? __ldg(a.lse + r) : 0.f;
-      o.g[h] = BWD ? __ldg(a.g + r) : 1.f;
+      o.x[h] = 0.f;
+      o.g[h] = 1.f;
     } else {
       o.id[h] = use_ids ? __ldg(a.col_ids + r) : 0;
       o.pos[h] = r;
@@ -446,7 +479,7 @@ __global__ void __launch_bounds__(kFwdGroups * kGroupThreads) lse_fwd_kernel(con
   const int wr = (warp & 3) * 16, g = lane >> 2;  // the warp's first own row; fragment row
   const bool use_ids = a.row_ids != nullptr;
   const int own0 = blockIdx.x * kOwn;
-  const OwnRows own = load_own_rows<true, false>(a, own0 + wr + g, use_ids);
+  const OwnRows own = load_own_rows<true>(a, own0 + wr + g, use_ids);
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};  // rows g and g + 8: running max, sum
 
   uint32_t af[DP / 16][4];
@@ -459,7 +492,7 @@ __global__ void __launch_bounds__(kFwdGroups * kGroupThreads) lse_fwd_kernel(con
   finish_lse<kFwdGroups>(reinterpret_cast<float2*>(smem + L::stream), m, l, a.out + own0);
 }
 
-// ---- kernels #10 and #11 ------------------------------------------------------
+// ---- p and its ties: kernels #10 and #11 at every D --------------------------------
 
 // p before its bf16 rounding, from the adjusted score: exp(s - lse) (also
 // returned in `ex`; ex2.approx of the prescaled argument, or expf as the
@@ -486,24 +519,6 @@ constexpr float kTieFloor = 0x1p-10f;
 
 __device__ __forceinline__ bool near_tie(float p) {
   return ((__float_as_uint(p) - (0x8000u - kTieWindow)) & 0xffffu) <= 2 * kTieWindow;
-}
-
-// a . b over DP bf16 values in shared memory, one fmaf per k in k order
-template <int DP>
-__device__ float ordered_dot(const bf16* a, const bf16* b) {
-  float s = 0.f;
-#pragma unroll
-  for (int k = 0; k < DP; k += 8) {
-    const uint4 u = *reinterpret_cast<const uint4*>(a + k);
-    const uint4 w = *reinterpret_cast<const uint4*>(b + k);
-    const uint32_t au[4] = {u.x, u.y, u.z, u.w}, bu[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      s = fmaf(bf16_lo(au[m]), bf16_lo(bu[m]), s);
-      s = fmaf(bf16_hi(au[m]), bf16_hi(bu[m]), s);
-    }
-  }
-  return s;
 }
 
 // The wide backward's tie score: a . b over dp bf16 values of two rows in
@@ -540,155 +555,6 @@ __device__ float rounded_dot_group(const uint16_t* a, const uint16_t* b, int dp,
   double t = s[0] + s[1];
   for (int o = 1; o < lanes; o <<= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
   return __double2float_rn(t);
-}
-
-// The backward's work on one tile after adjust_tile: the epilogue turns the
-// warp's adjusted scores `s` into p in place (exp(s - lse) * g), computes
-// again each p of weight that lies near a bf16 rounding tie from its score
-// summed in k order (`tie_dot(h, c)`: own row g + 8h against streamed row c
-// of the tile), then adds the second product p (16 x 64, rounded to bf16 in
-// the registers) @ `tile` (64 x 8 ND, row stride LD) to `acc`.
-template <bool OWN_Q, int ND, int LD, typename TieDot>
-__device__ __forceinline__ void bwd_tile(float (&s)[8][4], const float* sc, const OwnRows& own,
-                                         int o0, const Args& a, bool use_ids, float (&acc)[ND][4],
-                                         const bf16* tile, TieDot&& tie_dot) {
-  const int lane = threadIdx.x & 31, t = lane & 3;
-  const int r8 = lane & 7, mat = lane >> 3;  // ldmatrix: row within a matrix, matrix
-  // the epilogue, in place: s[n][e] becomes p for own row g + 8 (e / 2) and
-  // streamed row 8n + 2t + (e % 2); bit 4n + e of `ties` marks a p to recompute
-  uint32_t ties = 0;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int c = n * 8 + 2 * t;
-    const float2 x0 = OWN_Q ? make_float2(0.f, 0.f)
-                            : *reinterpret_cast<const float2*>(sc + c);  // lse (dc)
-    const float2 x1 = OWN_Q ? make_float2(1.f, 1.f)
-                            : *reinterpret_cast<const float2*>(sc + kSub + c);  // g (dc)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int h = e >> 1, j = e & 1;
-      float ex;
-      s[n][e] = p_value<true>(s[n][e], OWN_Q ? own.x[h] : (j ? x0.y : x0.x),
-                              OWN_Q ? own.g[h] : (j ? x1.y : x1.x), ex);
-      if (ex >= kTieFloor && near_tie(s[n][e])) ties |= 1u << (4 * n + e);
-    }
-  }
-  // a p of weight (exp(s - lse) >= 2^-10) whose f32 value lies near a bf16
-  // rounding tie: again as the plain version computes it (k-order score, expf)
-  while (__any_sync(0xffffffffu, ties != 0)) {
-    const bool mine = ties != 0;
-    const int i = mine ? __ffs(ties) - 1 : 0;
-    ties &= ties - 1;
-    const int h = (i >> 1) & 1, c = (i >> 2) * 8 + 2 * t + (i & 1);
-    float p = 0.f;
-    if (mine) {
-      const float dot = tie_dot(h, c);
-      const int oid = use_ids ? reinterpret_cast<const int*>(sc)[2 * kSub + c] : 0;
-      const bool masked = use_ids && (h ? own.id[1] : own.id[0]) == oid &&
-                          (h ? own.pos[1] : own.pos[0]) != (OWN_Q ? 0 : a.row_offset) + o0 + c;
-      const float ox = h ? own.x[1] : own.x[0];
-      float ex;
-      p = p_value<false>(adjusted_score(dot, a.inv_t, OWN_Q ? sc[c] : ox, masked),
-                         OWN_Q ? ox : sc[c], OWN_Q ? (h ? own.g[1] : own.g[0]) : sc[kSub + c],
-                         ex);
-    }
-#pragma unroll
-    for (int k = 0; k < 32; ++k)
-      if (mine && k == i) s[k >> 2][k & 3] = p;
-  }
-
-  // the second product: p (16 x 64, from the registers) @ tile (64 x 8 ND)
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t pa[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-                            pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-                            pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                            pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-    for (int n = 0; n < ND; n += 2) {
-      uint32_t b[4];  // matrices (16kk, 8n), (16kk + 8, 8n), (16kk, 8n + 8), (16kk + 8, 8n + 8)
-      ldsm_x4_trans(b, tile + (kk * 16 + r8 + (mat & 1) * 8) * LD + n * 8 + (mat >> 1) * 8);
-      mma_bf16(acc[n], pa, b[0], b[1]);
-      mma_bf16(acc[n + 1], pa, b[2], b[3]);
-    }
-  }
-}
-
-// The end of kernels #10 and #11: groups 1 .. NG-1 write their partial sums
-// to `part` ([NG - 1][64][RLD] f32 in shared memory that no group reads any
-// more); group 0 adds them to its own in group order, times 1/T once, and
-// writes the block's 64 rows x 8 ND columns at out + row * ld.
-template <int NG, int ND, int RLD>
-__device__ __forceinline__ void finish_grad(const float (&acc)[ND][4], float* part, float* out,
-                                            size_t ld, float inv_t) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int group = warp >> 2, wr = (warp & 3) * 16;
-  const int g = lane >> 2, t = lane & 3;
-  __syncthreads();
-  if (group > 0) {
-    float* mine = part + (group - 1) * kOwn * RLD;
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float2*>(mine + (wr + g + 8 * h) * RLD + n * 8 + 2 * t) =
-            make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
-  }
-  __syncthreads();
-  if (group == 0) {
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wr + g + 8 * h;
-        float2 v = make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
-#pragma unroll
-        for (int k = 0; k < NG - 1; ++k) {
-          const float2 o =
-              *reinterpret_cast<const float2*>(part + (k * kOwn + r) * RLD + n * 8 + 2 * t);
-          v.x += o.x;
-          v.y += o.y;
-        }
-        *reinterpret_cast<float2*>(out + r * ld + n * 8 + 2 * t) =
-            make_float2(v.x * inv_t, v.y * inv_t);
-      }
-  }
-}
-
-// Kernels #10 (OWN_Q: dq for the block's 64 q rows, streaming c) and #11 (dc
-// for the block's 64 c rows, streaming q).
-template <int DP, bool OWN_Q>
-__global__ void __launch_bounds__(bwd_groups<DP>() * kGroupThreads) lse_bwd_kernel(const Args a) {
-  constexpr int NG = bwd_groups<DP>();
-  using L = Layout<DP, NG>;
-  static_assert(size_t(NG - 1) * kOwn * L::RLD * 4 <= L::scal - L::stream,
-                "the partial sums fit the tile buffers");
-  constexpr int LD = L::LD, ND = DP / 8;
-  extern __shared__ float4 smem4[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
-  const bf16* own_s = reinterpret_cast<const bf16*>(smem + L::own);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wr = (warp & 3) * 16, g = lane >> 2;  // the warp's first own row; fragment row
-  const int own0 = blockIdx.x * kOwn;
-  const bool use_ids = a.row_ids != nullptr;
-  const OwnRows own = load_own_rows<OWN_Q, true>(a, own0 + wr + g, use_ids);
-  float acc[ND][4];  // the warp's [16, DP] of dq or dc
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  uint32_t af[DP / 16][4];
-  stream_tiles<DP, OWN_Q, NG>(a, smem, af, [&](const bf16* tile, const float* sc, int o0) {
-    float s[8][4];
-    score_tile<DP>(s, af, tile);
-    adjust_tile<OWN_Q>(s, sc, own, o0, a, use_ids);
-    bwd_tile<OWN_Q, ND, LD>(s, sc, own, o0, a, use_ids, acc, tile, [&](int h, int c) {
-      return ordered_dot<DP>(own_s + (wr + g + 8 * h) * LD, tile + c * LD);
-    });
-  });
-  finish_grad<NG, ND, L::RLD>(acc, reinterpret_cast<float*>(smem + L::stream),
-                              a.out + static_cast<size_t>(own0) * DP, DP, a.inv_t);
 }
 
 // ---- wide D: 128 < D <= 2,048 --------------------------------------------------
@@ -1292,6 +1158,437 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   }
 }
 
+// ---- kernels #10 and #11 at D <= 128 -------------------------------------------
+
+constexpr int kBwdTile = 128;                   // streamed rows a tile: the score's N, the
+                                                // second product's K
+constexpr int kBwdMaxChunks = 4;                // the most chunks of a streamed range
+constexpr int kBwdChunkRows = 2048;             // streamed rows a chunk at least, where several
+
+// The warpgroups of #10 / #11 at a padded depth DP: 3 where a thread's
+// registers fit 168 (DP = 64: 32 sums), else 2.
+template <int DP>
+__host__ __device__ constexpr int bwd_warpgroups() { return DP == 64 ? 3 : 2; }
+
+// Shared memory of #10 / #11 at a padded depth DP of 64 or 128 (byte offsets
+// from a 1,024-byte boundary): the own tile [64, DP] in 64-column boxes, each
+// warpgroup's ring of 3 stages (a streamed tile [128, DP] in boxes, then its
+// scalars: adj or lse [128], g [128], ids [128]), the own rows' scalars (x,
+// g, ids, the ids sorted), at DP = 64 the own rows widened to f32 [64][DP]
+// for the ties' k-order sums (at 128 there is no room: they are widened as
+// they are read), the barriers (the own tile's, then [warpgroup][stage] full
+// ones). Every box is a TMA box with the 128-byte swizzle.
+template <int DP>
+struct BwdLayout {
+  static constexpr int nw = bwd_warpgroups<DP>();
+  static constexpr int boxes = DP / tma_map::kBoxCols;
+  static constexpr int own_box = kOwn * 128;         // [64 rows, 64] bf16: 8 KB
+  static constexpr int tile_box = kBwdTile * 128;    // [128 rows, 64]: 16 KB
+  static constexpr int tile_bytes = boxes * tile_box;
+  static constexpr int stage_bytes = tile_bytes + 2048;
+  static constexpr int stages = 3;
+  static constexpr bool own_f32 = DP == 64;
+  static constexpr size_t own = 0;
+  static constexpr size_t ring = own + size_t(boxes) * own_box;
+  static constexpr size_t own_scal = ring + size_t(nw) * stages * stage_bytes;  // [4][64]
+  static constexpr size_t own_wide = own_scal + 4 * kOwn * 4;
+  static constexpr size_t bars = own_wide + (own_f32 ? size_t(kOwn) * DP * 4 : 0);
+  static constexpr size_t bytes = bars + (1 + nw * stages) * 8 + 1024;  // the base's alignment
+};
+static_assert(BwdLayout<64>::bytes <= 232448 && BwdLayout<128>::bytes <= 232448,
+              "#10 / #11 fit a block's shared memory");
+static_assert(3 * kBwdTile * 4 <= 2048, "a tile's scalars fit its stage");
+
+// Byte offset of 16-byte chunk j (values 8 j .. 8 j + 7) of row r in a tile
+// of 64-column boxes of `box` bytes, where the TMA's 128-byte swizzle put it.
+__device__ __forceinline__ int swizzled_chunk(int r, int j, int box) {
+  return (j >> 3) * box + r * 128 + (((j & 7) ^ (r & 7)) << 4);
+}
+
+// The scores of own row r against streamed rows c0, c1 of a stage's tile over
+// DP bf16 values, d[e] = own r . streamed c_e: each one fmaf a k in k order
+// (the plain version's order; a bf16 value widened by a shift of its bits,
+// exactly), the two chains side by side, each chunk loaded one chunk ahead of
+// its fmafs. The own row comes from its f32 copy `own_w` where the layout has
+// one (BwdLayout::own_f32), else from the swizzled bf16 tile `own`.
+template <int DP>
+__device__ __forceinline__ void ordered_dot2(const unsigned char* own, const float* own_w, int r,
+                                             const unsigned char* tile, int c0, int c1,
+                                             float (&d)[2]) {
+  using L = BwdLayout<DP>;
+  constexpr int kChunks = DP / 8;
+  struct Chunk {
+    float x[8];  // the own row's 8 values
+    uint4 y[2];  // the streamed rows' 8 bf16 values
+  };
+  auto load = [&](int j, Chunk& v) {
+    if constexpr (L::own_f32) {
+      const float4 lo = *reinterpret_cast<const float4*>(own_w + r * DP + 8 * j);
+      const float4 hi = *reinterpret_cast<const float4*>(own_w + r * DP + 8 * j + 4);
+      const float w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v.x[k] = w[k];
+    } else {
+      const uint4 u = *reinterpret_cast<const uint4*>(own + swizzled_chunk(r, j, L::own_box));
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        v.x[2 * m] = bf16_lo(w[m]);
+        v.x[2 * m + 1] = bf16_hi(w[m]);
+      }
+    }
+    v.y[0] = *reinterpret_cast<const uint4*>(tile + swizzled_chunk(c0, j, L::tile_box));
+    v.y[1] = *reinterpret_cast<const uint4*>(tile + swizzled_chunk(c1, j, L::tile_box));
+  };
+  Chunk v[2];
+  load(0, v[0]);
+  d[0] = d[1] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    if (j + 1 < kChunks) load(j + 1, v[(j + 1) & 1]);
+    const Chunk& c = v[j & 1];
+    const uint32_t y[2][4] = {{c.y[0].x, c.y[0].y, c.y[0].z, c.y[0].w},
+                              {c.y[1].x, c.y[1].y, c.y[1].z, c.y[1].w}};
+#pragma unroll
+    for (int m = 0; m < 4; ++m)  // the lower k in the low half
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        d[e] = fmaf(c.x[2 * m], bf16_lo(y[e][m]), d[e]);
+        d[e] = fmaf(c.x[2 * m + 1], bf16_hi(y[e][m]), d[e]);
+      }
+  }
+}
+
+// pa[k / 4][k % 4] = v for a runtime k: the packed p of the thread's row
+// 16 warp + g + 8 (k % 2) at columns 8 (k / 2) + 2 t, + 1 (the A fragment of
+// the second product's k step k / 4; it stays in registers)
+__device__ __forceinline__ void set_pair(uint32_t (&pa)[8][4], int k, uint32_t v) {
+#pragma unroll
+  for (int kk = 0; kk < 32; ++kk)
+    if (kk == k) pa[kk >> 2][kk & 3] = v;
+}
+
+// 1 for a p of weight (exp(s - lse) >= kTieFloor = 2^-10), 0 below, from x =
+// (s - lse) log2(e): one saturated fma on the FMA pipe (between -10 and -10 +
+// 2^-20 it ramps within one f32 ulp of x).
+__device__ __forceinline__ float weight_of(float x) {
+  return __saturatef(fmaf(x, 0x1p20f, 0x1.4p23f));  // (x + 10) 2^20, clamped to [0, 1]
+}
+
+// `near_tie` in two instructions: (low 16 bits + 0x2000) << 16, one integer
+// multiply-add, lies in [0x80000000, 0xc0000000] (at most -2^30 as a signed
+// int) exactly where the low bits lie within kTieWindow of 0x8000.
+__device__ __forceinline__ bool near_tie_fast(float p) {
+  int u;
+  asm("mad.lo.s32 %0, %1, 65536, 536870912;\n" : "=r"(u) : "r"(__float_as_int(p)));
+  return u <= static_cast<int>(0xc0000000u);
+}
+static_assert(kTieWindow == 0x2000, "near_tie_fast's constants");
+
+// Whether v holds on any thread of warp group `group` (its named barrier, ORed).
+__device__ __forceinline__ bool group_any(int group, bool v) {
+  uint32_t r;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.u32 p, %1, 0;\nbar.red.or.pred q, %2, 128, p;\n"
+      "selp.u32 %0, 1, 0, q;\n}\n"
+      : "=r"(r)
+      : "r"(static_cast<uint32_t>(v)), "r"(group + 1)
+      : "memory");
+  return r != 0;
+}
+
+// Kernels #10 (OWN_Q: dq of the block's 64 q rows, streaming c) and #11 (dc
+// of its 64 c rows, streaming q). Block b is chunk b % n_chunks of own tile
+// b / n_chunks. m_own: the own operand [n_own, DP] in boxes [64, 64]; m_str:
+// the streamed one [n_str, DP] in boxes [128, 64]. With one chunk the block
+// writes its rows of a.out, times 1/T; with several, its chunk's sums into
+// part ([n_chunks, n_own, DP] f32), which `lse_bwd_merge_kernel` adds.
+template <int DP, bool OWN_Q>
+__global__ void __launch_bounds__(bwd_warpgroups<DP>() * kGroupThreads, 1)
+    lse_bwd_kernel(const __grid_constant__ CUtensorMap m_own,
+                   const __grid_constant__ CUtensorMap m_str, const Args a, int n_chunks,
+                   float* __restrict__ part) {
+  using L = BwdLayout<DP>;
+  constexpr int NW = L::nw, ND = DP / 2;  // warpgroups; a thread's share of the [64, DP] sum
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int wg = threadIdx.x / kGroupThreads, gt = threadIdx.x & (kGroupThreads - 1);
+  const int warp = gt >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int chunk = static_cast<int>(blockIdx.x % n_chunks);
+  const int own0 = static_cast<int>(blockIdx.x / n_chunks) * kOwn;
+  const int n_t = (OWN_Q ? a.bk : a.bq) / kBwdTile;
+  const int t0 = chunk_first(chunk, n_t, n_chunks), t1 = chunk_first(chunk + 1, n_t, n_chunks);
+  const int n_mine = (t1 - t0 - wg + NW - 1) / NW;  // this warpgroup's: t0 + wg, t0 + wg + NW, ...
+  const bool use_ids = a.row_ids != nullptr;
+  const float* first = OWN_Q ? a.adj : a.lse;  // the tile's first scalars: adj (or none) or lse
+  const uint32_t stage_tx = L::tile_bytes + kBwdTile * 4 * ((first != nullptr ? 1 : 0) +
+                                                           (OWN_Q ? 0 : 1) + (use_ids ? 1 : 0));
+  const int own_pos0 = (OWN_Q ? a.row_offset : 0) + own0;  // global position of own row 0
+  unsigned char* ring = smem + L::ring + size_t(wg) * L::stages * L::stage_bytes;
+  const unsigned char* own_s = smem + L::own;
+  uint64_t* own_bar = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* full = own_bar + 1 + wg * L::stages;
+  // the own rows' scalars: lse, g of q rows, or adj (0 without one), 1 of c
+  // rows; ids (-2 without ids) and the ids sorted
+  float* own_x = reinterpret_cast<float*>(smem + L::own_scal);
+  float* own_g = own_x + kOwn;
+  int* own_id = reinterpret_cast<int*>(own_g + kOwn);
+  int* sorted_id = own_id + kOwn;
+
+  if (threadIdx.x == 0) {
+    mbar_init(own_bar, 1);
+    for (int s = 0; s < NW * L::stages; ++s) mbar_init(own_bar + 1 + s, 1);
+    mbar_init_fence();
+  }
+  int my_id = 0;
+  if (threadIdx.x < kOwn) {
+    const int r = own0 + threadIdx.x;
+    own_x[threadIdx.x] = OWN_Q ? __ldg(a.lse + r) : (a.adj != nullptr ? __ldg(a.adj + r) : 0.f);
+    own_g[threadIdx.x] = OWN_Q ? __ldg(a.g + r) : 1.f;
+    my_id = use_ids ? __ldg((OWN_Q ? a.row_ids : a.col_ids) + r) : -2;
+    own_id[threadIdx.x] = my_id;
+  }
+  // scalars no copy brings: adj 0 without one; ids -1 without ids (the own rows' are then -2)
+  for (int s = 0; s < L::stages; ++s) {
+    float* sc = reinterpret_cast<float*>(ring + s * L::stage_bytes + L::tile_bytes);
+    if (first == nullptr) sc[gt] = 0.f;
+    if (!use_ids) reinterpret_cast<int*>(sc)[2 * kBwdTile + gt] = -1;
+  }
+  __syncthreads();
+  // tile `it` of this warpgroup into its stage: the rows by TMA, the scalars by bulk copies
+  auto load = [&](int it) {
+    const int s = it % L::stages, o0 = (t0 + wg + NW * it) * kBwdTile;
+    unsigned char* st = ring + s * L::stage_bytes;
+    float* sc = reinterpret_cast<float*>(st + L::tile_bytes);
+    mbar_arrive_expect_tx(full + s, stage_tx);
+#pragma unroll
+    for (int b = 0; b < L::boxes; ++b)
+      tma_load_2d(st + b * L::tile_box, &m_str, full + s, b * tma_map::kBoxCols, o0);
+    if (first != nullptr) bulk_load(sc, first + o0, kBwdTile * 4, full + s);
+    if (!OWN_Q) bulk_load(sc + kBwdTile, a.g + o0, kBwdTile * 4, full + s);
+    if (use_ids)
+      bulk_load(sc + 2 * kBwdTile, (OWN_Q ? a.col_ids : a.row_ids) + o0, kBwdTile * 4, full + s);
+  };
+  if (threadIdx.x == 0) {
+    tma_prefetch_map(&m_own);
+    tma_prefetch_map(&m_str);
+    mbar_arrive_expect_tx(own_bar, L::boxes * L::own_box);
+#pragma unroll
+    for (int b = 0; b < L::boxes; ++b)
+      tma_load_2d(smem + L::own + b * L::own_box, &m_own, own_bar, b * tma_map::kBoxCols, own0);
+  }
+  if (gt == 0)
+    for (int it = 0; it < n_mine && it < L::stages; ++it) load(it);
+
+  if (threadIdx.x < kOwn) {  // the ids sorted (a rank each; equal ids by row)
+    int rank = 0;
+    for (int k = 0; k < kOwn; ++k) {
+      const int o = own_id[k];
+      rank += (o < my_id || (o == my_id && k < static_cast<int>(threadIdx.x))) ? 1 : 0;
+    }
+    sorted_id[rank] = my_id;
+  }
+  __syncthreads();  // the sorted ids
+
+  // the thread's two own rows (16 warp + g + 8 h): lse, g of a q row or adj of
+  // a c row; id (-2 without ids), global position
+  float x_r[2], g_r[2];
+  int id_r[2], pos_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * warp + g + 8 * h;
+    x_r[h] = own_x[r];
+    g_r[h] = own_g[r];
+    id_r[h] = own_id[r];
+    pos_r[h] = own_pos0 + r;
+  }
+  float acc[ND];  // the warpgroup's [64, DP] of dq or dc, f32, in the accumulator layout
+#pragma unroll
+  for (int i = 0; i < ND; ++i) acc[i] = 0.f;
+  mbar_wait(own_bar, 0);
+  float* own_w = reinterpret_cast<float*>(smem + L::own_wide);  // (DP = 64)
+  if constexpr (L::own_f32) {  // the own rows in f32, unswizzled: [64][DP]
+    for (int e = threadIdx.x; e < kOwn * DP / 8; e += NW * kGroupThreads) {
+      const int r = e / (DP / 8), j = e % (DP / 8);
+      const uint4 u = *reinterpret_cast<const uint4*>(own_s + swizzled_chunk(r, j, L::own_box));
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        *reinterpret_cast<float2*>(own_w + r * DP + 8 * j + 2 * m) =
+            make_float2(bf16_lo(w[m]), bf16_hi(w[m]));
+    }
+    __syncthreads();
+  }
+
+  // the raw scores of tile `it` [64 own, 128 streamed] into s, issued and
+  // committed: the DP / 16 k steps in order in one accumulator
+  auto score = [&](float (&s)[64], int it) {
+    const int si = it % L::stages;
+    const unsigned char* st = ring + si * L::stage_bytes;
+    mbar_wait(full + si, (it / L::stages) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < DP / 16; ++ks)
+      wgmma_bf16<128, 0, 0>(s, kmajor_sw128(own_s + (ks >> 2) * L::own_box, ks & 3),
+                            kmajor_sw128(st + (ks >> 2) * L::tile_box, ks & 3), ks);
+    wgmma_commit();
+  };
+
+  // The epilogue of a tile: the scores s[i] (own row 16 warp + g + 8 h,
+  // streamed row 8 j + 2 t + e of the tile, i = 4 j + 2 h + e) become p =
+  // exp(s - lse) g from the adjusted score (`adjusted_score`; MASK: the tile
+  // holds an id of an own row, so the mask is taken score by score), rounded
+  // to bf16 and packed in pairs into pa, the A fragments of the second
+  // product. Bit 2 j + h of the result: the pair of row h at columns 8 j +
+  // 2 t, + 1 holds a p of weight near a bf16 rounding tie (`weight_of`,
+  // `near_tie_fast`).
+  auto epilogue = [&](auto mask, const float (&s)[64], uint32_t (&pa)[8][4], const float* sc,
+                      const int* sid, int o0) {
+    constexpr bool kMask = decltype(mask)::value;
+    uint32_t pairs = 0;
+    const int spos = (OWN_Q ? 0 : a.row_offset) + o0 + 2 * t;  // position of column 2 t
+    const int dpos[2] = {pos_r[0] - spos, pos_r[1] - spos};
+#pragma unroll
+    for (int j = 0; j < kBwdTile / 8; ++j) {
+      const int cl = 8 * j + 2 * t;
+      const float2 x2 = *reinterpret_cast<const float2*>(sc + cl);  // adj (dq) or lse (dc)
+      const float2 g2 = OWN_Q ? make_float2(1.f, 1.f)
+                              : *reinterpret_cast<const float2*>(sc + kBwdTile + cl);
+      const int2 id2 = kMask ? *reinterpret_cast<const int2*>(sid + cl) : make_int2(0, 0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        bool tie = false;
+        float p[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool masked = kMask && id_r[h] == (e ? id2.y : id2.x) && dpos[h] != 8 * j + e;
+          const float xs = e ? x2.y : x2.x;
+          const float sa = adjusted_score(s[4 * j + 2 * h + e], a.inv_t, OWN_Q ? xs : x_r[h],
+                                          masked);
+          const float x = __fmul_rn(__fsub_rn(sa, OWN_Q ? x_r[h] : xs), kLog2e);
+          float ex;
+          asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(ex) : "f"(x));
+          p[e] = __fmul_rn(ex, OWN_Q ? g_r[h] : (e ? g2.y : g2.x));
+          tie = tie | near_tie_fast(p[e] * weight_of(x));
+        }
+        pa[j >> 1][2 * (j & 1) + h] = pack_bf16x2(p[0], p[1]);
+        pairs |= tie ? 1u << (2 * j + h) : 0u;
+      }
+    }
+    return pairs;
+  };
+
+  // The warpgroup's tiles in turn: the tile's scores are issued; the
+  // warpgroup's barrier says which epilogue the tile needs and that the stage
+  // of two tiles back is free (its second product was waited for one tile
+  // ago: it is refilled); the scores and the last tile's second product are
+  // waited for; the epilogue and the ties turn the scores into p, and the
+  // tile's second product is issued.
+  for (int it = 0; it < n_mine; ++it) {
+    const int si = it % L::stages, o0 = (t0 + wg + NW * it) * kBwdTile;
+    const unsigned char* st = ring + si * L::stage_bytes;
+    const float* sc = reinterpret_cast<const float*>(st + L::tile_bytes);
+    const int* sid = reinterpret_cast<const int*>(sc) + 2 * kBwdTile;
+    const int spos0 = (OWN_Q ? 0 : a.row_offset) + o0;  // global position of column 0
+    float s[64];
+    score(s, it);
+    // does column gt of the tile hold an id of an own row? (a binary search of
+    // the sorted ids; an own row's own column holds its id too, and the mask
+    // spares it)
+    const int cid = sid[gt];
+    int at = 0;
+#pragma unroll
+    for (int w = kOwn / 2; w >= 1; w >>= 1) at += sorted_id[at + w - 1] < cid ? w : 0;
+    const bool mask = group_any(wg, sorted_id[at] == cid);
+    if (gt == 0 && it >= 2 && it - 2 + L::stages < n_mine) load(it - 2 + L::stages);
+    wgmma_wait<0>();
+    fence_operands(s);
+    fence_operands(acc);
+
+    uint32_t pa[8][4];  // p rounded to bf16, packed: the second product's A fragments
+    uint32_t pairs = mask ? epilogue(std::true_type(), s, pa, sc, sid, o0)
+                          : epilogue(std::false_type(), s, pa, sc, sid, o0);
+    // a pair with a p of weight near a bf16 rounding tie: its two p again as
+    // the plain version takes them (the scores in k order, expf)
+    while (pairs != 0) {
+      const int k = __ffs(pairs) - 1;
+      pairs &= pairs - 1;
+      const int r = 16 * warp + g + 8 * (k & 1), c0 = 8 * (k >> 1) + 2 * t;
+      float dot[2], v[2];
+      ordered_dot2<DP>(own_s, own_w, r, st, c0, c0 + 1, dot);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = c0 + e;
+        const bool masked = own_id[r] == sid[c] && own_pos0 + r != spos0 + c;
+        float ex;
+        v[e] = p_value<false>(adjusted_score(dot[e], a.inv_t, OWN_Q ? sc[c] : own_x[r], masked),
+                              OWN_Q ? own_x[r] : sc[c], OWN_Q ? own_g[r] : sc[kBwdTile + c], ex);
+      }
+      set_pair(pa, k, pack_bf16x2(v[0], v[1]));
+    }
+
+    // the second product: p (64 x 128 bf16, the A operand from registers) @
+    // the tile (128 x DP, MN-major), 8 k steps into acc
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_bf16_rs<DP, 1>(acc, pa[kk], smem_desc(st + 2048 * kk, L::tile_box, 1024, kSwizzle128),
+                           1);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+
+  // the block's sums: warpgroups 1 .. NW - 1's added to warpgroup 0's in order
+  __syncthreads();  // every warpgroup is past its tiles: the ring is free
+  float4* sums = reinterpret_cast<float4*>(smem + L::ring);  // [NW][ND / 4][128], fragment order
+  if (wg > 0)
+#pragma unroll
+    for (int i = 0; i < ND / 4; ++i)
+      sums[(wg * (ND / 4) + i) * kGroupThreads + gt] =
+          make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
+  __syncthreads();
+  if (wg == 0) {
+    const bool whole = n_chunks == 1;  // else the chunk's sums, added by the merge launch
+    float* out = (whole ? a.out : part + static_cast<size_t>(chunk) * (OWN_Q ? a.bq : a.bk) * DP) +
+                 static_cast<size_t>(own0) * DP;
+    for (int w = 1; w < NW; ++w)
+#pragma unroll
+      for (int i = 0; i < ND / 4; ++i) {
+        const float4 v = sums[(w * (ND / 4) + i) * kGroupThreads + gt];
+        acc[4 * i] = __fadd_rn(acc[4 * i], v.x);
+        acc[4 * i + 1] = __fadd_rn(acc[4 * i + 1], v.y);
+        acc[4 * i + 2] = __fadd_rn(acc[4 * i + 2], v.z);
+        acc[4 * i + 3] = __fadd_rn(acc[4 * i + 3], v.w);
+      }
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float2 v = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        if (whole) v = make_float2(__fmul_rn(v.x, a.inv_t), __fmul_rn(v.y, a.inv_t));
+        *reinterpret_cast<float2*>(out + (16 * warp + g + 8 * h) * DP + 8 * j + 2 * t) = v;
+      }
+  }
+}
+
+// The end of #10 / #11 over several chunks: out[i] = (1/T) (part[0][i] +
+// part[1][i] + ...), the chunks added in chunk order, four values a thread.
+__global__ void __launch_bounds__(256)
+    lse_bwd_merge_kernel(const float4* __restrict__ part, int n_chunks, int64_t n4, float inv_t,
+                         float4* __restrict__ out) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  float4 v = part[i];
+  for (int k = 1; k < n_chunks; ++k) {
+    const float4 w = part[static_cast<size_t>(k) * n4 + i];
+    v = make_float4(__fadd_rn(v.x, w.x), __fadd_rn(v.y, w.y), __fadd_rn(v.z, w.z),
+                    __fadd_rn(v.w, w.w));
+  }
+  out[i] = make_float4(__fmul_rn(v.x, inv_t), __fmul_rn(v.y, inv_t), __fmul_rn(v.z, inv_t),
+                       __fmul_rn(v.w, inv_t));
+}
+
 // ---- host side ---------------------------------------------------------------
 
 template <typename K>
@@ -1303,16 +1600,20 @@ int launch(K kernel, const Args& a, dim3 grid, int threads, size_t smem, cudaStr
   return static_cast<int>(cudaGetLastError());
 }
 
-// The wide backward's kernels: persistent blocks, at most one an SM.
-template <typename K, typename... P>
-int launch_ring(K kernel, int n_tiles, size_t smem, cudaStream_t stream, const P&... params) {
+// The ring's kernels: persistent blocks, at most one an SM. A runtime call
+// first (it makes the device's context current on this thread, which the
+// tensor maps' encoding, a driver call, needs), then `encode()` fills the
+// maps among `params`.
+template <typename K, typename Encode, typename... P>
+int launch_ring(K kernel, int n_tiles, size_t smem, cudaStream_t stream, Encode&& encode,
+                const P&... params) {
   int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (!encode()) return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<n_tiles < sms ? n_tiles : sms, kWideThreads, smem, stream>>>(params...);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1364,16 +1665,67 @@ Args make_args(const void* q, const void* c, const void* adj, const void* row_id
   return a;
 }
 
+// The chunks of a backward's streamed range of n_str rows (a block each an
+// own tile): a function of the length alone, whole 128-row tiles (16 at least
+// each where there are several), at most kBwdMaxChunks; `bwd_chunks` in
+// ops/softmax_kernel.py is the same rule.
+int bwd_chunks(int64_t n_str) {
+  const int64_t k = n_str / kBwdChunkRows;
+  return static_cast<int>(k < 1 ? 1 : (k > kBwdMaxChunks ? kBwdMaxChunks : k));
+}
+
+// #10 (OWN_Q) or #11 at a padded depth DP of 64 or 128: a runtime call first
+// (it makes the device's context current on this thread, which the tensor
+// maps' encoding, a driver call, needs), the maps, the launch over n_own / 64
+// own tiles x the chunks, then the chunks' merge where there are several.
+template <int DP, bool OWN_Q>
+int launch_bwd_at(const Args& a, float* part, cudaStream_t stream) {
+  auto kernel = lse_bwd_kernel<DP, OWN_Q>;
+  constexpr size_t smem = BwdLayout<DP>::bytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_own = OWN_Q ? a.bq : a.bk, n_str = OWN_Q ? a.bk : a.bq;
+  const int chunks = bwd_chunks(n_str);
+  if (chunks > 1 && part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap m_own, m_str;
+  if (!bf16_map(&m_own, OWN_Q ? a.q : a.c, DP, n_own, kOwn) ||
+      !bf16_map(&m_str, OWN_Q ? a.c : a.q, DP, n_str, kBwdTile))
+    return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(n_own / kOwn * chunks), bwd_warpgroups<DP>() * kGroupThreads, smem,
+           stream>>>(
+      m_own, m_str, a, chunks, part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || chunks == 1) return static_cast<int>(err);
+  const int64_t n4 = int64_t(n_own) * DP / 4;
+  lse_bwd_merge_kernel<<<static_cast<unsigned>((n4 + 255) / 256), 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(part), chunks, n4, a.inv_t, reinterpret_cast<float4*>(a.out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool OWN_Q>
-int launch_bwd(const Args& a, cudaStream_t s) {
-  const int n_own = OWN_Q ? a.bq : a.bk;
-  if (a.dp == 64)
-    return launch(lse_bwd_kernel<64, OWN_Q>, a, dim3(n_own / kOwn), bwd_groups<64>() * kGroupThreads,
-                  Layout<64, bwd_groups<64>()>::bytes, s);
-  if (a.dp == 128)
-    return launch(lse_bwd_kernel<128, OWN_Q>, a, dim3(n_own / kOwn),
-                  bwd_groups<128>() * kGroupThreads, Layout<128, bwd_groups<128>()>::bytes, s);
+int launch_bwd(const Args& a, void* part, cudaStream_t s) {
+  auto* pr = static_cast<float*>(part);
+  if (a.dp == 64) return launch_bwd_at<64, OWN_Q>(a, pr, s);
+  if (a.dp == 128) return launch_bwd_at<128, OWN_Q>(a, pr, s);
   return static_cast<int>(cudaErrorInvalidValue);  // a wide D: the p kernel and the products
+}
+
+template <int DP, bool OWN_Q>
+int bwd_plan_at(int64_t n_str, int64_t* out) {
+  auto kernel = lse_bwd_kernel<DP, OWN_Q>;
+  constexpr size_t smem = BwdLayout<DP>::bytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        bwd_warpgroups<DP>() * kGroupThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = bwd_chunks(n_str);
+  out[1] = blocks;
+  out[2] = static_cast<int64_t>(smem);
+  return 0;
 }
 
 }  // namespace
@@ -1414,43 +1766,47 @@ int ttrm_softmax_lse_fwd_wide(const void* q, const void* c, const void* adj, con
   const Args a = make_args(q, c, adj, row_ids, col_ids, nullptr, nullptr, lse_out, bq, bk, dp,
                            row_offset, inv_t);
   if (!all_aligned(a) || !aligned16(part)) return static_cast<int>(cudaErrorMisalignedAddress);
-  CUtensorMap mq, mc;
-  if (!bf16_map(&mq, q, dp, bq, kTileM) || !bf16_map(&mc, c, dp, bk, kTileN))
-    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   auto* pr = static_cast<float2*>(part);
   const int chunks = static_cast<int>(n_chunks);
-  const int err = launch_ring(lse_fwd_wide_kernel, static_cast<int>(bq / kTileM) * chunks,
-                              kFwdSmem, s, mq, mc, a, pr, chunks);
+  CUtensorMap mq, mc;
+  const int err = launch_ring(
+      lse_fwd_wide_kernel, static_cast<int>(bq / kTileM) * chunks, kFwdSmem, s,
+      [&] { return bf16_map(&mq, q, dp, bq, kTileM) && bf16_map(&mc, c, dp, bk, kTileN); }, mq, mc,
+      a, pr, chunks);
   if (err != 0) return err;
   lse_merge_kernel<<<static_cast<unsigned>((bq + 255) / 256), 256, 0, s>>>(
       pr, chunks, static_cast<int>(bq), static_cast<float*>(lse_out));
   return static_cast<int>(cudaGetLastError());
 }
 
-// #10 and #11 at D <= 128 (a padded depth of 64 or 128)
+// #10 and #11 at D <= 128 (a padded depth of 64 or 128). part: the caller's
+// workspace of the chunks' sums, [bwd_chunks(n_str), n_own, dp] f32 (n_str =
+// bk, n_own = bq for dq; the other way round for dc), 16-byte aligned; null
+// where there is one chunk (n_str < 4,096). Two launches where there are
+// several: the chunks' sums, then their merge in chunk order.
 int ttrm_softmax_lse_dq(const void* q, const void* c, const void* adj, const void* row_ids,
                         const void* col_ids, const void* lse, const void* g, void* dq_out,
-                        int64_t bq, int64_t bk, int64_t dp, int64_t row_offset, float inv_t,
-                        void* stream) {
+                        void* part, int64_t bq, int64_t bk, int64_t dp, int64_t row_offset,
+                        float inv_t, void* stream) {
   if (!shapes_ok(bq, bk, dp, row_offset, row_ids, col_ids))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a = make_args(q, c, adj, row_ids, col_ids, lse, g, dq_out, bq, bk, dp, row_offset,
                            inv_t);
-  if (!all_aligned(a)) return static_cast<int>(cudaErrorMisalignedAddress);
-  return launch_bwd<true>(a, static_cast<cudaStream_t>(stream));
+  if (!all_aligned(a) || !aligned16(part)) return static_cast<int>(cudaErrorMisalignedAddress);
+  return launch_bwd<true>(a, part, static_cast<cudaStream_t>(stream));
 }
 
 int ttrm_softmax_lse_dc(const void* q, const void* c, const void* adj, const void* row_ids,
                         const void* col_ids, const void* lse, const void* g, void* dc_out,
-                        int64_t bq, int64_t bk, int64_t dp, int64_t row_offset, float inv_t,
-                        void* stream) {
+                        void* part, int64_t bq, int64_t bk, int64_t dp, int64_t row_offset,
+                        float inv_t, void* stream) {
   if (!shapes_ok(bq, bk, dp, row_offset, row_ids, col_ids))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a = make_args(q, c, adj, row_ids, col_ids, lse, g, dc_out, bq, bk, dp, row_offset,
                            inv_t);
-  if (!all_aligned(a)) return static_cast<int>(cudaErrorMisalignedAddress);
-  return launch_bwd<false>(a, static_cast<cudaStream_t>(stream));
+  if (!all_aligned(a) || !aligned16(part)) return static_cast<int>(cudaErrorMisalignedAddress);
+  return launch_bwd<false>(a, part, static_cast<cudaStream_t>(stream));
 }
 
 // The p kernel at a wide D: P of q rows [lo, lo + rows) into p_out ([rows, bk]
@@ -1465,12 +1821,12 @@ int ttrm_softmax_lse_p(const void* q, const void* c, const void* adj, const void
   const Args a = make_args(q, c, adj, row_ids, col_ids, lse, g, p_out, bq, bk, dp, row_offset,
                            inv_t);
   if (!all_aligned(a)) return static_cast<int>(cudaErrorMisalignedAddress);
-  CUtensorMap mq, mc;
-  if (!bf16_map(&mq, q, dp, bq, kTileM) || !bf16_map(&mc, c, dp, bk, kTileN))
-    return static_cast<int>(cudaErrorInvalidValue);
   const int n_tiles = static_cast<int>(rows / kTileM * (bk / kTileN));
-  return launch_ring(lse_p_kernel, n_tiles, kPSmem, static_cast<cudaStream_t>(stream), mq, mc, a,
-                     static_cast<uint16_t*>(p_out), static_cast<int>(lo), static_cast<int>(rows));
+  CUtensorMap mq, mc;
+  return launch_ring(
+      lse_p_kernel, n_tiles, kPSmem, static_cast<cudaStream_t>(stream),
+      [&] { return bf16_map(&mq, q, dp, bq, kTileM) && bf16_map(&mc, c, dp, bk, kTileN); }, mq, mc,
+      a, static_cast<uint16_t*>(p_out), static_cast<int>(lo), static_cast<int>(rows));
 }
 
 // #10's product at a wide D: dq_out ([rows, dp] f32) = (1/T) p ([rows, bk]
@@ -1480,14 +1836,13 @@ int ttrm_softmax_lse_dq_product(const void* p, const void* c, void* dq_out, int6
   if (!panel_ok(rows, bk, dp)) return static_cast<int>(cudaErrorInvalidValue);
   if (!aligned16(p) || !aligned16(c) || !aligned16(dq_out))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  CUtensorMap ma, mb;
-  if (!bf16_map(&ma, p, bk, rows, kTileM) || !bf16_map(&mb, c, dp, bk, kTileK))
-    return static_cast<int>(cudaErrorInvalidValue);
   const int n_tm = static_cast<int>(rows / kTileM), n_tn = static_cast<int>(dp / kTileN);
-  return launch_ring(lse_product_kernel<false>, n_tm * n_tn, kWideSmem,
-                     static_cast<cudaStream_t>(stream),
-                     ma, mb, static_cast<float*>(dq_out), n_tm, n_tn,
-                     static_cast<int>(bk / kTileK), static_cast<int>(dp), inv_t, 1, 1);
+  CUtensorMap ma, mb;
+  return launch_ring(
+      lse_product_kernel<false>, n_tm * n_tn, kWideSmem, static_cast<cudaStream_t>(stream),
+      [&] { return bf16_map(&ma, p, bk, rows, kTileM) && bf16_map(&mb, c, dp, bk, kTileK); }, ma,
+      mb, static_cast<float*>(dq_out), n_tm, n_tn, static_cast<int>(bk / kTileK),
+      static_cast<int>(dp), inv_t, 1, 1);
 }
 
 // #11's product at a wide D: dc ([bk, dp] f32) = (first ? 0 : dc) + p^T
@@ -1498,14 +1853,28 @@ int ttrm_softmax_lse_dc_product(const void* p, const void* q_rows, void* dc, int
   if (!panel_ok(rows, bk, dp)) return static_cast<int>(cudaErrorInvalidValue);
   if (!aligned16(p) || !aligned16(q_rows) || !aligned16(dc))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  CUtensorMap ma, mb;
-  if (!bf16_map(&ma, p, bk, rows, kTileK) || !bf16_map(&mb, q_rows, dp, rows, kTileK))
-    return static_cast<int>(cudaErrorInvalidValue);
   const int n_tm = static_cast<int>(bk / kTileM), n_tn = static_cast<int>(dp / kTileN);
-  return launch_ring(lse_product_kernel<true>, n_tm * n_tn, kWideSmem,
-                     static_cast<cudaStream_t>(stream),
-                     ma, mb, static_cast<float*>(dc), n_tm, n_tn, static_cast<int>(rows / kTileK),
-                     static_cast<int>(dp), inv_t, first != 0 ? 1 : 0, last != 0 ? 1 : 0);
+  CUtensorMap ma, mb;
+  return launch_ring(
+      lse_product_kernel<true>, n_tm * n_tn, kWideSmem, static_cast<cudaStream_t>(stream),
+      [&] { return bf16_map(&ma, p, bk, rows, kTileK) && bf16_map(&mb, q_rows, dp, rows, kTileK); },
+      ma, mb, static_cast<float*>(dc), n_tm, n_tn, static_cast<int>(rows / kTileK),
+      static_cast<int>(dp), inv_t, first != 0 ? 1 : 0, last != 0 ? 1 : 0);
+}
+
+// The launch plan of #10 (own_q) or #11 at a padded depth dp of 64 or 128
+// over a streamed range of n_str rows, into out[3]: the range's chunks (a
+// block each an own tile; a merge launch where there are several), the
+// blocks an SM holds at once, a block's shared memory in bytes. Launches
+// nothing.
+int ttrm_softmax_lse_bwd_plan(int64_t n_str, int64_t dp, int64_t own_q, int64_t* out,
+                              void* /*stream*/) {
+  if (n_str <= 0 || n_str % kRowMultiple != 0 || out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dp == 64) return own_q ? bwd_plan_at<64, true>(n_str, out) : bwd_plan_at<64, false>(n_str, out);
+  if (dp == 128)
+    return own_q ? bwd_plan_at<128, true>(n_str, out) : bwd_plan_at<128, false>(n_str, out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* ttrm_error_string(int code) {

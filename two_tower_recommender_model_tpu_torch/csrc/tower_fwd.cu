@@ -633,40 +633,47 @@ tower_fwd_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__
   if (kStore && gt == 0) bulk_wait<0>();  // the block's stores are done before it ends
 }
 
-template <int H2P, bool EXACT, int SPLIT = kWhole>
-int launch(const CUtensorMap& mx, const CUtensorMap& mo, void* out, const void* w1, int64_t w1_sk,
-           int64_t w1_sn, const void* b1, const void* w2, int64_t w2_sk, int64_t w2_sn,
-           const void* b2, int64_t batch, int h2, int sms, cudaStream_t stream) {
-  using L = Layout<H2P>;
-  const int64_t n_tiles = batch / kT;  // a block an SM, or fewer: one a tile a consumer at least
-  const int n_blocks = static_cast<int>(std::min<int64_t>(sms, (n_tiles + L::consumers - 1) /
-                                                                    L::consumers));
-  cudaError_t err = cudaFuncSetAttribute(tower_fwd_kernel<H2P, EXACT, SPLIT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(L::bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  tower_fwd_kernel<H2P, EXACT, SPLIT><<<n_blocks, L::threads, L::bytes, stream>>>(
-      mx, mo, static_cast<bf16*>(out), static_cast<const uint16_t*>(w1), w1_sk, w1_sn,
-      static_cast<const uint16_t*>(b1), static_cast<const uint16_t*>(w2), w2_sk, w2_sn,
-      static_cast<const uint16_t*>(b2), n_tiles, h2);
-  return static_cast<int>(cudaGetLastError());
-}
-
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// The shapes the kernel takes and its tensor maps: x's, and the output's
-// where it goes out in boxes (h2 of 64 or 128; else mo is x's, unused).
-bool prepare(const void* x, void* out, int64_t batch, int64_t h2, int64_t sms,
-             CUtensorMap* mx, CUtensorMap* mo) {
-  if (batch <= 0 || batch % kT != 0 || batch >= (int64_t(1) << 31) || h2 <= 0 || h2 > kD ||
-      sms <= 0 || sms > (1 << 16) || !aligned16(x) || !aligned16(out))
-    return false;
+// The shapes the kernel takes.
+bool shapes_ok(const void* x, const void* out, int64_t batch, int64_t h2, int64_t sms) {
+  return batch > 0 && batch % kT == 0 && batch < (int64_t(1) << 31) && h2 > 0 && h2 <= kD &&
+         sms > 0 && sms <= (1 << 16) && aligned16(x) && aligned16(out);
+}
+
+// The kernel's tensor maps: x's, and the output's where it goes out in boxes
+// (h2 of 64 or 128; else mo is x's, unused).
+bool encode_maps(const void* x, void* out, int64_t batch, int64_t h2, CUtensorMap* mx,
+                 CUtensorMap* mo) {
   if (!tma_map::bf16_map(mx, x, kD, batch, kT)) return false;
   if (h2 % kBoxCols != 0) {
     *mo = *mx;
     return true;
   }
   return tma_map::bf16_map(mo, out, h2, batch, kT);
+}
+
+template <int H2P, bool EXACT, int SPLIT = kWhole>
+int launch(const void* x, void* out, const void* w1, int64_t w1_sk, int64_t w1_sn,
+           const void* b1, const void* w2, int64_t w2_sk, int64_t w2_sn, const void* b2,
+           int64_t batch, int h2, int sms, cudaStream_t stream) {
+  using L = Layout<H2P>;
+  const int64_t n_tiles = batch / kT;  // a block an SM, or fewer: one a tile a consumer at least
+  const int n_blocks = static_cast<int>(std::min<int64_t>(sms, (n_tiles + L::consumers - 1) /
+                                                                    L::consumers));
+  // a runtime call first: it makes the device's context current on this
+  // thread, which the tensor maps' encoding (a driver call) needs
+  cudaError_t err = cudaFuncSetAttribute(tower_fwd_kernel<H2P, EXACT, SPLIT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(L::bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap mx, mo;
+  if (!encode_maps(x, out, batch, h2, &mx, &mo)) return static_cast<int>(cudaErrorInvalidValue);
+  tower_fwd_kernel<H2P, EXACT, SPLIT><<<n_blocks, L::threads, L::bytes, stream>>>(
+      mx, mo, static_cast<bf16*>(out), static_cast<const uint16_t*>(w1), w1_sk, w1_sn,
+      static_cast<const uint16_t*>(b1), static_cast<const uint16_t*>(w2), w2_sk, w2_sn,
+      static_cast<const uint16_t*>(b2), n_tiles, h2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -682,21 +689,19 @@ extern "C" {
 int ttrm_tower_fwd(const void* x, const void* w1, int64_t w1_sk, int64_t w1_sn, const void* b1,
                    const void* w2, int64_t w2_sk, int64_t w2_sn, const void* b2, void* out,
                    int64_t batch, int64_t h2, int64_t sms, void* stream) {
-  CUtensorMap mx, mo;
-  if (!prepare(x, out, batch, h2, sms, &mx, &mo))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!shapes_ok(x, out, batch, h2, sms)) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const int h = static_cast<int>(h2), nb = static_cast<int>(sms);
   if (h2 == 64)
-    return launch<64, true>(mx, mo, out, w1, w1_sk, w1_sn, b1, w2, w2_sk, w2_sn, b2, batch, h, nb,
+    return launch<64, true>(x, out, w1, w1_sk, w1_sn, b1, w2, w2_sk, w2_sn, b2, batch, h, nb,
                             s);
   if (h2 == 128)
-    return launch<128, true>(mx, mo, out, w1, w1_sk, w1_sn, b1, w2, w2_sk, w2_sn, b2, batch, h, nb,
+    return launch<128, true>(x, out, w1, w1_sk, w1_sn, b1, w2, w2_sk, w2_sn, b2, batch, h, nb,
                              s);
   if (h2 < 64)
-    return launch<64, false>(mx, mo, out, w1, w1_sk, w1_sn, b1, w2, w2_sk, w2_sn, b2, batch, h, nb,
+    return launch<64, false>(x, out, w1, w1_sk, w1_sn, b1, w2, w2_sk, w2_sn, b2, batch, h, nb,
                              s);
-  return launch<128, false>(mx, mo, out, w1, w1_sk, w1_sn, b1, w2, w2_sk, w2_sn, b2, batch, h, nb,
+  return launch<128, false>(x, out, w1, w1_sk, w1_sn, b1, w2, w2_sk, w2_sn, b2, batch, h, nb,
                             s);
 }
 
@@ -708,26 +713,25 @@ int ttrm_tower_fwd_split(const void* x, const void* w1, int64_t w1_sk, int64_t w
                          const void* b1, const void* w2, int64_t w2_sk, int64_t w2_sn,
                          const void* b2, void* out, int64_t batch, int64_t h2, int64_t sms,
                          int64_t split, void* stream) {
-  CUtensorMap mx, mo;
-  if (h2 != 64 || !prepare(x, out, batch, h2, sms, &mx, &mo))
+  if (h2 != 64 || !shapes_ok(x, out, batch, h2, sms))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const int nb = static_cast<int>(sms);
   switch (split) {
     case kWhole:
-      return launch<64, true, kWhole>(mx, mo, out, w1, w1_sk, w1_sn, b1, w2, w2_sk, w2_sn, b2,
+      return launch<64, true, kWhole>(x, out, w1, w1_sk, w1_sn, b1, w2, w2_sk, w2_sn, b2,
                                       batch, 64, nb, s);
     case kLoads:
-      return launch<64, true, kLoads>(mx, mo, out, w1, w1_sk, w1_sn, b1, w2, w2_sk, w2_sn, b2,
+      return launch<64, true, kLoads>(x, out, w1, w1_sk, w1_sn, b1, w2, w2_sk, w2_sn, b2,
                                       batch, 64, nb, s);
     case kProducts:
-      return launch<64, true, kProducts>(mx, mo, out, w1, w1_sk, w1_sn, b1, w2, w2_sk, w2_sn, b2,
+      return launch<64, true, kProducts>(x, out, w1, w1_sk, w1_sn, b1, w2, w2_sk, w2_sn, b2,
                                          batch, 64, nb, s);
     case kEpilogues:
-      return launch<64, true, kEpilogues>(mx, mo, out, w1, w1_sk, w1_sn, b1, w2, w2_sk, w2_sn, b2,
+      return launch<64, true, kEpilogues>(x, out, w1, w1_sk, w1_sn, b1, w2, w2_sk, w2_sn, b2,
                                           batch, 64, nb, s);
     case kTies:
-      return launch<64, true, kTies>(mx, mo, out, w1, w1_sk, w1_sn, b1, w2, w2_sk, w2_sn, b2,
+      return launch<64, true, kTies>(x, out, w1, w1_sk, w1_sn, b1, w2, w2_sk, w2_sn, b2,
                                      batch, 64, nb, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -26,8 +26,11 @@ which sums in f32 and is multiplied by 1/T once.
 `softmax_lse_fwd`, `softmax_lse_dq` and `softmax_lse_dc` launch the
 hand-written kernels of `csrc/softmax_lse.cu` on CUDA tensors and take
 `lse_forward_reference` / `lse_backward_reference` only for tensors that lie
-on the CPU; each counts its kernel launches in `.launches`. Above a padded
-D of 128 a backward is computed per panel of q rows (`wide_backward`): the
+on the CPU; each counts its kernel launches in `.launches`. At a padded D of
+64 or 128, #10 and #11 cut their streamed rows in `bwd_chunks` chunks, a
+block each, whose sums go through a workspace to a merge launch (one launch
+in the count). Above a padded D of 128 a backward is computed per panel of q
+rows (`wide_backward`): the
 p kernel (`softmax_lse_p`) writes the panel's bf16 p into a workspace, and
 #10's and #11's products (`LseBackward.product`, counted in
 `softmax_lse_dq` / `softmax_lse_dc`) read it. `softmax_lse_grads` returns
@@ -49,6 +52,9 @@ NEG = -1e9
 # (`csrc/softmax_lse.cu`, "wide D")
 MAX_DIM = 2048
 FWD_CHUNKS = 32  # #9's most column chunks at a wide D (`fwd_chunks`)
+# #10 and #11 at D <= 128: the most chunks of the streamed range (a block each
+# an own tile, `bwd_chunks`) and the fewest streamed rows a chunk where several
+BWD_CHUNKS, BWD_CHUNK_ROWS = 4, 2048
 _PLAIN_BLOCK = 1 << 24  # most score elements the plain versions hold at once
 # The wide backward's workspace: the bf16 p of a panel of q rows against every
 # column, at most this many bytes (and at least 128 rows)
@@ -252,6 +258,25 @@ def fwd_chunks(bk: int) -> int:
     return min(bk // 128, FWD_CHUNKS)
 
 
+def bwd_chunks(n_str: int) -> int:
+    """The chunks of the streamed range of #10 or #11 at D <= 128 (BK rows
+    for dq, BQ for dc): N / BWD_CHUNK_ROWS, from 1 to BWD_CHUNKS, each of
+    whole 128-row tiles. A function of the length alone, so a stripe's dq
+    rows meet the same chunks (and get the same bits) as the square's. An
+    own tile's chunks are blocks of their own, so the grid fills the card on
+    a stripe; their sums meet in a workspace and a merge launch adds them in
+    chunk order. The kernel (`bwd_chunks` in `csrc/softmax_lse.cu`) takes
+    the same rule."""
+    return min(BWD_CHUNKS, max(1, n_str // BWD_CHUNK_ROWS))
+
+
+def bwd_chunk_tiles(n_str: int) -> list[tuple[int, int]]:
+    """The 128-row tiles [first, end) of each of `bwd_chunks(n_str)` chunks,
+    in chunk order: chunk k starts at tile k * n_tiles // n_chunks."""
+    n_tiles, n = n_str // 128, bwd_chunks(n_str)
+    return [(k * n_tiles // n, (k + 1) * n_tiles // n) for k in range(n)]
+
+
 class LseForward(_build.KernelLibrary):
     """Kernel #9's wrapper: lse [BQ] f32 of the adjusted scores. Checks its
     inputs, allocates the output (and at a padded D above 128 the chunks'
@@ -326,16 +351,36 @@ class LseP(_build.KernelLibrary):
 
 class LseBackward(_build.KernelLibrary):
     """The wrapper of kernel #10 (`which="dq"`: [BQ, D] f32) or #11 ("dc":
-    [BK, D] f32). At a padded D above 128 it is `wide_backward`: the p kernel
+    [BK, D] f32). At a padded D of 64 or 128 it allocates the chunks' sums
+    (`[bwd_chunks(n), rows, D]` f32, n the streamed length: BK for dq, BQ for
+    dc) where there are several; the kernel and its merge count one launch.
+    At a padded D above 128 it is `wide_backward`: the p kernel
     and this kernel's product (`product`, counted here), a panel at a time. A
     CPU call takes `lse_backward_reference` and does not count."""
 
     def __init__(self, which: str):
         tail = [_I64] * 3 + [ctypes.c_float] + ([_I64] * 2 if which == "dc" else [])
-        super().__init__(f"softmax_lse_{which}", f"ttrm_softmax_lse_{which}", [_PTR] * 8 + _TAIL,
+        super().__init__(f"softmax_lse_{which}", f"ttrm_softmax_lse_{which}", [_PTR] * 9 + _TAIL,
                          source="softmax_lse.cu",
-                         extra={f"ttrm_softmax_lse_{which}_product": [_PTR] * 3 + tail})
+                         extra={f"ttrm_softmax_lse_{which}_product": [_PTR] * 3 + tail,
+                                "ttrm_softmax_lse_bwd_plan": [_I64] * 3 + [_PTR]})
         self.which = which
+
+    def plan(self, device: torch.device, n_str: int, dp: int) -> dict[str, int]:
+        """The kernel's launch plan at D <= 128 (padded depth `dp` of 64 or
+        128) over a streamed range of `n_str` rows, as the card reports it:
+        its chunks (a block each an own tile; a merge launch where there are
+        several), the blocks an SM holds at once, a block's shared memory.
+        Launches nothing, counts nothing."""
+        out = (ctypes.c_int64 * 3)()
+        lib = self.load().lib
+        with torch.cuda.device(device):
+            err = lib.ttrm_softmax_lse_bwd_plan(n_str, dp, int(self.which == "dq"),
+                                                ctypes.addressof(out), None)
+        if err != 0:
+            raise RuntimeError(f"{self.name} plan failed: {lib.ttrm_error_string(err).decode()} "
+                               f"({err})")
+        return {"chunks": out[0], "blocks_per_sm": out[1], "smem_bytes": out[2]}
 
     def product(self, p: torch.Tensor, other: torch.Tensor, out: torch.Tensor, inv_t: float,
                 first: bool = True, last: bool = True) -> torch.Tensor:
@@ -380,13 +425,16 @@ class LseBackward(_build.KernelLibrary):
                                  need_dq=dq, need_dc=not dq)[0 if dq else 1]
         d = q16.shape[1]
         qp, cp = _pad_dim(q16), _pad_dim(c16)
-        bq, bk = qp.shape[0], cp.shape[0]
-        n_own = bq if dq else bk
-        out = torch.empty((n_own, qp.shape[1]), dtype=torch.float32, device=qp.device)
+        (bq, dp), bk = qp.shape, cp.shape[0]
+        n_own, n_str = (bq, bk) if dq else (bk, bq)
+        out = torch.empty((n_own, dp), dtype=torch.float32, device=qp.device)
+        chunks = bwd_chunks(n_str)  # their sums go through a workspace to a merge launch
+        part = (torch.empty((chunks, n_own, dp), dtype=torch.float32, device=qp.device)
+                if chunks > 1 else None)
         self.launch(qp.device, qp.data_ptr(), cp.data_ptr(), _ptr(adj), _ptr(row_ids),
-                    _ptr(col_ids), lse.data_ptr(), g.data_ptr(), out.data_ptr(), bq, bk,
-                    qp.shape[1], row_offset, inv_t)
-        return out if d == out.shape[1] else out[:, :d]
+                    _ptr(col_ids), lse.data_ptr(), g.data_ptr(), out.data_ptr(), _ptr(part), bq,
+                    bk, dp, row_offset, inv_t)
+        return out if d == dp else out[:, :d]
 
 
 softmax_lse_fwd = LseForward()
