@@ -470,6 +470,7 @@ from two_tower_recommender_model_tpu_torch.ops.quantized import (
     quantize_table,
 )
 from two_tower_recommender_model_tpu_torch.ops.quantized_kernel import (
+    SPLIT_STAGES as ADAGRAD_SPLIT_STAGES,
     quantize_rows,
     quantized_pooled_gather,
     quantized_pooled_gather_reference,
@@ -1387,6 +1388,7 @@ def phase_int8_kernels(dev: torch.device) -> dict[str, dict]:
                         "library_ms": None})
         if name == "user bf16 sorted":
             user_sorted = (ids_t, grads, live)
+            adagrad_split(dev, kern, ids_t, grads, flush)
         if name == SKEWED:
             skewed_errs = (skewed_rowwise_adagrad(dev, ids_t, perm, grads, flush),
                            skewed_aggregate(dev, ids_t, perm, grads, flush))
@@ -1452,6 +1454,27 @@ def phase_int8_kernels(dev: torch.device) -> dict[str, dict]:
     stats["row_subtract"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **b_,
                              "library_ms": library_ms}
     return stats
+
+
+def adagrad_split(dev, table: tuple, ids: torch.Tensor, grads: torch.Tensor,
+                  flush: torch.Tensor) -> None:
+    """#6's split at the int8 step's sorted user ids (`tile_split`: the
+    gradient rows read and discarded; and the run sums; and the epilogue
+    without the quantization; the whole kernel), and #4 on the same ids into
+    an f32 table (twice the bytes)."""
+    split = tile_split(lambda stage: quantized_rowwise_adagrad_fused.split(
+        stage, *table, ids, grads, LR, EPS), flush, ADAGRAD_SPLIT_STAGES)
+    f32 = torch.empty((NUM_USERS, DIM), device=dev).uniform_(
+        -1, 1, generator=torch.Generator(device=dev).manual_seed(9))
+    acc = torch.ones(NUM_USERS, device=dev)
+    ms4 = median_ms(lambda: rowwise_adagrad(f32, acc, ids, grads, LR, EPS), flush)
+    log(f"[kernel] quantized_rowwise_adagrad tile split at {ids.shape[0]} sorted user ids, bf16 "
+        f"gradients (ms each stage adds to the kernel run up to it): {split['split_ms']!r}; the "
+        f"runs up to each stage {split['upto_ms']!r}; rowwise_adagrad (#4) on the same ids "
+        f"into an f32 table {ms4!r} ms; {card_line()}")
+    regs = ptxas_kernels(quantized_rowwise_adagrad_fused.load().log, "span_runs_kernel")
+    log(f"[kernel] quantized_rowwise_adagrad span_runs_kernel (every instantiation, the split's "
+        f"too): {regs!r}")
 
 
 def tower_composed(x, dq, out, w1, b1, w2):
@@ -2240,14 +2263,13 @@ def phase_softmax_kernel(dev: torch.device) -> dict[str, dict]:
             squares[bk, d] = (lse, dq)
         if off:  # the stripe is rows [off, off + bq) of the square case
             square = squares[bk, d]
-            torch.testing.assert_close(lse, square[0][off:off + bq], rtol=1e-6, atol=1e-6)
+            # #9's column chunks follow BK alone (`fwd_chunks`), merged in chunk order
+            if not bitwise_equal(lse, square[0][off:off + bq]):
+                raise AssertionError(f"{label}: the stripe's lse differs from the square's rows")
             # the same p rows meet the same column chunks and tiles in the same order
             # (at D <= 128 `bwd_chunks` follows BK alone; wider, the same k order)
             if not bitwise_equal(dq, square[1][off:off + bq]):
                 raise AssertionError(f"{label}: the stripe's dq rows differ from the square's")
-            if d > 128:  # #9's column chunks follow BK alone, merged in chunk order
-                if not bitwise_equal(lse, square[0][off:off + bq]):
-                    raise AssertionError(f"{label}: the stripe's lse differs from the square's rows")
         small = (bq + bk) * (d * 2 + 12)  # q and c in bf16; ids, adj, lse, g
         calls = {
             "softmax_lse_fwd": (lambda: sk.softmax_lse_fwd(*args),
@@ -2305,6 +2327,8 @@ def phase_softmax_kernel(dev: torch.device) -> dict[str, dict]:
     build_log = sk.softmax_lse_dq.load().log
     for line in ptxas_kernels(build_log, "lse_bwd_kernel"):  # <io, DP, OWN_Q>
         log(f"[kernel] #10 / #11 at D <= 128, lse_bwd_kernel{line}; {card_line()}")
+    for line in ptxas_kernels(build_log, "lse_fwd_kernel"):  # <io, DP>
+        log(f"[kernel] #9 at D <= 128, lse_fwd_kernel{line}; {card_line()}")
     for name in ("softmax_lse_dq", "softmax_lse_dc"):
         for dp in (64, 128):
             plan = getattr(sk, name).plan(dev, SOFTMAX_BATCH, dp)
@@ -2765,6 +2789,11 @@ def phase_train_graph(dev: torch.device, name: str, cfg, tcfg, pool: list, want:
         log(f"{tag} rowwise_adagrad device ms a replayed step: " + (
             f"{sum(v[0] for v in adagrad) / k!r} in {sum(v[1] for v in adagrad) / k!r} launches "
             "(all passes, all tables)" if adagrad else "none in the trace"))
+        quantized = [v for name, v in device_ms.items() if "QuantizedUpdate" in name]
+        if quantized:  # #6: both passes of the walk with its epilogue, all tables
+            log(f"{tag} quantized_rowwise_adagrad device ms a replayed step: "
+                f"{sum(v[0] for v in quantized) / k!r} in {sum(v[1] for v in quantized) / k!r} "
+                "launches (all passes, all tables)")
         log_gather_ms(tag, device_ms, marker, per=k)
         if "softmax" in name:
             log_softmax_bwd_ms(tag, device_ms, per=k)
@@ -2784,7 +2813,8 @@ def log_softmax_bwd_ms(label: str, device_ms: dict[str, list], per: int) -> None
         f"{ms_of(lambda n: 'lse_bwd_kernel<' in n and 'true>' in n)}; #11: "
         f"{ms_of(lambda n: 'lse_bwd_kernel<' in n and 'false>' in n)}; their merges: "
         f"{ms_of(lambda n: 'lse_bwd_merge_kernel' in n)}; #9: "
-        f"{ms_of(lambda n: 'lse_fwd_kernel<' in n)}")
+        f"{ms_of(lambda n: 'lse_fwd_kernel<' in n)}, its merge "
+        f"{ms_of(lambda n: 'lse_merge_kernel' in n)}")
 
 
 def log_gather_ms(label: str, device_ms: dict[str, list], marker: str, per: int = 1) -> None:
@@ -5634,8 +5664,7 @@ def phase_shard_softmax(dev: torch.device, d: int = 64) -> None:
     held against their plain versions at
     `[kernel]`'s bars (lse rtol 2e-5 / atol 1e-5; dq and dc within 1e-3 x
     max and cosine > 0.99999, the backward fed the plain lse), each
-    stripe's lse equal to its rows of #9's on the whole batch within rtol
-    1e-6;
+    stripe's lse bit for bit its rows of #9's on the whole batch;
     the stripes' dc summed against the whole batch's dc (#11 on the square)
     at the dc bar; the stripes' (num, den) summed against the whole batch's
     within rtol 1e-5. Each stripe's kernel ms beside its bound."""
@@ -5662,7 +5691,9 @@ def phase_shard_softmax(dev: torch.device, d: int = 64) -> None:
         want_lse = sk.lse_forward_reference(*args)
         torch.cuda.synchronize()
         torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=1e-5)
-        torch.testing.assert_close(lse, lse_whole_kernel[off:off + bq], rtol=1e-6, atol=1e-6)
+        if not bitwise_equal(lse, lse_whole_kernel[off:off + bq]):  # #9's chunks follow BK alone
+            raise AssertionError(f"{tag} {label}: the stripe's lse differs from its rows of the "
+                                 "whole batch's")
         dq, dc = sk.softmax_lse_dq(*args, want_lse, g), sk.softmax_lse_dc(*args, want_lse, g)
         want_dq, want_dc = sk.lse_backward_reference(*args, want_lse, g)
         errs = {"#9": (lse - want_lse).abs().max().item(),

@@ -98,6 +98,15 @@ def test_wide_forward_on_a_fresh_thread(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_narrow_forward_on_a_fresh_thread(dev, d):
+    """#9 at D <= 128 reads q and c through TMA too."""
+    args, want, _ = _softmax_args(dev, 4096, d, seed=5 + d)
+    got = _on_fresh_thread(lambda: sk.softmax_lse_fwd(*args))
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
 def test_p_kernel_on_a_fresh_thread(dev):
     args, lse, g = _softmax_args(dev, 512, 256, seed=2)
     got = _on_fresh_thread(lambda: sk.softmax_lse_p(*args, lse, g, 0, 512))

@@ -390,3 +390,61 @@ def test_bad_dims_are_refused_on_the_card(dev):
                 quantized_rowwise_adagrad_fused.launches) == tuple(x + 1 for x in before)
         assert (k[0].int() - p[0].int()).abs().max().item() <= 1
         torch.testing.assert_close(k[1], p[1], rtol=1e-5, atol=1e-6)
+
+
+def _coarse_ids(rng, n, m):
+    """Sorted ids of M positions: runs of 1 to 8, one in a hundred of 100 to
+    180 positions (past a warp's 64-position window: pieces and the second
+    pass), on distinct rows below N, then sentinels (N + 3) to M."""
+    lengths, total = [], 0
+    while total < m - 200:
+        length = int(rng.integers(100, 181)) if rng.random() < 0.01 else int(rng.integers(1, 9))
+        lengths.append(length)
+        total += length
+    rows = np.sort(rng.choice(n, len(lengths), replace=False))
+    ids = np.repeat(rows, lengths)
+    return np.concatenate([ids, np.full(m - len(ids), n + 3)]).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4096, 65_536])
+@pytest.mark.parametrize("with_perm", [False, True])
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_quantized_adagrad_bit_for_bit_on_a_coarse_grid(dev, d, grad_dtype, with_perm, m):
+    """Gradients on a coarse grid (multiples of 2^-8, |g| <= 2^-7, runs of at
+    most 180 positions), where every run's sum and every mean(g^2) is exact
+    in any order: the kernel's int8 values, scales and accumulators are bit
+    for bit its plain version's, so its divisions round as the true
+    division does whatever the epilogue computes them with. 65,536 ids fill
+    the card, 4,096 do not; a run whose rows cancel keeps its row's
+    bytes."""
+    rng = np.random.default_rng(d + m + (7 if with_perm else 0))
+    n = 50_000
+    ids = _coarse_ids(rng, n, m)
+    g = (rng.integers(-2, 3, (m, d)) * 2.0 ** -8).astype(np.float32)
+    pair = int(np.nonzero((ids[1:-2] == ids[2:-1]) & (ids[:-3] != ids[1:-2])
+                          & (ids[3:] != ids[2:-1]))[0][0]) + 1  # a run of exactly 2
+    g[pair + 1] = -g[pair]
+    perm = None
+    if with_perm:
+        p = rng.permutation(m).astype(np.int32)
+        stored = np.empty_like(g)
+        stored[p] = g
+        g, perm = stored, torch.from_numpy(p).to(dev)
+    values, scales = _table(rng, n, d, dev)
+    acc = torch.from_numpy(np.abs(rng.normal(size=n)).astype(np.float32)).to(dev)
+    ids_t = torch.from_numpy(ids).to(dev)
+    grads = torch.from_numpy(g).to(dev, grad_dtype)
+    kern = [values.clone(), scales.clone(), acc.clone()]
+    plain = [values.clone(), scales.clone(), acc.clone()]
+    quantized_rowwise_adagrad_fused(*kern, ids_t, grads, 0.05, 1e-10, perm=perm)
+    quantized_rowwise_adagrad_fused_reference(*plain, ids_t, grads, 0.05, 1e-10, perm=perm)
+    torch.cuda.synchronize()
+    assert torch.equal(kern[0], plain[0])
+    assert torch.equal(kern[1].view(torch.int32), plain[1].view(torch.int32))
+    assert torch.equal(kern[2].view(torch.int32), plain[2].view(torch.int32))
+    cancelled = int(ids[pair])
+    assert torch.equal(kern[0][cancelled], values[cancelled])
+    assert kern[1][cancelled].item() == scales[cancelled].item()
+    assert not torch.equal(kern[0], values)

@@ -465,6 +465,24 @@ def test_backward_chunks_follow_the_streamed_length_alone():
     assert [sk.bwd_chunks(n) for n in (128, 2048, 4096, 6144, 8192, 65_536)] == [1, 1, 2, 3, 4, 4]
 
 
+@pytest.mark.parametrize("d", [16, 64, 100, 128, 192, 2048])
+def test_forward_chunks_follow_the_columns_alone(d):
+    """The column chunks of #9 (`fwd_chunks`): at a padded D of 64 or 128
+    BK / 1,024 clamped to 1..8 (a block keeps its 128 q rows across a
+    chunk's tiles), wider BK / 128 tiles up to FWD_CHUNKS chunks; a function
+    of BK and D alone, so a [2,048 x 8,192] stripe meets the square's
+    chunks. The wrapper's workspace holds each chunk's (m, l) of each q row:
+    [chunks, BQ, 2] f32, for a stripe as for the square."""
+    for bk in range(256, 70_000, 256):
+        chunks = sk.fwd_chunks(bk, d)
+        want = (min(8, max(1, bk // 1024)) if d <= 128
+                else min(bk // 128, sk.FWD_CHUNKS))
+        assert chunks == want and 1 <= chunks <= bk // 128
+        for bq in (128, bk // 4 // 128 * 128 or 128, bk):
+            assert sk.fwd_workspace_shape(bq, bk, d) == (chunks, bq, 2)
+    assert sk.fwd_chunks(8192, d) == (8 if d <= 128 else 32)
+
+
 @pytest.mark.parametrize("d,use_ids,use_logq,n_valid,panel_rows", [
     (256, True, True, None, 128), (192, True, True, 400, 256), (256, False, True, 384, 128)])
 def test_wide_panel_order_stays_within_the_card_tolerances(d, use_ids, use_logq, n_valid,
@@ -613,14 +631,15 @@ def _tensor_core_order_forward(q16, c16, adj, row_ids, col_ids, inv_t):
     """lse of the square case in the order of kernel #9 on the tensor cores.
     Each score: the 16-deep chunks of the depth added as
     `_scores_in_kernel_order` adds them, times 1/T, minus adj, the mask. The
-    64-column tiles are split over the 4 warp groups (group k takes the tiles
-    k, k + 4, ...). A thread holds columns 8n + 2t and 8n + 2t + 1 (n = 0..7)
-    of each tile of a row: per tile the row's max over the 64 columns (the
-    quad's), the running max from -1e9, l times exp(m_old - m_new) plus the
-    thread's 16 exps added in column order. At the end the quad's four l are
-    added as (l0 + l1) + (l2 + l3), and the groups' (m, l) merged in group
-    order: M = max m_k, L = sum_k l_k exp(m_k - M), lse = M + log(L). The
-    exp is torch's; the kernel's ex2.approx lies a few f32 ulps from it."""
+    columns are cut in `fwd_chunks` chunks of whole 128-column tiles, each
+    walked on its own. A thread holds columns 8j + 2t and 8j + 2t + 1 (j =
+    0..15) of each tile of a row: per tile the row's max over the 128
+    columns (the quad's), the running max from -1e9, l times exp(m_old -
+    m_new) plus the thread's 32 exps added in column order. At a chunk's end
+    the quad's four l are added as (l0 + l1) + (l2 + l3); the merge adds the
+    chunks' (m, l) in chunk order: M = max m_k, L = sum_k l_k exp(m_k - M),
+    lse = M + log(L). The exp is torch's; the kernel's ex2.approx lies a few
+    f32 ulps from it."""
     b, d = q16.shape
     bk = c16.shape[0]
     dots = torch.einsum("ikc,jkc->ijk", q16.double().reshape(b, d // 16, 16),
@@ -632,18 +651,18 @@ def _tensor_core_order_forward(q16, c16, adj, row_ids, col_ids, inv_t):
         rows, cols = torch.arange(b), torch.arange(bk)
         s = s.masked_fill((row_ids[:, None] == col_ids[None, :]) & (rows[:, None] != cols),
                           sk.NEG)
-    groups, tiles = 4, bk // 64
-    s = s.reshape(b, tiles, 8, 4, 2)  # [row, tile, n, t, j]: column 64 tile + 8n + 2t + j
+    tiles, n_chunks = bk // 128, sk.fwd_chunks(bk, d)
+    s = s.reshape(b, tiles, 16, 4, 2)  # [row, tile, j, t, e]: column 128 tile + 8j + 2t + e
     ms, ls = [], []
-    for k in range(groups):
+    for k in range(n_chunks):
         m, lt = torch.full((b,), sk.NEG), torch.zeros(b, 4)
-        for tile in range(k, tiles, groups):
+        for tile in range(k * tiles // n_chunks, (k + 1) * tiles // n_chunks):
             st = s[:, tile]
             m_new = torch.maximum(m, st.amax(dim=(1, 2, 3)))
             part = torch.zeros(b, 4)
-            for n in range(8):
-                for j in range(2):
-                    part = part + torch.exp(st[:, n, :, j] - m_new[:, None])
+            for j in range(16):
+                for e in range(2):
+                    part = part + torch.exp(st[:, j, :, e] - m_new[:, None])
             lt = lt * torch.exp(m - m_new)[:, None] + part
             m = m_new
         ms.append(m)
@@ -664,11 +683,12 @@ def _tensor_core_order_forward(q16, c16, adj, row_ids, col_ids, inv_t):
 def test_forward_tensor_core_order_stays_within_the_card_tolerance(d, use_ids, use_logq,
                                                                    n_valid):
     """Kernel #9 sums each score in 16-deep chunks on the tensor cores and
-    runs the online max and sum per thread over 16 columns of each 64-column
-    tile, the tiles split over 4 warp groups whose (m, l) merge in group
-    order, where the plain version takes one pass over a row. Recomputed
-    here in that order, lse stays within the card tests' tolerance (rtol
-    2e-5, atol 1e-5) of the reference's `_lse_fused` in interpret mode."""
+    runs the online max and sum per thread over 32 columns of each
+    128-column tile, the tiles cut in column chunks whose (m, l) merge in
+    chunk order, where the plain version takes one pass over a row.
+    Recomputed here in that order, lse stays within the card tests'
+    tolerance (rtol 2e-5, atol 1e-5) of the reference's `_lse_fused` in
+    interpret mode."""
     q, c, _, ids, log_q = _setup(seed=17, d=d)
     ids_f = jnp.asarray(ids).astype(jnp.float32)
     pad = lambda a: jnp.asarray(np.pad(a, ((0, 0), (0, -d % 128))))  # noqa: E731

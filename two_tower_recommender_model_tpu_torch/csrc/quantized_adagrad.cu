@@ -55,12 +55,23 @@
 // and a run longer than a warp's 64-position window summed in 32-position
 // pieces by the warps of its spans and finished by a second pass. This file
 // gives it the epilogue: the row's int8 values, scale and accumulator are
-// read as soon as the id is known, with the run's first gradient rows, and
-// the update applies with 16-lane reductions for mean(g^2) (in the order of
-// the one-warp walk this kernel had before, so a complete run keeps those
-// bits) and the new absmax; each lane packs its int8 into one 4- or 8-byte
-// store. Each value takes two IEEE divisions (__fdiv_rn), a large share of
-// the instructions.
+// read with the run's first gradient rows, and the update applies with
+// 16-lane reductions for mean(g^2) (in the order of the one-warp walk this
+// kernel had before, so a complete run keeps those bits) and the new
+// absmax; each lane packs its int8 into one 4- or 8-byte store.
+//
+// Measured on an H100 (`ttrm_quantized_adagrad_split`, 262,144 sorted ids,
+// bf16 gradients): the gradient rows read alone take 0.040 ms of the
+// 0.096 ms kernel, the run sums 0.004, the epilogue without the
+// quantization 0.039, the quantization 0.014. So the epilogue, not the
+// gradient stream, sets the time. Tried and dropped: a ring of bulk copies
+// through shared memory (a producer warp, consumer warps on the spans; the
+// stages held 8 to 16 consumer warps an SM against the walk's 24, and it ran
+// 0.086 ms at best, 0.21 with spills); each pair's loads issued under the
+// epilogue of the pair before (more registers, fewer warps: 0.09-0.12); a
+// row's divisions by its reciprocal corrected by one fma (Markstein), bit
+// for bit the true division once guarded against quotients below the normal
+// range, but 0.001 ms slower than the true divisions in three runs.
 //
 // Binding: a plain C interface loaded with ctypes. Both passes go to the
 // caller's stream, do not synchronise and allocate nothing; the entry point
@@ -107,8 +118,16 @@ __device__ __forceinline__ void store_bytes(int8_t* p, const float (&x)[8], floa
   *reinterpret_cast<uint2*>(p) = make_uint2(pack4(x, denom), pack4(x + 4, denom));
 }
 
+// The stages a split launch runs the kernel up to (ttrm_quantized_adagrad_split):
+// the gradient rows read and folded, not summed (no table row read, nothing
+// written); and the runs summed; and the table rows read, the new rows and
+// their absmax computed, the scales and accumulators written (no int8 value);
+// the whole kernel.
+enum Split : int { kWhole = 0, kReads = 1, kSums = 2, kNoQuantize = 3 };
+
 // The epilogue: the update of int8 row r, in place on its values, scale and
-// accumulator.
+// accumulator; S a Split stage.
+template <int S = kWhole>
 struct QuantizedUpdate {
   int8_t* values;
   float* scales;
@@ -127,7 +146,7 @@ struct QuantizedUpdate {
   template <int V, int NC>
   __device__ __forceinline__ Row<V, NC> load(int32_t r, int hl, int64_t d) const {
     Row<V, NC> t = {};
-    if (r < 0) return t;  // a half-warp without a row
+    if (r < 0 || S == kReads || S == kSums) return t;  // a half-warp without a row; a split
     const int8_t* vrow = values + static_cast<int64_t>(r) * d;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
@@ -144,6 +163,15 @@ struct QuantizedUpdate {
   __device__ __forceinline__ void apply(int32_t r, float (&g)[NC][V], const Row<V, NC>& t,
                                         int64_t d) const {
     const int hl = threadIdx.x & 15, half = (threadIdx.x >> 4) & 1;
+    if constexpr (S == kReads || S == kSums) {  // a split: the sums feed a store never taken
+      uint32_t h = 0;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int i = 0; i < V; ++i) h ^= __float_as_uint(g[c][i]);
+      if (r >= 0 && h == 0x7fbadbadu) acc[r] = 0.f;
+      return;
+    }
     bool nonzero = false;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
@@ -178,9 +206,18 @@ struct QuantizedUpdate {
     if (!write) return;
     const float qdenom = amax > 0.f ? amax : 1.f;
     int8_t* vrow = values + static_cast<int64_t>(r) * d;
+    if constexpr (S == kNoQuantize) {  // a split: the new rows feed a store never taken
+      float h = 0.f;
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      if (col_of<V>(c, hl) < d) store_bytes(vrow + col_of<V>(c, hl), g[c], qdenom);
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int i = 0; i < V; ++i) h += g[c][i];
+      if (__float_as_uint(h) == 0x7fbadbadu) vrow[0] = 0;
+    } else {
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        if (col_of<V>(c, hl) < d) store_bytes(vrow + col_of<V>(c, hl), g[c], qdenom);
+    }
     if (hl == 0) {
       scales[r] = amax;
       acc[r] = new_acc;
@@ -236,13 +273,54 @@ struct QuantizedUpdate {
   }
 };
 
+}  // namespace
+
+namespace sorted_runs {
+// A split's first stage folds the gradient rows it reads.
+template <>
+struct FoldsReads<QuantizedUpdate<kReads>> {
+  static constexpr bool value = true;
+};
+}  // namespace sorted_runs
+
+namespace {
+
 // The general walk for the gradients' dtype, V columns a lane's access.
-template <int V>
-int launch_general_for_grads(const Walk& p, const QuantizedUpdate& epi, int grad_dtype,
+template <int V, typename E>
+int launch_general_for_grads(const Walk& p, const E& epi, int grad_dtype,
                              int buffer_dtype, cudaStream_t s) {
   if (grad_dtype == kF32) return launch_general<float, V>(p, epi, buffer_dtype, s);
   if (grad_dtype == kBF16) return launch_general<uint16_t, V>(p, epi, buffer_dtype, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Both passes with the epilogue E; returns a cudaError_t code.
+template <typename E>
+int launch_update(const E& epi, const void* values, const void* ids, const void* grads,
+                  int grad_dtype, const void* perm, void* part, void* part_id, int64_t n_slots,
+                  int64_t n_rows, int64_t d, int64_t m, int buffer_dtype, cudaStream_t s) {
+  if (m <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
+  if (grad_dtype != kF32 && grad_dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
+  const bool four = d % 4 == 0 && aligned(values, 4) && aligned(grads, grad_dtype == kF32 ? 16 : 8);
+  const bool general = !(four && half_warp_dim(d));
+  Walk p;
+  if (!make_walk(ids, grads, perm, part, part_id, n_slots, n_rows, d, m, general, &p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (general)
+    return four ? launch_general_for_grads<4>(p, epi, grad_dtype, buffer_dtype, s)
+                : launch_general_for_grads<1>(p, epi, grad_dtype, buffer_dtype, s);
+  if (grad_dtype == kF32) return launch_walk<float, 4>(p, epi, buffer_dtype, s);
+  // 16-byte loads (and 8-byte int8 chunks) where the rows' alignment allows them
+  if (d % 8 == 0 && aligned(grads, 16) && aligned(values, 8))
+    return launch_walk<uint16_t, 8>(p, epi, buffer_dtype, s);
+  return launch_walk<uint16_t, 4>(p, epi, buffer_dtype, s);
+}
+
+template <int S>
+QuantizedUpdate<S> update_of(void* values, void* scales, void* acc, float lr, float eps,
+                             int buffer_dtype) {
+  return QuantizedUpdate<S>{static_cast<int8_t*>(values), static_cast<float*>(scales),
+                            static_cast<float*>(acc), lr, eps, buffer_dtype == kBF16};
 }
 
 }  // namespace
@@ -259,24 +337,31 @@ int ttrm_quantized_adagrad(void* values, void* scales, void* acc, const void* id
                            const void* grads, int grad_dtype, const void* perm, void* part,
                            void* part_id, int64_t n_slots, int64_t n_rows, int64_t d, int64_t m,
                            float lr, float eps, int buffer_dtype, void* stream) {
-  if (m <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
-  if (grad_dtype != kF32 && grad_dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
-  const bool four = d % 4 == 0 && aligned(values, 4) && aligned(grads, grad_dtype == kF32 ? 16 : 8);
-  const bool general = !(four && half_warp_dim(d));
-  Walk p;
-  if (!make_walk(ids, grads, perm, part, part_id, n_slots, n_rows, d, m, general, &p))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const QuantizedUpdate epi{static_cast<int8_t*>(values), static_cast<float*>(scales),
-                            static_cast<float*>(acc), lr, eps, buffer_dtype == kBF16};
+  return launch_update(update_of<kWhole>(values, scales, acc, lr, eps, buffer_dtype),
+                       values, ids, grads, grad_dtype, perm, part, part_id, n_slots, n_rows, d,
+                       m, buffer_dtype, static_cast<cudaStream_t>(stream));
+}
+
+// The kernel up to stage `split` (a Split): a tile split's launches, timed
+// apart from the main path.
+int ttrm_quantized_adagrad_split(void* values, void* scales, void* acc, const void* ids,
+                                 const void* grads, int grad_dtype, const void* perm, void* part,
+                                 void* part_id, int64_t n_slots, int64_t n_rows, int64_t d,
+                                 int64_t m, float lr, float eps, int buffer_dtype, int64_t split,
+                                 void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  if (general)
-    return four ? launch_general_for_grads<4>(p, epi, grad_dtype, buffer_dtype, s)
-                : launch_general_for_grads<1>(p, epi, grad_dtype, buffer_dtype, s);
-  if (grad_dtype == kF32) return launch_walk<float, 4>(p, epi, buffer_dtype, s);
-  // 16-byte loads (and 8-byte int8 chunks) where the rows' alignment allows them
-  if (d % 8 == 0 && aligned(grads, 16) && aligned(values, 8))
-    return launch_walk<uint16_t, 8>(p, epi, buffer_dtype, s);
-  return launch_walk<uint16_t, 4>(p, epi, buffer_dtype, s);
+#define TTRM_SPLIT(S)                                                                    \
+  return launch_update(update_of<S>(values, scales, acc, lr, eps, buffer_dtype), values, \
+                       ids, grads, grad_dtype, perm, part, part_id, n_slots, n_rows, d, m, \
+                       buffer_dtype, s)
+  switch (split) {
+    case kWhole: TTRM_SPLIT(kWhole);
+    case kReads: TTRM_SPLIT(kReads);
+    case kSums: TTRM_SPLIT(kSums);
+    case kNoQuantize: TTRM_SPLIT(kNoQuantize);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef TTRM_SPLIT
 }
 
 const char* ttrm_error_string(int code) {

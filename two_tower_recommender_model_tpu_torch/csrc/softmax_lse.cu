@@ -49,48 +49,46 @@
 // merge, #10 and #11 as a p kernel that writes p once and two wgmma products
 // that read it).
 //
-// Kernel #9 at D <= 128 runs on one skeleton (`stream_tiles`) and one score
-// product (`score_tile`, then `adjust_tile`), on the tensor cores
-// (mma.sync.m16n8k16, bf16 x bf16 -> f32, mma_sm90.cuh):
-//   - A block owns 64 q rows and streams c in tiles of 64 rows. Its warps
-//     form NG groups of 4; group k takes the tiles k, k + NG, k + 2 NG, ...,
-//     and each warp of a group owns 16 own rows, which it holds as mma A
-//     fragments in registers, loaded once with ldmatrix from a bf16 copy in
-//     shared memory.
-//   - Each group double-buffers its tiles (bf16 rows and the per-row scalars
-//     the epilogue needs: adj and ids of c rows) with cp.async: the next tile
-//     is in flight while the current one is computed, and a group waits only
-//     on its own named barrier. Rows are padded by 8 bf16 values (144 or 272
-//     bytes), so the 8 row addresses of an ldmatrix fall on 8 different
-//     16-byte bank groups.
-//   - The score product: a warp's 16 x 64 scores of a tile are 8 n8 blocks
-//     of accumulators (32 registers a thread); the tile's rows are the B
-//     operand, read with ldmatrix (a row-major [rows, D] tile is B^T in the
-//     .col layout). Each mma sums 16 products of the depth; the DP / 16
-//     chunks are added in order.
-//   - The adjustment works on the accumulator fragment in registers: 1/T and
-//     adj with separate roundings (__fmul_rn, __fsub_rn), then the duplicate
-//     mask on the fragment's global row and column.
-//   - No atomics and no order between blocks: two launches agree bit for
-//     bit. The split of the streamed range follows the tile index alone, so
-//     a row's result is the same in a stripe (any BQ, row_offset) as in the
-//     square case.
-//
-// Kernel #9 (lse_fwd_kernel): the online max and sum on the score fragments.
-//   - A thread holds 2 own rows x 16 columns of each tile. The tile's row max
-//     is the max of the thread's 16 scores, then of its quad's (the 4 lanes
-//     of a row, shfl_xor 1, 2); the running max m starts at -1e9 and l is
-//     rescaled by exp(m_old - m_new) before the tile's 16 exps are added in
-//     column order. The exp is ex2.approx of the prescaled argument, as in
-//     the backward's p.
-//   - At the end the quad's four l are added (shfl_xor 1, 2), the groups'
-//     (m, l) are merged through shared memory in group order (M = max m_k,
-//     L = sum_k l_k exp(m_k - M)), and lse = M + log(L).
+// Kernel #9 at D <= 128 (lse_fwd_kernel<DP>, DP 64 or 128, then
+// lse_merge_kernel), on Hopper's warpgroup products and TMA (wgmma_sm90.cuh):
+//   - The score matrix's columns are cut in chunks of whole 128-column tiles
+//     (the wrapper's `fwd_chunks`: at D <= 128 BK / 1,024 from 1 to 8, a
+//     function of BK alone), and a block walks (own tile of 128 q rows,
+//     chunk) items, so the grid fills the card on a stripe too: 512 items at
+//     8,192^2, 128 on a [2,048 x 8,192] stripe.
+//   - Persistent blocks, one an SM, of a producer warpgroup and two consumer
+//     warpgroups. The producer's one thread brings each item's own q rows
+//     (TMA, 64-column boxes with the 128-byte swizzle) and their ids (a bulk
+//     copy) into one of two slots, and the chunk's c tiles [128, DP] with
+//     their scalars (adj and ids, bulk copies) into a ring of stages (6 at
+//     DP = 64, 4 at 128), each freed by an arrival of every consumer warp.
+//     Consumer warpgroup w takes own rows 64 w .. 64 w + 63 against every
+//     tile: the block reads each c tile once for 128 q rows.
+//   - The score: wgmma m64n128k16 over DP / 16 k steps in one f32
+//     accumulator, A the own rows, B the streamed tile, both K-major in
+//     shared memory, issued before the tile's mask test so that the test
+//     runs under it. (Two tiles' scores in flight, the next one's product
+//     under this one's epilogue, were tried: ptxas serialized the products,
+//     C7514 / C7518, and the kernel ran slower.)
+//   - The mask: each warpgroup sorts its 64 own ids once an item, and each
+//     thread looks one column's id up (a binary search); the warpgroup's
+//     barrier ORs the answers. A tile with no id of an own row takes an
+//     epilogue without the mask.
+//   - The epilogue on the accumulator fragment in registers, with the plain
+//     version's rounding points (`adjusted_score`: 1/T and adj with separate
+//     roundings, then the mask), and the online max and sum of a thread's 2
+//     rows x 32 columns (`online_ring_tile`, as #9 at a wide D: the tile's
+//     max of the thread's scores, then of its quad's; the running max from
+//     -1e9; l rescaled by exp(m_old - m_new) before the tile's exps are added
+//     in column order; ex2.approx of the prescaled argument). At the item's
+//     end the quad's four l are added and each row's (m, l) goes to the
+//     workspace; `lse_merge_kernel` merges a row's chunks in chunk order.
 //   - exp(-1e9 - m) is exactly 0 in f32, and a tile whose every score is
 //     -1e9 leaves the running max at -1e9 (exp(m_old - m_new) = 1), so a
 //     fully masked row gives the finite lse the reference gives.
-//   - 4 groups (16 warps) at both DP: the forward keeps no [16, DP]
-//     accumulator beside the scores, so a thread's registers fit 128.
+//   - No atomics and no order between blocks: two launches agree bit for
+//     bit, and a stripe's rows meet the same chunks and tiles in the same
+//     order as the square's, so its lse is the square's rows bit for bit.
 //   - No tie repair: lse is not rounded to bf16, and it sits a few f32 ulps
 //     from the plain version's, far inside the backward's tie window.
 //
@@ -176,13 +174,11 @@
 
 #include <type_traits>
 
-#include "mma_sm90.cuh"
 #include "tma_map.cuh"
 #include "wgmma_sm90.cuh"
 
 namespace {
 
-using namespace mma_sm90;
 using namespace wgmma_sm90;
 using tma_map::bf16_map;
 using bf16 = __nv_bfloat16;
@@ -190,14 +186,8 @@ using bf16 = __nv_bfloat16;
 constexpr float kNeg = -1e9f;
 constexpr float kLog2e = 1.44269504088896341f;
 constexpr int kRowMultiple = 128;   // BQ and BK are multiples of it (the reference's rule)
-constexpr int kOwn = 64;            // own rows per block: 4 warps x 16
-constexpr int kSub = 64;            // streamed rows per tile
-constexpr int kGroupThreads = 128;  // a warp group: 4 warps, 64 own rows
-constexpr int kFwdGroups = 4;       // the forward's warp groups (16 warps)
-
-// The bf16 row stride of a tile in shared memory: rows padded by 8 values.
-template <int DP>
-__host__ __device__ constexpr int tile_ld() { return DP + 8; }
+constexpr int kOwn = 64;            // own rows of a warpgroup: 4 warps x 16
+constexpr int kGroupThreads = 128;  // a warpgroup: 4 warps, 64 own rows
 
 struct Args {
   const uint16_t* q;    // [BQ, DP] bf16
@@ -223,273 +213,26 @@ __device__ __forceinline__ float exp_approx(float x) {
   return y;
 }
 
-// Shared-memory layout (byte offsets) of a kernel with NG warp groups.
-template <int DP, int NG>
-struct Layout {
-  static constexpr int LD = tile_ld<DP>();
-  static constexpr int tile_elems = kSub * LD;
-  static constexpr int scal_floats = 3 * kSub;  // adj or lse, g, ids of one tile
-  static constexpr size_t own = 0;                                        // [64][LD] bf16
-  static constexpr size_t stream = own + size_t(kOwn) * LD * 2;           // [group][stage] tiles
-  static constexpr size_t scal = stream + size_t(NG) * 2 * tile_elems * 2;
-  static constexpr size_t bytes = scal + size_t(NG) * 2 * scal_floats * 4;
-};
-
 __device__ __forceinline__ void group_sync(int group) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(group + 1), "r"(kGroupThreads) : "memory");
+}
+
+// Whether v holds on any thread of warp group `group` (its named barrier, ORed).
+__device__ __forceinline__ bool group_any(int group, bool v) {
+  uint32_t r;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.u32 p, %1, 0;\nbar.red.or.pred q, %2, 128, p;\n"
+      "selp.u32 %0, 1, 0, q;\n}\n"
+      : "=r"(r)
+      : "r"(static_cast<uint32_t>(v)), "r"(group + 1)
+      : "memory");
+  return r != 0;
 }
 
 // The adjusted score from the raw dot product: times 1/T, minus adj (the
 // reference's separate roundings), then the duplicate mask.
 __device__ __forceinline__ float adjusted_score(float dot, float inv_t, float adj, bool masked) {
   return masked ? kNeg : __fsub_rn(__fmul_rn(dot, inv_t), adj);
-}
-
-// The own rows of a thread's fragment (rows g and g + 8 of its warp's 16):
-// id and global position; adj of a c row.
-struct OwnRows {
-  int id[2], pos[2];
-  float x[2], g[2];
-};
-
-template <bool OWN_Q>
-__device__ __forceinline__ OwnRows load_own_rows(const Args& a, int r0, bool use_ids) {
-  OwnRows o;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = r0 + 8 * h;
-    if (OWN_Q) {
-      o.id[h] = use_ids ? __ldg(a.row_ids + r) : 0;
-      o.pos[h] = a.row_offset + r;
-      o.x[h] = 0.f;
-      o.g[h] = 1.f;
-    } else {
-      o.id[h] = use_ids ? __ldg(a.col_ids + r) : 0;
-      o.pos[h] = r;
-      o.x[h] = a.adj != nullptr ? __ldg(a.adj + r) : 0.f;
-      o.g[h] = 1.f;
-    }
-  }
-  return o;
-}
-
-// The scalars of a tile of streamed rows o0 .. o0 + 63 into `sc` (adj of c
-// rows, or lse and g of q rows; the ids): cp.async by the group's 128
-// threads (gt), 16 pieces of 4 scalars per array: threads 0-15 the first,
-// 16-31 the second, 32-47 the ids. Not waited for here.
-template <bool OWN_Q>
-__device__ __forceinline__ void load_scalars(const Args& a, int o0, float* sc, int gt,
-                                             bool use_ids) {
-  const int part = gt >> 4, i4 = (gt & 15) * 4;
-  const float* first = OWN_Q ? a.adj : a.lse;
-  if (part == 0 && first != nullptr) cp_async16(sc + i4, first + o0 + i4);
-  if (part == 1 && !OWN_Q) cp_async16(sc + kSub + i4, a.g + o0 + i4);
-  if (part == 2 && use_ids)
-    cp_async16(sc + 2 * kSub + i4, (OWN_Q ? a.col_ids : a.row_ids) + o0 + i4);
-}
-
-// One tile of the streamed operand (rows o0 .. o0 + 63) and its scalars into
-// a stage: cp.async by the group's 128 threads (gt), not waited for here.
-template <int DP, bool OWN_Q>
-__device__ __forceinline__ void load_tile(const Args& a, const uint16_t* __restrict__ other,
-                                          int o0, bf16* dst, float* sc, int gt, bool use_ids) {
-  constexpr int LD = tile_ld<DP>(), V = DP / 8;  // 16-byte pieces of a row
-#pragma unroll
-  for (int idx = gt; idx < kSub * V; idx += kGroupThreads)
-    cp_async16(dst + (idx / V) * LD + (idx % V) * 8,
-               other + static_cast<size_t>(o0 + idx / V) * DP + (idx % V) * 8);
-  load_scalars<OWN_Q>(a, o0, sc, gt, use_ids);
-}
-
-// The skeleton of the three kernels. Copies the block's 64 own rows to
-// shared memory and the warp's 16 of them into the A fragments `af`, then
-// walks the group's tiles (group, group + NG, ...) double-buffered by
-// cp.async and calls body(tile, sc, o0) on each while the tile is whole in
-// shared memory for every thread of the group: `tile` its bf16 rows, `sc`
-// its scalars, `o0` its first streamed row. The tile buffers stay in use
-// until every group is past its loop (the caller's __syncthreads()).
-template <int DP, bool OWN_Q, int NG, typename Body>
-__device__ __forceinline__ void stream_tiles(const Args& a, unsigned char* smem,
-                                             uint32_t (&af)[DP / 16][4], Body&& body) {
-  using L = Layout<DP, NG>;
-  constexpr int LD = L::LD, KS = DP / 16, V = DP / 8;
-  bf16* own_s = reinterpret_cast<bf16*>(smem + L::own);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int group = warp >> 2, wr = (warp & 3) * 16;  // the warp's first own row in the block
-  const int gt = threadIdx.x & (kGroupThreads - 1);
-  const int r8 = lane & 7, mat = lane >> 3;  // ldmatrix: row within a matrix, matrix
-  const bool use_ids = a.row_ids != nullptr;
-  const uint16_t* own = OWN_Q ? a.q : a.c;
-  const uint16_t* other = OWN_Q ? a.c : a.q;
-  const int own0 = blockIdx.x * kOwn;
-  const int n_tiles = (OWN_Q ? a.bk : a.bq) / kSub;
-  const int n_mine = (n_tiles - group + NG - 1) / NG;  // tiles of this group (may be 0)
-  bf16* tiles = reinterpret_cast<bf16*>(smem + L::stream) + group * 2 * L::tile_elems;
-  float* scal = reinterpret_cast<float*>(smem + L::scal) + group * 2 * L::scal_floats;
-
-  for (int idx = threadIdx.x; idx < kOwn * V; idx += NG * kGroupThreads)
-    cp_async16(own_s + (idx / V) * LD + (idx % V) * 8,
-               own + static_cast<size_t>(own0 + idx / V) * DP + (idx % V) * 8);
-  cp_async_commit();
-  if (n_mine > 0) load_tile<DP, OWN_Q>(a, other, group * kSub, tiles, scal, gt, use_ids);
-  cp_async_commit();  // (empty for a group without tiles: the wait below still counts it)
-  if (OWN_Q && a.adj == nullptr)  // no adjustment: adj reads as 0 in both stages
-    for (int i = gt; i < kSub; i += kGroupThreads) scal[i] = scal[L::scal_floats + i] = 0.f;
-  cp_async_wait_one();  // the own tile has landed
-  __syncthreads();
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-    ldsm_x4(af[ks], own_s + (wr + r8 + (mat & 1) * 8) * LD + ks * 16 + (mat >> 1) * 8);
-
-  for (int it = 0; it < n_mine; ++it) {
-    const int stage = it & 1;
-    const int o0 = (group + NG * it) * kSub;  // the tile's first streamed row
-    if (it + 1 < n_mine) {
-      load_tile<DP, OWN_Q>(a, other, o0 + NG * kSub, tiles + (stage ^ 1) * L::tile_elems,
-                           scal + (stage ^ 1) * L::scal_floats, gt, use_ids);
-      cp_async_commit();
-      cp_async_wait_one();
-    } else {
-      cp_async_wait_all();
-    }
-    group_sync(group);  // the tile is whole for every thread of the group
-    body(static_cast<const bf16*>(tiles + stage * L::tile_elems),
-         static_cast<const float*>(scal + stage * L::scal_floats), o0);
-    group_sync(group);  // every thread of the group is done with this stage
-  }
-}
-
-__device__ __forceinline__ void zero_scores(float (&s)[8][4]) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-}
-
-// The raw dot products of the warp's 16 own rows (A fragments af) with a
-// tile's 64 streamed rows: s[n] is the 16 x 8 block of streamed rows 8n ..
-// 8n + 7 (the accumulator layout of mma_sm90.cuh), each score the DP / 16
-// 16-deep chunks added in order.
-template <int DP>
-__device__ __forceinline__ void score_tile(float (&s)[8][4], const uint32_t (&af)[DP / 16][4],
-                                           const bf16* tile) {
-  constexpr int LD = tile_ld<DP>();
-  const int lane = threadIdx.x & 31, r8 = lane & 7, mat = lane >> 3;
-  zero_scores(s);
-#pragma unroll
-  for (int ks = 0; ks < DP / 16; ++ks)
-#pragma unroll
-    for (int n = 0; n < 8; n += 2) {
-      uint32_t b[4];  // matrices (rows 8n, k), (8n, k + 8), (8n + 8, k), (8n + 8, k + 8)
-      ldsm_x4(b, tile + (n * 8 + r8 + (mat >> 1) * 8) * LD + ks * 16 + (mat & 1) * 8);
-      mma_bf16(s[n], af[ks], b[0], b[1]);
-      mma_bf16(s[n + 1], af[ks], b[2], b[3]);
-    }
-}
-
-// The raw dot products of score_tile -> the adjusted scores, in place:
-// s[n][e] is own row g + 8 (e / 2) against streamed row 8n + 2t + (e % 2) of
-// the tile at o0. adj comes from the tile's scalars where the streamed rows
-// are c rows (OWN_Q), else from the own row; the streamed ids from `sc`.
-template <bool OWN_Q>
-__device__ __forceinline__ void adjust_tile(float (&s)[8][4], const float* sc, const OwnRows& own,
-                                            int o0, const Args& a, bool use_ids) {
-  const int t = threadIdx.x & 3;
-  const int opos = (OWN_Q ? 0 : a.row_offset) + o0;  // global position of streamed row 0
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int c = n * 8 + 2 * t;
-    const float2 adj = OWN_Q ? *reinterpret_cast<const float2*>(sc + c) : make_float2(0.f, 0.f);
-    const int2 oid = use_ids ? *reinterpret_cast<const int2*>(sc + 2 * kSub + c) : make_int2(0, 0);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int h = e >> 1, j = e & 1;
-      const bool masked = use_ids && own.id[h] == (j ? oid.y : oid.x) && own.pos[h] != opos + c + j;
-      s[n][e] = adjusted_score(s[n][e], a.inv_t, OWN_Q ? (j ? adj.y : adj.x) : own.x[h], masked);
-    }
-  }
-}
-
-// The online max and sum of kernel #9 over one tile's adjusted scores: a
-// thread holds 2 own rows x 16 columns; the tile's row max is the max of the
-// thread's 16 scores, then of its quad's; l is rescaled by exp(m_old - m_new)
-// before the tile's 16 exps are added in column order.
-__device__ __forceinline__ void online_tile(const float (&s)[8][4], float (&m)[2], float (&l)[2]) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float mt = kNeg;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) mt = fmaxf(mt, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));  // the quad: the row's 64 columns
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-    const float m_new = fmaxf(m[h], mt);
-    float sum = 0.f;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      sum += exp_approx(s[n][2 * h] - m_new);
-      sum += exp_approx(s[n][2 * h + 1] - m_new);
-    }
-    l[h] = l[h] * exp_approx(m[h] - m_new) + sum;
-    m[h] = m_new;
-  }
-}
-
-// The end of kernel #9: the quad's four sums of a row, then the NG groups'
-// (m, l) merged in group order through `ml` ([NG][64] in shared memory that
-// no group reads any more), lse = M + log(L) for the block's 64 rows.
-template <int NG>
-__device__ __forceinline__ void finish_lse(float2* ml, float (&m)[2], float (&l)[2], float* out) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int group = warp >> 2, wr = (warp & 3) * 16;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-  }
-  __syncthreads();  // every group is past its tiles: the buffers are free
-  if (t == 0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) ml[group * kOwn + wr + g + 8 * h] = make_float2(m[h], l[h]);
-  }
-  __syncthreads();
-  if (threadIdx.x < kOwn) {
-    float mx = kNeg;
-#pragma unroll
-    for (int k = 0; k < NG; ++k) mx = fmaxf(mx, ml[k * kOwn + threadIdx.x].x);
-    float sum = 0.f;
-#pragma unroll
-    for (int k = 0; k < NG; ++k) {
-      const float2 v = ml[k * kOwn + threadIdx.x];
-      sum += v.y * expf(v.x - mx);
-    }
-    out[threadIdx.x] = mx + logf(sum);
-  }
-}
-
-// Kernel #9: lse for the block's 64 q rows, streaming c.
-template <int DP>
-__global__ void __launch_bounds__(kFwdGroups * kGroupThreads) lse_fwd_kernel(const Args a) {
-  using L = Layout<DP, kFwdGroups>;
-  static_assert(size_t(kFwdGroups) * kOwn * 2 * 4 <= L::scal - L::stream,
-                "the groups' (m, l) fit the tile buffers");
-  extern __shared__ float4 smem4[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wr = (warp & 3) * 16, g = lane >> 2;  // the warp's first own row; fragment row
-  const bool use_ids = a.row_ids != nullptr;
-  const int own0 = blockIdx.x * kOwn;
-  const OwnRows own = load_own_rows<true>(a, own0 + wr + g, use_ids);
-  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};  // rows g and g + 8: running max, sum
-
-  uint32_t af[DP / 16][4];
-  stream_tiles<DP, true, kFwdGroups>(a, smem, af, [&](const bf16* tile, const float* sc, int o0) {
-    float s[8][4];
-    score_tile<DP>(s, af, tile);
-    adjust_tile<true>(s, sc, own, o0, a, use_ids);
-    online_tile(s, m, l);
-  });
-  finish_lse<kFwdGroups>(reinterpret_cast<float2*>(smem + L::stream), m, l, a.out + own0);
 }
 
 // ---- p and its ties: kernels #10 and #11 at every D --------------------------------
@@ -570,7 +313,7 @@ __device__ float rounded_dot_group(const uint16_t* a, const uint16_t* b, int dp,
 // scores of a tile (`ring_scores`): each 64-deep slice summed from zero
 // (scale-d = 0 on its first k step) and added to the running f32 score with
 // __fadd_rn, slices in order: a wgmma adds to its accumulator by
-// truncation, as mma.sync does, and 128 chunks in one accumulator drifted
+// truncation, as the warp-level products do, and 128 chunks in one accumulator drifted
 // ~1e-3 from a k-order sum of a score near 160 at D = 2,048 (an H100), p by
 // ~2^-10, past the tie window. #9 and the p kernel take a score the same
 // way, so it has the same bits in both.
@@ -1071,6 +814,233 @@ __global__ void __launch_bounds__(256)
   out[i] = mx + logf(sum);
 }
 
+// ---- kernel #9 at D <= 128 -------------------------------------------------------
+
+// Shared memory of #9 at a padded depth DP of 64 or 128 (byte offsets from a
+// 1,024-byte boundary): two slots of an item's own q rows [128, DP] (64-column
+// TMA boxes with the 128-byte swizzle) and their ids [128]; the ring of
+// streamed c tiles [128, DP] in boxes, each stage followed by its scalars
+// (adj [128], ids [128]); each consumer warpgroup's own ids sorted [64]; the
+// barriers (own full / empty a slot, then full / empty a stage).
+template <int DP>
+struct FwdLayout {
+  static constexpr int boxes = DP / tma_map::kBoxCols;
+  static constexpr int box = kTileM * 128;  // [128 rows, 64] bf16: 16 KB
+  static constexpr int own_bytes = boxes * box;
+  static constexpr int tile_bytes = boxes * box;
+  static constexpr int stage_bytes = tile_bytes + 1024;
+  static constexpr int stages = DP == 64 ? 8 : 4;
+  static constexpr size_t own = 0;
+  static constexpr size_t own_ids = own + 2 * size_t(own_bytes);  // [2][128] int
+  static constexpr size_t ring = own_ids + 2 * kTileM * 4;        // a multiple of 1,024
+  static constexpr size_t sorted = ring + size_t(stages) * stage_bytes;  // [2][64] int
+  static constexpr size_t bars = sorted + 2 * kOwn * 4;
+  static constexpr size_t bytes = bars + (4 + 2 * stages) * 8 + 1024;  // the base's alignment
+};
+static_assert(FwdLayout<64>::bytes <= 232448 && FwdLayout<128>::bytes <= 232448,
+              "#9 fits a block's shared memory");
+static_assert(FwdLayout<64>::ring % 1024 == 0 && FwdLayout<128>::ring % 1024 == 0,
+              "the ring's boxes start on 1,024-byte boundaries");
+
+// Kernel #9 at D <= 128: the (m, l) of each q row over each chunk of columns
+// into part ([n_chunks, bq] of (m, l)). Items (own tile tm of 128 q rows,
+// chunk k) = tm * n_chunks + k, a block's blockIdx.x, + gridDim.x, ...; a
+// producer warpgroup (one thread) brings each item's own rows and ids into a
+// slot and its chunk's c tiles with their scalars into the ring; consumer
+// warpgroup cw takes own rows 64 cw .. 64 cw + 63 against every tile of the
+// chunk. m_q: q [bq, DP] in boxes [128, 64]; m_c: c [bk, DP] in boxes [128, 64].
+template <int DP>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    lse_fwd_kernel(const __grid_constant__ CUtensorMap m_q, const __grid_constant__ CUtensorMap m_c,
+                   const Args a, float2* __restrict__ part, int n_chunks) {
+  using L = FwdLayout<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int n_tn = a.bk / kTileN, n_items = (a.bq / kTileM) * n_chunks;
+  const bool use_ids = a.row_ids != nullptr;
+  const int wg = threadIdx.x / kGroupThreads;
+  int* own_ids = reinterpret_cast<int*>(smem + L::own_ids);
+  uint64_t* own_full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* own_empty = own_full + 2;
+  uint64_t* full = own_full + 4;
+  uint64_t* empty = full + L::stages;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(own_full + i, 1);
+      mbar_init(own_empty + i, kConsumerWarps);
+    }
+    for (int i = 0; i < L::stages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kConsumerWarps);
+    }
+    mbar_init_fence();
+  }
+  // scalars no copy brings: adj 0 without one
+  if (a.adj == nullptr)
+    for (int i = threadIdx.x; i < L::stages * kTileN; i += kWideThreads)
+      reinterpret_cast<float*>(smem + L::ring + size_t(i / kTileN) * L::stage_bytes +
+                               L::tile_bytes)[i % kTileN] = 0.f;
+  __syncthreads();
+
+  if (wg == 0) {  // the producer
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      tma_prefetch_map(&m_q);
+      tma_prefetch_map(&m_c);
+      const uint32_t scal_tx = (a.adj != nullptr ? kTileN * 4 : 0) + (use_ids ? kTileN * 4 : 0);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int item = blockIdx.x, ii = 0; item < n_items; item += gridDim.x, ++ii) {
+        const int tm = item / n_chunks, k = item - tm * n_chunks, os = ii & 1;
+        mbar_wait(own_empty + os, ((ii >> 1) & 1) ^ 1);
+        mbar_arrive_expect_tx(own_full + os, L::own_bytes + (use_ids ? kTileM * 4 : 0));
+#pragma unroll
+        for (int b = 0; b < L::boxes; ++b)
+          tma_load_2d(smem + L::own + size_t(os) * L::own_bytes + b * L::box, &m_q, own_full + os,
+                      b * tma_map::kBoxCols, tm * kTileM);
+        if (use_ids)
+          bulk_load(own_ids + os * kTileM, a.row_ids + tm * kTileM, kTileM * 4, own_full + os);
+        const int tn1 = chunk_first(k + 1, n_tn, n_chunks);
+        for (int tn = chunk_first(k, n_tn, n_chunks); tn < tn1; ++tn) {
+          unsigned char* st = smem + L::ring + size_t(stage) * L::stage_bytes;
+          float* sc = reinterpret_cast<float*>(st + L::tile_bytes);
+          mbar_wait(empty + stage, phase ^ 1);
+          mbar_arrive_expect_tx(full + stage, L::tile_bytes + scal_tx);
+#pragma unroll
+          for (int b = 0; b < L::boxes; ++b)
+            tma_load_2d(st + b * L::box, &m_c, full + stage, b * tma_map::kBoxCols, tn * kTileN);
+          if (a.adj != nullptr) bulk_load(sc, a.adj + tn * kTileN, kTileN * 4, full + stage);
+          if (use_ids)
+            bulk_load(sc + kTileN, a.col_ids + tn * kTileN, kTileN * 4, full + stage);
+          if (++stage == L::stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+  regs_inc<kConsumerRegs>();
+  const int cw = wg - 1;  // own rows 64 cw .. 64 cw + 63 of each item
+  const int gt = threadIdx.x & (kGroupThreads - 1);
+  const int warp = gt >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  int* sorted = reinterpret_cast<int*>(smem + L::sorted) + cw * kOwn;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int item = blockIdx.x, ii = 0; item < n_items; item += gridDim.x, ++ii) {
+    const int tm = item / n_chunks, k = item - tm * n_chunks, os = ii & 1;
+    const unsigned char* own = smem + L::own + size_t(os) * L::own_bytes + cw * (L::box / 2);
+    const int* ids = own_ids + os * kTileM + cw * kOwn;  // this warpgroup's 64
+    const int row0 = tm * kTileM + cw * kOwn;            // its first q row
+    mbar_wait(own_full + os, (ii >> 1) & 1);
+    // the thread's two rows (16 warp + g + 8 h): id (-2 without ids), global position
+    int id_r[2], pos_r[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * warp + g + 8 * h;
+      id_r[h] = use_ids ? ids[r] : -2;
+      pos_r[h] = a.row_offset + row0 + r;
+    }
+    if (use_ids) {
+      if (gt < kOwn) {  // the warpgroup's ids sorted (a rank each; equal ids by row)
+        const int my_id = ids[gt];
+        int rank = 0;
+#pragma unroll 16
+        for (int j = 0; j < kOwn; ++j) {
+          const int o = ids[j];
+          rank += (o < my_id || (o == my_id && j < gt)) ? 1 : 0;
+        }
+        sorted[rank] = my_id;
+      }
+      group_sync(cw);  // the sorted ids
+    }
+    const int tn0 = chunk_first(k, n_tn, n_chunks), n_mine = chunk_first(k + 1, n_tn, n_chunks) - tn0;
+    float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};  // the two rows' running max, sum
+
+    // the raw scores [64 own, 128 streamed] of the tile in stage st_idx, issued
+    // and committed: the DP / 16 k steps in order in one accumulator
+    auto issue = [&](float (&s)[64], int st_idx) {
+      const unsigned char* st = smem + L::ring + size_t(st_idx) * L::stage_bytes;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < DP / 16; ++ks)
+        wgmma_bf16<128, 0, 0>(s, kmajor_sw128(own + (ks >> 2) * L::box, ks & 3),
+                              kmajor_sw128(st + (ks >> 2) * L::box, ks & 3), ks);
+      wgmma_commit();
+    };
+    // tile it, whose product is in flight into s: the mask test (does column gt hold an id of an own row? a binary search
+    // of the sorted ids; an own row's own column holds its id too, and the
+    // mask spares it; the warpgroup's barrier ORs the answers), the adjusted
+    // scores, the stage freed, the online max and sum
+    auto finish = [&](float (&s)[64], int it, int st_idx) {
+      const float* sc = reinterpret_cast<const float*>(smem + L::ring + size_t(st_idx) * L::stage_bytes +
+                                                       L::tile_bytes);
+      const int* sid = reinterpret_cast<const int*>(sc) + kTileN;
+      bool mask = false;
+      if (use_ids) {
+        const int cid = sid[gt];
+        int at = 0;
+#pragma unroll
+        for (int w = kOwn / 2; w >= 1; w >>= 1) at += sorted[at + w - 1] < cid ? w : 0;
+        mask = group_any(cw, sorted[at] == cid);
+      }
+      wgmma_wait<0>();
+      fence_operands(s);
+      const int c0 = (tn0 + it) * kTileN;
+      auto adjust = [&](auto masked_tile) {
+        constexpr bool kMask = decltype(masked_tile)::value;
+#pragma unroll
+        for (int j = 0; j < kTileN / 8; ++j) {
+          const int cl = 8 * j + 2 * t;  // the pair's first column in the tile
+          const float2 adj = *reinterpret_cast<const float2*>(sc + cl);
+          const int2 cid = kMask ? *reinterpret_cast<const int2*>(sid + cl) : make_int2(0, 0);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = 4 * j + 2 * h + e;
+              const bool masked =
+                  kMask && id_r[h] == (e ? cid.y : cid.x) && pos_r[h] != c0 + cl + e;
+              s[i] = adjusted_score(s[i], a.inv_t, e ? adj.y : adj.x, masked);
+            }
+        }
+      };
+      if (mask)
+        adjust(std::true_type());
+      else
+        adjust(std::false_type());
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + st_idx);  // the stage is read
+      online_ring_tile(s, m, l);
+    };
+
+    // the chunk's tiles in turn: the product issued, the mask test under it
+    for (int it = 0; it < n_mine; ++it) {
+      float sc[64];
+      mbar_wait(full + stage, phase);
+      issue(sc, stage);
+      finish(sc, it, stage);
+      if (++stage == L::stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    // the item's (m, l): the quad's four sums of a row; the slot is free
+    // (every thread is past the sorted ids: the last tile's mask test was a
+    // barrier)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      if (t == 0)
+        part[static_cast<size_t>(k) * a.bq + row0 + 16 * warp + g + 8 * h] = make_float2(m[h], l[h]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(own_empty + os);
+  }
+}
+
 // The products: out (n_tm 128-row x n_tn 128-column tiles, row stride ld) =
 // the contraction over n_kb k-blocks of 64 of A and B. DC = false (#10's dq):
 // A = P [rows, bk] K-major (ma: boxes [128, 64]), B = c [bk, dp] (mb: boxes
@@ -1284,18 +1254,6 @@ __device__ __forceinline__ bool near_tie_fast(float p) {
   return u <= static_cast<int>(0xc0000000u);
 }
 static_assert(kTieWindow == 0x2000, "near_tie_fast's constants");
-
-// Whether v holds on any thread of warp group `group` (its named barrier, ORed).
-__device__ __forceinline__ bool group_any(int group, bool v) {
-  uint32_t r;
-  asm volatile(
-      "{\n.reg .pred p, q;\nsetp.ne.u32 p, %1, 0;\nbar.red.or.pred q, %2, 128, p;\n"
-      "selp.u32 %0, 1, 0, q;\n}\n"
-      : "=r"(r)
-      : "r"(static_cast<uint32_t>(v)), "r"(group + 1)
-      : "memory");
-  return r != 0;
-}
 
 // Kernels #10 (OWN_Q: dq of the block's 64 q rows, streaming c) and #11 (dc
 // of its 64 c rows, streaming q). Block b is chunk b % n_chunks of own tile
@@ -1591,15 +1549,6 @@ __global__ void __launch_bounds__(256)
 
 // ---- host side ---------------------------------------------------------------
 
-template <typename K>
-int launch(K kernel, const Args& a, dim3 grid, int threads, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, threads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // The ring's kernels: persistent blocks, at most one an SM. A runtime call
 // first (it makes the device's context current on this thread, which the
 // tensor maps' encoding, a driver call, needs), then `encode()` fills the
@@ -1663,6 +1612,28 @@ Args make_args(const void* q, const void* c, const void* adj, const void* row_id
   a.row_offset = static_cast<int>(row_offset);
   a.inv_t = inv_t;
   return a;
+}
+
+// #9's (m, l) launch at a padded depth DP of 64 or 128 (TMA + wgmma, the
+// own rows kept across a chunk), or at a wide D (the ring of k-blocks).
+template <int DP>
+int launch_fwd_at(const Args& a, float2* part, int chunks, cudaStream_t s) {
+  CUtensorMap mq, mc;
+  return launch_ring(
+      lse_fwd_kernel<DP>, (a.bq / kTileM) * chunks, FwdLayout<DP>::bytes, s,
+      [&] { return bf16_map(&mq, a.q, DP, a.bq, kTileM) && bf16_map(&mc, a.c, DP, a.bk, kTileN); },
+      mq, mc, a, part, chunks);
+}
+
+int launch_fwd_wide(const Args& a, float2* part, int chunks, cudaStream_t s) {
+  if (!wide(a.dp)) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mq, mc;
+  return launch_ring(
+      lse_fwd_wide_kernel, (a.bq / kTileM) * chunks, kFwdSmem, s,
+      [&] {
+        return bf16_map(&mq, a.q, a.dp, a.bq, kTileM) && bf16_map(&mc, a.c, a.dp, a.bk, kTileN);
+      },
+      mq, mc, a, part, chunks);
 }
 
 // The chunks of a backward's streamed range of n_str rows (a block each an
@@ -1735,32 +1706,15 @@ extern "C" {
 // Each entry point returns a cudaError_t code: 0 when the launch succeeded.
 // adj may be null; row_ids and col_ids are both null or both set.
 
+// #9: lse_out [bq] through the caller's workspace part ([n_chunks, bq] f32
+// pairs, 16-byte aligned), n_chunks from 1 to bk / 128 (the column chunks: a
+// function of bk alone, so a stripe's lse is the square's rows). Two
+// launches: the chunks' (m, l), then their merge.
 int ttrm_softmax_lse_fwd(const void* q, const void* c, const void* adj, const void* row_ids,
-                         const void* col_ids, void* lse_out, int64_t bq, int64_t bk, int64_t dp,
-                         int64_t row_offset, float inv_t, void* stream) {
-  if (!shapes_ok(bq, bk, dp, row_offset, row_ids, col_ids))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Args a = make_args(q, c, adj, row_ids, col_ids, nullptr, nullptr, lse_out, bq, bk, dp,
-                           row_offset, inv_t);
-  if (!all_aligned(a)) return static_cast<int>(cudaErrorMisalignedAddress);
-  const auto s = static_cast<cudaStream_t>(stream);
-  constexpr int threads = kFwdGroups * kGroupThreads;
-  const dim3 grid(a.bq / kOwn);
-  if (dp == 64) return launch(lse_fwd_kernel<64>, a, grid, threads, Layout<64, kFwdGroups>::bytes, s);
-  if (dp == 128)
-    return launch(lse_fwd_kernel<128>, a, grid, threads, Layout<128, kFwdGroups>::bytes, s);
-  return static_cast<int>(cudaErrorInvalidValue);  // a wide D: ttrm_softmax_lse_fwd_wide
-}
-
-// #9 at a wide D: lse_out [bq] through the caller's workspace part ([n_chunks,
-// bq] f32 pairs, 16-byte aligned), n_chunks from 1 to bk / 128 (the column
-// chunks: a function of bk alone, so a stripe's lse is the square's rows).
-// Two launches: the chunks' (m, l), then their merge.
-int ttrm_softmax_lse_fwd_wide(const void* q, const void* c, const void* adj, const void* row_ids,
-                              const void* col_ids, void* lse_out, void* part, int64_t n_chunks,
-                              int64_t bq, int64_t bk, int64_t dp, int64_t row_offset,
-                              float inv_t, void* stream) {
-  if (!shapes_ok(bq, bk, dp, row_offset, row_ids, col_ids) || !wide(dp) || n_chunks < 1 ||
+                         const void* col_ids, void* lse_out, void* part, int64_t n_chunks,
+                         int64_t bq, int64_t bk, int64_t dp, int64_t row_offset, float inv_t,
+                         void* stream) {
+  if (!shapes_ok(bq, bk, dp, row_offset, row_ids, col_ids) || n_chunks < 1 ||
       n_chunks > bk / kTileN)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a = make_args(q, c, adj, row_ids, col_ids, nullptr, nullptr, lse_out, bq, bk, dp,
@@ -1769,11 +1723,9 @@ int ttrm_softmax_lse_fwd_wide(const void* q, const void* c, const void* adj, con
   const auto s = static_cast<cudaStream_t>(stream);
   auto* pr = static_cast<float2*>(part);
   const int chunks = static_cast<int>(n_chunks);
-  CUtensorMap mq, mc;
-  const int err = launch_ring(
-      lse_fwd_wide_kernel, static_cast<int>(bq / kTileM) * chunks, kFwdSmem, s,
-      [&] { return bf16_map(&mq, q, dp, bq, kTileM) && bf16_map(&mc, c, dp, bk, kTileN); }, mq, mc,
-      a, pr, chunks);
+  const int err = dp == 64    ? launch_fwd_at<64>(a, pr, chunks, s)
+                  : dp == 128 ? launch_fwd_at<128>(a, pr, chunks, s)
+                              : launch_fwd_wide(a, pr, chunks, s);
   if (err != 0) return err;
   lse_merge_kernel<<<static_cast<unsigned>((bq + 255) / 256), 256, 0, s>>>(
       pr, chunks, static_cast<int>(bq), static_cast<float*>(lse_out));

@@ -159,6 +159,14 @@ struct TakesF32Sums {
   static constexpr bool value = true;
 };
 
+// Whether the walk folds a run's gradient rows into its registers' bits in
+// place of summing them (a tile split's first stage: the rows read and
+// discarded). An epilogue of such a split specializes this to true.
+template <typename E>
+struct FoldsReads {
+  static constexpr bool value = false;
+};
+
 // The sorted ids, their gradients and the scratch of long runs.
 struct Walk {
   const int32_t* ids;
@@ -205,6 +213,19 @@ __device__ __forceinline__ void add_to(float (&g)[8], const uint4& v) {
     g[2 * i] += lo16(w[i]);
     g[2 * i + 1] += hi16(w[i]);
   }
+}
+
+// the raw words xor-ed into g's bits: reads that feed no float arithmetic
+__device__ __forceinline__ void fold(float& g, uint32_t w) {
+  g = __uint_as_float(__float_as_uint(g) ^ w);
+}
+__device__ __forceinline__ void fold_into(float (&g)[4], const float4& v) {
+  fold(g[0], __float_as_uint(v.x) ^ __float_as_uint(v.y) ^ __float_as_uint(v.z) ^
+                 __float_as_uint(v.w));
+}
+__device__ __forceinline__ void fold_into(float (&g)[4], const uint2& v) { fold(g[0], v.x ^ v.y); }
+__device__ __forceinline__ void fold_into(float (&g)[8], const uint4& v) {
+  fold(g[0], v.x ^ v.y ^ v.z ^ v.w);
 }
 
 // x rounded to bf16 (nearest even), as an f32
@@ -277,8 +298,9 @@ __device__ __forceinline__ float half_sum_squares(const float (&g)[NC][V], int64
 // g = the gradient rows of window positions [b, e) added in position order
 // (src: their source rows), this lane's chunks: groups of U rows whose loads
 // are all issued before the first add, so a short run is one round trip.
-// B16: each add rounded to bf16 (the bf16 buffer).
-template <typename G, int V, int NC, bool B16 = false>
+// B16: each add rounded to bf16 (the bf16 buffer); FOLD: the rows folded
+// (`fold_into`), not summed.
+template <typename G, int V, int NC, bool B16 = false, bool FOLD = false>
 __device__ __forceinline__ void sum_rows(const Walk& p, const int* src, int b, int e, int hl,
                                          float (&g)[NC][V]) {
   using VT = typename Vec<G, V>::T;
@@ -306,7 +328,9 @@ __device__ __forceinline__ void sum_rows(const Walk& p, const int* src, int b, i
 #pragma unroll
         for (int c = 0; c < NC; ++c)
           if (col_of<V>(c, hl) < d) {
-            if constexpr (B16)
+            if constexpr (FOLD)
+              fold_into(g[c], raw[u][c]);
+            else if constexpr (B16)
               add_round(g[c], raw[u][c]);
             else
               add_to(g[c], raw[u][c]);
@@ -444,7 +468,7 @@ __global__ void __launch_bounds__(kThreads) span_runs_kernel(const Walk p, const
     }
     const auto t = epi.template load<V, NC>(r, hl, p.d);
     float g[NC][V];
-    sum_rows<G, V, NC, B16>(p, src, b, e, hl, g);
+    sum_rows<G, V, NC, B16, FoldsReads<E>::value>(p, src, b, e, hl, g);
     epi.template apply<V, NC>(r, g, t, p.d);
   }
 }

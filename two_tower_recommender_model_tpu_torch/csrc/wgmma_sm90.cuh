@@ -1,8 +1,9 @@
 // PTX helpers for this package's warpgroup kernels (sm_90a): wgmma matrix
-// descriptors and the bf16 x bf16 -> f32 wgmma, mbarriers, TMA tile loads
-// and bulk copies, register hand-over between warpgroups. Shared by
-// tower_fwd.cu (the fused tower's forward), tower_bwd.cu (its backward, #8)
-// and softmax_lse.cu (kernels #9-#11 at a wide D, #10 and #11 at every D).
+// descriptors and the bf16 x bf16 -> f32 wgmma, bf16 packing, 16-byte
+// cp.async copies, mbarriers, TMA tile loads and bulk copies, register
+// hand-over between warpgroups. Shared by tower_fwd.cu (the fused tower's
+// forward), tower_bwd.cu (its backward, #8) and softmax_lse.cu (kernels
+// #9-#11 at every D).
 //
 // Fragment of a wgmma accumulator d (64 x N, f32) in a warpgroup: warp w
 // holds rows 16 w + g and 16 w + g + 8 (g = lane / 4); d[4 j], d[4 j + 1]
@@ -26,6 +27,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -130,7 +132,7 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a, uint64
 }
 
 // d (64 x N, f32; scale_d = 0 overwrites it) += A (64 x 16, bf16 in registers:
-// a warp's 16 rows in the A fragment of mma.sync.m16n8k16, which is the
+// a warp's 16 rows in the A fragment of the warp-level m16n8k16 product, the
 // accumulator layout above, columns 16 k .. 16 k + 15 packed in pairs) . B
 // (16 x N, bf16 from shared memory; TB = 1 takes it MN-major).
 template <int N, int TB>
@@ -192,6 +194,24 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[N / 2], const uint32_t 
     WgmmaRs128<TB>::run(d, a, b, scale_d);
   else
     WgmmaRs64<TB>::run(d, a, b, scale_d);
+}
+
+// (lo, hi) rounded to bf16 and packed: lo in the low half, as an A fragment in
+// registers wants it
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ---- 16-byte asynchronous copies (cp.async) ------------------------------------
+
+// 16 bytes from global to shared memory, not through L1
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // ---- mbarriers and TMA ------------------------------------------------------

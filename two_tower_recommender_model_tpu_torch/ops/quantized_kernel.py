@@ -201,6 +201,18 @@ def apply_rowwise_update(values: torch.Tensor, scales: torch.Tensor, acc: torch.
     return values, scales, acc
 
 
+# the stages a split launch runs the Adagrad kernel up to (`QuantizedRowwiseAdagrad.split`), in
+# its order, with the kernel's codes: the gradient rows read and discarded; and the runs summed;
+# and the epilogue without the quantization (the new rows and their absmax, the scales and
+# accumulators written, no int8 value); the whole kernel
+SPLIT_STAGES = {"reads": 1, "sums": 2, "epilogue": 3, "whole": 0}
+
+_ADAGRAD_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
+                 ctypes.c_float, ctypes.c_int]
+
+
 class QuantizedRowwiseAdagrad(_build.KernelLibrary):
     """The int8 row-wise Adagrad wrapper: checks its inputs, allocates the
     kernel's scratch (the pieces of runs longer than a warp's window, on the
@@ -209,11 +221,9 @@ class QuantizedRowwiseAdagrad(_build.KernelLibrary):
     calls that launch them and nothing else."""
 
     def __init__(self):
-        super().__init__("quantized_rowwise_adagrad", "ttrm_quantized_adagrad", [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_float,
-            ctypes.c_int], source="quantized_adagrad.cu")
+        super().__init__("quantized_rowwise_adagrad", "ttrm_quantized_adagrad", _ADAGRAD_ARGS,
+                         source="quantized_adagrad.cu",
+                         extra={"ttrm_quantized_adagrad_split": [*_ADAGRAD_ARGS, ctypes.c_int64]})
 
     def __call__(self, values: torch.Tensor, scales: torch.Tensor, acc: torch.Tensor,
                  ids: torch.Tensor, grads: torch.Tensor, lr: float, eps: float = 1e-10,
@@ -248,12 +258,33 @@ class QuantizedRowwiseAdagrad(_build.KernelLibrary):
             raise ValueError(f"quantized_rowwise_adagrad_fused runs on cpu or cuda tensors, got "
                              f"{values.device}")
         if values.numel() and m:
-            part, part_id = span_scratch(m, d, values.device)
-            self.launch(values.device, values.data_ptr(), scales.data_ptr(), acc.data_ptr(),
-                        ids.data_ptr(), grads.data_ptr(), _DTYPE_CODES[grads.dtype],
-                        None if perm is None else perm.data_ptr(), part.data_ptr(),
-                        part_id.data_ptr(), part.shape[0], n, d, m, lr, eps, buf)
+            self._launch(values, scales, acc, ids, grads, lr, eps, perm, buf)
         return values, scales, acc
+
+    def split(self, stage: str, values: torch.Tensor, scales: torch.Tensor, acc: torch.Tensor,
+              ids: torch.Tensor, grads: torch.Tensor, lr: float, eps: float = 1e-10,
+              perm: torch.Tensor | None = None) -> None:
+        """One launch of the kernel run up to `stage` of `SPLIT_STAGES`, on
+        CUDA tensors already checked by a call: for timing its parts. Before
+        "whole" the table is not the function's."""
+        if stage not in SPLIT_STAGES:
+            raise ValueError(f"stage must be one of {tuple(SPLIT_STAGES)}, got {stage!r}")
+        if values.device.type != "cuda":
+            raise ValueError("a split launch runs the CUDA kernel on CUDA tensors")
+        self._launch(values, scales, acc, ids, grads, lr, eps, perm, buffer_code(None),
+                     split=SPLIT_STAGES[stage])
+
+    def _launch(self, values, scales, acc, ids, grads, lr, eps, perm, buf, split=None) -> None:
+        (n, d), m = values.shape, ids.shape[0]
+        part, part_id = span_scratch(m, d, values.device)
+        args = (values.data_ptr(), scales.data_ptr(), acc.data_ptr(), ids.data_ptr(),
+                grads.data_ptr(), _DTYPE_CODES[grads.dtype], None if perm is None else
+                perm.data_ptr(), part.data_ptr(), part_id.data_ptr(), part.shape[0], n, d, m, lr,
+                eps, buf)
+        if split is None:
+            self.launch(values.device, *args)
+        else:
+            self.launch(values.device, *args, split, entry="ttrm_quantized_adagrad_split")
 
 
 quantized_rowwise_adagrad_fused = QuantizedRowwiseAdagrad()

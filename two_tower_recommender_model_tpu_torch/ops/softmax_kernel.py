@@ -26,10 +26,11 @@ which sums in f32 and is multiplied by 1/T once.
 `softmax_lse_fwd`, `softmax_lse_dq` and `softmax_lse_dc` launch the
 hand-written kernels of `csrc/softmax_lse.cu` on CUDA tensors and take
 `lse_forward_reference` / `lse_backward_reference` only for tensors that lie
-on the CPU; each counts its kernel launches in `.launches`. At a padded D of
-64 or 128, #10 and #11 cut their streamed rows in `bwd_chunks` chunks, a
-block each, whose sums go through a workspace to a merge launch (one launch
-in the count). Above a padded D of 128 a backward is computed per panel of q
+on the CPU; each counts its kernel launches in `.launches`. #9 cuts the
+columns in `fwd_chunks` chunks, whose (m, l) go through a workspace to a
+merge launch (one launch in the count). At a padded D of 64 or 128, #10 and
+#11 cut their streamed rows in `bwd_chunks` chunks, a block each, whose sums
+go through a workspace to a merge launch (one launch in the count). Above a padded D of 128 a backward is computed per panel of q
 rows (`wide_backward`): the
 p kernel (`softmax_lse_p`) writes the panel's bf16 p into a workspace, and
 #10's and #11's products (`LseBackward.product`, counted in
@@ -48,10 +49,12 @@ from two_tower_recommender_model_tpu_torch.ops import _build
 
 NEG = -1e9
 # The reference's cap on D. Above 128 the kernels run on one TMA + wgmma ring:
-# #9 over column chunks with a merge, #10 / #11 a p kernel and two products
-# (`csrc/softmax_lse.cu`, "wide D")
+# #10 / #11 a p kernel and two products (`csrc/softmax_lse.cu`, "wide D"). #9
+# runs over column chunks with a merge at every D
 MAX_DIM = 2048
 FWD_CHUNKS = 32  # #9's most column chunks at a wide D (`fwd_chunks`)
+# #9 at D <= 128: the most column chunks and the fewest columns a chunk where several
+FWD_NARROW_CHUNKS, FWD_CHUNK_COLS = 8, 1024
 # #10 and #11 at D <= 128: the most chunks of the streamed range (a block each
 # an own tile, `bwd_chunks`) and the fewest streamed rows a chunk where several
 BWD_CHUNKS, BWD_CHUNK_ROWS = 4, 2048
@@ -250,12 +253,23 @@ _PTR, _I64 = ctypes.c_void_p, ctypes.c_int64
 _TAIL = [_I64, _I64, _I64, _I64, ctypes.c_float]  # bq, bk, dp, row_offset, 1/T
 
 
-def fwd_chunks(bk: int) -> int:
-    """The column chunks of #9 at a wide D: up to FWD_CHUNKS chunks of whole
-    128-column tiles. A function of BK alone, so a stripe's rows meet the
-    same chunks (and get the same lse bits) as the square's, and enough
-    chunks that a stripe of a few row tiles still fills the card."""
+def fwd_chunks(bk: int, d: int) -> int:
+    """The column chunks of #9, each of whole 128-column tiles: at a padded
+    D of 64 or 128 BK / FWD_CHUNK_COLS from 1 to FWD_NARROW_CHUNKS (a block
+    keeps its 128 q rows across a chunk's tiles, so chunks are long: 8 of
+    8 tiles at 8,192), wider up to FWD_CHUNKS chunks. A function of BK and D
+    alone, so a stripe's rows meet the same chunks (and get the same lse
+    bits) as the square's, and enough chunks that a stripe of a few row
+    tiles still fills the card."""
+    if _padded_dim(d) <= 128:
+        return min(FWD_NARROW_CHUNKS, max(1, bk // FWD_CHUNK_COLS))
     return min(bk // 128, FWD_CHUNKS)
+
+
+def fwd_workspace_shape(bq: int, bk: int, d: int) -> tuple[int, int, int]:
+    """The shape of #9's workspace, each chunk's (m, l) of each q row:
+    `[fwd_chunks(BK, D), BQ, 2]` f32."""
+    return fwd_chunks(bk, d), bq, 2
 
 
 def bwd_chunks(n_str: int) -> int:
@@ -279,16 +293,15 @@ def bwd_chunk_tiles(n_str: int) -> list[tuple[int, int]]:
 
 class LseForward(_build.KernelLibrary):
     """Kernel #9's wrapper: lse [BQ] f32 of the adjusted scores. Checks its
-    inputs, allocates the output (and at a padded D above 128 the chunks'
-    (m, l) workspace, `[fwd_chunks(BK), BQ, 2]` f32) and launches on the
-    current stream (no sync). `launches` counts kernel launches and nothing
-    else (the wide route's chunk and merge launches count one): a CPU call
-    takes `lse_forward_reference` and does not count."""
+    inputs, allocates the output and the chunks' (m, l) workspace
+    (`fwd_workspace_shape`) and launches on the current stream (no sync).
+    `launches` counts kernel launches and nothing else (the chunks' launch
+    and their merge count one): a CPU call takes `lse_forward_reference`
+    and does not count."""
 
     def __init__(self):
-        super().__init__("softmax_lse_fwd", "ttrm_softmax_lse_fwd", [_PTR] * 6 + _TAIL,
-                         source="softmax_lse.cu",
-                         extra={"ttrm_softmax_lse_fwd_wide": [_PTR] * 7 + [_I64] + _TAIL})
+        super().__init__("softmax_lse_fwd", "ttrm_softmax_lse_fwd", [_PTR] * 7 + [_I64] + _TAIL,
+                         source="softmax_lse.cu")
 
     def __call__(self, q16, c16, adj, row_ids, col_ids, row_offset: int, inv_t: float):
         _check(q16, c16, adj, row_ids, col_ids, row_offset)
@@ -297,15 +310,10 @@ class LseForward(_build.KernelLibrary):
         qp, cp = _pad_dim(q16), _pad_dim(c16)
         (bq, dp), bk = qp.shape, cp.shape[0]
         lse = torch.empty(bq, dtype=torch.float32, device=qp.device)
-        ptrs = (qp.data_ptr(), cp.data_ptr(), _ptr(adj), _ptr(row_ids), _ptr(col_ids),
-                lse.data_ptr())
-        if dp > 128:
-            chunks = fwd_chunks(bk)
-            part = torch.empty((chunks, bq, 2), dtype=torch.float32, device=qp.device)
-            self.launch(qp.device, *ptrs, part.data_ptr(), chunks, bq, bk, dp, row_offset, inv_t,
-                        entry="ttrm_softmax_lse_fwd_wide")
-        else:
-            self.launch(qp.device, *ptrs, bq, bk, dp, row_offset, inv_t)
+        part = torch.empty(fwd_workspace_shape(bq, bk, dp), dtype=torch.float32, device=qp.device)
+        self.launch(qp.device, qp.data_ptr(), cp.data_ptr(), _ptr(adj), _ptr(row_ids),
+                    _ptr(col_ids), lse.data_ptr(), part.data_ptr(), part.shape[0], bq, bk, dp,
+                    row_offset, inv_t)
         return lse
 
 
